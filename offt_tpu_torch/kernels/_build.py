@@ -1,0 +1,114 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+The sources under ``csrc/`` compile into one shared library with a plain
+C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xcompiler -fPIC``). It is built at first use into ``kernels/build/``
+(listed in ``.gitignore``), under a name keyed by a hash of the sources,
+so an edited source builds anew and an unchanged one loads at once.
+Every pointer and the stream pass as ``c_void_p``; every C entry point
+returns ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+_HERE = pathlib.Path(__file__).resolve().parent
+SRC_DIR = _HERE / "csrc"
+BUILD_DIR = _HERE / "build"
+ARCH = "arch=compute_90a,code=sm_90a"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C entry points and their argument types (see csrc/*.cu).
+_SIGNATURES = {
+    "offt_fft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    "offt_fft_axis": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _L, _L, _L,
+                      _L, _L, _I, _I, _I, _I, _I, _P],
+    "offt_fft_slab": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_LIB = None
+# seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [shutil.which("nvcc"),
+             os.path.join(home, "bin", "nvcc") if home else None,
+             "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(ARCH.encode())
+    for f in sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile the sources if this digest has no library yet; returns the
+    library path. Raises with nvcc's output when the build fails."""
+    global build_seconds
+    so = BUILD_DIR / f"liboffttorch_{_digest()}.so"
+    if so.exists():
+        build_seconds = 0.0
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus = [str(f) for f in sorted(SRC_DIR.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-I", str(SRC_DIR), "-o", tmp, *cus]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.offt_error_string.argtypes = [ctypes.c_int]
+        lib.offt_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().offt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

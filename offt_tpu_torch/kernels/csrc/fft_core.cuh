@@ -1,0 +1,267 @@
+// fft_core.cuh: the length-N DFT that every kernel of this package runs
+// on a tile held in shared memory, and the tile loads and stores around it.
+//
+// Replaces: offt_tpu/kernels/pallas_fft.py _core_apply (:428) with
+// _sublane_core_loop (:503), _sublane_core_vpu (:711) and
+// _sublane_core_merge (:757). The MXU+VPU split of the reference is the
+// same arithmetic and has no second path here.
+//
+// What it computes: for each of T pencils stored column-wise in shared
+// memory (element n of pencil t at [n * TP + t]), the DFT over n in 1-3
+// dense radix stages with the (r, L/r) twiddle between them, f32 FMA
+// throughout. The natural output index is kn = k1 + r1*k2 + r1*r2*k3, as
+// in the reference.
+//
+// What bounds it on Hopper: each dense stage costs r complex MACs per
+// element (4 FMAs each), so a (16, 16) core is 128 FMAs per element, plus
+// the shared-memory reads that feed them. Design: every thread computes
+// R outputs of one radix group from a single pass over the group's r
+// inputs, so each input load from shared memory feeds R complex MACs;
+// the stage roots sit in shared memory and every lane of a warp reads
+// the same root (a broadcast). The stage is done in place: a round of
+// whole groups is read into registers, the block synchronises, and the
+// round is written back over its own inputs. One tile buffer therefore
+// suffices, and a 16384-point pencil fits one block.
+//
+// Layout: in place, the positions end digit-reversed (stage s writes
+// output k of a group into the slot of input k), so the natural index
+// kn is found at core_pos(kn); the stores below apply that map on their
+// way to device memory.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace offt {
+
+constexpr int kThreads = 256;     // threads per block of every kernel
+constexpr int kOutPerThread = 8;  // R: outputs a thread computes per pass
+
+struct Core {
+  int n;      // transform length
+  int ns;     // stage count, 1-3
+  int r[3];   // radices (unused entries 1)
+  int nroot;  // sum of radices: stage-root rows after the n twiddle rows
+};
+
+static inline Core make_core(int n, int ns, int r0, int r1, int r2) {
+  Core c;
+  c.n = n;
+  c.ns = ns;
+  c.r[0] = r0;
+  c.r[1] = ns > 1 ? r1 : 1;
+  c.r[2] = ns > 2 ? r2 : 1;
+  c.nroot = c.r[0] + (ns > 1 ? c.r[1] : 0) + (ns > 2 ? c.r[2] : 0);
+  return c;
+}
+
+// Position, within the tile, of natural output index kn after the core.
+static __device__ __forceinline__ int core_pos(const Core& c, int kn) {
+  const int k1 = kn % c.r[0];
+  const int rest = kn / c.r[0];
+  const int k2 = rest % c.r[1];
+  const int k3 = rest / c.r[1];
+  return (k1 * c.r[1] + k2) * c.r[2] + k3;
+}
+
+// Copy the stage-root rows of a table (after its n twiddle rows) into
+// shared memory. Call from every thread; core_run synchronises first.
+static __device__ __forceinline__ void load_roots(const Core& c,
+                                                  const float2* tab,
+                                                  float2* sroot) {
+  for (int i = threadIdx.x; i < c.nroot; i += blockDim.x)
+    sroot[i] = __ldg(tab + c.n + i);
+}
+
+// The DFT of T pencils in place in (re, im); pencil stride TP >= T.
+// tab: the table in device memory (twiddle rows read through the
+// read-only cache); sroot: the stage roots in shared memory.
+// Synchronises on entry and on exit, so the tile is consistent across
+// the block on both sides.
+static __device__ void core_run(float* re, float* im, int T, int TP,
+                                const Core& c, const float2* tab,
+                                const float2* sroot) {
+  constexpr int R = kOutPerThread;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  __syncthreads();
+  int roff = 0;
+  int Ls = c.n;  // remaining length before this stage
+  for (int s = 0; s < c.ns; ++s) {
+    const int r = c.r[s];
+    const int Ln = Ls / r;
+    const int kb = (r + R - 1) / R;     // thread slots per group
+    const int gpr = nt / kb;            // groups per round
+    const int ngroups = (c.n / r) * T;  // (block, j, t) groups
+    const bool last = (s == c.ns - 1);
+    const int twstride = c.n / Ls;
+    const float2* w = sroot + roff;
+    const int gl = tid % gpr;
+    const int kblk = tid / gpr;
+    const int k0 = kblk * R;
+    for (int g0 = 0; g0 < ngroups; g0 += gpr) {
+      const int g = g0 + gl;
+      const bool active = kblk < kb && g < ngroups;
+      float ar[R], ai[R];
+      int blk = 0, j = 0, t = 0;
+      if (active) {
+        t = g % T;
+        const int q = g / T;
+        j = q % Ln;
+        blk = q / Ln;
+        const int base = blk * Ls + j;
+        int idx[R];
+        int step[R];
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          ar[u] = 0.f;
+          ai[u] = 0.f;
+          idx[u] = 0;
+          step[u] = (k0 + u < r) ? k0 + u : 0;
+        }
+        for (int i = 0; i < r; ++i) {
+          const int p = (base + i * Ln) * TP + t;
+          const float xr = re[p];
+          const float xi = im[p];
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            const float2 wv = w[idx[u]];
+            ar[u] = fmaf(wv.x, xr, fmaf(-wv.y, xi, ar[u]));
+            ai[u] = fmaf(wv.x, xi, fmaf(wv.y, xr, ai[u]));
+            idx[u] += step[u];
+            if (idx[u] >= r) idx[u] -= r;
+          }
+        }
+        if (!last) {
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            const int k = k0 + u;
+            if (k < r) {
+              const float2 tw = __ldg(tab + k * j * twstride);
+              const float yr = ar[u] * tw.x - ai[u] * tw.y;
+              const float yi = ar[u] * tw.y + ai[u] * tw.x;
+              ar[u] = yr;
+              ai[u] = yi;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          const int k = k0 + u;
+          if (k < r) {
+            const int p = (blk * Ls + k * Ln + j) * TP + t;
+            re[p] = ar[u];
+            im[p] = ai[u];
+          }
+        }
+      }
+      __syncthreads();
+    }
+    roff += r;
+    Ls = Ln;
+  }
+}
+
+// ---- row tiles: T pencils that are contiguous rows of device memory ----
+// Row t (t < valid) starts at x + t * pitch. The loads walk each row in
+// order, so a warp reads consecutive addresses; the tile's pencil stride
+// TP is odd, so the transposing shared-memory store spreads over banks.
+
+static __device__ __forceinline__ void load_rows(const float* xr,
+                                                 const float* xi,
+                                                 long long pitch, int n,
+                                                 int T, int TP, int valid,
+                                                 float* re, float* im) {
+  const int tot = n * T;
+  for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+    const int t = e / n;
+    const int k = e - t * n;
+    float a = 0.f, b = 0.f;
+    if (t < valid) {
+      a = xr[t * pitch + k];
+      b = xi[t * pitch + k];
+    }
+    re[k * TP + t] = a;
+    im[k * TP + t] = b;
+  }
+}
+
+static __device__ __forceinline__ void store_rows(float* yr, float* yi,
+                                                  long long pitch,
+                                                  const Core& c, int T,
+                                                  int TP, int valid,
+                                                  const float* re,
+                                                  const float* im) {
+  const int n = c.n;
+  const int tot = n * T;
+  for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+    const int t = e / n;
+    const int k = e - t * n;
+    if (t < valid) {
+      const int p = core_pos(c, k) * TP + t;
+      yr[t * pitch + k] = re[p];
+      yi[t * pitch + k] = im[p];
+    }
+  }
+}
+
+// ---- column tiles: T lanes of a strided transform axis ----
+// T divides blockDim.x, so each thread serves one lane t = tid % T for
+// the whole tile; the caller passes that lane's offset and whether it
+// exists. Element k of the lane lies at loff + k * sn. Neighbouring
+// threads hold neighbouring lanes, so a warp reads runs of consecutive
+// addresses when the lanes are consecutive in memory.
+
+static __device__ __forceinline__ void load_cols(const float* xr,
+                                                 const float* xi,
+                                                 long long sn, long long loff,
+                                                 bool valid, int n, int T,
+                                                 float* re, float* im) {
+  const int t = threadIdx.x % T;
+  const int step = blockDim.x / T;
+  for (int k = threadIdx.x / T; k < n; k += step) {
+    float a = 0.f, b = 0.f;
+    if (valid) {
+      a = xr[loff + k * sn];
+      b = xi[loff + k * sn];
+    }
+    re[k * T + t] = a;
+    im[k * T + t] = b;
+  }
+}
+
+static __device__ __forceinline__ void store_cols(float* yr, float* yi,
+                                                  long long sn,
+                                                  long long loff, bool valid,
+                                                  const Core& c, int T,
+                                                  const float* re,
+                                                  const float* im) {
+  const int t = threadIdx.x % T;
+  const int step = blockDim.x / T;
+  for (int k = threadIdx.x / T; k < c.n; k += step) {
+    if (valid) {
+      const int p = core_pos(c, k) * T + t;
+      yr[loff + k * sn] = re[p];
+      yi[loff + k * sn] = im[p];
+    }
+  }
+}
+
+// Dynamic shared memory of a kernel: the tile plus `nroot_total` roots.
+static inline size_t core_smem(size_t tile_elems, int nroot_total) {
+  return tile_elems * 2 * sizeof(float) + nroot_total * sizeof(float2);
+}
+
+// Raise the kernel's dynamic shared-memory ceiling when above 48 KB.
+template <typename K>
+static inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace offt

@@ -1,0 +1,640 @@
+"""The planar c2c transforms of the main path, with their CUDA kernels.
+
+Counterpart of the main-path functions of ``offt_tpu/kernels/pallas_fft.py``:
+``fft_last``, ``fft_sublane`` (with ``_sublane_nd``), ``fft_slab_yz``,
+``fft_x_from_padded``, ``fft_1d_planar`` and ``fft3d_planar``, and the
+gates ``can_use_pallas``, ``can_fuse_slab``, ``can_use_padded_x`` and
+``bank_conflict_stride``, which keep the reference's values so that both
+packages take the same routes.
+
+Data is planar float32: a (re, im) pair of tensors of one shape. Each
+kernel wrapper dispatches on the tensors' device:
+
+- CUDA: it launches its hand-written kernel (``csrc/``, built by
+  :mod:`._build`) on the current stream, or raises;
+- CPU: it runs its plain version, torch ops on the same f32 tables
+  (stage products as ``torch.matmul``, twiddle multiplies, reshapes);
+- meta: it only allocates its outputs, so a plan can learn its route and
+  its tables without data.
+
+Every wrapper counts its kernel launches (``fn.launches``) and its plain
+calls (``fn.plain_calls``); :func:`reset_counts` zeroes them.
+
+``precision`` is accepted everywhere for parity with the reference and
+ignored: every stage computes in f32 FMA on the card (the bf16 stacked
+modes are TPU MXU emulations).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+from . import tables as tb
+
+DEFAULT_PRECISION = "highest"
+
+# pad lanes per (x, y) row of the padded intermediate (pallas_fft.py:1476)
+_STRIDE_PAD = 8
+# the reference's VMEM-derived gates, kept so that routes match it
+_SLAB_VMEM_LIMIT = 1 << 20
+_VMEM_CAP = 120 << 20
+_X_VMEM_BLOCKS = 16
+
+# shared-memory tile budget of one block (three per SM fit beside the
+# roots), and the most a block may have on Hopper
+_TILE_BYTES = 64 << 10
+_SMEM_MAX = 232448
+_THREADS = 256   # kThreads in csrc/fft_core.cuh
+
+# kernel name -> CUDA source, the Pallas kernel it replaces, its wrappers
+KERNELS = {
+    "fft_last": {
+        "source": "offt_tpu_torch/kernels/csrc/fft_last.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:819",
+        "wrappers": ("fft_last",),
+    },
+    "fft_axis": {
+        "source": "offt_tpu_torch/kernels/csrc/fft_axis.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:900,993,1509",
+        "wrappers": ("fft_sublane", "_sublane_nd", "fft_x_from_padded"),
+    },
+    "fft_slab": {
+        "source": "offt_tpu_torch/kernels/csrc/fft_slab.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:1404",
+        "wrappers": ("fft_slab_yz",),
+    },
+}
+
+
+# --------------------------------------------------------------------------
+# gates (same values as the reference)
+# --------------------------------------------------------------------------
+
+def can_use_pallas(n: int, radices=None) -> bool:
+    return tb._pick_stages(n, radices) is not None
+
+
+def bank_conflict_stride(ny: int, nz: int) -> bool:
+    """True when the f32 x-axis row stride is divisible by 2^16 bytes (a
+    v5e HBM-channel finding, kept so that the routes match the
+    reference; whether Hopper wants it is an open question)."""
+    return (ny * nz * 4) % (1 << 16) == 0
+
+
+def can_fuse_slab(ny: int, nz: int, rad_y=None, rad_z=None) -> bool:
+    """The reference's slab gate. The CUDA slab kernel tiles the slab
+    through shared memory and has no size limit of its own; the VMEM
+    ceiling stays so that the route matches the reference."""
+    return (ny * nz <= _SLAB_VMEM_LIMIT
+            and tb._pick_stages(ny, rad_y) is not None
+            and tb._pick_stages(nz, rad_z) is not None)
+
+
+def can_use_padded_x(n: int, ny: int, nz: int, radices=None) -> bool:
+    return (tb._pick_stages(n, radices) is not None
+            and ny % 8 == 0 and nz % 128 == 0
+            and _X_VMEM_BLOCKS * n * 8 * 128 * 4 <= _VMEM_CAP)
+
+
+def _pick_lane_tile(lanes: int, target: int) -> int:
+    target = min(target, lanes)
+    if lanes % target == 0 and (target % 128 == 0 or target == lanes):
+        return target
+    best = max((c for c in range(128, target + 1, 128) if lanes % c == 0),
+               default=0)
+    return best or lanes
+
+
+def _nd_route(n: int, mid: int, last: int, tl_target: int) -> bool:
+    """Whether the reference's fft_sublane takes its n-D route
+    (``_sublane_nd_tiles(...) is not None``). Both routes are one CUDA
+    kernel here; the gate only keeps the route counters in step."""
+    tz = _pick_lane_tile(last, min(tl_target, last))
+    if tz % 128:
+        return mid == 1
+    want = max(8, (tl_target // tz) & ~7)
+    if any(mid % c == 0 for c in range(8, min(mid, want) + 1, 8)):
+        return True
+    return 12 * n * mid * tz * 4 <= _VMEM_CAP
+
+
+# --------------------------------------------------------------------------
+# tables, dispatch and launch plumbing
+# --------------------------------------------------------------------------
+
+class TableSet:
+    """The f32 core tables (``tables.core_table``) of one device, keyed by
+    (n, stages, inverse, scale) and built on first use. A Plan keeps one
+    and registers its tensors as buffers."""
+
+    def __init__(self, device, tabs: dict | None = None):
+        self.device = torch.device(device)
+        self.tabs = dict(tabs or {})
+
+    def get(self, n: int, stages: tuple, inverse: bool, scale: float):
+        key = (int(n), tuple(stages), bool(inverse), float(scale))
+        t = self.tabs.get(key)
+        if t is None:
+            arr = tb.core_table(*key)
+            t = torch.from_numpy(arr.copy()).to(self.device)
+            self.tabs[key] = t
+        return t
+
+
+_DEFAULT_TABLES: dict = {}
+
+
+def _tables(tables, device) -> TableSet:
+    if tables is not None:
+        return tables
+    ts = _DEFAULT_TABLES.get(device)
+    if ts is None:
+        ts = _DEFAULT_TABLES[device] = TableSet(device)
+    return ts
+
+
+def _mode(*ts) -> str:
+    """'plain' on the CPU, 'kernel' on CUDA, 'shape' on meta."""
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"planar data must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("planar data must be contiguous")
+    if dev.type == "cpu":
+        return "plain"
+    if dev.type == "cuda":
+        return "kernel"
+    if dev.type == "meta":
+        return "shape"
+    raise RuntimeError(f"no kernel for device {dev}")
+
+
+def _pair(xr, xi):
+    if xr.shape != xi.shape:
+        raise ValueError(f"re/im shapes differ: {tuple(xr.shape)} vs "
+                         f"{tuple(xi.shape)}")
+    return _mode(xr, xi)
+
+
+def _dispatching(impl):
+    """The wrapper of ``impl(mode, xr, xi, ...)``: it dispatches on the
+    tensors' device. ``wrapper.plain`` runs the plain version on any
+    device (the card's check compares the two on the same inputs)."""
+    @functools.wraps(impl)
+    def wrapper(xr, xi, *args, **kw):
+        return impl(_pair(xr, xi), xr, xi, *args, **kw)
+
+    def plain(xr, xi, *args, **kw):
+        _pair(xr, xi)
+        return impl("plain", xr, xi, *args, **kw)
+
+    wrapper.plain = plain
+    wrapper.impl = impl
+    del wrapper.__wrapped__
+    return wrapper
+
+
+def _stages(n: int, radices) -> tuple:
+    rad = tb._pick_stages(n, radices)
+    if rad is None:
+        raise ValueError(f"N={n} not expressible as a kernel "
+                         f"(radices {radices})")
+    return tb.core_stages(rad)
+
+
+def _radix_args(stages: tuple) -> list:
+    return [len(stages), *stages, *(1,) * (3 - len(stages))]
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(entry: str, tensors, tabs, args) -> None:
+    """Call one C entry point on the tensors' device and current stream."""
+    dev = tensors[0].device
+    for t in tabs:
+        if t.device != dev:
+            raise ValueError(f"table on {t.device}, data on {dev}")
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        code = getattr(lib, entry)(*map(_ptr, tensors), *map(_ptr, tabs),
+                                   *args, stream)
+    _build.check(code, entry)
+
+
+def _rows_tile(n: int, block: int, roots: int) -> int:
+    """Rows per block of a row tile (stride T | 1) within shared memory."""
+    room = (_SMEM_MAX - 8 * roots) // (8 * n)
+    if room < 1:
+        raise ValueError(f"N={n} does not fit one block's shared memory")
+    t = min(block or max(1, min(64, _TILE_BYTES // (8 * n))), room)
+    while t > 1 and (t | 1) > room:
+        t -= 1
+    return t
+
+
+def _cols_tile(n: int, block: int, roots: int) -> int:
+    """Lanes per block of a column tile: a power of two dividing the
+    block's threads, within shared memory."""
+    room = (_SMEM_MAX - 8 * roots) // (8 * n)
+    if room < 1:
+        raise ValueError(f"N={n} does not fit one block's shared memory")
+    t = 64
+    if block:
+        t = 1 << (min(block, _THREADS).bit_length() - 1)
+    while t > 1 and (8 * n * t > _TILE_BYTES and not block or t > room):
+        t //= 2
+    return t
+
+
+# --------------------------------------------------------------------------
+# plain versions: torch ops on the kernels' own tables
+# --------------------------------------------------------------------------
+
+def _core_plain(xr, xi, tab, n: int, stages: tuple):
+    """DFT along the last axis of (..., n) with the stage order, tables and
+    output map of csrc/fft_core.cuh."""
+    lead = xr.shape[:-1]
+    m = xr.numel() // n
+    ar = xr.reshape(m, n)
+    ai = xi.reshape(m, n)
+    dev = tab.device
+    roots = tab[:n]
+    roff, ls = n, n
+    for s, r in enumerate(stages):
+        ln = ls // r
+        k = torch.arange(r, device=dev)
+        f = tab[roff:roff + r][(k[:, None] * k[None, :]) % r]
+        fr, fi = f[..., 0], f[..., 1]
+        # one real product per stage: [yr yi] = [xr xi] @ G^T with the
+        # folded G = [[Fr, -Fi], [Fi, Fr]]
+        g = torch.cat([torch.cat([fr, -fi], 1), torch.cat([fi, fr], 1)], 0)
+        xs = torch.cat([ar.reshape(m, n // ls, r, ln),
+                        ai.reshape(m, n // ls, r, ln)], dim=2)
+        y = torch.matmul(xs.transpose(-1, -2), g.t())
+        yr, yi = y[..., :r].transpose(-1, -2), y[..., r:].transpose(-1, -2)
+        if s < len(stages) - 1:
+            kj = k[:, None] * torch.arange(ln, device=dev)[None, :]
+            tw = roots[kj * (n // ls)]
+            twr, twi = tw[..., 0], tw[..., 1]
+            yr, yi = yr * twr - yi * twi, yr * twi + yi * twr
+        ar, ai = yr.reshape(m, n), yi.reshape(m, n)
+        roff += r
+        ls = ln
+    perm = torch.from_numpy(tb.core_pos(n, stages)).to(dev)
+    return (ar[:, perm].reshape(*lead, n), ai[:, perm].reshape(*lead, n))
+
+
+def _axis_plain(xr, xi, yr, yi, geom, tab, n, stages):
+    nb, ny, nz, (isb, isn, isy), (osb, osn, osy) = geom
+    shp = (nb, n, ny, nz)
+    vr = xr.as_strided(shp, (isb, isn, isy, 1)).permute(0, 2, 3, 1)
+    vi = xi.as_strided(shp, (isb, isn, isy, 1)).permute(0, 2, 3, 1)
+    ar, ai = _core_plain(vr, vi, tab, n, stages)
+    yr.as_strided(shp, (osb, osn, osy, 1)).copy_(ar.permute(0, 3, 1, 2))
+    yi.as_strided(shp, (osb, osn, osy, 1)).copy_(ai.permute(0, 3, 1, 2))
+
+
+def _axis_apply(owner, mode, xr, xi, yr, yi, geom, n: int, stages: tuple,
+                tab, block: int) -> None:
+    """Run the strided-axis transform described by ``geom`` = (nb, ny, nz,
+    in strides (b, n, y), out strides (b, n, y)) into (yr, yi)."""
+    if mode == "shape":
+        return
+    if mode == "plain":
+        owner.plain_calls += 1
+        _axis_plain(xr, xi, yr, yi, geom, tab, n, stages)
+        return
+    nb, ny, nz, ins, outs = geom
+    if nb * ny * nz == 0:
+        return
+    t = _cols_tile(n, block, sum(stages))
+    _launch("offt_fft_axis", (xr, xi, yr, yi), (tab,),
+            [nb, n, ny, nz, *ins, *outs, *_radix_args(stages), t])
+    owner.launches += 1
+
+
+# --------------------------------------------------------------------------
+# the kernel wrappers
+# --------------------------------------------------------------------------
+
+@_dispatching
+def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
+             block_rows: int = 0, precision: str = DEFAULT_PRECISION,
+             scale: float = 1.0, alias: bool = False, tables=None):
+    """Batched c2c along the last axis of planar (..., N) float32 tensors
+    (kernel ``csrc/fft_last.cu``). ``scale`` rides the last stage's table;
+    no 1/N on inverse (callers fold it into ``scale``). ``alias=True``
+    writes over the inputs and returns them; a ragged last block is masked,
+    so any batch may alias. ``block_rows`` sets the rows per CUDA block
+    (0 = as many as fit 64 KB of shared memory, at most 64)."""
+    n = xr.shape[-1]
+    stages = _stages(n, radices)
+    tab = _tables(tables, xr.device).get(n, stages, inverse, scale)
+    if alias:
+        yr, yi = xr, xi
+    else:
+        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    if mode == "shape":
+        return yr, yi
+    if mode == "plain":
+        fft_last.plain_calls += 1
+        ar, ai = _core_plain(xr, xi, tab, n, stages)
+        yr.copy_(ar)
+        yi.copy_(ai)
+        return yr, yi
+    rows = xr.numel() // n
+    if rows:
+        t = _rows_tile(n, block_rows, sum(stages))
+        _launch("offt_fft_last", (xr, xi, yr, yi), (tab,),
+                [rows, n, *_radix_args(stages), t])
+        fft_last.launches += 1
+    return yr, yi
+
+
+@_dispatching
+def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
+                block_lanes: int = 0, precision: str = DEFAULT_PRECISION,
+                scale: float = 1.0, alias: bool = False, tables=None):
+    """Batched c2c along any non-last axis (kernel ``csrc/fft_axis.cu``),
+    the array viewed as (prefix, N, lanes); no data is transposed.
+    ``alias=True`` writes over the inputs. ``block_lanes`` sets the lanes
+    per CUDA block (rounded down to a power of two; 0 = as many as fit
+    64 KB of shared memory, at most 64)."""
+    axis = axis % xr.ndim
+    if axis == xr.ndim - 1:
+        raise ValueError("use fft_last for the last axis")
+    n = xr.shape[axis]
+    stages = _stages(n, radices)
+    tl_target = block_lanes or max(128, min(1024,
+                                            ((1 << 18) // max(n, 1)) & ~127))
+    if axis < xr.ndim - 2:
+        mid = math.prod(xr.shape[axis + 1:-1])
+        if _nd_route(n, mid, xr.shape[-1], tl_target):
+            return _sublane_nd.impl(mode, xr, xi, axis, n, stages, inverse,
+                                    scale, alias, block_lanes, tables)
+    tab = _tables(tables, xr.device).get(n, stages, inverse, scale)
+    pre = math.prod(xr.shape[:axis])
+    lanes = math.prod(xr.shape[axis + 1:])
+    if alias:
+        yr, yi = xr, xi
+    else:
+        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    st = (n * lanes, lanes, lanes)
+    _axis_apply(fft_sublane, mode, xr, xi, yr, yi, (pre, 1, lanes, st, st),
+                n, stages, tab, block_lanes)
+    return yr, yi
+
+
+@_dispatching
+def _sublane_nd(mode, xr, xi, axis, n, stages, inverse, scale, alias, block,
+                tables=None):
+    """fft_sublane's route for an axis at or before ndim-3: the array as
+    (B, N, MID, last), the same CUDA kernel as the flattened route."""
+    tab = _tables(tables, xr.device).get(n, stages, inverse, scale)
+    b = math.prod(xr.shape[:axis])
+    mid = math.prod(xr.shape[axis + 1:-1])
+    last = xr.shape[-1]
+    if alias:
+        yr, yi = xr, xi
+    else:
+        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    st = (n * mid * last, mid * last, last)
+    _axis_apply(_sublane_nd, mode, xr, xi, yr, yi, (b, mid, last, st, st),
+                n, stages, tab, block)
+    return yr, yi
+
+
+@_dispatching
+def fft_slab_yz(mode, xr, xi, inverse: bool = False, rad_y=None, rad_z=None,
+                precision: str = DEFAULT_PRECISION, zpad: int = 0,
+                z_true: int = 0, scale: float = 1.0, block_rows: int = 0,
+                alias: bool = False, tables=None):
+    """c2c along the last TWO axes of planar (..., Y, Z) float32 tensors in
+    one launch (kernel ``csrc/fft_slab.cu``): z, then y, per x-row.
+
+    ``zpad`` appends that many pad lanes to each output row, allocated
+    with ``torch.empty`` and never written; the result has trailing shape
+    (Y, Z + zpad). ``z_true`` declares that the input's rows carry pad
+    lanes past ``z_true`` to skip. ``scale`` rides the y tables.
+    ``alias=True`` (no pad either side) writes over the inputs.
+    ``block_rows`` is accepted for parity and ignored: one CUDA block
+    owns one x-row."""
+    if alias and (zpad or z_true):
+        raise ValueError("alias requires identical in/out layouts")
+    ny, nz_in = xr.shape[-2], xr.shape[-1]
+    nz = z_true or nz_in
+    sy, sz = _stages(ny, rad_y), _stages(nz, rad_z)
+    ts = _tables(tables, xr.device)
+    tabz = ts.get(nz, sz, inverse, 1.0)
+    taby = ts.get(ny, sy, inverse, scale)
+    lead = xr.shape[:-2]
+    if alias:
+        yr, yi = xr, xi
+    else:
+        shp = (*lead, ny, nz + zpad)
+        yr = torch.empty(shp, dtype=xr.dtype, device=xr.device)
+        yi = torch.empty(shp, dtype=xr.dtype, device=xr.device)
+    if mode == "shape":
+        return yr, yi
+    p = math.prod(lead)
+    if mode == "plain":
+        fft_slab_yz.plain_calls += 1
+        ar, ai = _core_plain(xr[..., :nz], xi[..., :nz], tabz, nz, sz)
+        ar, ai = _core_plain(ar.transpose(-1, -2), ai.transpose(-1, -2),
+                             taby, ny, sy)
+        yr[..., :nz].copy_(ar.transpose(-1, -2))
+        yi[..., :nz].copy_(ai.transpose(-1, -2))
+        return yr, yi
+    if p * ny * nz == 0:
+        return yr, yi
+    roots = sum(sz) + sum(sy)
+    tz = _rows_tile(nz, 0, roots)
+    ty = _cols_tile(ny, 0, roots)
+    _launch("offt_fft_slab", (xr, xi, yr, yi), (tabz, taby),
+            [p, ny, nz, nz_in, nz + zpad, *_radix_args(sz),
+             *_radix_args(sy), tz, ty])
+    fft_slab_yz.launches += 1
+    return yr, yi
+
+
+@_dispatching
+def fft_x_from_padded(mode, xr3, xi3, z_true: int, inverse: bool = False,
+                      radices=None, precision: str = DEFAULT_PRECISION,
+                      scale: float = 1.0, out_lanes: int = 0, ty: int = 8,
+                      tz: int = 128, y_true: int = 0, tables=None):
+    """x-axis c2c over a (..., X, Y, Z+pad) padded intermediate, reading
+    only the first ``z_true`` lanes of each row; writes an unpadded
+    (..., X, Y, zo) result, zo = max(out_lanes, z_true), whose lanes past
+    ``z_true`` are allocated and not written. ``y_true`` (< Y) skips
+    trailing input rows. Kernel ``csrc/fft_axis.cu`` with pitched reads;
+    ``ty``/``tz`` are accepted for parity and ignored (the kernel picks
+    its own lane tile)."""
+    lead = xr3.shape[:-3]
+    n, ny_in, zp = xr3.shape[-3:]
+    ny = y_true or ny_in
+    stages = _stages(n, radices)
+    tab = _tables(tables, xr3.device).get(n, stages, inverse, scale)
+    zo = max(out_lanes, z_true)
+    shp = (*lead, n, ny, zo)
+    yr = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
+    yi = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
+    if mode == "shape":
+        return yr, yi
+    b = math.prod(lead)
+    geom = (b, ny, z_true, (n * ny_in * zp, ny_in * zp, zp),
+            (n * ny * zo, ny * zo, zo))
+    _axis_apply(fft_x_from_padded, mode, xr3, xi3, yr, yi, geom, n, stages,
+                tab, 0)
+    return yr, yi
+
+
+WRAPPERS = (fft_last, fft_sublane, _sublane_nd, fft_slab_yz,
+            fft_x_from_padded)
+
+
+def reset_counts() -> None:
+    """Zero every wrapper's launch and plain-call counts."""
+    for f in WRAPPERS:
+        f.launches = 0
+        f.plain_calls = 0
+
+
+def counts() -> dict:
+    """{wrapper name: (launches, plain_calls)}."""
+    return {f.__name__: (f.launches, f.plain_calls) for f in WRAPPERS}
+
+
+def kernel_launches(name: str) -> int:
+    """Launches of one CUDA kernel of KERNELS, summed over its wrappers."""
+    return sum(globals()[w].launches for w in KERNELS[name]["wrappers"])
+
+
+reset_counts()
+
+
+# --------------------------------------------------------------------------
+# planar 1-D dispatch + the full 3-D transform (the reference's routing)
+# --------------------------------------------------------------------------
+
+def fft_1d_planar(xr, xi, axis: int = -1, inverse: bool = False,
+                  radices=None, scale: bool = True,
+                  precision: str = DEFAULT_PRECISION, block: int = 0,
+                  out_scale: float = 1.0, alias: bool = False, x_tile=None,
+                  tables=None):
+    """Planar 1-D FFT along ``axis`` (numpy fft/ifft semantics); the
+    inverse 1/N and ``out_scale`` ride the kernel's tables."""
+    axis = axis % xr.ndim
+    n = xr.shape[axis]
+    knob = out_scale * ((1.0 / n) if (inverse and scale) else 1.0)
+    if n == 1:
+        if knob == 1.0:
+            return xr, xi
+        if alias:
+            return xr.mul_(knob), xi.mul_(knob)
+        return xr * knob, xi * knob
+    if axis == xr.ndim - 1:
+        return fft_last(xr, xi, inverse=inverse, radices=radices,
+                        precision=precision, block_rows=block, scale=knob,
+                        alias=alias, tables=tables)
+    if (axis == xr.ndim - 3 and not alias
+            and bank_conflict_stride(xr.shape[-2], xr.shape[-1])
+            and can_use_padded_x(n, xr.shape[-2], xr.shape[-1], radices)):
+        # the reference pays one pad copy to break the row stride here
+        ty, tz = x_tile or (8, 128)
+        pad = torch.nn.functional.pad
+        return fft_x_from_padded(pad(xr, (0, _STRIDE_PAD)),
+                                 pad(xi, (0, _STRIDE_PAD)), xr.shape[-1],
+                                 inverse=inverse, radices=radices,
+                                 precision=precision, scale=knob, ty=ty,
+                                 tz=tz, tables=tables)
+    return fft_sublane(xr, xi, axis, inverse=inverse, radices=radices,
+                       precision=precision, block_lanes=block, scale=knob,
+                       alias=alias, tables=tables)
+
+
+def fft3d_planar(xr, xi, inverse: bool = False, rad_z=None, rad_y=None,
+                 rad_x=None, precision: str = DEFAULT_PRECISION,
+                 block: int = 0, slab_rows: int = 0, out_scale: float = 1.0,
+                 x_tile=None, in_place: bool = False, tables=None):
+    """Full 3-D c2c over the last three axes of planar float32 tensors,
+    with the routes and scale placement of the reference's fft3d_planar:
+    the fused (y, z) slab when it fuses, then one x pass (pitched over a
+    Z-padded intermediate when the stride gate fires); the 2-D route when
+    nx == 1; three axis passes when the slab does not fuse.
+
+    ``out_scale`` rides the final stage's tables. ``in_place=True`` runs
+    every kernel aliased, so the inputs are overwritten and returned."""
+    ax, ay, az = xr.ndim - 3, xr.ndim - 2, xr.ndim - 1
+    kw = {"precision": precision, "block": block, "tables": tables}
+    nx, ny, nz = xr.shape[ax], xr.shape[ay], xr.shape[az]
+    fuse = can_fuse_slab(ny, nz, rad_y, rad_z)
+    slab_kw = {"rad_y": rad_y, "rad_z": rad_z, "precision": precision,
+               "block_rows": slab_rows, "tables": tables}
+    if in_place:
+        if nx == 1:
+            xr, xi = fft_1d_planar(xr, xi, az, inverse=inverse,
+                                   radices=rad_z, alias=True, **kw)
+            return fft_1d_planar(xr, xi, ay, inverse=inverse,
+                                 radices=rad_y, out_scale=out_scale,
+                                 alias=True, **kw)
+        if not fuse:
+            raise ValueError("in_place needs a fusable (y,z) slab")
+        if not inverse:
+            xr, xi = fft_slab_yz(xr, xi, alias=True, **slab_kw)
+            return fft_sublane(xr, xi, ax, radices=rad_x,
+                               precision=precision, block_lanes=block,
+                               scale=out_scale, alias=True, tables=tables)
+        xr, xi = fft_sublane(xr, xi, ax, inverse=True, radices=rad_x,
+                             precision=precision, block_lanes=block,
+                             scale=1.0 / nx, alias=True, tables=tables)
+        return fft_slab_yz(xr, xi, inverse=True,
+                           scale=out_scale / (ny * nz), alias=True,
+                           **slab_kw)
+    if nx == 1:
+        if not inverse:
+            xr, xi = fft_1d_planar(xr, xi, az, radices=rad_z, **kw)
+            return fft_1d_planar(xr, xi, ay, radices=rad_y,
+                                 out_scale=out_scale, **kw)
+        xr, xi = fft_1d_planar(xr, xi, ay, inverse=True, radices=rad_y, **kw)
+        return fft_1d_planar(xr, xi, az, inverse=True, radices=rad_z,
+                             out_scale=out_scale, **kw)
+    use_padded_x = (fuse and can_use_padded_x(nx, ny, nz, rad_x)
+                    and bank_conflict_stride(ny, nz))
+    if use_padded_x:
+        # forward and inverse both take the forward order (slab into the
+        # padded intermediate, then the pitched x pass); the whole scale
+        # rides the x tables
+        ty, tz = x_tile or (8, 128)
+        scale = out_scale / (nx * ny * nz) if inverse else out_scale
+        xr, xi = fft_slab_yz(xr, xi, inverse=inverse, zpad=_STRIDE_PAD,
+                             **slab_kw)
+        return fft_x_from_padded(xr, xi, nz, inverse=inverse, radices=rad_x,
+                                 precision=precision, scale=scale, ty=ty,
+                                 tz=tz, tables=tables)
+    if not inverse:
+        if fuse:
+            xr, xi = fft_slab_yz(xr, xi, **slab_kw)
+        else:
+            xr, xi = fft_1d_planar(xr, xi, az, radices=rad_z, **kw)
+            xr, xi = fft_1d_planar(xr, xi, ay, radices=rad_y, **kw)
+        return fft_1d_planar(xr, xi, ax, radices=rad_x, out_scale=out_scale,
+                             x_tile=x_tile, **kw)
+    xr, xi = fft_1d_planar(xr, xi, ax, inverse=True, radices=rad_x,
+                           x_tile=x_tile, **kw)
+    if fuse:
+        return fft_slab_yz(xr, xi, inverse=True, scale=out_scale / (ny * nz),
+                           **slab_kw)
+    xr, xi = fft_1d_planar(xr, xi, ay, inverse=True, radices=rad_y, **kw)
+    return fft_1d_planar(xr, xi, az, inverse=True, radices=rad_z,
+                         out_scale=out_scale, **kw)

@@ -1,0 +1,119 @@
+"""Radix picks and the f32 constant tables of the kernel core.
+
+Ports from ``offt_tpu/kernels/pallas_fft.py``: ``_fold_complex`` (:104),
+the unstacked branch of ``_pick_2stage`` (:268), ``_pick_stages`` (:487)
+and the f32 tables of ``_core_tables`` (:394). The stacked bf16 tables of
+the reference are MXU emulations and have no counterpart here: every
+stage computes in f32.
+
+Table layout (one float32 array of shape ``(n + sum(stages), 2)``, rows
+are (re, im) pairs):
+
+- rows ``[0, n)``: the roots ``W_n^m``. The inter-stage twiddle of stage
+  ``s`` (remaining length ``L``) is ``W_L^(k j) = root[k * j * (n / L)]``.
+- then, for each stage ``s`` of radix ``r``, ``r`` rows ``W_r^m``: the
+  stage's dense DFT is ``F[k, i] = W_r^((i k) mod r)``. The last stage's
+  rows carry ``scale``, so a norm factor or 1/N costs no extra pass
+  (the reference folds it into its twiddle table instead; either way it
+  is applied exactly once per element).
+
+The values are built in float64 with the same formula as
+``dft.dft_matrix`` and cast once, so ``W_r^m`` equals
+``dft.dft_matrix(r)[1, m]`` exactly.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+
+from . import dft
+
+
+def _fold_complex(f: np.ndarray) -> np.ndarray:
+    """Real block matrix G = [[Fr, -Fi], [Fi, Fr]], so that
+    G @ [re; im] == [Re(F@x); Im(F@x)]: one real matmul per complex stage
+    (the plain versions' stage product)."""
+    top = np.concatenate([f.real, -f.imag], axis=1)
+    bot = np.concatenate([f.imag, f.real], axis=1)
+    return np.concatenate([top, bot], axis=0)
+
+
+def _pick_2stage(n: int, radices=None) -> tuple[int, int] | None:
+    """(r1, r2) with both <= MAX_RADIX, or None if not expressible.
+
+    The default is ``dft.factorize``; a 1-stage length comes back as
+    (r, 1). Picking radices for Hopper is later work."""
+    if radices is not None:
+        if len(radices) == 2 and all(r <= dft.MAX_RADIX for r in radices):
+            return int(radices[0]), int(radices[1])
+        if len(radices) == 1 and radices[0] <= dft.MAX_RADIX:
+            return int(radices[0]), 1
+        return None
+    rad = dft.factorize(n)
+    if len(rad) == 1 and rad[0] <= dft.MAX_RADIX:
+        return int(rad[0]), 1
+    if len(rad) == 2:
+        return int(rad[0]), int(rad[1])
+    return None
+
+
+def _pick_stages(n: int, radices=None):
+    """Radix stages for the core: an explicit 1-3 stage tuple (3-stage
+    requires every radix in [2, LOOP_MAX_RADIX]), else the 2-stage pick."""
+    if radices is not None:
+        rad = tuple(int(r) for r in radices)
+        prod = 1
+        for r in rad:
+            prod *= r
+        if prod != n or len(rad) > 3 or any(r > dft.MAX_RADIX for r in rad):
+            return None
+        if len(rad) == 3 and (max(rad) > dft.LOOP_MAX_RADIX or min(rad) < 2):
+            return None
+        return rad
+    return _pick_2stage(n, None)
+
+
+def core_stages(radices) -> tuple[int, ...]:
+    """The stages the kernels run: the radices without unit factors (a
+    length-1 axis keeps one radix-1 stage, which applies the scale)."""
+    return tuple(int(r) for r in radices if int(r) > 1) or (1,)
+
+
+def core_pos(n: int, stages: tuple) -> np.ndarray:
+    """Tile position of each natural output index after the in-place core
+    (``core_pos`` in csrc/fft_core.cuh): kn = k1 + r1*k2 + r1*r2*k3 sits
+    at (k1*r2 + k2)*r3 + k3."""
+    r = tuple(stages) + (1,) * (3 - len(stages))
+    kn = np.arange(n)
+    k1 = kn % r[0]
+    k2 = (kn // r[0]) % r[1]
+    k3 = kn // (r[0] * r[1])
+    return (k1 * r[1] + k2) * r[2] + k3
+
+
+def _roots(n: int, inverse: bool) -> np.ndarray:
+    """W_n^m for m < n in complex128, the formula of dft.dft_matrix."""
+    m = np.arange(n, dtype=np.float64)
+    ang = (2.0 * math.pi / n) * m
+    return np.cos(ang) + (1j if inverse else -1j) * np.sin(ang)
+
+
+@functools.lru_cache(maxsize=256)
+def core_table(n: int, radices: tuple, inverse: bool,
+               scale: float = 1.0) -> np.ndarray:
+    """The f32 table of one length-n core (layout in the module doc).
+    Read-only: the cached array is shared by every caller."""
+    stages = core_stages(radices)
+    if math.prod(stages) != n:
+        raise ValueError(f"radices {radices} do not factor N={n}")
+    parts = [_roots(n, inverse)]
+    for s, r in enumerate(stages):
+        w = _roots(r, inverse)
+        parts.append(w * scale if s == len(stages) - 1 else w)
+    c = np.concatenate(parts)
+    out = np.stack([c.real, c.imag], axis=-1).astype(np.float32)
+    out.flags.writeable = False
+    return out
