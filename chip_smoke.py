@@ -11,15 +11,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with nvcc, timed;
 2. each CUDA kernel against its plain PyTorch version on the card, at a
    small shape and at the main-path shape (max |kernel - plain| /
-   max |plain| <= 1e-6, float32 matmuls pinned to full precision);
-3. the main path through ``offt_tpu_torch.plan`` on the card, each
-   result against a complex128 ``torch.fft.fftn`` on the card
-   (||y - ref|| / ||ref|| <= 1e-6);
-4. the launch counters: every kernel ran on the main path, no plain
-   version did;
-5. CUDA-event times: the port against ``torch.fft.fftn`` (cuFFT) at 256^3
-   and 512^3, each kernel against its plain version, the two x routes at
-   256^3, and the slab kernel against the unfused z + y passes.
+   max |plain| <= 1e-6, pad lanes excluded, float32 matmuls pinned to
+   full precision);
+3. the two main paths through ``offt_tpu_torch.plan`` on the card: the
+   planar c2c path, each result against a complex128 ``torch.fft.fftn``,
+   and the packed r2c/c2r path (``real=True``, numpy and packed layouts),
+   each result against a complex128 ``torch.fft.rfftn`` / ``irfftn``
+   (||y - ref|| / ||ref|| <= 1e-6). Each path runs with the launch
+   counters zeroed just before it and read just after;
+4. the launch counters: every kernel of a path ran in that path's run, no
+   plain version did;
+5. CUDA-event times: the port against cuFFT (``torch.fft.fftn``,
+   ``rfftn``, ``irfftn``) at 256^3 and 512^3, each kernel against its
+   plain version, the two x routes at 256^3, and the slab kernel against
+   the unfused z + y passes.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -55,9 +60,11 @@ def _pair(shape, gen):
 
 
 def _max_err(got, want, lanes=None):
-    """(max |got - want| / max |want|, max |got - want|) over a planar pair;
-    ``lanes`` keeps only the first lanes of the last axis (pad lanes are
-    never compared)."""
+    """(max |got - want| / max |want|, max |got - want|) over a planar pair
+    or one tensor; ``lanes`` keeps only the first lanes of the last axis
+    (pad lanes are never compared)."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
     d = m = 0.0
     for g, w in zip(got, want):
         if lanes is not None:
@@ -70,7 +77,10 @@ def _max_err(got, want, lanes=None):
 
 
 def _rel_err(yr, yi, ref) -> float:
-    y = torch.complex(yr.double(), yi.double())
+    """||y - ref|| / ||ref|| of a planar pair, or of a real tensor when
+    ``yi`` is None."""
+    y = yr.double() if yi is None else torch.complex(yr.double(),
+                                                      yi.double())
     if not torch.isfinite(y).all():
         raise AssertionError("non-finite transform output")
     return (torch.linalg.vector_norm(y - ref)
@@ -110,6 +120,16 @@ def main() -> int:
     # (name, kernel, wrapper, call, input shape, lanes compared)
     def xpad(z, **kw):
         return lambda f, x: f(*x, z, **kw)
+
+    def irfft(n, side_shape, **kw):
+        side = _pair(side_shape, gen) if side_shape else (None, None)
+        return lambda f, x: f(*x, n, side_r=side[0], side_i=side[1], **kw)
+
+    def assemble(planes):
+        ab = _pair(planes, gen) + _pair(planes, gen)
+        return lambda f, x: f(*x, *ab)
+    # the last check of each kernel is at its main-path shape and is the
+    # one timed in phase 5
     checks = [
         ("fft_last", ff.fft_last, lambda f, x: f(*x, scale=0.5), (37, 320),
          None),
@@ -119,6 +139,10 @@ def main() -> int:
          None),
         ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 0), (320, 320, 320),
          None),
+        ("fft_axis", ff.fft_x_to_padded,
+         lambda f, x: f(*x, z_true=128, inverse=True), (16, 32, 129), 128),
+        ("fft_axis", ff.fft_x_to_padded,
+         lambda f, x: f(*x, z_true=128, inverse=True), (256, 256, 129), 128),
         ("fft_axis", ff.fft_x_from_padded, xpad(128, scale=0.25),
          (16, 32, 136), None),
         ("fft_axis", ff.fft_x_from_padded, xpad(256), (256, 256, 264), None),
@@ -126,6 +150,21 @@ def main() -> int:
          (4, 32, 128), 128),
         ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x, zpad=8),
          (256, 256, 256), 256),
+        ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
+         (4, 16, 256), 128),
+        ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
+         (256, 256, 256), 128),
+        ("irfft_slab", ff.irfft_slab_yz, irfft(256, None, scale=1 / 2048),
+         (4, 16, 136), None),
+        ("irfft_slab", ff.irfft_slab_yz,
+         irfft(256, (4, 16), scale=1 / 2048), (4, 16, 136), None),
+        ("irfft_slab", ff.irfft_slab_yz,
+         irfft(256, (256, 256), scale=1 / 256 ** 3 * 2), (256, 256, 136),
+         None),
+        ("assemble_mp1", ff._assemble_mp1, assemble((4, 16)), (4, 16, 128),
+         None),
+        ("assemble_mp1", ff._assemble_mp1, assemble((256, 256)),
+         (256, 256, 128), None),
     ]
     per_kernel = {}
     for name, fn, call, shape, lanes in checks:
@@ -139,12 +178,13 @@ def main() -> int:
               flush=True)
         if rel > TOL_KERNEL:
             raise AssertionError(f"{name} disagrees with its plain version")
-        per_kernel.setdefault(name, {})["max_abs_err"] = absd
-        per_kernel[name]["shape"] = shape
-        per_kernel[name]["call"] = (fn, call)
+        info = per_kernel.setdefault(name, {"max_abs_err": 0.0})
+        info["max_abs_err"] = max(info["max_abs_err"], absd)
+        info["shape"] = shape
+        info["call"] = (fn, call)
         del x, got, want
 
-    # ---- 3. the main path through plan() ---------------------------------
+    # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
         # (label, shape, batch_dims, inverse, norm, in_place)
         ("256^3 fwd ortho", (256, 256, 256), 0, False, "ortho", False),
@@ -172,9 +212,9 @@ def main() -> int:
                    norm="ortho")
     results["256^3 round trip"] = pinv(results["256^3 fwd ortho"])
     torch.cuda.synchronize()
-    counts = ff.counts()
-    launches = {k: ff.kernel_launches(k) for k in ff.KERNELS}
-    print(f"main path counts (launches, plain calls): {counts}")
+    runs = {"c2c": (ff.counts(),
+                    {k: ff.kernel_launches(k) for k in ff.KERNELS})}
+    print(f"c2c path counts (launches, plain calls): {runs['c2c'][0]}")
 
     for label, shape, bd, inv, norm, inp in cases + [
             ("256^3 round trip", (256, 256, 256), 0, None, None, False)]:
@@ -200,15 +240,95 @@ def main() -> int:
     del results, inputs
     torch.cuda.empty_cache()
 
+    # ---- 3b. the r2c / c2r main path through plan(real=True) --------------
+    real_cases = [
+        # (label, shape, batch_dims, inverse, packed, norm)
+        ("256^3 r2c", (256, 256, 256), 0, False, False, None),
+        ("256^3 r2c packed", (256, 256, 256), 0, False, True, None),
+        ("256^3 c2r", (256, 256, 256), 0, True, False, None),
+        ("256^3 c2r packed", (256, 256, 256), 0, True, True, None),
+        ("256^3 r2c ortho", (256, 256, 256), 0, False, False, "ortho"),
+        ("512^3 r2c", (512, 512, 512), 0, False, False, None),
+        ("4x128x128x256 r2c", (4, 128, 128, 256), 1, False, False, None),
+    ]
+    inputs = {}
+    for label, shape, bd, inv, packed, norm in real_cases:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        if inv:
+            # a Hermitian-consistent spectrum: rfftn of real data
+            w = torch.fft.rfftn(x.double(), dim=(-3, -2, -1)).to(
+                torch.complex64)
+            x = (w.real.contiguous(), w.imag.contiguous())
+            if packed:
+                x = tuple(t.contiguous() for t in ot.pack_rfft3d(*x))
+            inputs[label] = (x, w)
+        else:
+            inputs[label] = ((x,), x)
+    results = {}
+    ff.reset_counts()
+    for label, shape, bd, inv, packed, norm in real_cases:
+        p = ot.plan(shape[bd:], "float32", real=True, planar=True,
+                    inverse=inv, packed=packed, norm=norm, batch_dims=bd)
+        results[label] = p(*inputs[label][0])
+    # round trip: the ortho c2r of the ortho r2c
+    pinv = ot.plan((256, 256, 256), "float32", real=True, planar=True,
+                   inverse=True, norm="ortho")
+    results["256^3 r2c/c2r round trip"] = pinv(results["256^3 r2c ortho"])
+    torch.cuda.synchronize()
+    runs["r2c"] = (ff.counts(),
+                   {k: ff.kernel_launches(k) for k in ff.KERNELS})
+    print(f"r2c/c2r path counts (launches, plain calls): {runs['r2c'][0]}")
+
+    for label, shape, bd, inv, packed, norm in real_cases + [
+            ("256^3 r2c/c2r round trip", (256, 256, 256), 0, None, False,
+             None)]:
+        dims = (-3, -2, -1)
+        if inv is None:
+            ref = inputs["256^3 r2c ortho"][1].double()
+            what = "the input"
+        elif inv:
+            ref = torch.fft.irfftn(inputs[label][1].to(torch.complex128),
+                                   s=shape[bd:], dim=dims, norm=norm)
+            what = "complex128 irfftn"
+        else:
+            ref = torch.fft.rfftn(inputs[label][1].double(), dim=dims,
+                                  norm=norm)
+            what = "complex128 rfftn"
+        got = results[label]
+        if inv is False:
+            lanes = shape[-1] // 2 + (0 if packed else 1)
+            if tuple(got[0].shape) != (*shape[:-1], lanes):
+                raise AssertionError(f"{label}: shape {tuple(got[0].shape)}")
+            if packed:
+                got = ot.unpack_rfft3d(*got)
+            err = _rel_err(*got, ref)
+        else:
+            if tuple(got.shape) != shape:
+                raise AssertionError(f"{label}: shape {tuple(got.shape)}")
+            err = _rel_err(got, None, ref)
+        print(f"path {label}: rel err vs {what} {err:.3e} "
+              f"(tol {TOL_PATH:g}) {tag}", flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"{label}: error {err:.3e}")
+        del ref, got
+    del results, inputs
+    torch.cuda.empty_cache()
+
     # ---- 4. the counters -----------------------------------------------
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
-    plain = {k: v[1] for k, v in counts.items() if v[1]}
-    if plain:
-        raise AssertionError(f"plain versions ran on the main path: {plain}")
-    print(f"main path launches per kernel: {launches}; plain calls: 0")
+    path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
+                    "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
+                            "assemble_mp1")}
+    for path, (counts, launched) in runs.items():
+        for name in path_kernels[path]:
+            if launched[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"{path} path")
+        plain = {k: v[1] for k, v in counts.items() if v[1]}
+        if plain:
+            raise AssertionError(f"plain versions ran on the {path} path: "
+                                 f"{plain}")
+        print(f"{path} path launches per kernel: {launched}; plain calls: 0")
+    launches = {k: sum(r[1][k] for r in runs.values()) for k in ff.KERNELS}
 
     # ---- 5. times --------------------------------------------------------
     def show(label, r, extra=""):
@@ -258,6 +378,36 @@ def main() -> int:
         del xr, xi, xc
         torch.cuda.empty_cache()
 
+    # r2c / c2r: the port in both layouts against cuFFT; 2.5 N log2 N
+    # flops, half of the c2c convention
+    for n in (256, 512):
+        shape = (n, n, n)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w = torch.fft.rfftn(x)
+        flops = 2.5 * n ** 3 * math.log2(n ** 3)
+        rate = ", {:.1f} GFLOP/s"
+        r = time_cuda(torch.fft.rfftn, (x,))
+        show(f"torch.fft.rfftn (cuFFT) f32 {n}^3", r,
+             rate.format(flops / r["median_ms"] / 1e6))
+        r = time_cuda(lambda: torch.fft.irfftn(w, s=shape))
+        show(f"torch.fft.irfftn (cuFFT) c64 {n}^3", r,
+             rate.format(flops / r["median_ms"] / 1e6))
+        for packed in (False, True):
+            kw = {"real": True, "planar": True, "packed": packed}
+            layout = "packed" if packed else "numpy"
+            p_fwd = ot.plan(shape, "float32", **kw)
+            r = time_cuda(p_fwd, (x,))
+            show(f"port r2c {layout} {n}^3", r,
+                 rate.format(flops / r["median_ms"] / 1e6))
+            spec = p_fwd(x)
+            p_inv = ot.plan(shape, "float32", inverse=True, **kw)
+            r = time_cuda(p_inv, spec)
+            show(f"port c2r {layout} {n}^3", r,
+                 rate.format(flops / r["median_ms"] / 1e6))
+            del spec
+        del x, w
+        torch.cuda.empty_cache()
+
     report = []
     for name, info in ff.KERNELS.items():
         fn, call = per_kernel[name]["call"]
@@ -268,6 +418,18 @@ def main() -> int:
              f"{per_kernel[name]['shape']}", r_k)
         show(f"plain {name} via {fn.__name__} "
              f"{per_kernel[name]['shape']}", r_p)
+        if name == "fft_axis":
+            # the c2r x pass rides the same kernel
+            xt = _pair((256, 256, 129), gen)
+
+            def to_padded(f):
+                return f(*xt, z_true=128, inverse=True)
+            show("kernel fft_axis via fft_x_to_padded (256, 256, 129)",
+                 time_cuda(to_padded, (ff.fft_x_to_padded,)))
+            show("plain fft_axis via fft_x_to_padded (256, 256, 129)",
+                 time_cuda(to_padded, (ff.fft_x_to_padded.plain,), warmup=1,
+                           reps=5))
+            del xt
         report.append({"name": name, "route": "cuda",
                        "source": info["source"],
                        "replaces": info["replaces"],

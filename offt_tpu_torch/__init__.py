@@ -1,17 +1,30 @@
 """offt_tpu_torch: the PyTorch and CUDA port of offt_tpu for an NVIDIA
 H100.
 
-This slice ports the single-device 3-D c2c transform on planar float32
-(re, im) pairs: ``plan(shape, "complex64", planar=True)`` runs the fused
-(y, z) slab kernel and one x-axis kernel (``kernels/csrc``), built with
-nvcc for sm_90a at first use. On the CPU every kernel wrapper runs its
-plain PyTorch version instead. The package imports ``torch``, never
-``jax``; ``offt_tpu`` is the reference it is tested against.
+The ported slices are the single-device 3-D transforms on planar float32
+(re, im) pairs:
+
+- c2c: ``plan(shape, "complex64", planar=True)`` runs the fused (y, z)
+  slab kernel and one x-axis kernel;
+- r2c / c2r: ``plan(shape, "float32", real=True, planar=True)`` takes a
+  real tensor to a planar half-spectrum and back, in the numpy layout
+  (..., Nz/2 + 1) or with ``packed=True`` the packed (..., Nz/2) layout
+  (plane 0 carries X[0] + i X[Nz/2]; ``unpack_rfft3d`` / ``pack_rfft3d``
+  convert). The forward runs the r2c + y slab kernel and the x kernel
+  (and, for the numpy layout, the assembly kernel); the inverse runs the x
+  kernel and the inverse y + c2r slab kernel.
+
+The kernels (``kernels/csrc``) are built with nvcc for sm_90a at first
+use. On the CPU every kernel wrapper runs its plain PyTorch version
+instead. The package imports ``torch``, never ``jax``; ``offt_tpu`` is the
+reference it is tested against.
 """
 
 __version__ = "0.1.0"
 
-from .kernels.fused_fft import fft_last, fft_sublane, fft_slab_yz, fft3d_planar
+from .kernels.fused_fft import (fft3d_planar, fft_last, fft_slab_yz,
+                                fft_sublane, irfft3d_planar, pack_rfft3d,
+                                rfft3d_planar, unpack_rfft3d)
 from .plan.api import Plan, fft3d, from_planar, ifft3d, plan, to_planar
 from .plan.params import PlanParams
 
@@ -25,7 +38,11 @@ __all__ = [
     "fft_sublane",
     "from_planar",
     "ifft3d",
+    "irfft3d_planar",
+    "pack_rfft3d",
     "plan",
+    "rfft3d_planar",
     "to_planar",
+    "unpack_rfft3d",
     "__version__",
 ]

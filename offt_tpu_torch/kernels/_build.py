@@ -36,6 +36,11 @@ _SIGNATURES = {
                       _L, _L, _I, _I, _I, _I, _I, _P],
     "offt_fft_slab": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "offt_rfft_slab": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _P],
+    "offt_irfft_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "offt_assemble_mp1": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
 }
 
 _LIB = None

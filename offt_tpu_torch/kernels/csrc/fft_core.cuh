@@ -250,6 +250,137 @@ static __device__ __forceinline__ void store_cols(float* yr, float* yi,
   }
 }
 
+// The c2c along y of a slab row held at `pitch` in device memory, in
+// place: T consecutive z lanes at a time, read back, transformed and
+// written over themselves (the y pass of the slab kernels). The caller
+// synchronises before, so the block's own writes to the row are visible.
+static __device__ void slab_cols(float* yr_row, float* yi_row,
+                                 long long pitch, int ny, int nz, int T,
+                                 const Core& cy, const float2* taby,
+                                 const float2* rooty, float* re, float* im) {
+  for (int z0 = 0; z0 < nz; z0 += T) {
+    const int z = z0 + (int)(threadIdx.x % T);
+    const bool valid = z < nz;
+    load_cols(yr_row, yi_row, pitch, z, valid, ny, T, re, im);
+    core_run(re, im, T, T, cy, taby, rooty);
+    store_cols(yr_row, yi_row, pitch, z, valid, cy, T, re, im);
+    __syncthreads();
+  }
+}
+
+// ---- real rows: 2n floats of device memory seen as n complex values ----
+// v[j] = x[2j] + i x[2j+1], one float2 access per element, so a warp
+// moves 256 consecutive bytes. `pitch` (floats) and the row base must be
+// even, for 8-byte alignment.
+
+static __device__ __forceinline__ void load_real_rows(const float* x,
+                                                      long long pitch, int n,
+                                                      int T, int TP,
+                                                      int valid, float* re,
+                                                      float* im) {
+  const int tot = n * T;
+  for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+    const int t = e / n;
+    const int k = e - t * n;
+    float2 v = make_float2(0.f, 0.f);
+    if (t < valid) v = *reinterpret_cast<const float2*>(x + t * pitch + 2 * k);
+    re[k * TP + t] = v.x;
+    im[k * TP + t] = v.y;
+  }
+}
+
+// Store the core's output interleaved: x[2k] = Re, x[2k+1] = Im of the
+// natural index k.
+static __device__ __forceinline__ void store_real_rows(float* x,
+                                                       long long pitch,
+                                                       const Core& c, int T,
+                                                       int TP, int valid,
+                                                       const float* re,
+                                                       const float* im) {
+  const int n = c.n;
+  const int tot = n * T;
+  for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+    const int t = e / n;
+    const int k = e - t * n;
+    if (t < valid) {
+      const int p = core_pos(c, k) * TP + t;
+      *reinterpret_cast<float2*>(x + t * pitch + 2 * k) =
+          make_float2(re[p], im[p]);
+    }
+  }
+}
+
+// ---- the r2c untangle and the c2r re-tangle, in place on a tile ----
+// Both pair index k with (M - k) mod M. One thread owns a pair and writes
+// both of its members, so the update in place has no race; k = 0 (and
+// k = M/2 for even M) pair with themselves and are written twice with the
+// same value by the same thread.
+
+// After core_run of v[j] = x[2j] + i x[2j+1] (the tile digit-reversed):
+// X[k] = E - i W^k O with E, O = (V[k] +- conj V[M-k]) / 2, W^k = w[k]
+// (tables.rfft_table); row 0 becomes the packed
+// X[0] + i X[M] = (Re V0 + Im V0) + i (Re V0 - Im V0).
+static __device__ void r2c_untangle(float* re, float* im, int T, int TP,
+                                    const Core& c, const float2* w) {
+  const int m = c.n;
+  const int tot = (m / 2 + 1) * T;
+  __syncthreads();
+  for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+    const int k = e / T;
+    const int t = e - k * T;
+    const int pa = core_pos(c, k) * TP + t;
+    if (k == 0) {
+      const float a = re[pa], b = im[pa];
+      re[pa] = a + b;
+      im[pa] = a - b;
+      continue;
+    }
+    const int pb = core_pos(c, m - k) * TP + t;
+    const float ar = re[pa], ai = im[pa];  // V[k]
+    const float br = re[pb], bi = im[pb];  // V[M-k]
+    // X[k] from A = V[k], B = conj V[M-k]; X[M-k] from A' = V[M-k],
+    // B' = conj V[k]: E' = conj E, O' = -conj O
+    const float er = 0.5f * (ar + br), ei = 0.5f * (ai - bi);
+    const float orr = 0.5f * (ar - br), oi = 0.5f * (ai + bi);
+    const float2 wk = __ldg(w + k);
+    const float2 wm = __ldg(w + (m - k));
+    re[pa] = er + wk.x * oi + wk.y * orr;
+    im[pa] = ei - wk.x * orr + wk.y * oi;
+    re[pb] = er + wm.x * oi - wm.y * orr;
+    im[pb] = -ei + wm.x * orr + wm.y * oi;
+  }
+  __syncthreads();
+}
+
+// Before the inverse core, on a tile in natural order:
+// V[k] = a[k] X[k] + b[k] conj X[(M-k) mod M], ab[2k] = a[k],
+// ab[2k+1] = b[k] (tables.crfft_table, the scale folded in).
+static __device__ void c2r_retangle(float* re, float* im, int T, int TP,
+                                    int m, const float2* ab) {
+  const int tot = (m / 2 + 1) * T;
+  __syncthreads();
+  for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+    const int k = e / T;
+    const int t = e - k * T;
+    const int kb = k ? m - k : 0;
+    const int pa = k * TP + t;
+    const int pb = kb * TP + t;
+    const float xr = re[pa], xi = im[pa];  // X[k]
+    const float yr = re[pb], yi = im[pb];  // X[(M-k) mod M]
+    const float2 a = __ldg(ab + 2 * k), b = __ldg(ab + 2 * k + 1);
+    const float2 a2 = __ldg(ab + 2 * kb), b2 = __ldg(ab + 2 * kb + 1);
+    const float vr = a.x * xr - a.y * xi + b.x * yr + b.y * yi;
+    const float vi = a.x * xi + a.y * xr + b.y * yr - b.x * yi;
+    const float ur = a2.x * yr - a2.y * yi + b2.x * xr + b2.y * xi;
+    const float ui = a2.x * yi + a2.y * yr + b2.y * xr - b2.x * xi;
+    re[pb] = ur;
+    im[pb] = ui;
+    re[pa] = vr;
+    im[pa] = vi;
+  }
+  __syncthreads();
+}
+
 // Dynamic shared memory of a kernel: the tile plus `nroot_total` roots.
 static inline size_t core_smem(size_t tile_elems, int nroot_total) {
   return tile_elems * 2 * sizeof(float) + nroot_total * sizeof(float2);

@@ -61,14 +61,8 @@ fft_slab_kernel(const float* xr, const float* xi, float* yr, float* yi,
     __syncthreads();
   }
   // y: Ty consecutive z lanes at a time, read back from the output
-  for (int z0 = 0; z0 < g.nz; z0 += Ty) {
-    const int z = z0 + (int)(threadIdx.x % Ty);
-    const bool valid = z < g.nz;
-    load_cols(yr_row, yi_row, g.out_pitch, z, valid, g.ny, Ty, re, im);
-    core_run(re, im, Ty, Ty, cy, taby, rooty);
-    store_cols(yr_row, yi_row, g.out_pitch, z, valid, cy, Ty, re, im);
-    __syncthreads();
-  }
+  slab_cols(yr_row, yi_row, g.out_pitch, g.ny, g.nz, Ty, cy, taby, rooty, re,
+            im);
 }
 
 }  // namespace offt

@@ -1,14 +1,18 @@
-"""The planar c2c transforms of the main path, with their CUDA kernels.
+"""The planar c2c and packed r2c/c2r transforms, with their CUDA kernels.
 
-Counterpart of the main-path functions of ``offt_tpu/kernels/pallas_fft.py``:
+Counterpart of these functions of ``offt_tpu/kernels/pallas_fft.py``:
 ``fft_last``, ``fft_sublane`` (with ``_sublane_nd``), ``fft_slab_yz``,
-``fft_x_from_padded``, ``fft_1d_planar`` and ``fft3d_planar``, and the
-gates ``can_use_pallas``, ``can_fuse_slab``, ``can_use_padded_x`` and
-``bank_conflict_stride``, which keep the reference's values so that both
-packages take the same routes.
+``fft_x_from_padded``, ``fft_1d_planar`` and ``fft3d_planar`` (c2c);
+``rfft_slab_yz``, ``fft_x_to_padded``, ``irfft_slab_yz``,
+``_assemble_mp1``, ``_plane0_split``, ``unpack_rfft3d``, ``pack_rfft3d``,
+``rfft3d_planar`` and ``irfft3d_planar`` (r2c/c2r); and the gates
+``can_use_pallas``, ``can_fuse_slab``, ``can_use_padded_x``,
+``can_use_rfft3d`` and ``bank_conflict_stride``, which keep the
+reference's values so that both packages take the same routes.
 
-Data is planar float32: a (re, im) pair of tensors of one shape. Each
-kernel wrapper dispatches on the tensors' device:
+Data is planar float32: a (re, im) pair of tensors of one shape (the
+real side of r2c/c2r is one float32 tensor). Each kernel wrapper
+dispatches on the tensors' device:
 
 - CUDA: it launches its hand-written kernel (``csrc/``, built by
   :mod:`._build`) on the current stream, or raises;
@@ -60,13 +64,29 @@ KERNELS = {
     },
     "fft_axis": {
         "source": "offt_tpu_torch/kernels/csrc/fft_axis.cu",
-        "replaces": "offt_tpu/kernels/pallas_fft.py:900,993,1509",
-        "wrappers": ("fft_sublane", "_sublane_nd", "fft_x_from_padded"),
+        "replaces": "offt_tpu/kernels/pallas_fft.py:900,993,1509,1574",
+        "wrappers": ("fft_sublane", "_sublane_nd", "fft_x_from_padded",
+                     "fft_x_to_padded"),
     },
     "fft_slab": {
         "source": "offt_tpu_torch/kernels/csrc/fft_slab.cu",
         "replaces": "offt_tpu/kernels/pallas_fft.py:1404",
         "wrappers": ("fft_slab_yz",),
+    },
+    "rfft_slab": {
+        "source": "offt_tpu_torch/kernels/csrc/rfft_slab.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:1944",
+        "wrappers": ("rfft_slab_yz",),
+    },
+    "irfft_slab": {
+        "source": "offt_tpu_torch/kernels/csrc/irfft_slab.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:2160",
+        "wrappers": ("irfft_slab_yz",),
+    },
+    "assemble_mp1": {
+        "source": "offt_tpu_torch/kernels/csrc/assemble_mp1.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:2012",
+        "wrappers": ("_assemble_mp1",),
     },
 }
 
@@ -101,6 +121,21 @@ def can_use_padded_x(n: int, ny: int, nz: int, radices=None) -> bool:
             and _X_VMEM_BLOCKS * n * 8 * 128 * 4 <= _VMEM_CAP)
 
 
+def can_use_rfft3d(nx: int, ny: int, nz: int, rad_x=None, rad_y=None,
+                   rad_z=None) -> bool:
+    """The reference's gate of the packed r2c/c2r path: M = Nz/2 a
+    multiple of 128, Ny of 8, every axis 2-stage, the slab under the VMEM
+    ceiling and the pitched x pass eligible. The CUDA kernels need none of
+    it beyond an even Nz; the values stay so that routes match."""
+    m = nz // 2
+    return (nz % 2 == 0 and m % 128 == 0 and ny % 8 == 0
+            and tb._pick_2stage(m, rad_z) is not None
+            and tb._pick_2stage(ny, rad_y) is not None
+            and tb._pick_2stage(nx, rad_x) is not None
+            and ny * m <= _SLAB_VMEM_LIMIT
+            and can_use_padded_x(nx, ny, m, rad_x))
+
+
 def _pick_lane_tile(lanes: int, target: int) -> int:
     target = min(target, lanes)
     if lanes % target == 0 and (target % 128 == 0 or target == lanes):
@@ -127,20 +162,30 @@ def _nd_route(n: int, mid: int, last: int, tl_target: int) -> bool:
 # tables, dispatch and launch plumbing
 # --------------------------------------------------------------------------
 
+_TABLE_KINDS = {
+    "core": (tb.core_table, (int, tuple, bool, float)),   # n, stages, inv, s
+    "rfft": (tb.rfft_table, (int,)),                       # n
+    "crfft": (tb.crfft_table, (int, float)),               # n, scale
+}
+
+
 class TableSet:
-    """The f32 core tables (``tables.core_table``) of one device, keyed by
-    (n, stages, inverse, scale) and built on first use. A Plan keeps one
+    """The f32 tables of one device, keyed by (kind, *args) and built on
+    first use: ``get("core", n, stages, inverse, scale)`` is
+    ``tables.core_table``, ``get("rfft", n)`` ``tables.rfft_table`` and
+    ``get("crfft", n, scale)`` ``tables.crfft_table``. A Plan keeps one
     and registers its tensors as buffers."""
 
     def __init__(self, device, tabs: dict | None = None):
         self.device = torch.device(device)
         self.tabs = dict(tabs or {})
 
-    def get(self, n: int, stages: tuple, inverse: bool, scale: float):
-        key = (int(n), tuple(stages), bool(inverse), float(scale))
+    def get(self, kind: str, *args):
+        build, types = _TABLE_KINDS[kind]
+        key = (kind, *(f(a) for f, a in zip(types, args, strict=True)))
         t = self.tabs.get(key)
         if t is None:
-            arr = tb.core_table(*key)
+            arr = build(*key[1:])
             t = torch.from_numpy(arr.copy()).to(self.device)
             self.tabs[key] = t
         return t
@@ -184,17 +229,23 @@ def _pair(xr, xi):
     return _mode(xr, xi)
 
 
-def _dispatching(impl):
-    """The wrapper of ``impl(mode, xr, xi, ...)``: it dispatches on the
-    tensors' device. ``wrapper.plain`` runs the plain version on any
-    device (the card's check compares the two on the same inputs)."""
-    @functools.wraps(impl)
-    def wrapper(xr, xi, *args, **kw):
-        return impl(_pair(xr, xi), xr, xi, *args, **kw)
+def _dispatching(impl=None, *, arity: int = 2):
+    """The wrapper of ``impl(mode, *data, ...)``, whose first ``arity``
+    arguments are its data (a planar pair, or with ``arity=1`` one real
+    tensor): it dispatches on their device. ``wrapper.plain`` runs the
+    plain version on any device (the card's check compares the two on the
+    same inputs)."""
+    if impl is None:
+        return functools.partial(_dispatching, arity=arity)
+    check = _pair if arity == 2 else _mode
 
-    def plain(xr, xi, *args, **kw):
-        _pair(xr, xi)
-        return impl("plain", xr, xi, *args, **kw)
+    @functools.wraps(impl)
+    def wrapper(*args, **kw):
+        return impl(check(*args[:arity]), *args, **kw)
+
+    def plain(*args, **kw):
+        check(*args[:arity])
+        return impl("plain", *args, **kw)
 
     wrapper.plain = plain
     wrapper.impl = impl
@@ -215,7 +266,8 @@ def _radix_args(stages: tuple) -> list:
 
 
 def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device pointer; None passes NULL (an absent input)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _launch(entry: str, tensors, tabs, args) -> None:
@@ -340,7 +392,7 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
     (0 = as many as fit 64 KB of shared memory, at most 64)."""
     n = xr.shape[-1]
     stages = _stages(n, radices)
-    tab = _tables(tables, xr.device).get(n, stages, inverse, scale)
+    tab = _tables(tables, xr.device).get("core", n, stages, inverse, scale)
     if alias:
         yr, yi = xr, xi
     else:
@@ -383,7 +435,7 @@ def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
         if _nd_route(n, mid, xr.shape[-1], tl_target):
             return _sublane_nd.impl(mode, xr, xi, axis, n, stages, inverse,
                                     scale, alias, block_lanes, tables)
-    tab = _tables(tables, xr.device).get(n, stages, inverse, scale)
+    tab = _tables(tables, xr.device).get("core", n, stages, inverse, scale)
     pre = math.prod(xr.shape[:axis])
     lanes = math.prod(xr.shape[axis + 1:])
     if alias:
@@ -401,7 +453,7 @@ def _sublane_nd(mode, xr, xi, axis, n, stages, inverse, scale, alias, block,
                 tables=None):
     """fft_sublane's route for an axis at or before ndim-3: the array as
     (B, N, MID, last), the same CUDA kernel as the flattened route."""
-    tab = _tables(tables, xr.device).get(n, stages, inverse, scale)
+    tab = _tables(tables, xr.device).get("core", n, stages, inverse, scale)
     b = math.prod(xr.shape[:axis])
     mid = math.prod(xr.shape[axis + 1:-1])
     last = xr.shape[-1]
@@ -436,8 +488,8 @@ def fft_slab_yz(mode, xr, xi, inverse: bool = False, rad_y=None, rad_z=None,
     nz = z_true or nz_in
     sy, sz = _stages(ny, rad_y), _stages(nz, rad_z)
     ts = _tables(tables, xr.device)
-    tabz = ts.get(nz, sz, inverse, 1.0)
-    taby = ts.get(ny, sy, inverse, scale)
+    tabz = ts.get("core", nz, sz, inverse, 1.0)
+    taby = ts.get("core", ny, sy, inverse, scale)
     lead = xr.shape[:-2]
     if alias:
         yr, yi = xr, xi
@@ -484,7 +536,7 @@ def fft_x_from_padded(mode, xr3, xi3, z_true: int, inverse: bool = False,
     n, ny_in, zp = xr3.shape[-3:]
     ny = y_true or ny_in
     stages = _stages(n, radices)
-    tab = _tables(tables, xr3.device).get(n, stages, inverse, scale)
+    tab = _tables(tables, xr3.device).get("core", n, stages, inverse, scale)
     zo = max(out_lanes, z_true)
     shp = (*lead, n, ny, zo)
     yr = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
@@ -499,8 +551,209 @@ def fft_x_from_padded(mode, xr3, xi3, z_true: int, inverse: bool = False,
     return yr, yi
 
 
+@_dispatching
+def fft_x_to_padded(mode, xr3, xi3, zpad: int = _STRIDE_PAD,
+                    inverse: bool = False, radices=None,
+                    precision: str = DEFAULT_PRECISION, scale: float = 1.0,
+                    z_true: int = 0, ty: int = 8, tz: int = 128, tables=None):
+    """x-axis c2c over an unpadded (..., X, Y, Z) array into a Z-padded
+    (..., X, Y, Zt + zpad) one, Zt = ``z_true`` or Z: only the first Zt
+    lanes of each input row are transformed (the c2r path drops its
+    Nyquist lane this way) and the pad lanes are allocated and not
+    written. Kernel ``csrc/fft_axis.cu`` with pitched writes; ``ty``/``tz``
+    are accepted for parity and ignored."""
+    lead = xr3.shape[:-3]
+    n, ny, z = xr3.shape[-3:]
+    zt = z_true or z
+    if zt > z:
+        raise ValueError(f"z_true={z_true} exceeds the {z} input lanes")
+    stages = _stages(n, radices)
+    tab = _tables(tables, xr3.device).get("core", n, stages, inverse, scale)
+    zo = zt + zpad
+    shp = (*lead, n, ny, zo)
+    yr = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
+    yi = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
+    if mode == "shape":
+        return yr, yi
+    geom = (math.prod(lead), ny, zt, (n * ny * z, ny * z, z),
+            (n * ny * zo, ny * zo, zo))
+    _axis_apply(fft_x_to_padded, mode, xr3, xi3, yr, yi, geom, n, stages,
+                tab, 0)
+    return yr, yi
+
+
+def _untangle_plain(vr, vi, w):
+    """The r2c untangle of V = DFT_M(v) (natural order, (..., M)) into the
+    packed half-spectrum: X[k] = E - i W^k O with E, O = (V[k] +- conj
+    V[M-k]) / 2, and row 0 = (Re V0 + Im V0) + i (Re V0 - Im V0)."""
+    m = vr.shape[-1]
+    rev = (-torch.arange(m, device=vr.device)) % m
+    br, bi = vr[..., rev], -vi[..., rev]
+    er, ei = (vr + br) * 0.5, (vi + bi) * 0.5
+    orr, oi = (vr - br) * 0.5, (vi - bi) * 0.5
+    wr, wi = w[:, 0], w[:, 1]
+    xr = er + wr * oi + wi * orr
+    xi = ei - wr * orr + wi * oi
+    xr[..., 0] = vr[..., 0] + vi[..., 0]
+    xi[..., 0] = vr[..., 0] - vi[..., 0]
+    return xr, xi
+
+
+def _retangle_plain(xr, xi, ab):
+    """The c2r re-tangle V[k] = a[k] X[k] + b[k] conj X[(M-k) mod M] with
+    the (M, 2, 2) table of ``tables.crfft_table``."""
+    m = xr.shape[-1]
+    rev = (-torch.arange(m, device=xr.device)) % m
+    cr, ci = xr[..., rev], -xi[..., rev]
+    a_r, a_i, b_r, b_i = ab[:, 0, 0], ab[:, 0, 1], ab[:, 1, 0], ab[:, 1, 1]
+    return (a_r * xr - a_i * xi + b_r * cr - b_i * ci,
+            a_r * xi + a_i * xr + b_r * ci + b_i * cr)
+
+
+@_dispatching(arity=1)
+def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
+                 precision: str = DEFAULT_PRECISION, zpad: int = 0,
+                 block_rows: int = 0, tables=None):
+    """r2c along z, then c2c along y, of real (..., Y, N) float32 in one
+    launch (kernel ``csrc/rfft_slab.cu``): the packed planar half-spectrum
+    (..., Y, M + zpad), M = N/2, whose plane 0 carries X[0] + i X[M].
+    Unscaled. The ``zpad`` pad lanes are allocated and never written;
+    ``block_rows`` is accepted for parity and ignored (one CUDA block owns
+    one x-row)."""
+    ny, n = x.shape[-2], x.shape[-1]
+    if n % 2:
+        raise ValueError(f"rfft slab needs an even N, got {n}")
+    m = n // 2
+    sy, sz = _stages(ny, rad_y), _stages(m, rad_z)
+    ts = _tables(tables, x.device)
+    tabz = ts.get("core", m, sz, False, 1.0)
+    taby = ts.get("core", ny, sy, False, 1.0)
+    w = ts.get("rfft", n)
+    lead = x.shape[:-2]
+    shp = (*lead, ny, m + zpad)
+    yr = torch.empty(shp, dtype=x.dtype, device=x.device)
+    yi = torch.empty(shp, dtype=x.dtype, device=x.device)
+    if mode == "shape":
+        return yr, yi
+    p = math.prod(lead)
+    if mode == "plain":
+        rfft_slab_yz.plain_calls += 1
+        v = x.reshape(*lead, ny, m, 2)
+        ar, ai = _core_plain(v[..., 0], v[..., 1], tabz, m, sz)
+        ar, ai = _untangle_plain(ar, ai, w)
+        ar, ai = _core_plain(ar.transpose(-1, -2), ai.transpose(-1, -2),
+                             taby, ny, sy)
+        yr[..., :m].copy_(ar.transpose(-1, -2))
+        yi[..., :m].copy_(ai.transpose(-1, -2))
+        return yr, yi
+    if p * ny * m == 0:
+        return yr, yi
+    if x.data_ptr() % 8:
+        # the kernel reads (x[2j], x[2j+1]) as one float2
+        raise ValueError("rfft_slab_yz needs an 8-byte aligned input")
+    roots = sum(sz) + sum(sy)
+    tz = _rows_tile(m, 0, roots)
+    ty = _cols_tile(ny, 0, roots)
+    _launch("offt_rfft_slab", (x, yr, yi), (tabz, taby, w),
+            [p, ny, m, m + zpad, *_radix_args(sz), *_radix_args(sy), tz, ty])
+    rfft_slab_yz.launches += 1
+    return yr, yi
+
+
+@_dispatching
+def irfft_slab_yz(mode, xr, xi, n: int, rad_y=None, rad_z=None,
+                  precision: str = DEFAULT_PRECISION, scale: float = 1.0,
+                  block_rows: int = 0, side_r=None, side_i=None,
+                  tables=None):
+    """Inverse c2c along y, then c2r along z, of a packed planar
+    (..., Y, M + pad) half-spectrum in one launch (kernel
+    ``csrc/irfft_slab.cu``): the real (..., Y, N) result, N = ``n`` = 2M.
+    Input lanes past M are skipped. ``scale`` rides the re-tangle table
+    (row 0 included); the cores are unscaled, so the exact inverse of
+    unscaled x and y passes takes 1/(Nx*Ny*M). ``side_r``/``side_i``, of
+    shape (..., Y), are a Nyquist plane injected into plane 0 as
+    + i*side before the y pass. ``block_rows`` is ignored."""
+    ny, lanes = xr.shape[-2], xr.shape[-1]
+    m = n // 2
+    if n != 2 * m or m > lanes:
+        raise ValueError(f"N={n} needs an even length with N/2 <= {lanes} "
+                         "input lanes")
+    lead = xr.shape[:-2]
+    p = math.prod(lead)
+    if (side_r is None) != (side_i is None):
+        raise ValueError("side_r and side_i come together")
+    if side_r is not None:
+        _mode(xr, side_r, side_i)
+        if side_r.numel() != p * ny or side_i.numel() != p * ny:
+            raise ValueError(f"side plane of {side_r.numel()} values, want "
+                             f"{p * ny}")
+    sy, sz = _stages(ny, rad_y), _stages(m, rad_z)
+    ts = _tables(tables, xr.device)
+    tabz = ts.get("core", m, sz, True, 1.0)
+    taby = ts.get("core", ny, sy, True, 1.0)
+    ab = ts.get("crfft", n, scale)
+    out = torch.empty((*lead, ny, n), dtype=xr.dtype, device=xr.device)
+    if mode == "shape":
+        return out
+    if mode == "plain":
+        irfft_slab_yz.plain_calls += 1
+        ar, ai = xr[..., :m], xi[..., :m]
+        if side_r is not None:
+            ar, ai = ar.clone(), ai.clone()
+            ar[..., 0] -= side_i.reshape(*lead, ny)
+            ai[..., 0] += side_r.reshape(*lead, ny)
+        ar, ai = _core_plain(ar.transpose(-1, -2), ai.transpose(-1, -2),
+                             taby, ny, sy)
+        ar, ai = _retangle_plain(ar.transpose(-1, -2), ai.transpose(-1, -2),
+                                 ab)
+        ar, ai = _core_plain(ar, ai, tabz, m, sz)
+        out.copy_(torch.stack([ar, ai], -1).reshape(out.shape))
+        return out
+    if p * ny * m == 0:
+        return out
+    roots = sum(sz) + sum(sy)
+    tz = _rows_tile(m, 0, roots)
+    ty = _cols_tile(ny, 0, roots)
+    _launch("offt_irfft_slab", (xr, xi, side_r, side_i, out),
+            (tabz, taby, ab),
+            [p, ny, m, lanes, *_radix_args(sz), *_radix_args(sy), tz, ty])
+    irfft_slab_yz.launches += 1
+    return out
+
+
+@_dispatching
+def _assemble_mp1(mode, yr, yi, ar, ai, br, bi):
+    """Packed planar (..., Y, M) plus the split planes a (k = 0) and b
+    (k = M), planar pairs of shape (..., Y), into the numpy layout
+    (..., Y, M + 1) in one pass (kernel ``csrc/assemble_mp1.cu``): lane 0
+    takes a, lane M takes b, lanes 1..M-1 are copied."""
+    _mode(yr, ar, ai, br, bi)
+    m = yr.shape[-1]
+    planes = yr.numel() // max(m, 1)
+    if any(t.numel() != planes for t in (ar, ai, br, bi)):
+        raise ValueError(f"planes a, b need {planes} values each")
+    shp = (*yr.shape[:-1], m + 1)
+    o_r = torch.empty(shp, dtype=yr.dtype, device=yr.device)
+    o_i = torch.empty(shp, dtype=yr.dtype, device=yr.device)
+    if mode == "shape":
+        return o_r, o_i
+    if mode == "plain":
+        _assemble_mp1.plain_calls += 1
+        for o, y, lo, hi in ((o_r, yr, ar, br), (o_i, yi, ai, bi)):
+            o[..., :m].copy_(y)
+            o[..., 0].copy_(lo.reshape(o.shape[:-1]))
+            o[..., m].copy_(hi.reshape(o.shape[:-1]))
+        return o_r, o_i
+    if planes:
+        _launch("offt_assemble_mp1", (yr, yi, ar, ai, br, bi, o_r, o_i), (),
+                [planes, m])
+        _assemble_mp1.launches += 1
+    return o_r, o_i
+
+
 WRAPPERS = (fft_last, fft_sublane, _sublane_nd, fft_slab_yz,
-            fft_x_from_padded)
+            fft_x_from_padded, fft_x_to_padded, rfft_slab_yz, irfft_slab_yz,
+            _assemble_mp1)
 
 
 def reset_counts() -> None:
@@ -638,3 +891,90 @@ def fft3d_planar(xr, xi, inverse: bool = False, rad_z=None, rad_y=None,
     xr, xi = fft_1d_planar(xr, xi, ay, inverse=True, radices=rad_y, **kw)
     return fft_1d_planar(xr, xi, az, inverse=True, radices=rad_z,
                          out_scale=out_scale, **kw)
+
+
+# --------------------------------------------------------------------------
+# packed r2c / c2r over the last three axes (the reference's routing)
+# --------------------------------------------------------------------------
+
+def _plane0_split(yr, yi):
+    """Split the packed plane 0 (= fft_xy(X_0) + i fft_xy(X_M)) into the
+    true k = 0 and k = M planes by 2-D conjugate symmetry; complex (a, b)
+    of shape (..., X, Y). Plain torch ops, as the reference's are plain
+    jnp (pallas_fft.py:1989)."""
+    p = torch.complex(yr[..., 0], yi[..., 0])
+    rev = torch.roll(torch.flip(p, (-2, -1)), (1, 1), (-2, -1)).conj()
+    return 0.5 * (p + rev), -0.5j * (p - rev)
+
+
+def unpack_rfft3d(yr, yi):
+    """The packed half-spectrum (..., M) to the numpy rfftn layout
+    (..., M + 1): the plane-0 split, then one assembly pass."""
+    a, b = _plane0_split(yr, yi)
+    return _assemble_mp1(yr, yi, a.real.contiguous(), a.imag.contiguous(),
+                         b.real.contiguous(), b.imag.contiguous())
+
+
+def pack_rfft3d(yr, yi):
+    """A numpy-layout half-spectrum (..., M + 1) to the packed (..., M)
+    form (plane 0 := plane 0 + i plane M). Plain torch ops."""
+    m = yr.shape[-1] - 1
+    pr = yr[..., :1] - yi[..., m:m + 1]
+    pi = yi[..., :1] + yr[..., m:m + 1]
+    return (torch.cat([pr, yr[..., 1:m]], dim=-1),
+            torch.cat([pi, yi[..., 1:m]], dim=-1))
+
+
+def rfft3d_planar(x, rad_z=None, rad_y=None, rad_x=None,
+                  precision: str = DEFAULT_PRECISION, slab_rows: int = 0,
+                  packed: bool = False, x_tile=None, out_scale: float = 1.0,
+                  tables=None):
+    """Full 3-D r2c of real (..., X, Y, N) float32: the r2c + y slab into a
+    Z-padded packed intermediate, then the pitched x pass at M = N/2 lanes,
+    whose tables carry ``out_scale``. Returns the packed (..., X, Y, M)
+    pair with ``packed=True``, else the numpy (..., X, Y, M + 1) layout
+    via ``unpack_rfft3d``. ``rad_z`` factors M."""
+    m = x.shape[-1] // 2
+    yr, yi = rfft_slab_yz(x, rad_y=rad_y, rad_z=rad_z, precision=precision,
+                          zpad=_STRIDE_PAD, block_rows=slab_rows,
+                          tables=tables)
+    ty, tz = x_tile or (8, 128)
+    yr, yi = fft_x_from_padded(yr, yi, m, radices=rad_x, precision=precision,
+                               scale=out_scale, ty=ty, tz=tz, tables=tables)
+    if packed:
+        return yr, yi
+    return unpack_rfft3d(yr, yi)
+
+
+def irfft3d_planar(xr, xi, nz: int = 0, rad_z=None, rad_y=None, rad_x=None,
+                   precision: str = DEFAULT_PRECISION, slab_rows: int = 0,
+                   packed: bool = False, x_tile=None, out_scale: float = 1.0,
+                   tables=None):
+    """Full 3-D c2r of a planar half-spectrum, numpy layout (..., M + 1) or
+    with ``packed=True`` the packed (..., M), to real (..., X, Y, N): the
+    inverse x pass into a Z-padded intermediate, then the inverse y + c2r
+    slab, whose re-tangle table carries out_scale / (X * Y * M). In the
+    numpy layout the Nyquist plane takes an unscaled x inverse of its own
+    and is injected into plane 0 inside the slab, so the M + 1 lanes are
+    never carried past the x pass."""
+    lanes = xr.shape[-1]
+    m = lanes if packed else lanes - 1
+    n = nz or 2 * m
+    nx, ny = xr.shape[-3], xr.shape[-2]
+    side_r = side_i = None
+    if not packed:
+        # the strided Nyquist lane, made contiguous: one X*Y plane
+        side_r, side_i = fft_1d_planar(
+            xr[..., m].contiguous(), xi[..., m].contiguous(), axis=-2,
+            inverse=True, radices=rad_x, scale=False, precision=precision,
+            tables=tables)
+    ty, tz = x_tile or (8, 128)
+    xr, xi = fft_x_to_padded(xr, xi, zpad=_STRIDE_PAD, inverse=True,
+                             radices=rad_x, precision=precision,
+                             z_true=0 if packed else m, ty=ty, tz=tz,
+                             tables=tables)
+    return irfft_slab_yz(xr, xi, n, rad_y=rad_y, rad_z=rad_z,
+                         precision=precision,
+                         scale=out_scale / (nx * ny * m),
+                         block_rows=slab_rows, side_r=side_r, side_i=side_i,
+                         tables=tables)

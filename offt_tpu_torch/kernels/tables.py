@@ -20,6 +20,12 @@ are (re, im) pairs):
 The values are built in float64 with the same formula as
 ``dft.dft_matrix`` and cast once, so ``W_r^m`` equals
 ``dft.dft_matrix(r)[1, m]`` exactly.
+
+The r2c / c2r path adds two diagonal tables (:func:`rfft_table`,
+:func:`crfft_table`). The reference also builds dense (2M, 2M) untangle
+matrices and a "dual transform" because Mosaic has no reversal
+primitive; a CUDA block reads ``V[(M - k) mod M]`` from shared memory
+directly, so the diagonals serve every M.
 """
 
 from __future__ import annotations
@@ -115,5 +121,41 @@ def core_table(n: int, radices: tuple, inverse: bool,
         parts.append(w * scale if s == len(stages) - 1 else w)
     c = np.concatenate(parts)
     out = np.stack([c.real, c.imag], axis=-1).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def rfft_table(n: int) -> np.ndarray:
+    """The r2c untangle twiddles ``W_n^k = exp(-2i pi k / n)`` for
+    k < M = n/2, as an (M, 2) f32 array of (re, im): the values of the
+    reference's ``_rfft_tables`` (pallas_fft.py:1631). Read-only."""
+    k = np.arange(n // 2, dtype=np.float64)
+    ang = 2.0 * np.pi * k / n
+    out = np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def crfft_table(n: int, scale: float = 1.0) -> np.ndarray:
+    """The c2r re-tangle of a packed half-spectrum X (plane 0 carries
+    A + iB with A = X[0], B = X[M]) as an (M, 2, 2) f32 array: row k holds
+    (alpha'[k], beta'[k]) as (re, im) pairs, each times ``scale``, and
+
+        V[k] = alpha'[k] X[k] + beta'[k] conj(X[(M - k) mod M])
+
+    with alpha' = (1 + i W_n^-k)/2 and beta' = (1 - i W_n^-k)/2. Row 0 is
+    alpha' = 0, beta' = (1 + i)/2, which gives the packed rule
+    V[0] = s((A + B)/2 + i(A - B)/2). This is the diagonal form of the
+    reference's ``_crfft_g_matrix`` (:1839) and ``_crfft_dual_tables``
+    (:1779). Read-only."""
+    m = n // 2
+    th = 2.0 * np.pi * np.arange(m) / n
+    ar, ai = (1.0 - np.sin(th)) * 0.5, np.cos(th) * 0.5
+    br, bi = (1.0 + np.sin(th)) * 0.5, -np.cos(th) * 0.5
+    ar[0], ai[0], br[0], bi[0] = 0.0, 0.0, 0.5, 0.5
+    out = np.stack([np.stack([ar, ai], -1), np.stack([br, bi], -1)], 1)
+    out = (out * scale).astype(np.float32)
     out.flags.writeable = False
     return out

@@ -2,7 +2,7 @@
 
 ``PlanParams`` and ``ProblemSpec`` keep the reference's fields and
 defaults, so cache and tuner entries map one to one
-(:func:`from_reference`). This slice reads ``radix_x/y/z``,
+(:func:`from_reference`). The ported slices read ``radix_x/y/z``,
 ``use_pallas``, ``precision``, ``block_batch``, ``slab_rows`` and
 ``x_tile``; the distributed knobs (``p1``, ``t1``/``t2``, ``w1``/``w2``,
 ``ry``, ``s1``/``s2``, ``rankorder``, ``v``) and ``split_1d`` are carried
@@ -105,7 +105,8 @@ class ProblemSpec:
 def default_params(spec: ProblemSpec) -> PlanParams:
     """The single-device default point. ``use_pallas`` resolves from the
     config key (-1 auto / 0 off / 1 force): auto enables the kernels when
-    every axis passes ``can_use_pallas``. That holds on a CUDA device and
+    every axis passes ``can_use_pallas`` (z of a real transform may pass
+    on Nz/2 instead). That holds on a CUDA device and
     on the CPU alike, since the port's only route is the kernels' (on the
     CPU, their plain versions). ``precision`` "auto" resolves to
     "highest", which is what every value computes at on the card."""
@@ -115,10 +116,16 @@ def default_params(spec: ProblemSpec) -> PlanParams:
     if spec.p != 1:
         raise NotImplementedError("distributed plans are ROADMAP Queue 1 "
                                   "item 14")
+    nx, ny, nz = spec.shape
     up_cfg = int(_cfg.get("use_pallas"))
     use_pallas = max(up_cfg, 0)
-    if (up_cfg < 0 and spec.dtype in ("complex64", "float32")
-            and all(can_use_pallas(n) for n in spec.shape)):
+    # a real transform runs a half-length z core, so z may also pass on
+    # Nz/2 (the reference keys its four-step fallback on it; the port's
+    # only real route is the packed r2c/c2r kernels, whose z core is M)
+    zok = can_use_pallas(nz) or (spec.real and nz % 2 == 0
+                                 and can_use_pallas(nz // 2))
+    if (up_cfg < 0 and spec.dtype in ("complex64", "float32") and zok
+            and can_use_pallas(nx) and can_use_pallas(ny)):
         use_pallas = 1
     precision = str(_cfg.get("precision"))
     if precision == "auto":

@@ -31,13 +31,15 @@ def _pair(shape, dev, seed=0):
 def _card_check(fn, call, shape, dev, lanes=None):
     """One launch of ``fn`` against its plain version on the same inputs:
     max |kernel - plain| / max |plain| <= 1e-6 (f32 on both sides; the
-    sums run in other orders)."""
+    sums run in other orders). A single-tensor result counts as one."""
     x = _pair(shape, dev)
     ff.reset_counts()
     got = call(fn, x)
     want = call(fn.plain, x)
     torch.cuda.synchronize()
     assert sum(c[0] for c in ff.counts().values()) == 1
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
     for g, w in zip(got, want):
         if lanes:
             g, w = g[..., :lanes], w[..., :lanes]
@@ -104,3 +106,76 @@ def test_cuda_plan_against_fftn(cuda_dev, shape, inverse):
     y = torch.complex(yr.double(), yi.double())
     assert (torch.linalg.vector_norm(y - ref)
             / torch.linalg.vector_norm(ref)).item() < 1e-6
+
+
+# ---- the packed r2c / c2r slice -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 16, 256), (2, 8, 512)])
+def test_cuda_rfft_slab_yz(cuda_dev, shape):
+    _card_check(ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8), shape,
+                cuda_dev, lanes=shape[-1] // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [False, True])
+@pytest.mark.parametrize("shape", [(4, 16, 136), (2, 8, 264)])
+def test_cuda_irfft_slab_yz(cuda_dev, shape, side):
+    n = 2 * (shape[-1] - 8)
+    s = _pair(shape[:-1], cuda_dev, seed=2) if side else (None, None)
+    _card_check(ff.irfft_slab_yz,
+                lambda f, x: f(*x, n, scale=1.0 / (shape[1] * n // 2),
+                               side_r=s[0], side_i=s[1]),
+                shape, cuda_dev)
+
+
+@pytest.mark.cuda
+def test_cuda_assemble_mp1(cuda_dev):
+    a = _pair((4, 16), cuda_dev, seed=3) + _pair((4, 16), cuda_dev, seed=4)
+    _card_check(ff._assemble_mp1, lambda f, x: f(*x, *a), (4, 16, 128),
+                cuda_dev)
+
+
+@pytest.mark.cuda
+def test_cuda_fft_x_to_padded(cuda_dev):
+    _card_check(ff.fft_x_to_padded,
+                lambda f, x: f(*x, z_true=128, inverse=True), (16, 32, 129),
+                cuda_dev, lanes=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 256), (4, 8, 512),
+                                   (2, 8, 16, 256)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_real_plan_against_rfftn(cuda_dev, shape, packed):
+    bd = len(shape) - 3
+    dims = (-3, -2, -1)
+    kw = {"real": True, "planar": True, "packed": packed, "norm": "ortho",
+          "batch_dims": bd, "device": cuda_dev}
+    x = _pair(shape, cuda_dev, seed=5)[0]
+    fwd = ot.plan(shape[bd:], "float32", **kw)
+    inv = ot.plan(shape[bd:], "float32", inverse=True, **kw)
+    ref = torch.fft.rfftn(x.double(), dim=dims, norm="ortho")
+    ff.reset_counts()
+    yr, yi = fwd(x)
+    back = inv(yr, yi)
+    launched = {k for k, c in ff.counts().items() if c[0]}
+    assert sum(c[1] for c in ff.counts().values()) == 0
+    assert {"rfft_slab_yz", "fft_x_from_padded", "fft_x_to_padded",
+            "irfft_slab_yz"} <= launched
+    assert ("_assemble_mp1" in launched) == (not packed)
+    assert back.shape == shape
+    spec = ot.unpack_rfft3d(yr, yi) if packed else (yr, yi)
+    y = torch.complex(spec[0].double(), spec[1].double())
+    assert (torch.linalg.vector_norm(y - ref)
+            / torch.linalg.vector_norm(ref)).item() < 1e-6
+    # the inverse of the exact spectrum, against irfftn
+    w = ref.to(torch.complex64)
+    wr, wi = w.real.contiguous(), w.imag.contiguous()
+    if packed:
+        wr, wi = (t.contiguous() for t in ot.pack_rfft3d(wr, wi))
+    back = inv(wr, wi)
+    want = torch.fft.irfftn(w.to(torch.complex128), s=shape[bd:], dim=dims,
+                            norm="ortho")
+    assert (torch.linalg.vector_norm(back.double() - want)
+            / torch.linalg.vector_norm(want)).item() < 1e-6

@@ -33,7 +33,8 @@ SHAPES = {
     (1, 32, 64): (None, (8, 4), (8, 8)),          # 2-D route
 }
 ROUTED = ("fft_last", "fft_sublane", "_sublane_nd", "fft_slab_yz",
-          "fft_x_from_padded")
+          "fft_x_from_padded", "fft_x_to_padded", "rfft_slab_yz",
+          "irfft_slab_yz", "_assemble_mp1")
 
 
 def rel_err(a, b):
@@ -172,7 +173,7 @@ def test_plan_is_a_module_with_table_buffers():
 
 
 def test_plan_refuses_what_is_not_ported():
-    for kw in ({"real": True}, {"packed": True}, {"mesh": object()},
+    for kw in ({"real": True}, {"mesh": object()},
                {"batch_sharded": True}, {"donate": True},
                {"params": PlanParams(use_pallas=0)},
                {"params": PlanParams(use_pallas=1, split_1d=(8, 8))}):
@@ -189,6 +190,8 @@ def test_plan_refuses_what_is_not_ported():
                 params=PlanParams(use_pallas=1, radix_x=(4, 4)))
     with pytest.raises(ValueError):
         ot.plan((8, 8, 8), "complex64", in_place=True, device="cpu")
+    with pytest.raises(ValueError):     # packed is a layout of real plans
+        ot.plan((8, 8, 8), "complex64", packed=True, device="cpu")
 
 
 def test_plan_reads_the_cache(tmp_path, monkeypatch):
