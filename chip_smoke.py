@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive offt_tpu_torch's main path once on one NVIDIA GPU and check it.
+"""Drive offt_tpu_torch's main paths once on one NVIDIA GPU and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -13,22 +13,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    small shape and at the main-path shape (max |kernel - plain| /
    max |plain| <= 1e-6, pad lanes excluded, float32 matmuls pinned to
    full precision);
-3. the two main paths through ``offt_tpu_torch.plan`` on the card: the
-   planar c2c path, each result against a complex128 ``torch.fft.fftn``,
-   and the packed r2c/c2r path (``real=True``, numpy and packed layouts),
-   each result against a complex128 ``torch.fft.rfftn`` / ``irfftn``
-   (||y - ref|| / ||ref|| <= 1e-6). Each path runs with the launch
-   counters zeroed just before it and read just after;
+3. the four paths through ``offt_tpu_torch.plan`` on the card, each
+   result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
+   1e-6), each path run with the launch counters zeroed just before it
+   and read just after:
+   a. the planar c2c path (``fftn``);
+   b. the packed r2c/c2r path (``real=True``, numpy and packed layouts;
+      ``rfftn`` / ``irfftn``);
+   c. long 1-D c2c, ``plan((1, 1, N))`` by the four-step kernels, at
+      2^20 (forward, inverse, an ortho round trip), 8 x 2^20, 2^22, 2^24,
+      3 * 2^18 (the measured split), 10^6 (the 4-pass route) and one
+      complex64 (``planar=False``) case (``fft`` / ``ifft``);
+   d. the unfused real route: 256^3 with ``planar=False``, 192^3 outside
+      the packed gate and a long real 1-D (1, 1, 2^21) (``rfftn`` /
+      ``irfftn``);
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did;
-5. CUDA-event times: the port against cuFFT (``torch.fft.fftn``,
-   ``rfftn``, ``irfftn``) at 256^3 and 512^3, each kernel against its
-   plain version, the two x routes at 256^3, and the slab kernel against
-   the unfused z + y passes.
+5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
+   512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24; ``rfft`` at 2^21;
+   ``rfftn`` against the 256^3 ``planar=False`` plan and the packed
+   route), both split orders at 3 * 2^18, and each kernel against its
+   plain version and the one PyTorch call that computes its function;
+   ``torch.profiler`` breakdowns of the long 1-D and unfused real plans
+   (device time by op, busy share of the host wall).
 
-The line before the last is one JSON object with each kernel's numbers;
-the last is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits non-zero and prints no result.
+The line before the last is one JSON object with each kernel's numbers:
+its launches on the main paths, its error, its time, its plain version's
+and the library call's times, and its bound (the larger of its bytes at
+3.35 TB/s and its f32 operations at 67 TFLOP/s, from the shapes of this
+run). The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -43,7 +58,9 @@ import time
 import torch
 
 TOL_KERNEL = 1e-6   # kernel vs plain, max-abs relative
-TOL_PATH = 1e-6     # plan vs complex128 fftn, norm relative (fp32 bar)
+TOL_PATH = 1e-6     # plan vs complex128 torch.fft, norm relative (fp32 bar)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at 700 W
+F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores, the same sheet
 
 
 def _card() -> str:
@@ -77,14 +94,139 @@ def _max_err(got, want, lanes=None):
 
 
 def _rel_err(yr, yi, ref) -> float:
-    """||y - ref|| / ||ref|| of a planar pair, or of a real tensor when
-    ``yi`` is None."""
-    y = yr.double() if yi is None else torch.complex(yr.double(),
-                                                      yi.double())
+    """||y - ref|| / ||ref|| of a planar pair, or of one tensor (real or
+    complex) when ``yi`` is None."""
+    y = yr.to(ref.dtype) if yi is None else torch.complex(yr.double(),
+                                                          yi.double())
     if not torch.isfinite(y).all():
         raise AssertionError("non-finite transform output")
     return (torch.linalg.vector_norm(y - ref)
             / torch.linalg.vector_norm(ref)).item()
+
+
+def _fft_flops(n: int) -> float:
+    """f32 operations per complex element of one length-n c2c, by the
+    5 n log2(n) convention (the operations the transform needs, not what
+    the dense-DFT core happens to execute)."""
+    return 5 * math.log2(n)
+
+
+def _table_bytes(n: int) -> int:
+    from offt_tpu_torch.kernels import tables as tb
+    return 8 * (n + sum(tb.core_stages(tb._pick_stages(n))))
+
+
+def _work(name: str, shape) -> tuple:
+    """(bytes, f32 flops) a kernel must move and do at its timed shape:
+    each input read once (data and tables), each output written once; a
+    length-n c2c at 5 n log2(n), an r2c or c2r at 2.5 n log2(n) (5 log2(n)
+    per half-length element), the four-step twiddle at 6 flops, the
+    untangle and re-tangle at 10 and 16 per output."""
+    if name == "fft_last":
+        b, n = shape
+        e = b * n
+        return 16 * e + _table_bytes(n), e * _fft_flops(n)
+    if name == "fft_axis":                  # x from the padded (X, Y, Z+8)
+        x, y, zp = shape
+        e = x * y * (zp - 8)
+        return 16 * e + _table_bytes(x), e * _fft_flops(x)
+    if name == "fft_slab":
+        p, y, z = shape
+        e = p * y * z
+        return (16 * e + _table_bytes(y) + _table_bytes(z),
+                e * (_fft_flops(z) + _fft_flops(y)))
+    if name == "rfft_slab":
+        p, y, n = shape
+        e = p * y * (n // 2)
+        return (4 * p * y * n + 8 * e + _table_bytes(y)
+                + _table_bytes(n // 2) + 4 * n,
+                e * (_fft_flops(n) + 10 + _fft_flops(y)))
+    if name == "irfft_slab":                # (P, Y, M + 8) -> (P, Y, 2M)
+        p, y, mp = shape
+        m = mp - 8
+        e = p * y * m
+        return (8 * e + 8 * p * y + 8 * e + _table_bytes(y) + _table_bytes(m)
+                + 16 * m, e * (_fft_flops(y) + 16 + _fft_flops(2 * m)))
+    if name == "assemble_mp1":
+        p, y, m = shape
+        return 8 * p * y * m + 16 * p * y + 8 * p * y * (m + 1), 0
+    if name == "rfft_last":                 # numpy layout
+        b, n = shape
+        m = n // 2
+        return (4 * b * n + 8 * b * (m + 1) + _table_bytes(m) + 4 * n,
+                b * m * (_fft_flops(n) + 10))
+    if name == "step1_twiddle":
+        b, n1, n2 = shape
+        e = b * n1 * n2
+        return (16 * e + 8 * n1 * n2 + _table_bytes(n1),
+                e * (_fft_flops(n1) + 6))
+    if name == "step3_transposed":
+        b, n1, n2 = shape
+        e = b * n1 * n2
+        return 16 * e + _table_bytes(n2), e * _fft_flops(n2)
+    raise KeyError(name)
+
+
+def _bound(name: str, shape) -> tuple:
+    """(bound ms, "bytes" or "operations") at the card's published peaks."""
+    return _roofline(*_work(name, shape))
+
+
+def _roofline(nbytes: int, flops: int) -> tuple:
+    tb_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    tf_ms = flops / F32_FLOP_PER_S * 1e3
+    return (tb_ms, "bytes") if tb_ms >= tf_ms else (tf_ms, "operations")
+
+
+def _library(name: str, shape, gen):
+    """(label, fn, args) of the one PyTorch call that computes a kernel's
+    function at its timed shape, or None. Timed only; the port never
+    calls it."""
+    fft = torch.fft
+    if name == "fft_last":
+        return "fft(dim=-1)", fft.fft, (torch.complex(*_pair(shape, gen)),
+                                        None, -1)
+    if name == "fft_axis":
+        x, y, zp = shape
+        return "fft(dim=0)", fft.fft, (
+            torch.complex(*_pair((x, y, zp - 8), gen)), None, 0)
+    if name == "fft_slab":
+        return "fft2", fft.fft2, (torch.complex(*_pair(shape, gen)),)
+    if name == "rfft_slab":
+        return "rfft2", fft.rfft2, (torch.randn(shape, generator=gen,
+                                                device="cuda"),)
+    if name == "irfft_slab":
+        p, y, mp = shape
+        m = mp - 8
+        w = fft.rfft2(torch.randn((p, y, 2 * m), generator=gen,
+                                  device="cuda"))
+        return "irfft2", fft.irfft2, (w, (y, 2 * m))
+    if name == "rfft_last":
+        return "rfft", fft.rfft, (torch.randn(shape, generator=gen,
+                                              device="cuda"),)
+    if name in ("step1_twiddle", "step3_transposed"):
+        # the four-step pair computes the whole 1-D transform
+        return "fft of the whole 1-D", fft.fft, (
+            torch.complex(*_pair((math.prod(shape),), gen)),)
+    return None
+
+
+def _short(op: str) -> str:
+    """A device op's name without its C++ signature: the port's kernel,
+    or the innermost functor that names a PyTorch elementwise kernel."""
+    if op.startswith("offt::"):
+        return op.split("(")[0]
+    names = re.findall(r"\w*Functor\w*|\w+_kernel_cuda|CatArray\w*", op)
+    return names[-1] if names else op[:48]
+
+
+def _window(ff, run) -> tuple:
+    """Zero the counters, run one path, synchronise, read the counters:
+    ({wrapper: (launches, plain calls)}, {kernel: launches})."""
+    ff.reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (ff.counts(), {k: ff.kernel_launches(k) for k in ff.KERNELS})
 
 
 def main() -> int:
@@ -95,9 +237,11 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import offt_tpu_torch as ot
     from offt_tpu_torch.kernels import _build
+    from offt_tpu_torch.kernels import fourstep as fs
     from offt_tpu_torch.kernels import fused_fft as ff
-    from offt_tpu_torch.obs.profile import time_cuda
+    from offt_tpu_torch.obs.profile import device_breakdown, time_cuda
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -128,6 +272,15 @@ def main() -> int:
     def assemble(planes):
         ab = _pair(planes, gen) + _pair(planes, gen)
         return lambda f, x: f(*x, *ab)
+
+    def step1(n1, n2, **kw):
+        return lambda f, x: f(*x, n1, n2, None, False, **kw)
+
+    def step3(n1, n2, **kw):
+        return lambda f, x: f(*x, n1, n2, None, False, **kw)
+
+    def rlast(packed):
+        return lambda f, x: f(x[0], packed=packed)
     # the last check of each kernel is at its main-path shape and is the
     # one timed in phase 5
     checks = [
@@ -165,6 +318,18 @@ def main() -> int:
          None),
         ("assemble_mp1", ff._assemble_mp1, assemble((256, 256)),
          (256, 256, 128), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 256), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(False), (37, 256), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(True), (65536, 256), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(False), (65536, 256), None),
+        ("step1_twiddle", fs._step1_twiddle, step1(128, 256, scale=0.5),
+         (2, 128, 256), None),
+        ("step1_twiddle", fs._step1_twiddle, step1(1024, 1024),
+         (1, 1024, 1024), None),
+        ("step3_transposed", fs._step3_transposed, step3(128, 256),
+         (2, 128, 256), None),
+        ("step3_transposed", fs._step3_transposed, step3(1024, 1024),
+         (1, 1024, 1024), None),
     ]
     per_kernel = {}
     for name, fn, call, shape, lanes in checks:
@@ -183,6 +348,9 @@ def main() -> int:
         info["shape"] = shape
         info["call"] = (fn, call)
         del x, got, want
+    missing = set(ff.KERNELS) - set(per_kernel)
+    if missing:
+        raise AssertionError(f"kernels without a check: {sorted(missing)}")
 
     # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
@@ -198,22 +366,23 @@ def main() -> int:
     inputs = {}
     for label, shape, bd, inv, norm, inp in cases:
         inputs[label] = _pair(shape, gen)
-    results = {}
-    ff.reset_counts()
-    for label, shape, bd, inv, norm, inp in cases:
-        xr, xi = inputs[label]
-        if inp:
-            xr, xi = xr.clone(), xi.clone()
-        p = ot.plan(shape[bd:], "complex64", planar=True, inverse=inv,
-                    norm=norm, batch_dims=bd, in_place=inp)
-        results[label] = p((xr, xi))
-    # round trip: the ortho inverse of the ortho forward
-    pinv = ot.plan((256, 256, 256), "complex64", planar=True, inverse=True,
-                   norm="ortho")
-    results["256^3 round trip"] = pinv(results["256^3 fwd ortho"])
-    torch.cuda.synchronize()
-    runs = {"c2c": (ff.counts(),
-                    {k: ff.kernel_launches(k) for k in ff.KERNELS})}
+
+    def run_c2c():
+        out = {}
+        for label, shape, bd, inv, norm, inp in cases:
+            xr, xi = inputs[label]
+            if inp:
+                xr, xi = xr.clone(), xi.clone()
+            p = ot.plan(shape[bd:], "complex64", planar=True, inverse=inv,
+                        norm=norm, batch_dims=bd, in_place=inp)
+            out[label] = p((xr, xi))
+        # round trip: the ortho inverse of the ortho forward
+        pinv = ot.plan((256, 256, 256), "complex64", planar=True,
+                       inverse=True, norm="ortho")
+        out["256^3 round trip"] = pinv(out["256^3 fwd ortho"])
+        return out
+    results, runs = {}, {}
+    results, runs["c2c"] = _window(ff, run_c2c)
     print(f"c2c path counts (launches, plain calls): {runs['c2c'][0]}")
 
     for label, shape, bd, inv, norm, inp in cases + [
@@ -264,19 +433,19 @@ def main() -> int:
             inputs[label] = (x, w)
         else:
             inputs[label] = ((x,), x)
-    results = {}
-    ff.reset_counts()
-    for label, shape, bd, inv, packed, norm in real_cases:
-        p = ot.plan(shape[bd:], "float32", real=True, planar=True,
-                    inverse=inv, packed=packed, norm=norm, batch_dims=bd)
-        results[label] = p(*inputs[label][0])
-    # round trip: the ortho c2r of the ortho r2c
-    pinv = ot.plan((256, 256, 256), "float32", real=True, planar=True,
-                   inverse=True, norm="ortho")
-    results["256^3 r2c/c2r round trip"] = pinv(results["256^3 r2c ortho"])
-    torch.cuda.synchronize()
-    runs["r2c"] = (ff.counts(),
-                   {k: ff.kernel_launches(k) for k in ff.KERNELS})
+
+    def run_r2c():
+        out = {}
+        for label, shape, bd, inv, packed, norm in real_cases:
+            p = ot.plan(shape[bd:], "float32", real=True, planar=True,
+                        inverse=inv, packed=packed, norm=norm, batch_dims=bd)
+            out[label] = p(*inputs[label][0])
+        # round trip: the ortho c2r of the ortho r2c
+        pinv = ot.plan((256, 256, 256), "float32", real=True, planar=True,
+                       inverse=True, norm="ortho")
+        out["256^3 r2c/c2r round trip"] = pinv(*out["256^3 r2c ortho"])
+        return out
+    results, runs["r2c"] = _window(ff, run_r2c)
     print(f"r2c/c2r path counts (launches, plain calls): {runs['r2c'][0]}")
 
     for label, shape, bd, inv, packed, norm in real_cases + [
@@ -314,10 +483,136 @@ def main() -> int:
     del results, inputs
     torch.cuda.empty_cache()
 
+    # ---- 3c. long 1-D c2c through plan((1, 1, N)): the four-step route -----
+    long_cases = [
+        # (label, N, batch, inverse, norm, planar)
+        ("2^20 fwd", 2 ** 20, 0, False, None, True),
+        ("2^20 inv", 2 ** 20, 0, True, None, True),
+        ("2^20 fwd ortho", 2 ** 20, 0, False, "ortho", True),
+        ("8x2^20 fwd", 2 ** 20, 8, False, None, True),
+        ("2^22 fwd", 2 ** 22, 0, False, None, True),
+        ("2^24 fwd", 2 ** 24, 0, False, None, True),
+        ("3*2^18 fwd (measured split)", 3 * 2 ** 18, 0, False, None, True),
+        ("10^6 fwd (4-pass route)", 10 ** 6, 0, False, None, True),
+        ("2^20 inv complex64", 2 ** 20, 0, True, "ortho", False),
+    ]
+    inputs = {}
+    for label, n, b, inv, norm, planar in long_cases:
+        inputs[label] = _pair(((b,) if b else ()) + (1, 1, n), gen)
+
+    def run_long():
+        out = {}
+        for label, n, b, inv, norm, planar in long_cases:
+            p = ot.plan((1, 1, n), "complex64", planar=planar, inverse=inv,
+                        norm=norm, batch_dims=1 if b else 0)
+            if p.route != "local":
+                raise AssertionError(f"{label}: route {p.route}")
+            x = inputs[label]
+            out[label] = p(x) if planar else p(torch.complex(*x))
+        pinv = ot.plan((1, 1, 2 ** 20), "complex64", planar=True,
+                       inverse=True, norm="ortho")
+        out["2^20 ortho round trip"] = pinv(out["2^20 fwd ortho"])
+        return out
+    results, runs["long1d"] = _window(ff, run_long)
+    print(f"long 1-D path counts (launches, plain calls): "
+          f"{runs['long1d'][0]}")
+    for label, n, b, inv, norm, planar in long_cases + [
+            ("2^20 ortho round trip", 2 ** 20, 0, None, None, True)]:
+        if inv is None:
+            src = inputs["2^20 fwd ortho"]
+            ref = torch.complex(src[0].double(), src[1].double())
+        else:
+            src = inputs[label]
+            x = torch.complex(src[0].double(), src[1].double())
+            f = torch.fft.ifft if inv else torch.fft.fft
+            ref = f(x, dim=-1, norm=norm)
+            del x
+        got = results[label]
+        y = got if planar else (got.real, got.imag)
+        if tuple(y[0].shape) != tuple(src[0].shape):
+            raise AssertionError(f"{label}: shape {tuple(y[0].shape)}")
+        if not planar and got.dtype != torch.complex64:
+            raise AssertionError(f"{label}: dtype {got.dtype}")
+        err = _rel_err(*y, ref)
+        print(f"path {label} (split {fs.pick_split(n)}): rel err vs "
+              f"complex128 fft {err:.3e} (tol {TOL_PATH:g}) {tag}",
+              flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"{label}: error {err:.3e}")
+        del ref, got, y
+    del results, inputs
+    torch.cuda.empty_cache()
+
+    # ---- 3d. the unfused real route through plan(real=True) ---------------
+    local_cases = [
+        # (label, shape, inverse, planar)
+        ("256^3 r2c planar=False", (256, 256, 256), False, False),
+        ("256^3 c2r planar=False", (256, 256, 256), True, False),
+        ("192^3 r2c (outside the packed gate)", (192, 192, 192), False,
+         True),
+        ("192^3 c2r (outside the packed gate)", (192, 192, 192), True, True),
+        ("(1,1,2^21) r2c", (1, 1, 2 ** 21), False, True),
+        ("(1,1,2^21) c2r", (1, 1, 2 ** 21), True, True),
+    ]
+    inputs = {}
+    for label, shape, inv, planar in local_cases:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        if inv:
+            w = torch.fft.rfftn(x.double()).to(torch.complex64)
+            arg = (w.real.contiguous(), w.imag.contiguous()) if planar \
+                else (w,)
+            inputs[label] = (arg, w)
+        else:
+            inputs[label] = ((x,), x)
+
+    def run_local():
+        out = {}
+        for label, shape, inv, planar in local_cases:
+            p = ot.plan(shape, "float32", real=True, planar=planar,
+                        inverse=inv)
+            if p.route != "local":
+                raise AssertionError(f"{label}: route {p.route}")
+            out[label] = p(*inputs[label][0])
+        return out
+    results, runs["local_real"] = _window(ff, run_local)
+    print(f"unfused real path counts (launches, plain calls): "
+          f"{runs['local_real'][0]}")
+    for label, shape, inv, planar in local_cases:
+        got = results[label]
+        if inv:
+            ref = torch.fft.irfftn(inputs[label][1].to(torch.complex128),
+                                   s=shape)
+            if tuple(got.shape) != shape or got.dtype != torch.float32:
+                raise AssertionError(f"{label}: {tuple(got.shape)} "
+                                     f"{got.dtype}")
+            err = _rel_err(got, None, ref)
+            what = "irfftn"
+        else:
+            ref = torch.fft.rfftn(inputs[label][1].double())
+            y = got if planar else (got.real, got.imag)
+            want = (*shape[:-1], shape[-1] // 2 + 1)
+            if tuple(y[0].shape) != want:
+                raise AssertionError(f"{label}: shape {tuple(y[0].shape)}")
+            if not planar and got.dtype != torch.complex64:
+                raise AssertionError(f"{label}: dtype {got.dtype}")
+            err = _rel_err(*y, ref)
+            what = "rfftn"
+        print(f"path {label}: rel err vs complex128 {what} {err:.3e} "
+              f"(tol {TOL_PATH:g}) {tag}", flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"{label}: error {err:.3e}")
+        del ref, got
+    del results, inputs
+    torch.cuda.empty_cache()
+
     # ---- 4. the counters -----------------------------------------------
     path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
                     "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
-                            "assemble_mp1")}
+                            "assemble_mp1"),
+                    "long1d": ("step1_twiddle", "step3_transposed",
+                               "fft_axis", "fft_last"),
+                    "local_real": ("rfft_last", "fft_axis", "fft_last",
+                                   "step1_twiddle", "step3_transposed")}
     for path, (counts, launched) in runs.items():
         for name in path_kernels[path]:
             if launched[name] <= 0:
@@ -335,6 +630,14 @@ def main() -> int:
         print(f"time {label}: median {r['median_ms']:.4f} ms, min "
               f"{r['min_ms']:.4f}, max {r['max_ms']:.4f}, spread "
               f"{r['spread']:.3f} over {r['reps']}{extra} {tag}", flush=True)
+
+    def show_breakdown(label, fn, args=()):
+        b = device_breakdown(fn, args)
+        ops = "; ".join(f"{_short(k)} {ms:.4f} ms x{c:g}"
+                        for k, ms, c in b["top"])
+        print(f"profile {label}: wall {b['wall_ms']:.4f} ms per call, "
+              f"device {b['device_ms']:.4f} ms, busy share "
+              f"{b['busy_share']:.3f}; top: {ops} {tag}", flush=True)
 
     for n in (256, 512):
         shape = (n, n, n)
@@ -405,38 +708,142 @@ def main() -> int:
             show(f"port c2r {layout} {n}^3", r,
                  rate.format(flops / r["median_ms"] / 1e6))
             del spec
+        if n == 256:
+            # the unfused real route against the packed one and cuFFT
+            for inv, arg in ((False, x), (True, w)):
+                p = ot.plan(shape, "float32", real=True, inverse=inv)
+                r = time_cuda(p, (arg,))
+                show(f"port {'c2r' if inv else 'r2c'} planar=False "
+                     "(unfused route) 256^3", r,
+                     rate.format(flops / r["median_ms"] / 1e6))
         del x, w
         torch.cuda.empty_cache()
+
+    # long 1-D: the port (plan) against cuFFT (torch.fft.fft on complex64),
+    # 5 N log2 N flops per transform, and each of its passes alone
+    for label, n, b in (("2^20", 2 ** 20, 1), ("8x2^20", 2 ** 20, 8),
+                        ("2^22", 2 ** 22, 1), ("2^24", 2 ** 24, 1),
+                        ("10^6 (4-pass route)", 10 ** 6, 1)):
+        xr, xi = _pair((b, 1, 1, n), gen)
+        xc = torch.complex(xr, xi)
+        p = ot.plan((1, 1, n), "complex64", planar=True, batch_dims=1)
+        flops = 5 * b * n * math.log2(n)
+        r_port = time_cuda(p, ((xr, xi),))
+        r_cufft = time_cuda(torch.fft.fft, (xc,))
+        show(f"port fft {label}", r_port,
+             f", {flops / r_port['median_ms'] / 1e6:.1f} GFLOP/s, "
+             f"{r_port['median_ms'] / r_cufft['median_ms']:.2f}x cuFFT")
+        show(f"torch.fft.fft (cuFFT) c64 {label}", r_cufft,
+             f", {flops / r_cufft['median_ms'] / 1e6:.1f} GFLOP/s")
+        n1, n2 = fs.pick_split(n)
+        if n1 % 128 or n2 % 128:     # not the fused pair
+            del xr, xi, xc
+            continue
+        x3 = (xr.reshape(b, n1, n2), xi.reshape(b, n1, n2))
+        z3 = fs._step1_twiddle(*x3, n1, n2, None, False)
+        for what, fn, args in (
+                ("step1_twiddle", fs._step1_twiddle,
+                 (*x3, n1, n2, None, False)),
+                ("step3_transposed", fs._step3_transposed,
+                 (*z3, n1, n2, None, False))):
+            r = time_cuda(fn, args)
+            bms, by = _bound(what, (b, n1, n2))
+            show(f"kernel {what} ({b}, {n1}, {n2})", r,
+                 f", bound {bms:.4f} ms ({by})")
+        del xr, xi, xc, x3, z3
+        torch.cuda.empty_cache()
+    # r2c along a long 1-D: the unfused real route against cuFFT's rfft
+    n = 2 ** 21
+    x = torch.randn((1, 1, n), generator=gen, device="cuda")
+    p = ot.plan((1, 1, n), "float32", real=True, planar=True)
+    r_port = time_cuda(p, (x,))
+    r_cufft = time_cuda(torch.fft.rfft, (x,))
+    show("port rfft (1, 1, 2^21)", r_port,
+         f", {r_port['median_ms'] / r_cufft['median_ms']:.2f}x cuFFT")
+    show("torch.fft.rfft (cuFFT) f32 2^21", r_cufft)
+    del x
+    # where the new routes' time goes (torch.profiler, 10 back-to-back calls)
+    for n in (2 ** 20, 2 ** 24, 10 ** 6):
+        xr, xi = _pair((1, 1, n), gen)
+        show_breakdown(f"port fft (1, 1, {n})",
+                       ot.plan((1, 1, n), "complex64", planar=True),
+                       ((xr, xi),))
+        del xr, xi
+    x = torch.randn((256, 256, 256), generator=gen, device="cuda")
+    w = torch.fft.rfftn(x)
+    for inv, arg in ((False, x), (True, w)):
+        show_breakdown(f"port {'c2r' if inv else 'r2c'} planar=False 256^3",
+                       ot.plan((256, 256, 256), "float32", real=True,
+                               inverse=inv), (arg,))
+    x = torch.randn((1, 1, 2 ** 21), generator=gen, device="cuda")
+    p = ot.plan((1, 1, 2 ** 21), "float32", real=True, planar=True)
+    show_breakdown("port rfft (1, 1, 2^21)", p, (x,))
+    show_breakdown("port irfft (1, 1, 2^21)",
+                   ot.plan((1, 1, 2 ** 21), "float32", real=True,
+                           planar=True, inverse=True), p(x))
+    del x, w
+    torch.cuda.empty_cache()
+    # both split orders at 3 * 2^18 (the reference's one measured split)
+    n = 3 * 2 ** 18
+    xr, xi = _pair((n,), gen)
+    for split in ((1024, 768), (768, 1024)):
+        show(f"four-step 3*2^18 split {split}",
+             time_cuda(lambda s=split: fs.fft_four_step_planar(xr, xi,
+                                                               split=s)))
+    del xr, xi
+    torch.cuda.empty_cache()
 
     report = []
     for name, info in ff.KERNELS.items():
         fn, call = per_kernel[name]["call"]
-        x = _pair(per_kernel[name]["shape"], gen)
+        shape = per_kernel[name]["shape"]
+        x = _pair(shape, gen)
         r_k = time_cuda(call, (fn, x))
         r_p = time_cuda(call, (fn.plain, x), warmup=1, reps=5)
-        show(f"kernel {name} via {fn.__name__} "
-             f"{per_kernel[name]['shape']}", r_k)
-        show(f"plain {name} via {fn.__name__} "
-             f"{per_kernel[name]['shape']}", r_p)
+        show(f"kernel {name} via {fn.__name__} {shape}", r_k)
+        show(f"plain {name} via {fn.__name__} {shape}", r_p)
+        lib = _library(name, shape, gen)
+        lib_ms = None
+        if lib is not None:
+            r_l = time_cuda(*lib[1:])
+            lib_ms = r_l["median_ms"]
+            show(f"library {name} (torch.fft.{lib[0]}) {shape}", r_l)
+        bms, by = _bound(name, shape)
+        print(f"bound {name} {shape}: {bms:.4f} ms ({by}); kernel at "
+              f"{bms / r_k['median_ms']:.3f} of it {tag}")
         if name == "fft_axis":
-            # the c2r x pass rides the same kernel
-            xt = _pair((256, 256, 129), gen)
-
-            def to_padded(f):
-                return f(*xt, z_true=128, inverse=True)
-            show("kernel fft_axis via fft_x_to_padded (256, 256, 129)",
-                 time_cuda(to_padded, (ff.fft_x_to_padded,)))
-            show("plain fft_axis via fft_x_to_padded (256, 256, 129)",
-                 time_cuda(to_padded, (ff.fft_x_to_padded.plain,), warmup=1,
-                           reps=5))
-            del xt
+            # the kernel's other wrappers on their main-path shapes: the
+            # c2r x pass (z_true 128 of 129 lanes) and the 320^3 x pass
+            for what, shp, lanes, call_x in (
+                    ("fft_x_to_padded", (256, 256, 129), 128,
+                     lambda f, x: f(*x, z_true=128, inverse=True)),
+                    ("fft_sublane", (320, 320, 320), 320,
+                     lambda f, x: f(*x, 0))):
+                fx = getattr(ff, what)
+                xt = _pair(shp, gen)
+                show(f"kernel fft_axis via {what} {shp}",
+                     time_cuda(call_x, (fx, xt)))
+                show(f"plain fft_axis via {what} {shp}",
+                     time_cuda(call_x, (fx.plain, xt), warmup=1, reps=5))
+                xc = torch.complex(xt[0][..., :lanes], xt[1][..., :lanes])
+                show(f"library fft_axis (torch.fft.fft(dim=0)) {shp}",
+                     time_cuda(torch.fft.fft, (xc, None, 0)))
+                e = shp[0] * shp[1] * lanes
+                xb, xby = _roofline(16 * e + _table_bytes(shp[0]),
+                                    e * _fft_flops(shp[0]))
+                print(f"bound fft_axis via {what} {shp}: {xb:.4f} ms "
+                      f"({xby}) {tag}")
+                del xt, xc
         report.append({"name": name, "route": "cuda",
                        "source": info["source"],
                        "replaces": info["replaces"],
                        "launches": launches[name],
                        "max_abs_err": per_kernel[name]["max_abs_err"],
-                       "ms": r_k["median_ms"], "plain_ms": r_p["median_ms"]})
-        del x
+                       "ms": r_k["median_ms"], "plain_ms": r_p["median_ms"],
+                       "bound_ms": bms, "bound_by": by,
+                       "library_ms": lib_ms})
+        del x, lib
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

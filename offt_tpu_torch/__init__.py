@@ -1,30 +1,40 @@
 """offt_tpu_torch: the PyTorch and CUDA port of offt_tpu for an NVIDIA
 H100.
 
-The ported slices are the single-device 3-D transforms on planar float32
+The ported slices are the single-device transforms on planar float32
 (re, im) pairs:
 
-- c2c: ``plan(shape, "complex64", planar=True)`` runs the fused (y, z)
-  slab kernel and one x-axis kernel;
-- r2c / c2r: ``plan(shape, "float32", real=True, planar=True)`` takes a
-  real tensor to a planar half-spectrum and back, in the numpy layout
-  (..., Nz/2 + 1) or with ``packed=True`` the packed (..., Nz/2) layout
-  (plane 0 carries X[0] + i X[Nz/2]; ``unpack_rfft3d`` / ``pack_rfft3d``
-  convert). The forward runs the r2c + y slab kernel and the x kernel
-  (and, for the numpy layout, the assembly kernel); the inverse runs the x
-  kernel and the inverse y + c2r slab kernel.
+- c2c (first slice): ``plan(shape, "complex64", planar=True)`` runs the
+  fused (y, z) slab kernel and one x-axis kernel;
+- r2c / c2r (second slice): ``plan(shape, "float32", real=True,
+  planar=True)`` takes a real tensor to a planar half-spectrum and back,
+  in the numpy layout (..., Nz/2 + 1) or with ``packed=True`` the packed
+  (..., Nz/2) layout (plane 0 carries X[0] + i X[Nz/2];
+  ``unpack_rfft3d`` / ``pack_rfft3d`` convert). The forward runs the r2c +
+  y slab kernel and the x kernel (and, for the numpy layout, the assembly
+  kernel); the inverse runs the x kernel and the inverse y + c2r slab
+  kernel;
+- the axis-by-axis route (third slice), which takes every other plan:
+  long 1-D c2c, ``plan((1, 1, N), "complex64")`` past the 2-stage
+  ceiling, by the four-step kernels (``fft_four_step_planar``); real
+  plans with ``planar=False`` or outside the packed kernels' gate, by the
+  r2c kernel along z (``rfft_last_planar``) or the unfused r2c/c2r around
+  the c2c kernels, then one c2c pass per axis.
 
 The kernels (``kernels/csrc``) are built with nvcc for sm_90a at first
 use. On the CPU every kernel wrapper runs its plain PyTorch version
-instead. The package imports ``torch``, never ``jax``; ``offt_tpu`` is the
-reference it is tested against.
+instead, and a plan needs ``device="cpu"`` there. The package imports
+``torch``, never ``jax``; ``offt_tpu`` is the reference it is tested
+against.
 """
 
 __version__ = "0.1.0"
 
+from .kernels.fourstep import fft_four_step_planar
 from .kernels.fused_fft import (fft3d_planar, fft_last, fft_slab_yz,
                                 fft_sublane, irfft3d_planar, pack_rfft3d,
-                                rfft3d_planar, unpack_rfft3d)
+                                rfft3d_planar, rfft_last_planar,
+                                unpack_rfft3d)
 from .plan.api import Plan, fft3d, from_planar, ifft3d, plan, to_planar
 from .plan.params import PlanParams
 
@@ -33,6 +43,7 @@ __all__ = [
     "PlanParams",
     "fft3d",
     "fft3d_planar",
+    "fft_four_step_planar",
     "fft_last",
     "fft_slab_yz",
     "fft_sublane",
@@ -42,6 +53,7 @@ __all__ = [
     "pack_rfft3d",
     "plan",
     "rfft3d_planar",
+    "rfft_last_planar",
     "to_planar",
     "unpack_rfft3d",
     "__version__",

@@ -41,6 +41,12 @@ _SIGNATURES = {
     "offt_irfft_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "offt_assemble_mp1": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+    "offt_rfft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
+    "offt_step1_twiddle": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I,
+                           _I, _I, _P],
+    "offt_step3_transposed": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
 }
 
 _LIB = None

@@ -5,10 +5,13 @@ Counterpart of these functions of ``offt_tpu/kernels/pallas_fft.py``:
 ``fft_x_from_padded``, ``fft_1d_planar`` and ``fft3d_planar`` (c2c);
 ``rfft_slab_yz``, ``fft_x_to_padded``, ``irfft_slab_yz``,
 ``_assemble_mp1``, ``_plane0_split``, ``unpack_rfft3d``, ``pack_rfft3d``,
-``rfft3d_planar`` and ``irfft3d_planar`` (r2c/c2r); and the gates
+``rfft3d_planar`` and ``irfft3d_planar`` (r2c/c2r); ``rfft_last_planar``
+(r2c along the last axis, the unfused real route); and the gates
 ``can_use_pallas``, ``can_fuse_slab``, ``can_use_padded_x``,
-``can_use_rfft3d`` and ``bank_conflict_stride``, which keep the
-reference's values so that both packages take the same routes.
+``can_use_rfft3d``, ``can_use_rfft_last`` and ``bank_conflict_stride``,
+which keep the reference's values so that both packages take the same
+routes. The four-step kernels' wrappers live in :mod:`.fourstep` and use
+the plumbing here.
 
 Data is planar float32: a (re, im) pair of tensors of one shape (the
 real side of r2c/c2r is one float32 tensor). Each kernel wrapper
@@ -22,7 +25,8 @@ dispatches on the tensors' device:
   its tables without data.
 
 Every wrapper counts its kernel launches (``fn.launches``) and its plain
-calls (``fn.plain_calls``); :func:`reset_counts` zeroes them.
+calls (``fn.plain_calls``); :func:`reset_counts` zeroes them. Each
+wrapper is listed by name in ``WRAPPERS`` as it is defined.
 
 ``precision`` is accepted everywhere for parity with the reference and
 ignored: every stage computes in f32 FMA on the card (the bf16 stacked
@@ -88,6 +92,21 @@ KERNELS = {
         "replaces": "offt_tpu/kernels/pallas_fft.py:2012",
         "wrappers": ("_assemble_mp1",),
     },
+    "rfft_last": {
+        "source": "offt_tpu_torch/kernels/csrc/rfft_last.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:1685",
+        "wrappers": ("rfft_last_planar",),
+    },
+    "step1_twiddle": {
+        "source": "offt_tpu_torch/kernels/csrc/fourstep.cu",
+        "replaces": "offt_tpu/kernels/fourstep.py:166",
+        "wrappers": ("_step1_twiddle",),
+    },
+    "step3_transposed": {
+        "source": "offt_tpu_torch/kernels/csrc/fourstep.cu",
+        "replaces": "offt_tpu/kernels/fourstep.py:213",
+        "wrappers": ("_step3_transposed",),
+    },
 }
 
 
@@ -136,6 +155,13 @@ def can_use_rfft3d(nx: int, ny: int, nz: int, rad_x=None, rad_y=None,
             and can_use_padded_x(nx, ny, m, rad_x))
 
 
+def can_use_rfft_last(n: int, radices=None) -> bool:
+    """The reference's gate of the r2c kernel along the last axis: an even
+    N >= 4 whose half length is 2-stage (``_pick_2stage``)."""
+    return n % 2 == 0 and n >= 4 and tb._pick_2stage(n // 2,
+                                                    radices) is not None
+
+
 def _pick_lane_tile(lanes: int, target: int) -> int:
     target = min(target, lanes)
     if lanes % target == 0 and (target % 128 == 0 or target == lanes):
@@ -166,15 +192,17 @@ _TABLE_KINDS = {
     "core": (tb.core_table, (int, tuple, bool, float)),   # n, stages, inv, s
     "rfft": (tb.rfft_table, (int,)),                       # n
     "crfft": (tb.crfft_table, (int, float)),               # n, scale
+    "fourstep": (tb.fourstep_twiddle, (int, int, bool, float)),  # n1, n2, ..
+    "half": (tb.half_twiddles, (int, bool)),               # n, inverse
 }
 
 
 class TableSet:
     """The f32 tables of one device, keyed by (kind, *args) and built on
-    first use: ``get("core", n, stages, inverse, scale)`` is
-    ``tables.core_table``, ``get("rfft", n)`` ``tables.rfft_table`` and
-    ``get("crfft", n, scale)`` ``tables.crfft_table``. A Plan keeps one
-    and registers its tensors as buffers."""
+    first use: ``get(kind, *args)`` is the ``tables`` builder of that kind
+    (``core_table``, ``rfft_table``, ``crfft_table``, ``fourstep_twiddle``,
+    ``half_twiddles``) on these args. A Plan keeps one and registers its
+    tensors as buffers."""
 
     def __init__(self, device, tabs: dict | None = None):
         self.device = torch.device(device)
@@ -229,12 +257,22 @@ def _pair(xr, xi):
     return _mode(xr, xi)
 
 
+def _on(tab, data):
+    """A table for torch ops beside ``data``: on the meta device when the
+    data is (a plan's shape-only run), else the table itself."""
+    return tab.to("meta") if data.device.type == "meta" else tab
+
+
+# every kernel wrapper by name, in the order of definition
+WRAPPERS: dict = {}
+
+
 def _dispatching(impl=None, *, arity: int = 2):
     """The wrapper of ``impl(mode, *data, ...)``, whose first ``arity``
     arguments are its data (a planar pair, or with ``arity=1`` one real
     tensor): it dispatches on their device. ``wrapper.plain`` runs the
     plain version on any device (the card's check compares the two on the
-    same inputs)."""
+    same inputs). The wrapper joins ``WRAPPERS`` with zeroed counts."""
     if impl is None:
         return functools.partial(_dispatching, arity=arity)
     check = _pair if arity == 2 else _mode
@@ -249,7 +287,9 @@ def _dispatching(impl=None, *, arity: int = 2):
 
     wrapper.plain = plain
     wrapper.impl = impl
+    wrapper.launches = wrapper.plain_calls = 0
     del wrapper.__wrapped__
+    WRAPPERS[wrapper.__name__] = wrapper
     return wrapper
 
 
@@ -751,29 +791,74 @@ def _assemble_mp1(mode, yr, yi, ar, ai, br, bi):
     return o_r, o_i
 
 
-WRAPPERS = (fft_last, fft_sublane, _sublane_nd, fft_slab_yz,
-            fft_x_from_padded, fft_x_to_padded, rfft_slab_yz, irfft_slab_yz,
-            _assemble_mp1)
+@_dispatching(arity=1)
+def rfft_last_planar(mode, x, radices=None,
+                     precision: str = DEFAULT_PRECISION, block_rows: int = 0,
+                     packed: bool = False, scale: float = 1.0, tables=None):
+    """r2c along the last axis of real (..., N) float32 (kernel
+    ``csrc/rfft_last.cu``): the planar (..., N/2 + 1) numpy layout, or
+    with ``packed=True`` the packed (..., N/2) layout whose lane 0 carries
+    X[0] + i X[N/2]. One M-point core (M = N/2, the reference's
+    ``_pick_2stage``) on v[j] = x[2j] + i x[2j+1], then the O(M) untangle.
+    ``scale`` rides the core's last stage (the reference has none and
+    post-multiplies); ``block_rows`` sets the rows per CUDA block."""
+    n = x.shape[-1]
+    m = n // 2
+    pick = tb._pick_2stage(m, radices)
+    if pick is None or n % 2:
+        raise ValueError(f"N={n} not expressible for the r2c kernel")
+    stages = tb.core_stages(pick)
+    ts = _tables(tables, x.device)
+    tab = ts.get("core", m, stages, False, scale)
+    w = ts.get("rfft", n)
+    lead = x.shape[:-1]
+    mo = m if packed else m + 1
+    yr = torch.empty((*lead, mo), dtype=x.dtype, device=x.device)
+    yi = torch.empty((*lead, mo), dtype=x.dtype, device=x.device)
+    if mode == "shape":
+        return yr, yi
+    if mode == "plain":
+        rfft_last_planar.plain_calls += 1
+        v = x.reshape(*lead, m, 2)
+        ar, ai = _core_plain(v[..., 0], v[..., 1], tab, m, stages)
+        ar, ai = _untangle_plain(ar, ai, w)
+        if packed:
+            yr.copy_(ar)
+            yi.copy_(ai)
+            return yr, yi
+        # the packed lane 0 (X0 + i XM) splits into lanes 0 and M
+        yr[..., 1:m].copy_(ar[..., 1:])
+        yi[..., 1:m].copy_(ai[..., 1:])
+        yr[..., 0], yr[..., m] = ar[..., 0], ai[..., 0]
+        yi[..., 0] = yi[..., m] = 0.0
+        return yr, yi
+    rows = x.numel() // n
+    if rows:
+        if x.data_ptr() % 8:
+            # the kernel reads (x[2j], x[2j+1]) as one float2
+            raise ValueError("rfft_last_planar needs an 8-byte aligned input")
+        t = _rows_tile(m, block_rows, sum(stages))
+        _launch("offt_rfft_last", (x, yr, yi), (tab, w),
+                [rows, m, *_radix_args(stages), t, int(packed)])
+        rfft_last_planar.launches += 1
+    return yr, yi
 
 
 def reset_counts() -> None:
     """Zero every wrapper's launch and plain-call counts."""
-    for f in WRAPPERS:
+    for f in WRAPPERS.values():
         f.launches = 0
         f.plain_calls = 0
 
 
 def counts() -> dict:
     """{wrapper name: (launches, plain_calls)}."""
-    return {f.__name__: (f.launches, f.plain_calls) for f in WRAPPERS}
+    return {k: (f.launches, f.plain_calls) for k, f in WRAPPERS.items()}
 
 
 def kernel_launches(name: str) -> int:
     """Launches of one CUDA kernel of KERNELS, summed over its wrappers."""
-    return sum(globals()[w].launches for w in KERNELS[name]["wrappers"])
-
-
-reset_counts()
+    return sum(WRAPPERS[w].launches for w in KERNELS[name]["wrappers"])
 
 
 # --------------------------------------------------------------------------

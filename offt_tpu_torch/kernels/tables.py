@@ -26,6 +26,11 @@ The r2c / c2r path adds two diagonal tables (:func:`rfft_table`,
 matrices and a "dual transform" because Mosaic has no reversal
 primitive; a CUDA block reads ``V[(M - k) mod M]`` from shared memory
 directly, so the diagonals serve every M.
+
+The axis-by-axis route adds the four-step twiddle
+(:func:`fourstep_twiddle`, ``fourstep._twiddle_planar``) and the
+half-spectrum twiddles of the unfused r2c/c2r (:func:`half_twiddles`,
+``rfft._half_twiddles``), both in the kernels' (re, im) pair layout.
 """
 
 from __future__ import annotations
@@ -159,3 +164,32 @@ def crfft_table(n: int, scale: float = 1.0) -> np.ndarray:
     out = (out * scale).astype(np.float32)
     out.flags.writeable = False
     return out
+
+
+def _pairs(c: np.ndarray) -> np.ndarray:
+    """A complex128 array as read-only f32 (..., 2) (re, im) pairs, each
+    part cast once."""
+    out = np.stack([c.real.astype(np.float32), c.imag.astype(np.float32)],
+                   axis=-1)
+    out.flags.writeable = False
+    return out
+
+
+def fourstep_twiddle(n1: int, n2: int, inverse: bool,
+                     scale: float = 1.0) -> np.ndarray:
+    """The four-step twiddle T[k1, j2] = W_n^(k1 j2) * scale, n = n1 n2,
+    as an (n1, n2, 2) f32 array: ``dft.twiddles`` in f64 times the scale,
+    cast once, so each part is bit-equal to the reference's
+    ``fourstep._twiddle_planar`` pair. Read-only. Not memoised: it is as
+    large as the data (128 MB at 2^24), and a plan keeps its device copy."""
+    return _pairs(dft.twiddles(n1, n2, np.complex128, inverse) * scale)
+
+
+@functools.lru_cache(maxsize=64)
+def half_twiddles(n: int, inverse: bool) -> np.ndarray:
+    """W^k = exp(-+2i pi k / n) for k = 0..n/2 as an (n/2 + 1, 2) f32
+    array: the reference's ``rfft._half_twiddles`` (f64-generated, cast
+    once) in the pair layout. Read-only."""
+    k = np.arange(n // 2 + 1, dtype=np.float64)
+    ang = 2.0 * math.pi * k / n
+    return _pairs(np.cos(ang) + (1j if inverse else -1j) * np.sin(ang))

@@ -1,19 +1,30 @@
 """Public plan / execute API of the port.
 
-Port of ``offt_tpu/plan/api.py`` for the single-device planar slices:
-``plan()`` resolves parameters (cache, then the default point), checks
-them, and returns a :class:`Plan`, an ``nn.Module`` whose f32 constant
-tables are registered buffers on an explicit device. A c2c plan runs
-``kernels.fused_fft.fft3d_planar`` with the norm scale folded into the
-final stage's tables, as the reference's planar fast path does
-(``plan/api.py:428-447``). A real plan (``real=True, planar=True``) runs
-``rfft3d_planar`` / ``irfft3d_planar``, the reference's packed r2c/c2r
-fast path (``plan/api.py:399-424``), in the numpy layout (..., Nz/2 + 1)
-or with ``packed=True`` the packed (..., Nz/2) layout; the reference
-post-multiplies its norm scale, the port folds it into the forward x
-pass's tables and the inverse re-tangle table (the same values: the
-plane-0 split and the assembly are linear). Plans run forward only
-(autodiff is ROADMAP Queue 1 item 9).
+Port of ``offt_tpu/plan/api.py`` for one device: ``plan()`` resolves
+parameters (cache, then the default point), checks them, and returns a
+:class:`Plan`, an ``nn.Module`` whose f32 constant tables are registered
+buffers on an explicit device. Its route is the reference's choice for
+``mesh=None`` (``_build_fn``, ``plan/api.py:396-481``), in this order:
+
+- ``"rfft3d"``: a real plan with ``planar=True`` inside
+  ``can_use_rfft3d`` runs ``rfft3d_planar`` / ``irfft3d_planar``, the
+  packed r2c/c2r fast path (``plan/api.py:399-424``), in the numpy layout
+  (..., Nz/2 + 1) or with ``packed=True`` the packed (..., Nz/2) layout;
+- ``"fft3d"``: a c2c plan whose every axis is 2-stage expressible runs
+  ``fft3d_planar`` (``plan/api.py:428-447``);
+- ``"local"``: everything else runs ``_local_fft3d``
+  (``plan/api.py:109-140``), the axis-by-axis route: the r2c along z
+  (``_rfft_z``: the ``rfft_last_planar`` kernel, else ``rfft.rfft_1d``
+  around ``axis_fft``) or a c2c along z, then y and x through
+  ``dist.pencil.axis_fft`` (2-stage kernels, or the four-step route for
+  a long last axis, as ``plan((1, 1, N))`` takes it); the inverse in the
+  mirror order, ending in ``rfft.irfft_1d``.
+
+The reference post-multiplies its norm scale on the unfused routes; the
+port folds it into the tables of one pass (the last stage of the fast
+paths; the z pass of ``_local_fft3d``), which gives the same values since
+every pass is linear. Plans run forward only (autodiff is ROADMAP Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -24,7 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels import fused_fft
+from ..dist.pencil import axis_fft
+from ..kernels import fused_fft, rfft
 from . import cache
 from .params import PlanParams, ProblemSpec, default_params, infeasible_reason
 
@@ -59,23 +71,90 @@ def _dtype_name(dtype) -> str:
     return np.dtype(dtype).name
 
 
+def _real_fft_fn(params: PlanParams, out_scale: float = 1.0, tables=None):
+    """The inner c2c of the unfused r2c/c2r (``rfft_1d`` / ``irfft_1d``):
+    ``axis_fft`` with ``radix_z``, dropped when the inner length differs
+    (the odd-N full-length fallback). ``out_scale`` rides its tables."""
+
+    def fn(vr, vi, inverse):
+        rad = params.radix_z
+        if rad is not None and math.prod(rad) != vr.shape[-1]:
+            rad = None
+        return axis_fft(vr, vi, -1, inverse, rad, params,
+                        out_scale=out_scale, tables=tables)
+
+    return fn
+
+
+def _rfft_z(x, params: PlanParams, nz: int, out_scale: float = 1.0,
+            tables=None):
+    """Forward r2c along the last axis into the numpy layout: the
+    ``rfft_last_planar`` kernel when ``can_use_rfft_last``, else
+    ``rfft_1d`` around ``axis_fft``."""
+    if fused_fft.can_use_rfft_last(nz, params.radix_z):
+        return fused_fft.rfft_last_planar(x, radices=params.radix_z,
+                                          precision=params.precision,
+                                          scale=out_scale, tables=tables)
+    return rfft.rfft_1d(x, _real_fft_fn(params, out_scale, tables),
+                        tables=tables)
+
+
+def _local_fft3d(xs, inverse: bool, real: bool, nz: int, params: PlanParams,
+                 out_scale: float = 1.0, tables=None):
+    """The single-device axis-by-axis route on planar data: z, y, x
+    forward (r2c along z for a real plan, taking one real tensor), x, y, z
+    inverse (c2r along z for a real plan, giving one real tensor). The
+    ``out_scale`` rides the z pass."""
+    p = params
+    if not inverse:
+        if real:
+            yr, yi = _rfft_z(xs[0], p, nz, out_scale, tables)
+        else:
+            yr, yi = axis_fft(*xs, -1, False, p.radix_z, p, out_scale,
+                              tables)
+        yr, yi = axis_fft(yr, yi, -2, False, p.radix_y, p, tables=tables)
+        return axis_fft(yr, yi, -3, False, p.radix_x, p, tables=tables)
+    yr, yi = axis_fft(*xs, -3, True, p.radix_x, p, tables=tables)
+    yr, yi = axis_fft(yr, yi, -2, True, p.radix_y, p, tables=tables)
+    if real:
+        return rfft.irfft_1d(yr, yi, nz, _real_fft_fn(p, out_scale, tables),
+                             tables=tables)
+    return axis_fft(yr, yi, -1, True, p.radix_z, p, out_scale, tables)
+
+
+def _route(spec: ProblemSpec, params: PlanParams, planar: bool) -> str:
+    """The reference's route for ``mesh=None``: "rfft3d", "fft3d" or
+    "local" (module doc)."""
+    radices = (params.radix_x, params.radix_y, params.radix_z)
+    if spec.real:
+        if planar and fused_fft.can_use_rfft3d(*spec.shape, *radices):
+            return "rfft3d"
+        return "local"
+    if all(fused_fft.can_use_pallas(n, r)
+           for n, r in zip(spec.shape, radices)):
+        return "fft3d"
+    return "local"
+
+
 class Plan(torch.nn.Module):
     """A 3-D plan over the last three axes (forward or inverse).
 
     A c2c plan takes a complex64 tensor, or with ``planar=True`` a
     (re, im) float32 pair (one tuple or two arguments), of shape
-    (*batch, Nx, Ny, Nz) on the plan's device. With ``in_place=True`` the
-    planar inputs are overwritten with the result and returned.
+    (*batch, Nx, Ny, Nz) on the plan's device, and returns the same kind.
+    With ``in_place=True`` the planar inputs are overwritten with the
+    result and returned.
 
     A real forward plan takes one real float32 tensor (*batch, Nx, Ny, Nz)
-    and returns a planar pair of shape (*batch, Nx, Ny, L); a real inverse
-    plan takes such a pair and returns the real tensor. L is Nz/2 + 1 (the
+    and returns the half-spectrum (*batch, Nx, Ny, L): a planar pair with
+    ``planar=True``, else a complex64 tensor. A real inverse plan takes
+    such a half-spectrum and returns the real tensor. L is Nz/2 + 1 (the
     numpy rfftn layout) or Nz/2 with ``packed=True`` (plane 0 carries
     X[0] + i X[Nz/2])."""
 
     def __init__(self, spec: ProblemSpec, params: PlanParams, ndim: int,
                  planar: bool, out_scale: float, in_place: bool, device,
-                 packed: bool = False):
+                 packed: bool, route: str):
         super().__init__()
         self.spec = spec
         self.params = params
@@ -84,6 +163,7 @@ class Plan(torch.nn.Module):
         self.out_scale = out_scale
         self.in_place = in_place
         self.packed = packed
+        self.route = route
         # a shape-only run on the meta device walks the route and builds
         # every table it reads, on the plan's device
         tables = fused_fft.TableSet(device)
@@ -120,11 +200,15 @@ class Plan(torch.nn.Module):
 
     def _run(self, xs, tables):
         p = self.params
+        if self.route == "local":
+            return _local_fft3d(xs, self.spec.inverse, self.spec.real,
+                                self.spec.shape[2], p, self.out_scale,
+                                tables)
         kw = {"rad_z": p.radix_z, "rad_y": p.radix_y, "rad_x": p.radix_x,
               "precision": p.precision, "slab_rows": p.slab_rows,
               "out_scale": self.out_scale, "x_tile": p.x_tile,
               "tables": tables}
-        if self.spec.real:
+        if self.route == "rfft3d":
             if self.spec.inverse:
                 return fused_fft.irfft3d_planar(*xs, self.spec.shape[2],
                                                 packed=self.packed, **kw)
@@ -150,18 +234,22 @@ class Plan(torch.nn.Module):
             if x_imag is not None:
                 raise TypeError("a real forward plan takes one real tensor")
             self._check(x, "input")
-            return self._run((x,), self._tables())
-        if self.planar:
+            xs = (x,)
+        elif self.planar:
             if x_imag is None:
                 x, x_imag = x
             self._check(x, "re")
             self._check(x_imag, "im")
-            return self._run((x, x_imag), self._tables())
-        self._check(x, "input")
-        if x.dtype != torch.complex64:
-            raise TypeError(f"plan expects complex64, got {x.dtype}")
-        yr, yi = self._run(to_planar(x), self._tables())
-        return torch.complex(yr, yi)
+            xs = (x, x_imag)
+        else:
+            self._check(x, "input")
+            if x.dtype != torch.complex64:
+                raise TypeError(f"plan expects complex64, got {x.dtype}")
+            xs = to_planar(x)
+        y = self._run(xs, self._tables())
+        if self.planar or (self.spec.real and self.spec.inverse):
+            return y
+        return torch.complex(*y)
 
 
 def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
@@ -172,17 +260,21 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
          donate: bool = False, in_place: bool = False,
          device=None) -> Plan:
     """Build a single-device 3-D plan. ``shape`` is the spatial
-    (Nx, Ny, Nz); ``norm`` follows numpy (backward | ortho | forward);
-    ``device`` defaults to the current CUDA device, else the CPU (where
-    the kernels' plain versions run).
+    (Nx, Ny, Nz); ``norm`` follows numpy (backward | ortho | forward).
+    ``device`` defaults to the current CUDA device and raises when there
+    is none: a plan on the CPU, where the kernels' plain versions run,
+    needs ``device="cpu"``.
 
-    ``real=True`` (with ``planar=True``) plans r2c forward and c2r
-    inverse; ``dtype`` may name the real type ("float32" maps to
-    complex64). ``packed=True`` selects the packed (..., Nz/2) layout,
-    whose plane 0 carries X[0] + i X[Nz/2]; convert with
-    ``fused_fft.unpack_rfft3d`` / ``pack_rfft3d``. A real plan that the
-    packed kernels' gate (``can_use_rfft3d``) refuses, or one with
-    ``planar=False``, needs the unfused route (ROADMAP Queue 1 item 7)."""
+    ``real=True`` plans r2c forward and c2r inverse; ``dtype`` may name
+    the real type ("float32" maps to complex64). ``packed=True`` (with
+    ``planar=True``) selects the packed (..., Nz/2) layout, whose plane 0
+    carries X[0] + i X[Nz/2]; convert with ``fused_fft.unpack_rfft3d`` /
+    ``pack_rfft3d``. A long last axis (``plan((1, 1, N))`` past the
+    2-stage ceiling) takes the four-step route; ``params.split_1d`` pins
+    its (n1, n2). An axis that no kernel route expresses (use_pallas=0,
+    complex128, a length with no 2-stage or four-step factorization)
+    raises NotImplementedError: it needs the unfused engine, ROADMAP
+    Queue 1 item 7."""
     if len(shape) != 3:
         raise ValueError(f"shape must be (Nx, Ny, Nz), got {shape}")
     if packed and (not real or not planar or batch_sharded):
@@ -205,11 +297,14 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     if name != "complex64":
         raise ValueError(f"plans take complex64 (real plans float32), got "
                          f"{name}")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is visible; pass "
+                               "device='cpu' for a plan that runs the "
+                               "kernels' plain versions on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     shape = tuple(int(n) for n in shape)
     spec = ProblemSpec(shape=shape, dtype=name, real=real, inverse=inverse)
     if params is None and use_cache:
@@ -221,45 +316,27 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     reason = infeasible_reason(spec, params)
     if reason is not None:
         raise ValueError(f"infeasible plan: {reason}")
-    if params.split_1d is not None:
-        raise NotImplementedError("split_1d (the four-step route) is "
-                                  "ROADMAP Queue 1 item 6")
-    radices = (params.radix_x, params.radix_y, params.radix_z)
     scale = _norm_scale(norm, inverse, shape[0] * shape[1] * shape[2])
-    if real:
-        if in_place:
+    if packed:
+        params = params.replace(use_pallas=1)
+    if not params.use_pallas:
+        raise NotImplementedError("use_pallas=0 is the unfused engine, "
+                                  "ROADMAP Queue 1 item 7")
+    route = _route(spec, params, planar)
+    if packed and route != "rfft3d":
+        raise ValueError("packed layout needs the r2c kernel path "
+                         f"(shape {shape} not eligible)")
+    if in_place:
+        if real or not planar or route != "fft3d":
             raise ValueError("in_place requires the single-device planar "
                              "c2c kernel path")
-        if packed:
-            params = params.replace(use_pallas=1)
-        fast = fused_fft.can_use_rfft3d(*shape, *radices)
-        if packed and not fast:
-            raise ValueError("packed layout needs the r2c kernel path "
-                             f"(shape {shape} not eligible)")
-        if not (planar and params.use_pallas and fast):
-            raise NotImplementedError(
-                "only the packed r2c/c2r kernel path is ported; real plans "
-                f"with planar=False, use_pallas=0 or shape {shape} outside "
-                "can_use_rfft3d take the unfused rfft route, ROADMAP "
-                "Queue 1 item 7")
-        return Plan(spec, params, batch_dims + 3, planar, scale, False,
-                    device, packed=packed)
-    if not params.use_pallas or not all(
-            fused_fft.can_use_pallas(n, r) for n, r in zip(shape, radices)):
-        raise NotImplementedError(
-            "only the fused kernel route is ported; the unfused route "
-            f"(use_pallas=0, or shape {shape} not kernel-expressible) is "
-            "ROADMAP Queue 1 item 7")
-    if in_place:
-        if not planar:
-            raise ValueError("in_place requires planar=True")
         if shape[0] > 1 and not fused_fft.can_fuse_slab(
                 shape[1], shape[2], params.radix_y, params.radix_z):
             raise ValueError("in_place needs a fusable (y,z) slab: "
                              f"ny*nz = {shape[1] * shape[2]} exceeds the "
                              "slab ceiling or an axis is not expressible")
     return Plan(spec, params, batch_dims + 3, planar, scale, in_place,
-                device)
+                device, packed=packed, route=route)
 
 
 def fft3d(x, mesh=None, params=None, **kw):

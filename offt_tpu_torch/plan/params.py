@@ -3,10 +3,10 @@
 ``PlanParams`` and ``ProblemSpec`` keep the reference's fields and
 defaults, so cache and tuner entries map one to one
 (:func:`from_reference`). The ported slices read ``radix_x/y/z``,
-``use_pallas``, ``precision``, ``block_batch``, ``slab_rows`` and
-``x_tile``; the distributed knobs (``p1``, ``t1``/``t2``, ``w1``/``w2``,
-``ry``, ``s1``/``s2``, ``rankorder``, ``v``) and ``split_1d`` are carried
-unread until their slices land (ROADMAP Queue 1 items 6 and 14).
+``use_pallas``, ``precision``, ``block_batch``, ``slab_rows``, ``x_tile``
+and ``split_1d``; the distributed knobs (``p1``, ``t1``/``t2``,
+``w1``/``w2``, ``ry``, ``s1``/``s2``, ``rankorder``, ``v``) are carried
+unread until their slice lands (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ class PlanParams:
     ``fft_last`` and the lanes per block of the strided-axis kernel
     (0 = auto); ``slab_rows`` is ignored (one block owns one x-row of the
     slab); ``x_tile`` is ignored (the pitched x pass picks its own lane
-    tile) beyond its feasibility check.
+    tile) beyond its feasibility check. ``split_1d`` pins the four-step
+    (n1, n2) of a (1, 1, N) c2c plan.
     """
 
     p1: int = 1
@@ -105,11 +106,16 @@ class ProblemSpec:
 def default_params(spec: ProblemSpec) -> PlanParams:
     """The single-device default point. ``use_pallas`` resolves from the
     config key (-1 auto / 0 off / 1 force): auto enables the kernels when
-    every axis passes ``can_use_pallas`` (z of a real transform may pass
-    on Nz/2 instead). That holds on a CUDA device and
-    on the CPU alike, since the port's only route is the kernels' (on the
-    CPU, their plain versions). ``precision`` "auto" resolves to
-    "highest", which is what every value computes at on the card."""
+    x and y pass ``can_use_pallas`` and z passes it, or takes the
+    four-step route (the reference's clause, ``params.py:203-216``): z
+    of a c2c transform on ``can_use_four_step(nz)``, z of a real one, whose
+    inner c2c is half length, on ``can_use_pallas(nz // 2)`` or
+    ``can_use_four_step(nz // 2)`` for an even nz. The reference applies
+    it on a TPU only; the port on every device, since the kernels (on the
+    CPU, their plain versions) are its only route. ``precision`` "auto"
+    resolves to "highest", which is what every value computes at on the
+    card."""
+    from ..kernels.fourstep import can_use_four_step
     from ..kernels.fused_fft import can_use_pallas
     from ..utils import config as _cfg
 
@@ -119,11 +125,11 @@ def default_params(spec: ProblemSpec) -> PlanParams:
     nx, ny, nz = spec.shape
     up_cfg = int(_cfg.get("use_pallas"))
     use_pallas = max(up_cfg, 0)
-    # a real transform runs a half-length z core, so z may also pass on
-    # Nz/2 (the reference keys its four-step fallback on it; the port's
-    # only real route is the packed r2c/c2r kernels, whose z core is M)
-    zok = can_use_pallas(nz) or (spec.real and nz % 2 == 0
-                                 and can_use_pallas(nz // 2))
+    zok = can_use_pallas(nz)
+    if not zok and spec.real and nz % 2 == 0:
+        zok = can_use_pallas(nz // 2) or can_use_four_step(nz // 2)
+    elif not zok and not spec.real:
+        zok = can_use_four_step(nz)
     if (up_cfg < 0 and spec.dtype in ("complex64", "float32") and zok
             and can_use_pallas(nx) and can_use_pallas(ny)):
         use_pallas = 1
@@ -166,6 +172,13 @@ def infeasible_reason(spec: ProblemSpec,
                                   or min(rad) < 2):
                 return (f"radices {rad}: 3-stage radices must be in "
                         f"[2, {dft.LOOP_MAX_RADIX}]")
+    if params.split_1d is not None:
+        from ..kernels.fourstep import pick_split
+        if spec.real or (nx, ny) != (1, 1):
+            return "split_1d applies only to degenerate (1, 1, N) c2c plans"
+        if pick_split(nz, params.split_1d) is None:
+            return (f"split_1d {params.split_1d} invalid for N={nz} "
+                    "(product or kernel expressibility)")
     if params.x_tile is not None:
         ty, tz = params.x_tile
         lanes = nz // 2 if spec.real else nz

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import offt_tpu_torch as ot
+from offt_tpu_torch.kernels import fourstep as fs
 from offt_tpu_torch.kernels import fused_fft as ff
 
 
@@ -179,3 +180,106 @@ def test_cuda_real_plan_against_rfftn(cuda_dev, shape, packed):
                             norm="ortho")
     assert (torch.linalg.vector_norm(back.double() - want)
             / torch.linalg.vector_norm(want)).item() < 1e-6
+
+
+# ---- the axis-by-axis route: four-step and r2c kernels --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 256), (1, 1024, 1024),
+                                   (2, 1024, 768)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_step1_twiddle(cuda_dev, shape, inverse):
+    _, n1, n2 = shape
+    _card_check(fs._step1_twiddle,
+                lambda f, x: f(*x, n1, n2, None, inverse, scale=0.5),
+                shape, cuda_dev)
+
+
+@pytest.mark.cuda
+def test_cuda_step1_twiddle_caller_table(cuda_dev):
+    tw = torch.stack(_pair((128, 384), cuda_dev, seed=6), -1)
+    _card_check(fs._step1_twiddle,
+                lambda f, x: f(*x, 128, 384, None, False, tw=tw),
+                (3, 128, 384), cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 256), (1, 1024, 1024),
+                                   (2, 1024, 768)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_step3_transposed(cuda_dev, shape, inverse):
+    # at n2 = 768 a block holds 10 rows, so blocks straddle the batches
+    _, n1, n2 = shape
+    _card_check(fs._step3_transposed,
+                lambda f, x: f(*x, n1, n2, None, inverse), shape, cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 256), (5, 512), (1000, 192),
+                                   (3, 7, 4)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_rfft_last(cuda_dev, shape, packed):
+    _card_check(ff.rfft_last_planar, lambda f, x: f(x[0], packed=packed),
+                shape, cuda_dev)
+
+
+def _rel(y, ref):
+    return (torch.linalg.vector_norm(y - ref)
+            / torch.linalg.vector_norm(ref)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bd", [(2 ** 20, 0), (10 ** 6, 0), (2 ** 15, 1),
+                                  (3 * 2 ** 18, 0)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_long_1d_plan_against_fft(cuda_dev, n, bd, inverse):
+    shape = (3,) * bd + (1, 1, n)
+    x = _pair(shape, cuda_dev, seed=7)
+    p = ot.plan((1, 1, n), "complex64", planar=True, inverse=inverse,
+                batch_dims=bd, norm="ortho", device=cuda_dev)
+    ff.reset_counts()
+    yr, yi = p(x)
+    assert sum(c[1] for c in ff.counts().values()) == 0
+    fused = all(s % 128 == 0 for s in fs.pick_split(n))
+    want = {"_step1_twiddle", "_step3_transposed"} if fused else \
+        {"fft_sublane", "fft_last"}
+    assert {k for k, c in ff.counts().items() if c[0]} == want
+    f = torch.fft.ifft if inverse else torch.fft.fft
+    ref = f(torch.complex(x[0].double(), x[1].double()), dim=-1,
+            norm="ortho")
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,planar", [((8, 16, 256), False),
+                                          ((16, 12, 96), True),
+                                          ((4, 6, 255), True),
+                                          ((1, 1, 2 ** 17), False)])
+def test_cuda_local_real_plan_against_rfftn(cuda_dev, shape, planar):
+    dims = (-3, -2, -1)
+    kw = {"real": True, "planar": planar, "norm": "ortho",
+          "device": cuda_dev}
+    x = _pair(shape, cuda_dev, seed=8)[0]
+    fwd = ot.plan(shape, "float32", **kw)
+    inv = ot.plan(shape, "float32", inverse=True, **kw)
+    assert fwd.route == inv.route == "local"
+    ref = torch.fft.rfftn(x.double(), dim=dims, norm="ortho")
+    ff.reset_counts()
+    y = fwd(x)
+    y = torch.complex(*y) if planar else y
+    w = ref.to(torch.complex64)
+    back = inv(w.real.contiguous(), w.imag.contiguous()) if planar \
+        else inv(w)
+    assert sum(c[1] for c in ff.counts().values()) == 0
+    launched = {k for k, c in ff.counts().items() if c[0]}
+    assert ("rfft_last_planar" in launched) == ff.can_use_rfft_last(shape[2])
+    assert _rel(y.to(torch.complex128), ref) < 1e-6
+    want = torch.fft.irfftn(w.to(torch.complex128), s=shape, dim=dims,
+                            norm="ortho")
+    assert _rel(back.double(), want) < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_plan_defaults_to_the_card(cuda_dev):
+    p = ot.plan((8, 8, 8), "complex64", planar=True)
+    assert p.device.type == "cuda"

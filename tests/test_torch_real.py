@@ -278,10 +278,8 @@ def test_real_plans_refuse_what_is_not_ported():
     with pytest.raises(ValueError):
         ot.plan((8, 16, 256), "complex64", planar=True, packed=True,
                 device="cpu")
-    with pytest.raises(NotImplementedError):   # planar=False: unfused
-        ot.plan((8, 16, 256), "float32", real=True, device="cpu")
-    with pytest.raises(NotImplementedError):   # outside the gate: unfused
-        ot.plan((8, 8, 64), "float32", real=True, planar=True, device="cpu")
+    # planar=False and shapes outside the gate take the axis-by-axis
+    # route now: held against the reference in test_torch_local_plan.py
     with pytest.raises(NotImplementedError):   # float64: the fp64 route
         ot.plan((8, 16, 256), "float64", real=True, planar=True,
                 device="cpu")
@@ -306,9 +304,13 @@ def test_real_spec_feasibility_and_defaults_match_reference(kw):
     assert (mine is None) == (theirs is None), (mine, theirs)
     d = params.default_params(params.ProblemSpec(shape=shape, real=True))
     assert d.use_pallas == 1 and d.precision == "highest"
-    # z of a real transform may pass on Nz/2: 32768 is 3-stage, 16384 not
+    # z of a real transform may pass on Nz/2: 32768 is 3-stage, 16384 not;
+    # a c2c z of 32768 passes on its four-step split (128, 256), a prime
+    # past the 2-stage ceiling on nothing
     long_z = (8, 8, 32768)
     assert params.default_params(
         params.ProblemSpec(shape=long_z, real=True)).use_pallas == 1
     assert params.default_params(
-        params.ProblemSpec(shape=long_z)).use_pallas == 0
+        params.ProblemSpec(shape=long_z)).use_pallas == 1
+    assert params.default_params(
+        params.ProblemSpec(shape=(8, 8, 16411))).use_pallas == 0

@@ -94,7 +94,9 @@ def _run_both(shape, inverse, packed, norm, routes):
     ff.reset_counts()
     got = p(*port_in)
     assert all(v[0] == 0 for v in ff.counts().values())
-    port_calls = {k: v[1] for k, v in ff.counts().items()}
+    # the wrappers of later slices join only if they ran
+    port_calls = {k: v[1] for k, v in ff.counts().items()
+                  if k in ROUTED or v[1]}
     assert port_calls == _launch_view(routes), (port_calls, routes)
     total = shape[-3] * shape[-2] * shape[-1]
     want = want * _norm_factor(norm, inverse, total)
