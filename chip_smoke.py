@@ -13,7 +13,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    small shape and at the main-path shape (max |kernel - plain| /
    max |plain| <= 1e-6, pad lanes excluded, float32 matmuls pinned to
    full precision);
-3. the four paths through ``offt_tpu_torch.plan`` on the card, each
+3. the five paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
    and read just after:
@@ -27,15 +27,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    d. the unfused real route: 256^3 with ``planar=False``, 192^3 outside
       the packed gate and a long real 1-D (1, 1, 2^21) (``rfftn`` /
       ``irfftn``);
+   e. the distributed pencil engine, ``plan(..., mesh=make_mesh(1, 1))``
+      in a world of one rank on NCCL (its exchanges have a group of one
+      and are skipped, as in the reference; the chunks, the ry split, the
+      pad and slice points and the real z stages run): 256^3 c2c with the
+      default knobs and with t = 4, w = 1, ry = 5; 256^3 r2c / c2r packed
+      (the c2r stage is ``icrfft_last``) and in the numpy layout; 512^3
+      packed r2c / c2r; a ``batch_sharded`` 4 x 128^3 c2c;
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24; ``rfft`` at 2^21;
    ``rfftn`` against the 256^3 ``planar=False`` plan and the packed
-   route), both split orders at 3 * 2^18, and each kernel against its
-   plain version and the one PyTorch call that computes its function;
-   ``torch.profiler`` breakdowns of the long 1-D and unfused real plans
-   (device time by op, busy share of the host wall).
+   route), both split orders at 3 * 2^18, the 1 x 1 mesh plans (256^3
+   c2c, 256^3 and 512^3 packed c2r) against cuFFT and the single-device
+   plans (the pencil pipeline's own overhead), and each kernel against
+   its plain version and the one PyTorch call that computes its
+   function; ``torch.profiler`` breakdowns of the long 1-D, unfused real
+   and 1 x 1 mesh c2r plans (device time by op, busy share of the host
+   wall).
 
 The line before the last is one JSON object with each kernel's numbers:
 its launches on the main paths, its error, its time, its plain version's
@@ -56,6 +66,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 TOL_KERNEL = 1e-6   # kernel vs plain, max-abs relative
 TOL_PATH = 1e-6     # plan vs complex128 torch.fft, norm relative (fp32 bar)
@@ -121,7 +132,8 @@ def _work(name: str, shape) -> tuple:
     each input read once (data and tables), each output written once; a
     length-n c2c at 5 n log2(n), an r2c or c2r at 2.5 n log2(n) (5 log2(n)
     per half-length element), the four-step twiddle at 6 flops, the
-    untangle and re-tangle at 10 and 16 per output."""
+    untangle and re-tangle at 10 and 16 per output (``icrfft_last``: 16
+    per real output)."""
     if name == "fft_last":
         b, n = shape
         e = b * n
@@ -155,6 +167,11 @@ def _work(name: str, shape) -> tuple:
         m = n // 2
         return (4 * b * n + 8 * b * (m + 1) + _table_bytes(m) + 4 * n,
                 b * m * (_fft_flops(n) + 10))
+    if name == "icrfft_last":               # packed (B, M) -> real (B, 2M)
+        b, m = shape
+        n = 2 * m
+        return (8 * b * m + 4 * b * n + _table_bytes(m) + 16 * m,
+                b * (2.5 * n * math.log2(n) + 16 * n))
     if name == "step1_twiddle":
         b, n1, n2 = shape
         e = b * n1 * n2
@@ -204,6 +221,11 @@ def _library(name: str, shape, gen):
     if name == "rfft_last":
         return "rfft", fft.rfft, (torch.randn(shape, generator=gen,
                                               device="cuda"),)
+    if name == "icrfft_last":
+        # the same rows unpacked: (B, M + 1) complex64
+        b, m = shape
+        w = fft.rfft(torch.randn((b, 2 * m), generator=gen, device="cuda"))
+        return "irfft(dim=-1)", fft.irfft, (w,)
     if name in ("step1_twiddle", "step3_transposed"):
         # the four-step pair computes the whole 1-D transform
         return "fft of the whole 1-D", fft.fft, (
@@ -322,6 +344,12 @@ def main() -> int:
         ("rfft_last", ff.rfft_last_planar, rlast(False), (37, 256), None),
         ("rfft_last", ff.rfft_last_planar, rlast(True), (65536, 256), None),
         ("rfft_last", ff.rfft_last_planar, rlast(False), (65536, 256), None),
+        ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
+         (300, 64), None),
+        ("icrfft_last", ff.icrfft_last_planar,
+         lambda f, x: f(*x, scale=0.25 / 256), (65536, 256), None),
+        ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
+         (65536, 128), None),
         ("step1_twiddle", fs._step1_twiddle, step1(128, 256, scale=0.5),
          (2, 128, 256), None),
         ("step1_twiddle", fs._step1_twiddle, step1(1024, 1024),
@@ -605,6 +633,107 @@ def main() -> int:
     del results, inputs
     torch.cuda.empty_cache()
 
+    # ---- 3e. the pencil engine through plan(mesh=make_mesh(1, 1)) ---------
+    # a world of one rank on NCCL; its exchanges have groups of one
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    probe = torch.ones(4, device="cuda")
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    if probe.tolist() != [1.0] * 4:
+        raise AssertionError(f"NCCL all_reduce gave {probe.tolist()}")
+    mesh = ot.make_mesh(1, 1)
+    knobs = ot.PlanParams(p1=1, t1=4, t2=4, w1=1, w2=1, ry=5, use_pallas=1)
+    cube = (256, 256, 256)
+    mesh_cases = [
+        # (label, shape, batch_dims, inverse, real, packed, params,
+        #  batch_sharded)
+        ("256^3 c2c fwd", cube, 0, False, False, False, None, False),
+        ("256^3 c2c inv", cube, 0, True, False, False, None, False),
+        ("256^3 c2c fwd t=4 w=1 ry=5", cube, 0, False, False, False, knobs,
+         False),
+        ("256^3 c2c inv t=4 w=1 ry=5", cube, 0, True, False, False, knobs,
+         False),
+        ("256^3 r2c packed", cube, 0, False, True, True, None, False),
+        ("256^3 c2r packed", cube, 0, True, True, True, None, False),
+        ("256^3 r2c numpy", cube, 0, False, True, False, None, False),
+        ("256^3 c2r numpy", cube, 0, True, True, False, None, False),
+        ("512^3 r2c packed", (512,) * 3, 0, False, True, True, None, False),
+        ("512^3 c2r packed", (512,) * 3, 0, True, True, True, None, False),
+        ("4x128^3 c2c batch_sharded", (4, 128, 128, 128), 1, False, False,
+         False, None, True),
+    ]
+    inputs = {}
+    for label, shape, bd, inv, real, packed, prm, bs in mesh_cases:
+        if not real:
+            inputs[label] = _pair(shape, gen)
+            continue
+        x = torch.randn(shape, generator=gen, device="cuda")
+        if inv:
+            w = torch.fft.rfftn(x.double(), dim=(-3, -2, -1)).to(
+                torch.complex64)
+            arg = (w.real.contiguous(), w.imag.contiguous())
+            if packed:
+                arg = tuple(t.contiguous() for t in ot.pack_rfft3d(*arg))
+            inputs[label] = arg + (w,)
+        else:
+            inputs[label] = (x,)
+        del x
+
+    def run_mesh():
+        out = {}
+        for label, shape, bd, inv, real, packed, prm, bs in mesh_cases:
+            p = ot.plan(shape[bd:], "float32" if real else "complex64",
+                        mesh=mesh, real=real, inverse=inv, planar=True,
+                        packed=packed, params=prm, batch_dims=bd,
+                        batch_sharded=bs)
+            if p.route != ("fft3d" if bs else "pencil"):
+                raise AssertionError(f"{label}: route {p.route}")
+            args = inputs[label][:1 if real and not inv else 2]
+            blk = p.input_block(args[0].shape)
+            out[label] = p(*(a[blk] for a in args))
+        return out
+    results, runs["mesh"] = _window(ff, run_mesh)
+    print(f"mesh path counts (launches, plain calls): {runs['mesh'][0]}")
+    for label, shape, bd, inv, real, packed, prm, bs in mesh_cases:
+        got = results[label]
+        dims = (-3, -2, -1)
+        if not real:
+            x = torch.complex(inputs[label][0].double(),
+                              inputs[label][1].double())
+            ref = (torch.fft.ifftn if inv else torch.fft.fftn)(x, dim=dims)
+            what = "complex128 ifftn" if inv else "complex128 fftn"
+            del x
+        elif inv:
+            ref = torch.fft.irfftn(inputs[label][-1].to(torch.complex128),
+                                   s=shape, dim=dims)
+            what = "complex128 irfftn"
+        else:
+            ref = torch.fft.rfftn(inputs[label][0].double(), dim=dims)
+            what = "complex128 rfftn"
+        if real and inv:
+            if tuple(got.shape) != shape:
+                raise AssertionError(f"{label}: shape {tuple(got.shape)}")
+            err = _rel_err(got, None, ref)
+        else:
+            if real:
+                lanes = shape[-1] // 2 + (0 if packed else 1)
+                want = (*shape[:-1], lanes)
+            else:
+                want = shape
+            if tuple(got[0].shape) != want:
+                raise AssertionError(f"{label}: shape {tuple(got[0].shape)}")
+            if packed:
+                got = ot.unpack_rfft3d(*got)
+            err = _rel_err(*got, ref)
+        print(f"path mesh 1x1 {label}: rel err vs {what} {err:.3e} "
+              f"(tol {TOL_PATH:g}) {tag}", flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"{label}: error {err:.3e}")
+        del ref, got
+    del results, inputs
+    torch.cuda.empty_cache()
+
     # ---- 4. the counters -----------------------------------------------
     path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
                     "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
@@ -612,7 +741,9 @@ def main() -> int:
                     "long1d": ("step1_twiddle", "step3_transposed",
                                "fft_axis", "fft_last"),
                     "local_real": ("rfft_last", "fft_axis", "fft_last",
-                                   "step1_twiddle", "step3_transposed")}
+                                   "step1_twiddle", "step3_transposed"),
+                    "mesh": ("icrfft_last", "rfft_last", "fft_last",
+                             "fft_axis", "fft_slab")}
     for path, (counts, launched) in runs.items():
         for name in path_kernels[path]:
             if launched[name] <= 0:
@@ -793,6 +924,52 @@ def main() -> int:
     del xr, xi
     torch.cuda.empty_cache()
 
+    # the pencil engine on the 1 x 1 mesh against cuFFT and against the
+    # single-device plan of the same transform: the pipeline's own cost
+    for n, real in ((256, False), (256, True), (512, True)):
+        shape = (n, n, n)
+        if real:
+            x = torch.randn(shape, generator=gen, device="cuda")
+            w = torch.fft.rfftn(x)
+            args = tuple(t.contiguous() for t in ot.pack_rfft3d(
+                w.real.contiguous(), w.imag.contiguous()))
+            kw = {"real": True, "inverse": True, "planar": True,
+                  "packed": True}
+            dtype, label = "float32", f"packed c2r {n}^3"
+            r_c = time_cuda(lambda: torch.fft.irfftn(w, s=shape))
+            del x
+        else:
+            args = _pair(shape, gen)
+            w = torch.complex(*args)
+            kw = {"planar": True}
+            dtype, label = "complex64", f"c2c fwd {n}^3"
+            r_c = time_cuda(torch.fft.fftn, (w,))
+        p_mesh = ot.plan(shape, dtype, mesh=mesh, **kw)
+        p_one = ot.plan(shape, dtype, **kw)
+        r_m = time_cuda(p_mesh, args)
+        r_o = time_cuda(p_one, args)
+        show(f"port mesh 1x1 {label}", r_m,
+             f", {r_m['median_ms'] / r_o['median_ms']:.2f}x the "
+             f"single-device plan, {r_m['median_ms'] / r_c['median_ms']:.2f}"
+             "x cuFFT")
+        show(f"port single-device {label} (route {p_one.route})", r_o)
+        show(f"torch.fft (cuFFT) {label}", r_c)
+        if real and n == 256:
+            show_breakdown(f"port mesh 1x1 {label}", p_mesh, args)
+            # four chunks a phase, a window of one and the ry split: the
+            # pipeline's chunk copies and concatenations
+            p_knob = ot.plan(shape, dtype, mesh=mesh, params=knobs, **kw)
+            r_k = time_cuda(p_knob, args)
+            show(f"port mesh 1x1 {label} t=4 w=1 ry=5", r_k,
+                 f", {r_k['median_ms'] / r_m['median_ms']:.2f}x the "
+                 "default point")
+            show_breakdown(f"port mesh 1x1 {label} t=4 w=1 ry=5", p_knob,
+                           args)
+            del p_knob
+        del args, w, p_mesh, p_one
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
     report = []
     for name, info in ff.KERNELS.items():
         fn, call = per_kernel[name]["call"]
@@ -852,5 +1029,13 @@ def main() -> int:
     return 0
 
 
+def _run() -> int:
+    try:
+        return main()
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_run())

@@ -30,17 +30,25 @@ against.
 
 __version__ = "0.1.0"
 
+from .dist.mesh import (RANKORDER_AUTO, RANKORDER_COL, RANKORDER_ROW,
+                        Layout, batch_layout, input_layout, local_block,
+                        make_mesh, make_multislice_mesh, output_layout)
 from .kernels.fourstep import fft_four_step_planar
 from .kernels.fused_fft import (fft3d_planar, fft_last, fft_slab_yz,
-                                fft_sublane, irfft3d_planar, pack_rfft3d,
-                                rfft3d_planar, rfft_last_planar,
-                                unpack_rfft3d)
+                                fft_sublane, icrfft_last_planar,
+                                irfft3d_planar, pack_rfft3d, rfft3d_planar,
+                                rfft_last_planar, unpack_rfft3d)
 from .plan.api import Plan, fft3d, from_planar, ifft3d, plan, to_planar
 from .plan.params import PlanParams
 
 __all__ = [
+    "Layout",
     "Plan",
     "PlanParams",
+    "RANKORDER_AUTO",
+    "RANKORDER_COL",
+    "RANKORDER_ROW",
+    "batch_layout",
     "fft3d",
     "fft3d_planar",
     "fft_four_step_planar",
@@ -48,8 +56,14 @@ __all__ = [
     "fft_slab_yz",
     "fft_sublane",
     "from_planar",
+    "icrfft_last_planar",
     "ifft3d",
+    "input_layout",
     "irfft3d_planar",
+    "local_block",
+    "make_mesh",
+    "make_multislice_mesh",
+    "output_layout",
     "pack_rfft3d",
     "plan",
     "rfft3d_planar",

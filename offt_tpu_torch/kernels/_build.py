@@ -1,8 +1,9 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 The sources under ``csrc/`` compile into one shared library with a plain
-C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
--Xcompiler -fPIC``). It is built at first use into ``kernels/build/``
+C interface: one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c
+-Xcompiler -fPIC`` per ``*.cu``, all started together, then one
+``nvcc -shared`` link. It is built at first use into ``kernels/build/``
 (listed in ``.gitignore``), under a name keyed by a hash of the sources,
 so an edited source builds anew and an unchanged one loads at once.
 Every pointer and the stream pass as ``c_void_p``; every C entry point
@@ -47,6 +48,7 @@ _SIGNATURES = {
                            _I, _I, _P],
     "offt_step3_transposed": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                               _I, _I, _P],
+    "offt_icrfft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None
@@ -87,19 +89,34 @@ def build() -> pathlib.Path:
         build_seconds = 0.0
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(f) for f in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-I", str(SRC_DIR), "-o", tmp, *cus]
+    cus = sorted(SRC_DIR.glob("*.cu"))
+    work = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler",
+             "-fPIC", "-I", str(SRC_DIR), "-o", str(work / f"{f.stem}.o"),
+             str(f)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for f in cus]
+        outs = [(f.name, p.communicate()[0], p.returncode)
+                for f, p in zip(cus, procs)]
+        failed = [o for o in outs if o[2] != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{out}" for name, out, rc in failed))
+        tmp = work / "lib.so"
+        proc = subprocess.run(
+            [nvcc, "-gencode", ARCH, "-shared", "-o", str(tmp),
+             *(str(work / f"{f.stem}.o") for f in cus)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        build_seconds = time.perf_counter() - t0
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 

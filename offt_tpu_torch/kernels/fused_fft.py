@@ -6,7 +6,9 @@ Counterpart of these functions of ``offt_tpu/kernels/pallas_fft.py``:
 ``rfft_slab_yz``, ``fft_x_to_padded``, ``irfft_slab_yz``,
 ``_assemble_mp1``, ``_plane0_split``, ``unpack_rfft3d``, ``pack_rfft3d``,
 ``rfft3d_planar`` and ``irfft3d_planar`` (r2c/c2r); ``rfft_last_planar``
-(r2c along the last axis, the unfused real route); and the gates
+(r2c along the last axis, the unfused real route and the distributed
+packed forward); ``icrfft_last_planar`` (packed c2r along the last axis,
+the distributed packed inverse); and the gates
 ``can_use_pallas``, ``can_fuse_slab``, ``can_use_padded_x``,
 ``can_use_rfft3d``, ``can_use_rfft_last`` and ``bank_conflict_stride``,
 which keep the reference's values so that both packages take the same
@@ -96,6 +98,11 @@ KERNELS = {
         "source": "offt_tpu_torch/kernels/csrc/rfft_last.cu",
         "replaces": "offt_tpu/kernels/pallas_fft.py:1685",
         "wrappers": ("rfft_last_planar",),
+    },
+    "icrfft_last": {
+        "source": "offt_tpu_torch/kernels/csrc/icrfft_last.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:2308",
+        "wrappers": ("icrfft_last_planar",),
     },
     "step1_twiddle": {
         "source": "offt_tpu_torch/kernels/csrc/fourstep.cu",
@@ -842,6 +849,46 @@ def rfft_last_planar(mode, x, radices=None,
                 [rows, m, *_radix_args(stages), t, int(packed)])
         rfft_last_planar.launches += 1
     return yr, yi
+
+
+@_dispatching
+def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
+                       precision: str = DEFAULT_PRECISION, scale: float = 0.0,
+                       block_rows: int = 0, tables=None):
+    """Packed c2r along the last axis (kernel ``csrc/icrfft_last.cu``):
+    a planar (..., M) half-spectrum whose lane 0 carries X[0] + i X[M] to
+    real (..., N) float32, N = ``n`` = 2M. The re-tangle, then one
+    inverse M-point core (the reference's ``_pick_2stage``) and the
+    interleave x[2j] = Re v[j], x[2j+1] = Im v[j]. ``scale`` rides the
+    re-tangle table (row 0 included) and defaults to 1/M, the exact
+    inverse; the core is unscaled. ``block_rows`` sets the rows per CUDA
+    block."""
+    m = xr.shape[-1]
+    n = n or 2 * m
+    pick = tb._pick_2stage(m, radices)
+    if pick is None or n != 2 * m:
+        raise ValueError(f"M={m}, N={n} not expressible for the packed c2r "
+                         "kernel")
+    stages = tb.core_stages(pick)
+    ts = _tables(tables, xr.device)
+    tab = ts.get("core", m, stages, True, 1.0)
+    ab = ts.get("crfft", n, scale or 1.0 / m)
+    out = torch.empty((*xr.shape[:-1], n), dtype=xr.dtype, device=xr.device)
+    if mode == "shape":
+        return out
+    if mode == "plain":
+        icrfft_last_planar.plain_calls += 1
+        ar, ai = _retangle_plain(xr, xi, ab)
+        ar, ai = _core_plain(ar, ai, tab, m, stages)
+        out.copy_(torch.stack([ar, ai], -1).reshape(out.shape))
+        return out
+    rows = xr.numel() // m
+    if rows:
+        t = _rows_tile(m, block_rows, sum(stages))
+        _launch("offt_icrfft_last", (xr, xi, out), (tab, ab),
+                [rows, m, *_radix_args(stages), t])
+        icrfft_last_planar.launches += 1
+    return out
 
 
 def reset_counts() -> None:

@@ -1,10 +1,10 @@
 """Public plan / execute API of the port.
 
-Port of ``offt_tpu/plan/api.py`` for one device: ``plan()`` resolves
-parameters (cache, then the default point), checks them, and returns a
-:class:`Plan`, an ``nn.Module`` whose f32 constant tables are registered
-buffers on an explicit device. Its route is the reference's choice for
-``mesh=None`` (``_build_fn``, ``plan/api.py:396-481``), in this order:
+Port of ``offt_tpu/plan/api.py``: ``plan()`` resolves parameters (cache,
+then the default point), checks them, and returns a :class:`Plan`, an
+``nn.Module`` whose f32 constant tables are registered buffers on an
+explicit device. Its route is the reference's choice (``_build_fn``,
+``plan/api.py:396-481``). On one device, in this order:
 
 - ``"rfft3d"``: a real plan with ``planar=True`` inside
   ``can_use_rfft3d`` runs ``rfft3d_planar`` / ``irfft3d_planar``, the
@@ -20,11 +20,29 @@ buffers on an explicit device. Its route is the reference's choice for
   a long last axis, as ``plan((1, 1, N))`` takes it); the inverse in the
   mirror order, ending in ``rfft.irfft_1d``.
 
-The reference post-multiplies its norm scale on the unfused routes; the
-port folds it into the tables of one pass (the last stage of the fast
-paths; the z pass of ``_local_fft3d``), which gives the same values since
-every pass is linear. Plans run forward only (autodiff is ROADMAP Queue 1
-item 9).
+On a mesh (``dist/mesh.py``; every rank builds and calls the same plan
+on its own block):
+
+- ``"pencil"``: the distributed pipeline (``dist/pencil.py``,
+  ``plan/api.py:254-355``), z-pencils in and the transposed-out layout
+  out (the reverse for an inverse plan). A real plan overrides the z
+  stage (``real_stage_fns``): the r2c kernel along z forward
+  (``rfft_last_planar``, packed or numpy layout), the packed c2r kernel
+  (``icrfft_last_planar``) or ``rfft.irfft_1d`` inverse. Uneven shapes
+  pad each rank's block to the equal block of the padded global shape
+  and slice the result back;
+- ``batch_sharded=True``: the first batch dim is split over every rank
+  and each rank runs the single-device "fft3d" or "local" route on its
+  block, with no collective (``plan/api.py:280-302``).
+
+A degenerate (1, 1, N) plan on a mesh is the distributed long-1-D engine
+(``dist/long1d.py``), not ported yet: it raises.
+
+The reference post-multiplies its norm scale on the unfused and
+distributed routes; the port folds it into the tables of one pass (the
+last stage of the fast paths; the z pass of ``_local_fft3d`` and of the
+pencil pipeline), which gives the same values since every pass is
+linear. Plans run forward only (autodiff is ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -34,9 +52,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..dist.pencil import axis_fft
+from ..dist import mesh as meshlib
+from ..dist.pencil import _pad_to, _slice_to, axis_fft, make_pencil_fft3d
 from ..kernels import fused_fft, rfft
+from ..kernels.tables import _pick_2stage
 from . import cache
 from .params import PlanParams, ProblemSpec, default_params, infeasible_reason
 
@@ -122,6 +143,46 @@ def _local_fft3d(xs, inverse: bool, real: bool, nz: int, params: PlanParams,
     return axis_fft(yr, yi, -1, True, p.radix_z, p, out_scale, tables)
 
 
+def real_stage_fns(params: PlanParams, nz: int, packed: bool,
+                   inverse: bool, real: bool = True,
+                   out_scale: float = 1.0) -> tuple:
+    """(first_fn, last_fn) that take the pencil pipeline's z stage for a
+    real plan, each ``fn(xs, tables) -> tuple`` and carrying
+    ``out_scale``: forward the r2c along z (the ``rfft_last_planar``
+    kernel; packed, or the numpy layout by ``_rfft_z``), inverse the c2r
+    of the half-spectrum after the exchange pad is sliced away (the
+    ``icrfft_last_planar`` kernel, or ``rfft.irfft_1d``). (None, None)
+    for c2c."""
+    if not real:
+        return None, None
+    nzf = nz // 2 if packed else nz // 2 + 1
+    if not inverse:
+        if packed:
+            def first_fn(xs, tables):
+                return fused_fft.rfft_last_planar(
+                    xs[0], radices=params.radix_z,
+                    precision=params.precision, packed=True,
+                    scale=out_scale, tables=tables)
+        else:
+            def first_fn(xs, tables):
+                return _rfft_z(xs[0], params, nz, out_scale, tables)
+        return first_fn, None
+    if packed:
+        def last_fn(xs, tables):
+            xr, xi = _slice_to(xs, -1, nzf)
+            return (fused_fft.icrfft_last_planar(
+                xr, xi, nz, radices=params.radix_z,
+                precision=params.precision, scale=out_scale / (nz // 2),
+                tables=tables),)
+    else:
+        def last_fn(xs, tables):
+            xr, xi = _slice_to(xs, -1, nzf)
+            return (rfft.irfft_1d(xr, xi, nz,
+                                  _real_fft_fn(params, out_scale, tables),
+                                  tables=tables),)
+    return None, last_fn
+
+
 def _route(spec: ProblemSpec, params: PlanParams, planar: bool) -> str:
     """The reference's route for ``mesh=None``: "rfft3d", "fft3d" or
     "local" (module doc)."""
@@ -150,11 +211,17 @@ class Plan(torch.nn.Module):
     ``planar=True``, else a complex64 tensor. A real inverse plan takes
     such a half-spectrum and returns the real tensor. L is Nz/2 + 1 (the
     numpy rfftn layout) or Nz/2 with ``packed=True`` (plane 0 carries
-    X[0] + i X[Nz/2])."""
+    X[0] + i X[Nz/2]).
+
+    On a mesh each rank passes its block of the global input and gets its
+    block of the global output: ``input_layout`` / ``output_layout`` say
+    how the global arrays lie on ``mesh`` (which ``params.rankorder`` may
+    have re-gridded), and ``input_block(shape)`` / ``output_block(shape)``
+    give this rank's slices of a global shape."""
 
     def __init__(self, spec: ProblemSpec, params: PlanParams, ndim: int,
                  planar: bool, out_scale: float, in_place: bool, device,
-                 packed: bool, route: str):
+                 packed: bool, route: str, mesh=None):
         super().__init__()
         self.spec = spec
         self.params = params
@@ -164,10 +231,35 @@ class Plan(torch.nn.Module):
         self.in_place = in_place
         self.packed = packed
         self.route = route
+        self.mesh = mesh
+        self.input_layout = self.output_layout = None
+        if mesh is not None:
+            self._coord = meshlib.coords(mesh)
+            if spec.batch_sharded:
+                self.input_layout = meshlib.batch_layout(mesh, ndim)
+                self.output_layout = self.input_layout
+            else:
+                zpen = meshlib.input_layout(mesh, ndim)
+                tout = meshlib.output_layout(mesh, ndim)
+                self.input_layout, self.output_layout = (
+                    (tout, zpen) if spec.inverse else (zpen, tout))
+        if route == "pencil":
+            nz = spec.shape[2]
+            first_fn, last_fn = real_stage_fns(params, nz, packed,
+                                               spec.inverse, spec.real,
+                                               out_scale)
+            self._pencil = make_pencil_fft3d(
+                mesh, params, spec.shape, inverse=spec.inverse,
+                rad_z=None if spec.real else params.radix_z,
+                rad_y=params.radix_y, rad_x=params.radix_x,
+                first_fn=first_fn, last_fn=last_fn,
+                z_freq_len=self.in_shape[2] if spec.inverse
+                else self.out_shape[2], out_scale=out_scale)
         # a shape-only run on the meta device walks the route and builds
         # every table it reads, on the plan's device
         tables = fused_fft.TableSet(device)
-        shp = (1,) * (ndim - 3) + self.in_shape
+        shp = (1,) * (ndim - 3) + self._local(self.input_layout,
+                                              self.in_shape)
         self._run([torch.empty(shp, device="meta")
                    for _ in range(self._n_inputs)], tables)
         self._keys = list(tables.tabs)
@@ -187,19 +279,64 @@ class Plan(torch.nn.Module):
 
     @property
     def in_shape(self) -> tuple:
-        """The trailing three dims of each input."""
+        """The trailing three dims of the global input."""
         nx, ny, nz = self.spec.shape
         if self.spec.real and self.spec.inverse:
             return (nx, ny, nz // 2 + (0 if self.packed else 1))
         return (nx, ny, nz)
 
     @property
+    def out_shape(self) -> tuple:
+        """The trailing three dims of the global output."""
+        nx, ny, nz = self.spec.shape
+        if self.spec.real and not self.spec.inverse:
+            return (nx, ny, nz // 2 + (0 if self.packed else 1))
+        return (nx, ny, nz)
+
+    def _local(self, layout, shape3) -> tuple:
+        """This rank's trailing three dims of a global ``shape3``."""
+        if layout is None:
+            return tuple(shape3)
+        trail = meshlib.Layout(layout.dims[-3:], layout.sizes)
+        return trail.local_shape(shape3, self._coord)
+
+    def _block(self, layout, shape) -> tuple:
+        if layout is None:
+            return tuple(slice(0, n) for n in shape)
+        return layout.block(shape, self._coord)
+
+    def input_block(self, shape) -> tuple:
+        """This rank's slices of a global input of ``shape``."""
+        return self._block(self.input_layout, shape)
+
+    def output_block(self, shape) -> tuple:
+        """This rank's slices of a global output of ``shape``."""
+        return self._block(self.output_layout, shape)
+
+    @property
     def _n_inputs(self) -> int:
         """1 for a real forward plan (one real tensor), else 2 (a pair)."""
         return 1 if self.spec.real and not self.spec.inverse else 2
 
+    def _run_pencil(self, xs, tables):
+        """Pad the block to the padded global shape's equal block, run the
+        pipeline, slice the result to this rank's block."""
+        sizes = dict(self.input_layout.sizes)
+        for k, (n, entry) in enumerate(zip(self.in_shape,
+                                           self.input_layout.dims[-3:])):
+            if entry is not None:
+                xs = _pad_to(xs, self.ndim - 3 + k, -(-n // sizes[entry]))
+        ys = self._pencil(xs, tables)
+        want = self._local(self.output_layout, self.out_shape)
+        for k, n in enumerate(want):
+            ys = tuple(y.narrow(self.ndim - 3 + k, 0, n) for y in ys)
+        ys = tuple(y.contiguous() for y in ys)
+        return ys[0] if len(ys) == 1 else ys
+
     def _run(self, xs, tables):
         p = self.params
+        if self.route == "pencil":
+            return self._run_pencil(tuple(xs), tables)
         if self.route == "local":
             return _local_fft3d(xs, self.spec.inverse, self.spec.real,
                                 self.spec.shape[2], p, self.out_scale,
@@ -218,7 +355,7 @@ class Plan(torch.nn.Module):
             in_place=self.in_place, **kw)
 
     def _check(self, t, what: str):
-        want = self.in_shape
+        want = self._local(self.input_layout, self.in_shape)
         if t.ndim != self.ndim or tuple(t.shape[-3:]) != want:
             raise ValueError(f"{what} shape {tuple(t.shape)} does not match "
                              f"the plan's (*{self.ndim - 3} batch, "
@@ -252,6 +389,20 @@ class Plan(torch.nn.Module):
         return torch.complex(*y)
 
 
+def _mesh_device(mesh, device) -> torch.device:
+    """The plan's device on a mesh: the current CUDA device for a "cuda"
+    mesh, the CPU for a "cpu" one; a ``device`` of another type raises."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("a mesh plan needs the default process group "
+                           "that its mesh was made in")
+    if mesh.device_type not in ("cuda", "cpu"):
+        raise ValueError(f"mesh device type {mesh.device_type!r}")
+    want = torch.device(mesh.device_type if device is None else device)
+    if want.type != mesh.device_type:
+        raise ValueError(f"device {want} on a {mesh.device_type!r} mesh")
+    return want
+
+
 def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
          inverse: bool = False, batch_dims: int = 0,
          params: Optional[PlanParams] = None, use_cache: bool = True,
@@ -259,11 +410,17 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
          batch_sharded: bool = False, packed: bool = False,
          donate: bool = False, in_place: bool = False,
          device=None) -> Plan:
-    """Build a single-device 3-D plan. ``shape`` is the spatial
-    (Nx, Ny, Nz); ``norm`` follows numpy (backward | ortho | forward).
-    ``device`` defaults to the current CUDA device and raises when there
-    is none: a plan on the CPU, where the kernels' plain versions run,
-    needs ``device="cpu"``.
+    """Build a 3-D plan. ``shape`` is the global spatial (Nx, Ny, Nz);
+    ``norm`` follows numpy (backward | ortho | forward). ``device``
+    defaults to the current CUDA device and raises when there is none: a
+    plan on the CPU, where the kernels' plain versions run, needs
+    ``device="cpu"``.
+
+    ``mesh`` (``dist.make_mesh`` / ``make_multislice_mesh``, in an
+    initialised process group) distributes the transform: each rank calls
+    the plan on its block (``Plan.input_layout``); the plan runs on the
+    mesh's device type. ``batch_sharded=True`` (with ``batch_dims >= 1``)
+    splits the first batch dim over every rank instead.
 
     ``real=True`` plans r2c forward and c2r inverse; ``dtype`` may name
     the real type ("float32" maps to complex64). ``packed=True`` (with
@@ -277,15 +434,20 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     Queue 1 item 7."""
     if len(shape) != 3:
         raise ValueError(f"shape must be (Nx, Ny, Nz), got {shape}")
+    if batch_sharded and (mesh is None or batch_dims < 1):
+        raise ValueError("batch_sharded needs a mesh and batch_dims >= 1")
     if packed and (not real or not planar or batch_sharded):
         raise ValueError("packed layout requires real=True, planar=True "
                          "(and not batch_sharded)")
-    if mesh is not None or batch_sharded:
-        raise NotImplementedError("distributed plans are ROADMAP Queue 1 "
-                                  "item 14")
     if donate:
         raise NotImplementedError("donate= is ROADMAP Queue 1 item 8 "
                                   "(in_place=True overwrites the inputs)")
+    shape = tuple(int(n) for n in shape)
+    if mesh is not None and not batch_sharded and shape[:2] == (1, 1):
+        raise NotImplementedError("a (1, 1, N) plan on a mesh is the "
+                                  "distributed long-1-D engine "
+                                  "(dist/long1d.py), ROADMAP Queue 1 item "
+                                  "14 (long 1-D)")
     name = _dtype_name(dtype)
     if real and name in ("float16", "bfloat16", "float32", "float64"):
         # real transforms name the real type; only float64 maps to the
@@ -297,7 +459,12 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     if name != "complex64":
         raise ValueError(f"plans take complex64 (real plans float32), got "
                          f"{name}")
-    device = torch.device("cuda" if device is None else device)
+    if mesh is not None:
+        device = _mesh_device(mesh, device)
+        p1, p2 = meshlib.mesh_shape(mesh)
+    else:
+        device = torch.device("cuda" if device is None else device)
+        p1 = p2 = 1
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is visible; pass "
@@ -305,29 +472,44 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
                                "kernels' plain versions on the CPU")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-    shape = tuple(int(n) for n in shape)
-    spec = ProblemSpec(shape=shape, dtype=name, real=real, inverse=inverse)
+    spec = ProblemSpec(shape=shape, dtype=name, real=real, inverse=inverse,
+                       p=p1 * p2, batch_sharded=batch_sharded)
     if params is None and use_cache:
         params = cache.lookup(cache.plan_key(
-            shape, name, real, 1, 1, cache.device_kind(device),
-            inverse=inverse))
+            shape, name, real, p1, p2, cache.device_kind(device),
+            inverse=inverse, batch_sharded=batch_sharded))
     if params is None:
-        params = default_params(spec)
+        params = default_params(spec, p1=None if mesh is None else p1)
     reason = infeasible_reason(spec, params)
     if reason is not None:
         raise ValueError(f"infeasible plan: {reason}")
+    if mesh is not None and params.rankorder:
+        # re-grid the ranks per the rankorder knob (reference
+        # ROTATE_RANKORDER); the plan keeps the re-gridded mesh
+        mesh = meshlib.with_rankorder(mesh, params.rankorder)
     scale = _norm_scale(norm, inverse, shape[0] * shape[1] * shape[2])
     if packed:
         params = params.replace(use_pallas=1)
     if not params.use_pallas:
         raise NotImplementedError("use_pallas=0 is the unfused engine, "
                                   "ROADMAP Queue 1 item 7")
-    route = _route(spec, params, planar)
-    if packed and route != "rfft3d":
-        raise ValueError("packed layout needs the r2c kernel path "
-                         f"(shape {shape} not eligible)")
+    if mesh is None or batch_sharded:
+        # batch_sharded: each rank runs the reference's _local_fft3d, whose
+        # fused branch is c2c only
+        route = _route(spec, params, planar and not batch_sharded)
+    else:
+        route = "pencil"
+    if packed:
+        if route == "pencil":
+            if shape[2] % 2 or _pick_2stage(shape[2] // 2,
+                                            params.radix_z) is None:
+                raise ValueError("packed layout needs Nz even with Nz/2 "
+                                 f"2-stage expressible (got Nz={shape[2]})")
+        elif route != "rfft3d":
+            raise ValueError("packed layout needs the r2c kernel path "
+                             f"(shape {shape} not eligible)")
     if in_place:
-        if real or not planar or route != "fft3d":
+        if mesh is not None or real or not planar or route != "fft3d":
             raise ValueError("in_place requires the single-device planar "
                              "c2c kernel path")
         if shape[0] > 1 and not fused_fft.can_fuse_slab(
@@ -336,18 +518,36 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
                              f"ny*nz = {shape[1] * shape[2]} exceeds the "
                              "slab ceiling or an axis is not expressible")
     return Plan(spec, params, batch_dims + 3, planar, scale, in_place,
-                device, packed=packed, route=route)
+                device, packed=packed, route=route, mesh=mesh)
 
 
-def fft3d(x, mesh=None, params=None, **kw):
-    """3-D c2c over the last three axes of a complex64 tensor."""
-    p = plan(tuple(x.shape[-3:]), x.dtype, mesh=mesh, params=params,
-             batch_dims=x.ndim - 3, device=x.device, **kw)
+def _global_shape(x, mesh, inverse: bool, shape) -> tuple:
+    """The global spatial shape of a one-shot call: ``shape``, else the
+    block's trailing dims (times the mesh's row and col counts where the
+    layout splits them, which assumes equal blocks)."""
+    if shape is not None or mesh is None:
+        return tuple(shape if shape is not None else x.shape[-3:])
+    p1, p2 = meshlib.mesh_shape(mesh)
+    nx, ny, nz = x.shape[-3:]
+    return (nx, ny * p1, nz * p2) if inverse else (nx * p1, ny * p2, nz)
+
+
+def fft3d(x, mesh=None, params=None, shape=None, **kw):
+    """3-D c2c over the last three axes of a complex64 tensor. On a mesh
+    ``x`` is this rank's z-pencil block and ``shape`` the global
+    (Nx, Ny, Nz) (default: equal blocks); the result is this rank's
+    transposed-out block."""
+    p = plan(_global_shape(x, mesh, False, shape), x.dtype, mesh=mesh,
+             params=params, batch_dims=x.ndim - 3, device=x.device, **kw)
     return p(x)
 
 
-def ifft3d(x, mesh=None, params=None, **kw):
-    """Inverse 3-D c2c over the last three axes of a complex64 tensor."""
-    p = plan(tuple(x.shape[-3:]), x.dtype, mesh=mesh, params=params,
-             inverse=True, batch_dims=x.ndim - 3, device=x.device, **kw)
+def ifft3d(x, mesh=None, params=None, shape=None, **kw):
+    """Inverse 3-D c2c over the last three axes of a complex64 tensor. On
+    a mesh ``x`` is this rank's transposed-out block and ``shape`` the
+    global (Nx, Ny, Nz) (default: equal blocks); the result is this
+    rank's z-pencil block."""
+    p = plan(_global_shape(x, mesh, True, shape), x.dtype, mesh=mesh,
+             params=params, inverse=True, batch_dims=x.ndim - 3,
+             device=x.device, **kw)
     return p(x)

@@ -2,22 +2,31 @@
 
 ``PlanParams`` and ``ProblemSpec`` keep the reference's fields and
 defaults, so cache and tuner entries map one to one
-(:func:`from_reference`). The ported slices read ``radix_x/y/z``,
+(:func:`from_reference`). The single-device routes read ``radix_x/y/z``,
 ``use_pallas``, ``precision``, ``block_batch``, ``slab_rows``, ``x_tile``
-and ``split_1d``; the distributed knobs (``p1``, ``t1``/``t2``,
-``w1``/``w2``, ``ry``, ``s1``/``s2``, ``rankorder``, ``v``) are carried
-unread until their slice lands (ROADMAP Queue 1 item 14).
+and ``split_1d``; the pencil engine (``dist/pencil.py``) reads the
+distributed knobs as the reference does: ``p1`` (the mesh's row count),
+``t1``/``t2`` (chunks per exchange phase), ``w1``/``w2`` (chunk i waits
+on the exchange of chunk i - w; 0 = no bound), ``ry`` (tenths of the
+middle-axis transform done in phase 1), ``s1``/``s2`` (all-to-all or the
+ring of single-hop sends), ``v`` (bit per phase: all-gather and a local
+slice) and ``rankorder`` (the rank grid, ``dist/mesh.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 from ..kernels import dft
 
-TRANSPOSE_ALL_TO_ALL = 0
-TRANSPOSE_PPERMUTE = 1
+# the reference's ceiling on one device's pipeline working set, in
+# complex64 elements (32M = 256 MiB; offt.h:51 BUFFER_SIZE_LIMIT)
+BUFFER_ELEMS_LIMIT = 32 * 1024 * 1024
+
+TRANSPOSE_ALL_TO_ALL = 0   # one all-to-all per chunk and phase
+TRANSPOSE_PPERMUTE = 1     # a ring of size - 1 single-hop exchanges
 
 _PRECISIONS = ("default", "high", "highest", "stack6", "stack3")
 
@@ -102,9 +111,31 @@ class ProblemSpec:
     p: int = 1
     batch_sharded: bool = False
 
+    @property
+    def nz_freq(self) -> int:
+        """Length of z after the r2c (Nz//2 + 1); Nz for c2c."""
+        return self.shape[2] // 2 + 1 if self.real else self.shape[2]
 
-def default_params(spec: ProblemSpec) -> PlanParams:
-    """The single-device default point. ``use_pallas`` resolves from the
+
+def divisors(n: int) -> list[int]:
+    ds = [d for d in range(1, int(math.isqrt(n)) + 1) if n % d == 0]
+    return sorted(set(ds + [n // d for d in ds]))
+
+
+def p1_candidates(nx: int, ny: int, nz: int, p: int) -> list[int]:
+    """Legal grid factors (the reference's ``p1_candidates``): p1 divides
+    p, p1 <= min(Nx, Ny) and p2 = p/p1 <= min(Ny, Nz); [p] when none."""
+    out = []
+    for d in divisors(p):
+        p2 = p // d
+        if d <= min(nx, ny) and p2 <= min(ny, nz):
+            out.append(d)
+    return out or [p]
+
+
+def default_params(spec: ProblemSpec,
+                   p1: Optional[int] = None) -> PlanParams:
+    """The default point. ``use_pallas`` resolves from the
     config key (-1 auto / 0 off / 1 force): auto enables the kernels when
     x and y pass ``can_use_pallas`` and z passes it, or takes the
     four-step route (the reference's clause, ``params.py:203-216``): z
@@ -114,14 +145,16 @@ def default_params(spec: ProblemSpec) -> PlanParams:
     it on a TPU only; the port on every device, since the kernels (on the
     CPU, their plain versions) are its only route. ``precision`` "auto"
     resolves to "highest", which is what every value computes at on the
-    card."""
+    card.
+
+    For p > 1 devices (the reference's ``params.py:224-246``): ``p1``
+    pins the grid factor (a concrete mesh), else the candidate nearest
+    sqrt(p); t = min(4, local extent) chunks per phase with w = 0 below
+    16 devices, t = 1 from 16 up; t1 and t2 swap for the inverse."""
     from ..kernels.fourstep import can_use_four_step
     from ..kernels.fused_fft import can_use_pallas
     from ..utils import config as _cfg
 
-    if spec.p != 1:
-        raise NotImplementedError("distributed plans are ROADMAP Queue 1 "
-                                  "item 14")
     nx, ny, nz = spec.shape
     up_cfg = int(_cfg.get("use_pallas"))
     use_pallas = max(up_cfg, 0)
@@ -136,16 +169,57 @@ def default_params(spec: ProblemSpec) -> PlanParams:
     precision = str(_cfg.get("precision"))
     if precision == "auto":
         precision = "highest"
-    return PlanParams(p1=1, use_pallas=use_pallas, precision=precision)
+    if spec.p == 1:
+        return PlanParams(p1=1, use_pallas=use_pallas, precision=precision)
+    if p1 is None:
+        cands = p1_candidates(nx, ny, nz, spec.p)
+        root = int(math.sqrt(spec.p))
+        p1 = min(cands, key=lambda d: (abs(d - root), d))
+    p2 = spec.p // p1
+    if spec.p >= 16:
+        t1 = t2 = 1
+    else:
+        t1 = min(4, max(1, nx // max(p1, 1)))
+        t2 = min(4, max(1, spec.nz_freq // max(p2, 1)))
+    if spec.inverse:   # the inverse pipeline chunks z in phase 1, x in 2
+        t1, t2 = t2, t1
+    return PlanParams(p1=p1, t1=t1, t2=t2, w1=0, w2=0,
+                      use_pallas=use_pallas, precision=precision)
 
 
 def infeasible_reason(spec: ProblemSpec,
                       params: PlanParams) -> Optional[str]:
-    """Structural feasibility of the fields this slice reads; a reason or
-    None. Mirrors the reference's checks of those fields."""
+    """Structural feasibility; a reason or None. Mirrors the reference's
+    checks (``params.py:249-351``) but for ``block_batch`` and ``x_tile``,
+    which the CUDA kernels read otherwise."""
     nx, ny, nz = spec.shape
-    if spec.p % params.p1 != 0:
-        return f"p1={params.p1} does not divide p={spec.p}"
+    nzf = spec.nz_freq
+    p = spec.p
+    if p % params.p1 != 0:
+        return f"p1={params.p1} does not divide p={p}"
+    p2 = p // params.p1
+    # the tiles chunk the local extents of their phase: the forward
+    # pipeline's phase 1 the x rows, phase 2 the z planes; the inverse
+    # the mirror (dist/pencil.py make_pencil_fft3d)
+    m1 = -(-nx // params.p1)
+    m3 = -(-nzf // p2)
+    b1, b2 = (m3, m1) if spec.inverse else (m1, m3)
+    if not (1 <= params.t1 <= max(b1, 1)):
+        return f"t1={params.t1} outside [1,{b1}]"
+    if not (1 <= params.t2 <= max(b2, 1)):
+        return f"t2={params.t2} outside [1,{b2}]"
+    if not (0 <= params.w1 <= params.t1):
+        return f"w1={params.w1} outside [0,t1]"
+    if not (0 <= params.w2 <= params.t2):
+        return f"w2={params.w2} outside [0,t2]"
+    if not (0 <= params.ry <= 10):
+        return f"ry={params.ry} outside [0,10]"
+    if params.s1 not in (0, 1) or params.s2 not in (0, 1):
+        return "s1/s2 outside {0,1}"
+    if not (0 <= params.v <= 3):
+        return "v outside [0,3]"
+    if params.rankorder not in (0, 1, 2):
+        return "rankorder outside {0,1,2}"
     if params.slab_rows not in (0, 1, 2, 4, 8, 16):
         return "slab_rows outside {0,1,2,4,8,16}"
     if params.block_batch < 0:
@@ -156,6 +230,12 @@ def infeasible_reason(spec: ProblemSpec,
         return "precision 'high' unsupported by the kernels"
     if params.precision in ("stack6", "stack3") and not params.use_pallas:
         return f"precision {params.precision!r} requires use_pallas=1"
+    if p > 1:
+        # one pipelined chunk times its window depth, per device
+        per_dev = nx * ny * nzf * max(spec.batch, 1) / p
+        for t, w in ((params.t1, params.w1), (params.t2, params.w2)):
+            if (max(w, 1) + 1) * (per_dev / max(t, 1)) > BUFFER_ELEMS_LIMIT:
+                return "pipeline working set exceeds BUFFER_ELEMS_LIMIT"
     for rad, n in ((params.radix_z, nz // 2 if spec.real else nz),
                    (params.radix_y, ny), (params.radix_x, nx)):
         if rad is None:

@@ -283,3 +283,77 @@ def test_cuda_local_real_plan_against_rfftn(cuda_dev, shape, planar):
 def test_cuda_plan_defaults_to_the_card(cuda_dev):
     p = ot.plan((8, 8, 8), "complex64", planar=True)
     assert p.device.type == "cuda"
+
+
+# ---- the pencil engine: the packed c2r kernel and a 1 x 1 mesh -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 64), (37, 96), (3, 7, 128),
+                                   (65, 256), (5, 512)])
+def test_cuda_icrfft_last(cuda_dev, shape):
+    _card_check(ff.icrfft_last_planar, lambda f, x: f(*x), shape, cuda_dev)
+
+
+@pytest.mark.cuda
+def test_cuda_icrfft_last_scale_and_radices(cuda_dev):
+    _card_check(ff.icrfft_last_planar,
+                lambda f, x: f(*x, radices=(16, 16), scale=0.5 / 256),
+                (70, 256), cuda_dev)
+
+
+@pytest.fixture
+def nccl_world(cuda_dev):
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield cuda_dev
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 32, 256), (8, 8, 512)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_one_rank_mesh_real_plan(nccl_world, shape, packed):
+    dims = (-3, -2, -1)
+    mesh = ot.make_mesh(1, 1)
+    kw = {"real": True, "planar": True, "packed": packed, "mesh": mesh,
+          "params": ot.PlanParams(p1=1, t1=2, t2=2, w1=1, ry=5,
+                                  use_pallas=1)}
+    fwd = ot.plan(shape, "float32", **kw)
+    inv = ot.plan(shape, "float32", inverse=True, **kw)
+    assert fwd.route == inv.route == "pencil"
+    x = _pair(shape, nccl_world, seed=9)[0]
+    ref = torch.fft.rfftn(x.double(), dim=dims)
+    w = ref.to(torch.complex64)
+    wr, wi = w.real.contiguous(), w.imag.contiguous()
+    if packed:
+        wr, wi = (t.contiguous() for t in ot.pack_rfft3d(wr, wi))
+    ff.reset_counts()
+    yr, yi = fwd(x)
+    back = inv(wr, wi)
+    assert sum(c[1] for c in ff.counts().values()) == 0
+    launched = {k for k, c in ff.counts().items() if c[0]}
+    assert "rfft_last_planar" in launched
+    assert ("icrfft_last_planar" in launched) == packed
+    spec = ot.unpack_rfft3d(yr, yi) if packed else (yr, yi)
+    assert _rel(torch.complex(spec[0].double(), spec[1].double()), ref) \
+        < 1e-6
+    want = torch.fft.irfftn(w.to(torch.complex128), s=shape, dim=dims)
+    assert _rel(back.double(), want) < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_mesh_c2c_and_refusals(nccl_world):
+    mesh = ot.make_mesh(1, 1)
+    x = _pair((16, 32, 64), nccl_world, seed=10)
+    p = ot.plan((16, 32, 64), "complex64", mesh=mesh, planar=True)
+    assert p.route == "pencil" and p.device.type == "cuda"
+    yr, yi = p(x)
+    ref = torch.fft.fftn(torch.complex(x[0].double(), x[1].double()))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+    with pytest.raises(ValueError):          # a CPU block on a cuda mesh
+        p(*(t.cpu() for t in x))
+    with pytest.raises(ValueError):          # nccl does not serve cpu
+        ot.make_mesh(1, 1, device_type="cpu")

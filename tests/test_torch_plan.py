@@ -176,11 +176,17 @@ def test_plan_is_a_module_with_table_buffers():
 
 def test_plan_refuses_what_is_not_ported():
     # real=True and split_1d are ported: the axis-by-axis route
-    # (tests/test_torch_local_plan.py); split_1d fits (1, 1, N) c2c only
-    for kw in ({"mesh": object()}, {"batch_sharded": True},
-               {"donate": True}, {"params": PlanParams(use_pallas=0)}):
+    # (tests/test_torch_local_plan.py); split_1d fits (1, 1, N) c2c only.
+    # A mesh is ported (tests/test_torch_pencil*.py): it needs a process
+    # group, and batch_sharded needs a mesh
+    for kw in ({"donate": True}, {"params": PlanParams(use_pallas=0)}):
         with pytest.raises(NotImplementedError):
             ot.plan((8, 8, 8), "complex64", device="cpu", **kw)
+    with pytest.raises(RuntimeError, match="process group"):
+        ot.plan((8, 8, 8), "complex64", device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="batch_sharded"):
+        ot.plan((8, 8, 8), "complex64", device="cpu", batch_sharded=True,
+                batch_dims=1)
     assert ot.plan((8, 8, 8), "complex64", real=True,
                    device="cpu").route == "local"
     with pytest.raises(ValueError):

@@ -158,8 +158,13 @@ def test_problem_spec_and_defaults_mirror_reference():
     assert d.use_pallas == 1 and d.precision == "highest" and d.p1 == 1
     assert params.default_params(
         params.ProblemSpec(shape=(131, 8, 8))).use_pallas == 0
-    with pytest.raises(NotImplementedError):
-        params.default_params(params.ProblemSpec(shape=(8, 8, 8), p=4))
+    # the distributed point (tests/test_torch_mesh.py holds the grid)
+    d4 = params.default_params(params.ProblemSpec(shape=(8, 8, 8), p=4))
+    r4 = ref_params.default_params(ref_params.ProblemSpec(shape=(8, 8, 8),
+                                                          p=4))
+    assert d4 == params.from_reference(dataclasses.asdict(r4.replace(
+        use_pallas=1)))
+    assert (d4.p1, d4.t1, d4.t2, d4.w1, d4.w2) == (2, 4, 4, 0, 0)
 
 
 @pytest.mark.parametrize("kw", [
@@ -218,10 +223,15 @@ def test_config_layers(tmp_path, monkeypatch):
 
 
 def test_import_pulls_no_jax():
-    code = ("import sys, offt_tpu_torch, offt_tpu_torch.plan.api, "
-            "offt_tpu_torch.obs.profile, offt_tpu_torch.kernels._build; "
-            "print(sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith('jax.')))")
+    # every module of the package, and chip_smoke.py; neither JAX nor
+    # the reference package may load
+    code = ("import sys, pkgutil, importlib, offt_tpu_torch, chip_smoke; "
+            "[importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(offt_tpu_torch.__path__, "
+            "'offt_tpu_torch.')]; "
+            "import offt_tpu_torch.dist.pencil; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'offt_tpu')))")
     env = dict(os.environ)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -234,7 +244,8 @@ def test_kernel_sources_are_listed():
     names = {f.name for f in _build.sources()}
     assert names == {"fft_core.cuh", "fft_last.cu", "fft_axis.cu",
                      "fft_slab.cu", "rfft_slab.cu", "irfft_slab.cu",
-                     "assemble_mp1.cu", "rfft_last.cu", "fourstep.cu"}
+                     "assemble_mp1.cu", "rfft_last.cu", "fourstep.cu",
+                     "icrfft_last.cu"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for info in fused_fft.KERNELS.values():
         assert os.path.exists(os.path.join(root, info["source"]))
