@@ -34,6 +34,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       default knobs and with t = 4, w = 1, ry = 5; 256^3 r2c / c2r packed
       (the c2r stage is ``icrfft_last``) and in the numpy layout; 512^3
       packed r2c / c2r; a ``batch_sharded`` 4 x 128^3 c2c;
+   f. the cube kernel through ``fft3d_cube``: 8 x 128^3 forward and
+      inverse, and the longest z the gate admits, 8 x 8 x 32768 (three
+      radix-32 stages, the kernel's split z phase);
+   g. the ``numpy.fft`` namespace ``offt_tpu_torch.fft`` at full size:
+      ``fftn`` of 256^3 complex64, ``rfftn`` / ``irfftn`` of 256^3,
+      ``fft`` of the prime 1,000,003 (Bluestein, its inner 2^21 on the
+      four-step kernels), ``fftn`` over a 4-D (8, 64, 64, 64) field, and
+      complex128 ``fftn`` of 128^3 against the fp64 bar (1e-12);
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
@@ -43,9 +51,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    c2c, 256^3 and 512^3 packed c2r) against cuFFT and the single-device
    plans (the pencil pipeline's own overhead), and each kernel against
    its plain version and the one PyTorch call that computes its
-   function; ``torch.profiler`` breakdowns of the long 1-D, unfused real
-   and 1 x 1 mesh c2r plans (device time by op, busy share of the host
-   wall).
+   function; the cube against ``fft3d_planar`` on the same data (at the
+   reference's radix picks and at (16, 8) on every axis) and against
+   ``torch.fft.fftn``; the namespace calls against their ``torch.fft``
+   twins; ``torch.profiler`` breakdowns of the long 1-D, unfused real
+   and 1 x 1 mesh c2r plans, the cube and the prime-length ``fft``
+   (device time by op, busy share of the host wall).
 
 The line before the last is one JSON object with each kernel's numbers:
 its launches on the main paths, its error, its time, its plain version's
@@ -70,6 +81,7 @@ import torch.distributed as dist
 
 TOL_KERNEL = 1e-6   # kernel vs plain, max-abs relative
 TOL_PATH = 1e-6     # plan vs complex128 torch.fft, norm relative (fp32 bar)
+TOL_PATH64 = 1e-12  # the same for the fp64 route
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at 700 W
 F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores, the same sheet
 
@@ -181,6 +193,11 @@ def _work(name: str, shape) -> tuple:
         b, n1, n2 = shape
         e = b * n1 * n2
         return 16 * e + _table_bytes(n2), e * _fft_flops(n2)
+    if name == "fft_cube":                  # (B, X, Y, Z): one read, one write
+        b, x, y, z = shape
+        e = b * x * y * z
+        return (16 * e + _table_bytes(x) + _table_bytes(y) + _table_bytes(z),
+                e * (_fft_flops(x) + _fft_flops(y) + _fft_flops(z)))
     raise KeyError(name)
 
 
@@ -226,6 +243,9 @@ def _library(name: str, shape, gen):
         b, m = shape
         w = fft.rfft(torch.randn((b, 2 * m), generator=gen, device="cuda"))
         return "irfft(dim=-1)", fft.irfft, (w,)
+    if name == "fft_cube":
+        return "fftn(dim=(-3, -2, -1))", fft.fftn, (
+            torch.complex(*_pair(shape, gen)), None, (-3, -2, -1))
     if name in ("step1_twiddle", "step3_transposed"):
         # the four-step pair computes the whole 1-D transform
         return "fft of the whole 1-D", fft.fft, (
@@ -358,6 +378,13 @@ def main() -> int:
          (2, 128, 256), None),
         ("step3_transposed", fs._step3_transposed, step3(1024, 1024),
          (1, 1024, 1024), None),
+        ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x, out_scale=0.5),
+         (2, 32, 32, 128), None),
+        ("fft_cube", ff.fft3d_cube,
+         lambda f, x: f(*x, rad_z=(32, 32, 32), inverse=True),
+         (8, 8, 32768), None),
+        ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x), (8, 128, 128, 128),
+         None),
     ]
     per_kernel = {}
     for name, fn, call, shape, lanes in checks:
@@ -734,6 +761,84 @@ def main() -> int:
     del results, inputs
     torch.cuda.empty_cache()
 
+    # ---- 3f. the cube kernel through fft3d_cube ----------------------------
+    cube_cases = [
+        # (label, shape, kwargs)
+        ("8x128^3 fwd", (8, 128, 128, 128), {}),
+        ("8x128^3 inv", (8, 128, 128, 128), {"inverse": True}),
+        ("8x8x32768 fwd (split z)", (8, 8, 32768), {"rad_z": (32, 32, 32)}),
+    ]
+    inputs = {label: _pair(shape, gen) for label, shape, _ in cube_cases}
+
+    def run_cube():
+        return {label: ot.fft3d_cube(*inputs[label], **kw)
+                for label, _, kw in cube_cases}
+    results, runs["cube"] = _window(ff, run_cube)
+    print(f"cube path counts (launches, plain calls): {runs['cube'][0]}")
+    for label, shape, kw in cube_cases:
+        x = torch.complex(inputs[label][0].double(),
+                          inputs[label][1].double())
+        f = torch.fft.ifftn if kw.get("inverse") else torch.fft.fftn
+        ref = f(x, dim=(-3, -2, -1))
+        yr, yi = results[label]
+        if tuple(yr.shape) != shape:
+            raise AssertionError(f"{label}: shape {tuple(yr.shape)}")
+        err = _rel_err(yr, yi, ref)
+        print(f"path cube {label}: rel err vs complex128 fftn {err:.3e} "
+              f"(tol {TOL_PATH:g}) {tag}", flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"cube {label}: error {err:.3e}")
+        del x, ref
+    del results, inputs
+    torch.cuda.empty_cache()
+
+    # ---- 3g. the numpy.fft namespace at full size -------------------------
+    def cplx(shape, dtype=torch.complex64):
+        return torch.randn(shape, dtype=dtype, generator=gen, device="cuda")
+    prime = 1000003
+    ns = {"fftn 256^3": cplx((256, 256, 256)),
+          "rfftn 256^3": torch.randn((256, 256, 256), generator=gen,
+                                     device="cuda"),
+          f"fft {prime}": cplx((prime,)),
+          "fftn (8,64,64,64)": cplx((8, 64, 64, 64)),
+          "fftn 128^3 complex128": cplx((128, 128, 128), torch.complex128)}
+    ns["irfftn 256^3"] = torch.fft.rfftn(ns["rfftn 256^3"].double()).to(
+        torch.complex64)
+    ns_calls = {
+        # label: (the namespace call, its complex128 torch.fft twin, bar)
+        "fftn 256^3": (ot.fft.fftn, torch.fft.fftn, TOL_PATH),
+        "rfftn 256^3": (ot.fft.rfftn, torch.fft.rfftn, TOL_PATH),
+        "irfftn 256^3": (ot.fft.irfftn, torch.fft.irfftn, TOL_PATH),
+        f"fft {prime}": (ot.fft.fft, torch.fft.fft, TOL_PATH),
+        "fftn (8,64,64,64)": (ot.fft.fftn, torch.fft.fftn, TOL_PATH),
+        "fftn 128^3 complex128": (ot.fft.fftn, torch.fft.fftn, TOL_PATH64),
+    }
+
+    def run_ns():
+        return {label: fn(ns[label]) for label, (fn, _, _) in
+                ns_calls.items()}
+    results, runs["namespace"] = _window(ff, run_ns)
+    print(f"namespace path counts (launches, plain calls): "
+          f"{runs['namespace'][0]}")
+    for label, (fn, twin, bar) in ns_calls.items():
+        x = ns[label]
+        wide = x.double() if not x.is_complex() else x.to(torch.complex128)
+        ref = twin(wide)
+        got = results[label]
+        want_dtype = (torch.complex128 if x.dtype == torch.complex128
+                      else torch.float32 if fn is ot.fft.irfftn
+                      else torch.complex64)
+        if tuple(got.shape) != tuple(ref.shape) or got.dtype != want_dtype:
+            raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype}")
+        err = _rel_err(got, None, ref)
+        print(f"path namespace {label}: rel err vs complex128 torch.fft "
+              f"{err:.3e} (tol {bar:g}) {tag}", flush=True)
+        if err > bar:
+            raise AssertionError(f"namespace {label}: error {err:.3e}")
+        del ref, got, wide
+    del results
+    torch.cuda.empty_cache()
+
     # ---- 4. the counters -----------------------------------------------
     path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
                     "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
@@ -743,7 +848,11 @@ def main() -> int:
                     "local_real": ("rfft_last", "fft_axis", "fft_last",
                                    "step1_twiddle", "step3_transposed"),
                     "mesh": ("icrfft_last", "rfft_last", "fft_last",
-                             "fft_axis", "fft_slab")}
+                             "fft_axis", "fft_slab"),
+                    "cube": ("fft_cube",),
+                    "namespace": ("fft_slab", "fft_axis", "fft_last",
+                                  "rfft_last", "step1_twiddle",
+                                  "step3_transposed")}
     for path, (counts, launched) in runs.items():
         for name in path_kernels[path]:
             if launched[name] <= 0:
@@ -969,6 +1078,51 @@ def main() -> int:
         del args, w, p_mesh, p_one
         torch.cuda.empty_cache()
     dist.destroy_process_group()
+
+    # the cube (one launch) against fft3d_planar (the slab and the x pass)
+    # on the same data, at the reference's radix picks (128 is one
+    # radix-128 stage) and at (16, 8) on every axis, and against cuFFT
+    xr, xi = _pair((8, 128, 128, 128), gen)
+    xc = torch.complex(xr, xi)
+    r_lib = time_cuda(torch.fft.fftn, (xc, None, (-3, -2, -1)))
+    for what, kw in (("reference picks", {}),
+                     ("(16, 8) picks", {"rad_x": (16, 8), "rad_y": (16, 8),
+                                        "rad_z": (16, 8)})):
+        r_c = time_cuda(lambda: ff.fft3d_cube(xr, xi, **kw))
+        r_p = time_cuda(lambda: ff.fft3d_planar(xr, xi, **kw))
+        show(f"cube 8x128^3 {what} (fft3d_cube, one launch)", r_c,
+             f", {r_c['median_ms'] / r_p['median_ms']:.2f}x fft3d_planar, "
+             f"{r_c['median_ms'] / r_lib['median_ms']:.2f}x cuFFT")
+        show(f"fft3d_planar 8x128^3 {what} (slab + x pass)", r_p)
+    show("torch.fft.fftn (cuFFT) c64 8x128^3", r_lib)
+    show_breakdown("cube 8x128^3", ff.fft3d_cube, (xr, xi))
+    show_breakdown("fft3d_planar 8x128^3", ff.fft3d_planar, (xr, xi))
+    del xr, xi, xc
+    xr, xi = _pair((8, 8, 32768), gen)
+    rz = {"rad_z": (32, 32, 32)}
+    r_c = time_cuda(lambda: ff.fft3d_cube(xr, xi, **rz))
+    r_p = time_cuda(lambda: ff.fft3d_planar(xr, xi, **rz))
+    r_lib = time_cuda(torch.fft.fftn, (torch.complex(xr, xi), None,
+                                       (-3, -2, -1)))
+    show("cube 8x8x32768 (split z)", r_c,
+         f", {r_c['median_ms'] / r_p['median_ms']:.2f}x fft3d_planar, "
+         f"{r_c['median_ms'] / r_lib['median_ms']:.2f}x cuFFT")
+    show("fft3d_planar 8x8x32768", r_p)
+    show("torch.fft.fftn (cuFFT) c64 8x8x32768", r_lib)
+    del xr, xi
+    # the namespace calls against their torch.fft twins on the same input
+    for label, (fn, twin, _) in ns_calls.items():
+        r_n = time_cuda(fn, (ns[label],))
+        r_t = time_cuda(twin, (ns[label],))
+        show(f"namespace {label}", r_n,
+             f", {r_n['median_ms'] / r_t['median_ms']:.2f}x torch.fft")
+        show(f"torch.fft twin {label}", r_t)
+    show_breakdown(f"namespace fft {prime}", ot.fft.fft,
+                   (ns[f"fft {prime}"],))
+    show_breakdown("namespace fftn 128^3 complex128", ot.fft.fftn,
+                   (ns["fftn 128^3 complex128"],))
+    del ns
+    torch.cuda.empty_cache()
 
     report = []
     for name, info in ff.KERNELS.items():

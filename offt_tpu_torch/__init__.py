@@ -19,7 +19,15 @@ The ported slices are the single-device transforms on planar float32
   ceiling, by the four-step kernels (``fft_four_step_planar``); real
   plans with ``planar=False`` or outside the packed kernels' gate, by the
   r2c kernel along z (``rfft_last_planar``) or the unfused r2c/c2r around
-  the c2c kernels, then one c2c pass per axis.
+  the c2c kernels, then one c2c pass per axis;
+- the distributed pencil engine (fourth slice): ``plan(...,
+  mesh=make_mesh(p1, p2))`` in a ``torch.distributed`` process group;
+- the fifth slice: ``fft3d_cube`` (all three axes of batched cubes of at
+  most 2^21 points in one cooperative launch), the unfused engine
+  (``kernels/stockham.py``: the matmul chain, Bluestein for any length,
+  complex128 / float64 plans and ``use_pallas=0``) and the
+  ``numpy.fft``-style namespace ``offt_tpu_torch.fft`` on top of the
+  plans (``ot.fft.fftn(x)``, ``ot.fft.rfft(x, n=1009)``).
 
 The kernels (``kernels/csrc``) are built with nvcc for sm_90a at first
 use. On the CPU every kernel wrapper runs its plain PyTorch version
@@ -33,11 +41,14 @@ __version__ = "0.1.0"
 from .dist.mesh import (RANKORDER_AUTO, RANKORDER_COL, RANKORDER_ROW,
                         Layout, batch_layout, input_layout, local_block,
                         make_mesh, make_multislice_mesh, output_layout)
+from . import fft
+from .kernels import fft_1d
 from .kernels.fourstep import fft_four_step_planar
-from .kernels.fused_fft import (fft3d_planar, fft_last, fft_slab_yz,
-                                fft_sublane, icrfft_last_planar,
-                                irfft3d_planar, pack_rfft3d, rfft3d_planar,
-                                rfft_last_planar, unpack_rfft3d)
+from .kernels.fused_fft import (can_fuse_cube, fft3d_cube, fft3d_planar,
+                                fft_last, fft_slab_yz, fft_sublane,
+                                icrfft_last_planar, irfft3d_planar,
+                                pack_rfft3d, rfft3d_planar, rfft_last_planar,
+                                unpack_rfft3d)
 from .plan.api import Plan, fft3d, from_planar, ifft3d, plan, to_planar
 from .plan.params import PlanParams
 
@@ -49,8 +60,12 @@ __all__ = [
     "RANKORDER_COL",
     "RANKORDER_ROW",
     "batch_layout",
+    "can_fuse_cube",
+    "fft",
     "fft3d",
+    "fft3d_cube",
     "fft3d_planar",
+    "fft_1d",
     "fft_four_step_planar",
     "fft_last",
     "fft_slab_yz",

@@ -42,7 +42,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..kernels import fourstep
+from ..kernels import fourstep, stockham
 from ..kernels import fused_fft as ff
 from ..plan.params import TRANSPOSE_PPERMUTE, PlanParams
 from .mesh import COL, ROW, coords, mesh_shape
@@ -51,28 +51,35 @@ from .mesh import COL, ROW, coords, mesh_shape
 def axis_fft(xr, xi, axis: int, inverse: bool, radices, params,
              out_scale: float = 1.0, tables=None):
     """One planar 1-D c2c along ``axis`` (numpy fft/ifft semantics), with
-    the reference's dispatch: the 2-stage kernels (``fft_1d_planar``)
-    when the axis is expressible; the four-step route for the last axis
-    with no radices; else NotImplementedError (the unfused Stockham /
-    Bluestein engine is ROADMAP Queue 1 item 7). ``out_scale`` rides the
-    kernels' tables."""
+    the reference's dispatch (``offt_tpu/dist/pencil.py:47-70``): for a
+    float32 pair on a plan with its kernels on (``params.use_pallas``),
+    the 2-stage kernels (``fft_1d_planar``) when the axis is expressible,
+    the four-step route for the last axis with no radices; everything
+    else (``use_pallas=0``, a float64 pair, a length no kernel route
+    expresses) takes the unfused engine, ``stockham.fft_1d`` on the
+    pair's complex view. ``out_scale`` rides the kernels' tables, and
+    multiplies the unfused engine's result."""
     axis = axis % xr.ndim
     n = xr.shape[axis]
-    if ff.can_use_pallas(n, radices):
-        return ff.fft_1d_planar(xr, xi, axis, inverse=inverse,
-                                radices=radices, precision=params.precision,
-                                block=params.block_batch,
-                                out_scale=out_scale, x_tile=params.x_tile,
-                                tables=tables)
-    if (axis == xr.ndim - 1 and radices is None
-            and fourstep.can_use_four_step(n, params.split_1d)):
-        return fourstep.fft_four_step_planar(
-            xr, xi, inverse=inverse, split=params.split_1d,
-            precision=params.precision, out_scale=out_scale,
-            block=params.block_batch, tables=tables)
-    raise NotImplementedError(
-        f"N={n} along axis {axis} (radices {radices}) needs the unfused "
-        "Stockham/Bluestein engine, ROADMAP Queue 1 item 7")
+    if params.use_pallas and xr.dtype == torch.float32:
+        if ff.can_use_pallas(n, radices):
+            return ff.fft_1d_planar(xr, xi, axis, inverse=inverse,
+                                    radices=radices,
+                                    precision=params.precision,
+                                    block=params.block_batch,
+                                    out_scale=out_scale,
+                                    x_tile=params.x_tile, tables=tables)
+        if (axis == xr.ndim - 1 and radices is None
+                and fourstep.can_use_four_step(n, params.split_1d)):
+            return fourstep.fft_four_step_planar(
+                xr, xi, inverse=inverse, split=params.split_1d,
+                precision=params.precision, out_scale=out_scale,
+                block=params.block_batch, tables=tables)
+    y = stockham.fft_1d(torch.complex(xr, xi), axis, inverse, radices,
+                        params.precision, bool(params.use_pallas), tables)
+    if out_scale != 1.0:
+        y = y * out_scale
+    return y.real.contiguous(), y.imag.contiguous()
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,405 @@
+"""A ``numpy.fft``-style namespace on offt_tpu_torch plans.
+
+Counterpart of ``offt_tpu/fft.py``: ``fft``, ``ifft``, ``rfft``,
+``irfft``, ``hfft``, ``ihfft``, their 2-D and n-D forms, ``fftshift``,
+``ifftshift``, ``fftfreq`` and ``rfftfreq``, with numpy's ``n`` / ``s`` /
+``axes`` / ``norm`` rules, on torch tensors:
+
+    import offt_tpu_torch as ot
+    X = ot.fft.fftn(x)            # x a CUDA tensor: runs on its card
+    y = ot.fft.irfft(Y, n=1009)   # any length (Bluestein past radix 128)
+
+Each call runs cached plans (:func:`offt_tpu_torch.plan`): 1-D and 2-D
+calls as degenerate ``(1, 1, n)`` / ``(1, ny, nz)`` 3-D plans, n-D calls
+as one 3-D plan over the trailing three transform axes and further groups
+of three for the rest (norms compose exactly across groups: each scales
+by its own axes' product). So each call takes the plans' routes: the
+kernels where an axis has one, the unfused engine (``kernels/stockham``)
+for any other length and for complex128.
+
+Devices: a call runs where its input tensor lies; a tensor on the CPU
+runs the kernels' plain versions there, as ``torch.fft`` would. Anything
+that is not a tensor (a numpy array, a list) goes to the current CUDA
+device and raises without one. The plan cache is keyed by device too.
+
+Dtypes follow ``torch.fft``: float64 and complex128 inputs give
+complex128 results (the fp64 route, 1e-12), every other type complex64
+(real results float64 or float32). The reference follows JAX, whose
+64-bit types need x64 on.
+
+Not here yet: ``use_mesh`` (the distributed namespace) raises: its 1-D
+calls need the distributed long-1-D engine, ROADMAP Queue 1 item 14.
+Plans run forward only, so a tensor that requires grad raises (autodiff
+is item 9).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from .kernels.stockham import _complex_dtype as _cdtype
+from .plan import api as _api
+
+__all__ = [
+    "fft", "ifft", "rfft", "irfft", "hfft", "ihfft",
+    "fft2", "ifft2", "rfft2", "irfft2",
+    "fftn", "ifftn", "rfftn", "irfftn",
+    "fftshift", "ifftshift", "fftfreq", "rfftfreq",
+    "use_mesh",
+]
+
+
+class use_mesh:
+    """The reference's distributed namespace (``offt_tpu.fft.use_mesh``).
+    Not ported: its 1-D calls ride the distributed long-1-D engine
+    (``dist/long1d.py``), ROADMAP Queue 1 item 14. Constructing one
+    raises NotImplementedError."""
+
+    def __init__(self, mesh):
+        raise NotImplementedError(
+            "use_mesh needs the distributed long-1-D engine "
+            "(dist/long1d.py), ROADMAP Queue 1 item 14")
+
+
+# ---- devices, dtypes and the plan cache -----------------------------------
+
+def _cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible: pass a tensor on the "
+                           "CPU to run the namespace there")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _tensor(a) -> torch.Tensor:
+    """``a`` itself when it is a tensor, else ``a`` on the current CUDA
+    device."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.as_tensor(a, device=_cuda())
+
+
+def _rdtype(cdt: torch.dtype) -> torch.dtype:
+    return torch.float64 if cdt == torch.complex128 else torch.float32
+
+
+def _as_complex(a: torch.Tensor) -> torch.Tensor:
+    return a.to(_cdtype(a.dtype))
+
+
+def _as_real(a: torch.Tensor) -> torch.Tensor:
+    if a.is_complex():
+        a = a.real
+    return a.to(_rdtype(_cdtype(a.dtype)))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_cached(shape3, dtype, real, inverse, norm, batch_dims, device):
+    name = str(dtype).rsplit(".", 1)[-1]
+    return _api.plan(shape3, name, real=real, inverse=inverse, norm=norm,
+                     batch_dims=batch_dims, device=device)
+
+
+def _fix_len(a, axis: int, n: int):
+    """numpy's input-length rule: crop to the first ``n`` elements or
+    zero-pad at the end."""
+    axis = axis % a.ndim
+    cur = a.shape[axis]
+    if cur > n:
+        return a.narrow(axis, 0, n)
+    if cur < n:
+        shp = list(a.shape)
+        shp[axis] = n - cur
+        return torch.cat([a, a.new_zeros(shp)], axis)
+    return a
+
+
+# ---- trailing-group plan application --------------------------------------
+
+def _tail_c2c(a, m: int, norm, inverse: bool):
+    """c2c over the LAST ``m`` (1..3) axes through one plan."""
+    lead = tuple(a.shape[:a.ndim - m])
+    tail = tuple(a.shape[a.ndim - m:])
+    shape3 = (1,) * (3 - m) + tail
+    p = _plan_cached(shape3, a.dtype, False, inverse, norm, len(lead),
+                     a.device)
+    return p(a.reshape(lead + shape3)).reshape(lead + tail)
+
+
+def _tail_real_fwd(a, m: int, norm):
+    """r2c over the last axis and c2c over the other ``m - 1`` tail axes."""
+    lead = tuple(a.shape[:a.ndim - m])
+    tail = tuple(a.shape[a.ndim - m:])
+    shape3 = (1,) * (3 - m) + tail
+    p = _plan_cached(shape3, a.dtype, True, False, norm, len(lead),
+                     a.device)
+    y = p(a.reshape(lead + shape3).contiguous())
+    return y.reshape(lead + tail[:-1] + (tail[-1] // 2 + 1,))
+
+
+def _tail_real_inv(a, m: int, n_out: int, norm):
+    """c2r (output length ``n_out``) over the last axis and the inverse
+    c2c over the other ``m - 1`` tail axes; the input's last axis is
+    already ``n_out // 2 + 1``.
+
+    numpy's 1-D rule (``offt_tpu/fft.py:149-174``): the DC bin and, for
+    an even ``n_out``, the Nyquist bin of a 1-D c2r input are real by
+    Hermitian symmetry and numpy discards their imaginary parts, so they
+    are dropped here for ``m == 1``. A multi-axis group keeps them: there
+    they hold the other axes' spectra, and the result agrees with numpy
+    on Hermitian-consistent input (any ``rfftn`` output)."""
+    if m == 1:
+        last = a.shape[-1] - 1
+        keep = torch.ones(a.shape[-1], dtype=torch.bool, device=a.device)
+        keep[0] = False
+        if n_out % 2 == 0:
+            keep[last] = False
+        a = torch.where(keep, a, a.real.to(a.dtype))
+    lead = tuple(a.shape[:a.ndim - m])
+    tail = tuple(a.shape[a.ndim - m:])
+    shape3 = (1,) * (3 - m) + tail[:-1] + (n_out,)
+    p = _plan_cached(shape3, _rdtype(a.dtype), True, True, norm, len(lead),
+                     a.device)
+    y = p(a.reshape(lead + (1,) * (3 - m) + tail).contiguous())
+    return y.reshape(lead + tail[:-1] + (n_out,))
+
+
+def _grouped_c2c(a, k: int, norm, inverse: bool):
+    """c2c over the last ``k`` axes, three at a time (each group one plan;
+    the axes' transforms commute, so grouping is free)."""
+    if k == 0:
+        return a
+    m = 3 if k >= 3 else k
+    a = _tail_c2c(a, m, norm, inverse)
+    if k > m:
+        nd = a.ndim
+        # park the m done axes at the front of the k-axis tail block, so
+        # the k - m untransformed axes become the new tail
+        done = tuple(range(nd - m, nd))
+        front = tuple(range(nd - k, nd - k + m))
+        a = _grouped_c2c(a.movedim(done, front), k - m, norm, inverse)
+        a = a.movedim(front, done)
+    return a
+
+
+def _on_axes(a, axes, fn):
+    """Move ``axes`` (in order) to the end, apply ``fn``, move them back."""
+    rest = [i for i in range(a.ndim) if i not in axes]
+    order = rest + list(axes)
+    a = fn(a.permute(order))
+    inv = [0] * a.ndim
+    for i, ax in enumerate(order):
+        inv[ax] = i
+    return a.permute(inv)
+
+
+def _resolve(a, s, axes):
+    """numpy's ``s`` / ``axes`` rules: no axes means all of them, or the
+    last ``len(s)`` when ``s`` is given."""
+    if axes is None:
+        axes = (list(range(a.ndim)) if s is None
+                else list(range(a.ndim - len(s), a.ndim)))
+    axes = [ax % a.ndim for ax in axes]
+    if s is None:
+        s = [a.shape[ax] for ax in axes]
+    if len(s) != len(axes):
+        raise ValueError("s and axes must have the same length")
+    return list(s), axes
+
+
+# ---- 1-D ------------------------------------------------------------------
+
+def fft(a, n=None, axis=-1, norm=None):
+    """1-D c2c along ``axis`` (``numpy.fft.fft``)."""
+    return _fft1(a, n, axis, norm, inverse=False)
+
+
+def ifft(a, n=None, axis=-1, norm=None):
+    """1-D inverse c2c along ``axis`` (``numpy.fft.ifft``)."""
+    return _fft1(a, n, axis, norm, inverse=True)
+
+
+def _fft1(a, n, axis, norm, inverse):
+    a = _as_complex(_tensor(a))
+    axis = axis % a.ndim
+    if n is not None:
+        a = _fix_len(a, axis, n)
+    if axis != a.ndim - 1:
+        return _on_axes(a, [axis], lambda t: _tail_c2c(t, 1, norm, inverse))
+    return _tail_c2c(a, 1, norm, inverse)
+
+
+def rfft(a, n=None, axis=-1, norm=None):
+    """1-D r2c along ``axis``: the ``n // 2 + 1`` bins of
+    ``numpy.fft.rfft`` (a complex input's imaginary part is dropped)."""
+    a = _as_real(_tensor(a))
+    axis = axis % a.ndim
+    if n is not None:
+        a = _fix_len(a, axis, n)
+    if axis != a.ndim - 1:
+        return _on_axes(a, [axis], lambda t: _tail_real_fwd(t, 1, norm))
+    return _tail_real_fwd(a, 1, norm)
+
+
+def irfft(a, n=None, axis=-1, norm=None):
+    """1-D c2r along ``axis``: a real result of length ``n`` (default
+    ``2 * (m - 1)``), ``numpy.fft.irfft``."""
+    a = _as_complex(_tensor(a))
+    axis = axis % a.ndim
+    if n is None:
+        n = 2 * (a.shape[axis] - 1)
+    a = _fix_len(a, axis, n // 2 + 1)
+    if axis != a.ndim - 1:
+        return _on_axes(a, [axis], lambda t: _tail_real_inv(t, 1, n, norm))
+    return _tail_real_inv(a, 1, n, norm)
+
+
+_SWAP = {None: "forward", "backward": "forward",
+         "forward": "backward", "ortho": "ortho"}
+
+
+def hfft(a, n=None, axis=-1, norm=None):
+    """The FFT of a Hermitian-symmetric signal: a real result of length
+    ``n`` (default ``2 * (m - 1)``), ``irfft(conj(a), n)`` under the
+    swapped norm, as in numpy."""
+    if norm not in _SWAP:
+        raise ValueError(f"norm must be backward|ortho|forward, got {norm!r}")
+    return irfft(_as_complex(_tensor(a)).conj_physical(), n, axis,
+                 norm=_SWAP[norm])
+
+
+def ihfft(a, n=None, axis=-1, norm=None):
+    """The inverse of :func:`hfft`: the conjugate ``rfft`` under the
+    swapped norm."""
+    if norm not in _SWAP:
+        raise ValueError(f"norm must be backward|ortho|forward, got {norm!r}")
+    return rfft(a, n, axis, norm=_SWAP[norm]).conj_physical()
+
+
+# ---- 2-D / n-D ------------------------------------------------------------
+
+def fft2(a, s=None, axes=(-2, -1), norm=None):
+    return fftn(a, s, axes, norm)
+
+
+def ifft2(a, s=None, axes=(-2, -1), norm=None):
+    return ifftn(a, s, axes, norm)
+
+
+def rfft2(a, s=None, axes=(-2, -1), norm=None):
+    return rfftn(a, s, axes, norm)
+
+
+def irfft2(a, s=None, axes=(-2, -1), norm=None):
+    return irfftn(a, s, axes, norm)
+
+
+def fftn(a, s=None, axes=None, norm=None):
+    """n-D c2c over ``axes`` (default: all), ``numpy.fft.fftn``."""
+    return _fftn(a, s, axes, norm, inverse=False)
+
+
+def ifftn(a, s=None, axes=None, norm=None):
+    return _fftn(a, s, axes, norm, inverse=True)
+
+
+def _fftn(a, s, axes, norm, inverse):
+    a = _as_complex(_tensor(a))
+    s, axes = _resolve(a, s, axes)
+    for ax, n in zip(axes, s):
+        a = _fix_len(a, ax, n)
+    if not axes:
+        return a
+    if len(set(axes)) != len(axes):
+        # numpy allows repeated axes (the transform applied again); peel
+        # them one at a time
+        for ax in axes:
+            a = _fft1(a, None, ax, norm, inverse)
+        return a
+    return _on_axes(a, axes,
+                    lambda t: _grouped_c2c(t, len(axes), norm, inverse))
+
+
+def rfftn(a, s=None, axes=None, norm=None):
+    """n-D real FFT: r2c over ``axes[-1]``, c2c over the rest."""
+    a = _as_real(_tensor(a))
+    s, axes = _resolve(a, s, axes)
+    if not axes:
+        raise ValueError("rfftn requires at least one transform axis")
+    if len(set(axes)) != len(axes):
+        raise ValueError("rfftn does not support repeated axes")
+    for ax, n in zip(axes, s):
+        a = _fix_len(a, ax, n)
+    k = len(axes)
+    m = 3 if k >= 3 else k
+    # the real group: the last m axes of `axes`, the r2c axis among them
+    a = _on_axes(a, axes[k - m:], lambda t: _tail_real_fwd(t, m, norm))
+    if k > m:
+        a = _fftn(a, None, axes[:k - m], norm, inverse=False)
+    return a
+
+
+def irfftn(a, s=None, axes=None, norm=None):
+    """n-D inverse real FFT: inverse c2c over ``axes[:-1]``, c2r over
+    ``axes[-1]`` with output length ``s[-1]`` (default ``2 * (m - 1)``)."""
+    a = _as_complex(_tensor(a))
+    want_s = s
+    s, axes = _resolve(a, s, axes)
+    if not axes:
+        raise ValueError("irfftn requires at least one transform axis")
+    if len(set(axes)) != len(axes):
+        raise ValueError("irfftn does not support repeated axes")
+    if want_s is None:
+        s[-1] = 2 * (a.shape[axes[-1]] - 1)
+    for ax, n in zip(axes[:-1], s[:-1]):
+        a = _fix_len(a, ax, n)
+    n_out = s[-1]
+    a = _fix_len(a, axes[-1], n_out // 2 + 1)
+    k = len(axes)
+    m = 3 if k >= 3 else k
+    if k > m:
+        a = _fftn(a, None, axes[:k - m], norm, inverse=True)
+    return _on_axes(a, axes[k - m:],
+                    lambda t: _tail_real_inv(t, m, n_out, norm))
+
+
+# ---- helpers --------------------------------------------------------------
+
+def _shift_axes(x, axes):
+    if axes is None:
+        return tuple(range(x.ndim))
+    if isinstance(axes, int):
+        return (axes,)
+    return tuple(axes)
+
+
+def fftshift(x, axes=None):
+    """The zero-frequency bin to the centre (``numpy.fft.fftshift``)."""
+    x = _tensor(x)
+    axes = _shift_axes(x, axes)
+    return torch.roll(x, [x.shape[ax] // 2 for ax in axes], axes)
+
+
+def ifftshift(x, axes=None):
+    """The inverse of :func:`fftshift`."""
+    x = _tensor(x)
+    axes = _shift_axes(x, axes)
+    return torch.roll(x, [-(x.shape[ax] // 2) for ax in axes], axes)
+
+
+def fftfreq(n, d=1.0, *, dtype=None, device=None):
+    """The sample frequencies of an ``n``-point FFT, ``numpy.fft.fftfreq``,
+    in ``dtype`` (torch's default float type) on ``device`` (the current
+    CUDA device unless given)."""
+    dev = _cuda() if device is None else torch.device(device)
+    k = torch.cat([torch.arange(0, (n - 1) // 2 + 1, device=dev),
+                   torch.arange(-(n // 2), 0, device=dev)])
+    return k.to(dtype or torch.get_default_dtype()) / (n * d)
+
+
+def rfftfreq(n, d=1.0, *, dtype=None, device=None):
+    """The sample frequencies of :func:`rfft`, ``numpy.fft.rfftfreq``."""
+    dev = _cuda() if device is None else torch.device(device)
+    k = torch.arange(0, n // 2 + 1, device=dev)
+    return k.to(dtype or torch.get_default_dtype()) / (n * d)

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "offt_step3_transposed": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                               _I, _I, _P],
     "offt_icrfft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    "offt_fft_cube": [_P] * 10 + [_L] + [_I] * 21 + [_P],
 }
 
 _LIB = None

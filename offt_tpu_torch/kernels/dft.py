@@ -73,6 +73,18 @@ def factorize(n: int, max_radix: int = MAX_RADIX) -> tuple[int, ...]:
     raise AssertionError("unreachable: k == len(primes) always feasible")
 
 
+def validate_factorization(n: int, radices) -> tuple[int, ...]:
+    """Check a user- or tuner-supplied radix list: its product is n.
+    (A radix past MAX_RADIX is let through, as in the reference: the
+    unfused engine then takes Bluestein.)"""
+    prod = 1
+    for r in radices:
+        prod *= r
+    if prod != n:
+        raise ValueError(f"radices {radices} do not multiply to {n}")
+    return tuple(radices)
+
+
 def dft_matrix(n: int, dtype, inverse: bool = False) -> np.ndarray:
     """Dense DFT matrix in the requested complex dtype (no 1/n scaling)."""
     k = np.arange(n, dtype=np.float64)

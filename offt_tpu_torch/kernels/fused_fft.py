@@ -8,9 +8,11 @@ Counterpart of these functions of ``offt_tpu/kernels/pallas_fft.py``:
 ``rfft3d_planar`` and ``irfft3d_planar`` (r2c/c2r); ``rfft_last_planar``
 (r2c along the last axis, the unfused real route and the distributed
 packed forward); ``icrfft_last_planar`` (packed c2r along the last axis,
-the distributed packed inverse); and the gates
+the distributed packed inverse); ``fft3d_cube`` (all three axes of
+batched small cubes in one launch); and the gates
 ``can_use_pallas``, ``can_fuse_slab``, ``can_use_padded_x``,
-``can_use_rfft3d``, ``can_use_rfft_last`` and ``bank_conflict_stride``,
+``can_use_rfft3d``, ``can_use_rfft_last``, ``can_fuse_cube`` and
+``bank_conflict_stride``,
 which keep the reference's values so that both packages take the same
 routes. The four-step kernels' wrappers live in :mod:`.fourstep` and use
 the plumbing here.
@@ -54,6 +56,7 @@ _STRIDE_PAD = 8
 _SLAB_VMEM_LIMIT = 1 << 20
 _VMEM_CAP = 120 << 20
 _X_VMEM_BLOCKS = 16
+_CUBE_MAX_ELEMS = 1 << 21    # 128^3 (pallas_fft.py:1114)
 
 # shared-memory tile budget of one block (three per SM fit beside the
 # roots), and the most a block may have on Hopper
@@ -114,6 +117,11 @@ KERNELS = {
         "replaces": "offt_tpu/kernels/fourstep.py:213",
         "wrappers": ("_step3_transposed",),
     },
+    "fft_cube": {
+        "source": "offt_tpu_torch/kernels/csrc/fft_cube.cu",
+        "replaces": "offt_tpu/kernels/pallas_fft.py:1156",
+        "wrappers": ("fft3d_cube",),
+    },
 }
 
 
@@ -169,6 +177,20 @@ def can_use_rfft_last(n: int, radices=None) -> bool:
                                                     radices) is not None
 
 
+def can_fuse_cube(nx: int, ny: int, nz: int, rad_x=None, rad_y=None,
+                  rad_z=None, precision: str = DEFAULT_PRECISION) -> bool:
+    """The reference's cube gate: at most 2^21 elements, Z a multiple of
+    128, Y of 8, every axis expressible. ``precision`` is accepted for
+    parity: the reference's stacked picks exist for exactly the lengths
+    its unstacked ones do, so the gate's value does not depend on it
+    (the picks themselves may differ; the values do not)."""
+    return (nx * ny * nz <= _CUBE_MAX_ELEMS and nz % 128 == 0
+            and ny % 8 == 0
+            and tb._pick_stages(nx, rad_x) is not None
+            and tb._pick_stages(ny, rad_y) is not None
+            and tb._pick_stages(nz, rad_z) is not None)
+
+
 def _pick_lane_tile(lanes: int, target: int) -> int:
     target = min(target, lanes)
     if lanes % target == 0 and (target % 128 == 0 or target == lanes):
@@ -200,16 +222,23 @@ _TABLE_KINDS = {
     "rfft": (tb.rfft_table, (int,)),                       # n
     "crfft": (tb.crfft_table, (int, float)),               # n, scale
     "fourstep": (tb.fourstep_twiddle, (int, int, bool, float)),  # n1, n2, ..
-    "half": (tb.half_twiddles, (int, bool)),               # n, inverse
+    "half": (tb.half_twiddles, (int, bool, str)),          # n, inverse, dt
+    # the unfused engine's complex tables (stockham.py); dtype by name
+    "dft": (tb.dft_table, (int, str, bool)),               # n, dtype, inv
+    "twiddle": (tb.stage_twiddle, (int, int, str, bool)),  # r, m, ..
+    "chirp": (tb.bluestein_chirp, (int, str, bool)),       # n, dtype, inv
+    "chirp_fft": (tb.bluestein_spectrum, (int, str, bool)),
 }
 
 
 class TableSet:
-    """The f32 tables of one device, keyed by (kind, *args) and built on
-    first use: ``get(kind, *args)`` is the ``tables`` builder of that kind
+    """The tables of one device, keyed by (kind, *args) and built on first
+    use: ``get(kind, *args)`` is the ``tables`` function of that kind
     (``core_table``, ``rfft_table``, ``crfft_table``, ``fourstep_twiddle``,
-    ``half_twiddles``) on these args. A Plan keeps one and registers its
-    tensors as buffers."""
+    ``half_twiddles``: the kernels' float32; ``dft_table``,
+    ``stage_twiddle``, ``bluestein_chirp``, ``bluestein_spectrum``: the
+    unfused engine's complex64 or complex128) on these args. A Plan keeps
+    one and registers its tensors as buffers."""
 
     def __init__(self, device, tabs: dict | None = None):
         self.device = torch.device(device)
@@ -356,6 +385,35 @@ def _cols_tile(n: int, block: int, roots: int) -> int:
     return t
 
 
+def _fits_block(n: int, roots: int) -> bool:
+    """Whether one length-n line and ``roots`` stage roots fit one block's
+    shared memory (every 2-stage line does; three stages past about 29k
+    points do not)."""
+    return 8 * n <= _SMEM_MAX - 8 * roots
+
+
+def _long_last(xr, xi, n: int, stages: tuple, inverse: bool, scale: float,
+               alias: bool, tables):
+    """c2c along the last axis of lines too long for one block's shared
+    memory, on every device: the four-step pair on (rows, r0, n / r0)
+    (``fourstep._step1_twiddle``: the first stage, times the twiddle and
+    the scale; ``_step3_transposed``: the other stages, written
+    transposed into natural order). ``alias`` copies the result over the
+    inputs."""
+    from .fourstep import _step1_twiddle, _step3_transposed
+    r0, n2 = stages[0], n // stages[0]
+    rows = xr.numel() // n
+    zr, zi = _step1_twiddle(xr.reshape(rows, r0, n2),
+                            xi.reshape(rows, r0, n2), r0, n2, (r0,),
+                            inverse, scale=scale, tables=tables)
+    zr, zi = _step3_transposed(zr, zi, r0, n2, stages[1:], inverse,
+                               tables=tables)
+    zr, zi = zr.reshape(xr.shape), zi.reshape(xi.shape)
+    if alias:
+        return xr.copy_(zr), xi.copy_(zi)
+    return zr, zi
+
+
 # --------------------------------------------------------------------------
 # plain versions: torch ops on the kernels' own tables
 # --------------------------------------------------------------------------
@@ -405,9 +463,21 @@ def _axis_plain(xr, xi, yr, yi, geom, tab, n, stages):
 
 
 def _axis_apply(owner, mode, xr, xi, yr, yi, geom, n: int, stages: tuple,
-                tab, block: int) -> None:
+                inverse: bool, scale: float, block: int, tables) -> None:
     """Run the strided-axis transform described by ``geom`` = (nb, ny, nz,
-    in strides (b, n, y), out strides (b, n, y)) into (yr, yi)."""
+    in strides (b, n, y), out strides (b, n, y)) into (yr, yi). An axis
+    too long for one block is moved last, transformed by ``_long_last``
+    and moved back."""
+    if not _fits_block(n, sum(stages)):
+        nb, ny, nz, (isb, isn, isy), (osb, osn, osy) = geom
+        shp = (nb, n, ny, nz)
+        vr, vi = (t.as_strided(shp, (isb, isn, isy, 1)).movedim(1, -1)
+                  .contiguous() for t in (xr, xi))
+        ar, ai = _long_last(vr, vi, n, stages, inverse, scale, False, tables)
+        yr.as_strided(shp, (osb, osn, osy, 1)).copy_(ar.movedim(-1, 1))
+        yi.as_strided(shp, (osb, osn, osy, 1)).copy_(ai.movedim(-1, 1))
+        return
+    tab = _tables(tables, xr.device).get("core", n, stages, inverse, scale)
     if mode == "shape":
         return
     if mode == "plain":
@@ -439,6 +509,8 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
     (0 = as many as fit 64 KB of shared memory, at most 64)."""
     n = xr.shape[-1]
     stages = _stages(n, radices)
+    if not _fits_block(n, sum(stages)):
+        return _long_last(xr, xi, n, stages, inverse, scale, alias, tables)
     tab = _tables(tables, xr.device).get("core", n, stages, inverse, scale)
     if alias:
         yr, yi = xr, xi
@@ -482,7 +554,6 @@ def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
         if _nd_route(n, mid, xr.shape[-1], tl_target):
             return _sublane_nd.impl(mode, xr, xi, axis, n, stages, inverse,
                                     scale, alias, block_lanes, tables)
-    tab = _tables(tables, xr.device).get("core", n, stages, inverse, scale)
     pre = math.prod(xr.shape[:axis])
     lanes = math.prod(xr.shape[axis + 1:])
     if alias:
@@ -491,7 +562,7 @@ def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
         yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     st = (n * lanes, lanes, lanes)
     _axis_apply(fft_sublane, mode, xr, xi, yr, yi, (pre, 1, lanes, st, st),
-                n, stages, tab, block_lanes)
+                n, stages, inverse, scale, block_lanes, tables)
     return yr, yi
 
 
@@ -500,7 +571,6 @@ def _sublane_nd(mode, xr, xi, axis, n, stages, inverse, scale, alias, block,
                 tables=None):
     """fft_sublane's route for an axis at or before ndim-3: the array as
     (B, N, MID, last), the same CUDA kernel as the flattened route."""
-    tab = _tables(tables, xr.device).get("core", n, stages, inverse, scale)
     b = math.prod(xr.shape[:axis])
     mid = math.prod(xr.shape[axis + 1:-1])
     last = xr.shape[-1]
@@ -510,7 +580,7 @@ def _sublane_nd(mode, xr, xi, axis, n, stages, inverse, scale, alias, block,
         yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     st = (n * mid * last, mid * last, last)
     _axis_apply(_sublane_nd, mode, xr, xi, yr, yi, (b, mid, last, st, st),
-                n, stages, tab, block)
+                n, stages, inverse, scale, block, tables)
     return yr, yi
 
 
@@ -534,6 +604,23 @@ def fft_slab_yz(mode, xr, xi, inverse: bool = False, rad_y=None, rad_z=None,
     ny, nz_in = xr.shape[-2], xr.shape[-1]
     nz = z_true or nz_in
     sy, sz = _stages(ny, rad_y), _stages(nz, rad_z)
+    if not _fits_block(nz, sum(sz) + sum(sy)):
+        # a z line too long for one block: z by fft_last (its long-line
+        # route), then y by the strided-axis kernel, in place
+        vr, vi = xr, xi
+        if nz != nz_in:
+            vr, vi = xr[..., :nz].contiguous(), xi[..., :nz].contiguous()
+        ar, ai = fft_last(vr, vi, inverse=inverse, radices=sz,
+                          tables=tables)
+        ar, ai = fft_sublane(ar, ai, -2, inverse=inverse, radices=sy,
+                             scale=scale, alias=True, tables=tables)
+        if not (alias or zpad):
+            return ar, ai
+        yr, yi = (xr, xi) if alias else (
+            xr.new_empty((*xr.shape[:-1], nz + zpad)) for _ in range(2))
+        yr[..., :nz].copy_(ar)
+        yi[..., :nz].copy_(ai)
+        return yr, yi
     ts = _tables(tables, xr.device)
     tabz = ts.get("core", nz, sz, inverse, 1.0)
     taby = ts.get("core", ny, sy, inverse, scale)
@@ -583,18 +670,15 @@ def fft_x_from_padded(mode, xr3, xi3, z_true: int, inverse: bool = False,
     n, ny_in, zp = xr3.shape[-3:]
     ny = y_true or ny_in
     stages = _stages(n, radices)
-    tab = _tables(tables, xr3.device).get("core", n, stages, inverse, scale)
     zo = max(out_lanes, z_true)
     shp = (*lead, n, ny, zo)
     yr = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
     yi = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
-    if mode == "shape":
-        return yr, yi
     b = math.prod(lead)
     geom = (b, ny, z_true, (n * ny_in * zp, ny_in * zp, zp),
             (n * ny * zo, ny * zo, zo))
     _axis_apply(fft_x_from_padded, mode, xr3, xi3, yr, yi, geom, n, stages,
-                tab, 0)
+                inverse, scale, 0, tables)
     return yr, yi
 
 
@@ -615,17 +699,14 @@ def fft_x_to_padded(mode, xr3, xi3, zpad: int = _STRIDE_PAD,
     if zt > z:
         raise ValueError(f"z_true={z_true} exceeds the {z} input lanes")
     stages = _stages(n, radices)
-    tab = _tables(tables, xr3.device).get("core", n, stages, inverse, scale)
     zo = zt + zpad
     shp = (*lead, n, ny, zo)
     yr = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
     yi = torch.empty(shp, dtype=xr3.dtype, device=xr3.device)
-    if mode == "shape":
-        return yr, yi
     geom = (math.prod(lead), ny, zt, (n * ny * z, ny * z, z),
             (n * ny * zo, ny * zo, zo))
     _axis_apply(fft_x_to_padded, mode, xr3, xi3, yr, yi, geom, n, stages,
-                tab, 0)
+                inverse, scale, 0, tables)
     return yr, yi
 
 
@@ -889,6 +970,70 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
                 [rows, m, *_radix_args(stages), t])
         icrfft_last_planar.launches += 1
     return out
+
+
+@_dispatching
+def fft3d_cube(mode, xr, xi, inverse: bool = False, rad_z=None, rad_y=None,
+               rad_x=None, precision: str = DEFAULT_PRECISION,
+               out_scale: float = 1.0, tables=None):
+    """c2c along all three trailing axes of planar (..., X, Y, Z) float32
+    cubes in one launch (kernel ``csrc/fft_cube.cu``), for the shapes
+    ``can_fuse_cube`` admits. The inverse's 1/(XYZ) and ``out_scale`` ride
+    the last z stage. A z line too long for one block's shared memory
+    takes the kernel's split z phase, through a one-cube scratch pair."""
+    if xr.ndim < 3:
+        raise ValueError(f"a cube needs three axes, got {tuple(xr.shape)}")
+    nx, ny, nz = xr.shape[-3:]
+    if not can_fuse_cube(nx, ny, nz, rad_x, rad_y, rad_z, precision):
+        raise ValueError(f"cube ({nx},{ny},{nz}) not fusable")
+    sx, sy, sz = _stages(nx, rad_x), _stages(ny, rad_y), _stages(nz, rad_z)
+    scale = out_scale * ((1.0 / (nx * ny * nz)) if inverse else 1.0)
+    ts = _tables(tables, xr.device)
+    tabx = ts.get("core", nx, sx, inverse, 1.0)
+    taby = ts.get("core", ny, sy, inverse, 1.0)
+    tabz = ts.get("core", nz, sz, inverse, scale)
+    roots = sum(sx) + sum(sy) + sum(sz)
+    zsplit = not _fits_block(nz, roots)
+    tabz2 = tabz
+    if zsplit:
+        if len(sz) < 2:
+            raise ValueError(f"Z={nz} fits no block and has one stage")
+        tabz2 = ts.get("core", nz // sz[0], sz[1:], inverse, scale)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    if mode == "shape":
+        return yr, yi
+    b = xr.numel() // max(nx * ny * nz, 1)
+    if mode == "plain":
+        fft3d_cube.plain_calls += 1
+        ar, ai = xr.reshape(b, nx, ny, nz), xi.reshape(b, nx, ny, nz)
+        ar, ai = _core_plain(ar.permute(0, 2, 3, 1), ai.permute(0, 2, 3, 1),
+                             tabx, nx, sx)
+        ar, ai = ar.permute(0, 3, 1, 2), ai.permute(0, 3, 1, 2)
+        ar, ai = _core_plain(ar.transpose(-1, -2), ai.transpose(-1, -2),
+                             taby, ny, sy)
+        ar, ai = _core_plain(ar.transpose(-1, -2), ai.transpose(-1, -2),
+                             tabz, nz, sz)
+        yr.copy_(ar.reshape(yr.shape))
+        yi.copy_(ai.reshape(yi.shape))
+        return yr, yi
+    if not b:
+        return yr, yi
+    tx, ty = _cols_tile(nx, 0, roots), _cols_tile(ny, 0, roots)
+    tz = t1 = t2 = 1
+    sr = si = None
+    if zsplit:
+        t1 = _cols_tile(sz[0], 0, roots)
+        t2 = _rows_tile(nz // sz[0], 0, roots)
+        sr = torch.empty((nx, ny, nz), dtype=xr.dtype, device=xr.device)
+        si = torch.empty_like(sr)
+    else:
+        tz = _rows_tile(nz, 0, roots)
+    _launch("offt_fft_cube", (xr, xi, yr, yi, sr, si),
+            (tabx, taby, tabz, tabz2),
+            [b, nx, ny, nz, *_radix_args(sx), *_radix_args(sy),
+             *_radix_args(sz), tx, ty, tz, int(zsplit), t1, t2])
+    fft3d_cube.launches += 1
+    return yr, yi
 
 
 def reset_counts() -> None:

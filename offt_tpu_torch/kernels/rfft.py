@@ -6,11 +6,13 @@ real transform is one length-N/2 complex transform of the packed
 samples v[j] = x[2j] + i x[2j+1] plus an O(N) untangle (plain torch ops,
 as the reference's are plain JAX). Odd N falls back to a full-length c2c.
 The untangle twiddles are ``tables.half_twiddles`` (the reference's
-``_half_twiddles``), read from a ``TableSet``.
+``_half_twiddles``), read from a ``TableSet`` in the data's precision:
+float32 pairs for float32 data, float64 pairs for the fp64 route, which
+so never reads an f32 table.
 
 ``fft_fn(vr, vi, inverse) -> (yr, yi)`` is the inner c2c along the last
-axis of planar float32 pairs, with numpy fft/ifft semantics (the plan
-passes ``dist.pencil.axis_fft``).
+axis of planar float32 (or float64) pairs, with numpy fft/ifft semantics
+(the plan passes ``dist.pencil.axis_fft``).
 """
 
 from __future__ import annotations
@@ -25,14 +27,18 @@ def _planar(c):
 
 
 def _half(tables, data, n: int, inverse: bool):
-    """W^k, k = 0..n/2, as a complex tensor beside ``data``."""
-    tab = ff._tables(tables, data.device).get("half", n, inverse)
+    """W^k, k = 0..n/2, as a complex tensor beside ``data``, in its
+    precision (complex128 for float64 or complex128 data)."""
+    wide = data.dtype in (torch.float64, torch.complex128)
+    tab = ff._tables(tables, data.device).get(
+        "half", n, inverse, "float64" if wide else "float32")
     return torch.view_as_complex(ff._on(tab, data))
 
 
 def rfft_1d(x, fft_fn, tables=None):
-    """Forward r2c along the last axis: real float32 (..., N) -> planar
-    pair (..., N//2 + 1), matching ``numpy.fft.rfft``. Even N runs the
+    """Forward r2c along the last axis: real float32 or float64 (..., N)
+    -> planar pair of that type (..., N//2 + 1), matching
+    ``numpy.fft.rfft``. Even N runs the
     packed half-length transform and the untangle; odd N a full c2c,
     sliced."""
     n = x.shape[-1]
@@ -54,8 +60,8 @@ def rfft_1d(x, fft_fn, tables=None):
 
 def irfft_1d(xr, xi, n: int | None, fft_fn, tables=None):
     """Inverse c2r along the last axis: planar pair (..., N//2 + 1) ->
-    real float32 (..., N), matching ``numpy.fft.irfft`` (Hermitian input
-    assumed; scaled by 1/N through the inner inverse)."""
+    real (..., N) of the pair's type, matching ``numpy.fft.irfft``
+    (Hermitian input assumed; scaled by 1/N through the inner inverse)."""
     nf = xr.shape[-1]
     n = n if n is not None else 2 * (nf - 1)
     x = torch.complex(xr, xi)

@@ -31,6 +31,11 @@ The axis-by-axis route adds the four-step twiddle
 (:func:`fourstep_twiddle`, ``fourstep._twiddle_planar``) and the
 half-spectrum twiddles of the unfused r2c/c2r (:func:`half_twiddles`,
 ``rfft._half_twiddles``), both in the kernels' (re, im) pair layout.
+
+The unfused engine (``stockham.py``) reads complex tables, complex64 or
+complex128 by the data: the dense DFT matrices (:func:`dft_table`), the
+inter-stage twiddles (:func:`stage_twiddle`) and Bluestein's chirp and
+chirp spectrum (:func:`bluestein_chirp`, :func:`bluestein_spectrum`).
 """
 
 from __future__ import annotations
@@ -166,11 +171,10 @@ def crfft_table(n: int, scale: float = 1.0) -> np.ndarray:
     return out
 
 
-def _pairs(c: np.ndarray) -> np.ndarray:
-    """A complex128 array as read-only f32 (..., 2) (re, im) pairs, each
-    part cast once."""
-    out = np.stack([c.real.astype(np.float32), c.imag.astype(np.float32)],
-                   axis=-1)
+def _pairs(c: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """A complex128 array as read-only (..., 2) (re, im) pairs of
+    ``dtype`` (f32 by default), each part cast once."""
+    out = np.stack([c.real.astype(dtype), c.imag.astype(dtype)], axis=-1)
     out.flags.writeable = False
     return out
 
@@ -186,10 +190,67 @@ def fourstep_twiddle(n1: int, n2: int, inverse: bool,
 
 
 @functools.lru_cache(maxsize=64)
-def half_twiddles(n: int, inverse: bool) -> np.ndarray:
-    """W^k = exp(-+2i pi k / n) for k = 0..n/2 as an (n/2 + 1, 2) f32
-    array: the reference's ``rfft._half_twiddles`` (f64-generated, cast
-    once) in the pair layout. Read-only."""
+def half_twiddles(n: int, inverse: bool, dtype: str = "float32") -> np.ndarray:
+    """W^k = exp(-+2i pi k / n) for k = 0..n/2 as an (n/2 + 1, 2) array of
+    ``dtype`` (float32, or float64 for the fp64 route): the reference's
+    ``rfft._half_twiddles`` (f64-generated, cast once) in the pair layout.
+    Read-only."""
     k = np.arange(n // 2 + 1, dtype=np.float64)
     ang = 2.0 * math.pi * k / n
-    return _pairs(np.cos(ang) + (1j if inverse else -1j) * np.sin(ang))
+    return _pairs(np.cos(ang) + (1j if inverse else -1j) * np.sin(ang),
+                  np.dtype(dtype))
+
+
+# ---- the unfused engine's complex tables (kernels/stockham.py) -----------
+# complex64 or complex128 by ``dtype``, built in f64 and cast once; each
+# the value of the reference's table of the same name, bit for bit.
+
+def _readonly(a: np.ndarray) -> np.ndarray:
+    a.flags.writeable = False
+    return a
+
+
+@functools.lru_cache(maxsize=256)
+def dft_table(n: int, dtype: str, inverse: bool) -> np.ndarray:
+    """The dense (n, n) DFT matrix (``dft.dft_matrix``). Read-only."""
+    return _readonly(dft.dft_matrix(n, np.dtype(dtype), inverse))
+
+
+@functools.lru_cache(maxsize=16)
+def stage_twiddle(r: int, m: int, dtype: str, inverse: bool) -> np.ndarray:
+    """The (r, m) inter-stage twiddle W_{rm}^(k1 j) (``dft.twiddles``).
+    Read-only."""
+    return _readonly(dft.twiddles(r, m, np.dtype(dtype), inverse))
+
+
+def bluestein_length(n: int) -> int:
+    """The convolution length of Bluestein's algorithm: the least power
+    of two >= 2n - 1."""
+    m = 1
+    while m < 2 * n - 1:
+        m *= 2
+    return m
+
+
+@functools.lru_cache(maxsize=16)
+def _bluestein(n: int, dtype: str, inverse: bool) -> tuple:
+    """The chirp a_k = exp(-+i pi k^2 / n) and the spectrum of the padded
+    conjugate chirp (the reference's ``stockham._bluestein_tables``; the
+    spectrum is a constant table, so numpy's f64 FFT builds it)."""
+    m = bluestein_length(n)
+    k = np.arange(n, dtype=np.float64)
+    ang = math.pi * np.mod(k * k, 2.0 * n) / n   # k^2 mod 2n for accuracy
+    a = np.cos(ang) + (1.0 if inverse else -1.0) * 1j * np.sin(ang)
+    b = np.zeros(m, dtype=np.complex128)
+    b[:n] = np.conj(a)
+    b[m - n + 1:] = np.conj(a[1:][::-1])
+    dt = np.dtype(dtype)
+    return _readonly(a.astype(dt)), _readonly(np.fft.fft(b).astype(dt))
+
+
+def bluestein_chirp(n: int, dtype: str, inverse: bool) -> np.ndarray:
+    return _bluestein(n, dtype, inverse)[0]
+
+
+def bluestein_spectrum(n: int, dtype: str, inverse: bool) -> np.ndarray:
+    return _bluestein(n, dtype, inverse)[1]

@@ -6,19 +6,23 @@ then the default point), checks them, and returns a :class:`Plan`, an
 explicit device. Its route is the reference's choice (``_build_fn``,
 ``plan/api.py:396-481``). On one device, in this order:
 
-- ``"rfft3d"``: a real plan with ``planar=True`` inside
-  ``can_use_rfft3d`` runs ``rfft3d_planar`` / ``irfft3d_planar``, the
-  packed r2c/c2r fast path (``plan/api.py:399-424``), in the numpy layout
-  (..., Nz/2 + 1) or with ``packed=True`` the packed (..., Nz/2) layout;
-- ``"fft3d"``: a c2c plan whose every axis is 2-stage expressible runs
-  ``fft3d_planar`` (``plan/api.py:428-447``);
+- ``"rfft3d"``: a complex64 real plan with ``planar=True`` and its
+  kernels on (``params.use_pallas``) inside ``can_use_rfft3d`` runs
+  ``rfft3d_planar`` / ``irfft3d_planar``, the packed r2c/c2r fast path
+  (``plan/api.py:399-424``), in the numpy layout (..., Nz/2 + 1) or with
+  ``packed=True`` the packed (..., Nz/2) layout;
+- ``"fft3d"``: a complex64 c2c plan with its kernels on whose every axis
+  is 2-stage expressible runs ``fft3d_planar`` (``plan/api.py:428-447``);
 - ``"local"``: everything else runs ``_local_fft3d``
   (``plan/api.py:109-140``), the axis-by-axis route: the r2c along z
   (``_rfft_z``: the ``rfft_last_planar`` kernel, else ``rfft.rfft_1d``
   around ``axis_fft``) or a c2c along z, then y and x through
   ``dist.pencil.axis_fft`` (2-stage kernels, or the four-step route for
-  a long last axis, as ``plan((1, 1, N))`` takes it); the inverse in the
-  mirror order, ending in ``rfft.irfft_1d``.
+  a long last axis, as ``plan((1, 1, N))`` takes it; else the unfused
+  engine, ``kernels/stockham.py``); the inverse in the mirror order,
+  ending in ``rfft.irfft_1d``. This is also the fp64 route: a complex128
+  plan (a float64 real one) runs on float64 pairs through the unfused
+  engine alone, as does a plan with ``use_pallas=0``.
 
 On a mesh (``dist/mesh.py``; every rank builds and calls the same plan
 on its own block):
@@ -110,9 +114,11 @@ def _real_fft_fn(params: PlanParams, out_scale: float = 1.0, tables=None):
 def _rfft_z(x, params: PlanParams, nz: int, out_scale: float = 1.0,
             tables=None):
     """Forward r2c along the last axis into the numpy layout: the
-    ``rfft_last_planar`` kernel when ``can_use_rfft_last``, else
-    ``rfft_1d`` around ``axis_fft``."""
-    if fused_fft.can_use_rfft_last(nz, params.radix_z):
+    ``rfft_last_planar`` kernel for float32 data on a plan with its
+    kernels on when ``can_use_rfft_last``, else ``rfft_1d`` around
+    ``axis_fft``."""
+    if (params.use_pallas and x.dtype == torch.float32
+            and fused_fft.can_use_rfft_last(nz, params.radix_z)):
         return fused_fft.rfft_last_planar(x, radices=params.radix_z,
                                           precision=params.precision,
                                           scale=out_scale, tables=tables)
@@ -187,6 +193,8 @@ def _route(spec: ProblemSpec, params: PlanParams, planar: bool) -> str:
     """The reference's route for ``mesh=None``: "rfft3d", "fft3d" or
     "local" (module doc)."""
     radices = (params.radix_x, params.radix_y, params.radix_z)
+    if not params.use_pallas or spec.dtype != "complex64":
+        return "local"
     if spec.real:
         if planar and fused_fft.can_use_rfft3d(*spec.shape, *radices):
             return "rfft3d"
@@ -204,12 +212,14 @@ class Plan(torch.nn.Module):
     (re, im) float32 pair (one tuple or two arguments), of shape
     (*batch, Nx, Ny, Nz) on the plan's device, and returns the same kind.
     With ``in_place=True`` the planar inputs are overwritten with the
-    result and returned.
+    result and returned. A complex128 plan (the fp64 route) takes and
+    returns complex128, or float64 pairs.
 
-    A real forward plan takes one real float32 tensor (*batch, Nx, Ny, Nz)
-    and returns the half-spectrum (*batch, Nx, Ny, L): a planar pair with
-    ``planar=True``, else a complex64 tensor. A real inverse plan takes
-    such a half-spectrum and returns the real tensor. L is Nz/2 + 1 (the
+    A real forward plan takes one real float32 tensor (float64 for a
+    float64 plan) (*batch, Nx, Ny, Nz) and returns the half-spectrum
+    (*batch, Nx, Ny, L): a planar pair with ``planar=True``, else a
+    complex tensor. A real inverse plan takes such a half-spectrum and
+    returns the real tensor. L is Nz/2 + 1 (the
     numpy rfftn layout) or Nz/2 with ``packed=True`` (plane 0 carries
     X[0] + i X[Nz/2]).
 
@@ -229,6 +239,10 @@ class Plan(torch.nn.Module):
         self.planar = planar
         self.out_scale = out_scale
         self.in_place = in_place
+        # the real type of the plan's planar data and its complex type
+        wide = spec.dtype == "complex128"
+        self.real_dtype = torch.float64 if wide else torch.float32
+        self.complex_dtype = torch.complex128 if wide else torch.complex64
         self.packed = packed
         self.route = route
         self.mesh = mesh
@@ -260,7 +274,7 @@ class Plan(torch.nn.Module):
         tables = fused_fft.TableSet(device)
         shp = (1,) * (ndim - 3) + self._local(self.input_layout,
                                               self.in_shape)
-        self._run([torch.empty(shp, device="meta")
+        self._run([torch.empty(shp, dtype=self.real_dtype, device="meta")
                    for _ in range(self._n_inputs)], tables)
         self._keys = list(tables.tabs)
         for i, t in enumerate(tables.tabs.values()):
@@ -354,7 +368,7 @@ class Plan(torch.nn.Module):
             *xs, inverse=self.spec.inverse, block=p.block_batch,
             in_place=self.in_place, **kw)
 
-    def _check(self, t, what: str):
+    def _check(self, t, what: str, dtype):
         want = self._local(self.input_layout, self.in_shape)
         if t.ndim != self.ndim or tuple(t.shape[-3:]) != want:
             raise ValueError(f"{what} shape {tuple(t.shape)} does not match "
@@ -362,6 +376,8 @@ class Plan(torch.nn.Module):
                              f"{want})")
         if t.device != self.device:
             raise ValueError(f"{what} on {t.device}, plan on {self.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: plan expects {dtype}, got {t.dtype}")
         if torch.is_grad_enabled() and t.requires_grad:
             raise NotImplementedError("plans run forward only; autodiff "
                                       "is ROADMAP Queue 1 item 9")
@@ -370,18 +386,16 @@ class Plan(torch.nn.Module):
         if self._n_inputs == 1:
             if x_imag is not None:
                 raise TypeError("a real forward plan takes one real tensor")
-            self._check(x, "input")
+            self._check(x, "input", self.real_dtype)
             xs = (x,)
         elif self.planar:
             if x_imag is None:
                 x, x_imag = x
-            self._check(x, "re")
-            self._check(x_imag, "im")
+            self._check(x, "re", self.real_dtype)
+            self._check(x_imag, "im", self.real_dtype)
             xs = (x, x_imag)
         else:
-            self._check(x, "input")
-            if x.dtype != torch.complex64:
-                raise TypeError(f"plan expects complex64, got {x.dtype}")
+            self._check(x, "input", self.complex_dtype)
             xs = to_planar(x)
         y = self._run(xs, self._tables())
         if self.planar or (self.spec.real and self.spec.inverse):
@@ -428,10 +442,10 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     carries X[0] + i X[Nz/2]; convert with ``fused_fft.unpack_rfft3d`` /
     ``pack_rfft3d``. A long last axis (``plan((1, 1, N))`` past the
     2-stage ceiling) takes the four-step route; ``params.split_1d`` pins
-    its (n1, n2). An axis that no kernel route expresses (use_pallas=0,
-    complex128, a length with no 2-stage or four-step factorization)
-    raises NotImplementedError: it needs the unfused engine, ROADMAP
-    Queue 1 item 7."""
+    its (n1, n2). Any other length (a prime factor past 128: Bluestein),
+    ``dtype="complex128"`` (``real=True`` with "float64": the fp64 route,
+    1e-12) and ``params.use_pallas=0`` take the unfused engine
+    (``kernels/stockham.py``) on that axis."""
     if len(shape) != 3:
         raise ValueError(f"shape must be (Nx, Ny, Nz), got {shape}")
     if batch_sharded and (mesh is None or batch_dims < 1):
@@ -453,12 +467,9 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
         # real transforms name the real type; only float64 maps to the
         # fp64 pipeline, as in the reference (plan/api.py:550-556)
         name = "complex128" if name == "float64" else "complex64"
-    if name == "complex128":
-        raise NotImplementedError("complex128 (the fp64 unfused route) is "
-                                  "ROADMAP Queue 1 item 7")
-    if name != "complex64":
-        raise ValueError(f"plans take complex64 (real plans float32), got "
-                         f"{name}")
+    if name not in ("complex64", "complex128"):
+        raise ValueError(f"plans take complex64 or complex128 (real plans "
+                         f"float32 or float64), got {name}")
     if mesh is not None:
         device = _mesh_device(mesh, device)
         p1, p2 = meshlib.mesh_shape(mesh)
@@ -490,9 +501,6 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     scale = _norm_scale(norm, inverse, shape[0] * shape[1] * shape[2])
     if packed:
         params = params.replace(use_pallas=1)
-    if not params.use_pallas:
-        raise NotImplementedError("use_pallas=0 is the unfused engine, "
-                                  "ROADMAP Queue 1 item 7")
     if mesh is None or batch_sharded:
         # batch_sharded: each rank runs the reference's _local_fft3d, whose
         # fused branch is c2c only
@@ -533,20 +541,20 @@ def _global_shape(x, mesh, inverse: bool, shape) -> tuple:
 
 
 def fft3d(x, mesh=None, params=None, shape=None, **kw):
-    """3-D c2c over the last three axes of a complex64 tensor. On a mesh
-    ``x`` is this rank's z-pencil block and ``shape`` the global
-    (Nx, Ny, Nz) (default: equal blocks); the result is this rank's
-    transposed-out block."""
+    """3-D c2c over the last three axes of a complex64 (or complex128)
+    tensor. On a mesh ``x`` is this rank's z-pencil block and ``shape``
+    the global (Nx, Ny, Nz) (default: equal blocks); the result is this
+    rank's transposed-out block."""
     p = plan(_global_shape(x, mesh, False, shape), x.dtype, mesh=mesh,
              params=params, batch_dims=x.ndim - 3, device=x.device, **kw)
     return p(x)
 
 
 def ifft3d(x, mesh=None, params=None, shape=None, **kw):
-    """Inverse 3-D c2c over the last three axes of a complex64 tensor. On
-    a mesh ``x`` is this rank's transposed-out block and ``shape`` the
-    global (Nx, Ny, Nz) (default: equal blocks); the result is this
-    rank's z-pencil block."""
+    """Inverse 3-D c2c over the last three axes of a complex64 (or
+    complex128) tensor. On a mesh ``x`` is this rank's transposed-out
+    block and ``shape`` the global (Nx, Ny, Nz) (default: equal blocks);
+    the result is this rank's z-pencil block."""
     p = plan(_global_shape(x, mesh, True, shape), x.dtype, mesh=mesh,
              params=params, inverse=True, batch_dims=x.ndim - 3,
              device=x.device, **kw)

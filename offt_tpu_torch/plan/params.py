@@ -63,7 +63,7 @@ class PlanParams:
     radix_z: Optional[tuple[int, ...]] = None
     radix_y: Optional[tuple[int, ...]] = None
     radix_x: Optional[tuple[int, ...]] = None
-    # the fused kernels (0 = the unfused route, not ported yet)
+    # the kernels (0 = the unfused engine, kernels/stockham.py)
     use_pallas: int = 0
     block_batch: int = 0
     slab_rows: int = 0
@@ -143,7 +143,13 @@ def default_params(spec: ProblemSpec,
     inner c2c is half length, on ``can_use_pallas(nz // 2)`` or
     ``can_use_four_step(nz // 2)`` for an even nz. The reference applies
     it on a TPU only; the port on every device, since the kernels (on the
-    CPU, their plain versions) are its only route. ``precision`` "auto"
+    CPU, their plain versions) are its fast route. The port adds one
+    clause: a z that takes Bluestein (a prime factor past 128) whose
+    inner power-of-two transform has a kernel route passes too
+    (``stockham.bluestein_rides_kernels``: of nz for c2c and odd real nz,
+    of nz // 2 for even real nz), so that its inner transforms ride the
+    kernels. The reference rides them only on its stacked precisions,
+    which its default never gives such a length. ``precision`` "auto"
     resolves to "highest", which is what every value computes at on the
     card.
 
@@ -153,6 +159,7 @@ def default_params(spec: ProblemSpec,
     16 devices, t = 1 from 16 up; t1 and t2 swap for the inverse."""
     from ..kernels.fourstep import can_use_four_step
     from ..kernels.fused_fft import can_use_pallas
+    from ..kernels.stockham import bluestein_rides_kernels
     from ..utils import config as _cfg
 
     nx, ny, nz = spec.shape
@@ -160,9 +167,11 @@ def default_params(spec: ProblemSpec,
     use_pallas = max(up_cfg, 0)
     zok = can_use_pallas(nz)
     if not zok and spec.real and nz % 2 == 0:
-        zok = can_use_pallas(nz // 2) or can_use_four_step(nz // 2)
-    elif not zok and not spec.real:
-        zok = can_use_four_step(nz)
+        zok = (can_use_pallas(nz // 2) or can_use_four_step(nz // 2)
+               or bluestein_rides_kernels(nz // 2))
+    elif not zok:
+        zok = ((not spec.real and can_use_four_step(nz))
+               or bluestein_rides_kernels(nz))
     if (up_cfg < 0 and spec.dtype in ("complex64", "float32") and zok
             and can_use_pallas(nx) and can_use_pallas(ny)):
         use_pallas = 1

@@ -357,3 +357,121 @@ def test_cuda_one_rank_mesh_c2c_and_refusals(nccl_world):
         p(*(t.cpu() for t in x))
     with pytest.raises(ValueError):          # nccl does not serve cpu
         ot.make_mesh(1, 1, device_type="cpu")
+
+
+# ---- the cube kernel, the unfused engine and the namespace ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 32, 32, 128), {}),
+    ((16, 8, 128), {"inverse": True, "out_scale": 0.5}),
+    ((3, 8, 16, 512), {"precision": "stack6"}),
+    ((2, 8, 128), {"rad_z": (4, 4, 8), "rad_y": (2, 4)}),
+    ((1, 8, 32768), {"rad_z": (32, 32, 32)}),          # the split z phase
+    ((2, 8, 8, 32768), {"rad_z": (32, 32, 32), "inverse": True}),
+    ((2, 128, 128, 128), {})])
+def test_cuda_fft3d_cube(cuda_dev, shape, kw):
+    _card_check(ff.fft3d_cube, lambda f, x: f(*x, **kw), shape, cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_fft3d_cube_against_fftn(cuda_dev, inverse):
+    x = _pair((4, 64, 64, 128), cuda_dev, seed=11)
+    ff.reset_counts()
+    yr, yi = ot.fft3d_cube(*x, inverse=inverse, out_scale=2.0)
+    assert ff.fft3d_cube.launches == 1 and ff.fft3d_cube.plain_calls == 0
+    f = torch.fft.ifftn if inverse else torch.fft.fftn
+    ref = 2.0 * f(torch.complex(x[0].double(), x[1].double()),
+                  dim=(-3, -2, -1))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+    with pytest.raises(ValueError, match="not fusable"):
+        ot.fft3d_cube(*_pair((256, 256, 256), cuda_dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,launched", [
+    (1009, {"fft_last"}), (8209, {"_step1_twiddle", "_step3_transposed"})])
+def test_cuda_namespace_prime_length(cuda_dev, n, launched):
+    # Bluestein's inner transforms (2048: the 2-stage core; 32768: the
+    # four-step pair) ride the kernels
+    x = torch.complex(*_pair((3, n), cuda_dev, seed=12))
+    ff.reset_counts()
+    y = ot.fft.fft(x)
+    back = ot.fft.ifft(y)
+    assert y.device == x.device and y.dtype == torch.complex64
+    assert sum(c[1] for c in ff.counts().values()) == 0
+    assert {k for k, c in ff.counts().items() if c[0]} == launched
+    ref = torch.fft.fft(x.to(torch.complex128))
+    assert _rel(y.to(torch.complex128), ref) < 1e-6
+    assert _rel(back.to(torch.complex128), x.to(torch.complex128)) < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_namespace_fp64_and_real(cuda_dev):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    x = torch.randn((16, 24, 40), dtype=torch.complex128, generator=g,
+                    device=cuda_dev)
+    y = ot.fft.fftn(x)
+    assert y.dtype == torch.complex128
+    assert _rel(y, torch.fft.fftn(x)) < 1e-12
+    r = torch.randn((6, 10, 1009), dtype=torch.float64, generator=g,
+                    device=cuda_dev)
+    w = ot.fft.rfftn(r, axes=(1, 2))
+    assert _rel(w, torch.fft.rfftn(r, dim=(1, 2))) < 1e-12
+    back = ot.fft.irfftn(w, s=(10, 1009), axes=(1, 2))
+    assert back.dtype == torch.float64 and _rel(back, r) < 1e-12
+    r32 = r.float()
+    assert _rel(ot.fft.rfft(r32).to(torch.complex128),
+                torch.fft.rfft(r)) < 1e-6
+    # a numpy input goes to the current CUDA device
+    a = np.random.default_rng(14).standard_normal(64)
+    assert ot.fft.fft(a).device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_cuda_use_pallas_0_plan(cuda_dev):
+    # the matmul chain on cuBLAS: full f32 with TF32 off (the fixture)
+    x = _pair((16, 24, 40), cuda_dev, seed=15)
+    p = ot.plan((16, 24, 40), "complex64", planar=True, device=cuda_dev,
+                params=ot.PlanParams(use_pallas=0))
+    ff.reset_counts()
+    yr, yi = p(x)
+    assert not any(any(c) for c in ff.counts().values())
+    ref = torch.fft.fftn(torch.complex(x[0].double(), x[1].double()))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,call,shape,lanes", [
+    ("fft_last", lambda f, x: f(*x, radices=(32, 32, 32), scale=0.5),
+     (3, 32768), None),
+    ("fft_sublane", lambda f, x: f(*x, 0, radices=(32, 32, 32)),
+     (32768, 2, 4), None),
+    ("fft_slab_yz", lambda f, x: f(*x, rad_z=(32, 32, 32), zpad=8),
+     (2, 8, 32768), 32768)])
+def test_cuda_long_three_stage_lines(cuda_dev, name, call, shape, lanes):
+    # a line past one block's shared memory runs as the four-step pair
+    fn = getattr(ff, name)
+    x = _pair(shape, cuda_dev, seed=16)
+    ff.reset_counts()
+    got = call(fn, x)
+    torch.cuda.synchronize()
+    assert fs._step1_twiddle.launches == fs._step3_transposed.launches == 1
+    assert sum(c[1] for c in ff.counts().values()) == 0
+    want = call(fn.plain, x)
+    for g, w in zip(got, want):
+        if lanes:
+            g, w = g[..., :lanes], w[..., :lanes]
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_long_three_stage_plan(cuda_dev):
+    x = _pair((8, 8, 32768), cuda_dev, seed=17)
+    p = ot.plan((8, 8, 32768), "complex64", planar=True, device=cuda_dev,
+                params=ot.PlanParams(use_pallas=1, radix_z=(32, 32, 32)))
+    yr, yi = p(x)
+    ref = torch.fft.fftn(torch.complex(x[0].double(), x[1].double()))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6

@@ -188,3 +188,74 @@ def test_plain_version_matches_wrapper_on_cpu():
     b = ff.fft_slab_yz.plain(*planar(x), zpad=4)
     assert torch.equal(a[0][..., :64], b[0][..., :64])
     assert ff.fft_slab_yz.plain_calls == 2
+
+
+# ---- lines too long for one block ------------------------------------------
+# Three stages of at most 32 reach 32768 points, past one block's shared
+# memory (about 29k points): every wrapper takes such a line through the
+# four-step pair on (rows, r0, n / r0), on the CPU as on the card. Held
+# against numpy only: the reference's interpret-mode compile of a
+# three-stage 32768 takes over ten minutes on a CPU.
+
+LONG = (32, 32, 32)
+
+
+def _long_route(counts):
+    assert {k: v for k, v in counts.items() if any(v)} == {
+        "_step1_twiddle": (0, 1), "_step3_transposed": (0, 1)}
+
+
+@pytest.mark.parametrize("inv", [False, True])
+def test_fft_last_long_line(inv):
+    assert not ff._fits_block(32768, sum(LONG))
+    assert ff._fits_block(16384, 256)
+    x = rand_c64((3, 32768), seed=21)
+    yr, yi = ff.fft_last(*planar(x), inverse=inv, radices=LONG, scale=0.5)
+    _long_route(ff.counts())
+    f = np.fft.ifft if inv else np.fft.fft
+    want = 0.5 * f(x.astype(np.complex128), axis=-1) * (32768 if inv else 1)
+    assert rel_err(cplx((yr, yi)), want) < TOL_NP
+    a, b = planar(x)
+    out = ff.fft_last(a, b, inverse=inv, radices=LONG, scale=0.5,
+                      alias=True)
+    assert out[0] is a and out[1] is b
+    assert rel_err(cplx((a, b)), want) < TOL_NP
+
+
+@pytest.mark.parametrize("axis,shape", [(0, (32768, 2, 4)),
+                                        (1, (2, 32768, 3, 4))])
+def test_fft_sublane_long_axis(axis, shape):
+    x = rand_c64(shape, seed=22)
+    yr, yi = ff.fft_sublane(*planar(x), axis, radices=LONG, scale=0.5)
+    _long_route(ff.counts())
+    want = 0.5 * np.fft.fft(x.astype(np.complex128), axis=axis)
+    assert rel_err(cplx((yr, yi)), want) < TOL_NP
+
+
+@pytest.mark.parametrize("kw", [{}, {"zpad": 8},
+                                {"inverse": True, "alias": True}])
+def test_fft_slab_yz_long_z(kw):
+    x = rand_c64((2, 8, 32768), seed=23)
+    xr, xi = planar(x)
+    yr, yi = ff.fft_slab_yz(xr, xi, rad_z=LONG, scale=0.5, **kw)
+    assert ff.fft_sublane.plain_calls == 1
+    assert yr.shape[-1] == 32768 + kw.get("zpad", 0)
+    assert (yr is xr) == bool(kw.get("alias"))
+    f = np.fft.ifft2 if kw.get("inverse") else np.fft.fft2
+    want = 0.5 * f(x.astype(np.complex128), axes=(-2, -1))
+    if kw.get("inverse"):
+        want *= 8 * 32768
+    assert rel_err(cplx((yr, yi), 32768), want) < TOL_NP
+
+
+def test_long_three_stage_plan():
+    import offt_tpu_torch as ot
+    x = rand_c64((8, 8, 32768), seed=24)
+    p = ot.plan((8, 8, 32768), "complex64", planar=True, device="cpu",
+                params=ot.PlanParams(use_pallas=1, radix_z=LONG))
+    assert p.route == "fft3d"
+    assert {k[0] for k in p._keys} == {"core", "fourstep"}
+    yr, yi = p(planar(x))
+    assert ff.WRAPPERS["_step1_twiddle"].plain_calls == 1
+    assert rel_err(cplx((yr, yi)), np.fft.fftn(x.astype(np.complex128))) \
+        < TOL_NP

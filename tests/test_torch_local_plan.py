@@ -149,10 +149,12 @@ def test_local_plan_tables_and_meta_dry_run():
     with pytest.raises(ValueError):     # in_place needs the fused c2c
         ot.plan((1, 1, 2 ** 15), "complex64", planar=True, in_place=True,
                 device="cpu")
-    with pytest.raises(NotImplementedError):   # a prime past the ceiling
-        ot.plan((1, 1, 16411), "complex64", device="cpu")
-    with pytest.raises(NotImplementedError):   # four-step is z-only
-        ot.plan((2 ** 15, 1, 1), "complex64", device="cpu")
+    # a prime past the ceiling takes Bluestein; the four-step route is
+    # z-only, so a long x takes the unfused engine
+    # (tests/test_torch_stockham.py holds both against the reference)
+    assert ot.plan((1, 1, 16411), "complex64", device="cpu").route == "local"
+    assert ot.plan((2 ** 15, 1, 1), "complex64", device="cpu").route == \
+        "local"
 
 
 def test_plan_without_a_device_is_on_the_card():
@@ -186,8 +188,8 @@ def test_split_feasibility_matches_reference(kw, shape, real):
 
 @pytest.mark.parametrize("shape,real,want", [
     ((1, 1, 2 ** 20), False, 1), ((1, 1, 2 ** 21), True, 1),
-    ((8, 8, 2 ** 15), False, 1), ((1, 1, 16411), False, 0),
-    ((1, 1, 16411), True, 0), ((131, 1, 2 ** 15), False, 0)])
+    ((8, 8, 2 ** 15), False, 1), ((1, 1, 16411), False, 1),
+    ((1, 1, 16411), True, 1), ((131, 1, 2 ** 15), False, 0)])
 def test_default_params_take_the_four_step_clause(shape, real, want):
     from offt_tpu_torch.plan import params
     d = params.default_params(params.ProblemSpec(shape=shape, real=real))

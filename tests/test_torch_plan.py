@@ -178,10 +178,13 @@ def test_plan_refuses_what_is_not_ported():
     # real=True and split_1d are ported: the axis-by-axis route
     # (tests/test_torch_local_plan.py); split_1d fits (1, 1, N) c2c only.
     # A mesh is ported (tests/test_torch_pencil*.py): it needs a process
-    # group, and batch_sharded needs a mesh
-    for kw in ({"donate": True}, {"params": PlanParams(use_pallas=0)}):
-        with pytest.raises(NotImplementedError):
-            ot.plan((8, 8, 8), "complex64", device="cpu", **kw)
+    # group, and batch_sharded needs a mesh. use_pallas=0, complex128 and
+    # a prime past 128 take the unfused engine on the axis-by-axis route
+    # (tests/test_torch_stockham.py)
+    with pytest.raises(NotImplementedError):
+        ot.plan((8, 8, 8), "complex64", device="cpu", donate=True)
+    assert ot.plan((8, 8, 8), "complex64", device="cpu",
+                   params=PlanParams(use_pallas=0)).route == "local"
     with pytest.raises(RuntimeError, match="process group"):
         ot.plan((8, 8, 8), "complex64", device="cpu", mesh=object())
     with pytest.raises(ValueError, match="batch_sharded"):
@@ -192,10 +195,10 @@ def test_plan_refuses_what_is_not_ported():
     with pytest.raises(ValueError):
         ot.plan((8, 8, 8), "complex64", device="cpu",
                 params=PlanParams(use_pallas=1, split_1d=(8, 8)))
-    with pytest.raises(NotImplementedError):
-        ot.plan((8, 8, 8), "complex128", device="cpu")
-    with pytest.raises(NotImplementedError):
-        ot.plan((131, 8, 8), "complex64", device="cpu")
+    assert ot.plan((8, 8, 8), "complex128", device="cpu").route == "local"
+    assert ot.plan((131, 8, 8), "complex64", device="cpu").route == "local"
+    with pytest.raises(ValueError):
+        ot.plan((8, 8, 8), "float16", device="cpu")
     with pytest.raises(ValueError):
         ot.plan((8, 8, 8), "complex64", norm="bogus", device="cpu")
     with pytest.raises(ValueError):
@@ -223,3 +226,29 @@ def test_plan_reads_the_cache(tmp_path, monkeypatch):
     assert rel_err(got, np.fft.fftn(x.astype(np.complex128))) < TOL_NP
     q = ot.plan((16, 16, 16), "complex64", device="cpu", use_cache=False)
     assert q.params != mine and q.params.use_pallas == 1
+
+
+@pytest.mark.parametrize("shape,dtype,kw", [
+    ((16, 32, 128), "complex64", {"planar": True, "norm": "ortho"}),
+    ((16, 32, 128), "complex64", {"planar": True, "inverse": True}),
+    ((8, 16, 256), "float32", {"real": True, "planar": True}),
+    ((8, 16, 256), "float32", {"real": True, "planar": True,
+                               "inverse": True, "norm": "ortho"}),
+    ((8, 16, 256), "float32", {"real": True, "planar": True, "packed": True,
+                               "inverse": True}),
+    ((4, 6, 1009), "complex64", {"norm": "forward"}),
+    ((4, 6, 9), "float64", {"real": True, "inverse": True}),
+    ((8, 8, 32768), "complex64", {"planar": True, "inverse": True,
+                                  "params": PlanParams(
+                                      use_pallas=1, radix_z=(32, 32, 32))}),
+])
+def test_dry_run_registers_every_table(shape, dtype, kw):
+    # the meta-device dry run must build every table the real run reads,
+    # so that all of them are buffers and none is rebuilt per call
+    p = ot.plan(shape, dtype, device="cpu", **kw)
+    rdt = torch.float64 if dtype == "float64" else torch.float32
+    xs = [torch.zeros(p.in_shape, dtype=rdt)
+          for _ in range(p._n_inputs)]
+    ts = p._tables()
+    p._run(xs, ts)
+    assert set(ts.tabs) == set(p._keys)

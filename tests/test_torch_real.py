@@ -280,12 +280,13 @@ def test_real_plans_refuse_what_is_not_ported():
                 device="cpu")
     # planar=False and shapes outside the gate take the axis-by-axis
     # route now: held against the reference in test_torch_local_plan.py
-    with pytest.raises(NotImplementedError):   # float64: the fp64 route
-        ot.plan((8, 16, 256), "float64", real=True, planar=True,
-                device="cpu")
-    with pytest.raises(NotImplementedError):
-        ot.plan((8, 16, 256), "float32", real=True, planar=True,
-                params=ot.PlanParams(use_pallas=0), device="cpu")
+    # float64 (the fp64 route) and use_pallas=0 take the unfused engine
+    # on the axis-by-axis route (tests/test_torch_stockham.py)
+    assert ot.plan((8, 16, 256), "float64", real=True, planar=True,
+                   device="cpu").route == "local"
+    assert ot.plan((8, 16, 256), "float32", real=True, planar=True,
+                   params=ot.PlanParams(use_pallas=0),
+                   device="cpu").route == "local"
 
 
 @pytest.mark.parametrize("kw", [
@@ -306,11 +307,14 @@ def test_real_spec_feasibility_and_defaults_match_reference(kw):
     assert d.use_pallas == 1 and d.precision == "highest"
     # z of a real transform may pass on Nz/2: 32768 is 3-stage, 16384 not;
     # a c2c z of 32768 passes on its four-step split (128, 256), a prime
-    # past the 2-stage ceiling on nothing
+    # past the 2-stage ceiling on its Bluestein inner length (32768, the
+    # four-step kernels), a prime x on nothing
     long_z = (8, 8, 32768)
     assert params.default_params(
         params.ProblemSpec(shape=long_z, real=True)).use_pallas == 1
     assert params.default_params(
         params.ProblemSpec(shape=long_z)).use_pallas == 1
     assert params.default_params(
-        params.ProblemSpec(shape=(8, 8, 16411))).use_pallas == 0
+        params.ProblemSpec(shape=(8, 8, 16411))).use_pallas == 1
+    assert params.default_params(
+        params.ProblemSpec(shape=(16411, 8, 8))).use_pallas == 0

@@ -245,7 +245,7 @@ def test_kernel_sources_are_listed():
     assert names == {"fft_core.cuh", "fft_last.cu", "fft_axis.cu",
                      "fft_slab.cu", "rfft_slab.cu", "irfft_slab.cu",
                      "assemble_mp1.cu", "rfft_last.cu", "fourstep.cu",
-                     "icrfft_last.cu"}
+                     "icrfft_last.cu", "fft_cube.cu"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for info in fused_fft.KERNELS.values():
         assert os.path.exists(os.path.join(root, info["source"]))
