@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. each CUDA kernel against its plain PyTorch version on the card, at a
    small shape and at the main-path shape (max |kernel - plain| /
    max |plain| <= 1e-6, pad lanes excluded, float32 matmuls pinned to
-   full precision);
+   full precision); the two row kernels (``fft_last``, ``rfft_last``) on
+   a length of each core, register (``csrc/fft_regs.cuh``) and dense,
+   with the core that ran printed;
 3. the five paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
@@ -43,7 +45,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       four-step kernels), ``fftn`` over a 4-D (8, 64, 64, 64) field, and
       complex128 ``fftn`` of 128^3 against the fp64 bar (1e-12);
 4. the launch counters: every kernel of a path ran in that path's run, no
-   plain version did;
+   plain version did; the register core ran ``fft_last`` on 3a (its one
+   length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
+   the dense core at N = 192);
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24; ``rfft`` at 2^21;
    ``rfftn`` against the 256^3 ``planar=False`` plan and the packed
@@ -56,18 +60,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``torch.fft.fftn``; the namespace calls against their ``torch.fft``
    twins; ``torch.profiler`` breakdowns of the long 1-D, unfused real
    and 1 x 1 mesh c2r plans, the cube and the prime-length ``fft``
-   (device time by op, busy share of the host wall).
+   (device time by op, busy share of the host wall); the paths of the row
+   kernels (64 x 1024^2 c2c, the 256^3 ``planar=False`` r2c, namespace
+   ``rfftn`` 256^3) and the two kernels at their main-path shapes, each
+   with the register core and with every length routed to the dense core
+   (``fused_fft._reg_core`` patched off), and both kernels so at every
+   register-core length 16-4096; the first and the second one-shot
+   ``fft3d`` of 256^3 (the second reuses the cached plan).
 
 The line before the last is one JSON object with each kernel's numbers:
-its launches on the main paths, its error, its time, its plain version's
-and the library call's times, and its bound (the larger of its bytes at
+its launches on the main paths, its error, its time and the library
+call's (device times, the host enqueueing ahead: ``time_cuda(ahead=True)``),
+its plain version's time, and its bound (the larger of its bytes at
 3.35 TB/s and its f32 operations at 67 TFLOP/s, from the shapes of this
-run). The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
-device the script exits non-zero and prints no result.
+run), and for the two row kernels ``dense_ms``, the dense core's time
+at the same shape. The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -262,13 +275,33 @@ def _short(op: str) -> str:
     return names[-1] if names else op[:48]
 
 
+# the row kernels whose wrappers count their register-core launches
+REG_CORE = {"fft_last": "fft_last", "rfft_last": "rfft_last_planar"}
+
+
 def _window(ff, run) -> tuple:
     """Zero the counters, run one path, synchronise, read the counters:
-    ({wrapper: (launches, plain calls)}, {kernel: launches})."""
+    ({wrapper: (launches, plain calls)}, {kernel: launches},
+    {row kernel: register-core launches})."""
     ff.reset_counts()
     out = run()
     torch.cuda.synchronize()
-    return out, (ff.counts(), {k: ff.kernel_launches(k) for k in ff.KERNELS})
+    return out, (ff.counts(), {k: ff.kernel_launches(k) for k in ff.KERNELS},
+                 {k: ff.WRAPPERS[w].reg_launches
+                  for k, w in REG_CORE.items()})
+
+
+@contextlib.contextmanager
+def _dense_core(ff):
+    """Every row-kernel length routed to the dense core (the predicate
+    ``fused_fft._reg_core`` patched off): the earlier kernels on the same
+    data, for comparison."""
+    keep = ff._reg_core
+    ff._reg_core = lambda n: False
+    try:
+        yield
+    finally:
+        ff._reg_core = keep
 
 
 def main() -> int:
@@ -328,6 +361,8 @@ def main() -> int:
     checks = [
         ("fft_last", ff.fft_last, lambda f, x: f(*x, scale=0.5), (37, 320),
          None),
+        ("fft_last", ff.fft_last,
+         lambda f, x: f(*x, inverse=True, scale=1 / 64), (37, 64), None),
         ("fft_last", ff.fft_last, lambda f, x: f(*x), (64 * 1024, 1024),
          None),
         ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1), (16, 32, 128),
@@ -362,6 +397,8 @@ def main() -> int:
          (256, 256, 128), None),
         ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 256), None),
         ("rfft_last", ff.rfft_last_planar, rlast(False), (37, 256), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 258), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(False), (37, 258), None),
         ("rfft_last", ff.rfft_last_planar, rlast(True), (65536, 256), None),
         ("rfft_last", ff.rfft_last_planar, rlast(False), (65536, 256), None),
         ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
@@ -389,11 +426,16 @@ def main() -> int:
     per_kernel = {}
     for name, fn, call, shape, lanes in checks:
         x = _pair(shape, gen)
+        fn.reg_launches = 0
         got = call(fn, x)
         want = call(fn.plain, x)
         torch.cuda.synchronize()
         rel, absd = _max_err(got, want, lanes)
-        print(f"check {name} via {fn.__name__} {shape}: max rel err "
+        core = ""
+        if name in REG_CORE:
+            core = (" [register core]" if fn.reg_launches
+                    else " [dense core]")
+        print(f"check {name} via {fn.__name__} {shape}{core}: max rel err "
               f"{rel:.3e}, max abs err {absd:.3e} (tol {TOL_KERNEL:g}) {tag}",
               flush=True)
         if rel > TOL_KERNEL:
@@ -853,7 +895,7 @@ def main() -> int:
                     "namespace": ("fft_slab", "fft_axis", "fft_last",
                                   "rfft_last", "step1_twiddle",
                                   "step3_transposed")}
-    for path, (counts, launched) in runs.items():
+    for path, (counts, launched, regs) in runs.items():
         for name in path_kernels[path]:
             if launched[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
@@ -862,7 +904,24 @@ def main() -> int:
         if plain:
             raise AssertionError(f"plain versions ran on the {path} path: "
                                  f"{plain}")
-        print(f"{path} path launches per kernel: {launched}; plain calls: 0")
+        cores = {k: f"{regs[k]} register, {launched[k] - regs[k]} dense"
+                 for k in REG_CORE if launched[k]}
+        print(f"{path} path launches per kernel: {launched}; row-kernel "
+              f"cores: {cores}; plain calls: 0")
+    # the one fft_last length of 3a is N = 1024 (the 64 x 1024^2 case);
+    # 3d runs rfft_last at N = 256 (256^3) and N = 192 (192^3, dense)
+    c2c_last = runs["c2c"][1]["fft_last"]
+    if not 0 < runs["c2c"][2]["fft_last"] == c2c_last:
+        raise AssertionError("fft_last at N = 1024 did not run the register "
+                             f"core: {runs['c2c'][2]} of {c2c_last}")
+    real_last = runs["local_real"][1]["rfft_last"]
+    if not 0 < runs["local_real"][2]["rfft_last"] < real_last:
+        raise AssertionError("rfft_last did not run both cores on 3d: "
+                             f"{runs['local_real'][2]} of {real_last}")
+    print(f"register core: fft_last at N = 1024 on 3a ({c2c_last} of "
+          f"{c2c_last}); rfft_last at N = 256 on 3d "
+          f"({runs['local_real'][2]['rfft_last']} of {real_last}, the "
+          "rest dense at N = 192)")
     launches = {k: sum(r[1][k] for r in runs.values()) for k in ff.KERNELS}
 
     # ---- 5. times --------------------------------------------------------
@@ -1124,24 +1183,92 @@ def main() -> int:
     del ns
     torch.cuda.empty_cache()
 
+    # the row kernels' paths, each with the register core and with the
+    # dense core on the same data and plan
+    xr, xi = _pair((64, 1, 1024, 1024), gen)
+    x3 = torch.randn((256, 256, 256), generator=gen, device="cuda")
+    paths = (
+        ("c2c 64x1024^2 (plan, 2-D route)",
+         ot.plan((1, 1024, 1024), "complex64", planar=True, batch_dims=1),
+         ((xr, xi),)),
+        ("r2c 256^3 planar=False (plan)",
+         ot.plan((256, 256, 256), "float32", real=True), (x3,)),
+        ("namespace rfftn 256^3", ot.fft.rfftn, (x3,)))
+    for label, fn, args in paths:
+        r_reg = time_cuda(fn, args)
+        with _dense_core(ff):
+            r_dense = time_cuda(fn, args)
+        show(f"path {label}, register core", r_reg,
+             f", {r_dense['median_ms'] / r_reg['median_ms']:.2f}x faster "
+             "than the dense core")
+        show(f"path {label}, dense core", r_dense)
+    show("torch.fft.fft2 (cuFFT) c64 64x1024^2",
+         time_cuda(torch.fft.fft2, (torch.complex(xr, xi),)))
+    del xr, xi, x3, paths
+    # both row kernels at every register-core length n (fft_last at
+    # N = n on 2^24 complex elements, rfft_last at M = n on 2^25 real
+    # inputs, numpy layout), on the register core and on the dense core:
+    # device time and the bytes each moves over it
+    xr, xi = _pair((1 << 24,), gen)
+    xx = torch.cat([xr, xi])
+    for n in (1 << k for k in range(4, 13)):
+        for name, fn, args, nbytes in (
+                ("fft_last N", ff.fft_last,
+                 (xr.view(-1, n), xi.view(-1, n)), 16 << 24),
+                ("rfft_last M", ff.rfft_last_planar, (xx.view(-1, 2 * n),),
+                 (4 << 25) + 8 * ((1 << 24) // n) * (n + 1))):
+            r_reg = time_cuda(fn, args, ahead=True)
+            with _dense_core(ff):
+                r_dense = time_cuda(fn, args, ahead=True)
+            print(f"sweep {name}={n} rows={args[0].shape[0]}: register "
+                  f"{r_reg['median_ms']:.4f} ms "
+                  f"({nbytes / r_reg['median_ms'] / 1e9:.2f} TB/s), dense "
+                  f"{r_dense['median_ms']:.4f} ms "
+                  f"({nbytes / r_dense['median_ms'] / 1e9:.2f} TB/s) {tag}",
+                  flush=True)
+    del xr, xi, xx
+    # the one-shot call: the first builds its plan, the second reuses it
+    xc = torch.complex(*_pair((256, 256, 256), gen))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ot.fft3d(xc)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"time one-shot fft3d 256^3 c64 (host wall, synchronised): first "
+          f"call {walls[0]:.4f} ms (builds the plan), second {walls[1]:.4f}, "
+          f"third {walls[2]:.4f} ms (the cached plan) {tag}", flush=True)
+    del xc
+    torch.cuda.empty_cache()
+
     report = []
     for name, info in ff.KERNELS.items():
         fn, call = per_kernel[name]["call"]
         shape = per_kernel[name]["shape"]
         x = _pair(shape, gen)
-        r_k = time_cuda(call, (fn, x))
+        # device time: the host enqueues ahead (a kernel shorter than its
+        # wrapper's host overhead would else be host-paced)
+        r_k = time_cuda(call, (fn, x), ahead=True)
         r_p = time_cuda(call, (fn.plain, x), warmup=1, reps=5)
         show(f"kernel {name} via {fn.__name__} {shape}", r_k)
         show(f"plain {name} via {fn.__name__} {shape}", r_p)
         lib = _library(name, shape, gen)
         lib_ms = None
         if lib is not None:
-            r_l = time_cuda(*lib[1:])
+            r_l = time_cuda(*lib[1:], ahead=True)
             lib_ms = r_l["median_ms"]
             show(f"library {name} (torch.fft.{lib[0]}) {shape}", r_l)
         bms, by = _bound(name, shape)
         print(f"bound {name} {shape}: {bms:.4f} ms ({by}); kernel at "
               f"{bms / r_k['median_ms']:.3f} of it {tag}")
+        extra = {}
+        if name in REG_CORE:
+            with _dense_core(ff):
+                r_d = time_cuda(call, (fn, x), ahead=True)
+            extra["dense_ms"] = r_d["median_ms"]
+            show(f"kernel {name} via {fn.__name__} {shape}, dense core", r_d,
+                 f", {r_d['median_ms'] / r_k['median_ms']:.2f}x the "
+                 "register core")
         if name == "fft_axis":
             # the kernel's other wrappers on their main-path shapes: the
             # c2r x pass (z_true 128 of 129 lanes) and the 320^3 x pass
@@ -1172,7 +1299,7 @@ def main() -> int:
                        "max_abs_err": per_kernel[name]["max_abs_err"],
                        "ms": r_k["median_ms"], "plain_ms": r_p["median_ms"],
                        "bound_ms": bms, "bound_by": by,
-                       "library_ms": lib_ms})
+                       "library_ms": lib_ms, **extra})
         del x, lib
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -31,7 +31,7 @@ static shards do: ``pad_first``, ``mid_true``, ``mid_pad`` and
 ``last_true`` are its pad and slice points. A meta-device run (a plan's
 shape-only pass) computes the shapes of every exchange and moves nothing.
 The FAST_TUNING trial programs (``make_phase_trials``) belong to the
-tuner, ROADMAP Queue 1 item 12.
+tuner, ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations

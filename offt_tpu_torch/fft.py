@@ -28,9 +28,9 @@ complex128 results (the fp64 route, 1e-12), every other type complex64
 64-bit types need x64 on.
 
 Not here yet: ``use_mesh`` (the distributed namespace) raises: its 1-D
-calls need the distributed long-1-D engine, ROADMAP Queue 1 item 14.
+calls need the distributed long-1-D engine, ROADMAP Queue 1 item 4.
 Plans run forward only, so a tensor that requires grad raises (autodiff
-is item 9).
+is item 3).
 """
 
 from __future__ import annotations
@@ -54,13 +54,13 @@ __all__ = [
 class use_mesh:
     """The reference's distributed namespace (``offt_tpu.fft.use_mesh``).
     Not ported: its 1-D calls ride the distributed long-1-D engine
-    (``dist/long1d.py``), ROADMAP Queue 1 item 14. Constructing one
+    (``dist/long1d.py``), ROADMAP Queue 1 item 4. Constructing one
     raises NotImplementedError."""
 
     def __init__(self, mesh):
         raise NotImplementedError(
             "use_mesh needs the distributed long-1-D engine "
-            "(dist/long1d.py), ROADMAP Queue 1 item 14")
+            "(dist/long1d.py), ROADMAP Queue 1 item 4")
 
 
 # ---- devices, dtypes and the plan cache -----------------------------------

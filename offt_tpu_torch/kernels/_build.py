@@ -6,8 +6,10 @@ C interface: one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c
 ``nvcc -shared`` link. It is built at first use into ``kernels/build/``
 (listed in ``.gitignore``), under a name keyed by a hash of the sources,
 so an edited source builds anew and an unchanged one loads at once.
-Every pointer and the stream pass as ``c_void_p``; every C entry point
-returns ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
+Every pointer and the stream pass as ``c_void_p``, a scale as
+``c_float``; every C entry point returns ``cudaGetLastError()`` and
+:func:`check` raises when it is not 0. The headers (``fft_core.cuh``, the
+dense core; ``fft_regs.cuh``, the register core) are part of the digest.
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ ARCH = "arch=compute_90a,code=sm_90a"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry points and their argument types (see csrc/*.cu).
 _SIGNATURES = {
-    "offt_fft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    "offt_fft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _F,
+                      _I, _P],
     "offt_fft_axis": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _L, _L, _L,
                       _L, _L, _I, _I, _I, _I, _I, _P],
     "offt_fft_slab": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
@@ -43,7 +47,7 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "offt_assemble_mp1": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
     "offt_rfft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                       _P],
+                       _F, _I, _P],
     "offt_step1_twiddle": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I,
                            _I, _I, _P],
     "offt_step3_transposed": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,

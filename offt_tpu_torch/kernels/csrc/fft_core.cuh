@@ -1,5 +1,6 @@
-// fft_core.cuh: the length-N DFT that every kernel of this package runs
-// on a tile held in shared memory, and the tile loads and stores around it.
+// fft_core.cuh: the length-N DFT that the kernels of this package run on
+// a tile held in shared memory (all but the row kernels on power-of-two
+// lengths, which run fft_regs.cuh), and the tile loads and stores.
 //
 // Replaces: offt_tpu/kernels/pallas_fft.py _core_apply (:428) with
 // _sublane_core_loop (:503), _sublane_core_vpu (:711) and

@@ -21,7 +21,7 @@ A/B knob.
 
 ``pick_split`` keeps the reference's one measured split, 3 * 2^18 ->
 (1024, 768), so that the routes stay equal; whether Hopper wants it is
-ROADMAP item 15.
+ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations

@@ -30,7 +30,11 @@ dispatches on the tensors' device:
 
 Every wrapper counts its kernel launches (``fn.launches``) and its plain
 calls (``fn.plain_calls``); :func:`reset_counts` zeroes them. Each
-wrapper is listed by name in ``WRAPPERS`` as it is defined.
+wrapper is listed by name in ``WRAPPERS`` as it is defined. The two
+last-axis row kernels (``fft_last``, ``rfft_last_planar``) run the
+register core of ``csrc/fft_regs.cuh`` on the lengths :func:`_reg_core`
+admits and the dense core of ``csrc/fft_core.cuh`` on the rest; of their
+launches, ``fn.reg_launches`` took the register core.
 
 ``precision`` is accepted everywhere for parity with the reference and
 ignored: every stage computes in f32 FMA on the card (the bf16 stacked
@@ -191,6 +195,14 @@ def can_fuse_cube(nx: int, ny: int, nz: int, rad_x=None, rad_y=None,
             and tb._pick_stages(nz, rad_z) is not None)
 
 
+def _reg_core(n: int) -> bool:
+    """Whether a row kernel (``fft_last`` at length n, ``rfft_last_planar``
+    at half length n) launches the register core (``csrc/fft_regs.cuh``):
+    a power of two in [16, 4096]. Every other length takes the dense
+    core. The register core ignores the radices and the rows per block."""
+    return 16 <= n <= 4096 and n & (n - 1) == 0
+
+
 def _pick_lane_tile(lanes: int, target: int) -> int:
     target = min(target, lanes)
     if lanes % target == 0 and (target % 128 == 0 or target == lanes):
@@ -323,7 +335,7 @@ def _dispatching(impl=None, *, arity: int = 2):
 
     wrapper.plain = plain
     wrapper.impl = impl
-    wrapper.launches = wrapper.plain_calls = 0
+    wrapper.launches = wrapper.plain_calls = wrapper.reg_launches = 0
     del wrapper.__wrapped__
     WRAPPERS[wrapper.__name__] = wrapper
     return wrapper
@@ -502,11 +514,18 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
              block_rows: int = 0, precision: str = DEFAULT_PRECISION,
              scale: float = 1.0, alias: bool = False, tables=None):
     """Batched c2c along the last axis of planar (..., N) float32 tensors
-    (kernel ``csrc/fft_last.cu``). ``scale`` rides the last stage's table;
-    no 1/N on inverse (callers fold it into ``scale``). ``alias=True``
-    writes over the inputs and returns them; a ragged last block is masked,
-    so any batch may alias. ``block_rows`` sets the rows per CUDA block
-    (0 = as many as fit 64 KB of shared memory, at most 64)."""
+    (kernel ``csrc/fft_last.cu``); no 1/N on inverse (callers fold it into
+    ``scale``). ``alias=True`` writes over the inputs and returns them; a
+    ragged last block is masked, so any batch may alias.
+
+    On a power-of-two N in [16, 4096] (:func:`_reg_core`) the kernel runs
+    the register core: ``radices`` is checked but does not shape its
+    passes (any valid pick gives the same values), ``block_rows`` is
+    ignored, and ``scale`` is applied at the store. Other lengths run the
+    dense core on the ``radices`` stages, ``scale`` riding the last stage's
+    table; ``block_rows`` sets its rows per CUDA block (0 = as many as fit
+    64 KB of shared memory, at most 64). The plain version is the dense
+    core's arithmetic on every length."""
     n = xr.shape[-1]
     stages = _stages(n, radices)
     if not _fits_block(n, sum(stages)):
@@ -526,10 +545,13 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
         return yr, yi
     rows = xr.numel() // n
     if rows:
-        t = _rows_tile(n, block_rows, sum(stages))
+        reg = _reg_core(n)
+        t = 0 if reg else _rows_tile(n, block_rows, sum(stages))
         _launch("offt_fft_last", (xr, xi, yr, yi), (tab,),
-                [rows, n, *_radix_args(stages), t])
+                [rows, n, *_radix_args(stages), t, int(inverse), float(scale),
+                 int(reg)])
         fft_last.launches += 1
+        fft_last.reg_launches += reg
     return yr, yi
 
 
@@ -886,10 +908,17 @@ def rfft_last_planar(mode, x, radices=None,
     """r2c along the last axis of real (..., N) float32 (kernel
     ``csrc/rfft_last.cu``): the planar (..., N/2 + 1) numpy layout, or
     with ``packed=True`` the packed (..., N/2) layout whose lane 0 carries
-    X[0] + i X[N/2]. One M-point core (M = N/2, the reference's
-    ``_pick_2stage``) on v[j] = x[2j] + i x[2j+1], then the O(M) untangle.
-    ``scale`` rides the core's last stage (the reference has none and
-    post-multiplies); ``block_rows`` sets the rows per CUDA block."""
+    X[0] + i X[N/2]. One M-point core (M = N/2) on v[j] = x[2j] + i
+    x[2j+1], then the O(M) untangle. The reference has no ``scale`` and
+    post-multiplies.
+
+    On M a power of two in [16, 4096] (:func:`_reg_core`) the kernel runs
+    the register core: ``radices`` (the reference's ``_pick_2stage`` of M)
+    is checked but does not shape its passes, ``block_rows`` is ignored,
+    and ``scale`` is applied at the store. Other M run the dense core on
+    the pick, ``scale`` riding its last stage's table; ``block_rows`` sets
+    its rows per CUDA block. The plain version is the dense core's
+    arithmetic on every M."""
     n = x.shape[-1]
     m = n // 2
     pick = tb._pick_2stage(m, radices)
@@ -922,13 +951,16 @@ def rfft_last_planar(mode, x, radices=None,
         return yr, yi
     rows = x.numel() // n
     if rows:
+        reg = _reg_core(m)
         if x.data_ptr() % 8:
             # the kernel reads (x[2j], x[2j+1]) as one float2
             raise ValueError("rfft_last_planar needs an 8-byte aligned input")
-        t = _rows_tile(m, block_rows, sum(stages))
+        t = 0 if reg else _rows_tile(m, block_rows, sum(stages))
         _launch("offt_rfft_last", (x, yr, yi), (tab, w),
-                [rows, m, *_radix_args(stages), t, int(packed)])
+                [rows, m, *_radix_args(stages), t, int(packed), float(scale),
+                 int(reg)])
         rfft_last_planar.launches += 1
+        rfft_last_planar.reg_launches += reg
     return yr, yi
 
 
@@ -1037,10 +1069,9 @@ def fft3d_cube(mode, xr, xi, inverse: bool = False, rad_z=None, rad_y=None,
 
 
 def reset_counts() -> None:
-    """Zero every wrapper's launch and plain-call counts."""
+    """Zero every wrapper's launch, register-core and plain-call counts."""
     for f in WRAPPERS.values():
-        f.launches = 0
-        f.plain_calls = 0
+        f.launches = f.reg_launches = f.plain_calls = 0
 
 
 def counts() -> dict:

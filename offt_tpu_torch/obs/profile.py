@@ -3,8 +3,10 @@ and where a call's device time goes, by ``torch.profiler``.
 
 Port of the timing part of ``offt_tpu/obs/profile.py``. Each repetition
 is bracketed by its own pair of CUDA events on the current stream, so the
-result is device time per call, not host enqueue time. A measurement
-needs a CUDA device: there is no CPU fallback.
+result is device time per call, not host enqueue time; a call shorter
+than its own host overhead is paced by the host unless the timing runs
+the host ahead (``ahead=True``). A measurement needs a CUDA device:
+there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -16,10 +18,19 @@ from typing import Callable
 import torch
 
 
+# cycles the card spins per timed call while the host runs ahead: 200 us
+# of host time a call at 2 GHz
+AHEAD_CYCLES = 400_000
+
+
 def time_cuda(fn: Callable, args: tuple = (), warmup: int = 3,
-              reps: int = 20) -> dict:
+              reps: int = 20, ahead: bool = False) -> dict:
     """Milliseconds per ``fn(*args)`` on the card: median, min, max and
-    spread ((max - min) / median) over ``reps`` event-timed calls."""
+    spread ((max - min) / median) over ``reps`` event-timed calls. With
+    ``ahead=True`` the card first spins (``torch.cuda._sleep``) while the
+    host enqueues every timed call, so each call's events bracket its
+    device work alone: a kernel's time, even one shorter than its
+    wrapper's host overhead."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_cuda needs a CUDA device")
     for _ in range(warmup):
@@ -27,6 +38,8 @@ def time_cuda(fn: Callable, args: tuple = (), warmup: int = 3,
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    if ahead:
+        torch.cuda._sleep(AHEAD_CYCLES * reps)
     for start, end in events:
         start.record()
         fn(*args)

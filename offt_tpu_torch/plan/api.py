@@ -46,11 +46,13 @@ The reference post-multiplies its norm scale on the unfused and
 distributed routes; the port folds it into the tables of one pass (the
 last stage of the fast paths; the z pass of ``_local_fft3d`` and of the
 pencil pipeline), which gives the same values since every pass is
-linear. Plans run forward only (autodiff is ROADMAP Queue 1 item 9).
+linear. Plans run forward only (autodiff is ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import math
 from typing import Optional
 
@@ -380,7 +382,7 @@ class Plan(torch.nn.Module):
             raise TypeError(f"{what}: plan expects {dtype}, got {t.dtype}")
         if torch.is_grad_enabled() and t.requires_grad:
             raise NotImplementedError("plans run forward only; autodiff "
-                                      "is ROADMAP Queue 1 item 9")
+                                      "is ROADMAP Queue 1 item 3")
 
     def forward(self, x, x_imag=None):
         if self._n_inputs == 1:
@@ -454,14 +456,14 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
         raise ValueError("packed layout requires real=True, planar=True "
                          "(and not batch_sharded)")
     if donate:
-        raise NotImplementedError("donate= is ROADMAP Queue 1 item 8 "
+        raise NotImplementedError("donate= is ROADMAP Queue 1 item 2 "
                                   "(in_place=True overwrites the inputs)")
     shape = tuple(int(n) for n in shape)
     if mesh is not None and not batch_sharded and shape[:2] == (1, 1):
         raise NotImplementedError("a (1, 1, N) plan on a mesh is the "
                                   "distributed long-1-D engine "
                                   "(dist/long1d.py), ROADMAP Queue 1 item "
-                                  "14 (long 1-D)")
+                                  "4 (long 1-D)")
     name = _dtype_name(dtype)
     if real and name in ("float16", "bfloat16", "float32", "float64"):
         # real transforms name the real type; only float64 maps to the
@@ -540,22 +542,79 @@ def _global_shape(x, mesh, inverse: bool, shape) -> tuple:
     return (nx, ny * p1, nz * p2) if inverse else (nx * p1, ny * p2, nz)
 
 
+class _Same:
+    """A cache-key part that matches only the object itself (a mesh). The
+    key holds the object, so its id is not reused while the entry lives."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+    def __eq__(self, other):
+        return isinstance(other, _Same) and other.obj is self.obj
+
+
+def _frozen(v):
+    """A hashable form of a keyword value or a PlanParams."""
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return (type(v).__name__, _frozen(dataclasses.asdict(v)))
+    if isinstance(v, dict):
+        return tuple(sorted((k, _frozen(a)) for k, a in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_frozen(a) for a in v)
+    return v
+
+
+# the one-shot calls' plans, least recently used first
+_ONE_SHOT: collections.OrderedDict = collections.OrderedDict()
+_ONE_SHOT_MAX = 64
+
+
+def _one_shot_key(shape, dtype, inverse: bool, batch_dims: int, device,
+                  mesh, params, kw) -> tuple:
+    """The call signature a one-shot plan is cached under: the global
+    shape, dtype, direction, batch dims, device, the mesh itself, and the
+    params and keywords by value."""
+    return (tuple(shape), dtype, bool(inverse), batch_dims,
+            torch.device(device), None if mesh is None else _Same(mesh),
+            _frozen(params), _frozen(kw))
+
+
+def _one_shot(x, mesh, params, shape, inverse: bool, kw) -> Plan:
+    """The plan of a one-shot call, built once per call signature (the
+    reference's one-shot calls are cached the same way, by jit)."""
+    shape = _global_shape(x, mesh, inverse, shape)
+    key = _one_shot_key(shape, x.dtype, inverse, x.ndim - 3, x.device, mesh,
+                        params, kw)
+    p = _ONE_SHOT.get(key)
+    if p is None:
+        p = plan(shape, x.dtype, mesh=mesh, params=params, inverse=inverse,
+                 batch_dims=x.ndim - 3, device=x.device, **kw)
+        _ONE_SHOT[key] = p
+        if len(_ONE_SHOT) > _ONE_SHOT_MAX:
+            _ONE_SHOT.popitem(last=False)
+    else:
+        _ONE_SHOT.move_to_end(key)
+    return p
+
+
 def fft3d(x, mesh=None, params=None, shape=None, **kw):
     """3-D c2c over the last three axes of a complex64 (or complex128)
     tensor. On a mesh ``x`` is this rank's z-pencil block and ``shape``
     the global (Nx, Ny, Nz) (default: equal blocks); the result is this
-    rank's transposed-out block."""
-    p = plan(_global_shape(x, mesh, False, shape), x.dtype, mesh=mesh,
-             params=params, batch_dims=x.ndim - 3, device=x.device, **kw)
-    return p(x)
+    rank's transposed-out block. The plan is built on the first call of
+    each signature and cached."""
+    return _one_shot(x, mesh, params, shape, False, kw)(x)
 
 
 def ifft3d(x, mesh=None, params=None, shape=None, **kw):
     """Inverse 3-D c2c over the last three axes of a complex64 (or
     complex128) tensor. On a mesh ``x`` is this rank's transposed-out
     block and ``shape`` the global (Nx, Ny, Nz) (default: equal blocks);
-    the result is this rank's z-pencil block."""
-    p = plan(_global_shape(x, mesh, True, shape), x.dtype, mesh=mesh,
-             params=params, inverse=True, batch_dims=x.ndim - 3,
-             device=x.device, **kw)
-    return p(x)
+    the result is this rank's z-pencil block. The plan is cached as
+    :func:`fft3d`'s."""
+    return _one_shot(x, mesh, params, shape, True, kw)(x)

@@ -39,7 +39,7 @@ class PlanParams:
     tuner key on it, but every value computes at f32 FMA on the card:
     ``stack6``, ``stack3`` and ``default`` are bf16 emulations written
     for the TPU's MXU. Mapping them to Hopper tiers (TF32, 3xTF32) is
-    ROADMAP Queue 1 item 3.
+    ROADMAP Queue 2b (the precision tiers).
 
     Block-shape knobs: ``block_batch`` sets the rows per CUDA block of
     ``fft_last`` and the lanes per block of the strided-axis kernel

@@ -475,3 +475,62 @@ def test_cuda_long_three_stage_plan(cuda_dev):
     yr, yi = p(x)
     ref = torch.fft.fftn(torch.complex(x[0].double(), x[1].double()))
     assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
+# ---- the two row kernels' cores: register (fft_regs.cuh) and dense ---------
+
+REG_LENGTHS = [1 << k for k in range(4, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", REG_LENGTHS + [8, 96, 320])
+def test_cuda_fft_last_cores(cuda_dev, n, inverse, rows):
+    _card_check(ff.fft_last, lambda f, x: f(*x, inverse=inverse,
+                                            scale=0.375), (rows, n), cuda_dev)
+    assert ff.fft_last.reg_launches == int(ff._reg_core(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", REG_LENGTHS + [320])
+def test_cuda_fft_last_cores_in_place(cuda_dev, n):
+    x = _pair((37, n), cuda_dev, seed=n)
+    want = ff.fft_last.plain(*x, inverse=True, scale=1.0 / n)
+    xr, xi = x[0].clone(), x[1].clone()
+    yr, yi = ff.fft_last(xr, xi, inverse=True, scale=1.0 / n, alias=True)
+    torch.cuda.synchronize()
+    assert yr is xr and yi is xi
+    for g, w in zip((yr, yi), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 300])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m", REG_LENGTHS + [96, 129])
+def test_cuda_rfft_last_cores(cuda_dev, m, packed, rows):
+    _card_check(ff.rfft_last_planar,
+                lambda f, x: f(x[0], packed=packed, scale=0.25),
+                (rows, 2 * m), cuda_dev)
+    assert ff.rfft_last_planar.reg_launches == int(ff._reg_core(m))
+
+
+@pytest.mark.cuda
+def test_cuda_register_core_ignores_radices(cuda_dev):
+    # it reads the first n table rows and the scale: every valid pick and
+    # block_rows gives the same bits
+    ff.reset_counts()
+    x = _pair((33, 1024), cuda_dev, seed=3)
+    outs = [ff.fft_last(*x, radices=p, block_rows=b, scale=0.5)
+            for p, b in ((None, 0), ((32, 32), 7), ((8, 128), 0),
+                         ((8, 8, 16), 3))]
+    r = _pair((33, 512), cuda_dev, seed=4)[0]
+    routs = [ff.rfft_last_planar(r, radices=p, block_rows=b)
+             for p, b in ((None, 0), ((16, 16), 5), ((128, 2), 0))]
+    for group in (outs, routs):
+        for o in group[1:]:
+            assert torch.equal(o[0], group[0][0])
+            assert torch.equal(o[1], group[0][1])
+    assert ff.fft_last.reg_launches == 4
+    assert ff.rfft_last_planar.reg_launches == 3

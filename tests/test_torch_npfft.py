@@ -215,9 +215,9 @@ def test_non_tensors_go_to_the_card(rng):
 
 def test_grad_through_npfft_raises():
     # the reference's namespace rides its differentiable plans; the
-    # port's plans run forward only (autodiff is ROADMAP item 9)
+    # port's plans run forward only (autodiff is ROADMAP Queue 1 item 3)
     x = torch.randn(8, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         F.rfft(x)
     with torch.no_grad():
         assert F.rfft(x).shape == (8, 9)
@@ -227,7 +227,7 @@ def test_use_mesh_routes_distributed():
     # the reference's use_mesh: its 1-D calls ride dist/long1d.py, not
     # ported yet; the port refuses it on construction, so no sticky mesh
     # can be left behind either (the reference sets it in __init__)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         with F.use_mesh(object()):
             pass
 

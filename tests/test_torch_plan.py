@@ -6,6 +6,7 @@ against each other too: each package's kernel-wrapper calls are counted
 and must agree."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -252,3 +253,61 @@ def test_dry_run_registers_every_table(shape, dtype, kw):
     ts = p._tables()
     p._run(xs, ts)
     assert set(ts.tabs) == set(p._keys)
+
+
+@pytest.fixture
+def plan_builds(monkeypatch):
+    """The one-shot cache emptied, and a list that records every plan()
+    call the one-shot entry points make."""
+    from offt_tpu_torch.plan import api
+    monkeypatch.setattr(api, "_ONE_SHOT", type(api._ONE_SHOT)())
+    calls = []
+    build = api.plan
+
+    def counting(shape, dtype, **kw):
+        calls.append((tuple(shape), kw.get("norm"), kw["device"]))
+        return build(shape, dtype, **kw)
+    monkeypatch.setattr(api, "plan", counting)
+    return calls
+
+
+def test_one_shot_calls_reuse_their_plan(plan_builds):
+    x = torch.from_numpy(rand_c64((2, 8, 16, 16), seed=31))
+    want = np.fft.fftn(x.numpy().astype(np.complex128), axes=(-3, -2, -1))
+    y1 = ot.fft3d(x)
+    assert len(plan_builds) == 1
+    y2 = ot.fft3d(x.clone())
+    assert len(plan_builds) == 1      # the same signature: no new plan
+    assert torch.equal(y1, y2) and rel_err(y1.numpy(), want) < TOL_NP
+    back = ot.ifft3d(y1)
+    assert len(plan_builds) == 2      # the inverse is a signature of its own
+    ot.ifft3d(y2)
+    assert len(plan_builds) == 2
+    assert rel_err(back.numpy(), x.numpy()) < TOL_NP
+
+
+def test_one_shot_signatures_do_not_share_plans(plan_builds):
+    x = torch.from_numpy(rand_c64((8, 16, 16), seed=32))
+    ref = x.numpy().astype(np.complex128)
+    for norm in (None, "ortho", "forward"):
+        y = ot.fft3d(x, norm=norm)
+        assert rel_err(y.numpy(), np.fft.fftn(ref, norm=norm)) < TOL_NP
+    assert [c[1] for c in plan_builds] == [None, "ortho", "forward"]
+    ot.fft3d(x, norm="ortho")
+    ot.fft3d(x.reshape(1, 8, 16, 16))                  # batch dims differ
+    ot.fft3d(x.to(torch.complex128))                   # dtype differs
+    ot.fft3d(x, params=PlanParams(use_pallas=0))       # params differ
+    ot.fft3d(x, params=PlanParams(use_pallas=0))
+    assert len(plan_builds) == 6
+    from offt_tpu_torch.plan import api
+    key = functools.partial(api._one_shot_key, (8, 16, 16), torch.complex64,
+                            False, 0)
+    cpu, card = key("cpu", None, None, {}), key("cuda:0", None, None, {})
+    assert cpu != card and hash(cpu) != hash(card)
+    assert key("cpu", None, None, {}) == cpu
+    assert key("cpu", None, None, {"norm": "ortho"}) != cpu
+    mesh_a, mesh_b = object(), object()
+    assert key("cpu", mesh_a, None, {}) == key("cpu", mesh_a, None, {})
+    assert key("cpu", mesh_a, None, {}) != key("cpu", mesh_b, None, {})
+    assert (key("cpu", None, PlanParams(radix_z=(4, 4)), {})
+            == key("cpu", None, PlanParams(radix_z=[4, 4]), {}))

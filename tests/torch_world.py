@@ -11,8 +11,11 @@ spawned ranks never load it).
 
 A case is a dict: ``mesh`` ((p1, p2), or (slices, p1, p2) for a
 multi-slice mesh), ``shape`` (global Nx, Ny, Nz), ``batch`` (leading
-dims), ``inverse``, ``real``, ``packed``, ``norm``, ``batch_sharded`` and
-``knobs`` (PlanParams fields; None takes the default point).
+dims), ``inverse``, ``real``, ``packed``, ``norm``, ``batch_sharded``,
+``knobs`` (PlanParams fields; None takes the default point) and ``fp64``
+(complex128 / float64 data and plans, the fp64 route). A mesh of fewer
+ranks than the world takes the first ones; the others make the mesh (a
+collective call) and skip the case.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import json
+import math
 import os
 
 import numpy as np
@@ -31,10 +35,10 @@ WORLD = 4
 
 def case(mesh=(2, 2), shape=(8, 8, 16), batch=(), inverse=False,
          real=False, packed=False, norm=None, batch_sharded=False,
-         knobs=None) -> dict:
+         knobs=None, fp64=False) -> dict:
     return dict(mesh=tuple(mesh), shape=tuple(shape), batch=tuple(batch),
                 inverse=inverse, real=real, packed=packed, norm=norm,
-                batch_sharded=batch_sharded, knobs=knobs)
+                batch_sharded=batch_sharded, knobs=knobs, fp64=fp64)
 
 
 def case_id(c) -> str:
@@ -48,6 +52,8 @@ def case_id(c) -> str:
         parts.append("bs")
     if c["norm"]:
         parts.append(c["norm"])
+    if c.get("fp64"):
+        parts.append("fp64")
     for k, v in (c["knobs"] or {"default": ""}).items():
         parts.append(f"{k}{v}")
     return "-".join(parts)
@@ -56,16 +62,18 @@ def case_id(c) -> str:
 def inputs(c, seed: int) -> np.ndarray:
     """The global input: complex64 for c2c, float32 real data for r2c, the
     complex64 half-spectrum of real data for c2r (packed: M lanes, lane 0
-    = X[0] + i X[M])."""
+    = X[0] + i X[M]); complex128 and float64 for an fp64 case."""
     rng = np.random.default_rng(seed)
     shp = c["batch"] + c["shape"]
+    cdt, rdt = ((np.complex128, np.float64) if c.get("fp64")
+                else (np.complex64, np.float32))
     if not c["real"]:
         return (rng.standard_normal(shp)
-                + 1j * rng.standard_normal(shp)).astype(np.complex64)
+                + 1j * rng.standard_normal(shp)).astype(cdt)
     x = rng.standard_normal(shp)
     if not c["inverse"]:
-        return x.astype(np.float32)
-    return half_spectrum(c, x).astype(np.complex64)
+        return x.astype(rdt)
+    return half_spectrum(c, x).astype(cdt)
 
 
 def half_spectrum(c, x) -> np.ndarray:
@@ -120,9 +128,12 @@ def _params(c):
 
 def _plan(c, mesh):
     import offt_tpu_torch as ot
-    return ot.plan(c["shape"], "float32" if c["real"] else "complex64",
-                   mesh=mesh, real=c["real"], inverse=c["inverse"],
-                   batch_dims=len(c["batch"]), params=_params(c),
+    if c.get("fp64"):
+        dtype = "float64" if c["real"] else "complex128"
+    else:
+        dtype = "float32" if c["real"] else "complex64"
+    return ot.plan(c["shape"], dtype, mesh=mesh, real=c["real"],
+                   inverse=c["inverse"], batch_dims=len(c["batch"]), params=_params(c),
                    use_cache=False, planar=True, norm=c["norm"],
                    batch_sharded=c["batch_sharded"], packed=c["packed"],
                    device="cpu")
@@ -145,6 +156,8 @@ def run_cases(rank: int, outdir: str, cases) -> None:
         for i, c in enumerate(cases):
             if c["mesh"] not in meshes:
                 meshes[c["mesh"]] = _mesh(c["mesh"])
+            if rank >= _ranks(c):
+                continue
             p = _plan(c, meshes[c["mesh"]])
             x = inputs(c, seed=i)
             assert local_block(p.mesh, p.input_layout, x.shape) == \
@@ -169,13 +182,18 @@ def run_cases(rank: int, outdir: str, cases) -> None:
         dist.destroy_process_group()
 
 
+def _ranks(c) -> int:
+    """The ranks of the case's mesh: the first ones of the world."""
+    return math.prod(c["mesh"])
+
+
 def gather(outdir, i: int, c) -> tuple:
     """(global output, the port's resolved PlanParams as a dict, the
     kernel wrappers whose plain versions ran on rank 0) of case ``i`` from
     the ranks' blocks; every element must be covered."""
     shp = out_shape(c)
     out, seen, params, ran = None, np.zeros(shp, bool), None, None
-    for rank in range(WORLD):
+    for rank in range(_ranks(c)):
         d = np.load(os.path.join(outdir, f"{i}_{rank}.npz"))
         if out is None:
             out = np.zeros(shp, d["y"].dtype)
@@ -199,12 +217,14 @@ def reference(c, x, params: dict) -> np.ndarray:
     from offt_tpu.dist import mesh as rmesh
     from offt_tpu.plan.params import PlanParams
 
-    devs = jax.devices()[:WORLD]
+    devs = jax.devices()[:_ranks(c)]
     if len(c["mesh"]) == 3:
         mesh = rmesh.make_multislice_mesh(*c["mesh"], devices=devs)
     else:
         mesh = rmesh.make_mesh(*c["mesh"], devices=devs)
-    p = offt_tpu.plan(c["shape"], "complex64", mesh=mesh, real=c["real"],
+    p = offt_tpu.plan(c["shape"],
+                      "complex128" if c.get("fp64") else "complex64",
+                      mesh=mesh, real=c["real"],
                       inverse=c["inverse"], batch_dims=len(c["batch"]),
                       params=PlanParams(**{
                           k: tuple(v) if isinstance(v, list) else v
