@@ -14,7 +14,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    max |plain| <= 1e-6, pad lanes excluded, float32 matmuls pinned to
    full precision); the two row kernels (``fft_last``, ``rfft_last``) on
    a length of each core, register (``csrc/fft_regs.cuh``) and dense,
-   with the core that ran printed;
+   and the two slab kernels (``fft_slab``, ``rfft_slab``) at each shape
+   on both cores (the register slab's predicate patched off for the
+   dense one), with the core and the register layout (two grids or one
+   of clusters, ``fused_fft._cluster_slab``) printed;
 3. the five paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
@@ -47,7 +50,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did; the register core ran ``fft_last`` on 3a (its one
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
-   the dense core at N = 192);
+   the dense core at N = 192), ``fft_slab`` on 3a's 256^3 and 512^3
+   cases (the 320^3 slab on the dense core) and ``rfft_slab`` on every
+   slab of 3b;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24; ``rfft`` at 2^21;
    ``rfftn`` against the 256^3 ``planar=False`` plan and the packed
@@ -60,21 +65,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``torch.fft.fftn``; the namespace calls against their ``torch.fft``
    twins; ``torch.profiler`` breakdowns of the long 1-D, unfused real
    and 1 x 1 mesh c2r plans, the cube and the prime-length ``fft``
-   (device time by op, busy share of the host wall); the paths of the row
-   kernels (64 x 1024^2 c2c, the 256^3 ``planar=False`` r2c, namespace
-   ``rfftn`` 256^3) and the two kernels at their main-path shapes, each
-   with the register core and with every length routed to the dense core
-   (``fused_fft._reg_core`` patched off), and both kernels so at every
-   register-core length 16-4096; the first and the second one-shot
-   ``fft3d`` of 256^3 (the second reuses the cached plan).
+   (device time by op, busy share of the host wall); the paths of the
+   register-core kernels (64 x 1024^2 c2c, the 256^3 ``planar=False``
+   r2c, namespace ``rfftn`` 256^3; 256^3 and 512^3 c2c, 256^3 packed and
+   numpy r2c, 512^3 packed r2c, namespace ``fftn`` 256^3) and the four
+   kernels at their main-path shapes, each with the register core and
+   with every length routed to the dense core (``fused_fft._reg_core``
+   and ``_reg_slab`` patched off), both row kernels so at every
+   register-core length 16-4096, and both slab kernels so at 512^3; the
+   slabs' phase ledgers (``offt_tpu_torch.bench.probe_slabparts`` at
+   256^3, ``probe_rslab512`` at 512^3); the first and the second
+   one-shot ``fft3d`` of 256^3 (the second reuses the cached plan).
 
 The line before the last is one JSON object with each kernel's numbers:
 its launches on the main paths, its error, its time and the library
 call's (device times, the host enqueueing ahead: ``time_cuda(ahead=True)``),
 its plain version's time, and its bound (the larger of its bytes at
 3.35 TB/s and its f32 operations at 67 TFLOP/s, from the shapes of this
-run), and for the two row kernels ``dense_ms``, the dense core's time
-at the same shape. The last line is ``{"ok": true, "device": {...}}``.
+run), and for the two row and the two slab kernels ``dense_ms``, the
+dense core's time at the same shape. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -275,14 +284,17 @@ def _short(op: str) -> str:
     return names[-1] if names else op[:48]
 
 
-# the row kernels whose wrappers count their register-core launches
-REG_CORE = {"fft_last": "fft_last", "rfft_last": "rfft_last_planar"}
+# the kernels whose wrappers count their register-core launches
+REG_CORE = {"fft_last": "fft_last", "rfft_last": "rfft_last_planar",
+            "fft_slab": "fft_slab_yz", "rfft_slab": "rfft_slab_yz"}
+# the slab kernels, checked at each shape on both cores
+SLABS = ("fft_slab", "rfft_slab")
 
 
 def _window(ff, run) -> tuple:
     """Zero the counters, run one path, synchronise, read the counters:
     ({wrapper: (launches, plain calls)}, {kernel: launches},
-    {row kernel: register-core launches})."""
+    {register-core kernel: register-core launches})."""
     ff.reset_counts()
     out = run()
     torch.cuda.synchronize()
@@ -293,15 +305,16 @@ def _window(ff, run) -> tuple:
 
 @contextlib.contextmanager
 def _dense_core(ff):
-    """Every row-kernel length routed to the dense core (the predicate
-    ``fused_fft._reg_core`` patched off): the earlier kernels on the same
-    data, for comparison."""
-    keep = ff._reg_core
+    """Every length routed to the dense core (the predicates
+    ``fused_fft._reg_core`` and ``_reg_slab`` patched off): the earlier
+    kernels on the same data, for comparison."""
+    keep = ff._reg_core, ff._reg_slab
     ff._reg_core = lambda n: False
+    ff._reg_slab = lambda ny, nz: False
     try:
         yield
     finally:
-        ff._reg_core = keep
+        ff._reg_core, ff._reg_slab = keep
 
 
 def main() -> int:
@@ -378,10 +391,27 @@ def main() -> int:
         ("fft_axis", ff.fft_x_from_padded, xpad(256), (256, 256, 264), None),
         ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x, zpad=8, scale=0.5),
          (4, 32, 128), 128),
+        ("fft_slab", ff.fft_slab_yz,
+         lambda f, x: f(*x, z_true=128, zpad=8, inverse=True,
+                        scale=1 / 4096), (2, 32, 136), 128),
+        ("fft_slab", ff.fft_slab_yz,
+         lambda f, x: f(*x, z_true=128, zpad=8, inverse=True,
+                        scale=1 / 32768), (4, 256, 136), 128),
+        ("fft_slab", ff.fft_slab_yz,
+         lambda f, x: f(x[0].clone(), x[1].clone(), inverse=True,
+                        scale=0.5, alias=True), (8, 128, 128), None),
+        ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x, scale=0.5),
+         (2, 40, 320), None),
+        ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x, zpad=8),
+         (8, 512, 512), 512),
         ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x, zpad=8),
          (256, 256, 256), 256),
         ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
          (4, 16, 256), 128),
+        ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
+         (4, 512, 512), 256),
+        ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0]),
+         (2, 40, 640), 320),
         ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
          (256, 256, 256), 128),
         ("irfft_slab", ff.irfft_slab_yz, irfft(256, None, scale=1 / 2048),
@@ -426,25 +456,38 @@ def main() -> int:
     per_kernel = {}
     for name, fn, call, shape, lanes in checks:
         x = _pair(shape, gen)
-        fn.reg_launches = 0
-        got = call(fn, x)
         want = call(fn.plain, x)
-        torch.cuda.synchronize()
-        rel, absd = _max_err(got, want, lanes)
-        core = ""
-        if name in REG_CORE:
-            core = (" [register core]" if fn.reg_launches
-                    else " [dense core]")
-        print(f"check {name} via {fn.__name__} {shape}{core}: max rel err "
-              f"{rel:.3e}, max abs err {absd:.3e} (tol {TOL_KERNEL:g}) {tag}",
-              flush=True)
-        if rel > TOL_KERNEL:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        info = per_kernel.setdefault(name, {"max_abs_err": 0.0})
-        info["max_abs_err"] = max(info["max_abs_err"], absd)
+        # a register slab on both cores; a row kernel or another slab on
+        # the core its length takes
+        for dense in (False, True) if name in SLABS else (False,):
+            fn.reg_launches = 0
+            with _dense_core(ff) if dense else contextlib.nullcontext():
+                got = call(fn, x)
+            torch.cuda.synchronize()
+            rel, absd = _max_err(got, want, lanes)
+            core = ""
+            if name in REG_CORE:
+                core = (" [register core]" if fn.reg_launches
+                        else " [dense core]")
+            if name in SLABS and fn.reg_launches:
+                # the transform's z lanes (M for the r2c, z_true if set)
+                ny, nz = shape[-2], lanes or shape[-1]
+                core = core[:-1] + (", clusters]" if ff._cluster_slab(ny, nz)
+                                    else ", two grids]")
+            print(f"check {name} via {fn.__name__} {shape}{core}: max rel "
+                  f"err {rel:.3e}, max abs err {absd:.3e} (tol "
+                  f"{TOL_KERNEL:g}) {tag}", flush=True)
+            if rel > TOL_KERNEL:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     "version")
+            info = per_kernel.setdefault(name, {"max_abs_err": 0.0})
+            info["max_abs_err"] = max(info["max_abs_err"], absd)
+            del got
+            if not fn.reg_launches:
+                break       # a slab the register core does not take
         info["shape"] = shape
         info["call"] = (fn, call)
-        del x, got, want
+        del x, want
     missing = set(ff.KERNELS) - set(per_kernel)
     if missing:
         raise AssertionError(f"kernels without a check: {sorted(missing)}")
@@ -922,6 +965,23 @@ def main() -> int:
           f"{c2c_last}); rfft_last at N = 256 on 3d "
           f"({runs['local_real'][2]['rfft_last']} of {real_last}, the "
           "rest dense at N = 192)")
+    # 3a's slabs: 256^3 (five calls) and 512^3 on the register core, 320^3
+    # on the dense one; 3b's r2c slabs (256^3, 512^3, 128 x 256) all
+    # register
+    c2c_slab, c2c_slab_reg = runs["c2c"][1]["fft_slab"], \
+        runs["c2c"][2]["fft_slab"]
+    if not (c2c_slab_reg >= 2 and c2c_slab - c2c_slab_reg == 1):
+        raise AssertionError("fft_slab on 3a: want 256^3 and 512^3 on the "
+                             f"register core, 320^3 dense: {c2c_slab_reg} "
+                             f"register of {c2c_slab}")
+    r_slab, r_slab_reg = runs["r2c"][1]["rfft_slab"], \
+        runs["r2c"][2]["rfft_slab"]
+    if not 0 < r_slab_reg == r_slab:
+        raise AssertionError("rfft_slab on 3b did not run the register core "
+                             f"throughout: {r_slab_reg} of {r_slab}")
+    print(f"register core: fft_slab on 3a ({c2c_slab_reg} of {c2c_slab}: "
+          f"256^3 and 512^3; the rest dense at 320^3); rfft_slab on 3b "
+          f"({r_slab_reg} of {r_slab})")
     launches = {k: sum(r[1][k] for r in runs.values()) for k in ff.KERNELS}
 
     # ---- 5. times --------------------------------------------------------
@@ -965,14 +1025,15 @@ def main() -> int:
                  time_cuda(padded))
             show("x route sublane (slab + fft_sublane) 256^3",
                  time_cuda(sublane))
-        # the slab against the unfused z + y passes (its L2 read-back)
+        # the slab kernel against the unfused z + y passes (fft_last, then
+        # the dense strided-axis kernel)
         def unfused():
             a = ff.fft_last(xr, xi)
             return ff.fft_sublane(*a, 1)
         r_slab = time_cuda(ff.fft_slab_yz, (xr, xi))
         r_two = time_cuda(unfused)
         bytes_ = 16 * n ** 3
-        show(f"slab {n}^3 (one launch)", r_slab,
+        show(f"slab {n}^3 (fft_slab_yz)", r_slab,
              f", {bytes_ / r_slab['median_ms'] / 1e6:.1f} GB/s per "
              "read+write")
         show(f"unfused z+y (fft_last + fft_sublane) {n}^3", r_two,
@@ -1187,13 +1248,28 @@ def main() -> int:
     # dense core on the same data and plan
     xr, xi = _pair((64, 1, 1024, 1024), gen)
     x3 = torch.randn((256, 256, 256), generator=gen, device="cuda")
+    c3 = _pair((256, 256, 256), gen)
+    x5 = torch.randn((512, 512, 512), generator=gen, device="cuda")
+    c5 = _pair((512, 512, 512), gen)
+    real = {"real": True, "planar": True}
     paths = (
         ("c2c 64x1024^2 (plan, 2-D route)",
          ot.plan((1, 1024, 1024), "complex64", planar=True, batch_dims=1),
          ((xr, xi),)),
         ("r2c 256^3 planar=False (plan)",
          ot.plan((256, 256, 256), "float32", real=True), (x3,)),
-        ("namespace rfftn 256^3", ot.fft.rfftn, (x3,)))
+        ("namespace rfftn 256^3", ot.fft.rfftn, (x3,)),
+        ("c2c 256^3 (plan, slab + x)",
+         ot.plan((256, 256, 256), "complex64", planar=True), (c3,)),
+        ("c2c 512^3 (plan, slab + x)",
+         ot.plan((512, 512, 512), "complex64", planar=True), (c5,)),
+        ("r2c 256^3 packed (plan)",
+         ot.plan((256, 256, 256), "float32", packed=True, **real), (x3,)),
+        ("r2c 256^3 numpy (plan)",
+         ot.plan((256, 256, 256), "float32", **real), (x3,)),
+        ("r2c 512^3 packed (plan)",
+         ot.plan((512, 512, 512), "float32", packed=True, **real), (x5,)),
+        ("namespace fftn 256^3", ot.fft.fftn, (torch.complex(*c3),)))
     for label, fn, args in paths:
         r_reg = time_cuda(fn, args)
         with _dense_core(ff):
@@ -1204,7 +1280,34 @@ def main() -> int:
         show(f"path {label}, dense core", r_dense)
     show("torch.fft.fft2 (cuFFT) c64 64x1024^2",
          time_cuda(torch.fft.fft2, (torch.complex(xr, xi),)))
-    del xr, xi, x3, paths
+    # the two slab kernels at 512^3 (zpad 8), each core and the library
+    for label, fn, args, lib in (
+            ("fft_slab 512^3", ff.fft_slab_yz, c5,
+             ("fft2", torch.fft.fft2, torch.complex(*c5))),
+            ("rfft_slab 512^3", ff.rfft_slab_yz, (x5,),
+             ("rfft2", torch.fft.rfft2, x5))):
+        r_reg = time_cuda(lambda: fn(*args, zpad=8), ahead=True)
+        with _dense_core(ff):
+            r_dense = time_cuda(lambda: fn(*args, zpad=8), ahead=True)
+        r_lib = time_cuda(lib[1], lib[2:], ahead=True)
+        show(f"kernel {label}, register core", r_reg,
+             f", {r_reg['median_ms'] / r_lib['median_ms']:.2f}x the "
+             f"library, {r_dense['median_ms'] / r_reg['median_ms']:.2f}x "
+             "faster than the dense core")
+        show(f"kernel {label}, dense core", r_dense)
+        show(f"library {label} (torch.fft.{lib[0]})", r_lib)
+        del lib
+    del xr, xi, x3, c3, x5, c5, paths
+    torch.cuda.empty_cache()
+    # the slabs' phase ledgers (offt_tpu_torch.bench)
+    from offt_tpu_torch.bench import probe_rslab512, probe_slabparts
+    for probe in (probe_slabparts, probe_rslab512):
+        for row in probe.ledger():
+            rate = (f", {row['tb_s']:.3f} TB/s over {row['bytes']} bytes"
+                    if row["bytes"] else "")
+            print(f"probe {row['probe']} {row['phase']}: {row['ms']:.4f} ms, "
+                  f"{row['of_full']:.3f} of full{rate} {tag}", flush=True)
+        torch.cuda.empty_cache()
     # both row kernels at every register-core length n (fft_last at
     # N = n on 2^24 complex elements, rfft_last at M = n on 2^25 real
     # inputs, numpy layout), on the register core and on the dense core:

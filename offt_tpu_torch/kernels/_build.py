@@ -9,7 +9,8 @@ so an edited source builds anew and an unchanged one loads at once.
 Every pointer and the stream pass as ``c_void_p``, a scale as
 ``c_float``; every C entry point returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0. The headers (``fft_core.cuh``, the
-dense core; ``fft_regs.cuh``, the register core) are part of the digest.
+dense core; ``fft_regs.cuh``, the register core; ``regs_kernels.cuh``,
+the kernels on it) are part of the digest.
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ _SIGNATURES = {
     "offt_fft_axis": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _L, _L, _L,
                       _L, _L, _I, _I, _I, _I, _I, _P],
     "offt_fft_slab": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                      _P],
     "offt_rfft_slab": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "offt_irfft_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "offt_assemble_mp1": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],

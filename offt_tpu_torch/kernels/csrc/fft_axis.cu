@@ -24,13 +24,6 @@
 
 namespace offt {
 
-struct AxisGeom {
-  long long nb;         // batch count
-  long long ny, nz;     // lanes = ny * nz
-  long long isb, isn, isy;
-  long long osb, osn, osy;
-};
-
 __global__ void __launch_bounds__(kThreads)
 fft_axis_kernel(const float* xr, const float* xi, float* yr, float* yi,
                 const float2* __restrict__ tab, AxisGeom g, Core c, int T,

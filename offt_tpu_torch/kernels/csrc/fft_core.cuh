@@ -382,6 +382,16 @@ static __device__ void c2r_retangle(float* re, float* im, int T, int TP,
   __syncthreads();
 }
 
+// A strided-axis transform's geometry: the array seen as (B, N, Y, Z),
+// element (b, n, y, z) at b*sb + n*sn + y*sy + z, input and output strides
+// apart (fft_axis.cu; the register core's column variant, cols_c2c).
+struct AxisGeom {
+  long long nb;         // batch count
+  long long ny, nz;     // lanes = ny * nz
+  long long isb, isn, isy;
+  long long osb, osn, osy;
+};
+
 // Dynamic shared memory of a kernel: the tile plus `nroot_total` roots.
 static inline size_t core_smem(size_t tile_elems, int nroot_total) {
   return tile_elems * 2 * sizeof(float) + nroot_total * sizeof(float2);

@@ -8,7 +8,8 @@
 // What bounds it on Hopper: one read and one write of the (B, N) planar
 // pair, 16 bytes per complex element in all.
 // Design, two cores chosen by the wrapper (fused_fft._reg_core):
-// - a power-of-two N in [16, 4096] runs the register core of fft_regs.cuh:
+// - a power-of-two N in [16, 4096] runs the register core of fft_regs.cuh
+//   (regs::rows_c2c in regs_kernels.cuh, rows at pitch N):
 //   P = N/16 threads a row load it straight from device memory (a warp on
 //   consecutive addresses), run its radix-16/8/4/2 Stockham passes in
 //   registers with shared memory only for the exchanges, and store natural
@@ -25,12 +26,9 @@
 // blocks share a row, so the kernel may run in place (x == y).
 
 #include "fft_core.cuh"
-#include "fft_regs.cuh"
+#include "regs_kernels.cuh"
 
 namespace offt {
-
-// rows of fewer threads than this (N < 128) move through a shared stage
-constexpr int kStagedBelow = 8;
 
 __global__ void __launch_bounds__(kThreads)
 fft_last_kernel(const float* xr, const float* xi, float* yr, float* yi,
@@ -51,105 +49,6 @@ fft_last_kernel(const float* xr, const float* xi, float* yr, float* yi,
   store_rows(yr + row0 * n, yi + row0 * n, n, c, T, TP, valid, re, im);
 }
 
-template <int LOG, bool INV>
-__global__ void __launch_bounds__(kThreads, regs::kMinBlocks)
-fft_last_regs(const float* xr, const float* xi, float* yr, float* yi,
-              const float2* __restrict__ tab, long long rows, float scale) {
-  using G = regs::Geo<LOG>;
-  constexpr int N = G::N;
-  extern __shared__ __align__(16) float rsmem[];
-  const int g = threadIdx.x / G::P;
-  const int t = threadIdx.x % G::P;
-  const long long row = (long long)blockIdx.x * G::ROWS + g;
-  const bool valid = row < rows;
-  float* sre = rsmem + g * G::PITCH;
-  float* sim = rsmem + (G::ROWS + g) * G::PITCH;
-  float2 v[regs::kE];
-  if constexpr (G::P >= kStagedBelow) {
-    const long long off = row * N;
-    regs::core<LOG, INV>(v, sre, sim, t, tab, [&](int e) {
-      return valid ? make_float2(xr[off + e], xi[off + e])
-                   : make_float2(0.f, 0.f);
-    });
-    if (!valid) return;
-    regs::outputs<LOG>(v, t, [&](int e, float2 y) {
-      yr[off + e] = y.x * scale;
-      yi[off + e] = y.y * scale;
-    });
-  } else {
-    // rows of so few threads would read and write device memory a whole
-    // row apart: the block's rows, contiguous in device memory, move
-    // through a stage (both planes, row pitch N + 1) with consecutive
-    // threads on consecutive floats
-    constexpr int S = N + 1;
-    float* st = rsmem + (G::NPASS > 1 ? 2 * G::ROWS * G::PITCH : 0);
-    const long long base = (long long)blockIdx.x * G::ROWS * N;
-    const long long left = rows - (long long)blockIdx.x * G::ROWS;
-    const int tot = (left < G::ROWS ? (int)left : G::ROWS) * N;
-    for (int i = threadIdx.x; i < tot; i += kThreads) {
-      const int a = (i >> LOG) * S + (i & (N - 1));
-      st[a] = xr[base + i];
-      st[G::ROWS * S + a] = xi[base + i];
-    }
-    __syncthreads();
-    const float* pr = st + g * S;
-    const float* pi = st + G::ROWS * S + g * S;
-    regs::core<LOG, INV>(v, sre, sim, t, tab, [&](int e) {
-      return make_float2(pr[e], pi[e]);
-    });
-    __syncthreads();  // every row has read its stage
-    regs::outputs<LOG>(v, t, [&](int e, float2 y) {
-      st[g * S + e] = y.x * scale;
-      st[G::ROWS * S + g * S + e] = y.y * scale;
-    });
-    __syncthreads();
-    for (int i = threadIdx.x; i < tot; i += kThreads) {
-      const int a = (i >> LOG) * S + (i & (N - 1));
-      yr[base + i] = st[a];
-      yi[base + i] = st[G::ROWS * S + a];
-    }
-  }
-}
-
-template <int LOG, bool INV>
-static cudaError_t launch_regs(const float* xr, const float* xi, float* yr,
-                               float* yi, const float2* tab, long long rows,
-                               float scale, cudaStream_t stream) {
-  using G = regs::Geo<LOG>;
-  // a single pass (N = 16) exchanges nothing; short rows add the stage
-  const size_t smem =
-      (G::NPASS > 1 ? G::SMEM : 0) +
-      (G::P < kStagedBelow ? 2 * G::ROWS * (G::N + 1) * sizeof(float) : 0);
-  cudaError_t err = allow_smem(fft_last_regs<LOG, INV>, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (rows + G::ROWS - 1) / G::ROWS;
-  fft_last_regs<LOG, INV><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      xr, xi, yr, yi, tab, rows, scale);
-  return cudaGetLastError();
-}
-
-template <bool INV>
-static cudaError_t dispatch_regs(int n, const float* xr, const float* xi,
-                                 float* yr, float* yi, const float2* tab,
-                                 long long rows, float scale,
-                                 cudaStream_t s) {
-  switch (n) {
-    case 16: return launch_regs<4, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    case 32: return launch_regs<5, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    case 64: return launch_regs<6, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    case 128: return launch_regs<7, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    case 256: return launch_regs<8, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    case 512: return launch_regs<9, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    case 1024:
-      return launch_regs<10, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    case 2048:
-      return launch_regs<11, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    case 4096:
-      return launch_regs<12, INV>(xr, xi, yr, yi, tab, rows, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace offt
 
 // reg != 0: the register core (n a power of two in [16, 4096]; the first
@@ -162,10 +61,19 @@ extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
                              void* stream) {
   using namespace offt;
   if (reg) {
-    auto f = inverse ? dispatch_regs<true> : dispatch_regs<false>;
-    return (int)f(n, (const float*)xr, (const float*)xi, (float*)yr,
-                  (float*)yi, (const float2*)tab, rows, scale,
-                  (cudaStream_t)stream);
+    const float* ar = (const float*)xr;
+    const float* ai = (const float*)xi;
+    const float2* tb = (const float2*)tab;
+    cudaStream_t s = (cudaStream_t)stream;
+    return (int)regs::by_log(n, [&](auto lg) {
+      constexpr int LOG = decltype(lg)::value;
+      return inverse ? regs::launch_rows<LOG, true>(ar, ai, (float*)yr,
+                                                    (float*)yi, tb, rows, n,
+                                                    n, scale, s)
+                     : regs::launch_rows<LOG, false>(ar, ai, (float*)yr,
+                                                     (float*)yi, tb, rows, n,
+                                                     n, scale, s);
+    });
   }
   Core c = make_core(n, ns, r0, r1, r2);
   const int TP = T | 1;

@@ -1,5 +1,8 @@
-// fft_regs.cuh: the register-resident Stockham core for contiguous rows of
-// power-of-two length N, 16 <= N <= 4096 (fft_last.cu, rfft_last.cu).
+// fft_regs.cuh: the register-resident Stockham core for lines of
+// power-of-two length N, 16 <= N <= 4096: contiguous rows (fft_last.cu,
+// rfft_last.cu, the z pass of the slabs) and, in its column variant,
+// strided axes (the y pass of fft_slab.cu and rfft_slab.cu). The kernels
+// built on it are in regs_kernels.cuh.
 //
 // Replaces, on those lengths: the dense shared-memory core of fft_core.cuh
 // (itself the port of offt_tpu/kernels/pallas_fft.py _core_apply :428).
@@ -47,6 +50,22 @@
 //   of them the butterflies' f32 adds and multiplies;
 // - 80 registers a thread (__launch_bounds__ with kMinBlocks = 3: no
 //   spills) hold three 256-thread blocks an SM.
+//
+// The column variant (ColGeo, ColLay) runs the same passes on a line
+// whose element e lies at base + e * pitch + lane: the P threads of one
+// line span lanes, not a row. A 256-thread block holds L = 256 / P lanes;
+// thread (t, l) = (tid / L, tid % L), so a warp takes L consecutive lanes
+// of W = 32 / L row threads and every global load and store of a warp
+// moves W runs of L consecutive floats: whole 32-byte sectors while
+// L >= 8 (N <= 512; at N = 512, 8 lanes of one sector), 16, 8 and 4
+// bytes at N = 1024, 2048, 4096. A larger block would keep 8 lanes there
+// but not three blocks an SM at 80 registers; no main path runs a
+// strided line past 512. The exchanges put the lane fastest: element a of
+// lane l at (a + (a div 16)) * L + l. A warp's W row threads access
+// elements a stride 1 or 16 apart (t, or 16 t + r in the first put), so
+// the pad of one slot per 16 elements puts them on distinct groups of L
+// banks: one wavefront each. At L = 1 (N = 4096) a lane is a row and the
+// row map phys, with its float4 writes, serves it.
 
 #pragma once
 
@@ -192,6 +211,43 @@ static __device__ __forceinline__ void row_sync() {
     __syncwarp();
 }
 
+// Where a line's exchange planes keep its element a, and how its threads
+// meet. Rows: the row's own planes at phys(a), synchronised by warp when
+// the row fits one. Columns of L lanes: the lane is the fastest index
+// (the caller's plane pointers carry the lane), and the P threads of a
+// lane lie in P different warps.
+struct RowLay {
+  static constexpr bool kVec4 = true;  // float4 writes in the first pass
+  static __host__ __device__ constexpr int at(int a) { return phys(a); }
+  template <int N>
+  static __device__ __forceinline__ void sync() { row_sync<N>(); }
+};
+
+template <int L>
+struct ColLay {
+  static constexpr bool kVec4 = L == 1;
+  static __host__ __device__ constexpr int at(int a) {
+    return L == 1 ? phys(a) : (a + (a >> 4)) * L;
+  }
+  template <int N>
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+
+// compile-time geometry of the column variant at N = 2^LOG
+template <int LOG>
+struct ColGeo {
+  static constexpr int N = 1 << LOG;
+  static constexpr int P = N / kE;           // threads per lane
+  static constexpr int L = kThreads / P;     // lanes per block
+  using Lay = ColLay<L>;
+  // floats of one plane (all L lanes), a multiple of 4 for float4
+  static constexpr int SIZE = (Lay::at(N - 1) + L + 3) / 4 * 4;
+  static constexpr int NPASS = Geo<LOG>::NPASS;
+  // dynamic shared memory of a block: both planes (none for one pass)
+  static constexpr size_t SMEM =
+      NPASS > 1 ? (size_t)2 * SIZE * sizeof(float) : 0;
+};
+
 // Pass of radix R at stride NS: twiddle and butterfly the thread's
 // kE / R butterflies j = t + q P (inputs v[q R + r] = element j + r N/R).
 template <int N, int R, int NS, bool INV>
@@ -217,19 +273,19 @@ static __device__ __forceinline__ void butterflies(float2* v, int t,
 // splits over these sums (phys(x + c) = phys(x) + phys(c) when c is a
 // multiple of a power of two above x), so each store is the thread's
 // base phys(d) plus a compile-time offset.
-template <int N, int R, int NS>
+template <int N, int R, int NS, typename Lay>
 static __device__ __forceinline__ void put(float* sre, float* sim,
                                            const float2* v, int t) {
   constexpr int P = N / kE;
   unroll<0, kE / R>([&](auto qc) {
     constexpr int Q = decltype(qc)::value * R;
     const int j = t + decltype(qc)::value * P;
-    const int d = phys((j / NS) * NS * R + (j % NS));
-    if constexpr (NS == 1 && R % 4 == 0) {
+    const int d = Lay::at((j / NS) * NS * R + (j % NS));
+    if constexpr (NS == 1 && R % 4 == 0 && Lay::kVec4) {
       // R consecutive elements from d (a multiple of 4): float4 stores
       unroll<0, R / 4>([&](auto c) {
         constexpr int K = Q + 4 * decltype(c)::value;
-        constexpr int OFF = phys(4 * decltype(c)::value);
+        constexpr int OFF = Lay::at(4 * decltype(c)::value);
         *reinterpret_cast<float4*>(sre + d + OFF) =
             make_float4(v[K].x, v[K + 1].x, v[K + 2].x, v[K + 3].x);
         *reinterpret_cast<float4*>(sim + d + OFF) =
@@ -237,7 +293,7 @@ static __device__ __forceinline__ void put(float* sre, float* sim,
       });
     } else {
       unroll<0, R>([&](auto r) {
-        constexpr int OFF = phys(decltype(r)::value * NS);
+        constexpr int OFF = Lay::at(decltype(r)::value * NS);
         sre[d + OFF] = v[Q + decltype(r)::value].x;
         sim[d + OFF] = v[Q + decltype(r)::value].y;
       });
@@ -247,15 +303,15 @@ static __device__ __forceinline__ void put(float* sre, float* sim,
 
 // Read the inputs of a radix-R pass: v[q R + r] = element j + r N/R,
 // at the thread's base phys(j) plus a compile-time offset (see put).
-template <int N, int R>
+template <int N, int R, typename Lay>
 static __device__ __forceinline__ void get(const float* sre, const float* sim,
                                            float2* v, int t) {
   constexpr int P = N / kE;
   unroll<0, kE / R>([&](auto qc) {
     constexpr int Q = decltype(qc)::value * R;
-    const int b = phys(t + decltype(qc)::value * P);
+    const int b = Lay::at(t + decltype(qc)::value * P);
     unroll<0, R>([&](auto r) {
-      constexpr int OFF = phys(decltype(r)::value * (N / R));
+      constexpr int OFF = Lay::at(decltype(r)::value * (N / R));
       v[Q + decltype(r)::value] = make_float2(sre[b + OFF], sim[b + OFF]);
     });
   });
@@ -274,14 +330,15 @@ static __device__ __forceinline__ void each(float2* v, int t, F f) {
   });
 }
 
-// The length-2^LOG DFT of one row held by its P threads; t is the
-// thread's index in the row, (sre, sim) the row's exchange planes.
-// load(e) gives input element e (each exactly once). On return v holds
-// the output, element j + r N/R in v[q R + r] with R = Geo<LOG>::RLAST,
-// j = t + q P (walk it with `outputs`). The row's threads may still be
-// reading the exchange planes: synchronise (row_sync) before writing
-// them again.
-template <int LOG, bool INV, typename Load>
+// The length-2^LOG DFT of one line held by its P threads; t is the
+// thread's index in the line, (sre, sim) the line's exchange planes laid
+// out by Lay (RowLay: a row's own planes; ColLay: the block's planes
+// offset by the lane). load(e) gives input element e (each exactly once).
+// On return v holds the output, element j + r N/R in v[q R + r] with
+// R = Geo<LOG>::RLAST, j = t + q P (walk it with `outputs`). The line's
+// threads may still be reading the exchange planes: synchronise
+// (Lay::sync) before writing them again.
+template <int LOG, bool INV, typename Lay = RowLay, typename Load>
 static __device__ __forceinline__ void core(float2* v, float* sre, float* sim,
                                             int t, const float2* tab,
                                             Load load) {
@@ -290,16 +347,16 @@ static __device__ __forceinline__ void core(float2* v, float* sre, float* sim,
   each<N, 16>(v, t, [&](int e, float2& x) { x = load(e); });
   butterflies<N, 16, 1, INV>(v, t, tab);
   if constexpr (G::NPASS > 1) {
-    put<N, 16, 1>(sre, sim, v, t);
-    row_sync<N>();
-    get<N, G::R1>(sre, sim, v, t);
+    put<N, 16, 1, Lay>(sre, sim, v, t);
+    Lay::template sync<N>();
+    get<N, G::R1, Lay>(sre, sim, v, t);
     butterflies<N, G::R1, 16, INV>(v, t, tab);
   }
   if constexpr (G::NPASS > 2) {
-    row_sync<N>();
-    put<N, 16, 16>(sre, sim, v, t);
-    row_sync<N>();
-    get<N, G::RLAST>(sre, sim, v, t);
+    Lay::template sync<N>();
+    put<N, 16, 16, Lay>(sre, sim, v, t);
+    Lay::template sync<N>();
+    get<N, G::RLAST, Lay>(sre, sim, v, t);
     butterflies<N, G::RLAST, 256, INV>(v, t, tab);
   }
 }

@@ -1,0 +1,429 @@
+// regs_kernels.cuh: the kernels built on the register core of fft_regs.cuh,
+// and their launchers, for power-of-two lengths 16 <= N <= 4096:
+// - rows_c2c: c2c of contiguous rows (fft_last.cu; the z pass of
+//   fft_slab.cu), rows at their own input and output pitch;
+// - rows_r2c: r2c of real rows read as float2 pairs, the M-point core and
+//   the O(M) untangle (rfft_last.cu; the z pass of rfft_slab.cu);
+// - cols_c2c: the column variant, c2c along a strided axis (the y pass of
+//   both slabs), on the (B, N, Y, Z) geometry of fft_axis.cu.
+// - ClusterSlab, cluster_cols: a slab of Y x Z held by a cluster of C
+//   blocks in shared memory, and its y pass (fft_slab.cu, rfft_slab.cu).
+// Each reads all of its line before it writes any of it, and no two
+// blocks share an element, so each may run in place. CORE = false in
+// cluster_cols compiles a cost probe of the slab kernels: the same loads
+// and stores with the transform left out. No main path launches one.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+#include <utility>
+
+#include "fft_core.cuh"
+#include "fft_regs.cuh"
+
+namespace offt {
+namespace regs {
+
+// rows of fewer threads than this (N < 128) move through a shared stage
+constexpr int kStagedBelow = 8;
+
+// f(std::integral_constant<int, LOG>) for n = 2^LOG in [16, 4096]; an
+// error for any other n
+template <int LOG = 4, typename F>
+static cudaError_t by_log(int n, F&& f) {
+  if constexpr (LOG > 12) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (n == (1 << LOG)) return f(std::integral_constant<int, LOG>());
+    return by_log<LOG + 1>(n, std::forward<F>(f));
+  }
+}
+
+template <int LOG, bool INV>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rows_c2c(const float* xr, const float* xi, float* yr, float* yi,
+         const float2* __restrict__ tab, long long rows, long long ipitch,
+         long long opitch, float scale) {
+  using G = Geo<LOG>;
+  constexpr int N = G::N;
+  extern __shared__ __align__(16) float rsmem[];
+  const int g = threadIdx.x / G::P;
+  const int t = threadIdx.x % G::P;
+  const long long row = (long long)blockIdx.x * G::ROWS + g;
+  const bool valid = row < rows;
+  float* sre = rsmem + g * G::PITCH;
+  float* sim = rsmem + (G::ROWS + g) * G::PITCH;
+  float2 v[kE];
+  if constexpr (G::P >= kStagedBelow) {
+    const long long in = row * ipitch, out = row * opitch;
+    core<LOG, INV>(v, sre, sim, t, tab, [&](int e) {
+      return valid ? make_float2(xr[in + e], xi[in + e])
+                   : make_float2(0.f, 0.f);
+    });
+    if (!valid) return;
+    outputs<LOG>(v, t, [&](int e, float2 y) {
+      yr[out + e] = y.x * scale;
+      yi[out + e] = y.y * scale;
+    });
+  } else {
+    // rows of so few threads would read and write device memory a whole
+    // row apart: the block's rows move through a stage (both planes, row
+    // pitch N + 1) with consecutive threads on consecutive floats of a row
+    constexpr int S = N + 1;
+    float* st = rsmem + (G::NPASS > 1 ? 2 * G::ROWS * G::PITCH : 0);
+    const long long row0 = (long long)blockIdx.x * G::ROWS;
+    const long long left = rows - row0;
+    const int tot = (left < G::ROWS ? (int)left : G::ROWS) * N;
+    for (int i = threadIdx.x; i < tot; i += kThreads) {
+      const int a = (i >> LOG) * S + (i & (N - 1));
+      const long long o = (row0 + (i >> LOG)) * ipitch + (i & (N - 1));
+      st[a] = xr[o];
+      st[G::ROWS * S + a] = xi[o];
+    }
+    __syncthreads();
+    const float* pr = st + g * S;
+    const float* pi = st + G::ROWS * S + g * S;
+    core<LOG, INV>(v, sre, sim, t, tab, [&](int e) {
+      return make_float2(pr[e], pi[e]);
+    });
+    __syncthreads();  // every row has read its stage
+    outputs<LOG>(v, t, [&](int e, float2 y) {
+      st[g * S + e] = y.x * scale;
+      st[G::ROWS * S + g * S + e] = y.y * scale;
+    });
+    __syncthreads();
+    for (int i = threadIdx.x; i < tot; i += kThreads) {
+      const int a = (i >> LOG) * S + (i & (N - 1));
+      const long long o = (row0 + (i >> LOG)) * opitch + (i & (N - 1));
+      yr[o] = st[a];
+      yi[o] = st[G::ROWS * S + a];
+    }
+  }
+}
+
+// The r2c untangle of the pair (k, M - k), 0 < k < M, from V = DFT_M(v)
+// in natural order in a row's planes (at phys): X[k] = E - i W^k O and
+// X[M - k], E, O = (V[k] +- conj V[M-k]) / 2, W^k = w[k]; hs = scale / 2.
+template <int M>
+static __device__ __forceinline__ void untangle_pair(
+    const float* sre, const float* sim, const float2* __restrict__ w, int k,
+    float hs, float2& xk, float2& xmk) {
+  const int pa = phys(k), pb = phys(M - k);
+  const float ar = sre[pa], ai = sim[pa];  // V[k]
+  const float br = sre[pb], bi = sim[pb];  // V[M-k]
+  // 2E and 2O; hs restores the halves
+  const float er = ar + br, ei = ai - bi;
+  const float o_r = ar - br, o_i = ai + bi;
+  const float2 wk = __ldg(w + k), wm = __ldg(w + (M - k));
+  xk = make_float2((er + wk.x * o_i + wk.y * o_r) * hs,
+                   (ei - wk.x * o_r + wk.y * o_i) * hs);
+  xmk = make_float2((er + wm.x * o_i - wm.y * o_r) * hs,
+                    (-ei + wm.x * o_r + wm.y * o_i) * hs);
+}
+
+// r2c of real rows of 2M floats: v[j] = x[2j] + i x[2j+1] (one float2,
+// so the input must be 8-byte aligned), the M-point core, then the
+// untangle X[k] = E - i W^k O, E, O = (V[k] +- conj V[M-k]) / 2, W^k =
+// w[k], from V in natural order in the row's planes; times `scale`.
+// packed: M lanes a row at `opitch`, lane 0 = X[0] + i X[M]; else the
+// numpy layout, M + 1 lanes, rows contiguous.
+template <int LOG>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rows_r2c(const float* x, float* yr, float* yi, const float2* __restrict__ tab,
+         const float2* __restrict__ w, long long rows, long long opitch,
+         float scale, int packed) {
+  using G = Geo<LOG>;
+  constexpr int M = G::N;
+  static_assert(G::PITCH >= M + 1, "staged rows fit the exchange planes");
+  extern __shared__ __align__(16) float rsmem[];
+  const int g = threadIdx.x / G::P;
+  const int t = threadIdx.x % G::P;
+  const long long row = (long long)blockIdx.x * G::ROWS + g;
+  const bool valid = row < rows;
+  float* sre = rsmem + g * G::PITCH;
+  float* sim = rsmem + (G::ROWS + g) * G::PITCH;
+  const float2* xrow = reinterpret_cast<const float2*>(x) + row * M;
+  float2 v[kE];
+  core<LOG, false>(v, sre, sim, t, tab, [&](int e) {
+    return valid ? xrow[e] : make_float2(0.f, 0.f);
+  });
+  row_sync<M>();
+  outputs<LOG>(v, t, [&](int e, float2 y) {  // V in natural order
+    const int a = phys(e);
+    sre[a] = y.x;
+    sim[a] = y.y;
+  });
+  row_sync<M>();
+  // untangle the pairs (k, M - k), k = t + i P over [0, M/2), into
+  // registers: lo = X[k], hi = X[M - k] (for k = 0: X[0] + i X[M] packed,
+  // else X[0] and X[M]); thread 0 also takes X[M/2]
+  const float hs = 0.5f * scale;
+  float2 lo[kE / 2], hi[kE / 2], mid;
+  unroll<0, kE / 2>([&](auto ic) {
+    constexpr int I = decltype(ic)::value;
+    const int k = t + I * G::P;
+    if (k == 0) {
+      const float a = sre[0], b = sim[0];  // phys(0) == 0
+      lo[I] = make_float2((a + b) * scale, packed ? (a - b) * scale : 0.f);
+      hi[I] = make_float2((a - b) * scale, 0.f);
+    } else {
+      untangle_pair<M>(sre, sim, w, k, hs, lo[I], hi[I]);
+    }
+  });
+  if (t == 0) untangle_pair<M>(sre, sim, w, M / 2, hs, mid, mid);
+  // stage the block's rows at the odd pitch M + 1 (every row's V has been
+  // read), then copy out the L = M or M + 1 lanes of each: consecutive
+  // threads on consecutive floats of a row, so the block writes whole
+  // sectors although a numpy row (M + 1 floats) is odd
+  const int L = packed ? M : M + 1;
+  float* st_r = rsmem + g * (M + 1);
+  float* st_i = rsmem + G::ROWS * G::PITCH + g * (M + 1);
+  __syncthreads();
+  unroll<0, kE / 2>([&](auto ic) {
+    constexpr int I = decltype(ic)::value;
+    const int k = t + I * G::P;
+    st_r[k] = lo[I].x;
+    st_i[k] = lo[I].y;
+    if (k != 0 || !packed) {
+      st_r[M - k] = hi[I].x;  // k = 0: X[M] at lane M of a numpy row
+      st_i[M - k] = hi[I].y;
+    }
+  });
+  if (t == 0) {
+    st_r[M / 2] = mid.x;
+    st_i[M / 2] = mid.y;
+  }
+  __syncthreads();
+  const long long row0 = (long long)blockIdx.x * G::ROWS;
+  const long long left = rows - row0;
+  const int tot = (left < G::ROWS ? (int)left : G::ROWS) * L;
+  const float* sr = rsmem;
+  const float* si = rsmem + G::ROWS * G::PITCH;
+  for (int i = threadIdx.x; i < tot; i += kThreads) {
+    long long o;
+    int a;
+    if (packed) {
+      a = (i >> LOG) * (M + 1) + (i & (M - 1));
+      o = (row0 + (i >> LOG)) * opitch + (i & (M - 1));
+    } else {
+      a = i;
+      o = row0 * L + i;
+    }
+    yr[o] = sr[a];
+    yi[o] = si[a];
+  }
+}
+
+// The column variant: c2c along the n axis of (B, N, Y, Z), element
+// (b, n, y, z) at b sb + n sn + y sy + z (g: separate input and output
+// strides), one line per lane l = y Z + z; a block takes L consecutive
+// lanes of one b (ColGeo), the ragged last tile masked. Times `scale`.
+template <int LOG, bool INV>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
+         const float2* __restrict__ tab, AxisGeom g, long long tiles,
+         float scale) {
+  using C = ColGeo<LOG>;
+  extern __shared__ __align__(16) float csmem[];
+  const int l = threadIdx.x % C::L;
+  const int t = threadIdx.x / C::L;
+  const long long b = blockIdx.x / tiles;
+  const long long lane = (blockIdx.x - b * tiles) * C::L + l;
+  const bool valid = lane < g.ny * g.nz;
+  const long long y = valid ? lane / g.nz : 0;
+  const long long z = valid ? lane - y * g.nz : 0;
+  const long long in = b * g.isb + y * g.isy + z;
+  const long long out = b * g.osb + y * g.osy + z;
+  float* sre = csmem + l;
+  float* sim = csmem + C::SIZE + l;
+  float2 v[kE];
+  core<LOG, INV, typename C::Lay>(v, sre, sim, t, tab, [&](int e) {
+    const long long o = in + e * g.isn;
+    return valid ? make_float2(xr[o], xi[o]) : make_float2(0.f, 0.f);
+  });
+  if (!valid) return;
+  outputs<LOG>(v, t, [&](int e, float2 w) {
+    const long long o = out + e * g.osn;
+    yr[o] = w.x * scale;
+    yi[o] = w.y * scale;
+  });
+}
+
+// ---- a slab in a cluster's shared memory ----
+// The (Y, Z) slab of one x-row, Y = 2^LY, Z = 2^LZ, held by a cluster of C
+// blocks: block rank b keeps rows [b YB, (b + 1) YB) at pitch SP in its
+// shared memory (both planes), B = YB * Z elements, after the z pass has
+// written them there. Its y pass (cluster_cols) then takes the lanes
+// [b ZB, (b + 1) ZB), reading each line's elements from the blocks that
+// hold them (distributed shared memory), so the slab is read from device
+// memory once and written once. B = 4096 (one row group of the row core,
+// one lane group of the column variant) up to Y Z = 2^15, else 8192 (two
+// of each): C = 8 at 2^16, the portable cluster size (clusters of 16 at
+// B = 4096 were slower at 256^2), and 16 at 2^17 (the 512^3 r2c slab;
+// non-portable, faster than two grids). The row pitch SP = Z + P where a
+// warp of the z pass holds 32 / P rows of P threads (P = Z / 16 < 32), so
+// its row writes fall on distinct banks; else Z + L where a warp of the y
+// pass reads 32 / L rows of L lanes (L < 32). Where both hold and P != L
+// (Y, Z = (256, 128), (512, 256), (1024, 128)) the y reads take two
+// wavefronts.
+template <int LY, int LZ>
+struct ClusterSlab {
+  static constexpr int Y = 1 << LY, Z = 1 << LZ;
+  // the shapes the layout takes (fused_fft._cluster_slab): z rows of at
+  // least 8 threads, y lanes at most 64 a block, 2^14 to 2^17 elements
+  static constexpr bool OK =
+      LZ >= 7 && LY >= 6 && LY + LZ >= 14 && LY + LZ <= 17;
+  static constexpr int B = LY + LZ <= 15 ? 4096 : 8192;
+  static constexpr int C = OK ? (Y * Z) / B : 1;
+  static constexpr int YB = Y / C;
+  static constexpr int ZB = Z / C;
+  static constexpr int SP = Z + (Geo<LZ>::P < 32   ? Geo<LZ>::P
+                                 : ColGeo<LY>::L < 32 ? ColGeo<LY>::L
+                                                      : 0);
+  static constexpr int PLANE = YB * SP;  // floats of one plane
+  static constexpr size_t EX =
+      Geo<LZ>::SMEM > ColGeo<LY>::SMEM ? Geo<LZ>::SMEM : ColGeo<LY>::SMEM;
+  // dynamic shared memory of a block: the slab's planes, then the
+  // exchange planes of the row core and, after it, of the column variant
+  static constexpr size_t SMEM = 2 * PLANE * sizeof(float) + EX;
+  // blocks an SM its 228 KB of shared memory hold (1 KB a block reserved);
+  // the launch bounds' register budget follows
+  static constexpr int MINB = (int)((228 << 10) / (SMEM + 1024));
+};
+
+// Element at shared-memory address `a` (a 32-bit shared window offset)
+// of the cluster's block `rank`: distributed shared memory through 32-bit
+// addresses (a generic pointer per element costs two registers).
+static __device__ __forceinline__ float ld_cluster(unsigned a,
+                                                   unsigned rank) {
+  unsigned r;
+  float v;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(r));
+  return v;
+}
+
+// The y pass of a slab held in a cluster (ClusterSlab): the block of rank
+// `rank` runs lanes [rank ZB, (rank + 1) ZB) of the Y lines, ColGeo L at a
+// time, on the column variant, reading element y of a line from the block
+// that holds row y and writing the output to (yr, yi) + y * opitch + z,
+// times `scale`. `ex`: the block's exchange planes. The caller syncs the
+// cluster before (the slab is whole) and after (no block leaves while
+// another reads its slab).
+template <int LY, int LZ, bool INV, bool CORE>
+static __device__ __forceinline__ void cluster_cols(
+    float* slab_re, float* slab_im, float* ex, const float2* tab, float* yr,
+    float* yi, long long opitch, float scale, int rank) {
+  using S = ClusterSlab<LY, LZ>;
+  using C = ColGeo<LY>;
+  const int l = threadIdx.x % C::L;
+  const int t = threadIdx.x / C::L;
+  float* sre = ex + l;
+  float* sim = ex + C::SIZE + l;
+  float2 v[kE];
+  const unsigned re0 = (unsigned)__cvta_generic_to_shared(slab_re);
+  const unsigned im0 = (unsigned)__cvta_generic_to_shared(slab_im);
+  for (int z0 = rank * S::ZB; z0 < (rank + 1) * S::ZB; z0 += C::L) {
+    const int z = z0 + l;
+    auto load = [&](int e) {
+      const unsigned at = 4u * ((e % S::YB) * S::SP + z);
+      return make_float2(ld_cluster(re0 + at, e / S::YB),
+                         ld_cluster(im0 + at, e / S::YB));
+    };
+    auto store = [&](int e, float2& w) {
+      yr[e * opitch + z] = w.x * scale;
+      yi[e * opitch + z] = w.y * scale;
+    };
+    if constexpr (CORE) {
+      core<LY, INV, typename C::Lay>(v, sre, sim, t, tab, load);
+      outputs<LY>(v, t, store);
+    } else {
+      each<C::N, kE>(v, t, [&](int e, float2& x) { x = load(e); });
+      each<C::N, kE>(v, t, store);
+    }
+    __syncthreads();  // every lane has read the exchange planes
+  }
+}
+
+// Launch a cluster-slab kernel: `rows` x-rows, C blocks each.
+template <typename S, typename K, typename... Args>
+static cudaError_t launch_cluster(K kernel, long long rows,
+                                  cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, S::SMEM);
+  if (err != cudaSuccess) return err;
+  if (S::C > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * S::C));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S::C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---- launchers (dynamic shared memory raised past 48 KB where needed) ----
+
+template <int LOG, bool INV>
+static cudaError_t launch_rows(const float* xr, const float* xi, float* yr,
+                               float* yi, const float2* tab, long long rows,
+                               long long ipitch, long long opitch,
+                               float scale, cudaStream_t stream) {
+  using G = Geo<LOG>;
+  // a single pass (N = 16) exchanges nothing; short rows add the stage
+  const size_t smem =
+      (G::NPASS > 1 ? G::SMEM : 0) +
+      (G::P < kStagedBelow ? 2 * G::ROWS * (G::N + 1) * sizeof(float) : 0);
+  cudaError_t err = allow_smem(rows_c2c<LOG, INV>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (rows + G::ROWS - 1) / G::ROWS;
+  rows_c2c<LOG, INV><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      xr, xi, yr, yi, tab, rows, ipitch, opitch, scale);
+  return cudaGetLastError();
+}
+
+template <int LOG>
+static cudaError_t launch_rows_r2c(const float* x, float* yr, float* yi,
+                                   const float2* tab, const float2* w,
+                                   long long rows, long long opitch,
+                                   float scale, int packed,
+                                   cudaStream_t stream) {
+  using G = Geo<LOG>;
+  cudaError_t err = allow_smem(rows_r2c<LOG>, G::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (rows + G::ROWS - 1) / G::ROWS;
+  rows_r2c<LOG><<<(unsigned)blocks, kThreads, G::SMEM, stream>>>(
+      x, yr, yi, tab, w, rows, opitch, scale, packed);
+  return cudaGetLastError();
+}
+
+template <int LOG, bool INV>
+static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
+                               float* yi, const float2* tab,
+                               const AxisGeom& g, float scale,
+                               cudaStream_t stream) {
+  using C = ColGeo<LOG>;
+  cudaError_t err = allow_smem(cols_c2c<LOG, INV>, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (g.ny * g.nz + C::L - 1) / C::L;
+  cols_c2c<LOG, INV><<<(unsigned)(tiles * g.nb), kThreads, C::SMEM,
+                       stream>>>(xr, xi, yr, yi, tab, g, tiles, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace regs
+}  // namespace offt

@@ -16,7 +16,8 @@
 // What bounds it on Hopper: 8 bytes read (one sample pair) and 8 written
 // (one planar complex value) per output lane.
 // Design, two cores chosen by the wrapper (fused_fft._reg_core(M)):
-// - M a power of two in [16, 4096]: the register core of fft_regs.cuh.
+// - M a power of two in [16, 4096]: the register core of fft_regs.cuh
+//   (regs::rows_r2c in regs_kernels.cuh, packed rows at pitch M).
 //   Its first pass reads the float2 pairs straight into registers (a warp
 //   on consecutive pairs); its last pass writes V in natural order to the
 //   row's shared planes; after one barrier each thread owns pairs
@@ -32,7 +33,7 @@
 // must be 8-byte aligned (the wrapper checks).
 
 #include "fft_core.cuh"
-#include "fft_regs.cuh"
+#include "regs_kernels.cuh"
 
 namespace offt {
 
@@ -81,115 +82,6 @@ rfft_last_kernel(const float* x, float* yr, float* yi,
   }
 }
 
-template <int LOG>
-__global__ void __launch_bounds__(kThreads, regs::kMinBlocks)
-rfft_last_regs(const float* x, float* yr, float* yi,
-               const float2* __restrict__ tab,
-               const float2* __restrict__ w, long long rows, float scale,
-               int packed) {
-  using G = regs::Geo<LOG>;
-  constexpr int M = G::N;
-  static_assert(G::PITCH >= M + 1, "staged rows fit the exchange planes");
-  extern __shared__ __align__(16) float rsmem[];
-  const int g = threadIdx.x / G::P;
-  const int t = threadIdx.x % G::P;
-  const long long row = (long long)blockIdx.x * G::ROWS + g;
-  const bool valid = row < rows;
-  float* sre = rsmem + g * G::PITCH;
-  float* sim = rsmem + (G::ROWS + g) * G::PITCH;
-  const float2* xrow = reinterpret_cast<const float2*>(x) + row * M;
-  float2 v[regs::kE];
-  regs::core<LOG, false>(v, sre, sim, t, tab, [&](int e) {
-    return valid ? xrow[e] : make_float2(0.f, 0.f);
-  });
-  regs::row_sync<M>();
-  regs::outputs<LOG>(v, t, [&](int e, float2 y) {
-    const int a = regs::phys(e);
-    sre[a] = y.x;
-    sim[a] = y.y;
-  });
-  regs::row_sync<M>();
-  // untangle the pairs (k, M - k), k = t + i P over [0, M/2), into
-  // registers: lo = X[k], hi = X[M - k] (for k = 0: X[0] + i X[M] packed,
-  // else X[0] and X[M]); thread 0 also takes X[M/2]
-  const float hs = 0.5f * scale;
-  float2 lo[regs::kE / 2], hi[regs::kE / 2], mid;
-  auto untangle = [&](int k, float2& xk, float2& xmk) {
-    const int pa = regs::phys(k), pb = regs::phys(M - k);
-    const float ar = sre[pa], ai = sim[pa];  // V[k]
-    const float br = sre[pb], bi = sim[pb];  // V[M-k]
-    // 2E and 2O; hs = scale / 2 restores the halves
-    const float er = ar + br, ei = ai - bi;
-    const float o_r = ar - br, o_i = ai + bi;
-    const float2 wk = __ldg(w + k), wm = __ldg(w + (M - k));
-    xk = make_float2((er + wk.x * o_i + wk.y * o_r) * hs,
-                     (ei - wk.x * o_r + wk.y * o_i) * hs);
-    xmk = make_float2((er + wm.x * o_i - wm.y * o_r) * hs,
-                      (-ei + wm.x * o_r + wm.y * o_i) * hs);
-  };
-  regs::unroll<0, regs::kE / 2>([&](auto ic) {
-    constexpr int I = decltype(ic)::value;
-    const int k = t + I * G::P;
-    if (k == 0) {
-      const float a = sre[0], b = sim[0];  // phys(0) == 0
-      lo[I] = make_float2((a + b) * scale, packed ? (a - b) * scale : 0.f);
-      hi[I] = make_float2((a - b) * scale, 0.f);
-    } else {
-      untangle(k, lo[I], hi[I]);
-    }
-  });
-  if (t == 0) untangle(M / 2, mid, mid);
-  // stage the block's rows at the odd pitch M + 1 (every row's V has been
-  // read), then copy out the L = M or M + 1 lanes of each: the rows lie
-  // contiguous in device memory, so the block writes whole sectors
-  // although a numpy row (M + 1 floats) is odd
-  const int L = packed ? M : M + 1;
-  float* st_r = rsmem + g * (M + 1);
-  float* st_i = rsmem + G::ROWS * G::PITCH + g * (M + 1);
-  __syncthreads();
-  regs::unroll<0, regs::kE / 2>([&](auto ic) {
-    constexpr int I = decltype(ic)::value;
-    const int k = t + I * G::P;
-    st_r[k] = lo[I].x;
-    st_i[k] = lo[I].y;
-    if (k != 0 || !packed) {
-      st_r[M - k] = hi[I].x;  // k = 0: X[M] at lane M of a numpy row
-      st_i[M - k] = hi[I].y;
-    }
-  });
-  if (t == 0) {
-    st_r[M / 2] = mid.x;
-    st_i[M / 2] = mid.y;
-  }
-  __syncthreads();
-  const long long row0 = (long long)blockIdx.x * G::ROWS;
-  const long long left = rows - row0;
-  const int tot = (left < G::ROWS ? (int)left : G::ROWS) * L;
-  float* outr = yr + row0 * L;
-  float* outi = yi + row0 * L;
-  const float* sr = rsmem;
-  const float* si = rsmem + G::ROWS * G::PITCH;
-  for (int i = threadIdx.x; i < tot; i += kThreads) {
-    const int a = packed ? (i >> LOG) * (M + 1) + (i & (M - 1)) : i;
-    outr[i] = sr[a];
-    outi[i] = si[a];
-  }
-}
-
-template <int LOG>
-static cudaError_t launch_regs(const float* x, float* yr, float* yi,
-                               const float2* tab, const float2* w,
-                               long long rows, float scale, int packed,
-                               cudaStream_t stream) {
-  using G = regs::Geo<LOG>;
-  cudaError_t err = allow_smem(rfft_last_regs<LOG>, G::SMEM);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (rows + G::ROWS - 1) / G::ROWS;
-  rfft_last_regs<LOG><<<(unsigned)blocks, kThreads, G::SMEM, stream>>>(
-      x, yr, yi, tab, w, rows, scale, packed);
-  return cudaGetLastError();
-}
-
 }  // namespace offt
 
 // reg != 0: the register core (m a power of two in [16, 4096]; the first
@@ -208,18 +100,10 @@ extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
   float* o_i = (float*)yi;
   cudaStream_t s = (cudaStream_t)stream;
   if (reg) {
-    switch (m) {
-      case 16: return (int)launch_regs<4>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      case 32: return (int)launch_regs<5>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      case 64: return (int)launch_regs<6>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      case 128: return (int)launch_regs<7>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      case 256: return (int)launch_regs<8>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      case 512: return (int)launch_regs<9>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      case 1024: return (int)launch_regs<10>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      case 2048: return (int)launch_regs<11>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      case 4096: return (int)launch_regs<12>(xf, o_r, o_i, tb, wt, rows, scale, packed, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)regs::by_log(m, [&](auto lg) {
+      return regs::launch_rows_r2c<decltype(lg)::value>(
+          xf, o_r, o_i, tb, wt, rows, m, scale, packed, s);
+    });
   }
   if (T < 1) return (int)cudaErrorInvalidValue;
   Core c = make_core(m, ns, r0, r1, r2);

@@ -33,8 +33,13 @@ calls (``fn.plain_calls``); :func:`reset_counts` zeroes them. Each
 wrapper is listed by name in ``WRAPPERS`` as it is defined. The two
 last-axis row kernels (``fft_last``, ``rfft_last_planar``) run the
 register core of ``csrc/fft_regs.cuh`` on the lengths :func:`_reg_core`
-admits and the dense core of ``csrc/fft_core.cuh`` on the rest; of their
-launches, ``fn.reg_launches`` took the register core.
+admits, the two slab kernels (``fft_slab_yz``, ``rfft_slab_yz``) on the
+slabs :func:`_reg_slab` admits (z on its rows, y on its column variant:
+in one grid of clusters holding the slab in shared memory where
+:func:`_cluster_slab` admits it, else in two grids), and all four the
+dense core of ``csrc/fft_core.cuh`` on the rest; of their launches,
+``fn.reg_launches`` took the register core. A launch is one call of the
+kernel's C entry point.
 
 ``precision`` is accepted everywhere for parity with the reference and
 ignored: every stage computes in f32 FMA on the card (the bf16 stacked
@@ -201,6 +206,46 @@ def _reg_core(n: int) -> bool:
     a power of two in [16, 4096]. Every other length takes the dense
     core. The register core ignores the radices and the rows per block."""
     return 16 <= n <= 4096 and n & (n - 1) == 0
+
+
+def _reg_slab(ny: int, nz: int) -> bool:
+    """Whether a slab kernel (``fft_slab_yz`` on (ny, nz),
+    ``rfft_slab_yz`` on (ny, M = N/2)) launches the register core: z as
+    rows, y on the column variant, both powers of two in [16, 4096]. Every
+    other slab takes the dense core. The register slab ignores the radices
+    and the tiles."""
+    return all(16 <= n <= 4096 and n & (n - 1) == 0 for n in (ny, nz))
+
+
+def _cluster_slab(ny: int, nz: int) -> bool:
+    """Whether a register slab (ny, nz) runs in one grid of clusters
+    that hold each x-row's slab in shared memory (``ClusterSlab`` in
+    ``csrc/regs_kernels.cuh``: 2^14 to 2^17 elements, nz >= 128, ny >=
+    64; clusters of up to 16 blocks), reading it from device memory once
+    and writing it once; other register slabs run two grids, the z rows
+    and then the y lines in place."""
+    return (_reg_slab(ny, nz) and nz >= 128 and ny >= 64
+            and 1 << 14 <= ny * nz <= 1 << 17)
+
+
+# the register slabs' cost probes (``phases``) and their codes in
+# csrc/fft_slab.cu and csrc/rfft_slab.cu; "grids" runs the two-grid
+# layout where the cluster one would run
+_SLAB_PHASES = {"full": 0, "zonly": 1, "yonly": 2, "copy": 3, "fused": 5,
+                "grids": 0}
+_RSLAB_PHASES = {"full": 0, "noy": 1, "copy": 3, "nount": 4, "grids": 0}
+
+
+def _phase_code(table: dict, phases: str, mode: str, reg: bool) -> int:
+    """The C code of a slab's ``phases``. Anything but "full" is a cost
+    probe of the register-core kernel on the card (``bench/``): it raises
+    for a plain version or the dense core."""
+    if phases not in table:
+        raise ValueError(f"phases {phases!r}: one of {sorted(table)}")
+    if phases != "full" and (mode != "kernel" or not reg):
+        raise ValueError(f"phases {phases!r} probe the register-core "
+                         "kernel on a CUDA device")
+    return table[phases]
 
 
 def _pick_lane_tile(lanes: int, target: int) -> int:
@@ -610,17 +655,29 @@ def _sublane_nd(mode, xr, xi, axis, n, stages, inverse, scale, alias, block,
 def fft_slab_yz(mode, xr, xi, inverse: bool = False, rad_y=None, rad_z=None,
                 precision: str = DEFAULT_PRECISION, zpad: int = 0,
                 z_true: int = 0, scale: float = 1.0, block_rows: int = 0,
-                alias: bool = False, tables=None):
-    """c2c along the last TWO axes of planar (..., Y, Z) float32 tensors in
-    one launch (kernel ``csrc/fft_slab.cu``): z, then y, per x-row.
+                alias: bool = False, tables=None, phases: str = "full"):
+    """c2c along the last TWO axes of planar (..., Y, Z) float32 tensors
+    (kernel ``csrc/fft_slab.cu``): z, then y, per x-row.
 
     ``zpad`` appends that many pad lanes to each output row, allocated
     with ``torch.empty`` and never written; the result has trailing shape
     (Y, Z + zpad). ``z_true`` declares that the input's rows carry pad
-    lanes past ``z_true`` to skip. ``scale`` rides the y tables.
-    ``alias=True`` (no pad either side) writes over the inputs.
-    ``block_rows`` is accepted for parity and ignored: one CUDA block
-    owns one x-row."""
+    lanes past ``z_true`` to skip. ``alias=True`` (no pad either side)
+    writes over the inputs. ``block_rows`` is accepted for parity and
+    ignored.
+
+    On Y and Z powers of two in [16, 4096] (:func:`_reg_slab`) the kernel
+    runs the register core: the z rows, then the y lines on the column
+    variant, in one grid of clusters holding the slab in shared memory
+    (:func:`_cluster_slab`) or in two grids through the output; ``scale``
+    is applied at the y store and the radices do not shape it. Other
+    slabs run the dense core in one grid, a block per x-row, ``scale``
+    riding the y tables. The plain version is the dense core's arithmetic
+    on every slab. ``phases`` other than "full" are cost probes of the
+    register core at Y = Z = 256, forward (``_SLAB_PHASES``;
+    ``bench/probe_slabparts.py``): of the cluster layout "zonly", "yonly"
+    and "copy"; "grids" (the two-grid layout) and "fused" (one block per
+    x-row, the slab read back from the output)."""
     if alias and (zpad or z_true):
         raise ValueError("alias requires identical in/out layouts")
     ny, nz_in = xr.shape[-2], xr.shape[-1]
@@ -657,6 +714,7 @@ def fft_slab_yz(mode, xr, xi, inverse: bool = False, rad_y=None, rad_z=None,
         return yr, yi
     p = math.prod(lead)
     if mode == "plain":
+        _phase_code(_SLAB_PHASES, phases, mode, False)
         fft_slab_yz.plain_calls += 1
         ar, ai = _core_plain(xr[..., :nz], xi[..., :nz], tabz, nz, sz)
         ar, ai = _core_plain(ar.transpose(-1, -2), ai.transpose(-1, -2),
@@ -664,15 +722,20 @@ def fft_slab_yz(mode, xr, xi, inverse: bool = False, rad_y=None, rad_z=None,
         yr[..., :nz].copy_(ar.transpose(-1, -2))
         yi[..., :nz].copy_(ai.transpose(-1, -2))
         return yr, yi
+    reg = _reg_slab(ny, nz)
+    code = _phase_code(_SLAB_PHASES, phases, mode, reg)
     if p * ny * nz == 0:
         return yr, yi
     roots = sum(sz) + sum(sy)
-    tz = _rows_tile(nz, 0, roots)
-    ty = _cols_tile(ny, 0, roots)
+    tz, ty = (0, 0) if reg else (_rows_tile(nz, 0, roots),
+                                 _cols_tile(ny, 0, roots))
+    cluster = _cluster_slab(ny, nz) and phases != "grids"
     _launch("offt_fft_slab", (xr, xi, yr, yi), (tabz, taby),
             [p, ny, nz, nz_in, nz + zpad, *_radix_args(sz),
-             *_radix_args(sy), tz, ty])
+             *_radix_args(sy), tz, ty, int(inverse), float(scale), int(reg),
+             int(cluster), code])
     fft_slab_yz.launches += 1
+    fft_slab_yz.reg_launches += reg
     return yr, yi
 
 
@@ -763,13 +826,24 @@ def _retangle_plain(xr, xi, ab):
 @_dispatching(arity=1)
 def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
                  precision: str = DEFAULT_PRECISION, zpad: int = 0,
-                 block_rows: int = 0, tables=None):
-    """r2c along z, then c2c along y, of real (..., Y, N) float32 in one
-    launch (kernel ``csrc/rfft_slab.cu``): the packed planar half-spectrum
+                 block_rows: int = 0, tables=None, phases: str = "full"):
+    """r2c along z, then c2c along y, of real (..., Y, N) float32 (kernel
+    ``csrc/rfft_slab.cu``): the packed planar half-spectrum
     (..., Y, M + zpad), M = N/2, whose plane 0 carries X[0] + i X[M].
     Unscaled. The ``zpad`` pad lanes are allocated and never written;
-    ``block_rows`` is accepted for parity and ignored (one CUDA block owns
-    one x-row)."""
+    ``block_rows`` is accepted for parity and ignored.
+
+    On Y and M powers of two in [16, 4096] (:func:`_reg_slab`) the kernel
+    runs the register core: the r2c rows (float2 pairs, the M-point core,
+    the untangle), then the y lines on the column variant, in one grid of
+    clusters holding the slab in shared memory (:func:`_cluster_slab` of
+    (Y, M)) or in two grids through the output; the radices do not shape
+    it. Other slabs run the dense core in one grid, a block per x-row.
+    The plain version is the dense core's arithmetic on every slab.
+    ``phases`` other than "full" are cost probes of the register core's
+    cluster layout at Y = 512, M = 256 (``_RSLAB_PHASES``;
+    ``bench/probe_rslab512.py``): "noy", "nount" and "copy"; "grids" runs
+    the two-grid layout where the cluster one would run."""
     ny, n = x.shape[-2], x.shape[-1]
     if n % 2:
         raise ValueError(f"rfft slab needs an even N, got {n}")
@@ -787,6 +861,7 @@ def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
         return yr, yi
     p = math.prod(lead)
     if mode == "plain":
+        _phase_code(_RSLAB_PHASES, phases, mode, False)
         rfft_slab_yz.plain_calls += 1
         v = x.reshape(*lead, ny, m, 2)
         ar, ai = _core_plain(v[..., 0], v[..., 1], tabz, m, sz)
@@ -796,17 +871,22 @@ def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
         yr[..., :m].copy_(ar.transpose(-1, -2))
         yi[..., :m].copy_(ai.transpose(-1, -2))
         return yr, yi
+    reg = _reg_slab(ny, m)
+    code = _phase_code(_RSLAB_PHASES, phases, mode, reg)
     if p * ny * m == 0:
         return yr, yi
     if x.data_ptr() % 8:
         # the kernel reads (x[2j], x[2j+1]) as one float2
         raise ValueError("rfft_slab_yz needs an 8-byte aligned input")
     roots = sum(sz) + sum(sy)
-    tz = _rows_tile(m, 0, roots)
-    ty = _cols_tile(ny, 0, roots)
+    tz, ty = (0, 0) if reg else (_rows_tile(m, 0, roots),
+                                 _cols_tile(ny, 0, roots))
+    cluster = _cluster_slab(ny, m) and phases != "grids"
     _launch("offt_rfft_slab", (x, yr, yi), (tabz, taby, w),
-            [p, ny, m, m + zpad, *_radix_args(sz), *_radix_args(sy), tz, ty])
+            [p, ny, m, m + zpad, *_radix_args(sz), *_radix_args(sy), tz, ty,
+             int(reg), int(cluster), code])
     rfft_slab_yz.launches += 1
+    rfft_slab_yz.reg_launches += reg
     return yr, yi
 
 

@@ -1,21 +1,27 @@
 """The register core's pass schedule, replayed with torch ops on the CPU.
 
-``csrc/fft_regs.cuh`` runs a length-n row (n a power of two in
+``csrc/fft_regs.cuh`` runs a length-n line (n a power of two in
 [16, 4096]) as radix-R Stockham passes on P = n / 16 threads of 16
-complex values each. No CPU can run that kernel, so the tests hold this
+complex values each, as a contiguous row (``fft_last``, ``rfft_last``,
+the slabs' z pass) or, in its column variant, along a strided axis (the
+slabs' y pass). No CPU can run that kernel, so the tests hold this
 replay of it against numpy and the JAX reference: the same pass radices
 and strides (:func:`passes`), the same twiddle indices into the first n
 rows of ``tables.core_table`` and the same input gathers and output
-scatters (:func:`pass_maps`), and the same shared-memory geometry
-(:func:`geometry`, :func:`phys`, with :func:`bank_ways` counting the
-exchanges' bank conflicts). The butterflies are the R-point DFT in f32
-(the kernel's radix-2 network computes the same function in another
-rounding order). What the kernels do around the core only moves values:
-``rfft_last`` stages a block's output rows back in the exchange planes to
-copy them out whole, and ``fft_last`` moves rows of fewer than 8 threads
-(N < 128) in and out through a stage; neither is replayed here. The
-package's own routes never call this module: on the CPU the kernel
-wrappers run their plain versions.
+scatters (:func:`pass_maps`), and the same shared-memory geometry of
+rows (:func:`geometry`, :func:`phys`) and columns (:func:`col_geometry`,
+:func:`col_at`), with :func:`bank_ways` and :func:`col_bank_ways`
+counting the exchanges' bank conflicts; and the slab a cluster of blocks
+holds in shared memory (:func:`cluster_geometry`, :func:`cluster_ways`). The butterflies are the R-point
+DFT in f32 (the kernel's radix-2 network computes the same function in
+another rounding order). The two register slabs are replayed as their
+grids run: :func:`fft_slab` (z rows, then y columns in place) and
+:func:`rfft_slab` (r2c rows, then y columns). What the kernels do around
+the core only moves values: ``rfft_last`` stages a block's output rows
+back in the exchange planes to copy them out whole, and ``fft_last``
+moves rows of fewer than 8 threads (N < 128) in and out through a stage;
+neither is replayed here. The package's own routes never call this
+module: on the CPU the kernel wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -131,6 +137,78 @@ def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False):
     return yr, yi
 
 
+def col_at(n: int, a):
+    """Offset, in a column block's exchange plane, of element a of lane 0
+    (lane l adds l): the lane is the fastest index, one pad slot per 16
+    elements; at one lane a block (n = 4096) a lane is a row, at phys."""
+    lanes = THREADS // (n // E)
+    if lanes == 1:
+        return phys(a)
+    return (a + (a >> 4)) * lanes
+
+
+def col_geometry(n: int) -> dict:
+    """The block geometry of ``regs::ColGeo``: threads per lane P, lanes
+    per block L (thread (t, l) = (tid // L, tid % L)), row threads per warp
+    W, one plane's floats SIZE (a multiple of 4) and the block's dynamic
+    shared memory in bytes (none for one pass)."""
+    sched = passes(n)
+    p = n // E
+    lanes = THREADS // p
+    size = (int(col_at(n, n - 1)) + lanes + 3) // 4 * 4
+    return {"P": p, "L": lanes, "W": max(1, 32 // lanes), "SIZE": size,
+            "SMEM": 2 * size * 4 if len(sched) > 1 else 0}
+
+
+def cluster_geometry(ny: int, nz: int) -> dict:
+    """The geometry of ``regs::ClusterSlab`` for a (Y, Z) slab the layout
+    takes (``fused_fft._cluster_slab``): elements a block B, blocks a
+    cluster C, rows YB and y lanes ZB a block, the slab's row pitch SP,
+    the block's dynamic shared memory in bytes and the blocks an SM it
+    leaves room for."""
+    ly, lz = ny.bit_length() - 1, nz.bit_length() - 1
+    if not (lz >= 7 and ly >= 6 and 14 <= ly + lz <= 17 and ny == 1 << ly
+            and nz == 1 << lz and ny <= 4096 and nz <= 4096):
+        raise ValueError(f"no cluster layout for the slab ({ny}, {nz})")
+    b = 4096 if ly + lz <= 15 else 8192
+    c = ny * nz // b
+    pz, lanes = nz // E, col_geometry(ny)["L"]
+    sp = nz + (pz if pz < 32 else lanes if lanes < 32 else 0)
+    ex = max(geometry(nz)["SMEM"], col_geometry(ny)["SMEM"])
+    smem = 2 * (ny // c) * sp * 4 + ex
+    return {"B": b, "C": c, "YB": ny // c, "ZB": nz // c, "SP": sp,
+            "SMEM": smem, "MINB": (228 << 10) // (smem + 1024)}
+
+
+def cluster_ways(ny: int, nz: int) -> dict:
+    """Wavefronts per warp instruction on the cluster slab's planes:
+    "z put", the row core's output writes of the z rows (P_z threads a
+    row, 32 / P_z rows a warp) into the block's slab, and "y get", the
+    column variant's first-pass reads of a block's lanes (L lanes of
+    32 / L row threads a warp, element y of lane z at (y mod YB) SP + z
+    in the block of rank y div YB)."""
+    g = cluster_geometry(ny, nz)
+    lanes = np.arange(THREADS)
+    pz = nz // E
+    row, t = lanes // pz, lanes % pz
+    r, ns = passes(nz)[-1]
+    put = max(_ways((row * g["SP"] + t + q * pz + k * (nz // r))
+                    .reshape(-1, 32).tolist())
+              for q in range(E // r) for k in range(r))
+    cg = col_geometry(ny)
+    lane, ty = lanes % cg["L"], lanes // cg["L"]
+    get = 1
+    for k in range(E):
+        e = ty + k * cg["P"]
+        rank, at = e // g["YB"], (e % g["YB"]) * g["SP"] + lane
+        for w in range(THREADS // 32):
+            sel = slice(32 * w, 32 * w + 32)
+            # a warp's addresses on each block it reads, banked per block
+            for rk in set(rank[sel].tolist()):
+                get = max(get, _ways([at[sel][rank[sel] == rk].tolist()]))
+    return {"z put": put, "y get": get}
+
+
 def _ways(groups, banks: int = BANKS) -> int:
     """Shared-memory wavefronts of one warp instruction: over the groups
     of lanes served together, the most distinct addresses on one bank (one
@@ -144,42 +222,59 @@ def _ways(groups, banks: int = BANKS) -> int:
     return worst
 
 
-def bank_ways(n: int) -> dict:
+def _exchange_ways(n: int, t, addr, vec4: bool) -> dict:
     """{(pass, "put" or "get"): the worst wavefronts per warp instruction}
-    of the core's exchanges, from the block geometry and :func:`pass_maps`:
-    the writes of each pass but the last (16-byte stores on the first
-    pass, served by quarter-warps on the 8 groups of 4 banks; scalar by
-    whole warps after it) and the reads of each pass but the first. 1
-    means free of bank conflicts."""
-    g = geometry(n)
-    p, pitch = g["P"], g["PITCH"]
-    lanes = np.arange(THREADS)
-    row, t = lanes // p, lanes % p
+    of the core's exchanges for the block's threads (``t``: each one's
+    index in its line; ``addr(a)``: each one's float address of its line's
+    element a): the writes of each pass but the last (with ``vec4``
+    16-byte stores on the first pass, served by quarter-warps on the 8
+    groups of 4 banks; else scalar by whole warps) and the reads of each
+    pass but the first. 1 means free of bank conflicts."""
+    p = n // E
     out = {}
     sched = passes(n)
     for i, (r, ns) in enumerate(sched):
         nb = E // r
         if i > 0:
             out[(i, "get")] = max(
-                _ways((row * pitch + phys(t + q * p + k * (n // r)))
-                      .reshape(-1, 32).tolist())
+                _ways(addr(t + q * p + k * (n // r)).reshape(-1, 32).tolist())
                 for q in range(nb) for k in range(r))
         if i < len(sched) - 1:
             worst = 1
             for q in range(nb):
                 j = t + q * p
                 d = (j // ns) * ns * r + j % ns
-                if ns == 1:
+                if ns == 1 and vec4:
                     for k in range(0, r, 4):
-                        chunk = (row * pitch + phys(d + k)) // 4
+                        chunk = addr(d + k) // 4
                         worst = max(worst, _ways(chunk.reshape(-1, 8)
                                                  .tolist(), BANKS // 4))
                 else:
                     for k in range(r):
-                        a = row * pitch + phys(d + k * ns)
-                        worst = max(worst, _ways(a.reshape(-1, 32).tolist()))
+                        worst = max(worst, _ways(addr(d + k * ns)
+                                                 .reshape(-1, 32).tolist()))
             out[(i, "put")] = worst
     return out
+
+
+def bank_ways(n: int) -> dict:
+    """The row core's exchanges (:func:`_exchange_ways`): a block of
+    256 / P rows, each in its own planes at pitch PITCH."""
+    g = geometry(n)
+    p, pitch = g["P"], g["PITCH"]
+    lanes = np.arange(THREADS)
+    row, t = lanes // p, lanes % p
+    return _exchange_ways(n, t, lambda a: row * pitch + phys(a), True)
+
+
+def col_bank_ways(n: int) -> dict:
+    """The column variant's exchanges (:func:`_exchange_ways`): a block of
+    L lanes, thread (t, l) = (tid // L, tid % L), element a of lane l at
+    col_at(a) + l; float4 writes only at one lane a block."""
+    g = col_geometry(n)
+    lanes = np.arange(THREADS)
+    lane, t = lanes % g["L"], lanes // g["L"]
+    return _exchange_ways(n, t, lambda a: col_at(n, a) + lane, g["L"] == 1)
 
 
 def flops(n: int) -> int:
@@ -198,3 +293,50 @@ def flops(n: int) -> int:
             half //= 2
         total += (n // r) * (net + (6 * (r - 1) if ns > 1 else 0))
     return total
+
+
+def fft_cols(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
+             dim: int = -2):
+    """The column variant's c2c along ``dim`` of a planar f32 pair: the
+    row core's passes on each line, its lanes the other positions."""
+    yr, yi = fft_rows(xr.movedim(dim, -1), xi.movedim(dim, -1), tab,
+                      inverse, scale)
+    return (yr.movedim(-1, dim).contiguous(),
+            yi.movedim(-1, dim).contiguous())
+
+
+def _pitched(lead_shape, lanes: int, zpad: int, vr, vi):
+    """An output pair of ``lanes + zpad`` lanes whose first ``lanes`` hold
+    (vr, vi); the pad lanes, which no grid writes, hold NaN."""
+    shp = (*lead_shape, lanes + zpad)
+    yr = torch.full(shp, float("nan"))
+    yi = torch.full(shp, float("nan"))
+    yr[..., :lanes] = vr
+    yi[..., :lanes] = vi
+    return yr, yi
+
+
+def fft_slab(xr, xi, tabz, taby, inverse: bool = False, scale: float = 1.0,
+             zpad: int = 0, z_true: int = 0, alias: bool = False):
+    """The register ``fft_slab``'s two grids on planar (..., Y, Z): the z
+    rows of the first ``z_true`` (or Z) input lanes, unscaled, into an
+    output of pitch Z + ``zpad``; then the y columns in place on it,
+    ``scale`` at their store. ``alias`` writes over the inputs."""
+    nz = z_true or xr.shape[-1]
+    zr, zi = fft_rows(xr[..., :nz], xi[..., :nz], tabz, inverse)
+    vr, vi = fft_cols(zr, zi, taby, inverse, scale, dim=-2)
+    if alias:
+        xr.copy_(vr)
+        xi.copy_(vi)
+        return xr, xi
+    return _pitched(xr.shape[:-1], nz, zpad, vr, vi)
+
+
+def rfft_slab(x, tabz, taby, w, zpad: int = 0):
+    """The register ``rfft_slab``'s two grids on real (..., Y, 2M): the
+    r2c rows into the packed half-spectrum (lane 0 = X[0] + i X[M]) at
+    pitch M + ``zpad``, then the y columns in place on it. Unscaled."""
+    m = x.shape[-1] // 2
+    zr, zi = rfft_rows(x, tabz, w, packed=True)
+    vr, vi = fft_cols(zr, zi, taby, dim=-2)
+    return _pitched(x.shape[:-1], m, zpad, vr, vi)

@@ -534,3 +534,139 @@ def test_cuda_register_core_ignores_radices(cuda_dev):
             assert torch.equal(o[1], group[0][1])
     assert ff.fft_last.reg_launches == 4
     assert ff.rfft_last_planar.reg_launches == 3
+
+
+# ---- the two slab kernels' cores: register (z rows, y columns) and dense --
+
+def _slab_core(monkeypatch, dense):
+    if dense:
+        monkeypatch.setattr(ff, "_reg_slab", lambda ny, nz: False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape,kw,lanes", [
+    ((4, 32, 128), {"zpad": 8, "scale": 0.5}, 128),
+    # a ragged row block (16 rows of 256 a block) and column tile
+    ((3, 16, 16), {"inverse": True, "scale": 0.25}, None),
+    ((2, 32, 136), {"z_true": 128, "zpad": 8, "inverse": True,
+                    "scale": 1 / 4096}, 128),
+    ((2, 4096, 16), {"zpad": 8}, 16),           # one y lane a block
+    ((2, 64, 4096), {}, None),                 # one z row a block
+    ((2, 1024, 1024), {"inverse": True}, None),
+    ((4, 512, 512), {"zpad": 8}, 512),         # the 512^3 slab: two grids
+    ((256, 256, 256), {"zpad": 8}, 256),       # the 256^3 main path
+    # the cluster layout: 4, 8 and 16 blocks, z_true, inverse
+    ((3, 64, 256), {"scale": 0.5}, None),
+    ((2, 256, 136), {"z_true": 128, "zpad": 8, "inverse": True,
+                     "scale": 1 / 32768}, 128),
+    ((4, 512, 256), {"inverse": True}, None),
+    ((3, 20, 48), {"inverse": True}, None),    # dense on both
+    ((2, 40, 320), {"scale": 0.5}, None)])
+def test_cuda_fft_slab_cores(cuda_dev, monkeypatch, shape, kw, lanes, dense):
+    _slab_core(monkeypatch, dense)
+    _card_check(ff.fft_slab_yz, lambda f, x: f(*x, **kw), shape, cuda_dev,
+                lanes=lanes)
+    nz = kw.get("z_true") or shape[-1]
+    reg = ff._reg_slab(shape[-2], nz)
+    assert ff.fft_slab_yz.reg_launches == int(reg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape", [(2, 64, 64), (3, 256, 16), (2, 16, 512),
+                                   (4, 128, 128), (64, 256, 256)])
+def test_cuda_fft_slab_cores_in_place(cuda_dev, monkeypatch, shape, dense):
+    _slab_core(monkeypatch, dense)
+    x = _pair(shape, cuda_dev, seed=shape[-1])
+    want = ff.fft_slab_yz.plain(*x, inverse=True, scale=0.5)
+    xr, xi = x[0].clone(), x[1].clone()
+    ff.reset_counts()
+    yr, yi = ff.fft_slab_yz(xr, xi, inverse=True, scale=0.5, alias=True)
+    torch.cuda.synchronize()
+    assert yr is xr and yi is xi
+    assert ff.fft_slab_yz.reg_launches == int(not dense)
+    for g, w in zip((yr, yi), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape,zpad", [
+    ((4, 16, 256), 8), ((3, 16, 32), 0), ((2, 4096, 32), 8),
+    ((1, 16, 8192), 0), ((4, 512, 512), 8), ((256, 256, 256), 8),
+    ((2, 64, 512), 8), ((2, 1024, 256), 0), ((2, 40, 640), 0)])
+def test_cuda_rfft_slab_cores(cuda_dev, monkeypatch, shape, zpad, dense):
+    _slab_core(monkeypatch, dense)
+    _card_check(ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=zpad), shape,
+                cuda_dev, lanes=shape[-1] // 2)
+    reg = ff._reg_slab(shape[-2], shape[-1] // 2)
+    assert ff.rfft_slab_yz.reg_launches == int(reg)
+
+
+@pytest.mark.cuda
+def test_cuda_rfft_slab_needs_aligned_input(cuda_dev):
+    buf = torch.zeros(1 + 2 * 16 * 64, device=cuda_dev)
+    with pytest.raises(ValueError, match="aligned"):
+        ff.rfft_slab_yz(buf[1:].view(2, 16, 64))
+
+
+@pytest.mark.cuda
+def test_cuda_register_slab_ignores_radices(cuda_dev):
+    x = _pair((4, 256, 256), cuda_dev, seed=21)
+    outs = [ff.fft_slab_yz(*x, rad_y=ry, rad_z=rz, zpad=8)
+            for ry, rz in ((None, None), ((16, 16), (64, 4)),
+                           ((4, 4, 16), (128, 2)))]
+    r = _pair((4, 512, 512), cuda_dev, seed=22)[0]
+    routs = [ff.rfft_slab_yz(r, rad_y=ry, rad_z=rz)
+             for ry, rz in ((None, None), ((32, 16), (16, 16)))]
+    for group in (outs, routs):
+        for o in group[1:]:
+            assert torch.equal(o[0][..., :256], group[0][0][..., :256])
+            assert torch.equal(o[1][..., :256], group[0][1][..., :256])
+
+
+@pytest.mark.cuda
+def test_cuda_slab_probe_phases(cuda_dev):
+    """The cost probes compute what they leave in: zonly = the z rows,
+    yonly = the y lines, copy = the input, fused and grids = the kernel
+    (other layouts); noy = the packed r2c rows, copy = the float2 pairs,
+    nount = the 2-D c2c of those pairs (the M-point core and y, no
+    untangle), grids = the kernel."""
+    x = _pair((4, 256, 256), cuda_dev, seed=23)
+    full = ff.fft_slab_yz.plain(*x, zpad=8)
+    for phases, want in (("full", full), ("fused", full), ("grids", full),
+                         ("zonly", ff.fft_last.plain(*x)),
+                         ("yonly", ff.fft_sublane.plain(*x, 1)),
+                         ("copy", x)):
+        got = ff.fft_slab_yz(*x, zpad=8, phases=phases)
+        for g, w in zip(got, want):
+            g, w = g[..., :256], w[..., :256]
+            assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+    r = _pair((2, 512, 512), cuda_dev, seed=24)[0]
+    pairs = (r[..., 0::2].contiguous(), r[..., 1::2].contiguous())
+    for phases, want in (
+            ("noy", ff.rfft_last_planar.plain(r, packed=True)),
+            ("copy", pairs), ("nount", ff.fft_slab_yz.plain(*pairs)),
+            ("grids", ff.rfft_slab_yz.plain(r))):
+        got = ff.rfft_slab_yz(r, zpad=8, phases=phases)
+        for g, w in zip(got, want):
+            g = g[..., :256]
+            assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+    with pytest.raises(RuntimeError):      # the probes' one shape
+        ff.fft_slab_yz(*_pair((2, 128, 128), cuda_dev), phases="copy")
+
+
+@pytest.mark.cuda
+def test_cuda_plans_launch_the_register_slabs(cuda_dev):
+    x = _pair((16, 64, 128), cuda_dev, seed=25)
+    ff.reset_counts()
+    p = ot.plan((16, 64, 128), "complex64", planar=True, device=cuda_dev)
+    yr, yi = p(x)
+    q = ot.plan((16, 64, 256), "float32", real=True, planar=True,
+                packed=True, device=cuda_dev)
+    q(_pair((16, 64, 256), cuda_dev, seed=26)[0])
+    assert ff.fft_slab_yz.launches == ff.fft_slab_yz.reg_launches == 1
+    assert ff.rfft_slab_yz.launches == ff.rfft_slab_yz.reg_launches == 1
+    ref = torch.fft.fftn(torch.complex(x[0].double(), x[1].double()))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
