@@ -14,17 +14,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    max |plain| <= 1e-6, pad lanes excluded, float32 matmuls pinned to
    full precision); the two row kernels (``fft_last``, ``rfft_last``) on
    a length of each core, register (``csrc/fft_regs.cuh``) and dense,
-   and the two slab kernels (``fft_slab``, ``rfft_slab``) at each shape
-   on both cores (the register slab's predicate patched off for the
-   dense one), with the core and the register layout (two grids or one
-   of clusters, ``fused_fft._cluster_slab``) printed;
+   and the three slab kernels (``fft_slab``, ``rfft_slab``,
+   ``irfft_slab``) and the strided-axis kernel (``fft_axis``: its four
+   wrappers, in place, the 64 x 1024^2 y pass, columns of 2048 and 4096)
+   at each shape on both cores (the register predicates patched off for
+   the dense one), with the core, the register layout (two grids or one
+   of clusters, ``fused_fft._cluster_slab``, ``_cluster_irslab`` for the
+   c2r) and the lane tile (``fused_fft._axis_tile``) printed;
 3. the five paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
    and read just after:
    a. the planar c2c path (``fftn``);
-   b. the packed r2c/c2r path (``real=True``, numpy and packed layouts;
-      ``rfftn`` / ``irfftn``);
+   b. the packed r2c/c2r path (``real=True``, numpy and packed layouts,
+      256^3 and 512^3; ``rfftn`` / ``irfftn``);
    c. long 1-D c2c, ``plan((1, 1, N))`` by the four-step kernels, at
       2^20 (forward, inverse, an ortho round trip), 8 x 2^20, 2^22, 2^24,
       3 * 2^18 (the measured split), 10^6 (the 4-pass route) and one
@@ -51,8 +54,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain version did; the register core ran ``fft_last`` on 3a (its one
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
    the dense core at N = 192), ``fft_slab`` on 3a's 256^3 and 512^3
-   cases (the 320^3 slab on the dense core) and ``rfft_slab`` on every
-   slab of 3b;
+   cases (the 320^3 slab on the dense core), ``rfft_slab`` on every
+   slab of 3b, ``fft_axis`` on every x pass of 3a but 320^3's (256^3 and
+   512^3, in place, the 64 x 1024^2 y pass) and of 3b (the c2r's
+   ``fft_x_to_padded`` among them), and ``irfft_slab`` on 3b's 256^3 and
+   512^3 c2r;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24; ``rfft`` at 2^21;
    ``rfftn`` against the 256^3 ``planar=False`` plan and the packed
@@ -68,22 +74,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (device time by op, busy share of the host wall); the paths of the
    register-core kernels (64 x 1024^2 c2c, the 256^3 ``planar=False``
    r2c, namespace ``rfftn`` 256^3; 256^3 and 512^3 c2c, 256^3 packed and
-   numpy r2c, 512^3 packed r2c, namespace ``fftn`` 256^3) and the four
-   kernels at their main-path shapes, each with the register core and
-   with every length routed to the dense core (``fused_fft._reg_core``
-   and ``_reg_slab`` patched off), both row kernels so at every
-   register-core length 16-4096, and both slab kernels so at 512^3; the
-   slabs' phase ledgers (``offt_tpu_torch.bench.probe_slabparts`` at
-   256^3, ``probe_rslab512`` at 512^3); the first and the second
-   one-shot ``fft3d`` of 256^3 (the second reuses the cached plan).
+   numpy r2c, 512^3 packed r2c, namespace ``fftn`` 256^3; 256^3 packed
+   and numpy c2r, 512^3 packed c2r, namespace ``irfftn`` 256^3) and the
+   six kernels at their main-path shapes, each with the register core and
+   with every length routed to the dense core (``fused_fft._reg_core``,
+   ``_reg_slab`` and ``_reg_axis`` patched off), both row kernels so at
+   every register-core length 16-4096, both slab kernels so at 512^3,
+   ``fft_axis`` on each of its main-path shapes (with its achieved TB/s)
+   and ``irfft_slab`` at 512^3 (two grids), and ``irfft_slab`` in
+   clusters against two grids (``_cluster_irslab`` patched off) at 256^3;
+   the slabs' phase ledgers
+   (``offt_tpu_torch.bench.probe_slabparts`` at 256^3, ``probe_rslab512``
+   at 512^3) and the strided pass's lane tiles (``probe_yconcat`` at
+   N = 256 and 1024); the first and the second one-shot ``fft3d`` of
+   256^3 (the second reuses the cached plan).
 
 The line before the last is one JSON object with each kernel's numbers:
 its launches on the main paths, its error, its time and the library
 call's (device times, the host enqueueing ahead: ``time_cuda(ahead=True)``),
 its plain version's time, and its bound (the larger of its bytes at
 3.35 TB/s and its f32 operations at 67 TFLOP/s, from the shapes of this
-run), and for the two row and the two slab kernels ``dense_ms``, the
-dense core's time at the same shape. The last line is ``{"ok": true, "device": {...}}``.
+run), and for the two row kernels, the three slab kernels and
+``fft_axis`` ``dense_ms``, the dense core's time at the same shape. The
+last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -285,10 +298,13 @@ def _short(op: str) -> str:
 
 
 # the kernels whose wrappers count their register-core launches
-REG_CORE = {"fft_last": "fft_last", "rfft_last": "rfft_last_planar",
-            "fft_slab": "fft_slab_yz", "rfft_slab": "rfft_slab_yz"}
-# the slab kernels, checked at each shape on both cores
-SLABS = ("fft_slab", "rfft_slab")
+REG_CORE = ("fft_last", "rfft_last", "fft_slab", "rfft_slab", "fft_axis",
+            "irfft_slab")
+# the kernels checked at each shape on both cores (the row kernels run
+# the core their length takes)
+BOTH_CORES = ("fft_slab", "rfft_slab", "fft_axis", "irfft_slab")
+# the slab kernels, whose register core runs clusters or two grids
+SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 
 
 def _window(ff, run) -> tuple:
@@ -299,22 +315,21 @@ def _window(ff, run) -> tuple:
     out = run()
     torch.cuda.synchronize()
     return out, (ff.counts(), {k: ff.kernel_launches(k) for k in ff.KERNELS},
-                 {k: ff.WRAPPERS[w].reg_launches
-                  for k, w in REG_CORE.items()})
+                 {k: ff.kernel_launches(k, reg=True) for k in REG_CORE})
 
 
 @contextlib.contextmanager
 def _dense_core(ff):
     """Every length routed to the dense core (the predicates
-    ``fused_fft._reg_core`` and ``_reg_slab`` patched off): the earlier
-    kernels on the same data, for comparison."""
-    keep = ff._reg_core, ff._reg_slab
-    ff._reg_core = lambda n: False
+    ``fused_fft._reg_core``, ``_reg_slab`` and ``_reg_axis`` patched
+    off): the earlier kernels on the same data, for comparison."""
+    keep = ff._reg_core, ff._reg_slab, ff._reg_axis
+    ff._reg_core = ff._reg_axis = lambda n: False
     ff._reg_slab = lambda ny, nz: False
     try:
         yield
     finally:
-        ff._reg_core, ff._reg_slab = keep
+        ff._reg_core, ff._reg_slab, ff._reg_axis = keep
 
 
 def main() -> int:
@@ -382,12 +397,22 @@ def main() -> int:
          None),
         ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 0), (320, 320, 320),
          None),
+        ("fft_axis", ff.fft_sublane,
+         lambda f, x: f(x[0].clone(), x[1].clone(), 1, inverse=True,
+                        scale=0.5, alias=True), (8, 256, 136), None),
+        ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1),
+         (64, 1024, 1024), None),
+        ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1, scale=0.5),
+         (4, 2048, 520), None),
+        ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1, inverse=True),
+         (2, 4096, 520), None),
         ("fft_axis", ff.fft_x_to_padded,
          lambda f, x: f(*x, z_true=128, inverse=True), (16, 32, 129), 128),
         ("fft_axis", ff.fft_x_to_padded,
          lambda f, x: f(*x, z_true=128, inverse=True), (256, 256, 129), 128),
         ("fft_axis", ff.fft_x_from_padded, xpad(128, scale=0.25),
          (16, 32, 136), None),
+        ("fft_axis", ff.fft_x_from_padded, xpad(512), (512, 512, 520), None),
         ("fft_axis", ff.fft_x_from_padded, xpad(256), (256, 256, 264), None),
         ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x, zpad=8, scale=0.5),
          (4, 32, 128), 128),
@@ -418,6 +443,9 @@ def main() -> int:
          (4, 16, 136), None),
         ("irfft_slab", ff.irfft_slab_yz,
          irfft(256, (4, 16), scale=1 / 2048), (4, 16, 136), None),
+        ("irfft_slab", ff.irfft_slab_yz,
+         irfft(512, (512, 512), scale=1 / 512 ** 3 * 2), (512, 512, 264),
+         None),
         ("irfft_slab", ff.irfft_slab_yz,
          irfft(256, (256, 256), scale=1 / 256 ** 3 * 2), (256, 256, 136),
          None),
@@ -457,23 +485,32 @@ def main() -> int:
     for name, fn, call, shape, lanes in checks:
         x = _pair(shape, gen)
         want = call(fn.plain, x)
-        # a register slab on both cores; a row kernel or another slab on
-        # the core its length takes
-        for dense in (False, True) if name in SLABS else (False,):
-            fn.reg_launches = 0
+        # the slabs and the strided-axis kernel on both cores; a row kernel
+        # or a shape the register core does not take on the core its
+        # length takes
+        for dense in (False, True) if name in BOTH_CORES else (False,):
+            ff.reset_counts()
             with _dense_core(ff) if dense else contextlib.nullcontext():
                 got = call(fn, x)
             torch.cuda.synchronize()
+            reg = ff.kernel_launches(name, reg=True)
             rel, absd = _max_err(got, want, lanes)
             core = ""
             if name in REG_CORE:
-                core = (" [register core]" if fn.reg_launches
-                        else " [dense core]")
-            if name in SLABS and fn.reg_launches:
-                # the transform's z lanes (M for the r2c, z_true if set)
+                core = " [register core]" if reg else " [dense core]"
+            if name in SLABS and reg:
+                # the transform's (Y, z lanes): M for the r2c and c2r,
+                # z_true if set
                 ny, nz = shape[-2], lanes or shape[-1]
-                core = core[:-1] + (", clusters]" if ff._cluster_slab(ny, nz)
+                if name == "irfft_slab":
+                    nz = shape[-1] - 8
+                clu = (ff._cluster_irslab if name == "irfft_slab"
+                       else ff._cluster_slab)
+                core = core[:-1] + (", clusters]" if clu(ny, nz)
                                     else ", two grids]")
+            if name == "fft_axis" and reg:
+                n = shape[0] if fn is not ff.fft_sublane else shape[1]
+                core = core[:-1] + f", {ff._axis_tile(n)} tile]"
             print(f"check {name} via {fn.__name__} {shape}{core}: max rel "
                   f"err {rel:.3e}, max abs err {absd:.3e} (tol "
                   f"{TOL_KERNEL:g}) {tag}", flush=True)
@@ -483,8 +520,8 @@ def main() -> int:
             info = per_kernel.setdefault(name, {"max_abs_err": 0.0})
             info["max_abs_err"] = max(info["max_abs_err"], absd)
             del got
-            if not fn.reg_launches:
-                break       # a slab the register core does not take
+            if not reg:
+                break       # a shape the register core does not take
         info["shape"] = shape
         info["call"] = (fn, call)
         del x, want
@@ -558,6 +595,7 @@ def main() -> int:
         ("256^3 c2r packed", (256, 256, 256), 0, True, True, None),
         ("256^3 r2c ortho", (256, 256, 256), 0, False, False, "ortho"),
         ("512^3 r2c", (512, 512, 512), 0, False, False, None),
+        ("512^3 c2r packed", (512, 512, 512), 0, True, True, None),
         ("4x128x128x256 r2c", (4, 128, 128, 256), 1, False, False, None),
     ]
     inputs = {}
@@ -982,6 +1020,28 @@ def main() -> int:
     print(f"register core: fft_slab on 3a ({c2c_slab_reg} of {c2c_slab}: "
           f"256^3 and 512^3; the rest dense at 320^3); rfft_slab on 3b "
           f"({r_slab_reg} of {r_slab})")
+    # the strided-axis kernel on 3a: the x passes of 256^3 and 512^3
+    # (fft_x_from_padded, five calls) and the in-place and 64 x 1024^2
+    # passes (fft_sublane) on the register core, the 320^3 x pass dense;
+    # on 3b the c2r's x pass (fft_x_to_padded) and the r2c's, all
+    # register; irfft_slab on 3b's 256^3 and 512^3 c2r (five calls). The
+    # 320^3 x pass cannot take the register core, so one dense launch on
+    # 3a is it.
+    ax_c2c, ax_c2c_reg = runs["c2c"][1]["fft_axis"], \
+        runs["c2c"][2]["fft_axis"]
+    if runs["c2c"][0]["fft_x_from_padded"][0] < 4 or ax_c2c - ax_c2c_reg != 1:
+        raise AssertionError("fft_axis on 3a: want one dense launch (320^3): "
+                             f"{ax_c2c_reg} register of {ax_c2c}")
+    ax_r, ax_r_reg = runs["r2c"][1]["fft_axis"], runs["r2c"][2]["fft_axis"]
+    ir, ir_reg = runs["r2c"][1]["irfft_slab"], runs["r2c"][2]["irfft_slab"]
+    if not (0 < ax_r_reg == ax_r and ir >= 4 and ir_reg == ir):
+        raise AssertionError("3b: want every x pass and every irfft_slab on "
+                             f"the register core: fft_axis {ax_r_reg} of "
+                             f"{ax_r}, irfft_slab {ir_reg} of {ir}")
+    print(f"register core: fft_axis on 3a ({ax_c2c_reg} of {ax_c2c}: the x "
+          "passes of 256^3 and 512^3, in place and the 64 x 1024^2 y pass; "
+          f"320^3 dense) and on 3b ({ax_r_reg} of {ax_r}); irfft_slab on 3b "
+          f"({ir_reg} of {ir}: 256^3 and 512^3)")
     launches = {k: sum(r[1][k] for r in runs.values()) for k in ff.KERNELS}
 
     # ---- 5. times --------------------------------------------------------
@@ -1269,7 +1329,20 @@ def main() -> int:
          ot.plan((256, 256, 256), "float32", **real), (x3,)),
         ("r2c 512^3 packed (plan)",
          ot.plan((512, 512, 512), "float32", packed=True, **real), (x5,)),
-        ("namespace fftn 256^3", ot.fft.fftn, (torch.complex(*c3),)))
+        ("namespace fftn 256^3", ot.fft.fftn, (torch.complex(*c3),)),
+        ("c2r 256^3 packed (plan)",
+         ot.plan((256, 256, 256), "float32", packed=True, inverse=True,
+                 **real),
+         ot.plan((256, 256, 256), "float32", packed=True, **real)(x3)),
+        ("c2r 256^3 numpy (plan)",
+         ot.plan((256, 256, 256), "float32", inverse=True, **real),
+         ot.plan((256, 256, 256), "float32", **real)(x3)),
+        ("c2r 512^3 packed (plan)",
+         ot.plan((512, 512, 512), "float32", packed=True, inverse=True,
+                 **real),
+         ot.plan((512, 512, 512), "float32", packed=True, **real)(x5)),
+        ("namespace irfftn 256^3", ot.fft.irfftn,
+         (torch.fft.rfftn(x3),)))
     for label, fn, args in paths:
         r_reg = time_cuda(fn, args)
         with _dense_core(ff):
@@ -1280,6 +1353,11 @@ def main() -> int:
         show(f"path {label}, dense core", r_dense)
     show("torch.fft.fft2 (cuFFT) c64 64x1024^2",
          time_cuda(torch.fft.fft2, (torch.complex(xr, xi),)))
+    for n, x in ((256, x3), (512, x5)):
+        w = torch.fft.rfftn(x)
+        show(f"torch.fft.irfftn (cuFFT) c64 {n}^3",
+             time_cuda(lambda: torch.fft.irfftn(w, s=x.shape)))
+        del w
     # the two slab kernels at 512^3 (zpad 8), each core and the library
     for label, fn, args, lib in (
             ("fft_slab 512^3", ff.fft_slab_yz, c5,
@@ -1299,9 +1377,11 @@ def main() -> int:
         del lib
     del xr, xi, x3, c3, x5, c5, paths
     torch.cuda.empty_cache()
-    # the slabs' phase ledgers (offt_tpu_torch.bench)
-    from offt_tpu_torch.bench import probe_rslab512, probe_slabparts
-    for probe in (probe_slabparts, probe_rslab512):
+    # the slabs' phase ledgers and the strided pass's lane tiles
+    # (offt_tpu_torch.bench)
+    from offt_tpu_torch.bench import (probe_rslab512, probe_slabparts,
+                                      probe_yconcat)
+    for probe in (probe_slabparts, probe_rslab512, probe_yconcat):
         for row in probe.ledger():
             rate = (f", {row['tb_s']:.3f} TB/s over {row['bytes']} bytes"
                     if row["bytes"] else "")
@@ -1373,28 +1453,83 @@ def main() -> int:
                  f", {r_d['median_ms'] / r_k['median_ms']:.2f}x the "
                  "register core")
         if name == "fft_axis":
-            # the kernel's other wrappers on their main-path shapes: the
-            # c2r x pass (z_true 128 of 129 lanes) and the 320^3 x pass
-            for what, shp, lanes, call_x in (
-                    ("fft_x_to_padded", (256, 256, 129), 128,
+            # the kernel's other wrappers and shapes of the main paths, on
+            # the register core (its lane tile), the dense core and as the
+            # library call: the c2r x pass (z_true 128 of 129 lanes), the
+            # 512^3 x pass, the 64 x 1024^2 y pass, a column at 2048 and
+            # at 4096, and the 320^3 x pass (dense on both)
+            for what, shp, lanes, ax, call_x in (
+                    ("fft_x_to_padded", (256, 256, 129), 128, 0,
                      lambda f, x: f(*x, z_true=128, inverse=True)),
-                    ("fft_sublane", (320, 320, 320), 320,
+                    ("fft_x_from_padded", (512, 512, 520), 512, 0,
+                     lambda f, x: f(*x, 512)),
+                    ("fft_sublane", (64, 1024, 1024), 1024, 1,
+                     lambda f, x: f(*x, 1)),
+                    ("fft_sublane", (4, 2048, 520), 520, 1,
+                     lambda f, x: f(*x, 1)),
+                    ("fft_sublane", (2, 4096, 520), 520, 1,
+                     lambda f, x: f(*x, 1)),
+                    ("fft_sublane", (320, 320, 320), 320, 0,
                      lambda f, x: f(*x, 0))):
                 fx = getattr(ff, what)
                 xt = _pair(shp, gen)
-                show(f"kernel fft_axis via {what} {shp}",
-                     time_cuda(call_x, (fx, xt)))
-                show(f"plain fft_axis via {what} {shp}",
-                     time_cuda(call_x, (fx.plain, xt), warmup=1, reps=5))
+                n = shp[ax]
+                e = math.prod(shp[:-1]) * lanes
+                r_r = time_cuda(call_x, (fx, xt), ahead=True)["median_ms"]
+                with _dense_core(ff):
+                    r_d = time_cuda(call_x, (fx, xt), ahead=True)["median_ms"]
+                r_p = time_cuda(call_x, (fx.plain, xt), warmup=1, reps=3)
                 xc = torch.complex(xt[0][..., :lanes], xt[1][..., :lanes])
-                show(f"library fft_axis (torch.fft.fft(dim=0)) {shp}",
-                     time_cuda(torch.fft.fft, (xc, None, 0)))
-                e = shp[0] * shp[1] * lanes
-                xb, xby = _roofline(16 * e + _table_bytes(shp[0]),
-                                    e * _fft_flops(shp[0]))
-                print(f"bound fft_axis via {what} {shp}: {xb:.4f} ms "
-                      f"({xby}) {tag}")
+                r_l = time_cuda(torch.fft.fft, (xc, None, ax),
+                                ahead=True)["median_ms"]
+                xb, xby = _roofline(16 * e + _table_bytes(n),
+                                    e * _fft_flops(n))
+                core = (f"register core ({ff._axis_tile(n)} tile)"
+                        if ff._reg_axis(n) else "dense core")
+                print(f"kernel fft_axis via {what} {shp} axis {ax}: {core} "
+                      f"{r_r:.4f} ms ({16 * e / r_r / 1e9:.3f} TB/s, "
+                      f"{xb / r_r:.3f} of its bound), dense core "
+                      f"{r_d:.4f} ms, plain {r_p['median_ms']:.4f} ms, "
+                      f"library fft(dim={ax}) {r_l:.4f} ms "
+                      f"({r_r / r_l:.2f}x), bound {xb:.4f} ms ({xby}) {tag}",
+                      flush=True)
                 del xt, xc
+        if name == "irfft_slab":
+            # the register core at 256^3 in clusters and in two grids (the
+            # cluster gate patched off); at 512^3 (two grids) and the dense
+            # core and irfft2
+            for p, y, m in ((256, 256, 128), (512, 512, 256)):
+                xt = _pair((p, y, m + 8), gen)
+                side = _pair((p, y), gen)
+
+                def c2r(fn=fn, xt=xt, side=side, p=p, y=y, m=m):
+                    return fn(*xt, 2 * m, scale=1 / (p * y * m),
+                              side_r=side[0], side_i=side[1])
+                r_r = time_cuda(c2r, ahead=True)["median_ms"]
+                xb, xby = _bound("irfft_slab", (p, y, m + 8))
+                if ff._cluster_irslab(y, m):
+                    keep = ff._cluster_irslab
+                    ff._cluster_irslab = lambda ny, nm: False
+                    try:
+                        r_g = time_cuda(c2r, ahead=True)["median_ms"]
+                    finally:
+                        ff._cluster_irslab = keep
+                    more = f"(clusters) {r_r:.4f} ms, two grids {r_g:.4f} ms"
+                else:
+                    with _dense_core(ff):
+                        r_d = time_cuda(c2r, ahead=True)["median_ms"]
+                    w = torch.fft.rfft2(torch.randn(
+                        (p, y, 2 * m), generator=gen, device="cuda"))
+                    r_l = time_cuda(lambda: torch.fft.irfft2(w, (y, 2 * m)),
+                                    ahead=True)["median_ms"]
+                    more = (f"(two grids) {r_r:.4f} ms, dense core "
+                            f"{r_d:.4f} ms, library irfft2 {r_l:.4f} ms "
+                            f"({r_r / r_l:.2f}x)")
+                    del w
+                print(f"kernel irfft_slab {(p, y, m + 8)}, side plane: "
+                      f"register core {more} ({xb / r_r:.3f} of its bound), "
+                      f"bound {xb:.4f} ms ({xby}) {tag}", flush=True)
+                del xt, side
         report.append({"name": name, "route": "cuda",
                        "source": info["source"],
                        "replaces": info["replaces"],

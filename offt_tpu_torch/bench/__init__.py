@@ -6,7 +6,11 @@ v5e probes ``docs/receipts/probe_slabparts.py`` and
 ``probe_rslab512.py``. Each times the kernel's cost probes (the
 ``phases`` argument of ``fused_fft.fft_slab_yz`` / ``rfft_slab_yz``)
 beside the full kernel, the dense core and the library call, and needs a
-CUDA device.
+CUDA device. ``probe_yconcat`` (after ``docs/receipts/probe_yconcat.py``)
+times the narrow lane tile of the strided-axis kernel's register core
+(the ``tile`` argument of ``fused_fft.fft_sublane``) against the routed
+one at N = 256 and 1024. ``ptxas_spills`` prints each kernel's registers
+and spills as ptxas reports them (needs nvcc, not a card).
 """
 
 from __future__ import annotations

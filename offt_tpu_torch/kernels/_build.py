@@ -39,14 +39,13 @@ _SIGNATURES = {
     "offt_fft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _F,
                       _I, _P],
     "offt_fft_axis": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _L, _L, _L,
-                      _L, _L, _I, _I, _I, _I, _I, _P],
+                      _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "offt_fft_slab": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                       _P],
     "offt_rfft_slab": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "offt_irfft_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "offt_irfft_slab": [_P] * 10 + [_L, _I, _I, _L] + [_I] * 12 + [_P],
     "offt_assemble_mp1": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
     "offt_rfft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                        _F, _I, _P],

@@ -1,26 +1,42 @@
 // fft_axis.cu: c2c along a strided (non-last) axis of planar f32.
 //
-// Replaces three Pallas kernels of offt_tpu/kernels/pallas_fft.py:
-// fft_sublane (:900), _sublane_nd (:993) and fft_x_from_padded (:1509).
+// Replaces four Pallas kernels of offt_tpu/kernels/pallas_fft.py:
+// fft_sublane (:900), _sublane_nd (:993), fft_x_from_padded (:1509) and
+// fft_x_to_padded (:1574).
 //
 // The array is seen as (B, N, Y, Z): batch b, transform index n, and a
 // lane l = y * Z + z over the Y * Z positions each transform runs at.
 // Element (b, n, y, z) lies at b*sb + n*sn + y*sy + z, with separate
 // strides for input and output. So one kernel reads the Z-padded
 // intermediate of the slab kernel (sy = Z + pad) and writes the unpadded
-// result, runs with equal layouts, or runs aliased (in place): a block
-// reads its whole tile before it writes any of it, and no two blocks
-// share an element.
+// result, writes pitched rows (dropping the c2r's Nyquist lane), runs with
+// equal layouts, or runs aliased (in place): every layout reads all of a
+// line before it writes any of it, and no two blocks share a line.
 //
 // What bounds it on Hopper: one read and one write of the planar pair
-// (16 bytes per complex element), against the core's r1 + r2 complex MACs
-// per element.
-// Design: a block owns an (N x T) tile of T consecutive lanes, so a warp
-// reads and writes runs of consecutive addresses along the last axis,
-// and the tile lands in shared memory column-wise as the core wants it.
-// A ragged last tile is masked.
+// (16 bytes per complex element), if a warp's loads and stores move whole
+// 32-byte sectors. Two cores, chosen by the wrapper
+// (fused_fft._reg_axis):
+// - a power-of-two N in [16, 4096] runs the register core's column
+//   variant (regs_kernels.cuh): P = N / 16 threads a line hold it in
+//   registers, a warp spans consecutive lanes, consecutive blocks take
+//   consecutive lanes (one wave of blocks reads whole (y, z) planes), and
+//   `scale` is applied at the store. Its lane tile (`tile`, resolved by
+//   fused_fft._axis_tile, the one place that picks it):
+//   - narrow: a block of 256 threads, L = 256 / P lanes, the layout of
+//     the slabs' y pass: 32 lanes or more to N = 128, where the routes
+//     launch it; at N = 256 and 1024 (16 and 4 lanes) also a probe
+//     (offt_tpu_torch/bench/probe_yconcat.py), forward only;
+//   - wide: a block of 32 P threads up to 1024 (N >= 256): 32 lanes to
+//     N = 512, 16 at 1024, 8 at 2048, 4 at 4096 (runs of 16 bytes there;
+//     a tile of 8 lanes staged through a cluster's shared memory ran
+//     level with it and was dropped, PERF.md).
+// - every other length runs the dense core of fft_core.cuh: a block owns
+//   an (N x T) tile of T consecutive lanes, read column-wise into shared
+//   memory; a ragged last tile is masked; the scale rides the table.
 
 #include "fft_core.cuh"
+#include "regs_kernels.cuh"
 
 namespace offt {
 
@@ -44,18 +60,61 @@ fft_axis_kernel(const float* xr, const float* xi, float* yr, float* yi,
   store_cols(yr, yi, g.osn, b * g.osb + y * g.osy + z, valid, c, T, re, im);
 }
 
+// the register core's lane tiles (fused_fft._AXIS_TILES)
+enum AxisTile { kNarrow = 0, kWide = 1 };
+
+template <int LOG, bool INV>
+static cudaError_t axis_regs(const float* xr, const float* xi, float* yr,
+                             float* yi, const float2* tab, const AxisGeom& g,
+                             float scale, int tile, cudaStream_t s) {
+  using namespace regs;
+  // narrow where the routes launch it, and the probe's two lengths
+  constexpr bool kNarrowOk = LOG <= 7 || (!INV && (LOG == 8 || LOG == 10));
+  if constexpr (kNarrowOk) {
+    if (tile == kNarrow)
+      return launch_cols<LOG, INV>(xr, xi, yr, yi, tab, g, scale, s);
+  }
+  if constexpr (LOG >= 8) {
+    // 32 lanes a block, at most 1024 threads
+    constexpr int P = ColGeo<LOG>::P;
+    constexpr int NT = 32 * P < 1024 ? 32 * P : 1024;
+    if (tile == kWide)
+      return launch_cols<LOG, INV, NT>(xr, xi, yr, yi, tab, g, scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace offt
 
+// reg != 0: the register core (n a power of two in [16, 4096]; the first
+// n table rows, `inverse`, `scale` and `tile`, an AxisTile, are read, the
+// radices and T are not); else the dense core (radices, T; the scale is
+// in the table; `tile` must be 0).
 extern "C" int offt_fft_axis(const void* xr, const void* xi, void* yr,
                              void* yi, const void* tab, long long nb, int n,
                              long long ny, long long nz, long long isb,
                              long long isn, long long isy, long long osb,
                              long long osn, long long osy, int ns, int r0,
-                             int r1, int r2, int T, void* stream) {
+                             int r1, int r2, int T, int inverse, float scale,
+                             int reg, int tile, void* stream) {
   using namespace offt;
-  if (T < 1 || kThreads % T != 0) return (int)cudaErrorInvalidValue;
-  Core c = make_core(n, ns, r0, r1, r2);
   AxisGeom g{nb, ny, nz, isb, isn, isy, osb, osn, osy};
+  if (reg) {
+    const float* ar = (const float*)xr;
+    const float* ai = (const float*)xi;
+    const float2* tb = (const float2*)tab;
+    cudaStream_t s = (cudaStream_t)stream;
+    return (int)regs::by_log(n, [&](auto lg) {
+      constexpr int LOG = decltype(lg)::value;
+      return inverse ? axis_regs<LOG, true>(ar, ai, (float*)yr, (float*)yi,
+                                            tb, g, scale, tile, s)
+                     : axis_regs<LOG, false>(ar, ai, (float*)yr, (float*)yi,
+                                             tb, g, scale, tile, s);
+    });
+  }
+  if (tile != 0 || T < 1 || kThreads % T != 0)
+    return (int)cudaErrorInvalidValue;
+  Core c = make_core(n, ns, r0, r1, r2);
   const size_t smem = core_smem((size_t)n * T, c.nroot);
   cudaError_t err = allow_smem(fft_axis_kernel, smem);
   if (err != cudaSuccess) return (int)err;

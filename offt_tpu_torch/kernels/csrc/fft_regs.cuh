@@ -1,8 +1,8 @@
 // fft_regs.cuh: the register-resident Stockham core for lines of
 // power-of-two length N, 16 <= N <= 4096: contiguous rows (fft_last.cu,
-// rfft_last.cu, the z pass of the slabs) and, in its column variant,
-// strided axes (the y pass of fft_slab.cu and rfft_slab.cu). The kernels
-// built on it are in regs_kernels.cuh.
+// rfft_last.cu, the z pass of the slabs, the c2r rows of irfft_slab.cu)
+// and, in its column variant, strided axes (fft_axis.cu; the y pass of
+// the three slabs). The kernels built on it are in regs_kernels.cuh.
 //
 // Replaces, on those lengths: the dense shared-memory core of fft_core.cuh
 // (itself the port of offt_tpu/kernels/pallas_fft.py _core_apply :428).
@@ -58,14 +58,15 @@
 // of W = 32 / L row threads and every global load and store of a warp
 // moves W runs of L consecutive floats: whole 32-byte sectors while
 // L >= 8 (N <= 512; at N = 512, 8 lanes of one sector), 16, 8 and 4
-// bytes at N = 1024, 2048, 4096. A larger block would keep 8 lanes there
-// but not three blocks an SM at 80 registers; no main path runs a
-// strided line past 512. The exchanges put the lane fastest: element a of
-// lane l at (a + (a div 16)) * L + l. A warp's W row threads access
-// elements a stride 1 or 16 apart (t, or 16 t + r in the first put), so
-// the pad of one slot per 16 elements puts them on distinct groups of L
-// banks: one wavefront each. At L = 1 (N = 4096) a lane is a row and the
-// row map phys, with its float4 writes, serves it.
+// bytes at N = 1024, 2048, 4096. fft_axis.cu launches blocks of up to
+// 1024 threads from N = 256 (ColGeo's NT: 32 lanes to N = 512, 16 at
+// 1024, 8 at 2048, 4 at 4096). The exchanges put the lane fastest:
+// element a of lane l at (a + (a div 16)) * L + l. A warp's W row
+// threads access elements a stride 1 or 16 apart (t, or 16 t + r in the
+// first put), so the pad of one slot per 16 elements puts them on
+// distinct groups of L banks: one wavefront each. At L = 1 (N = 4096 in
+// 256 threads) a lane is a row and the row map phys, with its float4
+// writes, serves it.
 
 #pragma once
 
@@ -233,12 +234,14 @@ struct ColLay {
   static __device__ __forceinline__ void sync() { __syncthreads(); }
 };
 
-// compile-time geometry of the column variant at N = 2^LOG
-template <int LOG>
+// compile-time geometry of the column variant at N = 2^LOG in a block of
+// NT threads
+template <int LOG, int NT = kThreads>
 struct ColGeo {
   static constexpr int N = 1 << LOG;
   static constexpr int P = N / kE;           // threads per lane
-  static constexpr int L = kThreads / P;     // lanes per block
+  static constexpr int L = NT / P;           // lanes per block
+  static_assert(L >= 1 && L * P == NT, "whole lanes a block");
   using Lay = ColLay<L>;
   // floats of one plane (all L lanes), a multiple of 4 for float4
   static constexpr int SIZE = (Lay::at(N - 1) + L + 3) / 4 * 4;

@@ -4,10 +4,14 @@
 //   fft_slab.cu), rows at their own input and output pitch;
 // - rows_r2c: r2c of real rows read as float2 pairs, the M-point core and
 //   the O(M) untangle (rfft_last.cu; the z pass of rfft_slab.cu);
-// - cols_c2c: the column variant, c2c along a strided axis (the y pass of
-//   both slabs), on the (B, N, Y, Z) geometry of fft_axis.cu.
+// - rows_c2r: c2r of packed half-spectrum rows, the re-tangle as the core
+//   loads, the inverse M-point core, float2 stores (irfft_slab.cu);
+// - cols_c2c: the column variant, c2c along a strided axis (fft_axis.cu;
+//   the y pass of the slabs), on the (B, N, Y, Z) geometry of fft_axis.cu,
+//   in blocks of 256 threads or of 32 lines up to 1024 threads;
 // - ClusterSlab, cluster_cols: a slab of Y x Z held by a cluster of C
-//   blocks in shared memory, and its y pass (fft_slab.cu, rfft_slab.cu).
+//   blocks in shared memory, and its y pass (fft_slab.cu, rfft_slab.cu;
+//   irfft_slab.cu runs y first, into the slab).
 // Each reads all of its line before it writes any of it, and no two
 // blocks share an element, so each may run in place. CORE = false in
 // cluster_cols compiles a cost probe of the slab kernels: the same loads
@@ -217,16 +221,98 @@ rows_r2c(const float* x, float* yr, float* yi, const float2* __restrict__ tab,
   }
 }
 
+// The c2r re-tangle, element k of the pair (k, M - k) of a packed
+// half-spectrum row X (lane 0 = X[0] + i X[M]): V[k] = a[k] X[k] + b[k]
+// conj X[(M - k) mod M] from x = X[k], y = X[(M - k) mod M] and
+// (a, b) = (ab[2k], ab[2k + 1]) (tables.crfft_table, the scale folded in;
+// row 0's a = 0, b = s (1 + i) / 2 is the packed rule V[0] = s ((A + B)
+// + i (A - B)) / 2). The thread that loads element M - k calls it with
+// x and y swapped, so each element of the pair is one thread's.
+static __device__ __forceinline__ float2 retangle_pair(
+    float2 x, float2 y, const float2* __restrict__ ab, int k) {
+  const float2 a = __ldg(ab + 2 * k), b = __ldg(ab + 2 * k + 1);
+  return make_float2(a.x * x.x - a.y * x.y + b.x * y.x + b.y * y.y,
+                     a.x * x.y + a.y * x.x + b.y * y.x - b.x * y.y);
+}
+
+// The inverse M-point core of a re-tangled packed row, M = 2^LOG: x(e)
+// gives X[e] (read twice, as e and as M - e); v, sre, sim, t as in core.
+template <int LOG, typename Lay = RowLay, typename X>
+static __device__ __forceinline__ void c2r_core(float2* v, float* sre,
+                                                float* sim, int t,
+                                                const float2* tab,
+                                                const float2* ab, X x) {
+  constexpr int M = 1 << LOG;
+  core<LOG, true, Lay>(v, sre, sim, t, tab, [&](int e) {
+    return retangle_pair(x(e), x((M - e) & (M - 1)), ab, e);
+  });
+}
+
+// c2r of packed planar rows of M lanes at `ipitch` into real rows of 2M
+// floats: the re-tangle as the core loads (c2r_core), the inverse M-point
+// core, then x[2j], x[2j + 1] = v[j] as one float2 (the output must be
+// 8-byte aligned), a warp on consecutive float2: whole sectors from M = 64
+// (rows of 4 threads). Rows of 1-2 threads (M = 16, 32) store through a
+// stage after the exchange planes: the block's rows are one contiguous run
+// of the output. The scale rides ab; the core is unscaled.
+template <int LOG>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rows_c2r(const float* xr, const float* xi, float* out,
+         const float2* __restrict__ tab, const float2* __restrict__ ab,
+         long long rows, long long ipitch) {
+  using G = Geo<LOG>;
+  constexpr int M = G::N;
+  extern __shared__ __align__(16) float rsmem[];
+  const int g = threadIdx.x / G::P;
+  const int t = threadIdx.x % G::P;
+  const long long row = (long long)blockIdx.x * G::ROWS + g;
+  const bool valid = row < rows;
+  float* sre = rsmem + g * G::PITCH;
+  float* sim = rsmem + (G::ROWS + g) * G::PITCH;
+  const long long in = row * ipitch;
+  float2 v[kE];
+  c2r_core<LOG>(v, sre, sim, t, tab, ab, [&](int e) {
+    return valid ? make_float2(xr[in + e], xi[in + e])
+                 : make_float2(0.f, 0.f);
+  });
+  if constexpr (G::P >= 4) {
+    if (!valid) return;
+    float2* o = reinterpret_cast<float2*>(out) + row * M;
+    outputs<LOG>(v, t, [&](int e, float2 y) { o[e] = y; });
+  } else {
+    float2* st = reinterpret_cast<float2*>(
+        rsmem + (G::NPASS > 1 ? 2 * G::ROWS * G::PITCH : 0));
+    outputs<LOG>(v, t, [&](int e, float2 y) { st[g * M + e] = y; });
+    __syncthreads();
+    const long long row0 = (long long)blockIdx.x * G::ROWS;
+    const long long left = rows - row0;
+    const int tot = (left < G::ROWS ? (int)left : G::ROWS) * M;
+    float2* o = reinterpret_cast<float2*>(out) + row0 * M;
+    for (int i = threadIdx.x; i < tot; i += kThreads) o[i] = st[i];
+  }
+}
+
+// Blocks an SM the column variant's launch bounds ask for: three of 256
+// threads at 80 registers; 1024 threads at 64 registers in larger blocks
+// (no spill at N = 256 to 2048).
+__host__ __device__ constexpr int col_min_blocks(int nt) {
+  return nt == kThreads ? kMinBlocks : 1024 / nt;
+}
+
 // The column variant: c2c along the n axis of (B, N, Y, Z), element
 // (b, n, y, z) at b sb + n sn + y sy + z (g: separate input and output
-// strides), one line per lane l = y Z + z; a block takes L consecutive
-// lanes of one b (ColGeo), the ragged last tile masked. Times `scale`.
-template <int LOG, bool INV>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// strides), one line per lane l = y Z + z; a block of NT threads takes
+// L = NT / P consecutive lanes of one b (ColGeo), consecutive blocks
+// consecutive tiles, the ragged last tile masked. Times `scale`. SIDE:
+// where side_r is not null, lane 0 of each b takes + i side[b N + n] as
+// it loads (the c2r y pass's Nyquist plane).
+template <int LOG, bool INV, int NT = kThreads, bool SIDE = false>
+__global__ void __launch_bounds__(NT, col_min_blocks(NT))
 cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
          const float2* __restrict__ tab, AxisGeom g, long long tiles,
-         float scale) {
-  using C = ColGeo<LOG>;
+         float scale, const float* __restrict__ side_r,
+         const float* __restrict__ side_i) {
+  using C = ColGeo<LOG, NT>;
   extern __shared__ __align__(16) float csmem[];
   const int l = threadIdx.x % C::L;
   const int t = threadIdx.x / C::L;
@@ -242,7 +328,14 @@ cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
   float2 v[kE];
   core<LOG, INV, typename C::Lay>(v, sre, sim, t, tab, [&](int e) {
     const long long o = in + e * g.isn;
-    return valid ? make_float2(xr[o], xi[o]) : make_float2(0.f, 0.f);
+    float2 x = valid ? make_float2(xr[o], xi[o]) : make_float2(0.f, 0.f);
+    if constexpr (SIDE) {
+      if (side_r != nullptr && lane == 0) {  // + i (side_r + i side_i)
+        x.x -= side_i[b * C::N + e];
+        x.y += side_r[b * C::N + e];
+      }
+    }
+    return x;
   });
   if (!valid) return;
   outputs<LOG>(v, t, [&](int e, float2 w) {
@@ -250,6 +343,34 @@ cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
     yr[o] = w.x * scale;
     yi[o] = w.y * scale;
   });
+}
+
+// Distributed shared memory through 32-bit addresses (a generic pointer
+// per element costs two registers): the float at shared-memory address
+// `a` (a 32-bit shared window offset) of the cluster's block `rank`,
+// loaded or stored (mapa maps it into that block's window).
+static __device__ __forceinline__ unsigned cluster_addr(unsigned a,
+                                                        unsigned rank) {
+  unsigned r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+static __device__ __forceinline__ float ld_cluster(unsigned a,
+                                                   unsigned rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v)
+               : "r"(cluster_addr(a, rank)));
+  return v;
+}
+
+static __device__ __forceinline__ void st_cluster(unsigned a, unsigned rank,
+                                                  float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;"
+               :
+               : "r"(cluster_addr(a, rank)), "f"(v)
+               : "memory");
 }
 
 // ---- a slab in a cluster's shared memory ----
@@ -293,18 +414,6 @@ struct ClusterSlab {
   // the launch bounds' register budget follows
   static constexpr int MINB = (int)((228 << 10) / (SMEM + 1024));
 };
-
-// Element at shared-memory address `a` (a 32-bit shared window offset)
-// of the cluster's block `rank`: distributed shared memory through 32-bit
-// addresses (a generic pointer per element costs two registers).
-static __device__ __forceinline__ float ld_cluster(unsigned a,
-                                                   unsigned rank) {
-  unsigned r;
-  float v;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(r));
-  return v;
-}
 
 // The y pass of a slab held in a cluster (ClusterSlab): the block of rank
 // `rank` runs lanes [rank ZB, (rank + 1) ZB) of the Y lines, ColGeo L at a
@@ -411,17 +520,36 @@ static cudaError_t launch_rows_r2c(const float* x, float* yr, float* yi,
   return cudaGetLastError();
 }
 
-template <int LOG, bool INV>
+template <int LOG>
+static cudaError_t launch_rows_c2r(const float* xr, const float* xi,
+                                   float* out, const float2* tab,
+                                   const float2* ab, long long rows,
+                                   long long ipitch, cudaStream_t stream) {
+  using G = Geo<LOG>;
+  const size_t smem = (G::NPASS > 1 ? G::SMEM : 0) +
+                      (G::P < 4 ? G::ROWS * G::N * sizeof(float2) : 0);
+  cudaError_t err = allow_smem(rows_c2r<LOG>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (rows + G::ROWS - 1) / G::ROWS;
+  rows_c2r<LOG><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      xr, xi, out, tab, ab, rows, ipitch);
+  return cudaGetLastError();
+}
+
+template <int LOG, bool INV, int NT = kThreads, bool SIDE = false>
 static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
                                float* yi, const float2* tab,
                                const AxisGeom& g, float scale,
-                               cudaStream_t stream) {
-  using C = ColGeo<LOG>;
-  cudaError_t err = allow_smem(cols_c2c<LOG, INV>, C::SMEM);
+                               cudaStream_t stream,
+                               const float* side_r = nullptr,
+                               const float* side_i = nullptr) {
+  using C = ColGeo<LOG, NT>;
+  cudaError_t err = allow_smem(cols_c2c<LOG, INV, NT, SIDE>, C::SMEM);
   if (err != cudaSuccess) return err;
   const long long tiles = (g.ny * g.nz + C::L - 1) / C::L;
-  cols_c2c<LOG, INV><<<(unsigned)(tiles * g.nb), kThreads, C::SMEM,
-                       stream>>>(xr, xi, yr, yi, tab, g, tiles, scale);
+  cols_c2c<LOG, INV, NT, SIDE><<<(unsigned)(tiles * g.nb), NT, C::SMEM,
+                                 stream>>>(xr, xi, yr, yi, tab, g, tiles,
+                                           scale, side_r, side_i);
   return cudaGetLastError();
 }
 

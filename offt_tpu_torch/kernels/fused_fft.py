@@ -33,13 +33,17 @@ calls (``fn.plain_calls``); :func:`reset_counts` zeroes them. Each
 wrapper is listed by name in ``WRAPPERS`` as it is defined. The two
 last-axis row kernels (``fft_last``, ``rfft_last_planar``) run the
 register core of ``csrc/fft_regs.cuh`` on the lengths :func:`_reg_core`
-admits, the two slab kernels (``fft_slab_yz``, ``rfft_slab_yz``) on the
-slabs :func:`_reg_slab` admits (z on its rows, y on its column variant:
-in one grid of clusters holding the slab in shared memory where
-:func:`_cluster_slab` admits it, else in two grids), and all four the
-dense core of ``csrc/fft_core.cuh`` on the rest; of their launches,
-``fn.reg_launches`` took the register core. A launch is one call of the
-kernel's C entry point.
+admits, the strided-axis kernel (``fft_sublane``, ``_sublane_nd``,
+``fft_x_from_padded``, ``fft_x_to_padded``) its column variant on the
+lengths :func:`_reg_axis` admits, the three slab kernels
+(``fft_slab_yz``, ``rfft_slab_yz``, ``irfft_slab_yz``) on the slabs
+:func:`_reg_slab` admits (rows and the column variant: in one grid of
+clusters holding the slab in shared memory where :func:`_cluster_slab`
+admits it, :func:`_cluster_irslab` for the c2r, else in two grids), and
+all of them the dense core of
+``csrc/fft_core.cuh`` on the rest; of their launches, ``fn.reg_launches``
+took the register core. A launch is one call of the kernel's C entry
+point.
 
 ``precision`` is accepted everywhere for parity with the reference and
 ignored: every stage computes in f32 FMA on the card (the bf16 stacked
@@ -217,6 +221,29 @@ def _reg_slab(ny: int, nz: int) -> bool:
     return all(16 <= n <= 4096 and n & (n - 1) == 0 for n in (ny, nz))
 
 
+def _reg_axis(n: int) -> bool:
+    """Whether the strided-axis kernel (``fft_sublane``, ``_sublane_nd``,
+    ``fft_x_from_padded``, ``fft_x_to_padded`` at transform length n)
+    launches the register core's column variant: a power of two in
+    [16, 4096]. Every other length takes the dense core. The register
+    core ignores the radices and the lane tile of the dense core."""
+    return 16 <= n <= 4096 and n & (n - 1) == 0
+
+
+# the register core's lane tiles of the strided-axis kernel and their
+# codes in csrc/fft_axis.cu: "narrow", the slabs' 256 / P lanes a block;
+# "wide", 32 lines a block up to 1024 threads (N >= 256)
+_AXIS_TILES = {"narrow": 0, "wide": 1}
+
+
+def _axis_tile(n: int) -> str:
+    """The lane tile the strided-axis kernel's register core launches at
+    length n, the one place it is picked: narrow to 128, where a block of
+    256 threads holds 32 lanes or more; wide from 256 (32 lanes to 512,
+    16 at 1024, 8 at 2048, 4 at 4096)."""
+    return "narrow" if n <= 128 else "wide"
+
+
 def _cluster_slab(ny: int, nz: int) -> bool:
     """Whether a register slab (ny, nz) runs in one grid of clusters
     that hold each x-row's slab in shared memory (``ClusterSlab`` in
@@ -226,6 +253,17 @@ def _cluster_slab(ny: int, nz: int) -> bool:
     and then the y lines in place."""
     return (_reg_slab(ny, nz) and nz >= 128 and ny >= 64
             and 1 << 14 <= ny * nz <= 1 << 17)
+
+
+def _cluster_irslab(ny: int, m: int) -> bool:
+    """Whether the register c2r slab (ny, m) runs in one grid of clusters
+    (``irslab_cluster`` in ``csrc/irfft_slab.cu``): the shapes of
+    :func:`_cluster_slab` where that kernel spills nothing, 2^14 to 2^15
+    elements (the 256^3 slab). At 2^16 and 2^17 it spills 8-156 bytes at
+    its 128 registers (``bench/ptxas_spills.py``), and at the 512^3 slab
+    two grids ran faster than its clusters of 16 (PERF.md): those run
+    two grids."""
+    return _cluster_slab(ny, m) and ny * m <= 1 << 15
 
 
 # the register slabs' cost probes (``phases``) and their codes in
@@ -520,11 +558,22 @@ def _axis_plain(xr, xi, yr, yi, geom, tab, n, stages):
 
 
 def _axis_apply(owner, mode, xr, xi, yr, yi, geom, n: int, stages: tuple,
-                inverse: bool, scale: float, block: int, tables) -> None:
+                inverse: bool, scale: float, block: int, tables,
+                tile: str | None = None) -> None:
     """Run the strided-axis transform described by ``geom`` = (nb, ny, nz,
-    in strides (b, n, y), out strides (b, n, y)) into (yr, yi). An axis
-    too long for one block is moved last, transformed by ``_long_last``
-    and moved back."""
+    in strides (b, n, y), out strides (b, n, y)) into (yr, yi): on the
+    register core's column variant where :func:`_reg_axis` (``scale`` at
+    the store, the lane tile of :func:`_axis_tile`), else on the dense
+    core (``block`` lanes a block, the scale in the table). An axis too
+    long for one block is moved last, transformed by ``_long_last`` and
+    moved back. ``tile``, a key of ``_AXIS_TILES``, overrides that pick:
+    a probe (``bench/probe_yconcat.py``; the kernel has the narrow tile
+    forward at N = 256 and 1024 beside the lengths routed to it) on a
+    CUDA device; it raises for a plain version or the dense core."""
+    if tile is not None and (tile not in _AXIS_TILES or mode != "kernel"
+                             or not _reg_axis(n)):
+        raise ValueError(f"tile {tile!r} probes the register-core kernel "
+                         f"on a CUDA device, one of {sorted(_AXIS_TILES)}")
     if not _fits_block(n, sum(stages)):
         nb, ny, nz, (isb, isn, isy), (osb, osn, osy) = geom
         shp = (nb, n, ny, nz)
@@ -544,10 +593,14 @@ def _axis_apply(owner, mode, xr, xi, yr, yi, geom, n: int, stages: tuple,
     nb, ny, nz, ins, outs = geom
     if nb * ny * nz == 0:
         return
-    t = _cols_tile(n, block, sum(stages))
+    reg = _reg_axis(n)
+    t = 0 if reg else _cols_tile(n, block, sum(stages))
+    code = _AXIS_TILES[tile or _axis_tile(n)] if reg else 0
     _launch("offt_fft_axis", (xr, xi, yr, yi), (tab,),
-            [nb, n, ny, nz, *ins, *outs, *_radix_args(stages), t])
+            [nb, n, ny, nz, *ins, *outs, *_radix_args(stages), t,
+             int(inverse), float(scale), int(reg), code])
     owner.launches += 1
+    owner.reg_launches += reg
 
 
 # --------------------------------------------------------------------------
@@ -603,12 +656,22 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
 @_dispatching
 def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
                 block_lanes: int = 0, precision: str = DEFAULT_PRECISION,
-                scale: float = 1.0, alias: bool = False, tables=None):
+                scale: float = 1.0, alias: bool = False, tables=None,
+                tile: str | None = None):
     """Batched c2c along any non-last axis (kernel ``csrc/fft_axis.cu``),
     the array viewed as (prefix, N, lanes); no data is transposed.
-    ``alias=True`` writes over the inputs. ``block_lanes`` sets the lanes
-    per CUDA block (rounded down to a power of two; 0 = as many as fit
-    64 KB of shared memory, at most 64)."""
+    ``alias=True`` writes over the inputs.
+
+    On a power-of-two N in [16, 4096] (:func:`_reg_axis`) the kernel runs
+    the register core's column variant: ``radices`` is checked but does
+    not shape its passes, ``block_lanes`` is ignored, and ``scale`` is
+    applied at the store, on the lane tile of :func:`_axis_tile`;
+    ``tile="narrow"`` probes the narrow one (``bench/probe_yconcat.py``,
+    see ``_axis_apply``). Other
+    lengths run the dense core, ``block_lanes`` lanes a CUDA block
+    (rounded down to a power of two; 0 = as many as fit 64 KB of shared
+    memory, at most 64). The plain version is the dense core's arithmetic
+    on every length."""
     axis = axis % xr.ndim
     if axis == xr.ndim - 1:
         raise ValueError("use fft_last for the last axis")
@@ -620,7 +683,7 @@ def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
         mid = math.prod(xr.shape[axis + 1:-1])
         if _nd_route(n, mid, xr.shape[-1], tl_target):
             return _sublane_nd.impl(mode, xr, xi, axis, n, stages, inverse,
-                                    scale, alias, block_lanes, tables)
+                                    scale, alias, block_lanes, tables, tile)
     pre = math.prod(xr.shape[:axis])
     lanes = math.prod(xr.shape[axis + 1:])
     if alias:
@@ -629,13 +692,13 @@ def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
         yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     st = (n * lanes, lanes, lanes)
     _axis_apply(fft_sublane, mode, xr, xi, yr, yi, (pre, 1, lanes, st, st),
-                n, stages, inverse, scale, block_lanes, tables)
+                n, stages, inverse, scale, block_lanes, tables, tile)
     return yr, yi
 
 
 @_dispatching
 def _sublane_nd(mode, xr, xi, axis, n, stages, inverse, scale, alias, block,
-                tables=None):
+                tables=None, tile=None):
     """fft_sublane's route for an axis at or before ndim-3: the array as
     (B, N, MID, last), the same CUDA kernel as the flattened route."""
     b = math.prod(xr.shape[:axis])
@@ -647,7 +710,7 @@ def _sublane_nd(mode, xr, xi, axis, n, stages, inverse, scale, alias, block,
         yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     st = (n * mid * last, mid * last, last)
     _axis_apply(_sublane_nd, mode, xr, xi, yr, yi, (b, mid, last, st, st),
-                n, stages, inverse, scale, block, tables)
+                n, stages, inverse, scale, block, tables, tile)
     return yr, yi
 
 
@@ -748,7 +811,8 @@ def fft_x_from_padded(mode, xr3, xi3, z_true: int, inverse: bool = False,
     only the first ``z_true`` lanes of each row; writes an unpadded
     (..., X, Y, zo) result, zo = max(out_lanes, z_true), whose lanes past
     ``z_true`` are allocated and not written. ``y_true`` (< Y) skips
-    trailing input rows. Kernel ``csrc/fft_axis.cu`` with pitched reads;
+    trailing input rows. Kernel ``csrc/fft_axis.cu`` with pitched reads,
+    on the register core's column variant where :func:`_reg_axis`;
     ``ty``/``tz`` are accepted for parity and ignored (the kernel picks
     its own lane tile)."""
     lead = xr3.shape[:-3]
@@ -776,7 +840,8 @@ def fft_x_to_padded(mode, xr3, xi3, zpad: int = _STRIDE_PAD,
     (..., X, Y, Zt + zpad) one, Zt = ``z_true`` or Z: only the first Zt
     lanes of each input row are transformed (the c2r path drops its
     Nyquist lane this way) and the pad lanes are allocated and not
-    written. Kernel ``csrc/fft_axis.cu`` with pitched writes; ``ty``/``tz``
+    written. Kernel ``csrc/fft_axis.cu`` with pitched writes, on the
+    register core's column variant where :func:`_reg_axis`; ``ty``/``tz``
     are accepted for parity and ignored."""
     lead = xr3.shape[:-3]
     n, ny, z = xr3.shape[-3:]
@@ -902,7 +967,16 @@ def irfft_slab_yz(mode, xr, xi, n: int, rad_y=None, rad_z=None,
     (row 0 included); the cores are unscaled, so the exact inverse of
     unscaled x and y passes takes 1/(Nx*Ny*M). ``side_r``/``side_i``, of
     shape (..., Y), are a Nyquist plane injected into plane 0 as
-    + i*side before the y pass. ``block_rows`` is ignored."""
+    + i*side before the y pass. ``block_rows`` is ignored.
+
+    On Y and M powers of two in [16, 4096] (:func:`_reg_slab` of (Y, M))
+    the kernel runs the register core: the y lines on the column variant,
+    then the c2r rows (the re-tangle as the M-point core loads), in one
+    grid of clusters holding the slab in shared memory
+    (:func:`_cluster_irslab`) or in two grids through a planar
+    (..., Y, M) scratch; the radices do not shape it. Other slabs run the
+    dense core in one grid, a block per x-row. The plain version is the
+    dense core's arithmetic on every slab."""
     ny, lanes = xr.shape[-2], xr.shape[-1]
     m = n // 2
     if n != 2 * m or m > lanes:
@@ -941,13 +1015,21 @@ def irfft_slab_yz(mode, xr, xi, n: int, rad_y=None, rad_z=None,
         return out
     if p * ny * m == 0:
         return out
+    reg = _reg_slab(ny, m)
+    cluster = reg and _cluster_irslab(ny, m)
+    sr = si = None
+    if reg and not cluster:
+        sr = torch.empty((p, ny, m), dtype=xr.dtype, device=xr.device)
+        si = torch.empty_like(sr)
     roots = sum(sz) + sum(sy)
-    tz = _rows_tile(m, 0, roots)
-    ty = _cols_tile(ny, 0, roots)
-    _launch("offt_irfft_slab", (xr, xi, side_r, side_i, out),
+    tz, ty = (0, 0) if reg else (_rows_tile(m, 0, roots),
+                                 _cols_tile(ny, 0, roots))
+    _launch("offt_irfft_slab", (xr, xi, side_r, side_i, out, sr, si),
             (tabz, taby, ab),
-            [p, ny, m, lanes, *_radix_args(sz), *_radix_args(sy), tz, ty])
+            [p, ny, m, lanes, *_radix_args(sz), *_radix_args(sy), tz, ty,
+             int(reg), int(cluster)])
     irfft_slab_yz.launches += 1
+    irfft_slab_yz.reg_launches += reg
     return out
 
 
@@ -1159,9 +1241,11 @@ def counts() -> dict:
     return {k: (f.launches, f.plain_calls) for k, f in WRAPPERS.items()}
 
 
-def kernel_launches(name: str) -> int:
-    """Launches of one CUDA kernel of KERNELS, summed over its wrappers."""
-    return sum(WRAPPERS[w].launches for w in KERNELS[name]["wrappers"])
+def kernel_launches(name: str, reg: bool = False) -> int:
+    """Launches of one CUDA kernel of KERNELS, summed over its wrappers
+    (``reg=True``: those on the register core)."""
+    return sum(WRAPPERS[w].reg_launches if reg else WRAPPERS[w].launches
+               for w in KERNELS[name]["wrappers"])
 
 
 # --------------------------------------------------------------------------

@@ -3,32 +3,41 @@
 ``csrc/fft_regs.cuh`` runs a length-n line (n a power of two in
 [16, 4096]) as radix-R Stockham passes on P = n / 16 threads of 16
 complex values each, as a contiguous row (``fft_last``, ``rfft_last``,
-the slabs' z pass) or, in its column variant, along a strided axis (the
-slabs' y pass). No CPU can run that kernel, so the tests hold this
-replay of it against numpy and the JAX reference: the same pass radices
-and strides (:func:`passes`), the same twiddle indices into the first n
-rows of ``tables.core_table`` and the same input gathers and output
-scatters (:func:`pass_maps`), and the same shared-memory geometry of
-rows (:func:`geometry`, :func:`phys`) and columns (:func:`col_geometry`,
-:func:`col_at`), with :func:`bank_ways` and :func:`col_bank_ways`
-counting the exchanges' bank conflicts; and the slab a cluster of blocks
-holds in shared memory (:func:`cluster_geometry`, :func:`cluster_ways`). The butterflies are the R-point
-DFT in f32 (the kernel's radix-2 network computes the same function in
-another rounding order). The two register slabs are replayed as their
-grids run: :func:`fft_slab` (z rows, then y columns in place) and
-:func:`rfft_slab` (r2c rows, then y columns). What the kernels do around
-the core only moves values: ``rfft_last`` stages a block's output rows
-back in the exchange planes to copy them out whole, and ``fft_last``
-moves rows of fewer than 8 threads (N < 128) in and out through a stage;
-neither is replayed here. The package's own routes never call this
-module: on the CPU the kernel wrappers run their plain versions.
+the slabs' z pass, the c2r rows) or, in its column variant, along a
+strided axis (``fft_axis``, the slabs' y pass). No CPU can run that
+kernel, so the tests hold this replay of it against numpy and the JAX
+reference: the same pass radices and strides (:func:`passes`), the same
+twiddle indices into the first n rows of ``tables.core_table`` and the
+same input gathers and output scatters (:func:`pass_maps`), and the same
+shared-memory geometry of rows (:func:`geometry`, :func:`phys`) and
+columns (:func:`col_geometry`, :func:`col_at`), with :func:`bank_ways`
+and :func:`col_bank_ways` counting the exchanges' bank conflicts; the
+strided-axis kernel's lane tiles (:func:`axis_tile`, :func:`warp_runs`;
+the routed one read from ``fused_fft._axis_tile``); and the slab a
+cluster of blocks holds in shared memory (:func:`cluster_geometry`,
+:func:`cluster_ways`). The butterflies are the R-point DFT in f32 (the
+kernel's radix-2 network computes the same function in another rounding
+order). The kernels on
+the column variant are replayed as their grids run: :func:`fft_axis`
+(tile by tile on the (B, N, Y, Z) geometry), :func:`fft_slab` (z rows,
+then y columns in place), :func:`rfft_slab` (r2c rows, then y columns)
+and :func:`irfft_slab` (y columns, then the c2r rows,
+:func:`rows_c2r`, with the kernel's re-tangle :func:`retangle_pair`).
+What the kernels do around the core only moves values: ``rfft_last``
+stages a block's output rows back in the exchange planes to copy them
+out whole, ``fft_last`` moves rows of fewer than 8 threads (N < 128) in
+and out through a stage, and the cluster layouts move lines between
+blocks; none of that is replayed here. The package's own routes never
+call this module: on the CPU the kernel wrappers run their plain
+versions.
 """
 
 from __future__ import annotations
 
-
 import numpy as np
 import torch
+
+from . import fused_fft
 
 E = 16          # complex values a thread holds (regs::kE)
 THREADS = 256   # threads per block (kThreads)
@@ -137,27 +146,59 @@ def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False):
     return yr, yi
 
 
-def col_at(n: int, a):
+def col_at(n: int, a, threads: int = THREADS):
     """Offset, in a column block's exchange plane, of element a of lane 0
     (lane l adds l): the lane is the fastest index, one pad slot per 16
-    elements; at one lane a block (n = 4096) a lane is a row, at phys."""
-    lanes = THREADS // (n // E)
+    elements; at one lane a block (n = 4096 in 256 threads) a lane is a
+    row, at phys."""
+    lanes = threads // (n // E)
     if lanes == 1:
         return phys(a)
     return (a + (a >> 4)) * lanes
 
 
-def col_geometry(n: int) -> dict:
-    """The block geometry of ``regs::ColGeo``: threads per lane P, lanes
-    per block L (thread (t, l) = (tid // L, tid % L)), row threads per warp
-    W, one plane's floats SIZE (a multiple of 4) and the block's dynamic
-    shared memory in bytes (none for one pass)."""
+def col_geometry(n: int, threads: int = THREADS) -> dict:
+    """The block geometry of ``regs::ColGeo`` in a block of ``threads``:
+    threads per lane P, lanes per block L (thread (t, l) = (tid // L,
+    tid % L)), row threads per warp W, one plane's floats SIZE (a multiple
+    of 4) and the block's dynamic shared memory in bytes (none for one
+    pass)."""
     sched = passes(n)
     p = n // E
-    lanes = THREADS // p
-    size = (int(col_at(n, n - 1)) + lanes + 3) // 4 * 4
+    lanes = threads // p
+    if lanes < 1 or lanes * p != threads:
+        raise ValueError(f"{threads} threads hold no whole lanes of {n}")
+    size = (int(col_at(n, n - 1, threads)) + lanes + 3) // 4 * 4
     return {"P": p, "L": lanes, "W": max(1, 32 // lanes), "SIZE": size,
             "SMEM": 2 * size * 4 if len(sched) > 1 else 0}
+
+
+def axis_tile(n: int, tile: str | None = None) -> dict:
+    """The geometry of a lane tile of the strided-axis kernel at length n
+    (``tile`` None: the one its routes launch, ``fused_fft._axis_tile``):
+    threads a block, P threads a line, L lanes a block, W row threads a
+    warp; "narrow": 256 threads, L = 256 / P (the slabs' y pass); "wide":
+    32 P threads up to 1024 (n >= 256)."""
+    passes(n)
+    tile = tile or fused_fft._axis_tile(n)
+    p = n // E
+    if tile == "narrow":
+        nt = THREADS
+    elif tile == "wide" and n >= 256:
+        nt = min(32 * p, 1024)
+    else:
+        raise ValueError(f"no {tile!r} lane tile at n = {n}")
+    g = col_geometry(n, nt)
+    return {"tile": tile, "threads": nt, "P": p, "L": g["L"], "W": g["W"]}
+
+
+def warp_runs(n: int, tile: str | None = None) -> int:
+    """The shortest run of consecutive floats along the contiguous axis
+    that one warp instruction of the strided-axis kernel loads or stores
+    in device memory: W row threads a warp, each on L consecutive
+    lanes."""
+    lanes = axis_tile(n, tile)["L"]
+    return min(32, lanes)
 
 
 def cluster_geometry(ny: int, nz: int) -> dict:
@@ -186,7 +227,11 @@ def cluster_ways(ny: int, nz: int) -> dict:
     row, 32 / P_z rows a warp) into the block's slab, and "y get", the
     column variant's first-pass reads of a block's lanes (L lanes of
     32 / L row threads a warp, element y of lane z at (y mod YB) SP + z
-    in the block of rank y div YB)."""
+    in the block of rank y div YB): the order of ``fft_slab`` and
+    ``rfft_slab``. The c2r slab (``irfft_slab``) runs the other way:
+    "y put", the column variant's last-pass writes into the blocks that
+    keep each row, and "z get", the c2r rows' first-pass reads of element
+    e and of (nz - e) mod nz from the block's own rows."""
     g = cluster_geometry(ny, nz)
     lanes = np.arange(THREADS)
     pz = nz // E
@@ -195,18 +240,30 @@ def cluster_ways(ny: int, nz: int) -> dict:
     put = max(_ways((row * g["SP"] + t + q * pz + k * (nz // r))
                     .reshape(-1, 32).tolist())
               for q in range(E // r) for k in range(r))
+    zget = max(_ways((row * g["SP"] + ((s * (t + k * (nz // E))) % nz))
+                     .reshape(-1, 32).tolist())
+               for k in range(E) for s in (1, -1))
     cg = col_geometry(ny)
     lane, ty = lanes % cg["L"], lanes // cg["L"]
-    get = 1
-    for k in range(E):
-        e = ty + k * cg["P"]
-        rank, at = e // g["YB"], (e % g["YB"]) * g["SP"] + lane
-        for w in range(THREADS // 32):
-            sel = slice(32 * w, 32 * w + 32)
-            # a warp's addresses on each block it reads, banked per block
-            for rk in set(rank[sel].tolist()):
-                get = max(get, _ways([at[sel][rank[sel] == rk].tolist()]))
-    return {"z put": put, "y get": get}
+    ry, _ = passes(ny)[-1]
+    # element y of a lane: the first pass's loads (y get) and the last
+    # pass's stores (y put)
+    reads = [ty + k * cg["P"] for k in range(E)]
+    writes = [ty + q * cg["P"] + k * (ny // ry)
+              for q in range(E // ry) for k in range(ry)]
+    ways = {}
+    for name, elems in (("y get", reads), ("y put", writes)):
+        worst = 1
+        for e in elems:
+            rank, at = e // g["YB"], (e % g["YB"]) * g["SP"] + lane
+            for w in range(THREADS // 32):
+                sel = slice(32 * w, 32 * w + 32)
+                # a warp's addresses on each block it reads, banked per block
+                for rk in set(rank[sel].tolist()):
+                    worst = max(worst,
+                                _ways([at[sel][rank[sel] == rk].tolist()]))
+        ways[name] = worst
+    return {"z put": put, "z get": zget, **ways}
 
 
 def _ways(groups, banks: int = BANKS) -> int:
@@ -267,14 +324,15 @@ def bank_ways(n: int) -> dict:
     return _exchange_ways(n, t, lambda a: row * pitch + phys(a), True)
 
 
-def col_bank_ways(n: int) -> dict:
+def col_bank_ways(n: int, threads: int = THREADS) -> dict:
     """The column variant's exchanges (:func:`_exchange_ways`): a block of
-    L lanes, thread (t, l) = (tid // L, tid % L), element a of lane l at
-    col_at(a) + l; float4 writes only at one lane a block."""
-    g = col_geometry(n)
-    lanes = np.arange(THREADS)
+    ``threads``, L lanes, thread (t, l) = (tid // L, tid % L), element a of
+    lane l at col_at(a) + l; float4 writes only at one lane a block."""
+    g = col_geometry(n, threads)
+    lanes = np.arange(threads)
     lane, t = lanes % g["L"], lanes // g["L"]
-    return _exchange_ways(n, t, lambda a: col_at(n, a) + lane, g["L"] == 1)
+    return _exchange_ways(n, t, lambda a: col_at(n, a, threads) + lane,
+                          g["L"] == 1)
 
 
 def flops(n: int) -> int:
@@ -303,6 +361,70 @@ def fft_cols(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
                       inverse, scale)
     return (yr.movedim(-1, dim).contiguous(),
             yi.movedim(-1, dim).contiguous())
+
+
+def fft_axis(xr, xi, yr, yi, n: int, geom, tab, inverse: bool = False,
+             scale: float = 1.0, tile: str | None = None) -> None:
+    """The strided-axis kernel's register core at length n as its grid
+    runs, on flat f32 buffers: ``geom`` = (nb, ny, nz, in strides (b, n,
+    y), out strides (b, n, y)) of ``fused_fft._axis_apply``, element
+    (b, n, y, z) at b sb + n sn + y sy + z, a line per lane l = y nz + z.
+    Tile by tile (L consecutive lanes of one b, :func:`axis_tile`, the
+    ragged last one masked) it reads the tile's lines whole, runs the row
+    core's passes on each, and writes them times ``scale``: so (yr, yi)
+    may be (xr, xi), in place."""
+    nb, ny, nz, (isb, isn, isy), (osb, osn, osy) = geom
+    tl = axis_tile(n, tile)["L"]
+    lanes = ny * nz
+    e = torch.arange(n)
+    for b in range(nb):
+        for l0 in range(0, lanes, tl):
+            lane = torch.arange(l0, min(l0 + tl, lanes))
+            y, z = lane // nz, lane % nz
+            src = b * isb + e[:, None] * isn + (y * isy + z)[None, :]
+            dst = b * osb + e[:, None] * osn + (y * osy + z)[None, :]
+            vr, vi = fft_rows(xr[src].t(), xi[src].t(), tab, inverse, scale)
+            yr[dst] = vr.t()
+            yi[dst] = vi.t()
+
+
+def retangle_pair(xr, xi, ab):
+    """The c2r re-tangle of packed rows (..., M) as the kernel computes it
+    (``regs::retangle_pair``): element k of the pair (k, M - k),
+    V[k] = a[k] X[k] + b[k] conj X[(M - k) mod M], (a, b) = ``ab[k]`` of
+    ``tables.crfft_table`` (the scale folded in), in the kernel's order of
+    f32 operations."""
+    m = xr.shape[-1]
+    mk = (-torch.arange(m)) % m
+    yr, yi = xr[..., mk], xi[..., mk]
+    ar, ai, br, bi = ab[:, 0, 0], ab[:, 0, 1], ab[:, 1, 0], ab[:, 1, 1]
+    return (ar * xr - ai * xi + br * yr + bi * yi,
+            ar * xi + ai * xr + bi * yr - br * yi)
+
+
+def rows_c2r(xr, xi, tab, ab):
+    """The kernel's c2r of packed rows (..., M): the re-tangle, the inverse
+    M-point core (``tab``, a ``core_table`` of M), then x[2j] + i x[2j+1]
+    = v[j]: real (..., 2M)."""
+    vr, vi = retangle_pair(xr, xi, ab)
+    vr, vi = fft_rows(vr, vi, tab, inverse=True)
+    return torch.stack([vr, vi], -1).reshape(*xr.shape[:-1], 2 * xr.shape[-1])
+
+
+def irfft_slab(xr, xi, tabz, taby, ab, side_r=None, side_i=None):
+    """The register ``irfft_slab`` on a packed planar (..., Y, M + pad)
+    half-spectrum, as both of its layouts run it: the first M lanes' y
+    lines on the column variant, inverse and unscaled (lane 0 plus
+    i side where the (..., Y) side plane is given), then the c2r rows of
+    the (..., Y, M) result (``tabz``: the core table of M; ``ab``:
+    ``tables.crfft_table(2M, scale)``, M rows): real (..., Y, 2M)."""
+    m = ab.shape[0]
+    ar, ai = xr[..., :m].clone(), xi[..., :m].clone()
+    if side_r is not None:
+        ar[..., 0] -= side_i
+        ai[..., 0] += side_r
+    vr, vi = fft_cols(ar, ai, taby, inverse=True, dim=-2)
+    return rows_c2r(vr, vi, tabz, ab)
 
 
 def _pitched(lead_shape, lanes: int, zpad: int, vr, vi):

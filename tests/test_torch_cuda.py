@@ -670,3 +670,119 @@ def test_cuda_plans_launch_the_register_slabs(cuda_dev):
     assert ff.rfft_slab_yz.launches == ff.rfft_slab_yz.reg_launches == 1
     ref = torch.fft.fftn(torch.complex(x[0].double(), x[1].double()))
     assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
+# ---- the strided-axis kernel's cores: the column variant and dense -------
+
+def _axis_core(monkeypatch, dense):
+    if dense:
+        monkeypatch.setattr(ff, "_reg_axis", lambda n: False)
+
+
+# each geometry of fft_axis.cu's (B, N, Y, Z): (wrapper, call, shape of
+# the input at length n, lanes compared)
+AXIS_GEOMETRIES = {
+    "flat": (ff.fft_sublane, lambda f, x: f(*x, 1, scale=0.5),
+             lambda n: (2, n, 24), None),
+    "pitched in": (ff.fft_x_from_padded,
+                   lambda f, x: f(*x, 24, inverse=True, scale=0.25),
+                   lambda n: (n, 3, 32), None),
+    "pitched out": (ff.fft_x_to_padded,
+                    lambda f, x: f(*x, z_true=24, inverse=True),
+                    lambda n: (n, 3, 25), 24),
+    "nd": (ff.fft_sublane, lambda f, x: f(*x, 1), lambda n: (2, n, 2, 128),
+           None),
+    "alias": (ff.fft_sublane,
+              lambda f, x: f(x[0].clone(), x[1].clone(), 1, inverse=True,
+                             alias=True), lambda n: (2, n, 24), None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("geometry", sorted(AXIS_GEOMETRIES))
+@pytest.mark.parametrize("n", REG_LENGTHS + [96, 320])
+def test_cuda_fft_axis_cores(cuda_dev, monkeypatch, n, geometry, dense):
+    _axis_core(monkeypatch, dense)
+    fn, call, shape, lanes = AXIS_GEOMETRIES[geometry]
+    _card_check(fn, call, shape(n), cuda_dev, lanes=lanes)
+    owner = ff._sublane_nd if geometry == "nd" else fn
+    assert owner.launches == 1
+    assert owner.reg_launches == int(ff._reg_axis(n) and not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,lengths", [
+    ("narrow", [16, 32, 64, 128, 256, 1024]),
+    ("wide", [256, 512, 1024, 2048, 4096])])
+@pytest.mark.parametrize("shape", [(3, 0, 40), (2, 0, 2, 128)])
+def test_cuda_fft_axis_lane_tiles(cuda_dev, tile, lengths, shape):
+    # each lane tile of the column variant where the kernel has it (the
+    # narrow probe forward at 256 and 1024), a ragged last tile (40 lanes)
+    # and a (y, z) split (the nd route), each against the plain version
+    for n in lengths:
+        shp = tuple(n if s == 0 else s for s in shape)
+        _card_check(ff.fft_sublane,
+                    lambda f, x: f(*x, 1, scale=0.5,
+                                   **({} if f is ff.fft_sublane.plain
+                                      else {"tile": tile})),
+                    shp, cuda_dev)
+
+
+@pytest.mark.cuda
+def test_cuda_fft_axis_tile_refusals(cuda_dev):
+    x = _pair((2, 128, 8), cuda_dev)
+    with pytest.raises(RuntimeError):          # no wide tile at 128
+        ff.fft_sublane(*x, 1, tile="wide")
+    with pytest.raises(RuntimeError):          # the narrow probe: forward
+        ff.fft_sublane(*_pair((2, 256, 8), cuda_dev), 1, inverse=True,
+                       tile="narrow")
+    with pytest.raises(ValueError, match="tile"):
+        ff.fft_sublane(*_pair((2, 320, 8), cuda_dev), 1, tile="narrow")
+
+
+# ---- irfft_slab's cores: the register slab (clusters, two grids), dense --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("side", [False, True])
+@pytest.mark.parametrize("shape", [
+    (2, 256, 136),      # the 256^3 slab: clusters of 8
+    (2, 512, 264),      # the 512^3 slab: two grids
+    (2, 64, 264),       # clusters of 4
+    (2, 64, 520),       # clusters of 8, (Y, M) = (64, 512)
+    (2, 128, 520),      # two grids: the cluster kernel would spill here
+    (3, 64, 136),       # two grids
+    (4, 16, 24),        # two grids, rows of one thread (M = 16)
+    (3, 32, 40),        # two grids, rows of two threads (M = 32)
+    (2, 16, 4104),      # two grids, one row a block (M = 4096)
+    (2, 4096, 24),      # two grids, one y lane a block
+    (2, 40, 328)])      # dense on both
+def test_cuda_irfft_slab_cores(cuda_dev, monkeypatch, shape, side, dense):
+    _slab_core(monkeypatch, dense)
+    n = 2 * (shape[-1] - 8)
+    s = _pair(shape[:-1], cuda_dev, seed=2) if side else (None, None)
+    _card_check(ff.irfft_slab_yz,
+                lambda f, x: f(*x, n, scale=1.0 / (shape[1] * n // 2),
+                               side_r=s[0], side_i=s[1]),
+                shape, cuda_dev)
+    reg = ff._reg_slab(shape[1], n // 2)
+    assert ff.irfft_slab_yz.reg_launches == int(reg)
+    # clusters at 2^14 and 2^15 elements
+    want = not dense and shape[1] * n // 2 in (1 << 14, 1 << 15)
+    assert ff._cluster_irslab(shape[1], n // 2) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 32, 64), (16, 256, 256),
+                                   (16, 512, 512), (16, 64, 1024)])
+def test_cuda_register_c2r_inverts_the_r2c(cuda_dev, shape):
+    # the packed r2c slab and x pass, then the c2r: both on the register
+    # core, back to the input
+    x = _pair(shape, cuda_dev, seed=27)[0]
+    ff.reset_counts()
+    yr, yi = ff.rfft3d_planar(x, packed=True)
+    back = ff.irfft3d_planar(yr, yi, packed=True)
+    assert ff.irfft_slab_yz.reg_launches == ff.irfft_slab_yz.launches == 1
+    assert ff.fft_x_to_padded.reg_launches == 1
+    assert _rel(back.double(), x.double()) < 1e-6
