@@ -17,8 +17,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the three slab kernels (``fft_slab``, ``rfft_slab``,
    ``irfft_slab``) and the strided-axis kernel (``fft_axis``: its four
    wrappers, in place, the 64 x 1024^2 y pass, columns of 2048 and 4096)
-   at each shape on both cores (the register predicates patched off for
-   the dense one), with the core, the register layout (two grids or one
+   and the four-step pair (``step1_twiddle``, ``step3_transposed``: the
+   long 1-D splits of 2^20, 8 x 2^20, 2^22 and 2^24, the inner 2^21 of
+   3g's prime, few lanes at n1 = 4096,
+   few rows at n2 = 4096, inverse, a caller's table, the mixed splits of
+   3 * 2^18) at each shape on both cores (the register predicates patched
+   off for the dense one), with the core, the register layout (two grids or one
    of clusters, ``fused_fft._cluster_slab``, ``_cluster_irslab`` for the
    c2r) and the lane tile (``fused_fft._axis_tile``) printed;
 3. the five paths through ``offt_tpu_torch.plan`` on the card, each
@@ -57,10 +61,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    cases (the 320^3 slab on the dense core), ``rfft_slab`` on every
    slab of 3b, ``fft_axis`` on every x pass of 3a but 320^3's (256^3 and
    512^3, in place, the 64 x 1024^2 y pass) and of 3b (the c2r's
-   ``fft_x_to_padded`` among them), and ``irfft_slab`` on 3b's 256^3 and
-   512^3 c2r;
+   ``fft_x_to_padded`` among them), ``irfft_slab`` on 3b's 256^3 and
+   512^3 c2r, and ``step1_twiddle`` / ``step3_transposed`` on every
+   power-of-two split of 3c (step 3 dense on the 768 side of 3 * 2^18)
+   and throughout 3d and 3g;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
-   512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24; ``rfft`` at 2^21;
+   512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, there each kernel of the
+   four-step pair on both cores with its bound and TB/s, and the pair's
+   sum against ``torch.fft.fft``; ``rfft`` at 2^21;
    ``rfftn`` against the 256^3 ``planar=False`` plan and the packed
    route), both split orders at 3 * 2^18, the 1 x 1 mesh plans (256^3
    c2c, 256^3 and 512^3 packed c2r) against cuFFT and the single-device
@@ -76,8 +84,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    r2c, namespace ``rfftn`` 256^3; 256^3 and 512^3 c2c, 256^3 packed and
    numpy r2c, 512^3 packed r2c, namespace ``fftn`` 256^3; 256^3 packed
    and numpy c2r, 512^3 packed c2r, namespace ``irfftn`` 256^3) and the
-   six kernels at their main-path shapes, each with the register core and
-   with every length routed to the dense core (``fused_fft._reg_core``,
+   eight register-core kernels at their main-path shapes, each with the
+   register core and with every length routed to the dense core
+   (``fused_fft._reg_core``,
    ``_reg_slab`` and ``_reg_axis`` patched off), both row kernels so at
    every register-core length 16-4096, both slab kernels so at 512^3,
    ``fft_axis`` on each of its main-path shapes (with its achieved TB/s)
@@ -85,8 +94,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    clusters against two grids (``_cluster_irslab`` patched off) at 256^3;
    the slabs' phase ledgers
    (``offt_tpu_torch.bench.probe_slabparts`` at 256^3, ``probe_rslab512``
-   at 512^3) and the strided pass's lane tiles (``probe_yconcat`` at
-   N = 256 and 1024); the first and the second one-shot ``fft3d`` of
+   at 512^3), the strided pass's lane tiles (``probe_yconcat`` at
+   N = 256 and 1024) and the four-step pair's tiles and layouts
+   (``probe_fourstep`` at 2^20, 8 x 2^20, 2^22, 2^24, and step 1's two
+   tiles from 64 to 384 wide blocks); the first
+   and the
+   second one-shot ``fft3d`` of
    256^3 (the second reuses the cached plan).
 
 The line before the last is one JSON object with each kernel's numbers:
@@ -94,8 +107,10 @@ its launches on the main paths, its error, its time and the library
 call's (device times, the host enqueueing ahead: ``time_cuda(ahead=True)``),
 its plain version's time, and its bound (the larger of its bytes at
 3.35 TB/s and its f32 operations at 67 TFLOP/s, from the shapes of this
-run), and for the two row kernels, the three slab kernels and
-``fft_axis`` ``dense_ms``, the dense core's time at the same shape. The
+run), and for the two row kernels, the three slab kernels, ``fft_axis``
+and the four-step pair ``dense_ms``, the dense core's time at the same
+shape (the pair's two rows also ``pair_library_factor``: their sum over
+``torch.fft.fft`` of the whole transform, which computes the pair). The
 last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -299,10 +314,11 @@ def _short(op: str) -> str:
 
 # the kernels whose wrappers count their register-core launches
 REG_CORE = ("fft_last", "rfft_last", "fft_slab", "rfft_slab", "fft_axis",
-            "irfft_slab")
+            "irfft_slab", "step1_twiddle", "step3_transposed")
 # the kernels checked at each shape on both cores (the row kernels run
 # the core their length takes)
-BOTH_CORES = ("fft_slab", "rfft_slab", "fft_axis", "irfft_slab")
+BOTH_CORES = ("fft_slab", "rfft_slab", "fft_axis", "irfft_slab",
+              "step1_twiddle", "step3_transposed")
 # the slab kernels, whose register core runs clusters or two grids
 SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 
@@ -321,8 +337,9 @@ def _window(ff, run) -> tuple:
 @contextlib.contextmanager
 def _dense_core(ff):
     """Every length routed to the dense core (the predicates
-    ``fused_fft._reg_core``, ``_reg_slab`` and ``_reg_axis`` patched
-    off): the earlier kernels on the same data, for comparison."""
+    ``fused_fft._reg_core`` (the row kernels and the four-step pair),
+    ``_reg_slab`` and ``_reg_axis`` patched off): the earlier kernels on
+    the same data, for comparison."""
     keep = ff._reg_core, ff._reg_slab, ff._reg_axis
     ff._reg_core = ff._reg_axis = lambda n: False
     ff._reg_slab = lambda ny, nz: False
@@ -351,8 +368,9 @@ def main() -> int:
     card = _card()
     tag = f"[{card}]"
     print(card)
+    sms = fs._sms(torch.device("cuda"))
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]}, {sms} SMs")
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -376,11 +394,13 @@ def main() -> int:
         ab = _pair(planes, gen) + _pair(planes, gen)
         return lambda f, x: f(*x, *ab)
 
-    def step1(n1, n2, **kw):
-        return lambda f, x: f(*x, n1, n2, None, False, **kw)
+    def step1(n1, n2, inverse=False, tw=False, **kw):
+        if tw:      # a caller's table (step12_planar's chunk), its own scale
+            kw["tw"] = torch.stack(_pair((n1, n2), gen), -1)
+        return lambda f, x: f(*x, n1, n2, None, inverse, **kw)
 
-    def step3(n1, n2, **kw):
-        return lambda f, x: f(*x, n1, n2, None, False, **kw)
+    def step3(n1, n2, inverse=False):
+        return lambda f, x: f(*x, n1, n2, None, inverse)
 
     def rlast(packed):
         return lambda f, x: f(x[0], packed=packed)
@@ -466,11 +486,46 @@ def main() -> int:
         ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
          (65536, 128), None),
         ("step1_twiddle", fs._step1_twiddle, step1(128, 256, scale=0.5),
-         (2, 128, 256), None),
+         (3, 128, 256), None),
+        ("step1_twiddle", fs._step1_twiddle,
+         step1(1024, 1024, inverse=True, scale=2 ** -20), (8, 1024, 1024),
+         None),
+        ("step1_twiddle", fs._step1_twiddle, step1(2048, 2048),
+         (1, 2048, 2048), None),
+        ("step1_twiddle", fs._step1_twiddle, step1(4096, 4096),
+         (1, 4096, 4096), None),
+        ("step1_twiddle", fs._step1_twiddle, step1(1024, 2048),
+         (1, 1024, 2048), None),
+        ("step1_twiddle", fs._step1_twiddle, step1(4096, 40), (1, 4096, 40),
+         None),
+        ("step1_twiddle", fs._step1_twiddle, step1(12, 4096), (3, 12, 4096),
+         None),
+        ("step1_twiddle", fs._step1_twiddle, step1(1024, 200, tw=True),
+         (2, 1024, 200), None),
+        ("step1_twiddle", fs._step1_twiddle, step1(1024, 768),
+         (1, 1024, 768), None),
+        ("step1_twiddle", fs._step1_twiddle, step1(768, 1024),
+         (1, 768, 1024), None),
         ("step1_twiddle", fs._step1_twiddle, step1(1024, 1024),
          (1, 1024, 1024), None),
         ("step3_transposed", fs._step3_transposed, step3(128, 256),
-         (2, 128, 256), None),
+         (3, 128, 256), None),
+        ("step3_transposed", fs._step3_transposed,
+         step3(1024, 1024, inverse=True), (8, 1024, 1024), None),
+        ("step3_transposed", fs._step3_transposed, step3(2048, 2048),
+         (1, 2048, 2048), None),
+        ("step3_transposed", fs._step3_transposed, step3(4096, 4096),
+         (1, 4096, 4096), None),
+        ("step3_transposed", fs._step3_transposed, step3(1024, 2048),
+         (1, 1024, 2048), None),
+        ("step3_transposed", fs._step3_transposed, step3(4096, 40),
+         (1, 4096, 40), None),
+        ("step3_transposed", fs._step3_transposed, step3(12, 4096),
+         (3, 12, 4096), None),
+        ("step3_transposed", fs._step3_transposed, step3(1024, 768),
+         (1, 1024, 768), None),
+        ("step3_transposed", fs._step3_transposed, step3(768, 1024),
+         (1, 768, 1024), None),
         ("step3_transposed", fs._step3_transposed, step3(1024, 1024),
          (1, 1024, 1024), None),
         ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x, out_scale=0.5),
@@ -485,9 +540,9 @@ def main() -> int:
     for name, fn, call, shape, lanes in checks:
         x = _pair(shape, gen)
         want = call(fn.plain, x)
-        # the slabs and the strided-axis kernel on both cores; a row kernel
-        # or a shape the register core does not take on the core its
-        # length takes
+        # the slabs, the strided-axis kernel and the four-step pair on both
+        # cores; a row kernel or a shape the register core does not take
+        # on the core its length takes
         for dense in (False, True) if name in BOTH_CORES else (False,):
             ff.reset_counts()
             with _dense_core(ff) if dense else contextlib.nullcontext():
@@ -511,6 +566,12 @@ def main() -> int:
             if name == "fft_axis" and reg:
                 n = shape[0] if fn is not ff.fft_sublane else shape[1]
                 core = core[:-1] + f", {ff._axis_tile(n)} tile]"
+            if name == "step1_twiddle" and reg:
+                tile = fs._step1_tile(*shape[1:], shape[0], sms)
+                core = core[:-1] + f", {tile} tile]"
+            if name == "step3_transposed" and reg:
+                r, c = fs._step3_layout(shape[2])
+                core = core[:-1] + f", {r} rows, {c} block(s) a run]"
             print(f"check {name} via {fn.__name__} {shape}{core}: max rel "
                   f"err {rel:.3e}, max abs err {absd:.3e} (tol "
                   f"{TOL_KERNEL:g}) {tag}", flush=True)
@@ -1042,6 +1103,23 @@ def main() -> int:
           "passes of 256^3 and 512^3, in place and the 64 x 1024^2 y pass; "
           f"320^3 dense) and on 3b ({ax_r_reg} of {ax_r}); irfft_slab on 3b "
           f"({ir_reg} of {ir}: 256^3 and 512^3)")
+    # the four-step pair, each kernel on the core of its own length: on 3c
+    # every power-of-two split (2^20 four times, 8 x 2^20, 2^22, 2^24) and
+    # 3 * 2^18's (1024, 768) take the register core, but for step 3 at 768
+    # (dense; 10^6 takes the 4-pass route); 3d's long real record and 3g's
+    # prime (their inner 2^20 and 2^21) run it throughout
+    for path, dense3 in (("long1d", 1), ("local_real", 0), ("namespace", 0)):
+        s1, s1r = runs[path][1]["step1_twiddle"], \
+            runs[path][2]["step1_twiddle"]
+        s3, s3r = runs[path][1]["step3_transposed"], \
+            runs[path][2]["step3_transposed"]
+        if not (0 < s1r == s1 and s3 > 0 and s3 - s3r == dense3):
+            raise AssertionError(f"the four-step pair on {path}: step1 "
+                                 f"{s1r} register of {s1}, step3 {s3r} of "
+                                 f"{s3} (want {dense3} dense)")
+        print(f"register core: step1_twiddle on {path} ({s1r} of {s1}), "
+              f"step3_transposed ({s3r} of {s3}"
+              + ("; 3*2^18's 768 side dense)" if dense3 else ")"))
     launches = {k: sum(r[1][k] for r in runs.values()) for k in ff.KERNELS}
 
     # ---- 5. times --------------------------------------------------------
@@ -1159,17 +1237,31 @@ def main() -> int:
         if n1 % 128 or n2 % 128:     # not the fused pair
             del xr, xi, xc
             continue
+        # each kernel of the pair alone on each core, and their sum against
+        # cuFFT's fft of the whole transform (device times, ahead)
         x3 = (xr.reshape(b, n1, n2), xi.reshape(b, n1, n2))
         z3 = fs._step1_twiddle(*x3, n1, n2, None, False)
-        for what, fn, args in (
+        r_lib = time_cuda(torch.fft.fft, (xc,), ahead=True)["median_ms"]
+        pair_ms = 0.0
+        for what, fn, args, n_k in (
                 ("step1_twiddle", fs._step1_twiddle,
-                 (*x3, n1, n2, None, False)),
+                 (*x3, n1, n2, None, False), n1),
                 ("step3_transposed", fs._step3_transposed,
-                 (*z3, n1, n2, None, False))):
-            r = time_cuda(fn, args)
+                 (*z3, n1, n2, None, False), n2)):
+            r = time_cuda(fn, args, ahead=True)
+            with _dense_core(ff):
+                r_d = time_cuda(fn, args, ahead=True)["median_ms"]
+            ms = r["median_ms"]
+            pair_ms += ms
             bms, by = _bound(what, (b, n1, n2))
-            show(f"kernel {what} ({b}, {n1}, {n2})", r,
-                 f", bound {bms:.4f} ms ({by})")
+            nbytes = _work(what, (b, n1, n2))[0]
+            core = "register" if ff._reg_core(n_k) else "dense"
+            show(f"kernel {what} ({b}, {n1}, {n2}), {core} core", r,
+                 f", {nbytes / ms / 1e9:.3f} TB/s, {bms / ms:.3f} of its "
+                 f"bound {bms:.4f} ms ({by}); dense core {r_d:.4f} ms "
+                 f"({r_d / ms:.2f}x)")
+        print(f"pair {label}: step1 + step3 {pair_ms:.4f} ms, torch.fft.fft "
+              f"{r_lib:.4f} ms, {pair_ms / r_lib:.2f}x {tag}", flush=True)
         del xr, xi, xc, x3, z3
         torch.cuda.empty_cache()
     # r2c along a long 1-D: the unfused real route against cuFFT's rfft
@@ -1183,11 +1275,12 @@ def main() -> int:
     show("torch.fft.rfft (cuFFT) f32 2^21", r_cufft)
     del x
     # where the new routes' time goes (torch.profiler, 10 back-to-back calls)
-    for n in (2 ** 20, 2 ** 24, 10 ** 6):
-        xr, xi = _pair((1, 1, n), gen)
-        show_breakdown(f"port fft (1, 1, {n})",
-                       ot.plan((1, 1, n), "complex64", planar=True),
-                       ((xr, xi),))
+    for b, n in ((1, 2 ** 20), (8, 2 ** 20), (1, 2 ** 22), (1, 2 ** 24),
+                 (1, 10 ** 6)):
+        xr, xi = _pair((b, 1, 1, n), gen)
+        show_breakdown(f"port fft ({b}, 1, 1, {n})",
+                       ot.plan((1, 1, n), "complex64", planar=True,
+                               batch_dims=1), ((xr, xi),))
         del xr, xi
     x = torch.randn((256, 256, 256), generator=gen, device="cuda")
     w = torch.fft.rfftn(x)
@@ -1377,11 +1470,12 @@ def main() -> int:
         del lib
     del xr, xi, x3, c3, x5, c5, paths
     torch.cuda.empty_cache()
-    # the slabs' phase ledgers and the strided pass's lane tiles
-    # (offt_tpu_torch.bench)
-    from offt_tpu_torch.bench import (probe_rslab512, probe_slabparts,
-                                      probe_yconcat)
-    for probe in (probe_slabparts, probe_rslab512, probe_yconcat):
+    # the slabs' phase ledgers, the strided pass's lane tiles and the
+    # four-step pair's variants (offt_tpu_torch.bench)
+    from offt_tpu_torch.bench import (probe_fourstep, probe_rslab512,
+                                      probe_slabparts, probe_yconcat)
+    for probe in (probe_slabparts, probe_rslab512, probe_yconcat,
+                  probe_fourstep):
         for row in probe.ledger():
             rate = (f", {row['tb_s']:.3f} TB/s over {row['bytes']} bytes"
                     if row["bytes"] else "")
@@ -1539,6 +1633,11 @@ def main() -> int:
                        "bound_ms": bms, "bound_by": by,
                        "library_ms": lib_ms, **extra})
         del x, lib
+    # the pair computes what one fft of the whole transform computes
+    rows = {r["name"]: r for r in report}
+    pair_ms = rows["step1_twiddle"]["ms"] + rows["step3_transposed"]["ms"]
+    for name in ("step1_twiddle", "step3_transposed"):
+        rows[name]["pair_library_factor"] = pair_ms / rows[name]["library_ms"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": report}))

@@ -9,8 +9,11 @@ beside the full kernel, the dense core and the library call, and needs a
 CUDA device. ``probe_yconcat`` (after ``docs/receipts/probe_yconcat.py``)
 times the narrow lane tile of the strided-axis kernel's register core
 (the ``tile`` argument of ``fused_fft.fft_sublane``) against the routed
-one at N = 256 and 1024. ``ptxas_spills`` prints each kernel's registers
-and spills as ptxas reports them (needs nvcc, not a card).
+one at N = 256 and 1024. ``probe_fourstep`` times the four-step pair's
+lane tiles (``tile`` of ``fourstep._step1_twiddle``) and layout against
+the dense core and ``torch.fft.fft`` at the long 1-D splits, and step
+1's two tiles across grid sizes. ``ptxas_spills`` prints each kernel's
+registers and spills as ptxas reports them (needs nvcc, not a card).
 """
 
 from __future__ import annotations

@@ -9,6 +9,11 @@
 // - cols_c2c: the column variant, c2c along a strided axis (fft_axis.cu;
 //   the y pass of the slabs), on the (B, N, Y, Z) geometry of fft_axis.cu,
 //   in blocks of 256 threads or of 32 lines up to 1024 threads;
+// - cols_twiddle: the column variant times a twiddle table at its store
+//   (the four-step step 1, fourstep.cu);
+// - rows_transposed: c2c of contiguous rows written transposed through a
+//   shared stage, R rows a block or a cluster of C blocks (the four-step
+//   step 3, fourstep.cu);
 // - ClusterSlab, cluster_cols: a slab of Y x Z held by a cluster of C
 //   blocks in shared memory, and its y pass (fft_slab.cu, rfft_slab.cu;
 //   irfft_slab.cu runs y first, into the slab).
@@ -345,6 +350,45 @@ cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
   });
 }
 
+// Step 1 of the four-step FFT on the column variant: cols_c2c's lines on
+// the (B, N, Y, Z) geometry, unscaled, and output n of lane l stored
+// times tw[n * lanes + l] (lanes = Y Z; the table carries every scale).
+// Lane l of a warp reads table row n at the lane its data has, so the
+// table's loads coalesce as the data's do.
+template <int LOG, bool INV, int NT>
+__global__ void __launch_bounds__(NT, col_min_blocks(NT))
+cols_twiddle(const float* xr, const float* xi, float* yr, float* yi,
+             const float2* __restrict__ tab, const float2* __restrict__ tw,
+             AxisGeom g, long long tiles) {
+  using C = ColGeo<LOG, NT>;
+  extern __shared__ __align__(16) float csmem[];
+  const int l = threadIdx.x % C::L;
+  const int t = threadIdx.x / C::L;
+  const long long b = blockIdx.x / tiles;
+  const long long lanes = g.ny * g.nz;
+  const long long lane = (blockIdx.x - b * tiles) * C::L + l;
+  const bool valid = lane < lanes;
+  const long long y = valid ? lane / g.nz : 0;
+  const long long z = valid ? lane - y * g.nz : 0;
+  const long long in = b * g.isb + y * g.isy + z;
+  const long long out = b * g.osb + y * g.osy + z;
+  float2 v[kE];
+  auto load = [&](int e) {
+    const long long o = in + e * g.isn;
+    return valid ? make_float2(xr[o], xi[o]) : make_float2(0.f, 0.f);
+  };
+  // (all table loads first, then the stores, ran 12% slower and spilled)
+  auto store = [&](int e, float2 w) {
+    const float2 m = __ldg(tw + e * lanes + lane);
+    const long long o = out + e * g.osn;
+    yr[o] = w.x * m.x - w.y * m.y;
+    yi[o] = w.x * m.y + w.y * m.x;
+  };
+  core<LOG, INV, typename C::Lay>(v, csmem + l, csmem + C::SIZE + l, t, tab,
+                                  load);
+  if (valid) outputs<LOG>(v, t, store);
+}
+
 // Distributed shared memory through 32-bit addresses (a generic pointer
 // per element costs two registers): the float at shared-memory address
 // `a` (a 32-bit shared window offset) of the cluster's block `rank`,
@@ -371,6 +415,138 @@ static __device__ __forceinline__ void st_cluster(unsigned a, unsigned rank,
                :
                : "r"(cluster_addr(a, rank)), "f"(v)
                : "memory");
+}
+
+// ---- rows written transposed (step 3 of the four-step FFT) ----
+// The row kernel on rows (b, k1) of a (B, n1, N) array, output (k1, k)
+// written to (b N + k) n1 + k1. A block of NT threads holds R = NT / P
+// consecutive rows. After the core each row writes its outputs into a
+// stage of both planes, [k][c] for the block's row c at slot at(k, c),
+// and the block then stores each k's run of R floats (a thread per row c,
+// consecutive threads on consecutive k1): whole 32-byte sectors from
+// R = 8. The stage's columns are XOR-swizzled (`at`) so that both the
+// outputs' writes (a warp: W = 32 / P rows of P threads on consecutive
+// k, or one row) and the runs' reads (a warp: 32 / R whole rows of the
+// stage) take one wavefront. The stage reuses the rows' exchange planes
+// (each row has read its own before the block writes the stage).
+__host__ __device__ constexpr int ilog2(int n) {
+  return n <= 1 ? 0 : 1 + ilog2(n / 2);
+}
+
+template <int LOG, int NT>
+struct TrGeo {
+  using G = Geo<LOG>;
+  static constexpr int N = G::N, P = G::P;
+  static constexpr int R = NT / P;  // rows a block
+  static_assert(R >= 1 && R * P == NT && NT >= 32, "whole rows, a warp");
+  static constexpr int W = P < 32 ? 32 / P : 1;  // rows a warp
+  static constexpr int RS = R < 32 ? R : 32;     // swizzled columns
+  static constexpr int SH = ilog2(32 / RS);
+  // slot of stage element (k, c): the bank bits that k mod (32 / RS)
+  // leaves free take k's next bits, above the W rows a warp writes
+  static __host__ __device__ constexpr int at(int k, int c) {
+    return k * R + (c ^ (((k >> SH) * W) & (RS - 1)));
+  }
+  static constexpr size_t EX =
+      G::NPASS > 1 ? (size_t)2 * R * G::PITCH * sizeof(float) : 0;
+  static constexpr size_t ST = (size_t)2 * N * R * sizeof(float);
+  static constexpr size_t SMEM = EX > ST ? EX : ST;
+};
+
+// the block of the transposing row kernel at N = 2^LOG: 256 threads to
+// N = 512 (R = 4096 / N rows), then 8 rows up to 1024 threads (4 at 4096,
+// where two blocks make a cluster)
+template <int LOG>
+__host__ __device__ constexpr int tr_threads() {
+  return Geo<LOG>::P * 8 <= kThreads ? kThreads
+         : Geo<LOG>::P * 8 < 1024    ? Geo<LOG>::P * 8
+                                     : 1024;
+}
+
+// the core of a transposing row block: the rows' transforms, then the
+// stage written (both planes, at `at`); `valid` masks the rows past `rows`
+template <int LOG, bool INV, int NT>
+static __device__ __forceinline__ void rows_to_stage(
+    const float* xr, const float* xi, const float2* tab, float* smem,
+    long long row0, long long rows) {
+  using T = TrGeo<LOG, NT>;
+  const int g = threadIdx.x / T::P;
+  const int t = threadIdx.x % T::P;
+  const long long row = row0 + g;
+  const bool valid = row < rows;
+  const long long in = row * T::N;
+  float2 v[kE];
+  auto load = [&](int e) {
+    return valid ? make_float2(xr[in + e], xi[in + e])
+                 : make_float2(0.f, 0.f);
+  };
+  core<LOG, INV>(v, smem + g * T::G::PITCH, smem + (T::R + g) * T::G::PITCH,
+                 t, tab, load);
+  __syncthreads();  // every row has read its exchange planes
+  auto put = [&](int e, float2 y) {
+    const int a = T::at(e, g);
+    smem[a] = y.x;
+    smem[T::N * T::R + a] = y.y;
+  };
+  outputs<LOG>(v, t, put);
+}
+
+// (b N + 0) n1 + k1 for row r = b n1 + k1: rows of one block may span
+// two batches, so each finds its own
+static __device__ __forceinline__ long long tr_base(long long r, long long n,
+                                                    long long n1) {
+  const long long b = r / n1;
+  return b * n * n1 + (r - b * n1);
+}
+
+// The kernel: clusters of C blocks (C = 1: one block) hold RC = C R
+// consecutive rows, and block q of a cluster stores the outputs
+// [q N / C, (q + 1) N / C) of all of them, in runs of RC floats, column c
+// read from the stage of block c / R (through 32-bit mapa /
+// ld.shared::cluster where C > 1).
+template <int LOG, bool INV, int NT, int C>
+__global__ void __launch_bounds__(NT, col_min_blocks(NT))
+rows_transposed(const float* __restrict__ xr, const float* __restrict__ xi,
+                float* __restrict__ yr, float* __restrict__ yi,
+                const float2* __restrict__ tab, long long rows,
+                long long n1) {
+  using T = TrGeo<LOG, NT>;
+  constexpr int RC = C * T::R;
+  static_assert(NT % RC == 0, "whole runs a block");
+  extern __shared__ __align__(16) float tsmem[];
+  namespace cg = cooperative_groups;
+  int q = 0;
+  if constexpr (C > 1) q = (int)cg::this_cluster().block_rank();
+  const long long row0 = (long long)(blockIdx.x / C) * RC;
+  rows_to_stage<LOG, INV, NT>(xr, xi, tab, tsmem, row0 + q * T::R, rows);
+  if constexpr (C > 1)
+    cg::this_cluster().sync();  // every stage of the cluster is whole
+  else
+    __syncthreads();
+  const int c = threadIdx.x % RC;
+  const long long r = row0 + c;
+  if (r < rows) {
+    const long long base = tr_base(r, T::N, n1);
+    const int cb = c % T::R;
+    const unsigned src = (unsigned)(c / T::R);
+    const unsigned re0 = (unsigned)__cvta_generic_to_shared(tsmem);
+    const unsigned im0 = re0 + 4u * T::N * T::R;
+    unroll<0, kE>([&](auto ic) {
+      // NT / RC threads a k, so kE passes cover the block's N / C outputs
+      const int k = q * (T::N / C) + threadIdx.x / RC +
+                    decltype(ic)::value * (NT / RC);
+      const int a = T::at(k, cb);
+      if constexpr (C > 1) {
+        yr[base + k * n1] = ld_cluster(re0 + 4u * a, src);
+        yi[base + k * n1] = ld_cluster(im0 + 4u * a, src);
+      } else {
+        yr[base + k * n1] = tsmem[a];
+        yi[base + k * n1] = tsmem[T::N * T::R + a];
+      }
+    });
+  }
+  if constexpr (C > 1)
+    cg::this_cluster().sync();  // no block leaves while another reads it
 }
 
 // ---- a slab in a cluster's shared memory ----
@@ -550,6 +726,48 @@ static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
   cols_c2c<LOG, INV, NT, SIDE><<<(unsigned)(tiles * g.nb), NT, C::SMEM,
                                  stream>>>(xr, xi, yr, yi, tab, g, tiles,
                                            scale, side_r, side_i);
+  return cudaGetLastError();
+}
+
+template <int LOG, bool INV, int NT>
+static cudaError_t launch_cols_twiddle(const float* xr, const float* xi,
+                                       float* yr, float* yi,
+                                       const float2* tab, const float2* tw,
+                                       const AxisGeom& g,
+                                       cudaStream_t stream) {
+  using C = ColGeo<LOG, NT>;
+  auto kernel = cols_twiddle<LOG, INV, NT>;
+  cudaError_t err = allow_smem(kernel, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (g.ny * g.nz + C::L - 1) / C::L;
+  kernel<<<(unsigned)(tiles * g.nb), NT, C::SMEM, stream>>>(
+      xr, xi, yr, yi, tab, tw, g, tiles);
+  return cudaGetLastError();
+}
+
+template <int LOG, bool INV, int NT, int C>
+static cudaError_t launch_rows_transposed(const float* xr, const float* xi,
+                                          float* yr, float* yi,
+                                          const float2* tab, long long rows,
+                                          long long n1, cudaStream_t stream) {
+  using T = TrGeo<LOG, NT>;
+  auto kernel = rows_transposed<LOG, INV, NT, C>;
+  cudaError_t err = allow_smem(kernel, T::SMEM);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((rows + C * T::R - 1) / (C * T::R) * C));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, xr, xi, yr, yi, tab, rows, n1);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

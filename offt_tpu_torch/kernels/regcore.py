@@ -22,7 +22,12 @@ the column variant are replayed as their grids run: :func:`fft_axis`
 (tile by tile on the (B, N, Y, Z) geometry), :func:`fft_slab` (z rows,
 then y columns in place), :func:`rfft_slab` (r2c rows, then y columns)
 and :func:`irfft_slab` (y columns, then the c2r rows,
-:func:`rows_c2r`, with the kernel's re-tangle :func:`retangle_pair`).
+:func:`rows_c2r`, with the kernel's re-tangle :func:`retangle_pair`);
+and the four-step pair: :func:`step1_twiddle` (the column variant tile
+by tile, :func:`step1_tile`, the twiddle at the store) and
+:func:`step3_transposed` (rows block by block into the swizzled stage of
+:func:`step3_geometry` / :func:`step3_at`, then the transposed runs,
+:func:`step3_runs`, its banks counted by :func:`step3_ways`).
 What the kernels do around the core only moves values: ``rfft_last``
 stages a block's output rows back in the exchange planes to copy them
 out whole, ``fft_last`` moves rows of fewer than 8 threads (N < 128) in
@@ -462,3 +467,157 @@ def rfft_slab(x, tabz, taby, w, zpad: int = 0):
     zr, zi = rfft_rows(x, tabz, w, packed=True)
     vr, vi = fft_cols(zr, zi, taby, dim=-2)
     return _pitched(x.shape[:-1], m, zpad, vr, vi)
+
+
+# ---- the four-step pair (csrc/fourstep.cu) ----
+
+H100_SMS = 132   # the SMs of an H100 SXM, on which step 1's tiles were timed
+
+def step1_tile(n1: int, n2: int, b: int = 1, tile: str | None = None,
+               sms: int = H100_SMS) -> dict:
+    """The geometry of step 1's lane tile at (b, n1, n2) (``tile`` None:
+    the one its route launches on a card of ``sms`` SMs,
+    ``fourstep._step1_tile``): the strided-axis kernel's narrow and wide
+    tiles (:func:`axis_tile`) and "half", half the wide tile's lanes and
+    threads (n1 = 512, 1024); with the grid's blocks."""
+    from . import fourstep
+    tile = tile or fourstep._step1_tile(n1, n2, b, sms)
+    if tile == "half":
+        if n1 not in (512, 1024):
+            raise ValueError(f"no 'half' lane tile at n1 = {n1}")
+        p = n1 // E
+        nt = min(32 * p, 1024) // 2
+        g = {"tile": tile, "threads": nt, "P": p, "L": nt // p,
+             "W": max(1, 32 // (nt // p))}
+    else:
+        g = axis_tile(n1, tile)
+    return {**g, "blocks": b * -(-n2 // g["L"])}
+
+
+def step1_twiddle(xr, xi, tab, tw, inverse: bool = False,
+                  tile: str | None = None, sms: int = H100_SMS):
+    """Step 1's register core as its grid runs on planar (B, n1, n2):
+    tile by tile (L consecutive lanes j2 of one b, :func:`step1_tile`,
+    the ragged last tile masked) it reads the tile's columns whole, runs
+    the row core's passes on each (``tab``: the core table of n1,
+    unscaled), and stores output (k1, j2) times ``tw[k1, j2]`` (an
+    (n1, n2, 2) table of (re, im) pairs) in the kernel's order of f32
+    operations. Lanes no tile writes stay NaN."""
+    b, n1, n2 = xr.shape
+    tl = step1_tile(n1, n2, b, tile, sms)["L"]
+    wr, wi = tw[..., 0], tw[..., 1]
+    yr = torch.full_like(xr, float("nan"))
+    yi = torch.full_like(xi, float("nan"))
+    for bb in range(b):
+        for l0 in range(0, n2, tl):
+            sl = slice(l0, min(l0 + tl, n2))
+            vr, vi = fft_rows(xr[bb, :, sl].t(), xi[bb, :, sl].t(), tab,
+                              inverse)
+            vr, vi = vr.t(), vi.t()
+            yr[bb, :, sl] = vr * wr[:, sl] - vi * wi[:, sl]
+            yi[bb, :, sl] = vr * wi[:, sl] + vi * wr[:, sl]
+    return yr, yi
+
+
+def step3_geometry(n2: int) -> dict:
+    """The block of step 3's register core (``regs::TrGeo``) at length
+    n2 in its layout (R, C) (``fourstep._step3_layout``): R rows a run,
+    held by a cluster of C blocks of RB = R / C rows; P threads a row, W
+    rows a warp, the stage's swizzle (RS columns, shift SH) and a block's
+    shared memory in bytes (the rows' exchange planes EX or the stage ST,
+    the larger)."""
+    from . import fourstep
+    sched = passes(n2)
+    r, c = fourstep._step3_layout(n2)
+    p = n2 // E
+    rb = r // c
+    rs = min(rb, 32)
+    ex = 2 * rb * geometry(n2)["PITCH"] * 4 if len(sched) > 1 else 0
+    st = 2 * n2 * rb * 4
+    return {"P": p, "R": r, "C": c, "RB": rb, "threads": rb * p,
+            "W": max(1, 32 // p), "RS": rs,
+            "SH": (32 // rs).bit_length() - 1, "EX": ex, "ST": st,
+            "SMEM": max(ex, st)}
+
+
+def step3_at(g: dict, k, c):
+    """Slot of stage element (k, c) (output k of the block's row c) in a
+    block's stage of :func:`step3_geometry` ``g``: k R + c XOR-swizzled
+    by k's bits above those that pick the bank group."""
+    return k * g["RB"] + (c ^ (((k >> g["SH"]) * g["W"]) & (g["RS"] - 1)))
+
+
+def step3_transposed(zr, zi, tab, inverse: bool = False):
+    """Step 3's register core as its grid runs on planar (B, n1, n2):
+    block by block (R consecutive rows r = b n1 + k1, the ragged last
+    block masked) the row core's passes on each row (``tab``: the core
+    table of n2), output k of the block's row c into the stage at
+    :func:`step3_at`, then each k's run of R floats read back from the
+    stage and stored to (b n2 + k) n1 + k1, every row finding its own b
+    (a block's rows may span two batches); in clusters of C blocks,
+    column c from block c // (R / C). Returns (B, n2, n1); elements no
+    block writes stay NaN."""
+    b, n1, n2 = zr.shape
+    g = step3_geometry(n2)
+    r, rb = g["R"], g["RB"]
+    nrows = b * n1
+    xr, xi = zr.reshape(nrows, n2), zi.reshape(nrows, n2)
+    yr = torch.full((b * n2 * n1,), float("nan"))
+    yi = torch.full_like(yr, float("nan"))
+    k = torch.arange(n2)[:, None]
+    for row0 in range(0, nrows, r):
+        valid = min(r, nrows - row0)
+        vr = torch.zeros(r, n2)
+        vi = torch.zeros(r, n2)
+        vr[:valid], vi[:valid] = fft_rows(xr[row0:row0 + valid],
+                                          xi[row0:row0 + valid], tab,
+                                          inverse)
+        # each block of the cluster writes its stage; the runs read them
+        cols = torch.arange(r)[None, :]
+        q, cb = cols // rb, cols % rb
+        st_r = torch.empty(g["C"], n2 * rb)
+        st_i = torch.empty(g["C"], n2 * rb)
+        at = step3_at(g, k, cb).expand(n2, r)
+        st_r[q.expand(n2, r), at] = vr.t()
+        st_i[q.expand(n2, r), at] = vi.t()
+        rr = row0 + torch.arange(valid)
+        base = (rr // n1) * n2 * n1 + rr % n1
+        dst = base[None, :] + k * n1
+        yr[dst] = st_r[q[:, :valid].expand(n2, valid), at[:, :valid]]
+        yi[dst] = st_i[q[:, :valid].expand(n2, valid), at[:, :valid]]
+    return yr.reshape(b, n2, n1), yi.reshape(b, n2, n1)
+
+
+def step3_ways(n2: int) -> dict:
+    """Wavefronts per warp instruction on a block's stage of step 3
+    (:func:`step3_geometry`): "put", the row core's output writes (thread
+    (g, t) = (tid // P, tid % P) writes element e = t + q P + k n2/R_last
+    of row g), and "get", the runs' reads (thread tid reads column
+    c = tid mod R of element k = tid // R + i NT / R, from the stage of
+    block c // RB, counted on each block it reads). 1 means free of bank
+    conflicts."""
+    g = step3_geometry(n2)
+    p, r, rb = g["P"], g["R"], g["RB"]
+    tid = np.arange(g["threads"])
+    row, t = tid // p, tid % p
+    rl, _ = passes(n2)[-1]
+    put = max(_ways(step3_at(g, t + q * p + kk * (n2 // rl), row)
+                    .reshape(-1, 32).tolist())
+              for q in range(E // rl) for kk in range(rl))
+    c = tid % r
+    get = 1
+    for i in range(E):
+        addr = step3_at(g, tid // r + i * (g["threads"] // r), c % rb)
+        for w in range(g["threads"] // 32):
+            sel = slice(32 * w, 32 * w + 32)
+            src = c[sel] // rb
+            for blk in set(src.tolist()):
+                get = max(get, _ways([addr[sel][src == blk].tolist()]))
+    return {"put": put, "get": get}
+
+
+def step3_runs(n2: int) -> int:
+    """The floats of the longest run of consecutive k1 that one warp
+    instruction of step 3's stores writes in device memory (rows of one
+    batch): R, at most a warp's 32."""
+    return min(32, step3_geometry(n2)["R"])

@@ -786,3 +786,120 @@ def test_cuda_register_c2r_inverts_the_r2c(cuda_dev, shape):
     assert ff.irfft_slab_yz.reg_launches == ff.irfft_slab_yz.launches == 1
     assert ff.fft_x_to_padded.reg_launches == 1
     assert _rel(back.double(), x.double()) < 1e-6
+
+
+# ---- the four-step pair's cores: register (columns + twiddle store; rows +
+# transposing store) and dense ----------------------------------------------
+
+def _pair_core(monkeypatch, dense):
+    if dense:
+        monkeypatch.setattr(ff, "_reg_core", lambda n: False)
+
+
+# (B, n1, n2): the small case, the main path's splits (2^20, 8 x 2^20,
+# 2^22, 2^24 on the 4096 column and step 3's clusters, and the inner 2^21
+# of 3g's prime on step 1's half tile), few lanes at n1 = 4096, few rows
+# at n2 = 4096, the mixed splits of 3 * 2^18
+PAIR_SHAPES = [(3, 128, 256), (1, 1024, 1024), (8, 1024, 1024),
+               (1, 2048, 2048), (1, 4096, 4096), (1, 1024, 2048),
+               (1, 4096, 40), (3, 12, 4096), (1, 1024, 768), (1, 768, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+def test_cuda_step1_twiddle_cores(cuda_dev, monkeypatch, shape, inverse,
+                                  dense):
+    _pair_core(monkeypatch, dense)
+    _, n1, n2 = shape
+    _card_check(fs._step1_twiddle,
+                lambda f, x: f(*x, n1, n2, None, inverse, scale=0.5),
+                shape, cuda_dev)
+    assert fs._step1_twiddle.reg_launches == int(ff._reg_core(n1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+def test_cuda_step3_transposed_cores(cuda_dev, monkeypatch, shape, inverse,
+                                     dense):
+    _pair_core(monkeypatch, dense)
+    _, n1, n2 = shape
+    _card_check(fs._step3_transposed,
+                lambda f, x: f(*x, n1, n2, None, inverse), shape, cuda_dev)
+    assert fs._step3_transposed.reg_launches == int(ff._reg_core(n2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_step1_caller_table_cores(cuda_dev, monkeypatch, dense):
+    # step12_planar's chunk of a distributed table: all scaling in it
+    _pair_core(monkeypatch, dense)
+    tw = torch.stack(_pair((1024, 200), cuda_dev, seed=8), -1)
+    _card_check(fs._step1_twiddle,
+                lambda f, x: f(*x, 1024, 200, None, True, tw=tw),
+                (2, 1024, 200), cuda_dev)
+    assert fs._step1_twiddle.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", REG_LENGTHS + [96, 320])
+def test_cuda_pair_every_length(cuda_dev, n):
+    # each register length on each side: step 1 over a ragged lane tile
+    # (40 lanes), step 3 over 15 rows (R need not divide n1 = 5: a
+    # block's rows span batches)
+    _card_check(fs._step1_twiddle,
+                lambda f, x: f(*x, n, 40, None, False, scale=0.25),
+                (2, n, 40), cuda_dev)
+    assert fs._step1_twiddle.reg_launches == int(ff._reg_core(n))
+    _card_check(fs._step3_transposed,
+                lambda f, x: f(*x, 5, n, None, True), (3, 5, n), cuda_dev)
+    assert fs._step3_transposed.reg_launches == int(ff._reg_core(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,lengths", [
+    ("narrow", [16, 64, 128]), ("wide", [256, 512, 1024, 2048, 4096]),
+    ("half", [512, 1024])])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_step1_lane_tiles(cuda_dev, tile, lengths, inverse):
+    for n in lengths:
+        _card_check(fs._step1_twiddle,
+                    lambda f, x: f(*x, n, 72, None, inverse,
+                                   **({} if f is fs._step1_twiddle.plain
+                                      else {"tile": tile})),
+                    (2, n, 72), cuda_dev)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_probe_refusals(cuda_dev):
+    x = _pair((2, 1024, 64), cuda_dev)
+    with pytest.raises(ValueError, match="tile"):
+        fs._step1_twiddle(*x, 1024, 64, None, False, tile="square")
+    for n in (256, 2048):                      # no half tile there
+        with pytest.raises(RuntimeError):
+            fs._step1_twiddle(*_pair((2, n, 64), cuda_dev), n, 64, None,
+                              False, tile="half")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,radices", [(32768, (32, 32, 32)),
+                                       (30720, (30, 32, 32)),
+                                       (30720, (32, 30, 32))])
+def test_cuda_long_lines_route_by_length(cuda_dev, n, radices):
+    # a line past one block (three stages past about 29k points) runs the
+    # pair on (rows, r0, n / r0), each kernel on the core its own length
+    # takes: r0 = 30 runs step 1 dense, n / r0 = 960 step 3
+    x = _pair((3, n), cuda_dev, seed=18)
+    ff.reset_counts()
+    got = ff.fft_last(*x, radices=radices, scale=0.5)
+    torch.cuda.synchronize()
+    r0 = radices[0]
+    assert fs._step1_twiddle.launches == fs._step3_transposed.launches == 1
+    assert fs._step1_twiddle.reg_launches == int(ff._reg_core(r0))
+    assert fs._step3_transposed.reg_launches == int(ff._reg_core(n // r0))
+    want = ff.fft_last.plain(*x, radices=radices, scale=0.5)
+    for g, w in zip(got, want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
