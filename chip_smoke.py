@@ -15,8 +15,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    full precision); the two row kernels (``fft_last``, ``rfft_last``) on
    a length of each core, register (``csrc/fft_regs.cuh``) and dense,
    and the three slab kernels (``fft_slab``, ``rfft_slab``,
-   ``irfft_slab``) and the strided-axis kernel (``fft_axis``: its four
-   wrappers, in place, the 64 x 1024^2 y pass, columns of 2048 and 4096)
+   ``irfft_slab``), the packed c2r rows (``icrfft_last``: (65536, 128)
+   among them), the strided-axis kernel (``fft_axis``: its four
+   wrappers, in place, the 64 x 1024^2 y pass, columns of 2048 and 4096,
+   and the mixed lengths: the 320^3 x pass, 192^3's axes, a 768 column)
    and the four-step pair (``step1_twiddle``, ``step3_transposed``: the
    long 1-D splits of 2^20, 8 x 2^20, 2^22 and 2^24, the inner 2^21 of
    3g's prime, few lanes at n1 = 4096,
@@ -59,12 +61,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
    the dense core at N = 192), ``fft_slab`` on 3a's 256^3 and 512^3
    cases (the 320^3 slab on the dense core), ``rfft_slab`` on every
-   slab of 3b, ``fft_axis`` on every x pass of 3a but 320^3's (256^3 and
-   512^3, in place, the 64 x 1024^2 y pass) and of 3b (the c2r's
-   ``fft_x_to_padded`` among them), ``irfft_slab`` on 3b's 256^3 and
-   512^3 c2r, and ``step1_twiddle`` / ``step3_transposed`` on every
-   power-of-two split of 3c (step 3 dense on the 768 side of 3 * 2^18)
-   and throughout 3d and 3g;
+   slab of 3b, ``fft_axis`` on every x pass of 3a (256^3, 512^3, 320^3
+   on the mixed-radix column variant, in place, the 64 x 1024^2 y pass),
+   of 3b (the c2r's ``fft_x_to_padded`` among them) and every axis pass
+   of 3d (192^3's among them), ``irfft_slab`` on 3b's 256^3 and 512^3
+   c2r, ``icrfft_last`` on every packed c2r of 3e, and ``step1_twiddle``
+   / ``step3_transposed`` on every power-of-two split of 3c (step 3
+   dense on the 768 side of 3 * 2^18) and throughout 3d and 3g;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, there each kernel of the
    four-step pair on both cores with its bound and TB/s, and the pair's
@@ -81,10 +84,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and 1 x 1 mesh c2r plans, the cube and the prime-length ``fft``
    (device time by op, busy share of the host wall); the paths of the
    register-core kernels (64 x 1024^2 c2c, the 256^3 ``planar=False``
-   r2c, namespace ``rfftn`` 256^3; 256^3 and 512^3 c2c, 256^3 packed and
-   numpy r2c, 512^3 packed r2c, namespace ``fftn`` 256^3; 256^3 packed
-   and numpy c2r, 512^3 packed c2r, namespace ``irfftn`` 256^3) and the
-   eight register-core kernels at their main-path shapes, each with the
+   r2c, namespace ``rfftn`` 256^3; 256^3, 512^3 and 320^3 c2c, 192^3
+   r2c and c2r (the unfused real route), 256^3 packed and numpy r2c,
+   512^3 packed r2c, namespace ``fftn`` 256^3; 256^3 packed and numpy
+   c2r, 512^3 packed c2r, namespace ``irfftn`` 256^3; the 1 x 1 mesh's
+   packed c2r 256^3) and the nine register-core kernels at their
+   main-path shapes, each with the
    register core and with every length routed to the dense core
    (``fused_fft._reg_core``,
    ``_reg_slab`` and ``_reg_axis`` patched off), both row kernels so at
@@ -314,11 +319,12 @@ def _short(op: str) -> str:
 
 # the kernels whose wrappers count their register-core launches
 REG_CORE = ("fft_last", "rfft_last", "fft_slab", "rfft_slab", "fft_axis",
-            "irfft_slab", "step1_twiddle", "step3_transposed")
+            "irfft_slab", "step1_twiddle", "step3_transposed",
+            "icrfft_last")
 # the kernels checked at each shape on both cores (the row kernels run
 # the core their length takes)
 BOTH_CORES = ("fft_slab", "rfft_slab", "fft_axis", "irfft_slab",
-              "step1_twiddle", "step3_transposed")
+              "step1_twiddle", "step3_transposed", "icrfft_last")
 # the slab kernels, whose register core runs clusters or two grids
 SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 
@@ -416,6 +422,13 @@ def main() -> int:
         ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1), (16, 32, 128),
          None),
         ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 0), (320, 320, 320),
+         None),
+        ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 0), (192, 192, 192),
+         None),
+        ("fft_axis", ff.fft_sublane,
+         lambda f, x: f(*x, 1, inverse=True, scale=0.5), (192, 192, 192),
+         None),
+        ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1), (8, 768, 768),
          None),
         ("fft_axis", ff.fft_sublane,
          lambda f, x: f(x[0].clone(), x[1].clone(), 1, inverse=True,
@@ -1081,28 +1094,41 @@ def main() -> int:
     print(f"register core: fft_slab on 3a ({c2c_slab_reg} of {c2c_slab}: "
           f"256^3 and 512^3; the rest dense at 320^3); rfft_slab on 3b "
           f"({r_slab_reg} of {r_slab})")
-    # the strided-axis kernel on 3a: the x passes of 256^3 and 512^3
-    # (fft_x_from_padded, five calls) and the in-place and 64 x 1024^2
-    # passes (fft_sublane) on the register core, the 320^3 x pass dense;
-    # on 3b the c2r's x pass (fft_x_to_padded) and the r2c's, all
-    # register; irfft_slab on 3b's 256^3 and 512^3 c2r (five calls). The
-    # 320^3 x pass cannot take the register core, so one dense launch on
-    # 3a is it.
+    # the strided-axis kernel on 3a: every x pass on the register core,
+    # 256^3 and 512^3 (fft_x_from_padded, five calls), 320^3 (the mixed
+    # radix-20 column variant), in place and the 64 x 1024^2 y pass
+    # (fft_sublane); on 3b the c2r's x pass (fft_x_to_padded) and the
+    # r2c's; on 3d 256^3's and 192^3's axis passes (192: radix 12);
+    # irfft_slab on 3b's 256^3 and 512^3 c2r (five calls)
     ax_c2c, ax_c2c_reg = runs["c2c"][1]["fft_axis"], \
         runs["c2c"][2]["fft_axis"]
-    if runs["c2c"][0]["fft_x_from_padded"][0] < 4 or ax_c2c - ax_c2c_reg != 1:
-        raise AssertionError("fft_axis on 3a: want one dense launch (320^3): "
-                             f"{ax_c2c_reg} register of {ax_c2c}")
+    if runs["c2c"][0]["fft_x_from_padded"][0] < 4 or ax_c2c_reg != ax_c2c:
+        raise AssertionError("fft_axis on 3a: want every x pass on the "
+                             f"register core: {ax_c2c_reg} of {ax_c2c}")
     ax_r, ax_r_reg = runs["r2c"][1]["fft_axis"], runs["r2c"][2]["fft_axis"]
     ir, ir_reg = runs["r2c"][1]["irfft_slab"], runs["r2c"][2]["irfft_slab"]
     if not (0 < ax_r_reg == ax_r and ir >= 4 and ir_reg == ir):
         raise AssertionError("3b: want every x pass and every irfft_slab on "
                              f"the register core: fft_axis {ax_r_reg} of "
                              f"{ax_r}, irfft_slab {ir_reg} of {ir}")
+    ax_l, ax_l_reg = runs["local_real"][1]["fft_axis"], \
+        runs["local_real"][2]["fft_axis"]
+    if not 0 < ax_l_reg == ax_l:
+        raise AssertionError("3d: want every axis pass (256^3, 192^3) on "
+                             f"the register core: {ax_l_reg} of {ax_l}")
     print(f"register core: fft_axis on 3a ({ax_c2c_reg} of {ax_c2c}: the x "
-          "passes of 256^3 and 512^3, in place and the 64 x 1024^2 y pass; "
-          f"320^3 dense) and on 3b ({ax_r_reg} of {ax_r}); irfft_slab on 3b "
-          f"({ir_reg} of {ir}: 256^3 and 512^3)")
+          "passes of 256^3, 512^3 and 320^3, in place and the 64 x 1024^2 "
+          f"y pass), on 3b ({ax_r_reg} of {ax_r}) and on 3d ({ax_l_reg} of "
+          f"{ax_l}: 256^3 and 192^3); irfft_slab on 3b ({ir_reg} of {ir}: "
+          "256^3 and 512^3)")
+    # the 1 x 1 mesh's packed c2r stages (256^3, 512^3: M = 128, 256) on
+    # the register core's c2r rows
+    ic, ic_reg = runs["mesh"][1]["icrfft_last"], \
+        runs["mesh"][2]["icrfft_last"]
+    if not 0 < ic_reg == ic:
+        raise AssertionError("icrfft_last on 3e: want the register core "
+                             f"throughout: {ic_reg} of {ic}")
+    print(f"register core: icrfft_last on 3e ({ic_reg} of {ic})")
     # the four-step pair, each kernel on the core of its own length: on 3c
     # every power-of-two split (2^20 four times, 8 x 2^20, 2^22, 2^24) and
     # 3 * 2^18's (1024, 768) take the register core, but for step 3 at 768
@@ -1337,6 +1363,11 @@ def main() -> int:
         show(f"port single-device {label} (route {p_one.route})", r_o)
         show(f"torch.fft (cuFFT) {label}", r_c)
         if real and n == 256:
+            with _dense_core(ff):
+                r_d = time_cuda(p_mesh, args)
+            show(f"port mesh 1x1 {label}, dense core", r_d,
+                 f", {r_d['median_ms'] / r_m['median_ms']:.2f}x the "
+                 "register core")
             show_breakdown(f"port mesh 1x1 {label}", p_mesh, args)
             # four chunks a phase, a window of one and the ry split: the
             # pipeline's chunk copies and concatenations
@@ -1404,6 +1435,8 @@ def main() -> int:
     c3 = _pair((256, 256, 256), gen)
     x5 = torch.randn((512, 512, 512), generator=gen, device="cuda")
     c5 = _pair((512, 512, 512), gen)
+    c320 = _pair((320, 320, 320), gen)
+    x192 = torch.randn((192, 192, 192), generator=gen, device="cuda")
     real = {"real": True, "planar": True}
     paths = (
         ("c2c 64x1024^2 (plan, 2-D route)",
@@ -1416,6 +1449,13 @@ def main() -> int:
          ot.plan((256, 256, 256), "complex64", planar=True), (c3,)),
         ("c2c 512^3 (plan, slab + x)",
          ot.plan((512, 512, 512), "complex64", planar=True), (c5,)),
+        ("c2c 320^3 (plan, slab + x)",
+         ot.plan((320, 320, 320), "complex64", planar=True), (c320,)),
+        ("r2c 192^3 (plan, local)",
+         ot.plan((192, 192, 192), "float32", **real), (x192,)),
+        ("c2r 192^3 (plan, local)",
+         ot.plan((192, 192, 192), "float32", inverse=True, **real),
+         ot.plan((192, 192, 192), "float32", **real)(x192)),
         ("r2c 256^3 packed (plan)",
          ot.plan((256, 256, 256), "float32", packed=True, **real), (x3,)),
         ("r2c 256^3 numpy (plan)",
@@ -1468,7 +1508,7 @@ def main() -> int:
         show(f"kernel {label}, dense core", r_dense)
         show(f"library {label} (torch.fft.{lib[0]})", r_lib)
         del lib
-    del xr, xi, x3, c3, x5, c5, paths
+    del xr, xi, x3, c3, x5, c5, c320, x192, paths
     torch.cuda.empty_cache()
     # the slabs' phase ledgers, the strided pass's lane tiles and the
     # four-step pair's variants (offt_tpu_torch.bench)
@@ -1537,7 +1577,9 @@ def main() -> int:
             show(f"library {name} (torch.fft.{lib[0]}) {shape}", r_l)
         bms, by = _bound(name, shape)
         print(f"bound {name} {shape}: {bms:.4f} ms ({by}); kernel at "
-              f"{bms / r_k['median_ms']:.3f} of it {tag}")
+              f"{bms / r_k['median_ms']:.3f} of it, "
+              f"{_work(name, shape)[0] / r_k['median_ms'] / 1e9:.3f} TB/s "
+              f"{tag}")
         extra = {}
         if name in REG_CORE:
             with _dense_core(ff):
@@ -1551,7 +1593,8 @@ def main() -> int:
             # the register core (its lane tile), the dense core and as the
             # library call: the c2r x pass (z_true 128 of 129 lanes), the
             # 512^3 x pass, the 64 x 1024^2 y pass, a column at 2048 and
-            # at 4096, and the 320^3 x pass (dense on both)
+            # at 4096, and the mixed lengths: the 320^3 x pass, 192^3's
+            # axes 0 and 1, a 768 column
             for what, shp, lanes, ax, call_x in (
                     ("fft_x_to_padded", (256, 256, 129), 128, 0,
                      lambda f, x: f(*x, z_true=128, inverse=True)),
@@ -1564,7 +1607,13 @@ def main() -> int:
                     ("fft_sublane", (2, 4096, 520), 520, 1,
                      lambda f, x: f(*x, 1)),
                     ("fft_sublane", (320, 320, 320), 320, 0,
-                     lambda f, x: f(*x, 0))):
+                     lambda f, x: f(*x, 0)),
+                    ("fft_sublane", (192, 192, 192), 192, 0,
+                     lambda f, x: f(*x, 0)),
+                    ("fft_sublane", (192, 192, 192), 192, 1,
+                     lambda f, x: f(*x, 1)),
+                    ("fft_sublane", (8, 768, 768), 768, 1,
+                     lambda f, x: f(*x, 1))):
                 fx = getattr(ff, what)
                 xt = _pair(shp, gen)
                 n = shp[ax]

@@ -51,7 +51,8 @@ _SIGNATURES = {
                        _F, _I, _P],
     "offt_step1_twiddle": [_P] * 6 + [_L, _I, _L] + [_I] * 8 + [_P],
     "offt_step3_transposed": [_P] * 5 + [_L] + [_I] * 9 + [_P],
-    "offt_icrfft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    "offt_icrfft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     "offt_fft_cube": [_P] * 10 + [_L] + [_I] * 21 + [_P],
 }
 

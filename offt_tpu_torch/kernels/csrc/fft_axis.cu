@@ -31,6 +31,9 @@
 //     N = 512, 16 at 1024, 8 at 2048, 4 at 4096 (runs of 16 bytes there;
 //     a tile of 8 lanes staged through a cluster's shared memory ran
 //     level with it and was dropped, PERF.md).
+// - the mixed lengths N = R0 2^k, R0 = 3 or 5, 16 <= 2^k <= 512, run the
+//   same column variant with 4 R0 values a thread and a last pass of
+//   radix 12 or 20 (fft_axis_mix.cu, a source of its own);
 // - every other length runs the dense core of fft_core.cuh: a block owns
 //   an (N x T) tile of T consecutive lanes, read column-wise into shared
 //   memory; a ragged last tile is masked; the scale rides the table.
@@ -84,12 +87,17 @@ static cudaError_t axis_regs(const float* xr, const float* xi, float* yr,
   return cudaErrorInvalidValue;
 }
 
+// the register core at a mixed length (fft_axis_mix.cu)
+cudaError_t axis_mix(const float* xr, const float* xi, float* yr, float* yi,
+                     const float2* tab, const AxisGeom& g, int n,
+                     int inverse, float scale, int tile, cudaStream_t s);
+
 }  // namespace offt
 
-// reg != 0: the register core (n a power of two in [16, 4096]; the first
-// n table rows, `inverse`, `scale` and `tile`, an AxisTile, are read, the
-// radices and T are not); else the dense core (radices, T; the scale is
-// in the table; `tile` must be 0).
+// reg != 0: the register core (n a power of two in [16, 4096], or a mixed
+// length of fft_axis_mix.cu; the first n table rows, `inverse`, `scale`
+// and `tile`, an AxisTile, are read, the radices and T are not); else the
+// dense core (radices, T; the scale is in the table; `tile` must be 0).
 extern "C" int offt_fft_axis(const void* xr, const void* xi, void* yr,
                              void* yi, const void* tab, long long nb, int n,
                              long long ny, long long nz, long long isb,
@@ -104,6 +112,9 @@ extern "C" int offt_fft_axis(const void* xr, const void* xi, void* yr,
     const float* ai = (const float*)xi;
     const float2* tb = (const float2*)tab;
     cudaStream_t s = (cudaStream_t)stream;
+    if (n & (n - 1))
+      return (int)axis_mix(ar, ai, (float*)yr, (float*)yi, tb, g, n, inverse,
+                           scale, tile, s);
     return (int)regs::by_log(n, [&](auto lg) {
       constexpr int LOG = decltype(lg)::value;
       return inverse ? axis_regs<LOG, true>(ar, ai, (float*)yr, (float*)yi,

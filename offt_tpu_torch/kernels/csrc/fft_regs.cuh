@@ -1,8 +1,10 @@
 // fft_regs.cuh: the register-resident Stockham core for lines of
 // power-of-two length N, 16 <= N <= 4096: contiguous rows (fft_last.cu,
-// rfft_last.cu, the z pass of the slabs, the c2r rows of irfft_slab.cu)
-// and, in its column variant, strided axes (fft_axis.cu; the y pass of
-// the three slabs). The kernels built on it are in regs_kernels.cuh.
+// rfft_last.cu, the z pass of the slabs, the c2r rows of irfft_slab.cu
+// and icrfft_last.cu) and, in its column variant, strided axes
+// (fft_axis.cu; the y pass of the three slabs); and, in the column
+// variant only, the mixed lengths N = R0 2^k, R0 = 3 or 5 (MixGeo,
+// fft_axis_mix.cu). The kernels built on it are in regs_kernels.cuh.
 //
 // Replaces, on those lengths: the dense shared-memory core of fft_core.cuh
 // (itself the port of offt_tpu/kernels/pallas_fft.py _core_apply :428).
@@ -67,6 +69,27 @@
 // distinct groups of L banks: one wavefront each. At L = 1 (N = 4096 in
 // 256 threads) a lane is a row and the row map phys, with its float4
 // writes, serves it.
+//
+// Mixed lengths (MixGeo, core_mix), the decision: a thread holds V = 4 R0
+// values (12 or 20), so P = N / V is a power of two and the column
+// variant's whole-lanes rule and lane tiles keep their form. The power
+// of two runs first, in radix-4 passes (a radix 2 last where log2 P is
+// odd), and one pass of radix V runs last, at stride P: every exchange
+// stride is then a power of two, so put and get keep their base-plus-
+// constant addresses, and the last pass leaves element t + r P in
+// natural order for a coalesced store. (The other order, radix V first,
+// makes the strides 12 or 20 times a power of two, which no additive pad
+// splits over.) The radix-V butterfly is Good-Thomas (3 x 4 or 5 x 4,
+// coprime, so no inner twiddles): hard-coded 3- and 5-point networks on
+// the constant roots of 2 pi/3, 2 pi/5 and 4 pi/5, then the radix-4
+// network, then a renaming of registers; the inter-pass twiddles are
+// W_N^(r (j mod Ns) N/(Ns R)) from the first N rows of the core table,
+// as at powers of two. The exchange planes are padded one slot per four
+// elements (ColLay<L, 2>): the first pass writes runs of four, so with
+// W = 32 / L = 2 or 4 row threads a warp (N >= 768) a pad per 16 would
+// put two of them on one bank; one per four keeps every put and get at
+// one wavefront for W <= 4 (N <= 1536 and 2560; 3072, W = 8, stays on
+// the dense core) at 1.25 N slots a lane.
 
 #pragma once
 
@@ -110,6 +133,10 @@ struct Geo {
   // dynamic shared memory of a block: both planes of every row
   static constexpr size_t SMEM = (size_t)2 * ROWS * PITCH * sizeof(float);
 };
+
+__host__ __device__ constexpr int ilog2(int n) {
+  return n <= 1 ? 0 : 1 + ilog2(n / 2);
+}
 
 // f(I) for I = BEGIN .. END-1 as std::integral_constant: every index into
 // a register array below is a constant expression, so no array is left
@@ -188,10 +215,11 @@ static __device__ __forceinline__ void dif(float2* v) {
   if constexpr (HALF > 1) dif<R, HALF / 2, INV>(v);
 }
 
-// The R-point DFT of v[0..R) in place, natural order in and out: the
-// radix-2 network, then its digit reversal (a renaming of registers).
+// The R-point DFT of v[0..R) in place, natural order in and out, R a
+// power of two: the radix-2 network, then its digit reversal (a renaming
+// of registers).
 template <int R, bool INV>
-static __device__ __forceinline__ void dft(float2* v) {
+static __device__ __forceinline__ void dft2k(float2* v) {
   constexpr int BITS = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
   static_assert(R == (1 << BITS), "radix 2, 4, 8 or 16");
   dif<R, R / 2, INV>(v);
@@ -201,6 +229,100 @@ static __device__ __forceinline__ void dft(float2* v) {
     t[K] = v[brev(K, BITS)];
   });
   unroll<0, R>([&](auto k) { v[decltype(k)::value] = t[decltype(k)::value]; });
+}
+
+// d times -i (forward) or +i (inverse): the sign of W = exp(-+ 2 pi i/R)
+template <bool INV>
+static __device__ __forceinline__ float2 mul_i(float2 d) {
+  return INV ? make_float2(-d.y, d.x) : make_float2(d.y, -d.x);
+}
+
+// The 3-point DFT of (a, b, c) in place: X1, X2 = a - (b + c)/2 -+ i
+// sin(2 pi/3) (b - c) (forward), 16 flops.
+template <bool INV>
+static __device__ __forceinline__ void dft3(float2& a, float2& b, float2& c) {
+  constexpr float h = 0.86602540378443865f;  // sin 2 pi/3
+  const float2 s = cadd(b, c), d = csub(b, c);
+  const float2 m = make_float2(fmaf(-0.5f, s.x, a.x), fmaf(-0.5f, s.y, a.y));
+  const float2 e = mul_i<INV>(make_float2(h * d.x, h * d.y));
+  a = cadd(a, s);
+  b = cadd(m, e);
+  c = csub(m, e);
+}
+
+// The 5-point DFT of (x0 .. x4) in place, with the constant roots of 2 pi/5
+// and 4 pi/5: X1, X4 = x0 + c1 t1 + c2 t2 -+ i (s1 t3 + s2 t4) and X2, X3 =
+// x0 + c2 t1 + c1 t2 -+ i (s2 t3 - s1 t4) (forward), t1, t3 = x1 +- x4,
+// t2, t4 = x2 +- x3; 48 flops.
+template <bool INV>
+static __device__ __forceinline__ void dft5(float2& x0, float2& x1,
+                                            float2& x2, float2& x3,
+                                            float2& x4) {
+  constexpr float c1 = 0.30901699437494742f;   // cos 2 pi/5
+  constexpr float c2 = -0.80901699437494742f;  // cos 4 pi/5
+  constexpr float s1 = 0.95105651629515357f;   // sin 2 pi/5
+  constexpr float s2 = 0.58778525229247313f;   // sin 4 pi/5
+  const float2 t1 = cadd(x1, x4), t2 = cadd(x2, x3);
+  const float2 t3 = csub(x1, x4), t4 = csub(x2, x3);
+  const float2 a1 = make_float2(fmaf(c2, t2.x, fmaf(c1, t1.x, x0.x)),
+                                fmaf(c2, t2.y, fmaf(c1, t1.y, x0.y)));
+  const float2 a2 = make_float2(fmaf(c1, t2.x, fmaf(c2, t1.x, x0.x)),
+                                fmaf(c1, t2.y, fmaf(c2, t1.y, x0.y)));
+  const float2 e1 = mul_i<INV>(make_float2(fmaf(s2, t4.x, s1 * t3.x),
+                                           fmaf(s2, t4.y, s1 * t3.y)));
+  const float2 e2 = mul_i<INV>(make_float2(fmaf(-s1, t4.x, s2 * t3.x),
+                                           fmaf(-s1, t4.y, s2 * t3.y)));
+  x0 = cadd(cadd(x0, t1), t2);
+  x1 = cadd(a1, e1);
+  x4 = csub(a1, e1);
+  x2 = cadd(a2, e2);
+  x3 = csub(a2, e2);
+}
+
+// The R-point DFT of v[0..R) in place, R = 4 R0 (R0 = 3 or 5, coprime to
+// 4), by Good-Thomas, with no twiddles: input n = (4 n1 + R0 n2) mod R;
+// R0-point DFTs along n1 (for each n2), then 4-point DFTs along n2 (for
+// each k1), leaving X[k] where k1 = k mod R0, k2 = k mod 4 put it (a
+// renaming of registers).
+template <int R, bool INV>
+static __device__ __forceinline__ void dft_pfa(float2* v) {
+  constexpr int R0 = R / 4;
+  static_assert(R == 12 || R == 20, "radix 12 or 20");
+  unroll<0, 4>([&](auto n2c) {
+    constexpr int B = R0 * decltype(n2c)::value;
+    if constexpr (R0 == 3)
+      dft3<INV>(v[B % R], v[(B + 4) % R], v[(B + 8) % R]);
+    else
+      dft5<INV>(v[B % R], v[(B + 4) % R], v[(B + 8) % R], v[(B + 12) % R],
+                v[(B + 16) % R]);
+  });
+  unroll<0, R0>([&](auto k1c) {
+    constexpr int B = 4 * decltype(k1c)::value;
+    float2 u[4];
+    unroll<0, 4>([&](auto n) {
+      u[decltype(n)::value] = v[(B + R0 * decltype(n)::value) % R];
+    });
+    dft2k<4, INV>(u);
+    unroll<0, 4>([&](auto n) {
+      v[(B + R0 * decltype(n)::value) % R] = u[decltype(n)::value];
+    });
+  });
+  float2 t[R];
+  unroll<0, R>([&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    t[K] = v[(4 * (K % R0) + R0 * (K % 4)) % R];
+  });
+  unroll<0, R>([&](auto k) { v[decltype(k)::value] = t[decltype(k)::value]; });
+}
+
+// The R-point DFT of a pass: radix 2-16, or 12 and 20 (the last pass of a
+// mixed length, MixGeo).
+template <int R, bool INV>
+static __device__ __forceinline__ void dft(float2* v) {
+  if constexpr (R == 12 || R == 20)
+    dft_pfa<R, INV>(v);
+  else
+    dft2k<R, INV>(v);
 }
 
 // Rows of P <= 32 threads lie in one warp.
@@ -224,11 +346,11 @@ struct RowLay {
   static __device__ __forceinline__ void sync() { row_sync<N>(); }
 };
 
-template <int L>
+template <int L, int SH = 4>
 struct ColLay {
   static constexpr bool kVec4 = L == 1;
   static __host__ __device__ constexpr int at(int a) {
-    return L == 1 ? phys(a) : (a + (a >> 4)) * L;
+    return L == 1 ? phys(a) : (a + (a >> SH)) * L;
   }
   template <int N>
   static __device__ __forceinline__ void sync() { __syncthreads(); }
@@ -252,12 +374,13 @@ struct ColGeo {
 };
 
 // Pass of radix R at stride NS: twiddle and butterfly the thread's
-// kE / R butterflies j = t + q P (inputs v[q R + r] = element j + r N/R).
-template <int N, int R, int NS, bool INV>
+// V / R butterflies j = t + q P, P = N / V (inputs v[q R + r] = element
+// j + r N/R).
+template <int N, int R, int NS, bool INV, int V = kE>
 static __device__ __forceinline__ void butterflies(float2* v, int t,
                                                    const float2* tab) {
-  constexpr int P = N / kE;
-  unroll<0, kE / R>([&](auto qc) {
+  constexpr int P = N / V;
+  unroll<0, V / R>([&](auto qc) {
     constexpr int Q = decltype(qc)::value * R;
     if constexpr (NS > 1) {
       const int j = t + decltype(qc)::value * P;
@@ -276,11 +399,11 @@ static __device__ __forceinline__ void butterflies(float2* v, int t,
 // splits over these sums (phys(x + c) = phys(x) + phys(c) when c is a
 // multiple of a power of two above x), so each store is the thread's
 // base phys(d) plus a compile-time offset.
-template <int N, int R, int NS, typename Lay>
+template <int N, int R, int NS, typename Lay, int V = kE>
 static __device__ __forceinline__ void put(float* sre, float* sim,
                                            const float2* v, int t) {
-  constexpr int P = N / kE;
-  unroll<0, kE / R>([&](auto qc) {
+  constexpr int P = N / V;
+  unroll<0, V / R>([&](auto qc) {
     constexpr int Q = decltype(qc)::value * R;
     const int j = t + decltype(qc)::value * P;
     const int d = Lay::at((j / NS) * NS * R + (j % NS));
@@ -306,11 +429,11 @@ static __device__ __forceinline__ void put(float* sre, float* sim,
 
 // Read the inputs of a radix-R pass: v[q R + r] = element j + r N/R,
 // at the thread's base phys(j) plus a compile-time offset (see put).
-template <int N, int R, typename Lay>
+template <int N, int R, typename Lay, int V = kE>
 static __device__ __forceinline__ void get(const float* sre, const float* sim,
                                            float2* v, int t) {
-  constexpr int P = N / kE;
-  unroll<0, kE / R>([&](auto qc) {
+  constexpr int P = N / V;
+  unroll<0, V / R>([&](auto qc) {
     constexpr int Q = decltype(qc)::value * R;
     const int b = Lay::at(t + decltype(qc)::value * P);
     unroll<0, R>([&](auto r) {
@@ -322,10 +445,10 @@ static __device__ __forceinline__ void get(const float* sre, const float* sim,
 
 // Call f(e, v[q R + r]) for element e = j + r N/R of a radix-R pass, in
 // the order of the loads.
-template <int N, int R, typename F>
+template <int N, int R, int V = kE, typename F>
 static __device__ __forceinline__ void each(float2* v, int t, F f) {
-  constexpr int P = N / kE;
-  unroll<0, kE / R>([&](auto qc) {
+  constexpr int P = N / V;
+  unroll<0, V / R>([&](auto qc) {
     unroll<0, R>([&](auto r) {
       constexpr int Q = decltype(qc)::value, K = decltype(r)::value;
       f(t + Q * P + K * (N / R), v[Q * R + K]);
@@ -368,6 +491,73 @@ static __device__ __forceinline__ void core(float2* v, float* sre, float* sim,
 template <int LOG, typename F>
 static __device__ __forceinline__ void outputs(float2* v, int t, F f) {
   each<Geo<LOG>::N, Geo<LOG>::RLAST>(v, t, [&](int e, float2& x) { f(e, x); });
+}
+
+// ---- mixed lengths N = R0 2^K, R0 = 3 or 5 (the column variant) ----
+// Each thread holds V = 4 R0 values (12 or 20), so a line takes P = N / V
+// threads, a power of two. The passes run the power of two first, radix
+// 4 (radix 2 last where log2 P is odd), then one pass of radix V at
+// stride P: every exchange then has a power-of-two stride and keeps the
+// base-plus-constant addresses of put and get, and the last pass leaves
+// element t + r P in natural order for the store. (48, 80: (4, V); 96,
+// 160: (4, 2, V); 192, 320: (4, 4, V); 384, 640: (4, 4, 2, V); 768,
+// 1280: (4, 4, 4, V); 1536, 2560: (4, 4, 4, 2, V).)
+template <int N>
+struct MixGeo {
+  static constexpr int R0 = N % 3 == 0 ? 3 : 5;
+  static constexpr int V = 4 * R0;  // complex values a thread holds
+  static constexpr int P = N / V;   // threads a line
+  static constexpr int LP = ilog2(P);
+  static_assert(N % V == 0 && P >= 4 && P == 1 << LP,
+                "mixed length: N = R0 2^K, R0 = 3 or 5, N >= 16 R0");
+  static constexpr int NPASS = (LP + 1) / 2 + 1;
+  __host__ __device__ static constexpr int radix(int p) {
+    return p == NPASS - 1 ? V : (p == NPASS - 2 && LP % 2) ? 2 : 4;
+  }
+  __host__ __device__ static constexpr int stride(int p) {
+    return p == 0 ? 1 : stride(p - 1) * radix(p - 1);
+  }
+};
+
+// Passes PASS .. NPASS - 1 of a mixed length: the exchange of pass
+// PASS - 1's outputs, then pass PASS's loads and butterflies.
+template <int N, int PASS, bool INV, typename Lay>
+static __device__ __forceinline__ void mix_passes(float2* v, float* sre,
+                                                  float* sim, int t,
+                                                  const float2* tab) {
+  using M = MixGeo<N>;
+  if constexpr (PASS < M::NPASS) {
+    constexpr int R = M::radix(PASS), RP = M::radix(PASS - 1);
+    if constexpr (PASS > 1) Lay::template sync<N>();
+    put<N, RP, M::stride(PASS - 1), Lay, M::V>(sre, sim, v, t);
+    Lay::template sync<N>();
+    get<N, R, Lay, M::V>(sre, sim, v, t);
+    butterflies<N, R, M::stride(PASS), INV, M::V>(v, t, tab);
+    mix_passes<N, PASS + 1, INV, Lay>(v, sre, sim, t, tab);
+  }
+}
+
+// The length-N DFT of one line at a mixed length, as core does at a power
+// of two (the same arguments; v holds V = MixGeo<N>::V values). On
+// return v holds output element t + r P in v[r] (walk it with
+// outputs_mix); synchronise before writing the exchange planes again.
+template <int N, bool INV, typename Lay, typename Load>
+static __device__ __forceinline__ void core_mix(float2* v, float* sre,
+                                                float* sim, int t,
+                                                const float2* tab,
+                                                Load load) {
+  using M = MixGeo<N>;
+  constexpr int R = M::radix(0);
+  each<N, R, M::V>(v, t, [&](int e, float2& x) { x = load(e); });
+  butterflies<N, R, 1, INV, M::V>(v, t, tab);
+  mix_passes<N, 1, INV, Lay>(v, sre, sim, t, tab);
+}
+
+// Call f(e, value) for each output element the thread holds after core_mix.
+template <int N, typename F>
+static __device__ __forceinline__ void outputs_mix(float2* v, int t, F f) {
+  constexpr int V = MixGeo<N>::V;
+  each<N, V, V>(v, t, [&](int e, float2& x) { f(e, x); });
 }
 
 }  // namespace regs

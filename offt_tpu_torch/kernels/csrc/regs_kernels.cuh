@@ -1,14 +1,18 @@
 // regs_kernels.cuh: the kernels built on the register core of fft_regs.cuh,
-// and their launchers, for power-of-two lengths 16 <= N <= 4096:
+// and their launchers, for power-of-two lengths 16 <= N <= 4096 (and the
+// column variant's mixed lengths):
 // - rows_c2c: c2c of contiguous rows (fft_last.cu; the z pass of
 //   fft_slab.cu), rows at their own input and output pitch;
 // - rows_r2c: r2c of real rows read as float2 pairs, the M-point core and
 //   the O(M) untangle (rfft_last.cu; the z pass of rfft_slab.cu);
 // - rows_c2r: c2r of packed half-spectrum rows, the re-tangle as the core
-//   loads, the inverse M-point core, float2 stores (irfft_slab.cu);
+//   loads, the inverse M-point core, float2 stores (irfft_slab.cu,
+//   icrfft_last.cu);
 // - cols_c2c: the column variant, c2c along a strided axis (fft_axis.cu;
 //   the y pass of the slabs), on the (B, N, Y, Z) geometry of fft_axis.cu,
 //   in blocks of 256 threads or of 32 lines up to 1024 threads;
+// - cols_mix: cols_c2c at the mixed lengths N = R0 2^k (MixGeo;
+//   fft_axis_mix.cu);
 // - cols_twiddle: the column variant times a twiddle table at its store
 //   (the four-step step 1, fourstep.cu);
 // - rows_transposed: c2c of contiguous rows written transposed through a
@@ -350,6 +354,51 @@ cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
   });
 }
 
+// The column variant at a mixed length N = R0 2^K (MixGeo): the lines,
+// tiles and scale of cols_c2c (no side plane), V = 4 R0 values a thread,
+// L = NT / P lanes a block, the exchange planes padded one slot per four
+// elements (ColLay<L, 2>: the first put writes runs of four, so a pad per
+// 16 would put two row threads of a warp on one bank from W = 2).
+template <int N, int NT>
+struct MixColGeo {
+  static constexpr int P = MixGeo<N>::P;
+  static constexpr int L = NT / P;  // lanes per block
+  static_assert(L >= 2 && L * P == NT, "whole lanes a block");
+  using Lay = ColLay<L, 2>;
+  static constexpr int SIZE = (Lay::at(N - 1) + L + 3) / 4 * 4;
+  static constexpr size_t SMEM = (size_t)2 * SIZE * sizeof(float);
+};
+
+template <int N, bool INV, int NT>
+__global__ void __launch_bounds__(NT, col_min_blocks(NT))
+cols_mix(const float* xr, const float* xi, float* yr, float* yi,
+         const float2* __restrict__ tab, AxisGeom g, long long tiles,
+         float scale) {
+  using C = MixColGeo<N, NT>;
+  extern __shared__ __align__(16) float csmem[];
+  const int l = threadIdx.x % C::L;
+  const int t = threadIdx.x / C::L;
+  const long long b = blockIdx.x / tiles;
+  const long long lane = (blockIdx.x - b * tiles) * C::L + l;
+  const bool valid = lane < g.ny * g.nz;
+  const long long y = valid ? lane / g.nz : 0;
+  const long long z = valid ? lane - y * g.nz : 0;
+  const long long in = b * g.isb + y * g.isy + z;
+  const long long out = b * g.osb + y * g.osy + z;
+  float2 v[MixGeo<N>::V];
+  core_mix<N, INV, typename C::Lay>(
+      v, csmem + l, csmem + C::SIZE + l, t, tab, [&](int e) {
+        const long long o = in + e * g.isn;
+        return valid ? make_float2(xr[o], xi[o]) : make_float2(0.f, 0.f);
+      });
+  if (!valid) return;
+  outputs_mix<N>(v, t, [&](int e, float2 w) {
+    const long long o = out + e * g.osn;
+    yr[o] = w.x * scale;
+    yi[o] = w.y * scale;
+  });
+}
+
 // Step 1 of the four-step FFT on the column variant: cols_c2c's lines on
 // the (B, N, Y, Z) geometry, unscaled, and output n of lane l stored
 // times tw[n * lanes + l] (lanes = Y Z; the table carries every scale).
@@ -429,10 +478,6 @@ static __device__ __forceinline__ void st_cluster(unsigned a, unsigned rank,
 // k, or one row) and the runs' reads (a warp: 32 / R whole rows of the
 // stage) take one wavefront. The stage reuses the rows' exchange planes
 // (each row has read its own before the block writes the stage).
-__host__ __device__ constexpr int ilog2(int n) {
-  return n <= 1 ? 0 : 1 + ilog2(n / 2);
-}
-
 template <int LOG, int NT>
 struct TrGeo {
   using G = Geo<LOG>;
@@ -726,6 +771,21 @@ static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
   cols_c2c<LOG, INV, NT, SIDE><<<(unsigned)(tiles * g.nb), NT, C::SMEM,
                                  stream>>>(xr, xi, yr, yi, tab, g, tiles,
                                            scale, side_r, side_i);
+  return cudaGetLastError();
+}
+
+template <int N, bool INV, int NT>
+static cudaError_t launch_cols_mix(const float* xr, const float* xi,
+                                   float* yr, float* yi, const float2* tab,
+                                   const AxisGeom& g, float scale,
+                                   cudaStream_t stream) {
+  using C = MixColGeo<N, NT>;
+  auto kernel = cols_mix<N, INV, NT>;
+  cudaError_t err = allow_smem(kernel, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (g.ny * g.nz + C::L - 1) / C::L;
+  kernel<<<(unsigned)(tiles * g.nb), NT, C::SMEM, stream>>>(
+      xr, xi, yr, yi, tab, g, tiles, scale);
   return cudaGetLastError();
 }
 

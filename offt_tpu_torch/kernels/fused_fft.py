@@ -206,9 +206,10 @@ def can_fuse_cube(nx: int, ny: int, nz: int, rad_x=None, rad_y=None,
 
 def _reg_core(n: int) -> bool:
     """Whether a row kernel (``fft_last`` at length n, ``rfft_last_planar``
-    at half length n) launches the register core (``csrc/fft_regs.cuh``):
-    a power of two in [16, 4096]. Every other length takes the dense
-    core. The register core ignores the radices and the rows per block."""
+    and ``icrfft_last_planar`` at half length n) launches the register
+    core (``csrc/fft_regs.cuh``): a power of two in [16, 4096]. Every
+    other length takes the dense core. The register core ignores the
+    radices and the rows per block."""
     return 16 <= n <= 4096 and n & (n - 1) == 0
 
 
@@ -221,27 +222,45 @@ def _reg_slab(ny: int, nz: int) -> bool:
     return all(16 <= n <= 4096 and n & (n - 1) == 0 for n in (ny, nz))
 
 
+# the mixed lengths R0 2^k (R0 = 3, 5; 16 <= 2^k <= 512) the register
+# core's column variant has (csrc/fft_axis_mix.cu)
+_MIX_LENGTHS = frozenset(r0 << k for r0 in (3, 5) for k in range(4, 10))
+
+
+def _reg_values(n: int) -> int:
+    """Complex values a thread of the register core holds at length n: 16
+    at a power of two, 4 R0 at a mixed length R0 2^k (12 or 20); a line
+    takes n / that many threads (P)."""
+    return 4 * (3 if n % 3 == 0 else 5) if n in _MIX_LENGTHS else 16
+
+
 def _reg_axis(n: int) -> bool:
     """Whether the strided-axis kernel (``fft_sublane``, ``_sublane_nd``,
     ``fft_x_from_padded``, ``fft_x_to_padded`` at transform length n)
     launches the register core's column variant: a power of two in
-    [16, 4096]. Every other length takes the dense core. The register
-    core ignores the radices and the lane tile of the dense core."""
-    return 16 <= n <= 4096 and n & (n - 1) == 0
+    [16, 4096], or a mixed length of ``_MIX_LENGTHS`` (3 2^k in [48,
+    1536], 5 2^k in [80, 2560]: radix-4 and radix-2 passes, then one of
+    radix 12 or 20). Every other length takes the dense core (3072: with 8
+    row threads a warp its exchanges would take two wavefronts; factors
+    3^2, 5^2 or 15: no network). The register core ignores the radices
+    and the lane tile of the dense core."""
+    return (16 <= n <= 4096 and n & (n - 1) == 0) or n in _MIX_LENGTHS
 
 
 # the register core's lane tiles of the strided-axis kernel and their
 # codes in csrc/fft_axis.cu: "narrow", the slabs' 256 / P lanes a block;
-# "wide", 32 lines a block up to 1024 threads (N >= 256)
+# "wide", 32 lines a block up to 1024 threads (P >= 16)
 _AXIS_TILES = {"narrow": 0, "wide": 1}
 
 
 def _axis_tile(n: int) -> str:
     """The lane tile the strided-axis kernel's register core launches at
-    length n, the one place it is picked: narrow to 128, where a block of
-    256 threads holds 32 lanes or more; wide from 256 (32 lanes to 512,
-    16 at 1024, 8 at 2048, 4 at 4096)."""
-    return "narrow" if n <= 128 else "wide"
+    length n, the one place it is picked, by the threads a line takes
+    (P = n / ``_reg_values(n)``): narrow to P = 8 (n = 128 at a power of
+    two, 96 and 160 mixed), where a block of 256 threads holds 32 lanes or
+    more; wide from P = 16 (256, 192, 320: 32 lanes to P = 32, 16 at 64,
+    8 at 128, 4 at 256)."""
+    return "narrow" if n // _reg_values(n) <= 8 else "wide"
 
 
 def _cluster_slab(ny: int, nz: int) -> bool:
@@ -571,9 +590,10 @@ def _axis_apply(owner, mode, xr, xi, yr, yi, geom, n: int, stages: tuple,
     forward at N = 256 and 1024 beside the lengths routed to it) on a
     CUDA device; it raises for a plain version or the dense core."""
     if tile is not None and (tile not in _AXIS_TILES or mode != "kernel"
-                             or not _reg_axis(n)):
+                             or not _reg_axis(n) or n & (n - 1)):
         raise ValueError(f"tile {tile!r} probes the register-core kernel "
-                         f"on a CUDA device, one of {sorted(_AXIS_TILES)}")
+                         f"on a CUDA device at a power of two, one of "
+                         f"{sorted(_AXIS_TILES)}")
     if not _fits_block(n, sum(stages)):
         nb, ny, nz, (isb, isn, isy), (osb, osn, osy) = geom
         shp = (nb, n, ny, nz)
@@ -662,11 +682,12 @@ def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
     the array viewed as (prefix, N, lanes); no data is transposed.
     ``alias=True`` writes over the inputs.
 
-    On a power-of-two N in [16, 4096] (:func:`_reg_axis`) the kernel runs
-    the register core's column variant: ``radices`` is checked but does
-    not shape its passes, ``block_lanes`` is ignored, and ``scale`` is
-    applied at the store, on the lane tile of :func:`_axis_tile`;
-    ``tile="narrow"`` probes the narrow one (``bench/probe_yconcat.py``,
+    On a power-of-two N in [16, 4096] and the mixed lengths 3 2^k and
+    5 2^k that :func:`_reg_axis` admits the kernel runs the register
+    core's column variant: ``radices`` is checked but does not shape its
+    passes, ``block_lanes`` is ignored, and ``scale`` is applied at the
+    store, on the lane tile of :func:`_axis_tile`; ``tile="narrow"``
+    probes the narrow one at a power of two (``bench/probe_yconcat.py``,
     see ``_axis_apply``). Other
     lengths run the dense core, ``block_lanes`` lanes a CUDA block
     (rounded down to a power of two; 0 = as many as fit 64 KB of shared
@@ -1136,8 +1157,15 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
     inverse M-point core (the reference's ``_pick_2stage``) and the
     interleave x[2j] = Re v[j], x[2j+1] = Im v[j]. ``scale`` rides the
     re-tangle table (row 0 included) and defaults to 1/M, the exact
-    inverse; the core is unscaled. ``block_rows`` sets the rows per CUDA
-    block."""
+    inverse; the core is unscaled.
+
+    On a power-of-two M in [16, 4096] (:func:`_reg_core`) the kernel runs
+    the register core's c2r rows (the re-tangle as the core loads, the
+    kernel of ``irfft_slab_yz``'s rows): ``radices`` is checked but does
+    not shape its passes, and ``block_rows`` is ignored. Other lengths run
+    the dense core on the ``radices`` stages, ``block_rows`` rows a CUDA
+    block. The plain version is the dense core's arithmetic on every
+    length."""
     m = xr.shape[-1]
     n = n or 2 * m
     pick = tb._pick_2stage(m, radices)
@@ -1159,10 +1187,12 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
         return out
     rows = xr.numel() // m
     if rows:
-        t = _rows_tile(m, block_rows, sum(stages))
+        reg = _reg_core(m)
+        t = 0 if reg else _rows_tile(m, block_rows, sum(stages))
         _launch("offt_icrfft_last", (xr, xi, out), (tab, ab),
-                [rows, m, *_radix_args(stages), t])
+                [rows, m, *_radix_args(stages), t, int(reg)])
         icrfft_last_planar.launches += 1
+        icrfft_last_planar.reg_launches += reg
     return out
 
 

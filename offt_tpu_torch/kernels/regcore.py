@@ -3,8 +3,13 @@
 ``csrc/fft_regs.cuh`` runs a length-n line (n a power of two in
 [16, 4096]) as radix-R Stockham passes on P = n / 16 threads of 16
 complex values each, as a contiguous row (``fft_last``, ``rfft_last``,
-the slabs' z pass, the c2r rows) or, in its column variant, along a
-strided axis (``fft_axis``, the slabs' y pass). No CPU can run that
+the slabs' z pass, the c2r rows of ``irfft_slab`` and ``icrfft_last``)
+or, in its column variant, along a strided axis (``fft_axis``, the
+slabs' y pass); the column variant also runs the mixed lengths
+n = R0 2^k (R0 = 3, 5; ``fused_fft._MIX_LENGTHS``) on P = n / (4 R0)
+threads of 4 R0 values each (``fused_fft._reg_values``), its last pass
+of radix 12 or 20 the kernel's Good-Thomas network (:func:`dft_pfa`,
+replayed with its constant roots). No CPU can run that
 kernel, so the tests hold this replay of it against numpy and the JAX
 reference: the same pass radices and strides (:func:`passes`), the same
 twiddle indices into the first n rows of ``tables.core_table`` and the
@@ -15,9 +20,10 @@ and :func:`col_bank_ways` counting the exchanges' bank conflicts; the
 strided-axis kernel's lane tiles (:func:`axis_tile`, :func:`warp_runs`;
 the routed one read from ``fused_fft._axis_tile``); and the slab a
 cluster of blocks holds in shared memory (:func:`cluster_geometry`,
-:func:`cluster_ways`). The butterflies are the R-point DFT in f32 (the
-kernel's radix-2 network computes the same function in another rounding
-order). The kernels on
+:func:`cluster_ways`); and the operation count (:func:`flops`). The
+power-of-two butterflies are the R-point DFT in f32 (the kernel's
+radix-2 network computes the same function in another rounding order).
+The kernels on
 the column variant are replayed as their grids run: :func:`fft_axis`
 (tile by tile on the (B, N, Y, Z) geometry), :func:`fft_slab` (z rows,
 then y columns in place), :func:`rfft_slab` (r2c rows, then y columns)
@@ -50,15 +56,28 @@ BANKS = 32      # 4-byte shared-memory banks
 
 
 def passes(n: int) -> list[tuple[int, int]]:
-    """(radix R, stride Ns) of each pass: radix 16 with the remainder
-    last (n = 16 ... 16 * R_last), Ns = 16^pass."""
-    if not (16 <= n <= 4096 and n & (n - 1) == 0):
+    """(radix R, stride Ns) of each pass. At a power of two: radix 16 with
+    the remainder last (n = 16 ... 16 * R_last), Ns = 16^pass. At a mixed
+    length R0 2^k (``MixGeo``): radix 4 over P = n / (4 R0), a radix 2
+    last where log2 P is odd, then radix 4 R0 at stride P; Ns = the
+    product of the radices before."""
+    if n in fused_fft._MIX_LENGTHS:
+        p = n // fused_fft._reg_values(n)
+        lp = p.bit_length() - 1
+        rads = [4] * (lp // 2) + [2] * (lp % 2) + [fused_fft._reg_values(n)]
+    elif 16 <= n <= 4096 and n & (n - 1) == 0:
+        log = n.bit_length() - 1
+        npass = (log + 3) // 4
+        rads = [16] * (npass - 1) + [1 << (log - 4 * (npass - 1))]
+    else:
         raise ValueError(f"the register core takes powers of two in "
-                         f"[16, 4096], not {n}")
-    log = n.bit_length() - 1
-    npass = (log + 3) // 4
-    rads = [16] * (npass - 1) + [1 << (log - 4 * (npass - 1))]
-    return [(r, 16 ** p) for p, r in enumerate(rads)]
+                         f"[16, 4096] and the mixed lengths 3 2^k, 5 2^k "
+                         f"(16 <= 2^k <= 512), not {n}")
+    out, ns = [], 1
+    for r in rads:
+        out.append((r, ns))
+        ns *= r
+    return out
 
 
 def phys(a):
@@ -70,7 +89,9 @@ def phys(a):
 def geometry(n: int) -> dict:
     """The block geometry of ``regs::Geo``: threads per row P, rows per
     block, a row's floats per plane (SIZE, PITCH) and the block's dynamic
-    shared memory in bytes."""
+    shared memory in bytes. The row layout takes powers of two only."""
+    if n in fused_fft._MIX_LENGTHS:
+        raise ValueError(f"no row layout at the mixed length {n}")
     passes(n)
     p = n // E
     size = phys(n - 1) + 1
@@ -105,6 +126,59 @@ def _dft(r: int, inverse: bool) -> torch.Tensor:
     return torch.from_numpy(f.astype(np.complex64))
 
 
+# the constant roots of regs::dft3 / dft5, in f32
+_SIN3 = np.float32(0.86602540378443865)
+_C51, _C52 = np.float32(0.30901699437494742), np.float32(-0.80901699437494742)
+_S51, _S52 = np.float32(0.95105651629515357), np.float32(0.58778525229247313)
+
+
+def _mul_i(d, inverse: bool):
+    """d times -i (forward) or +i (inverse), as ``regs::mul_i``."""
+    return d * (1j if inverse else -1j)
+
+
+def _dft3(a, b, c, inverse: bool):
+    """``regs::dft3``: X1, X2 = a - (b + c)/2 -+ i sin(2 pi/3) (b - c)."""
+    s, d = b + c, b - c
+    m = a - 0.5 * s
+    e = _mul_i(_SIN3 * d, inverse)
+    return a + s, m + e, m - e
+
+
+def _dft5(x0, x1, x2, x3, x4, inverse: bool):
+    """``regs::dft5``, on the constant roots of 2 pi/5 and 4 pi/5."""
+    t1, t2, t3, t4 = x1 + x4, x2 + x3, x1 - x4, x2 - x3
+    a1 = x0 + _C51 * t1 + _C52 * t2
+    a2 = x0 + _C52 * t1 + _C51 * t2
+    e1 = _mul_i(_S51 * t3 + _S52 * t4, inverse)
+    e2 = _mul_i(_S52 * t3 - _S51 * t4, inverse)
+    return x0 + t1 + t2, a1 + e1, a2 + e2, a2 - e2, a1 - e1
+
+
+def dft_pfa(v, inverse: bool = False):
+    """The R-point DFT along the last axis, R = 4 R0 (12, 20), as
+    ``regs::dft_pfa`` composes it (Good-Thomas, no twiddles): input
+    n = (4 n1 + R0 n2) mod R; R0-point DFTs along n1, then 4-point DFTs
+    along n2 in place; X[k] read where k mod R0 and k mod 4 left it."""
+    r = v.shape[-1]
+    r0 = r // 4
+    if r not in (12, 20):
+        raise ValueError(f"no Good-Thomas network of radix {r}")
+    x = list(v.unbind(-1))
+    net = _dft3 if r0 == 3 else _dft5
+    for n2 in range(4):
+        idx = [(r0 * n2 + 4 * n1) % r for n1 in range(r0)]
+        for i, o in zip(idx, net(*(x[i] for i in idx), inverse)):
+            x[i] = o
+    for k1 in range(r0):
+        idx = [(4 * k1 + r0 * n2) % r for n2 in range(4)]
+        u = torch.stack([x[i] for i in idx], -1) @ _dft(4, inverse)
+        for i, o in zip(idx, u.unbind(-1)):
+            x[i] = o
+    return torch.stack([x[(4 * (k % r0) + r0 * (k % 4)) % r]
+                        for k in range(r)], -1)
+
+
 def fft_rows(xr, xi, tab, inverse: bool = False, scale: float = 1.0):
     """The kernel's c2c of every (..., n) row of a planar f32 pair: its
     passes on the roots ``tab[:n]`` (a ``core_table`` of n, (re, im)
@@ -117,7 +191,7 @@ def fft_rows(xr, xi, tab, inverse: bool = False, scale: float = 1.0):
         v = d[:, src]
         if ns > 1:
             v = v * w[tw]
-        y = v @ _dft(r, inverse)
+        y = dft_pfa(v, inverse) if r in (12, 20) else v @ _dft(r, inverse)
         d = torch.empty_like(d)
         d[:, dst] = y
     d = (d * scale).reshape(xr.shape)
@@ -154,12 +228,14 @@ def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False):
 def col_at(n: int, a, threads: int = THREADS):
     """Offset, in a column block's exchange plane, of element a of lane 0
     (lane l adds l): the lane is the fastest index, one pad slot per 16
-    elements; at one lane a block (n = 4096 in 256 threads) a lane is a
-    row, at phys."""
-    lanes = threads // (n // E)
+    elements (``ColLay``), per 4 at a mixed length (``MixColGeo``); at
+    one lane a block (n = 4096 in 256 threads) a lane is a row, at
+    phys."""
+    lanes = threads // (n // fused_fft._reg_values(n))
     if lanes == 1:
         return phys(a)
-    return (a + (a >> 4)) * lanes
+    sh = 2 if n in fused_fft._MIX_LENGTHS else 4
+    return (a + (a >> sh)) * lanes
 
 
 def col_geometry(n: int, threads: int = THREADS) -> dict:
@@ -169,7 +245,7 @@ def col_geometry(n: int, threads: int = THREADS) -> dict:
     of 4) and the block's dynamic shared memory in bytes (none for one
     pass)."""
     sched = passes(n)
-    p = n // E
+    p = n // fused_fft._reg_values(n)
     lanes = threads // p
     if lanes < 1 or lanes * p != threads:
         raise ValueError(f"{threads} threads hold no whole lanes of {n}")
@@ -183,13 +259,13 @@ def axis_tile(n: int, tile: str | None = None) -> dict:
     (``tile`` None: the one its routes launch, ``fused_fft._axis_tile``):
     threads a block, P threads a line, L lanes a block, W row threads a
     warp; "narrow": 256 threads, L = 256 / P (the slabs' y pass); "wide":
-    32 P threads up to 1024 (n >= 256)."""
+    32 P threads up to 1024 (P >= 16: n >= 256, or 192, 320 mixed)."""
     passes(n)
     tile = tile or fused_fft._axis_tile(n)
-    p = n // E
+    p = n // fused_fft._reg_values(n)
     if tile == "narrow":
         nt = THREADS
-    elif tile == "wide" and n >= 256:
+    elif tile == "wide" and p >= 16:
         nt = min(32 * p, 1024)
     else:
         raise ValueError(f"no {tile!r} lane tile at n = {n}")
@@ -292,11 +368,11 @@ def _exchange_ways(n: int, t, addr, vec4: bool) -> dict:
     16-byte stores on the first pass, served by quarter-warps on the 8
     groups of 4 banks; else scalar by whole warps) and the reads of each
     pass but the first. 1 means free of bank conflicts."""
-    p = n // E
+    p = n // fused_fft._reg_values(n)
     out = {}
     sched = passes(n)
     for i, (r, ns) in enumerate(sched):
-        nb = E // r
+        nb = fused_fft._reg_values(n) // r
         if i > 0:
             out[(i, "get")] = max(
                 _ways(addr(t + q * p + k * (n // r)).reshape(-1, 32).tolist())
@@ -340,22 +416,32 @@ def col_bank_ways(n: int, threads: int = THREADS) -> dict:
                           g["L"] == 1)
 
 
+def _net_flops(r: int) -> int:
+    """f32 operations of one radix-r network: the radix-2 network of a
+    power of two (4 per radix-2 step; a rotation by W^0 or -+i costs
+    nothing, by (1 -+ i)/sqrt 2 four, by any other root six); ``dft3``
+    16, ``dft5`` 48 (an FMA counts two); Good-Thomas 4 R0: four R0-point
+    and R0 4-point networks."""
+    if r in (12, 20):
+        return 4 * _net_flops(r // 4) + (r // 4) * _net_flops(4)
+    if r in (3, 5):
+        return {3: 16, 5: 48}[r]
+    net, half = 0, r // 2
+    while half >= 1:
+        for i in range(half):
+            k = i * (8 // half)
+            rot = 0 if k in (0, 4) else 4 if k in (2, 6) else 6
+            net += (r // (2 * half)) * (4 + rot)
+        half //= 2
+    return net
+
+
 def flops(n: int) -> int:
-    """f32 operations of the core on one row, from the schedule: each
-    radix-R butterfly's network (4 per radix-2 step; a rotation by W^0 or
-    -+i costs nothing, by (1 -+ i)/sqrt 2 four, by any other root six)
-    and a complex multiply (6) per twiddled input."""
-    total = 0
-    for r, ns in passes(n):
-        net, half = 0, r // 2
-        while half >= 1:
-            for i in range(half):
-                k = i * (8 // half)
-                rot = 0 if k in (0, 4) else 4 if k in (2, 6) else 6
-                net += (r // (2 * half)) * (4 + rot)
-            half //= 2
-        total += (n // r) * (net + (6 * (r - 1) if ns > 1 else 0))
-    return total
+    """f32 operations of the core on one line, from the schedule: each
+    radix-R butterfly's network (:func:`_net_flops`) and a complex
+    multiply (6) per twiddled input."""
+    return sum((n // r) * (_net_flops(r) + (6 * (r - 1) if ns > 1 else 0))
+               for r, ns in passes(n))
 
 
 def fft_cols(xr, xi, tab, inverse: bool = False, scale: float = 1.0,

@@ -13,6 +13,8 @@ import offt_tpu_torch as ot
 from offt_tpu_torch.kernels import fourstep as fs
 from offt_tpu_torch.kernels import fused_fft as ff
 
+REG_LENGTHS = [1 << k for k in range(4, 13)]
+
 
 @pytest.fixture
 def cuda_dev():
@@ -295,6 +297,33 @@ def test_cuda_icrfft_last(cuda_dev, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
+@pytest.mark.parametrize("m", REG_LENGTHS + [96, 192])
+def test_cuda_icrfft_last_cores(cuda_dev, monkeypatch, m, rows, dense):
+    # the register core's c2r rows at every power of two M in [16, 4096]
+    # (rows of 1 and 2 threads store through a stage), the dense core
+    # beside it and at the lengths it keeps
+    if dense:
+        monkeypatch.setattr(ff, "_reg_core", lambda n: False)
+    _card_check(ff.icrfft_last_planar, lambda f, x: f(*x, scale=0.5 / m),
+                (rows, m), cuda_dev)
+    assert ff.icrfft_last_planar.reg_launches == int(
+        ff._reg_core(m) and not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_icrfft_last_main_shape(cuda_dev, monkeypatch, dense):
+    # the 1 x 1 mesh's packed c2r stage at 256^3: (65536, 128)
+    if dense:
+        monkeypatch.setattr(ff, "_reg_core", lambda n: False)
+    _card_check(ff.icrfft_last_planar, lambda f, x: f(*x), (65536, 128),
+                cuda_dev)
+    assert ff.icrfft_last_planar.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
 def test_cuda_icrfft_last_scale_and_radices(cuda_dev):
     _card_check(ff.icrfft_last_planar,
                 lambda f, x: f(*x, radices=(16, 16), scale=0.5 / 256),
@@ -478,8 +507,6 @@ def test_cuda_long_three_stage_plan(cuda_dev):
 
 
 # ---- the two row kernels' cores: register (fft_regs.cuh) and dense ---------
-
-REG_LENGTHS = [1 << k for k in range(4, 13)]
 
 
 @pytest.mark.cuda
@@ -698,10 +725,13 @@ AXIS_GEOMETRIES = {
 }
 
 
+MIX_LENGTHS = sorted(ff._MIX_LENGTHS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("geometry", sorted(AXIS_GEOMETRIES))
-@pytest.mark.parametrize("n", REG_LENGTHS + [96, 320])
+@pytest.mark.parametrize("n", REG_LENGTHS + MIX_LENGTHS + [3072, 360])
 def test_cuda_fft_axis_cores(cuda_dev, monkeypatch, n, geometry, dense):
     _axis_core(monkeypatch, dense)
     fn, call, shape, lanes = AXIS_GEOMETRIES[geometry]
@@ -709,6 +739,30 @@ def test_cuda_fft_axis_cores(cuda_dev, monkeypatch, n, geometry, dense):
     owner = ff._sublane_nd if geometry == "nd" else fn
     assert owner.launches == 1
     assert owner.reg_launches == int(ff._reg_axis(n) and not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape,axis", [
+    ((320, 320, 320), 0), ((192, 192, 192), 0), ((192, 192, 192), 1),
+    ((8, 768, 768), 1), ((2560, 4, 130), 0), ((3, 1536, 40), 1)])
+def test_cuda_fft_axis_mixed_main_shapes(cuda_dev, monkeypatch, shape, axis,
+                                         dense):
+    # the mixed lengths at the main paths' shapes (the 320^3 c2c x pass,
+    # 192^3's axes, a 768 column) and the longest of each family over a
+    # ragged tile, inverse and in place beside forward
+    _axis_core(monkeypatch, dense)
+    _card_check(ff.fft_sublane, lambda f, x: f(*x, axis, scale=0.5), shape,
+                cuda_dev)
+    assert ff.kernel_launches("fft_axis", reg=True) == int(not dense)
+    x = _pair(shape, cuda_dev, seed=7)
+    want = ff.fft_sublane.plain(*x, axis, inverse=True)
+    xr, xi = x[0].clone(), x[1].clone()
+    yr, yi = ff.fft_sublane(xr, xi, axis, inverse=True, alias=True)
+    torch.cuda.synchronize()
+    assert yr is xr and yi is xi
+    for g, w in zip((yr, yi), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
 
 
 @pytest.mark.cuda

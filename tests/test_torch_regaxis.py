@@ -87,17 +87,19 @@ GEOMETRIES = ["pitched in", "pitched out", "nd", "alias"]
 @pytest.mark.parametrize("n", [16, 4096, 8, 96, 320, 8192, 256, 512, 1024,
                                2048, 192])
 def test_reg_axis_predicate(n):
-    """Powers of two in [16, 4096] take the column variant; the rest (the
-    320^3 and 192^3 x passes among them) keep the dense core."""
-    assert ff._reg_axis(n) is (n in LENGTHS)
-    assert ff._reg_axis(n) == ff._reg_core(n)
+    """Powers of two in [16, 4096] and the mixed lengths 3 2^k, 5 2^k
+    (the 320^3 and 192^3 x passes among them) take the column variant;
+    the rest keep the dense core. The row kernels' predicate stays on
+    powers of two."""
+    assert ff._reg_axis(n) is (n in LENGTHS or n in (96, 320, 192))
+    assert ff._reg_core(n) is (n in LENGTHS)
 
 
 def test_main_path_x_passes_route_to_the_register_core():
-    """The x passes of 256^3 and 512^3 (c2c and the c2r's
-    fft_x_to_padded) and the 64 x 1024^2 y pass; 320^3 stays dense."""
+    """The x passes of 256^3, 512^3 and 320^3 (c2c and the c2r's
+    fft_x_to_padded), 192^3's axes and the 64 x 1024^2 y pass."""
     assert ff._reg_axis(256) and ff._reg_axis(512) and ff._reg_axis(1024)
-    assert not ff._reg_axis(320)
+    assert ff._reg_axis(320) and ff._reg_axis(192)
 
 
 @pytest.mark.parametrize("kind", GEOMETRIES)
