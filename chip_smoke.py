@@ -14,6 +14,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    max |plain| <= 1e-6, pad lanes excluded, float32 matmuls pinned to
    full precision); the two row kernels (``fft_last``, ``rfft_last``) on
    a length of each core, register (``csrc/fft_regs.cuh``) and dense,
+   ``fft_last`` also on the mixed rows ((102400, 320), the 320^3 slab's z
+   rows as a batch, and (65536, 192)) on both cores,
    and the three slab kernels (``fft_slab``, ``rfft_slab``,
    ``irfft_slab``), the packed c2r rows (``icrfft_last``: (65536, 128)
    among them), the strided-axis kernel (``fft_axis``: its four
@@ -31,7 +33,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
    and read just after:
-   a. the planar c2c path (``fftn``);
+   a. the planar c2c path (``fftn``; 320^3 forward and inverse);
    b. the packed r2c/c2r path (``real=True``, numpy and packed layouts,
       256^3 and 512^3; ``rfftn`` / ``irfftn``);
    c. long 1-D c2c, ``plan((1, 1, N))`` by the four-step kernels, at
@@ -59,8 +61,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did; the register core ran ``fft_last`` on 3a (its one
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
-   the dense core at N = 192), ``fft_slab`` on 3a's 256^3 and 512^3
-   cases (the 320^3 slab on the dense core), ``rfft_slab`` on every
+   the dense core at N = 192), ``fft_slab`` on every case of 3a (the
+   320^3 slab on the mixed rows and columns, two grids), ``rfft_slab`` on every
    slab of 3b, ``fft_axis`` on every x pass of 3a (256^3, 512^3, 320^3
    on the mixed-radix column variant, in place, the 64 x 1024^2 y pass),
    of 3b (the c2r's ``fft_x_to_padded`` among them) and every axis pass
@@ -77,11 +79,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    c2c, 256^3 and 512^3 packed c2r) against cuFFT and the single-device
    plans (the pencil pipeline's own overhead), and each kernel against
    its plain version and the one PyTorch call that computes its
-   function; the cube against ``fft3d_planar`` on the same data (at the
-   reference's radix picks and at (16, 8) on every axis) and against
-   ``torch.fft.fftn``; the namespace calls against their ``torch.fft``
-   twins; ``torch.profiler`` breakdowns of the long 1-D, unfused real
-   and 1 x 1 mesh c2r plans, the cube and the prime-length ``fft``
+   function (``fft_last`` (102400, 320) and ``fft_slab`` (320, 320, 320)
+   also, with their TB/s, beside ``torch.fft.fft(dim=-1)`` and ``fft2``;
+   the 320^3 path beside ``torch.fft.fftn``); the cube against
+   ``fft3d_planar`` on the same data (at the reference's radix picks
+   and at (16, 8) on every axis) and against ``torch.fft.fftn``; the
+   namespace calls against their ``torch.fft`` twins; ``torch.profiler``
+   breakdowns of the long 1-D, unfused real and 1 x 1 mesh c2r plans,
+   the cube and the prime-length ``fft``
    (device time by op, busy share of the host wall); the paths of the
    register-core kernels (64 x 1024^2 c2c, the 256^3 ``planar=False``
    r2c, namespace ``rfftn`` 256^3; 256^3, 512^3 and 320^3 c2c, 192^3
@@ -91,9 +96,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    packed c2r 256^3) and the nine register-core kernels at their
    main-path shapes, each with the
    register core and with every length routed to the dense core
-   (``fused_fft._reg_core``,
-   ``_reg_slab`` and ``_reg_axis`` patched off), both row kernels so at
-   every register-core length 16-4096, both slab kernels so at 512^3,
+   (``fused_fft._reg_core``, ``_reg_rows``, ``_reg_slab``,
+   ``_reg_rslab`` and ``_reg_axis`` patched off), both row kernels so at
+   every register-core length 16-4096 (``fft_last`` also at every mixed
+   length of its rows, beside ``torch.fft.fft``), both slab kernels so
+   at 512^3,
    ``fft_axis`` on each of its main-path shapes (with its achieved TB/s)
    and ``irfft_slab`` at 512^3 (two grids), and ``irfft_slab`` in
    clusters against two grids (``_cluster_irslab`` patched off) at 256^3;
@@ -115,9 +122,12 @@ its plain version's time, and its bound (the larger of its bytes at
 run), and for the two row kernels, the three slab kernels, ``fft_axis``
 and the four-step pair ``dense_ms``, the dense core's time at the same
 shape (the pair's two rows also ``pair_library_factor``: their sum over
-``torch.fft.fft`` of the whole transform, which computes the pair). The
+``torch.fft.fft`` of the whole transform, which computes the pair;
+``fft_last`` and ``fft_slab`` also ``mixed``: the same numbers at their
+mixed-length shape, (102400, 320) and (320, 320, 320)). The
 last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device the script exits non-zero and prints no result.
+Without a CUDA device, or without the ``offt_tpu_torch`` package beside
+it, the script exits non-zero (2 and 1) and prints no result.
 """
 
 from __future__ import annotations
@@ -321,12 +331,16 @@ def _short(op: str) -> str:
 REG_CORE = ("fft_last", "rfft_last", "fft_slab", "rfft_slab", "fft_axis",
             "irfft_slab", "step1_twiddle", "step3_transposed",
             "icrfft_last")
-# the kernels checked at each shape on both cores (the row kernels run
-# the core their length takes)
-BOTH_CORES = ("fft_slab", "rfft_slab", "fft_axis", "irfft_slab",
+# the kernels checked at each shape on both cores (``rfft_last`` runs
+# the core its length takes)
+BOTH_CORES = ("fft_last", "fft_slab", "rfft_slab", "fft_axis", "irfft_slab",
               "step1_twiddle", "step3_transposed", "icrfft_last")
 # the slab kernels, whose register core runs clusters or two grids
 SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
+# the mixed-length shapes timed beside the main-path ones: the 320^3
+# slab's z rows as one batch, and the 320^3 slab
+MIXED_SHAPES = {"fft_last": ((102400, 320), lambda f, x: f(*x)),
+                "fft_slab": ((320, 320, 320), lambda f, x: f(*x))}
 
 
 def _window(ff, run) -> tuple:
@@ -343,16 +357,20 @@ def _window(ff, run) -> tuple:
 @contextlib.contextmanager
 def _dense_core(ff):
     """Every length routed to the dense core (the predicates
-    ``fused_fft._reg_core`` (the row kernels and the four-step pair),
-    ``_reg_slab`` and ``_reg_axis`` patched off): the earlier kernels on
-    the same data, for comparison."""
-    keep = ff._reg_core, ff._reg_slab, ff._reg_axis
-    ff._reg_core = ff._reg_axis = lambda n: False
-    ff._reg_slab = lambda ny, nz: False
+    ``fused_fft._reg_core`` (the r2c and c2r rows, the four-step pair),
+    ``_reg_rows`` (``fft_last``), ``_reg_slab``, ``_reg_rslab`` and
+    ``_reg_axis`` patched off): the earlier kernels on the same data, for
+    comparison."""
+    names = ("_reg_core", "_reg_rows", "_reg_axis", "_reg_slab",
+             "_reg_rslab")
+    keep = [getattr(ff, k) for k in names]
+    for k in names:
+        setattr(ff, k, lambda *n: False)
     try:
         yield
     finally:
-        ff._reg_core, ff._reg_slab, ff._reg_axis = keep
+        for k, f in zip(names, keep):
+            setattr(ff, k, f)
 
 
 def main() -> int:
@@ -361,7 +379,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import offt_tpu_torch as ot
+    try:
+        import offt_tpu_torch as ot
+    except ModuleNotFoundError as e:
+        # the script alone, without the package it drives
+        print(f"chip_smoke.py needs the offt_tpu_torch package beside it: "
+              f"{e}", file=sys.stderr)
+        return 1
     from offt_tpu_torch.kernels import _build
     from offt_tpu_torch.kernels import fourstep as fs
     from offt_tpu_torch.kernels import fused_fft as ff
@@ -417,6 +441,10 @@ def main() -> int:
          None),
         ("fft_last", ff.fft_last,
          lambda f, x: f(*x, inverse=True, scale=1 / 64), (37, 64), None),
+        ("fft_last", ff.fft_last, lambda f, x: f(*x), (102400, 320), None),
+        ("fft_last", ff.fft_last,
+         lambda f, x: f(*x, inverse=True, scale=1 / 192), (65536, 192),
+         None),
         ("fft_last", ff.fft_last, lambda f, x: f(*x), (64 * 1024, 1024),
          None),
         ("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1), (16, 32, 128),
@@ -462,6 +490,11 @@ def main() -> int:
          (2, 40, 320), None),
         ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x, zpad=8),
          (8, 512, 512), 512),
+        ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x), (320, 320, 320),
+         None),
+        ("fft_slab", ff.fft_slab_yz,
+         lambda f, x: f(*x, inverse=True, scale=1 / 102400),
+         (320, 320, 320), None),
         ("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x, zpad=8),
          (256, 256, 256), 256),
         ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
@@ -610,6 +643,7 @@ def main() -> int:
         ("256^3 inv ortho", (256, 256, 256), 0, True, "ortho", False),
         ("512^3 fwd", (512, 512, 512), 0, False, None, False),
         ("320^3 fwd", (320, 320, 320), 0, False, None, False),
+        ("320^3 inv", (320, 320, 320), 0, True, None, False),
         ("256^3 fwd in_place", (256, 256, 256), 0, False, None, True),
         ("256^3 inv in_place", (256, 256, 256), 0, True, None, True),
         ("64x1x1024^2 fwd", (64, 1, 1024, 1024), 1, False, None, False),
@@ -1077,14 +1111,14 @@ def main() -> int:
           f"{c2c_last}); rfft_last at N = 256 on 3d "
           f"({runs['local_real'][2]['rfft_last']} of {real_last}, the "
           "rest dense at N = 192)")
-    # 3a's slabs: 256^3 (five calls) and 512^3 on the register core, 320^3
-    # on the dense one; 3b's r2c slabs (256^3, 512^3, 128 x 256) all
-    # register
+    # 3a's slabs: 256^3 (five calls), 512^3 and 320^3 (forward and
+    # inverse, the mixed rows and columns) all on the register core; 3b's
+    # r2c slabs (256^3, 512^3, 128 x 256) all register
     c2c_slab, c2c_slab_reg = runs["c2c"][1]["fft_slab"], \
         runs["c2c"][2]["fft_slab"]
-    if not (c2c_slab_reg >= 2 and c2c_slab - c2c_slab_reg == 1):
-        raise AssertionError("fft_slab on 3a: want 256^3 and 512^3 on the "
-                             f"register core, 320^3 dense: {c2c_slab_reg} "
+    if not (c2c_slab >= 8 and c2c_slab_reg == c2c_slab):
+        raise AssertionError("fft_slab on 3a: want 256^3, 512^3 and 320^3 "
+                             f"on the register core: {c2c_slab_reg} "
                              f"register of {c2c_slab}")
     r_slab, r_slab_reg = runs["r2c"][1]["rfft_slab"], \
         runs["r2c"][2]["rfft_slab"]
@@ -1092,7 +1126,8 @@ def main() -> int:
         raise AssertionError("rfft_slab on 3b did not run the register core "
                              f"throughout: {r_slab_reg} of {r_slab}")
     print(f"register core: fft_slab on 3a ({c2c_slab_reg} of {c2c_slab}: "
-          f"256^3 and 512^3; the rest dense at 320^3); rfft_slab on 3b "
+          f"256^3, 512^3 and the 320^3 slab (two grids: the mixed rows, "
+          f"then the mixed columns)); rfft_slab on 3b "
           f"({r_slab_reg} of {r_slab})")
     # the strided-axis kernel on 3a: every x pass on the register core,
     # 256^3 and 512^3 (fft_x_from_padded, five calls), 320^3 (the mixed
@@ -1484,6 +1519,20 @@ def main() -> int:
              f", {r_dense['median_ms'] / r_reg['median_ms']:.2f}x faster "
              "than the dense core")
         show(f"path {label}, dense core", r_dense)
+    # the 320^3 path beside its bound (one read and one write of the
+    # cube) and the bytes its three passes move (z rows, y, x: each
+    # reads and writes the cube), and beside cuFFT
+    fn320, args320 = next((f, a) for label, f, a in paths
+                          if label.startswith("c2c 320^3"))
+    p320 = time_cuda(fn320, args320)["median_ms"]
+    f320 = time_cuda(torch.fft.fftn, (torch.complex(*c320),))["median_ms"]
+    e320 = 320 ** 3
+    b320, _ = _roofline(16 * e320, 3 * e320 * _fft_flops(320))
+    print(f"path c2c 320^3 (plan): {p320:.4f} ms, "
+          f"{3 * 16 * e320 / p320 / 1e9:.3f} TB/s over its three passes' "
+          f"{3 * 16 * e320} bytes, {b320 / p320:.3f} of its {b320:.4f} ms "
+          f"bound; torch.fft.fftn (cuFFT) c64 320^3 {f320:.4f} ms "
+          f"({p320 / f320:.2f}x) {tag}", flush=True)
     show("torch.fft.fft2 (cuFFT) c64 64x1024^2",
          time_cuda(torch.fft.fft2, (torch.complex(xr, xi),)))
     for n, x in ((256, x3), (512, x5)):
@@ -1543,6 +1592,21 @@ def main() -> int:
                   f"{r_dense['median_ms']:.4f} ms "
                   f"({nbytes / r_dense['median_ms'] / 1e9:.2f} TB/s) {tag}",
                   flush=True)
+    # fft_last at every mixed length of its rows (``_MIX_ROW_LENGTHS``),
+    # as many whole rows as 2^24 elements hold, each core and the library
+    for n in sorted(ff._MIX_ROW_LENGTHS):
+        rows = (1 << 24) // n
+        args = (xr[:rows * n].view(rows, n), xi[:rows * n].view(rows, n))
+        r_reg = time_cuda(ff.fft_last, args, ahead=True)["median_ms"]
+        with _dense_core(ff):
+            r_dense = time_cuda(ff.fft_last, args, ahead=True)["median_ms"]
+        r_lib = time_cuda(torch.fft.fft, (torch.complex(*args), None, -1),
+                          ahead=True)["median_ms"]
+        nbytes = 16 * rows * n
+        print(f"sweep fft_last N={n} rows={rows} (mixed): register "
+              f"{r_reg:.4f} ms ({nbytes / r_reg / 1e9:.2f} TB/s), dense "
+              f"{r_dense:.4f} ms, fft(dim=-1) {r_lib:.4f} ms "
+              f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
     del xr, xi, xx
     # the one-shot call: the first builds its plan, the second reuses it
     xc = torch.complex(*_pair((256, 256, 256), gen))
@@ -1588,6 +1652,39 @@ def main() -> int:
             show(f"kernel {name} via {fn.__name__} {shape}, dense core", r_d,
                  f", {r_d['median_ms'] / r_k['median_ms']:.2f}x the "
                  "register core")
+        if name in MIXED_SHAPES:
+            # the row kernel and the slab at a mixed length: the 320^3
+            # slab's z rows as a batch, the 320^3 slab
+            shp, call_m = MIXED_SHAPES[name]
+            xm = _pair(shp, gen)
+            m_k = time_cuda(call_m, (fn, xm), ahead=True)["median_ms"]
+            with _dense_core(ff):
+                m_d = time_cuda(call_m, (fn, xm), ahead=True)["median_ms"]
+            m_p = time_cuda(call_m, (fn.plain, xm), warmup=1,
+                            reps=3)["median_ms"]
+            lib_m = _library(name, shp, gen)
+            m_l = time_cuda(*lib_m[1:], ahead=True)["median_ms"]
+            mb, mby = _bound(name, shp)
+            nbytes = _work(name, shp)[0]
+            print(f"kernel {name} {shp} (mixed): register core {m_k:.4f} ms "
+                  f"({nbytes / m_k / 1e9:.3f} TB/s, {mb / m_k:.3f} of its "
+                  f"bound), dense core {m_d:.4f} ms, plain {m_p:.4f} ms, "
+                  f"library {lib_m[0]} {m_l:.4f} ms ({m_k / m_l:.2f}x), "
+                  f"bound {mb:.4f} ms ({mby}) {tag}", flush=True)
+            extra["mixed"] = {"shape": list(shp), "ms": m_k, "dense_ms": m_d,
+                              "plain_ms": m_p, "library_ms": m_l,
+                              "bound_ms": mb, "bound_by": mby}
+            if name == "fft_slab":
+                # its two grids alone: the z rows (fft_last on the
+                # slab's rows) and the y lines (the strided-axis kernel)
+                z_ms = time_cuda(ff.fft_last, tuple(
+                    t.view(-1, shp[-1]) for t in xm), ahead=True)
+                y_ms = time_cuda(ff.fft_sublane, (*xm, 1), ahead=True)
+                print(f"kernel fft_slab {shp} (mixed), its grids alone: z "
+                      f"rows (fft_last) {z_ms['median_ms']:.4f} ms, y lines "
+                      f"(fft_sublane axis 1) {y_ms['median_ms']:.4f} ms "
+                      f"{tag}", flush=True)
+            del xm, lib_m
         if name == "fft_axis":
             # the kernel's other wrappers and shapes of the main paths, on
             # the register core (its lane tile), the dense core and as the

@@ -16,7 +16,7 @@ the y lines out of it.
   traffic alone;
 - grids: the two-grid layout (the r2c rows to the output, then the y
   lines in place on it);
-- dense: the dense-core kernel on the same call (``_reg_slab`` off);
+- dense: the dense-core kernel on the same call (``_reg_rslab`` off);
 - rfft2: ``torch.fft.rfft2`` of the same input.
 
 The reference's ``nodual`` skipped its second half-length transform, the
@@ -49,12 +49,12 @@ def ledger(seed: int = 0) -> list[dict]:
         return lambda: ff.rfft_slab_yz(x, zpad=ZPAD, phases=phases)
 
     def dense():
-        keep = ff._reg_slab
-        ff._reg_slab = lambda ny, nz: False
+        keep = ff._reg_rslab
+        ff._reg_rslab = lambda ny, m: False
         try:
             return ff.rfft_slab_yz(x, zpad=ZPAD)
         finally:
-            ff._reg_slab = keep
+            ff._reg_rslab = keep
 
     return phase_rows("rslab512", [
         ("full", slab(), 16 * e), ("noy", slab("noy"), 16 * e),

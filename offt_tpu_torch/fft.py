@@ -138,24 +138,37 @@ def _tail_real_fwd(a, m: int, norm):
     return y.reshape(lead + tail[:-1] + (tail[-1] // 2 + 1,))
 
 
+def _hermitian_edges(a, m: int, n_out: int):
+    """numpy's c2r rule for the planes of the last axis that a real
+    output forces real, 0 and (``n_out`` even) ``n_out // 2``: numpy runs
+    the inverse c2c over the other ``m - 1`` tail axes first and then
+    keeps the real part of those planes, which is the inverse transform
+    of their Hermitian part over those axes, (P(k) + conj P(-k)) / 2 (at
+    ``m == 1`` the real part itself). Those planes are replaced by it, so
+    the result agrees with numpy on any input, Hermitian-consistent or
+    not."""
+    planes = [0] + ([a.shape[-1] - 1] if n_out % 2 == 0 < n_out else [])
+    dims = tuple(range(a.ndim - m, a.ndim - 1))
+    a = a.clone()
+    for i in planes:
+        p = a[..., i]
+        q = p
+        for d in dims:      # P(-k): k -> (n - k) mod n along each axis
+            q = torch.roll(torch.flip(q, (d,)), 1, d)
+        a[..., i] = (p + q.conj()) / 2
+    return a
+
+
 def _tail_real_inv(a, m: int, n_out: int, norm):
     """c2r (output length ``n_out``) over the last axis and the inverse
     c2c over the other ``m - 1`` tail axes; the input's last axis is
-    already ``n_out // 2 + 1``.
-
-    numpy's 1-D rule (``offt_tpu/fft.py:149-174``): the DC bin and, for
-    an even ``n_out``, the Nyquist bin of a 1-D c2r input are real by
-    Hermitian symmetry and numpy discards their imaginary parts, so they
-    are dropped here for ``m == 1``. A multi-axis group keeps them: there
-    they hold the other axes' spectra, and the result agrees with numpy
-    on Hermitian-consistent input (any ``rfftn`` output)."""
-    if m == 1:
-        last = a.shape[-1] - 1
-        keep = torch.ones(a.shape[-1], dtype=torch.bool, device=a.device)
-        keep[0] = False
-        if n_out % 2 == 0:
-            keep[last] = False
-        a = torch.where(keep, a, a.real.to(a.dtype))
+    already ``n_out // 2 + 1``. The planes a real output forces real take
+    numpy's rule first (:func:`_hermitian_edges`). The reference keeps
+    that rule to one axis and feeds a multi-axis group's planes to its
+    c2r as they are (``offt_tpu/fft.py:149-174``), so on input that is
+    not Hermitian along the other axes it disagrees with numpy; on
+    Hermitian-consistent input (any ``rfftn`` output) the two agree."""
+    a = _hermitian_edges(a, m, n_out)
     lead = tuple(a.shape[:a.ndim - m])
     tail = tuple(a.shape[a.ndim - m:])
     shape3 = (1,) * (3 - m) + tail[:-1] + (n_out,)

@@ -87,11 +87,6 @@ static cudaError_t axis_regs(const float* xr, const float* xi, float* yr,
   return cudaErrorInvalidValue;
 }
 
-// the register core at a mixed length (fft_axis_mix.cu)
-cudaError_t axis_mix(const float* xr, const float* xi, float* yr, float* yi,
-                     const float2* tab, const AxisGeom& g, int n,
-                     int inverse, float scale, int tile, cudaStream_t s);
-
 }  // namespace offt
 
 // reg != 0: the register core (n a power of two in [16, 4096], or a mixed

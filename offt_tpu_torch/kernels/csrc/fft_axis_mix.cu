@@ -37,26 +37,15 @@ cudaError_t axis_mix_n(const float* xr, const float* xi, float* yr,
   // the tile codes of fft_axis.cu's AxisTile: 0 narrow, 1 wide
   constexpr int kTile = P <= 8 ? 0 : 1;
   constexpr int NT = P <= 8 ? kThreads : 32 * P < 1024 ? 32 * P : 1024;
-  if (tile != kTile) return cudaErrorInvalidValue;
+  if (tile >= 0 && tile != kTile) return cudaErrorInvalidValue;
   return launch_cols_mix<N, INV, NT>(xr, xi, yr, yi, tab, g, scale, s);
-}
-
-// f(std::integral_constant<int, N>) for n = R0 2^k, 16 <= 2^k <= 512;
-// an error for any other n
-template <int R0, int N = 16 * R0, typename F>
-cudaError_t by_mixed(int n, F&& f) {
-  if constexpr (N > 512 * R0) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (n == N) return f(std::integral_constant<int, N>());
-    return by_mixed<R0, 2 * N>(n, std::forward<F>(f));
-  }
 }
 
 }  // namespace
 
-// The register core at a mixed length n (fft_axis.cu's reg branch): the
-// first n table rows, `inverse`, `scale` and `tile` are read.
+// The register core at a mixed length n (fft_axis.cu's reg branch, the
+// y pass of fft_slab.cu): the first n table rows, `inverse`, `scale` and
+// `tile` are read.
 cudaError_t axis_mix(const float* xr, const float* xi, float* yr, float* yi,
                      const float2* tab, const AxisGeom& g, int n,
                      int inverse, float scale, int tile, cudaStream_t s) {
@@ -67,7 +56,7 @@ cudaError_t axis_mix(const float* xr, const float* xi, float* yr, float* yi,
                    : axis_mix_n<N, false>(xr, xi, yr, yi, tab, g, scale,
                                           tile, s);
   };
-  return n % 3 == 0 ? by_mixed<3>(n, run) : by_mixed<5>(n, run);
+  return n % 3 == 0 ? regs::by_mixed<3>(n, run) : regs::by_mixed<5>(n, run);
 }
 
 }  // namespace offt

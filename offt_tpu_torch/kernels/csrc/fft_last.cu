@@ -7,7 +7,7 @@
 //
 // What bounds it on Hopper: one read and one write of the (B, N) planar
 // pair, 16 bytes per complex element in all.
-// Design, two cores chosen by the wrapper (fused_fft._reg_core):
+// Design, two cores chosen by the wrapper (fused_fft._reg_rows):
 // - a power-of-two N in [16, 4096] runs the register core of fft_regs.cuh
 //   (regs::rows_c2c in regs_kernels.cuh, rows at pitch N):
 //   P = N/16 threads a row load it straight from device memory (a warp on
@@ -17,6 +17,10 @@
 //   8 threads, move in and out through a shared stage instead, the
 //   block's rows as one contiguous run). It ignores the radices: any
 //   valid pick gives the same values.
+// - the mixed lengths 3 2^k in [48, 1536] and 3072, 5 2^k in [80, 2560]
+//   run the same core's rows with 4 R0 values a thread and a last pass of
+//   radix 12 or 20, their exchange planes swizzled (fft_last_mix.cu, a
+//   source of its own);
 // - every other length runs the dense core of fft_core.cuh: a block owns T
 //   whole rows, reads them row-major into a column-wise tile (pencil
 //   stride TP = T | 1, odd, so the transposing store does not hit one
@@ -51,9 +55,10 @@ fft_last_kernel(const float* xr, const float* xi, float* yr, float* yi,
 
 }  // namespace offt
 
-// reg != 0: the register core (n a power of two in [16, 4096]; the first
-// n table rows, `inverse` and `scale` are read, the radices and T are
-// not); else the dense core (radices, T; the scale is in the table).
+// reg != 0: the register core (n a power of two in [16, 4096], or a mixed
+// length of fft_last_mix.cu; the first n table rows, `inverse` and `scale`
+// are read, the radices and T are not); else the dense core (radices, T;
+// the scale is in the table).
 extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
                              void* yi, const void* tab, long long rows, int n,
                              int ns, int r0, int r1, int r2, int T,
@@ -65,6 +70,9 @@ extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
     const float* ai = (const float*)xi;
     const float2* tb = (const float2*)tab;
     cudaStream_t s = (cudaStream_t)stream;
+    if (n & (n - 1))
+      return (int)last_mix(ar, ai, (float*)yr, (float*)yi, tb, rows, n, n, n,
+                           inverse, scale, s);
     return (int)regs::by_log(n, [&](auto lg) {
       constexpr int LOG = decltype(lg)::value;
       return inverse ? regs::launch_rows<LOG, true>(ar, ai, (float*)yr,

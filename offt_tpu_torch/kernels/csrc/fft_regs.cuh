@@ -2,9 +2,10 @@
 // power-of-two length N, 16 <= N <= 4096: contiguous rows (fft_last.cu,
 // rfft_last.cu, the z pass of the slabs, the c2r rows of irfft_slab.cu
 // and icrfft_last.cu) and, in its column variant, strided axes
-// (fft_axis.cu; the y pass of the three slabs); and, in the column
-// variant only, the mixed lengths N = R0 2^k, R0 = 3 or 5 (MixGeo,
-// fft_axis_mix.cu). The kernels built on it are in regs_kernels.cuh.
+// (fft_axis.cu; the y pass of the three slabs); and the mixed lengths
+// N = R0 2^k, R0 = 3 or 5 (MixGeo), in the column variant
+// (fft_axis_mix.cu) and as rows (MixRowGeo: fft_last_mix.cu, the z pass
+// of the c2c slab). The kernels built on it are in regs_kernels.cuh.
 //
 // Replaces, on those lengths: the dense shared-memory core of fft_core.cuh
 // (itself the port of offt_tpu/kernels/pallas_fft.py _core_apply :428).
@@ -558,6 +559,147 @@ template <int N, typename F>
 static __device__ __forceinline__ void outputs_mix(float2* v, int t, F f) {
   constexpr int V = MixGeo<N>::V;
   each<N, V, V>(v, t, [&](int e, float2& x) { f(e, x); });
+}
+
+// ---- mixed lengths as rows (MixRowGeo, core_mix_rows) ----
+// The rows of fft_last.cu and the c2c slab's z pass at N = R0 2^K
+// (fft_last_mix.cu): MixGeo's values, threads and passes, in a 256-thread
+// block of ROWS = 256 / P rows (one row at 3072, P = 256), each in its own
+// planes at a pitch of a multiple of 32 floats. No additive pad serves
+// here: a warp's gets read aligned runs of 32 (or of P) elements, so only
+// a pad on element bits 5 and up keeps them whole, and the puts of the
+// radix-4 pass at stride 4 (runs of four, 16 apart) and of the pass at
+// stride 16 (runs of 16, 32 or 64 apart) then ask of those bits more than
+// a sum can give (at P = 32 they contradict). The row map is a swizzle:
+// element a sits at at(a) = a ^ 20 (a bit 5) ^ 24 (a bit 6), a permutation
+// of each aligned run of 32 floats that keeps runs of four whole (so the
+// first pass's float4 stores stay), and rows sharing a warp (P < 32) XOR
+// row_mask(g) on top. Every put and get then takes one wavefront
+// (regcore.bank_ways). The swizzle is linear over XOR, so an exchange
+// address is the thread's swizzled base XOR a compile-time constant: the
+// constant's low five bits by a LOP3, the rest as the access's immediate
+// offset (xor_off).
+template <int N>
+struct MixRowGeo {
+  using M = MixGeo<N>;
+  static constexpr int V = M::V, P = M::P;
+  static_assert(P <= kThreads, "a row within one block");
+  static constexpr int ROWS = kThreads / P;  // rows per block
+  static constexpr int PITCH = (N + 31) / 32 * 32;
+  static constexpr size_t SMEM = (size_t)2 * ROWS * PITCH * sizeof(float);
+  static __host__ __device__ constexpr int at(int a) {
+    return a ^ (20 * ((a >> 5) & 1)) ^ (24 * ((a >> 6) & 1));
+  }
+  // where W = 32 / P rows share a warp, bit i of g flips the bits of
+  // 4 (7 - log2 W + i)
+  static __host__ __device__ constexpr int row_mask(int g) {
+    constexpr int NB = P >= 32 ? 0 : ilog2(32 / P);
+    int m = 0;
+    for (int i = 0; i < NB; ++i) m ^= ((g >> i) & 1) * 4 * (7 - NB + i);
+    return m;
+  }
+};
+
+// x ^ C where x's bits from 5 up are disjoint from C's: the low five bits
+// by XOR, the rest added (a compile-time offset of the access)
+template <int C>
+static __device__ __forceinline__ int xor_off(int x) {
+  if constexpr ((C & 31) == 0)
+    return x + C;
+  else
+    return (x ^ (C & 31)) + (C & ~31);
+}
+
+template <int N>
+static __device__ __forceinline__ void mix_row_sync() {
+  if (MixGeo<N>::P > 32)
+    __syncthreads();
+  else
+    __syncwarp();
+}
+
+// put of a mixed row: output r of butterfly j = t + q P to d + r NS, d =
+// (j div NS) NS R + j mod NS = X + q P R, X = (t div NS) NS R + t mod NS
+// (t's part; NS < P); gm the row's mask. The first pass (NS = 1) stores
+// its runs of four as float4.
+template <int N, int R, int NS>
+static __device__ __forceinline__ void put_rows_mix(float* sre, float* sim,
+                                                    const float2* v, int t,
+                                                    int gm) {
+  using G = MixRowGeo<N>;
+  constexpr int P = G::P;
+  const int x = G::at((t / NS) * NS * R + t % NS) ^ gm;
+  unroll<0, G::V / R>([&](auto qc) {
+    constexpr int Q = decltype(qc)::value;
+    if constexpr (NS == 1 && R == 4) {
+      const int a = xor_off<G::at(Q * P * R)>(x);
+      *reinterpret_cast<float4*>(sre + a) =
+          make_float4(v[4 * Q].x, v[4 * Q + 1].x, v[4 * Q + 2].x,
+                      v[4 * Q + 3].x);
+      *reinterpret_cast<float4*>(sim + a) =
+          make_float4(v[4 * Q].y, v[4 * Q + 1].y, v[4 * Q + 2].y,
+                      v[4 * Q + 3].y);
+    } else {
+      unroll<0, R>([&](auto r) {
+        constexpr int K = decltype(r)::value;
+        const int a = xor_off<G::at(Q * P * R + K * NS)>(x);
+        sre[a] = v[Q * R + K].x;
+        sim[a] = v[Q * R + K].y;
+      });
+    }
+  });
+}
+
+// get of a mixed row: v[q R + r] = element j + r N/R = t + P (q + r V/R)
+template <int N, int R>
+static __device__ __forceinline__ void get_rows_mix(const float* sre,
+                                                    const float* sim,
+                                                    float2* v, int t,
+                                                    int gm) {
+  using G = MixRowGeo<N>;
+  constexpr int P = G::P;
+  const int x = G::at(t) ^ gm;
+  unroll<0, G::V / R>([&](auto qc) {
+    unroll<0, R>([&](auto r) {
+      constexpr int Q = decltype(qc)::value, K = decltype(r)::value;
+      const int a = xor_off<G::at(P * (Q + K * (G::V / R)))>(x);
+      v[Q * R + K] = make_float2(sre[a], sim[a]);
+    });
+  });
+}
+
+template <int N, int PASS, bool INV>
+static __device__ __forceinline__ void mix_row_passes(float2* v, float* sre,
+                                                      float* sim, int t,
+                                                      int gm,
+                                                      const float2* tab) {
+  using M = MixGeo<N>;
+  if constexpr (PASS < M::NPASS) {
+    constexpr int R = M::radix(PASS), RP = M::radix(PASS - 1);
+    if constexpr (PASS > 1) mix_row_sync<N>();
+    put_rows_mix<N, RP, M::stride(PASS - 1)>(sre, sim, v, t, gm);
+    mix_row_sync<N>();
+    get_rows_mix<N, R>(sre, sim, v, t, gm);
+    butterflies<N, R, M::stride(PASS), INV, M::V>(v, t, tab);
+    mix_row_passes<N, PASS + 1, INV>(v, sre, sim, t, gm, tab);
+  }
+}
+
+// The length-N DFT of one mixed row, as core_mix does for a line of the
+// column variant: (sre, sim) the row's planes, t the thread's index in
+// it, gm = MixRowGeo<N>::row_mask(row in block). On return v holds output
+// element t + r P in v[r] (outputs_mix).
+template <int N, bool INV, typename Load>
+static __device__ __forceinline__ void core_mix_rows(float2* v, float* sre,
+                                                     float* sim, int t,
+                                                     int gm,
+                                                     const float2* tab,
+                                                     Load load) {
+  using M = MixGeo<N>;
+  static_assert(M::radix(0) == 4, "a radix-4 first pass");
+  each<N, 4, M::V>(v, t, [&](int e, float2& x) { x = load(e); });
+  butterflies<N, 4, 1, INV, M::V>(v, t, tab);
+  mix_row_passes<N, 1, INV>(v, sre, sim, t, gm, tab);
 }
 
 }  // namespace regs

@@ -9,9 +9,9 @@
 // What bounds it on Hopper: bytes, 16 a complex element when the slab is
 // read once and written once, 32 when it goes through device memory
 // between its z and y passes. Three layouts, chosen by the wrapper:
-// - Y and Z powers of two in [16, 4096] (fused_fft._reg_slab) run the
-//   register core (regs_kernels.cuh): z on its rows, y on its column
-//   variant, `scale` at the y store;
+// - Y and Z powers of two in [16, 4096] or mixed lengths R0 2^k
+//   (fused_fft._reg_slab) run the register core (regs_kernels.cuh): z on
+//   its rows, y on its column variant, `scale` at the y store;
 //   - 2^14 to 2^17 elements with Z >= 128, Y >= 64 (_cluster_slab; the
 //     256^3 slab): one grid of clusters of C <= 16 blocks, each x-row's
 //     slab held in the cluster's shared memory (ClusterSlab): each block
@@ -20,9 +20,12 @@
 //     other blocks' planes (distributed shared memory, 32-bit addresses)
 //     and writes the output: the slab is read and written once;
 //   - other register slabs (the 512^3 one: 2 MB, twice what a cluster of
-//     16 would hold at 8192 elements a block): two grids, rows_c2c from
-//     the input (pitch in_pitch) to the output (pitch out_pitch),
-//     unscaled, then cols_c2c in place on the output. Where the
+//     16 would hold at 8192 elements a block; every slab with a mixed
+//     length, the 320^3 one among them): two grids, rows_c2c (rows_mix at
+//     a mixed Z, fft_last_mix.cu) from the input (pitch in_pitch) to the
+//     output (pitch out_pitch), unscaled, then cols_c2c (cols_mix at a
+//     mixed Y, fft_axis_mix.cu, on the lane tile fft_axis routes) in
+//     place on the output. Where the
 //     z-transformed slab lives between the passes was measured
 //     (bench/probe_slabparts.py): one block per x-row running both passes
 //     (the `fused` probe) reads its own z writes back with 396 slabs of
@@ -230,14 +233,22 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
     // two grids: z rows, P * Y of them, in at ip, out at op; then the y
     // lines in place on the output, Z lanes per x-row
     const AxisGeom gy{rows, 1, nz, ny * op, op, 0, ny * op, op, 0};
-    cudaError_t err = by_log(nz, [&](auto lz) {
-      constexpr int LZ = decltype(lz)::value;
-      return inverse ? launch_rows<LZ, true>(xr, xi, yr, yi, tabz, rows * ny,
-                                             ip, op, 1.f, s)
-                     : launch_rows<LZ, false>(xr, xi, yr, yi, tabz,
-                                              rows * ny, ip, op, 1.f, s);
-    });
+    cudaError_t err;
+    if (nz & (nz - 1)) {
+      err = last_mix(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op, inverse,
+                     1.f, s);
+    } else {
+      err = by_log(nz, [&](auto lz) {
+        constexpr int LZ = decltype(lz)::value;
+        return inverse ? launch_rows<LZ, true>(xr, xi, yr, yi, tabz,
+                                               rows * ny, ip, op, 1.f, s)
+                       : launch_rows<LZ, false>(xr, xi, yr, yi, tabz,
+                                                rows * ny, ip, op, 1.f, s);
+      });
+    }
     if (err != cudaSuccess) return err;
+    if (ny & (ny - 1))
+      return axis_mix(yr, yi, yr, yi, taby, gy, ny, inverse, scale, -1, s);
     return by_log(ny, [&](auto ly) {
       constexpr int LY = decltype(ly)::value;
       return inverse ? launch_cols<LY, true>(yr, yi, yr, yi, taby, gy, scale,
@@ -277,11 +288,12 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
 
 }  // namespace offt
 
-// reg != 0: the register core (Y and Z powers of two in [16, 4096]; the
-// first rows of both tables, `inverse`, `scale`, `cluster` and `phases`
-// are read, the radices and tiles are not), in a cluster's shared memory
-// (cluster != 0, the shapes of ClusterSlab::OK) or in two grids; else the
-// dense core (radices, Tz, Ty; the scale is in the y table).
+// reg != 0: the register core (Y and Z powers of two in [16, 4096] or
+// mixed lengths; the first rows of both tables, `inverse`, `scale`,
+// `cluster` and `phases` are read, the radices and tiles are not), in a
+// cluster's shared memory (cluster != 0, the shapes of ClusterSlab::OK) or
+// in two grids; else the dense core (radices, Tz, Ty; the scale is in the
+// y table).
 extern "C" int offt_fft_slab(const void* xr, const void* xi, void* yr,
                              void* yi, const void* tabz, const void* taby,
                              long long rows, int ny, int nz,

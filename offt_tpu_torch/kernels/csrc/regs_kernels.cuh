@@ -13,6 +13,8 @@
 //   in blocks of 256 threads or of 32 lines up to 1024 threads;
 // - cols_mix: cols_c2c at the mixed lengths N = R0 2^k (MixGeo;
 //   fft_axis_mix.cu);
+// - rows_mix: rows_c2c at the mixed lengths (MixRowGeo; fft_last_mix.cu,
+//   also the z pass of fft_slab.cu);
 // - cols_twiddle: the column variant times a twiddle table at its store
 //   (the four-step step 1, fourstep.cu);
 // - rows_transposed: c2c of contiguous rows written transposed through a
@@ -52,6 +54,18 @@ static cudaError_t by_log(int n, F&& f) {
   } else {
     if (n == (1 << LOG)) return f(std::integral_constant<int, LOG>());
     return by_log<LOG + 1>(n, std::forward<F>(f));
+  }
+}
+
+// f(std::integral_constant<int, N>) for n = R0 2^k, 16 R0 <= n <= LAST;
+// an error for any other n
+template <int R0, int N = 16 * R0, int LAST = 512 * R0, typename F>
+static cudaError_t by_mixed(int n, F&& f) {
+  if constexpr (N > LAST) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (n == N) return f(std::integral_constant<int, N>());
+    return by_mixed<R0, 2 * N, LAST>(n, std::forward<F>(f));
   }
 }
 
@@ -396,6 +410,38 @@ cols_mix(const float* xr, const float* xi, float* yr, float* yi,
     const long long o = out + e * g.osn;
     yr[o] = w.x * scale;
     yi[o] = w.y * scale;
+  });
+}
+
+// rows_c2c at a mixed length N = R0 2^K (MixRowGeo): ROWS = 256 / P rows
+// a block at their own input and output pitch, the ragged last block
+// masked, V = 4 R0 values a thread, loads of element t + q P + r N/4 and
+// natural-order stores of element t + r P (a warp on consecutive floats
+// of a row), times `scale`. Every thread of a row reads the whole input
+// before any writes, so it may run in place.
+template <int N, bool INV>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rows_mix(const float* xr, const float* xi, float* yr, float* yi,
+         const float2* __restrict__ tab, long long rows, long long ipitch,
+         long long opitch, float scale) {
+  using G = MixRowGeo<N>;
+  extern __shared__ __align__(16) float rsmem[];
+  const int g = threadIdx.x / G::P;
+  const int t = threadIdx.x % G::P;
+  const long long row = (long long)blockIdx.x * G::ROWS + g;
+  const bool valid = row < rows;
+  const long long in = row * ipitch, out = row * opitch;
+  float2 v[G::V];
+  core_mix_rows<N, INV>(v, rsmem + g * G::PITCH,
+                        rsmem + (G::ROWS + g) * G::PITCH, t,
+                        G::row_mask(g), tab, [&](int e) {
+                          return valid ? make_float2(xr[in + e], xi[in + e])
+                                       : make_float2(0.f, 0.f);
+                        });
+  if (!valid) return;
+  outputs_mix<N>(v, t, [&](int e, float2 y) {
+    yr[out + e] = y.x * scale;
+    yi[out + e] = y.y * scale;
   });
 }
 
@@ -789,6 +835,22 @@ static cudaError_t launch_cols_mix(const float* xr, const float* xi,
   return cudaGetLastError();
 }
 
+template <int N, bool INV>
+static cudaError_t launch_rows_mix(const float* xr, const float* xi,
+                                   float* yr, float* yi, const float2* tab,
+                                   long long rows, long long ipitch,
+                                   long long opitch, float scale,
+                                   cudaStream_t stream) {
+  using G = MixRowGeo<N>;
+  auto kernel = rows_mix<N, INV>;
+  cudaError_t err = allow_smem(kernel, G::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (rows + G::ROWS - 1) / G::ROWS;
+  kernel<<<(unsigned)blocks, kThreads, G::SMEM, stream>>>(
+      xr, xi, yr, yi, tab, rows, ipitch, opitch, scale);
+  return cudaGetLastError();
+}
+
 template <int LOG, bool INV, int NT>
 static cudaError_t launch_cols_twiddle(const float* xr, const float* xi,
                                        float* yr, float* yi,
@@ -832,4 +894,20 @@ static cudaError_t launch_rows_transposed(const float* xr, const float* xi,
 }
 
 }  // namespace regs
+
+// The launchers of the mixed lengths, each in a source of its own so that
+// nvcc builds their instances beside the others.
+// The column variant along the n axis of g (fft_axis_mix.cu): n =
+// R0 2^k, 16 <= 2^k <= 512; `tile` the lane tile's code (fft_axis.cu's
+// AxisTile), or -1 for the one fused_fft._axis_tile routes.
+cudaError_t axis_mix(const float* xr, const float* xi, float* yr, float* yi,
+                     const float2* tab, const AxisGeom& g, int n,
+                     int inverse, float scale, int tile, cudaStream_t s);
+// `rows` rows of length n = R0 2^k (16 <= 2^k <= 512, or 3072) at pitches
+// ipitch and opitch, times `scale` (fft_last_mix.cu).
+cudaError_t last_mix(const float* xr, const float* xi, float* yr, float* yi,
+                     const float2* tab, long long rows, int n,
+                     long long ipitch, long long opitch, int inverse,
+                     float scale, cudaStream_t s);
+
 }  // namespace offt

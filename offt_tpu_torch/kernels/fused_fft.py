@@ -32,15 +32,15 @@ Every wrapper counts its kernel launches (``fn.launches``) and its plain
 calls (``fn.plain_calls``); :func:`reset_counts` zeroes them. Each
 wrapper is listed by name in ``WRAPPERS`` as it is defined. The two
 last-axis row kernels (``fft_last``, ``rfft_last_planar``) run the
-register core of ``csrc/fft_regs.cuh`` on the lengths :func:`_reg_core`
-admits, the strided-axis kernel (``fft_sublane``, ``_sublane_nd``,
-``fft_x_from_padded``, ``fft_x_to_padded``) its column variant on the
-lengths :func:`_reg_axis` admits, the three slab kernels
+register core of ``csrc/fft_regs.cuh`` on the lengths :func:`_reg_rows`
+and :func:`_reg_core` admit, the strided-axis kernel (``fft_sublane``,
+``_sublane_nd``, ``fft_x_from_padded``, ``fft_x_to_padded``) its column
+variant on the lengths :func:`_reg_axis` admits, the three slab kernels
 (``fft_slab_yz``, ``rfft_slab_yz``, ``irfft_slab_yz``) on the slabs
-:func:`_reg_slab` admits (rows and the column variant: in one grid of
-clusters holding the slab in shared memory where :func:`_cluster_slab`
-admits it, :func:`_cluster_irslab` for the c2r, else in two grids), and
-all of them the dense core of
+:func:`_reg_slab` and :func:`_reg_rslab` admit (rows and the column
+variant: in one grid of clusters holding the slab in shared memory where
+:func:`_cluster_slab` admits it, :func:`_cluster_irslab` for the c2r,
+else in two grids), and all of them the dense core of
 ``csrc/fft_core.cuh`` on the rest; of their launches, ``fn.reg_launches``
 took the register core. A launch is one call of the kernel's C entry
 point.
@@ -204,34 +204,63 @@ def can_fuse_cube(nx: int, ny: int, nz: int, rad_x=None, rad_y=None,
             and tb._pick_stages(nz, rad_z) is not None)
 
 
-def _reg_core(n: int) -> bool:
-    """Whether a row kernel (``fft_last`` at length n, ``rfft_last_planar``
-    and ``icrfft_last_planar`` at half length n) launches the register
-    core (``csrc/fft_regs.cuh``): a power of two in [16, 4096]. Every
-    other length takes the dense core. The register core ignores the
-    radices and the rows per block."""
+def _pow2(n: int) -> bool:
+    """A power of two in [16, 4096]: the register core's lengths."""
     return 16 <= n <= 4096 and n & (n - 1) == 0
 
 
-def _reg_slab(ny: int, nz: int) -> bool:
-    """Whether a slab kernel (``fft_slab_yz`` on (ny, nz),
-    ``rfft_slab_yz`` on (ny, M = N/2)) launches the register core: z as
-    rows, y on the column variant, both powers of two in [16, 4096]. Every
-    other slab takes the dense core. The register slab ignores the radices
-    and the tiles."""
-    return all(16 <= n <= 4096 and n & (n - 1) == 0 for n in (ny, nz))
+def _reg_core(n: int) -> bool:
+    """Whether ``rfft_last_planar`` and ``icrfft_last_planar`` at half
+    length n, and each kernel of the four-step pair at its own length,
+    launch the register core (``csrc/fft_regs.cuh``): a power of two in
+    [16, 4096]. Every other length takes the dense core (their untangle,
+    c2r and transposing rows have no mixed instances). The register core
+    ignores the radices and the rows per block."""
+    return _pow2(n)
 
 
 # the mixed lengths R0 2^k (R0 = 3, 5; 16 <= 2^k <= 512) the register
 # core's column variant has (csrc/fft_axis_mix.cu)
 _MIX_LENGTHS = frozenset(r0 << k for r0 in (3, 5) for k in range(4, 10))
+# the mixed lengths its rows have (csrc/fft_last_mix.cu): those and 3072
+# (P = 256, one row a block), whose exchanges take one wavefront as rows
+# and would take two as columns
+_MIX_ROW_LENGTHS = _MIX_LENGTHS | {3072}
 
 
 def _reg_values(n: int) -> int:
     """Complex values a thread of the register core holds at length n: 16
     at a power of two, 4 R0 at a mixed length R0 2^k (12 or 20); a line
     takes n / that many threads (P)."""
-    return 4 * (3 if n % 3 == 0 else 5) if n in _MIX_LENGTHS else 16
+    return 4 * (3 if n % 3 == 0 else 5) if n in _MIX_ROW_LENGTHS else 16
+
+
+def _reg_rows(n: int) -> bool:
+    """Whether ``fft_last`` at length n, and the z rows of the c2c slab
+    (``fft_slab_yz``), launch the register core's rows: a power of two in
+    [16, 4096], or a mixed length of ``_MIX_ROW_LENGTHS`` (3 2^k in [48,
+    1536] and 3072, 5 2^k in [80, 2560]: ``regs::rows_mix``, radix-4
+    passes then one of radix 12 or 20, the exchange planes swizzled).
+    Every other length takes the dense core."""
+    return _pow2(n) or n in _MIX_ROW_LENGTHS
+
+
+def _reg_slab(ny: int, nz: int) -> bool:
+    """Whether the c2c slab kernel (``fft_slab_yz`` on (ny, nz)) launches
+    the register core: z as rows (:func:`_reg_rows`), y on the column
+    variant (:func:`_reg_axis`), each a power of two in [16, 4096] or a
+    mixed length (the mixed ones in two grids). Every other slab takes
+    the dense core. The register slab ignores the radices and the
+    tiles."""
+    return _reg_rows(nz) and _reg_axis(ny)
+
+
+def _reg_rslab(ny: int, m: int) -> bool:
+    """Whether the r2c and c2r slab kernels (``rfft_slab_yz``,
+    ``irfft_slab_yz`` on (ny, M = N/2)) launch the register core: both
+    powers of two in [16, 4096] (their r2c and c2r rows have no mixed
+    instances). Every other slab takes the dense core."""
+    return _pow2(ny) and _pow2(m)
 
 
 def _reg_axis(n: int) -> bool:
@@ -244,7 +273,7 @@ def _reg_axis(n: int) -> bool:
     row threads a warp its exchanges would take two wavefronts; factors
     3^2, 5^2 or 15: no network). The register core ignores the radices
     and the lane tile of the dense core."""
-    return (16 <= n <= 4096 and n & (n - 1) == 0) or n in _MIX_LENGTHS
+    return _pow2(n) or n in _MIX_LENGTHS
 
 
 # the register core's lane tiles of the strided-axis kernel and their
@@ -267,10 +296,11 @@ def _cluster_slab(ny: int, nz: int) -> bool:
     """Whether a register slab (ny, nz) runs in one grid of clusters
     that hold each x-row's slab in shared memory (``ClusterSlab`` in
     ``csrc/regs_kernels.cuh``: 2^14 to 2^17 elements, nz >= 128, ny >=
-    64; clusters of up to 16 blocks), reading it from device memory once
-    and writing it once; other register slabs run two grids, the z rows
-    and then the y lines in place."""
-    return (_reg_slab(ny, nz) and nz >= 128 and ny >= 64
+    64, both powers of two (:func:`_reg_rslab`); clusters of up to 16
+    blocks), reading it from device memory once and writing it once;
+    other register slabs (every one with a mixed length) run two grids,
+    the z rows and then the y lines in place."""
+    return (_reg_rslab(ny, nz) and nz >= 128 and ny >= 64
             and 1 << 14 <= ny * nz <= 1 << 17)
 
 
@@ -636,10 +666,11 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
     ``scale``). ``alias=True`` writes over the inputs and returns them; a
     ragged last block is masked, so any batch may alias.
 
-    On a power-of-two N in [16, 4096] (:func:`_reg_core`) the kernel runs
-    the register core: ``radices`` is checked but does not shape its
-    passes (any valid pick gives the same values), ``block_rows`` is
-    ignored, and ``scale`` is applied at the store. Other lengths run the
+    On a power-of-two N in [16, 4096] and the mixed lengths 3 2^k and
+    5 2^k that :func:`_reg_rows` admits the kernel runs the register
+    core's rows: ``radices`` is checked but does not shape its passes (any
+    valid pick gives the same values), ``block_rows`` is ignored, and
+    ``scale`` is applied at the store. Other lengths run the
     dense core on the ``radices`` stages, ``scale`` riding the last stage's
     table; ``block_rows`` sets its rows per CUDA block (0 = as many as fit
     64 KB of shared memory, at most 64). The plain version is the dense
@@ -663,7 +694,7 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
         return yr, yi
     rows = xr.numel() // n
     if rows:
-        reg = _reg_core(n)
+        reg = _reg_rows(n)
         t = 0 if reg else _rows_tile(n, block_rows, sum(stages))
         _launch("offt_fft_last", (xr, xi, yr, yi), (tab,),
                 [rows, n, *_radix_args(stages), t, int(inverse), float(scale),
@@ -750,11 +781,12 @@ def fft_slab_yz(mode, xr, xi, inverse: bool = False, rad_y=None, rad_z=None,
     writes over the inputs. ``block_rows`` is accepted for parity and
     ignored.
 
-    On Y and Z powers of two in [16, 4096] (:func:`_reg_slab`) the kernel
-    runs the register core: the z rows, then the y lines on the column
-    variant, in one grid of clusters holding the slab in shared memory
-    (:func:`_cluster_slab`) or in two grids through the output; ``scale``
-    is applied at the y store and the radices do not shape it. Other
+    On Y and Z powers of two in [16, 4096] or mixed lengths 3 2^k, 5 2^k
+    (:func:`_reg_slab`) the kernel runs the register core: the z rows,
+    then the y lines on the column variant, in one grid of clusters
+    holding the slab in shared memory (:func:`_cluster_slab`, powers of
+    two) or in two grids through the output; ``scale`` is applied at the
+    y store and the radices do not shape it. Other
     slabs run the dense core in one grid, a block per x-row, ``scale``
     riding the y tables. The plain version is the dense core's arithmetic
     on every slab. ``phases`` other than "full" are cost probes of the
@@ -813,7 +845,7 @@ def fft_slab_yz(mode, xr, xi, inverse: bool = False, rad_y=None, rad_z=None,
     roots = sum(sz) + sum(sy)
     tz, ty = (0, 0) if reg else (_rows_tile(nz, 0, roots),
                                  _cols_tile(ny, 0, roots))
-    cluster = _cluster_slab(ny, nz) and phases != "grids"
+    cluster = reg and _cluster_slab(ny, nz) and phases != "grids"
     _launch("offt_fft_slab", (xr, xi, yr, yi), (tabz, taby),
             [p, ny, nz, nz_in, nz + zpad, *_radix_args(sz),
              *_radix_args(sy), tz, ty, int(inverse), float(scale), int(reg),
@@ -919,9 +951,9 @@ def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
     Unscaled. The ``zpad`` pad lanes are allocated and never written;
     ``block_rows`` is accepted for parity and ignored.
 
-    On Y and M powers of two in [16, 4096] (:func:`_reg_slab`) the kernel
-    runs the register core: the r2c rows (float2 pairs, the M-point core,
-    the untangle), then the y lines on the column variant, in one grid of
+    On Y and M powers of two in [16, 4096] (:func:`_reg_rslab`) the
+    kernel runs the register core: the r2c rows (float2 pairs, the M-point
+    core, the untangle), then the y lines on the column variant, in one grid of
     clusters holding the slab in shared memory (:func:`_cluster_slab` of
     (Y, M)) or in two grids through the output; the radices do not shape
     it. Other slabs run the dense core in one grid, a block per x-row.
@@ -957,7 +989,7 @@ def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
         yr[..., :m].copy_(ar.transpose(-1, -2))
         yi[..., :m].copy_(ai.transpose(-1, -2))
         return yr, yi
-    reg = _reg_slab(ny, m)
+    reg = _reg_rslab(ny, m)
     code = _phase_code(_RSLAB_PHASES, phases, mode, reg)
     if p * ny * m == 0:
         return yr, yi
@@ -990,7 +1022,7 @@ def irfft_slab_yz(mode, xr, xi, n: int, rad_y=None, rad_z=None,
     shape (..., Y), are a Nyquist plane injected into plane 0 as
     + i*side before the y pass. ``block_rows`` is ignored.
 
-    On Y and M powers of two in [16, 4096] (:func:`_reg_slab` of (Y, M))
+    On Y and M powers of two in [16, 4096] (:func:`_reg_rslab` of (Y, M))
     the kernel runs the register core: the y lines on the column variant,
     then the c2r rows (the re-tangle as the M-point core loads), in one
     grid of clusters holding the slab in shared memory
@@ -1036,7 +1068,7 @@ def irfft_slab_yz(mode, xr, xi, n: int, rad_y=None, rad_z=None,
         return out
     if p * ny * m == 0:
         return out
-    reg = _reg_slab(ny, m)
+    reg = _reg_rslab(ny, m)
     cluster = reg and _cluster_irslab(ny, m)
     sr = si = None
     if reg and not cluster:

@@ -5,16 +5,20 @@
 complex values each, as a contiguous row (``fft_last``, ``rfft_last``,
 the slabs' z pass, the c2r rows of ``irfft_slab`` and ``icrfft_last``)
 or, in its column variant, along a strided axis (``fft_axis``, the
-slabs' y pass); the column variant also runs the mixed lengths
-n = R0 2^k (R0 = 3, 5; ``fused_fft._MIX_LENGTHS``) on P = n / (4 R0)
-threads of 4 R0 values each (``fused_fft._reg_values``), its last pass
-of radix 12 or 20 the kernel's Good-Thomas network (:func:`dft_pfa`,
-replayed with its constant roots). No CPU can run that
+slabs' y pass); both also run the mixed lengths n = R0 2^k (R0 = 3,
+5; ``fused_fft._MIX_LENGTHS``, and 3072 as rows,
+``fused_fft._MIX_ROW_LENGTHS``) on P = n / (4 R0) threads of 4 R0
+values each (``fused_fft._reg_values``), the last pass of radix 12 or 20
+the kernel's Good-Thomas network (:func:`dft_pfa`, replayed with its
+constant roots), the rows' exchange planes swizzled (:func:`mix_at`,
+:func:`row_mask`; :func:`rows_mix_block` replays a block of them through
+the addresses the kernel computes, :func:`fft_last` a batch). No CPU can
+run that
 kernel, so the tests hold this replay of it against numpy and the JAX
 reference: the same pass radices and strides (:func:`passes`), the same
 twiddle indices into the first n rows of ``tables.core_table`` and the
 same input gathers and output scatters (:func:`pass_maps`), and the same
-shared-memory geometry of rows (:func:`geometry`, :func:`phys`) and
+shared-memory geometry of rows (:func:`geometry`, :func:`row_at`) and
 columns (:func:`col_geometry`, :func:`col_at`), with :func:`bank_ways`
 and :func:`col_bank_ways` counting the exchanges' bank conflicts; the
 strided-axis kernel's lane tiles (:func:`axis_tile`, :func:`warp_runs`;
@@ -61,7 +65,7 @@ def passes(n: int) -> list[tuple[int, int]]:
     length R0 2^k (``MixGeo``): radix 4 over P = n / (4 R0), a radix 2
     last where log2 P is odd, then radix 4 R0 at stride P; Ns = the
     product of the radices before."""
-    if n in fused_fft._MIX_LENGTHS:
+    if n in fused_fft._MIX_ROW_LENGTHS:
         p = n // fused_fft._reg_values(n)
         lp = p.bit_length() - 1
         rads = [4] * (lp // 2) + [2] * (lp % 2) + [fused_fft._reg_values(n)]
@@ -72,7 +76,7 @@ def passes(n: int) -> list[tuple[int, int]]:
     else:
         raise ValueError(f"the register core takes powers of two in "
                          f"[16, 4096] and the mixed lengths 3 2^k, 5 2^k "
-                         f"(16 <= 2^k <= 512), not {n}")
+                         f"(16 <= 2^k <= 512; 3072 as rows), not {n}")
     out, ns = [], 1
     for r in rads:
         out.append((r, ns))
@@ -86,22 +90,64 @@ def phys(a):
     return a + 4 * (a >> 5) + 16 * (a >> 8)
 
 
+def mix_at(a):
+    """The mixed rows' swizzle of element a (``regs::MixRowGeo::at``): bit 5
+    of a flips bits 2 and 4 (XOR 20), bit 6 flips bits 3 and 4 (XOR 24).
+    It permutes each aligned run of 32 slots and keeps runs of four whole,
+    and it is linear over XOR: mix_at(x ^ c) = mix_at(x) ^ mix_at(c), so an
+    exchange address is the thread's swizzled base XOR a compile-time
+    constant."""
+    return a ^ (20 * ((a >> 5) & 1)) ^ (24 * ((a >> 6) & 1))
+
+
+def row_mask(n: int, g):
+    """The XOR that row g of a block adds to its swizzled offsets at a mixed
+    length n (``MixRowGeo::row_mask``): none where a row takes a warp or
+    more (P >= 32); where W = 32 / P rows share a warp, bit i of g (of
+    log2 W) flips the bits of 4 (7 - log2 W + i), the columns (4, 5, 6) of
+    the element's bits 5 and 6 and one more: 24 g at P = 16; 20 g0 ^ 24 g1
+    at 8; 16 g0 ^ 20 g1 ^ 24 g2 at 4."""
+    p = n // fused_fft._reg_values(n)
+    m = 0 * g
+    if p < 32:
+        nb = (32 // p).bit_length() - 1
+        for i in range(nb):
+            m = m ^ (((g >> i) & 1) * 4 * (7 - nb + i))
+    return m
+
+
 def geometry(n: int) -> dict:
-    """The block geometry of ``regs::Geo``: threads per row P, rows per
-    block, a row's floats per plane (SIZE, PITCH) and the block's dynamic
-    shared memory in bytes. The row layout takes powers of two only."""
-    if n in fused_fft._MIX_LENGTHS:
-        raise ValueError(f"no row layout at the mixed length {n}")
+    """The block geometry of the row layout: threads per row P, rows per
+    block, a row's floats per plane (SIZE, PITCH), values a thread V and
+    the block's dynamic shared memory in bytes. At a power of two
+    ``regs::Geo`` (the pad phys, rows sharing a warp P banks apart); at a
+    mixed length ``regs::MixRowGeo`` (no pad: the swizzle :func:`mix_at`
+    and :func:`row_mask`, rows at a pitch of a multiple of 32)."""
     passes(n)
-    p = n // E
+    v = fused_fft._reg_values(n)
+    p = n // v
+    rows = THREADS // p
+    if n in fused_fft._MIX_ROW_LENGTHS:
+        pitch = -(-n // 32) * 32
+        return {"P": p, "ROWS": rows, "SIZE": n, "PITCH": pitch, "V": v,
+                "SMEM": 2 * rows * pitch * 4}
     size = phys(n - 1) + 1
     pitch = size
     if p < 32:
         want = max(p, 4)
         pitch = size + ((want - size) % 32 + 32) % 32
-    rows = THREADS // p
-    return {"P": p, "ROWS": rows, "SIZE": size, "PITCH": pitch,
+    return {"P": p, "ROWS": rows, "SIZE": size, "PITCH": pitch, "V": v,
             "SMEM": 2 * rows * pitch * 4}
+
+
+def row_at(n: int, a, g=0):
+    """Offset of element a of row g in a block's exchange plane: g PITCH
+    plus phys(a) at a power of two, plus mix_at(a) ^ row_mask(g) at a mixed
+    length."""
+    pitch = geometry(n)["PITCH"]
+    if n in fused_fft._MIX_ROW_LENGTHS:
+        return g * pitch + (mix_at(a) ^ row_mask(n, g))
+    return g * pitch + phys(a)
 
 
 def pass_maps(n: int, r: int, ns: int) -> tuple:
@@ -196,6 +242,94 @@ def fft_rows(xr, xi, tab, inverse: bool = False, scale: float = 1.0):
         d[:, dst] = y
     d = (d * scale).reshape(xr.shape)
     return d.real.contiguous(), d.imag.contiguous()
+
+
+def _butterflies(v, n: int, r: int, ns: int, t, p: int, w,
+                 inverse: bool) -> None:
+    """Pass (r, ns) on every thread's butterflies j = t + q P, in place on
+    v (threads, V), inputs v[:, q r + k] = element j + k n/r: input k > 0
+    times W_n^(k (j mod ns) n/(ns r)) (``w`` the n roots), then the r-point
+    network."""
+    for q in range(v.shape[1] // r):
+        blk = v[:, q * r:(q + 1) * r]
+        if ns > 1:
+            j = t + q * p
+            blk = blk * w[torch.arange(r)[None, :]
+                          * ((j % ns) * (n // (ns * r)))[:, None]]
+        v[:, q * r:(q + 1) * r] = (dft_pfa(blk, inverse) if r in (12, 20)
+                                   else blk @ _dft(r, inverse))
+
+
+def rows_mix_block(x, tab, inverse: bool = False):
+    """One block of ``regs::rows_mix`` as it runs, at a mixed length n:
+    ``x`` the block's ROWS rows (ROWS, n) complex64 (rows past the batch
+    zero), thread (g, t) = (tid // P, tid % P) of row g. It loads element
+    t + q P + k n/4, runs the first pass, then for each later pass puts
+    the outputs into the block's exchange plane and gets the inputs back
+    at the addresses the kernel computes: the thread's swizzled base
+    mix_at(X) ^ row_mask(g), X the part of the element its t sets, XOR
+    mix_at(C) of the compile-time part C (put: X = (t div Ns) Ns R +
+    t mod Ns, C = q P R + k Ns; get: X = t, C = P (q + k V/R)). Returns
+    the (ROWS, n) output, element t + k P from the last pass's v[k]."""
+    n = x.shape[-1]
+    geo = geometry(n)
+    p, rows, pitch, nv = geo["P"], geo["ROWS"], geo["PITCH"], geo["V"]
+    sched = passes(n)
+    tid = torch.arange(THREADS)
+    g, t = tid // p, tid % p
+    gm = row_mask(n, g)
+    w = torch.complex(tab[:n, 0], tab[:n, 1])
+    v = torch.empty(THREADS, nv, dtype=torch.complex64)
+    r, _ = sched[0]
+    for q in range(nv // r):
+        for k in range(r):
+            v[:, q * r + k] = x[g, t + q * p + k * (n // r)]
+    _butterflies(v, n, r, 1, t, p, w, inverse)
+    plane = torch.full((rows * pitch,), complex("nan"), dtype=torch.complex64)
+    for (rp, nsp), (r, ns) in zip(sched, sched[1:]):
+        base = mix_at((t // nsp) * nsp * rp + t % nsp) ^ gm
+        for q in range(nv // rp):
+            for k in range(rp):
+                a = g * pitch + (base ^ mix_at(q * p * rp + k * nsp))
+                plane[a] = v[:, q * rp + k]
+        base = mix_at(t) ^ gm
+        for q in range(nv // r):
+            for k in range(r):
+                a = g * pitch + (base ^ mix_at(p * (q + k * (nv // r))))
+                v[:, q * r + k] = plane[a]
+        _butterflies(v, n, r, ns, t, p, w, inverse)
+    out = torch.empty(rows, n, dtype=torch.complex64)
+    for k in range(nv):
+        out[g, t + k * p] = v[:, k]
+    return out
+
+
+def fft_last(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
+             alias: bool = False):
+    """``fft_last``'s register core on planar (..., n) as its grid runs:
+    at a mixed length block by block (:func:`rows_mix_block`, ROWS rows a
+    block, the ragged last one masked), at a power of two :func:`fft_rows`;
+    ``scale`` at the store. ``alias`` writes over the inputs (a block
+    reads its rows whole before it writes any)."""
+    n = xr.shape[-1]
+    if n in fused_fft._MIX_ROW_LENGTHS:
+        rows = geometry(n)["ROWS"]
+        x = torch.complex(xr, xi).reshape(-1, n)
+        y = torch.empty_like(x)
+        for b0 in range(0, x.shape[0], rows):
+            k = min(rows, x.shape[0] - b0)
+            blk = torch.zeros(rows, n, dtype=torch.complex64)
+            blk[:k] = x[b0:b0 + k]
+            y[b0:b0 + k] = rows_mix_block(blk, tab, inverse)[:k] * scale
+        y = y.reshape(xr.shape)
+        yr, yi = y.real.contiguous(), y.imag.contiguous()
+    else:
+        yr, yi = fft_rows(xr, xi, tab, inverse, scale)
+    if alias:
+        xr.copy_(yr)
+        xi.copy_(yi)
+        return xr, xi
+    return yr, yi
 
 
 def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False):
@@ -397,12 +531,11 @@ def _exchange_ways(n: int, t, addr, vec4: bool) -> dict:
 
 def bank_ways(n: int) -> dict:
     """The row core's exchanges (:func:`_exchange_ways`): a block of
-    256 / P rows, each in its own planes at pitch PITCH."""
-    g = geometry(n)
-    p, pitch = g["P"], g["PITCH"]
+    256 / P rows, row g's element a at :func:`row_at`."""
+    p = geometry(n)["P"]
     lanes = np.arange(THREADS)
     row, t = lanes // p, lanes % p
-    return _exchange_ways(n, t, lambda a: row * pitch + phys(a), True)
+    return _exchange_ways(n, t, lambda a: row_at(n, a, row), True)
 
 
 def col_bank_ways(n: int, threads: int = THREADS) -> dict:
@@ -533,11 +666,23 @@ def fft_slab(xr, xi, tabz, taby, inverse: bool = False, scale: float = 1.0,
              zpad: int = 0, z_true: int = 0, alias: bool = False):
     """The register ``fft_slab``'s two grids on planar (..., Y, Z): the z
     rows of the first ``z_true`` (or Z) input lanes, unscaled, into an
-    output of pitch Z + ``zpad``; then the y columns in place on it,
-    ``scale`` at their store. ``alias`` writes over the inputs."""
+    output of pitch Z + ``zpad`` (:func:`fft_last`: at a mixed Z through
+    the swizzled exchange planes); then the y columns in place on it,
+    ``scale`` at their store (at a mixed Y the strided-axis kernel's tiles,
+    :func:`fft_axis`, on the (x-rows, Y, 1, Z lanes) geometry).
+    ``alias`` writes over the inputs."""
+    ny = xr.shape[-2]
     nz = z_true or xr.shape[-1]
-    zr, zi = fft_rows(xr[..., :nz], xi[..., :nz], tabz, inverse)
-    vr, vi = fft_cols(zr, zi, taby, inverse, scale, dim=-2)
+    zr, zi = fft_last(xr[..., :nz].contiguous(), xi[..., :nz].contiguous(),
+                      tabz, inverse)
+    if ny in fused_fft._MIX_LENGTHS:
+        st = (ny * nz, nz, 0)
+        fr, fi = zr.reshape(-1), zi.reshape(-1)
+        fft_axis(fr, fi, fr, fi, ny, (fr.numel() // (ny * nz), 1, nz, st, st),
+                 taby, inverse, scale)
+        vr, vi = zr, zi
+    else:
+        vr, vi = fft_cols(zr, zi, taby, inverse, scale, dim=-2)
     if alias:
         xr.copy_(vr)
         xi.copy_(vi)

@@ -516,7 +516,40 @@ def test_cuda_long_three_stage_plan(cuda_dev):
 def test_cuda_fft_last_cores(cuda_dev, n, inverse, rows):
     _card_check(ff.fft_last, lambda f, x: f(*x, inverse=inverse,
                                             scale=0.375), (rows, n), cuda_dev)
-    assert ff.fft_last.reg_launches == int(ff._reg_core(n))
+    assert ff.fft_last.reg_launches == int(ff._reg_rows(n))
+
+
+MIX_ROWS = sorted(ff._MIX_ROW_LENGTHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", MIX_ROWS)
+def test_cuda_fft_last_mixed_rows(cuda_dev, monkeypatch, n, inverse, rows,
+                                  dense):
+    # the register core's rows at every mixed length (fft_last_mix.cu),
+    # and the dense core on the same lengths
+    if dense:
+        monkeypatch.setattr(ff, "_reg_rows", lambda n: False)
+    _card_check(ff.fft_last, lambda f, x: f(*x, inverse=inverse,
+                                            scale=0.375), (rows, n), cuda_dev)
+    assert ff.fft_last.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", MIX_ROWS)
+def test_cuda_fft_last_mixed_rows_in_place(cuda_dev, n):
+    x = _pair((37, n), cuda_dev, seed=n)
+    want = ff.fft_last.plain(*x, inverse=True, scale=1.0 / n)
+    xr, xi = x[0].clone(), x[1].clone()
+    ff.reset_counts()
+    yr, yi = ff.fft_last(xr, xi, inverse=True, scale=1.0 / n, alias=True)
+    torch.cuda.synchronize()
+    assert yr is xr and yi is xi and ff.fft_last.reg_launches == 1
+    for g, w in zip((yr, yi), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
 
 
 @pytest.mark.cuda
@@ -568,6 +601,7 @@ def test_cuda_register_core_ignores_radices(cuda_dev):
 def _slab_core(monkeypatch, dense):
     if dense:
         monkeypatch.setattr(ff, "_reg_slab", lambda ny, nz: False)
+        monkeypatch.setattr(ff, "_reg_rslab", lambda ny, m: False)
 
 
 @pytest.mark.cuda
@@ -601,6 +635,42 @@ def test_cuda_fft_slab_cores(cuda_dev, monkeypatch, shape, kw, lanes, dense):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape,kw,lanes", [
+    ((4, 320, 320), {"zpad": 8}, 320),         # the 320^3 slab's x-rows
+    ((2, 192, 320), {"inverse": True, "scale": 1 / 61440}, None),
+    ((2, 320, 96), {"scale": 0.5}, None),
+    ((3, 48, 80), {"inverse": True}, None),     # rows of 4 threads
+    ((2, 2560, 48), {"zpad": 8}, 48),           # mixed y, wide tile
+    ((2, 96, 3072), {}, None),                  # one z row a block
+    ((2, 64, 328), {"z_true": 320, "zpad": 8}, 320),
+    ((2, 320, 128), {"scale": 0.25}, None),     # power-of-two z
+    ((2, 128, 192), {"inverse": True}, None)])  # power-of-two y
+def test_cuda_fft_slab_mixed(cuda_dev, monkeypatch, shape, kw, lanes, dense):
+    # the register slab at mixed lengths: two grids, z on the mixed rows
+    # (fft_last_mix.cu), y on the mixed columns (fft_axis_mix.cu)
+    _slab_core(monkeypatch, dense)
+    _card_check(ff.fft_slab_yz, lambda f, x: f(*x, **kw), shape, cuda_dev,
+                lanes=lanes)
+    assert ff.fft_slab_yz.reg_launches == int(not dense)
+    assert not ff._cluster_slab(shape[-2], kw.get("z_true") or shape[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 320, 320), (2, 96, 160)])
+def test_cuda_fft_slab_mixed_in_place(cuda_dev, shape):
+    x = _pair(shape, cuda_dev, seed=shape[-1])
+    want = ff.fft_slab_yz.plain(*x, inverse=True, scale=0.5)
+    xr, xi = x[0].clone(), x[1].clone()
+    ff.reset_counts()
+    yr, yi = ff.fft_slab_yz(xr, xi, inverse=True, scale=0.5, alias=True)
+    torch.cuda.synchronize()
+    assert yr is xr and yi is xi and ff.fft_slab_yz.reg_launches == 1
+    for g, w in zip((yr, yi), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("shape", [(2, 64, 64), (3, 256, 16), (2, 16, 512),
                                    (4, 128, 128), (64, 256, 256)])
 def test_cuda_fft_slab_cores_in_place(cuda_dev, monkeypatch, shape, dense):
@@ -627,7 +697,7 @@ def test_cuda_rfft_slab_cores(cuda_dev, monkeypatch, shape, zpad, dense):
     _slab_core(monkeypatch, dense)
     _card_check(ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=zpad), shape,
                 cuda_dev, lanes=shape[-1] // 2)
-    reg = ff._reg_slab(shape[-2], shape[-1] // 2)
+    reg = ff._reg_rslab(shape[-2], shape[-1] // 2)
     assert ff.rfft_slab_yz.reg_launches == int(reg)
 
 
@@ -820,7 +890,7 @@ def test_cuda_irfft_slab_cores(cuda_dev, monkeypatch, shape, side, dense):
                 lambda f, x: f(*x, n, scale=1.0 / (shape[1] * n // 2),
                                side_r=s[0], side_i=s[1]),
                 shape, cuda_dev)
-    reg = ff._reg_slab(shape[1], n // 2)
+    reg = ff._reg_rslab(shape[1], n // 2)
     assert ff.irfft_slab_yz.reg_launches == int(reg)
     # clusters at 2^14 and 2^15 elements
     want = not dense and shape[1] * n // 2 in (1 << 14, 1 << 15)

@@ -112,3 +112,31 @@ def test_fp64_nd(rng):
     want = np.fft.irfftn(y, s=xr.shape, axes=(0, 1, 2, 3))
     assert check("irfftn", y, want, tol=TOL64, s=xr.shape).dtype == \
         np.float64
+
+
+@pytest.mark.parametrize("axes", [None, (0, 2), (2, 0), (1, 2)])
+@pytest.mark.parametrize("shape", [(6, 10, 12), (6, 10, 7), (4, 6, 5)])
+def test_irfftn_of_non_hermitian_input_is_numpys(shape, axes):
+    """c2r of random complex input, not Hermitian along the outer axes:
+    the port follows numpy and torch.fft (planes 0 and n/2 of the last
+    axis take their Hermitian part over the other axes, the real part
+    numpy keeps after its outer inverse). The reference differs here and
+    is not changed (``offt_tpu/fft.py:149-164`` feeds a multi-axis
+    group's planes to its c2r as they are, 0.2-0.4 off numpy), so these
+    cases are held against numpy and torch.fft only: complex128 at the
+    fp64 bar, complex64 at the fp32 one."""
+    g = np.random.default_rng(sum(shape) + len(axes or ()))
+    x = g.standard_normal(shape) + 1j * g.standard_normal(shape)
+    want = np.fft.irfftn(x, axes=axes)
+    dims = axes if axes is not None else tuple(range(len(shape)))
+    twin = torch.fft.irfftn(torch.from_numpy(x), dim=dims).numpy()
+    assert np.abs(want - twin).max() < 1e-13
+    got = F.irfftn(torch.from_numpy(x), axes=axes).numpy()
+    assert got.dtype == np.float64
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < TOL64
+    got = F.irfftn(torch.from_numpy(x.astype(np.complex64)), axes=axes)
+    assert np.linalg.norm(got.numpy() - want) / np.linalg.norm(want) < 1e-6
+    if axes is not None:
+        got = F.irfft2(torch.from_numpy(x), axes=axes).numpy()
+        assert np.linalg.norm(got - np.fft.irfft2(x, axes=axes)) \
+            / np.linalg.norm(want) < TOL64

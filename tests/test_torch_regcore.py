@@ -77,17 +77,20 @@ def packed_truth(x):
 @pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
                                8, 320, 129, 96, 8192, 0, 48, 4095])
 def test_reg_core_predicate(n):
-    """The row kernels take powers of two in [16, 4096]; the replay's
-    schedule also has the column variant's mixed lengths (320, 96, 48:
-    radix 4 first), and no other."""
+    """``_reg_core`` (the r2c and c2r rows, the four-step pair) takes
+    powers of two in [16, 4096]; the replay's schedule also has the mixed
+    lengths (320, 96, 48: radix 4 first), whose row layout is the mixed
+    rows' (``fft_last`` and the c2c slab's z rows, ``_reg_rows``), and no
+    other."""
     want = n in LENGTHS
     assert ff._reg_core(n) is want
     if want:
         assert rc.passes(n)[0] == (16, 1)
     elif n in ff._MIX_LENGTHS:
         assert rc.passes(n)[0] == (4, 1)
-        with pytest.raises(ValueError, match="row layout"):
-            rc.geometry(n)
+        assert ff._reg_rows(n)
+        g = rc.geometry(n)
+        assert g["P"] * g["V"] == n and g["P"] * g["ROWS"] == rc.THREADS
     else:
         with pytest.raises(ValueError):
             rc.passes(n)

@@ -129,12 +129,12 @@ def test_plain_version_agrees_with_the_replay(ny, m):
 @pytest.mark.parametrize("ny,m", CLUSTER + GRIDS + [(320, 160), (40, 128)])
 def test_irslab_layout_predicates(ny, m):
     """The c2r slab takes the register core on the slabs the r2c does
-    (:func:`fused_fft._reg_slab` of (Y, M)), in clusters where
+    (:func:`fused_fft._reg_rslab` of (Y, M)), in clusters where
     ``_cluster_irslab`` holds (the shapes of ``_cluster_slab`` of 2^14 to
     2^15 elements, the 256^3 slab among them), else two grids (the 512^3
     slab among them); the 320^3 slab stays dense."""
     reg = (ny, m) in CLUSTER + GRIDS
-    assert ff._reg_slab(ny, m) is reg
+    assert ff._reg_rslab(ny, m) is reg
     assert ff._cluster_irslab(ny, m) is ((ny, m) in CLUSTER)
     if ff._cluster_irslab(ny, m):
         assert ff._cluster_slab(ny, m)

@@ -86,20 +86,25 @@ def packed_truth(x):
                                    (8, 256), (256, 8192), (1024, 1024),
                                    (96, 128)])
 def test_reg_slab_predicate(ny, nz):
-    """Both axes powers of two in [16, 4096] take the register slab; the
-    rest keep the dense core (320^3's slab among them)."""
-    want = all(n in LENGTHS for n in (ny, nz))
+    """Both axes powers of two in [16, 4096] or mixed lengths take the
+    register slab (z on the rows, ``_reg_rows``; y on the column variant,
+    ``_reg_axis``; 320^3's slab among them); the rest keep the dense core.
+    The r2c and c2r slabs (``_reg_rslab``) keep powers of two."""
+    mixed = ff._MIX_LENGTHS
+    want = (ny in LENGTHS or ny in mixed) and (nz in LENGTHS or nz in mixed)
     assert ff._reg_slab(ny, nz) is want
-    assert ff._reg_slab(ny, nz) == (ff._reg_core(ny) and ff._reg_core(nz))
+    assert ff._reg_slab(ny, nz) == (ff._reg_axis(ny) and ff._reg_rows(nz))
+    assert ff._reg_rslab(ny, nz) == (ff._reg_core(ny) and ff._reg_core(nz))
 
 
 def test_main_path_slabs_route_to_the_register_core():
-    """The c2c slabs of 256^3 and 512^3, the r2c slabs of 256^3 and 512^3
-    (Y, M = N/2) and the 4x128x128x256 r2c's; 320^3 stays dense."""
+    """The c2c slabs of 256^3, 512^3 and 320^3 (two grids, the mixed
+    rows and columns), the r2c slabs of 256^3 and 512^3 (Y, M = N/2) and
+    the 4x128x128x256 r2c's."""
     assert ff._reg_slab(256, 256) and ff._reg_slab(512, 512)
-    assert ff._reg_slab(256, 128) and ff._reg_slab(512, 256)
-    assert ff._reg_slab(128, 128)
-    assert not ff._reg_slab(320, 320)
+    assert ff._reg_rslab(256, 128) and ff._reg_rslab(512, 256)
+    assert ff._reg_rslab(128, 128)
+    assert ff._reg_slab(320, 320) and not ff._cluster_slab(320, 320)
 
 
 @pytest.mark.parametrize("n", LENGTHS)

@@ -243,7 +243,7 @@ def test_import_pulls_no_jax():
 def test_kernel_sources_are_listed():
     names = {f.name for f in _build.sources()}
     assert names == {"fft_core.cuh", "fft_regs.cuh", "regs_kernels.cuh",
-                     "fft_last.cu",
+                     "fft_last.cu", "fft_last_mix.cu",
                      "fft_axis.cu", "fft_axis_mix.cu", "fft_slab.cu",
                      "rfft_slab.cu",
                      "irfft_slab.cu", "assemble_mp1.cu", "rfft_last.cu",
