@@ -25,10 +25,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    long 1-D splits of 2^20, 8 x 2^20, 2^22 and 2^24, the inner 2^21 of
    3g's prime, few lanes at n1 = 4096,
    few rows at n2 = 4096, inverse, a caller's table, the mixed splits of
-   3 * 2^18) at each shape on both cores (the register predicates patched
-   off for the dense one), with the core, the register layout (two grids or one
-   of clusters, ``fused_fft._cluster_slab``, ``_cluster_irslab`` for the
-   c2r) and the lane tile (``fused_fft._axis_tile``) printed;
+   3 * 2^18) and the cube (``fft_cube``: 8 x 128^3, 4 x 64^2 x 128, a
+   short x (3 x 8 x 16 x 256; x of 3 and 12, on the table's roots; x of
+   5 beside the split z), the split z at 8 x 8 x 32768 and
+   3 x 16 x 8 x 16384, a mixed y that keeps the dense kernel) at each
+   shape on both cores (the register predicates patched off for the dense
+   one), with the core, the register layout (two grids or one of
+   clusters, ``fused_fft._cluster_slab``, ``_cluster_irslab`` for the
+   c2r), the lane tile (``fused_fft._axis_tile``) and the cube's G, split,
+   barriers and cooperative grid printed;
 3. the five paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
@@ -51,8 +56,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       (the c2r stage is ``icrfft_last``) and in the numpy layout; 512^3
       packed r2c / c2r; a ``batch_sharded`` 4 x 128^3 c2c;
    f. the cube kernel through ``fft3d_cube``: 8 x 128^3 forward and
-      inverse, and the longest z the gate admits, 8 x 8 x 32768 (three
-      radix-32 stages, the kernel's split z phase);
+      inverse, and the longest z the gate admits, 8 x 8 x 32768 (the
+      register cube's split z: the four-step pair's bodies);
    g. the ``numpy.fft`` namespace ``offt_tpu_torch.fft`` at full size:
       ``fftn`` of 256^3 complex64, ``rfftn`` / ``irfftn`` of 256^3,
       ``fft`` of the prime 1,000,003 (Bluestein, its inner 2^21 on the
@@ -69,7 +74,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of 3d (192^3's among them), ``irfft_slab`` on 3b's 256^3 and 512^3
    c2r, ``icrfft_last`` on every packed c2r of 3e, and ``step1_twiddle``
    / ``step3_transposed`` on every power-of-two split of 3c (step 3
-   dense on the 768 side of 3 * 2^18) and throughout 3d and 3g;
+   dense on the 768 side of 3 * 2^18) and throughout 3d and 3g, and the
+   register cube on every cube of 3f;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, there each kernel of the
    four-step pair on both cores with its bound and TB/s, and the pair's
@@ -81,9 +87,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its plain version and the one PyTorch call that computes its
    function (``fft_last`` (102400, 320) and ``fft_slab`` (320, 320, 320)
    also, with their TB/s, beside ``torch.fft.fft(dim=-1)`` and ``fft2``;
-   the 320^3 path beside ``torch.fft.fftn``); the cube against
-   ``fft3d_planar`` on the same data (at the reference's radix picks
-   and at (16, 8) on every axis) and against ``torch.fft.fftn``; the
+   the 320^3 path beside ``torch.fft.fftn``); the cube at 8 x 128^3,
+   8 x 8 x 32768 and 4 x 64^2 x 128 on the register cube (with its G,
+   barriers, cooperative grid and blocks an SM, its bound and its ratios)
+   and on the dense kernel, against ``fft3d_planar`` on the same data and
+   ``torch.fft.fftn``; the
    namespace calls against their ``torch.fft`` twins; ``torch.profiler``
    breakdowns of the long 1-D, unfused real and 1 x 1 mesh c2r plans,
    the cube and the prime-length ``fft``
@@ -97,7 +105,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    main-path shapes, each with the
    register core and with every length routed to the dense core
    (``fused_fft._reg_core``, ``_reg_rows``, ``_reg_slab``,
-   ``_reg_rslab`` and ``_reg_axis`` patched off), both row kernels so at
+   ``_reg_rslab``, ``_reg_axis`` and ``_reg_cube`` patched off), both row
+   kernels so at
    every register-core length 16-4096 (``fft_last`` also at every mixed
    length of its rows, beside ``torch.fft.fft``), both slab kernels so
    at 512^3,
@@ -109,7 +118,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at 512^3), the strided pass's lane tiles (``probe_yconcat`` at
    N = 256 and 1024) and the four-step pair's tiles and layouts
    (``probe_fourstep`` at 2^20, 8 x 2^20, 2^22, 2^24, and step 1's two
-   tiles from 64 to 384 wide blocks); the first
+   tiles from 64 to 384 wide blocks), the cube's phases and groups
+   (``probe_cube`` at 8 x 128^3, 8 x 8 x 32768 and 64 x 32^2 x 128); the
+   first
    and the
    second one-shot ``fft3d`` of
    256^3 (the second reuses the cached plan).
@@ -119,12 +130,14 @@ its launches on the main paths, its error, its time and the library
 call's (device times, the host enqueueing ahead: ``time_cuda(ahead=True)``),
 its plain version's time, and its bound (the larger of its bytes at
 3.35 TB/s and its f32 operations at 67 TFLOP/s, from the shapes of this
-run), and for the two row kernels, the three slab kernels, ``fft_axis``
-and the four-step pair ``dense_ms``, the dense core's time at the same
+run), and for the two row kernels, the three slab kernels, ``fft_axis``,
+the four-step pair and the cube ``dense_ms``, the dense core's time at the
+same
 shape (the pair's two rows also ``pair_library_factor``: their sum over
 ``torch.fft.fft`` of the whole transform, which computes the pair;
 ``fft_last`` and ``fft_slab`` also ``mixed``: the same numbers at their
-mixed-length shape, (102400, 320) and (320, 320, 320)). The
+mixed-length shape, (102400, 320) and (320, 320, 320); ``fft_cube`` also
+``shapes``: its numbers at the three shapes of phase 5). The
 last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the ``offt_tpu_torch`` package beside
 it, the script exits non-zero (2 and 1) and prints no result.
@@ -261,7 +274,14 @@ def _work(name: str, shape) -> tuple:
     if name == "fft_cube":                  # (B, X, Y, Z): one read, one write
         b, x, y, z = shape
         e = b * x * y * z
-        return (16 * e + _table_bytes(x) + _table_bytes(y) + _table_bytes(z),
+        tabs = _table_bytes(x) + _table_bytes(y)
+        if z > 4096:    # the split z: the pair's tables and the twiddle
+            from offt_tpu_torch.kernels import fourstep
+            n1, n2 = fourstep.pick_split(z)
+            tabs += _table_bytes(n1) + _table_bytes(n2) + 8 * z
+        else:
+            tabs += _table_bytes(z)
+        return (16 * e + tabs,
                 e * (_fft_flops(x) + _fft_flops(y) + _fft_flops(z)))
     raise KeyError(name)
 
@@ -330,11 +350,11 @@ def _short(op: str) -> str:
 # the kernels whose wrappers count their register-core launches
 REG_CORE = ("fft_last", "rfft_last", "fft_slab", "rfft_slab", "fft_axis",
             "irfft_slab", "step1_twiddle", "step3_transposed",
-            "icrfft_last")
+            "icrfft_last", "fft_cube")
 # the kernels checked at each shape on both cores (``rfft_last`` runs
 # the core its length takes)
 BOTH_CORES = ("fft_last", "fft_slab", "rfft_slab", "fft_axis", "irfft_slab",
-              "step1_twiddle", "step3_transposed", "icrfft_last")
+              "step1_twiddle", "step3_transposed", "icrfft_last", "fft_cube")
 # the slab kernels, whose register core runs clusters or two grids
 SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 # the mixed-length shapes timed beside the main-path ones: the 320^3
@@ -358,11 +378,11 @@ def _window(ff, run) -> tuple:
 def _dense_core(ff):
     """Every length routed to the dense core (the predicates
     ``fused_fft._reg_core`` (the r2c and c2r rows, the four-step pair),
-    ``_reg_rows`` (``fft_last``), ``_reg_slab``, ``_reg_rslab`` and
-    ``_reg_axis`` patched off): the earlier kernels on the same data, for
-    comparison."""
+    ``_reg_rows`` (``fft_last``), ``_reg_slab``, ``_reg_rslab``,
+    ``_reg_axis`` and ``_reg_cube`` patched off): the earlier kernels on
+    the same data, for comparison."""
     names = ("_reg_core", "_reg_rows", "_reg_axis", "_reg_slab",
-             "_reg_rslab")
+             "_reg_rslab", "_reg_cube")
     keep = [getattr(ff, k) for k in names]
     for k in names:
         setattr(ff, k, lambda *n: False)
@@ -577,8 +597,25 @@ def main() -> int:
         ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x, out_scale=0.5),
          (2, 32, 32, 128), None),
         ("fft_cube", ff.fft3d_cube,
+         lambda f, x: f(*x, inverse=True, out_scale=2.0), (3, 8, 16, 256),
+         None),
+        ("fft_cube", ff.fft3d_cube,
+         lambda f, x: f(*x, inverse=True, out_scale=0.5), (2, 3, 16, 128),
+         None),
+        ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x, out_scale=2.0),
+         (1, 12, 8, 256), None),
+        ("fft_cube", ff.fft3d_cube,
+         lambda f, x: f(*x, inverse=True, out_scale=0.5), (3, 5, 8, 8192),
+         None),
+        ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x), (2, 16, 24, 128),
+         None),
+        ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x, inverse=True),
+         (4, 64, 64, 128), None),
+        ("fft_cube", ff.fft3d_cube,
          lambda f, x: f(*x, rad_z=(32, 32, 32), inverse=True),
          (8, 8, 32768), None),
+        ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x), (3, 16, 8, 16384),
+         None),
         ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x), (8, 128, 128, 128),
          None),
     ]
@@ -618,6 +655,12 @@ def main() -> int:
             if name == "step3_transposed" and reg:
                 r, c = fs._step3_layout(shape[2])
                 core = core[:-1] + f", {r} rows, {c} block(s) a run]"
+            if name == "fft_cube" and reg:
+                last = ff.fft3d_cube.last
+                core = core[:-1] + (
+                    f", G {last['group']}, split {last['split']}, "
+                    f"{last['barriers']} barriers, grid {last['grid']}, "
+                    f"{last['per_sm']} an SM, {last['smem']} B]")
             print(f"check {name} via {fn.__name__} {shape}{core}: max rel "
                   f"err {rel:.3e}, max abs err {absd:.3e} (tol "
                   f"{TOL_KERNEL:g}) {tag}", flush=True)
@@ -1181,6 +1224,13 @@ def main() -> int:
         print(f"register core: step1_twiddle on {path} ({s1r} of {s1}), "
               f"step3_transposed ({s3r} of {s3}"
               + ("; 3*2^18's 768 side dense)" if dense3 else ")"))
+    # 3f's cubes (8 x 128^3 forward and inverse, 8 x 8 x 32768) all on the
+    # register cube
+    cu, cu_reg = runs["cube"][1]["fft_cube"], runs["cube"][2]["fft_cube"]
+    if not 0 < cu_reg == cu:
+        raise AssertionError("fft_cube on 3f: want the register cube "
+                             f"throughout: {cu_reg} of {cu}")
+    print(f"register core: fft_cube on 3f ({cu_reg} of {cu})")
     launches = {k: sum(r[1][k] for r in runs.values()) for k in ff.KERNELS}
 
     # ---- 5. times --------------------------------------------------------
@@ -1418,37 +1468,46 @@ def main() -> int:
         torch.cuda.empty_cache()
     dist.destroy_process_group()
 
-    # the cube (one launch) against fft3d_planar (the slab and the x pass)
-    # on the same data, at the reference's radix picks (128 is one
-    # radix-128 stage) and at (16, 8) on every axis, and against cuFFT
-    xr, xi = _pair((8, 128, 128, 128), gen)
-    xc = torch.complex(xr, xi)
-    r_lib = time_cuda(torch.fft.fftn, (xc, None, (-3, -2, -1)))
-    for what, kw in (("reference picks", {}),
-                     ("(16, 8) picks", {"rad_x": (16, 8), "rad_y": (16, 8),
-                                        "rad_z": (16, 8)})):
-        r_c = time_cuda(lambda: ff.fft3d_cube(xr, xi, **kw))
-        r_p = time_cuda(lambda: ff.fft3d_planar(xr, xi, **kw))
-        show(f"cube 8x128^3 {what} (fft3d_cube, one launch)", r_c,
-             f", {r_c['median_ms'] / r_p['median_ms']:.2f}x fft3d_planar, "
-             f"{r_c['median_ms'] / r_lib['median_ms']:.2f}x cuFFT")
-        show(f"fft3d_planar 8x128^3 {what} (slab + x pass)", r_p)
-    show("torch.fft.fftn (cuFFT) c64 8x128^3", r_lib)
-    show_breakdown("cube 8x128^3", ff.fft3d_cube, (xr, xi))
-    show_breakdown("fft3d_planar 8x128^3", ff.fft3d_planar, (xr, xi))
-    del xr, xi, xc
-    xr, xi = _pair((8, 8, 32768), gen)
-    rz = {"rad_z": (32, 32, 32)}
-    r_c = time_cuda(lambda: ff.fft3d_cube(xr, xi, **rz))
-    r_p = time_cuda(lambda: ff.fft3d_planar(xr, xi, **rz))
-    r_lib = time_cuda(torch.fft.fftn, (torch.complex(xr, xi), None,
-                                       (-3, -2, -1)))
-    show("cube 8x8x32768 (split z)", r_c,
-         f", {r_c['median_ms'] / r_p['median_ms']:.2f}x fft3d_planar, "
-         f"{r_c['median_ms'] / r_lib['median_ms']:.2f}x cuFFT")
-    show("fft3d_planar 8x8x32768", r_p)
-    show("torch.fft.fftn (cuFFT) c64 8x8x32768", r_lib)
-    del xr, xi
+    # the cube (one launch) on the register core and on the dense core (at
+    # the reference's radix picks: 128 is one radix-128 stage), against
+    # fft3d_planar (the slab and the x pass) on the same data and cuFFT;
+    # G, the barriers, the cooperative grid and its blocks an SM (each
+    # shape's numbers also go into the kernels line)
+    cube_rows = []
+    for shape, kw in (((8, 128, 128, 128), {}),
+                      ((8, 8, 32768), {"rad_z": (32, 32, 32)}),
+                      ((4, 64, 64, 128), {})):
+        xr, xi = _pair(shape, gen)
+        r_c = time_cuda(lambda: ff.fft3d_cube(xr, xi, **kw), ahead=True)
+        last = ff.fft3d_cube.last
+        with _dense_core(ff):
+            r_d = time_cuda(lambda: ff.fft3d_cube(xr, xi, **kw), ahead=True)
+        r_p = time_cuda(lambda: ff.fft3d_planar(xr, xi, **kw), ahead=True)
+        r_lib = time_cuda(torch.fft.fftn, (torch.complex(xr, xi), None,
+                                           (-3, -2, -1)), ahead=True)
+        bms, by = _bound("fft_cube", shape if len(shape) == 4
+                         else (1, *shape))
+        c, p, lib = r_c["median_ms"], r_p["median_ms"], r_lib["median_ms"]
+        cube_rows.append({"shape": list(shape), "ms": c,
+                          "dense_ms": r_d["median_ms"], "planar_ms": p,
+                          "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                          **{k: last[k] for k in ("group", "barriers", "grid",
+                                                  "per_sm")}})
+        show(f"cube {shape} register (fft3d_cube, one launch)", r_c,
+             f", {c / p:.2f}x fft3d_planar, {c / lib:.2f}x cuFFT, "
+             f"{bms / c:.3f} of its {bms:.4f} ms bound, "
+             f"{r_d['median_ms'] / c:.2f}x faster than the dense core; G "
+             f"{last['group']}, split {last['split']}, {last['barriers']} "
+             f"barriers, grid {last['grid']} ({last['per_sm']} an SM), "
+             f"{last['smem']} B shared")
+        show(f"cube {shape} dense core (reference picks)", r_d)
+        show(f"fft3d_planar {shape} (slab + x pass)", r_p)
+        show(f"torch.fft.fftn (cuFFT) c64 {shape}", r_lib)
+        if shape[-1] == 128 and shape[0] == 8:
+            show_breakdown("cube 8x128^3", ff.fft3d_cube, (xr, xi))
+            show_breakdown("fft3d_planar 8x128^3", ff.fft3d_planar, (xr, xi))
+        del xr, xi
+    torch.cuda.empty_cache()
     # the namespace calls against their torch.fft twins on the same input
     for label, (fn, twin, _) in ns_calls.items():
         r_n = time_cuda(fn, (ns[label],))
@@ -1559,12 +1618,14 @@ def main() -> int:
         del lib
     del xr, xi, x3, c3, x5, c5, c320, x192, paths
     torch.cuda.empty_cache()
-    # the slabs' phase ledgers, the strided pass's lane tiles and the
-    # four-step pair's variants (offt_tpu_torch.bench)
-    from offt_tpu_torch.bench import (probe_fourstep, probe_rslab512,
-                                      probe_slabparts, probe_yconcat)
+    # the slabs' phase ledgers, the strided pass's lane tiles, the
+    # four-step pair's variants and the cube's phases and groups
+    # (offt_tpu_torch.bench)
+    from offt_tpu_torch.bench import (probe_cube, probe_fourstep,
+                                      probe_rslab512, probe_slabparts,
+                                      probe_yconcat)
     for probe in (probe_slabparts, probe_rslab512, probe_yconcat,
-                  probe_fourstep):
+                  probe_fourstep, probe_cube):
         for row in probe.ledger():
             rate = (f", {row['tb_s']:.3f} TB/s over {row['bytes']} bytes"
                     if row["bytes"] else "")
@@ -1685,6 +1746,8 @@ def main() -> int:
                       f"(fft_sublane axis 1) {y_ms['median_ms']:.4f} ms "
                       f"{tag}", flush=True)
             del xm, lib_m
+        if name == "fft_cube":
+            extra["shapes"] = cube_rows
         if name == "fft_axis":
             # the kernel's other wrappers and shapes of the main paths, on
             # the register core (its lane tile), the dense core and as the

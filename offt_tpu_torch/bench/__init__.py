@@ -12,8 +12,12 @@ times the narrow lane tile of the strided-axis kernel's register core
 one at N = 256 and 1024. ``probe_fourstep`` times the four-step pair's
 lane tiles (``tile`` of ``fourstep._step1_twiddle``) and layout against
 the dense core and ``torch.fft.fft`` at the long 1-D splits, and step
-1's two tiles across grid sizes. ``ptxas_spills`` prints each kernel's
-registers and spills as ptxas reports them (needs nvcc, not a card).
+1's two tiles across grid sizes. ``probe_cube`` times the register
+cube's phases (``phases`` of ``fused_fft.fft3d_cube``) and its groups
+(``fused_fft._cube_group`` patched) beside the dense kernel,
+``fft3d_planar`` and ``torch.fft.fftn``. ``ptxas_spills`` prints each
+kernel's registers and spills as ptxas reports them (needs nvcc, not a
+card).
 """
 
 from __future__ import annotations

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "offt_icrfft_last": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "offt_fft_cube": [_P] * 10 + [_L] + [_I] * 21 + [_P],
+    "offt_fft_cube_regs": [_P] * 11 + [_L] + [_I] * 5 + [_L, _I, _F, _I,
+                                                       _P, _P],
 }
 
 _LIB = None

@@ -24,9 +24,14 @@
 //   blocks in shared memory, and its y pass (fft_slab.cu, rfft_slab.cu;
 //   irfft_slab.cu runs y first, into the slab).
 // Each reads all of its line before it writes any of it, and no two
-// blocks share an element, so each may run in place. CORE = false in
-// cluster_cols compiles a cost probe of the slab kernels: the same loads
-// and stores with the transform left out. No main path launches one.
+// blocks share an element, so each may run in place. rows_c2c,
+// cols_c2c, cols_twiddle and rows_transposed are each a __global__
+// wrapper around a device body of one block (rows_block, cols_block,
+// cols_twiddle_block, rows_transposed_block), which the register cube
+// (fft_cube_regs.cu) runs as the phases of one cooperative grid.
+// CORE = false in cluster_cols compiles a cost probe of the slab kernels:
+// the same loads and stores with the transform left out. No main path
+// launches one.
 
 #pragma once
 
@@ -69,17 +74,24 @@ static cudaError_t by_mixed(int n, F&& f) {
   }
 }
 
+// The kernels' bodies take their block's index `blk` and the thread's
+// index `tid` (blockIdx.x and threadIdx.x in their own kernel): the cube
+// kernel (fft_cube_regs.cu) runs them as the phases of one cooperative
+// grid, each block walking many, its tid opaque to the compiler so that
+// no body's thread-invariant values are hoisted out of its phase.
+
+// rows_c2c's block blk
 template <int LOG, bool INV>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-rows_c2c(const float* xr, const float* xi, float* yr, float* yi,
-         const float2* __restrict__ tab, long long rows, long long ipitch,
-         long long opitch, float scale) {
+static __device__ __forceinline__ void rows_block(
+    const float* xr, const float* xi, float* yr, float* yi,
+    const float2* __restrict__ tab, long long rows, long long ipitch,
+    long long opitch, float scale, unsigned blk, unsigned tid) {
   using G = Geo<LOG>;
   constexpr int N = G::N;
   extern __shared__ __align__(16) float rsmem[];
-  const int g = threadIdx.x / G::P;
-  const int t = threadIdx.x % G::P;
-  const long long row = (long long)blockIdx.x * G::ROWS + g;
+  const int g = tid / G::P;
+  const int t = tid % G::P;
+  const long long row = (long long)blk * G::ROWS + g;
   const bool valid = row < rows;
   float* sre = rsmem + g * G::PITCH;
   float* sim = rsmem + (G::ROWS + g) * G::PITCH;
@@ -101,10 +113,10 @@ rows_c2c(const float* xr, const float* xi, float* yr, float* yi,
     // pitch N + 1) with consecutive threads on consecutive floats of a row
     constexpr int S = N + 1;
     float* st = rsmem + (G::NPASS > 1 ? 2 * G::ROWS * G::PITCH : 0);
-    const long long row0 = (long long)blockIdx.x * G::ROWS;
+    const long long row0 = (long long)blk * G::ROWS;
     const long long left = rows - row0;
     const int tot = (left < G::ROWS ? (int)left : G::ROWS) * N;
-    for (int i = threadIdx.x; i < tot; i += kThreads) {
+    for (int i = tid; i < tot; i += kThreads) {
       const int a = (i >> LOG) * S + (i & (N - 1));
       const long long o = (row0 + (i >> LOG)) * ipitch + (i & (N - 1));
       st[a] = xr[o];
@@ -122,13 +134,22 @@ rows_c2c(const float* xr, const float* xi, float* yr, float* yi,
       st[G::ROWS * S + g * S + e] = y.y * scale;
     });
     __syncthreads();
-    for (int i = threadIdx.x; i < tot; i += kThreads) {
+    for (int i = tid; i < tot; i += kThreads) {
       const int a = (i >> LOG) * S + (i & (N - 1));
       const long long o = (row0 + (i >> LOG)) * opitch + (i & (N - 1));
       yr[o] = st[a];
       yi[o] = st[G::ROWS * S + a];
     }
   }
+}
+
+template <int LOG, bool INV>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rows_c2c(const float* xr, const float* xi, float* yr, float* yi,
+         const float2* __restrict__ tab, long long rows, long long ipitch,
+         long long opitch, float scale) {
+  rows_block<LOG, INV>(xr, xi, yr, yi, tab, rows, ipitch, opitch, scale,
+                       blockIdx.x, threadIdx.x);
 }
 
 // The r2c untangle of the pair (k, M - k), 0 < k < M, from V = DFT_M(v)
@@ -330,17 +351,17 @@ __host__ __device__ constexpr int col_min_blocks(int nt) {
 // where side_r is not null, lane 0 of each b takes + i side[b N + n] as
 // it loads (the c2r y pass's Nyquist plane).
 template <int LOG, bool INV, int NT = kThreads, bool SIDE = false>
-__global__ void __launch_bounds__(NT, col_min_blocks(NT))
-cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
-         const float2* __restrict__ tab, AxisGeom g, long long tiles,
-         float scale, const float* __restrict__ side_r,
-         const float* __restrict__ side_i) {
+static __device__ __forceinline__ void cols_block(
+    const float* xr, const float* xi, float* yr, float* yi,
+    const float2* __restrict__ tab, const AxisGeom& g, long long tiles,
+    float scale, const float* __restrict__ side_r,
+    const float* __restrict__ side_i, unsigned blk, unsigned tid) {
   using C = ColGeo<LOG, NT>;
   extern __shared__ __align__(16) float csmem[];
-  const int l = threadIdx.x % C::L;
-  const int t = threadIdx.x / C::L;
-  const long long b = blockIdx.x / tiles;
-  const long long lane = (blockIdx.x - b * tiles) * C::L + l;
+  const int l = tid % C::L;
+  const int t = tid / C::L;
+  const long long b = blk / tiles;
+  const long long lane = (blk - b * tiles) * C::L + l;
   const bool valid = lane < g.ny * g.nz;
   const long long y = valid ? lane / g.nz : 0;
   const long long z = valid ? lane - y * g.nz : 0;
@@ -366,6 +387,16 @@ cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
     yr[o] = w.x * scale;
     yi[o] = w.y * scale;
   });
+}
+
+template <int LOG, bool INV, int NT = kThreads, bool SIDE = false>
+__global__ void __launch_bounds__(NT, col_min_blocks(NT))
+cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
+         const float2* __restrict__ tab, AxisGeom g, long long tiles,
+         float scale, const float* __restrict__ side_r,
+         const float* __restrict__ side_i) {
+  cols_block<LOG, INV, NT, SIDE>(xr, xi, yr, yi, tab, g, tiles, scale,
+                                 side_r, side_i, blockIdx.x, threadIdx.x);
 }
 
 // The column variant at a mixed length N = R0 2^K (MixGeo): the lines,
@@ -451,17 +482,17 @@ rows_mix(const float* xr, const float* xi, float* yr, float* yi,
 // Lane l of a warp reads table row n at the lane its data has, so the
 // table's loads coalesce as the data's do.
 template <int LOG, bool INV, int NT>
-__global__ void __launch_bounds__(NT, col_min_blocks(NT))
-cols_twiddle(const float* xr, const float* xi, float* yr, float* yi,
-             const float2* __restrict__ tab, const float2* __restrict__ tw,
-             AxisGeom g, long long tiles) {
+static __device__ __forceinline__ void cols_twiddle_block(
+    const float* xr, const float* xi, float* yr, float* yi,
+    const float2* __restrict__ tab, const float2* __restrict__ tw,
+    const AxisGeom& g, long long tiles, unsigned blk, unsigned tid) {
   using C = ColGeo<LOG, NT>;
   extern __shared__ __align__(16) float csmem[];
-  const int l = threadIdx.x % C::L;
-  const int t = threadIdx.x / C::L;
-  const long long b = blockIdx.x / tiles;
+  const int l = tid % C::L;
+  const int t = tid / C::L;
+  const long long b = blk / tiles;
   const long long lanes = g.ny * g.nz;
-  const long long lane = (blockIdx.x - b * tiles) * C::L + l;
+  const long long lane = (blk - b * tiles) * C::L + l;
   const bool valid = lane < lanes;
   const long long y = valid ? lane / g.nz : 0;
   const long long z = valid ? lane - y * g.nz : 0;
@@ -482,6 +513,15 @@ cols_twiddle(const float* xr, const float* xi, float* yr, float* yi,
   core<LOG, INV, typename C::Lay>(v, csmem + l, csmem + C::SIZE + l, t, tab,
                                   load);
   if (valid) outputs<LOG>(v, t, store);
+}
+
+template <int LOG, bool INV, int NT>
+__global__ void __launch_bounds__(NT, col_min_blocks(NT))
+cols_twiddle(const float* xr, const float* xi, float* yr, float* yi,
+             const float2* __restrict__ tab, const float2* __restrict__ tw,
+             AxisGeom g, long long tiles) {
+  cols_twiddle_block<LOG, INV, NT>(xr, xi, yr, yi, tab, tw, g, tiles,
+                                   blockIdx.x, threadIdx.x);
 }
 
 // Distributed shared memory through 32-bit addresses (a generic pointer
@@ -559,10 +599,10 @@ __host__ __device__ constexpr int tr_threads() {
 template <int LOG, bool INV, int NT>
 static __device__ __forceinline__ void rows_to_stage(
     const float* xr, const float* xi, const float2* tab, float* smem,
-    long long row0, long long rows) {
+    long long row0, long long rows, unsigned tid) {
   using T = TrGeo<LOG, NT>;
-  const int g = threadIdx.x / T::P;
-  const int t = threadIdx.x % T::P;
+  const int g = tid / T::P;
+  const int t = tid % T::P;
   const long long row = row0 + g;
   const bool valid = row < rows;
   const long long in = row * T::N;
@@ -596,11 +636,11 @@ static __device__ __forceinline__ long long tr_base(long long r, long long n,
 // read from the stage of block c / R (through 32-bit mapa /
 // ld.shared::cluster where C > 1).
 template <int LOG, bool INV, int NT, int C>
-__global__ void __launch_bounds__(NT, col_min_blocks(NT))
-rows_transposed(const float* __restrict__ xr, const float* __restrict__ xi,
-                float* __restrict__ yr, float* __restrict__ yi,
-                const float2* __restrict__ tab, long long rows,
-                long long n1) {
+static __device__ __forceinline__ void rows_transposed_block(
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    float* __restrict__ yr, float* __restrict__ yi,
+    const float2* __restrict__ tab, long long rows, long long n1,
+    unsigned blk, unsigned tid) {
   using T = TrGeo<LOG, NT>;
   constexpr int RC = C * T::R;
   static_assert(NT % RC == 0, "whole runs a block");
@@ -608,13 +648,14 @@ rows_transposed(const float* __restrict__ xr, const float* __restrict__ xi,
   namespace cg = cooperative_groups;
   int q = 0;
   if constexpr (C > 1) q = (int)cg::this_cluster().block_rank();
-  const long long row0 = (long long)(blockIdx.x / C) * RC;
-  rows_to_stage<LOG, INV, NT>(xr, xi, tab, tsmem, row0 + q * T::R, rows);
+  const long long row0 = (long long)(blk / C) * RC;
+  rows_to_stage<LOG, INV, NT>(xr, xi, tab, tsmem, row0 + q * T::R, rows,
+                              tid);
   if constexpr (C > 1)
     cg::this_cluster().sync();  // every stage of the cluster is whole
   else
     __syncthreads();
-  const int c = threadIdx.x % RC;
+  const int c = tid % RC;
   const long long r = row0 + c;
   if (r < rows) {
     const long long base = tr_base(r, T::N, n1);
@@ -624,7 +665,7 @@ rows_transposed(const float* __restrict__ xr, const float* __restrict__ xi,
     const unsigned im0 = re0 + 4u * T::N * T::R;
     unroll<0, kE>([&](auto ic) {
       // NT / RC threads a k, so kE passes cover the block's N / C outputs
-      const int k = q * (T::N / C) + threadIdx.x / RC +
+      const int k = q * (T::N / C) + tid / RC +
                     decltype(ic)::value * (NT / RC);
       const int a = T::at(k, cb);
       if constexpr (C > 1) {
@@ -638,6 +679,16 @@ rows_transposed(const float* __restrict__ xr, const float* __restrict__ xi,
   }
   if constexpr (C > 1)
     cg::this_cluster().sync();  // no block leaves while another reads it
+}
+
+template <int LOG, bool INV, int NT, int C>
+__global__ void __launch_bounds__(NT, col_min_blocks(NT))
+rows_transposed(const float* __restrict__ xr, const float* __restrict__ xi,
+                float* __restrict__ yr, float* __restrict__ yi,
+                const float2* __restrict__ tab, long long rows,
+                long long n1) {
+  rows_transposed_block<LOG, INV, NT, C>(xr, xi, yr, yi, tab, rows, n1,
+                                         blockIdx.x, threadIdx.x);
 }
 
 // ---- a slab in a cluster's shared memory ----

@@ -40,10 +40,11 @@ variant on the lengths :func:`_reg_axis` admits, the three slab kernels
 :func:`_reg_slab` and :func:`_reg_rslab` admit (rows and the column
 variant: in one grid of clusters holding the slab in shared memory where
 :func:`_cluster_slab` admits it, :func:`_cluster_irslab` for the c2r,
-else in two grids), and all of them the dense core of
-``csrc/fft_core.cuh`` on the rest; of their launches, ``fn.reg_launches``
-took the register core. A launch is one call of the kernel's C entry
-point.
+else in two grids), the cube kernel (``fft3d_cube``) its register cube
+(``csrc/fft_cube_regs.cu``) on the cubes :func:`_reg_cube` admits, and
+all of them the dense core of ``csrc/fft_core.cuh`` on the rest; of
+their launches, ``fn.reg_launches`` took the register core. A launch is
+one call of the kernel's C entry point.
 
 ``precision`` is accepted everywhere for parity with the reference and
 ignored: every stage computes in f32 FMA on the card (the bf16 stacked
@@ -131,7 +132,8 @@ KERNELS = {
         "wrappers": ("_step3_transposed",),
     },
     "fft_cube": {
-        "source": "offt_tpu_torch/kernels/csrc/fft_cube.cu",
+        # the register cube; csrc/fft_cube.cu keeps the dense one
+        "source": "offt_tpu_torch/kernels/csrc/fft_cube_regs.cu",
         "replaces": "offt_tpu/kernels/pallas_fft.py:1156",
         "wrappers": ("fft3d_cube",),
     },
@@ -315,12 +317,62 @@ def _cluster_irslab(ny: int, m: int) -> bool:
     return _cluster_slab(ny, m) and ny * m <= 1 << 15
 
 
+# the L2 bytes one group of cubes of the register cube may fill between two
+# of its barriers (a cube's work buffer, the planar pair its later phases
+# read back, is 8 bytes an element): 16 MiB, a third of the H100's 50 MB.
+# On an H100 at 700 W (PERF.md; bench/probe_cube.py, seven runs) 64 cubes
+# of 32 x 32 x 128 (1 MiB each) ran fastest at G = 16 (0.1240-0.1308 ms;
+# G = 25, a 25 MB budget's, 0.1320-0.1419, 1.3-8.5% slower in each run;
+# G = 4 and 64 slower still), and 8 x 128^3 (16 MiB each), where both
+# budgets give G = 1, at G = 1 in six runs of seven (G = 2 once 1.5%
+# faster)
+_CUBE_L2_BUDGET = 16 << 20
+# the longest z the register cube runs as rows; a longer one (to 32768)
+# runs the four-step pair's bodies on fourstep.pick_split(z)
+_CUBE_ROWS_MAX = 4096
+
+
+def _reg_cube(nx: int, ny: int, nz: int) -> bool:
+    """Whether the cube kernel (``fft3d_cube`` on (X, Y, Z)) launches the
+    register cube (``csrc/fft_cube_regs.cu``): x and y each a power of two
+    in [16, 4096] (the column variant) or shorter than 16 (a thread a line
+    in registers), z a power of two in [128, 4096] (rows) or in (4096,
+    32768] (step 1 then step 3 of the four-step pair). Every other cube
+    the gate admits (a mixed length such as Z = 384 or Y = 24, a Y past
+    4096) takes the dense kernel (``csrc/fft_cube.cu``). The register cube
+    ignores the radices."""
+    def cols(n):
+        return n < 16 or _pow2(n)
+    return cols(nx) and cols(ny) and nz & (nz - 1) == 0 and 128 <= nz <= 32768
+
+
+def _cube_group(nx: int, ny: int, nz: int,
+                budget: int = _CUBE_L2_BUDGET) -> int:
+    """G, the cubes of (X, Y, Z) each phase of the register cube covers
+    between two barriers: as many as their work buffer (8 bytes an
+    element) fits ``budget``, at least one. The input streams once from
+    device memory; the later phases read the work buffer back from L2."""
+    return max(1, budget // (8 * nx * ny * nz))
+
+
+def _cube_barriers(b: int, group: int, split: bool) -> int:
+    """The grid-wide barriers of one register-cube call on b cubes, G =
+    ``group`` a phase: z | y | x, two a group (step 1 | step 3 | y | x,
+    three, with the split z). None parts two groups: the next group's z
+    writes other cubes than this group's x, and its step 1 rewrites the
+    scratch pair two barriers after this group's step 3 read it."""
+    return -(-b // group) * (3 if split else 2)
+
+
 # the register slabs' cost probes (``phases``) and their codes in
 # csrc/fft_slab.cu and csrc/rfft_slab.cu; "grids" runs the two-grid
 # layout where the cluster one would run
 _SLAB_PHASES = {"full": 0, "zonly": 1, "yonly": 2, "copy": 3, "fused": 5,
                 "grids": 0}
 _RSLAB_PHASES = {"full": 0, "noy": 1, "copy": 3, "nount": 4, "grids": 0}
+# the register cube's: each group stops after step 1 of the split z, after
+# z, or after z and y (csrc/fft_cube_regs.cu)
+_CUBE_PHASES = {"full": 0, "step1": 1, "z": 2, "zy": 3}
 
 
 def _phase_code(table: dict, phases: str, mode: str, reg: bool) -> int:
@@ -494,7 +546,7 @@ def _launch(entry: str, tensors, tabs, args) -> None:
     """Call one C entry point on the tensors' device and current stream."""
     dev = tensors[0].device
     for t in tabs:
-        if t.device != dev:
+        if t is not None and t.device != dev:
             raise ValueError(f"table on {t.device}, data on {dev}")
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -1231,34 +1283,56 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
 @_dispatching
 def fft3d_cube(mode, xr, xi, inverse: bool = False, rad_z=None, rad_y=None,
                rad_x=None, precision: str = DEFAULT_PRECISION,
-               out_scale: float = 1.0, tables=None):
+               out_scale: float = 1.0, tables=None, phases: str = "full"):
     """c2c along all three trailing axes of planar (..., X, Y, Z) float32
-    cubes in one launch (kernel ``csrc/fft_cube.cu``), for the shapes
-    ``can_fuse_cube`` admits. The inverse's 1/(XYZ) and ``out_scale`` ride
-    the last z stage. A z line too long for one block's shared memory
-    takes the kernel's split z phase, through a one-cube scratch pair."""
+    cubes in one cooperative launch, for the shapes ``can_fuse_cube``
+    admits. The inverse's 1/(XYZ) and ``out_scale`` ride the last stage.
+
+    Where :func:`_reg_cube` holds, the kernel is the register cube
+    (``csrc/fft_cube_regs.cu``): G cubes a phase (:func:`_cube_group`),
+    z first, as rows or, past 4096, step 1 and step 3 of the four-step
+    pair on ``fourstep.pick_split(Z)`` through a scratch pair of G cubes,
+    then y and x on the column variant (a thread a line at a length under
+    16), the scale at x's store; it ignores the radices, and counts
+    ``fft3d_cube.reg_launches``; ``fft3d_cube.last`` holds its last
+    launch's G, barriers, cooperative grid, blocks an SM and shared
+    memory. ``phases`` other than "full" are cost probes of the register
+    cube on the card (``bench/probe_cube.py``, ``_CUBE_PHASES``): each
+    group stops after step 1 of the split z ("step1"), after z ("z") or
+    after z and y ("zy"). Every other cube runs the dense kernel
+    (``csrc/fft_cube.cu``) on the radices, a z line too long for one
+    block's shared memory through its split z phase and a one-cube scratch
+    pair. The plain version is the dense kernel's arithmetic."""
     if xr.ndim < 3:
         raise ValueError(f"a cube needs three axes, got {tuple(xr.shape)}")
     nx, ny, nz = xr.shape[-3:]
     if not can_fuse_cube(nx, ny, nz, rad_x, rad_y, rad_z, precision):
         raise ValueError(f"cube ({nx},{ny},{nz}) not fusable")
+    reg = mode == "kernel" and _reg_cube(nx, ny, nz)
+    code = _phase_code(_CUBE_PHASES, phases, mode, reg)
+    if phases == "step1" and nz <= _CUBE_ROWS_MAX:
+        raise ValueError(f"phases 'step1' probes the split z, not Z={nz}")
     sx, sy, sz = _stages(nx, rad_x), _stages(ny, rad_y), _stages(nz, rad_z)
+    roots = sum(sx) + sum(sy) + sum(sz)
+    zsplit = not _fits_block(nz, roots)
+    if zsplit and len(sz) < 2:
+        raise ValueError(f"Z={nz} fits no block and has one stage")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     scale = out_scale * ((1.0 / (nx * ny * nz)) if inverse else 1.0)
+    b = xr.numel() // max(nx * ny * nz, 1)
     ts = _tables(tables, xr.device)
+    if reg:
+        if b:
+            _cube_regs(xr, xi, yr, yi, b, inverse, scale, code, ts)
+        return yr, yi
     tabx = ts.get("core", nx, sx, inverse, 1.0)
     taby = ts.get("core", ny, sy, inverse, 1.0)
     tabz = ts.get("core", nz, sz, inverse, scale)
-    roots = sum(sx) + sum(sy) + sum(sz)
-    zsplit = not _fits_block(nz, roots)
     tabz2 = tabz
     if zsplit:
-        if len(sz) < 2:
-            raise ValueError(f"Z={nz} fits no block and has one stage")
         tabz2 = ts.get("core", nz // sz[0], sz[1:], inverse, scale)
-    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if mode == "shape":
         return yr, yi
-    b = xr.numel() // max(nx * ny * nz, 1)
     if mode == "plain":
         fft3d_cube.plain_calls += 1
         ar, ai = xr.reshape(b, nx, ny, nz), xi.reshape(b, nx, ny, nz)
@@ -1290,6 +1364,47 @@ def fft3d_cube(mode, xr, xi, inverse: bool = False, rad_z=None, rad_y=None,
              *_radix_args(sz), tx, ty, tz, int(zsplit), t1, t2])
     fft3d_cube.launches += 1
     return yr, yi
+
+
+def _cube_regs(xr, xi, yr, yi, b: int, inverse: bool, scale: float,
+               phases: int, ts) -> None:
+    """Launch the register cube on b cubes (``fft3d_cube``'s kernel route
+    where :func:`_reg_cube` holds): the core tables of X, Y and Z (the
+    kernel reads their first N rows, the roots), or with the split z those
+    of n1 and n2 and the four-step twiddle, and a scratch pair of G cubes.
+    ``phases`` is the C code of a cost probe (``_CUBE_PHASES``). Records
+    the launch in ``fft3d_cube.last``."""
+    from .fourstep import pick_split
+    nx, ny, nz = xr.shape[-3:]
+    vol = nx * ny * nz
+    g = min(_cube_group(nx, ny, nz), b)
+    split = pick_split(nz) if nz > _CUBE_ROWS_MAX else None
+
+    def core(n):
+        return ts.get("core", n, _stages(n, None), inverse, 1.0)
+    tabs = [core(nx), core(ny)]
+    sr = si = None
+    n1 = n2 = 0
+    if split:
+        n1, n2 = split
+        tabs += [core(n1), core(n2), ts.get("fourstep", n1, n2, inverse,
+                                            1.0)]
+        sr = torch.empty(g * vol, dtype=xr.dtype, device=xr.device)
+        si = torch.empty_like(sr)
+    else:
+        tabs += [core(nz), None, None]
+    info = (ctypes.c_int * 3)()
+    _launch("offt_fft_cube_regs", (xr, xi, yr, yi, sr, si), tabs,
+            [b, nx, ny, nz, n1, n2, g, int(inverse), scale, phases,
+             ctypes.addressof(info)])
+    fft3d_cube.launches += 1
+    fft3d_cube.reg_launches += 1
+    fft3d_cube.last = {"group": g, "split": split,
+                       "barriers": _cube_barriers(b, g, bool(split)),
+                       "grid": info[0], "per_sm": info[1], "smem": info[2]}
+
+
+fft3d_cube.last = None
 
 
 def reset_counts() -> None:

@@ -37,7 +37,10 @@ and the four-step pair: :func:`step1_twiddle` (the column variant tile
 by tile, :func:`step1_tile`, the twiddle at the store) and
 :func:`step3_transposed` (rows block by block into the swizzled stage of
 :func:`step3_geometry` / :func:`step3_at`, then the transposed runs,
-:func:`step3_runs`, its banks counted by :func:`step3_ways`).
+:func:`step3_runs`, its banks counted by :func:`step3_ways`); and
+the register cube (``csrc/fft_cube_regs.cu``): :func:`fft_cube` replays
+its phases group by group (:func:`cube_geometry`: G cubes a phase, the
+split z of :func:`cube_split`, the barriers).
 What the kernels do around the core only moves values: ``rfft_last``
 stages a block's output rows back in the exchange planes to copy them
 out whole, ``fft_last`` moves rows of fewer than 8 threads (N < 128) in
@@ -852,3 +855,95 @@ def step3_runs(n2: int) -> int:
     instruction of step 3's stores writes in device memory (rows of one
     batch): R, at most a warp's 32."""
     return min(32, step3_geometry(n2)["R"])
+
+
+# ---- the cube (csrc/fft_cube_regs.cu) ----
+
+def cube_split(z: int, split=None):
+    """(n1, n2) of the register cube's split z, or None where z runs as
+    rows: ``split`` as given (both powers of two in [16, 4096], n1 n2 = z:
+    a CPU test forces one at a short z), else ``fourstep.pick_split(z)``
+    past ``fused_fft._CUBE_ROWS_MAX`` (8192: (64, 128); 16384: (128, 128);
+    32768: (128, 256))."""
+    if split is None:
+        if z <= fused_fft._CUBE_ROWS_MAX:
+            return None
+        from . import fourstep
+        split = fourstep.pick_split(z)
+    n1, n2 = split
+    if n1 * n2 != z or not (fused_fft._pow2(n1) and fused_fft._pow2(n2)):
+        raise ValueError(f"split {split} of z = {z}: two powers of two in "
+                         "[16, 4096]")
+    return n1, n2
+
+
+def cube_geometry(b: int, x: int, y: int, z: int, group=None,
+                  split=None) -> dict:
+    """How the register cube walks b cubes of (X, Y, Z): G cubes a phase
+    (``group``, else ``fused_fft._cube_group``), the groups, the z split
+    (:func:`cube_split`) and the grid-wide barriers of the call
+    (``fused_fft._cube_barriers``)."""
+    g = min(group or fused_fft._cube_group(x, y, z), b)
+    sp = cube_split(z, split)
+    return {"G": g, "groups": -(-b // g), "split": sp,
+            "barriers": fused_fft._cube_barriers(b, g, sp is not None)}
+
+
+def _cube_cols(xr, xi, n: int, ts, inverse: bool, dim: int,
+               scale: float = 1.0):
+    """One column phase of the cube along ``dim``, ``scale`` at the store:
+    the column variant (:func:`fft_cols`), or at a length under 16 the
+    kernel's thread a line (``dft_short``): output k sums value j times
+    W_N^(j k mod N), read from the first N rows of the core table of N
+    (conjugate for the inverse). The kernel runs the radix-2 network at 2,
+    4 and 8, the same sums in another order."""
+    tab = ts.get("core", n, fused_fft._stages(n, None), inverse, 1.0)
+    if n >= 16:
+        return fft_cols(xr, xi, tab, inverse, scale, dim=dim)
+    k = torch.arange(n)
+    w = torch.complex(tab[:n, 0], tab[:n, 1])[k[:, None] * k % n]
+    d = torch.complex(xr, xi).movedim(dim, -1) @ w * scale
+    d = d.movedim(-1, dim)
+    return d.real.contiguous(), d.imag.contiguous()
+
+
+def fft_cube(xr, xi, tabs, inverse: bool = False, scale: float = 1.0,
+             split=None, group=None):
+    """The register cube as its cooperative grid runs, on planar
+    (..., X, Y, Z): group by group (:func:`cube_geometry`, G cubes a
+    phase), each phase over the group's G cubes: z as rows
+    (:func:`fft_rows`) or, split (n1, n2) (:func:`cube_split`), step 1 at
+    n1 (:func:`step1_twiddle` on the narrow tile, times the four-step
+    twiddle) then step 3 at n2 (:func:`step3_transposed`) into the
+    output's natural order; then y on the column variant at stride Z and x
+    at stride Y Z, ``scale`` at x's store (an axis under 16 a thread a
+    line, :func:`_cube_cols`). ``tabs``: a ``fused_fft.TableSet`` on the
+    CPU (the kernel's tables: core tables of the default stages, the
+    four-step twiddle)."""
+    nx, ny, nz = xr.shape[-3:]
+    b = xr.numel() // (nx * ny * nz)
+    geo = cube_geometry(b, nx, ny, nz, group, split)
+    g = geo["G"]
+    xr4, xi4 = xr.reshape(b, nx, ny, nz), xi.reshape(b, nx, ny, nz)
+    yr, yi = torch.empty_like(xr4), torch.empty_like(xi4)
+
+    def core(n):
+        return tabs.get("core", n, fused_fft._stages(n, None), inverse, 1.0)
+
+    for c0 in range(0, b, g):
+        cr, ci = xr4[c0:c0 + g], xi4[c0:c0 + g]
+        if geo["split"] is None:
+            cr, ci = fft_rows(cr, ci, core(nz), inverse)
+        else:
+            n1, n2 = geo["split"]
+            lines = cr.numel() // nz
+            zr, zi = step1_twiddle(
+                cr.reshape(lines, n1, n2), ci.reshape(lines, n1, n2),
+                core(n1), tabs.get("fourstep", n1, n2, inverse, 1.0),
+                inverse, tile="narrow")
+            cr, ci = step3_transposed(zr, zi, core(n2), inverse)
+            cr, ci = cr.reshape(-1, nx, ny, nz), ci.reshape(-1, nx, ny, nz)
+        cr, ci = _cube_cols(cr, ci, ny, tabs, inverse, 2)
+        cr, ci = _cube_cols(cr, ci, nx, tabs, inverse, 1, scale)
+        yr[c0:c0 + g], yi[c0:c0 + g] = cr, ci
+    return yr.reshape(xr.shape), yi.reshape(xi.shape)

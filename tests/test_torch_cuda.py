@@ -418,6 +418,97 @@ def test_cuda_fft3d_cube_against_fftn(cuda_dev, inverse):
         ot.fft3d_cube(*_pair((256, 256, 256), cuda_dev))
 
 
+# the shapes of test_cuda_fft3d_cube, 8 x 128^3 inverse with out_scale,
+# and x of 3, 12 and 5 (a thread a line on the table's roots; 5 beside
+# the split z), forward and inverse with out_scale
+CUBE_SHAPES = [
+    ((2, 32, 32, 128), {}),
+    ((16, 8, 128), {"inverse": True, "out_scale": 0.5}),
+    ((3, 8, 16, 512), {"precision": "stack6"}),
+    ((2, 8, 128), {"rad_z": (4, 4, 8), "rad_y": (2, 4)}),
+    ((1, 8, 32768), {"rad_z": (32, 32, 32)}),
+    ((2, 8, 8, 32768), {"rad_z": (32, 32, 32), "inverse": True}),
+    ((2, 128, 128, 128), {}),
+    ((8, 128, 128, 128), {"inverse": True, "out_scale": 2.0}),
+    ((2, 3, 16, 128), {"out_scale": 0.5}),
+    ((2, 3, 16, 128), {"inverse": True, "out_scale": 2.0}),
+    ((1, 12, 8, 256), {"out_scale": 2.0}),
+    ((1, 12, 8, 256), {"inverse": True, "out_scale": 0.5}),
+    ((3, 5, 8, 8192), {"out_scale": 0.5}),
+    ((3, 5, 8, 8192), {"inverse": True, "out_scale": 2.0})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape,kw", CUBE_SHAPES)
+def test_cuda_fft3d_cube_cores(cuda_dev, monkeypatch, shape, kw, dense):
+    # the register cube (csrc/fft_cube_regs.cu) where _reg_cube holds,
+    # and the dense kernel with the predicate patched off, each against
+    # the plain version and complex128 fftn
+    if dense:
+        monkeypatch.setattr(ff, "_reg_cube", lambda nx, ny, nz: False)
+    reg = ff._reg_cube(*shape[-3:])
+    assert reg == (not dense)
+    x = _pair(shape, cuda_dev, seed=12)
+    ff.reset_counts()
+    yr, yi = ff.fft3d_cube(*x, **kw)
+    torch.cuda.synchronize()
+    assert ff.fft3d_cube.launches == 1 and ff.fft3d_cube.plain_calls == 0
+    assert ff.fft3d_cube.reg_launches == int(reg)
+    pr, pi = ff.fft3d_cube.plain(*x, **kw)
+    for g, w in ((yr, pr), (yi, pi)):
+        assert torch.isfinite(g).all()
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+    f = torch.fft.ifftn if kw.get("inverse") else torch.fft.fftn
+    ref = kw.get("out_scale", 1.0) * f(
+        torch.complex(x[0].double(), x[1].double()), dim=(-3, -2, -1))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", range(1, 16))
+def test_cuda_fft3d_cube_short_x(cuda_dev, n, inverse):
+    # every x under 16 on the register cube (dft_short: the radix-2
+    # network at 2, 4, 8, else the sums on the core table's roots),
+    # against the plain version and complex128 fftn
+    assert ff._reg_cube(n, 8, 128)
+    x = _pair((2, n, 8, 128), cuda_dev, seed=14 + n)
+    ff.reset_counts()
+    yr, yi = ff.fft3d_cube(*x, inverse=inverse, out_scale=3.0)
+    torch.cuda.synchronize()
+    assert ff.fft3d_cube.reg_launches == 1
+    pr, pi = ff.fft3d_cube.plain(*x, inverse=inverse, out_scale=3.0)
+    for g, w in ((yr, pr), (yi, pi)):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+    f = torch.fft.ifftn if inverse else torch.fft.fftn
+    ref = 3.0 * f(torch.complex(x[0].double(), x[1].double()),
+                  dim=(-3, -2, -1))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 24, 128), (8, 8, 384),
+                                   (4, 40, 8, 128)])
+def test_cuda_fft3d_cube_mixed_lengths_stay_dense(cuda_dev, shape):
+    assert not ff._reg_cube(*shape[-3:])
+    _card_check(ff.fft3d_cube, lambda f, x: f(*x), shape, cuda_dev)
+    assert ff.fft3d_cube.reg_launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(9, 16, 16, 128), (3, 8, 8, 8192)])
+def test_cuda_fft3d_cube_groups(cuda_dev, monkeypatch, shape):
+    # G cubes a phase walks the batch: every G gives the same bits
+    x = _pair(shape, cuda_dev, seed=13)
+    want = ff.fft3d_cube(*x, inverse=True)
+    for g in (1, 2, 4):
+        monkeypatch.setattr(ff, "_cube_group", lambda *n, g=g: g)
+        got = ff.fft3d_cube(*x, inverse=True)
+        assert ff.fft3d_cube.last["group"] == min(g, shape[0])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,launched", [
     (1009, {"fft_last"}), (8209, {"_step1_twiddle", "_step3_transposed"})])
