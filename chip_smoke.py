@@ -34,7 +34,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    clusters, ``fused_fft._cluster_slab``, ``_cluster_irslab`` for the
    c2r), the lane tile (``fused_fft._axis_tile``) and the cube's G, split,
    barriers and cooperative grid printed;
-3. the five paths through ``offt_tpu_torch.plan`` on the card, each
+3. the paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
    and read just after:
@@ -63,6 +63,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       ``fft`` of the prime 1,000,003 (Bluestein, its inner 2^21 on the
       four-step kernels), ``fftn`` over a 4-D (8, 64, 64, 64) field, and
       complex128 ``fftn`` of 128^3 against the fp64 bar (1e-12);
+   h. the backward path (``plan/autodiff.py``): the gradient of
+      sum(w |y|^2) through 256^3 planar c2c (forward and inverse, norms
+      backward and ortho), 256^3 complex c2c, 256^3 r2c and r2c -> c2r
+      (numpy and packed layouts; the c2r's through a low-pass, real and
+      symmetric in the packed layout, with a random phase a bin in the
+      numpy layout, whose twin takes the plan's edge rule), 192^3 r2c ->
+      c2r on the unfused real route, the (1, 1, 2^22) long 1-D c2c,
+      ``fft2d`` of 64 x 1024^2 and the 1 x 1 mesh's 256^3 c2c and packed
+      r2c -> c2r, each against ``torch.autograd.grad`` of the same loss
+      through complex128 ``torch.fft`` (1e-6); ``torch.func.jvp`` through
+      the 256^3 planar c2c (1e-6) and a grad of grad through the 256^3
+      complex c2c (1e-5: four transforms on its path); and 5 SGD steps of
+      the FNO spectral convolution of examples/fno_layer.py at 4 x 128^3
+      with 16 modes a side, bins 0..15 as the example takes them (the
+      loss falls at every step; the step-0 weight gradient within 1e-5
+      of its complex128 twin, whose c2r states the plan's edge rule off
+      the half-spectra of real signals, ``_c2r_edges``). Each backward
+      runs with the launch counters zeroed just before and read just
+      after;
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did; the register core ran ``fft_last`` on 3a (its one
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
@@ -75,7 +94,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    c2r, ``icrfft_last`` on every packed c2r of 3e, and ``step1_twiddle``
    / ``step3_transposed`` on every power-of-two split of 3c (step 3
    dense on the 768 side of 3 * 2^18) and throughout 3d and 3g, and the
-   register cube on every cube of 3f;
+   register cube on every cube of 3f; every backward of 3h ran the
+   kernels of its adjoint route and no plain version, those at 256^3 on
+   the register core (``fft_slab``, ``rfft_slab``, ``fft_axis``);
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, there each kernel of the
    four-step pair on both cores with its bound and TB/s, and the pair's
@@ -123,7 +144,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    first
    and the
    second one-shot ``fft3d`` of
-   256^3 (the second reuses the cached plan).
+   256^3 (the second reuses the cached plan); the backward path: forward,
+   backward alone and both of 3h's loss at 256^3 c2c, r2c and c2r and the
+   FNO step at 4 x 128^3, each beside the same through ``torch.fft``
+   autograd on complex64 (cuFFT), and the ``torch.profiler`` breakdown
+   of one 256^3 c2c backward.
 
 The line before the last is one JSON object with each kernel's numbers:
 its launches on the main paths, its error, its time and the library
@@ -391,6 +416,422 @@ def _dense_core(ff):
     finally:
         for k, f in zip(names, keep):
             setattr(ff, k, f)
+
+
+# ---- 3h: gradients through the plans (the backward path) -------------------
+
+TOL_GRAD2 = 1e-5    # four transforms on the path: grad of grad, the FNO step
+# the shapes of phase 3h: the c2c / packed-route cube, the unfused real
+# route's cube, the long 1-D length, fft2d's (batch, Y, N) and the FNO's
+# (n, modes, batch)
+GRAD_SHAPES = {"cube": (256, 256, 256), "small": (192, 192, 192),
+               "long": 2 ** 22, "2d": (64, 1024, 1024), "fno": (128, 16, 4)}
+
+
+def _sq(y, w):
+    """sum(w * |y|^2) of a planar pair, a complex or a real tensor."""
+    if isinstance(y, tuple):
+        return (w * (y[0] * y[0] + y[1] * y[1])).sum()
+    if y.is_complex():
+        return (w * (y.real * y.real + y.imag * y.imag)).sum()
+    return (w * y * y).sum()
+
+
+def _rel_leaves(got, want) -> float:
+    """||got - want|| / ||want|| over lists of tensors, in float64."""
+    num = sum(torch.linalg.vector_norm(g.to(w.dtype) - w) ** 2
+              for g, w in zip(got, want))
+    den = sum(torch.linalg.vector_norm(w) ** 2 for w in want)
+    for g in got:
+        if not torch.isfinite(g).all():
+            raise AssertionError("non-finite gradient")
+    return (num / den).sqrt().item()
+
+
+def _wide(t):
+    return t.to(torch.complex128) if t.is_complex() else t.double()
+
+
+def _pack(w, m: int):
+    """The packed (..., M) layout of a numpy-layout half-spectrum: plane 0
+    carries X[0] + i X[M] (torch ops, differentiable)."""
+    return torch.cat([(w[..., 0] + 1j * w[..., m])[..., None], w[..., 1:m]],
+                     -1)
+
+
+def _lowpass(shape, dev, dtype=torch.float32):
+    """exp(-40 |f|^2) on the rfftn grid of ``shape``: real and symmetric
+    in (x, y), so it keeps a half-spectrum Hermitian-consistent."""
+    nx, ny, nz = shape
+    fx = torch.fft.fftfreq(nx, device=dev, dtype=torch.float64)
+    fy = torch.fft.fftfreq(ny, device=dev, dtype=torch.float64)
+    fz = torch.fft.rfftfreq(nz, device=dev, dtype=torch.float64)
+    f2 = fx[:, None, None] ** 2 + fy[None, :, None] ** 2 + fz ** 2
+    return torch.exp(-40.0 * f2).to(dtype)
+
+
+def _mul(y, k):
+    return (y[0] * k, y[1] * k) if isinstance(y, tuple) else y * k
+
+
+def _cmul(y, kr, ki):
+    """A planar pair times the complex multiplier kr + i ki."""
+    return y[0] * kr - y[1] * ki, y[0] * ki + y[1] * kr
+
+
+def grad_cases(ot, gen, mesh) -> list:
+    """The gradient cases of phase 3h: (label, port fn, complex128 twin,
+    inputs (fp32 leaves), the kernels its backward must run)."""
+    dev = gen.device
+    cube = GRAD_SHAPES["cube"]
+
+    def real(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def pair(shape):
+        return real(shape), real(shape)
+    cases = []
+    for inv, norm in ((False, None), (False, "ortho"), (True, None),
+                      (True, "ortho")):
+        p = ot.plan(cube, "complex64", planar=True, inverse=inv, norm=norm,
+                    device=dev)
+        f = torch.fft.ifftn if inv else torch.fft.fftn
+        cases.append((f"c2c {'inv' if inv else 'fwd'} {norm or 'backward'}",
+                      lambda a, b, p=p: p(a, b),
+                      lambda a, b, f=f, norm=norm: f(torch.complex(a, b),
+                                                     norm=norm),
+                      pair(cube), ("fft_slab", "fft_axis")))
+    pc = ot.plan(cube, "complex64", device=dev)
+    cases.append(("c2c complex", pc, torch.fft.fftn,
+                  (torch.complex(*pair(cube)),), ("fft_slab", "fft_axis")))
+    m = cube[2] // 2
+    k = _lowpass(cube, dev)
+    kp = k[..., :m].contiguous()
+    kfull = k.clone()
+    kfull[..., m] = k[..., 0]       # the packed plane 0 scales X[M] by k[0]
+    # the numpy layout's multiplier also turns each bin's phase, so its
+    # z = 0 and N/2 planes leave the half-spectra of real signals: the
+    # twin's c2r states the plan's edge rule there (_c2r_edges)
+    theta = 2 * math.pi * torch.rand(k.shape, generator=gen, device=dev)
+    kr, ki = k * torch.cos(theta), k * torch.sin(theta)
+    for packed in (False, True):
+        pf = ot.plan(cube, "float32", real=True, planar=True, packed=packed,
+                     device=dev)
+        pi = ot.plan(cube, "float32", real=True, inverse=True, planar=True,
+                     packed=packed, device=dev)
+        lay = "packed" if packed else "numpy"
+        twin_r2c = ((lambda x: _pack(torch.fft.rfftn(x), m)) if packed
+                    else torch.fft.rfftn)
+        cases.append((f"r2c {lay}", lambda x, pf=pf: pf(x), twin_r2c,
+                      (real(cube),), ("fft_slab", "fft_axis")))
+        if packed:
+            def port(x, pf=pf, pi=pi):
+                return pi(*_mul(pf(x), kp))
+
+            def twin(x):
+                return torch.fft.irfftn(torch.fft.rfftn(x) * kfull.double(),
+                                        s=cube)
+        else:
+            def port(x, pf=pf, pi=pi):
+                return pi(*_cmul(pf(x), kr, ki))
+
+            def twin(x, fused=pi.route == "rfft3d"):
+                kc = torch.complex(kr.double(), ki.double())
+                return _c2r_edges(torch.fft.rfftn(x) * kc, cube[2], fused)
+        cases.append((
+            f"r2c -> c2r {lay}", port, twin, (real(cube),),
+            ("rfft_slab", "fft_axis", "fft_slab")
+            + (() if packed else ("assemble_mp1",))))
+    small = GRAD_SHAPES["small"]
+    ks = _lowpass(small, dev)
+    pf = ot.plan(small, "float32", real=True, device=dev)
+    pi = ot.plan(small, "float32", real=True, inverse=True, device=dev)
+    if (pf.route, pi.route) != ("local", "local"):
+        raise AssertionError(f"{small} routes {pf.route}, {pi.route}")
+    cases.append(("r2c -> c2r, the unfused real route",
+                  lambda x: pi(pf(x) * ks),
+                  lambda x: torch.fft.irfftn(torch.fft.rfftn(x)
+                                             * ks.double(), s=small),
+                  (real(small),), ("rfft_last", "fft_axis")))
+    n = GRAD_SHAPES["long"]
+    pl = ot.plan((1, 1, n), "complex64", planar=True, device=dev)
+    cases.append(("long 1-D c2c", lambda a, b: pl(a, b),
+                  lambda a, b: torch.fft.fft(torch.complex(a, b)),
+                  pair((1, 1, n)), ("step1_twiddle", "step3_transposed")))
+    cases.append(("fft2d", ot.fft2d, torch.fft.fft2,
+                  (torch.complex(*pair(GRAD_SHAPES["2d"])),),
+                  ("fft_last", "fft_axis")))
+    pm = ot.plan(cube, "complex64", mesh=mesh, planar=True)
+    cases.append(("mesh 1x1 c2c", lambda a, b: pm(a, b),
+                  lambda a, b: torch.fft.fftn(torch.complex(a, b)),
+                  pair(cube), ("fft_last", "fft_axis")))
+    pfm = ot.plan(cube, "float32", mesh=mesh, real=True, planar=True,
+                  packed=True)
+    pim = ot.plan(cube, "float32", mesh=mesh, real=True, inverse=True,
+                  planar=True, packed=True)
+    cases.append(("mesh 1x1 r2c -> c2r packed",
+                  lambda x: pim(*_mul(pfm(x), kp)),
+                  lambda x: torch.fft.irfftn(torch.fft.rfftn(x)
+                                             * kfull.double(), s=cube),
+                  (real(cube),), ("rfft_last", "fft_axis", "fft_last")))
+    return cases
+
+
+def _c2r_edges(y, n: int, fused: bool):
+    """irfftn of the half-spectrum ``y`` (even ``n``) by a plan c2r's
+    edge rule (``plan()``'s docstring), in torch ops: with G_0 and G_M the
+    z = 0 and n/2 planes inverted along x and y, irfft along z of G_0' =
+    Re G_0 - Im G_M and G_M' = Re G_M - Im G_0 (+ Im G_0 on the fused
+    route). ``torch.fft.irfftn`` drops Im G_0 and Im G_M instead; the two
+    agree where G_0 and G_M are real (the half-spectra of real
+    signals)."""
+    g = torch.fft.ifftn(y, dim=(-3, -2))
+    g0, gm = g[..., :1], g[..., -1:]
+    sign = 1.0 if fused else -1.0
+    edges = (torch.complex(g0.real - gm.imag, torch.zeros_like(g0.real)),
+             torch.complex(gm.real + sign * g0.imag,
+                           torch.zeros_like(gm.real)))
+    g = torch.cat([edges[0], g[..., 1:-1], edges[1]], -1)
+    return torch.fft.irfft(g, n=n, dim=-1)
+
+
+def fno_model(ot, dev, n: int, modes: int, batch: int):
+    """The FNO spectral convolution of examples/fno_layer.py on the
+    port's planar r2c / c2r plans, and its complex128 torch.fft twin: r2c,
+    the (modes, modes, modes) low corner (bins 0..modes - 1 of each axis,
+    the example's) times learned complex weights, c2r. The learned z = 0
+    plane is not Hermitian, so the c2r reads it off the half-spectra of
+    real signals: the twin's c2r states the plan's edge rule
+    (:func:`_c2r_edges`), which differs there from ``torch.fft.irfftn``
+    (ROADMAP Queue 3)."""
+    nf = n // 2 + 1
+    fwd = ot.plan((n,) * 3, "float32", real=True, planar=True, batch_dims=1,
+                  device=dev)
+    inv = ot.plan((n,) * 3, "float32", real=True, inverse=True, planar=True,
+                  batch_dims=1, device=dev)
+    pad = (0, nf - modes, 0, n - modes, 0, n - modes)
+
+    def conv(wr, wi, x):
+        yr, yi = fwd(x)
+        fr = torch.nn.functional.pad(wr, pad)
+        fi = torch.nn.functional.pad(wi, pad)
+        return inv(yr * fr - yi * fi, yr * fi + yi * fr)
+
+    def twin(wr, wi, x, edges=True):
+        # edges=False: the layer as a torch.fft user writes it (irfftn)
+        w = torch.nn.functional.pad(torch.complex(wr, wi), pad)
+        y = torch.fft.rfftn(x, dim=(-3, -2, -1)) * w
+        if edges:
+            return _c2r_edges(y, n, inv.route == "rfft3d")
+        return torch.fft.irfftn(y, s=(n,) * 3, dim=(-3, -2, -1))
+    return conv, twin, (fwd.route, inv.route)
+
+
+def fno_train(ot, gen, n: int, modes: int, batch: int, steps: int,
+              window=None) -> dict:
+    """``steps`` SGD steps of the FNO layer fitting a hidden spectral
+    multiplier (examples/fno_layer.py's task and learning rate): the
+    losses (one more after the last step), the step-0 weight gradient
+    against the complex128 twin's, and ``window``'s reading of the step-0
+    backward."""
+    dev = gen.device
+    conv, twin, routes = fno_model(ot, dev, n, modes, batch)
+    wshape = (modes,) * 3
+    w_true = [torch.randn(wshape, generator=gen, device=dev)
+              for _ in range(2)]
+    x = torch.randn((batch, n, n, n), generator=gen, device=dev)
+    with torch.no_grad():
+        y = conv(*w_true, x)
+    wr = torch.zeros(wshape, device=dev, requires_grad=True)
+    wi = torch.zeros(wshape, device=dev, requires_grad=True)
+    lr = 2e-2 * n ** 3
+    losses, out = [], {"routes": routes}
+    for step in range(steps + 1):
+        r = conv(wr, wi, x) - y
+        loss = (r * r).mean()
+        losses.append(loss.item())
+        if step == steps:
+            break
+        if step == 0 and window is not None:
+            (gr, gi), out["counts"] = window(
+                lambda: torch.autograd.grad(loss, (wr, wi)))
+        else:
+            gr, gi = torch.autograd.grad(loss, (wr, wi))
+        if step == 0:
+            w64 = [torch.zeros(wshape, dtype=torch.float64, device=dev,
+                               requires_grad=True) for _ in range(2)]
+            r64 = twin(*w64, x.double()) - y.double()
+            g64 = torch.autograd.grad((r64 * r64).mean(), w64)
+            out["err0"] = _rel_leaves([gr, gi], list(g64))
+            del r64, g64
+        with torch.no_grad():
+            wr = (wr - lr * gr).requires_grad_()
+            wi = (wi - lr * gi).requires_grad_()
+    out["losses"] = losses
+    out["w_err"] = _rel_leaves([wr.detach(), wi.detach()],
+                               [w.double() for w in w_true])
+    return out
+
+
+def grad_phase(ot, ff, gen, mesh, window, tag) -> dict:
+    """Phase 3h on the device of ``gen``: each case's gradient of a real
+    loss against complex128 torch.fft autograd (1e-6), jvp, grad of grad
+    and the FNO loop. ``window(fn)`` runs ``fn`` with the launch counters
+    zeroed before and read after: each backward alone. Returns {run label:
+    (reading, the kernels it must have run)}."""
+    dev = gen.device
+    readings = {}
+    for label, fn, twin, leaves, kernels in grad_cases(ot, gen, mesh):
+        xs = [t.detach().requires_grad_() for t in leaves]
+        y = fn(*xs)
+        w = torch.rand(_shape_of(y), generator=gen, device=dev)
+        loss = _sq(y, w)
+        del y
+        gs, counts = window(lambda: torch.autograd.grad(loss, xs))
+        readings[f"grad {label}"] = (counts, kernels)
+        del loss
+        x64 = [_wide(t.detach()).requires_grad_() for t in leaves]
+        g64 = torch.autograd.grad(_sq(twin(*x64), w.double()), x64)
+        err = _rel_leaves(list(gs), list(g64))
+        print(f"grad {label} {_shape_of(leaves[0])}: rel err vs complex128 torch.fft autograd "
+              f"{err:.3e} (tol {TOL_PATH:g}) {tag}", flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"grad {label}: error {err:.3e}")
+        del xs, x64, gs, g64, w
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    # forward mode: the jvp of a linear map is the map
+    cube = GRAD_SHAPES["cube"]
+    p = ot.plan(cube, "complex64", planar=True, device=dev)
+    x = [torch.randn(cube, generator=gen, device=dev) for _ in range(2)]
+    tv = [torch.randn(cube, generator=gen, device=dev) for _ in range(2)]
+    (_, (jr, ji)), counts = window(
+        lambda: torch.func.jvp(lambda a, b: p(a, b), tuple(x), tuple(tv)))
+    readings["jvp c2c"] = (counts, ("fft_slab", "fft_axis"))
+    err = _rel_err(jr, ji, torch.fft.fftn(torch.complex(*tv).to(
+        torch.complex128)))
+    print(f"jvp c2c {cube}: tangent rel err vs complex128 fftn of the "
+          f"tangent {err:.3e} (tol {TOL_PATH:g}) {tag}", flush=True)
+    if err > TOL_PATH:
+        raise AssertionError(f"jvp: error {err:.3e}")
+    del x, tv, jr, ji
+    # grad of grad through the complex c2c
+    pc = ot.plan(cube, "complex64", device=dev)
+    z = torch.randn(cube, dtype=torch.complex64, generator=gen, device=dev)
+    w = torch.rand(cube, generator=gen, device=dev)
+
+    def hess(f, v, w):
+        v = v.detach().requires_grad_()
+        g, = torch.autograd.grad(_sq(f(v), w), v, create_graph=True)
+        return torch.autograd.grad(_sq(g, w), v)[0]
+    h, counts = window(lambda: hess(pc, z, w))
+    readings["grad of grad c2c complex"] = (counts, ("fft_slab", "fft_axis"))
+    h64 = hess(torch.fft.fftn, z.to(torch.complex128), w.double())
+    err = _rel_leaves([h], [h64])
+    print(f"grad of grad c2c complex {cube}: rel err vs complex128 "
+          f"torch.fft {err:.3e} (tol {TOL_GRAD2:g}) {tag}", flush=True)
+    if err > TOL_GRAD2:
+        raise AssertionError(f"grad of grad: error {err:.3e}")
+    del z, w, h, h64
+    # the training loop: the FNO layer at batch 4 x 128^3, 16 modes a side
+    n, modes, batch = GRAD_SHAPES["fno"]
+    fno = fno_train(ot, gen, n, modes, batch, 5, window)
+    # 128^3 is outside the packed gate: the r2c and c2r take the
+    # axis-by-axis route, so the c2r's adjoint runs rfft_last; the input
+    # is data, so the r2c's adjoint does not run
+    readings["FNO step 0 backward"] = (fno["counts"],
+                                       ("rfft_last", "fft_axis"))
+    ls = fno["losses"]
+    print(f"FNO {batch} x {n}^3, {modes} modes (routes {fno['routes']}): losses "
+          + " -> ".join(f"{v:.6e}" for v in ls)
+          + f"; step-0 weight gradient rel err vs its complex128 twin "
+          f"{fno['err0']:.3e} (tol {TOL_GRAD2:g}); weights rel err "
+          f"{fno['w_err']:.4f} {tag}", flush=True)
+    if not all(b < a for a, b in zip(ls, ls[1:])):
+        raise AssertionError(f"FNO loss did not fall at every step: {ls}")
+    if fno["err0"] > TOL_GRAD2:
+        raise AssertionError(f"FNO step-0 gradient: error {fno['err0']:.3e}")
+    if fno["routes"] != ("local", "local"):
+        raise AssertionError(f"FNO routes {fno['routes']}")
+    return readings
+
+
+def _shape_of(y):
+    return tuple((y[0] if isinstance(y, tuple) else y).shape)
+
+
+def grad_times(ot, gen, show, show_breakdown, time_cuda) -> None:
+    """Phase 5's backward path: forward, backward and both of sum(w
+    |y|^2) at 256^3 (c2c, r2c, c2r, planar and numpy layout) and of the
+    FNO step at 4 x 128^3, each beside the same through torch.fft
+    autograd on complex64 (cuFFT; the FNO layer with ``irfftn``); and the
+    torch.profiler breakdown of one 256^3 c2c backward."""
+    dev = gen.device
+    cube = GRAD_SHAPES["cube"]
+    m = cube[2] // 2 + 1
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, dtype=dtype, generator=gen, device=dev)
+    cases = [
+        # (label, port fn, its leaves, torch.fft fn, its leaves)
+        ("c2c", ot.plan(cube, "complex64", planar=True),
+         (rnd(cube), rnd(cube)), torch.fft.fftn,
+         (rnd(cube, torch.complex64),)),
+        ("r2c", ot.plan(cube, "float32", real=True, planar=True),
+         (rnd(cube),), torch.fft.rfftn, (rnd(cube),)),
+        ("c2r", ot.plan(cube, "float32", real=True, inverse=True,
+                        planar=True),
+         (rnd(cube[:2] + (m,)), rnd(cube[:2] + (m,))),
+         lambda z: torch.fft.irfftn(z, s=cube),
+         (rnd(cube[:2] + (m,), torch.complex64),)),
+    ]
+    for label, fn, xs, twin, zs in cases:
+        rows = []
+        for who, f, leaves in (("port", fn, xs), ("torch.fft", twin, zs)):
+            leaves = [t.requires_grad_() for t in leaves]
+            y = f(*leaves)
+            w = torch.rand(_shape_of(y), generator=gen, device=dev)
+            loss = _sq(y, w)
+            r_f = time_cuda(lambda: _sq(f(*leaves), w))
+            r_b = time_cuda(lambda: torch.autograd.grad(
+                loss, leaves, retain_graph=True))
+            r_fb = time_cuda(lambda: torch.autograd.grad(
+                _sq(f(*leaves), w), leaves))
+            rows.append(r_fb["median_ms"])
+            show(f"grad {who} {label} {cube}: forward (+ loss)", r_f)
+            show(f"grad {who} {label} {cube}: backward alone", r_b,
+                 f", {r_b['median_ms'] / r_f['median_ms']:.2f}x the "
+                 "forward")
+            show(f"grad {who} {label} {cube}: forward + backward", r_fb)
+            if who == "port" and label == "c2c":
+                show_breakdown(f"port 256^3 c2c backward {cube}",
+                               lambda: torch.autograd.grad(
+                                   loss, leaves, retain_graph=True))
+            del y, loss, w
+        print(f"grad {label} {cube}: port forward + backward "
+              f"{rows[0]:.4f} ms, torch.fft autograd {rows[1]:.4f} ms "
+              f"({rows[0] / rows[1]:.2f}x)", flush=True)
+        torch.cuda.empty_cache()
+    n, modes, batch = GRAD_SHAPES["fno"]
+    x = torch.randn((batch, n, n, n), generator=gen, device=dev)
+    y = torch.randn((batch, n, n, n), generator=gen, device=dev)
+    conv, twin, _ = fno_model(ot, dev, n, modes, batch)
+    wshape = (modes,) * 3
+    rows = []
+    for who, f in (("port", conv),
+                   ("torch.fft", lambda *a: twin(*a, edges=False))):
+        w = [torch.randn(wshape, generator=gen, device=dev)
+             .requires_grad_() for _ in range(2)]
+
+        def step(f=f, w=w):
+            r = f(*w, x) - y
+            return torch.autograd.grad((r * r).mean(), w)
+        r = time_cuda(step)
+        rows.append(r["median_ms"])
+        show(f"FNO step (forward + backward) {who} {batch} x {n}^3, "
+             f"{modes} modes", r)
+    print(f"FNO step: port {rows[0]:.4f} ms, torch.fft autograd "
+          f"{rows[1]:.4f} ms ({rows[0] / rows[1]:.2f}x)", flush=True)
 
 
 def main() -> int:
@@ -1113,6 +1554,15 @@ def main() -> int:
     del results
     torch.cuda.empty_cache()
 
+    # ---- 3h. gradients through the plans: the backward path --------------
+    # each backward with the counters zeroed just before and read just
+    # after (the forward it differentiates runs outside the window)
+    t0 = time.perf_counter()
+    grad_runs = grad_phase(ot, ff, gen, mesh, lambda fn: _window(ff, fn),
+                           tag)
+    print(f"phase 3h: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 4. the counters -----------------------------------------------
     path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
                     "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
@@ -1127,6 +1577,9 @@ def main() -> int:
                     "namespace": ("fft_slab", "fft_axis", "fft_last",
                                   "rfft_last", "step1_twiddle",
                                   "step3_transposed")}
+    for label, (reading, kernels) in grad_runs.items():
+        runs[label] = reading
+        path_kernels[label] = kernels
     for path, (counts, launched, regs) in runs.items():
         for name in path_kernels[path]:
             if launched[name] <= 0:
@@ -1231,6 +1684,20 @@ def main() -> int:
         raise AssertionError("fft_cube on 3f: want the register cube "
                              f"throughout: {cu_reg} of {cu}")
     print(f"register core: fft_cube on 3f ({cu_reg} of {cu})")
+    # 3h at the 256^3 cube: every slab and strided-axis launch of each
+    # backward (and of the jvp and the grad of grad) on the register core
+    for label in grad_runs:
+        if any(k in label for k in ("unfused", "long", "fft2d", "FNO")):
+            continue
+        launched, regs = runs[label][1], runs[label][2]
+        off = {k: (regs[k], launched[k]) for k in
+               ("fft_slab", "rfft_slab", "fft_axis")
+               if regs[k] != launched[k]}
+        if off:
+            raise AssertionError(f"{label}: not on the register core "
+                                 f"(register, launches): {off}")
+    print("register core: fft_slab, rfft_slab and fft_axis throughout the "
+          "256^3 backwards of 3h")
     launches = {k: sum(r[1][k] for r in runs.values()) for k in ff.KERNELS}
 
     # ---- 5. times --------------------------------------------------------
@@ -1681,6 +2148,9 @@ def main() -> int:
           f"call {walls[0]:.4f} ms (builds the plan), second {walls[1]:.4f}, "
           f"third {walls[2]:.4f} ms (the cached plan) {tag}", flush=True)
     del xc
+    torch.cuda.empty_cache()
+
+    grad_times(ot, gen, show, show_breakdown, time_cuda)
     torch.cuda.empty_cache()
 
     report = []

@@ -27,7 +27,14 @@ The ported slices are the single-device transforms on planar float32
   (``kernels/stockham.py``: the matmul chain, Bluestein for any length,
   complex128 / float64 plans and ``use_pallas=0``) and the
   ``numpy.fft``-style namespace ``offt_tpu_torch.fft`` on top of the
-  plans (``ot.fft.fftn(x)``, ``ot.fft.rfft(x, n=1009)``).
+  plans (``ot.fft.fftn(x)``, ``ot.fft.rfft(x, n=1009)``);
+- differentiable plans (``plan/autodiff.py``): a call runs the
+  ``torch.autograd.Function`` of its calling convention, whose backward
+  is the adjoint plan on the same kernels, with ``jvp`` and ``vmap``
+  rules for ``torch.func``; and the rest of the reference's ``plan/``:
+  the one-shots ``rfft3d``, ``irfft3d``, ``fft2d``, ``ifft2d``,
+  ``rfft2d``, ``irfft2d``, ``donate=`` and the wisdom files
+  (``plan.cache``).
 
 The kernels (``kernels/csrc``) are built with nvcc for sm_90a at first
 use. On the CPU every kernel wrapper runs its plain PyTorch version
@@ -49,7 +56,8 @@ from .kernels.fused_fft import (can_fuse_cube, fft3d_cube, fft3d_planar,
                                 icrfft_last_planar, irfft3d_planar,
                                 pack_rfft3d, rfft3d_planar, rfft_last_planar,
                                 unpack_rfft3d)
-from .plan.api import Plan, fft3d, from_planar, ifft3d, plan, to_planar
+from .plan.api import (Plan, fft2d, fft3d, from_planar, ifft2d, ifft3d,
+                       irfft2d, irfft3d, plan, rfft2d, rfft3d, to_planar)
 from .plan.params import PlanParams
 
 __all__ = [
@@ -62,6 +70,7 @@ __all__ = [
     "batch_layout",
     "can_fuse_cube",
     "fft",
+    "fft2d",
     "fft3d",
     "fft3d_cube",
     "fft3d_planar",
@@ -72,8 +81,11 @@ __all__ = [
     "fft_sublane",
     "from_planar",
     "icrfft_last_planar",
+    "ifft2d",
     "ifft3d",
     "input_layout",
+    "irfft2d",
+    "irfft3d",
     "irfft3d_planar",
     "local_block",
     "make_mesh",
@@ -81,6 +93,8 @@ __all__ = [
     "output_layout",
     "pack_rfft3d",
     "plan",
+    "rfft2d",
+    "rfft3d",
     "rfft3d_planar",
     "rfft_last_planar",
     "to_planar",

@@ -17,7 +17,9 @@ cube's phases (``phases`` of ``fused_fft.fft3d_cube``) and its groups
 (``fused_fft._cube_group`` patched) beside the dense kernel,
 ``fft3d_planar`` and ``torch.fft.fftn``. ``ptxas_spills`` prints each
 kernel's registers and spills as ptxas reports them (needs nvcc, not a
-card).
+card). ``call_overhead`` times the host wall of the forward calls that
+the host paces, with and without the autograd Function, against another
+checkout's (``--root``).
 """
 
 from __future__ import annotations

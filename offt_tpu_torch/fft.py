@@ -27,10 +27,13 @@ complex128 results (the fp64 route, 1e-12), every other type complex64
 (real results float64 or float32). The reference follows JAX, whose
 64-bit types need x64 on.
 
+Autodiff: every call differentiates through its plans
+(``plan/autodiff.py``: each plan's backward is its adjoint plan) and the
+torch ops around them, so ``torch.autograd.grad`` of a loss through
+``ot.fft.rfftn`` runs the kernels again on the card.
+
 Not here yet: ``use_mesh`` (the distributed namespace) raises: its 1-D
 calls need the distributed long-1-D engine, ROADMAP Queue 1 item 4.
-Plans run forward only, so a tensor that requires grad raises (autodiff
-is item 3).
 """
 
 from __future__ import annotations

@@ -42,11 +42,25 @@ on its own block):
 A degenerate (1, 1, N) plan on a mesh is the distributed long-1-D engine
 (``dist/long1d.py``), not ported yet: it raises.
 
+Plans are differentiable (``plan/autodiff.py``): a call that autograd,
+forward mode or a ``torch.func`` transform tracks goes through the
+``torch.autograd.Function`` of its calling convention, whose backward
+applies the adjoint plan, so ``torch.autograd.grad``, ``torch.func.grad``,
+``jvp`` and ``vmap`` run the same kernels; any other call runs the
+transform alone.
+
 The reference post-multiplies its norm scale on the unfused and
 distributed routes; the port folds it into the tables of one pass (the
 last stage of the fast paths; the z pass of ``_local_fft3d`` and of the
 pencil pipeline), which gives the same values since every pass is
-linear. Plans run forward only (autodiff is ROADMAP Queue 1 item 3).
+linear.
+
+The one-shot calls, :func:`fft3d` / :func:`ifft3d`, :func:`rfft3d` /
+:func:`irfft3d` and the 2-D :func:`fft2d`, :func:`ifft2d`,
+:func:`rfft2d`, :func:`irfft2d` (a (1, Y, N) plan, on a ``make_mesh(1,
+p)`` mesh the pencil engine with one exchange: the reference's METHOD-ONE
+analogue), build their plan on the first call of each signature and keep
+it.
 """
 
 from __future__ import annotations
@@ -64,7 +78,7 @@ from ..dist import mesh as meshlib
 from ..dist.pencil import _pad_to, _slice_to, axis_fft, make_pencil_fft3d
 from ..kernels import fused_fft, rfft
 from ..kernels.tables import _pick_2stage
-from . import cache
+from . import autodiff, cache
 from .params import PlanParams, ProblemSpec, default_params, infeasible_reason
 
 
@@ -153,17 +167,40 @@ def _local_fft3d(xs, inverse: bool, real: bool, nz: int, params: PlanParams,
 
 def real_stage_fns(params: PlanParams, nz: int, packed: bool,
                    inverse: bool, real: bool = True,
-                   out_scale: float = 1.0) -> tuple:
+                   out_scale: float = 1.0, adjoint: bool = False) -> tuple:
     """(first_fn, last_fn) that take the pencil pipeline's z stage for a
     real plan, each ``fn(xs, tables) -> tuple`` and carrying
     ``out_scale``: forward the r2c along z (the ``rfft_last_planar``
     kernel; packed, or the numpy layout by ``_rfft_z``), inverse the c2r
     of the half-spectrum after the exchange pad is sliced away (the
     ``icrfft_last_planar`` kernel, or ``rfft.irfft_1d``). (None, None)
-    for c2c."""
+    for c2c.
+
+    ``adjoint=True`` gives the stages of a mesh real plan's adjoint
+    (``plan/autodiff.py``), z being whole there: inverse, the r2c's
+    transpose (zero-pad the half-spectrum, inverse c2c along z, real
+    part); forward, the c2r's (r2c along z, then ``c2r_transpose``)."""
     if not real:
         return None, None
     nzf = nz // 2 if packed else nz // 2 + 1
+    if adjoint and inverse:
+        def last_fn(xs, tables):
+            xr, xi = autodiff.zero_pad_z(*_slice_to(xs, -1, nzf), nz, packed)
+            yr, _ = axis_fft(xr, xi, -1, True, None, params, out_scale,
+                             tables)
+            return (yr,)
+        return None, last_fn
+    if adjoint:
+        def first_fn(xs, tables):
+            if packed:
+                vr, vi = fused_fft.rfft_last_planar(
+                    xs[0], radices=params.radix_z,
+                    precision=params.precision, packed=True,
+                    scale=out_scale, tables=tables)
+            else:
+                vr, vi = _rfft_z(xs[0], params, nz, out_scale, tables)
+            return autodiff.c2r_transpose(vr, vi, nz, packed, False)
+        return first_fn, None
     if not inverse:
         if packed:
             def first_fn(xs, tables):
@@ -213,7 +250,8 @@ class Plan(torch.nn.Module):
     A c2c plan takes a complex64 tensor, or with ``planar=True`` a
     (re, im) float32 pair (one tuple or two arguments), of shape
     (*batch, Nx, Ny, Nz) on the plan's device, and returns the same kind.
-    With ``in_place=True`` the planar inputs are overwritten with the
+    With ``in_place=True`` (or ``donate=True`` on the planar c2c kernel
+    route: ``plan.in_place``) the planar inputs are overwritten with the
     result and returned. A complex128 plan (the fp64 route) takes and
     returns complex128, or float64 pairs.
 
@@ -229,18 +267,33 @@ class Plan(torch.nn.Module):
     block of the global output: ``input_layout`` / ``output_layout`` say
     how the global arrays lie on ``mesh`` (which ``params.rankorder`` may
     have re-gridded), and ``input_block(shape)`` / ``output_block(shape)``
-    give this rank's slices of a global shape."""
+    give this rank's slices of a global shape.
+
+    A call is differentiable: where autograd tracks it, it runs the
+    ``torch.autograd.Function`` of its calling convention
+    (``plan/autodiff.py``)."""
 
     def __init__(self, spec: ProblemSpec, params: PlanParams, ndim: int,
                  planar: bool, out_scale: float, in_place: bool, device,
-                 packed: bool, route: str, mesh=None):
+                 packed: bool, route: str, args: dict, mesh=None,
+                 z_adjoint: bool = False):
         super().__init__()
         self.spec = spec
         self.params = params
         self.ndim = ndim
         self.planar = planar
         self.out_scale = out_scale
+        # runs in place: in_place=True, or donate=True where the route has
+        # an in-place form
         self.in_place = in_place
+        # the plan() arguments it was built from (resolved params), from
+        # which autodiff builds its adjoint and batched plans
+        self._args = args
+        self.norm = args["norm"]
+        # the adjoint of a mesh real plan of the other direction
+        # (``autodiff._swapped``): its z stage is that plan's transpose
+        self.z_adjoint = z_adjoint
+        self._rel = {}
         # the real type of the plan's planar data and its complex type
         wide = spec.dtype == "complex128"
         self.real_dtype = torch.float64 if wide else torch.float32
@@ -263,7 +316,7 @@ class Plan(torch.nn.Module):
             nz = spec.shape[2]
             first_fn, last_fn = real_stage_fns(params, nz, packed,
                                                spec.inverse, spec.real,
-                                               out_scale)
+                                               out_scale, self.z_adjoint)
             self._pencil = make_pencil_fft3d(
                 mesh, params, spec.shape, inverse=spec.inverse,
                 rad_z=None if spec.real else params.radix_z,
@@ -380,9 +433,48 @@ class Plan(torch.nn.Module):
             raise ValueError(f"{what} on {t.device}, plan on {self.device}")
         if t.dtype != dtype:
             raise TypeError(f"{what}: plan expects {dtype}, got {t.dtype}")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError("plans run forward only; autodiff "
-                                      "is ROADMAP Queue 1 item 3")
+
+    def _related(self, z_adjoint: bool = False, **changes) -> "Plan":
+        """The plan of this one's arguments with ``changes`` (an adjoint),
+        built on the first request and kept on this plan. It takes this
+        plan's params, or the cache and default point where those are
+        infeasible for it (the reference's ``_adj_plan``)."""
+        key = _frozen((changes, z_adjoint))
+        p = self._rel.get(key)
+        if p is None:
+            args = {**self._args, **changes}
+            try:
+                p = _build(**args, z_adjoint=z_adjoint)
+            except ValueError:
+                p = _build(**{**args, "params": None, "use_cache": True},
+                           z_adjoint=z_adjoint)
+            self._rel[key] = p
+        return p
+
+    def _batched(self) -> "Plan":
+        """This plan with one more batch dim (``vmap``'s), from the
+        one-shot cache; it does not run in place."""
+        kw = {k: v for k, v in self._args.items()
+              if k not in ("shape", "dtype", "inverse", "batch_dims",
+                           "device", "mesh", "params")}
+        kw.update(in_place=False, donate=False)
+        a = self._args
+        return _cached_plan(a["shape"], a["dtype"], a["inverse"],
+                            a["batch_dims"] + 1, a["device"], a["mesh"],
+                            a["params"], kw, z_adjoint=self.z_adjoint)
+
+    def _execute(self, xs):
+        """The transform of the calling convention's inputs ``xs`` (a
+        tuple), outside autograd; in place, the input tensors are
+        returned."""
+        if not self.planar and self._n_inputs == 2:
+            xs = to_planar(xs[0])
+        y = self._run(tuple(xs), self._tables())
+        if self.in_place:
+            return tuple(xs)
+        if self.planar or (self.spec.real and self.spec.inverse):
+            return y
+        return torch.complex(*y)
 
     def forward(self, x, x_imag=None):
         if self._n_inputs == 1:
@@ -398,11 +490,10 @@ class Plan(torch.nn.Module):
             xs = (x, x_imag)
         else:
             self._check(x, "input", self.complex_dtype)
-            xs = to_planar(x)
-        y = self._run(xs, self._tables())
-        if self.planar or (self.spec.real and self.spec.inverse):
-            return y
-        return torch.complex(*y)
+            xs = (x,)
+        if self.in_place or autodiff.tracked(xs):
+            return autodiff.function_of(self).apply(self, *xs)
+        return self._execute(xs)
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -442,12 +533,42 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     the real type ("float32" maps to complex64). ``packed=True`` (with
     ``planar=True``) selects the packed (..., Nz/2) layout, whose plane 0
     carries X[0] + i X[Nz/2]; convert with ``fused_fft.unpack_rfft3d`` /
-    ``pack_rfft3d``. A long last axis (``plan((1, 1, N))`` past the
-    2-stage ceiling) takes the four-step route; ``params.split_1d`` pins
-    its (n1, n2). Any other length (a prime factor past 128: Bluestein),
-    ``dtype="complex128"`` (``real=True`` with "float64": the fp64 route,
-    1e-12) and ``params.use_pallas=0`` take the unfused engine
-    (``kernels/stockham.py``) on that axis."""
+    ``pack_rfft3d``. A c2r plan in the numpy layout is exact on the
+    half-spectra of real signals. Off them, where the z = 0 or Nz/2 plane
+    inverted along x and y (G_0, G_M) is not real, it returns, as the
+    reference's plans do, irfft along z of G_0' = Re G_0 - Im G_M and
+    G_M' = Re G_M - Im G_0 (+ Im G_0 on the fused ``rfft3d`` route), where
+    ``torch.fft.irfftn`` drops Im G_0 and Im G_M. A long last axis
+    (``plan((1, 1, N))`` past the 2-stage ceiling) takes the four-step
+    route; ``params.split_1d`` pins its (n1, n2). Any other length (a
+    prime factor past 128: Bluestein), ``dtype="complex128"``
+    (``real=True`` with "float64": the fp64 route, 1e-12) and
+    ``params.use_pallas=0`` take the unfused engine
+    (``kernels/stockham.py``) on that axis.
+
+    ``donate=True`` gives the plan the caller's input tensors to use as
+    its scratch or output, as JAX's ``donate_argnums`` does: the caller
+    must not read them after the call. The planar c2c kernel route, which
+    has an in-place form, then runs it (as ``in_place=True``, and returns
+    the inputs); every other plan accepts ``donate`` and changes nothing.
+    ``in_place=True`` demands that form and raises where a plan has none.
+    A plan that writes its inputs marks them modified for autograd, which
+    refuses a leaf that requires grad."""
+    return _build(shape, dtype, mesh=mesh, real=real, inverse=inverse,
+                  batch_dims=batch_dims, params=params, use_cache=use_cache,
+                  planar=planar, norm=norm, batch_sharded=batch_sharded,
+                  packed=packed, donate=donate, in_place=in_place,
+                  device=device)
+
+
+def _build(shape, dtype="complex64", *, mesh=None, real=False,
+           inverse=False, batch_dims=0, params=None, use_cache=True,
+           planar=False, norm=None, batch_sharded=False, packed=False,
+           donate=False, in_place=False, device=None,
+           z_adjoint: bool = False) -> Plan:
+    """:func:`plan`; ``z_adjoint=True`` builds the adjoint of a mesh real
+    plan of the other direction (``plan/autodiff.py``), whose z stage is
+    that plan's transpose (``real_stage_fns``)."""
     if len(shape) != 3:
         raise ValueError(f"shape must be (Nx, Ny, Nz), got {shape}")
     if batch_sharded and (mesh is None or batch_dims < 1):
@@ -455,9 +576,6 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     if packed and (not real or not planar or batch_sharded):
         raise ValueError("packed layout requires real=True, planar=True "
                          "(and not batch_sharded)")
-    if donate:
-        raise NotImplementedError("donate= is ROADMAP Queue 1 item 2 "
-                                  "(in_place=True overwrites the inputs)")
     shape = tuple(int(n) for n in shape)
     if mesh is not None and not batch_sharded and shape[:2] == (1, 1):
         raise NotImplementedError("a (1, 1, N) plan on a mesh is the "
@@ -472,6 +590,7 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     if name not in ("complex64", "complex128"):
         raise ValueError(f"plans take complex64 or complex128 (real plans "
                          f"float32 or float64), got {name}")
+    given_mesh = mesh
     if mesh is not None:
         device = _mesh_device(mesh, device)
         p1, p2 = meshlib.mesh_shape(mesh)
@@ -527,8 +646,20 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
             raise ValueError("in_place needs a fusable (y,z) slab: "
                              f"ny*nz = {shape[1] * shape[2]} exceeds the "
                              "slab ceiling or an axis is not expressible")
-    return Plan(spec, params, batch_dims + 3, planar, scale, in_place,
-                device, packed=packed, route=route, mesh=mesh)
+    if z_adjoint and not (real and route == "pencil"):
+        raise ValueError("z_adjoint is the adjoint of a mesh real plan")
+    runs_in_place = in_place or (
+        donate and mesh is None and planar and route == "fft3d"
+        and (shape[0] == 1 or fused_fft.can_fuse_slab(
+            shape[1], shape[2], params.radix_y, params.radix_z)))
+    args = dict(shape=shape, dtype=name, mesh=given_mesh, real=real,
+                inverse=inverse, batch_dims=batch_dims, params=params,
+                use_cache=False, planar=planar, norm=norm,
+                batch_sharded=batch_sharded, packed=packed, donate=donate,
+                in_place=in_place, device=device)
+    return Plan(spec, params, batch_dims + 3, planar, scale, runs_in_place,
+                device, packed=packed, route=route, args=args, mesh=mesh,
+                z_adjoint=z_adjoint)
 
 
 def _global_shape(x, mesh, inverse: bool, shape) -> tuple:
@@ -584,22 +715,32 @@ def _one_shot_key(shape, dtype, inverse: bool, batch_dims: int, device,
             _frozen(params), _frozen(kw))
 
 
-def _one_shot(x, mesh, params, shape, inverse: bool, kw) -> Plan:
-    """The plan of a one-shot call, built once per call signature (the
-    reference's one-shot calls are cached the same way, by jit)."""
-    shape = _global_shape(x, mesh, inverse, shape)
-    key = _one_shot_key(shape, x.dtype, inverse, x.ndim - 3, x.device, mesh,
-                        params, kw)
+def _cached_plan(shape, dtype, inverse: bool, batch_dims: int, device,
+                 mesh, params, kw, z_adjoint: bool = False) -> Plan:
+    """The plan of a call signature (:func:`_one_shot_key`), built on its
+    first request and kept, the least recently used dropped past
+    ``_ONE_SHOT_MAX``."""
+    key = _one_shot_key(shape, dtype, inverse, batch_dims, device, mesh,
+                        params, {**kw, "z_adjoint": z_adjoint})
     p = _ONE_SHOT.get(key)
     if p is None:
-        p = plan(shape, x.dtype, mesh=mesh, params=params, inverse=inverse,
-                 batch_dims=x.ndim - 3, device=x.device, **kw)
+        p = _build(shape, dtype, mesh=mesh, params=params, inverse=inverse,
+                   batch_dims=batch_dims, device=device, z_adjoint=z_adjoint,
+                   **kw)
         _ONE_SHOT[key] = p
         if len(_ONE_SHOT) > _ONE_SHOT_MAX:
             _ONE_SHOT.popitem(last=False)
     else:
         _ONE_SHOT.move_to_end(key)
     return p
+
+
+def _one_shot(x, mesh, params, shape, inverse: bool, kw) -> Plan:
+    """The plan of a one-shot call, built once per call signature (the
+    reference's one-shot calls are cached the same way, by jit)."""
+    shape = _global_shape(x, mesh, inverse, shape)
+    return _cached_plan(shape, x.dtype, inverse, x.ndim - 3, x.device, mesh,
+                        params, kw)
 
 
 def fft3d(x, mesh=None, params=None, shape=None, **kw):
@@ -618,3 +759,96 @@ def ifft3d(x, mesh=None, params=None, shape=None, **kw):
     the result is this rank's z-pencil block. The plan is cached as
     :func:`fft3d`'s."""
     return _one_shot(x, mesh, params, shape, True, kw)(x)
+
+
+def rfft3d(x, mesh=None, params=None, shape=None, **kw):
+    """3-D r2c over the last three axes of a float32 (or float64) tensor:
+    the (..., Nx, Ny, Nz // 2 + 1) half-spectrum, complex (a planar pair
+    with ``planar=True``). Blocks on a mesh as :func:`fft3d`'s."""
+    return _one_shot(x, mesh, params, shape, False, {**kw, "real": True})(x)
+
+
+def irfft3d(x, nz: Optional[int] = None, mesh=None, params=None,
+            shape=None, **kw):
+    """3-D c2r over the last three axes of a complex half-spectrum: real
+    (..., Nx, Ny, nz), nz by default 2 * (L - 1) for L bins, as the
+    reference has it. On a mesh ``x`` is this rank's transposed-out block
+    and the global length needs ``nz`` (or ``shape``)."""
+    if shape is None:
+        shape = _c2r_shape(x, mesh, nz)
+    return _one_shot(x, mesh, params, shape, True, {**kw, "real": True})(x)
+
+
+def _c2r_shape(x, mesh, n) -> tuple:
+    """The global (Nx, Ny, n) of a c2r one-shot on the 3-D half-spectrum
+    ``x``: ``n`` by default 2 * (L - 1) for L bins, as the reference has
+    it; a mesh block does not give L, so there ``n`` is needed."""
+    if n is None:
+        if mesh is not None:
+            raise ValueError("a c2r one-shot on a mesh needs the global "
+                             "output length (n, nz or shape)")
+        n = 2 * (x.shape[-1] - 1)
+    return _global_shape(x, mesh, True, None)[:2] + (n,)
+
+
+# ---- 2-D transforms: a (1, Y, N) plan, the x axis of length one. On a
+# make_mesh(1, p) mesh the pencil engine's row group has one rank, so the
+# one exchange is z <-> y over col, and the result comes back z-split
+# (the transposed-out layout): the reference's METHOD-ONE analogue
+# (offt_tpu/plan/api.py:666-690)
+
+def _lift(x):
+    """(..., Y, N) as (..., 1, Y, N)."""
+    return x.reshape(x.shape[:-2] + (1,) + x.shape[-2:])
+
+
+def _drop(y, lead: tuple):
+    """(..., 1, Y, N) results (a tensor or a planar pair) as (..., Y, N)."""
+    if isinstance(y, tuple):
+        return tuple(_drop(t, lead) for t in y)
+    return y.reshape(lead + y.shape[-2:])
+
+
+def _shape3(shape) -> Optional[tuple]:
+    return None if shape is None else (1,) + tuple(shape)
+
+
+def fft2d(x, params=None, mesh=None, shape=None, **kw):
+    """2-D c2c over the last two axes; leading axes are batch. Single
+    device: the 2-D route of the slab and row kernels. On a
+    ``make_mesh(1, p)`` mesh ``x`` is this rank's block of the y-split
+    rows and ``shape`` the global (Y, N) (default: equal blocks); the
+    result is this rank's block of the z-split (transposed-out) layout."""
+    x3 = _lift(x)
+    p = _one_shot(x3, mesh, params, _shape3(shape), False, kw)
+    return _drop(p(x3), x.shape[:-2])
+
+
+def ifft2d(x, params=None, mesh=None, shape=None, **kw):
+    """Inverse 2-D c2c over the last two axes; on a mesh the mirror of
+    :func:`fft2d`: a z-split block in, a y-split block out."""
+    x3 = _lift(x)
+    p = _one_shot(x3, mesh, params, _shape3(shape), True, kw)
+    return _drop(p(x3), x.shape[:-2])
+
+
+def rfft2d(x, params=None, mesh=None, shape=None, **kw):
+    """2-D r2c over the last two axes: real (..., Y, N) to the complex
+    (..., Y, N // 2 + 1) numpy rfft2 layout (a planar pair with
+    ``planar=True``; ``packed=True`` the (..., Y, N // 2) packed one).
+    Distributed as :func:`fft2d`."""
+    x3 = _lift(x)
+    p = _one_shot(x3, mesh, params, _shape3(shape), False,
+                  {**kw, "real": True})
+    return _drop(p(x3), x.shape[:-2])
+
+
+def irfft2d(x, n: Optional[int] = None, params=None, mesh=None, shape=None,
+            **kw):
+    """2-D c2r over the last two axes, the inverse of :func:`rfft2d`:
+    real (..., Y, n), n by default 2 * (L - 1) for L bins. On a mesh the
+    global length needs ``n`` (or ``shape``)."""
+    x3 = _lift(x)
+    shape3 = _c2r_shape(x3, mesh, n) if shape is None else _shape3(shape)
+    p = _one_shot(x3, mesh, params, shape3, True, {**kw, "real": True})
+    return _drop(p(x3), x.shape[:-2])

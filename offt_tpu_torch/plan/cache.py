@@ -7,6 +7,13 @@ shape and device kind, where the device kind is
 ``torch.cuda.get_device_name()`` on the card ("cpu" on the host). The
 reference's bundled ``tuned_defaults.json`` holds TPU device kinds only,
 so the port ships none: a GPU key has no bundled hit.
+
+Wisdom (FFTW's export/import, as the reference has it): ``export_wisdom``
+writes the local cache to a file, ``import_wisdom`` merges one in, the
+better measured time winning per key. A file exported by the reference
+imports as it is; its keys name TPU device kinds, so no lookup on a card
+or on the host ever matches them. ``python -m offt_tpu_torch.plan.cache
+list|export FILE|import FILE|clear`` does the same from a shell.
 """
 
 from __future__ import annotations
@@ -96,14 +103,9 @@ def lookup(key: str) -> Optional[PlanParams]:
         return None
 
 
-def store(key: str, params: PlanParams, perf: float | None = None) -> None:
-    """Record ``params`` under ``key``, keeping a better-perf entry."""
-    db = _load()
-    old = db.get(key)
-    if old is not None and perf is not None and old.get("perf") is not None:
-        if old["perf"] <= perf:
-            return
-    db[key] = {"params": _params_to_json(params), "perf": perf}
+def _write(db: dict) -> None:
+    """Replace the cache file with ``db`` in one atomic rename, so that
+    concurrent writers never leave a torn file."""
     d = cache_dir()
     d.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
@@ -116,3 +118,91 @@ def store(key: str, params: PlanParams, perf: float | None = None) -> None:
             os.unlink(tmp)
         except OSError:
             pass
+
+
+def store(key: str, params: PlanParams, perf: float | None = None) -> None:
+    """Record ``params`` under ``key``, keeping a better-perf entry."""
+    db = _load()
+    old = db.get(key)
+    if old is not None and perf is not None and old.get("perf") is not None:
+        if old["perf"] <= perf:
+            return
+    db[key] = {"params": _params_to_json(params), "perf": perf}
+    _write(db)
+
+
+def clear() -> None:
+    """Delete the local cache file."""
+    try:
+        _cache_file().unlink()
+    except FileNotFoundError:
+        pass
+
+
+def export_wisdom(path) -> int:
+    """Write the local cache to ``path``; returns its number of entries."""
+    db = _load()
+    pathlib.Path(path).write_text(json.dumps(db, indent=1, sort_keys=True))
+    return len(db)
+
+
+def import_wisdom(path) -> int:
+    """Merge the entries of ``path`` into the local cache in one write;
+    returns the number applied. An entry whose params do not parse is
+    skipped; one that would replace a local entry must carry a better
+    (smaller) measured time, so an entry without one only fills a missing
+    key."""
+    incoming = json.loads(pathlib.Path(path).read_text())
+    db = _load()
+    n = 0
+    for key, rec in incoming.items():
+        try:
+            _params_from_json(rec["params"])
+        except (KeyError, TypeError):
+            continue
+        old = db.get(key)
+        if old is not None:
+            new_perf = rec.get("perf")
+            if new_perf is None or (old.get("perf") is not None
+                                    and old["perf"] <= new_perf):
+                continue
+        db[key] = {"params": rec["params"], "perf": rec.get("perf")}
+        n += 1
+    if n:
+        _write(db)
+    return n
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m offt_tpu_torch.plan.cache",
+        description="tuned-plan cache (wisdom) maintenance")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    sub.add_parser("list", help="print the cache's entries")
+    pe = sub.add_parser("export", help="write the cache to FILE")
+    pe.add_argument("file")
+    pi = sub.add_parser("import", help="merge FILE into the cache")
+    pi.add_argument("file")
+    sub.add_parser("clear", help="delete the cache")
+    ns = ap.parse_args(argv)
+    if ns.cmd == "list":
+        db = _load()
+        for k, rec in sorted(db.items()):
+            perf = rec.get("perf")
+            perf_s = f"{perf * 1e3:.3f} ms" if perf else "-"
+            print(f"local    {k}  perf={perf_s}")
+        print(f"# {len(db)} local ({_cache_file()}), no bundled entries")
+    elif ns.cmd == "export":
+        print(f"exported {export_wisdom(ns.file)} entries -> {ns.file}")
+    elif ns.cmd == "import":
+        print(f"imported {import_wisdom(ns.file)} entries")
+    elif ns.cmd == "clear":
+        clear()
+        print("cleared", _cache_file())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

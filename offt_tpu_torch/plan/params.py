@@ -117,9 +117,35 @@ class ProblemSpec:
         return self.shape[2] // 2 + 1 if self.real else self.shape[2]
 
 
+def w_from_reference(W: int, unbounded: bool = False) -> int:
+    """A reference W1/W2 window (offt.h:78-79) as the ``w`` knob. The two
+    are off by one: W counts the exchanges issued ahead of the chunk being
+    completed (W = 0 is the blocking exchange), ``w`` caps the chunk
+    exchanges in flight, the completing one included (``w = 0``: no cap).
+    So ``w = W + 1``: W = 0 gives 1, the reference paper's W = 2 gives 3,
+    ``unbounded`` gives 0."""
+    if unbounded:
+        return 0
+    if W < 0:
+        raise ValueError(f"reference W must be >= 0, got {W}")
+    return int(W) + 1
+
+
 def divisors(n: int) -> list[int]:
     ds = [d for d in range(1, int(math.isqrt(n)) + 1) if n % d == 0]
     return sorted(set(ds + [n // d for d in ds]))
+
+
+def pow2_grid(lo: int, hi: int, include_zero: bool = False) -> list[int]:
+    """The reference's power-of-two value ladders, lo to hi with hi always
+    in (offt-compute.c:3042-3079)."""
+    vals = [0] if include_zero else []
+    v = max(lo, 1)
+    while v < hi:
+        vals.append(v)
+        v *= 2
+    vals.append(hi)
+    return sorted(set(vals))
 
 
 def p1_candidates(nx: int, ny: int, nz: int, p: int) -> list[int]:
@@ -275,3 +301,6 @@ def infeasible_reason(spec: ProblemSpec,
             return f"x_tile {params.x_tile} illegal for ({ny},{lanes})"
     return None
 
+
+def is_feasible(spec: ProblemSpec, params: PlanParams) -> bool:
+    return infeasible_reason(spec, params) is None

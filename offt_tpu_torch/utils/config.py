@@ -1,8 +1,9 @@
 """Layered configuration: defaults < config file < environment < kwargs.
 
-Port of ``offt_tpu/utils/config.py`` carrying only the keys the planar
-c2c slice reads (``precision``, ``use_pallas``, ``cache_dir``). The file
-is JSON at $OFFT_TPU_TORCH_CONFIG (default
+Port of ``offt_tpu/utils/config.py`` carrying only the keys the port
+reads (``precision``, ``use_pallas``, ``cache_dir``); the tuner's keys
+come with the tuner (ROADMAP Queue 1). The file is JSON at
+$OFFT_TPU_TORCH_CONFIG (default
 ~/.config/offt_tpu_torch/config.json); any key can be overridden by an
 OFFT_TPU_TORCH_<KEY> environment variable.
 """
@@ -60,3 +61,9 @@ def get(key: str, default: Any = None, **overrides) -> Any:
     if fromfile is not None:
         return fromfile
     return DEFAULTS.get(key, default)
+
+
+def snapshot(**overrides) -> dict[str, Any]:
+    """Every key resolved through the layers (for logs and
+    reproducibility)."""
+    return {k: get(k, **overrides) for k in DEFAULTS}

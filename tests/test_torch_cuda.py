@@ -1118,3 +1118,120 @@ def test_cuda_long_lines_route_by_length(cuda_dev, n, radices):
     want = ff.fft_last.plain(*x, radices=radices, scale=0.5)
     for g, w in zip(got, want):
         assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+
+
+# ---- gradients through the plans: the backward path ------------------------
+
+GRAD_PLANS = [
+    # (shape, dtype, plan keywords)
+    ((16, 32, 128), "complex64", {"planar": True, "norm": "ortho"}),
+    ((16, 32, 128), "complex64", {"inverse": True}),
+    ((1, 1, 2 ** 15), "complex64", {"planar": True}),
+    ((8, 16, 256), "float32", {"real": True, "planar": True}),
+    ((8, 16, 256), "float32", {"real": True, "planar": True,
+                               "packed": True}),
+    ((8, 16, 256), "float32", {"real": True, "planar": True,
+                               "inverse": True}),
+    ((8, 16, 256), "float32", {"real": True, "planar": True,
+                               "inverse": True, "packed": True}),
+    ((8, 8, 96), "float32", {"real": True, "inverse": True}),
+    ((8, 8, 27), "float32", {"real": True, "inverse": True}),
+]
+
+
+def _grad_inputs(p, dev, seed):
+    """Random inputs of a plan's calling convention on ``dev`` (a c2r's
+    need not be Hermitian: its vjp is exact on every input)."""
+    shp = p.in_shape
+    if p.spec.real and not p.spec.inverse:
+        return [_pair(shp, dev, seed)[0]]
+    xs = list(_pair(shp, dev, seed))
+    return xs if p.planar else [torch.complex(*xs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,kw", GRAD_PLANS)
+def test_cuda_plan_gradient_matches_the_cpu_plan(cuda_dev, shape, dtype, kw):
+    """The vjp of a random cotangent through a plan on the card, against
+    the same plan on the CPU (the kernels' plain versions, the same
+    rules): the backward ran kernels only."""
+    grads = []
+    for dev in (cuda_dev, torch.device("cpu")):
+        p = ot.plan(shape, dtype, device=dev, **kw)
+        xs = [t.to(dev).requires_grad_() for t in _grad_inputs(p, cuda_dev,
+                                                                 11)]
+        y = p(*xs)
+        ys = y if isinstance(y, tuple) else (y,)
+        cts = [torch.randn(t.shape, dtype=t.dtype,
+                           generator=torch.Generator().manual_seed(12 + i))
+               .to(dev) for i, t in enumerate(ys)]
+        ff.reset_counts()
+        g = torch.autograd.grad(ys, xs, cts)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert sum(c[1] for c in ff.counts().values()) == 0
+            assert sum(c[0] for c in ff.counts().values()) > 0
+        grads.append([t.cpu() for t in g])
+    for a, b in zip(*grads):
+        assert _rel(a.to(b.dtype), b) < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_jvp_vmap_and_grad_of_grad(cuda_dev):
+    p = ot.plan((16, 32, 128), "complex64", planar=True, device=cuda_dev)
+    x = _pair((16, 32, 128), cuda_dev, 13)
+    t = _pair((16, 32, 128), cuda_dev, 14)
+    _, (tr, ti) = torch.func.jvp(lambda a, b: p(a, b), x, t)
+    want = torch.fft.fftn(torch.complex(t[0].double(), t[1].double()))
+    assert _rel(torch.complex(tr.double(), ti.double()), want) < 1e-6
+    xb = _pair((3, 16, 32, 128), cuda_dev, 15)
+    yr, yi = torch.func.vmap(lambda a, b: p(a, b))(*xb)
+    want = torch.fft.fftn(torch.complex(xb[0].double(), xb[1].double()),
+                          dim=(-3, -2, -1))
+    assert _rel(torch.complex(yr.double(), yi.double()), want) < 1e-6
+    pc = ot.plan((16, 32, 128), "complex64", device=cuda_dev)
+    z = torch.complex(*x).requires_grad_()
+    g, = torch.autograd.grad(pc(z).abs().pow(2).sum(), z, create_graph=True)
+    h, = torch.autograd.grad(g.abs().pow(2).sum(), z)
+    z2 = z.detach().to(torch.complex128).requires_grad_()
+    g2, = torch.autograd.grad(torch.fft.fftn(z2).abs().pow(2).sum(), z2,
+                              create_graph=True)
+    h2, = torch.autograd.grad(g2.abs().pow(2).sum(), z2)
+    assert _rel(h.to(torch.complex128), h2) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["in_place", "donate"])
+def test_cuda_in_place_under_autograd(cuda_dev, how):
+    p = ot.plan((16, 32, 128), "complex64", planar=True, device=cuda_dev,
+                **{how: True})
+    a, b = (t.requires_grad_() for t in _pair((16, 32, 128), cuda_dev, 16))
+    with pytest.raises(RuntimeError, match="leaf Variable"):
+        p(a, b)
+    a2, b2 = a * 1.0, b * 1.0
+    yr, yi = p(a2, b2)
+    assert yr is a2
+    ga, gb = torch.autograd.grad(yr.pow(2).sum() + yi.sum(), (a, b))
+    z = torch.complex(a.detach().double(), b.detach().double())
+    z.requires_grad_()
+    y = torch.fft.fftn(z)
+    gz, = torch.autograd.grad(y.real.pow(2).sum() + y.imag.sum(), z)
+    assert _rel(torch.complex(ga.double(), gb.double()), gz) < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_mesh_gradients(nccl_world):
+    mesh = ot.make_mesh(1, 1)
+    shape = (16, 32, 256)
+    pf = ot.plan(shape, "float32", mesh=mesh, real=True, planar=True,
+                 packed=True)
+    pi = ot.plan(shape, "float32", mesh=mesh, real=True, inverse=True,
+                 planar=True, packed=True)
+    x = _pair(shape, nccl_world, 17)[0].requires_grad_()
+    ff.reset_counts()
+    yr, yi = pf(x)
+    out = pi(yr, yi)
+    g, = torch.autograd.grad(out.pow(2).sum(), x)
+    torch.cuda.synchronize()
+    assert sum(c[1] for c in ff.counts().values()) == 0
+    assert _rel(g.double(), 2 * x.detach().double()) < 1e-6  # c2r(r2c) = I

@@ -214,11 +214,25 @@ def test_non_tensors_go_to_the_card(rng):
 
 
 def test_grad_through_npfft_raises():
-    # the reference's namespace rides its differentiable plans; the
-    # port's plans run forward only (autodiff is ROADMAP Queue 1 item 3)
+    # the name is kept from when the port's plans ran forward only: the
+    # namespace now differentiates through its plans' adjoints, as the
+    # reference's rides its differentiable plans; the gradient of a real
+    # loss matches torch.fft's
     x = torch.randn(8, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        F.rfft(x)
+    w = torch.randn(8, 9)
+    y = F.rfft(x)
+    assert type(y.grad_fn).__name__ != "NoneType" and y.shape == (8, 9)
+    g, = torch.autograd.grad((w * y.abs().pow(2)).sum(), x)
+    x2 = x.detach().double().requires_grad_()
+    g2, = torch.autograd.grad((w.double() * torch.fft.rfft(x2).abs().pow(2))
+                              .sum(), x2)
+    assert torch.linalg.norm(g - g2) / torch.linalg.norm(g2) < 1e-6
+    z = torch.randn(4, 6, 10, dtype=torch.complex128, requires_grad=True)
+    g, = torch.autograd.grad(F.irfftn(z, s=(4, 6, 18)).pow(2).sum(), z)
+    z2 = z.detach().requires_grad_()
+    g2, = torch.autograd.grad(torch.fft.irfftn(z2, s=(4, 6, 18)).pow(2)
+                              .sum(), z2)
+    assert torch.linalg.norm(g - g2) / torch.linalg.norm(g2) < 1e-12
     with torch.no_grad():
         assert F.rfft(x).shape == (8, 9)
 

@@ -170,9 +170,11 @@ def test_plan_is_a_module_with_table_buffers():
     assert p.device == torch.device("cpu")
     with pytest.raises(ValueError):
         p((torch.zeros(16, 32, 64), torch.zeros(16, 32, 64)))
-    with pytest.raises(NotImplementedError):
-        p(torch.zeros(16, 32, 128, requires_grad=True),
-          torch.zeros(16, 32, 128))
+    # a tensor that requires grad runs the plan's autograd Function (it
+    # raised while plans ran forward only; tests/test_torch_autodiff.py)
+    yr, yi = p(torch.zeros(16, 32, 128, requires_grad=True),
+               torch.zeros(16, 32, 128))
+    assert type(yr.grad_fn).__name__ == "C2CPlanarBackward"
 
 
 def test_plan_refuses_what_is_not_ported():
@@ -182,8 +184,13 @@ def test_plan_refuses_what_is_not_ported():
     # group, and batch_sharded needs a mesh. use_pallas=0, complex128 and
     # a prime past 128 take the unfused engine on the axis-by-axis route
     # (tests/test_torch_stockham.py)
-    with pytest.raises(NotImplementedError):
-        ot.plan((8, 8, 8), "complex64", device="cpu", donate=True)
+    # donate=True is accepted (it raised before): a plan without an
+    # in-place form changes nothing; the planar c2c kernel route runs in
+    # place (tests/test_torch_autodiff.py)
+    assert not ot.plan((8, 8, 8), "complex64", device="cpu",
+                       donate=True).in_place
+    assert ot.plan((8, 8, 8), "complex64", device="cpu", planar=True,
+                   donate=True).in_place
     assert ot.plan((8, 8, 8), "complex64", device="cpu",
                    params=PlanParams(use_pallas=0)).route == "local"
     with pytest.raises(RuntimeError, match="process group"):
@@ -257,17 +264,18 @@ def test_dry_run_registers_every_table(shape, dtype, kw):
 
 @pytest.fixture
 def plan_builds(monkeypatch):
-    """The one-shot cache emptied, and a list that records every plan()
-    call the one-shot entry points make."""
+    """The one-shot cache emptied, and a list that records every plan
+    the one-shot entry points build (through ``api._build``, plan()'s
+    body)."""
     from offt_tpu_torch.plan import api
     monkeypatch.setattr(api, "_ONE_SHOT", type(api._ONE_SHOT)())
     calls = []
-    build = api.plan
+    build = api._build
 
     def counting(shape, dtype, **kw):
         calls.append((tuple(shape), kw.get("norm"), kw["device"]))
         return build(shape, dtype, **kw)
-    monkeypatch.setattr(api, "plan", counting)
+    monkeypatch.setattr(api, "_build", counting)
     return calls
 
 
