@@ -23,7 +23,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the mixed lengths: the 320^3 x pass, 192^3's axes, a 768 column)
    and the four-step pair (``step1_twiddle``, ``step3_transposed``: the
    long 1-D splits of 2^20, 8 x 2^20, 2^22 and 2^24, the inner 2^21 of
-   3g's prime, few lanes at n1 = 4096,
+   3g's prime, one rank's shard of 2^24 and of 2^20 on a 2 x 2 mesh
+   (step 1 on (1, n1, n2/4) with the rank's twiddle chunk, step 3 on
+   (1, n1/4, n2)), few lanes at n1 = 4096,
    few rows at n2 = 4096, inverse, a caller's table, the mixed splits of
    3 * 2^18) and the cube (``fft_cube``: 8 x 128^3, 4 x 64^2 x 128, a
    short x (3 x 8 x 16 x 256; x of 3 and 12, on the table's roots; x of
@@ -82,6 +84,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       the half-spectra of real signals, ``_c2r_edges``). Each backward
       runs with the launch counters zeroed just before and read just
       after;
+   i. the distributed long-1-D engine (``dist/long1d.py``) in 3e's world
+      of one rank: through ``_split=`` (at P = 1 no ``plan()`` reaches
+      it; its exchanges and mirror hops are groups of one) c2c 2^24
+      forward and inverse, an ortho round trip at 2^20, the packed r2c
+      and c2r of a real 2^24; the adjoints autodiff builds for its route
+      at 2^24 (c2c, packed r2c), held by the transpose identity
+      <F x, y> = <x, F^H y> (1e-6 of |F x| |y|); ``plan((1, 1, 2^24),
+      mesh=...)`` on the pencil route, as the reference routes it; and
+      the namespace under ``use_mesh(make_mesh(1, 1))``: ``fft`` of
+      2^22, ``fftn``, ``rfftn``, ``irfftn`` of 256^3;
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did; the register core ran ``fft_last`` on 3a (its one
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
@@ -96,7 +108,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    dense on the 768 side of 3 * 2^18) and throughout 3d and 3g, and the
    register cube on every cube of 3f; every backward of 3h ran the
    kernels of its adjoint route and no plain version, those at 256^3 on
-   the register core (``fft_slab``, ``rfft_slab``, ``fft_axis``);
+   the register core (``fft_slab``, ``rfft_slab``, ``fft_axis``); every
+   engine call of 3i (six forward, two adjoints) ran the four-step pair
+   once on the register core, and 3i's namespace and pencil cases their
+   kernels;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, there each kernel of the
    four-step pair on both cores with its bound and TB/s, and the pair's
@@ -148,7 +163,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    backward alone and both of 3h's loss at 256^3 c2c, r2c and c2r and the
    FNO step at 4 x 128^3, each beside the same through ``torch.fft``
    autograd on complex64 (cuFFT), and the ``torch.profiler`` breakdown
-   of one 256^3 c2c backward.
+   of one 256^3 c2c backward; the long-1-D engine at P = 1 against the
+   single-device plan and ``torch.fft.fft`` at 2^20 and 2^24 (with its
+   ``torch.profiler`` busy share), the pair at a 2 x 2 rank's shard
+   shapes with their bounds and TB/s, and the per-stage breakdowns
+   ``obs/profile.fft3d_breakdown`` and ``pencil_breakdown`` (on the
+   1 x 1 mesh) of 256^3 c2c.
 
 The line before the last is one JSON object with each kernel's numbers:
 its launches on the main paths, its error, its time and the library
@@ -834,6 +854,236 @@ def grad_times(ot, gen, show, show_breakdown, time_cuda) -> None:
           f"{rows[1]:.4f} ms ({rows[0] / rows[1]:.2f}x)", flush=True)
 
 
+# ---- 3i: the long-1-D engine and the namespace on a mesh ------------------
+
+# the lengths of phase 3i: the engine's full size and its round trip's
+LONG1D_N = (2 ** 24, 2 ** 20)
+ENGINE_CALLS = 6    # engine calls in 3i's engine window, each one pair
+
+
+def _ip(a, b) -> float:
+    """<a, b> over planar leaves (a tuple of tensors), in float64."""
+    return float(sum((u.double() * v.double()).sum() for u, v in zip(a, b)))
+
+
+def _norm(a) -> float:
+    return math.sqrt(sum(float((u.double() ** 2).sum()) for u in a))
+
+
+def long1d_phase(ot, ff, fs, long1d, plan_api, gen, mesh, window,
+                 tag) -> dict:
+    """Phase 3i in the world of one NCCL rank that 3e made: the
+    distributed long-1-D engine at P = 1 through ``_split=`` (its three
+    exchanges and the mirror's hops groups of one, the rest of its
+    dataflow as on P ranks): c2c 2^24 forward and inverse, an ortho round
+    trip at 2^20, the packed r2c and c2r of a real 2^24; the adjoints
+    autodiff builds for the "long1d" route (a plan on the engine through
+    ``api._build(long1d_split=)``: the c2c's flipped plan, the packed
+    r2c's packed c2r) at 2^24, held by the transpose identity; then
+    ``plan((1, 1, 2^24), mesh=...)``, which takes the pencil engine on
+    one rank as the reference's does, and the namespace under
+    ``use_mesh(mesh)``: ``fft`` of 2^22, ``fftn``, ``rfftn`` and
+    ``irfftn`` of 256^3. Each result against complex128 ``torch.fft``
+    (1e-6). Returns the three counter windows."""
+    big, small = LONG1D_N
+    prm = ot.PlanParams(p1=1, use_pallas=1)
+
+    def engine(n, real, inverse, norm=None):
+        make = long1d.make_dist_rfft1d if real else long1d.make_dist_fft1d
+        e = make(mesh, n, prm, inverse,
+                 out_scale=plan_api._norm_scale(norm, inverse, n),
+                 _split=fs.pick_split(n // 2 if real else n))
+        if e is None or not e.fused:
+            raise AssertionError(f"no fused engine at n = {n}")
+        return e
+    e_f, e_i = engine(big, False, False), engine(big, False, True)
+    e_fo, e_io = engine(small, False, False, "ortho"), \
+        engine(small, False, True, "ortho")
+    e_r, e_c = engine(big, True, False), engine(big, True, True)
+    x24 = _pair((1, 1, big), gen)
+    x20 = _pair((1, 1, small), gen)
+    r24 = torch.randn((1, 1, big), generator=gen, device="cuda")
+
+    def run_engine():
+        out = {"c2c 2^24 fwd": e_f(x24), "c2c 2^24 inv": e_i(x24),
+               "c2c 2^20 fwd ortho": e_fo(x20)}
+        out["c2c 2^20 ortho round trip"] = e_io(out["c2c 2^20 fwd ortho"])
+        out["r2c 2^24 packed"] = e_r((r24,))
+        out["c2r 2^24 packed"] = e_c(out["r2c 2^24 packed"])
+        return out
+    res, run_e = window(run_engine)
+    print(f"long-1-D engine counts (launches, plain calls): {run_e[0]}")
+    z24 = torch.complex(x24[0].double(), x24[1].double())
+    z20 = torch.complex(x20[0].double(), x20[1].double())
+    w = torch.fft.rfft(r24.double())
+    m = big // 2
+    want = {"c2c 2^24 fwd": torch.fft.fft(z24),
+            "c2c 2^24 inv": torch.fft.ifft(z24),
+            "c2c 2^20 fwd ortho": torch.fft.fft(z20, norm="ortho"),
+            "c2c 2^20 ortho round trip": z20,
+            # packed bin 0 = DC + i Nyquist
+            "r2c 2^24 packed": torch.cat([torch.complex(
+                w[..., :1].real, w[..., m:].real), w[..., 1:m]], -1),
+            "c2r 2^24 packed": r24.double()}
+    for label, ref in want.items():
+        y = res[label]
+        err = _rel_err(*y, ref) if len(y) == 2 else _rel_err(y[0], None,
+                                                             ref)
+        split = (e_r if "packed" in label else
+                 e_f if "2^24" in label else e_fo).split
+        print(f"path long-1-D engine P=1 {label} (split {split}): rel err "
+              f"vs complex128 torch.fft {err:.3e} (tol {TOL_PATH:g}) {tag}",
+              flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"engine {label}: error {err:.3e}")
+    del res, want, z24, z20, w
+
+    # the adjoints of plans on the engine: each backward in its window
+    pc = plan_api._build((1, 1, big), "complex64", mesh=mesh, planar=True,
+                         long1d_split=fs.pick_split(big))
+    pr = plan_api._build((1, 1, big), "float32", mesh=mesh, real=True,
+                         packed=True, planar=True,
+                         long1d_split=fs.pick_split(m))
+    if not pc.route == pr.route == "long1d":
+        raise AssertionError(f"routes {pc.route}, {pr.route}")
+    ins_c = tuple(t.clone().requires_grad_() for t in x24)
+    ins_r = (r24.clone().requires_grad_(),)
+    y_c, y_r = pc(*ins_c), pr(*ins_r)
+    g_c, g_r = _pair((1, 1, big), gen), _pair((1, 1, m), gen)
+
+    def run_adjoint():
+        return (torch.autograd.grad(y_c, ins_c, g_c),
+                torch.autograd.grad(y_r, ins_r, g_r))
+    (a_c, a_r), run_a = window(run_adjoint)
+    print(f"long-1-D adjoint counts (launches, plain calls): {run_a[0]} "
+          f"(grad_fn {type(y_c[0].grad_fn).__name__}, "
+          f"{type(y_r[0].grad_fn).__name__})")
+    for label, y, g, x, a in (("c2c 2^24", y_c, g_c, ins_c, a_c),
+                              ("packed r2c 2^24", y_r, g_r, ins_r, a_r)):
+        y = tuple(t.detach() for t in y)
+        x = tuple(t.detach() for t in x)
+        lhs, rhs = _ip(y, g), _ip(x, a)
+        err = abs(lhs - rhs) / (_norm(y) * _norm(g))
+        print(f"path long-1-D adjoint P=1 {label}: <F x, y> {lhs:.6e}, "
+              f"<x, F^H y> {rhs:.6e}, difference over |F x| |y| "
+              f"{err:.3e} (tol {TOL_PATH:g}) {tag}", flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"adjoint {label}: error {err:.3e}")
+    del ins_c, ins_r, y_c, y_r, g_c, g_r, a_c, a_r, pc, pr
+    torch.cuda.empty_cache()
+
+    # the pencil route of a (1, 1, N) plan on one rank, and the namespace
+    p24 = ot.plan((1, 1, big), "complex64", mesh=mesh, planar=True)
+    print(f"plan((1, 1, 2^24), mesh=make_mesh(1, 1)): route {p24.route}")
+    if p24.route != "pencil":
+        raise AssertionError(f"(1, 1, 2^24) on one rank: {p24.route}")
+    ns = {"fft 2^22": torch.complex(*_pair((2 ** 22,), gen)),
+          "fftn 256^3": torch.complex(*_pair((256,) * 3, gen)),
+          "rfftn 256^3": torch.randn((256,) * 3, generator=gen,
+                                     device="cuda")}
+    ns["irfftn 256^3"] = torch.fft.rfftn(ns["rfftn 256^3"].double()).to(
+        torch.complex64)
+    calls = {"fft 2^22": (ot.fft.fft, torch.fft.fft),
+             "fftn 256^3": (ot.fft.fftn, torch.fft.fftn),
+             "rfftn 256^3": (ot.fft.rfftn, torch.fft.rfftn),
+             "irfftn 256^3": (ot.fft.irfftn, torch.fft.irfftn)}
+
+    def run_mesh_ns():
+        out = {"plan (1, 1, 2^24) pencil": p24(*x24)}
+        with ot.fft.use_mesh(mesh):
+            for label, (fn, _) in calls.items():
+                out[label] = fn(ns[label])
+        return out
+    res, run_m = window(run_mesh_ns)
+    if ot.fft.current_mesh() is not None:
+        raise AssertionError("use_mesh left a mesh behind")
+    print(f"namespace on the mesh counts (launches, plain calls): "
+          f"{run_m[0]}")
+    err = _rel_err(*res.pop("plan (1, 1, 2^24) pencil"),
+                   torch.fft.fft(torch.complex(x24[0].double(),
+                                               x24[1].double())))
+    print(f"path mesh 1x1 plan (1, 1, 2^24) (pencil): rel err vs complex128 "
+          f"fft {err:.3e} (tol {TOL_PATH:g}) {tag}", flush=True)
+    if err > TOL_PATH:
+        raise AssertionError(f"(1, 1, 2^24) pencil: error {err:.3e}")
+    for label, (fn, twin) in calls.items():
+        x = ns[label]
+        ref = twin(x.double() if not x.is_complex()
+                   else x.to(torch.complex128))
+        got = res[label]
+        if tuple(got.shape) != tuple(ref.shape):
+            raise AssertionError(f"use_mesh {label}: {tuple(got.shape)}")
+        err = _rel_err(got, None, ref)
+        print(f"path use_mesh(make_mesh(1, 1)) {label}: rel err vs "
+              f"complex128 torch.fft {err:.3e} (tol {TOL_PATH:g}) {tag}",
+              flush=True)
+        if err > TOL_PATH:
+            raise AssertionError(f"use_mesh {label}: error {err:.3e}")
+    return {"long1d_engine": run_e, "long1d_adjoint": run_a,
+            "mesh_namespace": run_m}
+
+
+def long1d_times(ot, fs, tb, long1d, gen, mesh, show, show_breakdown,
+                 time_cuda, fft3d_breakdown, pencil_breakdown, tag) -> None:
+    """Phase 5's long-1-D part: the engine at P = 1 against the
+    single-device plan and torch.fft.fft (the difference is the engine's
+    own glue: the reshapes, the exchanges' stacking, the chunked table),
+    with its busy share; the pair at the shard shapes of a 2 x 2 mesh
+    (what one rank of four computes), each with its bound and TB/s; and
+    the per-stage breakdowns of 256^3 on one device and on the 1 x 1
+    mesh."""
+    prm = ot.PlanParams(p1=1, use_pallas=1)
+    for n in LONG1D_N[::-1]:
+        label = f"2^{n.bit_length() - 1}"
+        x = _pair((1, 1, n), gen)
+        xc = torch.complex(*x)
+        e = long1d.make_dist_fft1d(mesh, n, prm, False,
+                                   _split=fs.pick_split(n))
+        p1d = ot.plan((1, 1, n), "complex64", planar=True)
+        r_e = time_cuda(e, (x,))
+        r_p = time_cuda(p1d, (x,))
+        r_c = time_cuda(torch.fft.fft, (xc,))
+        show(f"long-1-D engine P=1 fft {label}", r_e,
+             f", {r_e['median_ms'] / r_p['median_ms']:.2f}x the "
+             f"single-device plan, {r_e['median_ms'] / r_c['median_ms']:.2f}"
+             "x torch.fft.fft")
+        show(f"single-device plan fft {label} (route {p1d.route})", r_p)
+        show(f"torch.fft.fft (cuFFT) c64 {label}", r_c)
+        show_breakdown(f"long-1-D engine P=1 fft {label}", e, (x,))
+        del x, xc, e, p1d
+        torch.cuda.empty_cache()
+    # the pair at one rank's shard of a 2 x 2 mesh (rank 1's columns)
+    for n1, n2 in ((4096, 4096), (1024, 1024)):
+        ptot = 4
+        w = n2 // ptot
+        tw = torch.from_numpy(tb.fourstep_twiddle_chunk(
+            n1, n2, w, 2 * w, False).copy()).cuda()
+        x1 = _pair((1, n1, w), gen)
+        x3 = _pair((1, n1 // ptot, n2), gen)
+        for what, fn, args, shape in (
+                ("step1_twiddle", fs.step12_planar,
+                 (*x1, None, False, "highest", tw), (1, n1, w)),
+                ("step3_transposed", fs.step34_planar,
+                 (*x3, None, False, "highest"), (1, n1 // ptot, n2))):
+            r = time_cuda(fn, args, ahead=True)
+            ms = r["median_ms"]
+            bms, by = _bound(what, shape)
+            nbytes = _work(what, shape)[0]
+            show(f"kernel {what} at the 2x2 shard of {n1}*{n2} {shape}", r,
+                 f", {nbytes / ms / 1e9:.3f} TB/s, {bms / ms:.3f} of its "
+                 f"bound {bms:.4f} ms ({by})")
+        del tw, x1, x3
+    # where 256^3 c2c's time goes: each axis pass and exchange alone
+    for label, bd in (
+            ("fft3d_breakdown 256^3 (one device)",
+             fft3d_breakdown((256,) * 3)),
+            ("pencil_breakdown 256^3 (mesh 1x1)",
+             pencil_breakdown((256,) * 3, mesh))):
+        parts = ", ".join(f"{k} {v * 1e3:.4f}" for k, v in bd.items())
+        print(f"{label}, ms: {parts} {tag}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is visible",
@@ -847,10 +1097,14 @@ def main() -> int:
         print(f"chip_smoke.py needs the offt_tpu_torch package beside it: "
               f"{e}", file=sys.stderr)
         return 1
+    from offt_tpu_torch.dist import long1d
     from offt_tpu_torch.kernels import _build
     from offt_tpu_torch.kernels import fourstep as fs
     from offt_tpu_torch.kernels import fused_fft as ff
-    from offt_tpu_torch.obs.profile import device_breakdown, time_cuda
+    from offt_tpu_torch.kernels import tables as tb
+    from offt_tpu_torch.obs.profile import (device_breakdown, fft3d_breakdown,
+                                            pencil_breakdown, time_cuda)
+    from offt_tpu_torch.plan import api as plan_api
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -892,6 +1146,14 @@ def main() -> int:
 
     def step3(n1, n2, inverse=False):
         return lambda f, x: f(*x, n1, n2, None, inverse)
+
+    def step1_shard(n1, n2, p, rank):
+        # one rank's step 1 on a p-rank mesh: (1, n1, n2 / p) with the
+        # rank's columns of the twiddle (dist/long1d.py)
+        w = n2 // p
+        tw = torch.from_numpy(tb.fourstep_twiddle_chunk(
+            n1, n2, rank * w, (rank + 1) * w, False).copy()).cuda()
+        return lambda f, x: f(*x, n1, w, None, False, tw=tw)
 
     def rlast(packed):
         return lambda f, x: f(x[0], packed=packed)
@@ -1013,6 +1275,11 @@ def main() -> int:
          (1, 1024, 768), None),
         ("step1_twiddle", fs._step1_twiddle, step1(768, 1024),
          (1, 768, 1024), None),
+        # the shards of 2^24 and 2^20 on a 2 x 2 mesh, rank 1's columns
+        ("step1_twiddle", fs._step1_twiddle, step1_shard(4096, 4096, 4, 1),
+         (1, 4096, 1024), None),
+        ("step1_twiddle", fs._step1_twiddle, step1_shard(1024, 1024, 4, 1),
+         (1, 1024, 256), None),
         ("step1_twiddle", fs._step1_twiddle, step1(1024, 1024),
          (1, 1024, 1024), None),
         ("step3_transposed", fs._step3_transposed, step3(128, 256),
@@ -1033,6 +1300,10 @@ def main() -> int:
          (1, 1024, 768), None),
         ("step3_transposed", fs._step3_transposed, step3(768, 1024),
          (1, 768, 1024), None),
+        ("step3_transposed", fs._step3_transposed, step3(1024, 4096),
+         (1, 1024, 4096), None),
+        ("step3_transposed", fs._step3_transposed, step3(256, 1024),
+         (1, 256, 1024), None),
         ("step3_transposed", fs._step3_transposed, step3(1024, 1024),
          (1, 1024, 1024), None),
         ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x, out_scale=0.5),
@@ -1563,6 +1834,13 @@ def main() -> int:
     print(f"phase 3h: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 3i. the long-1-D engine and the namespace on the 1 x 1 mesh ------
+    t0 = time.perf_counter()
+    runs.update(long1d_phase(ot, ff, fs, long1d, plan_api, gen, mesh,
+                             lambda fn: _window(ff, fn), tag))
+    print(f"phase 3i: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 4. the counters -----------------------------------------------
     path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
                     "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
@@ -1576,7 +1854,11 @@ def main() -> int:
                     "cube": ("fft_cube",),
                     "namespace": ("fft_slab", "fft_axis", "fft_last",
                                   "rfft_last", "step1_twiddle",
-                                  "step3_transposed")}
+                                  "step3_transposed"),
+                    "long1d_engine": ("step1_twiddle", "step3_transposed"),
+                    "long1d_adjoint": ("step1_twiddle", "step3_transposed"),
+                    "mesh_namespace": ("step1_twiddle", "step3_transposed",
+                                       "fft_last", "fft_axis", "rfft_last")}
     for label, (reading, kernels) in grad_runs.items():
         runs[label] = reading
         path_kernels[label] = kernels
@@ -1677,6 +1959,18 @@ def main() -> int:
         print(f"register core: step1_twiddle on {path} ({s1r} of {s1}), "
               f"step3_transposed ({s3r} of {s3}"
               + ("; 3*2^18's 768 side dense)" if dense3 else ")"))
+    # 3i: every engine call (six forward, two adjoints) ran the pair once,
+    # both kernels on the register core (the splits of 2^24, 2^23, 2^20)
+    for path, calls in (("long1d_engine", ENGINE_CALLS),
+                        ("long1d_adjoint", 2)):
+        got = {k: (runs[path][1][k], runs[path][2][k])
+               for k in ("step1_twiddle", "step3_transposed")}
+        if any(v != (calls, calls) for v in got.values()):
+            raise AssertionError(f"3i {path}: want {calls} register-core "
+                                 f"launches of each kernel of the pair "
+                                 f"(launches, register): {got}")
+        print(f"register core: the four-step pair on 3i's {path} "
+              f"({calls} of {calls} each)")
     # 3f's cubes (8 x 128^3 forward and inverse, 8 x 8 x 32768) all on the
     # register cube
     cu, cu_reg = runs["cube"][1]["fft_cube"], runs["cube"][2]["fft_cube"]
@@ -1933,6 +2227,11 @@ def main() -> int:
             del p_knob
         del args, w, p_mesh, p_one
         torch.cuda.empty_cache()
+    # the long-1-D engine at P = 1, the pair at a rank's shard shapes, and
+    # the per-stage breakdowns (the mesh's one)
+    long1d_times(ot, fs, tb, long1d, gen, mesh, show, show_breakdown,
+                 time_cuda, fft3d_breakdown, pencil_breakdown, tag)
+    torch.cuda.empty_cache()
     dist.destroy_process_group()
 
     # the cube (one launch) on the register core and on the dense core (at

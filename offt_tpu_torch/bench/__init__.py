@@ -19,7 +19,10 @@ cube's phases (``phases`` of ``fused_fft.fft3d_cube``) and its groups
 kernel's registers and spills as ptxas reports them (needs nvcc, not a
 card). ``call_overhead`` times the host wall of the forward calls that
 the host paces, with and without the autograd Function, against another
-checkout's (``--root``).
+checkout's (``--root``). ``mesh4`` runs the distributed engines over
+NCCL on four cards of one host: the long-1-D engine on a 2 x 2 mesh
+against ``torch.fft`` and one card's plan, stage by stage, and the
+pencil breakdown.
 """
 
 from __future__ import annotations

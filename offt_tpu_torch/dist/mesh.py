@@ -219,6 +219,22 @@ def output_layout(mesh, ndim: int = 3) -> Layout:
     return Layout(_batch_spec(names, ndim) + (None, ROW, COL), sizes)
 
 
+def natural_layout(mesh, ndim: int = 3) -> Layout:
+    """The distributed long-1-D engine's layout of (..., 1, 1, n) operands,
+    in and out (the reference's ``natural_sharding``): the last dim in
+    contiguous chunks over the linearised (row, col) order of ``mesh``,
+    the first rank's chunk first (after ``with_rankorder``, the order of
+    the re-gridded mesh that the plan keeps)."""
+    return Layout((None,) * (ndim - 1) + ((ROW, COL),), _sizes(mesh))
+
+
+def linear_index(mesh, rank: int | None = None) -> int:
+    """``rank``'s place (default: this process) in the linearised (row,
+    col) order of ``mesh``: row * p2 + col."""
+    c = coords(mesh, rank)
+    return c[ROW] * mesh_shape(mesh)[1] + c[COL]
+
+
 def batch_layout(mesh, ndim: int) -> Layout:
     """``batch_sharded`` plans: the first dim over every rank of the
     (row, col) grid, the rest whole."""

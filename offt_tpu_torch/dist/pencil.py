@@ -36,6 +36,7 @@ tuner, ROADMAP Queue 1 item 6.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -89,20 +90,58 @@ def axis_fft(xr, xi, axis: int, inverse: bool, radices, params,
 _GROUPS: dict = {}
 
 
-def _group(mesh, name: str) -> tuple:
-    """(group, me, ranks, order) of this rank along the mesh dim ``name``:
-    the dim's process group, this rank's index along the dim, the global
-    rank at each index, and the index of each group rank (a group orders
-    its members by global rank, which a rank grid need not)."""
+def _names(name) -> tuple:
+    return (name,) if isinstance(name, str) else tuple(name)
+
+
+_SIZES: dict = {}
+
+
+def _size(mesh, name) -> int:
+    """The ranks along the mesh dim ``name``, or along the flattened dims
+    of a tuple of names. Kept per mesh: a ``DeviceMesh`` builds its rank
+    tensor anew on every read of ``.mesh`` (tens of microseconds of host
+    time), and every exchange asks."""
+    key = (id(mesh), name)
+    hit = _SIZES.get(key)
+    if hit is None or hit[0] is not mesh:
+        dims = mesh.mesh_dim_names
+        hit = _SIZES[key] = (mesh, math.prod(
+            mesh.mesh.shape[dims.index(n)] for n in _names(name)))
+    return hit[1]
+
+
+def _flat_group(ranks: list):
+    """The process group of ``ranks``: the default group when they are
+    all of it, else a new group made by these ranks alone (no other rank
+    takes part in making it)."""
+    if sorted(ranks) == list(range(dist.get_world_size())):
+        return dist.group.WORLD
+    return dist.new_group(sorted(ranks), use_local_synchronization=True)
+
+
+def _group(mesh, name) -> tuple:
+    """(group, me, ranks, order) of this rank along the mesh dim ``name``,
+    or along the flattened dims of a tuple of names (their linear order,
+    the first slowest: the long-1-D engine's exchanges run over (ROW,
+    COL)): the process group, this rank's index along it, the global rank
+    at each index, and the index of each group rank (a group orders its
+    members by global rank, which a rank grid need not)."""
     key = (id(mesh), name)
     if key not in _GROUPS or _GROUPS[key][0] is not mesh:
-        grp = mesh.get_group(name)
+        names = _names(name)
+        dims = mesh.mesh_dim_names
         pos = coords(mesh)
-        sel = tuple(slice(None) if n == name else pos[n]
-                    for n in mesh.mesh_dim_names)
-        ranks = mesh.mesh[sel].tolist()
+        sel = tuple(slice(None) if n in names else pos[n] for n in dims)
+        # the selected dims in the order of ``names``, flattened
+        sub = mesh.mesh[sel].permute(
+            [[n for n in dims if n in names].index(n) for n in names])
+        ranks = sub.flatten().tolist()
+        me = ranks.index(dist.get_rank())
+        grp = (mesh.get_group(names[0]) if len(names) == 1
+               else _flat_group(ranks))
         order = [ranks.index(r) for r in dist.get_process_group_ranks(grp)]
-        _GROUPS[key] = (mesh, (grp, pos[name], ranks, order))
+        _GROUPS[key] = (mesh, (grp, me, ranks, order))
     return _GROUPS[key][1]
 
 
@@ -139,16 +178,17 @@ def _join(pieces, axis: int) -> tuple:
     return y[0], y[1]
 
 
-def _transpose(xs, mesh, name: str, split_axis: int, concat_axis: int,
+def _transpose(xs, mesh, name, split_axis: int, concat_axis: int,
                strategy: int, variant: int = 0) -> _Pending:
     """One pencil exchange of the planar pair ``xs`` over the mesh dim
-    ``name``: the pieces along ``split_axis`` go one to each member, in
-    the order of their index along the dim, and the received pieces are
-    concatenated along ``concat_axis`` in that order. ``strategy`` picks
+    ``name`` (or the flattened dims of a tuple of names): the pieces along
+    ``split_axis`` go one to each member, in the order of their index
+    along the dim, and the received pieces are concatenated along
+    ``concat_axis`` in that order. ``strategy`` picks
     ``all_to_all_single`` (0) or the ring (1); ``variant`` takes
     ``all_gather`` and a local slice instead of either. Started
     asynchronously; the result comes from ``wait()``."""
-    size = mesh.mesh.shape[mesh.mesh_dim_names.index(name)]
+    size = _size(mesh, name)
     if size == 1:
         return _Pending(result=tuple(xs))
     xr = xs[0]

@@ -20,7 +20,8 @@ for any other length and for complex128.
 Devices: a call runs where its input tensor lies; a tensor on the CPU
 runs the kernels' plain versions there, as ``torch.fft`` would. Anything
 that is not a tensor (a numpy array, a list) goes to the current CUDA
-device and raises without one. The plan cache is keyed by device too.
+device and raises without one. The plan cache is keyed by device and by
+mesh too.
 
 Dtypes follow ``torch.fft``: float64 and complex128 inputs give
 complex128 results (the fp64 route, 1e-12), every other type complex64
@@ -32,8 +33,13 @@ Autodiff: every call differentiates through its plans
 torch ops around them, so ``torch.autograd.grad`` of a loss through
 ``ot.fft.rfftn`` runs the kernels again on the card.
 
-Not here yet: ``use_mesh`` (the distributed namespace) raises: its 1-D
-calls need the distributed long-1-D engine, ROADMAP Queue 1 item 4.
+On a mesh (:class:`use_mesh`) a call is a collective of the mesh's
+ranks: each passes the same global tensor and gets the same global
+result, as a JAX global array is one array. Each rank transforms its
+block (the plan's ``input_block``) and the output blocks are gathered
+over the mesh; under autograd the gather's backward takes the rank's
+block of the gradient and the block's backward gathers the blocks' input
+gradients, so every rank holds the whole gradient.
 """
 
 from __future__ import annotations
@@ -41,7 +47,10 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 
+from .dist.mesh import COL, ROW, SLICE
+from .dist.pencil import _group, _size
 from .kernels.stockham import _complex_dtype as _cdtype
 from .plan import api as _api
 
@@ -54,16 +63,60 @@ __all__ = [
 ]
 
 
+# the open use_mesh layers, oldest first: the namespace runs on the mesh of
+# the newest (none open: one device)
+_LAYERS: list = []
+
+
 class use_mesh:
-    """The reference's distributed namespace (``offt_tpu.fft.use_mesh``).
-    Not ported: its 1-D calls ride the distributed long-1-D engine
-    (``dist/long1d.py``), ROADMAP Queue 1 item 4. Constructing one
-    raises NotImplementedError."""
+    """Route the namespace's transforms through a mesh
+    (``dist.make_mesh``), as a ``with`` block or as a sticky setter::
+
+        with offt_tpu_torch.fft.use_mesh(make_mesh(2, 2)):
+            X = offt_tpu_torch.fft.fft(x)   # the long-1-D engine
+        offt_tpu_torch.fft.use_mesh(mesh)   # until use_mesh(None)
+
+    Every rank of the mesh makes the same calls (module doc). 1-D c2c
+    calls ride the distributed long-1-D engine (``dist/long1d.py``) where
+    a split with P | n1 and P | n2 exists; 2-D and 3-D groups ride the
+    pencil engine (prefer ``make_mesh(1, p)`` for 2-D: a leading axis of
+    one on p1 > 1 rows pads). Real transforms in the numpy layout on
+    (1, 1, n) take the pencil engine's degenerate path, on one rank (its
+    plan warns); ``plan(real=True, packed=True)`` is the distributed
+    real 1-D engine. The plan cache is keyed by the mesh. A multi-slice
+    mesh is refused: the namespace shards no batch dim.
+
+    Each call opens a layer, and the namespace runs on the mesh of the
+    newest layer still open (``mesh=None``: one device). Leaving a
+    ``with`` block, or calling ``__exit__``, closes that call's layer
+    wherever it lies, so exits need not nest: after ``a =
+    use_mesh(m); b = use_mesh(None); a.__exit__(); b.__exit__()`` no
+    layer is open and calls run on one device. The reference restores
+    the mesh each instance replaced, which leaves ``m`` set there
+    (``offt_tpu/fft.py:73-82``). A bare call's layer stays open: a later
+    ``use_mesh(None)`` opens a one-device layer over it."""
 
     def __init__(self, mesh):
-        raise NotImplementedError(
-            "use_mesh needs the distributed long-1-D engine "
-            "(dist/long1d.py), ROADMAP Queue 1 item 4")
+        if mesh is not None and SLICE in mesh.mesh_dim_names:
+            raise ValueError("use_mesh takes a (row, col) mesh, not a "
+                             "multi-slice one")
+        self.mesh = mesh
+        _LAYERS.append(self)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for i in range(len(_LAYERS) - 1, -1, -1):
+            if _LAYERS[i] is self:
+                del _LAYERS[i]
+                break
+        return False
+
+
+def current_mesh():
+    """The mesh the namespace's calls run on now, or None (one device)."""
+    return _LAYERS[-1].mesh if _LAYERS else None
 
 
 # ---- devices, dtypes and the plan cache -----------------------------------
@@ -98,10 +151,85 @@ def _as_real(a: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_cached(shape3, dtype, real, inverse, norm, batch_dims, device):
+def _plan_cached(shape3, dtype, real, inverse, norm, batch_dims, device,
+                 mesh=None):
+    """The plan of a call signature; ``mesh`` an ``api._Same`` of the
+    mesh (the key is the mesh itself) or None."""
     name = str(dtype).rsplit(".", 1)[-1]
     return _api.plan(shape3, name, real=real, inverse=inverse, norm=norm,
-                     batch_dims=batch_dims, device=device)
+                     batch_dims=batch_dims, device=device,
+                     mesh=None if mesh is None else mesh.obj)
+
+
+def _plan_for(shape3, dtype, real, inverse, norm, batch_dims, device):
+    """The cached plan of a call on the current mesh."""
+    mesh = current_mesh()
+    return _plan_cached(shape3, dtype, real, inverse, norm, batch_dims,
+                        device, None if mesh is None else _api._Same(mesh))
+
+
+# ---- global tensors on a mesh ----------------------------------------------
+
+def _gather(t, mesh, layout, shape):
+    """The global tensor of ``shape`` from every mesh rank's block ``t``
+    (``layout``'s blocks): each rank pads its block to the largest, one
+    ``all_gather`` over the mesh's ranks, each block put in its place."""
+    grp, _, ranks, order = _group(mesh, (ROW, COL))
+    p2 = dict(layout.sizes)[COL]
+    blocks = [layout.block(shape, {ROW: i // p2, COL: i % p2})
+              for i in range(len(ranks))]
+    big = [max(b[d].stop - b[d].start for b in blocks)
+           for d in range(len(shape))]
+    pad = t.new_zeros(big)
+    pad[tuple(slice(0, n) for n in t.shape)] = t
+    flat = torch.view_as_real(pad) if pad.is_complex() else pad
+    outs = [torch.empty_like(flat) for _ in ranks]
+    dist.all_gather(outs, flat.contiguous(), group=grp)
+    out = t.new_zeros(shape)
+    for g, o in enumerate(outs):
+        b = blocks[order[g]]
+        o = torch.view_as_complex(o) if t.is_complex() else o
+        out[b] = o[tuple(slice(0, s.stop - s.start) for s in b)]
+    return out
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's block of a global input; backward: the whole gradient,
+    every rank's block of it gathered."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan, ctx.shape = plan, tuple(x.shape)
+        return x[plan.input_block(x.shape)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.plan
+        return _gather(g.contiguous(), p.mesh, p.input_layout,
+                       ctx.shape), None
+
+
+class _Gather(torch.autograd.Function):
+    """The global output from every rank's block; backward: this rank's
+    block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, y, plan, shape):
+        ctx.plan, ctx.shape = plan, shape
+        return _gather(y, plan.mesh, plan.output_layout, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.plan.output_block(ctx.shape)].contiguous(), None, None
+
+
+def _apply(p, x):
+    """``p`` on ``x``; on a mesh of more than one rank, ``x`` global: the
+    rank's block in, the gathered global output out."""
+    if p.mesh is None or _size(p.mesh, (ROW, COL)) == 1:
+        return p(x)
+    shape = tuple(x.shape[:-3]) + p.out_shape
+    return _Gather.apply(p(_Scatter.apply(x, p)), p, shape)
 
 
 def _fix_len(a, axis: int, n: int):
@@ -125,9 +253,9 @@ def _tail_c2c(a, m: int, norm, inverse: bool):
     lead = tuple(a.shape[:a.ndim - m])
     tail = tuple(a.shape[a.ndim - m:])
     shape3 = (1,) * (3 - m) + tail
-    p = _plan_cached(shape3, a.dtype, False, inverse, norm, len(lead),
-                     a.device)
-    return p(a.reshape(lead + shape3)).reshape(lead + tail)
+    p = _plan_for(shape3, a.dtype, False, inverse, norm, len(lead),
+                  a.device)
+    return _apply(p, a.reshape(lead + shape3)).reshape(lead + tail)
 
 
 def _tail_real_fwd(a, m: int, norm):
@@ -135,9 +263,8 @@ def _tail_real_fwd(a, m: int, norm):
     lead = tuple(a.shape[:a.ndim - m])
     tail = tuple(a.shape[a.ndim - m:])
     shape3 = (1,) * (3 - m) + tail
-    p = _plan_cached(shape3, a.dtype, True, False, norm, len(lead),
-                     a.device)
-    y = p(a.reshape(lead + shape3).contiguous())
+    p = _plan_for(shape3, a.dtype, True, False, norm, len(lead), a.device)
+    y = _apply(p, a.reshape(lead + shape3).contiguous())
     return y.reshape(lead + tail[:-1] + (tail[-1] // 2 + 1,))
 
 
@@ -175,9 +302,9 @@ def _tail_real_inv(a, m: int, n_out: int, norm):
     lead = tuple(a.shape[:a.ndim - m])
     tail = tuple(a.shape[a.ndim - m:])
     shape3 = (1,) * (3 - m) + tail[:-1] + (n_out,)
-    p = _plan_cached(shape3, _rdtype(a.dtype), True, True, norm, len(lead),
-                     a.device)
-    y = p(a.reshape(lead + (1,) * (3 - m) + tail).contiguous())
+    p = _plan_for(shape3, _rdtype(a.dtype), True, True, norm, len(lead),
+                  a.device)
+    y = _apply(p, a.reshape(lead + (1,) * (3 - m) + tail).contiguous())
     return y.reshape(lead + tail[:-1] + (n_out,))
 
 

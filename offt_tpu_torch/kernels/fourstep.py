@@ -44,26 +44,29 @@ from . import tables as tb
 _MEASURED_SPLITS = {3 * (1 << 18): (1024, 768)}
 
 
-def pick_split(n: int, split=None):
+def pick_split(n: int, split=None, divisor: int = 1):
     """(n1, n2) with n1 * n2 == n, both 2-stage expressible, or None; an
     explicit ``split`` is validated only. Auto: the measured split first,
     else the most balanced pair, preferring 128-multiple extents (the lane
     side first) and then n1 <= n2: the reference's ranking, candidate for
-    candidate. Memoised: the search visits every divisor up to sqrt(n),
-    0.3 ms of host time at 2^20, and a plan asks on every call."""
+    candidate. ``divisor`` also requires divisor | n1 and divisor | n2:
+    the distributed engine (``dist/long1d.py``) splits both matrix axes
+    over that many ranks in equal blocks. Memoised: the search visits
+    every divisor up to sqrt(n), 0.3 ms of host time at 2^20, and a plan
+    asks on every call."""
     if split is not None:
         split = (int(split[0]), int(split[1]))
-    return _pick_split(int(n), split)
+    return _pick_split(int(n), split, int(divisor))
 
 
 @functools.lru_cache(maxsize=1024)
-def _pick_split(n: int, split):
+def _pick_split(n: int, split, divisor: int):
     if n <= 1:
         return None
 
     def _ok(a, b):
-        return (a > 1 and b > 1 and ff.can_use_pallas(a)
-                and ff.can_use_pallas(b))
+        return (a > 1 and b > 1 and a % divisor == 0 and b % divisor == 0
+                and ff.can_use_pallas(a) and ff.can_use_pallas(b))
 
     if split is not None:
         n1, n2 = int(split[0]), int(split[1])

@@ -418,6 +418,10 @@ _TABLE_KINDS = {
     "rfft": (tb.rfft_table, (int,)),                       # n
     "crfft": (tb.crfft_table, (int, float)),               # n, scale
     "fourstep": (tb.fourstep_twiddle, (int, int, bool, float)),  # n1, n2, ..
+    # one rank's columns [lo, hi) of it, and of the real untangle
+    "fourstep_chunk": (tb.fourstep_twiddle_chunk,
+                       (int, int, int, int, bool, float, str)),
+    "untangle": (tb.untangle_chunk, (int, int, int, str)),  # n, lo, hi, dt
     "half": (tb.half_twiddles, (int, bool, str)),          # n, inverse, dt
     # the unfused engine's complex tables (stockham.py); dtype by name
     "dft": (tb.dft_table, (int, str, bool)),               # n, dtype, inv
@@ -431,7 +435,8 @@ class TableSet:
     """The tables of one device, keyed by (kind, *args) and built on first
     use: ``get(kind, *args)`` is the ``tables`` function of that kind
     (``core_table``, ``rfft_table``, ``crfft_table``, ``fourstep_twiddle``,
-    ``half_twiddles``: the kernels' float32; ``dft_table``,
+    ``half_twiddles``: the kernels' float32; ``fourstep_twiddle_chunk``,
+    ``untangle_chunk``: float32 or float64 by name; ``dft_table``,
     ``stage_twiddle``, ``bluestein_chirp``, ``bluestein_spectrum``: the
     unfused engine's complex64 or complex128) on these args. A Plan keeps
     one and registers its tensors as buffers."""

@@ -28,7 +28,9 @@ primitive; a CUDA block reads ``V[(M - k) mod M]`` from shared memory
 directly, so the diagonals serve every M.
 
 The axis-by-axis route adds the four-step twiddle
-(:func:`fourstep_twiddle`, ``fourstep._twiddle_planar``) and the
+(:func:`fourstep_twiddle`, ``fourstep._twiddle_planar``; the distributed
+engine one rank's columns of it, :func:`fourstep_twiddle_chunk`, and of
+its real untangle, :func:`untangle_chunk`) and the
 half-spectrum twiddles of the unfused r2c/c2r (:func:`half_twiddles`,
 ``rfft._half_twiddles``), both in the kernels' (re, im) pair layout.
 
@@ -187,6 +189,34 @@ def fourstep_twiddle(n1: int, n2: int, inverse: bool,
     ``fourstep._twiddle_planar`` pair. Read-only. Not memoised: it is as
     large as the data (128 MB at 2^24), and a plan keeps its device copy."""
     return _pairs(dft.twiddles(n1, n2, np.complex128, inverse) * scale)
+
+
+def fourstep_twiddle_chunk(n1: int, n2: int, lo: int, hi: int,
+                           inverse: bool, scale: float = 1.0,
+                           dtype: str = "float32") -> np.ndarray:
+    """Columns ``[lo, hi)`` of the four-step twiddle, (n1, hi - lo, 2) of
+    ``dtype`` (float64 for the fp64 route): one rank's chunk in the
+    distributed engine (``dist/long1d.py``), which never builds the whole
+    (n1, n2) table. The float32 chunk equals the same columns of
+    :func:`fourstep_twiddle` bit for bit (the same f64 formula on the
+    same (k1, j2), cast once)."""
+    n = n1 * n2
+    k1 = np.arange(n1, dtype=np.float64)
+    j2 = np.arange(lo, hi, dtype=np.float64)
+    ang = (2.0 * math.pi / n) * np.mod(np.outer(k1, j2), float(n))
+    t = np.cos(ang) + (1j if inverse else -1j) * np.sin(ang)
+    return _pairs(t * scale, np.dtype(dtype))
+
+
+@functools.lru_cache(maxsize=64)
+def untangle_chunk(n: int, lo: int, hi: int,
+                   dtype: str = "float32") -> np.ndarray:
+    """W_n^k = exp(-2i pi k / n) for k in ``[lo, hi)`` as (hi - lo, 2)
+    pairs of ``dtype``: one rank's chunk of the distributed real
+    transform's untangle twiddle (the reference's ``u_host``,
+    ``offt_tpu/dist/long1d.py:258-261``, the same expression). Read-only."""
+    k = np.arange(lo, hi, dtype=np.float64)
+    return _pairs(np.exp(-2j * np.pi * k / n), np.dtype(dtype))
 
 
 @functools.lru_cache(maxsize=64)

@@ -39,8 +39,17 @@ on its own block):
   and each rank runs the single-device "fft3d" or "local" route on its
   block, with no collective (``plan/api.py:280-302``).
 
-A degenerate (1, 1, N) plan on a mesh is the distributed long-1-D engine
-(``dist/long1d.py``), not ported yet: it raises.
+- ``"long1d"``: a degenerate (1, 1, N) plan on a mesh of P > 1 ranks,
+  not ``batch_sharded``, runs the distributed long-1-D engine
+  (``dist/long1d.py``, the reference's ``plan/api.py:452-475``) where it
+  builds: c2c where a split of N with P | n1 and P | n2 exists, a real
+  plan in the packed layout where one of N / 2 does. Input and output are
+  in natural order (``Plan.input_layout`` = ``output_layout`` =
+  ``mesh.natural_layout``), each rank passing its contiguous chunk. Every
+  other (1, 1, N) mesh plan (the numpy-layout real 1-D, a length with no
+  such split, any 1 x 1 mesh) takes the pencil engine, as the
+  reference's does; on more than one rank that puts all the work on one
+  rank, so building it warns (``UserWarning``, with N, P and the reason).
 
 Plans are differentiable (``plan/autodiff.py``): a call that autograd,
 forward mode or a ``torch.func`` transform tracks goes through the
@@ -68,12 +77,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..dist import long1d
 from ..dist import mesh as meshlib
 from ..dist.pencil import _pad_to, _slice_to, axis_fft, make_pencil_fft3d
 from ..kernels import fused_fft, rfft
@@ -276,7 +287,7 @@ class Plan(torch.nn.Module):
     def __init__(self, spec: ProblemSpec, params: PlanParams, ndim: int,
                  planar: bool, out_scale: float, in_place: bool, device,
                  packed: bool, route: str, args: dict, mesh=None,
-                 z_adjoint: bool = False):
+                 z_adjoint: bool = False, engine=None):
         super().__init__()
         self.spec = spec
         self.params = params
@@ -312,6 +323,11 @@ class Plan(torch.nn.Module):
                 tout = meshlib.output_layout(mesh, ndim)
                 self.input_layout, self.output_layout = (
                     (tout, zpen) if spec.inverse else (zpen, tout))
+        # the long-1-D engine (dist/long1d.Long1D), natural order both ways
+        self._long1d = engine
+        if route == "long1d":
+            self.input_layout = meshlib.natural_layout(mesh, ndim)
+            self.output_layout = self.input_layout
         if route == "pencil":
             nz = spec.shape[2]
             first_fn, last_fn = real_stage_fns(params, nz, packed,
@@ -406,6 +422,9 @@ class Plan(torch.nn.Module):
         p = self.params
         if self.route == "pencil":
             return self._run_pencil(tuple(xs), tables)
+        if self.route == "long1d":
+            ys = self._long1d(tuple(xs), tables)
+            return ys[0] if len(ys) == 1 else ys
         if self.route == "local":
             return _local_fft3d(xs, self.spec.inverse, self.spec.real,
                                 self.spec.shape[2], p, self.out_scale,
@@ -527,7 +546,10 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     initialised process group) distributes the transform: each rank calls
     the plan on its block (``Plan.input_layout``); the plan runs on the
     mesh's device type. ``batch_sharded=True`` (with ``batch_dims >= 1``)
-    splits the first batch dim over every rank instead.
+    splits the first batch dim over every rank instead. A (1, 1, N) plan
+    on P > 1 ranks is the distributed long-1-D engine where it builds
+    (``route == "long1d"``, natural-order chunks in and out; module doc),
+    else the pencil engine, with a warning.
 
     ``real=True`` plans r2c forward and c2r inverse; ``dtype`` may name
     the real type ("float32" maps to complex64). ``packed=True`` (with
@@ -538,7 +560,9 @@ def plan(shape, dtype="complex64", *, mesh=None, real: bool = False,
     inverted along x and y (G_0, G_M) is not real, it returns, as the
     reference's plans do, irfft along z of G_0' = Re G_0 - Im G_M and
     G_M' = Re G_M - Im G_0 (+ Im G_0 on the fused ``rfft3d`` route), where
-    ``torch.fft.irfftn`` drops Im G_0 and Im G_M. A long last axis
+    ``torch.fft.irfftn`` drops Im G_0 and Im G_M: the port is held to the
+    reference's plans, and the namespace (``fft.irfftn``) projects onto
+    the half-spectra as numpy does. A long last axis
     (``plan((1, 1, N))`` past the 2-stage ceiling) takes the four-step
     route; ``params.split_1d`` pins its (n1, n2). Any other length (a
     prime factor past 128: Bluestein), ``dtype="complex128"``
@@ -565,10 +589,13 @@ def _build(shape, dtype="complex64", *, mesh=None, real=False,
            inverse=False, batch_dims=0, params=None, use_cache=True,
            planar=False, norm=None, batch_sharded=False, packed=False,
            donate=False, in_place=False, device=None,
-           z_adjoint: bool = False) -> Plan:
+           z_adjoint: bool = False, long1d_split=None) -> Plan:
     """:func:`plan`; ``z_adjoint=True`` builds the adjoint of a mesh real
     plan of the other direction (``plan/autodiff.py``), whose z stage is
-    that plan's transpose (``real_stage_fns``)."""
+    that plan's transpose (``real_stage_fns``). ``long1d_split`` pins the
+    long-1-D engine's split and builds it on a mesh of one rank too (its
+    exchanges and hops then groups of one: the engine's dataflow on one
+    card, for ``chip_smoke.py``); the plan's adjoints keep it."""
     if len(shape) != 3:
         raise ValueError(f"shape must be (Nx, Ny, Nz), got {shape}")
     if batch_sharded and (mesh is None or batch_dims < 1):
@@ -577,11 +604,6 @@ def _build(shape, dtype="complex64", *, mesh=None, real=False,
         raise ValueError("packed layout requires real=True, planar=True "
                          "(and not batch_sharded)")
     shape = tuple(int(n) for n in shape)
-    if mesh is not None and not batch_sharded and shape[:2] == (1, 1):
-        raise NotImplementedError("a (1, 1, N) plan on a mesh is the "
-                                  "distributed long-1-D engine "
-                                  "(dist/long1d.py), ROADMAP Queue 1 item "
-                                  "4 (long 1-D)")
     name = _dtype_name(dtype)
     if real and name in ("float16", "bfloat16", "float32", "float64"):
         # real transforms name the real type; only float64 maps to the
@@ -622,10 +644,19 @@ def _build(shape, dtype="complex64", *, mesh=None, real=False,
     scale = _norm_scale(norm, inverse, shape[0] * shape[1] * shape[2])
     if packed:
         params = params.replace(use_pallas=1)
+    engine = None
     if mesh is None or batch_sharded:
         # batch_sharded: each rank runs the reference's _local_fft3d, whose
         # fused branch is c2c only
         route = _route(spec, params, planar and not batch_sharded)
+    elif shape[:2] == (1, 1):
+        engine, why = long1d.engine(mesh, shape[2], real, packed, inverse,
+                                    params, name, scale, long1d_split)
+        route = "pencil" if engine is None else "long1d"
+        if engine is None and p1 * p2 > 1:
+            warnings.warn(f"a (1, 1, {shape[2]}) plan on {p1 * p2} ranks "
+                          f"takes the pencil engine, which runs it on one "
+                          f"rank: {why}", UserWarning, stacklevel=3)
     else:
         route = "pencil"
     if packed:
@@ -634,7 +665,7 @@ def _build(shape, dtype="complex64", *, mesh=None, real=False,
                                             params.radix_z) is None:
                 raise ValueError("packed layout needs Nz even with Nz/2 "
                                  f"2-stage expressible (got Nz={shape[2]})")
-        elif route != "rfft3d":
+        elif route not in ("rfft3d", "long1d"):
             raise ValueError("packed layout needs the r2c kernel path "
                              f"(shape {shape} not eligible)")
     if in_place:
@@ -657,9 +688,11 @@ def _build(shape, dtype="complex64", *, mesh=None, real=False,
                 use_cache=False, planar=planar, norm=norm,
                 batch_sharded=batch_sharded, packed=packed, donate=donate,
                 in_place=in_place, device=device)
+    if long1d_split is not None:
+        args["long1d_split"] = long1d_split
     return Plan(spec, params, batch_dims + 3, planar, scale, runs_in_place,
                 device, packed=packed, route=route, args=args, mesh=mesh,
-                z_adjoint=z_adjoint)
+                z_adjoint=z_adjoint, engine=engine)
 
 
 def _global_shape(x, mesh, inverse: bool, shape) -> tuple:

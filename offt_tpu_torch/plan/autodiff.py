@@ -15,14 +15,18 @@ and a the norm's scale:
   applied to the cotangent;
 - r2c: the real part of the inverse c2c (flipped norm) of the cotangent
   zero-padded along z (:func:`zero_pad_z`). In the packed layout plane 0
-  carries X_0 + i X_M, so its cotangent goes to bins 0 and M;
+  carries X_0 + i X_M, so its cotangent goes to bins 0 and M. On the
+  distributed long-1-D engine's route, whose natural chunks the pad
+  would change, the packed c2r plan of the halved cotangent instead
+  (:func:`_vjp_r2c_packed`);
 - c2r: the forward r2c (flipped norm) of the real cotangent, its interior
   bins doubled (each stands for itself and its conjugate mirror) and, in
   the numpy layout of even N, the pack transposed onto bins 0 and M
   (:func:`c2r_transpose`; the fold follows the c2r's untangle, which
   the fused and the unfused c2r write differently off the Hermitian
   manifold). Odd N has neither: bin 0 counts once and
-  every other bin twice, the transpose of the Hermitian extension.
+  every other bin twice, the transpose of the Hermitian extension. A
+  long-1-D rank weighs bin 0 once only where its chunk holds it.
 
 Each rule runs plans through their own Functions, so a backward is itself
 differentiable (grad of grad), and the adjoint plans are built once per
@@ -74,19 +78,23 @@ def zero_pad_z(ctr, cti, nz: int, packed: bool) -> tuple:
             torch.cat([cti, -ctr[..., :1], z], -1))
 
 
-def _half_weights(nf: int, nz: int, packed: bool, like) -> torch.Tensor:
+def _half_weights(nf: int, nz: int, packed: bool, like,
+                  bin0: bool = True) -> torch.Tensor:
     """Interior-bin doubling: every half-spectrum bin 1..ceil(N/2) - 1
     stands for itself and its conjugate mirror; the self-paired bins (0,
     and M when N is even, which the packed plane 0 also carries) count
-    once."""
+    once. ``bin0=False``: the bins are a chunk that does not hold bin 0
+    (a rank of the distributed long-1-D engine)."""
     w = like.new_full((nf,), 2.0)
-    w[0] = 1.0
+    if bin0:
+        w[0] = 1.0
     if not packed and nz % 2 == 0:
         w[-1] = 1.0
     return w
 
 
-def c2r_transpose(vr, vi, nz: int, packed: bool, packs: bool) -> tuple:
+def c2r_transpose(vr, vi, nz: int, packed: bool, packs: bool,
+                  bin0: bool = True) -> tuple:
     """The c2r's cotangent from the forward r2c (flipped norm) v of its
     real cotangent, along the last axis: interior bins doubled; odd N
     weighs bin 0 once and the others twice; the packed layout's plane 0
@@ -98,7 +106,7 @@ def c2r_transpose(vr, vi, nz: int, packed: bool, packs: bool) -> tuple:
     conj(X_M) into its first packed sample, v_0 - i v_M on bin 0. Both put
     v_M - i v_0 on bin M."""
     if packed or nz % 2:
-        w = _half_weights(vr.shape[-1], nz, packed, vr)
+        w = _half_weights(vr.shape[-1], nz, packed, vr, bin0)
         return vr * w, vi * w
     m = vr.shape[-1] - 1
     s = 1.0 if packs else -1.0
@@ -140,8 +148,30 @@ def _vjp_c2c(plan, *cts):
     return p(*_owned([c.resolve_conj() for c in cts], p))
 
 
+def _holds_bin0(plan) -> bool:
+    """Whether this rank's half-spectrum block holds bin 0: every plan's
+    but those of the long-1-D engine's ranks past the first (natural
+    chunks)."""
+    return plan.route != "long1d" or plan._long1d.me == 0
+
+
+def _vjp_r2c_packed(plan, ctr, cti):
+    """The packed r2c's transpose as the packed c2r plan (flipped norm) of
+    the cotangent halved but at bin 0 (the c2r rule's weights inverted):
+    R^T g = n C(w g) with w = 1 at bin 0 (DC + i Nyquist, each once) and
+    1/2 elsewhere, C numpy's c2r, since n C(P)[j] = Re P_0 + Im P_0 (-1)^j
+    + 2 Re sum_k P_k W_n^(-jk). The long-1-D engine's route: natural
+    chunks in and out, where zero-padding the M bins to n (the
+    reference's rule) would change every rank's chunk."""
+    w = 1.0 / _half_weights(ctr.shape[-1], 0, True, ctr, _holds_bin0(plan))
+    p = plan._related(inverse=True, norm=_flip_norm(plan.norm), planar=True)
+    return p((ctr * w).contiguous(), (cti * w).contiguous())
+
+
 def _vjp_r2c(plan, ctr, cti):
     """Real input cotangent of an r2c from its half-spectrum one."""
+    if plan.route == "long1d":
+        return _vjp_r2c_packed(plan, ctr, cti)
     if _stage_swapped(plan):
         return _swapped(plan)(ctr.contiguous(), cti.contiguous())
     p = plan._related(real=False, dtype=plan.spec.dtype, inverse=True,
@@ -159,7 +189,8 @@ def _vjp_c2r(plan, ct) -> tuple:
                       planar=True)
     vr, vi = p(ct.contiguous())
     return c2r_transpose(vr, vi, plan.spec.shape[2], plan.packed,
-                         packs=plan.route == "rfft3d")
+                         packs=plan.route == "rfft3d",
+                         bin0=_holds_bin0(plan))
 
 
 def _vjp_r2c_complex(plan, ct):

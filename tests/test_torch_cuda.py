@@ -1235,3 +1235,118 @@ def test_cuda_one_rank_mesh_gradients(nccl_world):
     torch.cuda.synchronize()
     assert sum(c[1] for c in ff.counts().values()) == 0
     assert _rel(g.double(), 2 * x.detach().double()) < 1e-6  # c2r(r2c) = I
+
+
+# ---- the distributed long-1-D engine and the breakdowns ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2,p,rank", [(4096, 4096, 4, 1),
+                                          (1024, 1024, 4, 1),
+                                          (512, 512, 4, 3),
+                                          (32, 128, 4, 2)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_fourstep_pair_at_shard_shapes(cuda_dev, n1, n2, p, rank,
+                                            inverse):
+    """The pair at the shapes one rank of a P-rank mesh computes: step 1
+    on (1, n1, n2/P) with the rank's twiddle chunk, step 3 on (1, n1/P,
+    n2), each against its plain version."""
+    from offt_tpu_torch.kernels import tables as tb
+
+    w = n2 // p
+    tw = torch.from_numpy(tb.fourstep_twiddle_chunk(
+        n1, n2, rank * w, (rank + 1) * w, inverse,
+        1 / (n1 * n2) if inverse else 1.0).copy()).to(cuda_dev)
+    _card_check(fs._step1_twiddle,
+                lambda f, x: f(*x, n1, w, None, inverse, tw=tw),
+                (1, n1, w), cuda_dev)
+    _card_check(fs._step3_transposed,
+                lambda f, x: f(*x, n1 // p, n2, None, inverse),
+                (1, n1 // p, n2), cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 2 ** 20])
+@pytest.mark.parametrize("real", [False, True])
+def test_cuda_one_rank_long1d_engine(nccl_world, n, real):
+    """The engine at P = 1 through ``_split=`` (its exchanges and hops
+    groups of one) against complex128 torch.fft, both directions, the
+    pair on the card and no plain version; a plan on the engine
+    (``api._build(long1d_split=)``) and its adjoint by the transpose
+    identity."""
+    from offt_tpu_torch.dist import long1d
+    from offt_tpu_torch.plan import api
+    from offt_tpu_torch.plan.params import PlanParams
+
+    mesh = ot.make_mesh(1, 1)
+    prm = PlanParams(p1=1, use_pallas=1)
+    m = n // 2 if real else n
+    split = fs.pick_split(m)
+    make = long1d.make_dist_rfft1d if real else long1d.make_dist_fft1d
+    x = _pair((1, 1, n), nccl_world, 21)
+    ff.reset_counts()
+    if real:
+        pr, pi = make(mesh, n, prm, False, _split=split)((x[0],))
+        back = make(mesh, n, prm, True, _split=split)((pr, pi))[0]
+        w = torch.fft.rfft(x[0].double())
+        got = torch.complex(pr, pi).to(torch.complex128)
+        edge = torch.zeros_like(got[..., :1])
+        full = torch.cat([edge + got[..., :1].real, got[..., 1:],
+                          edge + got[..., :1].imag], -1)
+        assert _rel(full, w) < 1e-6
+        assert _rel(back.double(), x[0].double()) < 1e-6
+    else:
+        for inverse in (False, True):
+            yr, yi = make(mesh, n, prm, inverse, _split=split)(x)
+            z = torch.complex(*x).to(torch.complex128)
+            want = (torch.fft.ifft if inverse else torch.fft.fft)(z)
+            assert _rel(torch.complex(yr, yi).to(torch.complex128),
+                        want) < 1e-6
+    torch.cuda.synchronize()
+    counts = ff.counts()
+    assert counts["_step1_twiddle"] == (2, 0)
+    assert counts["_step3_transposed"] == (2, 0)
+    assert sum(c[1] for c in counts.values()) == 0
+    p = api._build((1, 1, n), "float32" if real else "complex64", mesh=mesh,
+                   real=real, packed=real, planar=True, long1d_split=split)
+    assert p.route == "long1d" and p._long1d.fused
+    ins = (x[0].clone().requires_grad_(),) if real else tuple(
+        t.clone().requires_grad_() for t in x)
+    y = p(*ins)
+    g = _pair(tuple(y[0].shape), nccl_world, 22)
+    adj = torch.autograd.grad(y, ins, g)
+    lhs = sum((u.detach().double() * v.double()).sum() for u, v in zip(y, g))
+    rhs = sum((u.detach().double() * v.double()).sum()
+              for u, v in zip(ins, adj))
+    assert abs(float(lhs - rhs)) / float(abs(lhs)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_namespace_on_a_one_rank_mesh(nccl_world):
+    mesh = ot.make_mesh(1, 1)
+    x = torch.complex(*_pair((1 << 16,), nccl_world, 23))
+    c = torch.complex(*_pair((32, 32, 64), nccl_world, 24))
+    with ot.fft.use_mesh(mesh):
+        got = ot.fft.fft(x)
+        got3 = ot.fft.fftn(c)
+        r = ot.fft.irfftn(ot.fft.rfftn(c.real))
+    assert ot.fft.current_mesh() is None
+    assert _rel(got.to(torch.complex128),
+                torch.fft.fft(x.to(torch.complex128))) < 1e-6
+    assert _rel(got3.to(torch.complex128),
+                torch.fft.fftn(c.to(torch.complex128))) < 1e-6
+    assert _rel(r.double(), c.real.double()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_breakdowns(nccl_world):
+    from offt_tpu_torch.obs.profile import fft3d_breakdown, pencil_breakdown
+
+    bd = fft3d_breakdown((32, 32, 64))
+    assert set(bd) == {"fft_z", "fft_y", "fft_x", "total_fused",
+                       "stage_sum", "fusion_gain"}
+    assert all(v > 0 for k, v in bd.items() if k != "fusion_gain")
+    pb = pencil_breakdown((32, 32, 64), ot.make_mesh(1, 1))
+    assert all(pb[k] > 0 for k in ("fft_z", "exchange_1", "fft_y",
+                                   "exchange_2", "fft_x", "total_fused"))
+    assert abs(pb["stage_sum"] - pb["overlap_gain"] - pb["total_fused"]) \
+        < 1e-12

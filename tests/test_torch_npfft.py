@@ -5,9 +5,9 @@ which shares these helpers).
 
 Case by case after tests/test_npfft.py, on CPU tensors (so the plans run
 the kernels' plain versions; the reference runs its Pallas kernels in
-interpret mode with x64 on). The reference's grad and ``use_mesh`` cases
-become checks that the port refuses them, naming ROADMAP Queue 1 items 9
-(autodiff) and 14 (the distributed long-1-D engine). Tolerances: 1e-6
+interpret mode with x64 on). The reference's ``use_mesh`` cases run on a
+world of one gloo rank here (tests/test_torch_npfft_mesh.py holds four
+ranks against the reference). Tolerances: 1e-6
 relative norm for fp32 results and 1e-12 for fp64, against the reference
 and against complex128 numpy; the helpers bit for bit."""
 
@@ -237,17 +237,60 @@ def test_grad_through_npfft_raises():
         assert F.rfft(x).shape == (8, 9)
 
 
-def test_use_mesh_routes_distributed():
-    # the reference's use_mesh: its 1-D calls ride dist/long1d.py, not
-    # ported yet; the port refuses it on construction, so no sticky mesh
-    # can be left behind either (the reference sets it in __init__)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        with F.use_mesh(object()):
-            pass
+@pytest.fixture
+def world1(tmp_path):
+    import datetime
+
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
-def test_use_mesh_sticky_setter():
-    with pytest.raises(NotImplementedError, match="long-1-D"):
+def test_use_mesh_routes_distributed(world1, rng):
+    # a world of one rank here (tests/test_torch_npfft_mesh.py runs 4
+    # ranks against the reference): the block's calls run on the mesh's
+    # plans, cached by mesh, and leaving it restores one device
+    from offt_tpu_torch.dist import make_mesh
+
+    x = (rng.standard_normal(4096)
+         + 1j * rng.standard_normal(4096)).astype(np.complex64)
+    c = (rng.standard_normal((16, 16, 16))
+         + 1j * rng.standard_normal((16, 16, 16))).astype(np.complex64)
+    mesh = make_mesh(1, 1, device_type="cpu")
+    cpu = torch.device("cpu")
+    with F.use_mesh(mesh):
+        p = F._plan_for((1, 1, 4096), torch.complex64, False, False, None,
+                        0, cpu)
+        assert p.mesh is mesh and p.route == "pencil"
+        got1 = F.fft(torch.from_numpy(x)).numpy()
+        rt = F.ifft(F.fft(torch.from_numpy(x), norm="ortho"),
+                    norm="ortho").numpy()
+        got3 = F.fftn(torch.from_numpy(c)).numpy()
+    assert _relerr(got1, np.fft.fft(x)) < TOL
+    assert _relerr(got1, np.asarray(R.fft(x))) < TOL
+    assert _relerr(rt, x) < TOL
+    assert _relerr(got3, np.fft.fftn(c)) < TOL
+    assert F.current_mesh() is None
+    assert F._plan_for((1, 1, 4096), torch.complex64, False, False, None, 0,
+                       cpu).mesh is None
+
+
+def test_use_mesh_sticky_setter(world1):
+    from offt_tpu_torch.dist import make_mesh
+
+    mesh = make_mesh(1, 1, device_type="cpu")
+    F.use_mesh(mesh)
+    try:
+        assert F.current_mesh() is mesh
+        x = torch.randn(1024, dtype=torch.complex64)
+        assert _relerr(F.fft(x).numpy(), np.fft.fft(x.numpy())) < TOL
+    finally:
         F.use_mesh(None)
+    assert F.current_mesh() is None
     x = torch.randn(32, dtype=torch.complex64)
     assert F.fft(x).device.type == "cpu"

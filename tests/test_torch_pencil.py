@@ -9,11 +9,13 @@ repo's fp32 bar). The cases cover the (2, 2), (1, 4) and (4, 1) meshes,
 forward and inverse, every knob (t, w, ry, s = 1 ring, v = 1, 2, 3,
 rankorder), an uneven shape, batch dims, ``batch_sharded``, a norm and a
 (2, 1, 2) multi-slice mesh. In-process cases (a world of one rank): the
-1 x 1 mesh plan equals the single-device route bit for bit, and the
+1 x 1 mesh plan equals the single-device route bit for bit, a (1, 1, N)
+plan there takes the pencil engine as the reference's does, and the
 refusals. JAX is imported only inside the tests' functions, so the
 spawned ranks never load it."""
 
 import datetime
+import warnings
 
 import numpy as np
 import pytest
@@ -150,11 +152,24 @@ def test_mesh_plan_refusals(world1):
         make_mesh(1, 1, device_type="cuda")
     with pytest.raises(ValueError):          # a cuda plan on a cpu mesh
         plan((8, 8, 8), "complex64", mesh=mesh, device="cuda")
-    with pytest.raises(NotImplementedError, match="long-1-D"):
-        plan((1, 1, 64), "complex64", mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="long-1-D"):
-        plan((1, 1, 64), "float32", mesh=mesh, real=True, planar=True,
-             packed=True, device="cpu")
+    # a (1, 1, N) plan on a 1 x 1 mesh takes the pencil engine, as the
+    # reference's does (the long-1-D engine needs P > 1), and warns not
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        q = plan((1, 1, 64), "complex64", mesh=mesh, planar=True,
+                 device="cpu")
+        r = plan((1, 1, 64), "float32", mesh=mesh, real=True, planar=True,
+                 packed=True, device="cpu")
+    assert q.route == r.route == "pencil"
+    x = _pair((1, 1, 64), seed=3)
+    want = plan((1, 1, 64), "complex64", planar=True, device="cpu")(*x)
+    assert all(torch.allclose(a, b, rtol=0, atol=1e-5)
+               for a, b in zip(q(*x), want))
+    w = torch.fft.rfft(x[0].double())
+    want = torch.cat([torch.complex(w[..., :1].real, w[..., 32:].real),
+                      w[..., 1:32]], -1)
+    got = torch.complex(*r(x[0])).to(torch.complex128)
+    assert torch.allclose(got, want, rtol=0, atol=1e-5)
     with pytest.raises(ValueError):          # in_place is single-device
         plan((8, 8, 8), "complex64", mesh=mesh, planar=True, in_place=True,
              device="cpu")
