@@ -94,6 +94,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       mesh=...)`` on the pencil route, as the reference routes it; and
       the namespace under ``use_mesh(make_mesh(1, 1))``: ``fft`` of
       2^22, ``fftn``, ``rfftn``, ``irfftn`` of 256^3;
+   j. the tuner (``offt_tpu_torch.tune``) at full size, its trials timed
+      by CUDA events, the plan cache in a temporary directory: a brute
+      force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d,
+      block_batch), Nelder-Mead over 192^3 r2c's (radix_z of the dense
+      rfft_last at M = 96; 12 trials), and 256^3 c2c, whose space is
+      empty (nothing to search: the default point timed); each with its
+      space, trials, default and best time, speedup and winner, best <=
+      default after the refinement pass, the winner read back from the
+      cache by a plan built with no params and keeping the kernels
+      (``use_pallas=1``), that plan against complex128 ``torch.fft``
+      (1e-6), and the event log read back;
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did; the register core ran ``fft_last`` on 3a (its one
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
@@ -111,7 +122,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the register core (``fft_slab``, ``rfft_slab``, ``fft_axis``); every
    engine call of 3i (six forward, two adjoints) ran the four-step pair
    once on the register core, and 3i's namespace and pencil cases their
-   kernels;
+   kernels; 3j's tunings the kernels of their routes (the four-step pair,
+   ``rfft_last``, ``fft_axis``, ``fft_slab``), and each tuned plan, in a
+   window of its own, those of its route;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, there each kernel of the
    four-step pair on both cores with its bound and TB/s, and the pair's
@@ -1084,6 +1097,137 @@ def long1d_times(ot, fs, tb, long1d, gen, mesh, show, show_breakdown,
     torch.cuda.empty_cache()
 
 
+# ---- 3j: the tuner ---------------------------------------------------------
+
+# the tunings of phase 3j: (label, shape, real, strategy, max_trials (None:
+# every point of the space), include_pallas (None: the card's default),
+# the kernels the tuned plan's route launches)
+TUNE_CASES = (
+    # the split order ROADMAP item 8 measured 7% apart; every point of
+    # split_1d x block_batch (a side of 3 * 2^k runs dense at every split)
+    ("a", (1, 1, 3 * 2 ** 18), False, "brute", None, None,
+     ("step1_twiddle", "step3_transposed")),
+    # the real route whose rfft_last at M = 96 runs the dense core, so
+    # that radix_z is searched
+    ("b", (192, 192, 192), True, "nm", 12, None, ("rfft_last", "fft_axis")),
+    # every kernel on the register core: the card's space is empty, and
+    # the default point is timed
+    ("c", (256, 256, 256), False, "nm", None, None,
+     ("fft_slab", "fft_axis")),
+)
+# the kernels the tunings' trials launch between them
+TUNING_KERNELS = ("step1_twiddle", "step3_transposed", "rfft_last",
+                  "fft_axis", "fft_slab")
+
+
+def tune_phase(ot, window, tag, cases=TUNE_CASES, device="cuda",
+               tol=TOL_PATH) -> dict:
+    """Phase 3j: ``ot.tune.tune`` of each case at full size on the card
+    (CUDA events), the plan cache in a temporary directory; then a plan
+    built with no params, which must read the tuned point from the cache,
+    on a seeded input. Prints each case's space, trials, default and best
+    time, speedup, winner and seconds; checks best <= default, the cache
+    read, that the tuned plan keeps the kernels (``use_pallas=1``), the
+    plan's output against complex128 ``torch.fft`` and the event log read
+    back. Returns {path: (counter reading, kernels it must show)}: the
+    tunings in one window ("tuning"), each tuned plan's call in a window
+    of its own ("tuned_<label>")."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from offt_tpu_torch.obs.log import read_events
+    from offt_tpu_torch.plan import cache
+    from offt_tpu_torch.plan.params import ProblemSpec, default_params
+    from offt_tpu_torch.tune import build_space
+
+    keep = os.environ.get("OFFT_TPU_TORCH_CACHE_DIR")
+    tmp = tempfile.mkdtemp(prefix="offt_tune_")
+    os.environ["OFFT_TPU_TORCH_CACHE_DIR"] = tmp
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    try:
+        def run():
+            out = {}
+            for label, shape, real, strategy, budget, pallas, _ in cases:
+                spec = ProblemSpec(shape=shape, real=real)
+                space = build_space(spec, device=device,
+                                    include_pallas=pallas)
+                dtype = "float32" if real else "complex64"
+                log = os.path.join(tmp, f"{label}.jsonl")
+                t0 = time.perf_counter()
+                res = ot.tune.tune(shape, dtype, real=real,
+                                   strategy=strategy,
+                                   max_trials=budget or max(space.size(), 1),
+                                   include_pallas=pallas, log_path=log,
+                                   device=device)
+                secs = time.perf_counter() - t0
+                out[label] = (spec, space, res, secs, log)
+            return out
+        results, reading = window(run)
+        runs = {"tuning": (reading, TUNING_KERNELS)}
+        for label, shape, real, strategy, _, pallas, kernels in cases:
+            spec, space, res, secs, log = results[label]
+            dtype = "float32" if real else "complex64"
+            p = ot.plan(shape, dtype, real=real, planar=True, device=device)
+            if real:
+                x = (torch.randn(shape, generator=gen, device=device),)
+            else:
+                x = tuple(torch.randn(shape, generator=gen, device=device)
+                          for _ in range(2))
+            y, tuned = window(lambda: p(*x))
+            runs[f"tuned_{label}"] = (tuned, kernels)
+            dflt = dataclasses.asdict(default_params(spec))
+            won = {k: v for k, v in dataclasses.asdict(
+                res.best_params).items() if v != dflt[k]}
+            n_ok = sum(t.status == "ok" for t in res.trials)
+            kind = "r2c" if real else "c2c"
+            dims = ", ".join(f"{d.name}({len(d)})" for d in space.dims)
+            print(f"tune 3j-{label} {shape} {kind}: space [{dims or 'empty'}]"
+                  f" ({space.size() if space.dims else 0} points), "
+                  f"{strategy}, {n_ok} trials run ({len(res.trials)} with "
+                  f"duplicates and infeasible), default "
+                  f"{res.default_perf * 1e3:.4f} ms, best "
+                  f"{res.best_perf * 1e3:.4f} ms, speedup_vs_default "
+                  f"{res.speedup_vs_default:.3f}, winner "
+                  f"{won or 'the default point'}, {secs:.1f} s {tag}",
+                  flush=True)
+            if not res.best_perf <= res.default_perf:
+                raise AssertionError(f"3j-{label}: best {res.best_perf} > "
+                                     f"default {res.default_perf}")
+            key = cache.plan_key(shape, "complex64", real, 1, 1,
+                                 cache.device_kind(p.device))
+            if not (cache.lookup(key) == p.params == res.best_params):
+                raise AssertionError(f"3j-{label}: the plan read "
+                                     f"{p.params}, the cache "
+                                     f"{cache.lookup(key)}")
+            if p.params.use_pallas != 1:
+                raise AssertionError(f"3j-{label}: the tuned plan is off "
+                                     f"the kernels: {p.params}")
+            if real:
+                ref = torch.fft.rfftn(x[0].double())
+            else:
+                ref = torch.fft.fftn(torch.complex(*x).to(torch.complex128))
+            err = _rel_err(*y, ref)
+            evs = read_events(log)
+            print(f"path tuned plan 3j-{label} (route {p.route}): rel err "
+                  f"vs complex128 torch.fft {err:.3e} (tol {tol:g}); "
+                  f"event log {len(evs)} events, last {evs[-1]['kind']} "
+                  f"{tag}", flush=True)
+            if err > tol:
+                raise AssertionError(f"3j-{label}: error {err:.3e}")
+            if evs[-1]["kind"] != "tune_done" or (
+                    evs[-1]["best_perf"] != res.best_perf):
+                raise AssertionError(f"3j-{label}: event log {evs[-1]}")
+        return runs
+    finally:
+        if keep is None:
+            os.environ.pop("OFFT_TPU_TORCH_CACHE_DIR", None)
+        else:
+            os.environ["OFFT_TPU_TORCH_CACHE_DIR"] = keep
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is visible",
@@ -1841,6 +1985,12 @@ def main() -> int:
     print(f"phase 3i: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 3j. the tuner: three tunings, their winners read back ------------
+    t0 = time.perf_counter()
+    tune_runs = tune_phase(ot, lambda fn: _window(ff, fn), tag)
+    print(f"phase 3j: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 4. the counters -----------------------------------------------
     path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
                     "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
@@ -1859,7 +2009,7 @@ def main() -> int:
                     "long1d_adjoint": ("step1_twiddle", "step3_transposed"),
                     "mesh_namespace": ("step1_twiddle", "step3_transposed",
                                        "fft_last", "fft_axis", "rfft_last")}
-    for label, (reading, kernels) in grad_runs.items():
+    for label, (reading, kernels) in {**grad_runs, **tune_runs}.items():
         runs[label] = reading
         path_kernels[label] = kernels
     for path, (counts, launched, regs) in runs.items():

@@ -34,7 +34,11 @@ The ported slices are the single-device transforms on planar float32
   rules for ``torch.func``; and the rest of the reference's ``plan/``:
   the one-shots ``rfft3d``, ``irfft3d``, ``fft2d``, ``ifft2d``,
   ``rfft2d``, ``irfft2d``, ``donate=`` and the wisdom files
-  (``plan.cache``).
+  (``plan.cache``);
+- the tuner (``offt_tpu_torch.tune``): ``tune.tune(shape, ...)`` searches
+  the plan parameters on the card (CUDA events; on a mesh every rank in
+  step) and caches the winner for ``plan()``; the tuning service, its
+  client, the ``tuna``-style CLI and the native C++ engine.
 
 The kernels (``kernels/csrc``) are built with nvcc for sm_90a at first
 use. On the CPU every kernel wrapper runs its plain PyTorch version
@@ -59,6 +63,7 @@ from .kernels.fused_fft import (can_fuse_cube, fft3d_cube, fft3d_planar,
 from .plan.api import (Plan, fft2d, fft3d, from_planar, ifft2d, ifft3d,
                        irfft2d, irfft3d, plan, rfft2d, rfft3d, to_planar)
 from .plan.params import PlanParams
+from . import tune
 
 __all__ = [
     "Layout",
@@ -98,6 +103,7 @@ __all__ = [
     "rfft3d_planar",
     "rfft_last_planar",
     "to_planar",
+    "tune",
     "unpack_rfft3d",
     "__version__",
 ]

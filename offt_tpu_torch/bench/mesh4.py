@@ -17,7 +17,14 @@ It spawns one process per card, joins them in an NCCL group
   splits it stage by stage: the three exchanges and the four-step pair
   on the rank's shard, each alone;
 - runs ``obs/profile.pencil_breakdown`` of 256^3 c2c (each pass and
-  each exchange alone, and the mesh plan).
+  each exchange alone, and the mesh plan);
+- tunes the 256^3 c2c pencil plan on the 2 x 2 mesh
+  (``tune.tune(..., fast_trial=2, strategy="nm")``, 20 trials: the
+  FAST_TUNING phase trials, then the refinement pass on whole plans),
+  and times the default point's plan and the winner's on each rank; it
+  prints the winner's knobs, the search's and the refinement's seconds
+  and each refined point's trial estimate beside its exact time (rank
+  0's event log).
 
 Every rank prints its rows; the script prints the card's name and power
 limit first and exits 0 when every check held. Without four cards it
@@ -31,6 +38,8 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -39,6 +48,7 @@ WORLD = 4
 TOL = 1e-6
 LENGTHS = (2 ** 20, 2 ** 24)
 CUBE = (256, 256, 256)
+TUNE_TRIALS = 20
 
 
 def _rel(a, b) -> float:
@@ -85,8 +95,64 @@ def _stages(p, xs, time_cuda) -> dict:
     return ms
 
 
+def _ms(sec) -> str:
+    return "-" if sec is None else f"{sec * 1e3:.4f} ms"
+
+
+def _tune(mesh, cube, dev, tag: str, logdir: str) -> None:
+    """Tune the cube's c2c pencil plan on ``mesh`` (every rank calls it),
+    then time the default point's plan and the winner's on this rank."""
+    import dataclasses
+
+    import offt_tpu_torch as ot
+    from ..obs.log import read_events
+    from ..obs.profile import time_cuda, time_host
+    from ..plan.params import ProblemSpec, default_params
+    from ..tune.tuner import plan_inputs
+
+    log = os.path.join(logdir, "tune.jsonl")
+    t0 = time.perf_counter()
+    res = ot.tune.tune(cube, "complex64", mesh=mesh, fast_trial=2,
+                       strategy="nm", max_trials=TUNE_TRIALS, save=False,
+                       log_path=log, device=dev)
+    secs = time.perf_counter() - t0
+    dflt = default_params(ProblemSpec(shape=tuple(cube), p=4), p1=2)
+    won = {k: v for k, v in dataclasses.asdict(res.best_params).items()
+           if v != getattr(dflt, k)}
+    n_ok = sum(t.status == "ok" for t in res.trials)
+    print(f"{tag} tune {tuple(cube)} on 2x2: {n_ok} trials run "
+          f"({len(res.trials)} with duplicates and infeasible) in "
+          f"{secs:.1f} s; over the ranks (max): default "
+          f"{res.default_perf * 1e3:.4f} ms, best {res.best_perf * 1e3:.4f}"
+          f" ms, speedup_vs_default {res.speedup_vs_default:.3f}; winner "
+          f"{won or 'the default point'}", flush=True)
+    ms = {}
+    for name, prm in (("default", dflt), ("winner", res.best_params)):
+        p = ot.plan(cube, "complex64", mesh=mesh, params=prm, planar=True,
+                    use_cache=False, device=dev)
+        args = plan_inputs(p)
+        dist.barrier()
+        ms[name] = (time_cuda(p, args)["median_ms"] if dev.type == "cuda"
+                    else time_host(p, args) * 1e3)
+    print(f"{tag} tune {tuple(cube)} on 2x2, this rank: default point "
+          f"{ms['default']:.4f} ms, winner {ms['winner']:.4f} ms "
+          f"({ms['default'] / ms['winner']:.3f}x)", flush=True)
+    if dist.get_rank() == 0:
+        evs = read_events(log)
+        trials = [e for e in evs if e["kind"] == "trial"]
+        refine = [e for e in evs if e["kind"] == "refine"]
+        done = evs[-1]
+        t_search = trials[-1]["t"] - (done["t"] - done["wall"])
+        t_refine = done["t"] - trials[-1]["t"]
+        rows = "; ".join(f"{e['point']}: trial {_ms(e['coarse'])}, exact "
+                         f"{_ms(e['perf'])}" for e in refine)
+        print(f"{tag} tune {tuple(cube)}: search {t_search:.1f} s, "
+              f"refinement {t_refine:.1f} s; refined points (over the "
+              f"ranks): {rows}", flush=True)
+
+
 def _worker(rank: int, port: int, backend: str, device_type: str,
-            lengths, cube) -> None:
+            lengths, cube, logdir) -> None:
     import offt_tpu_torch as ot
     from offt_tpu_torch.obs.profile import pencil_breakdown, time_cuda
 
@@ -158,6 +224,8 @@ def _worker(rank: int, port: int, backend: str, device_type: str,
         print(f"{tag} pencil_breakdown {cube} on 2x2, ms: {parts}",
               flush=True)
         dist.barrier()
+        _tune(mesh, cube, dev, tag, logdir)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -170,9 +238,11 @@ def _free_port() -> int:
 
 def run(backend="nccl", device_type="cuda", lengths=LENGTHS,
         cube=CUBE) -> None:
-    torch.multiprocessing.spawn(
-        _worker, args=(_free_port(), backend, device_type, lengths, cube),
-        nprocs=WORLD, join=True)
+    with tempfile.TemporaryDirectory() as logdir:
+        torch.multiprocessing.spawn(
+            _worker, args=(_free_port(), backend, device_type, lengths,
+                           cube, logdir),
+            nprocs=WORLD, join=True)
 
 
 def main() -> int:

@@ -30,8 +30,8 @@ Uneven shapes run on padded equal blocks, as the reference's padded
 static shards do: ``pad_first``, ``mid_true``, ``mid_pad`` and
 ``last_true`` are its pad and slice points. A meta-device run (a plan's
 shape-only pass) computes the shapes of every exchange and moves nothing.
-The FAST_TUNING trial programs (``make_phase_trials``) belong to the
-tuner, ROADMAP Queue 1 item 6.
+:func:`make_phase_trials` gives the tuner's FAST_TUNING trial programs:
+each phase alone, on its first chunks.
 """
 
 from __future__ import annotations
@@ -334,10 +334,14 @@ def pencil_pipeline(xs, *, mesh, a_first: int, a_mid: int, a_last: int,
 
 
 def _phase1(xs, *, mesh, do_first, do_mid, a_first, a_mid, a_last, name1,
-            params, tables, pad_first, mid_true):
+            params, tables, pad_first, mid_true, max_chunks: int = 0):
     """Chunk along a_last; transform a_first and exchange a_first <->
-    a_mid per chunk; then the ry head of the a_mid transform."""
+    a_mid per chunk; then the ry head of the a_mid transform.
+    ``max_chunks`` > 0 runs the first that many chunks alone (a
+    FAST_TUNING trial): the output holds only their rows."""
     bounds = _chunk_bounds(xs[0].shape[a_last], params.t1)
+    if max_chunks:
+        bounds = bounds[:max_chunks]
     pending = []
     for i, (lo, hi) in enumerate(bounds):
         if _tied(params.w1, i, len(bounds)):
@@ -360,12 +364,16 @@ def _phase1(xs, *, mesh, do_first, do_mid, a_first, a_mid, a_last, name1,
 
 
 def _phase2(mid, *, mesh, do_mid, do_last, a_first, a_mid, a_last, name2,
-            params, tables, mid_pad, last_true, rx, n_rows):
+            params, tables, mid_pad, last_true, rx, n_rows,
+            max_chunks: int = 0):
     """Chunk along a_first; finish the a_mid transform of the pending
     rows, exchange a_mid <-> a_last, transform a_last. A chunk's last
     transform runs when its exchange is waited on: by the window before a
-    later chunk's compute, else after every exchange is started."""
+    later chunk's compute, else after every exchange is started.
+    ``max_chunks`` truncates as in :func:`_phase1`."""
     bounds = _chunk_bounds(mid[0].shape[a_first], params.t2)
+    if max_chunks:
+        bounds = bounds[:max_chunks]
     pending, out = [], [None] * len(bounds)
 
     def complete(j):
@@ -436,3 +444,81 @@ def make_pencil_fft3d(mesh, params: PlanParams, shape: tuple,
             last_true=0 if last_fn is not None else nz)
 
     return fn
+
+
+def make_phase_trials(mesh, ndim: int, params: PlanParams, shape: tuple,
+                      inverse: bool = False, rad_z=None, rad_y=None,
+                      rad_x=None, k: int = 2,
+                      first_fn: Optional[Callable] = None,
+                      last_fn: Optional[Callable] = None,
+                      z_freq_len: int = 0) -> tuple:
+    """FAST_TUNING trial programs (the reference's ``make_phase_trials``,
+    offt-compute.c:3538-3548; run-fft.c:219, its -A option): for this rank,
+    two callables ``fn(xs, tables) -> tuple`` that run only the first
+    min(k, t) chunks of pipeline phase 1 and of phase 2, with their
+    extrapolation weights t / k. The tuner times both and estimates the
+    whole transform as w1 * t_trial1 + w2 * t_trial2: a trial costs about
+    k / t of the transform and keeps its cost per chunk, since each chunk
+    runs the same kernels and exchanges on the same block shapes as in
+    the plan. The outputs mean nothing; only the time does.
+
+    ``first_fn`` / ``last_fn`` / ``z_freq_len`` are
+    :func:`make_pencil_fft3d`'s real z stages: a real forward trial 1
+    takes the real z-pencil block and runs the r2c per chunk; a c2r trial
+    takes the half-spectrum.
+
+    Returns ((fn1, block1, w1), (fn2, block2, w2)), ``block`` the shape of
+    this rank's (padded, equal) input block of each trial, where the
+    reference returns a global shape and its PartitionSpec."""
+    p1, p2 = mesh_shape(mesh)
+    nx, ny, nz = shape
+    nzt = z_freq_len or nz
+    ax, ay, az = ndim - 3, ndim - 2, ndim - 1
+    if not inverse:
+        a_first, a_mid, a_last = az, ay, ax
+        name1, name2 = COL, ROW
+        pad_first, mid_true = _ceil_to(nzt, p2), ny
+        mid_pad, last_true = _ceil_to(ny, p1), nx
+        rad_first, rad_mid, rad_last = rad_z, rad_y, rad_x
+        block1 = (-(-nx // p1), -(-ny // p2), nz)
+        block2 = (-(-nx // p1), ny, pad_first // p2)
+    else:
+        a_first, a_mid, a_last = ax, ay, az
+        name1, name2 = ROW, COL
+        pad_first, mid_true = _ceil_to(nx, p1), ny
+        mid_pad = _ceil_to(ny, p2)
+        # the c2r stage slices the padded frequency axis itself
+        last_true = 0 if last_fn is not None else nz
+        rad_first, rad_mid, rad_last = rad_x, rad_y, rad_z
+        block1 = (nx, -(-ny // p1), -(-nzt // p2))
+        block2 = (pad_first // p1, ny, -(-nzt // p2))
+    lead = (1,) * (ndim - 3)
+    k1 = max(1, min(k, params.t1))
+    k2 = max(1, min(k, params.t2))
+    do_first = first_fn or (lambda c, tabs: axis_fft(
+        *c, a_first, inverse, rad_first, params, tables=tabs))
+    do_last = last_fn or (lambda c, tabs: axis_fft(
+        *c, a_last, inverse, rad_last, params, tables=tabs))
+
+    def do_mid(c, tabs):
+        return axis_fft(*c, a_mid, inverse, rad_mid, params, tables=tabs)
+
+    def fn1(xs, tables=None):
+        mid, _, _ = _phase1(
+            tuple(xs), mesh=mesh, do_first=do_first, do_mid=do_mid,
+            a_first=a_first, a_mid=a_mid, a_last=a_last, name1=name1,
+            params=params, tables=tables, pad_first=pad_first,
+            mid_true=mid_true, max_chunks=k1)
+        return mid
+
+    def fn2(ms, tables=None):
+        n_rows = ms[0].shape[a_last]
+        rx = (n_rows * params.ry + 9) // 10 if params.ry < 10 else n_rows
+        return _phase2(
+            tuple(ms), mesh=mesh, do_mid=do_mid, do_last=do_last,
+            a_first=a_first, a_mid=a_mid, a_last=a_last, name2=name2,
+            params=params, tables=tables, mid_pad=mid_pad,
+            last_true=last_true, rx=rx, n_rows=n_rows, max_chunks=k2)
+
+    return ((fn1, lead + block1, params.t1 / k1),
+            (fn2, lead + block2, params.t2 / k2))

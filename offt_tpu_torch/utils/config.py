@@ -1,9 +1,9 @@
 """Layered configuration: defaults < config file < environment < kwargs.
 
-Port of ``offt_tpu/utils/config.py`` carrying only the keys the port
-reads (``precision``, ``use_pallas``, ``cache_dir``); the tuner's keys
-come with the tuner (ROADMAP Queue 1). The file is JSON at
-$OFFT_TPU_TORCH_CONFIG (default
+Port of ``offt_tpu/utils/config.py``: the tuner's keys (``strategy``,
+``max_trials``, ``simplex_size``, ``prefetch_count``, ``server_host``,
+``server_port``) and the plan's (``precision``, ``use_pallas``,
+``cache_dir``). The file is JSON at $OFFT_TPU_TORCH_CONFIG (default
 ~/.config/offt_tpu_torch/config.json); any key can be overridden by an
 OFFT_TPU_TORCH_<KEY> environment variable.
 """
@@ -16,6 +16,13 @@ import pathlib
 from typing import Any
 
 DEFAULTS: dict[str, Any] = {
+    # tuning (Active Harmony's defaults.h analogues)
+    "strategy": "nm",
+    "max_trials": 30,
+    "simplex_size": 0,            # 0 = ndims + 1
+    "prefetch_count": 4,          # the Tuner's batch (PREFETCH_COUNT)
+    "server_host": "127.0.0.1",
+    "server_port": 1979,
     # "auto" resolves in plan.params.default_params; every precision value
     # computes at f32 on the card (see PlanParams)
     "precision": "auto",

@@ -1350,3 +1350,30 @@ def test_cuda_breakdowns(nccl_world):
                                    "exchange_2", "fft_x", "total_fused"))
     assert abs(pb["stage_sum"] - pb["overlap_gain"] - pb["total_fused"]) \
         < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_tune_split_1d(cuda_dev, tmp_path, monkeypatch):
+    """A brute-force tune of (1, 1, 2^20) over split_1d on the card, timed by CUDA events: the winner, refined with the
+    default point, is cached under plan()'s key, read back by plan() with
+    no params, and within 1e-6 of complex128 torch.fft."""
+    monkeypatch.setenv("OFFT_TPU_TORCH_CACHE_DIR", str(tmp_path))
+    from offt_tpu_torch.tune import build_space
+    from offt_tpu_torch.plan.params import ProblemSpec
+
+    n = 2 ** 20
+    space = build_space(ProblemSpec(shape=(1, 1, n)), device=cuda_dev)
+    assert space.names == ("split_1d",)
+    res = ot.tune.tune((1, 1, n), "complex64", strategy="brute",
+                       max_trials=space.size(), device=cuda_dev,
+                       log_path=str(tmp_path / "log.jsonl"))
+    assert len([t for t in res.trials if t.status == "ok"]) == space.size()
+    assert 0 < res.best_perf <= res.default_perf
+    p = ot.plan((1, 1, n), "complex64", planar=True)
+    assert p.params == res.best_params and p.params.use_pallas == 1
+    xr, xi = _pair((1, 1, n), cuda_dev)
+    yr, yi = p(xr, xi)
+    want = torch.fft.fft(torch.complex(xr, xi).to(torch.complex128))
+    got = torch.complex(yr, yi).to(torch.complex128)
+    assert (torch.linalg.vector_norm(got - want)
+            / torch.linalg.vector_norm(want)).item() < 1e-6

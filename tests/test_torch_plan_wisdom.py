@@ -66,10 +66,10 @@ def test_plan_exports_what_the_reference_exports():
 
 
 def test_config_layers(tmp_path, monkeypatch):
-    """tests/test_plan.py's case on the keys the port reads (the tuner's
-    keys come with the tuner): file beats default, env beats file, a
-    keyword beats env, an int default coerces its env value; and
-    ``snapshot`` resolves every key as the reference's does."""
+    """tests/test_plan.py's case on the port's keys (the plan's and the
+    tuner's): file beats default, env beats file, a keyword beats env, an
+    int default coerces its env value; and ``snapshot`` resolves every
+    key of the reference's as the reference's does."""
     from offt_tpu_torch.utils import config
 
     cfg = tmp_path / "config.json"
@@ -85,9 +85,12 @@ def test_config_layers(tmp_path, monkeypatch):
     monkeypatch.setenv("OFFT_TPU_TORCH_USE_PALLAS", "1")
     assert config.get("use_pallas") == 1             # int coercion
     snap = config.snapshot()
-    assert snap == {"precision": "highest", "use_pallas": 1, "cache_dir": ""}
+    assert snap == {"precision": "highest", "use_pallas": 1, "cache_dir": "",
+                    "strategy": "nm", "max_trials": 30, "simplex_size": 0,
+                    "prefetch_count": 4, "server_host": "127.0.0.1",
+                    "server_port": 1979}
     from offt_tpu.utils import config as ref_config
-    assert set(snap) <= set(ref_config.DEFAULTS)
+    assert set(snap) == set(ref_config.DEFAULTS)
     monkeypatch.setenv("OFFT_TPU_CONFIG", str(cfg))
     monkeypatch.delenv("OFFT_TPU_CACHE_DIR", raising=False)
     monkeypatch.setenv("OFFT_TPU_PRECISION", "highest")

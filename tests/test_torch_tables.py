@@ -219,7 +219,10 @@ def test_config_layers(tmp_path, monkeypatch):
     monkeypatch.setenv("OFFT_TPU_TORCH_USE_PALLAS", "1")
     assert config.get("use_pallas") == 1
     assert config.get("precision", precision="highest") == "highest"
-    assert set(config.DEFAULTS) == {"precision", "use_pallas", "cache_dir"}
+    assert set(config.DEFAULTS) == {"precision", "use_pallas", "cache_dir",
+                                    "strategy", "max_trials",
+                                    "simplex_size", "prefetch_count",
+                                    "server_host", "server_port"}
 
 
 def test_import_pulls_no_jax():
