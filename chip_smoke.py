@@ -35,7 +35,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    one), with the core, the register layout (two grids or one of
    clusters, ``fused_fft._cluster_slab``, ``_cluster_irslab`` for the
    c2r), the lane tile (``fused_fft._axis_tile``) and the cube's G, split,
-   barriers and cooperative grid printed;
+   barriers and cooperative grid printed; and the probes' kernels:
+   ``probe_mma`` (``bench/probe_mxuwidth.py``) at each variant (stack6
+   chained and as six products, 3xtf32, tf32, fma) on the ledger's
+   operands (B = the SM count, L = 128-1024) at R = 1 against its plain
+   version (1e-6; the tensor cores' sums run in their own order and
+   alignment) and on the four real products of a 128-point DFT stage at
+   c = 0 (``TOL_MMA_DFT``, 5e-7 to 2.5e-6), each variant's error on that
+   stage against float64 (the largest of 12 draws) within its ceiling
+   (``probe_mxuwidth.CEILING``), and the r2c slab's wider-tile codes
+   (``bench/probe_ryconcat.py``: y16, y32, grids_wide) against its full
+   kernel at 512^3 (1e-6);
 3. the paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
@@ -105,6 +115,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       cache by a plan built with no params and keeping the kernels
       (``use_pallas=1``), that plan against complex128 ``torch.fft``
       (1e-6), and the event log read back;
+   k. the bench layer (``offt_tpu_torch.bench``) through its entry points:
+      ``runfft.main`` at 256^3 c2c with ``--verify`` (``-a offt``; ``-a
+      torch``, cuFFT), r2c ``--packed --verify``, r2c ``--verify`` (the
+      numpy layout) and c2r ``-i --verify`` (each --verify rel_err,
+      seeded and golden input, within 1e-6; 20 calls each), then
+      ``baseline_suite.main()``: configs 1 (2^20 c2c), 2 (256^3), 4
+      (1024^3 r2c and c2r, packed) and 5 (64 x 256^3), each against
+      complex128 ``torch.fft`` (1e-6), config 3 its skipped line (one
+      card); each in a counter window of its own;
+   l. the probes through their entry points: ``probe_mma`` at each
+      variant over the ledger's cases, each r2c slab code at 512^3, each
+      in a counter window of its own;
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did; the register core ran ``fft_last`` on 3a (its one
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
@@ -124,7 +146,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    once on the register core, and 3i's namespace and pencil cases their
    kernels; 3j's tunings the kernels of their routes (the four-step pair,
    ``rfft_last``, ``fft_axis``, ``fft_slab``), and each tuned plan, in a
-   window of its own, those of its route;
+   window of its own, those of its route; 3k's runfft window the slab
+   route's kernels (``fft_slab``, ``fft_axis``, ``rfft_slab``,
+   ``irfft_slab``), its suite window those and the four-step pair; each
+   of 3l's windows its variant's launches or one ``rfft_slab`` launch on
+   the register core;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
    512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, there each kernel of the
    four-step pair on both cores with its bound and TB/s, and the pair's
@@ -181,21 +207,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``torch.profiler`` busy share), the pair at a 2 x 2 rank's shard
    shapes with their bounds and TB/s, and the per-stage breakdowns
    ``obs/profile.fft3d_breakdown`` and ``pencil_breakdown`` (on the
-   1 x 1 mesh) of 256^3 c2c.
+   1 x 1 mesh) of 256^3 c2c; the probes' ledgers: ``probe_ryconcat``
+   (the r2c slab's codes beside full, grids, the dense core and rfft2 at
+   512^3, with bytes and TB/s) and ``probe_mxuwidth`` (each variant's
+   rate, its share of its tier's peak and one ``torch.matmul`` at its
+   precision at (L, R) = (1024, 512), (512, 1024), (256, 2048),
+   (128, 4096)).
 
 The line before the last is one JSON object with each kernel's numbers:
 its launches on the main paths, its error, its time and the library
 call's (device times, the host enqueueing ahead: ``time_cuda(ahead=True)``),
 its plain version's time, and its bound (the larger of its bytes at
 3.35 TB/s and its f32 operations at 67 TFLOP/s, from the shapes of this
-run), and for the two row kernels, the three slab kernels, ``fft_axis``,
-the four-step pair and the cube ``dense_ms``, the dense core's time at the
-same
-shape (the pair's two rows also ``pair_library_factor``: their sum over
+run; ``roofline.CHIPS["h100"]``), and for the two row kernels, the three
+slab kernels, ``fft_axis``, the four-step pair and the cube ``dense_ms``,
+the dense core's time at the same shape (the pair's two rows also
+``pair_library_factor``: their sum over
 ``torch.fft.fft`` of the whole transform, which computes the pair;
 ``fft_last`` and ``fft_slab`` also ``mixed``: the same numbers at their
 mixed-length shape, (102400, 320) and (320, 320, 320); ``fft_cube`` also
-``shapes``: its numbers at the three shapes of phase 5). The
+``shapes``: its numbers at the three shapes of phase 5); then the probes'
+kernels: ``probe_mma:<variant>`` at one iteration of (SMs, 128, 1024)
+(bound at the tier's peak: bf16 989, TF32 495, f32 67 TFLOP/s; library:
+one ``torch.matmul`` of the product at the tier's precision) and
+``rfft_slab:<code>`` at 512^3 (library ``rfft2``), their launches from
+3l. Every bound is ``offt_tpu_torch.bench.roofline.kernel_bound``. The
 last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the ``offt_tpu_torch`` package beside
 it, the script exits non-zero (2 and 1) and prints no result.
@@ -204,6 +240,7 @@ it, the script exits non-zero (2 and 1) and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -218,8 +255,6 @@ import torch.distributed as dist
 TOL_KERNEL = 1e-6   # kernel vs plain, max-abs relative
 TOL_PATH = 1e-6     # plan vs complex128 torch.fft, norm relative (fp32 bar)
 TOL_PATH64 = 1e-12  # the same for the fp64 route
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at 700 W
-F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores, the same sheet
 
 
 def _card() -> str:
@@ -261,98 +296,6 @@ def _rel_err(yr, yi, ref) -> float:
         raise AssertionError("non-finite transform output")
     return (torch.linalg.vector_norm(y - ref)
             / torch.linalg.vector_norm(ref)).item()
-
-
-def _fft_flops(n: int) -> float:
-    """f32 operations per complex element of one length-n c2c, by the
-    5 n log2(n) convention (the operations the transform needs, not what
-    the dense-DFT core happens to execute)."""
-    return 5 * math.log2(n)
-
-
-def _table_bytes(n: int) -> int:
-    from offt_tpu_torch.kernels import tables as tb
-    return 8 * (n + sum(tb.core_stages(tb._pick_stages(n))))
-
-
-def _work(name: str, shape) -> tuple:
-    """(bytes, f32 flops) a kernel must move and do at its timed shape:
-    each input read once (data and tables), each output written once; a
-    length-n c2c at 5 n log2(n), an r2c or c2r at 2.5 n log2(n) (5 log2(n)
-    per half-length element), the four-step twiddle at 6 flops, the
-    untangle and re-tangle at 10 and 16 per output (``icrfft_last``: 16
-    per real output)."""
-    if name == "fft_last":
-        b, n = shape
-        e = b * n
-        return 16 * e + _table_bytes(n), e * _fft_flops(n)
-    if name == "fft_axis":                  # x from the padded (X, Y, Z+8)
-        x, y, zp = shape
-        e = x * y * (zp - 8)
-        return 16 * e + _table_bytes(x), e * _fft_flops(x)
-    if name == "fft_slab":
-        p, y, z = shape
-        e = p * y * z
-        return (16 * e + _table_bytes(y) + _table_bytes(z),
-                e * (_fft_flops(z) + _fft_flops(y)))
-    if name == "rfft_slab":
-        p, y, n = shape
-        e = p * y * (n // 2)
-        return (4 * p * y * n + 8 * e + _table_bytes(y)
-                + _table_bytes(n // 2) + 4 * n,
-                e * (_fft_flops(n) + 10 + _fft_flops(y)))
-    if name == "irfft_slab":                # (P, Y, M + 8) -> (P, Y, 2M)
-        p, y, mp = shape
-        m = mp - 8
-        e = p * y * m
-        return (8 * e + 8 * p * y + 8 * e + _table_bytes(y) + _table_bytes(m)
-                + 16 * m, e * (_fft_flops(y) + 16 + _fft_flops(2 * m)))
-    if name == "assemble_mp1":
-        p, y, m = shape
-        return 8 * p * y * m + 16 * p * y + 8 * p * y * (m + 1), 0
-    if name == "rfft_last":                 # numpy layout
-        b, n = shape
-        m = n // 2
-        return (4 * b * n + 8 * b * (m + 1) + _table_bytes(m) + 4 * n,
-                b * m * (_fft_flops(n) + 10))
-    if name == "icrfft_last":               # packed (B, M) -> real (B, 2M)
-        b, m = shape
-        n = 2 * m
-        return (8 * b * m + 4 * b * n + _table_bytes(m) + 16 * m,
-                b * (2.5 * n * math.log2(n) + 16 * n))
-    if name == "step1_twiddle":
-        b, n1, n2 = shape
-        e = b * n1 * n2
-        return (16 * e + 8 * n1 * n2 + _table_bytes(n1),
-                e * (_fft_flops(n1) + 6))
-    if name == "step3_transposed":
-        b, n1, n2 = shape
-        e = b * n1 * n2
-        return 16 * e + _table_bytes(n2), e * _fft_flops(n2)
-    if name == "fft_cube":                  # (B, X, Y, Z): one read, one write
-        b, x, y, z = shape
-        e = b * x * y * z
-        tabs = _table_bytes(x) + _table_bytes(y)
-        if z > 4096:    # the split z: the pair's tables and the twiddle
-            from offt_tpu_torch.kernels import fourstep
-            n1, n2 = fourstep.pick_split(z)
-            tabs += _table_bytes(n1) + _table_bytes(n2) + 8 * z
-        else:
-            tabs += _table_bytes(z)
-        return (16 * e + tabs,
-                e * (_fft_flops(x) + _fft_flops(y) + _fft_flops(z)))
-    raise KeyError(name)
-
-
-def _bound(name: str, shape) -> tuple:
-    """(bound ms, "bytes" or "operations") at the card's published peaks."""
-    return _roofline(*_work(name, shape))
-
-
-def _roofline(nbytes: int, flops: int) -> tuple:
-    tb_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    tf_ms = flops / F32_FLOP_PER_S * 1e3
-    return (tb_ms, "bytes") if tb_ms >= tf_ms else (tf_ms, "operations")
 
 
 def _library(name: str, shape, gen):
@@ -1045,6 +988,7 @@ def long1d_times(ot, fs, tb, long1d, gen, mesh, show, show_breakdown,
     (what one rank of four computes), each with its bound and TB/s; and
     the per-stage breakdowns of 256^3 on one device and on the 1 x 1
     mesh."""
+    from offt_tpu_torch.bench.roofline import kernel_bound, kernel_work
     prm = ot.PlanParams(p1=1, use_pallas=1)
     for n in LONG1D_N[::-1]:
         label = f"2^{n.bit_length() - 1}"
@@ -1080,8 +1024,8 @@ def long1d_times(ot, fs, tb, long1d, gen, mesh, show, show_breakdown,
                  (*x3, None, False, "highest"), (1, n1 // ptot, n2))):
             r = time_cuda(fn, args, ahead=True)
             ms = r["median_ms"]
-            bms, by = _bound(what, shape)
-            nbytes = _work(what, shape)[0]
+            bms, by = kernel_bound(what, shape)
+            nbytes = kernel_work(what, shape)[0]
             show(f"kernel {what} at the 2x2 shard of {n1}*{n2} {shape}", r,
                  f", {nbytes / ms / 1e9:.3f} TB/s, {bms / ms:.3f} of its "
                  f"bound {bms:.4f} ms ({by})")
@@ -1228,6 +1172,174 @@ def tune_phase(ot, window, tag, cases=TUNE_CASES, device="cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- 3k: the bench layer; 3l: the probes ----------------------------------
+
+# runfft's cases on the card (its own --verify on the seeded and golden
+# inputs; `-a torch` is cuFFT through torch.fft, the driver's yardstick)
+RUNFFT_CASES = (
+    ("256^3 c2c offt", ["-N", "256", "-a", "offt", "--verify", "-r",
+                        "20"]),
+    ("256^3 c2c torch", ["-N", "256", "-a", "torch", "-r", "20"]),
+    ("256^3 r2c packed", ["-N", "256", "-R", "--packed", "--verify", "-r",
+                          "20"]),
+    ("256^3 r2c", ["-N", "256", "-R", "--verify", "-r", "20"]),
+    ("256^3 c2r", ["-N", "256", "-R", "-i", "--verify", "-r", "20"]),
+)
+RUNFFT_KERNELS = ("fft_slab", "fft_axis", "rfft_slab", "irfft_slab")
+BASELINE_KERNELS = RUNFFT_KERNELS + ("step1_twiddle", "step3_transposed")
+# probe_mma against its plain version at R = 1 on the same inputs
+# (max |kernel - plain| / max |plain|): the tensor cores sum each mma's
+# 8-16 products at their own alignment and the k-steps in their order,
+# the plain version's matmul in another; the f32 tier's FMA chain against
+# cuBLAS's SGEMM. TOL_MMA on the timing operands (c = 0.25; the card read
+# at most 3.1e-7), TOL_MMA_DFT on the 128-point DFT stage's products
+# (c = 0, where the low-order products are a larger share of the output;
+# the card read 1.7e-6, 3.5e-7, 1.8e-6, 8.9e-7 and 0). A dropped or
+# garbled low-order product shows in the stage's error against float64,
+# held to probe_mxuwidth.CEILING.
+TOL_MMA = {"stack6": 1e-6, "stack6-six": 1e-6, "3xtf32": 1e-6,
+           "tf32": 1e-6, "fma": TOL_KERNEL}
+TOL_MMA_DFT = {"stack6": 2.5e-6, "stack6-six": 5e-7, "3xtf32": 2.5e-6,
+               "tf32": 1.5e-6, "fma": TOL_KERNEL}
+
+
+def _captured(fn, argv):
+    """(exit code, stdout, stderr) of a command-line ``fn(argv)`` run in
+    this process."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = fn(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue()
+
+
+def bench_phase(window, tag, cases=RUNFFT_CASES, suite_argv=(),
+                device="cuda", tol=TOL_PATH) -> dict:
+    """Path 3k: ``runfft.main`` on ``cases``, then ``baseline_suite.main``,
+    each in a counter window of its own; every run exits 0, every
+    ``--verify`` rel_err within ``tol``, every suite record passes (config
+    3 skipped on one card). {window label: (reading, kernels)}."""
+    from offt_tpu_torch.bench import baseline_suite, runfft
+
+    def run_cli():
+        return [(label, *_captured(runfft.main, [*argv, "--device", device]))
+                for label, argv in cases]
+    res, cli = window(run_cli)
+    for label, rc, so, se in res:
+        errs = [float(e) for e in
+                re.findall(r"verify(?: golden)? rel_err = (\S+)", se)]
+        rec = json.loads(so.strip().splitlines()[-1]) if so.strip() else {}
+        print(f"runfft {label}: rc {rc}, {rec}, verify rel_err {errs} "
+              f"(tol {tol:g}) {tag}", flush=True)
+        if rc != 0 or "t_ms" not in rec or any(e > tol for e in errs) or (
+                "--verify" in dict(cases)[label] and len(errs) != 2):
+            raise AssertionError(f"runfft {label}: rc {rc}, {se[-800:]}")
+    (rc, so, se), suite = window(
+        lambda: _captured(baseline_suite.main, [*suite_argv, "--device",
+                                                device]))
+    recs = [json.loads(ln) for ln in so.splitlines() if ln.startswith("{")]
+    for rec in recs:
+        print(f"baseline {json.dumps(rec)} {tag}", flush=True)
+    got = sorted(r["config"] for r in recs)
+    if rc != 0 or got != [1, 2, 3, 4, 5] or not all(
+            r.get("pass") or r.get("skipped") for r in recs):
+        raise AssertionError(f"baseline suite: rc {rc}, configs {got}, "
+                             f"{se[-800:]}")
+    return {"runfft": (cli, RUNFFT_KERNELS),
+            "baseline": (suite, BASELINE_KERNELS)}
+
+
+def probe_checks(ff, pm, pr, sms, tag) -> dict:
+    """Phase 2 for the probes: ``probe_mma`` at every variant against its
+    plain version at R = 1 on the ledger's inputs (B = the SM count, every
+    case's L) and on the products of the accuracy rows' 128-point DFT
+    draws (c = 0); each variant's DFT-stage error against float64 within
+    its ceiling (``probe_mxuwidth.CEILING``); the r2c slab's wider-tile
+    codes against its full kernel (1e-6). {kernel-line name: max abs
+    err}."""
+    errs = {}
+
+    def hold(v, got, want, tol, what):
+        rel, absd = _max_err(got, want)
+        if rel > tol:
+            raise AssertionError(f"probe_mma {v} disagrees with its plain "
+                                 f"version on {what}: {rel:.3e} > {tol:g}")
+        errs[f"probe_mma:{v}"] = max(errs.get(f"probe_mma:{v}", 0.0), absd)
+        return rel
+    for v in pm.VARIANTS:
+        for lanes, _ in pm.CASES:
+            x, g = pm.inputs(v, sms, lanes, "cuda", seed=1)
+            rel = hold(v, pm.probe_mma(x, g, 1, v),
+                       pm.probe_mma.plain(x, g, 1, v), TOL_MMA[v],
+                       f"({sms}, 128, {lanes})")
+            print(f"check probe_mma:{v} ({sms}, 128, {lanes}), R = 1: max "
+                  f"rel err {rel:.3e} (tol {TOL_MMA[v]:g}) {tag}", flush=True)
+            del x, g
+        worst = 0.0
+        for seed in pm.SEEDS:
+            for lanes in pm.WIDTHS:
+                draw = pm.dft_draw(seed, lanes)
+                for g, a in pm.dft_products(v, draw, "cuda"):
+                    worst = max(worst, hold(
+                        v, pm.probe_mma(a, g, 1, v, 0.0),
+                        pm.probe_mma.plain(a, g, 1, v, 0.0), TOL_MMA_DFT[v],
+                        f"DFT draw ({seed}, {lanes})"))
+        print(f"check probe_mma:{v} on the DFT stage's products, c = 0, "
+              f"{len(pm.SEEDS) * len(pm.WIDTHS)} draws: max rel err "
+              f"{worst:.3e} (tol {TOL_MMA_DFT[v]:g}) {tag}", flush=True)
+    for row in pm.accuracy_rows("cuda"):
+        print(f"probe mxuwidth accuracy {row['variant']}: rel err "
+              f"{row['rel_err']:.3e} on a 128-point DFT stage, the largest "
+              f"of {row['draws']} draws (seed {row['seed']}, L {row['L']}); "
+              f"ceiling {row['ceiling']:g}, bar {row['bar']:g}: "
+              f"{'meets' if row['meets_bar'] else 'misses'} {tag}",
+              flush=True)
+        if row["rel_err"] > row["ceiling"]:
+            raise AssertionError(f"probe_mma {row['variant']}: DFT-stage "
+                                 f"error {row['rel_err']:.3e} over its "
+                                 f"ceiling {row['ceiling']:g}")
+    for code, (rel, absd) in pr.check().items():
+        print(f"check rfft_slab phases={code} (512, 512, 512) against "
+              f"phases=full: max rel err {rel:.3e}, max abs err {absd:.3e} "
+              f"(tol {TOL_KERNEL:g}) {tag}", flush=True)
+        if rel > TOL_KERNEL:
+            raise AssertionError(f"rfft_slab {code} disagrees with full")
+        errs[f"rfft_slab:{code}"] = absd
+    torch.cuda.empty_cache()
+    return errs
+
+
+def probe_phase(ff, pm, pr, sms, window, tag) -> tuple:
+    """Path 3l: each probe variant through its entry point in a counter
+    window of its own: ``probe_mma`` at the ledger's cases (R = 1), each
+    r2c slab code at 512^3. ({variant: launches}, {window: reading})."""
+    mma = {}
+    for v in pm.VARIANTS:
+        def run(v=v):
+            pm.reset_counts()
+            for lanes, _ in pm.CASES:
+                x, g = pm.inputs(v, sms, lanes, "cuda")
+                pm.probe_mma(x, g, 1, v)
+            return dict(pm.probe_mma.launches), pm.probe_mma.plain_calls
+        (launched, plain), _ = window(run)
+        others = {k: n for k, n in launched.items() if k != v and n}
+        print(f"probe window probe_mma:{v}: launches {launched[v]}, plain "
+              f"calls {plain} {tag}", flush=True)
+        if launched[v] != len(pm.CASES) or plain or others:
+            raise AssertionError(f"probe_mma {v}: {launched}, plain {plain}")
+        mma[v] = launched[v]
+    x = pr._input()
+    readings = {}
+    for code in pr.CODES:
+        _, readings[f"ryconcat:{code}"] = window(
+            lambda code=code: ff.rfft_slab_yz(x, zpad=pr.ZPAD, phases=code))
+    del x
+    torch.cuda.empty_cache()
+    return mma, readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is visible",
@@ -1241,6 +1353,11 @@ def main() -> int:
         print(f"chip_smoke.py needs the offt_tpu_torch package beside it: "
               f"{e}", file=sys.stderr)
         return 1
+    from offt_tpu_torch.bench import probe_mxuwidth as pm
+    from offt_tpu_torch.bench import probe_ryconcat as pr
+    from offt_tpu_torch.bench.roofline import (fft_flops, kernel_bound,
+                                               kernel_work, roofline_ms,
+                                               table_bytes)
     from offt_tpu_torch.dist import long1d
     from offt_tpu_torch.kernels import _build
     from offt_tpu_torch.kernels import fourstep as fs
@@ -1534,6 +1651,8 @@ def main() -> int:
     missing = set(ff.KERNELS) - set(per_kernel)
     if missing:
         raise AssertionError(f"kernels without a check: {sorted(missing)}")
+    # the probes: probe_mma's variants, the r2c slab's wider-tile codes
+    probe_errs = probe_checks(ff, pm, pr, sms, tag)
 
     # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
@@ -1991,6 +2110,18 @@ def main() -> int:
     print(f"phase 3j: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 3k. the bench layer: runfft and the BASELINE suite ---------------
+    t0 = time.perf_counter()
+    bench_runs = bench_phase(lambda fn: _window(ff, fn), tag)
+    print(f"phase 3k: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 3l. the probes through their entry points -----------------------
+    t0 = time.perf_counter()
+    mma_launches, probe_runs = probe_phase(ff, pm, pr, sms,
+                                           lambda fn: _window(ff, fn), tag)
+    print(f"phase 3l: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 4. the counters -----------------------------------------------
     path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
                     "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
@@ -2009,7 +2140,8 @@ def main() -> int:
                     "long1d_adjoint": ("step1_twiddle", "step3_transposed"),
                     "mesh_namespace": ("step1_twiddle", "step3_transposed",
                                        "fft_last", "fft_axis", "rfft_last")}
-    for label, (reading, kernels) in {**grad_runs, **tune_runs}.items():
+    for label, (reading, kernels) in {**grad_runs, **tune_runs,
+                                      **bench_runs}.items():
         runs[label] = reading
         path_kernels[label] = kernels
     for path, (counts, launched, regs) in runs.items():
@@ -2025,6 +2157,16 @@ def main() -> int:
                  for k in REG_CORE if launched[k]}
         print(f"{path} path launches per kernel: {launched}; row-kernel "
               f"cores: {cores}; plain calls: 0")
+    # 3l: each r2c slab code's window launched rfft_slab once, on the
+    # register core, and no plain version
+    for label, (counts, launched, regs) in probe_runs.items():
+        plain = {k: v[1] for k, v in counts.items() if v[1]}
+        ran = {k: n for k, n in launched.items() if n}
+        if ran != {"rfft_slab": 1} or regs["rfft_slab"] != 1 or plain:
+            raise AssertionError(f"probe window {label}: {ran}, register "
+                                 f"{regs['rfft_slab']}, plain {plain}")
+        print(f"{label} window launches per kernel: {ran}; register core; "
+              "plain calls: 0")
     # the one fft_last length of 3a is N = 1024 (the 64 x 1024^2 case);
     # 3d runs rfft_last at N = 256 (256^3) and N = 192 (192^3, dense)
     c2c_last = runs["c2c"][1]["fft_last"]
@@ -2275,8 +2417,8 @@ def main() -> int:
                 r_d = time_cuda(fn, args, ahead=True)["median_ms"]
             ms = r["median_ms"]
             pair_ms += ms
-            bms, by = _bound(what, (b, n1, n2))
-            nbytes = _work(what, (b, n1, n2))[0]
+            bms, by = kernel_bound(what, (b, n1, n2))
+            nbytes = kernel_work(what, (b, n1, n2))[0]
             core = "register" if ff._reg_core(n_k) else "dense"
             show(f"kernel {what} ({b}, {n1}, {n2}), {core} core", r,
                  f", {nbytes / ms / 1e9:.3f} TB/s, {bms / ms:.3f} of its "
@@ -2401,7 +2543,7 @@ def main() -> int:
         r_p = time_cuda(lambda: ff.fft3d_planar(xr, xi, **kw), ahead=True)
         r_lib = time_cuda(torch.fft.fftn, (torch.complex(xr, xi), None,
                                            (-3, -2, -1)), ahead=True)
-        bms, by = _bound("fft_cube", shape if len(shape) == 4
+        bms, by = kernel_bound("fft_cube", shape if len(shape) == 4
                          else (1, *shape))
         c, p, lib = r_c["median_ms"], r_p["median_ms"], r_lib["median_ms"]
         cube_rows.append({"shape": list(shape), "ms": c,
@@ -2502,7 +2644,7 @@ def main() -> int:
     p320 = time_cuda(fn320, args320)["median_ms"]
     f320 = time_cuda(torch.fft.fftn, (torch.complex(*c320),))["median_ms"]
     e320 = 320 ** 3
-    b320, _ = _roofline(16 * e320, 3 * e320 * _fft_flops(320))
+    b320, _ = roofline_ms(16 * e320, 3 * e320 * fft_flops(320))
     print(f"path c2c 320^3 (plan): {p320:.4f} ms, "
           f"{3 * 16 * e320 / p320 / 1e9:.3f} TB/s over its three passes' "
           f"{3 * 16 * e320} bytes, {b320 / p320:.3f} of its {b320:.4f} ms "
@@ -2541,13 +2683,23 @@ def main() -> int:
                                       probe_rslab512, probe_slabparts,
                                       probe_yconcat)
     for probe in (probe_slabparts, probe_rslab512, probe_yconcat,
-                  probe_fourstep, probe_cube):
+                  probe_fourstep, probe_cube, pr):
         for row in probe.ledger():
             rate = (f", {row['tb_s']:.3f} TB/s over {row['bytes']} bytes"
                     if row["bytes"] else "")
             print(f"probe {row['probe']} {row['phase']}: {row['ms']:.4f} ms, "
                   f"{row['of_full']:.3f} of full{rate} {tag}", flush=True)
         torch.cuda.empty_cache()
+    # the stage product by precision tier (probe_mxuwidth): each variant's
+    # rate at the reference's (L, R) cases beside one torch.matmul at its
+    # precision (its error on a DFT stage is phase 2's)
+    for row in pm.ledger():
+        print(f"probe mxuwidth {row['variant']} L={row['L']} R={row['R']} "
+              f"B={row['B']}: {row['us_per_call']:.1f} us a call, "
+              f"{row['tflops']:.2f} TFLOP/s, {row['of_peak']:.3f} of the "
+              f"tier's peak; torch.matmul {row['matmul_us']:.1f} us, "
+              f"{row['matmul_tflops']:.2f} TFLOP/s {tag}", flush=True)
+    torch.cuda.empty_cache()
     # both row kernels at every register-core length n (fft_last at
     # N = n on 2^24 complex elements, rfft_last at M = n on 2^25 real
     # inputs, numpy layout), on the register core and on the dense core:
@@ -2619,11 +2771,11 @@ def main() -> int:
             r_l = time_cuda(*lib[1:], ahead=True)
             lib_ms = r_l["median_ms"]
             show(f"library {name} (torch.fft.{lib[0]}) {shape}", r_l)
-        bms, by = _bound(name, shape)
+        bms, by = kernel_bound(name, shape)
+        nbytes = kernel_work(name, shape)[0]
         print(f"bound {name} {shape}: {bms:.4f} ms ({by}); kernel at "
               f"{bms / r_k['median_ms']:.3f} of it, "
-              f"{_work(name, shape)[0] / r_k['median_ms'] / 1e9:.3f} TB/s "
-              f"{tag}")
+              f"{nbytes / r_k['median_ms'] / 1e9:.3f} TB/s {tag}")
         extra = {}
         if name in REG_CORE:
             with _dense_core(ff):
@@ -2644,8 +2796,8 @@ def main() -> int:
                             reps=3)["median_ms"]
             lib_m = _library(name, shp, gen)
             m_l = time_cuda(*lib_m[1:], ahead=True)["median_ms"]
-            mb, mby = _bound(name, shp)
-            nbytes = _work(name, shp)[0]
+            mb, mby = kernel_bound(name, shp)
+            nbytes = kernel_work(name, shp)[0]
             print(f"kernel {name} {shp} (mixed): register core {m_k:.4f} ms "
                   f"({nbytes / m_k / 1e9:.3f} TB/s, {mb / m_k:.3f} of its "
                   f"bound), dense core {m_d:.4f} ms, plain {m_p:.4f} ms, "
@@ -2704,8 +2856,8 @@ def main() -> int:
                 xc = torch.complex(xt[0][..., :lanes], xt[1][..., :lanes])
                 r_l = time_cuda(torch.fft.fft, (xc, None, ax),
                                 ahead=True)["median_ms"]
-                xb, xby = _roofline(16 * e + _table_bytes(n),
-                                    e * _fft_flops(n))
+                xb, xby = roofline_ms(16 * e + table_bytes(n),
+                                      e * fft_flops(n))
                 core = (f"register core ({ff._axis_tile(n)} tile)"
                         if ff._reg_axis(n) else "dense core")
                 print(f"kernel fft_axis via {what} {shp} axis {ax}: {core} "
@@ -2728,7 +2880,7 @@ def main() -> int:
                     return fn(*xt, 2 * m, scale=1 / (p * y * m),
                               side_r=side[0], side_i=side[1])
                 r_r = time_cuda(c2r, ahead=True)["median_ms"]
-                xb, xby = _bound("irfft_slab", (p, y, m + 8))
+                xb, xby = kernel_bound("irfft_slab", (p, y, m + 8))
                 if ff._cluster_irslab(y, m):
                     keep = ff._cluster_irslab
                     ff._cluster_irslab = lambda ny, nm: False
@@ -2761,6 +2913,56 @@ def main() -> int:
                        "bound_ms": bms, "bound_by": by,
                        "library_ms": lib_ms, **extra})
         del x, lib
+    # the probes: probe_mma at every variant, one iteration (R = 1) of
+    # (SMs, 128, 1024) operands, beside its plain version and one
+    # torch.matmul of the same product at its precision; the r2c slab's
+    # wider-tile codes at 512^3 beside the plain version and rfft2
+    for v in pm.VARIANTS:
+        shape = (sms, 1024, 1)
+        x, g = pm.inputs(v, sms, 1024, "cuda")
+        r_k = time_cuda(pm.probe_mma, (x, g, 1, v), ahead=True)
+        r_p = time_cuda(pm.probe_mma.plain, (x, g, 1, v), warmup=1, reps=5)
+        call, _ = pm._matmul_call(v, sms, 1024, gen)
+        r_l = time_cuda(call, ahead=True)
+        bms, by = kernel_bound(f"probe_mma:{pm.tier(v)}", shape)
+        show(f"kernel probe_mma:{v} (B, L, R) {shape}", r_k,
+             f", {bms / r_k['median_ms']:.3f} of its bound")
+        show(f"plain probe_mma:{v} {shape}", r_p)
+        show(f"library torch.matmul at the {pm.tier(v)} tier's precision "
+             f"{shape}", r_l)
+        report.append({"name": f"probe_mma:{v}", "route": "cuda",
+                       "source": "offt_tpu_torch/kernels/csrc/probe_mma.cu",
+                       "replaces": "docs/receipts/probe_mxuwidth.py:50",
+                       "launches": mma_launches[v],
+                       "max_abs_err": probe_errs[f"probe_mma:{v}"],
+                       "tol": TOL_MMA[v], "shape": list(shape),
+                       "ms": r_k["median_ms"], "plain_ms": r_p["median_ms"],
+                       "bound_ms": bms, "bound_by": by,
+                       "library_ms": r_l["median_ms"]})
+        del x, g, call
+    x = pr._input()
+    r_p = time_cuda(lambda: ff.rfft_slab_yz.plain(x, zpad=pr.ZPAD),
+                    warmup=1, reps=3)
+    r_l = time_cuda(torch.fft.rfft2, (x,), ahead=True)
+    bms, by = kernel_bound("rfft_slab", tuple(x.shape))
+    for code in pr.CODES:
+        r_k = time_cuda(lambda code=code: ff.rfft_slab_yz(
+            x, zpad=pr.ZPAD, phases=code), ahead=True)
+        show(f"kernel rfft_slab phases={code} {tuple(x.shape)}", r_k,
+             f", {bms / r_k['median_ms']:.3f} of its bound")
+        reading = probe_runs[f"ryconcat:{code}"]
+        report.append({"name": f"rfft_slab:{code}", "route": "cuda",
+                       "source": "offt_tpu_torch/kernels/csrc/rfft_slab.cu",
+                       "replaces": "docs/receipts/probe_ryconcat.py:50",
+                       "launches": reading[1]["rfft_slab"],
+                       "max_abs_err": probe_errs[f"rfft_slab:{code}"],
+                       "tol": TOL_KERNEL, "shape": list(x.shape),
+                       "ms": r_k["median_ms"], "plain_ms": r_p["median_ms"],
+                       "bound_ms": bms, "bound_by": by,
+                       "library_ms": r_l["median_ms"]})
+    show(f"plain rfft_slab {tuple(x.shape)}", r_p)
+    show(f"library rfft_slab (torch.fft.rfft2) {tuple(x.shape)}", r_l)
+    del x
     # the pair computes what one fft of the whole transform computes
     rows = {r["name"]: r for r in report}
     pair_ms = rows["step1_twiddle"]["ms"] + rows["step3_transposed"]["ms"]

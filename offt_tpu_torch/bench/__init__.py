@@ -1,4 +1,11 @@
-"""Probes of the port's kernels on the card.
+"""The port's benchmark drivers, roofline and probes of its kernels.
+
+``runfft`` is the run-fft driver (``offt-torch-bench``; port of
+``offt_tpu/bench/runfft.py``), ``baseline_suite`` runs BASELINE.json's
+five configurations, and ``roofline`` holds the H100's published peaks
+(``CHIPS``, ``ChipSpec``), the 3-D transform's bound (``Roofline``,
+``fft3d_roofline``, the reference's public names) and the one count of
+each kernel's bytes and operations (``kernel_work``, ``kernel_bound``).
 
 ``probe_slabparts`` and ``probe_rslab512`` are the H100 phase ledgers of
 the two register-core slab kernels, the counterparts of the reference's
@@ -22,10 +29,19 @@ the host paces, with and without the autograd Function, against another
 checkout's (``--root``). ``mesh4`` runs the distributed engines over
 NCCL on four cards of one host: the long-1-D engine on a 2 x 2 mesh
 against ``torch.fft`` and one card's plan, stage by stage, and the
-pencil breakdown.
+pencil breakdown. ``probe_mxuwidth`` (after
+``docs/receipts/probe_mxuwidth.py``) times the stage product by
+precision tier on its own kernel (``csrc/probe_mma.cu``) and
+``probe_ryconcat`` (after ``docs/receipts/probe_ryconcat.py``) the r2c
+slab's y pass on wider lane tiles (``phases`` of
+``fused_fft.rfft_slab_yz``).
 """
 
 from __future__ import annotations
+
+from .roofline import CHIPS, ChipSpec, Roofline, fft3d_roofline
+
+__all__ = ["CHIPS", "ChipSpec", "Roofline", "fft3d_roofline", "phase_rows"]
 
 
 def phase_rows(probe: str, phases) -> list[dict]:

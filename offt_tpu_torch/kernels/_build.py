@@ -56,6 +56,7 @@ _SIGNATURES = {
     "offt_fft_cube": [_P] * 10 + [_L] + [_I] * 21 + [_P],
     "offt_fft_cube_regs": [_P] * 11 + [_L] + [_I] * 5 + [_L, _I, _F, _I,
                                                        _P, _P],
+    "offt_probe_mma": [_P, _P, _P, _L, _I, _I, _F, _I, _P],
 }
 
 _LIB = None

@@ -708,8 +708,9 @@ rows_transposed(const float* __restrict__ xr, const float* __restrict__ xi,
 // pass reads 32 / L rows of L lanes (L < 32). Where both hold and P != L
 // (Y, Z = (256, 128), (512, 256), (1024, 128)) the y reads take two
 // wavefronts.
-template <int LY, int LZ>
+template <int LY, int LZ, int NT_ = kThreads>
 struct ClusterSlab {
+  static constexpr int NT = NT_;  // threads a block
   static constexpr int Y = 1 << LY, Z = 1 << LZ;
   // the shapes the layout takes (fused_fft._cluster_slab): z rows of at
   // least 8 threads, y lanes at most 64 a block, 2^14 to 2^17 elements
@@ -723,8 +724,19 @@ struct ClusterSlab {
                                  : ColGeo<LY>::L < 32 ? ColGeo<LY>::L
                                                       : 0);
   static constexpr int PLANE = YB * SP;  // floats of one plane
-  static constexpr size_t EX =
-      Geo<LZ>::SMEM > ColGeo<LY>::SMEM ? Geo<LZ>::SMEM : ColGeo<LY>::SMEM;
+  // NT != kThreads (the r2c slab's cost probes of wider y reads): blocks
+  // of NT threads, the z rows RZ at a time (the threads past the block's
+  // YB rows idle), the y lanes on ColGeo<LY, NT>; the slab's layout (SP)
+  // is kThreads'
+  static constexpr int RZ =
+      NT == kThreads ? Geo<LZ>::ROWS
+                     : (NT / Geo<LZ>::P < YB ? NT / Geo<LZ>::P : YB);
+  static constexpr size_t EXZ =
+      NT == kThreads ? Geo<LZ>::SMEM
+                     : (size_t)2 * RZ * Geo<LZ>::PITCH * sizeof(float);
+  static constexpr size_t EX = EXZ > ColGeo<LY, NT>::SMEM
+                                   ? EXZ
+                                   : ColGeo<LY, NT>::SMEM;
   // dynamic shared memory of a block: the slab's planes, then the
   // exchange planes of the row core and, after it, of the column variant
   static constexpr size_t SMEM = 2 * PLANE * sizeof(float) + EX;
@@ -740,12 +752,18 @@ struct ClusterSlab {
 // times `scale`. `ex`: the block's exchange planes. The caller syncs the
 // cluster before (the slab is whole) and after (no block leaves while
 // another reads its slab).
-template <int LY, int LZ, bool INV, bool CORE>
+template <int LY, int LZ, bool INV, bool CORE, int NT = kThreads>
 static __device__ __forceinline__ void cluster_cols(
     float* slab_re, float* slab_im, float* ex, const float2* tab, float* yr,
     float* yi, long long opitch, float scale, int rank) {
-  using S = ClusterSlab<LY, LZ>;
-  using C = ColGeo<LY>;
+  using S = ClusterSlab<LY, LZ, NT>;
+  using C = ColGeo<LY, NT>;
+  // lanes a block: ZB, or a tile's L where the tile is wider (the cost
+  // probes: the ranks past Z / L run no y lanes)
+  constexpr int W = C::L > S::ZB ? C::L : S::ZB;
+  if constexpr (W > S::ZB) {
+    if (rank * W >= S::Z) return;
+  }
   const int l = threadIdx.x % C::L;
   const int t = threadIdx.x / C::L;
   float* sre = ex + l;
@@ -753,7 +771,7 @@ static __device__ __forceinline__ void cluster_cols(
   float2 v[kE];
   const unsigned re0 = (unsigned)__cvta_generic_to_shared(slab_re);
   const unsigned im0 = (unsigned)__cvta_generic_to_shared(slab_im);
-  for (int z0 = rank * S::ZB; z0 < (rank + 1) * S::ZB; z0 += C::L) {
+  for (int z0 = rank * W; z0 < (rank + 1) * W; z0 += C::L) {
     const int z = z0 + l;
     auto load = [&](int e) {
       const unsigned at = 4u * ((e % S::YB) * S::SP + z);
@@ -788,7 +806,7 @@ static cudaError_t launch_cluster(K kernel, long long rows,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(rows * S::C));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(S::NT);
   cfg.dynamicSmemBytes = S::SMEM;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];

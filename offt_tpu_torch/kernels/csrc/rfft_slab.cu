@@ -38,6 +38,12 @@
 // compiled out), nount (the untangle left out: V itself goes on to y)
 // and copy (the transforms and the untangle compiled out: the layout's
 // traffic alone); `grids` is the two-grid layout, chosen by the wrapper.
+// Three more write what the kernel writes, the y pass on wider lane tiles
+// (the counterpart of docs/receipts/probe_ryconcat.py's lane-concatenated
+// y stage): y16 and y32, the cluster layout in blocks of 512 and 1024
+// threads (16 and 32 lanes a y wavefront, one wavefront a read, where
+// blocks of 256 read 8 lanes in two; y32's ranks 8-15 run no y lanes),
+// and grids_wide, the two-grid layout with its y grid on the wide tile.
 
 #include "fft_core.cuh"
 #include "regs_kernels.cuh"
@@ -83,15 +89,16 @@ rfft_slab_kernel(const float* x, float* yr, float* yi,
 // untangle into its slab planes); the cluster syncs; each block runs its
 // y lanes from the cluster's planes to the output. Unscaled. ZC, UNT,
 // YC = false: the cost probes with the z transform, the untangle or the
-// y transform compiled out.
-template <int LY, int LM, bool ZC = true, bool UNT = true, bool YC = true>
-__global__ void __launch_bounds__(kThreads,
-                                  regs::ClusterSlab<LY, LM>::MINB)
+// y transform compiled out; NT != kThreads: the cost probes with blocks
+// of NT threads, whose y pass reads NT / P lanes a wavefront.
+template <int LY, int LM, bool ZC = true, bool UNT = true, bool YC = true,
+          int NT = kThreads>
+__global__ void __launch_bounds__(NT, (regs::ClusterSlab<LY, LM, NT>::MINB))
 rslab_cluster(const float* x, float* yr, float* yi,
               const float2* __restrict__ tabz,
               const float2* __restrict__ taby, const float2* __restrict__ w,
               long long opitch) {
-  using S = regs::ClusterSlab<LY, LM>;
+  using S = regs::ClusterSlab<LY, LM, NT>;
   using G = regs::Geo<LM>;
   constexpr int M = G::N;
   extern __shared__ __align__(16) float csm[];
@@ -103,72 +110,87 @@ rslab_cluster(const float* x, float* yr, float* yi,
   const long long p = blockIdx.x / S::C;
   const int g = threadIdx.x / G::P;
   const int t = threadIdx.x % G::P;
+  // the rows a block holds, S::RZ at a time; with NT threads past them
+  // (RZ P < NT) the surplus threads idle through the z pass
+  static_assert(NT == kThreads || G::P <= 32, "a z row within a warp");
+  const bool zrow = S::RZ * G::P == NT || g < S::RZ;
   float* sre = ex + g * G::PITCH;
-  float* sim = ex + (G::ROWS + g) * G::PITCH;
+  float* sim = ex + (S::RZ + g) * G::PITCH;
   float2 v[regs::kE];
-  for (int r0 = 0; r0 < S::YB; r0 += G::ROWS) {
-    const int yl = r0 + g;
-    const float2* xrow = reinterpret_cast<const float2*>(x) +
-                         (p * S::Y + rank * S::YB + yl) * M;
-    auto keep = [&](int e, float2& y) {  // V in natural order
-      sre[regs::phys(e)] = y.x;
-      sim[regs::phys(e)] = y.y;
-    };
-    if constexpr (ZC) {
-      regs::core<LM, false>(v, sre, sim, t, tabz,
-                            [&](int e) { return xrow[e]; });
-      regs::row_sync<M>();
-      regs::outputs<LM>(v, t, keep);
-    } else {
-      regs::each<M, regs::kE>(v, t, [&](int e, float2& y) { y = xrow[e]; });
-      regs::each<M, regs::kE>(v, t, keep);
-    }
-    regs::row_sync<M>();
-    // the pairs (k, M - k), k = t + i P over [0, M/2), and X[M/2] by
-    // thread 0, into the block's slab row; lane 0 the packed X[0] + i X[M]
-    float* dr = slab_re + yl * S::SP;
-    float* di = slab_im + yl * S::SP;
-    auto pair = [&](int k, float2& xk, float2& xmk) {
-      if constexpr (UNT) {
-        regs::untangle_pair<M>(sre, sim, w, k, 0.5f, xk, xmk);
-      } else {  // V[k] and V[M - k] themselves
-        xk = make_float2(sre[regs::phys(k)], sim[regs::phys(k)]);
-        xmk = make_float2(sre[regs::phys(M - k)], sim[regs::phys(M - k)]);
-      }
-    };
-    regs::unroll<0, regs::kE / 2>([&](auto ic) {
-      const int k = t + decltype(ic)::value * G::P;
-      if (k == 0) {
-        const float a = sre[0], b = sim[0];  // phys(0) == 0
-        dr[0] = UNT ? a + b : a;
-        di[0] = UNT ? a - b : b;
+  for (int r0 = 0; r0 < S::YB; r0 += S::RZ) {
+    if (zrow) {
+      const int yl = r0 + g;
+      const float2* xrow = reinterpret_cast<const float2*>(x) +
+                           (p * S::Y + rank * S::YB + yl) * M;
+      auto keep = [&](int e, float2& y) {  // V in natural order
+        sre[regs::phys(e)] = y.x;
+        sim[regs::phys(e)] = y.y;
+      };
+      if constexpr (ZC) {
+        regs::core<LM, false>(v, sre, sim, t, tabz,
+                              [&](int e) { return xrow[e]; });
+        regs::row_sync<M>();
+        regs::outputs<LM>(v, t, keep);
       } else {
-        float2 xk, xmk;
-        pair(k, xk, xmk);
-        dr[k] = xk.x;
-        di[k] = xk.y;
-        dr[M - k] = xmk.x;
-        di[M - k] = xmk.y;
+        regs::each<M, regs::kE>(v, t,
+                                [&](int e, float2& y) { y = xrow[e]; });
+        regs::each<M, regs::kE>(v, t, keep);
       }
-    });
-    if (t == 0) {
-      float2 mid;
-      pair(M / 2, mid, mid);
-      dr[M / 2] = mid.x;
-      di[M / 2] = mid.y;
+      regs::row_sync<M>();
+      // the pairs (k, M - k), k = t + i P over [0, M/2), and X[M/2] by
+      // thread 0, into the block's slab row; lane 0 the packed X[0] + i X[M]
+      float* dr = slab_re + yl * S::SP;
+      float* di = slab_im + yl * S::SP;
+      auto pair = [&](int k, float2& xk, float2& xmk) {
+        if constexpr (UNT) {
+          regs::untangle_pair<M>(sre, sim, w, k, 0.5f, xk, xmk);
+        } else {  // V[k] and V[M - k] themselves
+          xk = make_float2(sre[regs::phys(k)], sim[regs::phys(k)]);
+          xmk = make_float2(sre[regs::phys(M - k)], sim[regs::phys(M - k)]);
+        }
+      };
+      regs::unroll<0, regs::kE / 2>([&](auto ic) {
+        const int k = t + decltype(ic)::value * G::P;
+        if (k == 0) {
+          const float a = sre[0], b = sim[0];  // phys(0) == 0
+          dr[0] = UNT ? a + b : a;
+          di[0] = UNT ? a - b : b;
+        } else {
+          float2 xk, xmk;
+          pair(k, xk, xmk);
+          dr[k] = xk.x;
+          di[k] = xk.y;
+          dr[M - k] = xmk.x;
+          di[M - k] = xmk.y;
+        }
+      });
+      if (t == 0) {
+        float2 mid;
+        pair(M / 2, mid, mid);
+        dr[M / 2] = mid.x;
+        di[M / 2] = mid.y;
+      }
     }
     __syncthreads();  // every row has read the exchange planes
   }
   cluster.sync();
-  regs::cluster_cols<LY, LM, false, YC>(slab_re, slab_im, ex, taby,
-                                          yr + p * S::Y * opitch,
-                                          yi + p * S::Y * opitch, opitch,
-                                          1.f, rank);
+  regs::cluster_cols<LY, LM, false, YC, NT>(slab_re, slab_im, ex, taby,
+                                              yr + p * S::Y * opitch,
+                                              yi + p * S::Y * opitch, opitch,
+                                              1.f, rank);
   cluster.sync();
 }
 
 // the register slab's phases (fused_fft._RSLAB_PHASES)
-enum RSlabPhases { kFull = 0, kNoY = 1, kCopy = 3, kNoUntangle = 4 };
+enum RSlabPhases {
+  kFull = 0,
+  kNoY = 1,
+  kCopy = 3,
+  kNoUntangle = 4,
+  kY16 = 5,        // the cluster layout in blocks of 512: 16 y lanes
+  kY32 = 6,        // blocks of 1024: 32 y lanes, on half the ranks
+  kGridsWide = 7,  // two grids, the y grid on the wide tile (32 lanes)
+};
 
 static cudaError_t rslab_regs(const float* x, float* yr, float* yi,
                               const float2* tabz, const float2* taby,
@@ -207,10 +229,28 @@ static cudaError_t rslab_regs(const float* x, float* yr, float* yi,
                                                      gy, 1.f, s);
     });
   }
-  // the probes, of the cluster layout at Y = 512, M = 256
+  // the probes, at Y = 512, M = 256: the two-grid layout with its y grid
+  // on the column variant's wide tile (ColGeo<9, 1024>, 32 lanes a block,
+  // where the routed one takes 8)
+  if (phases == kGridsWide) {
+    if (ny != 512 || m != 256) return cudaErrorInvalidValue;
+    cudaError_t err = launch_rows_r2c<8>(x, yr, yi, tabz, w, rows * ny, op,
+                                         1.f, 1, s);
+    if (err != cudaSuccess) return err;
+    return launch_cols<9, false, 1024>(yr, yi, yr, yi, taby, gy, 1.f, s);
+  }
+  // the cluster layout's
   using S = ClusterSlab<9, 8>;
   if (!cluster || ny != 512 || m != 256) return cudaErrorInvalidValue;
   switch (phases) {
+    case kY16:
+      return launch_cluster<ClusterSlab<9, 8, 512>>(
+          rslab_cluster<9, 8, true, true, true, 512>, rows, s, x, yr, yi,
+          tabz, taby, w, op);
+    case kY32:
+      return launch_cluster<ClusterSlab<9, 8, 1024>>(
+          rslab_cluster<9, 8, true, true, true, 1024>, rows, s, x, yr, yi,
+          tabz, taby, w, op);
     case kNoY:
       return launch_cluster<S>(rslab_cluster<9, 8, true, true, false>, rows,
                                s, x, yr, yi, tabz, taby, w, op);

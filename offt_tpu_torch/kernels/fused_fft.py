@@ -369,7 +369,8 @@ def _cube_barriers(b: int, group: int, split: bool) -> int:
 # layout where the cluster one would run
 _SLAB_PHASES = {"full": 0, "zonly": 1, "yonly": 2, "copy": 3, "fused": 5,
                 "grids": 0}
-_RSLAB_PHASES = {"full": 0, "noy": 1, "copy": 3, "nount": 4, "grids": 0}
+_RSLAB_PHASES = {"full": 0, "noy": 1, "copy": 3, "nount": 4, "grids": 0,
+                 "y16": 5, "y32": 6, "grids_wide": 7}
 # the register cube's: each group stops after step 1 of the split z, after
 # z, or after z and y (csrc/fft_cube_regs.cu)
 _CUBE_PHASES = {"full": 0, "step1": 1, "z": 2, "zy": 3}
@@ -1018,7 +1019,12 @@ def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
     ``phases`` other than "full" are cost probes of the register core's
     cluster layout at Y = 512, M = 256 (``_RSLAB_PHASES``;
     ``bench/probe_rslab512.py``): "noy", "nount" and "copy"; "grids" runs
-    the two-grid layout where the cluster one would run."""
+    the two-grid layout where the cluster one would run. Three more write
+    what "full" writes with the y pass on wider lane tiles
+    (``bench/probe_ryconcat.py``): "y16" and "y32" the cluster layout in
+    blocks of 512 and 1024 threads (16 and 32 y lanes a block, where
+    "full" reads 8), "grids_wide" the two-grid layout with its y grid on
+    the column variant's wide tile (32 lanes a block)."""
     ny, n = x.shape[-2], x.shape[-1]
     if n % 2:
         raise ValueError(f"rfft slab needs an even N, got {n}")

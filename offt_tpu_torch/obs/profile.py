@@ -25,9 +25,12 @@ from typing import Callable
 import torch
 
 
-# cycles the card spins per timed call while the host runs ahead: 200 us
-# of host time a call at 2 GHz
+# cycles the card spins per timed call while the host runs ahead: twice
+# the host's time for one call at 2 GHz, at least 200 us and at most 2 ms
+# (a call whose host work outlasts that is paced by the host in part)
+CLOCK_HZ = 2e9
 AHEAD_CYCLES = 400_000
+AHEAD_MAX_CYCLES = 4_000_000
 
 
 def time_cuda(fn: Callable, args: tuple = (), warmup: int = 3,
@@ -37,7 +40,7 @@ def time_cuda(fn: Callable, args: tuple = (), warmup: int = 3,
     ``ahead=True`` the card first spins (``torch.cuda._sleep``) while the
     host enqueues every timed call, so each call's events bracket its
     device work alone: a kernel's time, even one shorter than its
-    wrapper's host overhead."""
+    wrapper's host overhead, or a plan's of many launches."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_cuda needs a CUDA device")
     for _ in range(warmup):
@@ -46,7 +49,12 @@ def time_cuda(fn: Callable, args: tuple = (), warmup: int = 3,
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     if ahead:
-        torch.cuda._sleep(AHEAD_CYCLES * reps)
+        t0 = time.perf_counter()
+        fn(*args)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(reps * min(AHEAD_MAX_CYCLES, max(
+            AHEAD_CYCLES, int(2 * host * CLOCK_HZ))))
     for start, end in events:
         start.record()
         fn(*args)

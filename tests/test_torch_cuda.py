@@ -1377,3 +1377,83 @@ def test_cuda_tune_split_1d(cuda_dev, tmp_path, monkeypatch):
     got = torch.complex(yr, yi).to(torch.complex128)
     assert (torch.linalg.vector_norm(got - want)
             / torch.linalg.vector_norm(want)).item() < 1e-6
+
+
+# ---- the probes of bench/: probe_mma and the r2c slab's wider tiles -------
+
+# probe_mma against its plain version at R = 1 on the same inputs
+# (max |k - p| / max |p|): the tensor cores sum each mma's products at
+# their own alignment and the k-steps in their order, the plain matmul in
+# another; fma's FMA chain against cuBLAS's SGEMM. TOL_MMA at c = 0.25,
+# TOL_MMA_DFT on a 128-point DFT stage's products at c = 0, from the
+# card's readings (chip_smoke.py states the same)
+TOL_MMA = {"stack6": 1e-6, "stack6-six": 1e-6, "3xtf32": 1e-6,
+           "tf32": 1e-6, "fma": 1e-6}
+TOL_MMA_DFT = {"stack6": 2.5e-6, "stack6-six": 5e-7, "3xtf32": 2.5e-6,
+               "tf32": 1.5e-6, "fma": 1e-6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(TOL_MMA))
+@pytest.mark.parametrize("lanes", [128, 1024])
+def test_cuda_probe_mma(cuda_dev, variant, lanes):
+    from offt_tpu_torch.bench import probe_mxuwidth as pm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x, g = pm.inputs(variant, sms, lanes, "cuda", seed=lanes)
+    pm.reset_counts()
+    got = pm.probe_mma(x, g, 1, variant)
+    torch.cuda.synchronize()
+    assert pm.probe_mma.launches[variant] == 1
+    assert pm.probe_mma.plain_calls == 0
+    want = pm.probe_mma.plain(x, g, 1, variant)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() \
+        < TOL_MMA[variant]
+    # R = 0 copies; a CUDA tensor never takes the plain version
+    assert torch.equal(pm.probe_mma(x, g, 0, variant), x)
+    assert pm.probe_mma.plain_calls == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(TOL_MMA))
+def test_cuda_probe_mma_dft_products(cuda_dev, variant):
+    """At c = 0 on a 128-point DFT stage's four real products, where the
+    low-order products are a larger share of the output, the kernel
+    within TOL_MMA_DFT of its plain version."""
+    from offt_tpu_torch.bench import probe_mxuwidth as pm
+    for lanes in (128, 1024):
+        draw = pm.dft_draw(lanes, lanes)
+        for g, a in pm.dft_products(variant, draw, "cuda"):
+            got = pm.probe_mma(a, g, 1, variant, 0.0)
+            want = pm.probe_mma.plain(a, g, 1, variant, 0.0)
+            assert ((got - want).abs().max() / want.abs().max()).item() \
+                < TOL_MMA_DFT[variant]
+
+
+@pytest.mark.cuda
+def test_cuda_probe_mma_accuracy_rows(cuda_dev):
+    """The error of a 128-point DFT stage by tier on the card, the largest
+    of the draws: every variant within its ceiling, chained stack6 and
+    3xtf32 included; fma and the six-accumulator stack6 within the 1e-6
+    bar, tf32 far outside it."""
+    from offt_tpu_torch.bench import probe_mxuwidth as pm
+    rows = {r["variant"]: r["rel_err"] for r in pm.accuracy_rows("cuda")}
+    for v in pm.VARIANTS:
+        assert rows[v] <= pm.CEILING[v], (v, rows[v])
+    assert rows["fma"] < 1e-6 and rows["stack6-six"] < 1e-6
+    assert rows["tf32"] > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["y16", "y32", "grids_wide"])
+def test_cuda_rslab_wide_tile_codes(cuda_dev, code):
+    """The r2c slab's wider-tile cost probes write what the kernel writes,
+    at 512^3's slab shape (Y = 512, M = 256), and refuse another."""
+    x = _pair((3, 512, 512), cuda_dev, seed=31)[0]
+    full = ff.rfft_slab_yz(x, zpad=8)
+    got = ff.rfft_slab_yz(x, zpad=8, phases=code)
+    for g, w in zip(got, full):
+        g, w = g[..., :256], w[..., :256]
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+    with pytest.raises(RuntimeError):
+        ff.rfft_slab_yz(_pair((2, 256, 256), cuda_dev)[0], phases=code)

@@ -251,7 +251,7 @@ def test_kernel_sources_are_listed():
                      "rfft_slab.cu",
                      "irfft_slab.cu", "assemble_mp1.cu", "rfft_last.cu",
                      "fourstep.cu", "icrfft_last.cu", "fft_cube.cu",
-                     "fft_cube_regs.cu"}
+                     "fft_cube_regs.cu", "probe_mma.cu"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for info in fused_fft.KERNELS.values():
         assert os.path.exists(os.path.join(root, info["source"]))
