@@ -127,6 +127,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    l. the probes through their entry points: ``probe_mma`` at each
       variant over the ledger's cases, each r2c slab code at 512^3, each
       in a counter window of its own;
+   m. the port's examples (``examples_torch/``) 1-7 at their card sizes
+      through their ``main``, each in a counter window of its own, where
+      each asserts its own checks (the reference example's) and must
+      launch at least one kernel, no plain version and no stage of the
+      unfused engine (``stockham._fft_last`` counted): the deconvolution
+      gradient at 256^3, jacfwd and jvp at 256^3, 5 SGD steps of the FNO
+      layer at 4 x 128^3 (16 modes; its first step's weight gradient also
+      against complex128 ``torch.fft`` autograd, 1e-5, outside the
+      window), the packed low-pass at 256^3, and in
+      3e's world of one the Poisson solve and the pencil round trip at
+      256^3 and the tone pick of 2^24 samples; each one's time beside its
+      ``torch.fft`` twin (the iterative ones whole by the host clock, the
+      others' transform step by CUDA events; the twins are built here,
+      the examples hold one path); then ``entry()``
+      (``__graft_entry_torch__.py``) at 128^3 against complex128
+      ``fftn`` (1e-6) and ``dryrun_multichip(1)`` in the world of one;
+      then each bundled one-card entry of this card
+      (``offt_tpu_torch/plan/tuned_defaults.json``): a ``plan()`` with no
+      params must read it (an empty local cache), its output against
+      complex128 ``torch.fft`` (1e-6), its time beside the default
+      point's (median of 20, three runs each);
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did; the register core ran ``fft_last`` on 3a (its one
    length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
@@ -519,6 +540,8 @@ def grad_cases(ot, gen, mesh) -> list:
             ("rfft_slab", "fft_axis", "fft_slab")
             + (() if packed else ("assemble_mp1",))))
     small = GRAD_SHAPES["small"]
+    # 192^3's r2c reads the bundled H100 entry (radix_z of its dense
+    # rfft_last; 3d's comment): the same kernels, so the checks hold
     ks = _lowpass(small, dev)
     pf = ot.plan(small, "float32", real=True, device=dev)
     pi = ot.plan(small, "float32", real=True, inverse=True, device=dev)
@@ -1340,6 +1363,320 @@ def probe_phase(ff, pm, pr, sms, window, tag) -> tuple:
     return mma, readings
 
 
+# ---- 3m: the examples, the entry point, the bundled tuned defaults --------
+
+# the examples at their card sizes (the arguments of each one's main)
+EXAMPLES = (
+    ("grad_spectral", ["--n", "256"]),
+    ("jvp_sensitivity", ["--n", "256"]),
+    ("fno_layer", ["--n", "128", "--modes", "16", "--steps", "5"]),
+    ("packed_spectral", ["--nxy", "256"]),
+    ("spectral_poisson", ["--n", "256"]),
+    ("distributed_fft", ["--n", "256"]),
+    ("dist1d_signal", ["--log2n", "24"]),
+)
+ENTRY_N = 128
+
+
+@contextlib.contextmanager
+def _unfused_count():
+    """Count the unfused engine's dense stages (``stockham._fft_last``,
+    which every unfused transform and Bluestein run) while in the block:
+    yields a one-element list."""
+    from offt_tpu_torch.kernels import stockham
+    keep, box = stockham._fft_last, [0]
+
+    def counted(*a, **kw):
+        box[0] += 1
+        return keep(*a, **kw)
+    stockham._fft_last = counted
+    try:
+        yield box
+    finally:
+        stockham._fft_last = keep
+
+
+def _fft_pair(n: int, dev, batch_dims: int = 0):
+    """The torch.fft counterpart of examples_torch/_common.real_pair:
+    (fwd, inv) of the real n^3 transform over the last three dims."""
+    dims, s = (-3, -2, -1), (n,) * 3
+
+    def fwd(x):
+        y = torch.fft.rfftn(x, dim=dims)
+        return y.real, y.imag
+
+    def inv(yr, yi):
+        return torch.fft.irfftn(torch.complex(yr, yi), s=s, dim=dims)
+    return fwd, inv
+
+
+@contextlib.contextmanager
+def _on_torch_fft(ex, pair=_fft_pair):
+    """The example module ``ex`` with its ``real_pair`` swapped for
+    ``pair`` while in the block: what it builds there is its torch.fft
+    twin."""
+    keep = ex.real_pair
+    ex.real_pair = pair
+    try:
+        yield
+    finally:
+        ex.real_pair = keep
+
+
+def fno_step0_err(ex, dev) -> float:
+    """The FNO example at its card size (4 x 128^3, 16 modes): the first
+    SGD step's weight gradient (zero weights, the example's data) through
+    the port's plans against the same through complex128 torch.fft
+    autograd, whose c2r states the plan's edge rule (:func:`fno_model`);
+    the larger relative error of d/d wr and d/d wi."""
+    n, modes = 128, 16
+    layer, x, y, _ = ex.setup(n, modes, dev)
+    g = torch.autograd.grad(ex.loss_of(layer, x, y), (layer.wr, layer.wi))
+    fused = layer.inv.route == "rfft3d"
+
+    def edge_pair(n, dev, batch_dims=0):
+        return (_fft_pair(n, dev)[0],
+                lambda yr, yi: _c2r_edges(torch.complex(yr, yi), n, fused))
+    with _on_torch_fft(ex, edge_pair):
+        twin = ex.SpectralConv3d(n, modes, dev).double()
+    g64 = torch.autograd.grad(ex.loss_of(twin, x.double(), y.double()),
+                              (twin.wr, twin.wi))
+    return max(_rel_err(a, None, b) for a, b in zip(g, g64))
+
+
+def _wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def example_steps(name, ex, dev, mesh) -> tuple:
+    """(what is timed, the port's call, its torch.fft twin's, timer): an
+    iterative example's loop (its data made first) by the host clock
+    around one call (after one warm-up call), a one-shot example's
+    transform step by CUDA events with the host enqueueing ahead (device
+    time, the median of 20)."""
+    from offt_tpu_torch.obs.profile import time_cuda
+
+    def host(fn):
+        fn()
+        return _wall_ms(fn)
+
+    def events(fn):
+        return time_cuda(fn, ahead=True)["median_ms"]
+
+    if name == "grad_spectral":
+        pb = ex.problem(256, dev)
+        with _on_torch_fft(ex):
+            tw = ex.problem(256, dev)
+        return ("150 gradient steps at 256^3", lambda: ex.descend(pb),
+                lambda: ex.descend(tw), host)
+    if name == "jvp_sensitivity":
+        port = ex.solver(256, dev)[0]
+        with _on_torch_fft(ex):
+            twin = ex.solver(256, dev)[0]
+        return ("jacfwd, 4 solves and a jvp at 256^3",
+                lambda: ex.derivatives(port, dev),
+                lambda: ex.derivatives(twin, dev), host)
+    if name == "fno_layer":
+        port = ex.setup(128, 16, dev)
+        with _on_torch_fft(ex):
+            twin = ex.setup(128, 16, dev)
+        return ("5 SGD steps at 4 x 128^3, 16 modes",
+                lambda: ex.fit(*port[:3], port[3][0], steps=5),
+                lambda: ex.fit(*twin[:3], twin[3][0], steps=5), host)
+    if name == "packed_spectral":
+        shape = (256, 256, 256)
+        x = torch.randn(shape, device=dev)
+        port = ex.lowpass_fn(shape, dev)
+        g = torch.from_numpy(ex.gains(shape)).to(dev)
+        return ("the low-pass at 256^3", lambda: port(x),
+                lambda: torch.fft.irfftn(torch.fft.rfftn(x) * g, s=shape),
+                events)
+    if name == "spectral_poisson":
+        _, f = ex.manufactured(256)
+        port, blk = ex.solver(256, mesh, dev)
+        g = torch.from_numpy(ex.inverse_laplacian(256)).to(dev)
+        ft = torch.from_numpy(f).to(dev)
+        fb = ft[blk].contiguous()
+        return ("the solve at 256^3", lambda: port(fb),
+                lambda: torch.fft.irfftn(torch.fft.rfftn(ft) * g,
+                                         s=(256,) * 3),
+                events)
+    if name == "distributed_fft":
+        fwd, inv = ex.plans(256, mesh, dev)
+        x = ex.global_input(256, dev)
+        xb = x[fwd.input_block(x.shape)].contiguous()
+        return ("forward and inverse at 256^3", lambda: inv(fwd(xb)),
+                lambda: torch.fft.ifftn(torch.fft.fftn(x)), events)
+    n = 1 << 24
+    fwd, inv = ex.plans(n, mesh, dev)
+    sig, _ = ex.record(n, dev)
+    xb = sig[fwd.input_block(sig.shape)].contiguous()
+    fft = (lambda z: torch.fft.fft(z, norm="ortho"),
+           lambda z: torch.fft.ifft(z, norm="ortho"))
+    return ("the denoise of 2^24 samples",
+            lambda: ex.denoise(xb, fwd, inv, n),
+            lambda: ex.denoise(sig, *fft, n), events)
+
+
+def examples_phase(ot, ff, window, tag, dev, mesh) -> dict:
+    """Phase 3m: examples 1-7 at their card sizes, each one's main in a
+    counter window of its own (its checks assert; the kernels it
+    launched printed, at least one, no plain version, no unfused-engine
+    stage; the FNO's first gradient against complex128 torch.fft), then
+    its time beside its torch.fft twin's; ``entry()`` at
+    128^3 against complex128 torch.fft and ``dryrun_multichip(1)`` in
+    this world of one; each bundled 1 x 1 entry of this card read by a
+    plan() with no params, its output checked and its time beside the
+    default point's (median of 20, three runs). Returns {window: reading}
+    of the examples and the entry."""
+    import dataclasses
+    import importlib
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "examples_torch"))
+    sys.path.insert(0, root)
+    import __graft_entry_torch__ as graft
+    from offt_tpu_torch.obs.profile import time_cuda
+    from offt_tpu_torch.plan import cache
+    from offt_tpu_torch.plan.params import ProblemSpec, default_params
+
+    readings = {}
+
+    def checked(label, run):
+        with _unfused_count() as unfused:
+            out, reading = window(run)
+        counts, launched, _ = reading
+        ran = {k: v for k, v in launched.items() if v}
+        plain = {k: v[1] for k, v in counts.items() if v[1]}
+        print(f"{label} window launches per kernel: {ran}; plain calls "
+              f"{plain or 0}; unfused-engine stages {unfused[0]} {tag}",
+              flush=True)
+        if not ran or plain or unfused[0]:
+            raise AssertionError(f"{label}: kernels {ran}, plain {plain}, "
+                                 f"unfused stages {unfused[0]}")
+        readings[label] = reading
+        return out
+
+    for name, argv in EXAMPLES:
+        ex = importlib.import_module(name)
+        t0 = time.perf_counter()
+        rc = checked(f"example {name}",
+                     lambda: ex.main(argv + ["--device", "cuda"]))
+        if rc != 0:
+            raise AssertionError(f"example {name} returned {rc}")
+        if name == "fno_layer":
+            # its 5 steps assert only that the loss falls: hold the first
+            # step's gradient, as phase 3h holds its own FNO's
+            err = fno_step0_err(ex, dev)
+            print(f"example fno_layer step-0 weight gradient rel err vs "
+                  f"complex128 torch.fft autograd {err:.3e} (tol "
+                  f"{TOL_GRAD2:g}) {tag}", flush=True)
+            if err > TOL_GRAD2:
+                raise AssertionError(f"fno_layer step 0: error {err:.3e}")
+        what, port, twin, timer = example_steps(name, ex, dev, mesh)
+        ms, ms_twin = timer(port), timer(twin)
+        print(f"time example {name}, {what}: port {ms:.4f} ms, torch.fft "
+              f"twin {ms_twin:.4f} ms ({ms / ms_twin:.3f}x); example run "
+              f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+        torch.cuda.empty_cache()
+
+    # the entry point: the forward planar c2c plan at 128^3
+    fn, args = graft.entry(n=ENTRY_N)
+    yr, yi = checked("entry", lambda: fn(*args))
+    err = _rel_err(yr, yi, torch.fft.fftn(torch.complex(*args).to(
+        torch.complex128)))
+    print(f"path entry() {ENTRY_N}^3 (route {fn.route}): rel err vs "
+          f"complex128 fftn {err:.3e} (tol {TOL_PATH:g}) {tag}", flush=True)
+    if err > TOL_PATH:
+        raise AssertionError(f"entry: error {err:.3e}")
+    del fn, args, yr, yi
+    t0 = time.perf_counter()
+    graft.dryrun_multichip(1)
+    print(f"dryrun_multichip(1) on a world of one: every check held, "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+
+    # the bundled defaults: plan() with no params reads each entry of this
+    # card (an empty local cache, so that no local entry shadows one)
+    keep = os.environ.get("OFFT_TPU_TORCH_CACHE_DIR")
+    tmp = tempfile.mkdtemp(prefix="offt_bundled_")
+    os.environ["OFFT_TPU_TORCH_CACHE_DIR"] = tmp
+    kind = cache.device_kind(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    try:
+        for key, rec in sorted(cache._bundled().items()):
+            parts = key.split("|")
+            if parts[3] != "1x1" or parts[4] != kind:
+                print(f"bundled {key}: not a one-card key of {kind}, "
+                      f"skipped", flush=True)
+                continue
+            shape = tuple(int(v) for v in parts[0].split("x"))
+            real, inverse = parts[2] == "r2c", parts[-1] == "inv"
+            dtype = "float32" if real else "complex64"
+            kw = dict(real=real, inverse=inverse, planar=True)
+            p = ot.plan(shape, dtype, **kw)
+            want = cache._params_from_json(rec["params"])
+            if p.params != want:
+                raise AssertionError(f"bundled {key}: plan() read "
+                                     f"{p.params}, the file {want}")
+            spec = ProblemSpec(shape=shape, real=real, inverse=inverse)
+            pd = ot.plan(shape, dtype, params=default_params(spec),
+                         use_cache=False, **kw)
+            if real and inverse:
+                w = torch.fft.rfftn(torch.randn(shape, generator=gen,
+                                                device=dev))
+                x = (w.real.contiguous(), w.imag.contiguous())
+                ref = torch.fft.irfftn(w.to(torch.complex128), s=shape)
+            elif real:
+                x = (torch.randn(shape, generator=gen, device=dev),)
+                ref = torch.fft.rfftn(x[0].double())
+            else:
+                x = tuple(torch.randn(shape, generator=gen, device=dev)
+                          for _ in range(2))
+                f = torch.fft.ifftn if inverse else torch.fft.fftn
+                ref = f(torch.complex(*x).to(torch.complex128))
+            y = p(*x)
+            err = _rel_err(*y, ref) if isinstance(y, tuple) else \
+                _rel_err(y, None, ref)
+            if err > TOL_PATH:
+                raise AssertionError(f"bundled {key}: error {err:.3e}")
+            # as the sweep's rechecks time them (the tuner's CUDA events,
+            # the host pacing included), and their device time alone
+            tb, td, db, dd = [], [], [], []
+            for _ in range(3):
+                tb.append(time_cuda(p, x)["median_ms"])
+                td.append(time_cuda(pd, x)["median_ms"])
+                db.append(time_cuda(p, x, ahead=True)["median_ms"])
+                dd.append(time_cuda(pd, x, ahead=True)["median_ms"])
+            dflt = dataclasses.asdict(default_params(spec))
+            won = {k: v for k, v in dataclasses.asdict(want).items()
+                   if v != dflt[k]}
+            print(f"bundled {key}: plan() reads the file's point {won}, "
+                  f"rel err {err:.3e}; median of 20, three runs: bundled "
+                  + ", ".join(f"{v:.4f}" for v in tb) + " ms, default "
+                  + ", ".join(f"{v:.4f}" for v in td) + " ms; device time"
+                  " alone: bundled " + ", ".join(f"{v:.4f}" for v in db)
+                  + " ms, default " + ", ".join(f"{v:.4f}" for v in dd)
+                  + f" ms (median of the ratios "
+                  f"{sorted(d / b for d, b in zip(dd, db))[1]:.3f}x) {tag}",
+                  flush=True)
+            del p, pd, x, y, ref
+    finally:
+        if keep is None:
+            os.environ.pop("OFFT_TPU_TORCH_CACHE_DIR", None)
+        else:
+            os.environ["OFFT_TPU_TORCH_CACHE_DIR"] = keep
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is visible",
@@ -1848,6 +2185,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3d. the unfused real route through plan(real=True) ---------------
+    # 192^3 r2c reads the bundled H100 entry (plan/tuned_defaults.json:
+    # radix_z (3, 32) for rfft_last at M = 96); that row runs the dense
+    # core at the default point and at this one alike, so the phase keeps
+    # its checks (route local, rfft_last on both cores over 3d) unchanged
     local_cases = [
         # (label, shape, inverse, planar)
         ("256^3 r2c planar=False", (256, 256, 256), False, False),
@@ -2122,6 +2463,14 @@ def main() -> int:
                                            lambda fn: _window(ff, fn), tag)
     print(f"phase 3l: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 3m. the examples, the entry point, the bundled defaults ---------
+    t0 = time.perf_counter()
+    example_runs = examples_phase(ot, ff, lambda fn: _window(ff, fn), tag,
+                                  torch.device("cuda",
+                                               torch.cuda.current_device()),
+                                  mesh)
+    print(f"phase 3m: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 4. the counters -----------------------------------------------
     path_kernels = {"c2c": ("fft_last", "fft_axis", "fft_slab"),
                     "r2c": ("fft_axis", "rfft_slab", "irfft_slab",
@@ -2284,7 +2633,14 @@ def main() -> int:
                                  f"(register, launches): {off}")
     print("register core: fft_slab, rfft_slab and fft_axis throughout the "
           "256^3 backwards of 3h")
-    launches = {k: sum(r[1][k] for r in runs.values()) for k in ff.KERNELS}
+    # the kernels line counts every path's windows, 3m's among them
+    launches = {k: sum(r[1][k] for r in [*runs.values(),
+                                          *example_runs.values()])
+                for k in ff.KERNELS}
+    in_3m = {k: n for k in ff.KERNELS
+             if (n := sum(r[1][k] for r in example_runs.values()))}
+    print(f"phase 3m windows' launches per kernel (within the kernels "
+          f"line's): {in_3m}", flush=True)
 
     # ---- 5. times --------------------------------------------------------
     def show(label, r, extra=""):
@@ -2603,6 +2959,7 @@ def main() -> int:
          ot.plan((512, 512, 512), "complex64", planar=True), (c5,)),
         ("c2c 320^3 (plan, slab + x)",
          ot.plan((320, 320, 320), "complex64", planar=True), (c320,)),
+        # at the bundled H100 point (3d's comment), on either core
         ("r2c 192^3 (plan, local)",
          ot.plan((192, 192, 192), "float32", **real), (x192,)),
         ("c2r 192^3 (plan, local)",

@@ -18,6 +18,12 @@ It spawns one process per card, joins them in an NCCL group
   on the rank's shard, each alone;
 - runs ``obs/profile.pencil_breakdown`` of 256^3 c2c (each pass and
   each exchange alone, and the mesh plan);
+- builds the 256^3 c2c plan on the 2 x 2 mesh by ``plan()`` with no
+  params (an empty local cache): where the bundled tuned defaults
+  (``plan/tuned_defaults.json``) hold this card's key it must read that
+  point; holds each rank's block of its output against complex128
+  ``torch.fft.fftn`` of one global input (1e-6) and times it beside the
+  default point's plan (median of 20, three runs each);
 - tunes the 256^3 c2c pencil plan on the 2 x 2 mesh
   (``tune.tune(..., fast_trial=2, strategy="nm")``, 20 trials: the
   FAST_TUNING phase trials, then the refinement pass on whole plans),
@@ -97,6 +103,60 @@ def _stages(p, xs, time_cuda) -> dict:
 
 def _ms(sec) -> str:
     return "-" if sec is None else f"{sec * 1e3:.4f} ms"
+
+
+def _bundled(mesh, cube, dev, tag: str, logdir: str) -> None:
+    """The cube's c2c plan on ``mesh`` as ``plan()`` with no params builds
+    it from an empty local cache: the bundled point where the file holds
+    the key (module doc), checked and timed against the default point."""
+    import dataclasses
+
+    import offt_tpu_torch as ot
+    from ..obs.profile import time_cuda, time_host
+    from ..plan import cache
+    from ..plan.params import ProblemSpec, default_params
+
+    os.environ["OFFT_TPU_TORCH_CACHE_DIR"] = os.path.join(logdir, "cache")
+    key = cache.plan_key(tuple(cube), "complex64", False, 2, 2,
+                         cache.device_kind(dev))
+    rec = cache._bundled().get(key)
+    p = ot.plan(cube, "complex64", mesh=mesh, planar=True, device=dev)
+    dflt = default_params(ProblemSpec(shape=tuple(cube), p=4), p1=2)
+    want = dflt if rec is None else cache._params_from_json(rec["params"])
+    if p.params != want:
+        raise AssertionError(f"plan() read {p.params}, want {want}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    xs = tuple(torch.randn(tuple(cube), generator=gen, device=dev)
+               for _ in range(2))
+    ref = torch.fft.fftn(torch.complex(*xs).to(torch.complex128))
+    blk = p.input_block(tuple(cube))
+    mine = tuple(t[blk].contiguous() for t in xs)
+    yr, yi = p(*mine)
+    err = _rel(torch.complex(yr, yi).to(torch.complex128),
+               ref[p.output_block(tuple(cube))])
+    won = {k: v for k, v in dataclasses.asdict(p.params).items()
+           if v != getattr(dflt, k)}
+    print(f"{tag} bundled {key}: plan() reads "
+          f"{won if rec is not None else 'the default point (no entry)'}; "
+          f"rel err vs complex128 fftn {err:.3e} (tol {TOL:g})", flush=True)
+    if err > TOL:
+        raise AssertionError(f"bundled {key}: error {err:.3e}")
+    if rec is None:
+        return
+    pd = ot.plan(cube, "complex64", mesh=mesh, params=dflt, planar=True,
+                 use_cache=False, device=dev)
+    ms = {"bundled": [], "default": []}
+    for _ in range(3):
+        for name, pl in (("bundled", p), ("default", pd)):
+            dist.barrier()
+            ms[name].append(time_cuda(pl, mine)["median_ms"]
+                            if dev.type == "cuda"
+                            else time_host(pl, mine) * 1e3)
+    print(f"{tag} bundled {key}, this rank, median of 20, three runs: "
+          "bundled " + ", ".join(f"{v:.4f}" for v in ms["bundled"])
+          + " ms, default " + ", ".join(f"{v:.4f}" for v in ms["default"])
+          + " ms", flush=True)
 
 
 def _tune(mesh, cube, dev, tag: str, logdir: str) -> None:
@@ -223,6 +283,8 @@ def _worker(rank: int, port: int, backend: str, device_type: str,
         parts = ", ".join(f"{k} {v * 1e3:.4f}" for k, v in bd.items())
         print(f"{tag} pencil_breakdown {cube} on 2x2, ms: {parts}",
               flush=True)
+        dist.barrier()
+        _bundled(mesh, cube, dev, tag, logdir)
         dist.barrier()
         _tune(mesh, cube, dev, tag, logdir)
         dist.barrier()

@@ -4,9 +4,16 @@ Port of ``offt_tpu/plan/cache.py``: one JSON file under
 $OFFT_TPU_TORCH_CACHE_DIR (else the ``cache_dir`` config key, else
 ~/.cache/offt_tpu_torch), keyed by shape, dtype, transform kind, mesh
 shape and device kind, where the device kind is
-``torch.cuda.get_device_name()`` on the card ("cpu" on the host). The
-reference's bundled ``tuned_defaults.json`` holds TPU device kinds only,
-so the port ships none: a GPU key has no bundled hit.
+``torch.cuda.get_device_name()`` on the card ("cpu" on the host).
+
+Beside it the package ships ``tuned_defaults.json`` (:func:`_bundled`):
+plans tuned on an NVIDIA H100 80GB HBM3, each backed by a receipt of
+``offt_tpu_torch/bench/saturation.py`` (``receipts_torch/
+saturation_h100.jsonl``), so a fresh install's ``plan()`` on that card
+takes the measured winner. A lookup reads the local cache first, then
+the bundled file: a local entry (``tune()``, ``import_wisdom``) wins,
+and ``plan(..., use_cache=False)`` or an explicit ``params=`` skips both.
+The file holds no host ("cpu") and no TPU keys.
 
 Wisdom (FFTW's export/import, as the reference has it): ``export_wisdom``
 writes the local cache to a file, ``import_wisdom`` merges one in, the
@@ -93,8 +100,29 @@ def _params_from_json(d: dict) -> PlanParams:
     return PlanParams(**{k: v for k, v in d.items() if k in known})
 
 
+def _bundled() -> dict:
+    """The tuned plans shipped with the package (``tuned_defaults.json``
+    beside this module), read once; {} where the file is missing or
+    does not parse."""
+    global _BUNDLED_DB
+    if _BUNDLED_DB is None:
+        f = pathlib.Path(__file__).parent / "tuned_defaults.json"
+        try:
+            _BUNDLED_DB = json.loads(f.read_text())
+        except (OSError, json.JSONDecodeError):
+            _BUNDLED_DB = {}
+    return _BUNDLED_DB
+
+
+_BUNDLED_DB: Optional[dict] = None
+
+
 def lookup(key: str) -> Optional[PlanParams]:
+    """The params cached under ``key``: the local cache's, else the
+    bundled file's, else None."""
     rec = _load().get(key)
+    if rec is None:
+        rec = _bundled().get(key)
     if rec is None:
         return None
     try:
@@ -140,7 +168,9 @@ def clear() -> None:
 
 
 def export_wisdom(path) -> int:
-    """Write the local cache to ``path``; returns its number of entries."""
+    """Write the local cache to ``path``; returns its number of entries.
+    The bundled entries stay with the package: imported into another
+    machine's local cache they would shadow its package's own."""
     db = _load()
     pathlib.Path(path).write_text(json.dumps(db, indent=1, sort_keys=True))
     return len(db)
@@ -180,7 +210,8 @@ def main(argv=None) -> int:
         prog="python -m offt_tpu_torch.plan.cache",
         description="tuned-plan cache (wisdom) maintenance")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    sub.add_parser("list", help="print the cache's entries")
+    sub.add_parser("list", help="print the cache's entries (bundled and "
+                   "local)")
     pe = sub.add_parser("export", help="write the cache to FILE")
     pe.add_argument("file")
     pi = sub.add_parser("import", help="merge FILE into the cache")
@@ -188,12 +219,14 @@ def main(argv=None) -> int:
     sub.add_parser("clear", help="delete the cache")
     ns = ap.parse_args(argv)
     if ns.cmd == "list":
-        db = _load()
-        for k, rec in sorted(db.items()):
-            perf = rec.get("perf")
-            perf_s = f"{perf * 1e3:.3f} ms" if perf else "-"
-            print(f"local    {k}  perf={perf_s}")
-        print(f"# {len(db)} local ({_cache_file()}), no bundled entries")
+        local = _load()
+        for src, db in (("bundled", _bundled()), ("local", local)):
+            for k, rec in sorted(db.items()):
+                perf = rec.get("perf")
+                perf_s = f"{perf * 1e3:.3f} ms" if perf else "-"
+                print(f"{src:8s} {k}  perf={perf_s}")
+        print(f"# {len(_bundled())} bundled, {len(local)} local "
+              f"({_cache_file()})")
     elif ns.cmd == "export":
         print(f"exported {export_wisdom(ns.file)} entries -> {ns.file}")
     elif ns.cmd == "import":
