@@ -16,9 +16,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    a length of each core, register (``csrc/fft_regs.cuh``) and dense,
    ``fft_last`` also on the mixed rows ((102400, 320), the 320^3 slab's z
    rows as a batch, and (65536, 192)) on both cores,
-   and the three slab kernels (``fft_slab``, ``rfft_slab``,
-   ``irfft_slab``), the packed c2r rows (``icrfft_last``: (65536, 128)
-   among them), the strided-axis kernel (``fft_axis``: its four
+   ``rfft_last`` and the packed c2r rows (``icrfft_last``: (65536, 128)
+   among them) also on the mixed real rows (``csrc/real_rows_mix.cu``:
+   ``rfft_last`` (36864, 192) in both layouts, (300, 96), (37, 6144);
+   ``icrfft_last`` (36864, 96), (300, 48), (37, 3072); the dense core at
+   M = 72), and the three slab kernels (``fft_slab``, ``rfft_slab``,
+   ``irfft_slab``), the strided-axis kernel (``fft_axis``: its four
    wrappers, in place, the 64 x 1024^2 y pass, columns of 2048 and 4096,
    and the mixed lengths: the 320^3 x pass, 192^3's axes, a 768 column)
    and the four-step pair (``step1_twiddle``, ``step3_transposed``: the
@@ -57,8 +60,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       2^20 (forward, inverse, an ortho round trip), 8 x 2^20, 2^22, 2^24,
       3 * 2^18 (the measured split), 10^6 (the 4-pass route) and one
       complex64 (``planar=False``) case (``fft`` / ``ifft``);
-   d. the unfused real route: 256^3 with ``planar=False``, 192^3 outside
-      the packed gate and a long real 1-D (1, 1, 2^21) (``rfftn`` /
+   d. the unfused real route: 256^3 with ``planar=False``, 192^3 and
+      320^3 outside the packed gate (``rfft_last`` at M = 96 and 160 on
+      the mixed real rows) and a long real 1-D (1, 1, 2^21) (``rfftn`` /
       ``irfftn``);
    e. the distributed pencil engine, ``plan(..., mesh=make_mesh(1, 1))``
       in a world of one rank on NCCL (its exchanges have a group of one
@@ -66,7 +70,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       pad and slice points and the real z stages run): 256^3 c2c with the
       default knobs and with t = 4, w = 1, ry = 5; 256^3 r2c / c2r packed
       (the c2r stage is ``icrfft_last``) and in the numpy layout; 512^3
-      packed r2c / c2r; a ``batch_sharded`` 4 x 128^3 c2c;
+      and 192^3 (``icrfft_last`` at M = 96) packed r2c / c2r; a
+      ``batch_sharded`` 4 x 128^3 c2c;
    f. the cube kernel through ``fft3d_cube``: 8 x 128^3 forward and
       inverse, and the longest z the gate admits, 8 x 8 x 32768 (the
       register cube's split z: the four-step pair's bodies);
@@ -107,8 +112,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    j. the tuner (``offt_tpu_torch.tune``) at full size, its trials timed
       by CUDA events, the plan cache in a temporary directory: a brute
       force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d,
-      block_batch), Nelder-Mead over 192^3 r2c's (radix_z of the dense
-      rfft_last at M = 96; 12 trials), and 256^3 c2c, whose space is
+      block_batch), Nelder-Mead over 144^3 r2c's (the radices and
+      block_batch of the dense rfft_last at M = 72 and of the dense axes
+      of 144; 12 trials), and 256^3 c2c, whose space is
       empty (nothing to search: the default point timed); each with its
       space, trials, default and best time, speedup and winner, best <=
       default after the refinement pass, the winner read back from the
@@ -144,20 +150,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       (``__graft_entry_torch__.py``) at 128^3 against complex128
       ``fftn`` (1e-6) and ``dryrun_multichip(1)`` in the world of one;
       then each bundled one-card entry of this card
-      (``offt_tpu_torch/plan/tuned_defaults.json``): a ``plan()`` with no
+      (``offt_tpu_torch/plan/tuned_defaults.json``; where it holds none,
+      ``one_card_record`` put in the bundled store for the step, so that
+      the lookup runs on the card): a ``plan()`` with no
       params must read it (an empty local cache), its output against
       complex128 ``torch.fft`` (1e-6), its time beside the default
       point's (median of 20, three runs each);
 4. the launch counters: every kernel of a path ran in that path's run, no
    plain version did; the register core ran ``fft_last`` on 3a (its one
-   length there, N = 1024) and ``rfft_last`` on 3d (at N = 256, beside
-   the dense core at N = 192), ``fft_slab`` on every case of 3a (the
+   length there, N = 1024) and ``rfft_last`` on every r2c of 3d (N = 256,
+   192 and 320) and of 3e, ``fft_slab`` on every case of 3a (the
    320^3 slab on the mixed rows and columns, two grids), ``rfft_slab`` on every
    slab of 3b, ``fft_axis`` on every x pass of 3a (256^3, 512^3, 320^3
    on the mixed-radix column variant, in place, the 64 x 1024^2 y pass),
    of 3b (the c2r's ``fft_x_to_padded`` among them) and every axis pass
-   of 3d (192^3's among them), ``irfft_slab`` on 3b's 256^3 and 512^3
-   c2r, ``icrfft_last`` on every packed c2r of 3e, and ``step1_twiddle``
+   of 3d (192^3's and 320^3's among them), ``irfft_slab`` on 3b's 256^3
+   and 512^3 c2r, ``icrfft_last`` on every packed c2r of 3e (192^3's
+   among them), and ``step1_twiddle``
    / ``step3_transposed`` on every power-of-two split of 3c (step 3
    dense on the 768 side of 3 * 2^18) and throughout 3d and 3g, and the
    register cube on every cube of 3f; every backward of 3h ran the
@@ -194,17 +203,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (device time by op, busy share of the host wall); the paths of the
    register-core kernels (64 x 1024^2 c2c, the 256^3 ``planar=False``
    r2c, namespace ``rfftn`` 256^3; 256^3, 512^3 and 320^3 c2c, 192^3
-   r2c and c2r (the unfused real route), 256^3 packed and numpy r2c,
+   and 320^3 r2c and c2r (the unfused real route, beside cuFFT's
+   ``rfftn`` / ``irfftn``), 256^3 packed and numpy r2c,
    512^3 packed r2c, namespace ``fftn`` 256^3; 256^3 packed and numpy
    c2r, 512^3 packed c2r, namespace ``irfftn`` 256^3; the 1 x 1 mesh's
    packed c2r 256^3) and the nine register-core kernels at their
    main-path shapes, each with the
    register core and with every length routed to the dense core
-   (``fused_fft._reg_core``, ``_reg_rows``, ``_reg_slab``,
-   ``_reg_rslab``, ``_reg_axis`` and ``_reg_cube`` patched off), both row
+   (``fused_fft._reg_core``, ``_reg_real_rows``, ``_reg_rows``,
+   ``_reg_slab``, ``_reg_rslab``, ``_reg_axis`` and ``_reg_cube``
+   patched off), both row
    kernels so at
    every register-core length 16-4096 (``fft_last`` also at every mixed
-   length of its rows, beside ``torch.fft.fft``), both slab kernels so
+   length of its rows, beside ``torch.fft.fft``; ``rfft_last`` and
+   ``icrfft_last`` at every mixed M of theirs, beside ``torch.fft.rfft``
+   and ``irfft``, with their bounds), both slab kernels so
    at 512^3,
    ``fft_axis`` on each of its main-path shapes (with its achieved TB/s)
    and ``irfft_slab`` at 512^3 (two grids), and ``irfft_slab`` in
@@ -245,8 +258,10 @@ slab kernels, ``fft_axis``, the four-step pair and the cube ``dense_ms``,
 the dense core's time at the same shape (the pair's two rows also
 ``pair_library_factor``: their sum over
 ``torch.fft.fft`` of the whole transform, which computes the pair;
-``fft_last`` and ``fft_slab`` also ``mixed``: the same numbers at their
-mixed-length shape, (102400, 320) and (320, 320, 320); ``fft_cube`` also
+``fft_last``, ``fft_slab``, ``rfft_last`` and ``icrfft_last`` also
+``mixed``: the same numbers at their mixed-length shape, (102400, 320),
+(320, 320, 320), (36864, 192) (numpy layout; ``mixed_packed`` the packed
+one) and (36864, 96); ``fft_cube`` also
 ``shapes``: its numbers at the three shapes of phase 5); then the probes'
 kernels: ``probe_mma:<variant>`` at one iteration of (SMs, 128, 1024)
 (bound at the tier's peak: bf16 989, TF32 495, f32 67 TFLOP/s; library:
@@ -379,10 +394,17 @@ BOTH_CORES = ("fft_last", "fft_slab", "rfft_slab", "fft_axis", "irfft_slab",
               "step1_twiddle", "step3_transposed", "icrfft_last", "fft_cube")
 # the slab kernels, whose register core runs clusters or two grids
 SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
-# the mixed-length shapes timed beside the main-path ones: the 320^3
-# slab's z rows as one batch, and the 320^3 slab
-MIXED_SHAPES = {"fft_last": ((102400, 320), lambda f, x: f(*x)),
-                "fft_slab": ((320, 320, 320), lambda f, x: f(*x))}
+# the mixed-length shapes timed beside the main-path ones, each kernel's
+# under the keys of its JSON row: the 320^3 slab's z rows as one batch,
+# the 320^3 slab, 192^3's z rows on the unfused real route (r2c, both
+# layouts) and 192^3's packed c2r z stage on a 1 x 1 mesh
+MIXED_SHAPES = {
+    "fft_last": {"mixed": ((102400, 320), lambda f, x: f(*x))},
+    "fft_slab": {"mixed": ((320, 320, 320), lambda f, x: f(*x))},
+    "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
+                  "mixed_packed": ((36864, 192),
+                                   lambda f, x: f(x[0], packed=True))},
+    "icrfft_last": {"mixed": ((36864, 96), lambda f, x: f(*x))}}
 
 
 def _window(ff, run) -> tuple:
@@ -399,12 +421,12 @@ def _window(ff, run) -> tuple:
 @contextlib.contextmanager
 def _dense_core(ff):
     """Every length routed to the dense core (the predicates
-    ``fused_fft._reg_core`` (the r2c and c2r rows, the four-step pair),
-    ``_reg_rows`` (``fft_last``), ``_reg_slab``, ``_reg_rslab``,
-    ``_reg_axis`` and ``_reg_cube`` patched off): the earlier kernels on
-    the same data, for comparison."""
-    names = ("_reg_core", "_reg_rows", "_reg_axis", "_reg_slab",
-             "_reg_rslab", "_reg_cube")
+    ``fused_fft._reg_core`` (the four-step pair), ``_reg_real_rows`` (the
+    r2c and c2r rows), ``_reg_rows`` (``fft_last``), ``_reg_slab``,
+    ``_reg_rslab``, ``_reg_axis`` and ``_reg_cube`` patched off): the
+    earlier kernels on the same data, for comparison."""
+    names = ("_reg_core", "_reg_real_rows", "_reg_rows", "_reg_axis",
+             "_reg_slab", "_reg_rslab", "_reg_cube")
     keep = [getattr(ff, k) for k in names]
     for k in names:
         setattr(ff, k, lambda *n: False)
@@ -540,8 +562,7 @@ def grad_cases(ot, gen, mesh) -> list:
             ("rfft_slab", "fft_axis", "fft_slab")
             + (() if packed else ("assemble_mp1",))))
     small = GRAD_SHAPES["small"]
-    # 192^3's r2c reads the bundled H100 entry (radix_z of its dense
-    # rfft_last; 3d's comment): the same kernels, so the checks hold
+    # 192^3's r2c runs rfft_last at M = 96 on the mixed real rows
     ks = _lowpass(small, dev)
     pf = ot.plan(small, "float32", real=True, device=dev)
     pi = ot.plan(small, "float32", real=True, inverse=True, device=dev)
@@ -1074,9 +1095,10 @@ TUNE_CASES = (
     # split_1d x block_batch (a side of 3 * 2^k runs dense at every split)
     ("a", (1, 1, 3 * 2 ** 18), False, "brute", None, None,
      ("step1_twiddle", "step3_transposed")),
-    # the real route whose rfft_last at M = 96 runs the dense core, so
-    # that radix_z is searched
-    ("b", (192, 192, 192), True, "nm", 12, None, ("rfft_last", "fft_axis")),
+    # a real route whose rfft_last runs the dense core (M = 72, 3^2 8: no
+    # mixed real rows) and its axes (144) too, so that radix_z, radix_y,
+    # radix_x and block_batch are searched
+    ("b", (144, 144, 144), True, "nm", 12, None, ("rfft_last", "fft_axis")),
     # every kernel on the register core: the card's space is empty, and
     # the default point is timed
     ("c", (256, 256, 256), False, "nm", None, None,
@@ -1365,6 +1387,20 @@ def probe_phase(ff, pm, pr, sms, window, tag) -> tuple:
 
 # ---- 3m: the examples, the entry point, the bundled tuned defaults --------
 
+def one_card_record(kind: str) -> dict:
+    """A bundled record of a one-card key of this card, as
+    ``bench/saturation.ship`` writes one: 192^3 r2c at radix_z (3, 32), the
+    point the file shipped for that key before ``rfft_last`` ran its
+    M = 96 on the register core (``tests/test_torch_bundled_defaults.py``
+    holds the same record)."""
+    from offt_tpu_torch.plan import cache
+    from offt_tpu_torch.plan.params import ProblemSpec, default_params
+    spec = ProblemSpec(shape=(192,) * 3, real=True)
+    key = cache.plan_key(spec.shape, "complex64", True, 1, 1, kind)
+    point = default_params(spec).replace(radix_z=(3, 32))
+    return {key: {"params": cache._params_to_json(point), "perf": None}}
+
+
 # the examples at their card sizes (the arguments of each one's main)
 EXAMPLES = (
     ("grad_spectral", ["--n", "256"]),
@@ -1529,9 +1565,11 @@ def examples_phase(ot, ff, window, tag, dev, mesh) -> dict:
     stage; the FNO's first gradient against complex128 torch.fft), then
     its time beside its torch.fft twin's; ``entry()`` at
     128^3 against complex128 torch.fft and ``dryrun_multichip(1)`` in
-    this world of one; each bundled 1 x 1 entry of this card read by a
-    plan() with no params, its output checked and its time beside the
-    default point's (median of 20, three runs). Returns {window: reading}
+    this world of one; each bundled 1 x 1 entry of this card (where the
+    file holds none, :func:`one_card_record` in the bundled store for the
+    step) read by a plan() with no params, its output checked and its time
+    beside the default point's (median of 20, three runs); it raises
+    where no such entry ran. Returns {window: reading}
     of the examples and the entry."""
     import dataclasses
     import importlib
@@ -1602,15 +1640,24 @@ def examples_phase(ot, ff, window, tag, dev, mesh) -> dict:
           f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
 
     # the bundled defaults: plan() with no params reads each entry of this
-    # card (an empty local cache, so that no local entry shadows one)
+    # card (an empty local cache, so that no local entry shadows one).
+    # Where the file holds no one-card key of this card, the bundled store
+    # holds ONE_CARD_RECORD for this step, so that the lookup still runs
     keep = os.environ.get("OFFT_TPU_TORCH_CACHE_DIR")
     tmp = tempfile.mkdtemp(prefix="offt_bundled_")
     os.environ["OFFT_TPU_TORCH_CACHE_DIR"] = tmp
     kind = cache.device_kind(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
+    keep_db = cache._bundled()
+    store = dict(keep_db)
+    if not any(k.split("|")[3] == "1x1" and k.split("|")[4] == kind
+               for k in store):
+        store.update(one_card_record(kind))
+    cache._BUNDLED_DB = store
+    checked = 0
     try:
-        for key, rec in sorted(cache._bundled().items()):
+        for key, rec in sorted(store.items()):
             parts = key.split("|")
             if parts[3] != "1x1" or parts[4] != kind:
                 print(f"bundled {key}: not a one-card key of {kind}, "
@@ -1667,7 +1714,11 @@ def examples_phase(ot, ff, window, tag, dev, mesh) -> dict:
                   f"{sorted(d / b for d, b in zip(dd, db))[1]:.3f}x) {tag}",
                   flush=True)
             del p, pd, x, y, ref
+            checked += 1
+        if not checked:
+            raise AssertionError(f"no bundled one-card key of {kind} ran")
     finally:
+        cache._BUNDLED_DB = keep_db
         if keep is None:
             os.environ.pop("OFFT_TPU_TORCH_CACHE_DIR", None)
         else:
@@ -1844,10 +1895,26 @@ def main() -> int:
         ("rfft_last", ff.rfft_last_planar, rlast(False), (37, 256), None),
         ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 258), None),
         ("rfft_last", ff.rfft_last_planar, rlast(False), (37, 258), None),
+        # the mixed real rows (M = 48, 3072; 192^3's M = 96) and the dense
+        # core at M = 72
+        ("rfft_last", ff.rfft_last_planar, rlast(False), (300, 96), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 6144), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 144), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(True), (36864, 192), None),
+        ("rfft_last", ff.rfft_last_planar, rlast(False), (36864, 192),
+         None),
         ("rfft_last", ff.rfft_last_planar, rlast(True), (65536, 256), None),
         ("rfft_last", ff.rfft_last_planar, rlast(False), (65536, 256), None),
         ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
          (300, 64), None),
+        ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
+         (300, 48), None),
+        ("icrfft_last", ff.icrfft_last_planar,
+         lambda f, x: f(*x, scale=0.5 / 3072), (37, 3072), None),
+        ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
+         (37, 72), None),
+        ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
+         (36864, 96), None),
         ("icrfft_last", ff.icrfft_last_planar,
          lambda f, x: f(*x, scale=0.25 / 256), (65536, 256), None),
         ("icrfft_last", ff.icrfft_last_planar, lambda f, x: f(*x),
@@ -2185,10 +2252,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3d. the unfused real route through plan(real=True) ---------------
-    # 192^3 r2c reads the bundled H100 entry (plan/tuned_defaults.json:
-    # radix_z (3, 32) for rfft_last at M = 96); that row runs the dense
-    # core at the default point and at this one alike, so the phase keeps
-    # its checks (route local, rfft_last on both cores over 3d) unchanged
+    # the r2c's rfft_last at M = 128 (256^3), 96 (192^3) and 160 (320^3),
+    # all on the register core's real rows (the mixed ones of
+    # csrc/real_rows_mix.cu); the c2r's around fft_last's rows
     local_cases = [
         # (label, shape, inverse, planar)
         ("256^3 r2c planar=False", (256, 256, 256), False, False),
@@ -2196,6 +2262,9 @@ def main() -> int:
         ("192^3 r2c (outside the packed gate)", (192, 192, 192), False,
          True),
         ("192^3 c2r (outside the packed gate)", (192, 192, 192), True, True),
+        ("320^3 r2c (outside the packed gate)", (320, 320, 320), False,
+         True),
+        ("320^3 c2r (outside the packed gate)", (320, 320, 320), True, True),
         ("(1,1,2^21) r2c", (1, 1, 2 ** 21), False, True),
         ("(1,1,2^21) c2r", (1, 1, 2 ** 21), True, True),
     ]
@@ -2277,6 +2346,9 @@ def main() -> int:
         ("256^3 c2r numpy", cube, 0, True, True, False, None, False),
         ("512^3 r2c packed", (512,) * 3, 0, False, True, True, None, False),
         ("512^3 c2r packed", (512,) * 3, 0, True, True, True, None, False),
+        # rfft_last and icrfft_last at M = 96 on the mixed real rows
+        ("192^3 r2c packed", (192,) * 3, 0, False, True, True, None, False),
+        ("192^3 c2r packed", (192,) * 3, 0, True, True, True, None, False),
         ("4x128^3 c2c batch_sharded", (4, 128, 128, 128), 1, False, False,
          False, None, True),
     ]
@@ -2517,19 +2589,21 @@ def main() -> int:
         print(f"{label} window launches per kernel: {ran}; register core; "
               "plain calls: 0")
     # the one fft_last length of 3a is N = 1024 (the 64 x 1024^2 case);
-    # 3d runs rfft_last at N = 256 (256^3) and N = 192 (192^3, dense)
+    # 3d runs rfft_last at N = 256 (256^3), 192 (192^3) and 320 (320^3),
+    # all on the register core (M = 96 and 160 on the mixed real rows)
     c2c_last = runs["c2c"][1]["fft_last"]
     if not 0 < runs["c2c"][2]["fft_last"] == c2c_last:
         raise AssertionError("fft_last at N = 1024 did not run the register "
                              f"core: {runs['c2c'][2]} of {c2c_last}")
     real_last = runs["local_real"][1]["rfft_last"]
-    if not 0 < runs["local_real"][2]["rfft_last"] < real_last:
-        raise AssertionError("rfft_last did not run both cores on 3d: "
-                             f"{runs['local_real'][2]} of {real_last}")
+    if not 3 <= runs["local_real"][2]["rfft_last"] == real_last:
+        raise AssertionError("rfft_last did not run the register core "
+                             f"throughout 3d: {runs['local_real'][2]} of "
+                             f"{real_last}")
     print(f"register core: fft_last at N = 1024 on 3a ({c2c_last} of "
-          f"{c2c_last}); rfft_last at N = 256 on 3d "
-          f"({runs['local_real'][2]['rfft_last']} of {real_last}, the "
-          "rest dense at N = 192)")
+          f"{c2c_last}); rfft_last on 3d "
+          f"({runs['local_real'][2]['rfft_last']} of {real_last}: N = 256, "
+          "192 and 320)")
     # 3a's slabs: 256^3 (five calls), 512^3 and 320^3 (forward and
     # inverse, the mixed rows and columns) all on the register core; 3b's
     # r2c slabs (256^3, 512^3, 128 x 256) all register
@@ -2552,7 +2626,8 @@ def main() -> int:
     # 256^3 and 512^3 (fft_x_from_padded, five calls), 320^3 (the mixed
     # radix-20 column variant), in place and the 64 x 1024^2 y pass
     # (fft_sublane); on 3b the c2r's x pass (fft_x_to_padded) and the
-    # r2c's; on 3d 256^3's and 192^3's axis passes (192: radix 12);
+    # r2c's; on 3d the axis passes of 256^3, 192^3 (radix 12) and 320^3
+    # (radix 20);
     # irfft_slab on 3b's 256^3 and 512^3 c2r (five calls)
     ax_c2c, ax_c2c_reg = runs["c2c"][1]["fft_axis"], \
         runs["c2c"][2]["fft_axis"]
@@ -2568,21 +2643,26 @@ def main() -> int:
     ax_l, ax_l_reg = runs["local_real"][1]["fft_axis"], \
         runs["local_real"][2]["fft_axis"]
     if not 0 < ax_l_reg == ax_l:
-        raise AssertionError("3d: want every axis pass (256^3, 192^3) on "
-                             f"the register core: {ax_l_reg} of {ax_l}")
+        raise AssertionError("3d: want every axis pass (256^3, 192^3, "
+                             "320^3) on the register core: "
+                             f"{ax_l_reg} of {ax_l}")
     print(f"register core: fft_axis on 3a ({ax_c2c_reg} of {ax_c2c}: the x "
           "passes of 256^3, 512^3 and 320^3, in place and the 64 x 1024^2 "
           f"y pass), on 3b ({ax_r_reg} of {ax_r}) and on 3d ({ax_l_reg} of "
-          f"{ax_l}: 256^3 and 192^3); irfft_slab on 3b ({ir_reg} of {ir}: "
-          "256^3 and 512^3)")
-    # the 1 x 1 mesh's packed c2r stages (256^3, 512^3: M = 128, 256) on
-    # the register core's c2r rows
+          f"{ax_l}: 256^3, 192^3 and 320^3); irfft_slab on 3b ({ir_reg} "
+          f"of {ir}: 256^3 and 512^3)")
+    # the 1 x 1 mesh's packed c2r stages (256^3, 512^3, 192^3: M = 128,
+    # 256, 96) on the register core's c2r rows, and its r2c z stages
+    # (rfft_last at the same M) on its r2c rows
     ic, ic_reg = runs["mesh"][1]["icrfft_last"], \
         runs["mesh"][2]["icrfft_last"]
-    if not 0 < ic_reg == ic:
-        raise AssertionError("icrfft_last on 3e: want the register core "
-                             f"throughout: {ic_reg} of {ic}")
-    print(f"register core: icrfft_last on 3e ({ic_reg} of {ic})")
+    rl, rl_reg = runs["mesh"][1]["rfft_last"], runs["mesh"][2]["rfft_last"]
+    if not (0 < ic_reg == ic and 0 < rl_reg == rl):
+        raise AssertionError("3e: want icrfft_last and rfft_last on the "
+                             f"register core throughout: icrfft_last "
+                             f"{ic_reg} of {ic}, rfft_last {rl_reg} of {rl}")
+    print(f"register core: icrfft_last on 3e ({ic_reg} of {ic}: M = 128, "
+          f"256 and 96), rfft_last on 3e ({rl_reg} of {rl})")
     # the four-step pair, each kernel on the core of its own length: on 3c
     # every power-of-two split (2^20 four times, 8 x 2^20, 2^22, 2^24) and
     # 3 * 2^18's (1024, 768) take the register core, but for step 3 at 768
@@ -2808,6 +2888,15 @@ def main() -> int:
         show_breakdown(f"port {'c2r' if inv else 'r2c'} planar=False 256^3",
                        ot.plan((256, 256, 256), "float32", real=True,
                                inverse=inv), (arg,))
+    # the unfused real route at 192^3 and 320^3 (rfft_last at M = 96 and
+    # 160 on the mixed real rows)
+    for n in (192, 320):
+        x = torch.randn((n, n, n), generator=gen, device="cuda")
+        p = ot.plan((n, n, n), "float32", real=True, planar=True)
+        show_breakdown(f"port r2c {n}^3 (local)", p, (x,))
+        show_breakdown(f"port c2r {n}^3 (local)",
+                       ot.plan((n, n, n), "float32", real=True, planar=True,
+                               inverse=True), p(x))
     x = torch.randn((1, 1, 2 ** 21), generator=gen, device="cuda")
     p = ot.plan((1, 1, 2 ** 21), "float32", real=True, planar=True)
     show_breakdown("port rfft (1, 1, 2^21)", p, (x,))
@@ -2945,6 +3034,7 @@ def main() -> int:
     c5 = _pair((512, 512, 512), gen)
     c320 = _pair((320, 320, 320), gen)
     x192 = torch.randn((192, 192, 192), generator=gen, device="cuda")
+    x320 = torch.randn((320, 320, 320), generator=gen, device="cuda")
     real = {"real": True, "planar": True}
     paths = (
         ("c2c 64x1024^2 (plan, 2-D route)",
@@ -2959,12 +3049,17 @@ def main() -> int:
          ot.plan((512, 512, 512), "complex64", planar=True), (c5,)),
         ("c2c 320^3 (plan, slab + x)",
          ot.plan((320, 320, 320), "complex64", planar=True), (c320,)),
-        # at the bundled H100 point (3d's comment), on either core
+        # rfft_last at M = 96 and 160 on the mixed real rows
         ("r2c 192^3 (plan, local)",
          ot.plan((192, 192, 192), "float32", **real), (x192,)),
         ("c2r 192^3 (plan, local)",
          ot.plan((192, 192, 192), "float32", inverse=True, **real),
          ot.plan((192, 192, 192), "float32", **real)(x192)),
+        ("r2c 320^3 (plan, local)",
+         ot.plan((320, 320, 320), "float32", **real), (x320,)),
+        ("c2r 320^3 (plan, local)",
+         ot.plan((320, 320, 320), "float32", inverse=True, **real),
+         ot.plan((320, 320, 320), "float32", **real)(x320)),
         ("r2c 256^3 packed (plan)",
          ot.plan((256, 256, 256), "float32", packed=True, **real), (x3,)),
         ("r2c 256^3 numpy (plan)",
@@ -2993,6 +3088,14 @@ def main() -> int:
              f", {r_dense['median_ms'] / r_reg['median_ms']:.2f}x faster "
              "than the dense core")
         show(f"path {label}, dense core", r_dense)
+        if "local" in label:
+            # the unfused real route's device time alone (the host ahead)
+            d_reg = time_cuda(fn, args, ahead=True)["median_ms"]
+            with _dense_core(ff):
+                d_dense = time_cuda(fn, args, ahead=True)["median_ms"]
+            print(f"path {label}, device time: register core {d_reg:.4f} "
+                  f"ms, dense core {d_dense:.4f} ms "
+                  f"({d_dense / d_reg:.2f}x) {tag}", flush=True)
     # the 320^3 path beside its bound (one read and one write of the
     # cube) and the bytes its three passes move (z rows, y, x: each
     # reads and writes the cube), and beside cuFFT
@@ -3009,6 +3112,14 @@ def main() -> int:
           f"({p320 / f320:.2f}x) {tag}", flush=True)
     show("torch.fft.fft2 (cuFFT) c64 64x1024^2",
          time_cuda(torch.fft.fft2, (torch.complex(xr, xi),)))
+    # the unfused real route's cubes beside cuFFT (device time alone)
+    for n, x in ((192, x192), (320, x320)):
+        w = torch.fft.rfftn(x)
+        show(f"torch.fft.rfftn (cuFFT) f32 {n}^3, device time",
+             time_cuda(torch.fft.rfftn, (x,), ahead=True))
+        show(f"torch.fft.irfftn (cuFFT) c64 {n}^3, device time",
+             time_cuda(lambda: torch.fft.irfftn(w, s=x.shape), ahead=True))
+        del w
     for n, x in ((256, x3), (512, x5)):
         w = torch.fft.rfftn(x)
         show(f"torch.fft.irfftn (cuFFT) c64 {n}^3",
@@ -3031,7 +3142,7 @@ def main() -> int:
         show(f"kernel {label}, dense core", r_dense)
         show(f"library {label} (torch.fft.{lib[0]})", r_lib)
         del lib
-    del xr, xi, x3, c3, x5, c5, c320, x192, paths
+    del xr, xi, x3, c3, x5, c5, c320, x192, x320, paths
     torch.cuda.empty_cache()
     # the slabs' phase ledgers, the strided pass's lane tiles, the
     # four-step pair's variants and the cube's phases and groups
@@ -3093,6 +3204,32 @@ def main() -> int:
               f"{r_reg:.4f} ms ({nbytes / r_reg / 1e9:.2f} TB/s), dense "
               f"{r_dense:.4f} ms, fft(dim=-1) {r_lib:.4f} ms "
               f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
+    # rfft_last (numpy layout) and icrfft_last at every mixed M of the
+    # real rows (``_MIX_ROW_LENGTHS``), as many whole rows as 2^24 real
+    # samples hold, each core, the library call and the bound
+    for m in sorted(ff._MIX_ROW_LENGTHS):
+        rows = (1 << 23) // m
+        spec = torch.complex(xr[:rows * (m + 1)].view(rows, m + 1),
+                             xi[:rows * (m + 1)].view(rows, m + 1))
+        for name, fn, args, lib, shp in (
+                ("rfft_last", ff.rfft_last_planar,
+                 (xx[:rows * 2 * m].view(rows, 2 * m),), torch.fft.rfft,
+                 (rows, 2 * m)),
+                ("icrfft_last", ff.icrfft_last_planar,
+                 (xr[:rows * m].view(rows, m), xi[:rows * m].view(rows, m)),
+                 torch.fft.irfft, (rows, m))):
+            r_reg = time_cuda(fn, args, ahead=True)["median_ms"]
+            with _dense_core(ff):
+                r_dense = time_cuda(fn, args, ahead=True)["median_ms"]
+            lib_args = args if name == "rfft_last" else (spec,)
+            r_lib = time_cuda(lib, lib_args, ahead=True)["median_ms"]
+            bms, _ = kernel_bound(name, shp)
+            print(f"sweep {name} M={m} rows={rows} (mixed): register "
+                  f"{r_reg:.4f} ms ({bms / r_reg:.3f} of its bound "
+                  f"{bms:.4f} ms), dense {r_dense:.4f} ms, "
+                  f"{lib.__name__} {r_lib:.4f} ms ({r_reg / r_lib:.2f}x) "
+                  f"{tag}", flush=True)
+        del spec
     del xr, xi, xx
     # the one-shot call: the first builds its plan, the second reuses it
     xc = torch.complex(*_pair((256, 256, 256), gen))
@@ -3141,10 +3278,8 @@ def main() -> int:
             show(f"kernel {name} via {fn.__name__} {shape}, dense core", r_d,
                  f", {r_d['median_ms'] / r_k['median_ms']:.2f}x the "
                  "register core")
-        if name in MIXED_SHAPES:
-            # the row kernel and the slab at a mixed length: the 320^3
-            # slab's z rows as a batch, the 320^3 slab
-            shp, call_m = MIXED_SHAPES[name]
+        for what, (shp, call_m) in MIXED_SHAPES.get(name, {}).items():
+            # the kernel at a mixed length (MIXED_SHAPES)
             xm = _pair(shp, gen)
             m_k = time_cuda(call_m, (fn, xm), ahead=True)["median_ms"]
             with _dense_core(ff):
@@ -3155,14 +3290,15 @@ def main() -> int:
             m_l = time_cuda(*lib_m[1:], ahead=True)["median_ms"]
             mb, mby = kernel_bound(name, shp)
             nbytes = kernel_work(name, shp)[0]
-            print(f"kernel {name} {shp} (mixed): register core {m_k:.4f} ms "
-                  f"({nbytes / m_k / 1e9:.3f} TB/s, {mb / m_k:.3f} of its "
+            print(f"kernel {name} {shp} ({what}): register core "
+                  f"{m_k:.4f} ms ({nbytes / m_k / 1e9:.3f} TB/s, "
+                  f"{mb / m_k:.3f} of its "
                   f"bound), dense core {m_d:.4f} ms, plain {m_p:.4f} ms, "
                   f"library {lib_m[0]} {m_l:.4f} ms ({m_k / m_l:.2f}x), "
                   f"bound {mb:.4f} ms ({mby}) {tag}", flush=True)
-            extra["mixed"] = {"shape": list(shp), "ms": m_k, "dense_ms": m_d,
-                              "plain_ms": m_p, "library_ms": m_l,
-                              "bound_ms": mb, "bound_by": mby}
+            extra[what] = {"shape": list(shp), "ms": m_k, "dense_ms": m_d,
+                           "plain_ms": m_p, "library_ms": m_l,
+                           "bound_ms": mb, "bound_by": mby}
             if name == "fft_slab":
                 # its two grids alone: the z rows (fft_last on the
                 # slab's rows) and the y lines (the strided-axis kernel)

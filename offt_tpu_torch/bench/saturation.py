@@ -114,6 +114,20 @@ def _rank0() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def _decide(make):
+    """Rank 0's ``make()``, the same object on every rank of the world
+    (``make()`` alone without one). Only rank 0 writes the receipt file,
+    so only rank 0 reads it back to decide what the world does next: a
+    rank that read it itself could run ahead of rank 0's append and leave
+    rank 0 alone in a collective."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return make()
+    box = [make() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def log(row: dict, out: str) -> None:
     """Append ``row`` to ``out`` (rank 0 alone) and print it."""
     if not _rank0():
@@ -344,7 +358,7 @@ def confirm(keys, *, out=OUT, mesh=None, device=None) -> list:
     timer = _default_timer()
     done = []
     for key in keys:
-        v = _latest(out, key, "verdict")
+        v = _decide(lambda: _latest(out, key, "verdict"))
         if v is None:
             print(f"# {key}: no verdict row", flush=True)
             continue
@@ -394,7 +408,7 @@ def _median_s(pl, device) -> float:
 def recheck(key, *, out=OUT, mesh=None, device=None) -> dict:
     """Time the key's default point and best point in this (fresh)
     process, each the median of 20 calls; one ``recheck`` row."""
-    v = _latest(out, key, "verdict")
+    v = _decide(lambda: _latest(out, key, "verdict"))
     if v is None:
         raise SystemExit(f"{key}: no verdict row in {out}")
     dpl, bpl = _plans_of(v, mesh, device)
@@ -515,7 +529,7 @@ def _sweep(ns, device, mesh) -> int:
         recheck(ns.recheck, out=ns.out, mesh=mesh, device=device)
         return 0
     if not ns.confirm:
-        skip = set() if ns.redo else done_keys(ns.out)
+        skip = set() if ns.redo else _decide(lambda: done_keys(ns.out))
         for key in keys:
             if key in skip:
                 if _rank0():
@@ -529,7 +543,8 @@ def _sweep(ns, device, mesh) -> int:
             if device.type == "cuda":
                 torch.cuda.empty_cache()
     if not (ns.confirm or ns.redo):
-        have = {r["key"] for r in rows(ns.out) if r["stage"] == "confirmed"}
+        have = _decide(lambda: {r["key"] for r in rows(ns.out)
+                                if r["stage"] == "confirmed"})
         keys = [k for k in keys if k not in have]
     confirmed = confirm(keys, out=ns.out, mesh=mesh, device=device)
     if ns.mesh:

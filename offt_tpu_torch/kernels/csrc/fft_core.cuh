@@ -11,7 +11,12 @@
 // memory (element n of pencil t at [n * TP + t]), the DFT over n in 1-3
 // dense radix stages with the (r, L/r) twiddle between them, f32 FMA
 // throughout. The natural output index is kn = k1 + r1*k2 + r1*r2*k3, as
-// in the reference.
+// in the reference. A stage's r-term sums run in blocks of kSumBlock
+// inputs, each block summed from zero and then added to the output: in
+// one chain of 2r FMAs each rounding scales with the partial sum so far,
+// which grows with r, and a 64- or 128-term stage strayed two to three
+// times further from the exact sum. Stages of r <= kSumBlock are one
+// block, the single chain they always were.
 //
 // What bounds it on Hopper: each dense stage costs r complex MACs per
 // element (4 FMAs each), so a (16, 16) core is 128 FMAs per element, plus
@@ -37,6 +42,7 @@ namespace offt {
 
 constexpr int kThreads = 256;     // threads per block of every kernel
 constexpr int kOutPerThread = 8;  // R: outputs a thread computes per pass
+constexpr int kSumBlock = 16;     // inputs summed apart before each add
 
 struct Core {
   int n;      // transform length
@@ -104,6 +110,7 @@ static __device__ void core_run(float* re, float* im, int T, int TP,
       const int g = g0 + gl;
       const bool active = kblk < kb && g < ngroups;
       float ar[R], ai[R];
+      float br[R], bi[R];  // the current block's sums
       int blk = 0, j = 0, t = 0;
       if (active) {
         t = g % T;
@@ -117,20 +124,32 @@ static __device__ void core_run(float* re, float* im, int T, int TP,
         for (int u = 0; u < R; ++u) {
           ar[u] = 0.f;
           ai[u] = 0.f;
+          br[u] = 0.f;
+          bi[u] = 0.f;
           idx[u] = 0;
           step[u] = (k0 + u < r) ? k0 + u : 0;
         }
-        for (int i = 0; i < r; ++i) {
-          const int p = (base + i * Ln) * TP + t;
-          const float xr = re[p];
-          const float xi = im[p];
+        for (int i0 = 0; i0 < r; i0 += kSumBlock) {
+          const int i1 = min(i0 + kSumBlock, r);
+          for (int i = i0; i < i1; ++i) {
+            const int p = (base + i * Ln) * TP + t;
+            const float xr = re[p];
+            const float xi = im[p];
+#pragma unroll
+            for (int u = 0; u < R; ++u) {
+              const float2 wv = w[idx[u]];
+              br[u] = fmaf(wv.x, xr, fmaf(-wv.y, xi, br[u]));
+              bi[u] = fmaf(wv.x, xi, fmaf(wv.y, xr, bi[u]));
+              idx[u] += step[u];
+              if (idx[u] >= r) idx[u] -= r;
+            }
+          }
 #pragma unroll
           for (int u = 0; u < R; ++u) {
-            const float2 wv = w[idx[u]];
-            ar[u] = fmaf(wv.x, xr, fmaf(-wv.y, xi, ar[u]));
-            ai[u] = fmaf(wv.x, xi, fmaf(wv.y, xr, ai[u]));
-            idx[u] += step[u];
-            if (idx[u] >= r) idx[u] -= r;
+            ar[u] += br[u];
+            ai[u] += bi[u];
+            br[u] = 0.f;
+            bi[u] = 0.f;
           }
         }
         if (!last) {

@@ -5,7 +5,8 @@
 // (fft_axis.cu; the y pass of the three slabs); and the mixed lengths
 // N = R0 2^k, R0 = 3 or 5 (MixGeo), in the column variant
 // (fft_axis_mix.cu) and as rows (MixRowGeo: fft_last_mix.cu, the z pass
-// of the c2c slab). The kernels built on it are in regs_kernels.cuh.
+// of the c2c slab; the r2c and c2r rows of real_rows_mix.cu). The kernels
+// built on it are in regs_kernels.cuh.
 //
 // Replaces, on those lengths: the dense shared-memory core of fft_core.cuh
 // (itself the port of offt_tpu/kernels/pallas_fft.py _core_apply :428).

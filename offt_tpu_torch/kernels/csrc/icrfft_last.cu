@@ -12,7 +12,7 @@
 //
 // What bounds it on Hopper: the rows' bytes, 8 read (one planar complex
 // value) and 8 written (two real samples) per input lane. Two cores,
-// chosen by the wrapper (fused_fft._reg_core):
+// chosen by the wrapper (fused_fft._reg_real_rows):
 // - a power-of-two M in [16, 4096] runs regs::rows_c2r of
 //   regs_kernels.cuh, the kernel of irfft_slab.cu's c2r rows (the rows at
 //   pitch M): P = M / 16 threads a row read lanes e and (M - e) mod M
@@ -21,6 +21,9 @@
 //   x[2j], x[2j + 1] = v[j] as one float2, a warp on consecutive float2
 //   (rows of 1-2 threads, M = 16 and 32, store through a shared stage).
 //   It ignores the radices and the rows per block;
+// - the mixed M = 3 2^k in [48, 1536] and 3072, 5 2^k in [80, 2560] run
+//   the same design on the mixed rows (regs::rows_c2r_mix,
+//   real_rows_mix.cu, a source of its own);
 // - every other M runs the dense core of fft_core.cuh: a block owns T
 //   whole rows, read in order with consecutive threads on consecutive
 //   lanes and stored column-wise (pencil stride TP = T | 1, odd, so the
@@ -58,9 +61,10 @@ icrfft_last_kernel(const float* xr, const float* xi, float* out,
 
 }  // namespace offt
 
-// reg != 0: the register core (m a power of two in [16, 4096]; the first
-// m rows of the inverse core table and `ab` are read, the radices and T
-// are not); else the dense core (radices, T).
+// reg != 0: the register core (m a power of two in [16, 4096], or a mixed
+// M of real_rows_mix.cu; the first m rows of the inverse core table and
+// `ab` are read, the radices and T are not); else the dense core
+// (radices, T).
 extern "C" int offt_icrfft_last(const void* xr, const void* xi, void* out,
                                 const void* tab, const void* ab,
                                 long long rows, int m, int ns, int r0,
@@ -68,6 +72,10 @@ extern "C" int offt_icrfft_last(const void* xr, const void* xi, void* out,
                                 void* stream) {
   using namespace offt;
   if (reg) {
+    if (m & (m - 1))
+      return (int)icrfft_mix((const float*)xr, (const float*)xi, (float*)out,
+                             (const float2*)tab, (const float2*)ab, rows, m,
+                             (cudaStream_t)stream);
     return (int)regs::by_log(m, [&](auto lg) {
       return regs::launch_rows_c2r<decltype(lg)::value>(
           (const float*)xr, (const float*)xi, (float*)out,

@@ -7,7 +7,8 @@
 //   the O(M) untangle (rfft_last.cu; the z pass of rfft_slab.cu);
 // - rows_c2r: c2r of packed half-spectrum rows, the re-tangle as the core
 //   loads, the inverse M-point core, float2 stores (irfft_slab.cu,
-//   icrfft_last.cu);
+//   icrfft_last.cu); rows_r2c and rows_c2r at the mixed M of the rows
+//   (MixRowGeo) are rows_r2c_mix and rows_c2r_mix, in real_rows_mix.cu;
 // - cols_c2c: the column variant, c2c along a strided axis (fft_axis.cu;
 //   the y pass of the slabs), on the (B, N, Y, Z) geometry of fft_axis.cu,
 //   in blocks of 256 threads or of 32 lines up to 1024 threads;
@@ -153,13 +154,13 @@ rows_c2c(const float* xr, const float* xi, float* yr, float* yi,
 }
 
 // The r2c untangle of the pair (k, M - k), 0 < k < M, from V = DFT_M(v)
-// in natural order in a row's planes (at phys): X[k] = E - i W^k O and
-// X[M - k], E, O = (V[k] +- conj V[M-k]) / 2, W^k = w[k]; hs = scale / 2.
+// in natural order in a row's planes, V[k] at pa and V[M - k] at pb:
+// X[k] = E - i W^k O and X[M - k], E, O = (V[k] +- conj V[M-k]) / 2,
+// W^k = w[k]; hs = scale / 2.
 template <int M>
-static __device__ __forceinline__ void untangle_pair(
+static __device__ __forceinline__ void untangle_at(
     const float* sre, const float* sim, const float2* __restrict__ w, int k,
-    float hs, float2& xk, float2& xmk) {
-  const int pa = phys(k), pb = phys(M - k);
+    int pa, int pb, float hs, float2& xk, float2& xmk) {
   const float ar = sre[pa], ai = sim[pa];  // V[k]
   const float br = sre[pb], bi = sim[pb];  // V[M-k]
   // 2E and 2O; hs restores the halves
@@ -170,6 +171,14 @@ static __device__ __forceinline__ void untangle_pair(
                    (ei - wk.x * o_r + wk.y * o_i) * hs);
   xmk = make_float2((er + wm.x * o_i - wm.y * o_r) * hs,
                     (-ei + wm.x * o_r + wm.y * o_i) * hs);
+}
+
+// untangle_at with V at the power-of-two rows' pad map phys
+template <int M>
+static __device__ __forceinline__ void untangle_pair(
+    const float* sre, const float* sim, const float2* __restrict__ w, int k,
+    float hs, float2& xk, float2& xmk) {
+  untangle_at<M>(sre, sim, w, k, phys(k), phys(M - k), hs, xk, xmk);
 }
 
 // r2c of real rows of 2M floats: v[j] = x[2j] + i x[2j+1] (one float2,
@@ -978,5 +987,16 @@ cudaError_t last_mix(const float* xr, const float* xi, float* yr, float* yi,
                      const float2* tab, long long rows, int n,
                      long long ipitch, long long opitch, int inverse,
                      float scale, cudaStream_t s);
+// r2c of `rows` real rows of 2m floats, m = R0 2^k (16 <= 2^k <= 512, or
+// 3072), into the numpy (m + 1 lanes) or packed (m lanes) planar rows,
+// contiguous, times `scale` (real_rows_mix.cu).
+cudaError_t rfft_mix(const float* x, float* yr, float* yi, const float2* tab,
+                     const float2* w, long long rows, int m, float scale,
+                     int packed, cudaStream_t s);
+// c2r of `rows` packed planar rows of m lanes (m as rfft_mix), contiguous,
+// into real rows of 2m floats; the scale rides ab (real_rows_mix.cu).
+cudaError_t icrfft_mix(const float* xr, const float* xi, float* out,
+                       const float2* tab, const float2* ab, long long rows,
+                       int m, cudaStream_t s);
 
 }  // namespace offt

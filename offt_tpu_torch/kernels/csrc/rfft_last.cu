@@ -15,7 +15,7 @@
 //
 // What bounds it on Hopper: 8 bytes read (one sample pair) and 8 written
 // (one planar complex value) per output lane.
-// Design, two cores chosen by the wrapper (fused_fft._reg_core(M)):
+// Design, two cores chosen by the wrapper (fused_fft._reg_real_rows(M)):
 // - M a power of two in [16, 4096]: the register core of fft_regs.cuh
 //   (regs::rows_r2c in regs_kernels.cuh, packed rows at pitch M).
 //   Its first pass reads the float2 pairs straight into registers (a warp
@@ -26,6 +26,9 @@
 //   memory: staged back in the shared planes, they are copied out with
 //   consecutive threads on consecutive floats, whole sectors, although a
 //   numpy row (M + 1 floats) is odd;
+// - the mixed M = 3 2^k in [48, 1536] and 3072, 5 2^k in [80, 2560]: the
+//   same design on the mixed rows (regs::rows_r2c_mix, real_rows_mix.cu,
+//   a source of its own);
 // - every other M: the dense core of fft_core.cuh on a column-wise tile of
 //   T rows (pencil stride TP = T | 1), the untangle in place on the tile
 //   (r2c_untangle), then a row-major store. Its scale rides the table.
@@ -84,9 +87,10 @@ rfft_last_kernel(const float* x, float* yr, float* yi,
 
 }  // namespace offt
 
-// reg != 0: the register core (m a power of two in [16, 4096]; the first
-// m rows of `tab` and `scale` are read, the radices and T are not); else
-// the dense core (radices, T; the scale is in the table).
+// reg != 0: the register core (m a power of two in [16, 4096], or a mixed
+// M of real_rows_mix.cu; the first m rows of `tab` and `scale` are read,
+// the radices and T are not); else the dense core (radices, T; the scale
+// is in the table).
 extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
                               const void* tab, const void* w, long long rows,
                               int m, int ns, int r0, int r1, int r2, int T,
@@ -100,6 +104,8 @@ extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
   float* o_i = (float*)yi;
   cudaStream_t s = (cudaStream_t)stream;
   if (reg) {
+    if (m & (m - 1))
+      return (int)rfft_mix(xf, o_r, o_i, tb, wt, rows, m, scale, packed, s);
     return (int)regs::by_log(m, [&](auto lg) {
       return regs::launch_rows_r2c<decltype(lg)::value>(
           xf, o_r, o_i, tb, wt, rows, m, scale, packed, s);

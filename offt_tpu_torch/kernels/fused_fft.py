@@ -30,10 +30,12 @@ dispatches on the tensors' device:
 
 Every wrapper counts its kernel launches (``fn.launches``) and its plain
 calls (``fn.plain_calls``); :func:`reset_counts` zeroes them. Each
-wrapper is listed by name in ``WRAPPERS`` as it is defined. The two
-last-axis row kernels (``fft_last``, ``rfft_last_planar``) run the
-register core of ``csrc/fft_regs.cuh`` on the lengths :func:`_reg_rows`
-and :func:`_reg_core` admit, the strided-axis kernel (``fft_sublane``,
+wrapper is listed by name in ``WRAPPERS`` as it is defined. The
+last-axis row kernels (``fft_last``; ``rfft_last_planar`` and
+``icrfft_last_planar``) run the register core of ``csrc/fft_regs.cuh``
+on the lengths :func:`_reg_rows` and :func:`_reg_real_rows` admit, the
+four-step pair (``fourstep.py``) on those :func:`_reg_core` admits, the
+strided-axis kernel (``fft_sublane``,
 ``_sublane_nd``, ``fft_x_from_padded``, ``fft_x_to_padded``) its column
 variant on the lengths :func:`_reg_axis` admits, the three slab kernels
 (``fft_slab_yz``, ``rfft_slab_yz``, ``irfft_slab_yz``) on the slabs
@@ -212,12 +214,11 @@ def _pow2(n: int) -> bool:
 
 
 def _reg_core(n: int) -> bool:
-    """Whether ``rfft_last_planar`` and ``icrfft_last_planar`` at half
-    length n, and each kernel of the four-step pair at its own length,
-    launch the register core (``csrc/fft_regs.cuh``): a power of two in
-    [16, 4096]. Every other length takes the dense core (their untangle,
-    c2r and transposing rows have no mixed instances). The register core
-    ignores the radices and the rows per block."""
+    """Whether each kernel of the four-step pair (``fourstep.py``) at its
+    own length n launches the register core (``csrc/fft_regs.cuh``): a
+    power of two in [16, 4096]. Every other length takes the dense core
+    (its twiddled columns and transposing rows have no mixed instances).
+    The register core ignores the radices and the rows per block."""
     return _pow2(n)
 
 
@@ -228,6 +229,17 @@ _MIX_LENGTHS = frozenset(r0 << k for r0 in (3, 5) for k in range(4, 10))
 # (P = 256, one row a block), whose exchanges take one wavefront as rows
 # and would take two as columns
 _MIX_ROW_LENGTHS = _MIX_LENGTHS | {3072}
+
+
+def _reg_real_rows(m: int) -> bool:
+    """Whether ``rfft_last_planar`` and ``icrfft_last_planar`` at half
+    length M launch the register core's real rows: a power of two in
+    [16, 4096] (``regs::rows_r2c``, ``rows_c2r``), or a mixed length of
+    ``_MIX_ROW_LENGTHS`` (``regs::rows_r2c_mix``, ``rows_c2r_mix`` in
+    ``csrc/real_rows_mix.cu``). Every other M (72, 144: factors 3^2 or
+    15) takes the dense core. The register core ignores the radices and
+    the rows per block."""
+    return _pow2(m) or m in _MIX_ROW_LENGTHS
 
 
 def _reg_values(n: int) -> int:
@@ -1190,10 +1202,11 @@ def rfft_last_planar(mode, x, radices=None,
     x[2j+1], then the O(M) untangle. The reference has no ``scale`` and
     post-multiplies.
 
-    On M a power of two in [16, 4096] (:func:`_reg_core`) the kernel runs
-    the register core: ``radices`` (the reference's ``_pick_2stage`` of M)
-    is checked but does not shape its passes, ``block_rows`` is ignored,
-    and ``scale`` is applied at the store. Other M run the dense core on
+    On M a power of two in [16, 4096] or a mixed length 3 2^k or 5 2^k
+    of :func:`_reg_real_rows` the kernel runs the register core:
+    ``radices`` (the reference's ``_pick_2stage`` of M) is checked but
+    does not shape its passes, ``block_rows`` is ignored, and ``scale`` is
+    applied at the store. Other M run the dense core on
     the pick, ``scale`` riding its last stage's table; ``block_rows`` sets
     its rows per CUDA block. The plain version is the dense core's
     arithmetic on every M."""
@@ -1229,7 +1242,7 @@ def rfft_last_planar(mode, x, radices=None,
         return yr, yi
     rows = x.numel() // n
     if rows:
-        reg = _reg_core(m)
+        reg = _reg_real_rows(m)
         if x.data_ptr() % 8:
             # the kernel reads (x[2j], x[2j+1]) as one float2
             raise ValueError("rfft_last_planar needs an 8-byte aligned input")
@@ -1254,10 +1267,11 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
     re-tangle table (row 0 included) and defaults to 1/M, the exact
     inverse; the core is unscaled.
 
-    On a power-of-two M in [16, 4096] (:func:`_reg_core`) the kernel runs
-    the register core's c2r rows (the re-tangle as the core loads, the
-    kernel of ``irfft_slab_yz``'s rows): ``radices`` is checked but does
-    not shape its passes, and ``block_rows`` is ignored. Other lengths run
+    On M a power of two in [16, 4096] or a mixed length of
+    :func:`_reg_real_rows` the kernel runs the register core's c2r rows
+    (the re-tangle as the core loads; at a power of two the kernel of
+    ``irfft_slab_yz``'s rows): ``radices`` is checked but does not shape
+    its passes, and ``block_rows`` is ignored. Other lengths run
     the dense core on the ``radices`` stages, ``block_rows`` rows a CUDA
     block. The plain version is the dense core's arithmetic on every
     length."""
@@ -1282,7 +1296,7 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
         return out
     rows = xr.numel() // m
     if rows:
-        reg = _reg_core(m)
+        reg = _reg_real_rows(m)
         t = 0 if reg else _rows_tile(m, block_rows, sum(stages))
         _launch("offt_icrfft_last", (xr, xi, out), (tab, ab),
                 [rows, m, *_radix_args(stages), t, int(reg)])

@@ -12,7 +12,11 @@ values each (``fused_fft._reg_values``), the last pass of radix 12 or 20
 the kernel's Good-Thomas network (:func:`dft_pfa`, replayed with its
 constant roots), the rows' exchange planes swizzled (:func:`mix_at`,
 :func:`row_mask`; :func:`rows_mix_block` replays a block of them through
-the addresses the kernel computes, :func:`fft_last` a batch). No CPU can
+the addresses the kernel computes, :func:`fft_last` a batch; the r2c and
+c2r rows at those lengths, ``csrc/real_rows_mix.cu``, block by block in
+:func:`rfft_rows_mix_block` and :func:`rows_c2r_mix_block`, their
+addresses :func:`r2c_mix_addrs`, :func:`c2r_mix_loads` and
+:func:`stage_pitch`, their banks :func:`r2c_mix_ways`). No CPU can
 run that
 kernel, so the tests hold this replay of it against numpy and the JAX
 reference: the same pass radices and strides (:func:`passes`), the same
@@ -263,32 +267,47 @@ def _butterflies(v, n: int, r: int, ns: int, t, p: int, w,
                                    else blk @ _dft(r, inverse))
 
 
-def rows_mix_block(x, tab, inverse: bool = False):
-    """One block of ``regs::rows_mix`` as it runs, at a mixed length n:
-    ``x`` the block's ROWS rows (ROWS, n) complex64 (rows past the batch
-    zero), thread (g, t) = (tid // P, tid % P) of row g. It loads element
-    t + q P + k n/4, runs the first pass, then for each later pass puts
-    the outputs into the block's exchange plane and gets the inputs back
-    at the addresses the kernel computes: the thread's swizzled base
-    mix_at(X) ^ row_mask(g), X the part of the element its t sets, XOR
-    mix_at(C) of the compile-time part C (put: X = (t div Ns) Ns R +
-    t mod Ns, C = q P R + k Ns; get: X = t, C = P (q + k V/R)). Returns
-    the (ROWS, n) output, element t + k P from the last pass's v[k]."""
-    n = x.shape[-1]
-    geo = geometry(n)
-    p, rows, pitch, nv = geo["P"], geo["ROWS"], geo["PITCH"], geo["V"]
-    sched = passes(n)
+def _mix_threads(n: int) -> tuple:
+    """Row g and index t in it of each thread of a block of the mixed rows
+    (thread tid: g = tid // P, t = tid % P)."""
     tid = torch.arange(THREADS)
-    g, t = tid // p, tid % p
+    p = geometry(n)["P"]
+    return tid // p, tid % p
+
+
+def mix_loads(n: int):
+    """The elements the threads of a block of the mixed rows load, in the
+    order of their loads: (256, V), thread (g, t)'s element e = t + q P +
+    k n/R of its row (q < V/R, k < R), R the first pass's radix."""
+    p, nv = geometry(n)["P"], geometry(n)["V"]
+    r, _ = passes(n)[0]
+    _, t = _mix_threads(n)
+    return torch.stack([t + q * p + k * (n // r)
+                        for q in range(nv // r) for k in range(r)], 1)
+
+
+def _mix_core(n: int, v0, tab, inverse: bool = False):
+    """``regs::core_mix_rows`` on one block of the mixed rows as it runs:
+    thread (g, t) holds ``v0`` (256, V) complex64, the elements
+    :func:`mix_loads` gives it, runs the first pass, then for each later
+    pass puts the outputs into the block's exchange plane and gets the
+    inputs back at the addresses the kernel computes: the thread's
+    swizzled base mix_at(X) ^ row_mask(g), X the part of the element its t
+    sets, XOR mix_at(C) of the compile-time part C (put: X = (t div Ns) Ns
+    R + t mod Ns, C = q P R + k Ns; get: X = t, C = P (q + k V/R)).
+    Returns v (256, V): v[:, k] the output element t + k P of the
+    thread's row."""
+    geo = geometry(n)
+    p, pitch, nv = geo["P"], geo["PITCH"], geo["V"]
+    sched = passes(n)
+    g, t = _mix_threads(n)
     gm = row_mask(n, g)
     w = torch.complex(tab[:n, 0], tab[:n, 1])
-    v = torch.empty(THREADS, nv, dtype=torch.complex64)
+    v = v0.to(torch.complex64).clone()
     r, _ = sched[0]
-    for q in range(nv // r):
-        for k in range(r):
-            v[:, q * r + k] = x[g, t + q * p + k * (n // r)]
     _butterflies(v, n, r, 1, t, p, w, inverse)
-    plane = torch.full((rows * pitch,), complex("nan"), dtype=torch.complex64)
+    plane = torch.full((geo["ROWS"] * pitch,), complex("nan"),
+                       dtype=torch.complex64)
     for (rp, nsp), (r, ns) in zip(sched, sched[1:]):
         base = mix_at((t // nsp) * nsp * rp + t % nsp) ^ gm
         for q in range(nv // rp):
@@ -301,10 +320,214 @@ def rows_mix_block(x, tab, inverse: bool = False):
                 a = g * pitch + (base ^ mix_at(p * (q + k * (nv // r))))
                 v[:, q * r + k] = plane[a]
         _butterflies(v, n, r, ns, t, p, w, inverse)
-    out = torch.empty(rows, n, dtype=torch.complex64)
-    for k in range(nv):
-        out[g, t + k * p] = v[:, k]
+    return v
+
+
+def rows_mix_block(x, tab, inverse: bool = False):
+    """One block of ``regs::rows_mix`` as it runs, at a mixed length n:
+    ``x`` the block's ROWS rows (ROWS, n) complex64 (rows past the batch
+    zero), thread (g, t) = (tid // P, tid % P) of row g, the passes of
+    :func:`_mix_core`. Returns the (ROWS, n) output, element t + k P from
+    the last pass's v[k]."""
+    n = x.shape[-1]
+    geo = geometry(n)
+    g, t = _mix_threads(n)
+    v = _mix_core(n, x[g[:, None], mix_loads(n)], tab, inverse)
+    out = torch.empty(geo["ROWS"], n, dtype=torch.complex64)
+    for k in range(geo["V"]):
+        out[g, t + k * geo["P"]] = v[:, k]
     return out
+
+
+def stage_pitch(m: int) -> int:
+    """Floats a row of ``regs::rows_r2c_mix``'s output stage takes at a
+    mixed M (``MixRealGeo::SPITCH``): M + 1 (the numpy row) where a row
+    takes a warp or more, else the least pitch of at least M + 1 that is
+    P mod 32, so rows sharing a warp are P banks apart."""
+    p = geometry(m)["P"]
+    return m + 1 if p >= 32 else m + 1 + (p - (m + 1)) % 32
+
+
+def r2c_mix_addrs(m: int) -> dict:
+    """The shared-memory float addresses of ``regs::rows_r2c_mix`` at a
+    mixed M after its core, each (256, K) over the block's threads (row g
+    at g PITCH in the exchange plane, at g ``stage_pitch`` in the stage):
+    ``put`` the natural-order write of element t + r P (r < V), at the
+    swizzled base mix_at(t) ^ row_mask(g) XOR mix_at(r P); the untangle's
+    reads of the pairs (k, M - k), k = t + i P (i < V/2, ``k``): ``lo``
+    V[k] at the base XOR mix_at(i P), ``hi`` V[M - k] at mix_at(M - k) ^
+    row_mask(g) (the k = 0 entry unread: thread 0 of a row takes the packed
+    lane from V[0] alone); ``mid`` (256,) thread 0's V[M/2]; the stage
+    writes ``st_lo`` of X[k] and ``st_hi`` of X[M - k]."""
+    geo = geometry(m)
+    p, pitch, nv = geo["P"], geo["PITCH"], geo["V"]
+    g, t = _mix_threads(m)
+    gm = row_mask(m, g)
+    row = g * pitch
+    xb = mix_at(t) ^ gm
+    put = torch.stack([row + (xb ^ mix_at(r * p)) for r in range(nv)], 1)
+    i = torch.arange(nv // 2)
+    k = t[:, None] + p * i[None, :]
+    lo = row[:, None] + (xb[:, None] ^ mix_at(p * i)[None, :])
+    hi = row[:, None] + (mix_at((m - k) % m) ^ gm[:, None])
+    s = stage_pitch(m)
+    return {"put": put, "k": k, "lo": lo, "hi": hi,
+            "mid": row + (mix_at(m // 2) ^ gm),
+            "st_lo": g[:, None] * s + k, "st_hi": g[:, None] * s + (m - k)}
+
+
+def _untangle(a, b, wk, wm, hs):
+    """``regs::untangle_at`` in its order of f32 operations: X[k] and
+    X[M - k] from a = V[k], b = V[M - k], wk = w[k], wm = w[M - k] ((..., 2)
+    f32) and hs = scale / 2."""
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    er, ei = ar + br, ai - bi
+    o_r, o_i = ar - br, ai + bi
+    xk = torch.complex((er + wk[..., 0] * o_i + wk[..., 1] * o_r) * hs,
+                       (ei - wk[..., 0] * o_r + wk[..., 1] * o_i) * hs)
+    xmk = torch.complex((er + wm[..., 0] * o_i - wm[..., 1] * o_r) * hs,
+                        (-ei + wm[..., 0] * o_r + wm[..., 1] * o_i) * hs)
+    return xk, xmk
+
+
+def rfft_rows_mix_block(x, tab, w, scale: float = 1.0, packed: bool = False,
+                        rows: int | None = None):
+    """One block of ``regs::rows_r2c_mix`` as it runs, at a mixed M: ``x``
+    the block's ROWS real rows (ROWS, 2M) f32 (rows past the batch zero),
+    thread (g, t) of row g. Its core (:func:`_mix_core`) on v[j] =
+    x[2j] + i x[2j+1], V put in natural order into the exchange plane, the
+    pairs (k, M - k) read back and untangled times ``scale`` (``w`` =
+    ``tables.rfft_table(2M)``), staged, and the first ``rows`` rows
+    (default all) copied out in the kernel's order, each the numpy
+    (M + 1) or packed (M) lanes, every address :func:`r2c_mix_addrs`'s.
+    Returns the planar pair (rows, M + 1) or (rows, M)."""
+    m = x.shape[-1] // 2
+    geo = geometry(m)
+    nrows, pitch, nv = geo["ROWS"], geo["PITCH"], geo["V"]
+    rows = nrows if rows is None else rows
+    g, t = _mix_threads(m)
+    e, gr = mix_loads(m), g[:, None]
+    v = _mix_core(m, torch.complex(x[gr, 2 * e], x[gr, 2 * e + 1]), tab)
+    ad = r2c_mix_addrs(m)
+    plane = torch.full((nrows * pitch,), complex("nan"), dtype=torch.complex64)
+    for r in range(nv):
+        plane[ad["put"][:, r]] = v[:, r]
+    k = ad["k"]
+    first = k == 0                       # thread 0 of a row, i = 0
+    hs = torch.tensor(0.5 * scale, dtype=torch.float32)
+    s32 = torch.tensor(scale, dtype=torch.float32)
+    a = plane[ad["lo"]]
+    b = plane[torch.where(first, ad["lo"], ad["hi"])]
+    lo, hi = _untangle(a, b, w[k], w[(m - k) % m], hs)
+    v0r, v0i = a.real, a.imag
+    zero = torch.zeros_like(v0r)
+    lo0 = torch.complex((v0r + v0i) * s32,
+                        (v0r - v0i) * s32 if packed else zero)
+    hi0 = torch.complex((v0r - v0i) * s32, zero)
+    lo = torch.where(first, lo0, lo)
+    hi = torch.where(first, hi0, hi)
+    am = plane[ad["mid"]]
+    _, mid = _untangle(am, am, w[m // 2], w[m // 2], hs)
+    sp = stage_pitch(m)
+    st = torch.full((nrows * sp,), complex("nan"), dtype=torch.complex64)
+    st[ad["st_lo"].reshape(-1)] = lo.reshape(-1)
+    keep = ~first if packed else torch.ones_like(first)
+    st[ad["st_hi"][keep]] = hi[keep]
+    st[(g * sp + m // 2)[t == 0]] = mid[t == 0]
+    lanes = m if packed else m + 1
+    i = torch.arange(rows * lanes)
+    r = i // lanes
+    out = st[r * sp + (i - r * lanes)].reshape(rows, lanes)
+    return out.real.contiguous(), out.imag.contiguous()
+
+
+def r2c_mix_ways(m: int) -> dict:
+    """The worst wavefronts a warp instruction of ``regs::rows_r2c_mix``
+    at a mixed M takes beyond its core's exchanges (:func:`bank_ways`),
+    from :func:`r2c_mix_addrs`: the natural-order ``put``, the untangle's
+    reads ``lo`` and ``hi`` (the lanes that take them: thread 0 of a row
+    reads no ``hi`` at i = 0) and ``mid`` (thread 0 of each row), the
+    stage writes ``st_lo`` and ``st_hi``, and the copy out of the stage in
+    each layout (``copy numpy``, ``copy packed``: 32 consecutive floats of
+    the block's output a warp)."""
+    ad = r2c_mix_addrs(m)
+    _, t = _mix_threads(m)
+
+    def worst(addr, live=None):
+        live = torch.ones_like(addr, dtype=torch.bool) if live is None \
+            else live
+        out = 1
+        for j in range(addr.shape[1]):
+            a, ok = addr[:, j].reshape(-1, 32), live[:, j].reshape(-1, 32)
+            out = max(out, _ways([a[w][ok[w]].tolist()
+                                  for w in range(a.shape[0]) if ok[w].any()]))
+        return out
+
+    first = ad["k"] == 0
+    ways = {name: worst(ad[name]) for name in ("put", "lo", "st_lo",
+                                                 "st_hi")}
+    ways["hi"] = worst(ad["hi"], ~first)
+    ways["mid"] = worst(ad["mid"][:, None], (t == 0)[:, None])
+    rows, sp = geometry(m)["ROWS"], stage_pitch(m)
+    for name, lanes in (("copy numpy", m + 1), ("copy packed", m)):
+        i = torch.arange(rows * lanes)
+        r = i // lanes
+        a = r * sp + (i - r * lanes)
+        pad = (-a.numel()) % 32
+        a = torch.cat([a, a[:pad]])       # the last warp's idle lanes
+        ways[name] = _ways(a.reshape(-1, 32).tolist())
+    return ways
+
+
+def c2r_mix_loads(m: int) -> tuple:
+    """The input lanes ``regs::rows_c2r_mix`` reads at a mixed M, each
+    (256, V) over the block's threads in the order of their loads: element
+    e of the thread's row (:func:`mix_loads`) and its re-tangle partner
+    e ? M - e : 0."""
+    e = mix_loads(m)
+    return e, torch.where(e == 0, 0, m - e)
+
+
+def rows_c2r_mix_block(xr, xi, tab, ab):
+    """One block of ``regs::rows_c2r_mix`` as it runs, at a mixed M:
+    ``(xr, xi)`` the block's ROWS packed planar rows (ROWS, M) (rows past
+    the batch zero); each thread re-tangles element e of its row as it
+    loads it, from the lanes :func:`c2r_mix_loads` gives (e and
+    e ? M - e : 0), with ``ab`` (``tables.crfft_table``, the scale folded
+    in) in the kernel's f32 order (:func:`_retangle`), runs the inverse
+    core (:func:`_mix_core`) and stores x[2j] + i x[2j+1] = v[j]. Returns
+    the real (ROWS, 2M) rows."""
+    m = xr.shape[-1]
+    geo = geometry(m)
+    g, t = _mix_threads(m)
+    e, pe = c2r_mix_loads(m)
+    gr = g[:, None]
+    yr, yi = _retangle(xr[gr, e], xi[gr, e], xr[gr, pe], xi[gr, pe], ab[e])
+    v = _mix_core(m, torch.complex(yr, yi), tab, inverse=True)
+    out = torch.empty(geo["ROWS"], m, dtype=torch.complex64)
+    for k in range(geo["V"]):
+        out[g, t + k * geo["P"]] = v[:, k]
+    return torch.view_as_real(out).reshape(geo["ROWS"], 2 * m)
+
+
+def _by_blocks(n: int, lead, data, block):
+    """Run ``block(chunk, valid)`` over (rows, ...) ``data`` ROWS rows at a
+    time as the grid does, the ragged last block padded with zero rows
+    and only its valid rows kept; returns the rows concatenated, with the
+    leading shape ``lead``."""
+    nrows = geometry(n)["ROWS"]
+    outs = []
+    for b0 in range(0, data[0].shape[0], nrows):
+        k = min(nrows, data[0].shape[0] - b0)
+        chunk = []
+        for d in data:
+            c = torch.zeros((nrows, *d.shape[1:]), dtype=d.dtype)
+            c[:k] = d[b0:b0 + k]
+            chunk.append(c)
+        outs.append(block(chunk, k))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o).reshape(*lead, -1) for o in zip(*outs))
+    return torch.cat(outs).reshape(*lead, -1)
 
 
 def fft_last(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
@@ -316,15 +539,10 @@ def fft_last(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
     reads its rows whole before it writes any)."""
     n = xr.shape[-1]
     if n in fused_fft._MIX_ROW_LENGTHS:
-        rows = geometry(n)["ROWS"]
-        x = torch.complex(xr, xi).reshape(-1, n)
-        y = torch.empty_like(x)
-        for b0 in range(0, x.shape[0], rows):
-            k = min(rows, x.shape[0] - b0)
-            blk = torch.zeros(rows, n, dtype=torch.complex64)
-            blk[:k] = x[b0:b0 + k]
-            y[b0:b0 + k] = rows_mix_block(blk, tab, inverse)[:k] * scale
-        y = y.reshape(xr.shape)
+        y = _by_blocks(n, xr.shape[:-1],
+                       (torch.complex(xr, xi).reshape(-1, n),),
+                       lambda c, k: rows_mix_block(c[0], tab, inverse)[:k]
+                       * scale)
         yr, yi = y.real.contiguous(), y.imag.contiguous()
     else:
         yr, yi = fft_rows(xr, xi, tab, inverse, scale)
@@ -339,18 +557,19 @@ def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False):
     """The kernel's r2c of every real (..., 2M) row: the M-point core on
     v[j] = x[2j] + i x[2j+1], then the untangle of V in natural order
     (``w`` = ``tables.rfft_table(2M)``), ``scale`` at the store. The
-    numpy (..., M + 1) layout, or the packed (..., M) one."""
+    numpy (..., M + 1) layout, or the packed (..., M) one. At a mixed M
+    block by block (:func:`rfft_rows_mix_block`)."""
     m = x.shape[-1] // 2
+    if m in fused_fft._MIX_ROW_LENGTHS:
+        return _by_blocks(m, x.shape[:-1], (x.reshape(-1, 2 * m),),
+                          lambda c, k: rfft_rows_mix_block(
+                              c[0], tab, w, scale, packed, k))
     v = x.reshape(*x.shape[:-1], m, 2)
     vr, vi = fft_rows(v[..., 0], v[..., 1], tab)
-    k = torch.arange(m)
-    mk = (-k) % m
-    ar, ai, br, bi = vr, vi, vr[..., mk], vi[..., mk]
-    er, ei = ar + br, ai - bi
-    o_r, o_i = ar - br, ai + bi
-    hs = 0.5 * scale
-    yr = (er + w[:, 0] * o_i + w[:, 1] * o_r) * hs
-    yi = (ei - w[:, 0] * o_r + w[:, 1] * o_i) * hs
+    mk = (-torch.arange(m)) % m
+    y, _ = _untangle(torch.complex(vr, vi), torch.complex(vr, vi)[..., mk],
+                     w, w[mk], 0.5 * scale)
+    yr, yi = y.real.clone(), y.imag.clone()
     a, b = vr[..., 0], vi[..., 0]
     if packed:
         yr[..., 0], yi[..., 0] = (a + b) * scale, (a - b) * scale
@@ -615,24 +834,36 @@ def fft_axis(xr, xi, yr, yi, n: int, geom, tab, inverse: bool = False,
             yi[dst] = vi.t()
 
 
+def _retangle(xr, xi, yr, yi, ab):
+    """``regs::retangle_pair`` in its order of f32 operations: V[k] from
+    x = X[k], y = X[(M - k) mod M] and ab[k] = (a, b) (..., 2, 2)."""
+    ar, ai = ab[..., 0, 0], ab[..., 0, 1]
+    br, bi = ab[..., 1, 0], ab[..., 1, 1]
+    return (ar * xr - ai * xi + br * yr + bi * yi,
+            ar * xi + ai * xr + bi * yr - br * yi)
+
+
 def retangle_pair(xr, xi, ab):
     """The c2r re-tangle of packed rows (..., M) as the kernel computes it
     (``regs::retangle_pair``): element k of the pair (k, M - k),
     V[k] = a[k] X[k] + b[k] conj X[(M - k) mod M], (a, b) = ``ab[k]`` of
     ``tables.crfft_table`` (the scale folded in), in the kernel's order of
     f32 operations."""
-    m = xr.shape[-1]
-    mk = (-torch.arange(m)) % m
-    yr, yi = xr[..., mk], xi[..., mk]
-    ar, ai, br, bi = ab[:, 0, 0], ab[:, 0, 1], ab[:, 1, 0], ab[:, 1, 1]
-    return (ar * xr - ai * xi + br * yr + bi * yi,
-            ar * xi + ai * xr + bi * yr - br * yi)
+    mk = (-torch.arange(xr.shape[-1])) % xr.shape[-1]
+    return _retangle(xr, xi, xr[..., mk], xi[..., mk], ab)
 
 
 def rows_c2r(xr, xi, tab, ab):
     """The kernel's c2r of packed rows (..., M): the re-tangle, the inverse
     M-point core (``tab``, a ``core_table`` of M), then x[2j] + i x[2j+1]
-    = v[j]: real (..., 2M)."""
+    = v[j]: real (..., 2M). At a mixed M block by block
+    (:func:`rows_c2r_mix_block`)."""
+    m = xr.shape[-1]
+    if m in fused_fft._MIX_ROW_LENGTHS:
+        return _by_blocks(m, xr.shape[:-1],
+                          (xr.reshape(-1, m), xi.reshape(-1, m)),
+                          lambda c, k: rows_c2r_mix_block(
+                              c[0], c[1], tab, ab)[:k])
     vr, vi = retangle_pair(xr, xi, ab)
     vr, vi = fft_rows(vr, vi, tab, inverse=True)
     return torch.stack([vr, vi], -1).reshape(*xr.shape[:-1], 2 * xr.shape[-1])

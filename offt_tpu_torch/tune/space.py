@@ -376,7 +376,7 @@ def kernel_knobs(spec: ProblemSpec) -> set:
         if spec.shape[:2] == (1, 1) and spec.p > 1:
             return set()
         if spec.real and not spec.inverse and ff.can_use_rfft_last(nz):
-            names["radix_z"] = not ff._reg_core(m)
+            names["radix_z"] = not ff._reg_real_rows(m)
         else:
             line("radix_z", m if spec.real and nz % 2 == 0 else nz, True)
         line("radix_y", ny, False)

@@ -6,7 +6,11 @@ only, so the host's lookups never hit it: the tests that need a hit
 monkeypatch ``cache.device_kind`` to the card's name and build on
 ``device="cpu"``. Every entry must be what
 ``bench/saturation.ship`` writes from the receipt
-(receipts_torch/saturation_h100.jsonl)."""
+(receipts_torch/saturation_h100.jsonl). The file holds one key, 256^3
+c2c on 2 x 2: the one-card key it held, 192^3 r2c at radix_z (3, 32),
+was re-swept `saturated` once ``rfft_last`` ran 192^3's M = 96 on the
+register core, which reads no radix. The one-card lookups read that
+record from the bundled store, put in place by ``on_h100``."""
 
 import datetime
 import json
@@ -41,11 +45,20 @@ def _spec_of(key: str) -> ProblemSpec:
                        inverse=parts[-1] == "inv", p=p1 * p2)
 
 
+# the one-card record the file shipped for 192^3 r2c until its re-sweep
+ONE_CARD = {R192: {"params": cache._params_to_json(
+    default_params(ProblemSpec(shape=(192,) * 3, real=True)).replace(
+        radix_z=(3, 32))), "perf": 2.0731200277805328e-4}}
+
+
 @pytest.fixture
 def on_h100(monkeypatch, tmp_path):
-    """An empty local cache, and every plan keyed as on the card."""
+    """An empty local cache, every plan keyed as on the card, and the
+    bundled store the file's entries and the one-card record."""
     monkeypatch.setenv("OFFT_TPU_TORCH_CACHE_DIR", str(tmp_path))
     monkeypatch.setattr(cache, "device_kind", lambda device: H100)
+    monkeypatch.setattr(cache, "_BUNDLED_DB", {**cache._bundled(),
+                                               **ONE_CARD})
 
 
 def test_bundled_fallback_and_local_precedence(on_h100):
@@ -146,12 +159,12 @@ def test_cache_cli_lists_bundled_and_local(tmp_path):
     assert out.returncode == 0, out.stderr
     n = len(cache._bundled())
     assert f"# {n} bundled, 0 local" in out.stdout
-    assert f"bundled  {R192}" in out.stdout
+    assert f"bundled  {M256}" in out.stdout
 
 
 def test_bundled_plan_values_match_numpy(on_h100):
-    """The smallest bundled shape, 192^3 r2c at its shipped point, on the
-    CPU (the kernels' plain versions) against numpy.fft."""
+    """The one-card record, 192^3 r2c at its point, read by ``plan()`` on
+    the CPU (the kernels' plain versions), against numpy.fft."""
     x = np.random.default_rng(0).standard_normal((192,) * 3).astype(
         np.float32)
     p = ot.plan((192,) * 3, "float32", real=True, planar=True, device="cpu")

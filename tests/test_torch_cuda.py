@@ -14,6 +14,7 @@ from offt_tpu_torch.kernels import fourstep as fs
 from offt_tpu_torch.kernels import fused_fft as ff
 
 REG_LENGTHS = [1 << k for k in range(4, 13)]
+MIX_ROW_LENGTHS = sorted(ff._MIX_ROW_LENGTHS)
 
 
 @pytest.fixture
@@ -299,27 +300,29 @@ def test_cuda_icrfft_last(cuda_dev, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
-@pytest.mark.parametrize("m", REG_LENGTHS + [96, 192])
+@pytest.mark.parametrize("m", REG_LENGTHS + MIX_ROW_LENGTHS + [72, 144])
 def test_cuda_icrfft_last_cores(cuda_dev, monkeypatch, m, rows, dense):
     # the register core's c2r rows at every power of two M in [16, 4096]
-    # (rows of 1 and 2 threads store through a stage), the dense core
-    # beside it and at the lengths it keeps
+    # (rows of 1 and 2 threads store through a stage) and every mixed M
+    # of the rows (real_rows_mix.cu), the dense core beside it and at the
+    # lengths it keeps
     if dense:
-        monkeypatch.setattr(ff, "_reg_core", lambda n: False)
+        monkeypatch.setattr(ff, "_reg_real_rows", lambda n: False)
     _card_check(ff.icrfft_last_planar, lambda f, x: f(*x, scale=0.5 / m),
                 (rows, m), cuda_dev)
     assert ff.icrfft_last_planar.reg_launches == int(
-        ff._reg_core(m) and not dense)
+        ff._reg_real_rows(m) and not dense)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True])
-def test_cuda_icrfft_last_main_shape(cuda_dev, monkeypatch, dense):
-    # the 1 x 1 mesh's packed c2r stage at 256^3: (65536, 128)
+@pytest.mark.parametrize("shape", [(65536, 128), (36864, 96)])
+def test_cuda_icrfft_last_main_shape(cuda_dev, monkeypatch, shape, dense):
+    # the 1 x 1 mesh's packed c2r stage at 256^3, (65536, 128), and at
+    # 192^3, (36864, 96) on the mixed rows
     if dense:
-        monkeypatch.setattr(ff, "_reg_core", lambda n: False)
-    _card_check(ff.icrfft_last_planar, lambda f, x: f(*x), (65536, 128),
-                cuda_dev)
+        monkeypatch.setattr(ff, "_reg_real_rows", lambda n: False)
+    _card_check(ff.icrfft_last_planar, lambda f, x: f(*x), shape, cuda_dev)
     assert ff.icrfft_last_planar.reg_launches == int(not dense)
 
 
@@ -659,12 +662,26 @@ def test_cuda_fft_last_cores_in_place(cuda_dev, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 300])
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("m", REG_LENGTHS + [96, 129])
+@pytest.mark.parametrize("m", REG_LENGTHS + MIX_ROW_LENGTHS + [72, 129])
 def test_cuda_rfft_last_cores(cuda_dev, m, packed, rows):
     _card_check(ff.rfft_last_planar,
                 lambda f, x: f(x[0], packed=packed, scale=0.25),
                 (rows, 2 * m), cuda_dev)
-    assert ff.rfft_last_planar.reg_launches == int(ff._reg_core(m))
+    assert ff.rfft_last_planar.reg_launches == int(ff._reg_real_rows(m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_rfft_last_mixed_main_shape(cuda_dev, monkeypatch, packed,
+                                         dense):
+    # 192^3's z rows on the unfused real route, (36864, 192): M = 96 on
+    # the mixed rows, and on the dense core
+    if dense:
+        monkeypatch.setattr(ff, "_reg_real_rows", lambda n: False)
+    _card_check(ff.rfft_last_planar, lambda f, x: f(x[0], packed=packed),
+                (36864, 192), cuda_dev)
+    assert ff.rfft_last_planar.reg_launches == int(not dense)
 
 
 @pytest.mark.cuda

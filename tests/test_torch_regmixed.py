@@ -251,10 +251,11 @@ def test_reg_axis_routes_the_mixed_lengths(monkeypatch, n):
             ff.fft_sublane.impl("kernel", x, x, 1, tile="narrow")
 
 
-@pytest.mark.parametrize("m", [16, 128, 4096, 96, 192])
+@pytest.mark.parametrize("m", [16, 128, 4096, 96, 192, 72, 144])
 def test_icrfft_last_routes_to_the_register_core(monkeypatch, m):
-    """``_reg_core(M)`` sends the packed c2r to the register core's c2r
-    rows (reg = 1, no rows per block); other M keep the dense core."""
+    """``_reg_real_rows(M)`` sends the packed c2r to the register core's
+    c2r rows (reg = 1, no rows per block): the powers of two and the mixed
+    M (96, 192); other M (72, 144) keep the dense core."""
     calls = _launches(monkeypatch)
     x = torch.zeros((3, m))
     ff.reset_counts()
@@ -262,7 +263,7 @@ def test_icrfft_last_routes_to_the_register_core(monkeypatch, m):
     (entry, args), = calls
     assert entry == "offt_icrfft_last"
     reg, t = args[-1], args[-2]
-    assert reg == int(ff._reg_core(m)) == int(m in (16, 128, 4096))
+    assert reg == int(ff._reg_real_rows(m)) == int(m not in (72, 144))
     assert (t == 0) == bool(reg)
     assert ff.icrfft_last_planar.reg_launches == reg
 

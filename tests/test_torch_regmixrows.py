@@ -309,14 +309,15 @@ def test_fft_slab_routes_the_mixed_slabs(monkeypatch, ny, nz, reg, cluster):
 
 
 def test_kernels_without_mixed_rows_stay_dense(monkeypatch):
-    """``_reg_core`` keeps its meaning: the r2c and c2r rows at M = 96
-    (192^3's real route), the r2c and c2r slabs at (320, 160) and step 3
-    on 3 * 2^18's 768 side run the dense core, step 1 at 1024 the
-    register one."""
+    """Kernels with no mixed instance keep the dense core: the r2c and c2r
+    rows at M = 72 (3^2 8; the mixed real rows take 3 2^k and 5 2^k), the
+    r2c and c2r slabs at (320, 160) and step 3 on 3 * 2^18's 768 side
+    (``_reg_core``, the four-step pair's), step 1 at 1024 the register
+    one."""
     calls = _launches(monkeypatch)
-    ff.rfft_last_planar.impl("kernel", torch.zeros((3, 192)))
-    ff.icrfft_last_planar.impl("kernel", torch.zeros((3, 96)),
-                               torch.zeros((3, 96)))
+    ff.rfft_last_planar.impl("kernel", torch.zeros((3, 144)))
+    ff.icrfft_last_planar.impl("kernel", torch.zeros((3, 72)),
+                               torch.zeros((3, 72)))
     ff.rfft_slab_yz.impl("kernel", torch.zeros((2, 320, 320)))
     ff.irfft_slab_yz.impl("kernel", torch.zeros((2, 320, 168)),
                           torch.zeros((2, 320, 168)), 320)

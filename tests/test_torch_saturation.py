@@ -26,13 +26,17 @@ def test_verdict_rules(speedup, spread, verdict):
 
 
 def test_expert_points_follow_the_space():
-    pts = sat.expert_points((192, 192, 192), real=True, device="cuda")
-    dflt = default_params(ProblemSpec(shape=(192,) * 3, real=True))
+    # rfft_last at M = 72 on the dense core, the axes of 160 on the
+    # register core: the radices of z alone
+    pts = sat.expert_points((160, 160, 144), real=True, device="cuda")
+    dflt = default_params(ProblemSpec(shape=(160, 160, 144), real=True))
     assert dflt in pts and len(pts) == 6
-    assert {None, (96,)} <= {p.radix_z for p in pts}
-    # every axis on the register core: nothing to vary
-    assert sat.expert_points((256, 256, 256), device="cuda") == [
-        default_params(ProblemSpec(shape=(256,) * 3))]
+    assert {None, (72,)} <= {p.radix_z for p in pts}
+    # every axis on the register core (192^3 r2c: rfft_last at M = 96 on
+    # the mixed real rows): nothing to vary
+    for shape, real in (((256,) * 3, False), ((192,) * 3, True)):
+        assert sat.expert_points(shape, real=real, device="cuda") == [
+            default_params(ProblemSpec(shape=shape, real=real))]
     split = sat.expert_points((1, 1, 3 << 18), device="cuda")
     # 3 block sizes x 4 splits (radix_z is not searched there)
     assert len(split) == 12 and len({p.split_1d for p in split}) == 4
