@@ -21,7 +21,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``rfft_last`` (36864, 192) in both layouts, (300, 96), (37, 6144);
    ``icrfft_last`` (36864, 96), (300, 48), (37, 3072); the dense core at
    M = 72), and the three slab kernels (``fft_slab``, ``rfft_slab``,
-   ``irfft_slab``), the strided-axis kernel (``fft_axis``: its four
+   ``irfft_slab``; the r2c and c2r slabs also at a mixed (Y, M) on the
+   register core's two grids: (4, 768, 768), (16, 1280, 1280),
+   (8, 96, 512) and (8, 48, 192), the c2r with and without its side
+   plane, scaled and not), the strided-axis kernel (``fft_axis``: its four
    wrappers, in place, the 64 x 1024^2 y pass, columns of 2048 and 4096,
    and the mixed lengths: the 320^3 x pass, 192^3's axes, a 768 column)
    and the four-step pair (``step1_twiddle``, ``step3_transposed``: the
@@ -55,7 +58,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and read just after:
    a. the planar c2c path (``fftn``; 320^3 forward and inverse);
    b. the packed r2c/c2r path (``real=True``, numpy and packed layouts,
-      256^3 and 512^3; ``rfftn`` / ``irfftn``);
+      256^3, 512^3 and 768^3, whose slabs have a mixed (Y, M) = (768,
+      384); ``rfftn`` / ``irfftn``);
    c. long 1-D c2c, ``plan((1, 1, N))`` by the four-step kernels, at
       2^20 (forward, inverse, an ortho round trip), 8 x 2^20, 2^22, 2^24,
       3 * 2^18 (the measured split), 10^6 (the 4-pass route) and one
@@ -164,8 +168,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    slab of 3b, ``fft_axis`` on every x pass of 3a (256^3, 512^3, 320^3
    on the mixed-radix column variant, in place, the 64 x 1024^2 y pass),
    of 3b (the c2r's ``fft_x_to_padded`` among them) and every axis pass
-   of 3d (192^3's and 320^3's among them), ``irfft_slab`` on 3b's 256^3
-   and 512^3 c2r, ``icrfft_last`` on every packed c2r of 3e (192^3's
+   of 3d (192^3's and 320^3's among them), ``irfft_slab`` on 3b's 256^3,
+   512^3 and 768^3 c2r, ``icrfft_last`` on every packed c2r of 3e (192^3's
    among them), and ``step1_twiddle``
    / ``step3_transposed`` on every power-of-two split of 3c (step 3
    dense on the 768 side of 3 * 2^18) and throughout 3d and 3g, and the
@@ -206,7 +210,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and 320^3 r2c and c2r (the unfused real route, beside cuFFT's
    ``rfftn`` / ``irfftn``), 256^3 packed and numpy r2c,
    512^3 packed r2c, namespace ``fftn`` 256^3; 256^3 packed and numpy
-   c2r, 512^3 packed c2r, namespace ``irfftn`` 256^3; the 1 x 1 mesh's
+   c2r, 512^3 packed c2r, namespace ``irfftn`` 256^3; 768^3 packed r2c
+   and c2r, also beside cuFFT's ``rfftn`` / ``irfftn``; the 1 x 1 mesh's
    packed c2r 256^3) and the nine register-core kernels at their
    main-path shapes, each with the
    register core and with every length routed to the dense core
@@ -261,7 +266,9 @@ the dense core's time at the same shape (the pair's two rows also
 ``fft_last``, ``fft_slab``, ``rfft_last`` and ``icrfft_last`` also
 ``mixed``: the same numbers at their mixed-length shape, (102400, 320),
 (320, 320, 320), (36864, 192) (numpy layout; ``mixed_packed`` the packed
-one) and (36864, 96); ``fft_cube`` also
+one) and (36864, 96); ``rfft_slab`` and ``irfft_slab`` ``mixed`` at the
+768^3 slab ((768, 768, 768), (768, 768, 392)) and ``mixed_1280`` at 16
+x-rows of 1280^3 (library ``rfft2`` / ``irfft2``); ``fft_cube`` also
 ``shapes``: its numbers at the three shapes of phase 5); then the probes'
 kernels: ``probe_mma:<variant>`` at one iteration of (SMs, 128, 1024)
 (bound at the tier's peak: bf16 989, TF32 495, f32 67 TFLOP/s; library:
@@ -397,14 +404,22 @@ SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 # the mixed-length shapes timed beside the main-path ones, each kernel's
 # under the keys of its JSON row: the 320^3 slab's z rows as one batch,
 # the 320^3 slab, 192^3's z rows on the unfused real route (r2c, both
-# layouts) and 192^3's packed c2r z stage on a 1 x 1 mesh
+# layouts), 192^3's packed c2r z stage on a 1 x 1 mesh, and the r2c and
+# c2r slabs of 768^3 (the whole cube, zpad 8) and of 16 x-rows of 1280^3
 MIXED_SHAPES = {
     "fft_last": {"mixed": ((102400, 320), lambda f, x: f(*x))},
     "fft_slab": {"mixed": ((320, 320, 320), lambda f, x: f(*x))},
     "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
                   "mixed_packed": ((36864, 192),
                                    lambda f, x: f(x[0], packed=True))},
-    "icrfft_last": {"mixed": ((36864, 96), lambda f, x: f(*x))}}
+    "icrfft_last": {"mixed": ((36864, 96), lambda f, x: f(*x))},
+    "rfft_slab": {"mixed": ((768, 768, 768), lambda f, x: f(x[0], zpad=8)),
+                  "mixed_1280": ((16, 1280, 1280),
+                                 lambda f, x: f(x[0], zpad=8))},
+    "irfft_slab": {"mixed": ((768, 768, 392), lambda f, x: f(
+        *x, 768, scale=1 / 768 ** 3 * 2)),
+                   "mixed_1280": ((16, 1280, 648), lambda f, x: f(
+                       *x, 1280, scale=1 / (16 * 1280 * 640)))}}
 
 
 def _window(ff, run) -> tuple:
@@ -1875,6 +1890,17 @@ def main() -> int:
          (4, 512, 512), 256),
         ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0]),
          (2, 40, 640), 320),
+        # the mixed slabs, two grids on the mixed rows and columns: 768^3's
+        # and 1280^3's x-rows, a mixed Y beside M = 256, both mixed at
+        # M = 96
+        ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
+         (4, 768, 768), 384),
+        ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
+         (16, 1280, 1280), 640),
+        ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
+         (8, 96, 512), 256),
+        ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
+         (8, 48, 192), 96),
         ("rfft_slab", ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8),
          (256, 256, 256), 128),
         ("irfft_slab", ff.irfft_slab_yz, irfft(256, None, scale=1 / 2048),
@@ -1883,6 +1909,17 @@ def main() -> int:
          irfft(256, (4, 16), scale=1 / 2048), (4, 16, 136), None),
         ("irfft_slab", ff.irfft_slab_yz,
          irfft(512, (512, 512), scale=1 / 512 ** 3 * 2), (512, 512, 264),
+         None),
+        # the mixed slabs, with and without the side plane, scaled and not
+        ("irfft_slab", ff.irfft_slab_yz,
+         irfft(768, (4, 768), scale=1 / (768 * 384)), (4, 768, 392), None),
+        ("irfft_slab", ff.irfft_slab_yz,
+         irfft(1280, None, scale=1 / (1280 * 640)), (16, 1280, 648), None),
+        ("irfft_slab", ff.irfft_slab_yz, irfft(512, (8, 96)), (8, 96, 264),
+         None),
+        ("irfft_slab", ff.irfft_slab_yz,
+         irfft(192, (8, 48), scale=1 / (48 * 96)), (8, 48, 104), None),
+        ("irfft_slab", ff.irfft_slab_yz, irfft(192, None), (8, 48, 104),
          None),
         ("irfft_slab", ff.irfft_slab_yz,
          irfft(256, (256, 256), scale=1 / 256 ** 3 * 2), (256, 256, 136),
@@ -2127,6 +2164,11 @@ def main() -> int:
         ("512^3 r2c", (512, 512, 512), 0, False, False, None),
         ("512^3 c2r packed", (512, 512, 512), 0, True, True, None),
         ("4x128x128x256 r2c", (4, 128, 128, 256), 1, False, False, None),
+        # the slabs at a mixed (Y, M) = (768, 384), two grids
+        ("768^3 r2c", (768, 768, 768), 0, False, False, None),
+        ("768^3 r2c packed", (768, 768, 768), 0, False, True, None),
+        ("768^3 c2r", (768, 768, 768), 0, True, False, None),
+        ("768^3 c2r packed", (768, 768, 768), 0, True, True, None),
     ]
     inputs = {}
     for label, shape, bd, inv, packed, norm in real_cases:
@@ -2606,7 +2648,8 @@ def main() -> int:
           "192 and 320)")
     # 3a's slabs: 256^3 (five calls), 512^3 and 320^3 (forward and
     # inverse, the mixed rows and columns) all on the register core; 3b's
-    # r2c slabs (256^3, 512^3, 128 x 256) all register
+    # r2c slabs (256^3, 512^3, 128 x 256 and 768^3's two, on the mixed rows
+    # and columns) all register
     c2c_slab, c2c_slab_reg = runs["c2c"][1]["fft_slab"], \
         runs["c2c"][2]["fft_slab"]
     if not (c2c_slab >= 8 and c2c_slab_reg == c2c_slab):
@@ -2615,20 +2658,21 @@ def main() -> int:
                              f"register of {c2c_slab}")
     r_slab, r_slab_reg = runs["r2c"][1]["rfft_slab"], \
         runs["r2c"][2]["rfft_slab"]
-    if not 0 < r_slab_reg == r_slab:
+    if not 7 <= r_slab_reg == r_slab:
         raise AssertionError("rfft_slab on 3b did not run the register core "
                              f"throughout: {r_slab_reg} of {r_slab}")
     print(f"register core: fft_slab on 3a ({c2c_slab_reg} of {c2c_slab}: "
           f"256^3, 512^3 and the 320^3 slab (two grids: the mixed rows, "
           f"then the mixed columns)); rfft_slab on 3b "
-          f"({r_slab_reg} of {r_slab})")
+          f"({r_slab_reg} of {r_slab}: 768^3's two on the mixed rows and "
+          "columns)")
     # the strided-axis kernel on 3a: every x pass on the register core,
     # 256^3 and 512^3 (fft_x_from_padded, five calls), 320^3 (the mixed
     # radix-20 column variant), in place and the 64 x 1024^2 y pass
     # (fft_sublane); on 3b the c2r's x pass (fft_x_to_padded) and the
     # r2c's; on 3d the axis passes of 256^3, 192^3 (radix 12) and 320^3
     # (radix 20);
-    # irfft_slab on 3b's 256^3 and 512^3 c2r (five calls)
+    # irfft_slab on 3b's 256^3, 512^3 and 768^3 c2r (six calls or more)
     ax_c2c, ax_c2c_reg = runs["c2c"][1]["fft_axis"], \
         runs["c2c"][2]["fft_axis"]
     if runs["c2c"][0]["fft_x_from_padded"][0] < 4 or ax_c2c_reg != ax_c2c:
@@ -2636,7 +2680,7 @@ def main() -> int:
                              f"register core: {ax_c2c_reg} of {ax_c2c}")
     ax_r, ax_r_reg = runs["r2c"][1]["fft_axis"], runs["r2c"][2]["fft_axis"]
     ir, ir_reg = runs["r2c"][1]["irfft_slab"], runs["r2c"][2]["irfft_slab"]
-    if not (0 < ax_r_reg == ax_r and ir >= 4 and ir_reg == ir):
+    if not (0 < ax_r_reg == ax_r and ir >= 6 and ir_reg == ir):
         raise AssertionError("3b: want every x pass and every irfft_slab on "
                              f"the register core: fft_axis {ax_r_reg} of "
                              f"{ax_r}, irfft_slab {ir_reg} of {ir}")
@@ -2650,7 +2694,7 @@ def main() -> int:
           "passes of 256^3, 512^3 and 320^3, in place and the 64 x 1024^2 "
           f"y pass), on 3b ({ax_r_reg} of {ax_r}) and on 3d ({ax_l_reg} of "
           f"{ax_l}: 256^3, 192^3 and 320^3); irfft_slab on 3b ({ir_reg} "
-          f"of {ir}: 256^3 and 512^3)")
+          f"of {ir}: 256^3, 512^3 and 768^3)")
     # the 1 x 1 mesh's packed c2r stages (256^3, 512^3, 192^3: M = 128,
     # 256, 96) on the register core's c2r rows, and its r2c z stages
     # (rfft_last at the same M) on its r2c rows
@@ -3035,6 +3079,7 @@ def main() -> int:
     c320 = _pair((320, 320, 320), gen)
     x192 = torch.randn((192, 192, 192), generator=gen, device="cuda")
     x320 = torch.randn((320, 320, 320), generator=gen, device="cuda")
+    x768 = torch.randn((768, 768, 768), generator=gen, device="cuda")
     real = {"real": True, "planar": True}
     paths = (
         ("c2c 64x1024^2 (plan, 2-D route)",
@@ -3079,9 +3124,19 @@ def main() -> int:
                  **real),
          ot.plan((512, 512, 512), "float32", packed=True, **real)(x5)),
         ("namespace irfftn 256^3", ot.fft.irfftn,
-         (torch.fft.rfftn(x3),)))
+         (torch.fft.rfftn(x3),)),
+        # the slabs at a mixed (Y, M) = (768, 384) in two grids, the
+        # pitched x pass at 768 on the mixed columns
+        ("r2c 768^3 packed (plan)",
+         ot.plan((768, 768, 768), "float32", packed=True, **real), (x768,)),
+        ("c2r 768^3 packed (plan)",
+         ot.plan((768, 768, 768), "float32", packed=True, inverse=True,
+                 **real),
+         ot.plan((768, 768, 768), "float32", packed=True, **real)(x768)))
+    path_ms = {}
     for label, fn, args in paths:
         r_reg = time_cuda(fn, args)
+        path_ms[label] = r_reg["median_ms"]
         with _dense_core(ff):
             r_dense = time_cuda(fn, args)
         show(f"path {label}, register core", r_reg,
@@ -3096,6 +3151,17 @@ def main() -> int:
             print(f"path {label}, device time: register core {d_reg:.4f} "
                   f"ms, dense core {d_dense:.4f} ms "
                   f"({d_dense / d_reg:.2f}x) {tag}", flush=True)
+    # the 768^3 packed paths beside cuFFT's rfftn and irfftn (complex64)
+    w768 = torch.fft.rfftn(x768)
+    for label, lib, r_lib in (
+            ("r2c 768^3 packed (plan)", "rfftn",
+             time_cuda(torch.fft.rfftn, (x768,))),
+            ("c2r 768^3 packed (plan)", "irfftn",
+             time_cuda(lambda: torch.fft.irfftn(w768, s=x768.shape)))):
+        show(f"torch.fft.{lib} (cuFFT) 768^3", r_lib,
+             f"; the port's {label} {path_ms[label]:.4f} ms, "
+             f"{path_ms[label] / r_lib['median_ms']:.2f}x cuFFT")
+    del w768, x768
     # the 320^3 path beside its bound (one read and one write of the
     # cube) and the bytes its three passes move (z rows, y, x: each
     # reads and writes the cube), and beside cuFFT

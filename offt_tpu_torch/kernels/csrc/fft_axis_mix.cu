@@ -36,9 +36,9 @@ cudaError_t axis_mix_n(const float* xr, const float* xi, float* yr,
   constexpr int P = MixGeo<N>::P;
   // the tile codes of fft_axis.cu's AxisTile: 0 narrow, 1 wide
   constexpr int kTile = P <= 8 ? 0 : 1;
-  constexpr int NT = P <= 8 ? kThreads : 32 * P < 1024 ? 32 * P : 1024;
   if (tile >= 0 && tile != kTile) return cudaErrorInvalidValue;
-  return launch_cols_mix<N, INV, NT>(xr, xi, yr, yi, tab, g, scale, s);
+  return launch_cols_mix<N, INV, mix_col_threads(P)>(xr, xi, yr, yi, tab, g,
+                                                     scale, s);
 }
 
 }  // namespace

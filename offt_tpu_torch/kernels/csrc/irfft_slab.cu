@@ -15,11 +15,14 @@
 // passes. Three layouts, the mirror of rfft_slab.cu's, chosen by the
 // wrapper; the scale rides the re-tangle table (row 0 included) and every
 // core is unscaled:
-// - Y and M powers of two in [16, 4096] (fused_fft._reg_slab(Y, M)) run
-//   the register core (regs_kernels.cuh): y first on the column variant,
-//   inverse, the side plane added to lane 0 as it loads; then the c2r rows
-//   (rows_c2r: the re-tangle as the M-point core loads, float2 stores);
-//   - 2^14 to 2^15 elements with M >= 128, Y >= 64
+// - Y on the column variant and M on the real rows of the register core
+//   (fused_fft._reg_rslab(Y, M): Y a power of two in [16, 4096] or
+//   R0 2^k of fused_fft._MIX_LENGTHS, M a power of two in [16, 4096] or
+//   of _MIX_ROW_LENGTHS) run the register core (regs_kernels.cuh): y
+//   first on the column variant, inverse, the side plane added to lane 0
+//   as it loads; then the c2r rows (rows_c2r: the re-tangle as the
+//   M-point core loads, float2 stores);
+//   - Y and M powers of two, 2^14 to 2^15 elements with M >= 128, Y >= 64
 //     (fused_fft._cluster_irslab, IrCluster below; the 256^3 slab in
 //     clusters of 8): one grid of clusters holding each x-row's slab in
 //     shared memory
@@ -29,9 +32,14 @@
 //     cluster syncs, each block runs the c2r rows it keeps out to the
 //     real output: the slab is read from device memory once and written
 //     once;
-//   - other register slabs: two grids through a planar (P, Y, M) scratch
-//     the wrapper allocates (the input is not the plan's to overwrite):
-//     cols_c2c from the input, then rows_c2r from the scratch.
+//   - other register slabs (the 512^3, 768^3 and 1280^3 ones among
+//     them): two grids through a planar (P, Y, M) scratch the wrapper
+//     allocates (the input is not the plan's to overwrite): the y lines
+//     from the input into the scratch (cols_c2c; at a mixed Y cols_mix
+//     with the side plane, axis_mix_side in real_slab_mix.cu, on the
+//     lane tile fft_axis routes), then the c2r rows from the scratch
+//     (rows_c2r; at a mixed M rows_c2r_mix through icrfft_mix,
+//     real_rows_mix.cu).
 // - every other shape: the dense core of fft_core.cuh in one launch: one
 //   block owns one x-row, and its output row is the intermediate. The y
 //   pass goes first: Ty consecutive z lanes at a time are read from the
@@ -213,13 +221,18 @@ static cudaError_t irslab_regs(const float* xr, const float* xi,
   }
   if (sr == nullptr || si == nullptr) return cudaErrorInvalidValue;
   // two grids: the y lines, M lanes per x-row, into the (P, Y, M) scratch;
-  // then the c2r rows, P * Y of them
+  // then the c2r rows, P * Y of them; each on its mixed instances at a
+  // mixed length
   const AxisGeom gy{rows, 1, m, ny * ip, ip, 0, (long long)ny * m, m, 0};
-  cudaError_t err = by_log(ny, [&](auto ly) {
-    return launch_cols<decltype(ly)::value, true, kThreads, true>(
-        xr, xi, sr, si, taby, gy, 1.f, s, side_r, side_i);
-  });
+  cudaError_t err =
+      ny & (ny - 1)
+          ? axis_mix_side(xr, xi, sr, si, taby, gy, ny, side_r, side_i, s)
+          : by_log(ny, [&](auto ly) {
+              return launch_cols<decltype(ly)::value, true, kThreads, true>(
+                  xr, xi, sr, si, taby, gy, 1.f, s, side_r, side_i);
+            });
   if (err != cudaSuccess) return err;
+  if (m & (m - 1)) return icrfft_mix(sr, si, out, tabz, ab, rows * ny, m, s);
   return by_log(m, [&](auto lm) {
     return launch_rows_c2r<decltype(lm)::value>(sr, si, out, tabz, ab,
                                                 rows * ny, m, s);
@@ -228,7 +241,7 @@ static cudaError_t irslab_regs(const float* xr, const float* xi,
 
 }  // namespace offt
 
-// reg != 0: the register core (Y and M powers of two in [16, 4096]; the
+// reg != 0: the register core (Y and M of fused_fft._reg_rslab; the
 // first rows of both tables, ab and `cluster` are read, the radices and
 // tiles are not), in a cluster's shared memory (cluster != 0, the shapes
 // of IrCluster) or in two grids through the scratch (sr, si) of

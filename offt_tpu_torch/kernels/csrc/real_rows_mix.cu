@@ -4,11 +4,14 @@
 // (MixRowGeo, core_mix_rows): rows_r2c_mix and rows_c2r_mix, the mirror
 // of each other.
 //
-// Replaces, at those M, the dense core of two Pallas kernels' ports
+// Replaces, at those M, the dense core of four Pallas kernels' ports
 // behind their C entry points: offt_tpu/kernels/pallas_fft.py
 // rfft_last_planar (:1685; rfft_last.cu) and icrfft_last_planar (:2308;
-// icrfft_last.cu). A source of its own so that nvcc builds these
-// instances beside the others.
+// icrfft_last.cu), and the rows of rfft_slab_yz (:1944; rfft_slab.cu,
+// whose two grids write them at the slab's pitch M + zpad) and of
+// irfft_slab_yz (:2160; irfft_slab.cu, reading its planar scratch). A
+// source of its own so that nvcc builds these instances beside the
+// others.
 //
 // What bounds it on Hopper: the rows' bytes, 8 read (a sample pair) and
 // 8 written (a planar complex lane) per lane of the half-spectrum, both
@@ -31,9 +34,15 @@
 //   output rows, times `scale`, are staged at a pitch of at least M + 1
 //   (one slot past MixRowGeo::PITCH where that is M), rows sharing a warp
 //   P banks apart, then copied out with consecutive threads on
-//   consecutive floats: the block's rows are one contiguous run of the
-//   output, so the copy writes whole sectors although a numpy row (M + 1
-//   floats) is odd;
+//   consecutive floats of the block's rows, row r at r `opitch`. At
+//   opitch = the lanes (rfft_last's layouts) the block's rows are one
+//   contiguous run of the output, so the copy writes whole sectors
+//   although a numpy row (M + 1 floats) is odd. At the slab's pitch
+//   M + zpad (zpad = 8) a warp's 32 floats split where a row ends, and
+//   the pad lanes between two rows are skipped: M is a multiple of 16,
+//   so each piece is a whole number of aligned 8-float runs and every
+//   row starts 32-byte aligned (M + 8 a multiple of 8); the stores stay
+//   whole sectors, two runs a warp where a row ends inside it;
 // - c2r: the re-tangle as the core loads (retangle_pair: X[e] and
 //   X[e ? M - e : 0], the partner index without the power of two's mask),
 //   the inverse core, then x[2j], x[2j + 1] = v[j] as one float2, a warp
@@ -56,19 +65,22 @@ struct MixRealGeo {
   static constexpr size_t SMEM = STAGE > G::SMEM ? STAGE : G::SMEM;
 };
 
-// copy the block's nr staged rows of L lanes out, contiguous from row0
+// copy the block's nr staged rows of L lanes out, row row0 + r at
+// (row0 + r) opitch
 template <int M, int L>
 static __device__ __forceinline__ void copy_rows_out(const float* sr,
                                                      const float* si,
                                                      float* yr, float* yi,
-                                                     long long row0, int nr) {
+                                                     long long row0, int nr,
+                                                     long long opitch) {
   constexpr int S = MixRealGeo<M>::SPITCH;
   const int tot = nr * L;
   for (int i = threadIdx.x; i < tot; i += kThreads) {
     const int r = i / L;
-    const int a = r * S + (i - r * L);
-    yr[row0 * L + i] = sr[a];
-    yi[row0 * L + i] = si[a];
+    const int c = i - r * L;
+    const long long o = (row0 + r) * opitch + c;
+    yr[o] = sr[r * S + c];
+    yi[o] = si[r * S + c];
   }
 }
 
@@ -76,7 +88,7 @@ template <int M>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rows_r2c_mix(const float* x, float* yr, float* yi,
              const float2* __restrict__ tab, const float2* __restrict__ w,
-             long long rows, float scale, int packed) {
+             long long rows, float scale, int packed, long long opitch) {
   using G = MixRowGeo<M>;
   using S = MixRealGeo<M>;
   constexpr int P = G::P, V = G::V;
@@ -149,9 +161,9 @@ rows_r2c_mix(const float* x, float* yr, float* yi,
   const float* sr = rsmem;
   const float* si = rsmem + G::ROWS * S::SPITCH;
   if (packed)
-    copy_rows_out<M, M>(sr, si, yr, yi, row0, nr);
+    copy_rows_out<M, M>(sr, si, yr, yi, row0, nr, opitch);
   else
-    copy_rows_out<M, M + 1>(sr, si, yr, yi, row0, nr);
+    copy_rows_out<M, M + 1>(sr, si, yr, yi, row0, nr, opitch);
 }
 
 template <int M>
@@ -186,7 +198,8 @@ rows_c2r_mix(const float* xr, const float* xi, float* out,
 
 cudaError_t rfft_mix(const float* x, float* yr, float* yi, const float2* tab,
                      const float2* w, long long rows, int m, float scale,
-                     int packed, cudaStream_t s) {
+                     int packed, long long opitch, cudaStream_t s) {
+  if (opitch < m + !packed) return cudaErrorInvalidValue;
   auto run = [&](auto mc) {
     constexpr int M = decltype(mc)::value;
     using G = regs::MixRowGeo<M>;
@@ -196,7 +209,7 @@ cudaError_t rfft_mix(const float* x, float* yr, float* yi, const float2* tab,
     if (err != cudaSuccess) return err;
     const long long blocks = (rows + G::ROWS - 1) / G::ROWS;
     kernel<<<(unsigned)blocks, kThreads, smem, s>>>(x, yr, yi, tab, w, rows,
-                                                    scale, packed);
+                                                    scale, packed, opitch);
     return cudaGetLastError();
   };
   return m % 3 == 0 ? regs::by_mixed<3, 48, 3072>(m, run)

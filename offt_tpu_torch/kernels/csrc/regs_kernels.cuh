@@ -13,7 +13,8 @@
 //   the y pass of the slabs), on the (B, N, Y, Z) geometry of fft_axis.cu,
 //   in blocks of 256 threads or of 32 lines up to 1024 threads;
 // - cols_mix: cols_c2c at the mixed lengths N = R0 2^k (MixGeo;
-//   fft_axis_mix.cu);
+//   fft_axis_mix.cu; inverse with the side plane, the c2r slab's y pass,
+//   real_slab_mix.cu);
 // - rows_mix: rows_c2c at the mixed lengths (MixRowGeo; fft_last_mix.cu,
 //   also the z pass of fft_slab.cu);
 // - cols_twiddle: the column variant times a twiddle table at its store
@@ -409,7 +410,7 @@ cols_c2c(const float* xr, const float* xi, float* yr, float* yi,
 }
 
 // The column variant at a mixed length N = R0 2^K (MixGeo): the lines,
-// tiles and scale of cols_c2c (no side plane), V = 4 R0 values a thread,
+// tiles, scale and SIDE plane of cols_c2c, V = 4 R0 values a thread,
 // L = NT / P lanes a block, the exchange planes padded one slot per four
 // elements (ColLay<L, 2>: the first put writes runs of four, so a pad per
 // 16 would put two row threads of a warp on one bank from W = 2).
@@ -423,11 +424,19 @@ struct MixColGeo {
   static constexpr size_t SMEM = (size_t)2 * SIZE * sizeof(float);
 };
 
-template <int N, bool INV, int NT>
+// The threads a block of cols_mix takes on the lane tile the strided-axis
+// kernel routes at P threads a line (fused_fft._axis_tile): the narrow
+// tile, 256, to P = 8; the wide one, 32 lines up to 1024 threads, above.
+__host__ __device__ constexpr int mix_col_threads(int p) {
+  return p <= 8 ? kThreads : 32 * p < 1024 ? 32 * p : 1024;
+}
+
+template <int N, bool INV, int NT, bool SIDE = false>
 __global__ void __launch_bounds__(NT, col_min_blocks(NT))
 cols_mix(const float* xr, const float* xi, float* yr, float* yi,
          const float2* __restrict__ tab, AxisGeom g, long long tiles,
-         float scale) {
+         float scale, const float* __restrict__ side_r,
+         const float* __restrict__ side_i) {
   using C = MixColGeo<N, NT>;
   extern __shared__ __align__(16) float csmem[];
   const int l = threadIdx.x % C::L;
@@ -443,7 +452,14 @@ cols_mix(const float* xr, const float* xi, float* yr, float* yi,
   core_mix<N, INV, typename C::Lay>(
       v, csmem + l, csmem + C::SIZE + l, t, tab, [&](int e) {
         const long long o = in + e * g.isn;
-        return valid ? make_float2(xr[o], xi[o]) : make_float2(0.f, 0.f);
+        float2 x = valid ? make_float2(xr[o], xi[o]) : make_float2(0.f, 0.f);
+        if constexpr (SIDE) {
+          if (side_r != nullptr && lane == 0) {  // + i (side_r + i side_i)
+            x.x -= side_i[b * N + e];
+            x.y += side_r[b * N + e];
+          }
+        }
+        return x;
       });
   if (!valid) return;
   outputs_mix<N>(v, t, [&](int e, float2 w) {
@@ -898,18 +914,20 @@ static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
   return cudaGetLastError();
 }
 
-template <int N, bool INV, int NT>
+template <int N, bool INV, int NT, bool SIDE = false>
 static cudaError_t launch_cols_mix(const float* xr, const float* xi,
                                    float* yr, float* yi, const float2* tab,
                                    const AxisGeom& g, float scale,
-                                   cudaStream_t stream) {
+                                   cudaStream_t stream,
+                                   const float* side_r = nullptr,
+                                   const float* side_i = nullptr) {
   using C = MixColGeo<N, NT>;
-  auto kernel = cols_mix<N, INV, NT>;
+  auto kernel = cols_mix<N, INV, NT, SIDE>;
   cudaError_t err = allow_smem(kernel, C::SMEM);
   if (err != cudaSuccess) return err;
   const long long tiles = (g.ny * g.nz + C::L - 1) / C::L;
   kernel<<<(unsigned)(tiles * g.nb), NT, C::SMEM, stream>>>(
-      xr, xi, yr, yi, tab, g, tiles, scale);
+      xr, xi, yr, yi, tab, g, tiles, scale, side_r, side_i);
   return cudaGetLastError();
 }
 
@@ -988,15 +1006,23 @@ cudaError_t last_mix(const float* xr, const float* xi, float* yr, float* yi,
                      long long ipitch, long long opitch, int inverse,
                      float scale, cudaStream_t s);
 // r2c of `rows` real rows of 2m floats, m = R0 2^k (16 <= 2^k <= 512, or
-// 3072), into the numpy (m + 1 lanes) or packed (m lanes) planar rows,
-// contiguous, times `scale` (real_rows_mix.cu).
+// 3072), into the numpy (m + 1 lanes) or packed (m lanes) planar rows at
+// `opitch` floats (at least the lanes), times `scale` (real_rows_mix.cu).
 cudaError_t rfft_mix(const float* x, float* yr, float* yi, const float2* tab,
                      const float2* w, long long rows, int m, float scale,
-                     int packed, cudaStream_t s);
+                     int packed, long long opitch, cudaStream_t s);
 // c2r of `rows` packed planar rows of m lanes (m as rfft_mix), contiguous,
 // into real rows of 2m floats; the scale rides ab (real_rows_mix.cu).
 cudaError_t icrfft_mix(const float* xr, const float* xi, float* out,
                        const float2* tab, const float2* ab, long long rows,
                        int m, cudaStream_t s);
+// The inverse column variant along the n axis of g at a mixed n (as
+// axis_mix, on the routed lane tile, unscaled), lane 0 of each b taking
+// + i side[b n + e] as it loads where side_r is not null: the y pass of
+// irfft_slab.cu's two grids (real_slab_mix.cu).
+cudaError_t axis_mix_side(const float* xr, const float* xi, float* yr,
+                          float* yi, const float2* tab, const AxisGeom& g,
+                          int n, const float* side_r, const float* side_i,
+                          cudaStream_t s);
 
 }  // namespace offt

@@ -105,7 +105,8 @@ extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
   cudaStream_t s = (cudaStream_t)stream;
   if (reg) {
     if (m & (m - 1))
-      return (int)rfft_mix(xf, o_r, o_i, tb, wt, rows, m, scale, packed, s);
+      return (int)rfft_mix(xf, o_r, o_i, tb, wt, rows, m, scale, packed,
+                           packed ? m : m + 1, s);
     return (int)regs::by_log(m, [&](auto lg) {
       return regs::launch_rows_r2c<decltype(lg)::value>(
           xf, o_r, o_i, tb, wt, rows, m, scale, packed, s);

@@ -13,19 +13,26 @@
 // per output lane when the slab is read and written once, twice that
 // when it goes through device memory between its passes. Three layouts,
 // as in fft_slab.cu, chosen by the wrapper:
-// - Y and M powers of two in [16, 4096] (fused_fft._reg_slab(Y, M)) run
-//   the register core (regs_kernels.cuh): the r2c rows read as float2
-//   pairs (the input must be 8-byte aligned: the wrapper checks), the
-//   M-point core, V in natural order to the exchange planes and the
-//   untangle from there; then y on the column variant;
-//   - 2^14 to 2^17 elements with M >= 128, Y >= 64 (_cluster_slab; the
-//     256^3 slab, Y = 256, M = 128, clusters of 8; the 512^3 one, 1 MB,
-//     clusters of 16): one grid of clusters holding each x-row's packed
-//     slab in shared memory (ClusterSlab): the untangle writes into the
-//     block's slab planes, the cluster syncs, the y lanes read across the
-//     cluster and write the output once;
-//   - other register slabs: two grids, rows_r2c writing the packed rows
-//     at pitch M + zpad, then cols_c2c in place.
+// - Y on the column variant and M on the real rows of the register core
+//   (fused_fft._reg_rslab(Y, M): Y a power of two in [16, 4096] or
+//   R0 2^k of fused_fft._MIX_LENGTHS, M a power of two in [16, 4096] or
+//   of _MIX_ROW_LENGTHS) run the register core (regs_kernels.cuh): the
+//   r2c rows read as float2 pairs (the input must be 8-byte aligned: the
+//   wrapper checks), the M-point core, V in natural order to the exchange
+//   planes and the untangle from there; then y on the column variant;
+//   - Y and M powers of two, 2^14 to 2^17 elements with M >= 128,
+//     Y >= 64 (_cluster_slab; the 256^3 slab, Y = 256, M = 128, clusters
+//     of 8; the 512^3 one, 1 MB, clusters of 16): one grid of clusters
+//     holding each x-row's packed slab in shared memory (ClusterSlab):
+//     the untangle writes into the block's slab planes, the cluster
+//     syncs, the y lanes read across the cluster and write the output
+//     once;
+//   - other register slabs (the 768^3 and 1280^3 ones among them): two
+//     grids, the r2c rows writing the packed rows at pitch M + zpad
+//     (rows_r2c, or rows_r2c_mix at a mixed M, real_rows_mix.cu), then
+//     the y lines in place (cols_c2c, or cols_mix at a mixed Y through
+//     axis_mix, fft_axis_mix.cu, on the lane tile fft_axis routes), as
+//     fft_slab.cu runs its mixed slabs.
 // - every other shape: the dense core of fft_core.cuh in one launch: a
 //   block owns one x-row, reads Tz real rows at a time as float2 pairs,
 //   runs the M-point core, untangles in place (r2c_untangle) and writes the
@@ -212,18 +219,21 @@ static cudaError_t rslab_regs(const float* x, float* yr, float* yi,
       });
     });
   }
-  // z rows: P * Y of them; y lines in place, M lanes per x-row
+  // the y lines in place, M lanes per x-row
   const AxisGeom gy{rows, 1, m, ny * op, op, 0, ny * op, op, 0};
-  const long long zrows = rows * ny;
   if (phases == kFull) {
-    // two grids: the r2c rows, P * Y of them; then the y lines in place,
-    // M lanes per x-row
-    const AxisGeom gy{rows, 1, m, ny * op, op, 0, ny * op, op, 0};
-    cudaError_t err = by_log(m, [&](auto lz) {
-      return launch_rows_r2c<decltype(lz)::value>(x, yr, yi, tabz, w,
-                                                  rows * ny, op, 1.f, 1, s);
-    });
+    // two grids: the r2c rows, P * Y of them, at pitch op; then the y
+    // lines; each on its mixed instances at a mixed length
+    cudaError_t err =
+        m & (m - 1)
+            ? rfft_mix(x, yr, yi, tabz, w, rows * ny, m, 1.f, 1, op, s)
+            : by_log(m, [&](auto lz) {
+                return launch_rows_r2c<decltype(lz)::value>(
+                    x, yr, yi, tabz, w, rows * ny, op, 1.f, 1, s);
+              });
     if (err != cudaSuccess) return err;
+    if (ny & (ny - 1))
+      return axis_mix(yr, yi, yr, yi, taby, gy, ny, 0, 1.f, -1, s);
     return by_log(ny, [&](auto ly) {
       return launch_cols<decltype(ly)::value, false>(yr, yi, yr, yi, taby,
                                                      gy, 1.f, s);
@@ -267,7 +277,7 @@ static cudaError_t rslab_regs(const float* x, float* yr, float* yi,
 
 }  // namespace offt
 
-// reg != 0: the register core (Y and M powers of two in [16, 4096]; the
+// reg != 0: the register core (Y and M of fused_fft._reg_rslab; the
 // first rows of the tables, `cluster` and `phases` are read, the radices
 // and tiles are not), in a cluster's shared memory (cluster != 0, the
 // shapes of ClusterSlab::OK) or in two grids; else the dense core

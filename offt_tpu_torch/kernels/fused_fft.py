@@ -271,10 +271,13 @@ def _reg_slab(ny: int, nz: int) -> bool:
 
 def _reg_rslab(ny: int, m: int) -> bool:
     """Whether the r2c and c2r slab kernels (``rfft_slab_yz``,
-    ``irfft_slab_yz`` on (ny, M = N/2)) launch the register core: both
-    powers of two in [16, 4096] (their r2c and c2r rows have no mixed
-    instances). Every other slab takes the dense core."""
-    return _pow2(ny) and _pow2(m)
+    ``irfft_slab_yz`` on (ny, M = N/2)) launch the register core: y on
+    the column variant (:func:`_reg_axis`: a power of two in [16, 4096]
+    or a mixed length of ``_MIX_LENGTHS``), the rows on the real rows
+    (:func:`_reg_real_rows`: those and 3072), the slabs with a mixed
+    length (768^3's, 1280^3's) in two grids on the mixed instances. Every
+    other slab (Y = 24, 40 or 3072; M = 72, 144) takes the dense core."""
+    return _reg_axis(ny) and _reg_real_rows(m)
 
 
 def _reg_axis(n: int) -> bool:
@@ -310,22 +313,24 @@ def _cluster_slab(ny: int, nz: int) -> bool:
     """Whether a register slab (ny, nz) runs in one grid of clusters
     that hold each x-row's slab in shared memory (``ClusterSlab`` in
     ``csrc/regs_kernels.cuh``: 2^14 to 2^17 elements, nz >= 128, ny >=
-    64, both powers of two (:func:`_reg_rslab`); clusters of up to 16
-    blocks), reading it from device memory once and writing it once;
-    other register slabs (every one with a mixed length) run two grids,
-    the z rows and then the y lines in place."""
-    return (_reg_rslab(ny, nz) and nz >= 128 and ny >= 64
+    64, both powers of two (:func:`_pow2`: its ``by_log`` dispatch takes
+    no other length); clusters of up to 16 blocks), reading it from
+    device memory once and writing it once; other register slabs (every
+    one with a mixed length, c2c, r2c or c2r) run two grids, the z rows
+    and then the y lines in place. For the r2c slab nz is M."""
+    return (_pow2(ny) and _pow2(nz) and nz >= 128 and ny >= 64
             and 1 << 14 <= ny * nz <= 1 << 17)
 
 
 def _cluster_irslab(ny: int, m: int) -> bool:
     """Whether the register c2r slab (ny, m) runs in one grid of clusters
     (``irslab_cluster`` in ``csrc/irfft_slab.cu``): the shapes of
-    :func:`_cluster_slab` where that kernel spills nothing, 2^14 to 2^15
-    elements (the 256^3 slab). At 2^16 and 2^17 it spills 8-156 bytes at
-    its 128 registers (``bench/ptxas_spills.py``), and at the 512^3 slab
-    two grids ran faster than its clusters of 16 (PERF.md): those run
-    two grids."""
+    :func:`_cluster_slab` (powers of two) where that kernel spills
+    nothing, 2^14 to 2^15 elements (the 256^3 slab). At 2^16 and 2^17 it
+    spills 8-156 bytes at its 128 registers (``bench/ptxas_spills.py``),
+    and at the 512^3 slab two grids ran faster than its clusters of 16
+    (PERF.md): those run two grids, as every slab with a mixed length
+    does."""
     return _cluster_slab(ny, m) and ny * m <= 1 << 15
 
 
@@ -1021,11 +1026,13 @@ def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
     Unscaled. The ``zpad`` pad lanes are allocated and never written;
     ``block_rows`` is accepted for parity and ignored.
 
-    On Y and M powers of two in [16, 4096] (:func:`_reg_rslab`) the
-    kernel runs the register core: the r2c rows (float2 pairs, the M-point
-    core, the untangle), then the y lines on the column variant, in one grid of
-    clusters holding the slab in shared memory (:func:`_cluster_slab` of
-    (Y, M)) or in two grids through the output; the radices do not shape
+    On Y and M of :func:`_reg_rslab` (powers of two in [16, 4096] and
+    the mixed lengths 3 2^k, 5 2^k) the kernel runs the register core:
+    the r2c rows (float2 pairs, the M-point core, the untangle), then the
+    y lines on the column variant, in one grid of clusters holding the
+    slab in shared memory (:func:`_cluster_slab` of (Y, M), powers of
+    two) or in two grids through the output (the rows at pitch M +
+    ``zpad``; every slab with a mixed length); the radices do not shape
     it. Other slabs run the dense core in one grid, a block per x-row.
     The plain version is the dense core's arithmetic on every slab.
     ``phases`` other than "full" are cost probes of the register core's
@@ -1074,7 +1081,7 @@ def rfft_slab_yz(mode, x, rad_y=None, rad_z=None,
     roots = sum(sz) + sum(sy)
     tz, ty = (0, 0) if reg else (_rows_tile(m, 0, roots),
                                  _cols_tile(ny, 0, roots))
-    cluster = _cluster_slab(ny, m) and phases != "grids"
+    cluster = reg and _cluster_slab(ny, m) and phases != "grids"
     _launch("offt_rfft_slab", (x, yr, yi), (tabz, taby, w),
             [p, ny, m, m + zpad, *_radix_args(sz), *_radix_args(sy), tz, ty,
              int(reg), int(cluster), code])
@@ -1097,14 +1104,16 @@ def irfft_slab_yz(mode, xr, xi, n: int, rad_y=None, rad_z=None,
     shape (..., Y), are a Nyquist plane injected into plane 0 as
     + i*side before the y pass. ``block_rows`` is ignored.
 
-    On Y and M powers of two in [16, 4096] (:func:`_reg_rslab` of (Y, M))
-    the kernel runs the register core: the y lines on the column variant,
-    then the c2r rows (the re-tangle as the M-point core loads), in one
-    grid of clusters holding the slab in shared memory
-    (:func:`_cluster_irslab`) or in two grids through a planar
-    (..., Y, M) scratch; the radices do not shape it. Other slabs run the
-    dense core in one grid, a block per x-row. The plain version is the
-    dense core's arithmetic on every slab."""
+    On Y and M of :func:`_reg_rslab` (powers of two in [16, 4096] and
+    the mixed lengths 3 2^k, 5 2^k) the kernel runs the register core:
+    the y lines on the column variant (the side plane added as lane 0
+    loads), then the c2r rows (the re-tangle as the M-point core loads),
+    in one grid of clusters holding the slab in shared memory
+    (:func:`_cluster_irslab`, powers of two) or in two grids through a
+    planar (..., Y, M) scratch (every slab with a mixed length); the
+    radices do not shape it. Other slabs run the dense core in one grid,
+    a block per x-row. The plain version is the dense core's arithmetic
+    on every slab."""
     ny, lanes = xr.shape[-2], xr.shape[-1]
     m = n // 2
     if n != 2 * m or m > lanes:

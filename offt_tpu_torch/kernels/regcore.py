@@ -15,8 +15,9 @@ constant roots), the rows' exchange planes swizzled (:func:`mix_at`,
 the addresses the kernel computes, :func:`fft_last` a batch; the r2c and
 c2r rows at those lengths, ``csrc/real_rows_mix.cu``, block by block in
 :func:`rfft_rows_mix_block` and :func:`rows_c2r_mix_block`, their
-addresses :func:`r2c_mix_addrs`, :func:`c2r_mix_loads` and
-:func:`stage_pitch`, their banks :func:`r2c_mix_ways`). No CPU can
+addresses :func:`r2c_mix_addrs`, :func:`c2r_mix_loads`,
+:func:`stage_pitch` and the output copy at a pitch :func:`r2c_mix_copy`,
+their banks :func:`r2c_mix_ways`). No CPU can
 run that
 kernel, so the tests hold this replay of it against numpy and the JAX
 reference: the same pass radices and strides (:func:`passes`), the same
@@ -34,9 +35,11 @@ radix-2 network computes the same function in another rounding order).
 The kernels on
 the column variant are replayed as their grids run: :func:`fft_axis`
 (tile by tile on the (B, N, Y, Z) geometry), :func:`fft_slab` (z rows,
-then y columns in place), :func:`rfft_slab` (r2c rows, then y columns)
-and :func:`irfft_slab` (y columns, then the c2r rows,
-:func:`rows_c2r`, with the kernel's re-tangle :func:`retangle_pair`);
+then y columns in place), :func:`rfft_slab` (r2c rows at the slab's
+pitch, then y columns) and :func:`irfft_slab` (y columns, the side plane
+added as lane 0 loads, then the c2r rows, :func:`rows_c2r`, with the
+kernel's re-tangle :func:`retangle_pair`), each at a mixed length on its
+mixed rows and on the strided-axis kernel's tiles;
 and the four-step pair: :func:`step1_twiddle` (the column variant tile
 by tile, :func:`step1_tile`, the twiddle at the store) and
 :func:`step3_transposed` (rows block by block into the swizzled stage of
@@ -46,11 +49,12 @@ the register cube (``csrc/fft_cube_regs.cu``): :func:`fft_cube` replays
 its phases group by group (:func:`cube_geometry`: G cubes a phase, the
 split z of :func:`cube_split`, the barriers).
 What the kernels do around the core only moves values: ``rfft_last``
-stages a block's output rows back in the exchange planes to copy them
-out whole, ``fft_last`` moves rows of fewer than 8 threads (N < 128) in
-and out through a stage, and the cluster layouts move lines between
-blocks; none of that is replayed here. The package's own routes never
-call this module: on the CPU the kernel wrappers run their plain
+at a power of two stages a block's output rows back in the exchange
+planes to copy them out whole, ``fft_last`` moves rows of fewer than 8
+threads (N < 128) in and out through a stage, and the cluster layouts
+move lines between blocks; none of that is replayed here. The
+package's own routes never call this module: on the CPU the kernel
+wrappers run their plain
 versions.
 """
 
@@ -390,8 +394,25 @@ def _untangle(a, b, wk, wm, hs):
     return xk, xmk
 
 
+def r2c_mix_copy(m: int, lanes: int, opitch: int, rows: int | None = None,
+                 block: int = 0) -> tuple:
+    """The copy out of ``regs::rows_r2c_mix``'s stage at a mixed M, in the
+    kernel's order (``copy_rows_out``): float i of the block's first
+    ``rows`` rows (default ROWS) of ``lanes`` lanes each, row r = i div
+    lanes, lane c = i mod lanes, read at r ``stage_pitch`` + c and
+    written at (row0 + r) ``opitch`` + c of the output, row0 = ``block``
+    ROWS. Returns (stage, out) address tensors over i (consecutive threads
+    on consecutive i)."""
+    rows = geometry(m)["ROWS"] if rows is None else rows
+    i = torch.arange(rows * lanes)
+    r = i // lanes
+    c = i - r * lanes
+    row0 = block * geometry(m)["ROWS"]
+    return r * stage_pitch(m) + c, (row0 + r) * opitch + c
+
+
 def rfft_rows_mix_block(x, tab, w, scale: float = 1.0, packed: bool = False,
-                        rows: int | None = None):
+                        rows: int | None = None, opitch: int | None = None):
     """One block of ``regs::rows_r2c_mix`` as it runs, at a mixed M: ``x``
     the block's ROWS real rows (ROWS, 2M) f32 (rows past the batch zero),
     thread (g, t) of row g. Its core (:func:`_mix_core`) on v[j] =
@@ -399,8 +420,10 @@ def rfft_rows_mix_block(x, tab, w, scale: float = 1.0, packed: bool = False,
     pairs (k, M - k) read back and untangled times ``scale`` (``w`` =
     ``tables.rfft_table(2M)``), staged, and the first ``rows`` rows
     (default all) copied out in the kernel's order, each the numpy
-    (M + 1) or packed (M) lanes, every address :func:`r2c_mix_addrs`'s.
-    Returns the planar pair (rows, M + 1) or (rows, M)."""
+    (M + 1) or packed (M) lanes at ``opitch`` floats a row (default the
+    lanes), every address :func:`r2c_mix_addrs`'s and
+    :func:`r2c_mix_copy`'s. Returns the planar pair (rows, opitch), the
+    lanes past the numpy or packed ones NaN (never written)."""
     m = x.shape[-1] // 2
     geo = geometry(m)
     nrows, pitch, nv = geo["ROWS"], geo["PITCH"], geo["V"]
@@ -435,9 +458,13 @@ def rfft_rows_mix_block(x, tab, w, scale: float = 1.0, packed: bool = False,
     st[ad["st_hi"][keep]] = hi[keep]
     st[(g * sp + m // 2)[t == 0]] = mid[t == 0]
     lanes = m if packed else m + 1
-    i = torch.arange(rows * lanes)
-    r = i // lanes
-    out = st[r * sp + (i - r * lanes)].reshape(rows, lanes)
+    opitch = lanes if opitch is None else opitch
+    src, dst = r2c_mix_copy(m, lanes, opitch, rows)
+    nan = float("nan")
+    out = torch.full((rows * opitch,), complex(nan, nan),
+                     dtype=torch.complex64)
+    out[dst] = st[src]
+    out = out.reshape(rows, opitch)
     return out.real.contiguous(), out.imag.contiguous()
 
 
@@ -553,17 +580,23 @@ def fft_last(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
     return yr, yi
 
 
-def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False):
+def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False,
+              opitch: int | None = None):
     """The kernel's r2c of every real (..., 2M) row: the M-point core on
     v[j] = x[2j] + i x[2j+1], then the untangle of V in natural order
     (``w`` = ``tables.rfft_table(2M)``), ``scale`` at the store. The
-    numpy (..., M + 1) layout, or the packed (..., M) one. At a mixed M
-    block by block (:func:`rfft_rows_mix_block`)."""
+    numpy (..., M + 1) layout, or the packed (..., M) one; with
+    ``opitch`` its rows at that pitch, the lanes past them NaN. At a
+    mixed M block by block (:func:`rfft_rows_mix_block`)."""
     m = x.shape[-1] // 2
     if m in fused_fft._MIX_ROW_LENGTHS:
         return _by_blocks(m, x.shape[:-1], (x.reshape(-1, 2 * m),),
                           lambda c, k: rfft_rows_mix_block(
-                              c[0], tab, w, scale, packed, k))
+                              c[0], tab, w, scale, packed, k, opitch))
+    if opitch is not None:
+        yr, yi = rfft_rows(x, tab, w, scale, packed)
+        return _pitched(x.shape[:-1], yr.shape[-1],
+                        opitch - yr.shape[-1], yr, yi)
     v = x.reshape(*x.shape[:-1], m, 2)
     vr, vi = fft_rows(v[..., 0], v[..., 1], tab)
     mk = (-torch.arange(m)) % m
@@ -810,7 +843,8 @@ def fft_cols(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
 
 
 def fft_axis(xr, xi, yr, yi, n: int, geom, tab, inverse: bool = False,
-             scale: float = 1.0, tile: str | None = None) -> None:
+             scale: float = 1.0, tile: str | None = None, side_r=None,
+             side_i=None) -> None:
     """The strided-axis kernel's register core at length n as its grid
     runs, on flat f32 buffers: ``geom`` = (nb, ny, nz, in strides (b, n,
     y), out strides (b, n, y)) of ``fused_fft._axis_apply``, element
@@ -818,7 +852,10 @@ def fft_axis(xr, xi, yr, yi, n: int, geom, tab, inverse: bool = False,
     Tile by tile (L consecutive lanes of one b, :func:`axis_tile`, the
     ragged last one masked) it reads the tile's lines whole, runs the row
     core's passes on each, and writes them times ``scale``: so (yr, yi)
-    may be (xr, xi), in place."""
+    may be (xr, xi), in place. Where ``side_r`` is given (flat (nb n,)
+    f32, with ``side_i``), lane 0 of each b takes + i side[b n + e] as
+    it loads element e (the column variant's SIDE plane, the c2r slab's
+    y pass)."""
     nb, ny, nz, (isb, isn, isy), (osb, osn, osy) = geom
     tl = axis_tile(n, tile)["L"]
     lanes = ny * nz
@@ -829,7 +866,12 @@ def fft_axis(xr, xi, yr, yi, n: int, geom, tab, inverse: bool = False,
             y, z = lane // nz, lane % nz
             src = b * isb + e[:, None] * isn + (y * isy + z)[None, :]
             dst = b * osb + e[:, None] * osn + (y * osy + z)[None, :]
-            vr, vi = fft_rows(xr[src].t(), xi[src].t(), tab, inverse, scale)
+            ar, ai = xr[src].t(), xi[src].t()
+            if side_r is not None and l0 == 0:
+                ar, ai = ar.clone(), ai.clone()
+                ar[0] -= side_i[b * n:(b + 1) * n]
+                ai[0] += side_r[b * n:(b + 1) * n]
+            vr, vi = fft_rows(ar, ai, tab, inverse, scale)
             yr[dst] = vr.t()
             yi[dst] = vi.t()
 
@@ -875,8 +917,25 @@ def irfft_slab(xr, xi, tabz, taby, ab, side_r=None, side_i=None):
     lines on the column variant, inverse and unscaled (lane 0 plus
     i side where the (..., Y) side plane is given), then the c2r rows of
     the (..., Y, M) result (``tabz``: the core table of M; ``ab``:
-    ``tables.crfft_table(2M, scale)``, M rows): real (..., Y, 2M)."""
+    ``tables.crfft_table(2M, scale)``, M rows): real (..., Y, 2M). At a
+    mixed Y as its two grids run it: the strided-axis kernel's tiles
+    (:func:`fft_axis`) from the pitched input into a planar (..., Y, M)
+    scratch, the side plane added as lane 0 of each x-row loads; at a
+    mixed M the rows block by block (:func:`rows_c2r`)."""
     m = ab.shape[0]
+    ny, lanes = xr.shape[-2], xr.shape[-1]
+    if ny in fused_fft._MIX_LENGTHS:
+        fr, fi = xr.reshape(-1), xi.reshape(-1)
+        nb = fr.numel() // (ny * lanes)
+        vr = torch.full((*xr.shape[:-1], m), float("nan"))
+        vi = torch.full_like(vr, float("nan"))
+        sr, si = vr.reshape(-1), vi.reshape(-1)
+        fft_axis(fr, fi, sr, si, ny,
+                 (nb, 1, m, (ny * lanes, lanes, 0), (ny * m, m, 0)), taby,
+                 inverse=True,
+                 side_r=None if side_r is None else side_r.reshape(-1),
+                 side_i=None if side_i is None else side_i.reshape(-1))
+        return rows_c2r(vr, vi, tabz, ab)
     ar, ai = xr[..., :m].clone(), xi[..., :m].clone()
     if side_r is not None:
         ar[..., 0] -= side_i
@@ -927,10 +986,21 @@ def fft_slab(xr, xi, tabz, taby, inverse: bool = False, scale: float = 1.0,
 def rfft_slab(x, tabz, taby, w, zpad: int = 0):
     """The register ``rfft_slab``'s two grids on real (..., Y, 2M): the
     r2c rows into the packed half-spectrum (lane 0 = X[0] + i X[M]) at
-    pitch M + ``zpad``, then the y columns in place on it. Unscaled."""
-    m = x.shape[-1] // 2
-    zr, zi = rfft_rows(x, tabz, w, packed=True)
-    vr, vi = fft_cols(zr, zi, taby, dim=-2)
+    pitch M + ``zpad`` (at a mixed M block by block through the kernel's
+    pitched copy, :func:`rfft_rows_mix_block`), then the y columns in
+    place on it (at a mixed Y the strided-axis kernel's tiles,
+    :func:`fft_axis`, on the (x-rows, 1, M lanes) geometry at that
+    pitch). Unscaled; the pad lanes, which no grid writes, hold NaN."""
+    ny, m = x.shape[-2], x.shape[-1] // 2
+    yr, yi = rfft_rows(x, tabz, w, packed=True, opitch=m + zpad)
+    if ny in fused_fft._MIX_LENGTHS:
+        fr, fi = yr.reshape(-1), yi.reshape(-1)
+        op = m + zpad
+        st = (ny * op, op, 0)
+        fft_axis(fr, fi, fr, fi, ny, (fr.numel() // (ny * op), 1, m, st, st),
+                 taby)
+        return yr, yi
+    vr, vi = fft_cols(yr[..., :m], yi[..., :m], taby, dim=-2)
     return _pitched(x.shape[:-1], m, zpad, vr, vi)
 
 

@@ -1000,9 +1000,111 @@ def test_cuda_irfft_slab_cores(cuda_dev, monkeypatch, shape, side, dense):
                 shape, cuda_dev)
     reg = ff._reg_rslab(shape[1], n // 2)
     assert ff.irfft_slab_yz.reg_launches == int(reg)
-    # clusters at 2^14 and 2^15 elements
-    want = not dense and shape[1] * n // 2 in (1 << 14, 1 << 15)
+    # clusters at 2^14 and 2^15 elements (a shape's predicate; the
+    # wrapper launches them only on the register core)
+    want = shape[1] * n // 2 in (1 << 14, 1 << 15)
     assert ff._cluster_irslab(shape[1], n // 2) == want
+
+
+# ---- the r2c and c2r slabs at a mixed (Y, M): two grids on the mixed rows
+# (real_rows_mix.cu) and columns (fft_axis_mix.cu, real_slab_mix.cu) ------
+
+MIXED_RSLABS = [
+    (4, 768, 768),      # 768^3's x-rows: M = 384, Y = 768
+    (16, 1280, 1280),   # 1280^3's: M = 640, Y = 1280
+    (8, 96, 512),       # Y mixed, M = 256
+    (8, 48, 192),       # both mixed, M = 96
+    (2, 16, 768),       # Y = 16, M mixed
+    (3, 80, 96),        # rows of 4 threads (M = 48), a ragged row block
+    (1, 48, 6144),      # one row a block (M = 3072)
+    (2, 2560, 32)]      # Y = 2560 on the wide tile, M = 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape", MIXED_RSLABS)
+def test_cuda_rfft_slab_mixed(cuda_dev, monkeypatch, shape, dense):
+    _slab_core(monkeypatch, dense)
+    _card_check(ff.rfft_slab_yz, lambda f, x: f(x[0], zpad=8), shape,
+                cuda_dev, lanes=shape[-1] // 2)
+    assert ff.rfft_slab_yz.reg_launches == int(not dense)
+    assert not ff._cluster_slab(shape[1], shape[-1] // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("side", [False, True])
+@pytest.mark.parametrize("shape", MIXED_RSLABS)
+def test_cuda_irfft_slab_mixed(cuda_dev, monkeypatch, shape, side, dense):
+    _slab_core(monkeypatch, dense)
+    p, ny, n = shape
+    s = _pair((p, ny), cuda_dev, seed=5) if side else (None, None)
+    _card_check(ff.irfft_slab_yz,
+                lambda f, x: f(*x, n, scale=1.0 / (ny * n // 2),
+                               side_r=s[0], side_i=s[1]),
+                (p, ny, n // 2 + 8), cuda_dev)
+    assert ff.irfft_slab_yz.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 768, 768), (3, 80, 96),
+                                   (2, 48, 256), (1, 48, 6144)])
+def test_cuda_mixed_rows_at_a_pitch(cuda_dev, shape):
+    # the r2c rows write at pitch M + zpad: the slab at zpad 8 holds the
+    # bits of the slab at zpad 0 in its first M lanes
+    x = _pair(shape, cuda_dev, seed=6)[0]
+    m = shape[-1] // 2
+    ff.reset_counts()
+    a = ff.rfft_slab_yz(x, zpad=8)
+    b = ff.rfft_slab_yz(x)
+    torch.cuda.synchronize()
+    assert ff.rfft_slab_yz.reg_launches == 2
+    assert a[0].shape[-1] == m + 8 and b[0].shape[-1] == m
+    assert torch.equal(a[0][..., :m], b[0]) and torch.equal(a[1][..., :m],
+                                                            b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 48, 768), (4, 768, 768),
+                                   (4, 96, 160)])
+def test_cuda_mixed_c2r_inverts_the_r2c(cuda_dev, shape):
+    # the packed r2c route and its c2r at a mixed (Y, M), both slabs on
+    # the register core's two grids, back to the input
+    x = _pair(shape, cuda_dev, seed=28)[0]
+    ff.reset_counts()
+    yr, yi = ff.rfft3d_planar(x, packed=True)
+    back = ff.irfft3d_planar(yr, yi, packed=True)
+    assert ff.rfft_slab_yz.reg_launches == ff.rfft_slab_yz.launches == 1
+    assert ff.irfft_slab_yz.reg_launches == ff.irfft_slab_yz.launches == 1
+    assert _rel(back.double(), x.double()) < 1e-6
+
+
+# sha256 of rfft_last's output (the real plane's bytes, then the
+# imaginary's) on 300 rows from numpy's default_rng(7), recorded on an
+# H100 from the mixed r2c rows as they stood before they took an output
+# pitch (commit a0c82a9): rfft_last's two layouts keep their bits
+RFFT_LAST_BYTES = {
+    (96, False): "6b33326b34b9ddb3b49d6a6e3300e1eb"
+                 "3de2ba12b3d73ff9597351934222e95e",
+    (96, True): "84a6a8b94bb031b2214cf662c90da387"
+                "fbe8ed389f3f78ed0e8656077650f06a",
+    (384, False): "4118808abc8dd1e4ea6e6a5de1ea2ca8"
+                  "864a7869c643eb25388517ae7be575e1",
+    (384, True): "c1e4eb01862f6961e73cfb57f083fb10"
+                 "98838e34c447bbaf7788563d337b468a"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m", [96, 384])
+def test_cuda_rfft_last_mixed_bytes_unchanged(cuda_dev, m, packed):
+    import hashlib
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (300, 2 * m)).astype(np.float32)).to(cuda_dev)
+    yr, yi = ff.rfft_last_planar(x, packed=packed)
+    got = hashlib.sha256(yr.cpu().numpy().tobytes()
+                         + yi.cpu().numpy().tobytes()).hexdigest()
+    assert got == RFFT_LAST_BYTES[(m, packed)]
 
 
 @pytest.mark.cuda

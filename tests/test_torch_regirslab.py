@@ -132,8 +132,9 @@ def test_irslab_layout_predicates(ny, m):
     (:func:`fused_fft._reg_rslab` of (Y, M)), in clusters where
     ``_cluster_irslab`` holds (the shapes of ``_cluster_slab`` of 2^14 to
     2^15 elements, the 256^3 slab among them), else two grids (the 512^3
-    slab among them); the 320^3 slab stays dense."""
-    reg = (ny, m) in CLUSTER + GRIDS
+    slab among them, and the 320^3 one on the mixed columns and rows);
+    Y = 40 keeps the dense core."""
+    reg = (ny, m) in CLUSTER + GRIDS + [(320, 160)]
     assert ff._reg_rslab(ny, m) is reg
     assert ff._cluster_irslab(ny, m) is ((ny, m) in CLUSTER)
     if ff._cluster_irslab(ny, m):

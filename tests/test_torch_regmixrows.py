@@ -311,16 +311,17 @@ def test_fft_slab_routes_the_mixed_slabs(monkeypatch, ny, nz, reg, cluster):
 def test_kernels_without_mixed_rows_stay_dense(monkeypatch):
     """Kernels with no mixed instance keep the dense core: the r2c and c2r
     rows at M = 72 (3^2 8; the mixed real rows take 3 2^k and 5 2^k), the
-    r2c and c2r slabs at (320, 160) and step 3 on 3 * 2^18's 768 side
-    (``_reg_core``, the four-step pair's), step 1 at 1024 the register
-    one."""
+    r2c and c2r slabs at (320, 72) (at (320, 160) both halves have mixed
+    instances, and they take the register core) and step 3 on 3 * 2^18's
+    768 side (``_reg_core``, the four-step pair's), step 1 at 1024 the
+    register one."""
     calls = _launches(monkeypatch)
     ff.rfft_last_planar.impl("kernel", torch.zeros((3, 144)))
     ff.icrfft_last_planar.impl("kernel", torch.zeros((3, 72)),
                                torch.zeros((3, 72)))
-    ff.rfft_slab_yz.impl("kernel", torch.zeros((2, 320, 320)))
-    ff.irfft_slab_yz.impl("kernel", torch.zeros((2, 320, 168)),
-                          torch.zeros((2, 320, 168)), 320)
+    ff.rfft_slab_yz.impl("kernel", torch.zeros((2, 320, 144)))
+    ff.irfft_slab_yz.impl("kernel", torch.zeros((2, 320, 80)),
+                          torch.zeros((2, 320, 80)), 144)
     z = torch.zeros((1, 1024, 768))
     fs._step1_twiddle.impl("kernel", z, z, 1024, 768, None, False,
                            tile="wide")
@@ -332,4 +333,4 @@ def test_kernels_without_mixed_rows_stay_dense(monkeypatch):
     assert regs["offt_irfft_slab"][-2] == 0
     assert regs["offt_step1_twiddle"][-2] == 1
     assert regs["offt_step3_transposed"][-1] == 0
-    assert not ff._reg_rslab(320, 160) and ff._reg_slab(320, 160)
+    assert not ff._reg_rslab(320, 72) and ff._reg_rslab(320, 160)

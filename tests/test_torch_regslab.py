@@ -89,12 +89,14 @@ def test_reg_slab_predicate(ny, nz):
     """Both axes powers of two in [16, 4096] or mixed lengths take the
     register slab (z on the rows, ``_reg_rows``; y on the column variant,
     ``_reg_axis``; 320^3's slab among them); the rest keep the dense core.
-    The r2c and c2r slabs (``_reg_rslab``) keep powers of two."""
+    The r2c and c2r slabs (``_reg_rslab``) take y on the column variant and
+    M on the real rows (``_reg_real_rows``)."""
     mixed = ff._MIX_LENGTHS
     want = (ny in LENGTHS or ny in mixed) and (nz in LENGTHS or nz in mixed)
     assert ff._reg_slab(ny, nz) is want
     assert ff._reg_slab(ny, nz) == (ff._reg_axis(ny) and ff._reg_rows(nz))
-    assert ff._reg_rslab(ny, nz) == (ff._reg_core(ny) and ff._reg_core(nz))
+    assert ff._reg_rslab(ny, nz) == (ff._reg_axis(ny)
+                                     and ff._reg_real_rows(nz))
 
 
 def test_main_path_slabs_route_to_the_register_core():
