@@ -33,7 +33,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (step 1 on (1, n1, n2/4) with the rank's twiddle chunk, step 3 on
    (1, n1/4, n2)), few lanes at n1 = 4096,
    few rows at n2 = 4096, inverse, a caller's table, the mixed splits of
-   3 * 2^18) and the cube (``fft_cube``: 8 x 128^3, 4 x 64^2 x 128, a
+   3 * 2^18, 3 * 2^20's step 1 (1, 1536, 2048), 5 * 2^20's step 3 (1,
+   2048, 2560) and 5 * 2^21's step 1 (1, 2560, 4096), every mixed length
+   on each side forward and inverse ((2, n, 40), (3, 5, n): the mixed
+   instances of ``csrc/fourstep_mix.cu``), a rank's mixed shard (1, 768,
+   256)) and the cube (``fft_cube``: 8 x 128^3, 4 x 64^2 x 128, a
    short x (3 x 8 x 16 x 256; x of 3 and 12, on the table's roots; x of
    5 beside the split z), the split z at 8 x 8 x 32768 and
    3 x 16 x 8 x 16384, a mixed y that keeps the dense kernel) at each
@@ -62,8 +66,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       384); ``rfftn`` / ``irfftn``);
    c. long 1-D c2c, ``plan((1, 1, N))`` by the four-step kernels, at
       2^20 (forward, inverse, an ortho round trip), 8 x 2^20, 2^22, 2^24,
-      3 * 2^18 (the measured split), 10^6 (the 4-pass route) and one
-      complex64 (``planar=False``) case (``fft`` / ``ifft``);
+      3 * 2^18 (the measured split), 3 * 2^20 (forward and inverse), 5 *
+      2^20, 5 * 2^21 (the splits with a mixed side), 10^6 (the 4-pass
+      route) and one complex64 (``planar=False``) case (``fft`` /
+      ``ifft``); each mixed case again in a counter window of its own;
    d. the unfused real route: 256^3 with ``planar=False``, 192^3 and
       320^3 outside the packed gate (``rfft_last`` at M = 96 and 160 on
       the mixed real rows) and a long real 1-D (1, 1, 2^21) (``rfftn`` /
@@ -115,8 +121,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       2^22, ``fftn``, ``rfftn``, ``irfftn`` of 256^3;
    j. the tuner (``offt_tpu_torch.tune``) at full size, its trials timed
       by CUDA events, the plan cache in a temporary directory: a brute
-      force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d,
-      block_batch), Nelder-Mead over 144^3 r2c's (the radices and
+      force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d
+      alone: its default split runs both kernels on the register core),
+      Nelder-Mead over 144^3 r2c's (the radices and
       block_batch of the dense rfft_last at M = 72 and of the dense axes
       of 144; 12 trials), and 256^3 c2c, whose space is
       empty (nothing to search: the default point timed); each with its
@@ -171,8 +178,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of 3d (192^3's and 320^3's among them), ``irfft_slab`` on 3b's 256^3,
    512^3 and 768^3 c2r, ``icrfft_last`` on every packed c2r of 3e (192^3's
    among them), and ``step1_twiddle``
-   / ``step3_transposed`` on every power-of-two split of 3c (step 3
-   dense on the 768 side of 3 * 2^18) and throughout 3d and 3g, and the
+   / ``step3_transposed`` on every split of 3c (the mixed sides of 3 *
+   2^18, 3 * 2^20, 5 * 2^20 and 5 * 2^21 among them, each also in its own
+   window) and throughout 3d and 3g, and the
    register cube on every cube of 3f; every backward of 3h ran the
    kernels of its adjoint route and no plain version, those at 256^3 on
    the register core (``fft_slab``, ``rfft_slab``, ``fft_axis``); every
@@ -186,9 +194,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of 3l's windows its variant's launches or one ``rfft_slab`` launch on
    the register core;
 5. CUDA-event times: the port against cuFFT (c2c, r2c, c2r at 256^3 and
-   512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, there each kernel of the
-   four-step pair on both cores with its bound and TB/s, and the pair's
-   sum against ``torch.fft.fft``; ``rfft`` at 2^21;
+   512^3; ``fft`` at 2^20, 8 x 2^20, 2^22, 2^24, 3 * 2^18, 3 * 2^20,
+   5 * 2^20 and 5 * 2^21, there each kernel of the four-step pair on both
+   cores with its bound and TB/s, and the pair's sum against
+   ``torch.fft.fft``; the mixed ones also as device time with the host
+   ahead and as host wall and busy share (``device_breakdown``);
+   ``rfft`` at 2^21;
    ``rfftn`` against the 256^3 ``planar=False`` plan and the packed
    route), both split orders at 3 * 2^18, the 1 x 1 mesh plans (256^3
    c2c, 256^3 and 512^3 packed c2r) against cuFFT and the single-device
@@ -231,7 +242,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``offt_tpu_torch.bench.probe_slabparts`` at 256^3, ``probe_rslab512``
    at 512^3), the strided pass's lane tiles (``probe_yconcat`` at
    N = 256 and 1024) and the four-step pair's tiles and layouts
-   (``probe_fourstep`` at 2^20, 8 x 2^20, 2^22, 2^24, and step 1's two
+   (``probe_fourstep`` at 2^20, 8 x 2^20, 2^22, 2^24, the mixed sides of
+   3 * 2^20 and 5 * 2^20, and step 1's two
    tiles from 64 to 384 wide blocks), the cube's phases and groups
    (``probe_cube`` at 8 x 128^3, 8 x 8 x 32768 and 64 x 32^2 x 128); the
    first
@@ -266,8 +278,11 @@ the dense core's time at the same shape (the pair's two rows also
 ``fft_last``, ``fft_slab``, ``rfft_last`` and ``icrfft_last`` also
 ``mixed``: the same numbers at their mixed-length shape, (102400, 320),
 (320, 320, 320), (36864, 192) (numpy layout; ``mixed_packed`` the packed
-one) and (36864, 96); ``rfft_slab`` and ``irfft_slab`` ``mixed`` at the
-768^3 slab ((768, 768, 768), (768, 768, 392)) and ``mixed_1280`` at 16
+one) and (36864, 96); ``step1_twiddle`` ``mixed`` at (1, 1536, 2048)
+(3 * 2^20's step 1) and ``mixed_2560`` at (1, 2560, 4096) (5 * 2^21's),
+``step3_transposed`` ``mixed`` at (1, 2048, 2560) (5 * 2^20's step 3),
+their library ``fft`` of the whole 1-D; ``rfft_slab`` and
+``irfft_slab`` ``mixed`` at the 768^3 slab ((768, 768, 768), (768, 768, 392)) and ``mixed_1280`` at 16
 x-rows of 1280^3 (library ``rfft2`` / ``irfft2``); ``fft_cube`` also
 ``shapes``: its numbers at the three shapes of phase 5); then the probes'
 kernels: ``probe_mma:<variant>`` at one iteration of (SMs, 128, 1024)
@@ -404,9 +419,18 @@ SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 # the mixed-length shapes timed beside the main-path ones, each kernel's
 # under the keys of its JSON row: the 320^3 slab's z rows as one batch,
 # the 320^3 slab, 192^3's z rows on the unfused real route (r2c, both
-# layouts), 192^3's packed c2r z stage on a 1 x 1 mesh, and the r2c and
-# c2r slabs of 768^3 (the whole cube, zpad 8) and of 16 x-rows of 1280^3
+# layouts), 192^3's packed c2r z stage on a 1 x 1 mesh, the r2c and c2r
+# slabs of 768^3 (the whole cube, zpad 8) and of 16 x-rows of 1280^3, and
+# the four-step pair's mixed sides: step 1 of 3 * 2^20 and of 5 * 2^21,
+# step 3 of 5 * 2^20
 MIXED_SHAPES = {
+    "step1_twiddle": {
+        "mixed": ((1, 1536, 2048),
+                  lambda f, x: f(*x, 1536, 2048, None, False)),
+        "mixed_2560": ((1, 2560, 4096),
+                       lambda f, x: f(*x, 2560, 4096, None, False))},
+    "step3_transposed": {"mixed": ((1, 2048, 2560), lambda f, x: f(
+        *x, 2048, 2560, None, False))},
     "fft_last": {"mixed": ((102400, 320), lambda f, x: f(*x))},
     "fft_slab": {"mixed": ((320, 320, 320), lambda f, x: f(*x))},
     "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
@@ -1107,7 +1131,8 @@ def long1d_times(ot, fs, tb, long1d, gen, mesh, show, show_breakdown,
 # the kernels the tuned plan's route launches)
 TUNE_CASES = (
     # the split order ROADMAP item 8 measured 7% apart; every point of
-    # split_1d x block_batch (a side of 3 * 2^k runs dense at every split)
+    # split_1d (8: its default split runs both kernels on the register
+    # core, so block_batch is not searched)
     ("a", (1, 1, 3 * 2 ** 18), False, "brute", None, None,
      ("step1_twiddle", "step3_transposed")),
     # a real route whose rfft_last runs the dense core (M = 72, 3^2 8: no
@@ -1982,6 +2007,21 @@ def main() -> int:
          (1, 4096, 1024), None),
         ("step1_twiddle", fs._step1_twiddle, step1_shard(1024, 1024, 4, 1),
          (1, 1024, 256), None),
+        # the mixed sides (csrc/fourstep_mix.cu): 3 * 2^20's and 5 * 2^21's
+        # step 1, a rank's shard of 3 * 2^18 = (768, 1024) on four ranks,
+        # every mixed length forward and inverse over a ragged lane tile
+        ("step1_twiddle", fs._step1_twiddle, step1(1536, 2048),
+         (1, 1536, 2048), None),
+        ("step1_twiddle", fs._step1_twiddle,
+         step1(1536, 2048, inverse=True, scale=2 ** -20 / 3),
+         (1, 1536, 2048), None),
+        ("step1_twiddle", fs._step1_twiddle, step1(2560, 4096),
+         (1, 2560, 4096), None),
+        ("step1_twiddle", fs._step1_twiddle, step1_shard(768, 1024, 4, 1),
+         (1, 768, 256), None),
+        *(("step1_twiddle", fs._step1_twiddle,
+           step1(n, 40, inverse=inv, scale=0.25), (2, n, 40), None)
+          for n in sorted(ff._MIX_LENGTHS) for inv in (False, True)),
         ("step1_twiddle", fs._step1_twiddle, step1(1024, 1024),
          (1, 1024, 1024), None),
         ("step3_transposed", fs._step3_transposed, step3(128, 256),
@@ -2006,6 +2046,18 @@ def main() -> int:
          (1, 1024, 4096), None),
         ("step3_transposed", fs._step3_transposed, step3(256, 1024),
          (1, 256, 1024), None),
+        # the mixed sides: 5 * 2^20's step 3, a rank's shard of 3 * 2^18's
+        # (1024, 768) on four ranks, every mixed length forward and
+        # inverse over 15 rows whose blocks span batches
+        ("step3_transposed", fs._step3_transposed, step3(2048, 2560),
+         (1, 2048, 2560), None),
+        ("step3_transposed", fs._step3_transposed,
+         step3(2048, 2560, inverse=True), (1, 2048, 2560), None),
+        ("step3_transposed", fs._step3_transposed, step3(256, 768),
+         (1, 256, 768), None),
+        *(("step3_transposed", fs._step3_transposed, step3(5, n, inv),
+           (3, 5, n), None)
+          for n in sorted(ff._MIX_LENGTHS) for inv in (False, True)),
         ("step3_transposed", fs._step3_transposed, step3(1024, 1024),
          (1, 1024, 1024), None),
         ("fft_cube", ff.fft3d_cube, lambda f, x: f(*x, out_scale=0.5),
@@ -2243,6 +2295,12 @@ def main() -> int:
         ("2^22 fwd", 2 ** 22, 0, False, None, True),
         ("2^24 fwd", 2 ** 24, 0, False, None, True),
         ("3*2^18 fwd (measured split)", 3 * 2 ** 18, 0, False, None, True),
+        # splits with a mixed side: step 1 at 1536, step 3 at 2560, step 1
+        # at 2560 (10.5 M points)
+        ("3*2^20 fwd", 3 * 2 ** 20, 0, False, None, True),
+        ("3*2^20 inv", 3 * 2 ** 20, 0, True, None, True),
+        ("5*2^20 fwd", 5 * 2 ** 20, 0, False, None, True),
+        ("5*2^21 fwd", 5 * 2 ** 21, 0, False, None, True),
         ("10^6 fwd (4-pass route)", 10 ** 6, 0, False, None, True),
         ("2^20 inv complex64", 2 ** 20, 0, True, "ortho", False),
     ]
@@ -2290,7 +2348,26 @@ def main() -> int:
         if err > TOL_PATH:
             raise AssertionError(f"{label}: error {err:.3e}")
         del ref, got, y
-    del results, inputs
+    del results
+    # each split with a mixed side again in a counter window of its own:
+    # one launch of each kernel of the pair, on the register core, and no
+    # plain call
+    for label, n, b, inv, norm, planar in long_cases:
+        sp = fs.pick_split(n)
+        if not any(k in ff._MIX_LENGTHS for k in sp):
+            continue
+        p = ot.plan((1, 1, n), "complex64", planar=True, inverse=inv)
+        _, w = _window(ff, lambda p=p, x=inputs[label]: p(x))
+        got = {k: (w[1][k], w[2][k])
+               for k in ("step1_twiddle", "step3_transposed")}
+        plain = sum(c[1] for c in w[0].values())
+        if plain or any(v != (1, 1) for v in got.values()):
+            raise AssertionError(f"3c {label}: want one register launch of "
+                                 f"each kernel of the pair and no plain "
+                                 f"call: {got}, {plain} plain")
+        print(f"register core: the four-step pair on 3c's {label} (split "
+              f"{sp}, each kernel 1 of 1 launches on the register core)")
+    del inputs
     torch.cuda.empty_cache()
 
     # ---- 3d. the unfused real route through plan(real=True) ---------------
@@ -2708,22 +2785,22 @@ def main() -> int:
     print(f"register core: icrfft_last on 3e ({ic_reg} of {ic}: M = 128, "
           f"256 and 96), rfft_last on 3e ({rl_reg} of {rl})")
     # the four-step pair, each kernel on the core of its own length: on 3c
-    # every power-of-two split (2^20 four times, 8 x 2^20, 2^22, 2^24) and
-    # 3 * 2^18's (1024, 768) take the register core, but for step 3 at 768
-    # (dense; 10^6 takes the 4-pass route); 3d's long real record and 3g's
-    # prime (their inner 2^20 and 2^21) run it throughout
-    for path, dense3 in (("long1d", 1), ("local_real", 0), ("namespace", 0)):
+    # every split (2^20 four times, 8 x 2^20, 2^22, 2^24, and the mixed
+    # sides of 3 * 2^18, 3 * 2^20 twice, 5 * 2^20, 5 * 2^21) takes the
+    # register core (10^6 takes the 4-pass route); 3d's long real record
+    # and 3g's prime (their inner 2^20 and 2^21) run it throughout
+    for path in ("long1d", "local_real", "namespace"):
         s1, s1r = runs[path][1]["step1_twiddle"], \
             runs[path][2]["step1_twiddle"]
         s3, s3r = runs[path][1]["step3_transposed"], \
             runs[path][2]["step3_transposed"]
-        if not (0 < s1r == s1 and s3 > 0 and s3 - s3r == dense3):
+        if not (0 < s1r == s1 and 0 < s3r == s3):
             raise AssertionError(f"the four-step pair on {path}: step1 "
                                  f"{s1r} register of {s1}, step3 {s3r} of "
-                                 f"{s3} (want {dense3} dense)")
+                                 f"{s3} (want every launch on the register "
+                                 "core)")
         print(f"register core: step1_twiddle on {path} ({s1r} of {s1}), "
-              f"step3_transposed ({s3r} of {s3}"
-              + ("; 3*2^18's 768 side dense)" if dense3 else ")"))
+              f"step3_transposed ({s3r} of {s3})")
     # 3i: every engine call (six forward, two adjoints) ran the pair once,
     # both kernels on the register core (the splits of 2^24, 2^23, 2^20)
     for path, calls in (("long1d_engine", ENGINE_CALLS),
@@ -2862,9 +2939,16 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # long 1-D: the port (plan) against cuFFT (torch.fft.fft on complex64),
-    # 5 N log2 N flops per transform, and each of its passes alone
+    # 5 N log2 N flops per transform, and each of its passes alone; the
+    # splits with a mixed side also three ways beside cuFFT's: device time
+    # with the host ahead, and the host wall and busy share of back-to-back
+    # calls (device_breakdown)
     for label, n, b in (("2^20", 2 ** 20, 1), ("8x2^20", 2 ** 20, 8),
                         ("2^22", 2 ** 22, 1), ("2^24", 2 ** 24, 1),
+                        ("3*2^18", 3 * 2 ** 18, 1),
+                        ("3*2^20", 3 * 2 ** 20, 1),
+                        ("5*2^20", 5 * 2 ** 20, 1),
+                        ("5*2^21", 5 * 2 ** 21, 1),
                         ("10^6 (4-pass route)", 10 ** 6, 1)):
         xr, xi = _pair((b, 1, 1, n), gen)
         xc = torch.complex(xr, xi)
@@ -2878,6 +2962,18 @@ def main() -> int:
         show(f"torch.fft.fft (cuFFT) c64 {label}", r_cufft,
              f", {flops / r_cufft['median_ms'] / 1e6:.1f} GFLOP/s")
         n1, n2 = fs.pick_split(n)
+        if n1 in ff._MIX_LENGTHS or n2 in ff._MIX_LENGTHS:
+            d_port = time_cuda(p, ((xr, xi),), ahead=True)["median_ms"]
+            d_cufft = time_cuda(torch.fft.fft, (xc,), ahead=True)["median_ms"]
+            b_port = device_breakdown(p, ((xr, xi),))
+            b_cufft = device_breakdown(torch.fft.fft, (xc,))
+            print(f"path fft {label} (split {(n1, n2)}): device time "
+                  f"{d_port:.4f} ms (host ahead; cuFFT {d_cufft:.4f}, "
+                  f"{d_port / d_cufft:.2f}x), host wall "
+                  f"{b_port['wall_ms']:.4f} ms (cuFFT "
+                  f"{b_cufft['wall_ms']:.4f}), device {b_port['device_ms']:.4f}"
+                  f" ms, busy share {b_port['busy_share']:.3f} (cuFFT "
+                  f"{b_cufft['busy_share']:.3f}) {tag}", flush=True)
         if n1 % 128 or n2 % 128:     # not the fused pair
             del xr, xi, xc
             continue

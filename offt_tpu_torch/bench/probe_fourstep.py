@@ -6,7 +6,9 @@ tile sets how many blocks a grid has and how long a warp's runs are; step
 store, whose rows a block set the runs of its stores. Every row is one
 call at the long 1-D splits of the main path, (B, n1, n2) = (1, 1024,
 1024) (2^20), (8, 1024, 1024), (1, 2048, 2048) (2^22) and (1, 4096,
-4096) (2^24): step 1 on the routed tile (``fourstep._step1_tile``), on
+4096) (2^24), and at two with a mixed side, (1, 1536, 2048) (3 * 2^20:
+step 1 on ``csrc/fourstep_mix.cu``) and (1, 2048, 2560) (5 * 2^20: step
+3 there): step 1 on the routed tile (``fourstep._step1_tile``), on
 the other tile the kernel has at n1 (``tile``: wide, or half at 512 and
 1024) and on the dense core (``fused_fft._reg_core`` off), and its
 transform without the twiddle (``fused_fft.fft_sublane`` on axis 1);
@@ -35,7 +37,7 @@ import torch
 from . import phase_rows
 
 SHAPES = ((1, 1024, 1024), (8, 1024, 1024), (1, 2048, 2048),
-          (1, 4096, 4096))
+          (1, 4096, 4096), (1, 1536, 2048), (1, 2048, 2560))
 # (B, n1, n2) of step 1's tile rows: 96, 128, 192, 256, 384 wide blocks
 # at n1 = 1024; 64, 128, 256, 512 at 512
 TILES = ((3, 1024, 512), (1, 1024, 2048), (3, 1024, 1024), (4, 1024, 1024),

@@ -14,11 +14,15 @@
 // What bounds them on Hopper: each moves the planar pair once each way
 // (16 bytes per complex element; step 1 also reads the 8-byte twiddle).
 // Two cores, each kernel routing on its own length (fused_fft._reg_core:
-// a power of two in [16, 4096]):
-// - the register core (regs_kernels.cuh). Step 1 is the strided-axis
-//   kernel's column variant (cols_twiddle: P = n1 / 16 threads a line
-//   hold it in registers, a warp on consecutive lanes j2, consecutive
-//   blocks on consecutive lanes) with the twiddle multiply at the store,
+// a power of two in [16, 4096], or a mixed length 3 2^k in [48, 1536] or
+// 5 2^k in [80, 2560]):
+// - the register core (regs_kernels.cuh; the mixed lengths' instances,
+//   on cols_mix's lines and rows_mix's rows in the same two layouts, in
+//   fourstep_mix.cu, which this file's entry points call). At a power of
+//   two step 1 is the strided-axis kernel's column variant (cols_twiddle:
+//   P = n1 / 16 threads a line hold it in registers, a warp on
+//   consecutive lanes j2, consecutive blocks on consecutive lanes) with
+//   the twiddle multiply at the store,
 //   table row k1 read at the lanes the data has. Its lane tile (`tile`,
 //   picked only by fourstep._step1_tile): narrow (256 threads) to
 //   n1 = 128, wide (32 lanes up to 1024 threads) from 256, and half (half
@@ -37,8 +41,9 @@
 //   describes it). The radices, T and `block` are not read. (16 rows a
 //   block at 1024, 4 rows or clusters of two at 2048 and clusters of
 //   four at 4096 ran level or slower, PERF.md.)
-// - every other length runs the dense core of fft_core.cuh, one MAC a
-//   root read from shared memory (about 0.1 of the bound). Step 1 is the
+// - every other length (3072, lengths with a factor 3^2, 5^2 or 15, past
+//   4096) runs the dense core of fft_core.cuh, one MAC a root read from
+//   shared memory (about 0.1 of the bound). Step 1 is the
 //   strided-axis tile of fft_axis.cu (T consecutive lanes j2) with the
 //   twiddle folded into the store: natural index k1 sits at core_pos(k1),
 //   and table row k1 is read at the same T lanes. Step 3 is the row tile
@@ -155,9 +160,10 @@ static cudaError_t step3_regs(const float* xr, const float* xi, float* yr,
 
 }  // namespace offt
 
-// reg != 0: the register core (n1 a power of two in [16, 4096]; the first
-// n1 table rows, `inverse` and `tile`, a Step1Tile, are read, the radices
-// and T are not); else the dense core (radices, T; `tile` must be 0).
+// reg != 0: the register core (n1 a power of two in [16, 4096] or a mixed
+// length of fourstep_mix.cu; the first n1 table rows, `inverse` and
+// `tile`, a Step1Tile, are read, the radices and T are not; any other n1
+// is an error); else the dense core (radices, T; `tile` must be 0).
 extern "C" int offt_step1_twiddle(const void* xr, const void* xi, void* yr,
                                   void* yi, const void* tab, const void* tw,
                                   long long nb, int n1, long long n2, int ns,
@@ -171,6 +177,9 @@ extern "C" int offt_step1_twiddle(const void* xr, const void* xi, void* yr,
     const float2* tb = (const float2*)tab;
     const float2* w = (const float2*)tw;
     cudaStream_t s = (cudaStream_t)stream;
+    if (n1 & (n1 - 1))
+      return (int)step1_mix(ar, ai, (float*)yr, (float*)yi, tb, w, g, n1,
+                            inverse, tile, s);
     return (int)regs::by_log(n1, [&](auto lg) {
       constexpr int LOG = decltype(lg)::value;
       return inverse ? step1_regs<LOG, true>(ar, ai, (float*)yr, (float*)yi,
@@ -193,9 +202,10 @@ extern "C" int offt_step1_twiddle(const void* xr, const void* xi, void* yr,
   return (int)cudaGetLastError();
 }
 
-// reg != 0: the register core (n2 a power of two in [16, 4096]; the first
-// n2 table rows and `inverse` are read, the radices and T are not); else
-// the dense core (radices, T).
+// reg != 0: the register core (n2 a power of two in [16, 4096] or a mixed
+// length of fourstep_mix.cu; the first n2 table rows and `inverse` are
+// read, the radices and T are not; any other n2 is an error); else the
+// dense core (radices, T).
 extern "C" int offt_step3_transposed(const void* xr, const void* xi,
                                      void* yr, void* yi, const void* tab,
                                      long long rows, int n1, int n2, int ns,
@@ -207,6 +217,9 @@ extern "C" int offt_step3_transposed(const void* xr, const void* xi,
     const float* ai = (const float*)xi;
     const float2* tb = (const float2*)tab;
     cudaStream_t s = (cudaStream_t)stream;
+    if (n2 & (n2 - 1))
+      return (int)step3_mix(ar, ai, (float*)yr, (float*)yi, tb, rows, n1, n2,
+                            inverse, s);
     return (int)regs::by_log(n2, [&](auto lg) {
       constexpr int LOG = decltype(lg)::value;
       return inverse ? step3_regs<LOG, true>(ar, ai, (float*)yr, (float*)yi,

@@ -21,7 +21,9 @@
 //   (the four-step step 1, fourstep.cu);
 // - rows_transposed: c2c of contiguous rows written transposed through a
 //   shared stage, R rows a block or a cluster of C blocks (the four-step
-//   step 3, fourstep.cu);
+//   step 3, fourstep.cu); cols_twiddle and rows_transposed at the mixed
+//   lengths are cols_twiddle_mix and rows_transposed_mix, in
+//   fourstep_mix.cu;
 // - ClusterSlab, cluster_cols: a slab of Y x Z held by a cluster of C
 //   blocks in shared memory, and its y pass (fft_slab.cu, rfft_slab.cu;
 //   irfft_slab.cu runs y first, into the slab).
@@ -588,11 +590,13 @@ static __device__ __forceinline__ void st_cluster(unsigned a, unsigned rank,
 // outputs' writes (a warp: W = 32 / P rows of P threads on consecutive
 // k, or one row) and the runs' reads (a warp: 32 / R whole rows of the
 // stage) take one wavefront. The stage reuses the rows' exchange planes
-// (each row has read its own before the block writes the stage).
-template <int LOG, int NT>
-struct TrGeo {
-  using G = Geo<LOG>;
-  static constexpr int N = G::N, P = G::P;
+// (each row has read its own before the block writes the stage). TrStage
+// is the stage of N outputs a row at P threads a row (a power of two),
+// TrGeo the power-of-two rows' block; the mixed rows' is in
+// fourstep_mix.cu.
+template <int N_, int P_, int NT>
+struct TrStage {
+  static constexpr int N = N_, P = P_;
   static constexpr int R = NT / P;  // rows a block
   static_assert(R >= 1 && R * P == NT && NT >= 32, "whole rows, a warp");
   static constexpr int W = P < 32 ? 32 / P : 1;  // rows a warp
@@ -603,10 +607,16 @@ struct TrGeo {
   static __host__ __device__ constexpr int at(int k, int c) {
     return k * R + (c ^ (((k >> SH) * W) & (RS - 1)));
   }
-  static constexpr size_t EX =
-      G::NPASS > 1 ? (size_t)2 * R * G::PITCH * sizeof(float) : 0;
   static constexpr size_t ST = (size_t)2 * N * R * sizeof(float);
-  static constexpr size_t SMEM = EX > ST ? EX : ST;
+};
+
+template <int LOG, int NT>
+struct TrGeo : TrStage<Geo<LOG>::N, Geo<LOG>::P, NT> {
+  using G = Geo<LOG>;
+  using S = TrStage<G::N, G::P, NT>;
+  static constexpr size_t EX =
+      G::NPASS > 1 ? (size_t)2 * S::R * G::PITCH * sizeof(float) : 0;
+  static constexpr size_t SMEM = EX > S::ST ? EX : S::ST;
 };
 
 // the block of the transposing row kernel at N = 2^LOG: 256 threads to
@@ -655,11 +665,42 @@ static __device__ __forceinline__ long long tr_base(long long r, long long n,
   return b * n * n1 + (r - b * n1);
 }
 
-// The kernel: clusters of C blocks (C = 1: one block) hold RC = C R
-// consecutive rows, and block q of a cluster stores the outputs
-// [q N / C, (q + 1) N / C) of all of them, in runs of RC floats, column c
-// read from the stage of block c / R (through 32-bit mapa /
-// ld.shared::cluster where C > 1).
+// The stores of a transposing row block whose stage (T, a TrStage) is
+// whole, and with C > 1 its cluster's: clusters of C blocks (C = 1: one
+// block) hold RC = C R consecutive rows from row0, and block q of a
+// cluster stores the outputs [q N / C, (q + 1) N / C) of all of them, in
+// runs of RC floats, column c read from the stage of block c / R
+// (through 32-bit mapa / ld.shared::cluster where C > 1).
+template <typename T, int NT, int C>
+static __device__ __forceinline__ void store_runs(
+    float* __restrict__ yr, float* __restrict__ yi, const float* tsmem,
+    long long row0, long long rows, long long n1, int q, unsigned tid) {
+  constexpr int RC = C * T::R;
+  static_assert(NT % RC == 0, "whole runs a block");
+  const int c = tid % RC;
+  const long long r = row0 + c;
+  if (r >= rows) return;
+  const long long base = tr_base(r, T::N, n1);
+  const int cb = c % T::R;
+  const unsigned src = (unsigned)(c / T::R);
+  const unsigned re0 = (unsigned)__cvta_generic_to_shared(tsmem);
+  const unsigned im0 = re0 + 4u * T::N * T::R;
+  // NT / RC threads a k, so N / P passes cover the block's N / C outputs
+  unroll<0, T::N / T::P>([&](auto ic) {
+    const int k = q * (T::N / C) + tid / RC + decltype(ic)::value * (NT / RC);
+    const int a = T::at(k, cb);
+    if constexpr (C > 1) {
+      yr[base + k * n1] = ld_cluster(re0 + 4u * a, src);
+      yi[base + k * n1] = ld_cluster(im0 + 4u * a, src);
+    } else {
+      yr[base + k * n1] = tsmem[a];
+      yi[base + k * n1] = tsmem[T::N * T::R + a];
+    }
+  });
+}
+
+// The kernel at N = 2^LOG: the rows' transforms into each block's stage,
+// then store_runs over the block or its cluster of C.
 template <int LOG, bool INV, int NT, int C>
 static __device__ __forceinline__ void rows_transposed_block(
     const float* __restrict__ xr, const float* __restrict__ xi,
@@ -668,7 +709,6 @@ static __device__ __forceinline__ void rows_transposed_block(
     unsigned blk, unsigned tid) {
   using T = TrGeo<LOG, NT>;
   constexpr int RC = C * T::R;
-  static_assert(NT % RC == 0, "whole runs a block");
   extern __shared__ __align__(16) float tsmem[];
   namespace cg = cooperative_groups;
   int q = 0;
@@ -680,28 +720,7 @@ static __device__ __forceinline__ void rows_transposed_block(
     cg::this_cluster().sync();  // every stage of the cluster is whole
   else
     __syncthreads();
-  const int c = tid % RC;
-  const long long r = row0 + c;
-  if (r < rows) {
-    const long long base = tr_base(r, T::N, n1);
-    const int cb = c % T::R;
-    const unsigned src = (unsigned)(c / T::R);
-    const unsigned re0 = (unsigned)__cvta_generic_to_shared(tsmem);
-    const unsigned im0 = re0 + 4u * T::N * T::R;
-    unroll<0, kE>([&](auto ic) {
-      // NT / RC threads a k, so kE passes cover the block's N / C outputs
-      const int k = q * (T::N / C) + tid / RC +
-                    decltype(ic)::value * (NT / RC);
-      const int a = T::at(k, cb);
-      if constexpr (C > 1) {
-        yr[base + k * n1] = ld_cluster(re0 + 4u * a, src);
-        yi[base + k * n1] = ld_cluster(im0 + 4u * a, src);
-      } else {
-        yr[base + k * n1] = tsmem[a];
-        yi[base + k * n1] = tsmem[T::N * T::R + a];
-      }
-    });
-  }
+  store_runs<T, NT, C>(yr, yi, tsmem, row0, rows, n1, q, tid);
   if constexpr (C > 1)
     cg::this_cluster().sync();  // no block leaves while another reads it
 }
@@ -1024,5 +1043,16 @@ cudaError_t axis_mix_side(const float* xr, const float* xi, float* yr,
                           float* yi, const float2* tab, const AxisGeom& g,
                           int n, const float* side_r, const float* side_i,
                           cudaStream_t s);
+// The four-step pair at a mixed length (fourstep_mix.cu), n = R0 2^k,
+// 16 <= 2^k <= 512: step 1 along n1 of g, unscaled, each output times
+// its entry of the (n1, lanes) table tw, on the lane tile `tile`
+// (fourstep.cu's Step1Tile: 0 narrow, 1 wide; the routed one alone);
+// step 3 on `rows` rows of n2, written transposed into (B, n2, n1).
+cudaError_t step1_mix(const float* xr, const float* xi, float* yr, float* yi,
+                      const float2* tab, const float2* tw, const AxisGeom& g,
+                      int n1, int inverse, int tile, cudaStream_t s);
+cudaError_t step3_mix(const float* xr, const float* xi, float* yr, float* yi,
+                      const float2* tab, long long rows, int n1, int n2,
+                      int inverse, cudaStream_t s);
 
 }  // namespace offt

@@ -15,14 +15,15 @@ When both factors are multiples of 128 (the reference's gate, kept so
 that both packages take the same route) steps 1+2 are one kernel
 (``_step1_twiddle``) and steps 3+4 another (``_step3_transposed``), both in
 ``csrc/fourstep.cu``. Each runs the register core where its own length is
-a power of two in [16, 4096] (``fused_fft._reg_core``; step 1 on the
-column variant, its lane tile from :func:`_step1_tile`; step 3 on the row
-core with a transposing store, in the layout of :func:`_step3_layout`),
-else
-the dense core. Other splits take the reference's 4-pass route: the
-strided-axis kernel, a torch twiddle multiply, the last-axis kernel and a
-torch transpose. There is no ``OFFT_FOURSTEP_FUSED`` switch: it was a TPU
-A/B knob.
+a power of two in [16, 4096] or a mixed length 3 * 2^k in [48, 1536] or
+5 * 2^k in [80, 2560] (``fused_fft._reg_core``; the mixed instances in
+``csrc/fourstep_mix.cu``; step 1 on the column variant, its lane tile
+from :func:`_step1_tile`; step 3 on the row core with a transposing
+store, in the layout of :func:`_step3_layout`), else the dense core
+(3072, lengths with a factor 3^2, 5^2 or 15, past 4096). Other splits
+take the reference's 4-pass route: the strided-axis kernel, a torch
+twiddle multiply, the last-axis kernel and a torch transpose. There is
+no ``OFFT_FOURSTEP_FUSED`` switch: it was a TPU A/B knob.
 
 ``pick_split`` keeps the reference's one measured split, 3 * 2^18 ->
 (1024, 768), so that the routes stay equal; whether Hopper wants it is
@@ -148,17 +149,20 @@ def _sms(device) -> int:
 
 def _step3_layout(n2: int) -> tuple:
     """(R, C) of step 3's register core at length n2, as ``step3_regs``
-    of ``csrc/fourstep.cu`` chooses it (the kernel is passed no layout):
+    of ``csrc/fourstep.cu`` and ``step3_mix_n`` of
+    ``csrc/fourstep_mix.cu`` choose it (the kernel is passed no layout):
     R consecutive rows stored as runs of R floats, held by a cluster of C
-    blocks of R / C rows each (C = 1: one block). The row kernel's 4096 /
-    n2 rows in 256
-    threads to 512, then 8 (512 threads at 1024, 1024 at 2048); at 4096,
-    where 8 rows would need a 256 KB stage, two blocks of 4 in a
-    cluster. On an H100 at 700 W (PERF.md §6, ms): (1, 4096, 4096)
-    0.1992-0.2003 against 0.3248-0.3346 for one block of 4 rows (runs of
-    16 bytes); 16 rows a block at 1024, and 4 rows a block or clusters of
-    two at 2048, ran level or slower."""
-    return (4096 // n2 if n2 <= 512 else 8), 1 if n2 <= 2048 else 2
+    blocks of R / C rows each (C = 1: one block). With P = n2 /
+    ``fused_fft._reg_values(n2)`` threads a row: 256 / P rows in 256
+    threads to P = 32, then 8 rows in 8 P threads (at a power of two 512
+    threads at 1024, 1024 at 2048; mixed, 512 at 768 and 1280, 1024 at
+    1536 and 2560); at 4096, where 8 rows would need a 256 KB stage, two
+    blocks of 4 in a cluster. On an H100 at 700 W (PERF.md §6, ms): (1,
+    4096, 4096) 0.1992-0.2003 against 0.3248-0.3346 for one block of 4
+    rows (runs of 16 bytes); 16 rows a block at 1024, and 4 rows a block
+    or clusters of two at 2048, ran level or slower."""
+    p = n2 // ff._reg_values(n2)
+    return (256 // p if p <= 32 else 8), 2 if n2 == 4096 else 1
 
 
 @ff._dispatching
@@ -172,10 +176,12 @@ def _step1_twiddle(mode, xr3, xi3, n1: int, n2: int, rad1, inverse: bool,
     float32 layout of (re, im) pairs, which carries all scaling (``scale``
     is then ignored).
 
-    At a power of two n1 in [16, 4096] (``fused_fft._reg_core``) the
-    kernel runs the register core's column variant with the twiddle at the
-    store, on the lane tile of :func:`_step1_tile`: ``rad1`` is checked
-    but does not shape its passes, and ``block`` is ignored. ``tile``, a
+    At a power of two n1 in [16, 4096] or a mixed length of
+    ``fused_fft._MIX_LENGTHS`` (``fused_fft._reg_core``) the kernel runs
+    the register core's column variant with the twiddle at the store
+    (``regs::cols_twiddle``, at a mixed n1 ``cols_twiddle_mix``), on the
+    lane tile of :func:`_step1_tile`: ``rad1`` is checked but does not
+    shape its passes, and ``block`` is ignored. ``tile``, a
     key of ``_STEP1_TILES``, overrides the pick: a probe for
     ``bench/probe_fourstep.py`` on a CUDA device. Other lengths run the
     dense core, ``block`` lanes a CUDA block (a power of two; 0 = as many
@@ -233,8 +239,10 @@ def _step3_transposed(mode, zr3, zi3, n1: int, n2: int, rad2, inverse: bool,
     into (B, n2, n1), the natural four-step order. No scale: step 1's
     table carries it.
 
-    At a power of two n2 in [16, 4096] (``fused_fft._reg_core``) the
-    kernel runs the register row core in the layout of
+    At a power of two n2 in [16, 4096] or a mixed length of
+    ``fused_fft._MIX_LENGTHS`` (``fused_fft._reg_core``) the kernel runs
+    the register row core (at a mixed n2 the mixed rows,
+    ``regs::rows_transposed_mix``) in the layout of
     :func:`_step3_layout`, R rows staged in shared memory and stored
     transposed in runs of R floats: ``rad2`` is checked but does not shape
     its passes, and ``block`` is ignored. Other lengths run the dense

@@ -216,10 +216,15 @@ def _pow2(n: int) -> bool:
 def _reg_core(n: int) -> bool:
     """Whether each kernel of the four-step pair (``fourstep.py``) at its
     own length n launches the register core (``csrc/fft_regs.cuh``): a
-    power of two in [16, 4096]. Every other length takes the dense core
-    (its twiddled columns and transposing rows have no mixed instances).
-    The register core ignores the radices and the rows per block."""
-    return _pow2(n)
+    power of two in [16, 4096], or a mixed length of ``_MIX_LENGTHS`` (3
+    2^k in [48, 1536], 5 2^k in [80, 2560]: ``regs::cols_twiddle_mix``
+    and ``rows_transposed_mix`` in ``csrc/fourstep_mix.cu``). Every other
+    length takes the dense core: 3072 (the column variant's exchanges
+    would take two wavefronts, and a transposing store at P = 256 would
+    need the 4096 layout's cluster), lengths with a factor 3^2, 5^2 or 15,
+    and lengths past 4096. The register core ignores the radices and the
+    rows per block."""
+    return _pow2(n) or n in _MIX_LENGTHS
 
 
 # the mixed lengths R0 2^k (R0 = 3, 5; 16 <= 2^k <= 512) the register

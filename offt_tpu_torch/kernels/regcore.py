@@ -44,7 +44,11 @@ and the four-step pair: :func:`step1_twiddle` (the column variant tile
 by tile, :func:`step1_tile`, the twiddle at the store) and
 :func:`step3_transposed` (rows block by block into the swizzled stage of
 :func:`step3_geometry` / :func:`step3_at`, then the transposed runs,
-:func:`step3_runs`, its banks counted by :func:`step3_ways`); and
+:func:`step3_runs`, its banks counted by :func:`step3_ways`), both also
+at the mixed lengths of ``fused_fft._MIX_LENGTHS``
+(``csrc/fourstep_mix.cu``: step 1 on the mixed schedule and the lane
+tile the strided-axis kernel takes there; step 3's rows through the
+mixed rows' swizzled planes, :func:`rows_mix_block`, R a block); and
 the register cube (``csrc/fft_cube_regs.cu``): :func:`fft_cube` replays
 its phases group by group (:func:`cube_geometry`: G cubes a phase, the
 split z of :func:`cube_split`, the barriers).
@@ -271,46 +275,49 @@ def _butterflies(v, n: int, r: int, ns: int, t, p: int, w,
                                    else blk @ _dft(r, inverse))
 
 
-def _mix_threads(n: int) -> tuple:
+def _mix_threads(n: int, threads: int = THREADS) -> tuple:
     """Row g and index t in it of each thread of a block of the mixed rows
-    (thread tid: g = tid // P, t = tid % P)."""
-    tid = torch.arange(THREADS)
+    of ``threads`` threads (thread tid: g = tid // P, t = tid % P)."""
+    tid = torch.arange(threads)
     p = geometry(n)["P"]
     return tid // p, tid % p
 
 
-def mix_loads(n: int):
+def mix_loads(n: int, threads: int = THREADS):
     """The elements the threads of a block of the mixed rows load, in the
-    order of their loads: (256, V), thread (g, t)'s element e = t + q P +
-    k n/R of its row (q < V/R, k < R), R the first pass's radix."""
+    order of their loads: (threads, V), thread (g, t)'s element e = t +
+    q P + k n/R of its row (q < V/R, k < R), R the first pass's radix."""
     p, nv = geometry(n)["P"], geometry(n)["V"]
     r, _ = passes(n)[0]
-    _, t = _mix_threads(n)
+    _, t = _mix_threads(n, threads)
     return torch.stack([t + q * p + k * (n // r)
                         for q in range(nv // r) for k in range(r)], 1)
 
 
-def _mix_core(n: int, v0, tab, inverse: bool = False):
-    """``regs::core_mix_rows`` on one block of the mixed rows as it runs:
-    thread (g, t) holds ``v0`` (256, V) complex64, the elements
-    :func:`mix_loads` gives it, runs the first pass, then for each later
+def _mix_core(n: int, v0, tab, inverse: bool = False,
+              threads: int = THREADS):
+    """``regs::core_mix_rows`` on one block of the mixed rows as it runs
+    (a block of ``threads`` threads, ``threads`` / P rows, each in its own
+    planes at the pitch of :func:`geometry`): thread (g, t) holds ``v0``
+    (threads, V) complex64, the elements :func:`mix_loads` gives it, runs
+    the first pass, then for each later
     pass puts the outputs into the block's exchange plane and gets the
     inputs back at the addresses the kernel computes: the thread's
     swizzled base mix_at(X) ^ row_mask(g), X the part of the element its t
     sets, XOR mix_at(C) of the compile-time part C (put: X = (t div Ns) Ns
     R + t mod Ns, C = q P R + k Ns; get: X = t, C = P (q + k V/R)).
-    Returns v (256, V): v[:, k] the output element t + k P of the
+    Returns v (threads, V): v[:, k] the output element t + k P of the
     thread's row."""
     geo = geometry(n)
     p, pitch, nv = geo["P"], geo["PITCH"], geo["V"]
     sched = passes(n)
-    g, t = _mix_threads(n)
+    g, t = _mix_threads(n, threads)
     gm = row_mask(n, g)
     w = torch.complex(tab[:n, 0], tab[:n, 1])
     v = v0.to(torch.complex64).clone()
     r, _ = sched[0]
     _butterflies(v, n, r, 1, t, p, w, inverse)
-    plane = torch.full((geo["ROWS"] * pitch,), complex("nan"),
+    plane = torch.full((threads // p * pitch,), complex("nan"),
                        dtype=torch.complex64)
     for (rp, nsp), (r, ns) in zip(sched, sched[1:]):
         base = mix_at((t // nsp) * nsp * rp + t % nsp) ^ gm
@@ -329,15 +336,19 @@ def _mix_core(n: int, v0, tab, inverse: bool = False):
 
 def rows_mix_block(x, tab, inverse: bool = False):
     """One block of ``regs::rows_mix`` as it runs, at a mixed length n:
-    ``x`` the block's ROWS rows (ROWS, n) complex64 (rows past the batch
-    zero), thread (g, t) = (tid // P, tid % P) of row g, the passes of
-    :func:`_mix_core`. Returns the (ROWS, n) output, element t + k P from
-    the last pass's v[k]."""
-    n = x.shape[-1]
+    ``x`` the block's rows (rows, n) complex64 (rows past the batch zero;
+    ROWS of them in ``rows_mix``'s 256 threads, R in a block of step 3's
+    ``rows_transposed_mix``, :func:`step3_geometry`), thread (g, t) =
+    (tid // P, tid % P) of row g, the passes of :func:`_mix_core`.
+    Returns the (rows, n) output, element t + k P from the last pass's
+    v[k]."""
+    rows, n = x.shape
     geo = geometry(n)
-    g, t = _mix_threads(n)
-    v = _mix_core(n, x[g[:, None], mix_loads(n)], tab, inverse)
-    out = torch.empty(geo["ROWS"], n, dtype=torch.complex64)
+    threads = rows * geo["P"]
+    g, t = _mix_threads(n, threads)
+    v = _mix_core(n, x[g[:, None], mix_loads(n, threads)], tab, inverse,
+                  threads)
+    out = torch.empty(rows, n, dtype=torch.complex64)
     for k in range(geo["V"]):
         out[g, t + k * geo["P"]] = v[:, k]
     return out
@@ -1055,21 +1066,23 @@ def step1_twiddle(xr, xi, tab, tw, inverse: bool = False,
 
 
 def step3_geometry(n2: int) -> dict:
-    """The block of step 3's register core (``regs::TrGeo``) at length
-    n2 in its layout (R, C) (``fourstep._step3_layout``): R rows a run,
-    held by a cluster of C blocks of RB = R / C rows; P threads a row, W
-    rows a warp, the stage's swizzle (RS columns, shift SH) and a block's
-    shared memory in bytes (the rows' exchange planes EX or the stage ST,
-    the larger)."""
+    """The block of step 3's register core (``regs::TrGeo``; at a mixed
+    length ``MixTrGeo`` of ``csrc/fourstep_mix.cu``) at length n2 in its
+    layout (R, C) (``fourstep._step3_layout``): R rows a run, held by a
+    cluster of C blocks of RB = R / C rows; P threads a row, V values a
+    thread, W rows a warp, the stage's swizzle (RS columns, shift SH) and
+    a block's shared memory in bytes (the rows' exchange planes EX or the
+    stage ST, the larger)."""
     from . import fourstep
     sched = passes(n2)
     r, c = fourstep._step3_layout(n2)
-    p = n2 // E
+    v = fused_fft._reg_values(n2)
+    p = n2 // v
     rb = r // c
     rs = min(rb, 32)
     ex = 2 * rb * geometry(n2)["PITCH"] * 4 if len(sched) > 1 else 0
     st = 2 * n2 * rb * 4
-    return {"P": p, "R": r, "C": c, "RB": rb, "threads": rb * p,
+    return {"P": p, "V": v, "R": r, "C": c, "RB": rb, "threads": rb * p,
             "W": max(1, 32 // p), "RS": rs,
             "SH": (32 // rs).bit_length() - 1, "EX": ex, "ST": st,
             "SMEM": max(ex, st)}
@@ -1082,39 +1095,52 @@ def step3_at(g: dict, k, c):
     return k * g["RB"] + (c ^ (((k >> g["SH"]) * g["W"]) & (g["RS"] - 1)))
 
 
+def _step3_rows(x, tab, inverse: bool):
+    """The transforms of one block's rows (R, n2) complex64 as
+    step 3's core runs them: at a mixed n2 the block's threads through the
+    mixed rows' swizzled exchange planes (:func:`rows_mix_block`), at a
+    power of two the row core's passes (:func:`fft_rows`)."""
+    n2 = x.shape[-1]
+    if n2 in fused_fft._MIX_LENGTHS:
+        return rows_mix_block(x, tab, inverse)
+    vr, vi = fft_rows(x.real.contiguous(), x.imag.contiguous(), tab,
+                      inverse)
+    return torch.complex(vr, vi)
+
+
 def step3_transposed(zr, zi, tab, inverse: bool = False):
     """Step 3's register core as its grid runs on planar (B, n1, n2):
     block by block (R consecutive rows r = b n1 + k1, the ragged last
-    block masked) the row core's passes on each row (``tab``: the core
-    table of n2), output k of the block's row c into the stage at
-    :func:`step3_at`, then each k's run of R floats read back from the
-    stage and stored to (b n2 + k) n1 + k1, every row finding its own b
-    (a block's rows may span two batches); in clusters of C blocks,
-    column c from block c // (R / C). Returns (B, n2, n1); elements no
-    block writes stay NaN."""
+    block masked, its rows zero) the row core's passes on each row
+    (``tab``: the core table of n2; at a mixed n2 the block's threads
+    through the mixed rows' exchange planes, :func:`rows_mix_block`),
+    output k of the block's row c into the stage at :func:`step3_at`,
+    then each k's run of R floats read back from the stage and stored to
+    (b n2 + k) n1 + k1, every row finding its own b (a block's rows may
+    span two batches); in clusters of C blocks, column c from block
+    c // (R / C). Returns (B, n2, n1); elements no block writes stay
+    NaN."""
     b, n1, n2 = zr.shape
     g = step3_geometry(n2)
     r, rb = g["R"], g["RB"]
     nrows = b * n1
-    xr, xi = zr.reshape(nrows, n2), zi.reshape(nrows, n2)
+    x = torch.complex(zr, zi).reshape(nrows, n2)
     yr = torch.full((b * n2 * n1,), float("nan"))
     yi = torch.full_like(yr, float("nan"))
     k = torch.arange(n2)[:, None]
     for row0 in range(0, nrows, r):
         valid = min(r, nrows - row0)
-        vr = torch.zeros(r, n2)
-        vi = torch.zeros(r, n2)
-        vr[:valid], vi[:valid] = fft_rows(xr[row0:row0 + valid],
-                                          xi[row0:row0 + valid], tab,
-                                          inverse)
+        blk = torch.zeros(r, n2, dtype=torch.complex64)
+        blk[:valid] = x[row0:row0 + valid]
+        v = _step3_rows(blk, tab, inverse)
         # each block of the cluster writes its stage; the runs read them
         cols = torch.arange(r)[None, :]
         q, cb = cols // rb, cols % rb
         st_r = torch.empty(g["C"], n2 * rb)
         st_i = torch.empty(g["C"], n2 * rb)
         at = step3_at(g, k, cb).expand(n2, r)
-        st_r[q.expand(n2, r), at] = vr.t()
-        st_i[q.expand(n2, r), at] = vi.t()
+        st_r[q.expand(n2, r), at] = v.real.t()
+        st_i[q.expand(n2, r), at] = v.imag.t()
         rr = row0 + torch.arange(valid)
         base = (rr // n1) * n2 * n1 + rr % n1
         dst = base[None, :] + k * n1
@@ -1127,21 +1153,21 @@ def step3_ways(n2: int) -> dict:
     """Wavefronts per warp instruction on a block's stage of step 3
     (:func:`step3_geometry`): "put", the row core's output writes (thread
     (g, t) = (tid // P, tid % P) writes element e = t + q P + k n2/R_last
-    of row g), and "get", the runs' reads (thread tid reads column
-    c = tid mod R of element k = tid // R + i NT / R, from the stage of
-    block c // RB, counted on each block it reads). 1 means free of bank
-    conflicts."""
+    of row g; at a mixed n2, R_last = V: e = t + k P), and "get", the
+    runs' reads (thread tid reads column c = tid mod R of element
+    k = tid // R + i NT / R, i < n2 / P, from the stage of block c // RB,
+    counted on each block it reads). 1 means free of bank conflicts."""
     g = step3_geometry(n2)
-    p, r, rb = g["P"], g["R"], g["RB"]
+    p, r, rb, nv = g["P"], g["R"], g["RB"], g["V"]
     tid = np.arange(g["threads"])
     row, t = tid // p, tid % p
     rl, _ = passes(n2)[-1]
     put = max(_ways(step3_at(g, t + q * p + kk * (n2 // rl), row)
                     .reshape(-1, 32).tolist())
-              for q in range(E // rl) for kk in range(rl))
+              for q in range(nv // rl) for kk in range(rl))
     c = tid % r
     get = 1
-    for i in range(E):
+    for i in range(n2 // p):
         addr = step3_at(g, tid // r + i * (g["threads"] // r), c % rb)
         for w in range(g["threads"] // 32):
             sel = slice(32 * w, 32 * w + 32)

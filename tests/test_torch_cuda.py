@@ -1133,10 +1133,12 @@ def _pair_core(monkeypatch, dense):
 # (B, n1, n2): the small case, the main path's splits (2^20, 8 x 2^20,
 # 2^22, 2^24 on the 4096 column and step 3's clusters, and the inner 2^21
 # of 3g's prime on step 1's half tile), few lanes at n1 = 4096, few rows
-# at n2 = 4096, the mixed splits of 3 * 2^18
+# at n2 = 4096, the mixed splits of 3 * 2^18, 3 * 2^20, 5 * 2^20 and
+# 5 * 2^21
 PAIR_SHAPES = [(3, 128, 256), (1, 1024, 1024), (8, 1024, 1024),
                (1, 2048, 2048), (1, 4096, 4096), (1, 1024, 2048),
-               (1, 4096, 40), (3, 12, 4096), (1, 1024, 768), (1, 768, 1024)]
+               (1, 4096, 40), (3, 12, 4096), (1, 1024, 768), (1, 768, 1024),
+               (1, 1536, 2048), (1, 2048, 2560), (1, 2560, 4096)]
 
 
 @pytest.mark.cuda
@@ -1179,18 +1181,59 @@ def test_cuda_step1_caller_table_cores(cuda_dev, monkeypatch, dense):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", REG_LENGTHS + [96, 320])
-def test_cuda_pair_every_length(cuda_dev, n):
-    # each register length on each side: step 1 over a ragged lane tile
-    # (40 lanes), step 3 over 15 rows (R need not divide n1 = 5: a
-    # block's rows span batches)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", REG_LENGTHS + MIX_LENGTHS)
+def test_cuda_pair_every_length(cuda_dev, n, inverse):
+    # each register length on each side, the mixed ones on
+    # csrc/fourstep_mix.cu: step 1 over a ragged lane tile (40 lanes),
+    # step 3 (the other direction) over 15 rows (R need not divide n1 = 5:
+    # a block's rows span batches); each launches the register core and
+    # never the plain version
     _card_check(fs._step1_twiddle,
-                lambda f, x: f(*x, n, 40, None, False, scale=0.25),
+                lambda f, x: f(*x, n, 40, None, inverse, scale=0.25),
                 (2, n, 40), cuda_dev)
-    assert fs._step1_twiddle.reg_launches == int(ff._reg_core(n))
+    assert fs._step1_twiddle.reg_launches == fs._step1_twiddle.launches == 1
     _card_check(fs._step3_transposed,
-                lambda f, x: f(*x, 5, n, None, True), (3, 5, n), cuda_dev)
-    assert fs._step3_transposed.reg_launches == int(ff._reg_core(n))
+                lambda f, x: f(*x, 5, n, None, not inverse), (3, 5, n),
+                cuda_dev)
+    assert (fs._step3_transposed.reg_launches
+            == fs._step3_transposed.launches == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3 * 2 ** 18, 3 * 2 ** 20, 5 * 2 ** 20])
+def test_cuda_mixed_pair_never_plain(cuda_dev, n):
+    # a split with a mixed side counts a register launch of each kernel and
+    # no plain call, and the transform agrees with complex128 torch.fft
+    x = _pair((1, 1, n), cuda_dev, seed=31)
+    p = ot.plan((1, 1, n), "complex64", planar=True)
+    ff.reset_counts()
+    yr, yi = p(x)
+    torch.cuda.synchronize()
+    for k in (fs._step1_twiddle, fs._step3_transposed):
+        assert k.reg_launches == k.launches == 1 and k.plain_calls == 0
+    ref = torch.fft.fft(torch.complex(x[0].double(), x[1].double()))
+    assert _rel(torch.complex(yr, yi).to(torch.complex128), ref) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3072, 144, 6144])
+def test_cuda_pair_register_core_refuses_other_lengths(cuda_dev, n):
+    # the C entry points' register branch takes no length the register
+    # core lacks: it returns an error, never a silent dense run
+    x = _pair((1, 2, n), cuda_dev)
+    y = [torch.empty_like(t) for t in x]
+    stages = ff._stages(n, None)
+    tab = ff._tables(None, cuda_dev).get("core", n, stages, False, 1.0)
+    with pytest.raises(RuntimeError):
+        ff._launch("offt_step3_transposed", (*x, *y), (tab,),
+                   [2, 2, n, *ff._radix_args(stages), 0, 0, 1])
+    xt = _pair((1, n, 2), cuda_dev)
+    yt = [torch.empty_like(t) for t in xt]
+    tw = torch.zeros((n, 2, 2), device=cuda_dev)
+    with pytest.raises(RuntimeError):
+        ff._launch("offt_step1_twiddle", (*xt, *yt), (tab, tw),
+                   [1, n, 2, *ff._radix_args(stages), 0, 0, 1, 1])
 
 
 @pytest.mark.cuda
@@ -1362,7 +1405,8 @@ def test_cuda_one_rank_mesh_gradients(nccl_world):
 @pytest.mark.parametrize("n1,n2,p,rank", [(4096, 4096, 4, 1),
                                           (1024, 1024, 4, 1),
                                           (512, 512, 4, 3),
-                                          (32, 128, 4, 2)])
+                                          (32, 128, 4, 2),
+                                          (768, 1024, 4, 1)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cuda_fourstep_pair_at_shard_shapes(cuda_dev, n1, n2, p, rank,
                                             inverse):

@@ -89,10 +89,10 @@ GEOMETRIES = ["pitched in", "pitched out", "nd", "alias"]
 def test_reg_axis_predicate(n):
     """Powers of two in [16, 4096] and the mixed lengths 3 2^k, 5 2^k
     (the 320^3 and 192^3 x passes among them) take the column variant;
-    the rest keep the dense core. The row kernels' predicate stays on
-    powers of two."""
+    the rest keep the dense core. The four-step pair's predicate takes
+    the same lengths."""
     assert ff._reg_axis(n) is (n in LENGTHS or n in (96, 320, 192))
-    assert ff._reg_core(n) is (n in LENGTHS)
+    assert ff._reg_core(n) is (n in LENGTHS or n in (96, 320, 192))
 
 
 def test_main_path_x_passes_route_to_the_register_core():

@@ -77,13 +77,12 @@ def packed_truth(x):
 @pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
                                8, 320, 129, 96, 8192, 0, 48, 4095])
 def test_reg_core_predicate(n):
-    """``_reg_core`` (the r2c and c2r rows, the four-step pair) takes
-    powers of two in [16, 4096]; the replay's schedule also has the mixed
-    lengths (320, 96, 48: radix 4 first), whose row layout is the mixed
-    rows' (``fft_last`` and the c2c slab's z rows, ``_reg_rows``), and no
-    other."""
+    """``_reg_core`` (the four-step pair) takes powers of two in [16,
+    4096] and the mixed lengths (320, 96, 48: radix 4 first), whose row
+    layout is the mixed rows' (``fft_last`` and the c2c slab's z rows,
+    ``_reg_rows``); the replay's schedule has no other."""
     want = n in LENGTHS
-    assert ff._reg_core(n) is want
+    assert ff._reg_core(n) is (want or n in ff._MIX_LENGTHS)
     if want:
         assert rc.passes(n)[0] == (16, 1)
     elif n in ff._MIX_LENGTHS:

@@ -191,12 +191,13 @@ def test_plain_versions_agree_with_the_replays(n1, n2):
 # ---- routing, the tile picker, the stage -------------------------------------
 
 @pytest.mark.parametrize("n1,n2,cores", [
-    (1024, 1024, (True, True)), (1024, 768, (True, False)),
-    (768, 1024, (False, True)), (4096, 4096, (True, True)),
+    (1024, 1024, (True, True)), (1024, 768, (True, True)),
+    (768, 1024, (True, True)), (4096, 4096, (True, True)),
     (128, 256, (True, True))])
 def test_each_kernel_routes_on_its_own_length(n1, n2, cores):
-    """3 * 2^18 splits as (1024, 768): step 1 on the register core, step 3
-    dense; the other order the other way round."""
+    """3 * 2^18 splits as (1024, 768): step 1 on the register core at a
+    power of two, step 3 on its mixed instances; the other order the
+    other way round."""
     assert (ff._reg_core(n1), ff._reg_core(n2)) == cores
 
 

@@ -207,10 +207,11 @@ def test_plain_versions_agree_with_the_mixed_rows(m):
 def test_real_rows_predicate(m):
     """``_reg_real_rows``: the powers of two in [16, 4096] and the mixed
     row lengths; 72, 144, 360 (factors 3^2, 15) and 6144 stay dense.
-    ``_reg_core`` keeps the four-step pair's powers of two alone."""
+    ``_reg_core``, the four-step pair's, takes the mixed lengths but
+    3072."""
     pow2 = m & (m - 1) == 0 and 16 <= m <= 4096
     assert ff._reg_real_rows(m) is (pow2 or m in ff._MIX_ROW_LENGTHS)
-    assert ff._reg_core(m) is pow2
+    assert ff._reg_core(m) is (pow2 or m in ff._MIX_LENGTHS)
 
 
 @pytest.mark.parametrize("m", [*ROWS, 72, 256])

@@ -312,9 +312,9 @@ def test_kernels_without_mixed_rows_stay_dense(monkeypatch):
     """Kernels with no mixed instance keep the dense core: the r2c and c2r
     rows at M = 72 (3^2 8; the mixed real rows take 3 2^k and 5 2^k), the
     r2c and c2r slabs at (320, 72) (at (320, 160) both halves have mixed
-    instances, and they take the register core) and step 3 on 3 * 2^18's
-    768 side (``_reg_core``, the four-step pair's), step 1 at 1024 the
-    register one."""
+    instances, and they take the register core) and step 3 on 3 * 2^21's
+    3072 side (``_reg_core``, the four-step pair's: the transposing store
+    has no instance at P = 256), step 1 at 1024 the register one."""
     calls = _launches(monkeypatch)
     ff.rfft_last_planar.impl("kernel", torch.zeros((3, 144)))
     ff.icrfft_last_planar.impl("kernel", torch.zeros((3, 72)),
@@ -322,10 +322,10 @@ def test_kernels_without_mixed_rows_stay_dense(monkeypatch):
     ff.rfft_slab_yz.impl("kernel", torch.zeros((2, 320, 144)))
     ff.irfft_slab_yz.impl("kernel", torch.zeros((2, 320, 80)),
                           torch.zeros((2, 320, 80)), 144)
-    z = torch.zeros((1, 1024, 768))
-    fs._step1_twiddle.impl("kernel", z, z, 1024, 768, None, False,
+    z = torch.zeros((1, 1024, 3072))
+    fs._step1_twiddle.impl("kernel", z, z, 1024, 3072, None, False,
                            tile="wide")
-    fs._step3_transposed.impl("kernel", z, z, 1024, 768, None, False)
+    fs._step3_transposed.impl("kernel", z, z, 1024, 3072, None, False)
     regs = {entry: args for entry, args in calls}
     assert regs["offt_rfft_last"][-1] == 0
     assert regs["offt_icrfft_last"][-1] == 0

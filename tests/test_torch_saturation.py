@@ -38,8 +38,10 @@ def test_expert_points_follow_the_space():
         assert sat.expert_points(shape, real=real, device="cuda") == [
             default_params(ProblemSpec(shape=shape, real=real))]
     split = sat.expert_points((1, 1, 3 << 18), device="cuda")
-    # 3 block sizes x 4 splits (radix_z is not searched there)
-    assert len(split) == 12 and len({p.split_1d for p in split}) == 4
+    # 4 splits alone: radix_z is not searched there, nor block_batch (its
+    # default split runs both kernels on the register core)
+    assert len(split) == 4 and len({p.split_1d for p in split}) == 4
+    assert {p.block_batch for p in split} == {split[0].block_batch}
 
 
 def test_shapes_in_sweep_order():

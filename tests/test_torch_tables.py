@@ -251,7 +251,8 @@ def test_kernel_sources_are_listed():
                      "fft_axis.cu", "fft_axis_mix.cu", "fft_slab.cu",
                      "rfft_slab.cu",
                      "irfft_slab.cu", "assemble_mp1.cu", "rfft_last.cu",
-                     "fourstep.cu", "icrfft_last.cu", "fft_cube.cu",
+                     "fourstep.cu", "fourstep_mix.cu", "icrfft_last.cu",
+                     "fft_cube.cu",
                      "fft_cube_regs.cu", "probe_mma.cu"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for info in fused_fft.KERNELS.values():

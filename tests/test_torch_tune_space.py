@@ -24,7 +24,8 @@ CASES = [
       "block_batch": NO_BLOCK, "slab_rows": UNREAD, "precision": F32, "use_pallas": PLAIN}),
     ((1, 1, 3 * 2 ** 18), False, 1,
      {"radix_z": FOURSTEP, "radix_y": ONE_VALUE, "radix_x": ONE_VALUE,
-      "slab_rows": UNREAD, "precision": F32, "use_pallas": PLAIN}),
+      "block_batch": NO_BLOCK, "slab_rows": UNREAD, "precision": F32,
+      "use_pallas": PLAIN}),
     ((1, 1, 2 ** 20), False, 1,
      {"radix_z": FOURSTEP, "radix_y": ONE_VALUE, "radix_x": ONE_VALUE,
       "block_batch": NO_BLOCK, "slab_rows": UNREAD, "precision": F32, "use_pallas": PLAIN}),
@@ -118,13 +119,15 @@ def test_kernel_dimensions_follow_the_device():
 
 
 @pytest.mark.parametrize("n,searched", [
-    (3 * 2 ** 18, True), (3 * 2 ** 16, False), (5 * 2 ** 14, False)])
+    (3 * 2 ** 18, False), (3 * 2 ** 16, False), (3 * 2 ** 22, True)])
 def test_block_batch_beside_split_1d(n, searched):
     """Beside split_1d, block_batch is searched only where a kernel of
-    the pair runs dense at every split searched: at 3 * 2^18 every split
-    has a side of 3 * 2^k, which the dense core takes; at 3 * 2^16 and
-    5 * 2^14 some split puts both kernels on the register core, whose
-    points would time the same kernels at every block_batch."""
+    the pair runs dense at every split searched: at 3 * 2^18 and 3 * 2^16
+    some split (their default ones among them) puts both kernels on the
+    register core, which takes the mixed sides, so its points would time
+    the same kernels at every block_batch; at 3 * 2^22 every split has a
+    side of 3072 or past 4096, which the dense core takes."""
+    from offt_tpu_torch.kernels import fourstep as fs
     from offt_tpu_torch.plan.params import ProblemSpec
     from offt_tpu_torch.tune import build_space
     from offt_tpu_torch.tune.space import (_pair_dense, _split1d_candidates,
@@ -132,7 +135,9 @@ def test_block_batch_beside_split_1d(n, searched):
 
     spec = ProblemSpec(shape=(1, 1, n))
     splits = _split1d_candidates(spec)[1:]
-    assert "block_batch" in kernel_knobs(spec)       # at the default split
+    # at the default split
+    assert ("block_batch" in kernel_knobs(spec)) is searched
+    assert _pair_dense(*fs.pick_split(n)) is searched
     assert all(_pair_dense(*sp) for sp in splits) == searched
     names = build_space(spec, device="cuda").names
     assert names == (("split_1d", "block_batch") if searched
@@ -149,7 +154,7 @@ def test_block_batch_beside_split_1d(n, searched):
     ((320, 320, 320), False, False, set()),
     ((24, 48, 40), False, False, {"radix_z", "radix_y", "radix_x",
                                   "block_batch"}),
-    ((1, 1, 3 * 2 ** 18), False, False, {"block_batch"}),
+    ((1, 1, 3 * 2 ** 18), False, False, set()),
     ((1, 1, 2 ** 20), False, False, set()),
     ((1, 1, 1000003), False, False, {"radix_z"}),
     ((1, 1, 2 ** 15), False, False, set()),
@@ -162,8 +167,8 @@ def test_kernel_knobs(shape, real, inverse, want):
     runs rfft_last at M = 72 (3^2 8) on the dense core, its axes of 160 on
     the mixed register columns, so it reads radix_z alone; lengths under 16
     and the rows of 40 (a factor 5 below the mixed lengths) run dense,
-    so the (48, 40) slab does; 3 * 2^18's pair runs step 3 dense at 768,
-    2^15's pair (128, 256) and 2^20's on the register core; a prime takes
+    so the (48, 40) slab does; 3 * 2^18's pair (1024, 768), 2^15's
+    (128, 256) and 2^20's run on the register core; a prime takes
     Bluestein on the unfused engine; an x of 8 runs dense, but on the
     pitched pass (the stride gate at (64, 2^15)), which takes no
     block_batch."""
