@@ -55,12 +55,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    stage against float64 (the largest of 12 draws) within its ceiling
    (``probe_mxuwidth.CEILING``), and the r2c slab's wider-tile codes
    (``bench/probe_ryconcat.py``: y16, y32, grids_wide) against its full
-   kernel at 512^3 (1e-6);
+   kernel at 512^3 (1e-6); and the register core at the 5-smooth lengths
+   with an odd part of 9, 15, 25 or 45 (``csrc/fft_smooth.cuh``:
+   ``smooth_checks``, after the others, so that they keep their draws):
+   ``fft_last`` at every row length
+   (``fused_fft._SMOOTH_LENGTHS``) forward and in place inverse,
+   ``fft_sublane`` at every column length (``_SMOOTH_COL_LENGTHS``, on
+   the lane tile ``_axis_tile`` picks) both ways, the pitched x passes at
+   360 and 960, and the c2c slab at (4, 360, 360), (2, 960, 720) and
+   (3, 144, 144) in place, each one register-core launch;
 3. the paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
    and read just after:
-   a. the planar c2c path (``fftn``; 320^3 forward and inverse);
+   a. the planar c2c path (``fftn``; 320^3 forward and inverse); and at
+      the smooth sides, each case in a counter window of its own and
+      timed (CUDA events, the host ahead) beside ``torch.fft`` and beside
+      the dense core on the same data (``smooth_phase``): 360^3 forward,
+      inverse and an ortho round trip, 720^3 forward, 960^3 forward and
+      inverse (7.1 GB a planar pair; the complex128 reference compared a
+      slab at a time) and 64 x 720^2 (a (1, 720, 720) plan on one batch
+      dim, ``fft2``);
    b. the packed r2c/c2r path (``real=True``, numpy and packed layouts,
       256^3, 512^3 and 768^3, whose slabs have a mixed (Y, M) = (768,
       384); ``rfftn`` / ``irfftn``);
@@ -123,9 +138,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       by CUDA events, the plan cache in a temporary directory: a brute
       force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d
       alone: its default split runs both kernels on the register core),
-      Nelder-Mead over 144^3 r2c's (the radices and
+      Nelder-Mead over (112, 112, 144) r2c's (the radices and
       block_batch of the dense rfft_last at M = 72 and of the dense axes
-      of 144; 12 trials), and 256^3 c2c, whose space is
+      of 112; 12 trials; 144^3 until its axes of 144 took the smooth
+      columns), and 256^3 c2c, whose space is
       empty (nothing to search: the default point timed); each with its
       space, trials, default and best time, speedup and winner, best <=
       default after the refinement pass, the winner read back from the
@@ -176,8 +192,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    on the mixed-radix column variant, in place, the 64 x 1024^2 y pass),
    of 3b (the c2r's ``fft_x_to_padded`` among them) and every axis pass
    of 3d (192^3's and 320^3's among them), ``irfft_slab`` on 3b's 256^3,
-   512^3 and 768^3 c2r, ``icrfft_last`` on every packed c2r of 3e (192^3's
-   among them), and ``step1_twiddle``
+   512^3 and 768^3 c2r, every ``fft_last``, ``fft_slab`` and ``fft_axis``
+   launch of 3a's smooth windows, ``icrfft_last`` on every packed c2r of
+   3e (192^3's among them), and ``step1_twiddle``
    / ``step3_transposed`` on every split of 3c (the mixed sides of 3 *
    2^18, 3 * 2^20, 5 * 2^20 and 5 * 2^21 among them, each also in its own
    window) and throughout 3d and 3g, and the
@@ -278,7 +295,11 @@ the dense core's time at the same shape (the pair's two rows also
 ``fft_last``, ``fft_slab``, ``rfft_last`` and ``icrfft_last`` also
 ``mixed``: the same numbers at their mixed-length shape, (102400, 320),
 (320, 320, 320), (36864, 192) (numpy layout; ``mixed_packed`` the packed
-one) and (36864, 96); ``step1_twiddle`` ``mixed`` at (1, 1536, 2048)
+one) and (36864, 96); ``fft_last``, ``fft_slab`` and ``fft_axis`` also
+``smooth`` and ``smooth_960``: (129600, 360) and (9600, 960), the 360^3
+slab and 16 x-rows of the 960^3 one, the x pass of 360^3 and of 960
+over (64, 960) lanes (``fft_x_from_padded``, 8 pad lanes);
+``step1_twiddle`` ``mixed`` at (1, 1536, 2048)
 (3 * 2^20's step 1) and ``mixed_2560`` at (1, 2560, 4096) (5 * 2^21's),
 ``step3_transposed`` ``mixed`` at (1, 2048, 2560) (5 * 2^20's step 3),
 their library ``fft`` of the whole 1-D; ``rfft_slab`` and
@@ -422,7 +443,10 @@ SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 # layouts), 192^3's packed c2r z stage on a 1 x 1 mesh, the r2c and c2r
 # slabs of 768^3 (the whole cube, zpad 8) and of 16 x-rows of 1280^3, and
 # the four-step pair's mixed sides: step 1 of 3 * 2^20 and of 5 * 2^21,
-# step 3 of 5 * 2^20
+# step 3 of 5 * 2^20; and the smooth lengths (csrc/fft_smooth.cuh): the
+# 360^3 slab's z rows, the 360^3 slab, its x pass (fft_x_from_padded, the
+# main shape's wrapper: 360 lanes of 368), and at 960 rows, 16 x-rows of
+# the 960^3 slab and an x pass of 960 over (64, 960) lanes
 MIXED_SHAPES = {
     "step1_twiddle": {
         "mixed": ((1, 1536, 2048),
@@ -431,8 +455,14 @@ MIXED_SHAPES = {
                        lambda f, x: f(*x, 2560, 4096, None, False))},
     "step3_transposed": {"mixed": ((1, 2048, 2560), lambda f, x: f(
         *x, 2048, 2560, None, False))},
-    "fft_last": {"mixed": ((102400, 320), lambda f, x: f(*x))},
-    "fft_slab": {"mixed": ((320, 320, 320), lambda f, x: f(*x))},
+    "fft_last": {"mixed": ((102400, 320), lambda f, x: f(*x)),
+                 "smooth": ((129600, 360), lambda f, x: f(*x)),
+                 "smooth_960": ((9600, 960), lambda f, x: f(*x))},
+    "fft_slab": {"mixed": ((320, 320, 320), lambda f, x: f(*x)),
+                 "smooth": ((360, 360, 360), lambda f, x: f(*x)),
+                 "smooth_960": ((16, 960, 960), lambda f, x: f(*x))},
+    "fft_axis": {"smooth": ((360, 360, 368), lambda f, x: f(*x, 360)),
+                 "smooth_960": ((960, 64, 968), lambda f, x: f(*x, 960))},
     "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
                   "mixed_packed": ((36864, 192),
                                    lambda f, x: f(x[0], packed=True))},
@@ -474,6 +504,179 @@ def _dense_core(ff):
     finally:
         for k, f in zip(names, keep):
             setattr(ff, k, f)
+
+
+# ---- 2 and 3a at the smooth lengths (csrc/fft_smooth.cuh) ------------------
+
+def smooth_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL) -> dict:
+    """The register core at the 5-smooth lengths with an odd part of 9,
+    15, 25 or 45 against its plain version: ``fft_last`` at every row
+    length (``fused_fft._SMOOTH_LENGTHS``), ``fft_sublane`` at every column
+    length (``_SMOOTH_COL_LENGTHS``, on the lane tile ``_axis_tile``
+    picks) over a ragged last tile, each forward and inverse, scaled (the
+    inverse rows in place); ``fft_x_from_padded`` and ``fft_x_to_padded``
+    at 360 and 960; the c2c slab at (4, 360, 360), (2, 960, 720) inverse
+    with zpad 8, and (3, 144, 144) in place. Each must launch the register
+    core once and agree within ``tol`` (max |k - p| / max |p|). Returns
+    {kernel: max |k - p|}."""
+    def pair(shape):
+        return (torch.randn(shape, generator=gen, device=device),
+                torch.randn(shape, generator=gen, device=device))
+
+    cases = []
+    for n in sorted(ff._SMOOTH_LENGTHS):
+        b = max(37, (1 << 18) // n)
+        cases += [("fft_last", ff.fft_last, lambda f, x: f(*x, scale=0.5),
+                   (b, n), None),
+                  ("fft_last", ff.fft_last,
+                   lambda f, x, n=n: f(x[0].clone(), x[1].clone(),
+                                       inverse=True, scale=1 / n,
+                                       alias=True), (b, n), None)]
+    for n in sorted(ff._SMOOTH_COL_LENGTHS):
+        cases += [("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1),
+                   (3, n, 200), None),
+                  ("fft_axis", ff.fft_sublane,
+                   lambda f, x: f(*x, 1, inverse=True, scale=0.5),
+                   (3, n, 200), None)]
+    for n in (360, 960):
+        cases += [("fft_axis", ff.fft_x_from_padded,
+                   lambda f, x: f(*x, 128, scale=0.25), (n, 6, 136), None),
+                  ("fft_axis", ff.fft_x_to_padded,
+                   lambda f, x: f(*x, z_true=128, inverse=True),
+                   (n, 6, 129), 128)]
+    cases += [("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x),
+               (4, 360, 360), None),
+              ("fft_slab", ff.fft_slab_yz,
+               lambda f, x: f(*x, zpad=8, inverse=True, scale=1 / 691200),
+               (2, 960, 720), 720),
+              ("fft_slab", ff.fft_slab_yz,
+               lambda f, x: f(x[0].clone(), x[1].clone(), scale=0.5,
+                              alias=True), (3, 144, 144), None)]
+    errs = {}
+    for name, fn, call, shape, lanes in cases:
+        x = pair(shape)
+        want = call(fn.plain, x)
+        ff.reset_counts()
+        got = call(fn, x)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        reg = ff.kernel_launches(name, reg=True)
+        rel, absd = _max_err(got, want, lanes)
+        print(f"check {name} via {fn.__name__} {shape} (smooth) [register "
+              f"core{', two grids' if name == 'fft_slab' else ''}]: "
+              f"max rel err {rel:.3e}, max abs err {absd:.3e} (tol "
+              f"{tol:g}) {tag}", flush=True)
+        if device == "cuda" and reg != 1:
+            raise AssertionError(f"{name} {shape}: {reg} register-core "
+                                 "launches, want 1")
+        if rel > tol:
+            raise AssertionError(f"{name} {shape} disagrees with its plain "
+                                 "version")
+        errs[name] = max(errs.get(name, 0.0), absd)
+        del x, want, got
+    return errs
+
+
+# 3a's cases at the smooth sides: (label, shape, batch dims, inverse, norm);
+# inverse "rt" is the ortho inverse of the ortho forward, in one window
+SMOOTH_C2C = (
+    ("360^3 fwd", (360, 360, 360), 0, False, None),
+    ("360^3 inv", (360, 360, 360), 0, True, None),
+    ("360^3 ortho round trip", (360, 360, 360), 0, "rt", "ortho"),
+    ("720^3 fwd", (720, 720, 720), 0, False, None),
+    ("960^3 fwd", (960, 960, 960), 0, False, None),
+    ("960^3 inv", (960, 960, 960), 0, True, None),
+    ("fft2d 64x720^2", (64, 1, 720, 720), 1, False, None),
+)
+
+
+def _rel_err_chunked(yr, yi, ref) -> float:
+    """||y - ref|| / ||ref|| of a planar pair against a complex128 ``ref``,
+    a slab of the first axis at a time (a 960^3 pair and its reference
+    leave no room for a whole complex128 difference)."""
+    num = den = 0.0
+    step = max(1, yr.shape[0] // 16)
+    for i in range(0, yr.shape[0], step):
+        y = torch.complex(yr[i:i + step].double(), yi[i:i + step].double())
+        if not torch.isfinite(y).all():
+            raise AssertionError("non-finite transform output")
+        r = ref[i:i + step]
+        num += torch.linalg.vector_norm(y - r).item() ** 2
+        den += torch.linalg.vector_norm(r).item() ** 2
+    return (num / den) ** 0.5
+
+
+def smooth_phase(ot, ff, gen, window, tag, time_cuda=None,
+                 cases=SMOOTH_C2C, device="cuda", tol=TOL_PATH) -> tuple:
+    """3a at the smooth sides: each case of ``cases`` through ``ot.plan``
+    (planar c2c; the 2-D batch a (1, Y, N) plan on one batch dim) in a
+    counter window of its own (``window``), against complex128
+    ``torch.fft`` on the same device (``tol``); with ``time_cuda`` each
+    timed (CUDA events, the host ahead) beside ``torch.fft.fftn`` of the
+    complex64 data and beside the dense core on the same data
+    (``_dense_core``). Returns ({label: (reading, kernels)}, {label:
+    times})."""
+    runs, times = {}, {}
+    for label, shape, bd, inv, norm in cases:
+        xr, xi = (torch.randn(shape, generator=gen, device=device)
+                  for _ in range(2))
+        dims = tuple(range(len(shape) - 3, len(shape)))
+        pf = ot.plan(shape[bd:], "complex64", planar=True,
+                     inverse=inv is True, norm=norm, batch_dims=bd,
+                     device=device)
+        if inv == "rt":
+            def run(pf=pf, xr=xr, xi=xi, pi=ot.plan(
+                    shape[bd:], "complex64", planar=True, inverse=True,
+                    norm=norm, batch_dims=bd, device=device)):
+                return pi(pf((xr, xi)))
+        else:
+            def run(pf=pf, xr=xr, xi=xi):
+                return pf((xr, xi))
+        (yr, yi), reading = window(run)
+        kernels = tuple(k for k in ("fft_last", "fft_slab", "fft_axis")
+                        if reading[1][k])
+        runs[f"smooth {label}"] = (reading, kernels)
+        x = torch.complex(xr.double(), xi.double())
+        if inv == "rt":
+            ref = x
+        else:
+            f = torch.fft.ifftn if inv else torch.fft.fftn
+            ref = f(x, dim=dims, norm=norm)
+            del x
+        if tuple(yr.shape) != shape:
+            raise AssertionError(f"{label}: shape {tuple(yr.shape)}")
+        err = _rel_err_chunked(yr, yi, ref)
+        del ref, yr, yi
+        print(f"path {label} (smooth): rel err vs complex128 fftn "
+              f"{err:.3e} (tol {tol:g}) {tag}", flush=True)
+        if err > tol:
+            raise AssertionError(f"{label}: error {err:.3e}")
+        if time_cuda is not None:
+            t_k = time_cuda(run, ahead=True)["median_ms"]
+            with _dense_core(ff):
+                t_d = time_cuda(run, ahead=True)["median_ms"]
+            xc = torch.complex(xr, xi)
+            del xr, xi
+            lib = torch.fft.ifftn if inv is True else torch.fft.fftn
+            if inv == "rt":
+                def lib_run(xc=xc):
+                    return torch.fft.ifftn(torch.fft.fftn(
+                        xc, dim=dims, norm=norm), dim=dims, norm=norm)
+            else:
+                def lib_run(xc=xc, lib=lib):
+                    return lib(xc, dim=dims, norm=norm)
+            t_l = time_cuda(lib_run, ahead=True)["median_ms"]
+            del xc
+            times[label] = {"ms": t_k, "library_ms": t_l, "dense_ms": t_d}
+            print(f"time {label} (smooth) {shape}: the port {t_k:.4f} ms, "
+                  f"torch.fft {t_l:.4f} ms ({t_k / t_l:.2f}x cuFFT), the "
+                  f"dense core {t_d:.4f} ms ({t_d / t_k:.2f}x the port) "
+                  f"{tag}", flush=True)
+        # the case's inputs go with its closures before the next case's
+        del run, pf
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return runs, times
 
 
 # ---- 3h: gradients through the plans (the backward path) -------------------
@@ -1136,9 +1339,10 @@ TUNE_CASES = (
     ("a", (1, 1, 3 * 2 ** 18), False, "brute", None, None,
      ("step1_twiddle", "step3_transposed")),
     # a real route whose rfft_last runs the dense core (M = 72, 3^2 8: no
-    # mixed real rows) and its axes (144) too, so that radix_z, radix_y,
-    # radix_x and block_batch are searched
-    ("b", (144, 144, 144), True, "nm", 12, None, ("rfft_last", "fft_axis")),
+    # real rows there) and its axes (112 = 7 16: no register schedule) too,
+    # so that radix_z, radix_y, radix_x and block_batch are searched (144^3
+    # until the smooth columns took its axes of 144)
+    ("b", (112, 112, 144), True, "nm", 12, None, ("rfft_last", "fft_axis")),
     # every kernel on the register core: the card's space is empty, and
     # the default point is timed
     ("c", (256, 256, 256), False, "nm", None, None,
@@ -2146,6 +2350,11 @@ def main() -> int:
         raise AssertionError(f"kernels without a check: {sorted(missing)}")
     # the probes: probe_mma's variants, the r2c slab's wider-tile codes
     probe_errs = probe_checks(ff, pm, pr, sms, tag)
+    # the smooth rows and columns (csrc/fft_smooth.cuh) at every length,
+    # after the checks above, which keep their draws
+    for name, err in smooth_checks(ff, gen, tag).items():
+        per_kernel[name]["max_abs_err"] = max(
+            per_kernel[name]["max_abs_err"], err)
 
     # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
@@ -2204,6 +2413,10 @@ def main() -> int:
         del ref
     del results, inputs
     torch.cuda.empty_cache()
+    # 3a at the smooth sides (360^3, 720^3, 960^3, 64 x 720^2), each case
+    # in a counter window of its own, timed beside cuFFT and the dense core
+    smooth_runs, smooth_times = smooth_phase(
+        ot, ff, gen, lambda fn: _window(ff, fn), tag, time_cuda)
 
     # ---- 3b. the r2c / c2r main path through plan(real=True) --------------
     real_cases = [
@@ -2681,7 +2894,8 @@ def main() -> int:
                     "mesh_namespace": ("step1_twiddle", "step3_transposed",
                                        "fft_last", "fft_axis", "rfft_last")}
     for label, (reading, kernels) in {**grad_runs, **tune_runs,
-                                      **bench_runs}.items():
+                                      **bench_runs,
+                                      **smooth_runs}.items():
         runs[label] = reading
         path_kernels[label] = kernels
     for path, (counts, launched, regs) in runs.items():
@@ -2772,6 +2986,18 @@ def main() -> int:
           f"y pass), on 3b ({ax_r_reg} of {ax_r}) and on 3d ({ax_l_reg} of "
           f"{ax_l}: 256^3, 192^3 and 320^3); irfft_slab on 3b ({ir_reg} "
           f"of {ir}: 256^3, 512^3 and 768^3)")
+    # 3a at the smooth sides: every fft_last, fft_slab and fft_axis launch
+    # of each case on the register core (the smooth rows and columns)
+    for label in smooth_runs:
+        launched, regs = runs[label][1], runs[label][2]
+        off = {k: (regs[k], launched[k]) for k in
+               ("fft_last", "fft_slab", "fft_axis") if regs[k] != launched[k]}
+        if off or not launched["fft_axis"]:
+            raise AssertionError(f"{label}: not on the register core "
+                                 f"(register, launches): {off}")
+        print(f"register core: {label}: " + ", ".join(
+            f"{k} {regs[k]} of {launched[k]}" for k in
+            ("fft_last", "fft_slab", "fft_axis") if launched[k]))
     # the 1 x 1 mesh's packed c2r stages (256^3, 512^3, 192^3: M = 128,
     # 256, 96) on the register core's c2r rows, and its r2c z stages
     # (rfft_last at the same M) on its r2c rows
@@ -3467,7 +3693,7 @@ def main() -> int:
                 z_ms = time_cuda(ff.fft_last, tuple(
                     t.view(-1, shp[-1]) for t in xm), ahead=True)
                 y_ms = time_cuda(ff.fft_sublane, (*xm, 1), ahead=True)
-                print(f"kernel fft_slab {shp} (mixed), its grids alone: z "
+                print(f"kernel fft_slab {shp} ({what}), its grids alone: z "
                       f"rows (fft_last) {z_ms['median_ms']:.4f} ms, y lines "
                       f"(fft_sublane axis 1) {y_ms['median_ms']:.4f} ms "
                       f"{tag}", flush=True)

@@ -95,7 +95,7 @@ def signal(n: int, mesh, dev) -> dict:
 def main(argv=None) -> int:
     import torch.distributed as dist
 
-    from offt_tpu_torch.dist import make_mesh
+    from offt_tpu_torch.dist import make_mesh, quiesce
 
     ns = parser(__doc__, log2n=18).parse_args(argv)
     device(ns.device)
@@ -115,6 +115,8 @@ def main(argv=None) -> int:
         say(f"denoised rel err vs pure tones: {r['err']:.2e}")
         assert r["err"] < TOL, r["err"]
         say("OK")
+        if owned:
+            quiesce()
     finally:
         if owned:
             dist.destroy_process_group()

@@ -66,7 +66,7 @@ def roundtrip(n: int, mesh, dev) -> dict:
 def main(argv=None) -> int:
     import torch.distributed as dist
 
-    from offt_tpu_torch.dist import make_mesh
+    from offt_tpu_torch.dist import make_mesh, quiesce
 
     ns = parser(__doc__, n=32).parse_args(argv)
     device(ns.device)
@@ -81,6 +81,8 @@ def main(argv=None) -> int:
         say(f"roundtrip err: {r['roundtrip']:.2e}")
         assert r["fwd"] < TOL and r["roundtrip"] < TOL, r
         say("OK")
+        if owned:
+            quiesce()
     finally:
         if owned:
             dist.destroy_process_group()

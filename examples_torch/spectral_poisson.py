@@ -71,7 +71,7 @@ def poisson(n: int, mesh, dev) -> float:
 def main(argv=None) -> int:
     import torch.distributed as dist
 
-    from offt_tpu_torch.dist import make_mesh
+    from offt_tpu_torch.dist import make_mesh, quiesce
 
     ns = parser(__doc__, n=32).parse_args(argv)
     device(ns.device)
@@ -84,6 +84,8 @@ def main(argv=None) -> int:
             f"rel err {err:.2e}")
         assert err < 1e-5, err
         say("OK")
+        if owned:
+            quiesce()
     finally:
         if owned:
             dist.destroy_process_group()

@@ -205,7 +205,11 @@ def main(argv=None) -> int:
     ns = _parse_args(argv)
     ours = dist.is_available() and not dist.is_initialized()
     try:
-        return _main(ns)
+        rc = _main(ns)
+        if ours:
+            from ..dist import quiesce
+            quiesce()
+        return rc
     finally:
         if ours and dist.is_initialized():
             dist.destroy_process_group()
@@ -481,7 +485,9 @@ def _summary(ns, shape, flops, t, t_init, label, bound, **extra) -> None:
     gflops = flops / t / 1e9
     rec = {"algo": ns.algo, "shape": list(shape),
            "kind": "r2c" if ns.r2c else "c2c",
-           "t_ms": round(t * 1e3, 4), "gflops": round(gflops, 2),
+           # four significant figures, not two decimals: a small mesh
+           # transform on a loaded host runs under 0.005 GFLOP/s
+           "t_ms": round(t * 1e3, 4), "gflops": float(f"{gflops:.4g}"),
            "t_init_s": round(t_init, 3), "device": label,
            "bound_ms": bound[0], "bound_by": bound[1], **extra}
     print(f"# {ns.algo} {shape} {rec['kind']} t_min={t * 1e3:.3f} ms "

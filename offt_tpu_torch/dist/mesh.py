@@ -71,6 +71,37 @@ def _world(device_type: str) -> int:
     return dist.get_world_size()
 
 
+def quiesce() -> None:
+    """Wait until every rank of the default world is done with its
+    collectives, before the world is destroyed: a barrier (every rank's
+    collectives returned), then the same through the rendezvous store of
+    a ``torchrun`` world (every rank's barrier returned, so no message of
+    the world is in flight), so that no rank tears its connections down
+    while another still reads the tail of the last collective. Without it,
+    on a loaded 8-core host (twelve 4-rank gloo worlds at once,
+    ``python tests/torch_examples.py dist1d_signal 12 48``) about one run
+    of ``examples_torch/dist1d_signal.py`` in 25 had a rank abort at
+    teardown ("terminate called without an active exception") after its
+    work was done; with the barrier alone, about one in 150. Call it on
+    the success path only: after an error a rank exits at once and
+    ``torchrun`` stops the others."""
+    import datetime
+    import os
+
+    if not dist.is_initialized():
+        return
+    dist.barrier()
+    world = dist.get_world_size()
+    if world > 1 and "MASTER_PORT" in os.environ:
+        store = dist.PrefixStore(
+            "quiesce/" + os.environ.get("TORCHELASTIC_RUN_ID", ""),
+            dist.TCPStore(os.environ["MASTER_ADDR"],
+                          int(os.environ["MASTER_PORT"]), is_master=False,
+                          timeout=datetime.timedelta(minutes=5)))
+        store.set(str(dist.get_rank()), "done")
+        store.wait([str(r) for r in range(world)])
+
+
 def _device_mesh(device_type: str, grid: np.ndarray, names: tuple):
     from torch.distributed.device_mesh import DeviceMesh
     return DeviceMesh(device_type, torch.as_tensor(grid, dtype=torch.int64),

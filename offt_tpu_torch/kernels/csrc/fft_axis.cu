@@ -34,11 +34,16 @@
 // - the mixed lengths N = R0 2^k, R0 = 3 or 5, 16 <= 2^k <= 512, run the
 //   same column variant with 4 R0 values a thread and a last pass of
 //   radix 12 or 20 (fft_axis_mix.cu, a source of its own);
+// - the 5-smooth lengths with an odd part of 9, 15, 25 or 45 and at most
+//   128 threads a line (72-1152, 120-960, 200-1600, 360-1440) run the
+//   column variant of fft_smooth.cuh, its one lane tile the wide tile's
+//   code (fft_axis_smooth.cu, a source of its own);
 // - every other length runs the dense core of fft_core.cuh: a block owns
 //   an (N x T) tile of T consecutive lanes, read column-wise into shared
 //   memory; a ragged last tile is masked; the scale rides the table.
 
 #include "fft_core.cuh"
+#include "fft_smooth.cuh"
 #include "regs_kernels.cuh"
 
 namespace offt {
@@ -89,10 +94,11 @@ static cudaError_t axis_regs(const float* xr, const float* xi, float* yr,
 
 }  // namespace offt
 
-// reg != 0: the register core (n a power of two in [16, 4096], or a mixed
-// length of fft_axis_mix.cu; the first n table rows, `inverse`, `scale`
-// and `tile`, an AxisTile, are read, the radices and T are not); else the
-// dense core (radices, T; the scale is in the table; `tile` must be 0).
+// reg != 0: the register core (n a power of two in [16, 4096], a mixed
+// length of fft_axis_mix.cu or a smooth one of fft_axis_smooth.cu; the
+// first n table rows, `inverse`, `scale` and `tile`, an AxisTile, are
+// read, the radices and T are not); else the dense core (radices, T; the
+// scale is in the table; `tile` must be 0).
 extern "C" int offt_fft_axis(const void* xr, const void* xi, void* yr,
                              void* yi, const void* tab, long long nb, int n,
                              long long ny, long long nz, long long isb,
@@ -107,6 +113,9 @@ extern "C" int offt_fft_axis(const void* xr, const void* xi, void* yr,
     const float* ai = (const float*)xi;
     const float2* tb = (const float2*)tab;
     cudaStream_t s = (cudaStream_t)stream;
+    if (regs::smooth_length(n))
+      return (int)axis_smooth(ar, ai, (float*)yr, (float*)yi, tb, g, n,
+                              inverse, scale, tile, s);
     if (n & (n - 1))
       return (int)axis_mix(ar, ai, (float*)yr, (float*)yi, tb, g, n, inverse,
                            scale, tile, s);

@@ -21,6 +21,11 @@
 //   run the same core's rows with 4 R0 values a thread and a last pass of
 //   radix 12 or 20, their exchange planes swizzled (fft_last_mix.cu, a
 //   source of its own);
+// - the 5-smooth lengths with an odd part of 9, 15, 25 or 45 (72-3840,
+//   fused_fft._SMOOTH_LENGTHS) run the register core of fft_smooth.cuh: 12
+//   values a thread (20 at an odd part 25) on P = N / 12 (or N / 20)
+//   threads a row, a radix-3 or radix-5 pass for each further odd factor
+//   (fft_last_smooth.cu, a source of its own);
 // - every other length runs the dense core of fft_core.cuh: a block owns T
 //   whole rows, reads them row-major into a column-wise tile (pencil
 //   stride TP = T | 1, odd, so the transposing store does not hit one
@@ -30,6 +35,7 @@
 // blocks share a row, so the kernel may run in place (x == y).
 
 #include "fft_core.cuh"
+#include "fft_smooth.cuh"
 #include "regs_kernels.cuh"
 
 namespace offt {
@@ -55,10 +61,10 @@ fft_last_kernel(const float* xr, const float* xi, float* yr, float* yi,
 
 }  // namespace offt
 
-// reg != 0: the register core (n a power of two in [16, 4096], or a mixed
-// length of fft_last_mix.cu; the first n table rows, `inverse` and `scale`
-// are read, the radices and T are not); else the dense core (radices, T;
-// the scale is in the table).
+// reg != 0: the register core (n a power of two in [16, 4096], a mixed
+// length of fft_last_mix.cu or a smooth one of fft_last_smooth.cu; the
+// first n table rows, `inverse` and `scale` are read, the radices and T
+// are not); else the dense core (radices, T; the scale is in the table).
 extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
                              void* yi, const void* tab, long long rows, int n,
                              int ns, int r0, int r1, int r2, int T,
@@ -70,6 +76,9 @@ extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
     const float* ai = (const float*)xi;
     const float2* tb = (const float2*)tab;
     cudaStream_t s = (cudaStream_t)stream;
+    if (regs::smooth_length(n))
+      return (int)last_smooth(ar, ai, (float*)yr, (float*)yi, tb, rows, n, n,
+                              n, inverse, scale, s);
     if (n & (n - 1))
       return (int)last_mix(ar, ai, (float*)yr, (float*)yi, tb, rows, n, n, n,
                            inverse, scale, s);

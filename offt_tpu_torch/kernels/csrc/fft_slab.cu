@@ -9,9 +9,10 @@
 // What bounds it on Hopper: bytes, 16 a complex element when the slab is
 // read once and written once, 32 when it goes through device memory
 // between its z and y passes. Three layouts, chosen by the wrapper:
-// - Y and Z powers of two in [16, 4096] or mixed lengths R0 2^k
-//   (fused_fft._reg_slab) run the register core (regs_kernels.cuh): z on
-//   its rows, y on its column variant, `scale` at the y store;
+// - Y and Z powers of two in [16, 4096], mixed lengths R0 2^k or smooth
+//   lengths of fft_smooth.cuh (fused_fft._reg_slab) run the register core
+//   (regs_kernels.cuh): z on its rows, y on its column variant, `scale` at
+//   the y store;
 //   - 2^14 to 2^17 elements with Z >= 128, Y >= 64 (_cluster_slab; the
 //     256^3 slab): one grid of clusters of C <= 16 blocks, each x-row's
 //     slab held in the cluster's shared memory (ClusterSlab): each block
@@ -21,11 +22,13 @@
 //     and writes the output: the slab is read and written once;
 //   - other register slabs (the 512^3 one: 2 MB, twice what a cluster of
 //     16 would hold at 8192 elements a block; every slab with a mixed
-//     length, the 320^3 one among them): two grids, rows_c2c (rows_mix at
-//     a mixed Z, fft_last_mix.cu) from the input (pitch in_pitch) to the
-//     output (pitch out_pitch), unscaled, then cols_c2c (cols_mix at a
-//     mixed Y, fft_axis_mix.cu, on the lane tile fft_axis routes) in
-//     place on the output. Where the
+//     length, the 320^3 one among them, and every slab with a smooth one of
+//     fft_smooth.cuh, 360^3's): two grids, rows_c2c (rows_mix at a mixed
+//     Z, fft_last_mix.cu; rows_smooth at a smooth Z, fft_last_smooth.cu)
+//     from the input (pitch in_pitch) to the output (pitch out_pitch),
+//     unscaled, then cols_c2c (cols_mix at a mixed Y, fft_axis_mix.cu, on
+//     the lane tile fft_axis routes; cols_smooth at a smooth Y,
+//     fft_axis_smooth.cu) in place on the output. Where the
 //     z-transformed slab lives between the passes was measured
 //     (bench/probe_slabparts.py): one block per x-row running both passes
 //     (the `fused` probe) reads its own z writes back with 396 slabs of
@@ -49,6 +52,7 @@
 // layout, chosen by the wrapper.
 
 #include "fft_core.cuh"
+#include "fft_smooth.cuh"
 #include "regs_kernels.cuh"
 
 namespace offt {
@@ -234,7 +238,10 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
     // lines in place on the output, Z lanes per x-row
     const AxisGeom gy{rows, 1, nz, ny * op, op, 0, ny * op, op, 0};
     cudaError_t err;
-    if (nz & (nz - 1)) {
+    if (smooth_length(nz)) {
+      err = last_smooth(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op, inverse,
+                        1.f, s);
+    } else if (nz & (nz - 1)) {
       err = last_mix(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op, inverse,
                      1.f, s);
     } else {
@@ -247,6 +254,8 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
       });
     }
     if (err != cudaSuccess) return err;
+    if (smooth_length(ny))
+      return axis_smooth(yr, yi, yr, yi, taby, gy, ny, inverse, scale, -1, s);
     if (ny & (ny - 1))
       return axis_mix(yr, yi, yr, yi, taby, gy, ny, inverse, scale, -1, s);
     return by_log(ny, [&](auto ly) {
@@ -288,8 +297,8 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
 
 }  // namespace offt
 
-// reg != 0: the register core (Y and Z powers of two in [16, 4096] or
-// mixed lengths; the first rows of both tables, `inverse`, `scale`,
+// reg != 0: the register core (Y and Z powers of two in [16, 4096],
+// mixed or smooth lengths; the first rows of both tables, `inverse`, `scale`,
 // `cluster` and `phases` are read, the radices and tiles are not), in a
 // cluster's shared memory (cluster != 0, the shapes of ClusterSlab::OK) or
 // in two grids; else the dense core (radices, Tz, Ty; the scale is in the

@@ -1,0 +1,416 @@
+// fft_smooth.cuh: the register core at the 5-smooth lengths N = R 2^K
+// whose odd part R is 9, 15, 25 or 45 (K >= 3, N <= 4096: 72-2304,
+// 120-3840, 200-3200, 360-2880), as rows (rows_smooth: fft_last.cu through
+// fft_last_smooth.cu, the z pass of fft_slab.cu) and in the column variant
+// (cols_smooth: fft_axis.cu through fft_axis_smooth.cu, the y pass of
+// fft_slab.cu). Every other length keeps its core: the powers of two and
+// R0 2^k (R0 = 3, 5) of fft_regs.cuh, the dense core of fft_core.cuh.
+//
+// Replaces, at those lengths: the dense shared-memory core of fft_core.cuh
+// (the port of offt_tpu/kernels/pallas_fft.py _core_apply :428). It
+// computes the same function, the length-N DFT in f32 FMA, forward or
+// inverse; the roots are the first N rows of tables.core_table; the scale
+// is the caller's, applied once at the store.
+//
+// The decision. fft_regs.cuh's mixed design holds V = 4 R0 values a
+// thread on P = N / V threads, a power of two; an odd part of 9, 15, 25
+// or 45 would ask for 36-180 values a thread there, or, halved (V = 2 R),
+// 18-90 values and a radix-18-90 network. Here a thread keeps V0 = 4 R0
+// values (R0 = 5 for an odd part 25, else 3), so P = N / V0 = (R / R0)
+// 2^(K-2) threads a line, not a power of two, and each further odd factor
+// gets a pass of its own:
+// - radix-4 passes (a radix 2 last where K is odd) over 2^(K-2), then one
+//   radix-3 or radix-5 pass per odd factor of R / R0 (9: 3; 25: 5; 15: 5;
+//   45: 3 then 5), then one pass of radix V0 (the Good-Thomas 3 x 4 or
+//   5 x 4 network of fft_regs.cuh) at stride P, leaving element t + r P in
+//   natural order for a coalesced store. Every stride but the last divides
+//   P, so butterfly j = t + q P has j mod NS = t mod NS: a thread's
+//   butterflies share their twiddles, and every exchange address is the
+//   thread's base plus a compile-time constant;
+// - a radix-5 pass at V0 = 12 (odd parts 15 and 45) has N / 5 = 2.4 P
+//   butterflies: each thread takes three, the third masked where
+//   t + 2 P >= N / 5, so a thread holds 15 values at most (SmoothGeo::VMAX);
+//   V = 30, with radix-2 passes only, would hold 30 and run twice the
+//   exchanges;
+// - the exchanges keep separate re and im planes. Columns: the lane is
+//   fastest and the planes are padded one slot per four elements
+//   (ColLay<L, 2>), L = 32 lanes a block up to 768 threads, then 16, then
+//   8 (to P = 128, 1024 threads), so a warp holds W = 32 / L <= 4 row threads
+//   of consecutive t: every put and get takes one wavefront
+//   (regcore.smooth_ways). Lengths of P > 128 (L = 4: 1920-3840) would
+//   take two and stay dense as columns. Rows: 256 / P rows a block (one
+//   from P = 256), each row's planes at a pitch of P mod 32 floats and no
+//   pad, so element a of row g sits at bank (g P + a) mod 32 and every
+//   get (consecutive elements of consecutive threads) takes one
+//   wavefront across the rows a warp straddles; the puts of the strided
+//   passes take up to four (counted per exchange by regcore.smooth_ways:
+//   the radix-4 pass at stride 4 the worst), the first radix-4 pass's
+//   float4 puts one or two. Rows and lines straddle warps, so every
+//   exchange synchronises the block.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+#include <utility>
+
+#include "fft_regs.cuh"
+
+namespace offt {
+namespace regs {
+
+__host__ __device__ constexpr int odd_part(int n) {
+  return n % 2 ? n : odd_part(n / 2);
+}
+
+// whether n is a length of this core as rows (the columns take those of
+// at most 128 threads a line, SmoothColGeo)
+__host__ __device__ constexpr bool smooth_length(int n) {
+  return n > 0 && n <= 4096 &&
+         (odd_part(n) == 9 || odd_part(n) == 15 || odd_part(n) == 25 ||
+          odd_part(n) == 45) &&
+         n / odd_part(n) >= 8;
+}
+
+// compile-time schedule of N = R 2^K
+template <int N>
+struct SmoothGeo {
+  static_assert(smooth_length(N), "a smooth length: R 2^K, R in {9, 15, "
+                                  "25, 45}, K >= 3, N <= 4096");
+  static constexpr int R = odd_part(N);
+  static constexpr int K = ilog2(N / R);
+  static constexpr int R0 = R == 25 ? 5 : 3;
+  static constexpr int V0 = 4 * R0;  // the last pass's radix
+  static constexpr int P = N / V0;   // threads a line
+  static constexpr int NPOW = (K - 1) / 2;       // passes over 2^(K-2)
+  static constexpr int NODD = R == 45 ? 2 : 1;   // passes of radix 3 or 5
+  static constexpr int NPASS = NPOW + NODD + 1;
+  __host__ __device__ static constexpr int radix(int p) {
+    return p < NPOW                ? (p == NPOW - 1 && K % 2 ? 2 : 4)
+           : p < NPOW + NODD      ? (R == 45 ? (p == NPOW ? 3 : 5) : R / R0)
+                                  : V0;
+  }
+  __host__ __device__ static constexpr int stride(int p) {
+    return p == 0 ? 1 : stride(p - 1) * radix(p - 1);
+  }
+  // butterflies a thread takes in pass p (the last one masked where
+  // B P > N / R)
+  __host__ __device__ static constexpr int bflies(int p) {
+    return (N / radix(p) + P - 1) / P;
+  }
+  __host__ __device__ static constexpr int vmax(int p = 0) {
+    return p == NPASS ? 0
+           : radix(p) * bflies(p) > vmax(p + 1) ? radix(p) * bflies(p)
+                                                : vmax(p + 1);
+  }
+  static constexpr int VMAX = vmax();  // complex values a thread holds
+  static_assert(stride(NPASS - 1) == P && radix(NPASS - 1) * P == N,
+                "the last pass at stride P");
+};
+
+// The R-point DFT of a smooth pass: radix 2, 4, 12, 20 (fft_regs.cuh's dft)
+// and the 3- and 5-point networks.
+template <int R, bool INV>
+static __device__ __forceinline__ void dft_smooth(float2* v) {
+  if constexpr (R == 3)
+    dft3<INV>(v[0], v[1], v[2]);
+  else if constexpr (R == 5)
+    dft5<INV>(v[0], v[1], v[2], v[3], v[4]);
+  else
+    dft<R, INV>(v);
+}
+
+// Pass PASS's butterflies on the thread's values: butterfly j = t + q P
+// takes v[q R .. q R + R), inputs r > 0 twiddled by W_N^(r (t mod NS)
+// N / (NS R)) (j mod NS = t mod NS: NS divides P), the same roots for every
+// q, so where a thread takes several butterflies it loads them once.
+template <int N, int PASS, bool INV>
+static __device__ __forceinline__ void smooth_butterflies(
+    float2* v, int t, const float2* __restrict__ tab) {
+  using S = SmoothGeo<N>;
+  constexpr int R = S::radix(PASS), NS = S::stride(PASS);
+  constexpr int B = S::bflies(PASS), LIVE = N / R;
+  constexpr bool MASKED = B * S::P > LIVE;
+  const int base = (t % NS) * (N / (NS * R));
+  float2 w[B > 1 && NS > 1 ? R : 1];
+  if constexpr (B > 1 && NS > 1) {
+    unroll<1, R>([&](auto r) {
+      w[decltype(r)::value] = __ldg(tab + decltype(r)::value * base);
+    });
+  }
+  unroll<0, B>([&](auto qc) {
+    constexpr int Q = decltype(qc)::value;
+    if (!MASKED || Q < B - 1 || t + Q * S::P < LIVE) {
+      if constexpr (NS > 1) {
+        unroll<1, R>([&](auto r) {
+          constexpr int K = decltype(r)::value;
+          if constexpr (B > 1)
+            v[Q * R + K] = cmul(v[Q * R + K], w[K]);
+          else
+            v[Q * R + K] = cmul(v[Q * R + K], __ldg(tab + K * base));
+        });
+      }
+      dft_smooth<R, INV>(v + Q * R);
+    }
+  });
+}
+
+// the rows' exchange planes: no pad (the row pitch carries the bank shift)
+struct SmoothRowLay {
+  static constexpr bool kVec4 = true;
+  static __host__ __device__ constexpr int at(int a) { return a; }
+};
+
+// Write pass PASS's outputs: output r of butterfly j = t + q P to
+// d + r NS, d = (j div NS) NS R + j mod NS = X + q P R, X = (t div NS) NS R
+// + t mod NS. The first radix-4 pass stores its runs of four as float4
+// where the layout keeps them whole (Lay::kVec4).
+template <int N, int PASS, typename Lay>
+static __device__ __forceinline__ void smooth_put(float* sre, float* sim,
+                                                  const float2* v, int t) {
+  using S = SmoothGeo<N>;
+  constexpr int R = S::radix(PASS), NS = S::stride(PASS);
+  constexpr int B = S::bflies(PASS), LIVE = N / R;
+  constexpr bool MASKED = B * S::P > LIVE;
+  const int x = (t / NS) * NS * R + t % NS;
+  unroll<0, B>([&](auto qc) {
+    constexpr int Q = decltype(qc)::value;
+    if (!MASKED || Q < B - 1 || t + Q * S::P < LIVE) {
+      if constexpr (NS == 1 && R == 4 && Lay::kVec4) {
+        const int a = Lay::at(x + Q * S::P * R);
+        *reinterpret_cast<float4*>(sre + a) =
+            make_float4(v[4 * Q].x, v[4 * Q + 1].x, v[4 * Q + 2].x,
+                        v[4 * Q + 3].x);
+        *reinterpret_cast<float4*>(sim + a) =
+            make_float4(v[4 * Q].y, v[4 * Q + 1].y, v[4 * Q + 2].y,
+                        v[4 * Q + 3].y);
+      } else {
+        unroll<0, R>([&](auto r) {
+          constexpr int K = decltype(r)::value;
+          const int a = Lay::at(x + Q * S::P * R + K * NS);
+          sre[a] = v[Q * R + K].x;
+          sim[a] = v[Q * R + K].y;
+        });
+      }
+    }
+  });
+}
+
+// Read pass PASS's inputs: v[q R + r] = element j + r N/R, j = t + q P.
+template <int N, int PASS, typename Lay>
+static __device__ __forceinline__ void smooth_get(const float* sre,
+                                                  const float* sim,
+                                                  float2* v, int t) {
+  using S = SmoothGeo<N>;
+  constexpr int R = S::radix(PASS), B = S::bflies(PASS), LIVE = N / R;
+  constexpr bool MASKED = B * S::P > LIVE;
+  unroll<0, B>([&](auto qc) {
+    constexpr int Q = decltype(qc)::value;
+    if (!MASKED || Q < B - 1 || t + Q * S::P < LIVE) {
+      unroll<0, R>([&](auto r) {
+        constexpr int K = decltype(r)::value;
+        const int a = Lay::at(t + Q * S::P + K * LIVE);
+        v[Q * R + K] = make_float2(sre[a], sim[a]);
+      });
+    }
+  });
+}
+
+template <int N, int PASS, bool INV, typename Lay>
+static __device__ __forceinline__ void smooth_passes(
+    float2* v, float* sre, float* sim, int t,
+    const float2* __restrict__ tab) {
+  if constexpr (PASS < SmoothGeo<N>::NPASS) {
+    if constexpr (PASS > 1) __syncthreads();
+    smooth_put<N, PASS - 1, Lay>(sre, sim, v, t);
+    __syncthreads();
+    smooth_get<N, PASS, Lay>(sre, sim, v, t);
+    smooth_butterflies<N, PASS, INV>(v, t, tab);
+    smooth_passes<N, PASS + 1, INV, Lay>(v, sre, sim, t, tab);
+  }
+}
+
+// The length-N DFT of one line held by its P threads (t the thread's index
+// in it; (sre, sim) its exchange planes laid out by Lay; load(e) gives
+// input element e, each once). On return v[r] holds output element
+// t + r P, r < V0 (outputs_smooth). Every thread of the block must call
+// it: the exchanges synchronise the block.
+template <int N, bool INV, typename Lay, typename Load>
+static __device__ __forceinline__ void core_smooth(
+    float2* v, float* sre, float* sim, int t, const float2* __restrict__ tab,
+    Load load) {
+  using S = SmoothGeo<N>;
+  constexpr int R = S::radix(0), B = S::bflies(0);
+  static_assert(B * R == S::V0, "a whole first pass");
+  unroll<0, B>([&](auto qc) {
+    unroll<0, R>([&](auto r) {
+      constexpr int Q = decltype(qc)::value, K = decltype(r)::value;
+      v[Q * R + K] = load(t + Q * S::P + K * (N / R));
+    });
+  });
+  smooth_butterflies<N, 0, INV>(v, t, tab);
+  smooth_passes<N, 1, INV, Lay>(v, sre, sim, t, tab);
+}
+
+template <int N, typename F>
+static __device__ __forceinline__ void outputs_smooth(float2* v, int t,
+                                                      F f) {
+  using S = SmoothGeo<N>;
+  unroll<0, S::V0>([&](auto r) {
+    f(t + decltype(r)::value * S::P, v[decltype(r)::value]);
+  });
+}
+
+// ---- the block geometries ----
+
+// Blocks an SM the launch bounds ask for at NT threads a block: as many as
+// leave a thread 80 registers (96 where it holds 20 values), at least one.
+__host__ __device__ constexpr int smooth_min_blocks(int nt, int vmax) {
+  return 65536 / (nt * (vmax > 15 ? 96 : 80)) > 1
+             ? 65536 / (nt * (vmax > 15 ? 96 : 80))
+             : 1;
+}
+
+// Rows: ROWS = 256 / P rows of P threads a block (one from P = 256), each
+// row's two planes at a pitch of N rounded up to P mod 32 (so a warp's
+// consecutive threads, whatever rows they lie in, meet consecutive banks
+// on a get).
+template <int N>
+struct SmoothRowGeo {
+  using S = SmoothGeo<N>;
+  static constexpr int P = S::P;
+  static constexpr int ROWS = P >= kThreads ? 1 : kThreads / P;
+  static constexpr int NT = ROWS * P;  // threads a block
+  static constexpr int PITCH = pitch_to(N, P % 32);
+  static constexpr size_t SMEM = (size_t)2 * ROWS * PITCH * sizeof(float);
+  static constexpr int MINB = smooth_min_blocks(NT, S::VMAX);
+};
+
+// Columns: L = 32 lanes a block up to 768 threads, then 16, then 8 (to
+// 1024 threads, P = 128), NT = L P; the lane fastest, the planes padded
+// one slot per four elements.
+template <int N>
+struct SmoothColGeo {
+  using S = SmoothGeo<N>;
+  static constexpr int P = S::P;
+  static constexpr int L = 32 * P <= 768 ? 32 : 16 * P <= 768 ? 16 : 8;
+  static_assert(L * P <= 1024, "columns to P = 128");
+  static constexpr int NT = L * P;
+  using Lay = ColLay<L, 2>;
+  static constexpr int SIZE = (Lay::at(N - 1) + L + 3) / 4 * 4;
+  static constexpr size_t SMEM = (size_t)2 * SIZE * sizeof(float);
+  static constexpr int MINB = smooth_min_blocks(NT, S::VMAX);
+};
+
+// ---- the kernels and their launchers ----
+
+// c2c of contiguous rows at a smooth length N: ROWS rows a block at their
+// own input and output pitch, the ragged last block masked (its rows past
+// `rows` load zeros and store nothing), times `scale`. Every thread of a
+// row reads the whole row before any writes, so it may run in place.
+template <int N, bool INV>
+__global__ void __launch_bounds__(SmoothRowGeo<N>::NT, SmoothRowGeo<N>::MINB)
+rows_smooth(const float* xr, const float* xi, float* yr, float* yi,
+            const float2* __restrict__ tab, long long rows, long long ipitch,
+            long long opitch, float scale) {
+  using G = SmoothRowGeo<N>;
+  extern __shared__ __align__(16) float ssmem[];
+  const int g = threadIdx.x / G::P;
+  const int t = threadIdx.x % G::P;
+  const long long row = (long long)blockIdx.x * G::ROWS + g;
+  const bool valid = row < rows;
+  const long long in = row * ipitch, out = row * opitch;
+  float2 v[G::S::VMAX];
+  core_smooth<N, INV, SmoothRowLay>(
+      v, ssmem + g * G::PITCH, ssmem + (G::ROWS + g) * G::PITCH, t, tab,
+      [&](int e) {
+        return valid ? make_float2(xr[in + e], xi[in + e])
+                     : make_float2(0.f, 0.f);
+      });
+  if (!valid) return;
+  outputs_smooth<N>(v, t, [&](int e, float2 y) {
+    yr[out + e] = y.x * scale;
+    yi[out + e] = y.y * scale;
+  });
+}
+
+// The column variant at a smooth length N: c2c along the n axis of
+// (B, N, Y, Z) (fft_axis.cu's AxisGeom), one line per lane l = y Z + z, a
+// block of L consecutive lanes of one b, the ragged last tile masked,
+// times `scale`.
+template <int N, bool INV>
+__global__ void __launch_bounds__(SmoothColGeo<N>::NT, SmoothColGeo<N>::MINB)
+cols_smooth(const float* xr, const float* xi, float* yr, float* yi,
+            const float2* __restrict__ tab, AxisGeom g, long long tiles,
+            float scale) {
+  using C = SmoothColGeo<N>;
+  extern __shared__ __align__(16) float ssmem[];
+  const int l = threadIdx.x % C::L;
+  const int t = threadIdx.x / C::L;
+  const long long b = blockIdx.x / tiles;
+  const long long lane = (blockIdx.x - b * tiles) * C::L + l;
+  const bool valid = lane < g.ny * g.nz;
+  const long long y = valid ? lane / g.nz : 0;
+  const long long z = valid ? lane - y * g.nz : 0;
+  const long long in = b * g.isb + y * g.isy + z;
+  const long long out = b * g.osb + y * g.osy + z;
+  float2 v[C::S::VMAX];
+  core_smooth<N, INV, typename C::Lay>(
+      v, ssmem + l, ssmem + C::SIZE + l, t, tab, [&](int e) {
+        const long long o = in + e * g.isn;
+        return valid ? make_float2(xr[o], xi[o]) : make_float2(0.f, 0.f);
+      });
+  if (!valid) return;
+  outputs_smooth<N>(v, t, [&](int e, float2 w) {
+    const long long o = out + e * g.osn;
+    yr[o] = w.x * scale;
+    yi[o] = w.y * scale;
+  });
+}
+
+template <int N, bool INV>
+static cudaError_t launch_rows_smooth(const float* xr, const float* xi,
+                                      float* yr, float* yi,
+                                      const float2* tab, long long rows,
+                                      long long ipitch, long long opitch,
+                                      float scale, cudaStream_t stream) {
+  using G = SmoothRowGeo<N>;
+  auto kernel = rows_smooth<N, INV>;
+  cudaError_t err = allow_smem(kernel, G::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (rows + G::ROWS - 1) / G::ROWS;
+  kernel<<<(unsigned)blocks, G::NT, G::SMEM, stream>>>(
+      xr, xi, yr, yi, tab, rows, ipitch, opitch, scale);
+  return cudaGetLastError();
+}
+
+template <int N, bool INV>
+static cudaError_t launch_cols_smooth(const float* xr, const float* xi,
+                                      float* yr, float* yi,
+                                      const float2* tab, const AxisGeom& g,
+                                      float scale, cudaStream_t stream) {
+  using C = SmoothColGeo<N>;
+  auto kernel = cols_smooth<N, INV>;
+  cudaError_t err = allow_smem(kernel, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (g.ny * g.nz + C::L - 1) / C::L;
+  kernel<<<(unsigned)(tiles * g.nb), C::NT, C::SMEM, stream>>>(
+      xr, xi, yr, yi, tab, g, tiles, scale);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, N>) for n = R 2^K, K from 3, n <= LAST;
+// an error for any other n
+template <int R, int LAST = 4096, int N = 8 * R, typename F>
+static cudaError_t by_smooth_odd(int n, F&& f) {
+  if constexpr (N > LAST) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (n == N) return f(std::integral_constant<int, N>());
+    return by_smooth_odd<R, LAST, 2 * N>(n, std::forward<F>(f));
+  }
+}
+
+}  // namespace regs
+}  // namespace offt

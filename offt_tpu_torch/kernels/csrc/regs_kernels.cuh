@@ -1043,6 +1043,19 @@ cudaError_t axis_mix_side(const float* xr, const float* xi, float* yr,
                           float* yi, const float2* tab, const AxisGeom& g,
                           int n, const float* side_r, const float* side_i,
                           cudaStream_t s);
+// The register core at the 5-smooth lengths of fft_smooth.cuh (odd part
+// 9, 15, 25 or 45): `rows` rows of length n at pitches ipitch and opitch,
+// times `scale` (fft_last_smooth.cu); the column variant along the n axis
+// of g, n of at most 128 threads a line (SmoothColGeo), `tile` 1 (its one
+// tile, fft_axis.cu's kWide) or -1 (fft_axis_smooth.cu).
+cudaError_t last_smooth(const float* xr, const float* xi, float* yr,
+                        float* yi, const float2* tab, long long rows, int n,
+                        long long ipitch, long long opitch, int inverse,
+                        float scale, cudaStream_t s);
+cudaError_t axis_smooth(const float* xr, const float* xi, float* yr,
+                        float* yi, const float2* tab, const AxisGeom& g,
+                        int n, int inverse, float scale, int tile,
+                        cudaStream_t s);
 // The four-step pair at a mixed length (fourstep_mix.cu), n = R0 2^k,
 // 16 <= 2^k <= 512: step 1 along n1 of g, unscaled, each output times
 // its entry of the (n1, lanes) table tw, on the lane tile `tile`

@@ -221,9 +221,10 @@ def _reg_core(n: int) -> bool:
     and ``rows_transposed_mix`` in ``csrc/fourstep_mix.cu``). Every other
     length takes the dense core: 3072 (the column variant's exchanges
     would take two wavefronts, and a transposing store at P = 256 would
-    need the 4096 layout's cluster), lengths with a factor 3^2, 5^2 or 15,
-    and lengths past 4096. The register core ignores the radices and the
-    rows per block."""
+    need the 4096 layout's cluster), lengths with a factor 3^2, 5^2 or 15
+    (the smooth rows and columns of ``csrc/fft_smooth.cuh`` have no
+    twiddled or transposing store), and lengths past 4096. The register
+    core ignores the radices and the rows per block."""
     return _pow2(n) or n in _MIX_LENGTHS
 
 
@@ -234,6 +235,25 @@ _MIX_LENGTHS = frozenset(r0 << k for r0 in (3, 5) for k in range(4, 10))
 # (P = 256, one row a block), whose exchanges take one wavefront as rows
 # and would take two as columns
 _MIX_ROW_LENGTHS = _MIX_LENGTHS | {3072}
+# the 5-smooth lengths R 2^k with an odd part R of 9, 15, 25 or 45, k >= 3,
+# up to 4096, that the register core runs as rows (csrc/fft_smooth.cuh,
+# csrc/fft_last_smooth.cu): 72-2304, 120-3840, 200-3200, 360-2880
+_SMOOTH_LENGTHS = frozenset(r << k for r in (9, 15, 25, 45)
+                            for k in range(3, 9) if r << k <= 4096)
+
+
+def _smooth_values(n: int) -> int:
+    """V0, the values a thread of the smooth core holds between its passes
+    (its last pass's radix): 20 at an odd part 25, else 12."""
+    return 20 if n % 25 == 0 else 12
+
+
+# those it runs in the column variant (csrc/fft_axis_smooth.cu): at most
+# 128 threads a line (P = n / V0), so a warp holds at most four row
+# threads; 1920, 2304, 2880, 3200 and 3840 (8 or 16 a warp) would take two
+# wavefronts an exchange
+_SMOOTH_COL_LENGTHS = frozenset(n for n in _SMOOTH_LENGTHS
+                                if n // _smooth_values(n) <= 128)
 
 
 def _reg_real_rows(m: int) -> bool:
@@ -242,15 +262,20 @@ def _reg_real_rows(m: int) -> bool:
     [16, 4096] (``regs::rows_r2c``, ``rows_c2r``), or a mixed length of
     ``_MIX_ROW_LENGTHS`` (``regs::rows_r2c_mix``, ``rows_c2r_mix`` in
     ``csrc/real_rows_mix.cu``). Every other M (72, 144: factors 3^2 or
-    15) takes the dense core. The register core ignores the radices and
-    the rows per block."""
+    15) takes the dense core: the smooth rows of ``csrc/fft_smooth.cuh``
+    have no r2c untangle or c2r re-tangle. The register core ignores the
+    radices and the rows per block."""
     return _pow2(m) or m in _MIX_ROW_LENGTHS
 
 
 def _reg_values(n: int) -> int:
     """Complex values a thread of the register core holds at length n: 16
-    at a power of two, 4 R0 at a mixed length R0 2^k (12 or 20); a line
-    takes n / that many threads (P)."""
+    at a power of two, 4 R0 at a mixed length R0 2^k (12 or 20), V0 at a
+    smooth length (12, or 20 at an odd part 25; the masked radix-5 pass
+    of an odd part 15 or 45 holds 15); a line takes n / that many threads
+    (P)."""
+    if n in _SMOOTH_LENGTHS:
+        return _smooth_values(n)
     return 4 * (3 if n % 3 == 0 else 5) if n in _MIX_ROW_LENGTHS else 16
 
 
@@ -259,30 +284,39 @@ def _reg_rows(n: int) -> bool:
     (``fft_slab_yz``), launch the register core's rows: a power of two in
     [16, 4096], or a mixed length of ``_MIX_ROW_LENGTHS`` (3 2^k in [48,
     1536] and 3072, 5 2^k in [80, 2560]: ``regs::rows_mix``, radix-4
-    passes then one of radix 12 or 20, the exchange planes swizzled).
-    Every other length takes the dense core."""
-    return _pow2(n) or n in _MIX_ROW_LENGTHS
+    passes then one of radix 12 or 20, the exchange planes swizzled), or a
+    smooth length of ``_SMOOTH_LENGTHS`` (an odd part of 9, 15, 25 or 45:
+    ``regs::rows_smooth``, radix-4 passes, one radix-3 or radix-5 pass
+    for each further odd factor, then one of radix 12 or 20, on P = n / 12
+    or n / 20 threads a row). Every other length takes the dense core:
+    the other 5-smooth lengths (18-40, 100, 180 and the like: an odd part
+    of 27, 75 or more, or a power of two under 8 beside 9-45) and lengths
+    past 4096."""
+    return _pow2(n) or n in _MIX_ROW_LENGTHS or n in _SMOOTH_LENGTHS
 
 
 def _reg_slab(ny: int, nz: int) -> bool:
     """Whether the c2c slab kernel (``fft_slab_yz`` on (ny, nz)) launches
     the register core: z as rows (:func:`_reg_rows`), y on the column
-    variant (:func:`_reg_axis`), each a power of two in [16, 4096] or a
-    mixed length (the mixed ones in two grids). Every other slab takes
-    the dense core. The register slab ignores the radices and the
-    tiles."""
+    variant (:func:`_reg_axis`), each a power of two in [16, 4096], a
+    mixed or a smooth length (those in two grids: 360^3's slab on
+    ``rows_smooth`` and ``cols_smooth``). Every other slab takes the
+    dense core. The register slab ignores the radices and the tiles."""
     return _reg_rows(nz) and _reg_axis(ny)
 
 
 def _reg_rslab(ny: int, m: int) -> bool:
     """Whether the r2c and c2r slab kernels (``rfft_slab_yz``,
     ``irfft_slab_yz`` on (ny, M = N/2)) launch the register core: y on
-    the column variant (:func:`_reg_axis`: a power of two in [16, 4096]
-    or a mixed length of ``_MIX_LENGTHS``), the rows on the real rows
+    the column variant at a power of two in [16, 4096] or a mixed length
+    of ``_MIX_LENGTHS`` (:func:`_reg_axis` without the smooth lengths:
+    the real slabs' y passes, ``rfft_slab.cu`` and ``real_slab_mix.cu``,
+    have no smooth instance), the rows on the real rows
     (:func:`_reg_real_rows`: those and 3072), the slabs with a mixed
     length (768^3's, 1280^3's) in two grids on the mixed instances. Every
-    other slab (Y = 24, 40 or 3072; M = 72, 144) takes the dense core."""
-    return _reg_axis(ny) and _reg_real_rows(m)
+    other slab (Y = 24, 40, 3072 or a smooth 144-1440; M = 72, 144) takes
+    the dense core."""
+    return (_pow2(ny) or ny in _MIX_LENGTHS) and _reg_real_rows(m)
 
 
 def _reg_axis(n: int) -> bool:
@@ -291,11 +325,15 @@ def _reg_axis(n: int) -> bool:
     launches the register core's column variant: a power of two in
     [16, 4096], or a mixed length of ``_MIX_LENGTHS`` (3 2^k in [48,
     1536], 5 2^k in [80, 2560]: radix-4 and radix-2 passes, then one of
-    radix 12 or 20). Every other length takes the dense core (3072: with 8
-    row threads a warp its exchanges would take two wavefronts; factors
-    3^2, 5^2 or 15: no network). The register core ignores the radices
-    and the lane tile of the dense core."""
-    return _pow2(n) or n in _MIX_LENGTHS
+    radix 12 or 20), or a smooth length of ``_SMOOTH_COL_LENGTHS`` (an odd
+    part of 9, 15, 25 or 45 and at most 128 threads a line: 72-1152,
+    120-960, 200-1600, 360-1440; ``regs::cols_smooth``). Every other
+    length takes the dense core (3072, and the smooth 1920, 2304, 2880,
+    3200 and 3840: with 8 or more row threads a warp their exchanges would
+    take two wavefronts; the other 5-smooth lengths: no schedule). The
+    register core ignores the radices and the lane tile of the dense
+    core."""
+    return _pow2(n) or n in _MIX_LENGTHS or n in _SMOOTH_COL_LENGTHS
 
 
 # the register core's lane tiles of the strided-axis kernel and their
@@ -310,7 +348,11 @@ def _axis_tile(n: int) -> str:
     (P = n / ``_reg_values(n)``): narrow to P = 8 (n = 128 at a power of
     two, 96 and 160 mixed), where a block of 256 threads holds 32 lanes or
     more; wide from P = 16 (256, 192, 320: 32 lanes to P = 32, 16 at 64,
-    8 at 128, 4 at 256)."""
+    8 at 128, 4 at 256). A smooth length has the wide tile's code alone
+    (``csrc/fft_axis_smooth.cu``: 32 lanes a block up to 768 threads,
+    then 16, then 8; its P need not divide 256)."""
+    if n in _SMOOTH_LENGTHS:
+        return "wide"
     return "narrow" if n // _reg_values(n) <= 8 else "wide"
 
 

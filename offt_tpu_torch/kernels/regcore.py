@@ -17,9 +17,15 @@ c2r rows at those lengths, ``csrc/real_rows_mix.cu``, block by block in
 :func:`rfft_rows_mix_block` and :func:`rows_c2r_mix_block`, their
 addresses :func:`r2c_mix_addrs`, :func:`c2r_mix_loads`,
 :func:`stage_pitch` and the output copy at a pitch :func:`r2c_mix_copy`,
-their banks :func:`r2c_mix_ways`). No CPU can
-run that
-kernel, so the tests hold this replay of it against numpy and the JAX
+their banks :func:`r2c_mix_ways`); and the smooth lengths R 2^k (R = 9,
+15, 25, 45; ``fused_fft._SMOOTH_LENGTHS``, ``csrc/fft_smooth.cuh``) on
+P = n / 12 or n / 20 threads, not a power of two, a radix-3 or radix-5
+pass for each further odd factor (:func:`smooth_schedule`; the radix-5
+pass at 12 values masked), a block of rows or of columns replayed through
+its exchange planes (:func:`smooth_rows_block`, :func:`smooth_cols_block`,
+:func:`smooth_addr`, :func:`smooth_geometry`), its banks
+:func:`smooth_ways`. No CPU can run those kernels, so the tests hold
+this replay of them against numpy and the JAX
 reference: the same pass radices and strides (:func:`passes`), the same
 twiddle indices into the first n rows of ``tables.core_table`` and the
 same input gathers and output scatters (:func:`pass_maps`), and the same
@@ -78,8 +84,13 @@ def passes(n: int) -> list[tuple[int, int]]:
     """(radix R, stride Ns) of each pass. At a power of two: radix 16 with
     the remainder last (n = 16 ... 16 * R_last), Ns = 16^pass. At a mixed
     length R0 2^k (``MixGeo``): radix 4 over P = n / (4 R0), a radix 2
-    last where log2 P is odd, then radix 4 R0 at stride P; Ns = the
-    product of the radices before."""
+    last where log2 P is odd, then radix 4 R0 at stride P; at a smooth
+    length R 2^k (``SmoothGeo``, :func:`smooth_schedule`): radix 4 over
+    2^(k-2) (a radix 2 last where k is odd), radix 3 or 5 for each odd
+    factor of R / R0, then radix V0 = 4 R0 at stride P; Ns = the product
+    of the radices before."""
+    if n in fused_fft._SMOOTH_LENGTHS:
+        return [(r, ns) for r, ns, _ in smooth_schedule(n)]
     if n in fused_fft._MIX_ROW_LENGTHS:
         p = n // fused_fft._reg_values(n)
         lp = p.bit_length() - 1
@@ -90,11 +101,37 @@ def passes(n: int) -> list[tuple[int, int]]:
         rads = [16] * (npass - 1) + [1 << (log - 4 * (npass - 1))]
     else:
         raise ValueError(f"the register core takes powers of two in "
-                         f"[16, 4096] and the mixed lengths 3 2^k, 5 2^k "
-                         f"(16 <= 2^k <= 512; 3072 as rows), not {n}")
+                         f"[16, 4096], the mixed lengths 3 2^k, 5 2^k "
+                         f"(16 <= 2^k <= 512; 3072 as rows) and the smooth "
+                         f"ones R 2^k (R = 9, 15, 25, 45; k >= 3), not {n}")
     out, ns = [], 1
     for r in rads:
         out.append((r, ns))
+        ns *= r
+    return out
+
+
+def smooth_schedule(n: int) -> list[tuple[int, int, int]]:
+    """(radix R, stride Ns, butterflies B a thread) of each pass of the
+    smooth core at n = R_odd 2^k (``regs::SmoothGeo``): V0 = 4 R0 (R0 = 5
+    at an odd part 25, else 3), P = n / V0 threads a line; radix 4 over
+    2^(k-2) (a radix 2 last where k is odd), then radix 3 (odd part 9),
+    5 (15, 25) or 3 and 5 (45), then V0 at stride P. B = ceil(n / (R P)):
+    V0 / R but at the radix-5 pass of V0 = 12 (2.4 P butterflies: three a
+    thread, the third masked where t + 2 P >= n / 5)."""
+    if n not in fused_fft._SMOOTH_LENGTHS:
+        raise ValueError(f"{n} is not a smooth length of the register core")
+    odd = n
+    while odd % 2 == 0:
+        odd //= 2
+    k = (n // odd).bit_length() - 1
+    v0 = fused_fft._smooth_values(n)
+    p = n // v0
+    rads = [4] * ((k - 2) // 2) + [2] * ((k - 2) % 2)
+    rads += {9: [3], 15: [5], 25: [5], 45: [3, 5]}[odd] + [v0]
+    out, ns = [], 1
+    for r in rads:
+        out.append((r, ns, -(-n // (r * p))))
         ns *= r
     return out
 
@@ -142,6 +179,8 @@ def geometry(n: int) -> dict:
     v = fused_fft._reg_values(n)
     p = n // v
     rows = THREADS // p
+    if n in fused_fft._SMOOTH_LENGTHS:
+        return smooth_geometry(n)
     if n in fused_fft._MIX_ROW_LENGTHS:
         pitch = -(-n // 32) * 32
         return {"P": p, "ROWS": rows, "SIZE": n, "PITCH": pitch, "V": v,
@@ -158,8 +197,11 @@ def geometry(n: int) -> dict:
 def row_at(n: int, a, g=0):
     """Offset of element a of row g in a block's exchange plane: g PITCH
     plus phys(a) at a power of two, plus mix_at(a) ^ row_mask(g) at a mixed
-    length."""
+    length, plus a at a smooth length (no pad: the pitch, P mod 32,
+    carries the bank shift)."""
     pitch = geometry(n)["PITCH"]
+    if n in fused_fft._SMOOTH_LENGTHS:
+        return g * pitch + a
     if n in fused_fft._MIX_ROW_LENGTHS:
         return g * pitch + (mix_at(a) ^ row_mask(n, g))
     return g * pitch + phys(a)
@@ -240,6 +282,18 @@ def dft_pfa(v, inverse: bool = False):
                         for k in range(r)], -1)
 
 
+def _net(v, r: int, inverse: bool):
+    """The kernel's r-point network along the last axis: Good-Thomas at 12
+    and 20, ``regs::dft3`` / ``dft5`` at 3 and 5 (constant roots), the
+    DFT in f32 at a power of two."""
+    if r in (12, 20):
+        return dft_pfa(v, inverse)
+    if r in (3, 5):
+        net = _dft3 if r == 3 else _dft5
+        return torch.stack(net(*v.unbind(-1), inverse), -1)
+    return v @ _dft(r, inverse)
+
+
 def fft_rows(xr, xi, tab, inverse: bool = False, scale: float = 1.0):
     """The kernel's c2c of every (..., n) row of a planar f32 pair: its
     passes on the roots ``tab[:n]`` (a ``core_table`` of n, (re, im)
@@ -252,7 +306,7 @@ def fft_rows(xr, xi, tab, inverse: bool = False, scale: float = 1.0):
         v = d[:, src]
         if ns > 1:
             v = v * w[tw]
-        y = dft_pfa(v, inverse) if r in (12, 20) else v @ _dft(r, inverse)
+        y = _net(v, r, inverse)
         d = torch.empty_like(d)
         d[:, dst] = y
     d = (d * scale).reshape(xr.shape)
@@ -271,8 +325,7 @@ def _butterflies(v, n: int, r: int, ns: int, t, p: int, w,
             j = t + q * p
             blk = blk * w[torch.arange(r)[None, :]
                           * ((j % ns) * (n // (ns * r)))[:, None]]
-        v[:, q * r:(q + 1) * r] = (dft_pfa(blk, inverse) if r in (12, 20)
-                                   else blk @ _dft(r, inverse))
+        v[:, q * r:(q + 1) * r] = _net(blk, r, inverse)
 
 
 def _mix_threads(n: int, threads: int = THREADS) -> tuple:
@@ -548,6 +601,141 @@ def rows_c2r_mix_block(xr, xi, tab, ab):
     return torch.view_as_real(out).reshape(geo["ROWS"], 2 * m)
 
 
+# ---- the smooth lengths (csrc/fft_smooth.cuh) ----
+
+def smooth_geometry(n: int, kind: str = "rows") -> dict:
+    """The block of the smooth core at n: P threads a line, V the values
+    a thread holds at most (VMAX), and for ``kind`` "rows"
+    (``regs::SmoothRowGeo``) ROWS = 256 / P rows a block (one from P =
+    256), NT = ROWS P threads, a row's planes at PITCH floats (n rounded up
+    to P mod 32, no pad, SIZE = n); for "cols" (``SmoothColGeo``) L lanes
+    a block (32 up to 768 threads, then 16, then 8, to P = 128), NT = L P,
+    W = 32 / L row threads a warp, one plane's floats SIZE (one pad slot
+    per four elements); both with the block's dynamic shared memory SMEM
+    in bytes."""
+    sched = smooth_schedule(n)
+    p = n // fused_fft._smooth_values(n)
+    vmax = max(r * b for r, _, b in sched)
+    if kind == "rows":
+        rows = 1 if p >= THREADS else THREADS // p
+        pitch = n + ((p % 32 - n) % 32 + 32) % 32
+        return {"P": p, "ROWS": rows, "NT": rows * p, "SIZE": n,
+                "PITCH": pitch, "V": vmax, "SMEM": 2 * rows * pitch * 4}
+    if n not in fused_fft._SMOOTH_COL_LENGTHS:
+        raise ValueError(f"no smooth column variant at n = {n}")
+    lanes = 32 if 32 * p <= 768 else 16 if 16 * p <= 768 else 8
+    size = ((n - 1 + ((n - 1) >> 2)) * lanes + lanes + 3) // 4 * 4
+    return {"P": p, "L": lanes, "NT": lanes * p, "W": max(1, 32 // lanes),
+            "SIZE": size, "V": vmax, "SMEM": 2 * size * 4}
+
+
+def smooth_addr(n: int, kind: str, threads=None):
+    """(t, addr) of a block of the smooth core: each thread's index t in
+    its line and ``addr(a)``, each thread's float offset of its line's
+    element a in the block's exchange plane. Rows: thread tid of row
+    g = tid // P, t = tid % P, element a at g PITCH + a. Columns: thread
+    (t, l) = (tid // L, tid % L), element a of lane l at (a + a div 4) L
+    + l."""
+    g = smooth_geometry(n, kind)
+    tid = torch.arange(g["NT"])
+    if kind == "rows":
+        row, t = tid // g["P"], tid % g["P"]
+        return t, lambda a: row * g["PITCH"] + a
+    lane, t = tid % g["L"], tid // g["L"]
+    return t, lambda a: (a + (a >> 2)) * g["L"] + lane
+
+
+def _smooth_core(n: int, v0, tab, inverse: bool, kind: str):
+    """``regs::core_smooth`` on one block as it runs: thread i holds
+    ``v0[i]`` (NT, V0), the first pass's inputs, element t + q P + r n/R
+    at v0[:, q R + r]; each later pass puts the outputs of its valid
+    butterflies j = t + q P (j < n / R) into the block's plane at
+    d + r Ns, d = (t div Ns) Ns R + t mod Ns + q P R, and gets its inputs
+    at j + r n/R, through the addresses of :func:`smooth_addr`. Returns
+    v (NT, V0): v[:, k] the output element t + k P of the thread's
+    line."""
+    g = smooth_geometry(n, kind)
+    p, nt = g["P"], g["NT"]
+    t, addr = smooth_addr(n, kind)
+    sched = smooth_schedule(n)
+    w = torch.complex(tab[:n, 0], tab[:n, 1])
+    v = torch.full((nt, g["V"]), complex("nan"), dtype=torch.complex64)
+    v[:, :v0.shape[1]] = v0.to(torch.complex64)
+    plane = torch.full((g["SMEM"] // 8 + 64,), complex("nan"),
+                       dtype=torch.complex64)
+
+    def valid(r, q):
+        return t + q * p < n // r
+
+    def fly(r, ns, b):
+        for q in range(b):
+            ok = valid(r, q)
+            blk = v[ok, q * r:(q + 1) * r]
+            if ns > 1:
+                base = (t[ok] % ns) * (n // (ns * r))
+                blk = blk * w[torch.arange(r)[None, :] * base[:, None]]
+            v[ok, q * r:(q + 1) * r] = _net(blk, r, inverse)
+
+    fly(*sched[0])
+    for (rp, nsp, bp), (r, ns, b) in zip(sched, sched[1:]):
+        x = (t // nsp) * nsp * rp + t % nsp
+        for q in range(bp):
+            ok = valid(rp, q)
+            for k in range(rp):
+                plane[addr(x + q * p * rp + k * nsp)[ok]] = v[ok, q * rp + k]
+        for q in range(b):
+            ok = valid(r, q)
+            for k in range(r):
+                v[ok, q * r + k] = plane[addr(t + q * p + k * (n // r))[ok]]
+        fly(r, ns, b)
+    return v[:, :fused_fft._smooth_values(n)]
+
+
+def _smooth_block(x, tab, inverse: bool, kind: str):
+    """One block of ``regs::rows_smooth`` (``kind`` "rows": ``x`` the
+    block's ROWS rows) or ``cols_smooth`` ("cols": ``x`` its L lines), (K,
+    n) complex64, lines past the data zero, through :func:`_smooth_core`.
+    Returns the (K, n) output."""
+    k, n = x.shape
+    g = smooth_geometry(n, kind)
+    p = g["P"]
+    tid = torch.arange(g["NT"])
+    line, t = (tid // p, tid % p) if kind == "rows" else \
+        (tid % g["L"], tid // g["L"])
+    r, _, b = smooth_schedule(n)[0]
+    e = torch.stack([t + q * p + j * (n // r)
+                     for q in range(b) for j in range(r)], 1)
+    v = _smooth_core(n, x[line[:, None], e], tab, inverse, kind)
+    out = torch.empty(k, n, dtype=torch.complex64)
+    for j in range(v.shape[1]):
+        out[line, t + j * p] = v[:, j]
+    return out
+
+
+def smooth_rows_block(x, tab, inverse: bool = False):
+    """One block of ``regs::rows_smooth`` as it runs, at a smooth n: ``x``
+    the block's ROWS rows (ROWS, n) complex64 (rows past the batch zero),
+    thread tid of row tid // P. Returns the (ROWS, n) output."""
+    return _smooth_block(x, tab, inverse, "rows")
+
+
+def smooth_cols_block(x, tab, inverse: bool = False):
+    """One block of ``regs::cols_smooth`` as it runs, at a smooth column
+    length n: ``x`` the tile's L lines (L, n) complex64 (lanes past the
+    data zero), thread (t, l) = (tid // L, tid % L). Returns the (L, n)
+    output."""
+    return _smooth_block(x, tab, inverse, "cols")
+
+
+def smooth_ways(n: int, kind: str = "rows") -> dict:
+    """{(pass, "put" or "get"): the worst wavefronts a warp instruction
+    takes} on the exchanges of the smooth core's block (``kind`` "rows" or
+    "cols"), from :func:`smooth_addr` (:func:`_exchange_ways`; the rows'
+    first radix-4 pass stores float4)."""
+    t, addr = smooth_addr(n, kind)
+    return _exchange_ways(n, t, addr, kind == "rows")
+
+
 def _by_blocks(n: int, lead, data, block):
     """Run ``block(chunk, valid)`` over (rows, ...) ``data`` ROWS rows at a
     time as the grid does, the ragged last block padded with zero rows
@@ -572,15 +760,17 @@ def fft_last(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
              alias: bool = False):
     """``fft_last``'s register core on planar (..., n) as its grid runs:
     at a mixed length block by block (:func:`rows_mix_block`, ROWS rows a
-    block, the ragged last one masked), at a power of two :func:`fft_rows`;
+    block, the ragged last one masked), at a smooth one likewise
+    (:func:`smooth_rows_block`), at a power of two :func:`fft_rows`;
     ``scale`` at the store. ``alias`` writes over the inputs (a block
     reads its rows whole before it writes any)."""
     n = xr.shape[-1]
-    if n in fused_fft._MIX_ROW_LENGTHS:
+    if n in fused_fft._MIX_ROW_LENGTHS or n in fused_fft._SMOOTH_LENGTHS:
+        blk = (smooth_rows_block if n in fused_fft._SMOOTH_LENGTHS
+               else rows_mix_block)
         y = _by_blocks(n, xr.shape[:-1],
                        (torch.complex(xr, xi).reshape(-1, n),),
-                       lambda c, k: rows_mix_block(c[0], tab, inverse)[:k]
-                       * scale)
+                       lambda c, k: blk(c[0], tab, inverse)[:k] * scale)
         yr, yi = y.real.contiguous(), y.imag.contiguous()
     else:
         yr, yi = fft_rows(xr, xi, tab, inverse, scale)
@@ -628,13 +818,15 @@ def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False,
 def col_at(n: int, a, threads: int = THREADS):
     """Offset, in a column block's exchange plane, of element a of lane 0
     (lane l adds l): the lane is the fastest index, one pad slot per 16
-    elements (``ColLay``), per 4 at a mixed length (``MixColGeo``); at
+    elements (``ColLay``), per 4 at a mixed or smooth length
+    (``MixColGeo``, ``SmoothColGeo``); at
     one lane a block (n = 4096 in 256 threads) a lane is a row, at
     phys."""
     lanes = threads // (n // fused_fft._reg_values(n))
     if lanes == 1:
         return phys(a)
-    sh = 2 if n in fused_fft._MIX_LENGTHS else 4
+    sh = 2 if (n in fused_fft._MIX_LENGTHS
+               or n in fused_fft._SMOOTH_LENGTHS) else 4
     return (a + (a >> sh)) * lanes
 
 
@@ -659,10 +851,18 @@ def axis_tile(n: int, tile: str | None = None) -> dict:
     (``tile`` None: the one its routes launch, ``fused_fft._axis_tile``):
     threads a block, P threads a line, L lanes a block, W row threads a
     warp; "narrow": 256 threads, L = 256 / P (the slabs' y pass); "wide":
-    32 P threads up to 1024 (P >= 16: n >= 256, or 192, 320 mixed)."""
+    32 P threads up to 1024 (P >= 16: n >= 256, or 192, 320 mixed); at a
+    smooth length the one tile of ``SmoothColGeo``
+    (:func:`smooth_geometry`), coded "wide"."""
     passes(n)
     tile = tile or fused_fft._axis_tile(n)
     p = n // fused_fft._reg_values(n)
+    if n in fused_fft._SMOOTH_LENGTHS:
+        if tile != "wide":
+            raise ValueError(f"no {tile!r} lane tile at n = {n}")
+        g = smooth_geometry(n, "cols")
+        return {"tile": tile, "threads": g["NT"], "P": p, "L": g["L"],
+                "W": g["W"]}
     if tile == "narrow":
         nt = THREADS
     elif tile == "wide" and p >= 16:
@@ -753,6 +953,8 @@ def _ways(groups, banks: int = BANKS) -> int:
     address read by several lanes is one broadcast)."""
     worst = 1
     for addrs in groups:
+        if not addrs:
+            continue
         per_bank: dict = {}
         for a in set(addrs):
             per_bank.setdefault(a % banks, set()).add(a)
@@ -771,26 +973,35 @@ def _exchange_ways(n: int, t, addr, vec4: bool) -> dict:
     p = n // fused_fft._reg_values(n)
     out = {}
     sched = passes(n)
+
+    def groups(a, ok, size):
+        # the valid lanes of each warp (size 32) or quarter-warp (8)
+        a, ok = torch.as_tensor(a), torch.as_tensor(ok)
+        return [a[i:i + size][ok[i:i + size]].tolist()
+                for i in range(0, len(a), size)]
+
     for i, (r, ns) in enumerate(sched):
-        nb = fused_fft._reg_values(n) // r
+        # butterflies a thread: V / R, rounded up and masked past n / R
+        nb = -(-n // (r * p))
         if i > 0:
             out[(i, "get")] = max(
-                _ways(addr(t + q * p + k * (n // r)).reshape(-1, 32).tolist())
+                _ways(groups(addr(t + q * p + k * (n // r)),
+                             t + q * p < n // r, 32))
                 for q in range(nb) for k in range(r))
         if i < len(sched) - 1:
             worst = 1
             for q in range(nb):
                 j = t + q * p
+                ok = j < n // r
                 d = (j // ns) * ns * r + j % ns
-                if ns == 1 and vec4:
+                if ns == 1 and vec4 and r % 4 == 0:
                     for k in range(0, r, 4):
-                        chunk = addr(d + k) // 4
-                        worst = max(worst, _ways(chunk.reshape(-1, 8)
-                                                 .tolist(), BANKS // 4))
+                        worst = max(worst, _ways(groups(addr(d + k) // 4, ok,
+                                                        8), BANKS // 4))
                 else:
                     for k in range(r):
-                        worst = max(worst, _ways(addr(d + k * ns)
-                                                 .reshape(-1, 32).tolist()))
+                        worst = max(worst, _ways(groups(addr(d + k * ns), ok,
+                                                        32)))
             out[(i, "put")] = worst
     return out
 
@@ -862,7 +1073,9 @@ def fft_axis(xr, xi, yr, yi, n: int, geom, tab, inverse: bool = False,
     (b, n, y, z) at b sb + n sn + y sy + z, a line per lane l = y nz + z.
     Tile by tile (L consecutive lanes of one b, :func:`axis_tile`, the
     ragged last one masked) it reads the tile's lines whole, runs the row
-    core's passes on each, and writes them times ``scale``: so (yr, yi)
+    core's passes on each (at a smooth length the block through its
+    exchange plane, :func:`smooth_cols_block`), and writes them times
+    ``scale``: so (yr, yi)
     may be (xr, xi), in place. Where ``side_r`` is given (flat (nb n,)
     f32, with ``side_i``), lane 0 of each b takes + i side[b n + e] as
     it loads element e (the column variant's SIDE plane, the c2r slab's
@@ -882,7 +1095,13 @@ def fft_axis(xr, xi, yr, yi, n: int, geom, tab, inverse: bool = False,
                 ar, ai = ar.clone(), ai.clone()
                 ar[0] -= side_i[b * n:(b + 1) * n]
                 ai[0] += side_r[b * n:(b + 1) * n]
-            vr, vi = fft_rows(ar, ai, tab, inverse, scale)
+            if n in fused_fft._SMOOTH_COL_LENGTHS:
+                x = torch.zeros(tl, n, dtype=torch.complex64)
+                x[:len(lane)] = torch.complex(ar, ai)
+                v = smooth_cols_block(x, tab, inverse)[:len(lane)] * scale
+                vr, vi = v.real, v.imag
+            else:
+                vr, vi = fft_rows(ar, ai, tab, inverse, scale)
             yr[dst] = vr.t()
             yi[dst] = vi.t()
 
@@ -971,15 +1190,16 @@ def fft_slab(xr, xi, tabz, taby, inverse: bool = False, scale: float = 1.0,
     """The register ``fft_slab``'s two grids on planar (..., Y, Z): the z
     rows of the first ``z_true`` (or Z) input lanes, unscaled, into an
     output of pitch Z + ``zpad`` (:func:`fft_last`: at a mixed Z through
-    the swizzled exchange planes); then the y columns in place on it,
-    ``scale`` at their store (at a mixed Y the strided-axis kernel's tiles,
+    the swizzled exchange planes, at a smooth one through its block's);
+    then the y columns in place on it, ``scale`` at their store (at a
+    mixed or smooth Y the strided-axis kernel's tiles,
     :func:`fft_axis`, on the (x-rows, Y, 1, Z lanes) geometry).
     ``alias`` writes over the inputs."""
     ny = xr.shape[-2]
     nz = z_true or xr.shape[-1]
     zr, zi = fft_last(xr[..., :nz].contiguous(), xi[..., :nz].contiguous(),
                       tabz, inverse)
-    if ny in fused_fft._MIX_LENGTHS:
+    if ny in fused_fft._MIX_LENGTHS or ny in fused_fft._SMOOTH_COL_LENGTHS:
         st = (ny * nz, nz, 0)
         fr, fi = zr.reshape(-1), zi.reshape(-1)
         fft_axis(fr, fi, fr, fi, ny, (fr.numel() // (ny * nz), 1, nz, st, st),

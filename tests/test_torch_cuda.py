@@ -909,7 +909,7 @@ MIX_LENGTHS = sorted(ff._MIX_LENGTHS)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("geometry", sorted(AXIS_GEOMETRIES))
-@pytest.mark.parametrize("n", REG_LENGTHS + MIX_LENGTHS + [3072, 360])
+@pytest.mark.parametrize("n", REG_LENGTHS + MIX_LENGTHS + [3072, 360, 112])
 def test_cuda_fft_axis_cores(cuda_dev, monkeypatch, n, geometry, dense):
     _axis_core(monkeypatch, dense)
     fn, call, shape, lanes = AXIS_GEOMETRIES[geometry]
@@ -1620,3 +1620,112 @@ def test_cuda_rslab_wide_tile_codes(cuda_dev, code):
         assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
     with pytest.raises(RuntimeError):
         ff.rfft_slab_yz(_pair((2, 256, 256), cuda_dev)[0], phases=code)
+
+
+# ---- the smooth lengths: an odd part of 9, 15, 25 or 45 (fft_smooth.cuh) ----
+
+SMOOTH_ROWS = sorted(ff._SMOOTH_LENGTHS)
+SMOOTH_COLS = sorted(ff._SMOOTH_COL_LENGTHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", SMOOTH_ROWS)
+def test_cuda_fft_last_smooth_rows(cuda_dev, monkeypatch, n, inverse, rows,
+                                   dense):
+    # the register core's rows at every smooth length (fft_last_smooth.cu),
+    # and the dense core on the same lengths
+    if dense:
+        monkeypatch.setattr(ff, "_reg_rows", lambda n: False)
+    _card_check(ff.fft_last, lambda f, x: f(*x, inverse=inverse,
+                                            scale=0.375), (rows, n), cuda_dev)
+    assert ff.fft_last.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [72, 360, 960, 3840])
+def test_cuda_fft_last_smooth_rows_in_place(cuda_dev, n):
+    x = _pair((37, n), cuda_dev, seed=n)
+    want = ff.fft_last.plain(*x, inverse=True, scale=1.0 / n)
+    xr, xi = x[0].clone(), x[1].clone()
+    ff.reset_counts()
+    yr, yi = ff.fft_last(xr, xi, inverse=True, scale=1.0 / n, alias=True)
+    torch.cuda.synchronize()
+    assert yr is xr and yi is xi and ff.fft_last.reg_launches == 1
+    for g, w in zip((yr, yi), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("geometry", sorted(AXIS_GEOMETRIES))
+@pytest.mark.parametrize("n", SMOOTH_COLS + [1920])
+def test_cuda_fft_axis_smooth(cuda_dev, monkeypatch, n, geometry, dense):
+    # the column variant at every smooth column length
+    # (fft_axis_smooth.cu) over the four geometries, in place; 1920 (eight
+    # row threads a warp) keeps the dense core
+    _axis_core(monkeypatch, dense)
+    fn, call, shape, lanes = AXIS_GEOMETRIES[geometry]
+    _card_check(fn, call, shape(n), cuda_dev, lanes=lanes)
+    owner = ff._sublane_nd if geometry == "nd" else fn
+    assert owner.reg_launches == int(n in ff._SMOOTH_COL_LENGTHS
+                                     and not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [144, 360, 1440])
+def test_cuda_fft_axis_smooth_refuses_the_narrow_code(cuda_dev, n):
+    # the smooth column lengths have one tile (the wide code): the C
+    # entry point refuses the narrow one, never a silent other layout
+    x = _pair((2, n, 24), cuda_dev)
+    y = [torch.empty_like(t) for t in x]
+    stages = ff._stages(n, None)
+    tab = ff._tables(None, cuda_dev).get("core", n, stages, False, 1.0)
+    st = [n * 24, 24, 24]
+    with pytest.raises(RuntimeError):
+        ff._launch("offt_fft_axis", (*x, *y), (tab,),
+                   [2, n, 1, 24, *st, *st, *ff._radix_args(stages), 0, 0,
+                    1.0, 1, ff._AXIS_TILES["narrow"]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape,kw,lanes", [
+    ((4, 360, 360), {}, None),
+    ((2, 960, 720), {"zpad": 8, "inverse": True, "scale": 1 / 691200}, 720),
+    ((3, 144, 240), {"scale": 0.5}, None),
+    ((2, 400, 256), {}, None),
+    ((2, 256, 3840), {"inverse": True}, None),
+    ((3, 120, 136), {"z_true": 128, "zpad": 8}, 128)])
+def test_cuda_fft_slab_smooth(cuda_dev, monkeypatch, shape, kw, lanes,
+                              dense):
+    # the register slab at smooth lengths: two grids, z on the smooth rows,
+    # y on the smooth columns (or a power of two beside them)
+    _slab_core(monkeypatch, dense)
+    _card_check(ff.fft_slab_yz, lambda f, x: f(*x, **kw), shape, cuda_dev,
+                lanes=lanes)
+    assert ff.fft_slab_yz.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 144, 360), (360, 360, 360),
+                                   (64, 1, 720, 720)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_plan_smooth_sides(cuda_dev, shape, inverse):
+    # c2c plans whose sides have an odd part of 9, 15, 25 or 45, against
+    # complex128 torch.fft: every slab and strided-axis launch register
+    bd = len(shape) - 3
+    x = _pair(shape, cuda_dev, seed=sum(shape))
+    p = ot.plan(shape[bd:], "complex64", planar=True, inverse=inverse,
+                batch_dims=bd, device=cuda_dev)
+    ff.reset_counts()
+    yr, yi = p(x)
+    torch.cuda.synchronize()
+    for k in ("fft_slab", "fft_axis", "fft_last"):
+        assert ff.kernel_launches(k) == ff.kernel_launches(k, reg=True) \
+            or (k == "fft_axis" and shape[0] == 8)
+    f = torch.fft.ifftn if inverse else torch.fft.fftn
+    ref = f(torch.complex(x[0].double(), x[1].double()), dim=(-3, -2, -1))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6

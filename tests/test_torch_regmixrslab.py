@@ -79,19 +79,22 @@ def _parent_cluster_slab(ny, nz):
     (3072, 128, False), (256, 72, False),       # 3072 as columns; 3^2 8
     (256, 144, False), (8, 128, False), (128, 6144, False)])
 def test_reg_rslab_at_each_class(ny, m, reg):
-    """``_reg_rslab`` is ``_reg_axis(Y) and _reg_real_rows(M)``: the r2c
-    and c2r slabs take the register core wherever each half has its
-    instances, mixed or not, and the dense core elsewhere (Y = 24, 40 or
-    3072; M = 72, 144)."""
+    """``_reg_rslab`` is ``_reg_axis(Y) and _reg_real_rows(M)`` without
+    the smooth Y (the real slabs' y passes have no smooth instance): the
+    r2c and c2r slabs take the register core wherever each half has its
+    instances, mixed or not, and the dense core elsewhere (Y = 24, 40,
+    3072 or smooth; M = 72, 144)."""
     assert ff._reg_rslab(ny, m) is reg
-    assert reg == (ff._reg_axis(ny) and ff._reg_real_rows(m))
+    assert reg == (ff._reg_axis(ny) and ny not in ff._SMOOTH_LENGTHS
+                   and ff._reg_real_rows(m))
 
 
 def test_reg_rslab_over_every_length():
     for ny in ALL:
         for m in ALL:
-            assert ff._reg_rslab(ny, m) == (ff._reg_axis(ny)
-                                            and ff._reg_real_rows(m))
+            assert ff._reg_rslab(ny, m) == (
+                ff._reg_axis(ny) and ny not in ff._SMOOTH_LENGTHS
+                and ff._reg_real_rows(m))
 
 
 def test_cluster_predicates_unchanged_on_every_shape():

@@ -47,3 +47,28 @@ def module(name: str):
     if str(EXAMPLES) not in sys.path:
         sys.path.insert(0, str(EXAMPLES))
     return importlib.import_module(name)
+
+
+def stress(name: str, at_once: int = 12, runs: int = 48) -> list:
+    """``runs`` runs of the mesh example ``name`` under torchrun (4 ranks,
+    ``--device cpu``), ``at_once`` worlds at a time: a load under which
+    an unsteady teardown shows. Returns the failures as (returncode, the
+    end of stderr)."""
+    import concurrent.futures as cf
+
+    def one(_):
+        out = run(name, "--device", "cpu", world=WORLD)
+        ok = (out.returncode == 0
+              and out.stdout.splitlines().count("OK") == 1)
+        return None if ok else (out.returncode, out.stderr[-3000:])
+
+    with cf.ThreadPoolExecutor(at_once) as ex:
+        return [f for f in ex.map(one, range(runs)) if f is not None]
+
+
+if __name__ == "__main__":
+    # python tests/torch_examples.py dist1d_signal [at_once] [runs]
+    fails = stress(sys.argv[1], *map(int, sys.argv[2:4]))
+    for rc, err in fails:
+        print(f"rc {rc}:\n{err}")
+    print(f"{len(fails)} failed")
