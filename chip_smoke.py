@@ -19,8 +19,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``rfft_last`` and the packed c2r rows (``icrfft_last``: (65536, 128)
    among them) also on the mixed real rows (``csrc/real_rows_mix.cu``:
    ``rfft_last`` (36864, 192) in both layouts, (300, 96), (37, 6144);
-   ``icrfft_last`` (36864, 96), (300, 48), (37, 3072); the dense core at
-   M = 72), and the three slab kernels (``fft_slab``, ``rfft_slab``,
+   ``icrfft_last`` (36864, 96), (300, 48), (37, 3072)), and the three
+   slab kernels (``fft_slab``, ``rfft_slab``,
    ``irfft_slab``; the r2c and c2r slabs also at a mixed (Y, M) on the
    register core's two grids: (4, 768, 768), (16, 1280, 1280),
    (8, 96, 512) and (8, 48, 192), the c2r with and without its side
@@ -63,7 +63,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``fft_sublane`` at every column length (``_SMOOTH_COL_LENGTHS``, on
    the lane tile ``_axis_tile`` picks) both ways, the pitched x passes at
    360 and 960, and the c2c slab at (4, 360, 360), (2, 960, 720) and
-   (3, 144, 144) in place, each one register-core launch;
+   (3, 144, 144) in place, each one register-core launch; and the real
+   rows at every smooth half length M (``csrc/real_rows_smooth.cu``:
+   ``smooth_real_checks``, on a generator of their own): ``rfft_last``
+   in the numpy layout and packed, scaled, over a ragged last block, and
+   ``icrfft_last`` scaled, each one register-core launch, then
+   ``rfft_last`` at M = 180 on the dense core;
 3. the paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
@@ -88,7 +93,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    d. the unfused real route: 256^3 with ``planar=False``, 192^3 and
       320^3 outside the packed gate (``rfft_last`` at M = 96 and 160 on
       the mixed real rows) and a long real 1-D (1, 1, 2^21) (``rfftn`` /
-      ``irfftn``);
+      ``irfftn``); and at the smooth half lengths, each case in a counter
+      window of its own and timed beside ``torch.fft.rfftn`` and the
+      dense core (``smooth_real_phase``): ``plan(..., real=True)`` r2c at
+      the default point of 144^3, 400^3 and 720^3 (``rfft_last`` at M =
+      72, 200, 360 on the smooth real rows);
    e. the distributed pencil engine, ``plan(..., mesh=make_mesh(1, 1))``
       in a world of one rank on NCCL (its exchanges have a group of one
       and are skipped, as in the reference; the chunks, the ry split, the
@@ -96,7 +105,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       default knobs and with t = 4, w = 1, ry = 5; 256^3 r2c / c2r packed
       (the c2r stage is ``icrfft_last``) and in the numpy layout; 512^3
       and 192^3 (``icrfft_last`` at M = 96) packed r2c / c2r; a
-      ``batch_sharded`` 4 x 128^3 c2c;
+      ``batch_sharded`` 4 x 128^3 c2c; and in a counter window of its own,
+      timed beside ``irfftn(rfftn)`` and the dense core, 480^3 packed r2c
+      then c2r (``rfft_last`` and ``icrfft_last`` at M = 240 on the smooth
+      real rows), the spectrum against complex128 ``rfftn``, the round
+      trip against the input;
    f. the cube kernel through ``fft3d_cube``: 8 x 128^3 forward and
       inverse, and the longest z the gate admits, 8 x 8 x 32768 (the
       register cube's split z: the four-step pair's bodies);
@@ -138,10 +151,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       by CUDA events, the plan cache in a temporary directory: a brute
       force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d
       alone: its default split runs both kernels on the register core),
-      Nelder-Mead over (112, 112, 144) r2c's (the radices and
-      block_batch of the dense rfft_last at M = 72 and of the dense axes
-      of 112; 12 trials; 144^3 until its axes of 144 took the smooth
-      columns), and 256^3 c2c, whose space is
+      Nelder-Mead over (112, 112, 360) r2c's (the radices and
+      block_batch of the dense rfft_last at M = 180 and of the dense axes
+      of 112; 12 trials; (112, 112, 144) until the smooth real rows took
+      M = 72, 144^3 until its axes of 144 took the smooth columns), and
+      256^3 c2c, whose space is
       empty (nothing to search: the default point timed); each with its
       space, trials, default and best time, speedup and winner, best <=
       default after the refinement pass, the winner read back from the
@@ -193,8 +207,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of 3b (the c2r's ``fft_x_to_padded`` among them) and every axis pass
    of 3d (192^3's and 320^3's among them), ``irfft_slab`` on 3b's 256^3,
    512^3 and 768^3 c2r, every ``fft_last``, ``fft_slab`` and ``fft_axis``
-   launch of 3a's smooth windows, ``icrfft_last`` on every packed c2r of
-   3e (192^3's among them), and ``step1_twiddle``
+   launch of 3a's smooth windows, every ``rfft_last`` and ``icrfft_last``
+   launch of 3d's and 3e's smooth windows, ``icrfft_last`` on every
+   packed c2r of 3e (192^3's among them), and ``step1_twiddle``
    / ``step3_transposed`` on every split of 3c (the mixed sides of 3 *
    2^18, 3 * 2^20, 5 * 2^20 and 5 * 2^21 among them, each also in its own
    window) and throughout 3d and 3g, and the
@@ -249,8 +264,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernels so at
    every register-core length 16-4096 (``fft_last`` also at every mixed
    length of its rows, beside ``torch.fft.fft``; ``rfft_last`` and
-   ``icrfft_last`` at every mixed M of theirs, beside ``torch.fft.rfft``
-   and ``irfft``, with their bounds), both slab kernels so
+   ``icrfft_last`` at every mixed and smooth M of theirs, beside
+   ``torch.fft.rfft`` and ``irfft``, with their bounds), both slab kernels so
    at 512^3,
    ``fft_axis`` on each of its main-path shapes (with its achieved TB/s)
    and ``irfft_slab`` at 512^3 (two grids), and ``irfft_slab`` in
@@ -295,7 +310,9 @@ the dense core's time at the same shape (the pair's two rows also
 ``fft_last``, ``fft_slab``, ``rfft_last`` and ``icrfft_last`` also
 ``mixed``: the same numbers at their mixed-length shape, (102400, 320),
 (320, 320, 320), (36864, 192) (numpy layout; ``mixed_packed`` the packed
-one) and (36864, 96); ``fft_last``, ``fft_slab`` and ``fft_axis`` also
+one) and (36864, 96); ``rfft_last`` and ``icrfft_last`` also ``smooth``:
+(518400, 720), 720^3's z rows (numpy layout), and (230400, 240), 480^3's
+packed c2r z stage; ``fft_last``, ``fft_slab`` and ``fft_axis`` also
 ``smooth`` and ``smooth_960``: (129600, 360) and (9600, 960), the 360^3
 slab and 16 x-rows of the 960^3 one, the x pass of 360^3 and of 960
 over (64, 960) lanes (``fft_x_from_padded``, 8 pad lanes);
@@ -446,7 +463,9 @@ SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 # step 3 of 5 * 2^20; and the smooth lengths (csrc/fft_smooth.cuh): the
 # 360^3 slab's z rows, the 360^3 slab, its x pass (fft_x_from_padded, the
 # main shape's wrapper: 360 lanes of 368), and at 960 rows, 16 x-rows of
-# the 960^3 slab and an x pass of 960 over (64, 960) lanes
+# the 960^3 slab and an x pass of 960 over (64, 960) lanes; the real rows
+# at a smooth half length: 720^3's z rows (r2c, numpy layout) and 480^3's
+# packed c2r z stage
 MIXED_SHAPES = {
     "step1_twiddle": {
         "mixed": ((1, 1536, 2048),
@@ -465,8 +484,10 @@ MIXED_SHAPES = {
                  "smooth_960": ((960, 64, 968), lambda f, x: f(*x, 960))},
     "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
                   "mixed_packed": ((36864, 192),
-                                   lambda f, x: f(x[0], packed=True))},
-    "icrfft_last": {"mixed": ((36864, 96), lambda f, x: f(*x))},
+                                   lambda f, x: f(x[0], packed=True)),
+                  "smooth": ((518400, 720), lambda f, x: f(x[0]))},
+    "icrfft_last": {"mixed": ((36864, 96), lambda f, x: f(*x)),
+                    "smooth": ((230400, 240), lambda f, x: f(*x))},
     "rfft_slab": {"mixed": ((768, 768, 768), lambda f, x: f(x[0], zpad=8)),
                   "mixed_1280": ((16, 1280, 1280),
                                  lambda f, x: f(x[0], zpad=8))},
@@ -488,14 +509,15 @@ def _window(ff, run) -> tuple:
 
 
 @contextlib.contextmanager
-def _dense_core(ff):
+def _dense_core(ff, names=("_reg_core", "_reg_real_rows", "_reg_rows",
+                           "_reg_axis", "_reg_slab", "_reg_rslab",
+                           "_reg_cube")):
     """Every length routed to the dense core (the predicates
     ``fused_fft._reg_core`` (the four-step pair), ``_reg_real_rows`` (the
     r2c and c2r rows), ``_reg_rows`` (``fft_last``), ``_reg_slab``,
-    ``_reg_rslab``, ``_reg_axis`` and ``_reg_cube`` patched off): the
-    earlier kernels on the same data, for comparison."""
-    names = ("_reg_core", "_reg_real_rows", "_reg_rows", "_reg_axis",
-             "_reg_slab", "_reg_rslab", "_reg_cube")
+    ``_reg_rslab``, ``_reg_axis`` and ``_reg_cube`` patched off), or the
+    kernels of ``names`` alone: the earlier kernels on the same data, for
+    comparison."""
     keep = [getattr(ff, k) for k in names]
     for k in names:
         setattr(ff, k, lambda *n: False)
@@ -674,6 +696,162 @@ def smooth_phase(ot, ff, gen, window, tag, time_cuda=None,
                   f"{tag}", flush=True)
         # the case's inputs go with its closures before the next case's
         del run, pf
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return runs, times
+
+
+# ---- 2, 3d and 3e at the smooth half lengths (real_rows_smooth*.cu) -------
+
+def smooth_real_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL) -> dict:
+    """The real rows at every smooth half length M
+    (``fused_fft._SMOOTH_LENGTHS``) against their plain versions:
+    ``rfft_last_planar`` in the numpy layout and packed, scaled, over a
+    ragged last block (an odd batch), and ``icrfft_last_planar`` scaled,
+    each one register-core launch; then ``rfft_last_planar`` at M = 180
+    (45 * 4: no row core's length), both layouts, one dense-core launch.
+    Each must agree within ``tol`` (max |k - p| / max |p|). Returns
+    {kernel: max |k - p|}."""
+    cases = []
+    for m in sorted(ff._SMOOTH_LENGTHS):
+        rows = max(37, (1 << 18) // m) | 1
+        for packed in (False, True):
+            cases.append(("rfft_last", ff.rfft_last_planar,
+                          lambda f, x, packed=packed: f(
+                              x[0], packed=packed, scale=0.25),
+                          (rows, 2 * m), 1))
+        cases.append(("icrfft_last", ff.icrfft_last_planar,
+                      lambda f, x, m=m: f(*x, scale=0.5 / m), (rows, m), 1))
+    for packed in (False, True):
+        cases.append(("rfft_last", ff.rfft_last_planar,
+                      lambda f, x, packed=packed: f(x[0], packed=packed),
+                      (37, 360), 0))
+    errs = {}
+    for name, fn, call, shape, want_reg in cases:
+        x = (torch.randn(shape, generator=gen, device=device),
+             torch.randn(shape, generator=gen, device=device))
+        want = call(fn.plain, x)
+        ff.reset_counts()
+        got = call(fn, x)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ran = (ff.kernel_launches(name), ff.kernel_launches(name, reg=True))
+        rel, absd = _max_err(got, want)
+        core = "register core" if want_reg else "dense core"
+        print(f"check {name} via {fn.__name__} {shape} (smooth real rows) "
+              f"[{core}]: max rel err {rel:.3e}, max abs err {absd:.3e} "
+              f"(tol {tol:g}) {tag}", flush=True)
+        if device == "cuda" and ran != (1, want_reg):
+            raise AssertionError(f"{name} {shape}: (launches, register) "
+                                 f"{ran}, want (1, {want_reg})")
+        if rel > tol:
+            raise AssertionError(f"{name} {shape} disagrees with its plain "
+                                 "version")
+        errs[name] = max(errs.get(name, 0.0), absd)
+        del x, want, got
+    return errs
+
+
+# the real paths at the smooth half lengths: (label, shape, on the 1 x 1
+# mesh); the local ones run r2c (3d), the mesh one packed r2c -> c2r (3e)
+SMOOTH_REAL = (
+    ("144^3 r2c", (144, 144, 144), False),
+    ("400^3 r2c", (400, 400, 400), False),
+    ("720^3 r2c", (720, 720, 720), False),
+    ("480^3 mesh 1x1 packed r2c -> c2r", (480, 480, 480), True),
+)
+
+
+def smooth_real_phase(ot, ff, gen, window, tag, time_cuda=None, mesh=None,
+                      cases=SMOOTH_REAL, device="cuda",
+                      tol=TOL_PATH) -> tuple:
+    """3d and 3e at the smooth half lengths, each case of ``cases`` in a
+    counter window of its own (``window``): without ``mesh`` the local
+    cases, ``plan(..., real=True)`` r2c at the default point
+    (``use_cache=False``; ``rfft_last`` then y and x) against complex128
+    ``torch.fft.rfftn``; with ``mesh`` the mesh cases, a packed r2c then
+    c2r on it (the pencil engine; its z stages ``rfft_last`` and
+    ``icrfft_last``), the spectrum against complex128 ``rfftn`` and the
+    round trip against the input (``tol`` each). With ``time_cuda`` each
+    timed (CUDA events, the host ahead) beside ``torch.fft`` on the same
+    data (``rfftn``; ``irfftn(rfftn)``), beside the dense core
+    (``_dense_core``) and beside the route with only the real rows on the
+    dense core (``_reg_real_rows`` patched off: the route before the
+    smooth real rows). Returns ({label: (reading, kernels)}, {label:
+    times})."""
+    runs, times = {}, {}
+    for label, shape, on_mesh in cases:
+        if on_mesh != (mesh is not None):
+            continue
+        x = torch.randn(shape, generator=gen, device=device)
+        kw = {"real": True, "planar": True, "use_cache": False}
+        if on_mesh:
+            pf = ot.plan(shape, "float32", mesh=mesh, packed=True, **kw)
+            pi = ot.plan(shape, "float32", mesh=mesh, packed=True,
+                         inverse=True, **kw)
+            if pf.route != "pencil" or pi.route != "pencil":
+                raise AssertionError(f"{label}: routes {pf.route}, "
+                                     f"{pi.route}")
+
+            def run(pf=pf, pi=pi, x=x):
+                y = pf(x[pf.input_block(x.shape)])
+                return y, pi(*(t[pi.input_block(t.shape)] for t in y))
+            kernels = ("rfft_last", "icrfft_last")
+        else:
+            pf = ot.plan(shape, "float32", device=device, **kw)
+            if pf.route != "local":
+                raise AssertionError(f"{label}: route {pf.route}")
+
+            def run(pf=pf, x=x):
+                return pf(x), None
+            kernels = ("rfft_last", "fft_axis")
+        (y, back), reading = window(run)
+        runs[f"smooth {label}"] = (reading, kernels)
+        if on_mesh:
+            y = ot.unpack_rfft3d(*y)
+        want = (*shape[:-1], shape[-1] // 2 + 1)
+        if tuple(y[0].shape) != want:
+            raise AssertionError(f"{label}: shape {tuple(y[0].shape)}")
+        ref = torch.fft.rfftn(x.double())
+        err = _rel_err_chunked(*y, ref)
+        del ref, y
+        what = f"rel err vs complex128 rfftn {err:.3e}"
+        if back is not None:
+            if tuple(back.shape) != shape:
+                raise AssertionError(f"{label}: c2r shape "
+                                     f"{tuple(back.shape)}")
+            rt = _rel_err(back, None, x.double())
+            err = max(err, rt)
+            what += f", the round trip vs the input {rt:.3e}"
+        del back
+        print(f"path {label} (smooth real rows): {what} (tol {tol:g}) "
+              f"{tag}", flush=True)
+        if err > tol:
+            raise AssertionError(f"{label}: error {err:.3e}")
+        if time_cuda is not None:
+            t_k = time_cuda(run, ahead=True)["median_ms"]
+            with _dense_core(ff):
+                t_d = time_cuda(run, ahead=True)["median_ms"]
+            with _dense_core(ff, ("_reg_real_rows",)):
+                t_r = time_cuda(run, ahead=True)["median_ms"]
+            if on_mesh:
+                def lib_run(x=x):
+                    return torch.fft.irfftn(torch.fft.rfftn(x), s=shape)
+                lib = "irfftn(rfftn)"
+            else:
+                def lib_run(x=x):
+                    return torch.fft.rfftn(x)
+                lib = "rfftn"
+            t_l = time_cuda(lib_run, ahead=True)["median_ms"]
+            times[label] = {"ms": t_k, "library_ms": t_l, "dense_ms": t_d,
+                            "dense_rows_ms": t_r}
+            print(f"time {label} (smooth real rows) {shape}: the port "
+                  f"{t_k:.4f} ms, torch.fft {lib} {t_l:.4f} ms "
+                  f"({t_k / t_l:.2f}x cuFFT), the dense core {t_d:.4f} ms "
+                  f"({t_d / t_k:.2f}x the port), the real rows alone on "
+                  f"the dense core {t_r:.4f} ms ({t_r / t_k:.2f}x) {tag}",
+                  flush=True)
+        del run, pf, x
         if device == "cuda":
             torch.cuda.empty_cache()
     return runs, times
@@ -1338,11 +1516,12 @@ TUNE_CASES = (
     # core, so block_batch is not searched)
     ("a", (1, 1, 3 * 2 ** 18), False, "brute", None, None,
      ("step1_twiddle", "step3_transposed")),
-    # a real route whose rfft_last runs the dense core (M = 72, 3^2 8: no
-    # real rows there) and its axes (112 = 7 16: no register schedule) too,
-    # so that radix_z, radix_y, radix_x and block_batch are searched (144^3
-    # until the smooth columns took its axes of 144)
-    ("b", (112, 112, 144), True, "nm", 12, None, ("rfft_last", "fft_axis")),
+    # a real route whose rfft_last runs the dense core (M = 180 = 45 4: no
+    # row core's length; pick (18, 10)) and its axes (112 = 7 16: no
+    # register schedule) too, so that radix_z, radix_y, radix_x and
+    # block_batch are searched ((112, 112, 144) until the smooth real rows
+    # took M = 72; 144^3 until the smooth columns took its axes of 144)
+    ("b", (112, 112, 360), True, "nm", 12, None, ("rfft_last", "fft_axis")),
     # every kernel on the register core: the card's space is empty, and
     # the default point is timed
     ("c", (256, 256, 256), False, "nm", None, None,
@@ -2161,8 +2340,9 @@ def main() -> int:
         ("rfft_last", ff.rfft_last_planar, rlast(False), (37, 256), None),
         ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 258), None),
         ("rfft_last", ff.rfft_last_planar, rlast(False), (37, 258), None),
-        # the mixed real rows (M = 48, 3072; 192^3's M = 96) and the dense
-        # core at M = 72
+        # the mixed real rows (M = 48, 3072; 192^3's M = 96) and M = 72 (the
+        # dense core until the smooth real rows took it; the dense core's
+        # checks are smooth_real_checks' M = 180)
         ("rfft_last", ff.rfft_last_planar, rlast(False), (300, 96), None),
         ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 6144), None),
         ("rfft_last", ff.rfft_last_planar, rlast(True), (37, 144), None),
@@ -2353,6 +2533,14 @@ def main() -> int:
     # the smooth rows and columns (csrc/fft_smooth.cuh) at every length,
     # after the checks above, which keep their draws
     for name, err in smooth_checks(ff, gen, tag).items():
+        per_kernel[name]["max_abs_err"] = max(
+            per_kernel[name]["max_abs_err"], err)
+    # the real rows at every smooth M (real_rows_smooth*.cu) and their
+    # paths (3d, 3e) draw from a generator of their own, so that every
+    # earlier check and path keeps its inputs
+    sgen = torch.Generator(device="cuda")
+    sgen.manual_seed(22)
+    for name, err in smooth_real_checks(ff, sgen, tag).items():
         per_kernel[name]["max_abs_err"] = max(
             per_kernel[name]["max_abs_err"], err)
 
@@ -2650,6 +2838,11 @@ def main() -> int:
         del ref, got
     del results, inputs
     torch.cuda.empty_cache()
+    # 3d at the smooth half lengths (144^3, 400^3, 720^3 r2c: rfft_last at
+    # M = 72, 200, 360 on the smooth real rows), each case in a counter
+    # window of its own, timed beside cuFFT and the dense core
+    smooth_real_runs, _ = smooth_real_phase(
+        ot, ff, sgen, lambda fn: _window(ff, fn), tag, time_cuda)
 
     # ---- 3e. the pencil engine through plan(mesh=make_mesh(1, 1)) ---------
     # a world of one rank on NCCL; its exchanges have groups of one
@@ -2754,6 +2947,12 @@ def main() -> int:
         del ref, got
     del results, inputs
     torch.cuda.empty_cache()
+    # 3e at a smooth half length: 480^3 packed r2c -> c2r on the 1 x 1 mesh
+    # (rfft_last and icrfft_last at M = 240 on the smooth real rows), in a
+    # counter window of its own, timed beside cuFFT and the dense core
+    mesh_runs, _ = smooth_real_phase(
+        ot, ff, sgen, lambda fn: _window(ff, fn), tag, time_cuda, mesh=mesh)
+    smooth_real_runs.update(mesh_runs)
 
     # ---- 3f. the cube kernel through fft3d_cube ----------------------------
     cube_cases = [
@@ -2895,7 +3094,8 @@ def main() -> int:
                                        "fft_last", "fft_axis", "rfft_last")}
     for label, (reading, kernels) in {**grad_runs, **tune_runs,
                                       **bench_runs,
-                                      **smooth_runs}.items():
+                                      **smooth_runs,
+                                      **smooth_real_runs}.items():
         runs[label] = reading
         path_kernels[label] = kernels
     for path, (counts, launched, regs) in runs.items():
@@ -2998,6 +3198,18 @@ def main() -> int:
         print(f"register core: {label}: " + ", ".join(
             f"{k} {regs[k]} of {launched[k]}" for k in
             ("fft_last", "fft_slab", "fft_axis") if launched[k]))
+    # 3d and 3e at the smooth half lengths: every rfft_last and icrfft_last
+    # launch of each case on the register core (the smooth real rows)
+    for label in smooth_real_runs:
+        launched, regs = runs[label][1], runs[label][2]
+        off = {k: (regs[k], launched[k]) for k in
+               ("rfft_last", "icrfft_last") if regs[k] != launched[k]}
+        if off or not launched["rfft_last"]:
+            raise AssertionError(f"{label}: not on the register core "
+                                 f"(register, launches): {off}")
+        print(f"register core: {label}: " + ", ".join(
+            f"{k} {regs[k]} of {launched[k]}" for k in
+            ("rfft_last", "icrfft_last", "fft_axis") if launched[k]))
     # the 1 x 1 mesh's packed c2r stages (256^3, 512^3, 192^3: M = 128,
     # 256, 96) on the register core's c2r rows, and its r2c z stages
     # (rfft_last at the same M) on its r2c rows
@@ -3592,10 +3804,12 @@ def main() -> int:
               f"{r_reg:.4f} ms ({nbytes / r_reg / 1e9:.2f} TB/s), dense "
               f"{r_dense:.4f} ms, fft(dim=-1) {r_lib:.4f} ms "
               f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
-    # rfft_last (numpy layout) and icrfft_last at every mixed M of the
-    # real rows (``_MIX_ROW_LENGTHS``), as many whole rows as 2^24 real
-    # samples hold, each core, the library call and the bound
-    for m in sorted(ff._MIX_ROW_LENGTHS):
+    # rfft_last (numpy layout) and icrfft_last at every mixed and smooth M
+    # of the real rows (``_MIX_ROW_LENGTHS``, ``_SMOOTH_LENGTHS``), as many
+    # whole rows as 2^24 real samples hold, each core, the library call and
+    # the bound
+    for m in sorted(ff._MIX_ROW_LENGTHS | ff._SMOOTH_LENGTHS):
+        kind = "smooth" if m in ff._SMOOTH_LENGTHS else "mixed"
         rows = (1 << 23) // m
         spec = torch.complex(xr[:rows * (m + 1)].view(rows, m + 1),
                              xi[:rows * (m + 1)].view(rows, m + 1))
@@ -3612,7 +3826,7 @@ def main() -> int:
             lib_args = args if name == "rfft_last" else (spec,)
             r_lib = time_cuda(lib, lib_args, ahead=True)["median_ms"]
             bms, _ = kernel_bound(name, shp)
-            print(f"sweep {name} M={m} rows={rows} (mixed): register "
+            print(f"sweep {name} M={m} rows={rows} ({kind}): register "
                   f"{r_reg:.4f} ms ({bms / r_reg:.3f} of its bound "
                   f"{bms:.4f} ms), dense {r_dense:.4f} ms, "
                   f"{lib.__name__} {r_lib:.4f} ms ({r_reg / r_lib:.2f}x) "

@@ -38,18 +38,7 @@ cudaError_t last_smooth(const float* xr, const float* xi, float* yr,
                    : regs::launch_rows_smooth<N, false>(
                          xr, xi, yr, yi, tab, rows, ipitch, opitch, scale, s);
   };
-  switch (regs::odd_part(n)) {
-    case 9:
-      return regs::by_smooth_odd<9>(n, run);
-    case 15:
-      return regs::by_smooth_odd<15>(n, run);
-    case 25:
-      return regs::by_smooth_odd<25>(n, run);
-    case 45:
-      return regs::by_smooth_odd<45>(n, run);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return regs::by_smooth(n, run);
 }
 
 }  // namespace offt

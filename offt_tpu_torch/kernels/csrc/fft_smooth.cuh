@@ -3,8 +3,12 @@
 // 120-3840, 200-3200, 360-2880), as rows (rows_smooth: fft_last.cu through
 // fft_last_smooth.cu, the z pass of fft_slab.cu) and in the column variant
 // (cols_smooth: fft_axis.cu through fft_axis_smooth.cu, the y pass of
-// fft_slab.cu). Every other length keeps its core: the powers of two and
-// R0 2^k (R0 = 3, 5) of fft_regs.cuh, the dense core of fft_core.cuh.
+// fft_slab.cu), and as the real rows of rfft_last.cu and icrfft_last.cu at
+// those half lengths M (rows_r2c_smooth, rows_c2r_smooth:
+// real_rows_smooth.cu). Every other length keeps its core: the powers of
+// two and R0 2^k (R0 = 3, 5) of fft_regs.cuh, the dense core of
+// fft_core.cuh; the real slabs, the four-step pair and the cube keep theirs
+// at these lengths too.
 //
 // Replaces, at those lengths: the dense shared-memory core of fft_core.cuh
 // (the port of offt_tpu/kernels/pallas_fft.py _core_apply :428). It
@@ -409,6 +413,23 @@ static cudaError_t by_smooth_odd(int n, F&& f) {
   } else {
     if (n == N) return f(std::integral_constant<int, N>());
     return by_smooth_odd<R, LAST, 2 * N>(n, std::forward<F>(f));
+  }
+}
+
+// f(std::integral_constant<int, M>) at a smooth M; an error at any other
+template <typename F>
+static cudaError_t by_smooth(int m, F&& f) {
+  switch (odd_part(m)) {
+    case 9:
+      return by_smooth_odd<9>(m, f);
+    case 15:
+      return by_smooth_odd<15>(m, f);
+    case 25:
+      return by_smooth_odd<25>(m, f);
+    case 45:
+      return by_smooth_odd<45>(m, f);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

@@ -24,6 +24,10 @@
 // - the mixed M = 3 2^k in [48, 1536] and 3072, 5 2^k in [80, 2560] run
 //   the same design on the mixed rows (regs::rows_c2r_mix,
 //   real_rows_mix.cu, a source of its own);
+// - the smooth M = R 2^k with an odd part R of 9, 15, 25 or 45 (k >= 3:
+//   72-2304, 120-3840, 200-3200, 360-2880) run it on the smooth rows of
+//   fft_smooth.cuh (regs::rows_c2r_smooth, real_rows_smooth.cu, a source
+//   of its own);
 // - every other M runs the dense core of fft_core.cuh: a block owns T
 //   whole rows, read in order with consecutive threads on consecutive
 //   lanes and stored column-wise (pencil stride TP = T | 1, odd, so the
@@ -34,6 +38,7 @@
 //   set the pace: 0.064 of the byte bound at (65536, 128) (PERF.md).
 
 #include "fft_core.cuh"
+#include "fft_smooth.cuh"
 #include "regs_kernels.cuh"
 
 namespace offt {
@@ -61,10 +66,10 @@ icrfft_last_kernel(const float* xr, const float* xi, float* out,
 
 }  // namespace offt
 
-// reg != 0: the register core (m a power of two in [16, 4096], or a mixed
-// M of real_rows_mix.cu; the first m rows of the inverse core table and
-// `ab` are read, the radices and T are not); else the dense core
-// (radices, T).
+// reg != 0: the register core (m a power of two in [16, 4096], a mixed M
+// of real_rows_mix.cu or a smooth one of real_rows_smooth.cu; the first m
+// rows of the inverse core table and `ab` are read, the radices and T are
+// not); else the dense core (radices, T).
 extern "C" int offt_icrfft_last(const void* xr, const void* xi, void* out,
                                 const void* tab, const void* ab,
                                 long long rows, int m, int ns, int r0,
@@ -72,6 +77,11 @@ extern "C" int offt_icrfft_last(const void* xr, const void* xi, void* out,
                                 void* stream) {
   using namespace offt;
   if (reg) {
+    if (regs::smooth_length(m))
+      return (int)icrfft_smooth((const float*)xr, (const float*)xi,
+                                (float*)out, (const float2*)tab,
+                                (const float2*)ab, rows, m,
+                                (cudaStream_t)stream);
     if (m & (m - 1))
       return (int)icrfft_mix((const float*)xr, (const float*)xi, (float*)out,
                              (const float2*)tab, (const float2*)ab, rows, m,

@@ -8,7 +8,9 @@
 // - rows_c2r: c2r of packed half-spectrum rows, the re-tangle as the core
 //   loads, the inverse M-point core, float2 stores (irfft_slab.cu,
 //   icrfft_last.cu); rows_r2c and rows_c2r at the mixed M of the rows
-//   (MixRowGeo) are rows_r2c_mix and rows_c2r_mix, in real_rows_mix.cu;
+//   (MixRowGeo) are rows_r2c_mix and rows_c2r_mix, in real_rows_mix.cu,
+//   and at the smooth M (fft_smooth.cuh's SmoothRowGeo) rows_r2c_smooth
+//   and rows_c2r_smooth, in real_rows_smooth.cu;
 // - cols_c2c: the column variant, c2c along a strided axis (fft_axis.cu;
 //   the y pass of the slabs), on the (B, N, Y, Z) geometry of fft_axis.cu,
 //   in blocks of 256 threads or of 32 lines up to 1024 threads;
@@ -1056,6 +1058,19 @@ cudaError_t axis_smooth(const float* xr, const float* xi, float* yr,
                         float* yi, const float2* tab, const AxisGeom& g,
                         int n, int inverse, float scale, int tile,
                         cudaStream_t s);
+// The real rows at the smooth half lengths m of fft_smooth.cuh
+// (real_rows_smooth.cu): r2c of `rows` real rows of 2m floats into the
+// numpy (m + 1 lanes) or packed (m lanes) planar rows at `opitch` floats
+// (at least the lanes), times `scale`; c2r of `rows` packed planar rows
+// of m lanes, contiguous, into real rows of 2m floats, the scale riding
+// ab.
+cudaError_t rfft_smooth(const float* x, float* yr, float* yi,
+                        const float2* tab, const float2* w, long long rows,
+                        int m, float scale, int packed, long long opitch,
+                        cudaStream_t s);
+cudaError_t icrfft_smooth(const float* xr, const float* xi, float* out,
+                          const float2* tab, const float2* ab, long long rows,
+                          int m, cudaStream_t s);
 // The four-step pair at a mixed length (fourstep_mix.cu), n = R0 2^k,
 // 16 <= 2^k <= 512: step 1 along n1 of g, unscaled, each output times
 // its entry of the (n1, lanes) table tw, on the lane tile `tile`

@@ -29,6 +29,11 @@
 // - the mixed M = 3 2^k in [48, 1536] and 3072, 5 2^k in [80, 2560]: the
 //   same design on the mixed rows (regs::rows_r2c_mix, real_rows_mix.cu,
 //   a source of its own);
+// - the smooth M = R 2^k with an odd part R of 9, 15, 25 or 45 (k >= 3:
+//   72-2304, 120-3840, 200-3200, 360-2880): the same design on the smooth
+//   rows of fft_smooth.cuh (regs::rows_r2c_smooth, real_rows_smooth.cu,
+//   a source of its own; P = M / 12 or M / 20 threads a row, not a power
+//   of two, the output staged at a pitch of P mod 32);
 // - every other M: the dense core of fft_core.cuh on a column-wise tile of
 //   T rows (pencil stride TP = T | 1), the untangle in place on the tile
 //   (r2c_untangle), then a row-major store. Its scale rides the table.
@@ -36,6 +41,7 @@
 // must be 8-byte aligned (the wrapper checks).
 
 #include "fft_core.cuh"
+#include "fft_smooth.cuh"
 #include "regs_kernels.cuh"
 
 namespace offt {
@@ -87,10 +93,10 @@ rfft_last_kernel(const float* x, float* yr, float* yi,
 
 }  // namespace offt
 
-// reg != 0: the register core (m a power of two in [16, 4096], or a mixed
-// M of real_rows_mix.cu; the first m rows of `tab` and `scale` are read,
-// the radices and T are not); else the dense core (radices, T; the scale
-// is in the table).
+// reg != 0: the register core (m a power of two in [16, 4096], a mixed
+// M of real_rows_mix.cu or a smooth one of real_rows_smooth.cu; the first
+// m rows of `tab` and `scale` are read, the radices and T are not); else
+// the dense core (radices, T; the scale is in the table).
 extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
                               const void* tab, const void* w, long long rows,
                               int m, int ns, int r0, int r1, int r2, int T,
@@ -104,6 +110,9 @@ extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
   float* o_i = (float*)yi;
   cudaStream_t s = (cudaStream_t)stream;
   if (reg) {
+    if (regs::smooth_length(m))
+      return (int)rfft_smooth(xf, o_r, o_i, tb, wt, rows, m, scale, packed,
+                              packed ? m : m + 1, s);
     if (m & (m - 1))
       return (int)rfft_mix(xf, o_r, o_i, tb, wt, rows, m, scale, packed,
                            packed ? m : m + 1, s);

@@ -259,13 +259,16 @@ _SMOOTH_COL_LENGTHS = frozenset(n for n in _SMOOTH_LENGTHS
 def _reg_real_rows(m: int) -> bool:
     """Whether ``rfft_last_planar`` and ``icrfft_last_planar`` at half
     length M launch the register core's real rows: a power of two in
-    [16, 4096] (``regs::rows_r2c``, ``rows_c2r``), or a mixed length of
+    [16, 4096] (``regs::rows_r2c``, ``rows_c2r``), a mixed length of
     ``_MIX_ROW_LENGTHS`` (``regs::rows_r2c_mix``, ``rows_c2r_mix`` in
-    ``csrc/real_rows_mix.cu``). Every other M (72, 144: factors 3^2 or
-    15) takes the dense core: the smooth rows of ``csrc/fft_smooth.cuh``
-    have no r2c untangle or c2r re-tangle. The register core ignores the
-    radices and the rows per block."""
-    return _pow2(m) or m in _MIX_ROW_LENGTHS
+    ``csrc/real_rows_mix.cu``), or a smooth length of ``_SMOOTH_LENGTHS``
+    (an odd part of 9, 15, 25 or 45: ``regs::rows_r2c_smooth``,
+    ``rows_c2r_smooth`` in ``csrc/real_rows_smooth.cu``, on P = M / 12 or
+    M / 20 threads a row). Every other M takes the dense core: the other
+    5-smooth M (100, 180 and the like: an odd part of 27, 75 or more, or a
+    power of two under 8 beside 9-45) and M past 4096. The register core
+    ignores the radices and the rows per block."""
+    return _pow2(m) or m in _MIX_ROW_LENGTHS or m in _SMOOTH_LENGTHS
 
 
 def _reg_values(n: int) -> int:
@@ -311,12 +314,15 @@ def _reg_rslab(ny: int, m: int) -> bool:
     the column variant at a power of two in [16, 4096] or a mixed length
     of ``_MIX_LENGTHS`` (:func:`_reg_axis` without the smooth lengths:
     the real slabs' y passes, ``rfft_slab.cu`` and ``real_slab_mix.cu``,
-    have no smooth instance), the rows on the real rows
-    (:func:`_reg_real_rows`: those and 3072), the slabs with a mixed
-    length (768^3's, 1280^3's) in two grids on the mixed instances. Every
-    other slab (Y = 24, 40, 3072 or a smooth 144-1440; M = 72, 144) takes
-    the dense core."""
-    return (_pow2(ny) or ny in _MIX_LENGTHS) and _reg_real_rows(m)
+    have no smooth instance), the rows on the real rows at a power of two
+    or a mixed length of ``_MIX_ROW_LENGTHS`` (:func:`_reg_real_rows`
+    without the smooth M: the slabs write their rows at the pitch M +
+    zpad, which only the power-of-two and mixed instances take), the slabs
+    with a mixed length (768^3's, 1280^3's) in two grids on the mixed
+    instances. Every other slab (Y = 24, 40, 3072 or a smooth 144-1440;
+    M = 72, 144 or any smooth M) takes the dense core."""
+    return ((_pow2(ny) or ny in _MIX_LENGTHS)
+            and (_pow2(m) or m in _MIX_ROW_LENGTHS))
 
 
 def _reg_axis(n: int) -> bool:
@@ -1258,8 +1264,9 @@ def rfft_last_planar(mode, x, radices=None,
     x[2j+1], then the O(M) untangle. The reference has no ``scale`` and
     post-multiplies.
 
-    On M a power of two in [16, 4096] or a mixed length 3 2^k or 5 2^k
-    of :func:`_reg_real_rows` the kernel runs the register core:
+    On M a power of two in [16, 4096], a mixed length 3 2^k or 5 2^k or a
+    smooth one (odd part 9, 15, 25, 45) of :func:`_reg_real_rows` the
+    kernel runs the register core:
     ``radices`` (the reference's ``_pick_2stage`` of M) is checked but
     does not shape its passes, ``block_rows`` is ignored, and ``scale`` is
     applied at the store. Other M run the dense core on
@@ -1323,7 +1330,7 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
     re-tangle table (row 0 included) and defaults to 1/M, the exact
     inverse; the core is unscaled.
 
-    On M a power of two in [16, 4096] or a mixed length of
+    On M a power of two in [16, 4096], a mixed or a smooth length of
     :func:`_reg_real_rows` the kernel runs the register core's c2r rows
     (the re-tangle as the core loads; at a power of two the kernel of
     ``irfft_slab_yz``'s rows): ``radices`` is checked but does not shape

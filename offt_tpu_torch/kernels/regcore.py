@@ -24,7 +24,12 @@ pass for each further odd factor (:func:`smooth_schedule`; the radix-5
 pass at 12 values masked), a block of rows or of columns replayed through
 its exchange planes (:func:`smooth_rows_block`, :func:`smooth_cols_block`,
 :func:`smooth_addr`, :func:`smooth_geometry`), its banks
-:func:`smooth_ways`. No CPU can run those kernels, so the tests hold
+:func:`smooth_ways`; the r2c and c2r rows at those half lengths
+(``csrc/real_rows_smooth.cu``) block by block
+in :func:`rfft_rows_smooth_block` and :func:`rows_c2r_smooth_block`,
+their addresses :func:`r2c_smooth_addrs`, :func:`c2r_smooth_loads` and
+:func:`stage_pitch` (a pitch of P mod 32), their banks
+:func:`r2c_smooth_ways`. No CPU can run those kernels, so the tests hold
 this replay of them against numpy and the JAX
 reference: the same pass radices and strides (:func:`passes`), the same
 twiddle indices into the first n rows of ``tables.core_table`` and the
@@ -408,12 +413,17 @@ def rows_mix_block(x, tab, inverse: bool = False):
 
 
 def stage_pitch(m: int) -> int:
-    """Floats a row of ``regs::rows_r2c_mix``'s output stage takes at a
-    mixed M (``MixRealGeo::SPITCH``): M + 1 (the numpy row) where a row
-    takes a warp or more, else the least pitch of at least M + 1 that is
-    P mod 32, so rows sharing a warp are P banks apart."""
+    """Floats a row of the r2c rows' output stage takes: at a mixed M
+    (``regs::rows_r2c_mix``, ``MixRealGeo::SPITCH``) M + 1 (the numpy row)
+    where a row takes a warp or more, else the least pitch of at least
+    M + 1 that is P mod 32, so rows sharing a warp are P banks apart; at a
+    smooth M (``rows_r2c_smooth``, ``SmoothRealGeo::SPITCH``) the least
+    pitch of at least M + 1 that is P mod 32 at every P (rows straddle
+    warps wherever 32 does not divide P)."""
     p = geometry(m)["P"]
-    return m + 1 if p >= 32 else m + 1 + (p - (m + 1)) % 32
+    if p >= 32 and m not in fused_fft._SMOOTH_LENGTHS:
+        return m + 1
+    return m + 1 + (p % 32 - (m + 1)) % 32
 
 
 def r2c_mix_addrs(m: int) -> dict:
@@ -460,8 +470,10 @@ def _untangle(a, b, wk, wm, hs):
 
 def r2c_mix_copy(m: int, lanes: int, opitch: int, rows: int | None = None,
                  block: int = 0) -> tuple:
-    """The copy out of ``regs::rows_r2c_mix``'s stage at a mixed M, in the
-    kernel's order (``copy_rows_out``): float i of the block's first
+    """The copy out of the r2c rows' stage at a mixed M
+    (``regs::rows_r2c_mix``, ``copy_rows_out``) or a smooth one
+    (``rows_r2c_smooth``, ``copy_smooth_rows_out``), in the kernel's
+    order: float i of the block's first
     ``rows`` rows (default ROWS) of ``lanes`` lanes each, row r = i div
     lanes, lane c = i mod lanes, read at r ``stage_pitch`` + c and
     written at (row0 + r) ``opitch`` + c of the output, row0 = ``block``
@@ -489,15 +501,26 @@ def rfft_rows_mix_block(x, tab, w, scale: float = 1.0, packed: bool = False,
     :func:`r2c_mix_copy`'s. Returns the planar pair (rows, opitch), the
     lanes past the numpy or packed ones NaN (never written)."""
     m = x.shape[-1] // 2
-    geo = geometry(m)
-    nrows, pitch, nv = geo["ROWS"], geo["PITCH"], geo["V"]
-    rows = nrows if rows is None else rows
     g, t = _mix_threads(m)
     e, gr = mix_loads(m), g[:, None]
     v = _mix_core(m, torch.complex(x[gr, 2 * e], x[gr, 2 * e + 1]), tab)
-    ad = r2c_mix_addrs(m)
+    return _r2c_block(m, v, r2c_mix_addrs(m), g, t, w, scale, packed, rows,
+                      opitch)
+
+
+def _r2c_block(m: int, v, ad: dict, g, t, w, scale: float, packed: bool,
+               rows, opitch):
+    """The r2c rows' block after its core, at a mixed or a smooth M: V
+    (thread (g, t)'s v[:, r] the element t + r P) put into the exchange
+    plane, the pairs (k, M - k) read back and untangled times ``scale``,
+    staged and the first ``rows`` rows copied out at ``opitch``, every
+    address ``ad``'s (:func:`r2c_mix_addrs`, :func:`r2c_smooth_addrs`)
+    and :func:`r2c_mix_copy`'s."""
+    geo = geometry(m)
+    nrows, pitch = geo["ROWS"], geo["PITCH"]
+    rows = nrows if rows is None else rows
     plane = torch.full((nrows * pitch,), complex("nan"), dtype=torch.complex64)
-    for r in range(nv):
+    for r in range(ad["put"].shape[1]):
         plane[ad["put"][:, r]] = v[:, r]
     k = ad["k"]
     first = k == 0                       # thread 0 of a row, i = 0
@@ -543,22 +566,7 @@ def r2c_mix_ways(m: int) -> dict:
     the block's output a warp)."""
     ad = r2c_mix_addrs(m)
     _, t = _mix_threads(m)
-
-    def worst(addr, live=None):
-        live = torch.ones_like(addr, dtype=torch.bool) if live is None \
-            else live
-        out = 1
-        for j in range(addr.shape[1]):
-            a, ok = addr[:, j].reshape(-1, 32), live[:, j].reshape(-1, 32)
-            out = max(out, _ways([a[w][ok[w]].tolist()
-                                  for w in range(a.shape[0]) if ok[w].any()]))
-        return out
-
-    first = ad["k"] == 0
-    ways = {name: worst(ad[name]) for name in ("put", "lo", "st_lo",
-                                                 "st_hi")}
-    ways["hi"] = worst(ad["hi"], ~first)
-    ways["mid"] = worst(ad["mid"][:, None], (t == 0)[:, None])
+    ways = _r2c_ways(ad, t)
     rows, sp = geometry(m)["ROWS"], stage_pitch(m)
     for name, lanes in (("copy numpy", m + 1), ("copy packed", m)):
         i = torch.arange(rows * lanes)
@@ -567,6 +575,32 @@ def r2c_mix_ways(m: int) -> dict:
         pad = (-a.numel()) % 32
         a = torch.cat([a, a[:pad]])       # the last warp's idle lanes
         ways[name] = _ways(a.reshape(-1, 32).tolist())
+    return ways
+
+
+def _worst_ways(addr, live=None) -> int:
+    """The worst wavefronts of the warp instructions of ``addr`` (threads,
+    K): each column one instruction, each warp 32 consecutive threads (the
+    last one short where 32 does not divide the block), ``live`` the lanes
+    that take it."""
+    live = torch.ones_like(addr, dtype=torch.bool) if live is None else live
+    out = 1
+    for j in range(addr.shape[1]):
+        a, ok = addr[:, j], live[:, j]
+        out = max(out, _ways([a[w:w + 32][ok[w:w + 32]].tolist()
+                              for w in range(0, a.shape[0], 32)]))
+    return out
+
+
+def _r2c_ways(ad: dict, t) -> dict:
+    """The wavefronts of an r2c block's natural-order ``put``, untangle
+    reads ``lo``, ``hi`` (not thread 0's at k = 0) and ``mid`` (thread 0
+    of each row) and stage writes, from its addresses ``ad``."""
+    first = ad["k"] == 0
+    ways = {name: _worst_ways(ad[name]) for name in ("put", "lo", "st_lo",
+                                                       "st_hi")}
+    ways["hi"] = _worst_ways(ad["hi"], ~first)
+    ways["mid"] = _worst_ways(ad["mid"][:, None], (t == 0)[:, None])
     return ways
 
 
@@ -691,6 +725,17 @@ def _smooth_core(n: int, v0, tab, inverse: bool, kind: str):
     return v[:, :fused_fft._smooth_values(n)]
 
 
+def _smooth_loads(n: int, t):
+    """The elements each thread of the smooth core loads at n, in the order
+    of its loads (``core_smooth``): (threads, V0), thread t's element
+    t + q P + j n/R (q < B, j < R; R and B the first pass's radix and
+    butterflies a thread)."""
+    p = n // fused_fft._smooth_values(n)
+    r, _, b = smooth_schedule(n)[0]
+    return torch.stack([t + q * p + j * (n // r)
+                        for q in range(b) for j in range(r)], 1)
+
+
 def _smooth_block(x, tab, inverse: bool, kind: str):
     """One block of ``regs::rows_smooth`` (``kind`` "rows": ``x`` the
     block's ROWS rows) or ``cols_smooth`` ("cols": ``x`` its L lines), (K,
@@ -702,9 +747,7 @@ def _smooth_block(x, tab, inverse: bool, kind: str):
     tid = torch.arange(g["NT"])
     line, t = (tid // p, tid % p) if kind == "rows" else \
         (tid % g["L"], tid // g["L"])
-    r, _, b = smooth_schedule(n)[0]
-    e = torch.stack([t + q * p + j * (n // r)
-                     for q in range(b) for j in range(r)], 1)
+    e = _smooth_loads(n, t)
     v = _smooth_core(n, x[line[:, None], e], tab, inverse, kind)
     out = torch.empty(k, n, dtype=torch.complex64)
     for j in range(v.shape[1]):
@@ -734,6 +777,114 @@ def smooth_ways(n: int, kind: str = "rows") -> dict:
     first radix-4 pass stores float4)."""
     t, addr = smooth_addr(n, kind)
     return _exchange_ways(n, t, addr, kind == "rows")
+
+
+def _smooth_threads(m: int) -> tuple:
+    """Row g and index t in it of each of the NT threads of a block of the
+    smooth rows (thread tid: g = tid // P, t = tid % P)."""
+    geo = smooth_geometry(m)
+    tid = torch.arange(geo["NT"])
+    return tid // geo["P"], tid % geo["P"]
+
+
+def r2c_smooth_addrs(m: int) -> dict:
+    """The shared-memory float addresses of ``regs::rows_r2c_smooth`` at a
+    smooth M after its core, each (NT, K) over the block's threads (row g
+    at g PITCH in the exchange plane, no pad; at g ``stage_pitch`` in the
+    stage): ``put`` the natural-order write of element t + r P (r < V0);
+    the untangle's reads of the pairs (k, M - k), k = t + i P (i < V0 / 2,
+    ``k``): ``lo`` V[k], ``hi`` V[M - k] (the k = 0 entry unread: thread 0
+    of a row takes the packed lane from V[0] alone); ``mid`` (NT,) thread
+    0's V[M/2]; the stage writes ``st_lo`` of X[k] and ``st_hi`` of
+    X[M - k]."""
+    p, v0 = smooth_geometry(m)["P"], fused_fft._smooth_values(m)
+    g, _ = _smooth_threads(m)
+    t, addr = smooth_addr(m, "rows")
+    put = torch.stack([addr(t + r * p) for r in range(v0)], 1)
+    k = t[:, None] + p * torch.arange(v0 // 2)[None, :]
+    lo = torch.stack([addr(k[:, i]) for i in range(v0 // 2)], 1)
+    hi = torch.stack([addr((m - k[:, i]) % m) for i in range(v0 // 2)], 1)
+    s = stage_pitch(m)
+    return {"put": put, "k": k, "lo": lo, "hi": hi, "mid": addr(m // 2),
+            "st_lo": g[:, None] * s + k, "st_hi": g[:, None] * s + (m - k)}
+
+
+def r2c_smooth_ways(m: int) -> dict:
+    """The worst wavefronts a warp instruction of ``regs::rows_r2c_smooth``
+    at a smooth M takes beyond its core's exchanges (:func:`smooth_ways`),
+    from :func:`r2c_smooth_addrs`: the natural-order ``put``, the
+    untangle's reads ``lo``, ``hi`` and ``mid``, the stage writes
+    ``st_lo`` and ``st_hi``, and the copy out of the stage in each layout
+    (``copy numpy``, ``copy packed``), each warp the 32 consecutive
+    threads of the block's NT as the loop of ``copy_smooth_rows_out`` runs
+    them (i = j NT + tid: where 32 does not divide NT, a warp's floats
+    start NT apart from the last pass's)."""
+    geo = smooth_geometry(m)
+    g, t = _smooth_threads(m)
+    ways = _r2c_ways(r2c_smooth_addrs(m), t)
+    nt = geo["NT"]
+    for name, lanes in (("copy numpy", m + 1), ("copy packed", m)):
+        src, _ = r2c_mix_copy(m, lanes, lanes)
+        groups = [src[w:min(w + 32, j + nt, len(src))].tolist()
+                  for j in range(0, len(src), nt)
+                  for w in range(j, min(j + nt, len(src)), 32)]
+        ways[name] = _ways(groups)
+    return ways
+
+
+def rfft_rows_smooth_block(x, tab, w, scale: float = 1.0,
+                           packed: bool = False, rows: int | None = None,
+                           opitch: int | None = None):
+    """One block of ``regs::rows_r2c_smooth`` as it runs, at a smooth M:
+    ``x`` the block's ROWS real rows (ROWS, 2M) f32 (rows past the batch
+    zero), thread (g, t) = (tid // P, tid % P) of row g. Its core
+    (:func:`_smooth_core`) on v[j] = x[2j] + i x[2j+1], V put in natural
+    order into the row's plane, the pairs (k, M - k) read back and
+    untangled times ``scale`` (``w`` = ``tables.rfft_table(2M)``), staged
+    at :func:`stage_pitch`, and the first ``rows`` rows (default all)
+    copied out in the kernel's order, each the numpy (M + 1) or packed (M)
+    lanes at ``opitch`` floats a row (default the lanes), every address
+    :func:`r2c_smooth_addrs`'s and :func:`r2c_mix_copy`'s. Returns the
+    planar pair (rows, opitch), the lanes past the numpy or packed ones NaN
+    (never written)."""
+    m = x.shape[-1] // 2
+    g, t = _smooth_threads(m)
+    e, gr = _smooth_loads(m, t), g[:, None]
+    v = _smooth_core(m, torch.complex(x[gr, 2 * e], x[gr, 2 * e + 1]), tab,
+                     False, "rows")
+    return _r2c_block(m, v, r2c_smooth_addrs(m), g, t, w, scale, packed,
+                      rows, opitch)
+
+
+def c2r_smooth_loads(m: int) -> tuple:
+    """The input lanes ``regs::rows_c2r_smooth`` reads at a smooth M, each
+    (NT, V0) over the block's threads in the order of their loads: element
+    e of the thread's row (t + q P + j M/R, :func:`_smooth_loads`) and its
+    re-tangle partner e ? M - e : 0."""
+    _, t = _smooth_threads(m)
+    e = _smooth_loads(m, t)
+    return e, torch.where(e == 0, 0, m - e)
+
+
+def rows_c2r_smooth_block(xr, xi, tab, ab):
+    """One block of ``regs::rows_c2r_smooth`` as it runs, at a smooth M:
+    ``(xr, xi)`` the block's ROWS packed planar rows (ROWS, M) (rows past
+    the batch zero); each thread re-tangles element e of its row as it
+    loads it, from the lanes :func:`c2r_smooth_loads` gives, with ``ab``
+    (``tables.crfft_table``, the scale folded in) in the kernel's f32 order
+    (:func:`_retangle`), runs the inverse core (:func:`_smooth_core`) and
+    stores x[2j] + i x[2j+1] = v[j]. Returns the real (ROWS, 2M) rows."""
+    m = xr.shape[-1]
+    geo = smooth_geometry(m)
+    g, t = _smooth_threads(m)
+    e, pe = c2r_smooth_loads(m)
+    gr = g[:, None]
+    yr, yi = _retangle(xr[gr, e], xi[gr, e], xr[gr, pe], xi[gr, pe], ab[e])
+    v = _smooth_core(m, torch.complex(yr, yi), tab, True, "rows")
+    out = torch.empty(geo["ROWS"], m, dtype=torch.complex64)
+    for k in range(v.shape[1]):
+        out[g, t + k * geo["P"]] = v[:, k]
+    return torch.view_as_real(out).reshape(geo["ROWS"], 2 * m)
 
 
 def _by_blocks(n: int, lead, data, block):
@@ -788,12 +939,15 @@ def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False,
     (``w`` = ``tables.rfft_table(2M)``), ``scale`` at the store. The
     numpy (..., M + 1) layout, or the packed (..., M) one; with
     ``opitch`` its rows at that pitch, the lanes past them NaN. At a
-    mixed M block by block (:func:`rfft_rows_mix_block`)."""
+    mixed M block by block (:func:`rfft_rows_mix_block`), at a smooth one
+    likewise (:func:`rfft_rows_smooth_block`)."""
     m = x.shape[-1] // 2
-    if m in fused_fft._MIX_ROW_LENGTHS:
+    if m in fused_fft._MIX_ROW_LENGTHS or m in fused_fft._SMOOTH_LENGTHS:
+        blk = (rfft_rows_smooth_block if m in fused_fft._SMOOTH_LENGTHS
+               else rfft_rows_mix_block)
         return _by_blocks(m, x.shape[:-1], (x.reshape(-1, 2 * m),),
-                          lambda c, k: rfft_rows_mix_block(
-                              c[0], tab, w, scale, packed, k, opitch))
+                          lambda c, k: blk(c[0], tab, w, scale, packed, k,
+                                           opitch))
     if opitch is not None:
         yr, yi = rfft_rows(x, tab, w, scale, packed)
         return _pitched(x.shape[:-1], yr.shape[-1],
@@ -1129,13 +1283,15 @@ def rows_c2r(xr, xi, tab, ab):
     """The kernel's c2r of packed rows (..., M): the re-tangle, the inverse
     M-point core (``tab``, a ``core_table`` of M), then x[2j] + i x[2j+1]
     = v[j]: real (..., 2M). At a mixed M block by block
-    (:func:`rows_c2r_mix_block`)."""
+    (:func:`rows_c2r_mix_block`), at a smooth one likewise
+    (:func:`rows_c2r_smooth_block`)."""
     m = xr.shape[-1]
-    if m in fused_fft._MIX_ROW_LENGTHS:
+    if m in fused_fft._MIX_ROW_LENGTHS or m in fused_fft._SMOOTH_LENGTHS:
+        blk = (rows_c2r_smooth_block if m in fused_fft._SMOOTH_LENGTHS
+               else rows_c2r_mix_block)
         return _by_blocks(m, xr.shape[:-1],
                           (xr.reshape(-1, m), xi.reshape(-1, m)),
-                          lambda c, k: rows_c2r_mix_block(
-                              c[0], c[1], tab, ab)[:k])
+                          lambda c, k: blk(c[0], c[1], tab, ab)[:k])
     vr, vi = retangle_pair(xr, xi, ab)
     vr, vi = fft_rows(vr, vi, tab, inverse=True)
     return torch.stack([vr, vi], -1).reshape(*xr.shape[:-1], 2 * xr.shape[-1])

@@ -90,13 +90,15 @@ def test_reg_slab_predicate(ny, nz):
     register slab (z on the rows, ``_reg_rows``; y on the column variant,
     ``_reg_axis``; 320^3's slab among them); the rest keep the dense core.
     The r2c and c2r slabs (``_reg_rslab``) take y on the column variant and
-    M on the real rows (``_reg_real_rows``)."""
+    M on the real rows (``_reg_real_rows``) but at a smooth M, which only
+    ``rfft_last_planar`` and ``icrfft_last_planar`` take there."""
     mixed = ff._MIX_LENGTHS
     want = (ny in LENGTHS or ny in mixed) and (nz in LENGTHS or nz in mixed)
     assert ff._reg_slab(ny, nz) is want
     assert ff._reg_slab(ny, nz) == (ff._reg_axis(ny) and ff._reg_rows(nz))
     assert ff._reg_rslab(ny, nz) == (ff._reg_axis(ny)
-                                     and ff._reg_real_rows(nz))
+                                     and ff._reg_real_rows(nz)
+                                     and nz not in ff._SMOOTH_LENGTHS)
 
 
 def test_main_path_slabs_route_to_the_register_core():

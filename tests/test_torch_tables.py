@@ -249,7 +249,7 @@ def test_kernel_sources_are_listed():
                      "fft_smooth.cuh", "fft_last_smooth.cu",
                      "fft_axis_smooth.cu",
                      "fft_last.cu", "fft_last_mix.cu", "real_rows_mix.cu",
-                     "real_slab_mix.cu",
+                     "real_slab_mix.cu", "real_rows_smooth.cu",
                      "fft_axis.cu", "fft_axis_mix.cu", "fft_slab.cu",
                      "rfft_slab.cu",
                      "irfft_slab.cu", "assemble_mp1.cu", "rfft_last.cu",

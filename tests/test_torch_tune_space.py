@@ -147,7 +147,7 @@ def test_block_batch_beside_split_1d(n, searched):
 @pytest.mark.parametrize("shape,real,inverse,want", [
     ((192, 192, 192), True, False, set()),
     ((192, 192, 192), True, True, set()),
-    ((160, 160, 144), True, False, {"radix_z"}),
+    ((160, 160, 360), True, False, {"radix_z"}),
     ((8, 8, 8), False, False, {"radix_z", "radix_y", "radix_x",
                                "block_batch"}),
     ((256, 256, 256), False, False, set()),
@@ -163,9 +163,10 @@ def test_block_batch_beside_split_1d(n, searched):
 def test_kernel_knobs(shape, real, inverse, want):
     """What the route of a float32 plan reads: 192^3's real route runs
     rfft_last at M = 96 on the mixed register rows (its c2r, irfft_1d
-    around a c2c of 96 on them too), so it reads none; (160, 160, 144)'s
-    runs rfft_last at M = 72 (3^2 8) on the dense core, its axes of 160 on
-    the mixed register columns, so it reads radix_z alone; lengths under 16
+    around a c2c of 96 on them too), so it reads none; (160, 160, 360)'s
+    runs rfft_last at M = 180 (45 4, no row core's length) on the dense
+    core, its axes of 160 on the mixed register columns, so it reads
+    radix_z alone; lengths under 16
     and the rows of 40 (a factor 5 below the mixed lengths) run dense,
     so the (48, 40) slab does; 3 * 2^18's pair (1024, 768), 2^15's
     (128, 256) and 2^20's run on the register core; a prime takes
