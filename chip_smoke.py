@@ -68,7 +68,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``smooth_real_checks``, on a generator of their own): ``rfft_last``
    in the numpy layout and packed, scaled, over a ragged last block, and
    ``icrfft_last`` scaled, each one register-core launch, then
-   ``rfft_last`` at M = 180 on the dense core;
+   ``rfft_last`` at M = 180 on the dense core; and the smooth core's
+   second family (every other 5-smooth R 2^k, k >= 2: ``smooth_checks``
+   at ``_SMOOTH_MORE_LENGTHS`` and ``_SMOOTH_MORE_COL_LENGTHS``, on a
+   generator of its own): ``fft_last`` at every row length, ``fft_sublane``
+   at every column length, the pitched x passes at 100, 1000 and 1080,
+   the c2c slab at (4, 100, 100) with zpad 8, (2, 1000, 1000) inverse
+   with zpad 8,
+   (3, 216, 432) in place, (2, 1080, 1920) and (2, 500, 500) inverse;
 3. the paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
@@ -80,7 +87,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       inverse and an ortho round trip, 720^3 forward, 960^3 forward and
       inverse (7.1 GB a planar pair; the complex128 reference compared a
       slab at a time) and 64 x 720^2 (a (1, 720, 720) plan on one batch
-      dim, ``fft2``);
+      dim, ``fft2``); and at the second family's sides
+      (``SMOOTH_MORE_C2C``, the same way, each also timed back to back to
+      say whether the host paces it): 1000^3 forward and inverse, 432^3
+      forward, a 216^3 ortho round trip, 500^3 inverse, 100^3 forward and
+      16 frames of 1080 x 1920 (``fft2``);
    b. the packed r2c/c2r path (``real=True``, numpy and packed layouts,
       256^3, 512^3 and 768^3, whose slabs have a mixed (Y, M) = (768,
       384); ``rfftn`` / ``irfftn``);
@@ -207,7 +218,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of 3b (the c2r's ``fft_x_to_padded`` among them) and every axis pass
    of 3d (192^3's and 320^3's among them), ``irfft_slab`` on 3b's 256^3,
    512^3 and 768^3 c2r, every ``fft_last``, ``fft_slab`` and ``fft_axis``
-   launch of 3a's smooth windows, every ``rfft_last`` and ``icrfft_last``
+   launch of 3a's smooth windows (the second family's among them),
+   every ``rfft_last`` and ``icrfft_last``
    launch of 3d's and 3e's smooth windows, ``icrfft_last`` on every
    packed c2r of 3e (192^3's among them), and ``step1_twiddle``
    / ``step3_transposed`` on every split of 3c (the mixed sides of 3 *
@@ -265,7 +277,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every register-core length 16-4096 (``fft_last`` also at every mixed
    length of its rows, beside ``torch.fft.fft``; ``rfft_last`` and
    ``icrfft_last`` at every mixed and smooth M of theirs, beside
-   ``torch.fft.rfft`` and ``irfft``, with their bounds), both slab kernels so
+   ``torch.fft.rfft`` and ``irfft``, with their bounds; ``fft_last`` at
+   every length of the smooth core's second family and the strided-axis
+   kernel at every column length of it, ``fft_x_from_padded`` over
+   (N, Y, 520), each beside ``torch.fft.fft`` with its bound; ``fft_last``,
+   ``fft_slab`` and ``fft_axis`` at 1000 with their plain versions too),
+   both slab kernels so
    at 512^3,
    ``fft_axis`` on each of its main-path shapes (with its achieved TB/s)
    and ``irfft_slab`` at 512^3 (two grids), and ``irfft_slab`` in
@@ -465,7 +482,10 @@ SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 # main shape's wrapper: 360 lanes of 368), and at 960 rows, 16 x-rows of
 # the 960^3 slab and an x pass of 960 over (64, 960) lanes; the real rows
 # at a smooth half length: 720^3's z rows (r2c, numpy layout) and 480^3's
-# packed c2r z stage
+# packed c2r z stage; and the second smooth family at 1000 (16 x-rows of
+# the 1000^3 slab's z rows, 16 x-rows of the slab, an x pass of 1000 over
+# (64, 1000) lanes: SMOOTH_MORE_SHAPES, drawn from its own generator)
+SMOOTH_MORE_SHAPES = {"smooth_1000"}
 MIXED_SHAPES = {
     "step1_twiddle": {
         "mixed": ((1, 1536, 2048),
@@ -476,12 +496,16 @@ MIXED_SHAPES = {
         *x, 2048, 2560, None, False))},
     "fft_last": {"mixed": ((102400, 320), lambda f, x: f(*x)),
                  "smooth": ((129600, 360), lambda f, x: f(*x)),
-                 "smooth_960": ((9600, 960), lambda f, x: f(*x))},
+                 "smooth_960": ((9600, 960), lambda f, x: f(*x)),
+                 "smooth_1000": ((16000, 1000), lambda f, x: f(*x))},
     "fft_slab": {"mixed": ((320, 320, 320), lambda f, x: f(*x)),
                  "smooth": ((360, 360, 360), lambda f, x: f(*x)),
-                 "smooth_960": ((16, 960, 960), lambda f, x: f(*x))},
+                 "smooth_960": ((16, 960, 960), lambda f, x: f(*x)),
+                 "smooth_1000": ((16, 1000, 1000), lambda f, x: f(*x))},
     "fft_axis": {"smooth": ((360, 360, 368), lambda f, x: f(*x, 360)),
-                 "smooth_960": ((960, 64, 968), lambda f, x: f(*x, 960))},
+                 "smooth_960": ((960, 64, 968), lambda f, x: f(*x, 960)),
+                 "smooth_1000": ((1000, 64, 1008),
+                                 lambda f, x: f(*x, 1000))},
     "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
                   "mixed_packed": ((36864, 192),
                                    lambda f, x: f(x[0], packed=True)),
@@ -514,8 +538,9 @@ def _dense_core(ff, names=("_reg_core", "_reg_real_rows", "_reg_rows",
                            "_reg_cube")):
     """Every length routed to the dense core (the predicates
     ``fused_fft._reg_core`` (the four-step pair), ``_reg_real_rows`` (the
-    r2c and c2r rows), ``_reg_rows`` (``fft_last``), ``_reg_slab``,
-    ``_reg_rslab``, ``_reg_axis`` and ``_reg_cube`` patched off), or the
+    r2c and c2r rows), ``_reg_rows`` (``fft_last``; both smooth families
+    among its lengths), ``_reg_slab``, ``_reg_rslab``, ``_reg_axis`` and
+    ``_reg_cube`` patched off), or the
     kernels of ``names`` alone: the earlier kernels on the same data, for
     comparison."""
     keep = [getattr(ff, k) for k in names]
@@ -530,23 +555,42 @@ def _dense_core(ff, names=("_reg_core", "_reg_real_rows", "_reg_rows",
 
 # ---- 2 and 3a at the smooth lengths (csrc/fft_smooth.cuh) ------------------
 
-def smooth_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL) -> dict:
+# the first family's strided and slab cases of ``smooth_checks``: the x
+# passes at (X, 6, Z) and the slabs as (shape, inverse, zpad, scale, in
+# place)
+SMOOTH_X = (360, 960)
+SMOOTH_SLABS = (((4, 360, 360), False, 0, 1.0, False),
+                ((2, 960, 720), True, 8, 1 / 691200, False),
+                ((3, 144, 144), False, 0, 0.5, True))
+# the second family's (phase 2's ``smooth_checks`` at its rows and
+# columns, on a generator of its own)
+SMOOTH_MORE_X = (100, 1000, 1080)
+SMOOTH_MORE_SLABS = (((4, 100, 100), False, 8, 1.0, False),
+                     ((2, 1000, 1000), True, 8, 1e-6, False),
+                     ((3, 216, 432), False, 0, 0.5, True),
+                     ((2, 1080, 1920), False, 0, 1.0, False),
+                     ((2, 500, 500), True, 0, 1 / 250000, False))
+
+
+def smooth_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL, rows=None,
+                  cols=None, xs=SMOOTH_X, slabs=SMOOTH_SLABS) -> dict:
     """The register core at the 5-smooth lengths with an odd part of 9,
     15, 25 or 45 against its plain version: ``fft_last`` at every row
-    length (``fused_fft._SMOOTH_LENGTHS``), ``fft_sublane`` at every column
-    length (``_SMOOTH_COL_LENGTHS``, on the lane tile ``_axis_tile``
-    picks) over a ragged last tile, each forward and inverse, scaled (the
-    inverse rows in place); ``fft_x_from_padded`` and ``fft_x_to_padded``
-    at 360 and 960; the c2c slab at (4, 360, 360), (2, 960, 720) inverse
-    with zpad 8, and (3, 144, 144) in place. Each must launch the register
-    core once and agree within ``tol`` (max |k - p| / max |p|). Returns
-    {kernel: max |k - p|}."""
+    length (``fused_fft._SMOOTH_LENGTHS``, or ``rows``), ``fft_sublane`` at
+    every column length (``_SMOOTH_COL_LENGTHS``, or ``cols``, on the lane
+    tile ``_axis_tile`` picks) over a ragged last tile, each forward and
+    inverse, scaled (the inverse rows in place); ``fft_x_from_padded`` and
+    ``fft_x_to_padded`` at each length of ``xs`` (360 and 960); the c2c
+    slab at each case of ``slabs`` ((4, 360, 360), (2, 960, 720) inverse
+    with zpad 8, and (3, 144, 144) in place). Each must launch the
+    register core once and agree within ``tol`` (max |k - p| / max |p|).
+    Returns {kernel: max |k - p|}."""
     def pair(shape):
         return (torch.randn(shape, generator=gen, device=device),
                 torch.randn(shape, generator=gen, device=device))
 
     cases = []
-    for n in sorted(ff._SMOOTH_LENGTHS):
+    for n in sorted(ff._SMOOTH_LENGTHS if rows is None else rows):
         b = max(37, (1 << 18) // n)
         cases += [("fft_last", ff.fft_last, lambda f, x: f(*x, scale=0.5),
                    (b, n), None),
@@ -554,26 +598,28 @@ def smooth_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL) -> dict:
                    lambda f, x, n=n: f(x[0].clone(), x[1].clone(),
                                        inverse=True, scale=1 / n,
                                        alias=True), (b, n), None)]
-    for n in sorted(ff._SMOOTH_COL_LENGTHS):
+    for n in sorted(ff._SMOOTH_COL_LENGTHS if cols is None else cols):
         cases += [("fft_axis", ff.fft_sublane, lambda f, x: f(*x, 1),
                    (3, n, 200), None),
                   ("fft_axis", ff.fft_sublane,
                    lambda f, x: f(*x, 1, inverse=True, scale=0.5),
                    (3, n, 200), None)]
-    for n in (360, 960):
+    for n in xs:
         cases += [("fft_axis", ff.fft_x_from_padded,
                    lambda f, x: f(*x, 128, scale=0.25), (n, 6, 136), None),
                   ("fft_axis", ff.fft_x_to_padded,
                    lambda f, x: f(*x, z_true=128, inverse=True),
                    (n, 6, 129), 128)]
-    cases += [("fft_slab", ff.fft_slab_yz, lambda f, x: f(*x),
-               (4, 360, 360), None),
-              ("fft_slab", ff.fft_slab_yz,
-               lambda f, x: f(*x, zpad=8, inverse=True, scale=1 / 691200),
-               (2, 960, 720), 720),
-              ("fft_slab", ff.fft_slab_yz,
-               lambda f, x: f(x[0].clone(), x[1].clone(), scale=0.5,
-                              alias=True), (3, 144, 144), None)]
+    for shape, inv, zpad, scale, inplace in slabs:
+        if inplace:
+            def call(f, x, inv=inv, scale=scale):
+                return f(x[0].clone(), x[1].clone(), inverse=inv,
+                         scale=scale, alias=True)
+        else:
+            def call(f, x, inv=inv, zpad=zpad, scale=scale):
+                return f(*x, zpad=zpad, inverse=inv, scale=scale)
+        cases.append(("fft_slab", ff.fft_slab_yz, call, shape,
+                      shape[-1] if zpad else None))
     errs = {}
     for name, fn, call, shape, lanes in cases:
         x = pair(shape)
@@ -610,6 +656,19 @@ SMOOTH_C2C = (
     ("960^3 inv", (960, 960, 960), 0, True, None),
     ("fft2d 64x720^2", (64, 1, 720, 720), 1, False, None),
 )
+# and at the second family's sides: 1000^3 (the slab's rows and columns at
+# 1000, V0 = 20, P = 50, then the x pass), 432^3 (16 27, P = 36), 216^3
+# (8 27, P = 18), 500^3 and 100^3 (k = 2, P = 25 and 5), and 2-D frames of
+# 1080 x 1920 (rows at 1920 on the first family, columns at 1080, P = 90)
+SMOOTH_MORE_C2C = (
+    ("1000^3 fwd", (1000, 1000, 1000), 0, False, None),
+    ("1000^3 inv", (1000, 1000, 1000), 0, True, None),
+    ("432^3 fwd", (432, 432, 432), 0, False, None),
+    ("216^3 ortho round trip", (216, 216, 216), 0, "rt", "ortho"),
+    ("500^3 inv", (500, 500, 500), 0, True, None),
+    ("100^3 fwd", (100, 100, 100), 0, False, None),
+    ("fft2d 16x1080x1920", (16, 1, 1080, 1920), 1, False, None),
+)
 
 
 def _rel_err_chunked(yr, yi, ref) -> float:
@@ -634,9 +693,11 @@ def smooth_phase(ot, ff, gen, window, tag, time_cuda=None,
     (planar c2c; the 2-D batch a (1, Y, N) plan on one batch dim) in a
     counter window of its own (``window``), against complex128
     ``torch.fft`` on the same device (``tol``); with ``time_cuda`` each
-    timed (CUDA events, the host ahead) beside ``torch.fft.fftn`` of the
-    complex64 data and beside the dense core on the same data
-    (``_dense_core``). Returns ({label: (reading, kernels)}, {label:
+    timed (CUDA events, the host ahead; and back to back, the host
+    enqueueing as the card runs, which reads above the device time where
+    the host paces the plan) beside ``torch.fft.fftn`` of the complex64
+    data and beside the dense core on the same data (``_dense_core``).
+    Returns ({label: (reading, kernels)}, {label:
     times})."""
     runs, times = {}, {}
     for label, shape, bd, inv, norm in cases:
@@ -675,6 +736,9 @@ def smooth_phase(ot, ff, gen, window, tag, time_cuda=None,
             raise AssertionError(f"{label}: error {err:.3e}")
         if time_cuda is not None:
             t_k = time_cuda(run, ahead=True)["median_ms"]
+            # back to back, the host enqueueing as the card runs: above
+            # the device time where the host paces the plan
+            t_h = time_cuda(run)["median_ms"]
             with _dense_core(ff):
                 t_d = time_cuda(run, ahead=True)["median_ms"]
             xc = torch.complex(xr, xi)
@@ -689,11 +753,14 @@ def smooth_phase(ot, ff, gen, window, tag, time_cuda=None,
                     return lib(xc, dim=dims, norm=norm)
             t_l = time_cuda(lib_run, ahead=True)["median_ms"]
             del xc
-            times[label] = {"ms": t_k, "library_ms": t_l, "dense_ms": t_d}
+            times[label] = {"ms": t_k, "library_ms": t_l, "dense_ms": t_d,
+                            "paced_ms": t_h}
             print(f"time {label} (smooth) {shape}: the port {t_k:.4f} ms, "
                   f"torch.fft {t_l:.4f} ms ({t_k / t_l:.2f}x cuFFT), the "
-                  f"dense core {t_d:.4f} ms ({t_d / t_k:.2f}x the port) "
-                  f"{tag}", flush=True)
+                  f"dense core {t_d:.4f} ms ({t_d / t_k:.2f}x the port); "
+                  f"back to back {t_h:.4f} ms a call ("
+                  f"{'host-paced' if t_h > 1.2 * t_k else 'device-bound'}, "
+                  f"busy {t_k / t_h:.3f}) {tag}", flush=True)
         # the case's inputs go with its closures before the next case's
         del run, pf
         if device == "cuda":
@@ -2543,6 +2610,18 @@ def main() -> int:
     for name, err in smooth_real_checks(ff, sgen, tag).items():
         per_kernel[name]["max_abs_err"] = max(
             per_kernel[name]["max_abs_err"], err)
+    # the second family of the smooth rows and columns (every other
+    # 5-smooth R 2^k, k >= 2: fft_last_smooth3.cu, fft_last_smooth5.cu,
+    # fft_axis_smooth3.cu, fft_axis_smooth5.cu) at every length, and its
+    # paths (3a), on a generator of their own
+    mgen = torch.Generator(device="cuda")
+    mgen.manual_seed(23)
+    for name, err in smooth_checks(
+            ff, mgen, tag, rows=ff._SMOOTH_MORE_LENGTHS,
+            cols=ff._SMOOTH_MORE_COL_LENGTHS, xs=SMOOTH_MORE_X,
+            slabs=SMOOTH_MORE_SLABS).items():
+        per_kernel[name]["max_abs_err"] = max(
+            per_kernel[name]["max_abs_err"], err)
 
     # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
@@ -2605,6 +2684,11 @@ def main() -> int:
     # in a counter window of its own, timed beside cuFFT and the dense core
     smooth_runs, smooth_times = smooth_phase(
         ot, ff, gen, lambda fn: _window(ff, fn), tag, time_cuda)
+    # and at the second family's sides (1000^3, 432^3, 216^3, 500^3, 100^3,
+    # 16 x 1080 x 1920), on its generator
+    more_runs, _ = smooth_phase(ot, ff, mgen, lambda fn: _window(ff, fn),
+                                tag, time_cuda, cases=SMOOTH_MORE_C2C)
+    smooth_runs.update(more_runs)
 
     # ---- 3b. the r2c / c2r main path through plan(real=True) --------------
     real_cases = [
@@ -3804,6 +3888,44 @@ def main() -> int:
               f"{r_reg:.4f} ms ({nbytes / r_reg / 1e9:.2f} TB/s), dense "
               f"{r_dense:.4f} ms, fft(dim=-1) {r_lib:.4f} ms "
               f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
+    # fft_last at every length of the smooth core's second family
+    # (``_SMOOTH_MORE_LENGTHS``), as many whole rows as 2^24 elements hold,
+    # and the strided-axis kernel at every column length of it
+    # (``_SMOOTH_MORE_COL_LENGTHS``: fft_x_from_padded over (N, Y, 520),
+    # 512 lanes of each row, about 2^24 elements, drawn from its own
+    # generator): each core, the library call and the bound
+    for n in sorted(ff._SMOOTH_MORE_LENGTHS):
+        rows = (1 << 24) // n
+        args = (xr[:rows * n].view(rows, n), xi[:rows * n].view(rows, n))
+        r_reg = time_cuda(ff.fft_last, args, ahead=True)["median_ms"]
+        with _dense_core(ff):
+            r_dense = time_cuda(ff.fft_last, args, ahead=True)["median_ms"]
+        r_lib = time_cuda(torch.fft.fft, (torch.complex(*args), None, -1),
+                          ahead=True)["median_ms"]
+        bms, _ = kernel_bound("fft_last", (rows, n))
+        print(f"sweep fft_last N={n} rows={rows} (smooth, second family): "
+              f"register {r_reg:.4f} ms ({bms / r_reg:.3f} of its bound "
+              f"{bms:.4f} ms), dense {r_dense:.4f} ms "
+              f"({r_dense / r_reg:.2f}x), fft(dim=-1) {r_lib:.4f} ms "
+              f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
+    for n in sorted(ff._SMOOTH_MORE_COL_LENGTHS):
+        shp = (n, max(1, (1 << 24) // (512 * n)), 520)
+        xt = _pair(shp, mgen)
+        r_reg = time_cuda(ff.fft_x_from_padded, (*xt, 512),
+                          ahead=True)["median_ms"]
+        with _dense_core(ff):
+            r_dense = time_cuda(ff.fft_x_from_padded, (*xt, 512),
+                                ahead=True)["median_ms"]
+        xc = torch.complex(xt[0][..., :512], xt[1][..., :512])
+        r_lib = time_cuda(torch.fft.fft, (xc, None, 0),
+                          ahead=True)["median_ms"]
+        bms, _ = kernel_bound("fft_axis", shp)
+        print(f"sweep fft_axis N={n} {shp} (smooth, second family, "
+              f"fft_x_from_padded): register {r_reg:.4f} ms "
+              f"({bms / r_reg:.3f} of its bound {bms:.4f} ms), dense "
+              f"{r_dense:.4f} ms ({r_dense / r_reg:.2f}x), fft(dim=0) "
+              f"{r_lib:.4f} ms ({r_reg / r_lib:.2f}x) {tag}", flush=True)
+        del xt, xc
     # rfft_last (numpy layout) and icrfft_last at every mixed and smooth M
     # of the real rows (``_MIX_ROW_LENGTHS``, ``_SMOOTH_LENGTHS``), as many
     # whole rows as 2^24 real samples hold, each core, the library call and
@@ -3881,14 +4003,16 @@ def main() -> int:
                  f", {r_d['median_ms'] / r_k['median_ms']:.2f}x the "
                  "register core")
         for what, (shp, call_m) in MIXED_SHAPES.get(name, {}).items():
-            # the kernel at a mixed length (MIXED_SHAPES)
-            xm = _pair(shp, gen)
+            # the kernel at a mixed length (MIXED_SHAPES; the second
+            # smooth family's shapes drawn from its own generator)
+            mg = mgen if what in SMOOTH_MORE_SHAPES else gen
+            xm = _pair(shp, mg)
             m_k = time_cuda(call_m, (fn, xm), ahead=True)["median_ms"]
             with _dense_core(ff):
                 m_d = time_cuda(call_m, (fn, xm), ahead=True)["median_ms"]
             m_p = time_cuda(call_m, (fn.plain, xm), warmup=1,
                             reps=3)["median_ms"]
-            lib_m = _library(name, shp, gen)
+            lib_m = _library(name, shp, mg)
             m_l = time_cuda(*lib_m[1:], ahead=True)["median_ms"]
             mb, mby = kernel_bound(name, shp)
             nbytes = kernel_work(name, shp)[0]

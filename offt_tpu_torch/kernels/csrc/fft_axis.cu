@@ -37,7 +37,10 @@
 // - the 5-smooth lengths with an odd part of 9, 15, 25 or 45 and at most
 //   128 threads a line (72-1152, 120-960, 200-1600, 360-1440) run the
 //   column variant of fft_smooth.cuh, its one lane tile the wide tile's
-//   code (fft_axis_smooth.cu, a source of its own);
+//   code (fft_axis_smooth.cu, a source of its own); so do the other
+//   5-smooth lengths R 2^k, k >= 2, of at most 128 threads a line (12-2500,
+//   fused_fft._SMOOTH_MORE_COL_LENGTHS: fft_axis_smooth3.cu,
+//   fft_axis_smooth5.cu);
 // - every other length runs the dense core of fft_core.cuh: a block owns
 //   an (N x T) tile of T consecutive lanes, read column-wise into shared
 //   memory; a ragged last tile is masked; the scale rides the table.
@@ -95,7 +98,7 @@ static cudaError_t axis_regs(const float* xr, const float* xi, float* yr,
 }  // namespace offt
 
 // reg != 0: the register core (n a power of two in [16, 4096], a mixed
-// length of fft_axis_mix.cu or a smooth one of fft_axis_smooth.cu; the
+// length of fft_axis_mix.cu or a smooth one of fft_axis_smooth*.cu; the
 // first n table rows, `inverse`, `scale` and `tile`, an AxisTile, are
 // read, the radices and T are not); else the dense core (radices, T; the
 // scale is in the table; `tile` must be 0).
@@ -116,6 +119,9 @@ extern "C" int offt_fft_axis(const void* xr, const void* xi, void* yr,
     if (regs::smooth_length(n))
       return (int)axis_smooth(ar, ai, (float*)yr, (float*)yi, tb, g, n,
                               inverse, scale, tile, s);
+    if (regs::smooth_more_length(n))
+      return (int)axis_smooth_more(ar, ai, (float*)yr, (float*)yi, tb, g, n,
+                                   inverse, scale, tile, s);
     if (n & (n - 1))
       return (int)axis_mix(ar, ai, (float*)yr, (float*)yi, tb, g, n, inverse,
                            scale, tile, s);

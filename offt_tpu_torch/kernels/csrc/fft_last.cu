@@ -25,7 +25,9 @@
 //   fused_fft._SMOOTH_LENGTHS) run the register core of fft_smooth.cuh: 12
 //   values a thread (20 at an odd part 25) on P = N / 12 (or N / 20)
 //   threads a row, a radix-3 or radix-5 pass for each further odd factor
-//   (fft_last_smooth.cu, a source of its own);
+//   (fft_last_smooth.cu, a source of its own); the other 5-smooth lengths
+//   R 2^k with k >= 2 (12-4000, fused_fft._SMOOTH_MORE_LENGTHS) the same
+//   core (fft_last_smooth3.cu, fft_last_smooth5.cu);
 // - every other length runs the dense core of fft_core.cuh: a block owns T
 //   whole rows, reads them row-major into a column-wise tile (pencil
 //   stride TP = T | 1, odd, so the transposing store does not hit one
@@ -62,7 +64,7 @@ fft_last_kernel(const float* xr, const float* xi, float* yr, float* yi,
 }  // namespace offt
 
 // reg != 0: the register core (n a power of two in [16, 4096], a mixed
-// length of fft_last_mix.cu or a smooth one of fft_last_smooth.cu; the
+// length of fft_last_mix.cu or a smooth one of fft_last_smooth*.cu; the
 // first n table rows, `inverse` and `scale` are read, the radices and T
 // are not); else the dense core (radices, T; the scale is in the table).
 extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
@@ -79,6 +81,9 @@ extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
     if (regs::smooth_length(n))
       return (int)last_smooth(ar, ai, (float*)yr, (float*)yi, tb, rows, n, n,
                               n, inverse, scale, s);
+    if (regs::smooth_more_length(n))
+      return (int)last_smooth_more(ar, ai, (float*)yr, (float*)yi, tb, rows,
+                                   n, n, n, inverse, scale, s);
     if (n & (n - 1))
       return (int)last_mix(ar, ai, (float*)yr, (float*)yi, tb, rows, n, n, n,
                            inverse, scale, s);

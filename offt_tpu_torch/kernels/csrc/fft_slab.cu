@@ -24,11 +24,12 @@
 //     16 would hold at 8192 elements a block; every slab with a mixed
 //     length, the 320^3 one among them, and every slab with a smooth one of
 //     fft_smooth.cuh, 360^3's): two grids, rows_c2c (rows_mix at a mixed
-//     Z, fft_last_mix.cu; rows_smooth at a smooth Z, fft_last_smooth.cu)
-//     from the input (pitch in_pitch) to the output (pitch out_pitch),
-//     unscaled, then cols_c2c (cols_mix at a mixed Y, fft_axis_mix.cu, on
-//     the lane tile fft_axis routes; cols_smooth at a smooth Y,
-//     fft_axis_smooth.cu) in place on the output. Where the
+//     Z, fft_last_mix.cu; rows_smooth at a smooth Z, fft_last_smooth.cu
+//     or, in the second family (1000^3's), fft_last_smooth3.cu and
+//     fft_last_smooth5.cu) from the input (pitch in_pitch) to the output
+//     (pitch out_pitch), unscaled, then cols_c2c (cols_mix at a mixed Y,
+//     fft_axis_mix.cu, on the lane tile fft_axis routes; cols_smooth at a
+//     smooth Y, fft_axis_smooth*.cu) in place on the output. Where the
 //     z-transformed slab lives between the passes was measured
 //     (bench/probe_slabparts.py): one block per x-row running both passes
 //     (the `fused` probe) reads its own z writes back with 396 slabs of
@@ -241,6 +242,9 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
     if (smooth_length(nz)) {
       err = last_smooth(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op, inverse,
                         1.f, s);
+    } else if (smooth_more_length(nz)) {
+      err = last_smooth_more(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op,
+                             inverse, 1.f, s);
     } else if (nz & (nz - 1)) {
       err = last_mix(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op, inverse,
                      1.f, s);
@@ -256,6 +260,9 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
     if (err != cudaSuccess) return err;
     if (smooth_length(ny))
       return axis_smooth(yr, yi, yr, yi, taby, gy, ny, inverse, scale, -1, s);
+    if (smooth_more_length(ny))
+      return axis_smooth_more(yr, yi, yr, yi, taby, gy, ny, inverse, scale,
+                              -1, s);
     if (ny & (ny - 1))
       return axis_mix(yr, yi, yr, yi, taby, gy, ny, inverse, scale, -1, s);
     return by_log(ny, [&](auto ly) {

@@ -1,14 +1,20 @@
-// fft_smooth.cuh: the register core at the 5-smooth lengths N = R 2^K
-// whose odd part R is 9, 15, 25 or 45 (K >= 3, N <= 4096: 72-2304,
-// 120-3840, 200-3200, 360-2880), as rows (rows_smooth: fft_last.cu through
-// fft_last_smooth.cu, the z pass of fft_slab.cu) and in the column variant
-// (cols_smooth: fft_axis.cu through fft_axis_smooth.cu, the y pass of
-// fft_slab.cu), and as the real rows of rfft_last.cu and icrfft_last.cu at
-// those half lengths M (rows_r2c_smooth, rows_c2r_smooth:
-// real_rows_smooth.cu). Every other length keeps its core: the powers of
-// two and R0 2^k (R0 = 3, 5) of fft_regs.cuh, the dense core of
-// fft_core.cuh; the real slabs, the four-step pair and the cube keep theirs
-// at these lengths too.
+// fft_smooth.cuh: the register core at the 5-smooth lengths N = R 2^K,
+// R = 3^a 5^b > 1, K >= 2, N <= 4096, that no power-of-two or mixed core
+// takes. The first family, odd part R of 9, 15, 25 or 45 and K >= 3
+// (72-2304, 120-3840, 200-3200, 360-2880; smooth_length), runs as rows
+// (rows_smooth: fft_last.cu through fft_last_smooth.cu, the z pass of
+// fft_slab.cu), in the column variant (cols_smooth: fft_axis.cu through
+// fft_axis_smooth.cu, the y pass of fft_slab.cu), and as the real rows of
+// rfft_last.cu and icrfft_last.cu at those half lengths M
+// (rows_r2c_smooth, rows_c2r_smooth: real_rows_smooth.cu). The second
+// family, every other such length (smooth_more_length: 12, 20, 24, 36,
+// 40, 60, 100, 180 and the odd parts 27, 75, 81, 125, 135, 225, 243, 375,
+// 405, 625, 675, 729; 42 lengths, 12-4000), runs c2c only, as rows
+// (fft_last_smooth3.cu, fft_last_smooth5.cu by R0) and columns
+// (fft_axis_smooth3.cu, fft_axis_smooth5.cu). Every other length keeps
+// its core: the powers of two and R0 2^k (R0 = 3, 5, 2^k >= 16) of
+// fft_regs.cuh, the dense core of fft_core.cuh; the real slabs, the
+// four-step pair and the cube keep theirs at these lengths too.
 //
 // Replaces, at those lengths: the dense shared-memory core of fft_core.cuh
 // (the port of offt_tpu/kernels/pallas_fft.py _core_apply :428). It
@@ -17,40 +23,56 @@
 // is the caller's, applied once at the store.
 //
 // The decision. fft_regs.cuh's mixed design holds V = 4 R0 values a
-// thread on P = N / V threads, a power of two; an odd part of 9, 15, 25
-// or 45 would ask for 36-180 values a thread there, or, halved (V = 2 R),
-// 18-90 values and a radix-18-90 network. Here a thread keeps V0 = 4 R0
-// values (R0 = 5 for an odd part 25, else 3), so P = N / V0 = (R / R0)
-// 2^(K-2) threads a line, not a power of two, and each further odd factor
-// gets a pass of its own:
-// - radix-4 passes (a radix 2 last where K is odd) over 2^(K-2), then one
-//   radix-3 or radix-5 pass per odd factor of R / R0 (9: 3; 25: 5; 15: 5;
-//   45: 3 then 5), then one pass of radix V0 (the Good-Thomas 3 x 4 or
-//   5 x 4 network of fft_regs.cuh) at stride P, leaving element t + r P in
-//   natural order for a coalesced store. Every stride but the last divides
-//   P, so butterfly j = t + q P has j mod NS = t mod NS: a thread's
-//   butterflies share their twiddles, and every exchange address is the
-//   thread's base plus a compile-time constant;
-// - a radix-5 pass at V0 = 12 (odd parts 15 and 45) has N / 5 = 2.4 P
-//   butterflies: each thread takes three, the third masked where
-//   t + 2 P >= N / 5, so a thread holds 15 values at most (SmoothGeo::VMAX);
-//   V = 30, with radix-2 passes only, would hold 30 and run twice the
-//   exchanges;
+// thread on P = N / V threads, a power of two; an odd part of 9 or more
+// would ask for 36-2916 values a thread there. Here a thread keeps V0 =
+// 4 R0 values (R0 = 5 where 25 divides R or 3 does not, else 3), so P =
+// N / V0 = (R / R0) 2^(K-2) threads a line, not a power of two, and each
+// further odd factor gets a pass of its own:
+// - radix-4 passes (a radix 2 last where K is odd) over 2^(K-2), none at
+//   K = 2, then one radix-R0 pass per factor R0 of R / R0, then one pass
+//   of the other odd prime per factor of it (9: 3; 25: 5; 15: 5; 45: 3
+//   then 5; 675: 5, 3, 3, 3), then one pass of radix V0 (the Good-Thomas
+//   3 x 4 or 5 x 4 network of fft_regs.cuh) at stride P, leaving element
+//   t + r P in natural order for a coalesced store. Every stride but the
+//   last divides P, so butterfly j = t + q P has j mod NS = t mod NS: a
+//   thread's butterflies share their twiddles, and every exchange address
+//   is the thread's base plus a compile-time constant;
+// - a radix-5 pass at V0 = 12 has N / 5 = 2.4 P butterflies: each thread
+//   takes three, the third masked where t + 2 P >= N / 5, so a thread
+//   holds 15 values at most (SmoothGeo::VMAX); a radix-3 pass at V0 = 20
+//   has 6.67 P: seven a thread, the seventh masked, 21 values. Where both
+//   3 and 25 divide R (75, 225, 675) R0 = 5 is the cheaper: one masked
+//   radix-3 pass for every 3 (5-13% fewer operations than R0 = 3's masked
+//   radix-5 passes, regcore.smooth_schedule's count) and fewer threads a
+//   line (1500, 1800, 2400 fit the column variant's P <= 128). The R0
+//   passes run first, so a first pass at K = 2 is whole but at 60 (15 4:
+//   its radix-5 pass masked, loads too);
 // - the exchanges keep separate re and im planes. Columns: the lane is
 //   fastest and the planes are padded one slot per four elements
-//   (ColLay<L, 2>), L = 32 lanes a block up to 768 threads, then 16, then
-//   8 (to P = 128, 1024 threads), so a warp holds W = 32 / L <= 4 row threads
-//   of consecutive t: every put and get takes one wavefront
-//   (regcore.smooth_ways). Lengths of P > 128 (L = 4: 1920-3840) would
-//   take two and stay dense as columns. Rows: 256 / P rows a block (one
-//   from P = 256), each row's planes at a pitch of P mod 32 floats and no
-//   pad, so element a of row g sits at bank (g P + a) mod 32 and every
-//   get (consecutive elements of consecutive threads) takes one
-//   wavefront across the rows a warp straddles; the puts of the strided
-//   passes take up to four (counted per exchange by regcore.smooth_ways:
-//   the radix-4 pass at stride 4 the worst), the first radix-4 pass's
-//   float4 puts one or two. Rows and lines straddle warps, so every
-//   exchange synchronises the block.
+//   (ColLay<L, 2>) where a radix-4 pass writes runs of four (the first
+//   family, K >= 4), unpadded below (SmoothFlatColLay), L = 32 lanes a
+//   block up to 768 threads, then 16, then 8 (to P = 128, 1024 threads),
+//   so a warp holds W = 32 / L <= 4 row threads of consecutive t: every put
+//   and get takes one wavefront in the first family and two at most in the
+//   second (regcore.smooth_ways). Lengths of P > 128 (L = 4: 1920-3840,
+//   1620-4000) would take more and stay dense as columns. Rows: 256 / P
+//   rows a block (one from P = 256), each row's planes at a pitch of
+//   P mod 32 floats and no pad, so element a of row g sits at bank
+//   (g P + a) mod 32 and every get (consecutive elements of consecutive
+//   threads) takes one wavefront across the rows a warp straddles; the
+//   puts of the strided passes take up to four (counted per exchange by
+//   regcore.smooth_ways: the radix-4 pass at stride 4 the worst), the
+//   first radix-4 pass's float4 puts one or two; at six lengths of K = 2
+//   (36, 60, 100, 108, 180, 300) another pitch takes two a get and two a
+//   put where P mod 32 would take three to five a put
+//   (smooth_row_pitch). Rows and lines straddle warps, so every exchange
+//   synchronises the block. At 12 and 20 (P = 1) a thread holds its line
+//   whole: one pass, no exchange. Rows of fewer than 6 threads (the
+//   second family's 12-100) would read and write runs of 4-20 bytes a
+//   thread, P rows a warp (0.16-0.44 of the bound on an H100 at 700 W,
+//   slower than the dense core at 20), so they stage the block's rows
+//   through the planes, in and out whole (SmoothRowGeo::STAGE; 0.54-0.82,
+//   PERF.md).
 
 #pragma once
 
@@ -68,8 +90,9 @@ __host__ __device__ constexpr int odd_part(int n) {
   return n % 2 ? n : odd_part(n / 2);
 }
 
-// whether n is a length of this core as rows (the columns take those of
-// at most 128 threads a line, SmoothColGeo)
+// whether n is a length of the first family as rows (odd part 9, 15, 25,
+// 45; K >= 3): fft_last_smooth.cu and the real rows of real_rows_smooth.cu
+// (the columns take those of at most 128 threads a line, SmoothColGeo)
 __host__ __device__ constexpr bool smooth_length(int n) {
   return n > 0 && n <= 4096 &&
          (odd_part(n) == 9 || odd_part(n) == 15 || odd_part(n) == 25 ||
@@ -77,29 +100,64 @@ __host__ __device__ constexpr bool smooth_length(int n) {
          n / odd_part(n) >= 8;
 }
 
+__host__ __device__ constexpr int count_factor(int r, int f) {
+  return r % f ? 0 : 1 + count_factor(r / f, f);
+}
+
+__host__ __device__ constexpr bool pow35(int r) {
+  return r == 1 || (r % 3 == 0 && pow35(r / 3)) ||
+         (r % 5 == 0 && pow35(r / 5));
+}
+
+// whether n is a length of this core's schedule: R 2^K <= 4096, K >= 2,
+// R = 3^a 5^b > 1
+__host__ __device__ constexpr bool smooth_core_length(int n) {
+  return n > 0 && n <= 4096 && odd_part(n) > 1 && pow35(odd_part(n)) &&
+         n / odd_part(n) >= 4;
+}
+
+// whether n is a length of the second family, c2c only (fft_last_smooth3.cu
+// and fft_last_smooth5.cu as rows, fft_axis_smooth3.cu and
+// fft_axis_smooth5.cu as columns): a length of the schedule that neither
+// the first family nor the mixed rows (R0 2^k, 2^k >= 16: fft_last_mix.cu)
+// take; the real rows keep smooth_length
+__host__ __device__ constexpr bool smooth_more_length(int n) {
+  return smooth_core_length(n) && !smooth_length(n) &&
+         !((odd_part(n) == 3 || odd_part(n) == 5) && n / odd_part(n) >= 16);
+}
+
+// R0 of n's odd part R: 5 where 25 divides R or 3 does not, else 3
+__host__ __device__ constexpr int smooth_r0(int n) {
+  return odd_part(n) % 25 == 0 || odd_part(n) % 3 ? 5 : 3;
+}
+
 // compile-time schedule of N = R 2^K
 template <int N>
 struct SmoothGeo {
-  static_assert(smooth_length(N), "a smooth length: R 2^K, R in {9, 15, "
-                                  "25, 45}, K >= 3, N <= 4096");
+  static_assert(smooth_core_length(N), "a smooth length: R 2^K, R = 3^a "
+                                       "5^b > 1, K >= 2, N <= 4096");
   static constexpr int R = odd_part(N);
   static constexpr int K = ilog2(N / R);
-  static constexpr int R0 = R == 25 ? 5 : 3;
+  static constexpr int R0 = smooth_r0(N);
   static constexpr int V0 = 4 * R0;  // the last pass's radix
   static constexpr int P = N / V0;   // threads a line
   static constexpr int NPOW = (K - 1) / 2;       // passes over 2^(K-2)
-  static constexpr int NODD = R == 45 ? 2 : 1;   // passes of radix 3 or 5
+  // passes of radix R0, then of the other odd prime (8 - R0), one a factor
+  // of R / R0
+  static constexpr int NSAME = count_factor(R / R0, R0);
+  static constexpr int NODD = NSAME + count_factor(R / R0, 8 - R0);
   static constexpr int NPASS = NPOW + NODD + 1;
   __host__ __device__ static constexpr int radix(int p) {
-    return p < NPOW                ? (p == NPOW - 1 && K % 2 ? 2 : 4)
-           : p < NPOW + NODD      ? (R == 45 ? (p == NPOW ? 3 : 5) : R / R0)
-                                  : V0;
+    return p < NPOW            ? (p == NPOW - 1 && K % 2 ? 2 : 4)
+           : p < NPOW + NSAME ? R0
+           : p < NPOW + NODD  ? 8 - R0
+                              : V0;
   }
   __host__ __device__ static constexpr int stride(int p) {
     return p == 0 ? 1 : stride(p - 1) * radix(p - 1);
   }
   // butterflies a thread takes in pass p (the last one masked where
-  // B P > N / R)
+  // B P > N / R: a radix-5 pass at V0 = 12, a radix-3 pass at V0 = 20)
   __host__ __device__ static constexpr int bflies(int p) {
     return (N / radix(p) + P - 1) / P;
   }
@@ -166,6 +224,14 @@ struct SmoothRowLay {
   static __host__ __device__ constexpr int at(int a) { return a; }
 };
 
+// the columns' exchange planes below K = 4 in the second family: the lane
+// fastest and no pad (no radix-4 pass writes runs of four there)
+template <int L>
+struct SmoothFlatColLay {
+  static constexpr bool kVec4 = false;
+  static __host__ __device__ constexpr int at(int a) { return a * L; }
+};
+
 // Write pass PASS's outputs: output r of butterfly j = t + q P to
 // d + r NS, d = (j div NS) NS R + j mod NS = X + q P R, X = (t div NS) NS R
 // + t mod NS. The first radix-4 pass stores its runs of four as float4
@@ -221,12 +287,14 @@ static __device__ __forceinline__ void smooth_get(const float* sre,
   });
 }
 
-template <int N, int PASS, bool INV, typename Lay>
+// SYNC0: the first put waits for the block too (its loads read the
+// planes: the staged rows)
+template <int N, int PASS, bool INV, typename Lay, bool SYNC0 = false>
 static __device__ __forceinline__ void smooth_passes(
     float2* v, float* sre, float* sim, int t,
     const float2* __restrict__ tab) {
   if constexpr (PASS < SmoothGeo<N>::NPASS) {
-    if constexpr (PASS > 1) __syncthreads();
+    if constexpr (PASS > 1 || SYNC0) __syncthreads();
     smooth_put<N, PASS - 1, Lay>(sre, sim, v, t);
     __syncthreads();
     smooth_get<N, PASS, Lay>(sre, sim, v, t);
@@ -239,22 +307,27 @@ static __device__ __forceinline__ void smooth_passes(
 // in it; (sre, sim) its exchange planes laid out by Lay; load(e) gives
 // input element e, each once). On return v[r] holds output element
 // t + r P, r < V0 (outputs_smooth). Every thread of the block must call
-// it: the exchanges synchronise the block.
-template <int N, bool INV, typename Lay, typename Load>
+// it: the exchanges synchronise the block. SYNC0 where load reads the
+// planes.
+template <int N, bool INV, typename Lay, bool SYNC0 = false, typename Load>
 static __device__ __forceinline__ void core_smooth(
     float2* v, float* sre, float* sim, int t, const float2* __restrict__ tab,
     Load load) {
   using S = SmoothGeo<N>;
-  constexpr int R = S::radix(0), B = S::bflies(0);
-  static_assert(B * R == S::V0, "a whole first pass");
+  constexpr int R = S::radix(0), B = S::bflies(0), LIVE = N / R;
+  // masked where the first pass is a radix-5 one at V0 = 12 (60 = 15 4)
+  constexpr bool MASKED = B * S::P > LIVE;
   unroll<0, B>([&](auto qc) {
-    unroll<0, R>([&](auto r) {
-      constexpr int Q = decltype(qc)::value, K = decltype(r)::value;
-      v[Q * R + K] = load(t + Q * S::P + K * (N / R));
-    });
+    constexpr int Q = decltype(qc)::value;
+    if (!MASKED || Q < B - 1 || t + Q * S::P < LIVE) {
+      unroll<0, R>([&](auto r) {
+        constexpr int K = decltype(r)::value;
+        v[Q * R + K] = load(t + Q * S::P + K * LIVE);
+      });
+    }
   });
   smooth_butterflies<N, 0, INV>(v, t, tab);
-  smooth_passes<N, 1, INV, Lay>(v, sre, sim, t, tab);
+  smooth_passes<N, 1, INV, Lay, SYNC0>(v, sre, sim, t, tab);
 }
 
 template <int N, typename F>
@@ -276,24 +349,82 @@ __host__ __device__ constexpr int smooth_min_blocks(int nt, int vmax) {
              : 1;
 }
 
-// Rows: ROWS = 256 / P rows of P threads a block (one from P = 256), each
-// row's two planes at a pitch of N rounded up to P mod 32 (so a warp's
-// consecutive threads, whatever rows they lie in, meet consecutive banks
-// on a get).
+// The rows' pitch mod 32: P mod 32 (a warp's consecutive threads, whatever
+// rows they lie in, meet consecutive banks on a get), but at the second
+// family's six lengths of K = 2 where another residue costs fewer
+// wavefronts over the exchange (gets and puts two each, against puts of
+// three to five; regcore.smooth_row_pitch).
+__host__ __device__ constexpr int smooth_row_pitch(int n, int p) {
+  return n == 12    ? 13
+         : n == 20  ? 21
+         : n == 36  ? 9
+         : n == 60  ? 25
+         : n == 100 ? 25
+         : n == 108 ? 27
+         : n == 180 ? 8
+         : n == 300 ? 11
+                    : p % 32;
+}
+
+// Rows: ROWS = 256 / P rows of P threads a block (one from P = 256; at an
+// odd P the block's last warp is short), each row's two planes at a pitch
+// of N rounded up to smooth_row_pitch. Rows of fewer than 6 threads (the
+// second family's 12-100: a thread would read and write runs of 4-20
+// bytes of its row, P rows a warp) move in and out through the planes
+// (STAGE): the block's rows whole, consecutive threads on consecutive
+// elements.
 template <int N>
 struct SmoothRowGeo {
   using S = SmoothGeo<N>;
   static constexpr int P = S::P;
   static constexpr int ROWS = P >= kThreads ? 1 : kThreads / P;
   static constexpr int NT = ROWS * P;  // threads a block
-  static constexpr int PITCH = pitch_to(N, P % 32);
-  static constexpr size_t SMEM = (size_t)2 * ROWS * PITCH * sizeof(float);
+  static constexpr bool STAGE = P < 6;
+  static constexpr int PITCH = pitch_to(N, smooth_row_pitch(N, P));
+  static constexpr size_t SMEM =
+      S::NPASS > 1 || STAGE ? (size_t)2 * ROWS * PITCH * sizeof(float) : 0;
   static constexpr int MINB = smooth_min_blocks(NT, S::VMAX);
 };
 
+// The staged rows' copies: the block's ROWS rows from row0 (rows past
+// `rows` zeros in, nothing out) between device memory at `pitch` floats a
+// row and the planes (re at s, im ROWS PITCH floats on), thread tid on
+// elements tid, tid + NT, ... of the block's ROWS N.
+template <int N>
+static __device__ __forceinline__ void smooth_stage_in(
+    float* s, const float* xr, const float* xi, long long row0,
+    long long rows, long long pitch) {
+  using G = SmoothRowGeo<N>;
+  for (int i = threadIdx.x; i < G::ROWS * N; i += G::NT) {
+    const int r = i / N, e = i - r * N;
+    const bool ok = row0 + r < rows;
+    const long long o = (row0 + r) * pitch + e;
+    s[r * G::PITCH + e] = ok ? xr[o] : 0.f;
+    s[(G::ROWS + r) * G::PITCH + e] = ok ? xi[o] : 0.f;
+  }
+}
+
+template <int N>
+static __device__ __forceinline__ void smooth_stage_out(
+    const float* s, float* yr, float* yi, long long row0, long long rows,
+    long long pitch) {
+  using G = SmoothRowGeo<N>;
+  for (int i = threadIdx.x; i < G::ROWS * N; i += G::NT) {
+    const int r = i / N, e = i - r * N;
+    if (row0 + r < rows) {
+      const long long o = (row0 + r) * pitch + e;
+      yr[o] = s[r * G::PITCH + e];
+      yi[o] = s[(G::ROWS + r) * G::PITCH + e];
+    }
+  }
+}
+
 // Columns: L = 32 lanes a block up to 768 threads, then 16, then 8 (to
 // 1024 threads, P = 128), NT = L P; the lane fastest, the planes padded
-// one slot per four elements.
+// one slot per four elements in the first family and from K = 4 (where a
+// radix-4 pass writes runs of four), unpadded below (K = 2, 3 of the
+// second family: the pad would put a warp's two or four row threads on
+// one bank twice as often, regcore.smooth_ways); no planes at one pass.
 template <int N>
 struct SmoothColGeo {
   using S = SmoothGeo<N>;
@@ -301,9 +432,11 @@ struct SmoothColGeo {
   static constexpr int L = 32 * P <= 768 ? 32 : 16 * P <= 768 ? 16 : 8;
   static_assert(L * P <= 1024, "columns to P = 128");
   static constexpr int NT = L * P;
-  using Lay = ColLay<L, 2>;
+  using Lay = std::conditional_t<smooth_length(N) || S::K >= 4, ColLay<L, 2>,
+                                 SmoothFlatColLay<L>>;
   static constexpr int SIZE = (Lay::at(N - 1) + L + 3) / 4 * 4;
-  static constexpr size_t SMEM = (size_t)2 * SIZE * sizeof(float);
+  static constexpr size_t SMEM =
+      S::NPASS > 1 ? (size_t)2 * SIZE * sizeof(float) : 0;
   static constexpr int MINB = smooth_min_blocks(NT, S::VMAX);
 };
 
@@ -311,8 +444,10 @@ struct SmoothColGeo {
 
 // c2c of contiguous rows at a smooth length N: ROWS rows a block at their
 // own input and output pitch, the ragged last block masked (its rows past
-// `rows` load zeros and store nothing), times `scale`. Every thread of a
-// row reads the whole row before any writes, so it may run in place.
+// `rows` load zeros and store nothing), times `scale`; under 6 threads a
+// row through the planes (SmoothRowGeo::STAGE). Every thread of a row
+// reads the whole row (a staged block all its rows) before any writes, so
+// it may run in place.
 template <int N, bool INV>
 __global__ void __launch_bounds__(SmoothRowGeo<N>::NT, SmoothRowGeo<N>::MINB)
 rows_smooth(const float* xr, const float* xi, float* yr, float* yi,
@@ -326,17 +461,37 @@ rows_smooth(const float* xr, const float* xi, float* yr, float* yi,
   const bool valid = row < rows;
   const long long in = row * ipitch, out = row * opitch;
   float2 v[G::S::VMAX];
-  core_smooth<N, INV, SmoothRowLay>(
-      v, ssmem + g * G::PITCH, ssmem + (G::ROWS + g) * G::PITCH, t, tab,
-      [&](int e) {
-        return valid ? make_float2(xr[in + e], xi[in + e])
-                     : make_float2(0.f, 0.f);
-      });
-  if (!valid) return;
-  outputs_smooth<N>(v, t, [&](int e, float2 y) {
-    yr[out + e] = y.x * scale;
-    yi[out + e] = y.y * scale;
-  });
+  if constexpr (G::STAGE) {
+    // the block's rows in whole, the core's loads from the planes, the
+    // outputs (scaled) back into them, the rows out whole
+    const long long row0 = (long long)blockIdx.x * G::ROWS;
+    float* sre = ssmem + g * G::PITCH;
+    float* sim = ssmem + (G::ROWS + g) * G::PITCH;
+    smooth_stage_in<N>(ssmem, xr, xi, row0, rows, ipitch);
+    __syncthreads();
+    core_smooth<N, INV, SmoothRowLay, true>(
+        v, sre, sim, t, tab,
+        [&](int e) { return make_float2(sre[e], sim[e]); });
+    __syncthreads();
+    outputs_smooth<N>(v, t, [&](int e, float2 y) {
+      sre[e] = y.x * scale;
+      sim[e] = y.y * scale;
+    });
+    __syncthreads();
+    smooth_stage_out<N>(ssmem, yr, yi, row0, rows, opitch);
+  } else {
+    core_smooth<N, INV, SmoothRowLay>(
+        v, ssmem + g * G::PITCH, ssmem + (G::ROWS + g) * G::PITCH, t, tab,
+        [&](int e) {
+          return valid ? make_float2(xr[in + e], xi[in + e])
+                       : make_float2(0.f, 0.f);
+        });
+    if (!valid) return;
+    outputs_smooth<N>(v, t, [&](int e, float2 y) {
+      yr[out + e] = y.x * scale;
+      yi[out + e] = y.y * scale;
+    });
+  }
 }
 
 // The column variant at a smooth length N: c2c along the n axis of
@@ -413,6 +568,21 @@ static cudaError_t by_smooth_odd(int n, F&& f) {
   } else {
     if (n == N) return f(std::integral_constant<int, N>());
     return by_smooth_odd<R, LAST, 2 * N>(n, std::forward<F>(f));
+  }
+}
+
+// f(std::integral_constant<int, N>) for n = R 2^K, K from 2, a
+// smooth_more_length of at most MAXP threads a line; an error for any
+// other n
+template <int R, int MAXP = 4096, int N = 4 * R, typename F>
+static cudaError_t by_smooth_more_odd(int n, F&& f) {
+  if constexpr (N > 4096) {
+    return cudaErrorInvalidValue;
+  } else {
+    if constexpr (smooth_more_length(N) && N / (4 * smooth_r0(N)) <= MAXP) {
+      if (n == N) return f(std::integral_constant<int, N>());
+    }
+    return by_smooth_more_odd<R, MAXP, 2 * N>(n, std::forward<F>(f));
   }
 }
 

@@ -1058,6 +1058,42 @@ cudaError_t axis_smooth(const float* xr, const float* xi, float* yr,
                         float* yi, const float2* tab, const AxisGeom& g,
                         int n, int inverse, float scale, int tile,
                         cudaStream_t s);
+// The same at the second family of fft_smooth.cuh (smooth_more_length,
+// c2c only), by R0: fft_last_smooth3.cu and fft_axis_smooth3.cu where 3
+// divides n and 25 does not (R0 = 3), fft_last_smooth5.cu and
+// fft_axis_smooth5.cu at the rest (R0 = 5); last_smooth_more and
+// axis_smooth_more pick the source.
+cudaError_t last_smooth3(const float* xr, const float* xi, float* yr,
+                         float* yi, const float2* tab, long long rows, int n,
+                         long long ipitch, long long opitch, int inverse,
+                         float scale, cudaStream_t s);
+cudaError_t last_smooth5(const float* xr, const float* xi, float* yr,
+                         float* yi, const float2* tab, long long rows, int n,
+                         long long ipitch, long long opitch, int inverse,
+                         float scale, cudaStream_t s);
+cudaError_t axis_smooth3(const float* xr, const float* xi, float* yr,
+                         float* yi, const float2* tab, const AxisGeom& g,
+                         int n, int inverse, float scale, int tile,
+                         cudaStream_t s);
+cudaError_t axis_smooth5(const float* xr, const float* xi, float* yr,
+                         float* yi, const float2* tab, const AxisGeom& g,
+                         int n, int inverse, float scale, int tile,
+                         cudaStream_t s);
+inline cudaError_t last_smooth_more(const float* xr, const float* xi,
+                                    float* yr, float* yi, const float2* tab,
+                                    long long rows, int n, long long ipitch,
+                                    long long opitch, int inverse,
+                                    float scale, cudaStream_t s) {
+  return (n % 3 == 0 && n % 25 ? last_smooth3 : last_smooth5)(
+      xr, xi, yr, yi, tab, rows, n, ipitch, opitch, inverse, scale, s);
+}
+inline cudaError_t axis_smooth_more(const float* xr, const float* xi,
+                                    float* yr, float* yi, const float2* tab,
+                                    const AxisGeom& g, int n, int inverse,
+                                    float scale, int tile, cudaStream_t s) {
+  return (n % 3 == 0 && n % 25 ? axis_smooth3 : axis_smooth5)(
+      xr, xi, yr, yi, tab, g, n, inverse, scale, tile, s);
+}
 // The real rows at the smooth half lengths m of fft_smooth.cuh
 // (real_rows_smooth.cu): r2c of `rows` real rows of 2m floats into the
 // numpy (m + 1 lanes) or packed (m lanes) planar rows at `opitch` floats

@@ -242,10 +242,17 @@ _SMOOTH_LENGTHS = frozenset(r << k for r in (9, 15, 25, 45)
                             for k in range(3, 9) if r << k <= 4096)
 
 
+def _odd_part(n: int) -> int:
+    while n % 2 == 0:
+        n //= 2
+    return n
+
+
 def _smooth_values(n: int) -> int:
-    """V0, the values a thread of the smooth core holds between its passes
-    (its last pass's radix): 20 at an odd part 25, else 12."""
-    return 20 if n % 25 == 0 else 12
+    """V0 = 4 R0, the values a thread of the smooth core holds between its
+    passes (its last pass's radix): R0 = 5 where 25 divides the odd part
+    or 3 does not (25, 75, 125, 225, 375, 625, 675 and 5), else R0 = 3."""
+    return 20 if n % 25 == 0 or n % 3 else 12
 
 
 # those it runs in the column variant (csrc/fft_axis_smooth.cu): at most
@@ -254,6 +261,35 @@ def _smooth_values(n: int) -> int:
 # wavefronts an exchange
 _SMOOTH_COL_LENGTHS = frozenset(n for n in _SMOOTH_LENGTHS
                                 if n // _smooth_values(n) <= 128)
+
+
+def _smooth5(n: int) -> bool:
+    for p in (3, 5):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+# the other 5-smooth lengths R 2^k with k >= 2 up to 4096, R = 3^a 5^b > 1,
+# that no row core above takes (c2c only: csrc/fft_last_smooth3.cu,
+# fft_last_smooth5.cu by R0): 12, 20, 24, 40, the k = 2 lengths 36, 60,
+# 100, 180, and every length with an odd part of 27, 75, 81, 125, 135,
+# 225, 243, 375, 405, 625, 675 or 729 (108-4000)
+_SMOOTH_MORE_LENGTHS = frozenset(
+    n for n in range(12, 4097, 4)
+    if _odd_part(n) > 1 and _smooth5(_odd_part(n))
+    and n not in _SMOOTH_LENGTHS and n not in _MIX_ROW_LENGTHS)
+# those in the column variant (csrc/fft_axis_smooth3.cu,
+# fft_axis_smooth5.cu): at most 128 threads a line, as above, every
+# exchange two wavefronts at most (regcore.smooth_ways); 1620, 1728, 1944,
+# 2160, 2592, 2700, 2916, 3000, 3240, 3456, 3600, 3888 and 4000 (P = 135-
+# 324: 4 lanes a block, see _reg_axis) stay dense as columns
+_SMOOTH_MORE_COL_LENGTHS = frozenset(n for n in _SMOOTH_MORE_LENGTHS
+                                     if n // _smooth_values(n) <= 128)
+# every length the smooth core (csrc/fft_smooth.cuh) runs as c2c rows, and
+# as columns
+_SMOOTH_ROWS = _SMOOTH_LENGTHS | _SMOOTH_MORE_LENGTHS
+_SMOOTH_COLS = _SMOOTH_COL_LENGTHS | _SMOOTH_MORE_COL_LENGTHS
 
 
 def _reg_real_rows(m: int) -> bool:
@@ -265,19 +301,20 @@ def _reg_real_rows(m: int) -> bool:
     (an odd part of 9, 15, 25 or 45: ``regs::rows_r2c_smooth``,
     ``rows_c2r_smooth`` in ``csrc/real_rows_smooth.cu``, on P = M / 12 or
     M / 20 threads a row). Every other M takes the dense core: the other
-    5-smooth M (100, 180 and the like: an odd part of 27, 75 or more, or a
-    power of two under 8 beside 9-45) and M past 4096. The register core
-    ignores the radices and the rows per block."""
+    5-smooth M (100, 180 and the like: the second family of
+    ``_SMOOTH_MORE_LENGTHS``, whose instances are c2c only, and the odd
+    and twice-odd M) and M past 4096. The register core ignores the
+    radices and the rows per block."""
     return _pow2(m) or m in _MIX_ROW_LENGTHS or m in _SMOOTH_LENGTHS
 
 
 def _reg_values(n: int) -> int:
     """Complex values a thread of the register core holds at length n: 16
     at a power of two, 4 R0 at a mixed length R0 2^k (12 or 20), V0 at a
-    smooth length (12, or 20 at an odd part 25; the masked radix-5 pass
-    of an odd part 15 or 45 holds 15); a line takes n / that many threads
-    (P)."""
-    if n in _SMOOTH_LENGTHS:
+    smooth length of either family (:func:`_smooth_values`: 12, or 20; a
+    masked radix-5 pass at 12 holds 15, a masked radix-3 pass at 20
+    holds 21); a line takes n / that many threads (P)."""
+    if n in _SMOOTH_ROWS:
         return _smooth_values(n)
     return 4 * (3 if n % 3 == 0 else 5) if n in _MIX_ROW_LENGTHS else 16
 
@@ -291,20 +328,24 @@ def _reg_rows(n: int) -> bool:
     smooth length of ``_SMOOTH_LENGTHS`` (an odd part of 9, 15, 25 or 45:
     ``regs::rows_smooth``, radix-4 passes, one radix-3 or radix-5 pass
     for each further odd factor, then one of radix 12 or 20, on P = n / 12
-    or n / 20 threads a row). Every other length takes the dense core:
-    the other 5-smooth lengths (18-40, 100, 180 and the like: an odd part
-    of 27, 75 or more, or a power of two under 8 beside 9-45) and lengths
-    past 4096."""
-    return _pow2(n) or n in _MIX_ROW_LENGTHS or n in _SMOOTH_LENGTHS
+    or n / 20 threads a row), or a length of the same core's second
+    family, ``_SMOOTH_MORE_LENGTHS`` (every other 5-smooth R 2^k, k >= 2:
+    12-4000, the 100^3-1000^3 sides and 1080 among them;
+    ``csrc/fft_last_smooth3.cu``, ``fft_last_smooth5.cu``). Every other
+    length takes the dense core: the odd and twice-odd 5-smooth lengths
+    (9, 18, 45, 90, 125, 250, 1350 and the like) and lengths past
+    4096."""
+    return _pow2(n) or n in _MIX_ROW_LENGTHS or n in _SMOOTH_ROWS
 
 
 def _reg_slab(ny: int, nz: int) -> bool:
     """Whether the c2c slab kernel (``fft_slab_yz`` on (ny, nz)) launches
     the register core: z as rows (:func:`_reg_rows`), y on the column
     variant (:func:`_reg_axis`), each a power of two in [16, 4096], a
-    mixed or a smooth length (those in two grids: 360^3's slab on
-    ``rows_smooth`` and ``cols_smooth``). Every other slab takes the
-    dense core. The register slab ignores the radices and the tiles."""
+    mixed or a smooth length of either family (those in two grids: 360^3's
+    and 1000^3's slabs on ``rows_smooth`` and ``cols_smooth``). Every
+    other slab takes the dense core. The register slab ignores the radices
+    and the tiles."""
     return _reg_rows(nz) and _reg_axis(ny)
 
 
@@ -319,8 +360,9 @@ def _reg_rslab(ny: int, m: int) -> bool:
     without the smooth M: the slabs write their rows at the pitch M +
     zpad, which only the power-of-two and mixed instances take), the slabs
     with a mixed length (768^3's, 1280^3's) in two grids on the mixed
-    instances. Every other slab (Y = 24, 40, 3072 or a smooth 144-1440;
-    M = 72, 144 or any smooth M) takes the dense core."""
+    instances. Every other slab (Y = 3072 or a smooth Y of either family,
+    24 and 40 among them; M = 72, 144 or any smooth M) takes the dense
+    core."""
     return ((_pow2(ny) or ny in _MIX_LENGTHS)
             and (_pow2(m) or m in _MIX_ROW_LENGTHS))
 
@@ -333,13 +375,17 @@ def _reg_axis(n: int) -> bool:
     1536], 5 2^k in [80, 2560]: radix-4 and radix-2 passes, then one of
     radix 12 or 20), or a smooth length of ``_SMOOTH_COL_LENGTHS`` (an odd
     part of 9, 15, 25 or 45 and at most 128 threads a line: 72-1152,
-    120-960, 200-1600, 360-1440; ``regs::cols_smooth``). Every other
-    length takes the dense core (3072, and the smooth 1920, 2304, 2880,
-    3200 and 3840: with 8 or more row threads a warp their exchanges would
-    take two wavefronts; the other 5-smooth lengths: no schedule). The
-    register core ignores the radices and the lane tile of the dense
-    core."""
-    return _pow2(n) or n in _MIX_LENGTHS or n in _SMOOTH_COL_LENGTHS
+    120-960, 200-1600, 360-1440; ``regs::cols_smooth``) or of
+    ``_SMOOTH_MORE_COL_LENGTHS`` (the second family's at most 128 threads
+    a line: 12-2500; ``csrc/fft_axis_smooth3.cu``, ``fft_axis_smooth5.cu``).
+    Every other length takes the dense core (3072, and the smooth 1920,
+    2304, 2880, 3200, 3840 and 1620-4000 of P > 128: 4 lanes a block,
+    eight row threads a warp, runs of 16 bytes; the first family's
+    exchanges would take two wavefronts there, the second's two or three,
+    and 3240, 3456, 3888 over 1024 threads a block; the odd and twice-odd
+    5-smooth lengths: no schedule). The register core ignores the radices
+    and the lane tile of the dense core."""
+    return _pow2(n) or n in _MIX_LENGTHS or n in _SMOOTH_COLS
 
 
 # the register core's lane tiles of the strided-axis kernel and their
@@ -354,10 +400,10 @@ def _axis_tile(n: int) -> str:
     (P = n / ``_reg_values(n)``): narrow to P = 8 (n = 128 at a power of
     two, 96 and 160 mixed), where a block of 256 threads holds 32 lanes or
     more; wide from P = 16 (256, 192, 320: 32 lanes to P = 32, 16 at 64,
-    8 at 128, 4 at 256). A smooth length has the wide tile's code alone
-    (``csrc/fft_axis_smooth.cu``: 32 lanes a block up to 768 threads,
-    then 16, then 8; its P need not divide 256)."""
-    if n in _SMOOTH_LENGTHS:
+    8 at 128, 4 at 256). A smooth length of either family has the wide
+    tile's code alone (``csrc/fft_axis_smooth*.cu``: 32 lanes a block up
+    to 768 threads, then 16, then 8; its P need not divide 256)."""
+    if n in _SMOOTH_ROWS:
         return "wide"
     return "narrow" if n // _reg_values(n) <= 8 else "wide"
 
@@ -794,8 +840,8 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
     ``scale``). ``alias=True`` writes over the inputs and returns them; a
     ragged last block is masked, so any batch may alias.
 
-    On a power-of-two N in [16, 4096] and the mixed lengths 3 2^k and
-    5 2^k that :func:`_reg_rows` admits the kernel runs the register
+    On a power-of-two N in [16, 4096] and the mixed (3 2^k, 5 2^k) and
+    5-smooth lengths that :func:`_reg_rows` admits the kernel runs the register
     core's rows: ``radices`` is checked but does not shape its passes (any
     valid pick gives the same values), ``block_rows`` is ignored, and
     ``scale`` is applied at the store. Other lengths run the
@@ -841,8 +887,8 @@ def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
     the array viewed as (prefix, N, lanes); no data is transposed.
     ``alias=True`` writes over the inputs.
 
-    On a power-of-two N in [16, 4096] and the mixed lengths 3 2^k and
-    5 2^k that :func:`_reg_axis` admits the kernel runs the register
+    On a power-of-two N in [16, 4096] and the mixed (3 2^k, 5 2^k) and
+    5-smooth lengths that :func:`_reg_axis` admits the kernel runs the register
     core's column variant: ``radices`` is checked but does not shape its
     passes, ``block_lanes`` is ignored, and ``scale`` is applied at the
     store, on the lane tile of :func:`_axis_tile`; ``tile="narrow"``

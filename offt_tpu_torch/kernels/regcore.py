@@ -18,13 +18,19 @@ c2r rows at those lengths, ``csrc/real_rows_mix.cu``, block by block in
 addresses :func:`r2c_mix_addrs`, :func:`c2r_mix_loads`,
 :func:`stage_pitch` and the output copy at a pitch :func:`r2c_mix_copy`,
 their banks :func:`r2c_mix_ways`); and the smooth lengths R 2^k (R = 9,
-15, 25, 45; ``fused_fft._SMOOTH_LENGTHS``, ``csrc/fft_smooth.cuh``) on
+15, 25, 45, k >= 3, ``fused_fft._SMOOTH_LENGTHS``; and the second family,
+every other R = 3^a 5^b > 1 with k >= 2, c2c only,
+``fused_fft._SMOOTH_MORE_LENGTHS``; ``csrc/fft_smooth.cuh``) on
 P = n / 12 or n / 20 threads, not a power of two, a radix-3 or radix-5
-pass for each further odd factor (:func:`smooth_schedule`; the radix-5
-pass at 12 values masked), a block of rows or of columns replayed through
-its exchange planes (:func:`smooth_rows_block`, :func:`smooth_cols_block`,
-:func:`smooth_addr`, :func:`smooth_geometry`), its banks
-:func:`smooth_ways`; the r2c and c2r rows at those half lengths
+pass for each further odd factor (:func:`smooth_schedule`; a radix-5
+pass at 12 values and a radix-3 pass at 20 masked), a block of rows or
+of columns replayed through its exchange planes
+(:func:`smooth_rows_block`, :func:`smooth_cols_block`,
+:func:`smooth_addr`, :func:`smooth_geometry`; the rows' pitch
+:func:`smooth_row_pitch`, the columns' pad :func:`smooth_col_pad`), its
+banks :func:`smooth_ways` and their cost over a line
+:func:`smooth_exchange_cost`; the r2c and c2r rows at the first family's
+half lengths
 (``csrc/real_rows_smooth.cu``) block by block
 in :func:`rfft_rows_smooth_block` and :func:`rows_c2r_smooth_block`,
 their addresses :func:`r2c_smooth_addrs`, :func:`c2r_smooth_loads` and
@@ -90,11 +96,11 @@ def passes(n: int) -> list[tuple[int, int]]:
     the remainder last (n = 16 ... 16 * R_last), Ns = 16^pass. At a mixed
     length R0 2^k (``MixGeo``): radix 4 over P = n / (4 R0), a radix 2
     last where log2 P is odd, then radix 4 R0 at stride P; at a smooth
-    length R 2^k (``SmoothGeo``, :func:`smooth_schedule`): radix 4 over
-    2^(k-2) (a radix 2 last where k is odd), radix 3 or 5 for each odd
-    factor of R / R0, then radix V0 = 4 R0 at stride P; Ns = the product
-    of the radices before."""
-    if n in fused_fft._SMOOTH_LENGTHS:
+    length R 2^k of either family (``SmoothGeo``, :func:`smooth_schedule`):
+    radix 4 over 2^(k-2) (a radix 2 last where k is odd), radix 3 or 5 for
+    each odd factor of R / R0, then radix V0 = 4 R0 at stride P; Ns = the
+    product of the radices before."""
+    if n in fused_fft._SMOOTH_ROWS:
         return [(r, ns) for r, ns, _ in smooth_schedule(n)]
     if n in fused_fft._MIX_ROW_LENGTHS:
         p = n // fused_fft._reg_values(n)
@@ -108,7 +114,7 @@ def passes(n: int) -> list[tuple[int, int]]:
         raise ValueError(f"the register core takes powers of two in "
                          f"[16, 4096], the mixed lengths 3 2^k, 5 2^k "
                          f"(16 <= 2^k <= 512; 3072 as rows) and the smooth "
-                         f"ones R 2^k (R = 9, 15, 25, 45; k >= 3), not {n}")
+                         f"ones R 2^k (R = 3^a 5^b; k >= 2), not {n}")
     out, ns = [], 1
     for r in rads:
         out.append((r, ns))
@@ -116,24 +122,34 @@ def passes(n: int) -> list[tuple[int, int]]:
     return out
 
 
-def smooth_schedule(n: int) -> list[tuple[int, int, int]]:
+def smooth_schedule(n: int, v0: int | None = None
+                    ) -> list[tuple[int, int, int]]:
     """(radix R, stride Ns, butterflies B a thread) of each pass of the
-    smooth core at n = R_odd 2^k (``regs::SmoothGeo``): V0 = 4 R0 (R0 = 5
-    at an odd part 25, else 3), P = n / V0 threads a line; radix 4 over
-    2^(k-2) (a radix 2 last where k is odd), then radix 3 (odd part 9),
-    5 (15, 25) or 3 and 5 (45), then V0 at stride P. B = ceil(n / (R P)):
-    V0 / R but at the radix-5 pass of V0 = 12 (2.4 P butterflies: three a
-    thread, the third masked where t + 2 P >= n / 5)."""
-    if n not in fused_fft._SMOOTH_LENGTHS:
+    smooth core at n = R_odd 2^k, k >= 2 (``regs::SmoothGeo``): V0 = 4 R0
+    (``fused_fft._smooth_values``: R0 = 5 where 25 divides R_odd or 3
+    does not, else 3; ``v0`` counts the other choice where R0 = 3 and 5
+    both divide R_odd), P = n / V0 threads a line; radix 4 over 2^(k-2)
+    (none at k = 2, a radix 2 last where k is odd), then one pass of
+    radix R0 for each factor R0 of R_odd / R0, then one of the other
+    prime for each of its factors, then V0 at stride P. B = ceil(n / (R
+    P)): V0 / R but at a radix-5 pass at V0 = 12 (2.4 P butterflies:
+    three a thread, the third masked where t + 2 P >= n / 5) and a
+    radix-3 pass at V0 = 20 (6.67 P: seven, the seventh masked)."""
+    if n not in fused_fft._SMOOTH_ROWS:
         raise ValueError(f"{n} is not a smooth length of the register core")
-    odd = n
-    while odd % 2 == 0:
-        odd //= 2
+    odd = fused_fft._odd_part(n)
     k = (n // odd).bit_length() - 1
-    v0 = fused_fft._smooth_values(n)
+    v0 = v0 or fused_fft._smooth_values(n)
+    r0 = v0 // 4
+    if odd % r0:
+        raise ValueError(f"no radix {v0} at n = {n}")
     p = n // v0
-    rads = [4] * ((k - 2) // 2) + [2] * ((k - 2) % 2)
-    rads += {9: [3], 15: [5], 25: [5], 45: [3, 5]}[odd] + [v0]
+    rest, odd_passes = odd // r0, []
+    for r in (r0, 8 - r0):
+        while rest % r == 0:
+            odd_passes.append(r)
+            rest //= r
+    rads = [4] * ((k - 2) // 2) + [2] * ((k - 2) % 2) + odd_passes + [v0]
     out, ns = [], 1
     for r in rads:
         out.append((r, ns, -(-n // (r * p))))
@@ -184,7 +200,7 @@ def geometry(n: int) -> dict:
     v = fused_fft._reg_values(n)
     p = n // v
     rows = THREADS // p
-    if n in fused_fft._SMOOTH_LENGTHS:
+    if n in fused_fft._SMOOTH_ROWS:
         return smooth_geometry(n)
     if n in fused_fft._MIX_ROW_LENGTHS:
         pitch = -(-n // 32) * 32
@@ -202,10 +218,10 @@ def geometry(n: int) -> dict:
 def row_at(n: int, a, g=0):
     """Offset of element a of row g in a block's exchange plane: g PITCH
     plus phys(a) at a power of two, plus mix_at(a) ^ row_mask(g) at a mixed
-    length, plus a at a smooth length (no pad: the pitch, P mod 32,
-    carries the bank shift)."""
+    length, plus a at a smooth length (no pad: the pitch,
+    :func:`smooth_row_pitch`, carries the bank shift)."""
     pitch = geometry(n)["PITCH"]
-    if n in fused_fft._SMOOTH_LENGTHS:
+    if n in fused_fft._SMOOTH_ROWS:
         return g * pitch + a
     if n in fused_fft._MIX_ROW_LENGTHS:
         return g * pitch + (mix_at(a) ^ row_mask(n, g))
@@ -637,46 +653,85 @@ def rows_c2r_mix_block(xr, xi, tab, ab):
 
 # ---- the smooth lengths (csrc/fft_smooth.cuh) ----
 
-def smooth_geometry(n: int, kind: str = "rows") -> dict:
+# the rows' pitch mod 32 at the second family's lengths of K = 2 where a
+# residue other than P mod 32 takes fewer wavefronts over the exchange
+# (``regs::smooth_row_pitch``; the least of the sum over the exchanges'
+# values of their worst wavefronts, every residue counted by
+# :func:`smooth_ways` at the pitch; ``tests/test_torch_regsmoothmore.py``);
+# at 12 and 20 (one pass, no exchange: P = 1, the planes only stage the
+# rows) the odd pitch n + 1, so the 32 rows of a warp meet 32 banks
+SMOOTH_ROW_PITCH = {12: 13, 20: 21, 36: 9, 60: 25, 100: 25, 108: 27,
+                    180: 8, 300: 11}
+
+
+def smooth_row_pitch(n: int) -> int:
+    """The rows' pitch mod 32 at n: P mod 32 (every get one wavefront),
+    but at the lengths of ``SMOOTH_ROW_PITCH``."""
+    return SMOOTH_ROW_PITCH.get(n, n // fused_fft._smooth_values(n) % 32)
+
+
+def smooth_col_pad(n: int) -> bool:
+    """Whether the smooth columns' planes at n take one pad slot per four
+    elements (``ColLay<L, 2>``): in the first family and from k = 4, where
+    a radix-4 pass writes runs of four; below (k = 2, 3 of the second
+    family) they are unpadded (``SmoothFlatColLay``)."""
+    return (n in fused_fft._SMOOTH_LENGTHS
+            or smooth_schedule(n)[0][0] == 4)
+
+
+def smooth_geometry(n: int, kind: str = "rows", pitch: int | None = None
+                    ) -> dict:
     """The block of the smooth core at n: P threads a line, V the values
     a thread holds at most (VMAX), and for ``kind`` "rows"
     (``regs::SmoothRowGeo``) ROWS = 256 / P rows a block (one from P =
     256), NT = ROWS P threads, a row's planes at PITCH floats (n rounded up
-    to P mod 32, no pad, SIZE = n); for "cols" (``SmoothColGeo``) L lanes
-    a block (32 up to 768 threads, then 16, then 8, to P = 128), NT = L P,
-    W = 32 / L row threads a warp, one plane's floats SIZE (one pad slot
-    per four elements); both with the block's dynamic shared memory SMEM
-    in bytes."""
+    to :func:`smooth_row_pitch` mod 32, or to ``pitch`` mod 32 where
+    given; no pad, SIZE = n); for "cols" (``SmoothColGeo``) L lanes a block
+    (32 up to 768 threads, then 16, then 8, to P = 128), NT = L P, W = 32 /
+    L row threads a warp, one plane's floats SIZE (one pad slot per four
+    elements where :func:`smooth_col_pad`); both with the block's dynamic
+    shared memory SMEM in bytes (none for the columns at one pass: 12,
+    20). Rows of fewer than 6 threads (12-100 of the second family) STAGE
+    through the planes: the block's rows in and out whole
+    (:func:`smooth_stage_ways`)."""
     sched = smooth_schedule(n)
     p = n // fused_fft._smooth_values(n)
     vmax = max(r * b for r, _, b in sched)
+    planes = len(sched) > 1
     if kind == "rows":
         rows = 1 if p >= THREADS else THREADS // p
-        pitch = n + ((p % 32 - n) % 32 + 32) % 32
+        want = smooth_row_pitch(n) if pitch is None else pitch
+        pitch = n + ((want % 32 - n) % 32 + 32) % 32
+        stage = p < 6
         return {"P": p, "ROWS": rows, "NT": rows * p, "SIZE": n,
-                "PITCH": pitch, "V": vmax, "SMEM": 2 * rows * pitch * 4}
-    if n not in fused_fft._SMOOTH_COL_LENGTHS:
+                "PITCH": pitch, "V": vmax, "STAGE": stage,
+                "SMEM": 2 * rows * pitch * 4 if planes or stage else 0}
+    if n not in fused_fft._SMOOTH_COLS:
         raise ValueError(f"no smooth column variant at n = {n}")
     lanes = 32 if 32 * p <= 768 else 16 if 16 * p <= 768 else 8
-    size = ((n - 1 + ((n - 1) >> 2)) * lanes + lanes + 3) // 4 * 4
+    last = n - 1 + ((n - 1) >> 2 if smooth_col_pad(n) else 0)
+    size = (last * lanes + lanes + 3) // 4 * 4
     return {"P": p, "L": lanes, "NT": lanes * p, "W": max(1, 32 // lanes),
-            "SIZE": size, "V": vmax, "SMEM": 2 * size * 4}
+            "SIZE": size, "V": vmax, "SMEM": 2 * size * 4 if planes else 0}
 
 
-def smooth_addr(n: int, kind: str, threads=None):
+def smooth_addr(n: int, kind: str, pitch: int | None = None):
     """(t, addr) of a block of the smooth core: each thread's index t in
     its line and ``addr(a)``, each thread's float offset of its line's
     element a in the block's exchange plane. Rows: thread tid of row
-    g = tid // P, t = tid % P, element a at g PITCH + a. Columns: thread
-    (t, l) = (tid // L, tid % L), element a of lane l at (a + a div 4) L
-    + l."""
-    g = smooth_geometry(n, kind)
+    g = tid // P, t = tid % P, element a at g PITCH + a (``pitch``: the
+    PITCH of that residue mod 32). Columns: thread (t, l) = (tid // L,
+    tid % L), element a of lane l at (a + a div 4) L + l where
+    :func:`smooth_col_pad`, else at a L + l."""
+    g = smooth_geometry(n, kind, pitch)
     tid = torch.arange(g["NT"])
     if kind == "rows":
         row, t = tid // g["P"], tid % g["P"]
         return t, lambda a: row * g["PITCH"] + a
     lane, t = tid % g["L"], tid // g["L"]
-    return t, lambda a: (a + (a >> 2)) * g["L"] + lane
+    if smooth_col_pad(n):
+        return t, lambda a: (a + (a >> 2)) * g["L"] + lane
+    return t, lambda a: a * g["L"] + lane
 
 
 def _smooth_core(n: int, v0, tab, inverse: bool, kind: str):
@@ -748,7 +803,13 @@ def _smooth_block(x, tab, inverse: bool, kind: str):
     line, t = (tid // p, tid % p) if kind == "rows" else \
         (tid % g["L"], tid // g["L"])
     e = _smooth_loads(n, t)
-    v = _smooth_core(n, x[line[:, None], e], tab, inverse, kind)
+    # a masked first pass (60: radix 5 at V0 = 12) loads nothing for its
+    # masked butterfly: NaN there, which no later step may read
+    r, _, nb = smooth_schedule(n)[0]
+    live = (t[:, None] + p * (torch.arange(nb * r) // r)[None, :]) < n // r
+    v0 = x[line[:, None], e.clamp(max=n - 1)]
+    v0[~live] = complex("nan")
+    v = _smooth_core(n, v0, tab, inverse, kind)
     out = torch.empty(k, n, dtype=torch.complex64)
     for j in range(v.shape[1]):
         out[line, t + j * p] = v[:, j]
@@ -770,13 +831,52 @@ def smooth_cols_block(x, tab, inverse: bool = False):
     return _smooth_block(x, tab, inverse, "cols")
 
 
-def smooth_ways(n: int, kind: str = "rows") -> dict:
+def smooth_ways(n: int, kind: str = "rows", pitch: int | None = None
+                ) -> dict:
     """{(pass, "put" or "get"): the worst wavefronts a warp instruction
     takes} on the exchanges of the smooth core's block (``kind`` "rows" or
-    "cols"), from :func:`smooth_addr` (:func:`_exchange_ways`; the rows'
+    "cols"; the rows at the pitch of residue ``pitch`` mod 32 where
+    given), from :func:`smooth_addr` (:func:`_exchange_ways`; the rows'
     first radix-4 pass stores float4)."""
-    t, addr = smooth_addr(n, kind)
+    t, addr = smooth_addr(n, kind, pitch)
     return _exchange_ways(n, t, addr, kind == "rows")
+
+
+def smooth_stage_ways(n: int) -> dict:
+    """The worst wavefronts a warp instruction of the staged rows
+    (``SmoothRowGeo::STAGE``, P < 6) takes on the planes: ``in`` and
+    ``out``, the block's rows copied in and out whole (thread tid on
+    elements tid, tid + NT, ...: ``smooth_stage_in`` /
+    ``smooth_stage_out``), ``load`` the core's loads from the planes
+    (element t + q P + j n/R of the thread's row, masked past n / R) and
+    ``store`` its outputs put back (element t + r P)."""
+    g = smooth_geometry(n)
+    nt, rows, p, pitch = g["NT"], g["ROWS"], g["P"], g["PITCH"]
+    i = torch.arange(rows * n)
+    flat = (i // n) * pitch + i % n
+    warps = [flat[j + w:min(j + w + 32, j + nt, len(flat))].tolist()
+             for j in range(0, len(flat), nt)
+             for w in range(0, min(nt, len(flat) - j), 32)]
+    t, addr = smooth_addr(n, "rows")
+    r, _, nb = smooth_schedule(n)[0]
+    e = _smooth_loads(n, t)
+    live = (t[:, None] + p * (torch.arange(nb * r) // r)[None, :]) < n // r
+    out = torch.stack([addr(t + k * p)
+                       for k in range(fused_fft._smooth_values(n))], 1)
+    return {"in": _ways(warps), "out": _ways(warps),
+            "load": _worst_ways(addr(e.t()).t(), live),
+            "store": _worst_ways(out)}
+
+
+def smooth_exchange_cost(n: int, kind: str = "rows",
+                         pitch: int | None = None) -> int:
+    """The wavefronts of one thread's exchanges over the whole line, as
+    the pitch's pick weighs them: each exchange's worst wavefronts (a put
+    of pass i, a get of pass i, :func:`smooth_ways`) times the values a
+    thread moves in it (R B of that pass)."""
+    sched = smooth_schedule(n)
+    return sum(w * sched[i][0] * sched[i][2]
+               for (i, _), w in smooth_ways(n, kind, pitch).items())
 
 
 def _smooth_threads(m: int) -> tuple:
@@ -916,8 +1016,8 @@ def fft_last(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
     ``scale`` at the store. ``alias`` writes over the inputs (a block
     reads its rows whole before it writes any)."""
     n = xr.shape[-1]
-    if n in fused_fft._MIX_ROW_LENGTHS or n in fused_fft._SMOOTH_LENGTHS:
-        blk = (smooth_rows_block if n in fused_fft._SMOOTH_LENGTHS
+    if n in fused_fft._MIX_ROW_LENGTHS or n in fused_fft._SMOOTH_ROWS:
+        blk = (smooth_rows_block if n in fused_fft._SMOOTH_ROWS
                else rows_mix_block)
         y = _by_blocks(n, xr.shape[:-1],
                        (torch.complex(xr, xi).reshape(-1, n),),
@@ -1011,7 +1111,7 @@ def axis_tile(n: int, tile: str | None = None) -> dict:
     passes(n)
     tile = tile or fused_fft._axis_tile(n)
     p = n // fused_fft._reg_values(n)
-    if n in fused_fft._SMOOTH_LENGTHS:
+    if n in fused_fft._SMOOTH_ROWS:
         if tile != "wide":
             raise ValueError(f"no {tile!r} lane tile at n = {n}")
         g = smooth_geometry(n, "cols")
@@ -1249,7 +1349,7 @@ def fft_axis(xr, xi, yr, yi, n: int, geom, tab, inverse: bool = False,
                 ar, ai = ar.clone(), ai.clone()
                 ar[0] -= side_i[b * n:(b + 1) * n]
                 ai[0] += side_r[b * n:(b + 1) * n]
-            if n in fused_fft._SMOOTH_COL_LENGTHS:
+            if n in fused_fft._SMOOTH_COLS:
                 x = torch.zeros(tl, n, dtype=torch.complex64)
                 x[:len(lane)] = torch.complex(ar, ai)
                 v = smooth_cols_block(x, tab, inverse)[:len(lane)] * scale
@@ -1355,7 +1455,7 @@ def fft_slab(xr, xi, tabz, taby, inverse: bool = False, scale: float = 1.0,
     nz = z_true or xr.shape[-1]
     zr, zi = fft_last(xr[..., :nz].contiguous(), xi[..., :nz].contiguous(),
                       tabz, inverse)
-    if ny in fused_fft._MIX_LENGTHS or ny in fused_fft._SMOOTH_COL_LENGTHS:
+    if ny in fused_fft._MIX_LENGTHS or ny in fused_fft._SMOOTH_COLS:
         st = (ny * nz, nz, 0)
         fr, fi = zr.reshape(-1), zi.reshape(-1)
         fft_axis(fr, fi, fr, fi, ny, (fr.numel() // (ny * nz), 1, nz, st, st),

@@ -80,7 +80,8 @@ def _parent_cluster_slab(ny, nz):
     (256, 144, False), (8, 128, False), (128, 6144, False)])
 def test_reg_rslab_at_each_class(ny, m, reg):
     """``_reg_rslab`` is ``_reg_axis(Y) and _reg_real_rows(M)`` without
-    the smooth Y (the real slabs' y passes have no smooth instance) and
+    the smooth Y of either family (the real slabs' y passes have no smooth
+    instance; Y = 24 and 40 are the second family's columns) and
     without the smooth M (``rfft_last_planar`` and ``icrfft_last_planar``
     take them on the smooth real rows, which the slabs do not launch at
     their pitch): the r2c and c2r slabs take the register core wherever
@@ -88,7 +89,7 @@ def test_reg_rslab_at_each_class(ny, m, reg):
     elsewhere (Y = 24, 40, 3072 or smooth; M = 72, 144, smooth, both on
     the real rows)."""
     assert ff._reg_rslab(ny, m) is reg
-    assert reg == (ff._reg_axis(ny) and ny not in ff._SMOOTH_LENGTHS
+    assert reg == (ff._reg_axis(ny) and ny not in ff._SMOOTH_ROWS
                    and ff._reg_real_rows(m) and m not in ff._SMOOTH_LENGTHS)
     if m in (72, 144):
         assert ff._reg_real_rows(m)
@@ -98,7 +99,7 @@ def test_reg_rslab_over_every_length():
     for ny in ALL:
         for m in ALL:
             assert ff._reg_rslab(ny, m) == (
-                ff._reg_axis(ny) and ny not in ff._SMOOTH_LENGTHS
+                ff._reg_axis(ny) and ny not in ff._SMOOTH_ROWS
                 and ff._reg_real_rows(m) and m not in ff._SMOOTH_LENGTHS)
 
 

@@ -69,7 +69,7 @@ def test_admitted_lengths():
         assert ff._reg_rows(n) and ff._reg_axis(n) and ff._reg_slab(n, n)
     for n in (1152, 1440, 1600, 1920, 2304, 2880, 3200, 3840, 72, 120, 200):
         assert ff._reg_rows(n)
-    for n in (18, 36, 45, 90, 100, 180, 225, 675, 1000, 2025, 112):
+    for n in (18, 45, 90, 225, 675, 2025, 112):
         assert not ff._reg_rows(n) and not ff._reg_axis(n)
 
 

@@ -247,7 +247,9 @@ def test_kernel_sources_are_listed():
     names = {f.name for f in _build.sources()}
     assert names == {"fft_core.cuh", "fft_regs.cuh", "regs_kernels.cuh",
                      "fft_smooth.cuh", "fft_last_smooth.cu",
-                     "fft_axis_smooth.cu",
+                     "fft_axis_smooth.cu", "fft_last_smooth3.cu",
+                     "fft_last_smooth5.cu", "fft_axis_smooth3.cu",
+                     "fft_axis_smooth5.cu",
                      "fft_last.cu", "fft_last_mix.cu", "real_rows_mix.cu",
                      "real_slab_mix.cu", "real_rows_smooth.cu",
                      "fft_axis.cu", "fft_axis_mix.cu", "fft_slab.cu",
