@@ -68,7 +68,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``smooth_real_checks``, on a generator of their own): ``rfft_last``
    in the numpy layout and packed, scaled, over a ragged last block, and
    ``icrfft_last`` scaled, each one register-core launch, then
-   ``rfft_last`` at M = 180 on the dense core; and the smooth core's
+   ``rfft_last`` on rows of 180 (M = 90) on the dense core; the real rows
+   at every M of the second family (``csrc/real_rows_smooth3.cu``,
+   ``real_rows_smooth5.cu``: ``smooth_real_checks`` at
+   ``_SMOOTH_MORE_LENGTHS``, on a generator of its own) the same way; and
+   the smooth core's
    second family (every other 5-smooth R 2^k, k >= 2: ``smooth_checks``
    at ``_SMOOTH_MORE_LENGTHS`` and ``_SMOOTH_MORE_COL_LENGTHS``, on a
    generator of its own): ``fft_last`` at every row length, ``fft_sublane``
@@ -108,7 +112,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       window of its own and timed beside ``torch.fft.rfftn`` and the
       dense core (``smooth_real_phase``): ``plan(..., real=True)`` r2c at
       the default point of 144^3, 400^3 and 720^3 (``rfft_last`` at M =
-      72, 200, 360 on the smooth real rows);
+      72, 200, 360 on the smooth real rows) and at the second family's
+      M (``SMOOTH_MORE_REAL``): 200^3, 360^3 and 1000^3 (M = 100, 180,
+      500);
    e. the distributed pencil engine, ``plan(..., mesh=make_mesh(1, 1))``
       in a world of one rank on NCCL (its exchanges have a group of one
       and are skipped, as in the reference; the chunks, the ry split, the
@@ -119,8 +125,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       ``batch_sharded`` 4 x 128^3 c2c; and in a counter window of its own,
       timed beside ``irfftn(rfftn)`` and the dense core, 480^3 packed r2c
       then c2r (``rfft_last`` and ``icrfft_last`` at M = 240 on the smooth
-      real rows), the spectrum against complex128 ``rfftn``, the round
-      trip against the input;
+      real rows) and 432^3 (M = 216, the second family), the spectrum
+      against complex128 ``rfftn``, the round trip against the input;
    f. the cube kernel through ``fft3d_cube``: 8 x 128^3 forward and
       inverse, and the longest z the gate admits, 8 x 8 x 32768 (the
       register cube's split z: the four-step pair's bodies);
@@ -162,10 +168,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       by CUDA events, the plan cache in a temporary directory: a brute
       force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d
       alone: its default split runs both kernels on the register core),
-      Nelder-Mead over (112, 112, 360) r2c's (the radices and
-      block_batch of the dense rfft_last at M = 180 and of the dense axes
-      of 112; 12 trials; (112, 112, 144) until the smooth real rows took
-      M = 72, 144^3 until its axes of 144 took the smooth columns), and
+      Nelder-Mead over (112, 112, 180) r2c's (the radices and
+      block_batch of the dense rfft_last at M = 90 and of the dense axes
+      of 112; 12 trials; (112, 112, 360) until the second family's real
+      rows took M = 180, (112, 112, 144) until the first's took M = 72,
+      144^3 until its axes of 144 took the smooth columns), and
       256^3 c2c, whose space is
       empty (nothing to search: the default point timed); each with its
       space, trials, default and best time, speedup and winner, best <=
@@ -276,7 +283,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernels so at
    every register-core length 16-4096 (``fft_last`` also at every mixed
    length of its rows, beside ``torch.fft.fft``; ``rfft_last`` and
-   ``icrfft_last`` at every mixed and smooth M of theirs, beside
+   ``icrfft_last`` at every mixed and smooth M of theirs (both smooth
+   families), beside
    ``torch.fft.rfft`` and ``irfft``, with their bounds; ``fft_last`` at
    every length of the smooth core's second family and the strided-axis
    kernel at every column length of it, ``fft_x_from_padded`` over
@@ -329,7 +337,9 @@ the dense core's time at the same shape (the pair's two rows also
 (320, 320, 320), (36864, 192) (numpy layout; ``mixed_packed`` the packed
 one) and (36864, 96); ``rfft_last`` and ``icrfft_last`` also ``smooth``:
 (518400, 720), 720^3's z rows (numpy layout), and (230400, 240), 480^3's
-packed c2r z stage; ``fft_last``, ``fft_slab`` and ``fft_axis`` also
+packed c2r z stage, and ``smooth_1000`` / ``smooth_216``: (1000000, 1000),
+1000^3's z rows, and (186624, 216), 432^3's packed c2r z stage (the
+second family); ``fft_last``, ``fft_slab`` and ``fft_axis`` also
 ``smooth`` and ``smooth_960``: (129600, 360) and (9600, 960), the 360^3
 slab and 16 x-rows of the 960^3 one, the x pass of 360^3 and of 960
 over (64, 960) lanes (``fft_x_from_padded``, 8 pad lanes);
@@ -484,8 +494,10 @@ SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 # at a smooth half length: 720^3's z rows (r2c, numpy layout) and 480^3's
 # packed c2r z stage; and the second smooth family at 1000 (16 x-rows of
 # the 1000^3 slab's z rows, 16 x-rows of the slab, an x pass of 1000 over
-# (64, 1000) lanes: SMOOTH_MORE_SHAPES, drawn from its own generator)
-SMOOTH_MORE_SHAPES = {"smooth_1000"}
+# (64, 1000) lanes, the 1000^3 r2c's z rows (numpy layout), and 432^3's
+# packed c2r z stage at M = 216: SMOOTH_MORE_SHAPES, drawn from its own
+# generator)
+SMOOTH_MORE_SHAPES = {"smooth_1000", "smooth_216"}
 MIXED_SHAPES = {
     "step1_twiddle": {
         "mixed": ((1, 1536, 2048),
@@ -509,9 +521,11 @@ MIXED_SHAPES = {
     "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
                   "mixed_packed": ((36864, 192),
                                    lambda f, x: f(x[0], packed=True)),
-                  "smooth": ((518400, 720), lambda f, x: f(x[0]))},
+                  "smooth": ((518400, 720), lambda f, x: f(x[0])),
+                  "smooth_1000": ((1000000, 1000), lambda f, x: f(x[0]))},
     "icrfft_last": {"mixed": ((36864, 96), lambda f, x: f(*x)),
-                    "smooth": ((230400, 240), lambda f, x: f(*x))},
+                    "smooth": ((230400, 240), lambda f, x: f(*x)),
+                    "smooth_216": ((186624, 216), lambda f, x: f(*x))},
     "rfft_slab": {"mixed": ((768, 768, 768), lambda f, x: f(x[0], zpad=8)),
                   "mixed_1280": ((16, 1280, 1280),
                                  lambda f, x: f(x[0], zpad=8))},
@@ -770,17 +784,21 @@ def smooth_phase(ot, ff, gen, window, tag, time_cuda=None,
 
 # ---- 2, 3d and 3e at the smooth half lengths (real_rows_smooth*.cu) -------
 
-def smooth_real_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL) -> dict:
-    """The real rows at every smooth half length M
-    (``fused_fft._SMOOTH_LENGTHS``) against their plain versions:
+def smooth_real_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL,
+                       ms=None, dense=(74, 180)) -> dict:
+    """The real rows at every smooth half length M of the first family
+    (``fused_fft._SMOOTH_LENGTHS``, or ``ms``: the second family's
+    ``_SMOOTH_MORE_LENGTHS``) against their plain versions:
     ``rfft_last_planar`` in the numpy layout and packed, scaled, over a
     ragged last block (an odd batch), and ``icrfft_last_planar`` scaled,
-    each one register-core launch; then ``rfft_last_planar`` at M = 180
-    (45 * 4: no row core's length), both layouts, one dense-core launch.
-    Each must agree within ``tol`` (max |k - p| / max |p|). Returns
-    {kernel: max |k - p|}."""
+    each one register-core launch; then, where ``dense`` gives its shape,
+    ``rfft_last_planar`` on rows of 180 (M = 90 = 45 * 2: no row core's
+    length; 74 rows, as many samples as the rows of 360 this check took
+    before M = 180 had its instance, so later draws keep their values),
+    both layouts, one dense-core launch. Each must agree within ``tol``
+    (max |k - p| / max |p|). Returns {kernel: max |k - p|}."""
     cases = []
-    for m in sorted(ff._SMOOTH_LENGTHS):
+    for m in sorted(ff._SMOOTH_LENGTHS if ms is None else ms):
         rows = max(37, (1 << 18) // m) | 1
         for packed in (False, True):
             cases.append(("rfft_last", ff.rfft_last_planar,
@@ -789,10 +807,10 @@ def smooth_real_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL) -> dict:
                           (rows, 2 * m), 1))
         cases.append(("icrfft_last", ff.icrfft_last_planar,
                       lambda f, x, m=m: f(*x, scale=0.5 / m), (rows, m), 1))
-    for packed in (False, True):
+    for packed in (False, True) if dense else ():
         cases.append(("rfft_last", ff.rfft_last_planar,
                       lambda f, x, packed=packed: f(x[0], packed=packed),
-                      (37, 360), 0))
+                      dense, 0))
     errs = {}
     for name, fn, call, shape, want_reg in cases:
         x = (torch.randn(shape, generator=gen, device=device),
@@ -826,6 +844,18 @@ SMOOTH_REAL = (
     ("400^3 r2c", (400, 400, 400), False),
     ("720^3 r2c", (720, 720, 720), False),
     ("480^3 mesh 1x1 packed r2c -> c2r", (480, 480, 480), True),
+)
+# and at the second family's half lengths (real_rows_smooth3.cu, _5.cu):
+# 200^3 (M = 100, R0 = 5, P = 5: the staged rows), 360^3 (M = 180, R0 = 3,
+# k = 2, P = 15), 1000^3 (M = 500, R0 = 5, k = 2, P = 25; 4 GB in and out,
+# the complex128 reference 8 GB more) and, on the 1 x 1 mesh, 432^3 packed
+# r2c -> c2r (M = 216, k = 3: icrfft_last the c2r's z stage), drawn from a
+# generator of their own
+SMOOTH_MORE_REAL = (
+    ("200^3 r2c", (200, 200, 200), False),
+    ("360^3 r2c", (360, 360, 360), False),
+    ("1000^3 r2c", (1000, 1000, 1000), False),
+    ("432^3 mesh 1x1 packed r2c -> c2r", (432, 432, 432), True),
 )
 
 
@@ -1583,12 +1613,13 @@ TUNE_CASES = (
     # core, so block_batch is not searched)
     ("a", (1, 1, 3 * 2 ** 18), False, "brute", None, None,
      ("step1_twiddle", "step3_transposed")),
-    # a real route whose rfft_last runs the dense core (M = 180 = 45 4: no
-    # row core's length; pick (18, 10)) and its axes (112 = 7 16: no
-    # register schedule) too, so that radix_z, radix_y, radix_x and
-    # block_batch are searched ((112, 112, 144) until the smooth real rows
-    # took M = 72; 144^3 until the smooth columns took its axes of 144)
-    ("b", (112, 112, 360), True, "nm", 12, None, ("rfft_last", "fft_axis")),
+    # a real route whose rfft_last runs the dense core (M = 90 = 45 2: no
+    # row core's length) and its axes (112 = 7 16: no register schedule)
+    # too, so that radix_z, radix_y, radix_x and block_batch are searched
+    # ((112, 112, 360) until the second family's real rows took M = 180,
+    # (112, 112, 144) until the first's took M = 72; 144^3 until the smooth
+    # columns took its axes of 144)
+    ("b", (112, 112, 180), True, "nm", 12, None, ("rfft_last", "fft_axis")),
     # every kernel on the register core: the card's space is empty, and
     # the default point is timed
     ("c", (256, 256, 256), False, "nm", None, None,
@@ -2622,6 +2653,16 @@ def main() -> int:
             slabs=SMOOTH_MORE_SLABS).items():
         per_kernel[name]["max_abs_err"] = max(
             per_kernel[name]["max_abs_err"], err)
+    # the real rows at the second family's M (real_rows_smooth3.cu,
+    # real_rows_smooth5.cu) and their paths (3d, 3e), on a generator of
+    # their own
+    rgen = torch.Generator(device="cuda")
+    rgen.manual_seed(24)
+    for name, err in smooth_real_checks(ff, rgen, tag,
+                                        ms=ff._SMOOTH_MORE_LENGTHS,
+                                        dense=None).items():
+        per_kernel[name]["max_abs_err"] = max(
+            per_kernel[name]["max_abs_err"], err)
 
     # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
@@ -2927,6 +2968,12 @@ def main() -> int:
     # window of its own, timed beside cuFFT and the dense core
     smooth_real_runs, _ = smooth_real_phase(
         ot, ff, sgen, lambda fn: _window(ff, fn), tag, time_cuda)
+    # and at the second family's M (200^3, 360^3, 1000^3 r2c: rfft_last at
+    # M = 100, 180, 500), the same way
+    more_real_runs, _ = smooth_real_phase(
+        ot, ff, rgen, lambda fn: _window(ff, fn), tag, time_cuda,
+        cases=SMOOTH_MORE_REAL)
+    smooth_real_runs.update(more_real_runs)
 
     # ---- 3e. the pencil engine through plan(mesh=make_mesh(1, 1)) ---------
     # a world of one rank on NCCL; its exchanges have groups of one
@@ -3036,6 +3083,12 @@ def main() -> int:
     # counter window of its own, timed beside cuFFT and the dense core
     mesh_runs, _ = smooth_real_phase(
         ot, ff, sgen, lambda fn: _window(ff, fn), tag, time_cuda, mesh=mesh)
+    smooth_real_runs.update(mesh_runs)
+    # and at a second-family M: 432^3 (rfft_last and icrfft_last at
+    # M = 216), the same way
+    mesh_runs, _ = smooth_real_phase(
+        ot, ff, rgen, lambda fn: _window(ff, fn), tag, time_cuda, mesh=mesh,
+        cases=SMOOTH_MORE_REAL)
     smooth_real_runs.update(mesh_runs)
 
     # ---- 3f. the cube kernel through fft3d_cube ----------------------------
@@ -3927,11 +3980,12 @@ def main() -> int:
               f"{r_lib:.4f} ms ({r_reg / r_lib:.2f}x) {tag}", flush=True)
         del xt, xc
     # rfft_last (numpy layout) and icrfft_last at every mixed and smooth M
-    # of the real rows (``_MIX_ROW_LENGTHS``, ``_SMOOTH_LENGTHS``), as many
-    # whole rows as 2^24 real samples hold, each core, the library call and
-    # the bound
-    for m in sorted(ff._MIX_ROW_LENGTHS | ff._SMOOTH_LENGTHS):
-        kind = "smooth" if m in ff._SMOOTH_LENGTHS else "mixed"
+    # of the real rows (``_MIX_ROW_LENGTHS``, ``_SMOOTH_LENGTHS``, the
+    # second family's ``_SMOOTH_MORE_LENGTHS``), as many whole rows as 2^24
+    # real samples hold, each core, the library call and the bound
+    for m in sorted(ff._MIX_ROW_LENGTHS | ff._SMOOTH_ROWS):
+        kind = ("smooth, second family" if m in ff._SMOOTH_MORE_LENGTHS
+                else "smooth" if m in ff._SMOOTH_LENGTHS else "mixed")
         rows = (1 << 23) // m
         spec = torch.complex(xr[:rows * (m + 1)].view(rows, m + 1),
                              xi[:rows * (m + 1)].view(rows, m + 1))

@@ -6,12 +6,14 @@
 // fft_slab.cu), in the column variant (cols_smooth: fft_axis.cu through
 // fft_axis_smooth.cu, the y pass of fft_slab.cu), and as the real rows of
 // rfft_last.cu and icrfft_last.cu at those half lengths M
-// (rows_r2c_smooth, rows_c2r_smooth: real_rows_smooth.cu). The second
-// family, every other such length (smooth_more_length: 12, 20, 24, 36,
-// 40, 60, 100, 180 and the odd parts 27, 75, 81, 125, 135, 225, 243, 375,
-// 405, 625, 675, 729; 42 lengths, 12-4000), runs c2c only, as rows
-// (fft_last_smooth3.cu, fft_last_smooth5.cu by R0) and columns
-// (fft_axis_smooth3.cu, fft_axis_smooth5.cu). Every other length keeps
+// (rows_r2c_smooth, rows_c2r_smooth of real_rows_smooth.cuh:
+// real_rows_smooth.cu). The second family, every other such length
+// (smooth_more_length: 12, 20, 24, 36, 40, 60, 100, 180 and the odd parts
+// 27, 75, 81, 125, 135, 225, 243, 375, 405, 625, 675, 729; 42 lengths,
+// 12-4000), runs as rows (fft_last_smooth3.cu, fft_last_smooth5.cu by R0),
+// columns (fft_axis_smooth3.cu, fft_axis_smooth5.cu) and real rows at
+// those half lengths (real_rows_smooth3.cu, real_rows_smooth5.cu). Every
+// other length keeps
 // its core: the powers of two and R0 2^k (R0 = 3, 5, 2^k >= 16) of
 // fft_regs.cuh, the dense core of fft_core.cuh; the real slabs, the
 // four-step pair and the cube keep theirs at these lengths too.
@@ -116,11 +118,11 @@ __host__ __device__ constexpr bool smooth_core_length(int n) {
          n / odd_part(n) >= 4;
 }
 
-// whether n is a length of the second family, c2c only (fft_last_smooth3.cu
-// and fft_last_smooth5.cu as rows, fft_axis_smooth3.cu and
-// fft_axis_smooth5.cu as columns): a length of the schedule that neither
-// the first family nor the mixed rows (R0 2^k, 2^k >= 16: fft_last_mix.cu)
-// take; the real rows keep smooth_length
+// whether n is a length of the second family (fft_last_smooth3.cu and
+// fft_last_smooth5.cu as rows, fft_axis_smooth3.cu and fft_axis_smooth5.cu
+// as columns, real_rows_smooth3.cu and real_rows_smooth5.cu as real rows
+// of half length n): a length of the schedule that neither the first
+// family nor the mixed rows (R0 2^k, 2^k >= 16: fft_last_mix.cu) take
 __host__ __device__ constexpr bool smooth_more_length(int n) {
   return smooth_core_length(n) && !smooth_length(n) &&
          !((odd_part(n) == 3 || odd_part(n) == 5) && n / odd_part(n) >= 16);

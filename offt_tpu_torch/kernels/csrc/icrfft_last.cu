@@ -26,8 +26,13 @@
 //   real_rows_mix.cu, a source of its own);
 // - the smooth M = R 2^k with an odd part R of 9, 15, 25 or 45 (k >= 3:
 //   72-2304, 120-3840, 200-3200, 360-2880) run it on the smooth rows of
-//   fft_smooth.cuh (regs::rows_c2r_smooth, real_rows_smooth.cu, a source
-//   of its own);
+//   fft_smooth.cuh (regs::rows_c2r_smooth of real_rows_smooth.cuh, built
+//   by real_rows_smooth.cu, a source of its own), and so does every other
+//   5-smooth M = R 2^k, R = 3^a 5^b > 1, k >= 2 (the second family,
+//   12-4000: 216, the 432^3 packed c2r's z stage, among them), built by
+//   real_rows_smooth3.cu and real_rows_smooth5.cu by R0, rows of fewer
+//   than 6 threads re-tangling as they stage their rows through the planes
+//   and copying their output pairs out whole;
 // - every other M runs the dense core of fft_core.cuh: a block owns T
 //   whole rows, read in order with consecutive threads on consecutive
 //   lanes and stored column-wise (pencil stride TP = T | 1, odd, so the
@@ -67,7 +72,7 @@ icrfft_last_kernel(const float* xr, const float* xi, float* out,
 }  // namespace offt
 
 // reg != 0: the register core (m a power of two in [16, 4096], a mixed M
-// of real_rows_mix.cu or a smooth one of real_rows_smooth.cu; the first m
+// of real_rows_mix.cu or a smooth one of either family; the first m
 // rows of the inverse core table and `ab` are read, the radices and T are
 // not); else the dense core (radices, T).
 extern "C" int offt_icrfft_last(const void* xr, const void* xi, void* out,
@@ -82,6 +87,11 @@ extern "C" int offt_icrfft_last(const void* xr, const void* xi, void* out,
                                 (float*)out, (const float2*)tab,
                                 (const float2*)ab, rows, m,
                                 (cudaStream_t)stream);
+    if (regs::smooth_more_length(m))
+      return (int)icrfft_smooth_more((const float*)xr, (const float*)xi,
+                                     (float*)out, (const float2*)tab,
+                                     (const float2*)ab, rows, m,
+                                     (cudaStream_t)stream);
     if (m & (m - 1))
       return (int)icrfft_mix((const float*)xr, (const float*)xi, (float*)out,
                              (const float2*)tab, (const float2*)ab, rows, m,

@@ -9,8 +9,9 @@
 //   loads, the inverse M-point core, float2 stores (irfft_slab.cu,
 //   icrfft_last.cu); rows_r2c and rows_c2r at the mixed M of the rows
 //   (MixRowGeo) are rows_r2c_mix and rows_c2r_mix, in real_rows_mix.cu,
-//   and at the smooth M (fft_smooth.cuh's SmoothRowGeo) rows_r2c_smooth
-//   and rows_c2r_smooth, in real_rows_smooth.cu;
+//   and at the smooth M of both families (fft_smooth.cuh's SmoothRowGeo)
+//   rows_r2c_smooth and rows_c2r_smooth, in real_rows_smooth.cuh (built
+//   by real_rows_smooth.cu, real_rows_smooth3.cu and real_rows_smooth5.cu);
 // - cols_c2c: the column variant, c2c along a strided axis (fft_axis.cu;
 //   the y pass of the slabs), on the (B, N, Y, Z) geometry of fft_axis.cu,
 //   in blocks of 256 threads or of 32 lines up to 1024 threads;
@@ -1058,8 +1059,8 @@ cudaError_t axis_smooth(const float* xr, const float* xi, float* yr,
                         float* yi, const float2* tab, const AxisGeom& g,
                         int n, int inverse, float scale, int tile,
                         cudaStream_t s);
-// The same at the second family of fft_smooth.cuh (smooth_more_length,
-// c2c only), by R0: fft_last_smooth3.cu and fft_axis_smooth3.cu where 3
+// The same at the second family of fft_smooth.cuh (smooth_more_length;
+// its real rows below), by R0: fft_last_smooth3.cu and fft_axis_smooth3.cu where 3
 // divides n and 25 does not (R0 = 3), fft_last_smooth5.cu and
 // fft_axis_smooth5.cu at the rest (R0 = 5); last_smooth_more and
 // axis_smooth_more pick the source.
@@ -1094,8 +1095,9 @@ inline cudaError_t axis_smooth_more(const float* xr, const float* xi,
   return (n % 3 == 0 && n % 25 ? axis_smooth3 : axis_smooth5)(
       xr, xi, yr, yi, tab, g, n, inverse, scale, tile, s);
 }
-// The real rows at the smooth half lengths m of fft_smooth.cuh
-// (real_rows_smooth.cu): r2c of `rows` real rows of 2m floats into the
+// The real rows at the first family's smooth half lengths m of
+// fft_smooth.cuh (smooth_length; real_rows_smooth.cu, the kernels in
+// real_rows_smooth.cuh): r2c of `rows` real rows of 2m floats into the
 // numpy (m + 1 lanes) or packed (m lanes) planar rows at `opitch` floats
 // (at least the lanes), times `scale`; c2r of `rows` packed planar rows
 // of m lanes, contiguous, into real rows of 2m floats, the scale riding
@@ -1107,6 +1109,39 @@ cudaError_t rfft_smooth(const float* x, float* yr, float* yi,
 cudaError_t icrfft_smooth(const float* xr, const float* xi, float* out,
                           const float2* tab, const float2* ab, long long rows,
                           int m, cudaStream_t s);
+// The same at the second family's half lengths (smooth_more_length), by
+// R0: real_rows_smooth3.cu where 3 divides m and 25 does not (R0 = 3),
+// real_rows_smooth5.cu at the rest (R0 = 5); rfft_smooth_more and
+// icrfft_smooth_more pick the source.
+cudaError_t rfft_smooth3(const float* x, float* yr, float* yi,
+                         const float2* tab, const float2* w, long long rows,
+                         int m, float scale, int packed, long long opitch,
+                         cudaStream_t s);
+cudaError_t rfft_smooth5(const float* x, float* yr, float* yi,
+                         const float2* tab, const float2* w, long long rows,
+                         int m, float scale, int packed, long long opitch,
+                         cudaStream_t s);
+cudaError_t icrfft_smooth3(const float* xr, const float* xi, float* out,
+                           const float2* tab, const float2* ab,
+                           long long rows, int m, cudaStream_t s);
+cudaError_t icrfft_smooth5(const float* xr, const float* xi, float* out,
+                           const float2* tab, const float2* ab,
+                           long long rows, int m, cudaStream_t s);
+inline cudaError_t rfft_smooth_more(const float* x, float* yr, float* yi,
+                                    const float2* tab, const float2* w,
+                                    long long rows, int m, float scale,
+                                    int packed, long long opitch,
+                                    cudaStream_t s) {
+  return (m % 3 == 0 && m % 25 ? rfft_smooth3 : rfft_smooth5)(
+      x, yr, yi, tab, w, rows, m, scale, packed, opitch, s);
+}
+inline cudaError_t icrfft_smooth_more(const float* xr, const float* xi,
+                                      float* out, const float2* tab,
+                                      const float2* ab, long long rows, int m,
+                                      cudaStream_t s) {
+  return (m % 3 == 0 && m % 25 ? icrfft_smooth3 : icrfft_smooth5)(
+      xr, xi, out, tab, ab, rows, m, s);
+}
 // The four-step pair at a mixed length (fourstep_mix.cu), n = R0 2^k,
 // 16 <= 2^k <= 512: step 1 along n1 of g, unscaled, each output times
 // its entry of the (n1, lanes) table tw, on the lane tile `tile`

@@ -31,9 +31,14 @@
 //   a source of its own);
 // - the smooth M = R 2^k with an odd part R of 9, 15, 25 or 45 (k >= 3:
 //   72-2304, 120-3840, 200-3200, 360-2880): the same design on the smooth
-//   rows of fft_smooth.cuh (regs::rows_r2c_smooth, real_rows_smooth.cu,
-//   a source of its own; P = M / 12 or M / 20 threads a row, not a power
-//   of two, the output staged at a pitch of P mod 32);
+//   rows of fft_smooth.cuh (regs::rows_r2c_smooth of real_rows_smooth.cuh,
+//   built by real_rows_smooth.cu, a source of its own; P = M / 12 or
+//   M / 20 threads a row, not a power of two, the output staged at a
+//   pitch of P mod 32); and at every other 5-smooth M = R 2^k, R = 3^a 5^b
+//   > 1, k >= 2 (the second family, 12-4000: 100, 180, 216, 500 among
+//   them), built by real_rows_smooth3.cu and real_rows_smooth5.cu by R0,
+//   rows of fewer than 6 threads staging their input pairs through the
+//   planes;
 // - every other M: the dense core of fft_core.cuh on a column-wise tile of
 //   T rows (pencil stride TP = T | 1), the untangle in place on the tile
 //   (r2c_untangle), then a row-major store. Its scale rides the table.
@@ -94,7 +99,7 @@ rfft_last_kernel(const float* x, float* yr, float* yi,
 }  // namespace offt
 
 // reg != 0: the register core (m a power of two in [16, 4096], a mixed
-// M of real_rows_mix.cu or a smooth one of real_rows_smooth.cu; the first
+// M of real_rows_mix.cu or a smooth one of either family; the first
 // m rows of `tab` and `scale` are read, the radices and T are not); else
 // the dense core (radices, T; the scale is in the table).
 extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
@@ -113,6 +118,9 @@ extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
     if (regs::smooth_length(m))
       return (int)rfft_smooth(xf, o_r, o_i, tb, wt, rows, m, scale, packed,
                               packed ? m : m + 1, s);
+    if (regs::smooth_more_length(m))
+      return (int)rfft_smooth_more(xf, o_r, o_i, tb, wt, rows, m, scale,
+                                   packed, packed ? m : m + 1, s);
     if (m & (m - 1))
       return (int)rfft_mix(xf, o_r, o_i, tb, wt, rows, m, scale, packed,
                            packed ? m : m + 1, s);

@@ -271,10 +271,11 @@ def _smooth5(n: int) -> bool:
 
 
 # the other 5-smooth lengths R 2^k with k >= 2 up to 4096, R = 3^a 5^b > 1,
-# that no row core above takes (c2c only: csrc/fft_last_smooth3.cu,
-# fft_last_smooth5.cu by R0): 12, 20, 24, 40, the k = 2 lengths 36, 60,
-# 100, 180, and every length with an odd part of 27, 75, 81, 125, 135,
-# 225, 243, 375, 405, 625, 675 or 729 (108-4000)
+# that no row core above takes (csrc/fft_last_smooth3.cu, fft_last_smooth5.cu
+# by R0; the real rows at these half lengths csrc/real_rows_smooth3.cu,
+# real_rows_smooth5.cu): 12, 20, 24, 40, the k = 2 lengths 36, 60, 100,
+# 180, and every length with an odd part of 27, 75, 81, 125, 135, 225,
+# 243, 375, 405, 625, 675 or 729 (108-4000)
 _SMOOTH_MORE_LENGTHS = frozenset(
     n for n in range(12, 4097, 4)
     if _odd_part(n) > 1 and _smooth5(_odd_part(n))
@@ -297,15 +298,17 @@ def _reg_real_rows(m: int) -> bool:
     length M launch the register core's real rows: a power of two in
     [16, 4096] (``regs::rows_r2c``, ``rows_c2r``), a mixed length of
     ``_MIX_ROW_LENGTHS`` (``regs::rows_r2c_mix``, ``rows_c2r_mix`` in
-    ``csrc/real_rows_mix.cu``), or a smooth length of ``_SMOOTH_LENGTHS``
-    (an odd part of 9, 15, 25 or 45: ``regs::rows_r2c_smooth``,
-    ``rows_c2r_smooth`` in ``csrc/real_rows_smooth.cu``, on P = M / 12 or
-    M / 20 threads a row). Every other M takes the dense core: the other
-    5-smooth M (100, 180 and the like: the second family of
-    ``_SMOOTH_MORE_LENGTHS``, whose instances are c2c only, and the odd
-    and twice-odd M) and M past 4096. The register core ignores the
+    ``csrc/real_rows_mix.cu``), or a smooth length of either family,
+    ``_SMOOTH_ROWS`` (``regs::rows_r2c_smooth``, ``rows_c2r_smooth`` on P =
+    M / 12 or M / 20 threads a row: at an odd part of 9, 15, 25 or 45 and
+    k >= 3 in ``csrc/real_rows_smooth.cu``; at every other 5-smooth R 2^k,
+    k >= 2, the second family of ``_SMOOTH_MORE_LENGTHS``, 12-4000, in
+    ``csrc/real_rows_smooth3.cu`` and ``real_rows_smooth5.cu``, rows of
+    fewer than 6 threads staged through the planes). Every other M takes
+    the dense core: the odd and twice-odd 5-smooth M (45, 90, 125, 250,
+    1350 and the like) and M past 4096. The register core ignores the
     radices and the rows per block."""
-    return _pow2(m) or m in _MIX_ROW_LENGTHS or m in _SMOOTH_LENGTHS
+    return _pow2(m) or m in _MIX_ROW_LENGTHS or m in _SMOOTH_ROWS
 
 
 def _reg_values(n: int) -> int:
@@ -1311,8 +1314,8 @@ def rfft_last_planar(mode, x, radices=None,
     post-multiplies.
 
     On M a power of two in [16, 4096], a mixed length 3 2^k or 5 2^k or a
-    smooth one (odd part 9, 15, 25, 45) of :func:`_reg_real_rows` the
-    kernel runs the register core:
+    5-smooth one R 2^k, k >= 2, of either smooth family (:func:`_reg_real_rows`)
+    the kernel runs the register core:
     ``radices`` (the reference's ``_pick_2stage`` of M) is checked but
     does not shape its passes, ``block_rows`` is ignored, and ``scale`` is
     applied at the store. Other M run the dense core on
@@ -1377,7 +1380,8 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
     inverse; the core is unscaled.
 
     On M a power of two in [16, 4096], a mixed or a smooth length of
-    :func:`_reg_real_rows` the kernel runs the register core's c2r rows
+    either family (:func:`_reg_real_rows`) the kernel runs the register
+    core's c2r rows
     (the re-tangle as the core loads; at a power of two the kernel of
     ``irfft_slab_yz``'s rows): ``radices`` is checked but does not shape
     its passes, and ``block_rows`` is ignored. Other lengths run

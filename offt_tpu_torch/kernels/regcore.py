@@ -19,7 +19,7 @@ addresses :func:`r2c_mix_addrs`, :func:`c2r_mix_loads`,
 :func:`stage_pitch` and the output copy at a pitch :func:`r2c_mix_copy`,
 their banks :func:`r2c_mix_ways`); and the smooth lengths R 2^k (R = 9,
 15, 25, 45, k >= 3, ``fused_fft._SMOOTH_LENGTHS``; and the second family,
-every other R = 3^a 5^b > 1 with k >= 2, c2c only,
+every other R = 3^a 5^b > 1 with k >= 2,
 ``fused_fft._SMOOTH_MORE_LENGTHS``; ``csrc/fft_smooth.cuh``) on
 P = n / 12 or n / 20 threads, not a power of two, a radix-3 or radix-5
 pass for each further odd factor (:func:`smooth_schedule`; a radix-5
@@ -29,13 +29,16 @@ of columns replayed through its exchange planes
 :func:`smooth_addr`, :func:`smooth_geometry`; the rows' pitch
 :func:`smooth_row_pitch`, the columns' pad :func:`smooth_col_pad`), its
 banks :func:`smooth_ways` and their cost over a line
-:func:`smooth_exchange_cost`; the r2c and c2r rows at the first family's
-half lengths
-(``csrc/real_rows_smooth.cu``) block by block
-in :func:`rfft_rows_smooth_block` and :func:`rows_c2r_smooth_block`,
-their addresses :func:`r2c_smooth_addrs`, :func:`c2r_smooth_loads` and
-:func:`stage_pitch` (a pitch of P mod 32), their banks
-:func:`r2c_smooth_ways`. No CPU can run those kernels, so the tests hold
+:func:`smooth_exchange_cost`; the r2c and c2r rows at the half lengths
+of both families (``csrc/real_rows_smooth.cu``, the first;
+``csrc/real_rows_smooth3.cu``, ``real_rows_smooth5.cu``, the second)
+block by block in :func:`rfft_rows_smooth_block` and
+:func:`rows_c2r_smooth_block` (rows of fewer than 6 threads staged
+through the planes, in and out, :func:`smooth_stage_addrs`), their
+addresses :func:`r2c_smooth_addrs`, :func:`c2r_smooth_loads` and
+:func:`stage_pitch` (a pitch of P mod 32, ``SMOOTH_STAGE_PITCH`` where
+that takes more than two wavefronts), their banks
+:func:`r2c_smooth_ways` and :func:`smooth_stage_ways`. No CPU can run those kernels, so the tests hold
 this replay of them against numpy and the JAX
 reference: the same pass radices and strides (:func:`passes`), the same
 twiddle indices into the first n rows of ``tables.core_table`` and the
@@ -428,18 +431,40 @@ def rows_mix_block(x, tab, inverse: bool = False):
     return out
 
 
+# the r2c rows' output stage's pitch mod 32 where it is not P mod 32
+# (``regs::smooth_stage_pitch``; every M of both families counted by
+# :func:`r2c_smooth_ways` at each residue,
+# ``tests/test_torch_regsmoothmorereal.py``): at P = 1 (12 and 20, 256
+# rows a block) the planes' odd pitch M + 1, where P mod 32 = 1 takes
+# three wavefronts a copy at 12 and a stage of 33 floats a row at 20
+SMOOTH_STAGE_PITCH = {12: 13, 20: 21}
+
+
 def stage_pitch(m: int) -> int:
     """Floats a row of the r2c rows' output stage takes: at a mixed M
     (``regs::rows_r2c_mix``, ``MixRealGeo::SPITCH``) M + 1 (the numpy row)
     where a row takes a warp or more, else the least pitch of at least
     M + 1 that is P mod 32, so rows sharing a warp are P banks apart; at a
-    smooth M (``rows_r2c_smooth``, ``SmoothRealGeo::SPITCH``) the least
-    pitch of at least M + 1 that is P mod 32 at every P (rows straddle
-    warps wherever 32 does not divide P)."""
+    smooth M of either family (``rows_r2c_smooth``,
+    ``SmoothRealGeo::SPITCH``) the least pitch of at least M + 1 that is
+    P mod 32 at every P (rows straddle warps wherever 32 does not divide
+    P), or ``SMOOTH_STAGE_PITCH``'s residue."""
     p = geometry(m)["P"]
-    if p >= 32 and m not in fused_fft._SMOOTH_LENGTHS:
+    if m in fused_fft._SMOOTH_ROWS:
+        want = SMOOTH_STAGE_PITCH.get(m, p % 32)
+        return m + 1 + (want - (m + 1)) % 32
+    if p >= 32:
         return m + 1
     return m + 1 + (p % 32 - (m + 1)) % 32
+
+
+def smooth_real_smem(m: int) -> int:
+    """Bytes of dynamic shared memory a block of the smooth r2c rows takes
+    (``SmoothRealGeo::SMEM``): both planes of every row at the larger of
+    the rows' pitch and :func:`stage_pitch`, the output stage overlaying
+    the exchange planes once the untangle has read them."""
+    g = smooth_geometry(m)
+    return 2 * g["ROWS"] * max(g["PITCH"], stage_pitch(m)) * 4
 
 
 def r2c_mix_addrs(m: int) -> dict:
@@ -802,12 +827,10 @@ def _smooth_block(x, tab, inverse: bool, kind: str):
     tid = torch.arange(g["NT"])
     line, t = (tid // p, tid % p) if kind == "rows" else \
         (tid % g["L"], tid // g["L"])
-    e = _smooth_loads(n, t)
     # a masked first pass (60: radix 5 at V0 = 12) loads nothing for its
     # masked butterfly: NaN there, which no later step may read
-    r, _, nb = smooth_schedule(n)[0]
-    live = (t[:, None] + p * (torch.arange(nb * r) // r)[None, :]) < n // r
-    v0 = x[line[:, None], e.clamp(max=n - 1)]
+    e, live = _smooth_first_loads(n, t)
+    v0 = x[line[:, None], e]
     v0[~live] = complex("nan")
     v = _smooth_core(n, v0, tab, inverse, kind)
     out = torch.empty(k, n, dtype=torch.complex64)
@@ -842,25 +865,38 @@ def smooth_ways(n: int, kind: str = "rows", pitch: int | None = None
     return _exchange_ways(n, t, addr, kind == "rows")
 
 
+def smooth_stage_addrs(n: int) -> tuple:
+    """The staged rows' copies in and out (``smooth_stage_in`` /
+    ``smooth_stage_out``, and the real rows' ``smooth_stage_pairs_in`` /
+    ``smooth_stage_pairs_out``) at n, in the kernel's order: float i of
+    the block's ROWS n elements (thread tid on i = tid, tid + NT, ...), row
+    r = i div n, element e = i mod n, at r PITCH + e of each plane.
+    Returns (plane address, r, e) over i."""
+    g = smooth_geometry(n)
+    i = torch.arange(g["ROWS"] * n)
+    r, e = i // n, i % n
+    return r * g["PITCH"] + e, r, e
+
+
 def smooth_stage_ways(n: int) -> dict:
     """The worst wavefronts a warp instruction of the staged rows
     (``SmoothRowGeo::STAGE``, P < 6) takes on the planes: ``in`` and
-    ``out``, the block's rows copied in and out whole (thread tid on
-    elements tid, tid + NT, ...: ``smooth_stage_in`` /
-    ``smooth_stage_out``), ``load`` the core's loads from the planes
-    (element t + q P + j n/R of the thread's row, masked past n / R) and
-    ``store`` its outputs put back (element t + r P)."""
+    ``out``, the block's rows copied in and out whole
+    (:func:`smooth_stage_addrs`: the c2c rows move one float of each plane
+    an element, the real rows a float2 split between the planes, the r2c's
+    input pairs and the c2r's output pairs, and the c2r re-tangles each
+    element from its two lanes as it copies it in: the same plane
+    addresses), ``load`` the core's loads from the planes (element
+    t + q P + j n/R of the thread's row, masked past n / R) and ``store``
+    its outputs put back (element t + r P)."""
     g = smooth_geometry(n)
-    nt, rows, p, pitch = g["NT"], g["ROWS"], g["P"], g["PITCH"]
-    i = torch.arange(rows * n)
-    flat = (i // n) * pitch + i % n
+    nt, p = g["NT"], g["P"]
+    flat, _, _ = smooth_stage_addrs(n)
     warps = [flat[j + w:min(j + w + 32, j + nt, len(flat))].tolist()
              for j in range(0, len(flat), nt)
              for w in range(0, min(nt, len(flat) - j), 32)]
     t, addr = smooth_addr(n, "rows")
-    r, _, nb = smooth_schedule(n)[0]
-    e = _smooth_loads(n, t)
-    live = (t[:, None] + p * (torch.arange(nb * r) // r)[None, :]) < n // r
+    e, live = _smooth_first_loads(n, t)
     out = torch.stack([addr(t + k * p)
                        for k in range(fused_fft._smooth_values(n))], 1)
     return {"in": _ways(warps), "out": _ways(warps),
@@ -932,58 +968,129 @@ def r2c_smooth_ways(m: int) -> dict:
     return ways
 
 
+def _smooth_first_loads(m: int, t) -> tuple:
+    """The elements the smooth core's first pass loads at m for threads of
+    index ``t`` (:func:`_smooth_loads`), clamped into the row, and which of
+    them it loads at all (a masked first pass, 60 = 15 4, loads nothing
+    for its masked butterfly)."""
+    p = m // fused_fft._smooth_values(m)
+    r, _, nb = smooth_schedule(m)[0]
+    e = _smooth_loads(m, t)
+    live = (t[:, None] + p * (torch.arange(nb * r) // r)[None, :]) < m // r
+    return e.clamp(max=m - 1), live
+
+
+def _smooth_staged(m: int, re, im, nvalid: int):
+    """The block's exchange plane after the staged copy in (P < 6): rows
+    r < ``nvalid`` of ``re + i im`` (ROWS, m) at r PITCH + e, rows past
+    them zero (:func:`smooth_stage_addrs`), the pad slots NaN."""
+    g = smooth_geometry(m)
+    flat, r, e = smooth_stage_addrs(m)
+    plane = torch.full((g["ROWS"] * g["PITCH"],), complex("nan"),
+                       dtype=torch.complex64)
+    plane[flat] = torch.where(r < nvalid, torch.complex(re[r, e], im[r, e]),
+                              torch.zeros((), dtype=torch.complex64))
+    return plane
+
+
 def rfft_rows_smooth_block(x, tab, w, scale: float = 1.0,
                            packed: bool = False, rows: int | None = None,
                            opitch: int | None = None):
-    """One block of ``regs::rows_r2c_smooth`` as it runs, at a smooth M:
-    ``x`` the block's ROWS real rows (ROWS, 2M) f32 (rows past the batch
-    zero), thread (g, t) = (tid // P, tid % P) of row g. Its core
-    (:func:`_smooth_core`) on v[j] = x[2j] + i x[2j+1], V put in natural
-    order into the row's plane, the pairs (k, M - k) read back and
-    untangled times ``scale`` (``w`` = ``tables.rfft_table(2M)``), staged
-    at :func:`stage_pitch`, and the first ``rows`` rows (default all)
-    copied out in the kernel's order, each the numpy (M + 1) or packed (M)
-    lanes at ``opitch`` floats a row (default the lanes), every address
+    """One block of ``regs::rows_r2c_smooth`` as it runs, at a smooth M of
+    either family: ``x`` the block's ROWS real rows (ROWS, 2M) f32 (rows
+    past the batch zero), thread (g, t) = (tid // P, tid % P) of row g.
+    Its core (:func:`_smooth_core`) on v[j] = x[2j] + i x[2j+1], read
+    from device memory, or, where a row takes fewer than 6 threads
+    (``SmoothRowGeo::STAGE``), the block's first ``rows`` rows copied
+    whole into the exchange plane as pairs (the rest zero,
+    :func:`_smooth_staged`) and read from there; V put in natural order
+    into the row's plane, the pairs (k, M - k) read back and untangled
+    times ``scale`` (``w`` = ``tables.rfft_table(2M)``), staged at
+    :func:`stage_pitch`, and the first ``rows`` rows (default all) copied
+    out in the kernel's order, each the numpy (M + 1) or packed (M) lanes
+    at ``opitch`` floats a row (default the lanes), every address
     :func:`r2c_smooth_addrs`'s and :func:`r2c_mix_copy`'s. Returns the
     planar pair (rows, opitch), the lanes past the numpy or packed ones NaN
     (never written)."""
     m = x.shape[-1] // 2
+    geo = smooth_geometry(m)
     g, t = _smooth_threads(m)
-    e, gr = _smooth_loads(m, t), g[:, None]
-    v = _smooth_core(m, torch.complex(x[gr, 2 * e], x[gr, 2 * e + 1]), tab,
-                     False, "rows")
+    e, live = _smooth_first_loads(m, t)
+    gr = g[:, None]
+    if geo["STAGE"]:
+        _, addr = smooth_addr(m, "rows")
+        plane = _smooth_staged(m, x[:, 0::2], x[:, 1::2],
+                               geo["ROWS"] if rows is None else rows)
+        v0 = plane[addr(e.t()).t()]
+    else:
+        v0 = torch.complex(x[gr, 2 * e], x[gr, 2 * e + 1])
+    v0[~live] = complex("nan")
+    v = _smooth_core(m, v0, tab, False, "rows")
     return _r2c_block(m, v, r2c_smooth_addrs(m), g, t, w, scale, packed,
                       rows, opitch)
 
 
 def c2r_smooth_loads(m: int) -> tuple:
-    """The input lanes ``regs::rows_c2r_smooth`` reads at a smooth M, each
-    (NT, V0) over the block's threads in the order of their loads: element
-    e of the thread's row (t + q P + j M/R, :func:`_smooth_loads`) and its
+    """The input lanes ``regs::rows_c2r_smooth`` reads from device memory
+    at a smooth M where a row takes 6 threads or more, each (NT, V0) over
+    the block's threads in the order of their loads: element e of the
+    thread's row (t + q P + j M/R, :func:`_smooth_loads`) and its
     re-tangle partner e ? M - e : 0."""
     _, t = _smooth_threads(m)
     e = _smooth_loads(m, t)
     return e, torch.where(e == 0, 0, m - e)
 
 
-def rows_c2r_smooth_block(xr, xi, tab, ab):
-    """One block of ``regs::rows_c2r_smooth`` as it runs, at a smooth M:
-    ``(xr, xi)`` the block's ROWS packed planar rows (ROWS, M) (rows past
-    the batch zero); each thread re-tangles element e of its row as it
-    loads it, from the lanes :func:`c2r_smooth_loads` gives, with ``ab``
-    (``tables.crfft_table``, the scale folded in) in the kernel's f32 order
-    (:func:`_retangle`), runs the inverse core (:func:`_smooth_core`) and
-    stores x[2j] + i x[2j+1] = v[j]. Returns the real (ROWS, 2M) rows."""
+def rows_c2r_smooth_block(xr, xi, tab, ab, rows: int | None = None):
+    """One block of ``regs::rows_c2r_smooth`` as it runs, at a smooth M of
+    either family: ``(xr, xi)`` the block's ROWS packed planar rows
+    (ROWS, M) (rows past the batch zero), its first ``rows`` rows (default
+    all) valid. Where a row takes 6 threads or more each thread
+    re-tangles element e of its row as it loads it, from the lanes
+    :func:`c2r_smooth_loads` gives, with ``ab`` (``tables.crfft_table``,
+    the scale folded in) in the kernel's f32 order (:func:`_retangle`),
+    runs the inverse core (:func:`_smooth_core`) and stores
+    x[2j] + i x[2j+1] = v[j] as one float2. Where a row takes fewer
+    (``SmoothRowGeo::STAGE``) the block's valid rows are copied in whole,
+    element e of row r re-tangled from lanes e and e ? M - e : 0 as it is
+    copied to r PITCH + e of the planes (the rows past ``rows`` zero,
+    :func:`smooth_stage_addrs`), the core loads from there, puts v back at
+    element t + r P and the valid rows are copied out whole as float2
+    pairs. Returns the real (ROWS, 2M) rows, the rows past ``rows`` NaN
+    (never written)."""
     m = xr.shape[-1]
     geo = smooth_geometry(m)
+    nvalid = geo["ROWS"] if rows is None else rows
     g, t = _smooth_threads(m)
-    e, pe = c2r_smooth_loads(m)
-    gr = g[:, None]
-    yr, yi = _retangle(xr[gr, e], xi[gr, e], xr[gr, pe], xi[gr, pe], ab[e])
-    v = _smooth_core(m, torch.complex(yr, yi), tab, True, "rows")
-    out = torch.empty(geo["ROWS"], m, dtype=torch.complex64)
-    for k in range(v.shape[1]):
-        out[g, t + k * geo["P"]] = v[:, k]
+    first, live = _smooth_first_loads(m, t)
+    nan = float("nan")
+    out = torch.full((geo["ROWS"], m), complex(nan, nan),
+                     dtype=torch.complex64)
+    if geo["STAGE"]:
+        _, addr = smooth_addr(m, "rows")
+        vr, vi = retangle_pair(xr, xi, ab)
+        plane = _smooth_staged(m, vr, vi, nvalid)
+        v0 = plane[addr(first.t()).t()]
+        v0[~live] = complex("nan")
+        v = _smooth_core(m, v0, tab, True, "rows")
+        # the outputs put back into the (fresh) plane, then copied out
+        back = torch.full_like(plane, complex("nan"))
+        for k in range(v.shape[1]):
+            back[addr(t + k * geo["P"])] = v[:, k]
+        flat, r, c = smooth_stage_addrs(m)
+        ok = r < nvalid
+        out[r[ok], c[ok]] = back[flat[ok]]
+    else:
+        e, pe = c2r_smooth_loads(m)
+        gr = g[:, None]
+        yr, yi = _retangle(xr[gr, e], xi[gr, e], xr[gr, pe], xi[gr, pe],
+                           ab[e])
+        v0 = torch.complex(yr, yi)
+        v0[~live] = complex("nan")
+        v = _smooth_core(m, v0, tab, True, "rows")
+        ok = g < nvalid
+        for k in range(v.shape[1]):
+            out[g[ok], (t + k * geo["P"])[ok]] = v[ok, k]
     return torch.view_as_real(out).reshape(geo["ROWS"], 2 * m)
 
 
@@ -1042,8 +1149,8 @@ def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False,
     mixed M block by block (:func:`rfft_rows_mix_block`), at a smooth one
     likewise (:func:`rfft_rows_smooth_block`)."""
     m = x.shape[-1] // 2
-    if m in fused_fft._MIX_ROW_LENGTHS or m in fused_fft._SMOOTH_LENGTHS:
-        blk = (rfft_rows_smooth_block if m in fused_fft._SMOOTH_LENGTHS
+    if m in fused_fft._MIX_ROW_LENGTHS or m in fused_fft._SMOOTH_ROWS:
+        blk = (rfft_rows_smooth_block if m in fused_fft._SMOOTH_ROWS
                else rfft_rows_mix_block)
         return _by_blocks(m, x.shape[:-1], (x.reshape(-1, 2 * m),),
                           lambda c, k: blk(c[0], tab, w, scale, packed, k,
@@ -1386,12 +1493,16 @@ def rows_c2r(xr, xi, tab, ab):
     (:func:`rows_c2r_mix_block`), at a smooth one likewise
     (:func:`rows_c2r_smooth_block`)."""
     m = xr.shape[-1]
-    if m in fused_fft._MIX_ROW_LENGTHS or m in fused_fft._SMOOTH_LENGTHS:
-        blk = (rows_c2r_smooth_block if m in fused_fft._SMOOTH_LENGTHS
-               else rows_c2r_mix_block)
+    if m in fused_fft._SMOOTH_ROWS:
         return _by_blocks(m, xr.shape[:-1],
                           (xr.reshape(-1, m), xi.reshape(-1, m)),
-                          lambda c, k: blk(c[0], c[1], tab, ab)[:k])
+                          lambda c, k: rows_c2r_smooth_block(
+                              c[0], c[1], tab, ab, k)[:k])
+    if m in fused_fft._MIX_ROW_LENGTHS:
+        return _by_blocks(m, xr.shape[:-1],
+                          (xr.reshape(-1, m), xi.reshape(-1, m)),
+                          lambda c, k: rows_c2r_mix_block(c[0], c[1], tab,
+                                                          ab)[:k])
     vr, vi = retangle_pair(xr, xi, ab)
     vr, vi = fft_rows(vr, vi, tab, inverse=True)
     return torch.stack([vr, vi], -1).reshape(*xr.shape[:-1], 2 * xr.shape[-1])

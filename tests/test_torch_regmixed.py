@@ -254,9 +254,9 @@ def test_reg_axis_routes_the_mixed_lengths(monkeypatch, n):
 @pytest.mark.parametrize("m", [16, 128, 4096, 96, 192, 180, 100])
 def test_icrfft_last_routes_to_the_register_core(monkeypatch, m):
     """``_reg_real_rows(M)`` sends the packed c2r to the register core's
-    c2r rows (reg = 1, no rows per block): the powers of two and the mixed
-    M (96, 192); M without an instance of any row core (180, 100) keeps
-    the dense core."""
+    c2r rows (reg = 1, no rows per block): the powers of two, the mixed
+    M (96, 192) and the smooth core's second family (180, 100; the dense
+    core's M are ``test_torch_regsmoothmore.py``'s)."""
     calls = _launches(monkeypatch)
     x = torch.zeros((3, m))
     ff.reset_counts()
@@ -264,7 +264,7 @@ def test_icrfft_last_routes_to_the_register_core(monkeypatch, m):
     (entry, args), = calls
     assert entry == "offt_icrfft_last"
     reg, t = args[-1], args[-2]
-    assert reg == int(ff._reg_real_rows(m)) == int(m not in (180, 100))
+    assert reg == int(ff._reg_real_rows(m)) == 1
     assert (t == 0) == bool(reg)
     assert ff.icrfft_last_planar.reg_launches == reg
 

@@ -206,22 +206,24 @@ def test_plain_versions_agree_with_the_mixed_rows(m):
 @pytest.mark.parametrize("m", [*ROWS, 16, 4096, 180, 100, 2700, 6144])
 def test_real_rows_predicate(m):
     """``_reg_real_rows``: the powers of two in [16, 4096], the mixed row
-    lengths and the smooth ones (``test_torch_regsmoothreal.py``); 180,
-    100, 2700 (odd parts 45 and 25 beside a 4, 675) and 6144 stay dense.
-    ``_reg_core``, the four-step pair's, takes the mixed lengths but
-    3072."""
+    lengths and the smooth ones of both families
+    (``test_torch_regsmoothreal.py``, ``test_torch_regsmoothmorereal.py``:
+    180, 100, 2700, odd parts 45 and 25 beside a 4, 675, among them); 6144
+    stays dense. ``_reg_core``, the four-step pair's, takes the mixed
+    lengths but 3072."""
     pow2 = m & (m - 1) == 0 and 16 <= m <= 4096
     assert ff._reg_real_rows(m) is (pow2 or m in ff._MIX_ROW_LENGTHS
-                                    or m in ff._SMOOTH_LENGTHS)
+                                    or m in ff._SMOOTH_ROWS)
     assert ff._reg_core(m) is (pow2 or m in ff._MIX_LENGTHS)
 
 
 @pytest.mark.parametrize("m", [*ROWS, 180, 256])
 def test_real_wrappers_route_the_mixed_rows(monkeypatch, m):
     """Both layouts of ``rfft_last_planar`` and ``icrfft_last_planar``
-    pass reg = 1 and no rows a block at the mixed M (and 256), reg = 0
-    and a tile at M = 180 (45 * 4: no instance of either row core);
-    ``reg_launches`` counts the register ones."""
+    pass reg = 1 and no rows a block at the mixed M, at 256 and at 180
+    (45 * 4: the smooth core's second family; the dense core's M, which
+    pass reg = 0 and a tile, are ``test_torch_regsmoothmore.py``'s);
+    ``reg_launches`` counts them."""
     calls = _launches(monkeypatch)
     ff.reset_counts()
     for packed in (False, True):
@@ -229,7 +231,7 @@ def test_real_wrappers_route_the_mixed_rows(monkeypatch, m):
                                  packed=packed)
     x = torch.zeros((3, m))
     ff.icrfft_last_planar.impl("kernel", x, x)
-    reg = int(m != 180)
+    reg = 1
     assert [entry for entry, _ in calls] == ["offt_rfft_last"] * 2 + [
         "offt_icrfft_last"]
     for entry, args in calls[:2]:

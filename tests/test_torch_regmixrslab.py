@@ -82,15 +82,16 @@ def test_reg_rslab_at_each_class(ny, m, reg):
     """``_reg_rslab`` is ``_reg_axis(Y) and _reg_real_rows(M)`` without
     the smooth Y of either family (the real slabs' y passes have no smooth
     instance; Y = 24 and 40 are the second family's columns) and
-    without the smooth M (``rfft_last_planar`` and ``icrfft_last_planar``
-    take them on the smooth real rows, which the slabs do not launch at
+    without the smooth M of either family (``rfft_last_planar`` and
+    ``icrfft_last_planar`` take them on the smooth real rows, which the
+    slabs do not launch at
     their pitch): the r2c and c2r slabs take the register core wherever
     each half has its instances, mixed or not, and the dense core
     elsewhere (Y = 24, 40, 3072 or smooth; M = 72, 144, smooth, both on
     the real rows)."""
     assert ff._reg_rslab(ny, m) is reg
     assert reg == (ff._reg_axis(ny) and ny not in ff._SMOOTH_ROWS
-                   and ff._reg_real_rows(m) and m not in ff._SMOOTH_LENGTHS)
+                   and ff._reg_real_rows(m) and m not in ff._SMOOTH_ROWS)
     if m in (72, 144):
         assert ff._reg_real_rows(m)
 
@@ -100,7 +101,7 @@ def test_reg_rslab_over_every_length():
         for m in ALL:
             assert ff._reg_rslab(ny, m) == (
                 ff._reg_axis(ny) and ny not in ff._SMOOTH_ROWS
-                and ff._reg_real_rows(m) and m not in ff._SMOOTH_LENGTHS)
+                and ff._reg_real_rows(m) and m not in ff._SMOOTH_ROWS)
 
 
 def test_cluster_predicates_unchanged_on_every_shape():

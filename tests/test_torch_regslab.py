@@ -98,7 +98,7 @@ def test_reg_slab_predicate(ny, nz):
     assert ff._reg_slab(ny, nz) == (ff._reg_axis(ny) and ff._reg_rows(nz))
     assert ff._reg_rslab(ny, nz) == (ff._reg_axis(ny)
                                      and ff._reg_real_rows(nz)
-                                     and nz not in ff._SMOOTH_LENGTHS)
+                                     and nz not in ff._SMOOTH_ROWS)
 
 
 def test_main_path_slabs_route_to_the_register_core():

@@ -100,10 +100,12 @@ def _parent_cube_cols(n):
 def test_other_gates_keep_the_parents_values():
     """``_reg_real_rows``, ``_reg_rslab``, ``_reg_core`` and ``_reg_cube``
     at every length 8-8192 (the slabs and the cube on the diagonal and
-    against a fixed second length) equal the parent's definitions: the
-    second family is c2c rows and columns only."""
+    against a fixed second length) equal the definitions before the second
+    family: c2c rows and columns, and the real rows at its half lengths
+    (``test_torch_regsmoothmorereal.py``), nothing else."""
     for n in range(8, 8193):
-        assert ff._reg_real_rows(n) == _parent_real_rows(n), n
+        assert ff._reg_real_rows(n) == (_parent_real_rows(n)
+                                        or n in ff._SMOOTH_MORE_LENGTHS), n
         assert ff._reg_core(n) == _parent_axis_pow2_mix(n), n
         for ny, m in ((n, n), (n, 128), (n, 100), (256, n), (360, n)):
             assert ff._reg_rslab(ny, m) == (
@@ -455,10 +457,12 @@ def test_fft_slab_routes_the_smooth_more_slabs(monkeypatch, ny, nz, reg):
     assert args[-3:-1] == [reg, 0]
 
 
-@pytest.mark.parametrize("m", [100, 180, 216, 500])
+@pytest.mark.parametrize("m", [90, 250, 270, 1350])
 def test_real_rows_stay_dense(monkeypatch, m):
-    """The r2c and c2r rows at the second family's half lengths keep the
-    dense core (they wait for their own instances)."""
+    """The r2c and c2r rows at the twice-odd 5-smooth half lengths, which
+    no smooth schedule takes (k < 2), keep the dense core; the second
+    family's half lengths have their own instances
+    (``test_torch_regsmoothmorereal.py``)."""
     calls = _launches(monkeypatch)
     ff.reset_counts()
     ff.rfft_last_planar.impl("kernel", torch.zeros((3, 2 * m)))

@@ -252,6 +252,8 @@ def test_kernel_sources_are_listed():
                      "fft_axis_smooth5.cu",
                      "fft_last.cu", "fft_last_mix.cu", "real_rows_mix.cu",
                      "real_slab_mix.cu", "real_rows_smooth.cu",
+                     "real_rows_smooth.cuh", "real_rows_smooth3.cu",
+                     "real_rows_smooth5.cu",
                      "fft_axis.cu", "fft_axis_mix.cu", "fft_slab.cu",
                      "rfft_slab.cu",
                      "irfft_slab.cu", "assemble_mp1.cu", "rfft_last.cu",
