@@ -80,6 +80,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the c2c slab at (4, 100, 100) with zpad 8, (2, 1000, 1000) inverse
    with zpad 8,
    (3, 216, 432) in place, (2, 1080, 1920) and (2, 500, 500) inverse;
+   and its third family, the odd and twice-odd lengths R 2^k, k = 0, 1
+   (``smooth_checks`` at ``_SMOOTH_ODD_LENGTHS`` and
+   ``_SMOOTH_ODD_COL_LENGTHS``, on a generator of its own, seed 25):
+   ``fft_last`` at every row length, ``fft_sublane`` at every column
+   length, the pitched x passes at 250 and 675, the c2c slab at (4, 250,
+   250), (2, 450, 750) inverse with zpad 8, scaled, and (3, 135, 270) in
+   place;
 3. the paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
    1e-6), each path run with the launch counters zeroed just before it
@@ -95,7 +102,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       (``SMOOTH_MORE_C2C``, the same way, each also timed back to back to
       say whether the host paces it): 1000^3 forward and inverse, 432^3
       forward, a 216^3 ortho round trip, 500^3 inverse, 100^3 forward and
-      16 frames of 1080 x 1920 (``fft2``);
+      16 frames of 1080 x 1920 (``fft2``); and at the third family's
+      (``SMOOTH_ODD_C2C``, the same way): 250^3 forward and inverse,
+      270^3 forward, a 450^3 ortho round trip, 750^3 forward (3.4 GB a
+      planar pair), 125^3 and 675^3 forward and 64 x 750^2 (``fft2``);
    b. the packed r2c/c2r path (``real=True``, numpy and packed layouts,
       256^3, 512^3 and 768^3, whose slabs have a mixed (Y, M) = (768,
       384); ``rfftn`` / ``irfftn``);
@@ -498,6 +508,10 @@ SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 # packed c2r z stage at M = 216: SMOOTH_MORE_SHAPES, drawn from its own
 # generator)
 SMOOTH_MORE_SHAPES = {"smooth_1000", "smooth_216"}
+# and the third (the odd and twice-odd lengths) at 750: 16 x-rows of the
+# 750^3 slab's z rows, 16 x-rows of the slab, an x pass of 750 over (64,
+# 750) lanes, drawn from the third family's generator
+SMOOTH_ODD_SHAPES = {"smooth_750"}
 MIXED_SHAPES = {
     "step1_twiddle": {
         "mixed": ((1, 1536, 2048),
@@ -509,15 +523,18 @@ MIXED_SHAPES = {
     "fft_last": {"mixed": ((102400, 320), lambda f, x: f(*x)),
                  "smooth": ((129600, 360), lambda f, x: f(*x)),
                  "smooth_960": ((9600, 960), lambda f, x: f(*x)),
-                 "smooth_1000": ((16000, 1000), lambda f, x: f(*x))},
+                 "smooth_1000": ((16000, 1000), lambda f, x: f(*x)),
+                 "smooth_750": ((12000, 750), lambda f, x: f(*x))},
     "fft_slab": {"mixed": ((320, 320, 320), lambda f, x: f(*x)),
                  "smooth": ((360, 360, 360), lambda f, x: f(*x)),
                  "smooth_960": ((16, 960, 960), lambda f, x: f(*x)),
-                 "smooth_1000": ((16, 1000, 1000), lambda f, x: f(*x))},
+                 "smooth_1000": ((16, 1000, 1000), lambda f, x: f(*x)),
+                 "smooth_750": ((16, 750, 750), lambda f, x: f(*x))},
     "fft_axis": {"smooth": ((360, 360, 368), lambda f, x: f(*x, 360)),
                  "smooth_960": ((960, 64, 968), lambda f, x: f(*x, 960)),
                  "smooth_1000": ((1000, 64, 1008),
-                                 lambda f, x: f(*x, 1000))},
+                                 lambda f, x: f(*x, 1000)),
+                 "smooth_750": ((750, 64, 758), lambda f, x: f(*x, 750))},
     "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
                   "mixed_packed": ((36864, 192),
                                    lambda f, x: f(x[0], packed=True)),
@@ -584,6 +601,12 @@ SMOOTH_MORE_SLABS = (((4, 100, 100), False, 8, 1.0, False),
                      ((3, 216, 432), False, 0, 0.5, True),
                      ((2, 1080, 1920), False, 0, 1.0, False),
                      ((2, 500, 500), True, 0, 1 / 250000, False))
+# the third family's (the odd and twice-odd lengths; on a generator of its
+# own, seed 25)
+SMOOTH_ODD_X = (250, 675)
+SMOOTH_ODD_SLABS = (((4, 250, 250), False, 0, 1.0, False),
+                    ((2, 450, 750), True, 8, 1 / 337500, False),
+                    ((3, 135, 270), False, 0, 0.5, True))
 
 
 def smooth_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL, rows=None,
@@ -682,6 +705,20 @@ SMOOTH_MORE_C2C = (
     ("500^3 inv", (500, 500, 500), 0, True, None),
     ("100^3 fwd", (100, 100, 100), 0, False, None),
     ("fft2d 16x1080x1920", (16, 1, 1080, 1920), 1, False, None),
+)
+# and at the third family's (the odd and twice-odd lengths): 250^3 (k = 1,
+# R0 = 5: V0 = 10, P = 25), 270^3 (k = 1, R0 = 3: V0 = 30, P = 9), 450^3
+# (V0 = 30, P = 15), 750^3 (V0 = 30, P = 25), 125^3 and 675^3 (k = 0: V0 =
+# 25, P = 5, and V0 = 15, P = 45) and 64 frames of 750^2
+SMOOTH_ODD_C2C = (
+    ("250^3 fwd", (250, 250, 250), 0, False, None),
+    ("250^3 inv", (250, 250, 250), 0, True, None),
+    ("270^3 fwd", (270, 270, 270), 0, False, None),
+    ("450^3 ortho round trip", (450, 450, 450), 0, "rt", "ortho"),
+    ("750^3 fwd", (750, 750, 750), 0, False, None),
+    ("125^3 fwd", (125, 125, 125), 0, False, None),
+    ("675^3 fwd", (675, 675, 675), 0, False, None),
+    ("fft2d 64x750^2", (64, 1, 750, 750), 1, False, None),
 )
 
 
@@ -2663,6 +2700,18 @@ def main() -> int:
                                         dense=None).items():
         per_kernel[name]["max_abs_err"] = max(
             per_kernel[name]["max_abs_err"], err)
+    # the third family of the smooth rows and columns (the odd and
+    # twice-odd lengths: fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu,
+    # fft_axis_smooth_odd3.cu, fft_axis_smooth_odd5.cu) at every length,
+    # and its paths (3a), on a generator of their own
+    ogen = torch.Generator(device="cuda")
+    ogen.manual_seed(25)
+    for name, err in smooth_checks(
+            ff, ogen, tag, rows=ff._SMOOTH_ODD_LENGTHS,
+            cols=ff._SMOOTH_ODD_COL_LENGTHS, xs=SMOOTH_ODD_X,
+            slabs=SMOOTH_ODD_SLABS).items():
+        per_kernel[name]["max_abs_err"] = max(
+            per_kernel[name]["max_abs_err"], err)
 
     # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
@@ -2730,6 +2779,11 @@ def main() -> int:
     more_runs, _ = smooth_phase(ot, ff, mgen, lambda fn: _window(ff, fn),
                                 tag, time_cuda, cases=SMOOTH_MORE_C2C)
     smooth_runs.update(more_runs)
+    # and at the third family's (250^3, 270^3, 450^3, 750^3, 125^3, 675^3,
+    # 64 x 750^2), on its generator
+    odd_runs, _ = smooth_phase(ot, ff, ogen, lambda fn: _window(ff, fn),
+                               tag, time_cuda, cases=SMOOTH_ODD_C2C)
+    smooth_runs.update(odd_runs)
 
     # ---- 3b. the r2c / c2r main path through plan(real=True) --------------
     real_cases = [
@@ -3942,43 +3996,52 @@ def main() -> int:
               f"{r_dense:.4f} ms, fft(dim=-1) {r_lib:.4f} ms "
               f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
     # fft_last at every length of the smooth core's second family
-    # (``_SMOOTH_MORE_LENGTHS``), as many whole rows as 2^24 elements hold,
-    # and the strided-axis kernel at every column length of it
-    # (``_SMOOTH_MORE_COL_LENGTHS``: fft_x_from_padded over (N, Y, 520),
-    # 512 lanes of each row, about 2^24 elements, drawn from its own
-    # generator): each core, the library call and the bound
-    for n in sorted(ff._SMOOTH_MORE_LENGTHS):
-        rows = (1 << 24) // n
-        args = (xr[:rows * n].view(rows, n), xi[:rows * n].view(rows, n))
-        r_reg = time_cuda(ff.fft_last, args, ahead=True)["median_ms"]
-        with _dense_core(ff):
-            r_dense = time_cuda(ff.fft_last, args, ahead=True)["median_ms"]
-        r_lib = time_cuda(torch.fft.fft, (torch.complex(*args), None, -1),
-                          ahead=True)["median_ms"]
-        bms, _ = kernel_bound("fft_last", (rows, n))
-        print(f"sweep fft_last N={n} rows={rows} (smooth, second family): "
-              f"register {r_reg:.4f} ms ({bms / r_reg:.3f} of its bound "
-              f"{bms:.4f} ms), dense {r_dense:.4f} ms "
-              f"({r_dense / r_reg:.2f}x), fft(dim=-1) {r_lib:.4f} ms "
-              f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
-    for n in sorted(ff._SMOOTH_MORE_COL_LENGTHS):
-        shp = (n, max(1, (1 << 24) // (512 * n)), 520)
-        xt = _pair(shp, mgen)
-        r_reg = time_cuda(ff.fft_x_from_padded, (*xt, 512),
-                          ahead=True)["median_ms"]
-        with _dense_core(ff):
-            r_dense = time_cuda(ff.fft_x_from_padded, (*xt, 512),
-                                ahead=True)["median_ms"]
-        xc = torch.complex(xt[0][..., :512], xt[1][..., :512])
-        r_lib = time_cuda(torch.fft.fft, (xc, None, 0),
-                          ahead=True)["median_ms"]
-        bms, _ = kernel_bound("fft_axis", shp)
-        print(f"sweep fft_axis N={n} {shp} (smooth, second family, "
-              f"fft_x_from_padded): register {r_reg:.4f} ms "
-              f"({bms / r_reg:.3f} of its bound {bms:.4f} ms), dense "
-              f"{r_dense:.4f} ms ({r_dense / r_reg:.2f}x), fft(dim=0) "
-              f"{r_lib:.4f} ms ({r_reg / r_lib:.2f}x) {tag}", flush=True)
-        del xt, xc
+    # (``_SMOOTH_MORE_LENGTHS``) and third (the odd and twice-odd lengths,
+    # ``_SMOOTH_ODD_LENGTHS``), as many whole rows as 2^24 elements hold,
+    # and the strided-axis kernel at every column length of each
+    # (``_SMOOTH_MORE_COL_LENGTHS``, ``_SMOOTH_ODD_COL_LENGTHS``:
+    # fft_x_from_padded over (N, Y, 520), 512 lanes of each row, about
+    # 2^24 elements, drawn from the family's generator): each core, the
+    # library call and the bound
+    for family, rows_set, cols_set, fgen in (
+            ("second", ff._SMOOTH_MORE_LENGTHS, ff._SMOOTH_MORE_COL_LENGTHS,
+             mgen),
+            ("third", ff._SMOOTH_ODD_LENGTHS, ff._SMOOTH_ODD_COL_LENGTHS,
+             ogen)):
+        for n in sorted(rows_set):
+            rows = (1 << 24) // n
+            args = (xr[:rows * n].view(rows, n), xi[:rows * n].view(rows, n))
+            r_reg = time_cuda(ff.fft_last, args, ahead=True)["median_ms"]
+            with _dense_core(ff):
+                r_dense = time_cuda(ff.fft_last, args,
+                                    ahead=True)["median_ms"]
+            r_lib = time_cuda(torch.fft.fft,
+                              (torch.complex(*args), None, -1),
+                              ahead=True)["median_ms"]
+            bms, _ = kernel_bound("fft_last", (rows, n))
+            print(f"sweep fft_last N={n} rows={rows} (smooth, {family} "
+                  f"family): register {r_reg:.4f} ms ({bms / r_reg:.3f} of "
+                  f"its bound {bms:.4f} ms), dense {r_dense:.4f} ms "
+                  f"({r_dense / r_reg:.2f}x), fft(dim=-1) {r_lib:.4f} ms "
+                  f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
+        for n in sorted(cols_set):
+            shp = (n, max(1, (1 << 24) // (512 * n)), 520)
+            xt = _pair(shp, fgen)
+            r_reg = time_cuda(ff.fft_x_from_padded, (*xt, 512),
+                              ahead=True)["median_ms"]
+            with _dense_core(ff):
+                r_dense = time_cuda(ff.fft_x_from_padded, (*xt, 512),
+                                    ahead=True)["median_ms"]
+            xc = torch.complex(xt[0][..., :512], xt[1][..., :512])
+            r_lib = time_cuda(torch.fft.fft, (xc, None, 0),
+                              ahead=True)["median_ms"]
+            bms, _ = kernel_bound("fft_axis", shp)
+            print(f"sweep fft_axis N={n} {shp} (smooth, {family} family, "
+                  f"fft_x_from_padded): register {r_reg:.4f} ms "
+                  f"({bms / r_reg:.3f} of its bound {bms:.4f} ms), dense "
+                  f"{r_dense:.4f} ms ({r_dense / r_reg:.2f}x), fft(dim=0) "
+                  f"{r_lib:.4f} ms ({r_reg / r_lib:.2f}x) {tag}", flush=True)
+            del xt, xc
     # rfft_last (numpy layout) and icrfft_last at every mixed and smooth M
     # of the real rows (``_MIX_ROW_LENGTHS``, ``_SMOOTH_LENGTHS``, the
     # second family's ``_SMOOTH_MORE_LENGTHS``), as many whole rows as 2^24
@@ -4059,7 +4122,8 @@ def main() -> int:
         for what, (shp, call_m) in MIXED_SHAPES.get(name, {}).items():
             # the kernel at a mixed length (MIXED_SHAPES; the second
             # smooth family's shapes drawn from its own generator)
-            mg = mgen if what in SMOOTH_MORE_SHAPES else gen
+            mg = (mgen if what in SMOOTH_MORE_SHAPES
+                  else ogen if what in SMOOTH_ODD_SHAPES else gen)
             xm = _pair(shp, mg)
             m_k = time_cuda(call_m, (fn, xm), ahead=True)["median_ms"]
             with _dense_core(ff):

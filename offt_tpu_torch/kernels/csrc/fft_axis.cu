@@ -40,7 +40,10 @@
 //   code (fft_axis_smooth.cu, a source of its own); so do the other
 //   5-smooth lengths R 2^k, k >= 2, of at most 128 threads a line (12-2500,
 //   fused_fft._SMOOTH_MORE_COL_LENGTHS: fft_axis_smooth3.cu,
-//   fft_axis_smooth5.cu);
+//   fft_axis_smooth5.cu), and the odd and twice-odd ones R 2^k, k = 0, 1,
+//   of at most 128 threads a line (18-3750, fused_fft.
+//   _SMOOTH_ODD_COL_LENGTHS: fft_axis_smooth_odd3.cu,
+//   fft_axis_smooth_odd5.cu);
 // - every other length runs the dense core of fft_core.cuh: a block owns
 //   an (N x T) tile of T consecutive lanes, read column-wise into shared
 //   memory; a ragged last tile is masked; the scale rides the table.
@@ -122,6 +125,9 @@ extern "C" int offt_fft_axis(const void* xr, const void* xi, void* yr,
     if (regs::smooth_more_length(n))
       return (int)axis_smooth_more(ar, ai, (float*)yr, (float*)yi, tb, g, n,
                                    inverse, scale, tile, s);
+    if (regs::smooth_odd_length(n))
+      return (int)axis_smooth_odd(ar, ai, (float*)yr, (float*)yi, tb, g, n,
+                                  inverse, scale, tile, s);
     if (n & (n - 1))
       return (int)axis_mix(ar, ai, (float*)yr, (float*)yi, tb, g, n, inverse,
                            scale, tile, s);

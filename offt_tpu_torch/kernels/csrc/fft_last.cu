@@ -27,7 +27,10 @@
 //   threads a row, a radix-3 or radix-5 pass for each further odd factor
 //   (fft_last_smooth.cu, a source of its own); the other 5-smooth lengths
 //   R 2^k with k >= 2 (12-4000, fused_fft._SMOOTH_MORE_LENGTHS) the same
-//   core (fft_last_smooth3.cu, fft_last_smooth5.cu);
+//   core (fft_last_smooth3.cu, fft_last_smooth5.cu), and so do the odd
+//   and twice-odd ones R 2^k, k = 0, 1, in [16, 4096] (18-4050,
+//   fused_fft._SMOOTH_ODD_LENGTHS: V0 = 2^k d values a thread, the last
+//   pass of radix V0; fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu);
 // - every other length runs the dense core of fft_core.cuh: a block owns T
 //   whole rows, reads them row-major into a column-wise tile (pencil
 //   stride TP = T | 1, odd, so the transposing store does not hit one
@@ -84,6 +87,9 @@ extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
     if (regs::smooth_more_length(n))
       return (int)last_smooth_more(ar, ai, (float*)yr, (float*)yi, tb, rows,
                                    n, n, n, inverse, scale, s);
+    if (regs::smooth_odd_length(n))
+      return (int)last_smooth_odd(ar, ai, (float*)yr, (float*)yi, tb, rows,
+                                  n, n, n, inverse, scale, s);
     if (n & (n - 1))
       return (int)last_mix(ar, ai, (float*)yr, (float*)yi, tb, rows, n, n, n,
                            inverse, scale, s);

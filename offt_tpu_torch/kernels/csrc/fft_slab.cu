@@ -26,7 +26,9 @@
 //     fft_smooth.cuh, 360^3's): two grids, rows_c2c (rows_mix at a mixed
 //     Z, fft_last_mix.cu; rows_smooth at a smooth Z, fft_last_smooth.cu
 //     or, in the second family (1000^3's), fft_last_smooth3.cu and
-//     fft_last_smooth5.cu) from the input (pitch in_pitch) to the output
+//     fft_last_smooth5.cu, in the third, the odd and twice-odd lengths
+//     (750^3's), fft_last_smooth_odd3.cu and fft_last_smooth_odd5.cu)
+//     from the input (pitch in_pitch) to the output
 //     (pitch out_pitch), unscaled, then cols_c2c (cols_mix at a mixed Y,
 //     fft_axis_mix.cu, on the lane tile fft_axis routes; cols_smooth at a
 //     smooth Y, fft_axis_smooth*.cu) in place on the output. Where the
@@ -245,6 +247,9 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
     } else if (smooth_more_length(nz)) {
       err = last_smooth_more(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op,
                              inverse, 1.f, s);
+    } else if (smooth_odd_length(nz)) {
+      err = last_smooth_odd(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op,
+                            inverse, 1.f, s);
     } else if (nz & (nz - 1)) {
       err = last_mix(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op, inverse,
                      1.f, s);
@@ -263,6 +268,9 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
     if (smooth_more_length(ny))
       return axis_smooth_more(yr, yi, yr, yi, taby, gy, ny, inverse, scale,
                               -1, s);
+    if (smooth_odd_length(ny))
+      return axis_smooth_odd(yr, yi, yr, yi, taby, gy, ny, inverse, scale,
+                             -1, s);
     if (ny & (ny - 1))
       return axis_mix(yr, yi, yr, yi, taby, gy, ny, inverse, scale, -1, s);
     return by_log(ny, [&](auto ly) {

@@ -12,8 +12,13 @@
 // 27, 75, 81, 125, 135, 225, 243, 375, 405, 625, 675, 729; 42 lengths,
 // 12-4000), runs as rows (fft_last_smooth3.cu, fft_last_smooth5.cu by R0),
 // columns (fft_axis_smooth3.cu, fft_axis_smooth5.cu) and real rows at
-// those half lengths (real_rows_smooth3.cu, real_rows_smooth5.cu). Every
-// other length keeps
+// those half lengths (real_rows_smooth3.cu, real_rows_smooth5.cu). The
+// third family, the odd and twice-odd lengths R 2^K, K = 0 or 1, in
+// [16, 4096] (smooth_odd_length: 18-4050, 42 lengths), runs as rows
+// (fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu by R0) and, where
+// smooth_odd_col (P <= 128 and planes within a block), as columns
+// (fft_axis_smooth_odd3.cu, fft_axis_smooth_odd5.cu); its real rows keep
+// the dense core. Every other length keeps
 // its core: the powers of two and R0 2^k (R0 = 3, 5, 2^k >= 16) of
 // fft_regs.cuh, the dense core of fft_core.cuh; the real slabs, the
 // four-step pair and the cube keep theirs at these lengths too.
@@ -75,6 +80,21 @@
 //   slower than the dense core at 20), so they stage the block's rows
 //   through the planes, in and out whole (SmoothRowGeo::STAGE; 0.54-0.82,
 //   PERF.md).
+// - the third family has no factor 4 for a radix-4 pass or a last pass of
+//   4 R0: there V0 = 2^K d (smooth_odd_v0: d of 3, 5, 9, 15, 25 dividing R,
+//   V0 <= 30, the least by (P > 128, passes, masked butterfly slots,
+//   V0)), every pass before the last of radix 3 or 5 over R / d, masked
+//   where it does not divide V0, and the last of radix V0 on dft_split
+//   (Good-Thomas at 6, 10, 15, 18, 30, Cooley-Tukey with compile-time
+//   roots at 9 and 25). P = N / V0 = R / d is odd at every length, 1-243:
+//   the rows' gets take one wavefront at P mod 32 and two at the 14
+//   lengths of P = 3-27 whose pitch is another residue; the puts of the
+//   strided passes take up to three at twelve lengths and four at 675
+//   and 1350, at every pitch (regcore.smooth_ways); the columns, unpadded,
+//   one at L = 32 and two at most at 16 and 8; rows of fewer than 6
+//   threads (18-150) staged. A thread of V0 = 25 or 30 holds up to 30
+//   values (27 at 2025's masked radix-3 passes at V0 = 25): 128
+//   registers (smooth_regs).
 
 #pragma once
 
@@ -118,6 +138,49 @@ __host__ __device__ constexpr bool smooth_core_length(int n) {
          n / odd_part(n) >= 4;
 }
 
+// whether n is a length of the third family, the odd and twice-odd ones:
+// R 2^K, K = 0 or 1, R = 3^a 5^b > 1, 16 <= n <= 4096 (18-4050, 42
+// lengths; fft_last_smooth_odd3.cu and fft_last_smooth_odd5.cu as rows,
+// fft_axis_smooth_odd3.cu and fft_axis_smooth_odd5.cu as columns)
+__host__ __device__ constexpr bool smooth_odd_length(int n) {
+  return n >= 16 && n <= 4096 && odd_part(n) > 1 && pow35(odd_part(n)) &&
+         n / odd_part(n) < 4;
+}
+
+// V0 = 2^K d at a length of the third family (fused_fft._smooth_odd_values):
+// d a divisor of R among 3, 5, 9, 15, 25 with V0 <= 30, the least by (P =
+// n / V0 > 128, the passes over R / d, the masked butterfly slots, V0)
+__host__ __device__ constexpr int smooth_odd_v0(int n) {
+  const int odd = odd_part(n), two = n / odd;
+  const int ds[5] = {3, 5, 9, 15, 25};
+  int best = 0, bcol = 0, bpass = 0, bwaste = 0;
+  for (int i = 0; i < 5; ++i) {
+    const int d = ds[i], v0 = two * d;
+    if (odd % d || v0 > 30) continue;
+    int rest = odd / d, npass = 0, waste = 0;
+    for (int r = 3; r <= 5; r += 2) {
+      while (rest % r == 0) {
+        rest /= r;
+        ++npass;
+        waste += (v0 + r - 1) / r * r - v0;
+      }
+    }
+    const int col = n / v0 > 128;
+    const bool less =
+        col != bcol ? col < bcol
+                    : npass != bpass ? npass < bpass
+                                     : waste != bwaste ? waste < bwaste
+                                                       : v0 < best;
+    if (!best || less) {
+      best = v0;
+      bcol = col;
+      bpass = npass;
+      bwaste = waste;
+    }
+  }
+  return best;
+}
+
 // whether n is a length of the second family (fft_last_smooth3.cu and
 // fft_last_smooth5.cu as rows, fft_axis_smooth3.cu and fft_axis_smooth5.cu
 // as columns, real_rows_smooth3.cu and real_rows_smooth5.cu as real rows
@@ -133,21 +196,27 @@ __host__ __device__ constexpr int smooth_r0(int n) {
   return odd_part(n) % 25 == 0 || odd_part(n) % 3 ? 5 : 3;
 }
 
-// compile-time schedule of N = R 2^K
+// compile-time schedule of N = R 2^K: at K >= 2 (the first two families)
+// V0 = 4 R0, radix-4 passes (a radix 2 last where K is odd) over 2^(K-2),
+// then one radix-R0 pass per factor R0 of R / R0, then one of the other odd
+// prime per factor, then radix V0 at stride P; at K = 0, 1 (the third) V0 =
+// 2^K D (D = smooth_odd_v0(N) / 2^K: 3, 5, 9, 15 or 25), no power-of-two
+// pass, then the odd passes over R / D in the same order, then radix V0
 template <int N>
 struct SmoothGeo {
-  static_assert(smooth_core_length(N), "a smooth length: R 2^K, R = 3^a "
-                                       "5^b > 1, K >= 2, N <= 4096");
+  static_assert(smooth_core_length(N) || smooth_odd_length(N),
+                "a smooth length: R 2^K, R = 3^a 5^b > 1, N <= 4096");
   static constexpr int R = odd_part(N);
   static constexpr int K = ilog2(N / R);
   static constexpr int R0 = smooth_r0(N);
-  static constexpr int V0 = 4 * R0;  // the last pass's radix
-  static constexpr int P = N / V0;   // threads a line
-  static constexpr int NPOW = (K - 1) / 2;       // passes over 2^(K-2)
+  static constexpr int V0 = K >= 2 ? 4 * R0 : smooth_odd_v0(N);
+  static constexpr int D = K >= 2 ? R0 : V0 >> K;  // V0's odd part
+  static constexpr int P = N / V0;                 // threads a line
+  static constexpr int NPOW = K >= 2 ? (K - 1) / 2 : 0;  // over 2^(K-2)
   // passes of radix R0, then of the other odd prime (8 - R0), one a factor
-  // of R / R0
-  static constexpr int NSAME = count_factor(R / R0, R0);
-  static constexpr int NODD = NSAME + count_factor(R / R0, 8 - R0);
+  // of R / D
+  static constexpr int NSAME = count_factor(R / D, R0);
+  static constexpr int NODD = NSAME + count_factor(R / D, 8 - R0);
   static constexpr int NPASS = NPOW + NODD + 1;
   __host__ __device__ static constexpr int radix(int p) {
     return p < NPOW            ? (p == NPOW - 1 && K % 2 ? 2 : 4)
@@ -159,7 +228,8 @@ struct SmoothGeo {
     return p == 0 ? 1 : stride(p - 1) * radix(p - 1);
   }
   // butterflies a thread takes in pass p (the last one masked where
-  // B P > N / R: a radix-5 pass at V0 = 12, a radix-3 pass at V0 = 20)
+  // B P > N / R: a radix-5 pass at V0 = 12, 6, 9, 18, a radix-3 pass at
+  // V0 = 20, 5, 10, 25)
   __host__ __device__ static constexpr int bflies(int p) {
     return (N / radix(p) + P - 1) / P;
   }
@@ -173,16 +243,104 @@ struct SmoothGeo {
                 "the last pass at stride P");
 };
 
-// The R-point DFT of a smooth pass: radix 2, 4, 12, 20 (fft_regs.cuh's dft)
-// and the 3- and 5-point networks.
+// W_R^M as a compile-time constant, in double by Taylor series on the
+// angle reduced to [-pi, pi], rounded to f32 once (regcore._root)
+__host__ __device__ constexpr double taylor_sin(double x) {
+  double term = x, sum = x;
+  for (int i = 1; i < 24; ++i) {
+    term *= -x * x / ((2.0 * i) * (2.0 * i + 1));
+    sum += term;
+  }
+  return sum;
+}
+
+__host__ __device__ constexpr double taylor_cos(double x) {
+  double term = 1.0, sum = 1.0;
+  for (int i = 1; i < 24; ++i) {
+    term *= -x * x / ((2.0 * i - 1) * (2.0 * i));
+    sum += term;
+  }
+  return sum;
+}
+
+__host__ __device__ constexpr double root_angle(int m, int r) {
+  return 2.0 * 3.14159265358979323846 *
+         ((m % r) * 2 > r ? (m % r) - r : (m % r)) / r;
+}
+
+// d W_R^M, W in the transform's direction
+template <int M, int R, bool INV>
+static __device__ __forceinline__ float2 cmul_root(float2 d) {
+  constexpr float c = (float)taylor_cos(root_angle(M, R));
+  constexpr float s = (float)(INV ? taylor_sin(root_angle(M, R))
+                                  : -taylor_sin(root_angle(M, R)));
+  return cmul(d, make_float2(c, s));
+}
+
+template <int R, bool INV>
+static __device__ __forceinline__ void dft_smooth(float2* v);
+
+// The R-point DFT of v[0..R) in place at a composite radix of the third
+// family's last pass (6, 9, 10, 15, 18, 25, 30): R = A B, A the least
+// prime factor. Where B is coprime to A, Good-Thomas (as dft_pfa, no
+// twiddle): A-point DFTs at the inputs (B n1 + A n2) mod R for each n2,
+// then B-point DFTs at (B k1 + A n2) mod R for each k1, X[k] where k mod A
+// and k mod B left it. Else (9 = 3 3, 25 = 5 5) Cooley-Tukey: A-point DFTs
+// at B n1 + n2, the constant twiddles W_R^(n2 k1), B-point DFTs at
+// B k1 + n2, X[k1 + A k2] at B k1 + k2. The last renaming is of registers.
+template <int R, bool INV>
+static __device__ __forceinline__ void dft_split(float2* v) {
+  constexpr int A = R % 2 == 0 ? 2 : R % 3 == 0 ? 3 : 5;
+  constexpr int B = R / A;
+  constexpr bool GT = B % A != 0;
+  float2 u[B > A ? B : A];
+  unroll<0, B>([&](auto n2c) {
+    constexpr int N2 = decltype(n2c)::value;
+    unroll<0, A>([&](auto n1c) {
+      constexpr int N1 = decltype(n1c)::value;
+      u[N1] = v[GT ? (B * N1 + A * N2) % R : B * N1 + N2];
+    });
+    dft_smooth<A, INV>(u);
+    unroll<0, A>([&](auto n1c) {
+      constexpr int N1 = decltype(n1c)::value;
+      v[GT ? (B * N1 + A * N2) % R : B * N1 + N2] = u[N1];
+    });
+  });
+  unroll<0, A>([&](auto k1c) {
+    constexpr int K1 = decltype(k1c)::value;
+    unroll<0, B>([&](auto n2c) {
+      constexpr int N2 = decltype(n2c)::value;
+      if constexpr (GT || K1 == 0 || N2 == 0)
+        u[N2] = v[GT ? (B * K1 + A * N2) % R : B * K1 + N2];
+      else
+        u[N2] = cmul_root<N2 * K1, R, INV>(v[B * K1 + N2]);
+    });
+    dft_smooth<B, INV>(u);
+    unroll<0, B>([&](auto n2c) {
+      constexpr int N2 = decltype(n2c)::value;
+      v[GT ? (B * K1 + A * N2) % R : B * K1 + N2] = u[N2];
+    });
+  });
+  float2 t[R];
+  unroll<0, R>([&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    t[K] = v[GT ? (B * (K % A) + A * (K % B)) % R : B * (K % A) + K / A];
+  });
+  unroll<0, R>([&](auto k) { v[decltype(k)::value] = t[decltype(k)::value]; });
+}
+
+// The R-point DFT of a smooth pass: radix 2, 4, 12, 20 (fft_regs.cuh's dft),
+// the 3- and 5-point networks and the composite radices of dft_split.
 template <int R, bool INV>
 static __device__ __forceinline__ void dft_smooth(float2* v) {
   if constexpr (R == 3)
     dft3<INV>(v[0], v[1], v[2]);
   else if constexpr (R == 5)
     dft5<INV>(v[0], v[1], v[2], v[3], v[4]);
-  else
+  else if constexpr (R == 12 || R == 20 || (R & (R - 1)) == 0)
     dft<R, INV>(v);
+  else
+    dft_split<R, INV>(v);
 }
 
 // Pass PASS's butterflies on the thread's values: butterfly j = t + q P
@@ -344,10 +502,15 @@ static __device__ __forceinline__ void outputs_smooth(float2* v, int t,
 // ---- the block geometries ----
 
 // Blocks an SM the launch bounds ask for at NT threads a block: as many as
-// leave a thread 80 registers (96 where it holds 20 values), at least one.
+// leave a thread 80 registers (96 where it holds 20 values, 128 where it
+// holds more than 21: the third family's V0 of 25 and 30), at least one.
+__host__ __device__ constexpr int smooth_regs(int vmax) {
+  return vmax > 21 ? 128 : vmax > 15 ? 96 : 80;
+}
+
 __host__ __device__ constexpr int smooth_min_blocks(int nt, int vmax) {
-  return 65536 / (nt * (vmax > 15 ? 96 : 80)) > 1
-             ? 65536 / (nt * (vmax > 15 ? 96 : 80))
+  return 65536 / (nt * smooth_regs(vmax)) > 1
+             ? 65536 / (nt * smooth_regs(vmax))
              : 1;
 }
 
@@ -365,6 +528,15 @@ __host__ __device__ constexpr int smooth_row_pitch(int n, int p) {
          : n == 108 ? 27
          : n == 180 ? 8
          : n == 300 ? 11
+         // the third family's (regcore.SMOOTH_ODD_ROW_PITCH): P = 1 at
+         // 18, 25, 30 (n | 1), and 14 lengths of P = 3-27
+         : n == 18  ? 19
+         : n == 25  ? 25
+         : n == 30  ? 31
+         : n == 27 || n == 45 || n == 54 || n == 90 ? 9
+         : n == 50 || n == 75 || n == 125 || n == 150 ? 25
+         : n == 81 || n == 135 || n == 162 || n == 270 ? 27
+         : n == 225 || n == 450 ? 11
                     : p % 32;
 }
 
@@ -421,6 +593,21 @@ static __device__ __forceinline__ void smooth_stage_out(
   }
 }
 
+// the lanes of a column block at P threads a line: 32 up to 768 threads,
+// then 16, then 8 (fused_fft._smooth_col_lanes)
+__host__ __device__ constexpr int smooth_col_lanes(int p) {
+  return 32 * p <= 768 ? 32 : 16 * p <= 768 ? 16 : 8;
+}
+
+// whether n is a column length of the third family: at most 128 threads a
+// line, and the block's two planes (n L floats each, unpadded) within the
+// 227 KB a block may have (3750: 240 KB at L = 8; fused_fft.
+// _SMOOTH_ODD_COL_LENGTHS)
+__host__ __device__ constexpr bool smooth_odd_col(int n) {
+  return smooth_odd_length(n) && n / smooth_odd_v0(n) <= 128 &&
+         8 * n * smooth_col_lanes(n / smooth_odd_v0(n)) <= 232448;
+}
+
 // Columns: L = 32 lanes a block up to 768 threads, then 16, then 8 (to
 // 1024 threads, P = 128), NT = L P; the lane fastest, the planes padded
 // one slot per four elements in the first family and from K = 4 (where a
@@ -431,7 +618,7 @@ template <int N>
 struct SmoothColGeo {
   using S = SmoothGeo<N>;
   static constexpr int P = S::P;
-  static constexpr int L = 32 * P <= 768 ? 32 : 16 * P <= 768 ? 16 : 8;
+  static constexpr int L = smooth_col_lanes(P);
   static_assert(L * P <= 1024, "columns to P = 128");
   static constexpr int NT = L * P;
   using Lay = std::conditional_t<smooth_length(N) || S::K >= 4, ColLay<L, 2>,
@@ -585,6 +772,20 @@ static cudaError_t by_smooth_more_odd(int n, F&& f) {
       if (n == N) return f(std::integral_constant<int, N>());
     }
     return by_smooth_more_odd<R, MAXP, 2 * N>(n, std::forward<F>(f));
+  }
+}
+
+// f(std::integral_constant<int, N>) for n = R or 2 R, a smooth_odd_length
+// (COL: a smooth_odd_col); an error for any other n
+template <int R, bool COL = false, int N = R, typename F>
+static cudaError_t by_smooth_odd_twice(int n, F&& f) {
+  if constexpr (N > 2 * R || N > 4096) {
+    return cudaErrorInvalidValue;
+  } else {
+    if constexpr (COL ? smooth_odd_col(N) : smooth_odd_length(N)) {
+      if (n == N) return f(std::integral_constant<int, N>());
+    }
+    return by_smooth_odd_twice<R, COL, 2 * N>(n, std::forward<F>(f));
   }
 }
 

@@ -1095,6 +1095,42 @@ inline cudaError_t axis_smooth_more(const float* xr, const float* xi,
   return (n % 3 == 0 && n % 25 ? axis_smooth3 : axis_smooth5)(
       xr, xi, yr, yi, tab, g, n, inverse, scale, tile, s);
 }
+// The same at the third family of fft_smooth.cuh (smooth_odd_length: the
+// odd and twice-odd lengths; no real rows), by R0: fft_last_smooth_odd3.cu
+// and fft_axis_smooth_odd3.cu where 3 divides n and 25 does not,
+// fft_last_smooth_odd5.cu and fft_axis_smooth_odd5.cu at the rest;
+// last_smooth_odd and axis_smooth_odd pick the source.
+cudaError_t last_smooth_odd3(const float* xr, const float* xi, float* yr,
+                             float* yi, const float2* tab, long long rows,
+                             int n, long long ipitch, long long opitch,
+                             int inverse, float scale, cudaStream_t s);
+cudaError_t last_smooth_odd5(const float* xr, const float* xi, float* yr,
+                             float* yi, const float2* tab, long long rows,
+                             int n, long long ipitch, long long opitch,
+                             int inverse, float scale, cudaStream_t s);
+cudaError_t axis_smooth_odd3(const float* xr, const float* xi, float* yr,
+                             float* yi, const float2* tab, const AxisGeom& g,
+                             int n, int inverse, float scale, int tile,
+                             cudaStream_t s);
+cudaError_t axis_smooth_odd5(const float* xr, const float* xi, float* yr,
+                             float* yi, const float2* tab, const AxisGeom& g,
+                             int n, int inverse, float scale, int tile,
+                             cudaStream_t s);
+inline cudaError_t last_smooth_odd(const float* xr, const float* xi,
+                                   float* yr, float* yi, const float2* tab,
+                                   long long rows, int n, long long ipitch,
+                                   long long opitch, int inverse, float scale,
+                                   cudaStream_t s) {
+  return (n % 3 == 0 && n % 25 ? last_smooth_odd3 : last_smooth_odd5)(
+      xr, xi, yr, yi, tab, rows, n, ipitch, opitch, inverse, scale, s);
+}
+inline cudaError_t axis_smooth_odd(const float* xr, const float* xi,
+                                   float* yr, float* yi, const float2* tab,
+                                   const AxisGeom& g, int n, int inverse,
+                                   float scale, int tile, cudaStream_t s) {
+  return (n % 3 == 0 && n % 25 ? axis_smooth_odd3 : axis_smooth_odd5)(
+      xr, xi, yr, yi, tab, g, n, inverse, scale, tile, s);
+}
 // The real rows at the first family's smooth half lengths m of
 // fft_smooth.cuh (smooth_length; real_rows_smooth.cu, the kernels in
 // real_rows_smooth.cuh): r2c of `rows` real rows of 2m floats into the

@@ -249,10 +249,45 @@ def _odd_part(n: int) -> int:
 
 
 def _smooth_values(n: int) -> int:
-    """V0 = 4 R0, the values a thread of the smooth core holds between its
-    passes (its last pass's radix): R0 = 5 where 25 divides the odd part
-    or 3 does not (25, 75, 125, 225, 375, 625, 675 and 5), else R0 = 3."""
+    """V0, the values a thread of the smooth core holds between its passes
+    (its last pass's radix). At k >= 2 V0 = 4 R0: R0 = 5 where 25 divides
+    the odd part or 3 does not (25, 75, 125, 225, 375, 625, 675 and 5),
+    else R0 = 3. At the odd and twice-odd lengths (:func:`_smooth_odd_values`)
+    V0 = 2^k d."""
+    if n // _odd_part(n) < 4:
+        return _smooth_odd_values(n)
     return 20 if n % 25 == 0 or n % 3 else 12
+
+
+def _smooth_odd_values(n: int) -> int:
+    """V0 = 2^k d at an odd or twice-odd 5-smooth n = R 2^k (k = 0, 1),
+    ``regs::smooth_odd_v0``: d a divisor of R among 3, 5, 9, 15 and 25 with
+    V0 <= 30 (the register budget: a thread holds V0 values between its
+    passes), the last pass of radix V0 (3, 5, 9, 15, 25; 6, 10, 18, 30),
+    P = n / V0 threads a line, one radix-3 or radix-5 pass for each prime
+    factor of R / d (masked where it does not divide V0). Of those d, the
+    least by (P > 128: not a column length; the passes, each one exchange
+    through shared memory; the masked butterfly slots a thread idles
+    through, sum over the passes of ceil(V0 / r) r - V0; V0): d = 15 where
+    15 divides R (no pass masked), else 9 or 25 at k = 0 (18 or 5 at k = 1),
+    but 2025 (d = 25: P = 81, a column length, where d = 15 gives 135)."""
+    odd = _odd_part(n)
+    two = n // odd
+    best = None
+    for d in (3, 5, 9, 15, 25):
+        v0 = two * d
+        if odd % d or v0 > 30:
+            continue
+        rest, npass, waste = odd // d, 0, 0
+        for r in (3, 5):
+            while rest % r == 0:
+                rest //= r
+                npass += 1
+                waste += -(-v0 // r) * r - v0
+        key = (n // v0 > 128, npass, waste, v0)
+        if best is None or key < best[0]:
+            best = (key, v0)
+    return best[1]
 
 
 # those it runs in the column variant (csrc/fft_axis_smooth.cu): at most
@@ -287,10 +322,38 @@ _SMOOTH_MORE_LENGTHS = frozenset(
 # 324: 4 lanes a block, see _reg_axis) stay dense as columns
 _SMOOTH_MORE_COL_LENGTHS = frozenset(n for n in _SMOOTH_MORE_LENGTHS
                                      if n // _smooth_values(n) <= 128)
+# the lengths of both families, R 2^k with k >= 2: the smooth core's real
+# rows take these half lengths too (_reg_real_rows)
+_SMOOTH_ROWS = _SMOOTH_LENGTHS | _SMOOTH_MORE_LENGTHS
+# the odd and twice-odd 5-smooth lengths R 2^k, k = 0, 1, R = 3^a 5^b > 1, in
+# [16, 4096] (the third family: 18-4050, 42 lengths) that the smooth core
+# runs as c2c rows (csrc/fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu
+# by R0) on V0 = 2^k d values a thread (_smooth_odd_values); their real rows
+# (the twice-odd half lengths M of 100^3-900^3 r2c) stay dense
+_SMOOTH_ODD_LENGTHS = frozenset(
+    n for n in range(16, 4097)
+    if _odd_part(n) > 1 and _smooth5(_odd_part(n)) and n // _odd_part(n) < 4)
+
+
+def _smooth_col_lanes(p: int) -> int:
+    """L, the lanes a block of the smooth column variant holds at P threads
+    a line (``SmoothColGeo``): 32 up to 768 threads, then 16, then 8."""
+    return 32 if 32 * p <= 768 else 16 if 16 * p <= 768 else 8
+
+
+# those in the column variant (csrc/fft_axis_smooth_odd3.cu,
+# fft_axis_smooth_odd5.cu): at most 128 threads a line, and the block's two
+# planes of n L floats within a block's shared memory (regs::smooth_odd_col);
+# 2187, 3375, 3645 and 4050 (P = 135-243 under every V0 <= 30) and 3750
+# (P = 125, L = 8: planes of 240 KB) stay dense as columns
+_SMOOTH_ODD_COL_LENGTHS = frozenset(
+    n for n in _SMOOTH_ODD_LENGTHS if n // _smooth_odd_values(n) <= 128
+    and 8 * n * _smooth_col_lanes(n // _smooth_odd_values(n)) <= _SMEM_MAX)
 # every length the smooth core (csrc/fft_smooth.cuh) runs as c2c rows, and
 # as columns
-_SMOOTH_ROWS = _SMOOTH_LENGTHS | _SMOOTH_MORE_LENGTHS
-_SMOOTH_COLS = _SMOOTH_COL_LENGTHS | _SMOOTH_MORE_COL_LENGTHS
+_SMOOTH_CORE = _SMOOTH_ROWS | _SMOOTH_ODD_LENGTHS
+_SMOOTH_COLS = (_SMOOTH_COL_LENGTHS | _SMOOTH_MORE_COL_LENGTHS
+                | _SMOOTH_ODD_COL_LENGTHS)
 
 
 def _reg_real_rows(m: int) -> bool:
@@ -317,7 +380,7 @@ def _reg_values(n: int) -> int:
     smooth length of either family (:func:`_smooth_values`: 12, or 20; a
     masked radix-5 pass at 12 holds 15, a masked radix-3 pass at 20
     holds 21); a line takes n / that many threads (P)."""
-    if n in _SMOOTH_ROWS:
+    if n in _SMOOTH_CORE:
         return _smooth_values(n)
     return 4 * (3 if n % 3 == 0 else 5) if n in _MIX_ROW_LENGTHS else 16
 
@@ -334,19 +397,24 @@ def _reg_rows(n: int) -> bool:
     or n / 20 threads a row), or a length of the same core's second
     family, ``_SMOOTH_MORE_LENGTHS`` (every other 5-smooth R 2^k, k >= 2:
     12-4000, the 100^3-1000^3 sides and 1080 among them;
-    ``csrc/fft_last_smooth3.cu``, ``fft_last_smooth5.cu``). Every other
-    length takes the dense core: the odd and twice-odd 5-smooth lengths
-    (9, 18, 45, 90, 125, 250, 1350 and the like) and lengths past
-    4096."""
-    return _pow2(n) or n in _MIX_ROW_LENGTHS or n in _SMOOTH_ROWS
+    ``csrc/fft_last_smooth3.cu``, ``fft_last_smooth5.cu``), or an odd or
+    twice-odd one of the third, ``_SMOOTH_ODD_LENGTHS`` (R 2^k, k = 0, 1,
+    in [16, 4096]: 18-4050, the 125^3-750^3 sides among them; V0 = 2^k d
+    values a thread, :func:`_smooth_odd_values`, the last pass of radix
+    V0; ``csrc/fft_last_smooth_odd3.cu``, ``fft_last_smooth_odd5.cu``).
+    Every other length takes the dense core: the lengths with a prime
+    factor of 7 or more (112, 224, 1008 and the like), those under 16
+    (9, 10, 15) and lengths past 4096."""
+    return _pow2(n) or n in _MIX_ROW_LENGTHS or n in _SMOOTH_CORE
 
 
 def _reg_slab(ny: int, nz: int) -> bool:
     """Whether the c2c slab kernel (``fft_slab_yz`` on (ny, nz)) launches
     the register core: z as rows (:func:`_reg_rows`), y on the column
     variant (:func:`_reg_axis`), each a power of two in [16, 4096], a
-    mixed or a smooth length of either family (those in two grids: 360^3's
-    and 1000^3's slabs on ``rows_smooth`` and ``cols_smooth``). Every
+    mixed or a smooth length of any of the three families (those in two
+    grids: 360^3's, 1000^3's and 750^3's slabs on ``rows_smooth`` and
+    ``cols_smooth``). Every
     other slab takes the dense core. The register slab ignores the radices
     and the tiles."""
     return _reg_rows(nz) and _reg_axis(ny)
@@ -380,14 +448,20 @@ def _reg_axis(n: int) -> bool:
     part of 9, 15, 25 or 45 and at most 128 threads a line: 72-1152,
     120-960, 200-1600, 360-1440; ``regs::cols_smooth``) or of
     ``_SMOOTH_MORE_COL_LENGTHS`` (the second family's at most 128 threads
-    a line: 12-2500; ``csrc/fft_axis_smooth3.cu``, ``fft_axis_smooth5.cu``).
+    a line: 12-2500; ``csrc/fft_axis_smooth3.cu``, ``fft_axis_smooth5.cu``)
+    or of ``_SMOOTH_ODD_COL_LENGTHS`` (the third family's, the odd and
+    twice-odd lengths, at most 128 threads a line and planes that fit a
+    block: 37 of its 42, 18-3125;
+    ``csrc/fft_axis_smooth_odd3.cu``, ``fft_axis_smooth_odd5.cu``).
     Every other length takes the dense core (3072, and the smooth 1920,
     2304, 2880, 3200, 3840 and 1620-4000 of P > 128: 4 lanes a block,
     eight row threads a warp, runs of 16 bytes; the first family's
     exchanges would take two wavefronts there, the second's two or three,
-    and 3240, 3456, 3888 over 1024 threads a block; the odd and twice-odd
-    5-smooth lengths: no schedule). The register core ignores the radices
-    and the lane tile of the dense core."""
+    and 3240, 3456, 3888 over 1024 threads a block; the third family's
+    2187, 3375, 3645 and 4050, P = 135-243 under every V0 <= 30, and 3750,
+    whose planes of 8 lanes would take 240 KB; lengths
+    with a prime factor of 7 or more). The register core ignores the
+    radices and the lane tile of the dense core."""
     return _pow2(n) or n in _MIX_LENGTHS or n in _SMOOTH_COLS
 
 
@@ -406,7 +480,7 @@ def _axis_tile(n: int) -> str:
     8 at 128, 4 at 256). A smooth length of either family has the wide
     tile's code alone (``csrc/fft_axis_smooth*.cu``: 32 lanes a block up
     to 768 threads, then 16, then 8; its P need not divide 256)."""
-    if n in _SMOOTH_ROWS:
+    if n in _SMOOTH_CORE:
         return "wide"
     return "narrow" if n // _reg_values(n) <= 8 else "wide"
 
@@ -844,8 +918,9 @@ def fft_last(mode, xr, xi, inverse: bool = False, radices=None,
     ragged last block is masked, so any batch may alias.
 
     On a power-of-two N in [16, 4096] and the mixed (3 2^k, 5 2^k) and
-    5-smooth lengths that :func:`_reg_rows` admits the kernel runs the register
-    core's rows: ``radices`` is checked but does not shape its passes (any
+    5-smooth lengths (R 2^k, R = 3^a 5^b, any k: the odd and twice-odd ones
+    too) that :func:`_reg_rows` admits the kernel runs the register core's
+    rows: ``radices`` is checked but does not shape its passes (any
     valid pick gives the same values), ``block_rows`` is ignored, and
     ``scale`` is applied at the store. Other lengths run the
     dense core on the ``radices`` stages, ``scale`` riding the last stage's
@@ -891,8 +966,9 @@ def fft_sublane(mode, xr, xi, axis: int, inverse: bool = False, radices=None,
     ``alias=True`` writes over the inputs.
 
     On a power-of-two N in [16, 4096] and the mixed (3 2^k, 5 2^k) and
-    5-smooth lengths that :func:`_reg_axis` admits the kernel runs the register
-    core's column variant: ``radices`` is checked but does not shape its
+    5-smooth lengths (R 2^k, any k, at most 128 threads a line) that
+    :func:`_reg_axis` admits the kernel runs the register core's column
+    variant: ``radices`` is checked but does not shape its
     passes, ``block_lanes`` is ignored, and ``scale`` is applied at the
     store, on the lane tile of :func:`_axis_tile`; ``tile="narrow"``
     probes the narrow one at a power of two (``bench/probe_yconcat.py``,

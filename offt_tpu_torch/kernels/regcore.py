@@ -23,11 +23,17 @@ every other R = 3^a 5^b > 1 with k >= 2,
 ``fused_fft._SMOOTH_MORE_LENGTHS``; ``csrc/fft_smooth.cuh``) on
 P = n / 12 or n / 20 threads, not a power of two, a radix-3 or radix-5
 pass for each further odd factor (:func:`smooth_schedule`; a radix-5
-pass at 12 values and a radix-3 pass at 20 masked), a block of rows or
+pass at 12 values and a radix-3 pass at 20 masked); and the third
+family, the odd and twice-odd lengths R 2^k, k = 0, 1
+(``fused_fft._SMOOTH_ODD_LENGTHS``), on P = n / V0 threads, V0 = 2^k d
+(``fused_fft._smooth_odd_values``), the last pass of radix V0 on the
+kernel's Good-Thomas or Cooley-Tukey network (:func:`_net_split`); a
+block of rows or
 of columns replayed through its exchange planes
 (:func:`smooth_rows_block`, :func:`smooth_cols_block`,
 :func:`smooth_addr`, :func:`smooth_geometry`; the rows' pitch
-:func:`smooth_row_pitch`, the columns' pad :func:`smooth_col_pad`), its
+:func:`smooth_row_pitch`, ``SMOOTH_ROW_PITCH`` and
+``SMOOTH_ODD_ROW_PITCH``, the columns' pad :func:`smooth_col_pad`), its
 banks :func:`smooth_ways` and their cost over a line
 :func:`smooth_exchange_cost`; the r2c and c2r rows at the half lengths
 of both families (``csrc/real_rows_smooth.cu``, the first;
@@ -103,7 +109,7 @@ def passes(n: int) -> list[tuple[int, int]]:
     radix 4 over 2^(k-2) (a radix 2 last where k is odd), radix 3 or 5 for
     each odd factor of R / R0, then radix V0 = 4 R0 at stride P; Ns = the
     product of the radices before."""
-    if n in fused_fft._SMOOTH_ROWS:
+    if n in fused_fft._SMOOTH_CORE:
         return [(r, ns) for r, ns, _ in smooth_schedule(n)]
     if n in fused_fft._MIX_ROW_LENGTHS:
         p = n // fused_fft._reg_values(n)
@@ -128,31 +134,39 @@ def passes(n: int) -> list[tuple[int, int]]:
 def smooth_schedule(n: int, v0: int | None = None
                     ) -> list[tuple[int, int, int]]:
     """(radix R, stride Ns, butterflies B a thread) of each pass of the
-    smooth core at n = R_odd 2^k, k >= 2 (``regs::SmoothGeo``): V0 = 4 R0
-    (``fused_fft._smooth_values``: R0 = 5 where 25 divides R_odd or 3
-    does not, else 3; ``v0`` counts the other choice where R0 = 3 and 5
+    smooth core at n = R_odd 2^k (``regs::SmoothGeo``). At k >= 2: V0 =
+    4 R0 (``fused_fft._smooth_values``: R0 = 5 where 25 divides R_odd or
+    3 does not, else 3; ``v0`` counts the other choice where R0 = 3 and 5
     both divide R_odd), P = n / V0 threads a line; radix 4 over 2^(k-2)
     (none at k = 2, a radix 2 last where k is odd), then one pass of
     radix R0 for each factor R0 of R_odd / R0, then one of the other
-    prime for each of its factors, then V0 at stride P. B = ceil(n / (R
-    P)): V0 / R but at a radix-5 pass at V0 = 12 (2.4 P butterflies:
-    three a thread, the third masked where t + 2 P >= n / 5) and a
-    radix-3 pass at V0 = 20 (6.67 P: seven, the seventh masked)."""
-    if n not in fused_fft._SMOOTH_ROWS:
+    prime for each of its factors, then V0 at stride P. At k = 0, 1 (the
+    odd and twice-odd lengths): V0 = 2^k d (``fused_fft._smooth_odd_values``,
+    or ``v0``: any 2^k d with d of 3, 5, 9, 15, 25 dividing R_odd), no
+    radix-4 pass, then one pass per prime factor of R_odd / d in the same
+    order (R0 = ``regs::smooth_r0``'s first), then V0 at stride P. B =
+    ceil(n / (R P)) = ceil(V0 / R): V0 / R but where R does not divide V0
+    (a radix-5 pass at V0 = 12, 6, 9, 18; a radix-3 pass at V0 = 20, 5,
+    10, 25: the last butterfly masked where t + (B - 1) P >= n / R)."""
+    if n not in fused_fft._SMOOTH_CORE:
         raise ValueError(f"{n} is not a smooth length of the register core")
     odd = fused_fft._odd_part(n)
     k = (n // odd).bit_length() - 1
     v0 = v0 or fused_fft._smooth_values(n)
-    r0 = v0 // 4
-    if odd % r0:
+    two = 4 if k >= 2 else 1 << k           # V0's power of two
+    d = v0 // two
+    if v0 != two * d or odd % d or d not in (
+            (3, 5) if k >= 2 else (3, 5, 9, 15, 25)):
         raise ValueError(f"no radix {v0} at n = {n}")
+    r0 = d if k >= 2 else 5 if odd % 25 == 0 or odd % 3 else 3
     p = n // v0
-    rest, odd_passes = odd // r0, []
+    rest, odd_passes = odd // d, []
     for r in (r0, 8 - r0):
         while rest % r == 0:
             odd_passes.append(r)
             rest //= r
-    rads = [4] * ((k - 2) // 2) + [2] * ((k - 2) % 2) + odd_passes + [v0]
+    rads = ([4] * ((k - 2) // 2) + [2] * ((k - 2) % 2) if k >= 2 else []) \
+        + odd_passes + [v0]
     out, ns = [], 1
     for r in rads:
         out.append((r, ns, -(-n // (r * p))))
@@ -203,7 +217,7 @@ def geometry(n: int) -> dict:
     v = fused_fft._reg_values(n)
     p = n // v
     rows = THREADS // p
-    if n in fused_fft._SMOOTH_ROWS:
+    if n in fused_fft._SMOOTH_CORE:
         return smooth_geometry(n)
     if n in fused_fft._MIX_ROW_LENGTHS:
         pitch = -(-n // 32) * 32
@@ -224,7 +238,7 @@ def row_at(n: int, a, g=0):
     length, plus a at a smooth length (no pad: the pitch,
     :func:`smooth_row_pitch`, carries the bank shift)."""
     pitch = geometry(n)["PITCH"]
-    if n in fused_fft._SMOOTH_ROWS:
+    if n in fused_fft._SMOOTH_CORE:
         return g * pitch + a
     if n in fused_fft._MIX_ROW_LENGTHS:
         return g * pitch + (mix_at(a) ^ row_mask(n, g))
@@ -306,15 +320,71 @@ def dft_pfa(v, inverse: bool = False):
                         for k in range(r)], -1)
 
 
+def _root(m: int, r: int, inverse: bool):
+    """W_r^m in the transform's direction, rounded to f32 as the kernel's
+    compile-time constant (``regs::root_c``)."""
+    a = 2 * np.pi * (m % r) / r
+    return complex(np.float32(np.cos(a)),
+                   np.float32(np.sin(a) if inverse else -np.sin(a)))
+
+
+def _net_split(x: list, r: int, inverse: bool) -> list:
+    """``regs::dft_smooth``'s network of a composite radix r (6, 9, 10, 15,
+    18, 25, 30) on the list x of r tensors: r = a b, a the least prime
+    factor; where b is coprime to a Good-Thomas (``dft_gt``: a-point
+    networks along n1 at the inputs (b n1 + a n2) mod r, then b-point
+    ones, X[k] where k mod a and k mod b left it, no twiddle), else
+    Cooley-Tukey (``dft_ct``: a-point networks at b n1 + n2, the
+    constant twiddles W_r^(n2 k1), b-point networks at b k1 + n2, X[k1 +
+    a k2] at b k1 + k2)."""
+    if r in (2, 3, 4, 5):
+        if r == 2:
+            return [x[0] + x[1], x[0] - x[1]]
+        if r == 4:
+            return list((torch.stack(x, -1) @ _dft(4, inverse)).unbind(-1))
+        return list((_dft3 if r == 3 else _dft5)(*x, inverse))
+    a = next(q for q in (2, 3, 5) if r % q == 0)
+    b = r // a
+    x = list(x)
+    if b % a:
+        for n2 in range(b):
+            idx = [(b * n1 + a * n2) % r for n1 in range(a)]
+            for i, o in zip(idx, _net_split([x[i] for i in idx], a,
+                                            inverse)):
+                x[i] = o
+        for k1 in range(a):
+            idx = [(b * k1 + a * n2) % r for n2 in range(b)]
+            for i, o in zip(idx, _net_split([x[i] for i in idx], b,
+                                            inverse)):
+                x[i] = o
+        return [x[(b * (k % a) + a * (k % b)) % r] for k in range(r)]
+    for n2 in range(b):
+        idx = [b * n1 + n2 for n1 in range(a)]
+        for i, o in zip(idx, _net_split([x[i] for i in idx], a, inverse)):
+            x[i] = o
+    for k1 in range(1, a):
+        for n2 in range(1, b):
+            x[b * k1 + n2] = x[b * k1 + n2] * _root(n2 * k1, r, inverse)
+    for k1 in range(a):
+        idx = [b * k1 + n2 for n2 in range(b)]
+        for i, o in zip(idx, _net_split([x[i] for i in idx], b, inverse)):
+            x[i] = o
+    return [x[b * (k % a) + k // a] for k in range(r)]
+
+
 def _net(v, r: int, inverse: bool):
     """The kernel's r-point network along the last axis: Good-Thomas at 12
     and 20, ``regs::dft3`` / ``dft5`` at 3 and 5 (constant roots), the
-    DFT in f32 at a power of two."""
+    composite radices of the odd and twice-odd smooth lengths (6, 9, 10,
+    15, 18, 25, 30) by :func:`_net_split`, the DFT in f32 at a power of
+    two."""
     if r in (12, 20):
         return dft_pfa(v, inverse)
     if r in (3, 5):
         net = _dft3 if r == 3 else _dft5
         return torch.stack(net(*v.unbind(-1), inverse), -1)
+    if r & (r - 1):
+        return torch.stack(_net_split(list(v.unbind(-1)), r, inverse), -1)
     return v @ _dft(r, inverse)
 
 
@@ -687,12 +757,22 @@ def rows_c2r_mix_block(xr, xi, tab, ab):
 # rows) the odd pitch n + 1, so the 32 rows of a warp meet 32 banks
 SMOOTH_ROW_PITCH = {12: 13, 20: 21, 36: 9, 60: 25, 100: 25, 108: 27,
                     180: 8, 300: 11}
+# the same at the third family's lengths (the odd and twice-odd ones): of
+# P < 32 where another residue costs less (14 lengths, P = 3-27: every get
+# two wavefronts there, every put one or two; the pick of the least cost
+# over all 32 residues, ties to P mod 32), and at P = 1 (18, 25, 30: one
+# pass, the planes only stage the rows) the odd pitch n | 1
+SMOOTH_ODD_ROW_PITCH = {18: 19, 25: 25, 27: 9, 30: 31, 45: 9, 50: 25,
+                        54: 9, 75: 25, 81: 27, 90: 9, 125: 25, 135: 27,
+                        150: 25, 162: 27, 225: 11, 270: 27, 450: 11}
 
 
 def smooth_row_pitch(n: int) -> int:
     """The rows' pitch mod 32 at n: P mod 32 (every get one wavefront),
-    but at the lengths of ``SMOOTH_ROW_PITCH``."""
-    return SMOOTH_ROW_PITCH.get(n, n // fused_fft._smooth_values(n) % 32)
+    but at the lengths of ``SMOOTH_ROW_PITCH`` and
+    ``SMOOTH_ODD_ROW_PITCH``."""
+    return SMOOTH_ROW_PITCH.get(n, SMOOTH_ODD_ROW_PITCH.get(
+        n, n // fused_fft._smooth_values(n) % 32))
 
 
 def smooth_col_pad(n: int) -> bool:
@@ -733,7 +813,7 @@ def smooth_geometry(n: int, kind: str = "rows", pitch: int | None = None
                 "SMEM": 2 * rows * pitch * 4 if planes or stage else 0}
     if n not in fused_fft._SMOOTH_COLS:
         raise ValueError(f"no smooth column variant at n = {n}")
-    lanes = 32 if 32 * p <= 768 else 16 if 16 * p <= 768 else 8
+    lanes = fused_fft._smooth_col_lanes(p)
     last = n - 1 + ((n - 1) >> 2 if smooth_col_pad(n) else 0)
     size = (last * lanes + lanes + 3) // 4 * 4
     return {"P": p, "L": lanes, "NT": lanes * p, "W": max(1, 32 // lanes),
@@ -1123,8 +1203,8 @@ def fft_last(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
     ``scale`` at the store. ``alias`` writes over the inputs (a block
     reads its rows whole before it writes any)."""
     n = xr.shape[-1]
-    if n in fused_fft._MIX_ROW_LENGTHS or n in fused_fft._SMOOTH_ROWS:
-        blk = (smooth_rows_block if n in fused_fft._SMOOTH_ROWS
+    if n in fused_fft._MIX_ROW_LENGTHS or n in fused_fft._SMOOTH_CORE:
+        blk = (smooth_rows_block if n in fused_fft._SMOOTH_CORE
                else rows_mix_block)
         y = _by_blocks(n, xr.shape[:-1],
                        (torch.complex(xr, xi).reshape(-1, n),),
@@ -1218,7 +1298,7 @@ def axis_tile(n: int, tile: str | None = None) -> dict:
     passes(n)
     tile = tile or fused_fft._axis_tile(n)
     p = n // fused_fft._reg_values(n)
-    if n in fused_fft._SMOOTH_ROWS:
+    if n in fused_fft._SMOOTH_CORE:
         if tile != "wide":
             raise ValueError(f"no {tile!r} lane tile at n = {n}")
         g = smooth_geometry(n, "cols")
@@ -1392,11 +1472,19 @@ def _net_flops(r: int) -> int:
     power of two (4 per radix-2 step; a rotation by W^0 or -+i costs
     nothing, by (1 -+ i)/sqrt 2 four, by any other root six); ``dft3``
     16, ``dft5`` 48 (an FMA counts two); Good-Thomas 4 R0: four R0-point
-    and R0 4-point networks."""
+    and R0 4-point networks; the composite radices of :func:`_net_split`
+    likewise, with 6 a twiddle of Cooley-Tukey's."""
     if r in (12, 20):
         return 4 * _net_flops(r // 4) + (r // 4) * _net_flops(4)
     if r in (3, 5):
         return {3: 16, 5: 48}[r]
+    if r & (r - 1):
+        # the composite radices of :func:`_net_split`: b a-point and a
+        # b-point networks, and Cooley-Tukey's (a - 1)(b - 1) twiddles
+        a = next(q for q in (2, 3, 5) if r % q == 0)
+        b = r // a
+        return (b * _net_flops(a) + a * _net_flops(b)
+                + (6 * (a - 1) * (b - 1) if b % a == 0 else 0))
     net, half = 0, r // 2
     while half >= 1:
         for i in range(half):

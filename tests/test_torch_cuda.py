@@ -1827,6 +1827,102 @@ def test_cuda_plan_smooth_more_sides(cuda_dev, shape, inverse):
     assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
 
 
+# ---- the smooth lengths' third family (fft_last_smooth_odd3.cu, ...) -------
+
+SMOOTH_ODD_ROWS = sorted(ff._SMOOTH_ODD_LENGTHS)
+SMOOTH_ODD_COLS = sorted(ff._SMOOTH_ODD_COL_LENGTHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", SMOOTH_ODD_ROWS)
+def test_cuda_fft_last_smooth_odd_rows(cuda_dev, monkeypatch, n, inverse,
+                                       rows, dense):
+    # the register core's rows at every odd and twice-odd length
+    # (fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu), and the dense
+    # core on the same lengths
+    if dense:
+        monkeypatch.setattr(ff, "_reg_rows", lambda n: False)
+    _card_check(ff.fft_last, lambda f, x: f(*x, inverse=inverse,
+                                            scale=0.375), (rows, n), cuda_dev)
+    assert ff.fft_last.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [18, 125, 250, 675, 2187, 4050])
+def test_cuda_fft_last_smooth_odd_rows_in_place(cuda_dev, n):
+    x = _pair((37, n), cuda_dev, seed=n)
+    want = ff.fft_last.plain(*x, inverse=True, scale=1.0 / n)
+    xr, xi = x[0].clone(), x[1].clone()
+    ff.reset_counts()
+    yr, yi = ff.fft_last(xr, xi, inverse=True, scale=1.0 / n, alias=True)
+    torch.cuda.synchronize()
+    assert yr is xr and yi is xi and ff.fft_last.reg_launches == 1
+    for g, w in zip((yr, yi), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("geometry", sorted(AXIS_GEOMETRIES))
+@pytest.mark.parametrize("n", SMOOTH_ODD_COLS + [3750, 4050])
+def test_cuda_fft_axis_smooth_odd(cuda_dev, monkeypatch, n, geometry, dense):
+    # the column variant at every column length of the third family
+    # (fft_axis_smooth_odd3.cu, fft_axis_smooth_odd5.cu) over the four
+    # geometries, in place; 3750 (its planes past a block's shared memory)
+    # and 4050 (P = 135) keep the dense core
+    _axis_core(monkeypatch, dense)
+    fn, call, shape, lanes = AXIS_GEOMETRIES[geometry]
+    _card_check(fn, call, shape(n), cuda_dev, lanes=lanes)
+    owner = ff._sublane_nd if geometry == "nd" else fn
+    assert owner.reg_launches == int(n in ff._SMOOTH_ODD_COL_LENGTHS
+                                     and not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape,kw,lanes", [
+    ((4, 250, 250), {}, None),
+    ((2, 450, 750), {"zpad": 8, "inverse": True, "scale": 1 / 337500}, 750),
+    ((3, 135, 270), {"scale": 0.5}, None),
+    ((2, 18, 30), {"inverse": True}, None),
+    ((3, 125, 136), {"z_true": 125, "zpad": 8}, 125),
+    ((2, 675, 3645), {}, None)])
+def test_cuda_fft_slab_smooth_odd(cuda_dev, monkeypatch, shape, kw, lanes,
+                                  dense):
+    # the register slab at the third family's lengths: two grids, z on its
+    # rows, y on its columns
+    _slab_core(monkeypatch, dense)
+    _card_check(ff.fft_slab_yz, lambda f, x: f(*x, **kw), shape, cuda_dev,
+                lanes=lanes)
+    assert ff.fft_slab_yz.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 30, 90), (125, 125, 125),
+                                   (250, 270, 450), (4, 1, 750, 750)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_plan_smooth_odd_sides(cuda_dev, shape, inverse):
+    # c2c plans at the third family's sides, against complex128 torch.fft:
+    # every slab, row and strided-axis launch register (the x pass of 6
+    # dense, under 16)
+    bd = len(shape) - 3
+    x = _pair(shape, cuda_dev, seed=sum(shape) + 25)
+    p = ot.plan(shape[bd:], "complex64", planar=True, inverse=inverse,
+                batch_dims=bd, device=cuda_dev)
+    ff.reset_counts()
+    yr, yi = p(x)
+    torch.cuda.synchronize()
+    for k in ("fft_slab", "fft_axis", "fft_last"):
+        assert ff.kernel_launches(k) == ff.kernel_launches(k, reg=True) \
+            or (k == "fft_axis" and shape[0] == 6)
+    f = torch.fft.ifftn if inverse else torch.fft.fftn
+    ref = f(torch.complex(x[0].double(), x[1].double()), dim=(-3, -2, -1))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
 # ---- the real rows at the smooth M (real_rows_smooth.cu, _c2r.cu) ----------
 
 

@@ -69,7 +69,8 @@ def test_admitted_lengths():
         assert ff._reg_rows(n) and ff._reg_axis(n) and ff._reg_slab(n, n)
     for n in (1152, 1440, 1600, 1920, 2304, 2880, 3200, 3840, 72, 120, 200):
         assert ff._reg_rows(n)
-    for n in (18, 45, 90, 225, 675, 2025, 112):
+    # the lengths that stay dense: a factor 7, past 4096
+    for n in (112, 224, 448, 896, 1008, 4320, 5000):
         assert not ff._reg_rows(n) and not ff._reg_axis(n)
 
 
@@ -188,9 +189,10 @@ def test_smooth_rows_replay_in_place(n):
 
 
 def axis_replay(xr, xi, n, inverse, scale, alias=False):
-    """The strided-axis kernel on (2, n, 3, Z) along n, Z = the tile's
-    lanes plus 5 (a ragged last tile), in place or into NaN buffers."""
-    _, _, y, z = xr.shape
+    """The strided-axis kernel on (B, n, Y, Z) along n (the callers' Z:
+    the tile's lanes plus 5, a ragged last tile), in place or into NaN
+    buffers."""
+    nb, _, y, z = xr.shape
     st = (n * y * z, y * z, z)
     ar = torch.from_numpy(xr.copy()).reshape(-1)
     ai = torch.from_numpy(xi.copy()).reshape(-1)
@@ -199,7 +201,7 @@ def axis_replay(xr, xi, n, inverse, scale, alias=False):
     else:
         yr = torch.full_like(ar, float("nan"))
         yi = torch.full_like(ai, float("nan"))
-    rc.fft_axis(ar, ai, yr, yi, n, (2, y, z, st, st), core_tab(n, inverse),
+    rc.fft_axis(ar, ai, yr, yi, n, (nb, y, z, st, st), core_tab(n, inverse),
                 inverse, scale)
     return cplx(yr.reshape(xr.shape), yi.reshape(xr.shape))
 

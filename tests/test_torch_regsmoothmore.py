@@ -78,8 +78,8 @@ def test_admitted_lengths():
         assert ff._reg_values(n) == ff._smooth_values(n)
     assert ff._reg_slab(1080, 1920) and ff._reg_slab(100, 216)
     assert not ff._reg_slab(1728, 1728) and ff._reg_slab(216, 1728)
-    # the lengths that stay dense: odd and twice-odd, and past 4096
-    for n in (18, 45, 90, 225, 675, 2025, 112, 125, 250, 1350, 4320, 5000):
+    # the lengths that stay dense: under 16, a factor 7, and past 4096
+    for n in (9, 10, 15, 112, 224, 448, 896, 1008, 1344, 2016, 4320, 5000):
         assert not ff._reg_rows(n) and not ff._reg_axis(n)
 
 
@@ -419,15 +419,16 @@ def _launches(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n", [12, 20, 60, 100, 216, 1000, 1080, 4000, 90])
+@pytest.mark.parametrize("n", [12, 20, 60, 100, 216, 1000, 1080, 4000, 112])
 def test_fft_last_routes_the_smooth_more_rows(monkeypatch, n):
+    """112 (a factor 7) stays on the dense core."""
     calls = _launches(monkeypatch)
     x = torch.zeros((3, n))
     ff.reset_counts()
     ff.fft_last.impl("kernel", x, x)
     (entry, args), = calls
-    assert entry == "offt_fft_last" and args[-1] == int(n != 90)
-    assert ff.fft_last.reg_launches == int(n != 90)
+    assert entry == "offt_fft_last" and args[-1] == int(n != 112)
+    assert ff.fft_last.reg_launches == int(n != 112)
 
 
 @pytest.mark.parametrize("n", [12, 36, 100, 432, 1000, 1080, 2500, 1620,
@@ -447,7 +448,7 @@ def test_fft_axis_routes_the_smooth_more_columns(monkeypatch, n):
 
 @pytest.mark.parametrize("ny,nz,reg", [
     (100, 100, 1), (1000, 1000, 1), (216, 432, 1), (1080, 1728, 1),
-    (1728, 128, 0), (90, 100, 0)])
+    (1728, 128, 0), (112, 100, 0)])
 def test_fft_slab_routes_the_smooth_more_slabs(monkeypatch, ny, nz, reg):
     """Two grids (no cluster) on the smooth rows and columns."""
     calls = _launches(monkeypatch)

@@ -85,6 +85,18 @@ def mix(n):
     return odd_part(n) in (3, 5) and 16 <= n // odd_part(n) <= 512
 
 
+def odd_twice(n):
+    """The odd and twice-odd 5-smooth R 2^k, k = 0, 1, R > 1, in [16,
+    4096]: the c2c rows' third family (not the real rows')."""
+    return (16 <= n <= 4096 and n % 4 and smooth5(n) and odd_part(n) > 1)
+
+
+def odd_twice_col(n):
+    """Those the column variant takes: all but 2187, 3375, 3645, 4050
+    (P > 128) and 3750 (its planes past a block's shared memory)."""
+    return odd_twice(n) and n not in (2187, 3375, 3645, 3750, 4050)
+
+
 # ---- the gates ------------------------------------------------------------
 
 def test_the_second_family_of_half_lengths():
@@ -103,13 +115,16 @@ def test_the_second_family_of_half_lengths():
 def test_real_rows_gate_over_every_length():
     """``_reg_real_rows`` at every M in 8-8192: the parent's gate (powers
     of two, the mixed rows, the first smooth family) plus the second
-    family; so the real rows now take every length the c2c rows take."""
+    family; so the real rows take every length the c2c rows take but the
+    c2c rows' third family (the odd and twice-odd lengths), whose real
+    rows stay dense."""
     for m in range(8, 8193):
         parent = (pow2(m) or m in ff._MIX_ROW_LENGTHS
                   or m in ff._SMOOTH_LENGTHS)
         assert ff._reg_real_rows(m) == (parent or m in ROWS), m
         assert ff._reg_real_rows(m) == (pow2(m) or smooth_rows(m)), m
-        assert ff._reg_real_rows(m) == ff._reg_rows(m), m
+        assert ff._reg_real_rows(m) == (ff._reg_rows(m)
+                                        and not odd_twice(m)), m
 
 
 def test_other_gates_unchanged_over_every_length():
@@ -117,18 +132,22 @@ def test_other_gates_unchanged_over_every_length():
     ``_reg_rslab`` and ``_reg_cube`` at every length 8-8192 (the slabs and
     the cube on the diagonal and against fixed second lengths), each
     against its definition written out from the lengths alone: the real
-    rows' widening moves no other kernel's route."""
+    rows' widening moves no other kernel's route (the c2c rows, columns
+    and slab take the third family beside, ``test_torch_regsmoothodd.py``)."""
+    def cols(n):
+        return (pow2(n) or (smooth_rows(n) and n // v0(n) <= 128)
+                or odd_twice_col(n))
+
     for n in range(8, 8193):
-        rows = pow2(n) or smooth_rows(n)
-        axis = pow2(n) or (smooth_rows(n) and n // v0(n) <= 128)
+        rows = pow2(n) or smooth_rows(n) or odd_twice(n)
         core = pow2(n) or mix(n)
         assert ff._reg_rows(n) == rows, n
-        assert ff._reg_axis(n) == axis, n
+        assert ff._reg_axis(n) == cols(n), n
         assert ff._reg_core(n) == core, n
         for ny, nz in ((n, n), (n, 128), (n, 100), (256, n), (360, n)):
             assert ff._reg_slab(ny, nz) == (
-                (pow2(ny) or (smooth_rows(ny) and ny // v0(ny) <= 128))
-                and (pow2(nz) or smooth_rows(nz))), (ny, nz)
+                cols(ny) and (pow2(nz) or smooth_rows(nz)
+                              or odd_twice(nz))), (ny, nz)
             assert ff._reg_rslab(ny, nz) == (
                 (pow2(ny) or mix(ny))
                 and (pow2(nz) or nz in ff._MIX_ROW_LENGTHS)), (ny, nz)

@@ -158,8 +158,9 @@ def test_block_batch_beside_split_1d(n, searched):
     ((1, 1, 1000003), False, False, {"radix_z"}),
     ((1, 1, 2 ** 15), False, False, set()),
     ((8, 64, 2 ** 15), False, False, {"radix_x"}),
-    ((18, 48, 90), False, False, {"radix_z", "radix_y", "radix_x",
-                                  "block_batch"}),
+    ((18, 48, 90), False, False, set()),
+    ((112, 48, 224), False, False, {"radix_z", "radix_y", "radix_x",
+                                    "block_batch"}),
 ])
 def test_kernel_knobs(shape, real, inverse, want):
     """What the route of a float32 plan reads: 192^3's real route runs
@@ -169,9 +170,11 @@ def test_kernel_knobs(shape, real, inverse, want):
     core, its axes of 160 on the mixed register columns, so it reads
     radix_z alone; lengths under 16 run dense; the rows of 40 and the x
     pass of 24 (below the mixed lengths) run the second smooth family's
-    register core, so (24, 48, 40) reads none, while the rows of 90 and
-    the x pass of 18 (twice-odd lengths) run dense, so the (48, 90) slab
-    does too and (18, 48, 90) reads all four; 3 * 2^18's pair (1024, 768), 2^15's
+    register core, so (24, 48, 40) reads none, and so do the rows of 90
+    and the x pass of 18 (twice-odd lengths, the third smooth family), so
+    (18, 48, 90) reads none either; the axes of 112 and 224 (a factor 7)
+    run dense, so (112, 48, 224) reads all four; 3 * 2^18's pair
+    (1024, 768), 2^15's
     (128, 256) and 2^20's run on the register core; a prime takes
     Bluestein on the unfused engine; an x of 8 runs dense, but on the
     pitched pass (the stride gate at (64, 2^15)), which takes no
