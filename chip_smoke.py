@@ -68,10 +68,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``smooth_real_checks``, on a generator of their own): ``rfft_last``
    in the numpy layout and packed, scaled, over a ragged last block, and
    ``icrfft_last`` scaled, each one register-core launch, then
-   ``rfft_last`` on rows of 180 (M = 90) on the dense core; the real rows
-   at every M of the second family (``csrc/real_rows_smooth3.cu``,
+   ``rfft_last`` on rows of 224 (M = 112 = 7 16) on the dense core; the
+   real rows at every M of the second family (``csrc/real_rows_smooth3.cu``,
    ``real_rows_smooth5.cu``: ``smooth_real_checks`` at
-   ``_SMOOTH_MORE_LENGTHS``, on a generator of its own) the same way; and
+   ``_SMOOTH_MORE_LENGTHS``, on a generator of its own) the same way; the
+   real rows at every odd and twice-odd M of the third family
+   (``csrc/real_rows_smooth_odd3.cu``, ``real_rows_smooth_odd5.cu``:
+   ``smooth_real_checks`` at ``_SMOOTH_ODD_LENGTHS``, on a generator of
+   its own, seed 26, after the third family's c2c checks) the same way;
+   and
    the smooth core's
    second family (every other 5-smooth R 2^k, k >= 2: ``smooth_checks``
    at ``_SMOOTH_MORE_LENGTHS`` and ``_SMOOTH_MORE_COL_LENGTHS``, on a
@@ -124,7 +129,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       the default point of 144^3, 400^3 and 720^3 (``rfft_last`` at M =
       72, 200, 360 on the smooth real rows) and at the second family's
       M (``SMOOTH_MORE_REAL``): 200^3, 360^3 and 1000^3 (M = 100, 180,
-      500);
+      500); and at the third family's (``SMOOTH_ODD_REAL``): 100^3
+      (M = 50, twice-odd, staged), 500^3 (M = 250, twice-odd) and 750^3
+      (M = 375, odd);
    e. the distributed pencil engine, ``plan(..., mesh=make_mesh(1, 1))``
       in a world of one rank on NCCL (its exchanges have a group of one
       and are skipped, as in the reference; the chunks, the ry split, the
@@ -135,8 +142,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       ``batch_sharded`` 4 x 128^3 c2c; and in a counter window of its own,
       timed beside ``irfftn(rfftn)`` and the dense core, 480^3 packed r2c
       then c2r (``rfft_last`` and ``icrfft_last`` at M = 240 on the smooth
-      real rows) and 432^3 (M = 216, the second family), the spectrum
-      against complex128 ``rfftn``, the round trip against the input;
+      real rows), 432^3 (M = 216, the second family) and 450^3 (M = 225,
+      odd: the third family), the spectrum against complex128 ``rfftn``,
+      the round trip against the input;
    f. the cube kernel through ``fft3d_cube``: 8 x 128^3 forward and
       inverse, and the longest z the gate admits, 8 x 8 x 32768 (the
       register cube's split z: the four-step pair's bodies);
@@ -178,11 +186,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       by CUDA events, the plan cache in a temporary directory: a brute
       force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d
       alone: its default split runs both kernels on the register core),
-      Nelder-Mead over (112, 112, 180) r2c's (the radices and
-      block_batch of the dense rfft_last at M = 90 and of the dense axes
-      of 112; 12 trials; (112, 112, 360) until the second family's real
-      rows took M = 180, (112, 112, 144) until the first's took M = 72,
-      144^3 until its axes of 144 took the smooth columns), and
+      Nelder-Mead over (112, 112, 224) r2c's (the radices and
+      block_batch of the dense rfft_last at M = 112 and of the dense axes
+      of 112; 12 trials; (112, 112, 180) until the third family's real
+      rows took M = 90, (112, 112, 360) until the second's took M = 180,
+      (112, 112, 144) until the first's took M = 72, 144^3 until its axes
+      of 144 took the smooth columns), and
       256^3 c2c, whose space is
       empty (nothing to search: the default point timed); each with its
       space, trials, default and best time, speedup and winner, best <=
@@ -293,7 +302,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernels so at
    every register-core length 16-4096 (``fft_last`` also at every mixed
    length of its rows, beside ``torch.fft.fft``; ``rfft_last`` and
-   ``icrfft_last`` at every mixed and smooth M of theirs (both smooth
+   ``icrfft_last`` at every mixed and smooth M of theirs (the three smooth
    families), beside
    ``torch.fft.rfft`` and ``irfft``, with their bounds; ``fft_last`` at
    every length of the smooth core's second family and the strided-axis
@@ -349,8 +358,10 @@ one) and (36864, 96); ``rfft_last`` and ``icrfft_last`` also ``smooth``:
 (518400, 720), 720^3's z rows (numpy layout), and (230400, 240), 480^3's
 packed c2r z stage, and ``smooth_1000`` / ``smooth_216``: (1000000, 1000),
 1000^3's z rows, and (186624, 216), 432^3's packed c2r z stage (the
-second family); ``fft_last``, ``fft_slab`` and ``fft_axis`` also
-``smooth`` and ``smooth_960``: (129600, 360) and (9600, 960), the 360^3
+second family), and ``smooth_500`` / ``smooth_450``: (250000, 500),
+500^3's z rows (numpy layout), and (202500, 225), 450^3's packed c2r z
+stage (the third family, an odd M); ``fft_last``, ``fft_slab`` and
+``fft_axis`` also ``smooth`` and ``smooth_960``: (129600, 360) and (9600, 960), the 360^3
 slab and 16 x-rows of the 960^3 one, the x pass of 360^3 and of 960
 over (64, 960) lanes (``fft_x_from_padded``, 8 pad lanes);
 ``step1_twiddle`` ``mixed`` at (1, 1536, 2048)
@@ -510,8 +521,10 @@ SLABS = ("fft_slab", "rfft_slab", "irfft_slab")
 SMOOTH_MORE_SHAPES = {"smooth_1000", "smooth_216"}
 # and the third (the odd and twice-odd lengths) at 750: 16 x-rows of the
 # 750^3 slab's z rows, 16 x-rows of the slab, an x pass of 750 over (64,
-# 750) lanes, drawn from the third family's generator
-SMOOTH_ODD_SHAPES = {"smooth_750"}
+# 750) lanes; and its real rows: 500^3's z rows (r2c, numpy layout, M =
+# 250) and 450^3's packed c2r z stage (M = 225, odd), drawn from the third
+# family's generator
+SMOOTH_ODD_SHAPES = {"smooth_750", "smooth_500", "smooth_450"}
 MIXED_SHAPES = {
     "step1_twiddle": {
         "mixed": ((1, 1536, 2048),
@@ -539,10 +552,12 @@ MIXED_SHAPES = {
                   "mixed_packed": ((36864, 192),
                                    lambda f, x: f(x[0], packed=True)),
                   "smooth": ((518400, 720), lambda f, x: f(x[0])),
-                  "smooth_1000": ((1000000, 1000), lambda f, x: f(x[0]))},
+                  "smooth_1000": ((1000000, 1000), lambda f, x: f(x[0])),
+                  "smooth_500": ((250000, 500), lambda f, x: f(x[0]))},
     "icrfft_last": {"mixed": ((36864, 96), lambda f, x: f(*x)),
                     "smooth": ((230400, 240), lambda f, x: f(*x)),
-                    "smooth_216": ((186624, 216), lambda f, x: f(*x))},
+                    "smooth_216": ((186624, 216), lambda f, x: f(*x)),
+                    "smooth_450": ((202500, 225), lambda f, x: f(*x))},
     "rfft_slab": {"mixed": ((768, 768, 768), lambda f, x: f(x[0], zpad=8)),
                   "mixed_1280": ((16, 1280, 1280),
                                  lambda f, x: f(x[0], zpad=8))},
@@ -822,17 +837,17 @@ def smooth_phase(ot, ff, gen, window, tag, time_cuda=None,
 # ---- 2, 3d and 3e at the smooth half lengths (real_rows_smooth*.cu) -------
 
 def smooth_real_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL,
-                       ms=None, dense=(74, 180)) -> dict:
+                       ms=None, dense=(60, 224)) -> dict:
     """The real rows at every smooth half length M of the first family
     (``fused_fft._SMOOTH_LENGTHS``, or ``ms``: the second family's
-    ``_SMOOTH_MORE_LENGTHS``) against their plain versions:
-    ``rfft_last_planar`` in the numpy layout and packed, scaled, over a
-    ragged last block (an odd batch), and ``icrfft_last_planar`` scaled,
-    each one register-core launch; then, where ``dense`` gives its shape,
-    ``rfft_last_planar`` on rows of 180 (M = 90 = 45 * 2: no row core's
-    length; 74 rows, as many samples as the rows of 360 this check took
-    before M = 180 had its instance, so later draws keep their values),
-    both layouts, one dense-core launch. Each must agree within ``tol``
+    ``_SMOOTH_MORE_LENGTHS``, the third's ``_SMOOTH_ODD_LENGTHS``) against
+    their plain versions: ``rfft_last_planar`` in the numpy layout and
+    packed, scaled, over a ragged last block (an odd batch), and
+    ``icrfft_last_planar`` scaled, each one register-core launch; then,
+    where ``dense`` gives its shape, ``rfft_last_planar`` on rows of 224
+    (M = 112 = 7 * 16: no row core's length; rows of 180, M = 90, until
+    the third family's real rows took it), both layouts, one dense-core
+    launch. Each must agree within ``tol``
     (max |k - p| / max |p|). Returns {kernel: max |k - p|}."""
     cases = []
     for m in sorted(ff._SMOOTH_LENGTHS if ms is None else ms):
@@ -893,6 +908,20 @@ SMOOTH_MORE_REAL = (
     ("360^3 r2c", (360, 360, 360), False),
     ("1000^3 r2c", (1000, 1000, 1000), False),
     ("432^3 mesh 1x1 packed r2c -> c2r", (432, 432, 432), True),
+)
+
+
+# and at the third family's half lengths (real_rows_smooth_odd3.cu,
+# _odd5.cu): 100^3 (M = 50, twice-odd, P = 5: the staged rows), 500^3
+# (M = 250, twice-odd, P = 25), 750^3 (M = 375, odd, P = 25: the untangle's
+# masked last step) and, on the 1 x 1 mesh, 450^3 packed r2c -> c2r
+# (M = 225, odd, P = 15: icrfft_last the c2r's z stage), drawn from a
+# generator of their own
+SMOOTH_ODD_REAL = (
+    ("100^3 r2c", (100, 100, 100), False),
+    ("500^3 r2c", (500, 500, 500), False),
+    ("750^3 r2c", (750, 750, 750), False),
+    ("450^3 mesh 1x1 packed r2c -> c2r", (450, 450, 450), True),
 )
 
 
@@ -1650,13 +1679,14 @@ TUNE_CASES = (
     # core, so block_batch is not searched)
     ("a", (1, 1, 3 * 2 ** 18), False, "brute", None, None,
      ("step1_twiddle", "step3_transposed")),
-    # a real route whose rfft_last runs the dense core (M = 90 = 45 2: no
-    # row core's length) and its axes (112 = 7 16: no register schedule)
-    # too, so that radix_z, radix_y, radix_x and block_batch are searched
-    # ((112, 112, 360) until the second family's real rows took M = 180,
-    # (112, 112, 144) until the first's took M = 72; 144^3 until the smooth
-    # columns took its axes of 144)
-    ("b", (112, 112, 180), True, "nm", 12, None, ("rfft_last", "fft_axis")),
+    # a real route whose rfft_last runs the dense core (M = 112 = 7 16: no
+    # row core's length) and its axes (112: no register schedule) too, so
+    # that radix_z, radix_y, radix_x and block_batch are searched
+    # ((112, 112, 180) until the third family's real rows took M = 90,
+    # (112, 112, 360) until the second's took M = 180, (112, 112, 144)
+    # until the first's took M = 72; 144^3 until the smooth columns took
+    # its axes of 144)
+    ("b", (112, 112, 224), True, "nm", 12, None, ("rfft_last", "fft_axis")),
     # every kernel on the register core: the card's space is empty, and
     # the default point is timed
     ("c", (256, 256, 256), False, "nm", None, None,
@@ -2712,6 +2742,16 @@ def main() -> int:
             slabs=SMOOTH_ODD_SLABS).items():
         per_kernel[name]["max_abs_err"] = max(
             per_kernel[name]["max_abs_err"], err)
+    # the real rows at the third family's M (real_rows_smooth_odd3.cu,
+    # real_rows_smooth_odd5.cu) and their paths (3d, 3e), on a generator of
+    # their own
+    ugen = torch.Generator(device="cuda")
+    ugen.manual_seed(26)
+    for name, err in smooth_real_checks(ff, ugen, tag,
+                                        ms=ff._SMOOTH_ODD_LENGTHS,
+                                        dense=None).items():
+        per_kernel[name]["max_abs_err"] = max(
+            per_kernel[name]["max_abs_err"], err)
 
     # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
@@ -3028,6 +3068,12 @@ def main() -> int:
         ot, ff, rgen, lambda fn: _window(ff, fn), tag, time_cuda,
         cases=SMOOTH_MORE_REAL)
     smooth_real_runs.update(more_real_runs)
+    # and at the third family's M (100^3, 500^3, 750^3 r2c: rfft_last at
+    # M = 50, 250, 375), the same way
+    odd_real_runs, _ = smooth_real_phase(
+        ot, ff, ugen, lambda fn: _window(ff, fn), tag, time_cuda,
+        cases=SMOOTH_ODD_REAL)
+    smooth_real_runs.update(odd_real_runs)
 
     # ---- 3e. the pencil engine through plan(mesh=make_mesh(1, 1)) ---------
     # a world of one rank on NCCL; its exchanges have groups of one
@@ -3143,6 +3189,12 @@ def main() -> int:
     mesh_runs, _ = smooth_real_phase(
         ot, ff, rgen, lambda fn: _window(ff, fn), tag, time_cuda, mesh=mesh,
         cases=SMOOTH_MORE_REAL)
+    smooth_real_runs.update(mesh_runs)
+    # and at a third-family M: 450^3 (rfft_last and icrfft_last at M = 225,
+    # odd), the same way
+    mesh_runs, _ = smooth_real_phase(
+        ot, ff, ugen, lambda fn: _window(ff, fn), tag, time_cuda, mesh=mesh,
+        cases=SMOOTH_ODD_REAL)
     smooth_real_runs.update(mesh_runs)
 
     # ---- 3f. the cube kernel through fft3d_cube ----------------------------
@@ -4044,10 +4096,12 @@ def main() -> int:
             del xt, xc
     # rfft_last (numpy layout) and icrfft_last at every mixed and smooth M
     # of the real rows (``_MIX_ROW_LENGTHS``, ``_SMOOTH_LENGTHS``, the
-    # second family's ``_SMOOTH_MORE_LENGTHS``), as many whole rows as 2^24
-    # real samples hold, each core, the library call and the bound
-    for m in sorted(ff._MIX_ROW_LENGTHS | ff._SMOOTH_ROWS):
+    # second family's ``_SMOOTH_MORE_LENGTHS``, the third's
+    # ``_SMOOTH_ODD_LENGTHS``), as many whole rows as 2^24 real samples
+    # hold, each core, the library call and the bound
+    for m in sorted(ff._MIX_ROW_LENGTHS | ff._SMOOTH_CORE):
         kind = ("smooth, second family" if m in ff._SMOOTH_MORE_LENGTHS
+                else "smooth, third family" if m in ff._SMOOTH_ODD_LENGTHS
                 else "smooth" if m in ff._SMOOTH_LENGTHS else "mixed")
         rows = (1 << 23) // m
         spec = torch.complex(xr[:rows * (m + 1)].view(rows, m + 1),

@@ -17,8 +17,9 @@
 // [16, 4096] (smooth_odd_length: 18-4050, 42 lengths), runs as rows
 // (fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu by R0) and, where
 // smooth_odd_col (P <= 128 and planes within a block), as columns
-// (fft_axis_smooth_odd3.cu, fft_axis_smooth_odd5.cu); its real rows keep
-// the dense core. Every other length keeps
+// (fft_axis_smooth_odd3.cu, fft_axis_smooth_odd5.cu), and as real rows at
+// those half lengths (real_rows_smooth_odd3.cu, real_rows_smooth_odd5.cu).
+// Every other length keeps
 // its core: the powers of two and R0 2^k (R0 = 3, 5, 2^k >= 16) of
 // fft_regs.cuh, the dense core of fft_core.cuh; the real slabs, the
 // four-step pair and the cube keep theirs at these lengths too.
@@ -141,7 +142,9 @@ __host__ __device__ constexpr bool smooth_core_length(int n) {
 // whether n is a length of the third family, the odd and twice-odd ones:
 // R 2^K, K = 0 or 1, R = 3^a 5^b > 1, 16 <= n <= 4096 (18-4050, 42
 // lengths; fft_last_smooth_odd3.cu and fft_last_smooth_odd5.cu as rows,
-// fft_axis_smooth_odd3.cu and fft_axis_smooth_odd5.cu as columns)
+// fft_axis_smooth_odd3.cu and fft_axis_smooth_odd5.cu as columns,
+// real_rows_smooth_odd3.cu and real_rows_smooth_odd5.cu as real rows of
+// half length n)
 __host__ __device__ constexpr bool smooth_odd_length(int n) {
   return n >= 16 && n <= 4096 && odd_part(n) > 1 && pow35(odd_part(n)) &&
          n / odd_part(n) < 4;

@@ -30,7 +30,10 @@
 //   by real_rows_smooth.cu, a source of its own), and so does every other
 //   5-smooth M = R 2^k, R = 3^a 5^b > 1, k >= 2 (the second family,
 //   12-4000: 216, the 432^3 packed c2r's z stage, among them), built by
-//   real_rows_smooth3.cu and real_rows_smooth5.cu by R0, rows of fewer
+//   real_rows_smooth3.cu and real_rows_smooth5.cu by R0, and every odd and
+//   twice-odd 5-smooth M = R 2^k, k = 0, 1 (the third family, 18-4050:
+//   225, the 450^3 packed c2r's z stage, among them), built by
+//   real_rows_smooth_odd3.cu and real_rows_smooth_odd5.cu, rows of fewer
 //   than 6 threads re-tangling as they stage their rows through the planes
 //   and copying their output pairs out whole;
 // - every other M runs the dense core of fft_core.cuh: a block owns T
@@ -72,9 +75,9 @@ icrfft_last_kernel(const float* xr, const float* xi, float* out,
 }  // namespace offt
 
 // reg != 0: the register core (m a power of two in [16, 4096], a mixed M
-// of real_rows_mix.cu or a smooth one of either family; the first m
-// rows of the inverse core table and `ab` are read, the radices and T are
-// not); else the dense core (radices, T).
+// of real_rows_mix.cu or a smooth one of any of the three families; the
+// first m rows of the inverse core table and `ab` are read, the radices
+// and T are not); else the dense core (radices, T).
 extern "C" int offt_icrfft_last(const void* xr, const void* xi, void* out,
                                 const void* tab, const void* ab,
                                 long long rows, int m, int ns, int r0,
@@ -92,6 +95,11 @@ extern "C" int offt_icrfft_last(const void* xr, const void* xi, void* out,
                                      (float*)out, (const float2*)tab,
                                      (const float2*)ab, rows, m,
                                      (cudaStream_t)stream);
+    if (regs::smooth_odd_length(m))
+      return (int)icrfft_smooth_odd((const float*)xr, (const float*)xi,
+                                    (float*)out, (const float2*)tab,
+                                    (const float2*)ab, rows, m,
+                                    (cudaStream_t)stream);
     if (m & (m - 1))
       return (int)icrfft_mix((const float*)xr, (const float*)xi, (float*)out,
                              (const float2*)tab, (const float2*)ab, rows, m,

@@ -1,12 +1,13 @@
 // real_rows_smooth.cuh: the real rows of rfft_last.cu and icrfft_last.cu
 // on the register core's smooth rows (fft_smooth.cuh: SmoothRowGeo,
-// core_smooth) at any smooth half length M = R 2^K of either family:
+// core_smooth) at any smooth half length M = R 2^K of the three families:
 // rows_r2c_smooth and rows_c2r_smooth, the mirror of each other, and
 // their launchers. The first family's instances (odd part 9, 15, 25, 45,
 // K >= 3) are built by real_rows_smooth.cu, the second family's (every
 // other R = 3^a 5^b > 1, K >= 2: 12-4000) by real_rows_smooth3.cu (R0 = 3)
-// and real_rows_smooth5.cu (R0 = 5), so that nvcc builds them beside the
-// others.
+// and real_rows_smooth5.cu (R0 = 5), the third family's (the odd and
+// twice-odd M = R 2^K, K = 0, 1: 18-4050) by real_rows_smooth_odd3.cu and
+// real_rows_smooth_odd5.cu, so that nvcc builds them beside the others.
 //
 // Replaces, at those M, the dense core of two Pallas kernels' ports
 // behind their C entry points: offt_tpu/kernels/pallas_fft.py
@@ -17,52 +18,57 @@
 // What bounds it on Hopper: the rows' bytes, 8 read (a sample pair) and 8
 // written (a planar complex lane) per lane of the half-spectrum, both
 // ways. The dense core did one MAC per root read from shared memory and
-// ran these rows at 0.04-0.14 of that bound. Design, as the mixed rows'
+// ran these rows at 0.02-0.20 of that bound. Design, as the mixed rows'
 // rows_r2c_mix and rows_c2r_mix (real_rows_mix.cu) on the smooth rows'
 // schedule and geometry: V0 = 12 values a thread (20 where 25 divides the
-// odd part or 3 does not), P = M / V0 threads a row, not a power of two,
-// 256 / P rows a block (one from P = 256; the ragged last block masked),
-// radix-4 passes (a radix 2 where K is odd, none at K = 2), one radix-3
-// or radix-5 pass per further odd factor (the first one masked at 60),
-// then the Good-Thomas pass of radix V0; the row planes unpadded at the
-// pitch of smooth_row_pitch, no swizzle:
+// odd part or 3 does not; 2^K d at the third family, smooth_odd_v0), P =
+// M / V0 threads a row, not a power of two, 256 / P rows a block (one from
+// P = 256; the ragged last block masked), radix-4 passes (a radix 2 where
+// K is odd, none at K <= 2), one radix-3 or radix-5 pass per further odd
+// factor (masked where it does not divide V0), then the pass of radix V0;
+// the row planes unpadded at the pitch of smooth_row_pitch, no swizzle:
 // - r2c: loads v[j] = x[2j] + i x[2j+1] as one float2 (8-byte aligned
 //   input; a warp on consecutive pairs of its rows); the last pass leaves
 //   element t + r P, which goes to the row's planes in natural order;
 //   after a barrier each thread untangles the pairs (k, M - k),
-//   k = t + i P (i < V0 / 2), and thread 0 also M/2. The run of M - k a
-//   warp reads falls, row by row, on slots g P - t mod 32, which may meet
-//   twice where the warp starts inside a row. The output rows, times
-//   `scale`, are staged at a pitch of at least M + 1 that is P mod 32
-//   (SmoothRealGeo::SPITCH; M + 1 at P = 1, smooth_stage_pitch), the stage
-//   overlaying the planes, then copied out with consecutive threads on
-//   consecutive floats of the block's rows, row r at r `opitch`: at
+//   k = t + i P (i < V0 / 2), and at an even M thread 0 also M/2; at an
+//   odd M (V0 and P odd) one more i, masked to k <= (M - 1) / 2, takes the
+//   last (P + 1) / 2 pairs, and no lane is its own partner. The run of
+//   M - k a warp reads falls, row by row, on slots g P - t mod 32, which
+//   may meet twice where the warp starts inside a row. The output rows,
+//   times `scale`, are staged at a pitch of at least M + 1 that is P mod
+//   32 (SmoothRealGeo::SPITCH; M + 1 at P = 1, smooth_stage_pitch), the
+//   stage overlaying the planes, then copied out with consecutive threads
+//   on consecutive floats of the block's rows, row r at r `opitch`: at
 //   opitch = the lanes (rfft_last's layouts, the only pitch launched) the
 //   block's rows are one contiguous run of the output, so the copy writes
-//   whole sectors although a numpy row (M + 1 floats) is odd;
+//   whole sectors although a numpy row (M + 1 floats) may be odd;
 // - c2r: the re-tangle as the core loads (retangle_pair: X[e] and
-//   X[e ? M - e : 0], the partner without the power of two's mask), the
-//   inverse core, then x[2j], x[2j + 1] = v[j] as one float2, a warp on
-//   runs of P float2 of its rows. The scale rides ab; the core is
-//   unscaled;
+//   X[e ? M - e : 0], the partner without the power of two's mask; at an
+//   odd M no element is its own partner), the inverse core, then x[2j],
+//   x[2j + 1] = v[j] as one float2, a warp on runs of P float2 of its
+//   rows. The scale rides ab; the core is unscaled;
 // - rows of fewer than 6 threads (the second family's 12, 20, 24, 36,
-//   40, 60, 100: P = 1-5; SmoothRowGeo::STAGE) would move runs of 8-40
-//   bytes a thread, P rows a warp; as the c2c rows do, they move the
-//   block's rows through the planes whole, consecutive threads on
-//   consecutive float2 of the block's contiguous rows: the r2c copies its
-//   input pairs in (x[2e] to the re plane, x[2e + 1] to the im plane, rows
-//   past `rows` zero) and the core loads from there; the c2r re-tangles
-//   each element from its two lanes as it copies it in (so the core's
-//   loads read one slot each), puts v back into the planes and copies its
-//   output pairs out.
-// Every put, read and copy of the planes and the stage takes at most two
-// wavefronts (regcore.r2c_smooth_ways, regcore.smooth_stage_ways over
-// both families): one at the second family's rows of one row a block
-// (P >= 128: 1620-4000 but 2000, 2400, 2500); two on the V[M - k] reads
-// and stage writes and on the copy at the others, on the put and the V[k]
-// reads too at the pitches of K = 2 (36, 60, 100, 108, 180, 300), and on
-// the staged copies in and out. Each ignores the radices and the rows
-// per block of the dense core.
+//   40, 60, 100 and the third's 18, 25, 27, 30, 45, 50, 54, 75, 90, 125,
+//   150: P = 1-5; SmoothRowGeo::STAGE) would move runs of 8-40 bytes a
+//   thread, P rows a warp; as the c2c rows do, they move the block's rows
+//   through the planes whole, consecutive threads on consecutive float2 of
+//   the block's contiguous rows: the r2c copies its input pairs in (x[2e]
+//   to the re plane, x[2e + 1] to the im plane, rows past `rows` zero) and
+//   the core loads from there; the c2r re-tangles each element from its
+//   two lanes as it copies it in (so the core's loads read one slot each),
+//   puts v back into the planes and copies its output pairs out.
+// Every put, read and copy of the planes and the stage of the first two
+// families takes at most two wavefronts (regcore.r2c_smooth_ways,
+// regcore.smooth_stage_ways): one at the second family's rows of one row
+// a block (P >= 128: 1620-4000 but 2000, 2400, 2500); two on the V[M - k]
+// reads and stage writes and on the copy at the others, on the put and
+// the V[k] reads too at the pitches of K = 2 (36, 60, 100, 108, 180,
+// 300), and on the staged copies in and out. So do the third family's:
+// one at its rows of one row a block (2187, 3375, 3645, 4050), two on the
+// V[M - k] reads, the stage writes and the copy at the others (the V[k]
+// stage writes too at 25, whose stage pitch M + 1 is even). Each ignores
+// the radices and the rows per block of the dense core.
 
 #pragma once
 
@@ -73,9 +79,9 @@ namespace offt {
 namespace regs {
 
 // the r2c output stage's pitch mod 32: P mod 32, so rows sharing a warp
-// stay P banks apart, but the planes' odd M + 1 at P = 1 (12 and 20: P mod
-// 32 took three wavefronts a copy at 12 and 33 floats a row at 20;
-// regcore.SMOOTH_STAGE_PITCH)
+// stay P banks apart, but the planes' M + 1 at P = 1 (12 and 20: P mod 32
+// took three wavefronts a copy at 12 and 33 floats a row at 20;
+// regcore.stage_pitch)
 __host__ __device__ constexpr int smooth_stage_pitch(int m, int p) {
   return p == 1 ? m + 1 : p % 32;
 }
@@ -203,37 +209,48 @@ rows_r2c_smooth(const float* x, float* yr, float* yi,
   __syncthreads();
   // untangle the pairs (k, M - k), k = t + i P over [0, M/2), into
   // registers: lo = X[k], hi = X[M - k] (for k = 0: X[0] + i X[M] packed,
-  // else X[0] and X[M]); thread 0 also takes X[M/2]
+  // else X[0] and X[M]); at an even M thread 0 also takes X[M/2]. At an odd
+  // M (the third family's K = 0: V0 and P odd) i < V0 / 2 stops short of
+  // (M - 1) / 2: one more i, masked to 2k < M, takes the last (P + 1) / 2
+  // pairs, and no lane pairs with itself
+  constexpr int NI = (V + 1) / 2;
   const float hs = 0.5f * scale;
-  float2 lo[V / 2], hi[V / 2], mid;
-  unroll<0, V / 2>([&](auto ic) {
+  float2 lo[NI], hi[NI];
+  unroll<0, NI>([&](auto ic) {
     constexpr int I = decltype(ic)::value;
     const int k = t + I * P;
     if (I == 0 && t == 0) {
       const float a = sre[0], b = sim[0];
       lo[I] = make_float2((a + b) * scale, packed ? (a - b) * scale : 0.f);
       hi[I] = make_float2((a - b) * scale, 0.f);
-    } else {
+    } else if (2 * I + 1 < V || 2 * k < M) {
       untangle_at<M>(sre, sim, w, k, k, M - k, hs, lo[I], hi[I]);
     }
   });
-  if (t == 0) untangle_at<M>(sre, sim, w, M / 2, M / 2, M / 2, hs, mid, mid);
+  [[maybe_unused]] float2 mid;
+  if constexpr (M % 2 == 0) {
+    if (t == 0) untangle_at<M>(sre, sim, w, M / 2, M / 2, M / 2, hs, mid, mid);
+  }
   float* st_r = rsmem + g * S::SPITCH;
   float* st_i = rsmem + (G::ROWS + g) * S::SPITCH;
   __syncthreads();  // every row has read its V
-  unroll<0, V / 2>([&](auto ic) {
+  unroll<0, NI>([&](auto ic) {
     constexpr int I = decltype(ic)::value;
     const int k = t + I * P;
-    st_r[k] = lo[I].x;
-    st_i[k] = lo[I].y;
-    if (k != 0 || !packed) {
-      st_r[M - k] = hi[I].x;  // k = 0: X[M] at lane M of a numpy row
-      st_i[M - k] = hi[I].y;
+    if (2 * I + 1 < V || 2 * k < M) {
+      st_r[k] = lo[I].x;
+      st_i[k] = lo[I].y;
+      if (k != 0 || !packed) {
+        st_r[M - k] = hi[I].x;  // k = 0: X[M] at lane M of a numpy row
+        st_i[M - k] = hi[I].y;
+      }
     }
   });
-  if (t == 0) {
-    st_r[M / 2] = mid.x;
-    st_i[M / 2] = mid.y;
+  if constexpr (M % 2 == 0) {
+    if (t == 0) {
+      st_r[M / 2] = mid.x;
+      st_i[M / 2] = mid.y;
+    }
   }
   __syncthreads();
   const long long left = rows - row0;

@@ -9,9 +9,11 @@
 //   loads, the inverse M-point core, float2 stores (irfft_slab.cu,
 //   icrfft_last.cu); rows_r2c and rows_c2r at the mixed M of the rows
 //   (MixRowGeo) are rows_r2c_mix and rows_c2r_mix, in real_rows_mix.cu,
-//   and at the smooth M of both families (fft_smooth.cuh's SmoothRowGeo)
-//   rows_r2c_smooth and rows_c2r_smooth, in real_rows_smooth.cuh (built
-//   by real_rows_smooth.cu, real_rows_smooth3.cu and real_rows_smooth5.cu);
+//   and at the smooth M of the three families (fft_smooth.cuh's
+//   SmoothRowGeo) rows_r2c_smooth and rows_c2r_smooth, in
+//   real_rows_smooth.cuh (built by real_rows_smooth.cu,
+//   real_rows_smooth3.cu, real_rows_smooth5.cu, real_rows_smooth_odd3.cu
+//   and real_rows_smooth_odd5.cu);
 // - cols_c2c: the column variant, c2c along a strided axis (fft_axis.cu;
 //   the y pass of the slabs), on the (B, N, Y, Z) geometry of fft_axis.cu,
 //   in blocks of 256 threads or of 32 lines up to 1024 threads;
@@ -1060,8 +1062,8 @@ cudaError_t axis_smooth(const float* xr, const float* xi, float* yr,
                         int n, int inverse, float scale, int tile,
                         cudaStream_t s);
 // The same at the second family of fft_smooth.cuh (smooth_more_length;
-// its real rows below), by R0: fft_last_smooth3.cu and fft_axis_smooth3.cu where 3
-// divides n and 25 does not (R0 = 3), fft_last_smooth5.cu and
+// its real rows below), by R0: fft_last_smooth3.cu and fft_axis_smooth3.cu
+// where 3 divides n and 25 does not (R0 = 3), fft_last_smooth5.cu and
 // fft_axis_smooth5.cu at the rest (R0 = 5); last_smooth_more and
 // axis_smooth_more pick the source.
 cudaError_t last_smooth3(const float* xr, const float* xi, float* yr,
@@ -1096,10 +1098,10 @@ inline cudaError_t axis_smooth_more(const float* xr, const float* xi,
       xr, xi, yr, yi, tab, g, n, inverse, scale, tile, s);
 }
 // The same at the third family of fft_smooth.cuh (smooth_odd_length: the
-// odd and twice-odd lengths; no real rows), by R0: fft_last_smooth_odd3.cu
-// and fft_axis_smooth_odd3.cu where 3 divides n and 25 does not,
-// fft_last_smooth_odd5.cu and fft_axis_smooth_odd5.cu at the rest;
-// last_smooth_odd and axis_smooth_odd pick the source.
+// odd and twice-odd lengths; its real rows below), by R0:
+// fft_last_smooth_odd3.cu and fft_axis_smooth_odd3.cu where 3 divides n
+// and 25 does not, fft_last_smooth_odd5.cu and fft_axis_smooth_odd5.cu at
+// the rest; last_smooth_odd and axis_smooth_odd pick the source.
 cudaError_t last_smooth_odd3(const float* xr, const float* xi, float* yr,
                              float* yi, const float2* tab, long long rows,
                              int n, long long ipitch, long long opitch,
@@ -1176,6 +1178,39 @@ inline cudaError_t icrfft_smooth_more(const float* xr, const float* xi,
                                       const float2* ab, long long rows, int m,
                                       cudaStream_t s) {
   return (m % 3 == 0 && m % 25 ? icrfft_smooth3 : icrfft_smooth5)(
+      xr, xi, out, tab, ab, rows, m, s);
+}
+// The same at the third family's half lengths (smooth_odd_length: the odd
+// and twice-odd M), by R0: real_rows_smooth_odd3.cu where 3 divides m and
+// 25 does not, real_rows_smooth_odd5.cu at the rest; rfft_smooth_odd and
+// icrfft_smooth_odd pick the source.
+cudaError_t rfft_smooth_odd3(const float* x, float* yr, float* yi,
+                             const float2* tab, const float2* w,
+                             long long rows, int m, float scale, int packed,
+                             long long opitch, cudaStream_t s);
+cudaError_t rfft_smooth_odd5(const float* x, float* yr, float* yi,
+                             const float2* tab, const float2* w,
+                             long long rows, int m, float scale, int packed,
+                             long long opitch, cudaStream_t s);
+cudaError_t icrfft_smooth_odd3(const float* xr, const float* xi, float* out,
+                               const float2* tab, const float2* ab,
+                               long long rows, int m, cudaStream_t s);
+cudaError_t icrfft_smooth_odd5(const float* xr, const float* xi, float* out,
+                               const float2* tab, const float2* ab,
+                               long long rows, int m, cudaStream_t s);
+inline cudaError_t rfft_smooth_odd(const float* x, float* yr, float* yi,
+                                   const float2* tab, const float2* w,
+                                   long long rows, int m, float scale,
+                                   int packed, long long opitch,
+                                   cudaStream_t s) {
+  return (m % 3 == 0 && m % 25 ? rfft_smooth_odd3 : rfft_smooth_odd5)(
+      x, yr, yi, tab, w, rows, m, scale, packed, opitch, s);
+}
+inline cudaError_t icrfft_smooth_odd(const float* xr, const float* xi,
+                                     float* out, const float2* tab,
+                                     const float2* ab, long long rows, int m,
+                                     cudaStream_t s) {
+  return (m % 3 == 0 && m % 25 ? icrfft_smooth_odd3 : icrfft_smooth_odd5)(
       xr, xi, out, tab, ab, rows, m, s);
 }
 // The four-step pair at a mixed length (fourstep_mix.cu), n = R0 2^k,

@@ -37,8 +37,11 @@
 //   pitch of P mod 32); and at every other 5-smooth M = R 2^k, R = 3^a 5^b
 //   > 1, k >= 2 (the second family, 12-4000: 100, 180, 216, 500 among
 //   them), built by real_rows_smooth3.cu and real_rows_smooth5.cu by R0,
-//   rows of fewer than 6 threads staging their input pairs through the
-//   planes;
+//   and at the odd and twice-odd 5-smooth M = R 2^k, k = 0, 1 (the third
+//   family, 18-4050: 50, 250, 375 among them), built by
+//   real_rows_smooth_odd3.cu and real_rows_smooth_odd5.cu, an odd M's last
+//   pairs untangled on one masked step; rows of fewer than 6 threads
+//   staging their input pairs through the planes;
 // - every other M: the dense core of fft_core.cuh on a column-wise tile of
 //   T rows (pencil stride TP = T | 1), the untangle in place on the tile
 //   (r2c_untangle), then a row-major store. Its scale rides the table.
@@ -99,9 +102,9 @@ rfft_last_kernel(const float* x, float* yr, float* yi,
 }  // namespace offt
 
 // reg != 0: the register core (m a power of two in [16, 4096], a mixed
-// M of real_rows_mix.cu or a smooth one of either family; the first
-// m rows of `tab` and `scale` are read, the radices and T are not); else
-// the dense core (radices, T; the scale is in the table).
+// M of real_rows_mix.cu or a smooth one of any of the three families;
+// the first m rows of `tab` and `scale` are read, the radices and T are
+// not); else the dense core (radices, T; the scale is in the table).
 extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
                               const void* tab, const void* w, long long rows,
                               int m, int ns, int r0, int r1, int r2, int T,
@@ -121,6 +124,9 @@ extern "C" int offt_rfft_last(const void* x, void* yr, void* yi,
     if (regs::smooth_more_length(m))
       return (int)rfft_smooth_more(xf, o_r, o_i, tb, wt, rows, m, scale,
                                    packed, packed ? m : m + 1, s);
+    if (regs::smooth_odd_length(m))
+      return (int)rfft_smooth_odd(xf, o_r, o_i, tb, wt, rows, m, scale,
+                                  packed, packed ? m : m + 1, s);
     if (m & (m - 1))
       return (int)rfft_mix(xf, o_r, o_i, tb, wt, rows, m, scale, packed,
                            packed ? m : m + 1, s);

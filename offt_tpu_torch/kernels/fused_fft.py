@@ -328,8 +328,10 @@ _SMOOTH_ROWS = _SMOOTH_LENGTHS | _SMOOTH_MORE_LENGTHS
 # the odd and twice-odd 5-smooth lengths R 2^k, k = 0, 1, R = 3^a 5^b > 1, in
 # [16, 4096] (the third family: 18-4050, 42 lengths) that the smooth core
 # runs as c2c rows (csrc/fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu
-# by R0) on V0 = 2^k d values a thread (_smooth_odd_values); their real rows
-# (the twice-odd half lengths M of 100^3-900^3 r2c) stay dense
+# by R0) on V0 = 2^k d values a thread (_smooth_odd_values), and as real
+# rows at these half lengths (csrc/real_rows_smooth_odd3.cu,
+# real_rows_smooth_odd5.cu: the z rows of the 36^3-8100^3 r2c cubes of an
+# odd or twice-odd M, 100^3-900^3 among them; _reg_real_rows)
 _SMOOTH_ODD_LENGTHS = frozenset(
     n for n in range(16, 4097)
     if _odd_part(n) > 1 and _smooth5(_odd_part(n)) and n // _odd_part(n) < 4)
@@ -361,17 +363,22 @@ def _reg_real_rows(m: int) -> bool:
     length M launch the register core's real rows: a power of two in
     [16, 4096] (``regs::rows_r2c``, ``rows_c2r``), a mixed length of
     ``_MIX_ROW_LENGTHS`` (``regs::rows_r2c_mix``, ``rows_c2r_mix`` in
-    ``csrc/real_rows_mix.cu``), or a smooth length of either family,
-    ``_SMOOTH_ROWS`` (``regs::rows_r2c_smooth``, ``rows_c2r_smooth`` on P =
-    M / 12 or M / 20 threads a row: at an odd part of 9, 15, 25 or 45 and
-    k >= 3 in ``csrc/real_rows_smooth.cu``; at every other 5-smooth R 2^k,
-    k >= 2, the second family of ``_SMOOTH_MORE_LENGTHS``, 12-4000, in
-    ``csrc/real_rows_smooth3.cu`` and ``real_rows_smooth5.cu``, rows of
-    fewer than 6 threads staged through the planes). Every other M takes
-    the dense core: the odd and twice-odd 5-smooth M (45, 90, 125, 250,
-    1350 and the like) and M past 4096. The register core ignores the
-    radices and the rows per block."""
-    return _pow2(m) or m in _MIX_ROW_LENGTHS or m in _SMOOTH_ROWS
+    ``csrc/real_rows_mix.cu``), or a smooth length of any of the three
+    families, ``_SMOOTH_CORE`` (``regs::rows_r2c_smooth``,
+    ``rows_c2r_smooth`` on P = M / V0 threads a row: at an odd part of 9,
+    15, 25 or 45 and k >= 3 in ``csrc/real_rows_smooth.cu``; at every other
+    5-smooth R 2^k, k >= 2, the second family of ``_SMOOTH_MORE_LENGTHS``,
+    12-4000, in ``csrc/real_rows_smooth3.cu`` and ``real_rows_smooth5.cu``;
+    at the odd and twice-odd R 2^k, k = 0, 1, the third family of
+    ``_SMOOTH_ODD_LENGTHS``, 18-4050, in ``csrc/real_rows_smooth_odd3.cu``
+    and ``real_rows_smooth_odd5.cu``, an odd M's last pairs untangled on
+    one masked step; rows of fewer than 6 threads staged through the
+    planes). So the real rows take every length the c2c rows take
+    (:func:`_reg_rows`). Every other M takes the dense core: the lengths
+    with a prime factor of 7 or more (112 among them), those under 16 and
+    those past 4096. The register core ignores the radices and the rows
+    per block."""
+    return _pow2(m) or m in _MIX_ROW_LENGTHS or m in _SMOOTH_CORE
 
 
 def _reg_values(n: int) -> int:
@@ -1390,8 +1397,9 @@ def rfft_last_planar(mode, x, radices=None,
     post-multiplies.
 
     On M a power of two in [16, 4096], a mixed length 3 2^k or 5 2^k or a
-    5-smooth one R 2^k, k >= 2, of either smooth family (:func:`_reg_real_rows`)
-    the kernel runs the register core:
+    5-smooth one R 2^k of any of the three smooth families (k >= 2, and the
+    odd and twice-odd M of k = 0, 1; :func:`_reg_real_rows`) the kernel
+    runs the register core:
     ``radices`` (the reference's ``_pick_2stage`` of M) is checked but
     does not shape its passes, ``block_rows`` is ignored, and ``scale`` is
     applied at the store. Other M run the dense core on
@@ -1456,8 +1464,8 @@ def icrfft_last_planar(mode, xr, xi, n: int = 0, radices=None,
     inverse; the core is unscaled.
 
     On M a power of two in [16, 4096], a mixed or a smooth length of
-    either family (:func:`_reg_real_rows`) the kernel runs the register
-    core's c2r rows
+    any of the three families (the odd and twice-odd M among them;
+    :func:`_reg_real_rows`) the kernel runs the register core's c2r rows
     (the re-tangle as the core loads; at a power of two the kernel of
     ``irfft_slab_yz``'s rows): ``radices`` is checked but does not shape
     its passes, and ``block_rows`` is ignored. Other lengths run

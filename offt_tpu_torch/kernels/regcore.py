@@ -36,14 +36,16 @@ of columns replayed through its exchange planes
 ``SMOOTH_ODD_ROW_PITCH``, the columns' pad :func:`smooth_col_pad`), its
 banks :func:`smooth_ways` and their cost over a line
 :func:`smooth_exchange_cost`; the r2c and c2r rows at the half lengths
-of both families (``csrc/real_rows_smooth.cu``, the first;
-``csrc/real_rows_smooth3.cu``, ``real_rows_smooth5.cu``, the second)
+of the three families (``csrc/real_rows_smooth.cu``, the first;
+``csrc/real_rows_smooth3.cu``, ``real_rows_smooth5.cu``, the second;
+``csrc/real_rows_smooth_odd3.cu``, ``real_rows_smooth_odd5.cu``, the
+third, whose odd M untangle their last pairs on one masked step)
 block by block in :func:`rfft_rows_smooth_block` and
 :func:`rows_c2r_smooth_block` (rows of fewer than 6 threads staged
 through the planes, in and out, :func:`smooth_stage_addrs`), their
 addresses :func:`r2c_smooth_addrs`, :func:`c2r_smooth_loads` and
-:func:`stage_pitch` (a pitch of P mod 32, ``SMOOTH_STAGE_PITCH`` where
-that takes more than two wavefronts), their banks
+:func:`stage_pitch` (a pitch of P mod 32, M + 1 at P = 1, where P mod
+32 took three wavefronts), their banks
 :func:`r2c_smooth_ways` and :func:`smooth_stage_ways`. No CPU can run those kernels, so the tests hold
 this replay of them against numpy and the JAX
 reference: the same pass radices and strides (:func:`passes`), the same
@@ -501,28 +503,24 @@ def rows_mix_block(x, tab, inverse: bool = False):
     return out
 
 
-# the r2c rows' output stage's pitch mod 32 where it is not P mod 32
-# (``regs::smooth_stage_pitch``; every M of both families counted by
-# :func:`r2c_smooth_ways` at each residue,
-# ``tests/test_torch_regsmoothmorereal.py``): at P = 1 (12 and 20, 256
-# rows a block) the planes' odd pitch M + 1, where P mod 32 = 1 takes
-# three wavefronts a copy at 12 and a stage of 33 floats a row at 20
-SMOOTH_STAGE_PITCH = {12: 13, 20: 21}
-
-
 def stage_pitch(m: int) -> int:
     """Floats a row of the r2c rows' output stage takes: at a mixed M
     (``regs::rows_r2c_mix``, ``MixRealGeo::SPITCH``) M + 1 (the numpy row)
     where a row takes a warp or more, else the least pitch of at least
     M + 1 that is P mod 32, so rows sharing a warp are P banks apart; at a
-    smooth M of either family (``rows_r2c_smooth``,
-    ``SmoothRealGeo::SPITCH``) the least pitch of at least M + 1 that is
-    P mod 32 at every P (rows straddle warps wherever 32 does not divide
-    P), or ``SMOOTH_STAGE_PITCH``'s residue."""
+    smooth M of any of the three families (``rows_r2c_smooth``,
+    ``SmoothRealGeo::SPITCH``, ``regs::smooth_stage_pitch``) the least
+    pitch of at least M + 1 that is P mod 32 at every P (rows straddle
+    warps wherever 32 does not divide P), but M + 1, the planes' pitch,
+    at P = 1 (12, 20, 18, 25, 30: 256 rows a block; P mod 32 = 1 took
+    three wavefronts a copy at 12 and a stage of 33 floats a row at 20,
+    every M of both earlier families counted by :func:`r2c_smooth_ways`
+    at each residue, ``tests/test_torch_regsmoothmorereal.py``)."""
     p = geometry(m)["P"]
-    if m in fused_fft._SMOOTH_ROWS:
-        want = SMOOTH_STAGE_PITCH.get(m, p % 32)
-        return m + 1 + (want - (m + 1)) % 32
+    if m in fused_fft._SMOOTH_CORE:
+        if p == 1:
+            return m + 1
+        return m + 1 + (p % 32 - (m + 1)) % 32
     if p >= 32:
         return m + 1
     return m + 1 + (p % 32 - (m + 1)) % 32
@@ -635,6 +633,7 @@ def _r2c_block(m: int, v, ad: dict, g, t, w, scale: float, packed: bool,
         plane[ad["put"][:, r]] = v[:, r]
     k = ad["k"]
     first = k == 0                       # thread 0 of a row, i = 0
+    live = ad.get("live", torch.ones_like(first))
     hs = torch.tensor(0.5 * scale, dtype=torch.float32)
     s32 = torch.tensor(scale, dtype=torch.float32)
     a = plane[ad["lo"]]
@@ -647,14 +646,15 @@ def _r2c_block(m: int, v, ad: dict, g, t, w, scale: float, packed: bool,
     hi0 = torch.complex((v0r - v0i) * s32, zero)
     lo = torch.where(first, lo0, lo)
     hi = torch.where(first, hi0, hi)
-    am = plane[ad["mid"]]
-    _, mid = _untangle(am, am, w[m // 2], w[m // 2], hs)
     sp = stage_pitch(m)
     st = torch.full((nrows * sp,), complex("nan"), dtype=torch.complex64)
-    st[ad["st_lo"].reshape(-1)] = lo.reshape(-1)
-    keep = ~first if packed else torch.ones_like(first)
+    st[ad["st_lo"][live]] = lo[live]
+    keep = (~first if packed else torch.ones_like(first)) & live
     st[ad["st_hi"][keep]] = hi[keep]
-    st[(g * sp + m // 2)[t == 0]] = mid[t == 0]
+    if "mid" in ad:                      # an even M: thread 0's M/2
+        am = plane[ad["mid"]]
+        _, mid = _untangle(am, am, w[m // 2], w[m // 2], hs)
+        st[(g * sp + m // 2)[t == 0]] = mid[t == 0]
     lanes = m if packed else m + 1
     opitch = lanes if opitch is None else opitch
     src, dst = r2c_mix_copy(m, lanes, opitch, rows)
@@ -706,12 +706,16 @@ def _worst_ways(addr, live=None) -> int:
 def _r2c_ways(ad: dict, t) -> dict:
     """The wavefronts of an r2c block's natural-order ``put``, untangle
     reads ``lo``, ``hi`` (not thread 0's at k = 0) and ``mid`` (thread 0
-    of each row) and stage writes, from its addresses ``ad``."""
+    of each row, at an even M) and stage writes, from its addresses
+    ``ad``, each over the lanes that take the pair (``live``)."""
     first = ad["k"] == 0
-    ways = {name: _worst_ways(ad[name]) for name in ("put", "lo", "st_lo",
-                                                       "st_hi")}
-    ways["hi"] = _worst_ways(ad["hi"], ~first)
-    ways["mid"] = _worst_ways(ad["mid"][:, None], (t == 0)[:, None])
+    live = ad.get("live", torch.ones_like(first))
+    ways = {"put": _worst_ways(ad["put"])}
+    for name in ("lo", "st_lo", "st_hi"):
+        ways[name] = _worst_ways(ad[name], live)
+    ways["hi"] = _worst_ways(ad["hi"], ~first & live)
+    if "mid" in ad:
+        ways["mid"] = _worst_ways(ad["mid"][:, None], (t == 0)[:, None])
     return ways
 
 
@@ -1008,21 +1012,29 @@ def r2c_smooth_addrs(m: int) -> dict:
     smooth M after its core, each (NT, K) over the block's threads (row g
     at g PITCH in the exchange plane, no pad; at g ``stage_pitch`` in the
     stage): ``put`` the natural-order write of element t + r P (r < V0);
-    the untangle's reads of the pairs (k, M - k), k = t + i P (i < V0 / 2,
-    ``k``): ``lo`` V[k], ``hi`` V[M - k] (the k = 0 entry unread: thread 0
-    of a row takes the packed lane from V[0] alone); ``mid`` (NT,) thread
-    0's V[M/2]; the stage writes ``st_lo`` of X[k] and ``st_hi`` of
-    X[M - k]."""
+    the untangle's reads of the pairs (k, M - k), k = t + i P (i <
+    ceil(V0 / 2), ``k``; ``live`` where the thread takes the pair: every
+    i < V0 / 2, and at an odd M, whose V0 is odd, the last i where
+    k <= (M - 1) / 2): ``lo`` V[k], ``hi`` V[M - k] (the k = 0 entry
+    unread: thread 0 of a row takes the packed lane from V[0] alone);
+    ``mid`` (NT,) thread 0's V[M/2] at an even M (absent at an odd M: no
+    lane pairs with itself); the stage writes ``st_lo`` of X[k] and
+    ``st_hi`` of X[M - k]."""
     p, v0 = smooth_geometry(m)["P"], fused_fft._smooth_values(m)
     g, _ = _smooth_threads(m)
     t, addr = smooth_addr(m, "rows")
     put = torch.stack([addr(t + r * p) for r in range(v0)], 1)
-    k = t[:, None] + p * torch.arange(v0 // 2)[None, :]
-    lo = torch.stack([addr(k[:, i]) for i in range(v0 // 2)], 1)
-    hi = torch.stack([addr((m - k[:, i]) % m) for i in range(v0 // 2)], 1)
+    ni = (v0 + 1) // 2
+    k = t[:, None] + p * torch.arange(ni)[None, :]
+    live = (torch.arange(ni)[None, :] < v0 // 2) | (2 * k < m)
+    lo = torch.stack([addr(k[:, i]) for i in range(ni)], 1)
+    hi = torch.stack([addr((m - k[:, i]) % m) for i in range(ni)], 1)
     s = stage_pitch(m)
-    return {"put": put, "k": k, "lo": lo, "hi": hi, "mid": addr(m // 2),
-            "st_lo": g[:, None] * s + k, "st_hi": g[:, None] * s + (m - k)}
+    ad = {"put": put, "k": k, "live": live, "lo": lo, "hi": hi,
+          "st_lo": g[:, None] * s + k, "st_hi": g[:, None] * s + (m - k)}
+    if m % 2 == 0:
+        ad["mid"] = addr(m // 2)
+    return ad
 
 
 def r2c_smooth_ways(m: int) -> dict:
@@ -1077,8 +1089,9 @@ def rfft_rows_smooth_block(x, tab, w, scale: float = 1.0,
                            packed: bool = False, rows: int | None = None,
                            opitch: int | None = None):
     """One block of ``regs::rows_r2c_smooth`` as it runs, at a smooth M of
-    either family: ``x`` the block's ROWS real rows (ROWS, 2M) f32 (rows
-    past the batch zero), thread (g, t) = (tid // P, tid % P) of row g.
+    any of the three families: ``x`` the block's ROWS real rows (ROWS, 2M)
+    f32 (rows past the batch zero), thread (g, t) = (tid // P, tid % P) of
+    row g.
     Its core (:func:`_smooth_core`) on v[j] = x[2j] + i x[2j+1], read
     from device memory, or, where a row takes fewer than 6 threads
     (``SmoothRowGeo::STAGE``), the block's first ``rows`` rows copied
@@ -1115,15 +1128,17 @@ def c2r_smooth_loads(m: int) -> tuple:
     at a smooth M where a row takes 6 threads or more, each (NT, V0) over
     the block's threads in the order of their loads: element e of the
     thread's row (t + q P + j M/R, :func:`_smooth_loads`) and its
-    re-tangle partner e ? M - e : 0."""
+    re-tangle partner e ? M - e : 0; where the first pass is masked (60,
+    2025) the masked butterfly loads nothing, and its lanes are clamped
+    into the row (:func:`_smooth_first_loads`)."""
     _, t = _smooth_threads(m)
-    e = _smooth_loads(m, t)
+    e, _ = _smooth_first_loads(m, t)
     return e, torch.where(e == 0, 0, m - e)
 
 
 def rows_c2r_smooth_block(xr, xi, tab, ab, rows: int | None = None):
     """One block of ``regs::rows_c2r_smooth`` as it runs, at a smooth M of
-    either family: ``(xr, xi)`` the block's ROWS packed planar rows
+    any of the three families: ``(xr, xi)`` the block's ROWS packed planar rows
     (ROWS, M) (rows past the batch zero), its first ``rows`` rows (default
     all) valid. Where a row takes 6 threads or more each thread
     re-tangles element e of its row as it loads it, from the lanes
@@ -1229,8 +1244,8 @@ def rfft_rows(x, tab, w, scale: float = 1.0, packed: bool = False,
     mixed M block by block (:func:`rfft_rows_mix_block`), at a smooth one
     likewise (:func:`rfft_rows_smooth_block`)."""
     m = x.shape[-1] // 2
-    if m in fused_fft._MIX_ROW_LENGTHS or m in fused_fft._SMOOTH_ROWS:
-        blk = (rfft_rows_smooth_block if m in fused_fft._SMOOTH_ROWS
+    if m in fused_fft._MIX_ROW_LENGTHS or m in fused_fft._SMOOTH_CORE:
+        blk = (rfft_rows_smooth_block if m in fused_fft._SMOOTH_CORE
                else rfft_rows_mix_block)
         return _by_blocks(m, x.shape[:-1], (x.reshape(-1, 2 * m),),
                           lambda c, k: blk(c[0], tab, w, scale, packed, k,
@@ -1581,7 +1596,7 @@ def rows_c2r(xr, xi, tab, ab):
     (:func:`rows_c2r_mix_block`), at a smooth one likewise
     (:func:`rows_c2r_smooth_block`)."""
     m = xr.shape[-1]
-    if m in fused_fft._SMOOTH_ROWS:
+    if m in fused_fft._SMOOTH_CORE:
         return _by_blocks(m, xr.shape[:-1],
                           (xr.reshape(-1, m), xi.reshape(-1, m)),
                           lambda c, k: rows_c2r_smooth_block(

@@ -2032,3 +2032,60 @@ def test_cuda_real_plan_smooth_more_rows(cuda_dev, shape):
         "rfft_last", reg=True)
     ref = torch.fft.rfftn(x.double(), dim=(-3, -2, -1))
     assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
+# ---- the real rows at the third family's M (real_rows_smooth_odd3.cu, _5.cu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m", SMOOTH_ODD_ROWS)
+def test_cuda_rfft_last_smooth_odd_rows(cuda_dev, monkeypatch, m, packed,
+                                        rows, dense):
+    # the r2c rows at every odd and twice-odd M (rows_r2c_smooth; an odd
+    # M's last pairs on the masked step, 18-150 staged), scaled, both
+    # layouts, and the dense core on the same M
+    if dense:
+        monkeypatch.setattr(ff, "_reg_real_rows", lambda n: False)
+    _card_check(ff.rfft_last_planar,
+                lambda f, x: f(x[0], packed=packed, scale=0.25),
+                (rows, 2 * m), cuda_dev)
+    assert ff.rfft_last_planar.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
+@pytest.mark.parametrize("m", SMOOTH_ODD_ROWS)
+def test_cuda_icrfft_last_smooth_odd_rows(cuda_dev, monkeypatch, m, rows,
+                                          dense):
+    # the c2r rows at every odd and twice-odd M (rows_c2r_smooth; 18-150
+    # re-tangled as they are staged), scaled, and the dense core on the
+    # same M
+    if dense:
+        monkeypatch.setattr(ff, "_reg_real_rows", lambda n: False)
+    _card_check(ff.icrfft_last_planar, lambda f, x: f(*x, scale=0.5 / m),
+                (rows, m), cuda_dev)
+    assert ff.icrfft_last_planar.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8, 100), (16, 32, 250),
+                                   (8, 8, 750), (100, 100, 100)])
+def test_cuda_real_plan_smooth_odd_rows(cuda_dev, shape):
+    # real plans off the packed gate at a third-family M (50, 125, 375):
+    # the local route's rfft_last on the register core's r2c rows, against
+    # complex128 torch.fft.rfftn
+    x = _pair(shape, cuda_dev, seed=sum(shape) + 26)[0]
+    p = ot.plan(shape, "float32", real=True, planar=True, use_cache=False,
+                device=cuda_dev)
+    assert p.route == "local"
+    ff.reset_counts()
+    yr, yi = p(x)
+    torch.cuda.synchronize()
+    assert ff.kernel_launches("rfft_last") == 1 == ff.kernel_launches(
+        "rfft_last", reg=True)
+    ref = torch.fft.rfftn(x.double(), dim=(-3, -2, -1))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6

@@ -310,16 +310,17 @@ def test_fft_slab_routes_the_mixed_slabs(monkeypatch, ny, nz, reg, cluster):
 
 def test_kernels_without_mixed_rows_stay_dense(monkeypatch):
     """Kernels with no mixed instance keep the dense core: the r2c and c2r
-    rows at M = 90 (45 2; the mixed real rows take 3 2^k and 5 2^k, the
-    smooth ones every other odd part beside 2^k, k >= 2), the
+    rows at M = 112 (7 16; the mixed real rows take 3 2^k and 5 2^k, the
+    smooth ones every other 5-smooth length, the odd and twice-odd ones
+    too), the
     r2c and c2r slabs at (320, 72) (at (320, 160) both halves have mixed
     instances, and they take the register core) and step 3 on 3 * 2^21's
     3072 side (``_reg_core``, the four-step pair's: the transposing store
     has no instance at P = 256), step 1 at 1024 the register one."""
     calls = _launches(monkeypatch)
-    ff.rfft_last_planar.impl("kernel", torch.zeros((3, 180)))
-    ff.icrfft_last_planar.impl("kernel", torch.zeros((3, 90)),
-                               torch.zeros((3, 90)))
+    ff.rfft_last_planar.impl("kernel", torch.zeros((3, 224)))
+    ff.icrfft_last_planar.impl("kernel", torch.zeros((3, 112)),
+                               torch.zeros((3, 112)))
     ff.rfft_slab_yz.impl("kernel", torch.zeros((2, 320, 144)))
     ff.irfft_slab_yz.impl("kernel", torch.zeros((2, 320, 80)),
                           torch.zeros((2, 320, 80)), 144)

@@ -330,9 +330,10 @@ def test_fft_slab_routes_the_smooth_slabs(monkeypatch, ny, nz, reg):
 
 def test_other_routes_keep_their_cores(monkeypatch):
     """The real slabs at (Y = 360, M = 128) and (144, 72), the real rows
-    at M = 90 (45 2: no row core's length; at a smooth M they take the
-    smooth real rows, ``test_torch_regsmoothreal.py``,
-    ``test_torch_regsmoothmorereal.py``), the four-step pair
+    at M = 112 (7 16: no row core's length; at a smooth M of any family
+    they take the smooth real rows, ``test_torch_regsmoothreal.py``,
+    ``test_torch_regsmoothmorereal.py``,
+    ``test_torch_regsmoothoddreal.py``), the four-step pair
     at a smooth side, and the cube at a smooth side keep the dense core."""
     calls = _launches(monkeypatch)
     assert ff.can_use_rfft3d(360, 360, 256)
@@ -340,9 +341,9 @@ def test_other_routes_keep_their_cores(monkeypatch):
     ff.irfft_slab_yz.impl("kernel", torch.zeros((2, 360, 136)),
                           torch.zeros((2, 360, 136)), 256)
     ff.rfft_slab_yz.impl("kernel", torch.zeros((2, 144, 144)))
-    ff.rfft_last_planar.impl("kernel", torch.zeros((3, 180)))
-    ff.icrfft_last_planar.impl("kernel", torch.zeros((3, 90)),
-                               torch.zeros((3, 90)))
+    ff.rfft_last_planar.impl("kernel", torch.zeros((3, 224)))
+    ff.icrfft_last_planar.impl("kernel", torch.zeros((3, 112)),
+                               torch.zeros((3, 112)))
     z = torch.zeros((1, 1440, 2048))
     fs._step1_twiddle.impl("kernel", z, z, 1440, 2048, None, False)
     z = torch.zeros((1, 2048, 1440))

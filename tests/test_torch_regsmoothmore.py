@@ -102,10 +102,12 @@ def test_other_gates_keep_the_parents_values():
     at every length 8-8192 (the slabs and the cube on the diagonal and
     against a fixed second length) equal the definitions before the second
     family: c2c rows and columns, and the real rows at its half lengths
-    (``test_torch_regsmoothmorereal.py``), nothing else."""
+    (``test_torch_regsmoothmorereal.py``) and at the third family's
+    (``test_torch_regsmoothoddreal.py``), nothing else."""
     for n in range(8, 8193):
         assert ff._reg_real_rows(n) == (_parent_real_rows(n)
-                                        or n in ff._SMOOTH_MORE_LENGTHS), n
+                                        or n in ff._SMOOTH_MORE_LENGTHS
+                                        or n in ff._SMOOTH_ODD_LENGTHS), n
         assert ff._reg_core(n) == _parent_axis_pow2_mix(n), n
         for ny, m in ((n, n), (n, 128), (n, 100), (256, n), (360, n)):
             assert ff._reg_rslab(ny, m) == (
@@ -460,19 +462,21 @@ def test_fft_slab_routes_the_smooth_more_slabs(monkeypatch, ny, nz, reg):
 
 @pytest.mark.parametrize("m", [90, 250, 270, 1350])
 def test_real_rows_stay_dense(monkeypatch, m):
-    """The r2c and c2r rows at the twice-odd 5-smooth half lengths, which
-    no smooth schedule takes (k < 2), keep the dense core; the second
-    family's half lengths have their own instances
-    (``test_torch_regsmoothmorereal.py``)."""
+    """The real slabs' rows at the twice-odd 5-smooth half lengths keep the
+    dense core (``_reg_rslab`` keeps its sets): the r2c and c2r slabs
+    (``rfft_slab_yz``, ``irfft_slab_yz``) at (Y, M) = (128, m) launch
+    reg = 0. ``rfft_last_planar`` and ``icrfft_last_planar`` take these M
+    on the third family's real rows (``test_torch_regsmoothoddreal.py``)."""
     calls = _launches(monkeypatch)
     ff.reset_counts()
-    ff.rfft_last_planar.impl("kernel", torch.zeros((3, 2 * m)))
-    ff.icrfft_last_planar.impl("kernel", torch.zeros((3, m)),
-                               torch.zeros((3, m)))
-    assert [e for e, _ in calls] == ["offt_rfft_last", "offt_icrfft_last"]
-    assert [args[-1] for _, args in calls] == [0, 0]
-    assert ff.rfft_last_planar.reg_launches == 0
-    assert ff.icrfft_last_planar.reg_launches == 0
+    ff.rfft_slab_yz.impl("kernel", torch.zeros((3, 128, 2 * m)))
+    ff.irfft_slab_yz.impl("kernel", torch.zeros((3, 128, m + 8)),
+                          torch.zeros((3, 128, m + 8)), 2 * m)
+    assert [e for e, _ in calls] == ["offt_rfft_slab", "offt_irfft_slab"]
+    assert calls[0][1][-3] == 0 and calls[1][1][-2] == 0
+    assert not ff._reg_rslab(128, m) and ff._reg_real_rows(m)
+    assert ff.rfft_slab_yz.reg_launches == 0
+    assert ff.irfft_slab_yz.reg_launches == 0
 
 
 def test_c2c_plan_routes_and_matches_the_reference(monkeypatch):

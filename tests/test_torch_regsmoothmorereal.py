@@ -87,7 +87,8 @@ def mix(n):
 
 def odd_twice(n):
     """The odd and twice-odd 5-smooth R 2^k, k = 0, 1, R > 1, in [16,
-    4096]: the c2c rows' third family (not the real rows')."""
+    4096]: the c2c rows' third family, and the real rows' since it has
+    instances of its own (``test_torch_regsmoothoddreal.py``)."""
     return (16 <= n <= 4096 and n % 4 and smooth5(n) and odd_part(n) > 1)
 
 
@@ -113,18 +114,18 @@ def test_the_second_family_of_half_lengths():
 
 
 def test_real_rows_gate_over_every_length():
-    """``_reg_real_rows`` at every M in 8-8192: the parent's gate (powers
-    of two, the mixed rows, the first smooth family) plus the second
-    family; so the real rows take every length the c2c rows take but the
-    c2c rows' third family (the odd and twice-odd lengths), whose real
-    rows stay dense."""
+    """``_reg_real_rows`` at every M in 8-8192: the powers of two, the
+    mixed rows, the first smooth family, the second family and the third
+    family's odd and twice-odd M (``test_torch_regsmoothoddreal.py``); so
+    the real rows take every length the c2c rows take."""
     for m in range(8, 8193):
         parent = (pow2(m) or m in ff._MIX_ROW_LENGTHS
                   or m in ff._SMOOTH_LENGTHS)
-        assert ff._reg_real_rows(m) == (parent or m in ROWS), m
-        assert ff._reg_real_rows(m) == (pow2(m) or smooth_rows(m)), m
-        assert ff._reg_real_rows(m) == (ff._reg_rows(m)
-                                        and not odd_twice(m)), m
+        assert ff._reg_real_rows(m) == (parent or m in ROWS
+                                        or odd_twice(m)), m
+        assert ff._reg_real_rows(m) == (pow2(m) or smooth_rows(m)
+                                        or odd_twice(m)), m
+        assert ff._reg_real_rows(m) == ff._reg_rows(m), m
 
 
 def test_other_gates_unchanged_over_every_length():
@@ -192,7 +193,9 @@ def test_the_choice_of_stage_pitch():
         finally:
             rc.stage_pitch = keep
 
-    assert rc.SMOOTH_STAGE_PITCH == {12: 13, 20: 21}
+    ones = [m for m in ff._SMOOTH_ROWS if rc.smooth_geometry(m)["P"] == 1]
+    assert sorted(ones) == [12, 20]
+    assert all(rc.stage_pitch(m) == m + 1 for m in ones)
     assert max(ways_at(12, 1).values()) == 3
     assert max(ways_at(12, 13).values()) == 2
     assert ways_at(20, 1)["copy packed"] == 2

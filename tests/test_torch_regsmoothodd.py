@@ -75,7 +75,9 @@ def smooth35(n):
 def test_admitted_lengths():
     """The 42 odd and twice-odd 5-smooth lengths of [16, 4096] as rows, the
     37 of them with P <= 128 and planes that fit a block as columns; the
-    slab follows both; none is in another family's set."""
+    slab follows both; the real rows take all 42 as half lengths
+    (``test_torch_regsmoothoddreal.py``); none is in another family's
+    set."""
     want = {n for n in range(16, 4097) if n % 4 and odd_part(n) > 1
             and smooth35(odd_part(n))}
     assert ff._SMOOTH_ODD_LENGTHS == want and len(want) == 42
@@ -86,7 +88,7 @@ def test_admitted_lengths():
         assert ff._reg_axis(n) == (n in COLS)
         assert ff._reg_slab(n, n) == (n in COLS)
         assert ff._reg_values(n) == ff._smooth_values(n) == V0[n]
-        assert not ff._reg_real_rows(n)
+        assert ff._reg_real_rows(n)
     for ny, nz in ((250, 250), (450, 750), (135, 270), (750, 4050),
                    (18, 90), (675, 2187)):
         assert ff._reg_slab(ny, nz)
@@ -112,15 +114,17 @@ def _parent_cube_cols(n):
 
 def test_every_gate_at_every_length():
     """At every n in 8-8192: ``_reg_rows`` and ``_reg_axis`` are the
-    parent's plus the new sets; ``_reg_real_rows``, ``_reg_rslab``,
-    ``_reg_core`` and ``_reg_cube`` (on the diagonal and against fixed
-    second lengths) keep the parent's values."""
+    parent's plus the new sets; ``_reg_real_rows`` the parent's plus the
+    same 42 as half lengths (``test_torch_regsmoothoddreal.py``);
+    ``_reg_rslab``, ``_reg_core`` and ``_reg_cube`` (on the diagonal and
+    against fixed second lengths) keep the parent's values."""
     for n in range(8, 8193):
         assert ff._reg_rows(n) == (_parent_rows(n)
                                    or n in ff._SMOOTH_ODD_LENGTHS), n
         assert ff._reg_axis(n) == (_parent_axis(n)
                                    or n in ff._SMOOTH_ODD_COL_LENGTHS), n
-        assert ff._reg_real_rows(n) == _parent_real_rows(n), n
+        assert ff._reg_real_rows(n) == (_parent_real_rows(n)
+                                        or n in ff._SMOOTH_ODD_LENGTHS), n
         assert ff._reg_core(n) == (ff._pow2(n) or n in ff._MIX_LENGTHS), n
         for ny, m in ((n, n), (n, 250), (250, n)):
             assert ff._reg_rslab(ny, m) == (

@@ -255,7 +255,8 @@ def test_kernel_sources_are_listed():
                      "fft_last.cu", "fft_last_mix.cu", "real_rows_mix.cu",
                      "real_slab_mix.cu", "real_rows_smooth.cu",
                      "real_rows_smooth.cuh", "real_rows_smooth3.cu",
-                     "real_rows_smooth5.cu",
+                     "real_rows_smooth5.cu", "real_rows_smooth_odd3.cu",
+                     "real_rows_smooth_odd5.cu",
                      "fft_axis.cu", "fft_axis_mix.cu", "fft_slab.cu",
                      "rfft_slab.cu",
                      "irfft_slab.cu", "assemble_mp1.cu", "rfft_last.cu",

@@ -147,7 +147,7 @@ def test_block_batch_beside_split_1d(n, searched):
 @pytest.mark.parametrize("shape,real,inverse,want", [
     ((192, 192, 192), True, False, set()),
     ((192, 192, 192), True, True, set()),
-    ((160, 160, 500), True, False, {"radix_z"}),
+    ((160, 160, 224), True, False, {"radix_z"}),
     ((8, 8, 8), False, False, {"radix_z", "radix_y", "radix_x",
                                "block_batch"}),
     ((256, 256, 256), False, False, set()),
@@ -165,10 +165,11 @@ def test_block_batch_beside_split_1d(n, searched):
 def test_kernel_knobs(shape, real, inverse, want):
     """What the route of a float32 plan reads: 192^3's real route runs
     rfft_last at M = 96 on the mixed register rows (its c2r, irfft_1d
-    around a c2c of 96 on them too), so it reads none; (160, 160, 500)'s
-    runs rfft_last at M = 250 (125 2, no row core's length) on the dense
+    around a c2c of 96 on them too), so it reads none; (160, 160, 224)'s
+    runs rfft_last at M = 112 (7 16, no row core's length) on the dense
     core, its axes of 160 on the mixed register columns, so it reads
-    radix_z alone; lengths under 16 run dense; the rows of 40 and the x
+    radix_z alone (at (160, 160, 500), M = 250, the third smooth family's
+    real rows take it: ``test_torch_regsmoothoddreal.py``); lengths under 16 run dense; the rows of 40 and the x
     pass of 24 (below the mixed lengths) run the second smooth family's
     register core, so (24, 48, 40) reads none, and so do the rows of 90
     and the x pass of 18 (twice-odd lengths, the third smooth family), so
