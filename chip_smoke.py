@@ -91,6 +91,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``fft_last`` at every row length, ``fft_sublane`` at every column
    length, the pitched x passes at 250 and 675, the c2c slab at (4, 250,
    250), (2, 450, 750) inverse with zpad 8, scaled, and (3, 135, 270) in
+   place; and its fourth family, the lengths R 2^k, k >= 2, with a factor
+   7 (``smooth_checks`` at ``_SMOOTH7_LENGTHS`` and
+   ``_SMOOTH7_COL_LENGTHS``, on a generator of its own, seed 27):
+   ``fft_last`` at every row length, ``fft_sublane`` at every column
+   length, the pitched x passes at 224 and 1008, the c2c slab at (4, 224,
+   224), (2, 784, 896) inverse with zpad 8, scaled, and (3, 336, 168) in
    place;
 3. the paths through ``offt_tpu_torch.plan`` on the card, each
    result against complex128 ``torch.fft`` (||y - ref|| / ||ref|| <=
@@ -111,6 +117,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       (``SMOOTH_ODD_C2C``, the same way): 250^3 forward and inverse,
       270^3 forward, a 450^3 ortho round trip, 750^3 forward (3.4 GB a
       planar pair), 125^3 and 675^3 forward and 64 x 750^2 (``fft2``);
+      and at the fourth family's, the sides with a factor 7
+      (``SMOOTH7_C2C``, the same way): 224^3 forward and inverse, a 448^3
+      ortho round trip, 336^3, 784^3 and 896^3 forward, 1008^3 inverse
+      (8.2 GB a planar pair) and 256 frames of 224 x 224 (``fft2``);
    b. the packed r2c/c2r path (``real=True``, numpy and packed layouts,
       256^3, 512^3 and 768^3, whose slabs have a mixed (Y, M) = (768,
       384); ``rfftn`` / ``irfftn``);
@@ -186,9 +196,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       by CUDA events, the plan cache in a temporary directory: a brute
       force over every point of (1, 1, 3 * 2^18) c2c's space (split_1d
       alone: its default split runs both kernels on the register core),
-      Nelder-Mead over (112, 112, 224) r2c's (the radices and
-      block_batch of the dense rfft_last at M = 112 and of the dense axes
-      of 112; 12 trials; (112, 112, 180) until the third family's real
+      Nelder-Mead over (176, 176, 352) r2c's (the radices and
+      block_batch of the dense rfft_last at M = 176 and of the dense axes
+      of 176; 12 trials; (112, 112, 224) until the fourth family's columns
+      took its axes of 112, (112, 112, 180) until the third family's real
       rows took M = 90, (112, 112, 360) until the second's took M = 180,
       (112, 112, 144) until the first's took M = 72, 144^3 until its axes
       of 144 took the smooth columns), and
@@ -244,7 +255,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of 3b (the c2r's ``fft_x_to_padded`` among them) and every axis pass
    of 3d (192^3's and 320^3's among them), ``irfft_slab`` on 3b's 256^3,
    512^3 and 768^3 c2r, every ``fft_last``, ``fft_slab`` and ``fft_axis``
-   launch of 3a's smooth windows (the second family's among them),
+   launch of 3a's smooth windows (the second, third and fourth
+   families' among them),
    every ``rfft_last`` and ``icrfft_last``
    launch of 3d's and 3e's smooth windows, ``icrfft_last`` on every
    packed c2r of 3e (192^3's among them), and ``step1_twiddle``
@@ -305,9 +317,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``icrfft_last`` at every mixed and smooth M of theirs (the three smooth
    families), beside
    ``torch.fft.rfft`` and ``irfft``, with their bounds; ``fft_last`` at
-   every length of the smooth core's second family and the strided-axis
-   kernel at every column length of it, ``fft_x_from_padded`` over
-   (N, Y, 520), each beside ``torch.fft.fft`` with its bound; ``fft_last``,
+   every length of the smooth core's second, third and fourth families and
+   the strided-axis kernel at every column length of each,
+   ``fft_x_from_padded`` over (N, Y, 520), each beside ``torch.fft.fft``
+   with its bound; ``fft_last``,
    ``fft_slab`` and ``fft_axis`` at 1000 with their plain versions too),
    both slab kernels so
    at 512^3,
@@ -525,6 +538,10 @@ SMOOTH_MORE_SHAPES = {"smooth_1000", "smooth_216"}
 # 250) and 450^3's packed c2r z stage (M = 225, odd), drawn from the third
 # family's generator
 SMOOTH_ODD_SHAPES = {"smooth_750", "smooth_500", "smooth_450"}
+# and the fourth (the lengths with a factor 7) at 1008 (16 x-rows of the
+# 1008^3 slab's z rows, 16 x-rows of the slab, an x pass of 1008 over (64,
+# 1008) lanes) and the whole 224^3 slab, drawn from its generator
+SMOOTH7_SHAPES = {"smooth_1008", "smooth_224"}
 MIXED_SHAPES = {
     "step1_twiddle": {
         "mixed": ((1, 1536, 2048),
@@ -537,17 +554,22 @@ MIXED_SHAPES = {
                  "smooth": ((129600, 360), lambda f, x: f(*x)),
                  "smooth_960": ((9600, 960), lambda f, x: f(*x)),
                  "smooth_1000": ((16000, 1000), lambda f, x: f(*x)),
-                 "smooth_750": ((12000, 750), lambda f, x: f(*x))},
+                 "smooth_750": ((12000, 750), lambda f, x: f(*x)),
+                 "smooth_1008": ((16128, 1008), lambda f, x: f(*x))},
     "fft_slab": {"mixed": ((320, 320, 320), lambda f, x: f(*x)),
                  "smooth": ((360, 360, 360), lambda f, x: f(*x)),
                  "smooth_960": ((16, 960, 960), lambda f, x: f(*x)),
                  "smooth_1000": ((16, 1000, 1000), lambda f, x: f(*x)),
-                 "smooth_750": ((16, 750, 750), lambda f, x: f(*x))},
+                 "smooth_750": ((16, 750, 750), lambda f, x: f(*x)),
+                 "smooth_1008": ((16, 1008, 1008), lambda f, x: f(*x)),
+                 "smooth_224": ((224, 224, 224), lambda f, x: f(*x))},
     "fft_axis": {"smooth": ((360, 360, 368), lambda f, x: f(*x, 360)),
                  "smooth_960": ((960, 64, 968), lambda f, x: f(*x, 960)),
                  "smooth_1000": ((1000, 64, 1008),
                                  lambda f, x: f(*x, 1000)),
-                 "smooth_750": ((750, 64, 758), lambda f, x: f(*x, 750))},
+                 "smooth_750": ((750, 64, 758), lambda f, x: f(*x, 750)),
+                 "smooth_1008": ((1008, 64, 1016),
+                                 lambda f, x: f(*x, 1008))},
     "rfft_last": {"mixed": ((36864, 192), lambda f, x: f(x[0])),
                   "mixed_packed": ((36864, 192),
                                    lambda f, x: f(x[0], packed=True)),
@@ -584,8 +606,9 @@ def _dense_core(ff, names=("_reg_core", "_reg_real_rows", "_reg_rows",
                            "_reg_cube")):
     """Every length routed to the dense core (the predicates
     ``fused_fft._reg_core`` (the four-step pair), ``_reg_real_rows`` (the
-    r2c and c2r rows), ``_reg_rows`` (``fft_last``; both smooth families
-    among its lengths), ``_reg_slab``, ``_reg_rslab``, ``_reg_axis`` and
+    r2c and c2r rows), ``_reg_rows`` (``fft_last``; every smooth family
+    among its lengths, the fourth's with a factor 7 too: no predicate of
+    its own), ``_reg_slab``, ``_reg_rslab``, ``_reg_axis`` and
     ``_reg_cube`` patched off), or the
     kernels of ``names`` alone: the earlier kernels on the same data, for
     comparison."""
@@ -622,6 +645,12 @@ SMOOTH_ODD_X = (250, 675)
 SMOOTH_ODD_SLABS = (((4, 250, 250), False, 0, 1.0, False),
                     ((2, 450, 750), True, 8, 1 / 337500, False),
                     ((3, 135, 270), False, 0, 0.5, True))
+# the fourth family's (the lengths with a factor 7; on a generator of its
+# own, seed 27)
+SMOOTH7_X = (224, 1008)
+SMOOTH7_SLABS = (((4, 224, 224), False, 0, 1.0, False),
+                 ((2, 784, 896), True, 8, 1 / 702464, False),
+                 ((3, 336, 168), False, 0, 0.5, True))
 
 
 def smooth_checks(ff, gen, tag, device="cuda", tol=TOL_KERNEL, rows=None,
@@ -734,6 +763,22 @@ SMOOTH_ODD_C2C = (
     ("125^3 fwd", (125, 125, 125), 0, False, None),
     ("675^3 fwd", (675, 675, 675), 0, False, None),
     ("fft2d 64x750^2", (64, 1, 750, 750), 1, False, None),
+)
+# and at the fourth family's (the sides with a factor 7): 224^3 (R = 7:
+# V0 = 28, P = 8; the slab in two grids, the x pass at 224), 448^3 (P =
+# 16), 336^3 (R = 21: R0 = 3, V0 = 12, P = 28, a masked radix-7 pass),
+# 784^3 (R = 49: a radix-7 pass, then the 7 x 4 one, P = 28; 3.9 GB a
+# pair), 896^3 (P = 32; 5.75 GB), 1008^3 (R = 63: V0 = 12, P = 84; the largest 7-smooth side
+# under the slab gate, 8.2 GB a pair) and 256 frames of 224 x 224
+SMOOTH7_C2C = (
+    ("224^3 fwd", (224, 224, 224), 0, False, None),
+    ("224^3 inv", (224, 224, 224), 0, True, None),
+    ("448^3 ortho round trip", (448, 448, 448), 0, "rt", "ortho"),
+    ("336^3 fwd", (336, 336, 336), 0, False, None),
+    ("784^3 fwd", (784, 784, 784), 0, False, None),
+    ("896^3 fwd", (896, 896, 896), 0, False, None),
+    ("1008^3 inv", (1008, 1008, 1008), 0, True, None),
+    ("fft2d 256x224^2", (256, 1, 224, 224), 1, False, None),
 )
 
 
@@ -1679,14 +1724,15 @@ TUNE_CASES = (
     # core, so block_batch is not searched)
     ("a", (1, 1, 3 * 2 ** 18), False, "brute", None, None,
      ("step1_twiddle", "step3_transposed")),
-    # a real route whose rfft_last runs the dense core (M = 112 = 7 16: no
-    # row core's length) and its axes (112: no register schedule) too, so
+    # a real route whose rfft_last runs the dense core (M = 176 = 11 16: no
+    # row core's length) and its axes (176: no register schedule) too, so
     # that radix_z, radix_y, radix_x and block_batch are searched
-    # ((112, 112, 180) until the third family's real rows took M = 90,
+    # ((112, 112, 224) until the fourth family's columns took its axes of
+    # 112, (112, 112, 180) until the third family's real rows took M = 90,
     # (112, 112, 360) until the second's took M = 180, (112, 112, 144)
     # until the first's took M = 72; 144^3 until the smooth columns took
     # its axes of 144)
-    ("b", (112, 112, 224), True, "nm", 12, None, ("rfft_last", "fft_axis")),
+    ("b", (176, 176, 352), True, "nm", 12, None, ("rfft_last", "fft_axis")),
     # every kernel on the register core: the card's space is empty, and
     # the default point is timed
     ("c", (256, 256, 256), False, "nm", None, None,
@@ -2752,6 +2798,17 @@ def main() -> int:
                                         dense=None).items():
         per_kernel[name]["max_abs_err"] = max(
             per_kernel[name]["max_abs_err"], err)
+    # the fourth family of the smooth rows and columns (the lengths with a
+    # factor 7: fft_last_smooth7*.cu, fft_axis_smooth7*.cu) at every
+    # length, and its paths (3a), on a generator of their own
+    sevgen = torch.Generator(device="cuda")
+    sevgen.manual_seed(27)
+    for name, err in smooth_checks(
+            ff, sevgen, tag, rows=ff._SMOOTH7_LENGTHS,
+            cols=ff._SMOOTH7_COL_LENGTHS, xs=SMOOTH7_X,
+            slabs=SMOOTH7_SLABS).items():
+        per_kernel[name]["max_abs_err"] = max(
+            per_kernel[name]["max_abs_err"], err)
 
     # ---- 3a. the c2c main path through plan() ----------------------------
     cases = [
@@ -2824,6 +2881,11 @@ def main() -> int:
     odd_runs, _ = smooth_phase(ot, ff, ogen, lambda fn: _window(ff, fn),
                                tag, time_cuda, cases=SMOOTH_ODD_C2C)
     smooth_runs.update(odd_runs)
+    # and at the fourth family's (224^3, 448^3, 336^3, 784^3, 896^3,
+    # 1008^3, 256 x 224^2), on its generator
+    seven_runs, _ = smooth_phase(ot, ff, sevgen, lambda fn: _window(ff, fn),
+                                 tag, time_cuda, cases=SMOOTH7_C2C)
+    smooth_runs.update(seven_runs)
 
     # ---- 3b. the r2c / c2r main path through plan(real=True) --------------
     real_cases = [
@@ -4048,10 +4110,12 @@ def main() -> int:
               f"{r_dense:.4f} ms, fft(dim=-1) {r_lib:.4f} ms "
               f"({r_reg / r_lib:.2f}x) {tag}", flush=True)
     # fft_last at every length of the smooth core's second family
-    # (``_SMOOTH_MORE_LENGTHS``) and third (the odd and twice-odd lengths,
-    # ``_SMOOTH_ODD_LENGTHS``), as many whole rows as 2^24 elements hold,
+    # (``_SMOOTH_MORE_LENGTHS``), third (the odd and twice-odd lengths,
+    # ``_SMOOTH_ODD_LENGTHS``) and fourth (the lengths with a factor 7,
+    # ``_SMOOTH7_LENGTHS``), as many whole rows as 2^24 elements hold,
     # and the strided-axis kernel at every column length of each
-    # (``_SMOOTH_MORE_COL_LENGTHS``, ``_SMOOTH_ODD_COL_LENGTHS``:
+    # (``_SMOOTH_MORE_COL_LENGTHS``, ``_SMOOTH_ODD_COL_LENGTHS``,
+    # ``_SMOOTH7_COL_LENGTHS``:
     # fft_x_from_padded over (N, Y, 520), 512 lanes of each row, about
     # 2^24 elements, drawn from the family's generator): each core, the
     # library call and the bound
@@ -4059,7 +4123,9 @@ def main() -> int:
             ("second", ff._SMOOTH_MORE_LENGTHS, ff._SMOOTH_MORE_COL_LENGTHS,
              mgen),
             ("third", ff._SMOOTH_ODD_LENGTHS, ff._SMOOTH_ODD_COL_LENGTHS,
-             ogen)):
+             ogen),
+            ("fourth", ff._SMOOTH7_LENGTHS, ff._SMOOTH7_COL_LENGTHS,
+             sevgen)):
         for n in sorted(rows_set):
             rows = (1 << 24) // n
             args = (xr[:rows * n].view(rows, n), xi[:rows * n].view(rows, n))
@@ -4177,7 +4243,8 @@ def main() -> int:
             # the kernel at a mixed length (MIXED_SHAPES; the second
             # smooth family's shapes drawn from its own generator)
             mg = (mgen if what in SMOOTH_MORE_SHAPES
-                  else ogen if what in SMOOTH_ODD_SHAPES else gen)
+                  else ogen if what in SMOOTH_ODD_SHAPES
+                  else sevgen if what in SMOOTH7_SHAPES else gen)
             xm = _pair(shp, mg)
             m_k = time_cuda(call_m, (fn, xm), ahead=True)["median_ms"]
             with _dense_core(ff):

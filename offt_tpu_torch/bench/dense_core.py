@@ -31,8 +31,9 @@ from offt_tpu_torch.kernels import fourstep as fs
 from offt_tpu_torch.kernels import fused_fft as ff
 
 # the register-core predicates of fused_fft (chip_smoke.py's _dense_core);
-# _reg_rows, _reg_axis and _reg_slab admit every smooth length of both
-# families (_SMOOTH_ROWS, _SMOOTH_COLS), so they send those dense too
+# _reg_rows, _reg_axis and _reg_slab admit every smooth length of the four
+# families (_SMOOTH_C2C, _SMOOTH_COLS: the lengths with a factor 7 among
+# them, no predicate of their own), so they send those dense too
 REG_PREDICATES = ("_reg_core", "_reg_real_rows", "_reg_rows", "_reg_axis",
                   "_reg_slab", "_reg_rslab", "_reg_cube")
 

@@ -43,7 +43,10 @@
 //   fft_axis_smooth5.cu), and the odd and twice-odd ones R 2^k, k = 0, 1,
 //   of at most 128 threads a line (18-3750, fused_fft.
 //   _SMOOTH_ODD_COL_LENGTHS: fft_axis_smooth_odd3.cu,
-//   fft_axis_smooth_odd5.cu);
+//   fft_axis_smooth_odd5.cu), and the 7-smooth ones R 2^k, k >= 2, with a
+//   factor 7, of at most 128 threads a line and planes that fit a block
+//   (28-3528, fused_fft._SMOOTH7_COL_LENGTHS: fft_axis_smooth7.cu,
+//   fft_axis_smooth7x3.cu, fft_axis_smooth7x5.cu);
 // - every other length runs the dense core of fft_core.cuh: a block owns
 //   an (N x T) tile of T consecutive lanes, read column-wise into shared
 //   memory; a ragged last tile is masked; the scale rides the table.
@@ -98,6 +101,25 @@ static cudaError_t axis_regs(const float* xr, const float* xi, float* yr,
   return cudaErrorInvalidValue;
 }
 
+cudaError_t axis_smooth_family(const float* xr, const float* xi, float* yr,
+                               float* yi, const float2* tab,
+                               const AxisGeom& g, int n, int inverse,
+                               float scale, int tile, cudaStream_t s) {
+  using namespace regs;
+  const int odd = odd_part(n);
+  auto source = smooth_length(n)        ? axis_smooth
+                : smooth_more_length(n) ? (odd % 3 == 0 && odd % 25
+                                               ? axis_smooth3
+                                               : axis_smooth5)
+                : smooth_odd_length(n)  ? (odd % 3 == 0 && odd % 25
+                                               ? axis_smooth_odd3
+                                               : axis_smooth_odd5)
+                : odd % 5 == 0          ? axis_smooth7x5
+                : odd % 3 == 0          ? axis_smooth7x3
+                                        : axis_smooth7;
+  return source(xr, xi, yr, yi, tab, g, n, inverse, scale, tile, s);
+}
+
 }  // namespace offt
 
 // reg != 0: the register core (n a power of two in [16, 4096], a mixed
@@ -119,15 +141,9 @@ extern "C" int offt_fft_axis(const void* xr, const void* xi, void* yr,
     const float* ai = (const float*)xi;
     const float2* tb = (const float2*)tab;
     cudaStream_t s = (cudaStream_t)stream;
-    if (regs::smooth_length(n))
-      return (int)axis_smooth(ar, ai, (float*)yr, (float*)yi, tb, g, n,
-                              inverse, scale, tile, s);
-    if (regs::smooth_more_length(n))
-      return (int)axis_smooth_more(ar, ai, (float*)yr, (float*)yi, tb, g, n,
-                                   inverse, scale, tile, s);
-    if (regs::smooth_odd_length(n))
-      return (int)axis_smooth_odd(ar, ai, (float*)yr, (float*)yi, tb, g, n,
-                                  inverse, scale, tile, s);
+    if (regs::smooth_family_length(n))
+      return (int)axis_smooth_family(ar, ai, (float*)yr, (float*)yi, tb, g, n,
+                                     inverse, scale, tile, s);
     if (n & (n - 1))
       return (int)axis_mix(ar, ai, (float*)yr, (float*)yi, tb, g, n, inverse,
                            scale, tile, s);

@@ -30,7 +30,11 @@
 //   core (fft_last_smooth3.cu, fft_last_smooth5.cu), and so do the odd
 //   and twice-odd ones R 2^k, k = 0, 1, in [16, 4096] (18-4050,
 //   fused_fft._SMOOTH_ODD_LENGTHS: V0 = 2^k d values a thread, the last
-//   pass of radix V0; fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu);
+//   pass of radix V0; fft_last_smooth_odd3.cu, fft_last_smooth_odd5.cu),
+//   and the 7-smooth R 2^k, k >= 2, with a factor 7 (28-4032,
+//   fused_fft._SMOOTH7_LENGTHS: V0 = 4 R0, R0 = 3, 5 or 7, a radix-7 pass
+//   a further factor 7; fft_last_smooth7.cu, fft_last_smooth7x3.cu,
+//   fft_last_smooth7x5.cu);
 // - every other length runs the dense core of fft_core.cuh: a block owns T
 //   whole rows, reads them row-major into a column-wise tile (pencil
 //   stride TP = T | 1, odd, so the transposing store does not hit one
@@ -64,6 +68,26 @@ fft_last_kernel(const float* xr, const float* xi, float* yr, float* yi,
   store_rows(yr + row0 * n, yi + row0 * n, n, c, T, TP, valid, re, im);
 }
 
+cudaError_t last_smooth_family(const float* xr, const float* xi, float* yr,
+                               float* yi, const float2* tab, long long rows,
+                               int n, long long ipitch, long long opitch,
+                               int inverse, float scale, cudaStream_t s) {
+  using namespace regs;
+  const int odd = odd_part(n);
+  auto source = smooth_length(n)        ? last_smooth
+                : smooth_more_length(n) ? (odd % 3 == 0 && odd % 25
+                                               ? last_smooth3
+                                               : last_smooth5)
+                : smooth_odd_length(n)  ? (odd % 3 == 0 && odd % 25
+                                               ? last_smooth_odd3
+                                               : last_smooth_odd5)
+                : odd % 5 == 0          ? last_smooth7x5
+                : odd % 3 == 0          ? last_smooth7x3
+                                        : last_smooth7;
+  return source(xr, xi, yr, yi, tab, rows, n, ipitch, opitch, inverse, scale,
+                s);
+}
+
 }  // namespace offt
 
 // reg != 0: the register core (n a power of two in [16, 4096], a mixed
@@ -81,15 +105,9 @@ extern "C" int offt_fft_last(const void* xr, const void* xi, void* yr,
     const float* ai = (const float*)xi;
     const float2* tb = (const float2*)tab;
     cudaStream_t s = (cudaStream_t)stream;
-    if (regs::smooth_length(n))
-      return (int)last_smooth(ar, ai, (float*)yr, (float*)yi, tb, rows, n, n,
-                              n, inverse, scale, s);
-    if (regs::smooth_more_length(n))
-      return (int)last_smooth_more(ar, ai, (float*)yr, (float*)yi, tb, rows,
-                                   n, n, n, inverse, scale, s);
-    if (regs::smooth_odd_length(n))
-      return (int)last_smooth_odd(ar, ai, (float*)yr, (float*)yi, tb, rows,
-                                  n, n, n, inverse, scale, s);
+    if (regs::smooth_family_length(n))
+      return (int)last_smooth_family(ar, ai, (float*)yr, (float*)yi, tb, rows,
+                                     n, n, n, inverse, scale, s);
     if (n & (n - 1))
       return (int)last_mix(ar, ai, (float*)yr, (float*)yi, tb, rows, n, n, n,
                            inverse, scale, s);

@@ -27,7 +27,9 @@
 //     Z, fft_last_mix.cu; rows_smooth at a smooth Z, fft_last_smooth.cu
 //     or, in the second family (1000^3's), fft_last_smooth3.cu and
 //     fft_last_smooth5.cu, in the third, the odd and twice-odd lengths
-//     (750^3's), fft_last_smooth_odd3.cu and fft_last_smooth_odd5.cu)
+//     (750^3's), fft_last_smooth_odd3.cu and fft_last_smooth_odd5.cu, in
+//     the fourth, the lengths with a factor 7 (224^3-1008^3's),
+//     fft_last_smooth7.cu, fft_last_smooth7x3.cu, fft_last_smooth7x5.cu)
 //     from the input (pitch in_pitch) to the output
 //     (pitch out_pitch), unscaled, then cols_c2c (cols_mix at a mixed Y,
 //     fft_axis_mix.cu, on the lane tile fft_axis routes; cols_smooth at a
@@ -241,15 +243,9 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
     // lines in place on the output, Z lanes per x-row
     const AxisGeom gy{rows, 1, nz, ny * op, op, 0, ny * op, op, 0};
     cudaError_t err;
-    if (smooth_length(nz)) {
-      err = last_smooth(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op, inverse,
-                        1.f, s);
-    } else if (smooth_more_length(nz)) {
-      err = last_smooth_more(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op,
-                             inverse, 1.f, s);
-    } else if (smooth_odd_length(nz)) {
-      err = last_smooth_odd(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op,
-                            inverse, 1.f, s);
+    if (smooth_family_length(nz)) {
+      err = last_smooth_family(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op,
+                               inverse, 1.f, s);
     } else if (nz & (nz - 1)) {
       err = last_mix(xr, xi, yr, yi, tabz, rows * ny, nz, ip, op, inverse,
                      1.f, s);
@@ -263,14 +259,9 @@ static cudaError_t slab_regs(const float* xr, const float* xi, float* yr,
       });
     }
     if (err != cudaSuccess) return err;
-    if (smooth_length(ny))
-      return axis_smooth(yr, yi, yr, yi, taby, gy, ny, inverse, scale, -1, s);
-    if (smooth_more_length(ny))
-      return axis_smooth_more(yr, yi, yr, yi, taby, gy, ny, inverse, scale,
-                              -1, s);
-    if (smooth_odd_length(ny))
-      return axis_smooth_odd(yr, yi, yr, yi, taby, gy, ny, inverse, scale,
-                             -1, s);
+    if (smooth_family_length(ny))
+      return axis_smooth_family(yr, yi, yr, yi, taby, gy, ny, inverse, scale,
+                                -1, s);
     if (ny & (ny - 1))
       return axis_mix(yr, yi, yr, yi, taby, gy, ny, inverse, scale, -1, s);
     return by_log(ny, [&](auto ly) {

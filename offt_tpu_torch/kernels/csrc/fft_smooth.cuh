@@ -1,7 +1,9 @@
 // fft_smooth.cuh: the register core at the 5-smooth lengths N = R 2^K,
 // R = 3^a 5^b > 1, K >= 2, N <= 4096, that no power-of-two or mixed core
-// takes. The first family, odd part R of 9, 15, 25 or 45 and K >= 3
-// (72-2304, 120-3840, 200-3200, 360-2880; smooth_length), runs as rows
+// takes (and the odd and twice-odd ones, and the lengths with a factor 7:
+// the third and fourth families below). The first family, odd part R of
+// 9, 15, 25 or 45 and K >= 3 (72-2304, 120-3840, 200-3200, 360-2880;
+// smooth_length), runs as rows
 // (rows_smooth: fft_last.cu through fft_last_smooth.cu, the z pass of
 // fft_slab.cu), in the column variant (cols_smooth: fft_axis.cu through
 // fft_axis_smooth.cu, the y pass of fft_slab.cu), and as the real rows of
@@ -19,7 +21,13 @@
 // smooth_odd_col (P <= 128 and planes within a block), as columns
 // (fft_axis_smooth_odd3.cu, fft_axis_smooth_odd5.cu), and as real rows at
 // those half lengths (real_rows_smooth_odd3.cu, real_rows_smooth_odd5.cu).
-// Every other length keeps
+// The fourth family, the 7-smooth lengths R 2^K, K >= 2, whose odd part R =
+// 3^a 5^b 7^c has a factor 7 (smooth7_length: 28-4032, 56 lengths), runs
+// as c2c rows (fft_last_smooth7.cu, fft_last_smooth7x3.cu,
+// fft_last_smooth7x5.cu by the odd part) and, where smooth7_col (P <= 128
+// and planes within a block), as columns (fft_axis_smooth7.cu,
+// fft_axis_smooth7x3.cu, fft_axis_smooth7x5.cu); its real rows keep the
+// dense core. Every other length keeps
 // its core: the powers of two and R0 2^k (R0 = 3, 5, 2^k >= 16) of
 // fft_regs.cuh, the dense core of fft_core.cuh; the real slabs, the
 // four-step pair and the cube keep theirs at these lengths too.
@@ -96,6 +104,21 @@
 //   threads (18-150) staged. A thread of V0 = 25 or 30 holds up to 30
 //   values (27 at 2025's masked radix-3 passes at V0 = 25): 128
 //   registers (smooth_regs).
+// - the fourth family keeps the first two families' schedule with R0 of 3,
+//   5 or 7 (smooth7_r0: the least by (P > 128, passes, masked butterfly
+//   slots, V0), as smooth_odd_v0; 7 at the powers of 7) and the odd
+//   passes R0's first, then the other primes' in ascending order (PA, PB
+//   of SmoothGeo; at the 5-smooth lengths PA = 8 - R0 and PB = 7, no
+//   pass): a radix-7 pass on dft7 (constant roots), masked at V0 = 12 (two
+//   butterflies a thread, 14 values) and 20 (three, 21); at V0 = 28 the
+//   last pass on the Good-Thomas 7 x 4 network (dft28) and a radix-3 or
+//   radix-5 pass masked (ten or six butterflies, 30 values, 128
+//   registers). P = N / V0 takes every kind: odd (3-125), a multiple of 32
+//   (896, 1792, 3584), 1-4 (28-112, staged). Rows keep the pitch of P mod
+//   32 but at 28 (n | 1) and P = 7 and 21 (84, 140, 196, 420), where
+//   another residue costs the exchanges less (0.52-0.57 of it at P = 7;
+//   regcore SMOOTH7_ROW_PITCH); columns take the first family's padded
+//   planes from K = 4, every put and get one wavefront or two.
 
 #pragma once
 
@@ -150,38 +173,74 @@ __host__ __device__ constexpr bool smooth_odd_length(int n) {
          n / odd_part(n) < 4;
 }
 
+// A candidate V0 of the third or fourth family, keyed as
+// fused_fft._least_v0 keys it: (P = n / V0 > 128, the odd passes over the
+// rest of the odd part, one a prime factor 3, 5 or 7, the masked butterfly
+// slots of those passes, ceil(V0 / r) r - V0 each, V0); the least wins.
+struct V0Key {
+  int col, npass, waste, v0;
+};
+
+__host__ __device__ constexpr V0Key v0_key(int n, int v0, int rest) {
+  V0Key k{n / v0 > 128, 0, 0, v0};
+  for (int r = 3; r <= 7; r += 2) {
+    while (rest % r == 0) {
+      rest /= r;
+      ++k.npass;
+      k.waste += (v0 + r - 1) / r * r - v0;
+    }
+  }
+  return k;
+}
+
+__host__ __device__ constexpr bool operator<(const V0Key& a,
+                                             const V0Key& b) {
+  return a.col != b.col       ? a.col < b.col
+         : a.npass != b.npass ? a.npass < b.npass
+         : a.waste != b.waste ? a.waste < b.waste
+                              : a.v0 < b.v0;
+}
+
 // V0 = 2^K d at a length of the third family (fused_fft._smooth_odd_values):
-// d a divisor of R among 3, 5, 9, 15, 25 with V0 <= 30, the least by (P =
-// n / V0 > 128, the passes over R / d, the masked butterfly slots, V0)
+// d a divisor of R among 3, 5, 9, 15, 25 with V0 <= 30, the least by
+// v0_key
 __host__ __device__ constexpr int smooth_odd_v0(int n) {
   const int odd = odd_part(n), two = n / odd;
   const int ds[5] = {3, 5, 9, 15, 25};
-  int best = 0, bcol = 0, bpass = 0, bwaste = 0;
+  V0Key best{};
   for (int i = 0; i < 5; ++i) {
-    const int d = ds[i], v0 = two * d;
-    if (odd % d || v0 > 30) continue;
-    int rest = odd / d, npass = 0, waste = 0;
-    for (int r = 3; r <= 5; r += 2) {
-      while (rest % r == 0) {
-        rest /= r;
-        ++npass;
-        waste += (v0 + r - 1) / r * r - v0;
-      }
-    }
-    const int col = n / v0 > 128;
-    const bool less =
-        col != bcol ? col < bcol
-                    : npass != bpass ? npass < bpass
-                                     : waste != bwaste ? waste < bwaste
-                                                       : v0 < best;
-    if (!best || less) {
-      best = v0;
-      bcol = col;
-      bpass = npass;
-      bwaste = waste;
-    }
+    const int v0 = two * ds[i];
+    if (odd % ds[i] || v0 > 30) continue;
+    const V0Key k = v0_key(n, v0, odd / ds[i]);
+    if (!best.v0 || k < best) best = k;
   }
-  return best;
+  return best.v0;
+}
+
+__host__ __device__ constexpr bool pow357(int r) {
+  return r == 1 || (r % 3 == 0 && pow357(r / 3)) ||
+         (r % 5 == 0 && pow357(r / 5)) || (r % 7 == 0 && pow357(r / 7));
+}
+
+// whether n is a length of the fourth family: R 2^K <= 4096, K >= 2, R =
+// 3^a 5^b 7^c with c >= 1 (28-4032, 56 lengths; fft_last_smooth7*.cu as
+// rows, fft_axis_smooth7*.cu as columns)
+__host__ __device__ constexpr bool smooth7_length(int n) {
+  return n > 0 && n <= 4096 && odd_part(n) % 7 == 0 && pow357(odd_part(n)) &&
+         n / odd_part(n) >= 4;
+}
+
+// R0 at a length of the fourth family (fused_fft._smooth7_values): a prime
+// of R among 3, 5, 7, V0 = 4 R0 the least by v0_key
+__host__ __device__ constexpr int smooth7_r0(int n) {
+  const int odd = odd_part(n);
+  V0Key best{};
+  for (int r0 = 3; r0 <= 7; r0 += 2) {
+    if (odd % r0) continue;
+    const V0Key k = v0_key(n, 4 * r0, odd / r0);
+    if (!best.v0 || k < best) best = k;
+  }
+  return best.v0 / 4;
 }
 
 // whether n is a length of the second family (fft_last_smooth3.cu and
@@ -194,45 +253,59 @@ __host__ __device__ constexpr bool smooth_more_length(int n) {
          !((odd_part(n) == 3 || odd_part(n) == 5) && n / odd_part(n) >= 16);
 }
 
+// whether n is a c2c length of one of the four families (fft_last.cu's
+// last_smooth_family, fft_axis.cu's axis_smooth_family)
+__host__ __device__ constexpr bool smooth_family_length(int n) {
+  return smooth_length(n) || smooth_more_length(n) || smooth_odd_length(n) ||
+         smooth7_length(n);
+}
+
 // R0 of n's odd part R: 5 where 25 divides R or 3 does not, else 3
 __host__ __device__ constexpr int smooth_r0(int n) {
   return odd_part(n) % 25 == 0 || odd_part(n) % 3 ? 5 : 3;
 }
 
-// compile-time schedule of N = R 2^K: at K >= 2 (the first two families)
-// V0 = 4 R0, radix-4 passes (a radix 2 last where K is odd) over 2^(K-2),
-// then one radix-R0 pass per factor R0 of R / R0, then one of the other odd
-// prime per factor, then radix V0 at stride P; at K = 0, 1 (the third) V0 =
-// 2^K D (D = smooth_odd_v0(N) / 2^K: 3, 5, 9, 15 or 25), no power-of-two
-// pass, then the odd passes over R / D in the same order, then radix V0
+// compile-time schedule of N = R 2^K: at K >= 2 (the first, second and
+// fourth families) V0 = 4 R0, radix-4 passes (a radix 2 last where K is
+// odd) over 2^(K-2), then one radix-R0 pass per factor R0 of R / R0, then
+// one of each other odd prime per factor, in ascending order, then radix
+// V0 at stride P; at K = 0, 1 (the third) V0 = 2^K D (D =
+// smooth_odd_v0(N) / 2^K: 3, 5, 9, 15 or 25), no power-of-two pass, then
+// the odd passes over R / D in the same order, then radix V0
 template <int N>
 struct SmoothGeo {
-  static_assert(smooth_core_length(N) || smooth_odd_length(N),
-                "a smooth length: R 2^K, R = 3^a 5^b > 1, N <= 4096");
+  static_assert(smooth_core_length(N) || smooth_odd_length(N) ||
+                    smooth7_length(N),
+                "a smooth length: R 2^K, R = 3^a 5^b 7^c > 1, N <= 4096");
   static constexpr int R = odd_part(N);
   static constexpr int K = ilog2(N / R);
-  static constexpr int R0 = smooth_r0(N);
+  static constexpr int R0 = smooth7_length(N) ? smooth7_r0(N) : smooth_r0(N);
   static constexpr int V0 = K >= 2 ? 4 * R0 : smooth_odd_v0(N);
   static constexpr int D = K >= 2 ? R0 : V0 >> K;  // V0's odd part
   static constexpr int P = N / V0;                 // threads a line
   static constexpr int NPOW = K >= 2 ? (K - 1) / 2 : 0;  // over 2^(K-2)
-  // passes of radix R0, then of the other odd prime (8 - R0), one a factor
-  // of R / D
+  // the other odd primes in ascending order (8 - R0 and 7 where R0 is 3
+  // or 5)
+  static constexpr int PA = R0 == 3 ? 5 : 3;
+  static constexpr int PB = R0 == 7 ? 5 : 7;
+  // passes of radix R0, then PA, then PB, one a factor of R / D
   static constexpr int NSAME = count_factor(R / D, R0);
-  static constexpr int NODD = NSAME + count_factor(R / D, 8 - R0);
+  static constexpr int NA = NSAME + count_factor(R / D, PA);
+  static constexpr int NODD = NA + count_factor(R / D, PB);
   static constexpr int NPASS = NPOW + NODD + 1;
   __host__ __device__ static constexpr int radix(int p) {
     return p < NPOW            ? (p == NPOW - 1 && K % 2 ? 2 : 4)
            : p < NPOW + NSAME ? R0
-           : p < NPOW + NODD  ? 8 - R0
+           : p < NPOW + NA    ? PA
+           : p < NPOW + NODD  ? PB
                               : V0;
   }
   __host__ __device__ static constexpr int stride(int p) {
     return p == 0 ? 1 : stride(p - 1) * radix(p - 1);
   }
   // butterflies a thread takes in pass p (the last one masked where
-  // B P > N / R: a radix-5 pass at V0 = 12, 6, 9, 18, a radix-3 pass at
-  // V0 = 20, 5, 10, 25)
+  // B P > N / R: a radix-5 pass at V0 = 12, 6, 9, 18, 28, a radix-3 pass
+  // at V0 = 20, 5, 10, 25, 28, a radix-7 pass at V0 = 12, 20)
   __host__ __device__ static constexpr int bflies(int p) {
     return (N / radix(p) + P - 1) / P;
   }
@@ -282,6 +355,82 @@ static __device__ __forceinline__ float2 cmul_root(float2 d) {
 
 template <int R, bool INV>
 static __device__ __forceinline__ void dft_smooth(float2* v);
+
+// The 7-point DFT of x[0..7) in place, with the constant roots c_j, s_j of
+// 2 pi j/7: t_j, d_j = x_j +- x_(7-j) (j = 1, 2, 3); X_k, X_(7-k) = a_k -+
+// i b_k (forward), a_k = x0 + sum_j cos(2 pi j k/7) t_j, b_k = sum_j
+// sin(2 pi j k/7) d_j (regcore._dft7); 96 flops.
+template <bool INV>
+static __device__ __forceinline__ void dft7(float2* x) {
+  constexpr float c1 = 0.62348980185873353f;   // cos 2 pi/7
+  constexpr float c2 = -0.22252093395631434f;  // cos 4 pi/7
+  constexpr float c3 = -0.90096886790241900f;  // cos 6 pi/7
+  constexpr float s1 = 0.78183148246802981f;   // sin 2 pi/7
+  constexpr float s2 = 0.97492791218182361f;   // sin 4 pi/7
+  constexpr float s3 = 0.43388373911755823f;   // sin 6 pi/7
+  const float2 t1 = cadd(x[1], x[6]), t2 = cadd(x[2], x[5]);
+  const float2 t3 = cadd(x[3], x[4]);
+  const float2 d1 = csub(x[1], x[6]), d2 = csub(x[2], x[5]);
+  const float2 d3 = csub(x[3], x[4]);
+  const float2 x0 = x[0];
+  auto a = [&](float u1, float u2, float u3) {
+    return make_float2(fmaf(u3, t3.x, fmaf(u2, t2.x, fmaf(u1, t1.x, x0.x))),
+                       fmaf(u3, t3.y, fmaf(u2, t2.y, fmaf(u1, t1.y, x0.y))));
+  };
+  auto e = [&](float u1, float u2, float u3) {
+    return mul_i<INV>(
+        make_float2(fmaf(u3, d3.x, fmaf(u2, d2.x, u1 * d1.x)),
+                    fmaf(u3, d3.y, fmaf(u2, d2.y, u1 * d1.y))));
+  };
+  const float2 a1 = a(c1, c2, c3), e1 = e(s1, s2, s3);
+  const float2 a2 = a(c2, c3, c1), e2 = e(s2, -s3, -s1);
+  const float2 a3 = a(c3, c1, c2), e3 = e(s3, -s1, s2);
+  x[0] = cadd(cadd(cadd(x0, t1), t2), t3);
+  x[1] = cadd(a1, e1);
+  x[6] = csub(a1, e1);
+  x[2] = cadd(a2, e2);
+  x[5] = csub(a2, e2);
+  x[3] = cadd(a3, e3);
+  x[4] = csub(a3, e3);
+}
+
+// The 28-point DFT of v[0..28) in place by Good-Thomas 7 x 4, as
+// fft_regs.cuh's dft_pfa at 12 and 20: input n = (4 n1 + 7 n2) mod 28;
+// 7-point DFTs along n1 (for each n2), then 4-point DFTs along n2 (for
+// each k1), X[k] where k1 = k mod 7, k2 = k mod 4 put it (a renaming of
+// registers).
+template <bool INV>
+static __device__ __forceinline__ void dft28(float2* v) {
+  unroll<0, 4>([&](auto n2c) {
+    constexpr int B = 7 * decltype(n2c)::value;
+    float2 u[7];
+    unroll<0, 7>([&](auto n) {
+      u[decltype(n)::value] = v[(B + 4 * decltype(n)::value) % 28];
+    });
+    dft7<INV>(u);
+    unroll<0, 7>([&](auto n) {
+      v[(B + 4 * decltype(n)::value) % 28] = u[decltype(n)::value];
+    });
+  });
+  unroll<0, 7>([&](auto k1c) {
+    constexpr int B = 4 * decltype(k1c)::value;
+    float2 u[4];
+    unroll<0, 4>([&](auto n) {
+      u[decltype(n)::value] = v[(B + 7 * decltype(n)::value) % 28];
+    });
+    dft2k<4, INV>(u);
+    unroll<0, 4>([&](auto n) {
+      v[(B + 7 * decltype(n)::value) % 28] = u[decltype(n)::value];
+    });
+  });
+  float2 t[28];
+  unroll<0, 28>([&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    t[K] = v[(4 * (K % 7) + 7 * (K % 4)) % 28];
+  });
+  unroll<0, 28>(
+      [&](auto k) { v[decltype(k)::value] = t[decltype(k)::value]; });
+}
 
 // The R-point DFT of v[0..R) in place at a composite radix of the third
 // family's last pass (6, 9, 10, 15, 18, 25, 30): R = A B, A the least
@@ -333,13 +482,18 @@ static __device__ __forceinline__ void dft_split(float2* v) {
 }
 
 // The R-point DFT of a smooth pass: radix 2, 4, 12, 20 (fft_regs.cuh's dft),
-// the 3- and 5-point networks and the composite radices of dft_split.
+// the 3-, 5- and 7-point networks, radix 28 (dft28) and the composite
+// radices of dft_split.
 template <int R, bool INV>
 static __device__ __forceinline__ void dft_smooth(float2* v) {
   if constexpr (R == 3)
     dft3<INV>(v[0], v[1], v[2]);
   else if constexpr (R == 5)
     dft5<INV>(v[0], v[1], v[2], v[3], v[4]);
+  else if constexpr (R == 7)
+    dft7<INV>(v);
+  else if constexpr (R == 28)
+    dft28<INV>(v);
   else if constexpr (R == 12 || R == 20 || (R & (R - 1)) == 0)
     dft<R, INV>(v);
   else
@@ -540,6 +694,12 @@ __host__ __device__ constexpr int smooth_row_pitch(int n, int p) {
          : n == 50 || n == 75 || n == 125 || n == 150 ? 25
          : n == 81 || n == 135 || n == 162 || n == 270 ? 27
          : n == 225 || n == 450 ? 11
+         // the fourth family's (regcore.SMOOTH7_ROW_PITCH): P = 1 at 28,
+         // P = 7 at 84, 140, 196, P = 21 at 420
+         : n == 28  ? 29
+         : n == 84 || n == 140 ? 17
+         : n == 196 ? 4
+         : n == 420 ? 2
                     : p % 32;
 }
 
@@ -631,6 +791,18 @@ struct SmoothColGeo {
       S::NPASS > 1 ? (size_t)2 * SIZE * sizeof(float) : 0;
   static constexpr int MINB = smooth_min_blocks(NT, S::VMAX);
 };
+
+// whether N, a length of the fourth family, is one of its column lengths:
+// at most 128 threads a line, and the block's two planes (SMEM, padded from
+// K = 4) within the 227 KB a block may have (3024, 3136, 3360, 3584:
+// 236-280 KB; fused_fft._SMOOTH7_COL_LENGTHS)
+template <int N>
+constexpr bool smooth7_col() {
+  if constexpr (SmoothGeo<N>::P > 128)
+    return false;
+  else
+    return SmoothColGeo<N>::SMEM <= 232448;
+}
 
 // ---- the kernels and their launchers ----
 
@@ -790,6 +962,66 @@ static cudaError_t by_smooth_odd_twice(int n, F&& f) {
     }
     return by_smooth_odd_twice<R, COL, 2 * N>(n, std::forward<F>(f));
   }
+}
+
+// f(std::integral_constant<int, N>) for n = R 2^K, K from 2, n <= 4096, a
+// length of the fourth family (COL: a smooth7_col); an error for any other
+// n
+template <int R, bool COL = false, int N = 4 * R, typename F>
+static cudaError_t by_smooth7(int n, F&& f) {
+  if constexpr (N > 4096) {
+    return cudaErrorInvalidValue;
+  } else {
+    if constexpr (!COL || smooth7_col<N>()) {
+      if (n == N) return f(std::integral_constant<int, N>());
+    }
+    return by_smooth7<R, COL, 2 * N>(n, std::forward<F>(f));
+  }
+}
+
+// f at a length of the fourth family whose odd part is one of Rs, one
+// source's share (by_smooth7); an error at any other n
+template <bool COL, int... Rs, typename F>
+static cudaError_t by_smooth7_parts(int n, F&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((odd_part(n) == Rs && (err = by_smooth7<Rs, COL>(n, f), true)) ||
+         ...);
+  return err;
+}
+
+// The rows (fft_last_smooth7*.cu) and the columns (fft_axis_smooth7*.cu,
+// the wide tile's code alone: `tile` 1 or -1) of the fourth family at the
+// odd parts Rs.
+template <int... Rs>
+static cudaError_t last_smooth7_parts(const float* xr, const float* xi,
+                                      float* yr, float* yi,
+                                      const float2* tab, long long rows,
+                                      int n, long long ipitch,
+                                      long long opitch, int inverse,
+                                      float scale, cudaStream_t s) {
+  return by_smooth7_parts<false, Rs...>(n, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    return inverse ? launch_rows_smooth<N, true>(xr, xi, yr, yi, tab, rows,
+                                                 ipitch, opitch, scale, s)
+                   : launch_rows_smooth<N, false>(xr, xi, yr, yi, tab, rows,
+                                                  ipitch, opitch, scale, s);
+  });
+}
+
+template <int... Rs>
+static cudaError_t axis_smooth7_parts(const float* xr, const float* xi,
+                                      float* yr, float* yi,
+                                      const float2* tab, const AxisGeom& g,
+                                      int n, int inverse, float scale,
+                                      int tile, cudaStream_t s) {
+  if (tile >= 0 && tile != 1) return cudaErrorInvalidValue;
+  return by_smooth7_parts<true, Rs...>(n, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    return inverse ? launch_cols_smooth<N, true>(xr, xi, yr, yi, tab, g,
+                                                 scale, s)
+                   : launch_cols_smooth<N, false>(xr, xi, yr, yi, tab, g,
+                                                  scale, s);
+  });
 }
 
 // f(std::integral_constant<int, M>) at a smooth M; an error at any other

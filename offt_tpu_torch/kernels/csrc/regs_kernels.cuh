@@ -1064,8 +1064,7 @@ cudaError_t axis_smooth(const float* xr, const float* xi, float* yr,
 // The same at the second family of fft_smooth.cuh (smooth_more_length;
 // its real rows below), by R0: fft_last_smooth3.cu and fft_axis_smooth3.cu
 // where 3 divides n and 25 does not (R0 = 3), fft_last_smooth5.cu and
-// fft_axis_smooth5.cu at the rest (R0 = 5); last_smooth_more and
-// axis_smooth_more pick the source.
+// fft_axis_smooth5.cu at the rest (R0 = 5).
 cudaError_t last_smooth3(const float* xr, const float* xi, float* yr,
                          float* yi, const float2* tab, long long rows, int n,
                          long long ipitch, long long opitch, int inverse,
@@ -1082,26 +1081,11 @@ cudaError_t axis_smooth5(const float* xr, const float* xi, float* yr,
                          float* yi, const float2* tab, const AxisGeom& g,
                          int n, int inverse, float scale, int tile,
                          cudaStream_t s);
-inline cudaError_t last_smooth_more(const float* xr, const float* xi,
-                                    float* yr, float* yi, const float2* tab,
-                                    long long rows, int n, long long ipitch,
-                                    long long opitch, int inverse,
-                                    float scale, cudaStream_t s) {
-  return (n % 3 == 0 && n % 25 ? last_smooth3 : last_smooth5)(
-      xr, xi, yr, yi, tab, rows, n, ipitch, opitch, inverse, scale, s);
-}
-inline cudaError_t axis_smooth_more(const float* xr, const float* xi,
-                                    float* yr, float* yi, const float2* tab,
-                                    const AxisGeom& g, int n, int inverse,
-                                    float scale, int tile, cudaStream_t s) {
-  return (n % 3 == 0 && n % 25 ? axis_smooth3 : axis_smooth5)(
-      xr, xi, yr, yi, tab, g, n, inverse, scale, tile, s);
-}
 // The same at the third family of fft_smooth.cuh (smooth_odd_length: the
 // odd and twice-odd lengths; its real rows below), by R0:
 // fft_last_smooth_odd3.cu and fft_axis_smooth_odd3.cu where 3 divides n
 // and 25 does not, fft_last_smooth_odd5.cu and fft_axis_smooth_odd5.cu at
-// the rest; last_smooth_odd and axis_smooth_odd pick the source.
+// the rest.
 cudaError_t last_smooth_odd3(const float* xr, const float* xi, float* yr,
                              float* yi, const float2* tab, long long rows,
                              int n, long long ipitch, long long opitch,
@@ -1118,21 +1102,47 @@ cudaError_t axis_smooth_odd5(const float* xr, const float* xi, float* yr,
                              float* yi, const float2* tab, const AxisGeom& g,
                              int n, int inverse, float scale, int tile,
                              cudaStream_t s);
-inline cudaError_t last_smooth_odd(const float* xr, const float* xi,
-                                   float* yr, float* yi, const float2* tab,
-                                   long long rows, int n, long long ipitch,
-                                   long long opitch, int inverse, float scale,
-                                   cudaStream_t s) {
-  return (n % 3 == 0 && n % 25 ? last_smooth_odd3 : last_smooth_odd5)(
-      xr, xi, yr, yi, tab, rows, n, ipitch, opitch, inverse, scale, s);
-}
-inline cudaError_t axis_smooth_odd(const float* xr, const float* xi,
-                                   float* yr, float* yi, const float2* tab,
-                                   const AxisGeom& g, int n, int inverse,
-                                   float scale, int tile, cudaStream_t s) {
-  return (n % 3 == 0 && n % 25 ? axis_smooth_odd3 : axis_smooth_odd5)(
-      xr, xi, yr, yi, tab, g, n, inverse, scale, tile, s);
-}
+// The same at the fourth family of fft_smooth.cuh (smooth7_length: the
+// lengths R 2^K, K >= 2, with a factor 7; c2c only), by the odd part R:
+// fft_last_smooth7.cu and fft_axis_smooth7.cu at the powers of 7,
+// fft_last_smooth7x3.cu and fft_axis_smooth7x3.cu where 3 divides R and 5
+// does not, fft_last_smooth7x5.cu and fft_axis_smooth7x5.cu where 5 does.
+cudaError_t last_smooth7(const float* xr, const float* xi, float* yr,
+                         float* yi, const float2* tab, long long rows, int n,
+                         long long ipitch, long long opitch, int inverse,
+                         float scale, cudaStream_t s);
+cudaError_t last_smooth7x3(const float* xr, const float* xi, float* yr,
+                           float* yi, const float2* tab, long long rows,
+                           int n, long long ipitch, long long opitch,
+                           int inverse, float scale, cudaStream_t s);
+cudaError_t last_smooth7x5(const float* xr, const float* xi, float* yr,
+                           float* yi, const float2* tab, long long rows,
+                           int n, long long ipitch, long long opitch,
+                           int inverse, float scale, cudaStream_t s);
+cudaError_t axis_smooth7(const float* xr, const float* xi, float* yr,
+                         float* yi, const float2* tab, const AxisGeom& g,
+                         int n, int inverse, float scale, int tile,
+                         cudaStream_t s);
+cudaError_t axis_smooth7x3(const float* xr, const float* xi, float* yr,
+                           float* yi, const float2* tab, const AxisGeom& g,
+                           int n, int inverse, float scale, int tile,
+                           cudaStream_t s);
+cudaError_t axis_smooth7x5(const float* xr, const float* xi, float* yr,
+                           float* yi, const float2* tab, const AxisGeom& g,
+                           int n, int inverse, float scale, int tile,
+                           cudaStream_t s);
+// The rows and the columns at a length of any of the four families
+// (fft_smooth.cuh's smooth_family_length), each at its family's source as
+// above: last_smooth_family in fft_last.cu, axis_smooth_family in
+// fft_axis.cu.
+cudaError_t last_smooth_family(const float* xr, const float* xi, float* yr,
+                               float* yi, const float2* tab, long long rows,
+                               int n, long long ipitch, long long opitch,
+                               int inverse, float scale, cudaStream_t s);
+cudaError_t axis_smooth_family(const float* xr, const float* xi, float* yr,
+                               float* yi, const float2* tab,
+                               const AxisGeom& g, int n, int inverse,
+                               float scale, int tile, cudaStream_t s);
 // The real rows at the first family's smooth half lengths m of
 // fft_smooth.cuh (smooth_length; real_rows_smooth.cu, the kernels in
 // real_rows_smooth.cuh): r2c of `rows` real rows of 2m floats into the

@@ -253,9 +253,12 @@ def _smooth_values(n: int) -> int:
     (its last pass's radix). At k >= 2 V0 = 4 R0: R0 = 5 where 25 divides
     the odd part or 3 does not (25, 75, 125, 225, 375, 625, 675 and 5),
     else R0 = 3. At the odd and twice-odd lengths (:func:`_smooth_odd_values`)
-    V0 = 2^k d."""
+    V0 = 2^k d; at the lengths with a factor 7 (:func:`_smooth7_values`)
+    V0 = 4 R0, R0 = 3, 5 or 7."""
     if n // _odd_part(n) < 4:
         return _smooth_odd_values(n)
+    if n % 7 == 0:
+        return _smooth7_values(n)
     return 20 if n % 25 == 0 or n % 3 else 12
 
 
@@ -266,28 +269,31 @@ def _smooth_odd_values(n: int) -> int:
     passes), the last pass of radix V0 (3, 5, 9, 15, 25; 6, 10, 18, 30),
     P = n / V0 threads a line, one radix-3 or radix-5 pass for each prime
     factor of R / d (masked where it does not divide V0). Of those d, the
-    least by (P > 128: not a column length; the passes, each one exchange
-    through shared memory; the masked butterfly slots a thread idles
-    through, sum over the passes of ceil(V0 / r) r - V0; V0): d = 15 where
-    15 divides R (no pass masked), else 9 or 25 at k = 0 (18 or 5 at k = 1),
-    but 2025 (d = 25: P = 81, a column length, where d = 15 gives 135)."""
+    least by :func:`_least_v0`'s key: d = 15 where 15 divides R (no pass
+    masked), else 9 or 25 at k = 0 (18 or 5 at k = 1), but 2025 (d = 25:
+    P = 81, a column length, where d = 15 gives 135)."""
     odd = _odd_part(n)
     two = n // odd
-    best = None
-    for d in (3, 5, 9, 15, 25):
-        v0 = two * d
-        if odd % d or v0 > 30:
-            continue
-        rest, npass, waste = odd // d, 0, 0
-        for r in (3, 5):
+    return _least_v0(n, [(two * d, odd // d) for d in (3, 5, 9, 15, 25)
+                         if odd % d == 0 and two * d <= 30])
+
+
+def _least_v0(n: int, cands) -> int:
+    """Of the candidates (V0, the rest of the odd part R / d), the V0 least
+    by (P = n / V0 > 128: not a column length; the passes, one for each
+    prime factor 3, 5 or 7 of the rest, each one exchange through shared
+    memory; the masked butterfly slots a thread idles through, sum over
+    the passes of ceil(V0 / r) r - V0; V0)."""
+    def key(cand):
+        v0, rest = cand
+        npass = waste = 0
+        for r in (3, 5, 7):
             while rest % r == 0:
                 rest //= r
                 npass += 1
                 waste += -(-v0 // r) * r - v0
-        key = (n // v0 > 128, npass, waste, v0)
-        if best is None or key < best[0]:
-            best = (key, v0)
-    return best[1]
+        return (n // v0 > 128, npass, waste, v0)
+    return min(cands, key=key)[0]
 
 
 # those it runs in the column variant (csrc/fft_axis_smooth.cu): at most
@@ -298,8 +304,10 @@ _SMOOTH_COL_LENGTHS = frozenset(n for n in _SMOOTH_LENGTHS
                                 if n // _smooth_values(n) <= 128)
 
 
-def _smooth5(n: int) -> bool:
-    for p in (3, 5):
+def _smooth(n: int, primes=(3, 5)) -> bool:
+    """Whether ``primes`` are n's only prime factors (5-smooth odd parts
+    by default)."""
+    for p in primes:
         while n % p == 0:
             n //= p
     return n == 1
@@ -313,7 +321,7 @@ def _smooth5(n: int) -> bool:
 # 243, 375, 405, 625, 675 or 729 (108-4000)
 _SMOOTH_MORE_LENGTHS = frozenset(
     n for n in range(12, 4097, 4)
-    if _odd_part(n) > 1 and _smooth5(_odd_part(n))
+    if _odd_part(n) > 1 and _smooth(_odd_part(n))
     and n not in _SMOOTH_LENGTHS and n not in _MIX_ROW_LENGTHS)
 # those in the column variant (csrc/fft_axis_smooth3.cu,
 # fft_axis_smooth5.cu): at most 128 threads a line, as above, every
@@ -334,13 +342,22 @@ _SMOOTH_ROWS = _SMOOTH_LENGTHS | _SMOOTH_MORE_LENGTHS
 # odd or twice-odd M, 100^3-900^3 among them; _reg_real_rows)
 _SMOOTH_ODD_LENGTHS = frozenset(
     n for n in range(16, 4097)
-    if _odd_part(n) > 1 and _smooth5(_odd_part(n)) and n // _odd_part(n) < 4)
+    if _odd_part(n) > 1 and _smooth(_odd_part(n)) and n // _odd_part(n) < 4)
 
 
 def _smooth_col_lanes(p: int) -> int:
     """L, the lanes a block of the smooth column variant holds at P threads
     a line (``SmoothColGeo``): 32 up to 768 threads, then 16, then 8."""
     return 32 if 32 * p <= 768 else 16 if 16 * p <= 768 else 8
+
+
+def _smooth_col_bytes(n: int, v0: int, pad: bool) -> int:
+    """The shared memory of a block of the smooth column variant at n:
+    two planes of L lanes (:func:`_smooth_col_lanes` at P = n / V0), one
+    pad slot per four elements where ``pad`` (``ColLay<L, 2>``)."""
+    lanes = _smooth_col_lanes(n // v0)
+    last = n - 1 + ((n - 1) >> 2 if pad else 0)
+    return 8 * ((last * lanes + lanes + 3) // 4 * 4)
 
 
 # those in the column variant (csrc/fft_axis_smooth_odd3.cu,
@@ -351,11 +368,56 @@ def _smooth_col_lanes(p: int) -> int:
 _SMOOTH_ODD_COL_LENGTHS = frozenset(
     n for n in _SMOOTH_ODD_LENGTHS if n // _smooth_odd_values(n) <= 128
     and 8 * n * _smooth_col_lanes(n // _smooth_odd_values(n)) <= _SMEM_MAX)
-# every length the smooth core (csrc/fft_smooth.cuh) runs as c2c rows, and
-# as columns
+# every 5-smooth length the smooth core (csrc/fft_smooth.cuh) runs as c2c
+# rows and as real rows of that half length
 _SMOOTH_CORE = _SMOOTH_ROWS | _SMOOTH_ODD_LENGTHS
+
+
+# the 7-smooth lengths R 2^k with k >= 2 whose odd part R = 3^a 5^b 7^c
+# has a factor 7 (c >= 1), up to 4096 (the fourth family: 28-4032, 56
+# lengths), that the smooth core runs as c2c rows (csrc/fft_last_smooth7.cu,
+# fft_last_smooth7x3.cu and fft_last_smooth7x5.cu by the odd part) on V0 =
+# 4 R0 values a thread (_smooth7_values). The real rows keep the dense core
+# at these half lengths: _reg_real_rows reads _SMOOTH_CORE, which leaves
+# them out.
+_SMOOTH7_LENGTHS = frozenset(
+    n for n in range(28, 4097, 4)
+    if _odd_part(n) % 7 == 0 and _smooth(_odd_part(n), (3, 5, 7)))
+
+
+def _smooth7_values(n: int) -> int:
+    """V0 = 4 R0 at a length of the fourth family (``regs::smooth7_r0``):
+    R0 a prime of the odd part R among 3, 5 and 7, one pass for each
+    other prime factor of R (masked where it does not divide V0). Of
+    those R0, the least by :func:`_least_v0`'s key (the passes are as many
+    at every R0, so P > 128 and then the masked slots decide, then the
+    fewest values a thread holds). R0 = 7 (V0 = 28) at R = 7, 49, 343
+    (forced), at R = 147, 441 and 567 (fewer masked slots) and where a
+    smaller V0 leaves P > 128 (2016, 2688, 2800, 2940, 3024, 3360, 3500);
+    R0 = 3 (V0 = 12) at R = 21, 63, 189 below that, and 4032 (P > 128 at
+    every V0); R0 = 5 (V0 = 20) at R = 35, 105, 175, 245, 315, 525 below
+    that, 3780 and 3920. A radix-7 pass at V0 = 12 or 20 holds 14 or 21
+    values, a radix-3 or radix-5 pass at 28 holds 30."""
+    odd = _odd_part(n)
+    return _least_v0(n, [(4 * r0, odd // r0) for r0 in (3, 5, 7)
+                         if odd % r0 == 0])
+
+
+# those in the column variant (csrc/fft_axis_smooth7.cu,
+# fft_axis_smooth7x3.cu, fft_axis_smooth7x5.cu by the odd part;
+# regs::smooth7_col): at most 128 threads a line and the block's two
+# planes, padded from k = 4 as the first family's, within a block's shared
+# memory: 49 of the 56, every exchange one wavefront or two
+# (regcore.smooth_ways); 3780, 3920 and 4032 (P = 189-336) and 3024, 3136,
+# 3360 and 3584 (padded planes of 236-280 KB; unpadded, four wavefronts a
+# put and a get at 8 lanes) stay dense as columns
+_SMOOTH7_COL_LENGTHS = frozenset(
+    n for n in _SMOOTH7_LENGTHS if n // _smooth7_values(n) <= 128
+    and _smooth_col_bytes(n, _smooth7_values(n), n % 16 == 0) <= _SMEM_MAX)
+# every length the smooth core runs as c2c rows, and as columns
+_SMOOTH_C2C = _SMOOTH_CORE | _SMOOTH7_LENGTHS
 _SMOOTH_COLS = (_SMOOTH_COL_LENGTHS | _SMOOTH_MORE_COL_LENGTHS
-                | _SMOOTH_ODD_COL_LENGTHS)
+                | _SMOOTH_ODD_COL_LENGTHS | _SMOOTH7_COL_LENGTHS)
 
 
 def _reg_real_rows(m: int) -> bool:
@@ -374,20 +436,22 @@ def _reg_real_rows(m: int) -> bool:
     and ``real_rows_smooth_odd5.cu``, an odd M's last pairs untangled on
     one masked step; rows of fewer than 6 threads staged through the
     planes). So the real rows take every length the c2c rows take
-    (:func:`_reg_rows`). Every other M takes the dense core: the lengths
-    with a prime factor of 7 or more (112 among them), those under 16 and
-    those past 4096. The register core ignores the radices and the rows
-    per block."""
+    (:func:`_reg_rows`) but the fourth family's, ``_SMOOTH7_LENGTHS``.
+    Every other M takes the dense core: the lengths with a prime factor
+    of 7 or more (112 among them), those under 16 and those past 4096.
+    The register core ignores the radices and the rows per block."""
     return _pow2(m) or m in _MIX_ROW_LENGTHS or m in _SMOOTH_CORE
 
 
 def _reg_values(n: int) -> int:
     """Complex values a thread of the register core holds at length n: 16
     at a power of two, 4 R0 at a mixed length R0 2^k (12 or 20), V0 at a
-    smooth length of either family (:func:`_smooth_values`: 12, or 20; a
+    smooth length of any family (:func:`_smooth_values`: 12, or 20; a
     masked radix-5 pass at 12 holds 15, a masked radix-3 pass at 20
-    holds 21); a line takes n / that many threads (P)."""
-    if n in _SMOOTH_CORE:
+    holds 21; 28 at most at a length with a factor 7, whose masked
+    radix-3 or radix-5 pass holds 30); a line takes n / that many threads
+    (P)."""
+    if n in _SMOOTH_C2C:
         return _smooth_values(n)
     return 4 * (3 if n % 3 == 0 else 5) if n in _MIX_ROW_LENGTHS else 16
 
@@ -408,11 +472,18 @@ def _reg_rows(n: int) -> bool:
     twice-odd one of the third, ``_SMOOTH_ODD_LENGTHS`` (R 2^k, k = 0, 1,
     in [16, 4096]: 18-4050, the 125^3-750^3 sides among them; V0 = 2^k d
     values a thread, :func:`_smooth_odd_values`, the last pass of radix
-    V0; ``csrc/fft_last_smooth_odd3.cu``, ``fft_last_smooth_odd5.cu``).
-    Every other length takes the dense core: the lengths with a prime
-    factor of 7 or more (112, 224, 1008 and the like), those under 16
+    V0; ``csrc/fft_last_smooth_odd3.cu``, ``fft_last_smooth_odd5.cu``), or
+    one of the fourth, ``_SMOOTH7_LENGTHS`` (R 2^k, k >= 2, R = 3^a 5^b
+    7^c with c >= 1: 28-4032, the 224^3-1008^3 sides among them; V0 = 4
+    R0, R0 = 3, 5 or 7, :func:`_smooth7_values`, a radix-7 pass for each
+    further factor 7, the last pass at V0 = 28 the Good-Thomas 7 x 4
+    network; ``csrc/fft_last_smooth7.cu``, ``fft_last_smooth7x3.cu``,
+    ``fft_last_smooth7x5.cu``).
+    Every other length takes the dense core: the odd and twice-odd
+    lengths with a factor 7 (21, 126, 3969 and the like), those with a
+    prime factor of 11 or more (176 = 11 16 and the like), those under 16
     (9, 10, 15) and lengths past 4096."""
-    return _pow2(n) or n in _MIX_ROW_LENGTHS or n in _SMOOTH_CORE
+    return _pow2(n) or n in _MIX_ROW_LENGTHS or n in _SMOOTH_C2C
 
 
 def _reg_slab(ny: int, nz: int) -> bool:
@@ -459,15 +530,22 @@ def _reg_axis(n: int) -> bool:
     or of ``_SMOOTH_ODD_COL_LENGTHS`` (the third family's, the odd and
     twice-odd lengths, at most 128 threads a line and planes that fit a
     block: 37 of its 42, 18-3125;
-    ``csrc/fft_axis_smooth_odd3.cu``, ``fft_axis_smooth_odd5.cu``).
+    ``csrc/fft_axis_smooth_odd3.cu``, ``fft_axis_smooth_odd5.cu``) or of
+    ``_SMOOTH7_COL_LENGTHS`` (the fourth family's, with a factor 7, at
+    most 128 threads a line and planes that fit a block: 28-3528;
+    ``csrc/fft_axis_smooth7.cu``, ``fft_axis_smooth7x3.cu``,
+    ``fft_axis_smooth7x5.cu``).
     Every other length takes the dense core (3072, and the smooth 1920,
     2304, 2880, 3200, 3840 and 1620-4000 of P > 128: 4 lanes a block,
     eight row threads a warp, runs of 16 bytes; the first family's
     exchanges would take two wavefronts there, the second's two or three,
     and 3240, 3456, 3888 over 1024 threads a block; the third family's
     2187, 3375, 3645 and 4050, P = 135-243 under every V0 <= 30, and 3750,
-    whose planes of 8 lanes would take 240 KB; lengths
-    with a prime factor of 7 or more). The register core ignores the
+    whose planes of 8 lanes would take 240 KB; the fourth family's 3780,
+    3920 and 4032 (P > 128) and 3024, 3136, 3360, 3584 (padded planes of
+    236-280 KB, four wavefronts unpadded); the odd and twice-odd lengths
+    with a factor 7 and those with a prime factor of 11 or more). The
+    register core ignores the
     radices and the lane tile of the dense core."""
     return _pow2(n) or n in _MIX_LENGTHS or n in _SMOOTH_COLS
 
@@ -484,10 +562,10 @@ def _axis_tile(n: int) -> str:
     (P = n / ``_reg_values(n)``): narrow to P = 8 (n = 128 at a power of
     two, 96 and 160 mixed), where a block of 256 threads holds 32 lanes or
     more; wide from P = 16 (256, 192, 320: 32 lanes to P = 32, 16 at 64,
-    8 at 128, 4 at 256). A smooth length of either family has the wide
+    8 at 128, 4 at 256). A smooth length of any family has the wide
     tile's code alone (``csrc/fft_axis_smooth*.cu``: 32 lanes a block up
     to 768 threads, then 16, then 8; its P need not divide 256)."""
-    if n in _SMOOTH_CORE:
+    if n in _SMOOTH_C2C:
         return "wide"
     return "narrow" if n // _reg_values(n) <= 8 else "wide"
 

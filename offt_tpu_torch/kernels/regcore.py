@@ -27,7 +27,11 @@ pass at 12 values and a radix-3 pass at 20 masked); and the third
 family, the odd and twice-odd lengths R 2^k, k = 0, 1
 (``fused_fft._SMOOTH_ODD_LENGTHS``), on P = n / V0 threads, V0 = 2^k d
 (``fused_fft._smooth_odd_values``), the last pass of radix V0 on the
-kernel's Good-Thomas or Cooley-Tukey network (:func:`_net_split`); a
+kernel's Good-Thomas or Cooley-Tukey network (:func:`_net_split`); and
+the fourth, the lengths R 2^k, k >= 2, with a factor 7
+(``fused_fft._SMOOTH7_LENGTHS``, c2c only), V0 = 4 R0 with R0 of 3, 5 or
+7 (``fused_fft._smooth7_values``), radix-7 passes on :func:`_dft7` and
+the Good-Thomas 7 x 4 network of :func:`dft_pfa` at V0 = 28; a
 block of rows or
 of columns replayed through its exchange planes
 (:func:`smooth_rows_block`, :func:`smooth_cols_block`,
@@ -109,9 +113,10 @@ def passes(n: int) -> list[tuple[int, int]]:
     last where log2 P is odd, then radix 4 R0 at stride P; at a smooth
     length R 2^k of either family (``SmoothGeo``, :func:`smooth_schedule`):
     radix 4 over 2^(k-2) (a radix 2 last where k is odd), radix 3 or 5 for
-    each odd factor of R / R0, then radix V0 = 4 R0 at stride P; Ns = the
-    product of the radices before."""
-    if n in fused_fft._SMOOTH_CORE:
+    each odd factor of R / R0, then radix V0 = 4 R0 at stride P (at a
+    length with a factor 7 also radix 7, and V0 = 28); Ns = the product of
+    the radices before."""
+    if n in fused_fft._SMOOTH_C2C:
         return [(r, ns) for r, ns, _ in smooth_schedule(n)]
     if n in fused_fft._MIX_ROW_LENGTHS:
         p = n // fused_fft._reg_values(n)
@@ -149,8 +154,13 @@ def smooth_schedule(n: int, v0: int | None = None
     order (R0 = ``regs::smooth_r0``'s first), then V0 at stride P. B =
     ceil(n / (R P)) = ceil(V0 / R): V0 / R but where R does not divide V0
     (a radix-5 pass at V0 = 12, 6, 9, 18; a radix-3 pass at V0 = 20, 5,
-    10, 25: the last butterfly masked where t + (B - 1) P >= n / R)."""
-    if n not in fused_fft._SMOOTH_CORE:
+    10, 25: the last butterfly masked where t + (B - 1) P >= n / R). At
+    the lengths with a factor 7 (the fourth family, k >= 2,
+    ``fused_fft._smooth7_values``, or ``v0``: 4 R0 for any R0 of 3, 5, 7
+    dividing R_odd) the same, the odd passes R0's first, then the other
+    primes' in ascending order (``SmoothGeo``'s PA, PB): a radix-7 pass at
+    V0 = 12 or 20, and a radix-3 or radix-5 pass at V0 = 28, masked."""
+    if n not in fused_fft._SMOOTH_C2C:
         raise ValueError(f"{n} is not a smooth length of the register core")
     odd = fused_fft._odd_part(n)
     k = (n // odd).bit_length() - 1
@@ -158,12 +168,12 @@ def smooth_schedule(n: int, v0: int | None = None
     two = 4 if k >= 2 else 1 << k           # V0's power of two
     d = v0 // two
     if v0 != two * d or odd % d or d not in (
-            (3, 5) if k >= 2 else (3, 5, 9, 15, 25)):
+            (3, 5, 7) if k >= 2 else (3, 5, 9, 15, 25)):
         raise ValueError(f"no radix {v0} at n = {n}")
     r0 = d if k >= 2 else 5 if odd % 25 == 0 or odd % 3 else 3
     p = n // v0
     rest, odd_passes = odd // d, []
-    for r in (r0, 8 - r0):
+    for r in (r0, *(q for q in (3, 5, 7) if q != r0)):
         while rest % r == 0:
             odd_passes.append(r)
             rest //= r
@@ -219,7 +229,7 @@ def geometry(n: int) -> dict:
     v = fused_fft._reg_values(n)
     p = n // v
     rows = THREADS // p
-    if n in fused_fft._SMOOTH_CORE:
+    if n in fused_fft._SMOOTH_C2C:
         return smooth_geometry(n)
     if n in fused_fft._MIX_ROW_LENGTHS:
         pitch = -(-n // 32) * 32
@@ -240,7 +250,7 @@ def row_at(n: int, a, g=0):
     length, plus a at a smooth length (no pad: the pitch,
     :func:`smooth_row_pitch`, carries the bank shift)."""
     pitch = geometry(n)["PITCH"]
-    if n in fused_fft._SMOOTH_CORE:
+    if n in fused_fft._SMOOTH_C2C:
         return g * pitch + a
     if n in fused_fft._MIX_ROW_LENGTHS:
         return g * pitch + (mix_at(a) ^ row_mask(n, g))
@@ -269,10 +279,12 @@ def _dft(r: int, inverse: bool) -> torch.Tensor:
     return torch.from_numpy(f.astype(np.complex64))
 
 
-# the constant roots of regs::dft3 / dft5, in f32
+# the constant roots of regs::dft3 / dft5 / dft7, in f32
 _SIN3 = np.float32(0.86602540378443865)
 _C51, _C52 = np.float32(0.30901699437494742), np.float32(-0.80901699437494742)
 _S51, _S52 = np.float32(0.95105651629515357), np.float32(0.58778525229247313)
+_C7 = [np.float32(np.cos(2 * np.pi * j / 7)) for j in range(4)]
+_S7 = [np.float32(np.sin(2 * np.pi * j / 7)) for j in range(4)]
 
 
 def _mul_i(d, inverse: bool):
@@ -298,17 +310,40 @@ def _dft5(x0, x1, x2, x3, x4, inverse: bool):
     return x0 + t1 + t2, a1 + e1, a2 + e2, a2 - e2, a1 - e1
 
 
+def _dft7(x0, x1, x2, x3, x4, x5, x6, inverse: bool):
+    """``regs::dft7``, on the constant roots of 2 pi j/7 (c_j, s_j): t_j,
+    d_j = x_j +- x_(7-j); X_k, X_(7-k) = a_k -+ i b_k (forward), a_k = x0 +
+    sum_j cos(2 pi j k/7) t_j, b_k = sum_j sin(2 pi j k/7) d_j."""
+    t1, t2, t3 = x1 + x6, x2 + x5, x3 + x4
+    d1, d2, d3 = x1 - x6, x2 - x5, x3 - x4
+    c1, c2, c3 = _C7[1:]
+    s1, s2, s3 = _S7[1:]
+    a1 = x0 + c1 * t1 + c2 * t2 + c3 * t3
+    a2 = x0 + c2 * t1 + c3 * t2 + c1 * t3
+    a3 = x0 + c3 * t1 + c1 * t2 + c2 * t3
+    e1 = _mul_i(s1 * d1 + s2 * d2 + s3 * d3, inverse)
+    e2 = _mul_i(s2 * d1 - s3 * d2 - s1 * d3, inverse)
+    e3 = _mul_i(s3 * d1 - s1 * d2 + s2 * d3, inverse)
+    return (x0 + t1 + t2 + t3, a1 + e1, a2 + e2, a3 + e3, a3 - e3, a2 - e2,
+            a1 - e1)
+
+
+# the odd-prime networks by radix
+_NETS = {3: _dft3, 5: _dft5, 7: _dft7}
+
+
 def dft_pfa(v, inverse: bool = False):
-    """The R-point DFT along the last axis, R = 4 R0 (12, 20), as
-    ``regs::dft_pfa`` composes it (Good-Thomas, no twiddles): input
-    n = (4 n1 + R0 n2) mod R; R0-point DFTs along n1, then 4-point DFTs
-    along n2 in place; X[k] read where k mod R0 and k mod 4 left it."""
+    """The R-point DFT along the last axis, R = 4 R0 (12, 20, 28), as
+    ``regs::dft_pfa`` (and ``regs::dft28``) composes it (Good-Thomas, no
+    twiddles): input n = (4 n1 + R0 n2) mod R; R0-point DFTs along n1,
+    then 4-point DFTs along n2 in place; X[k] read where k mod R0 and k
+    mod 4 left it."""
     r = v.shape[-1]
     r0 = r // 4
-    if r not in (12, 20):
+    if r not in (12, 20, 28):
         raise ValueError(f"no Good-Thomas network of radix {r}")
     x = list(v.unbind(-1))
-    net = _dft3 if r0 == 3 else _dft5
+    net = _NETS[r0]
     for n2 in range(4):
         idx = [(r0 * n2 + 4 * n1) % r for n1 in range(r0)]
         for i, o in zip(idx, net(*(x[i] for i in idx), inverse)):
@@ -375,16 +410,15 @@ def _net_split(x: list, r: int, inverse: bool) -> list:
 
 
 def _net(v, r: int, inverse: bool):
-    """The kernel's r-point network along the last axis: Good-Thomas at 12
-    and 20, ``regs::dft3`` / ``dft5`` at 3 and 5 (constant roots), the
-    composite radices of the odd and twice-odd smooth lengths (6, 9, 10,
-    15, 18, 25, 30) by :func:`_net_split`, the DFT in f32 at a power of
-    two."""
-    if r in (12, 20):
+    """The kernel's r-point network along the last axis: Good-Thomas at 12,
+    20 and 28, ``regs::dft3`` / ``dft5`` / ``dft7`` at 3, 5 and 7
+    (constant roots), the composite radices of the odd and twice-odd
+    smooth lengths (6, 9, 10, 15, 18, 25, 30) by :func:`_net_split`, the
+    DFT in f32 at a power of two."""
+    if r in (12, 20, 28):
         return dft_pfa(v, inverse)
-    if r in (3, 5):
-        net = _dft3 if r == 3 else _dft5
-        return torch.stack(net(*v.unbind(-1), inverse), -1)
+    if r in (3, 5, 7):
+        return torch.stack(_NETS[r](*v.unbind(-1), inverse), -1)
     if r & (r - 1):
         return torch.stack(_net_split(list(v.unbind(-1)), r, inverse), -1)
     return v @ _dft(r, inverse)
@@ -769,14 +803,18 @@ SMOOTH_ROW_PITCH = {12: 13, 20: 21, 36: 9, 60: 25, 100: 25, 108: 27,
 SMOOTH_ODD_ROW_PITCH = {18: 19, 25: 25, 27: 9, 30: 31, 45: 9, 50: 25,
                         54: 9, 75: 25, 81: 27, 90: 9, 125: 25, 135: 27,
                         150: 25, 162: 27, 225: 11, 270: 27, 450: 11}
+# the same at the fourth family's (the lengths with a factor 7) by the same
+# pick: at P = 7 (84, 140, 196: puts of six wavefronts at P mod 32) and
+# 420 (P = 21), and at P = 1 (28) the odd pitch n | 1
+SMOOTH7_ROW_PITCH = {28: 29, 84: 17, 140: 17, 196: 4, 420: 2}
 
 
 def smooth_row_pitch(n: int) -> int:
     """The rows' pitch mod 32 at n: P mod 32 (every get one wavefront),
-    but at the lengths of ``SMOOTH_ROW_PITCH`` and
-    ``SMOOTH_ODD_ROW_PITCH``."""
-    return SMOOTH_ROW_PITCH.get(n, SMOOTH_ODD_ROW_PITCH.get(
-        n, n // fused_fft._smooth_values(n) % 32))
+    but at the lengths of ``SMOOTH_ROW_PITCH``, ``SMOOTH_ODD_ROW_PITCH``
+    and ``SMOOTH7_ROW_PITCH``."""
+    pick = {**SMOOTH_ROW_PITCH, **SMOOTH_ODD_ROW_PITCH, **SMOOTH7_ROW_PITCH}
+    return pick.get(n, n // fused_fft._smooth_values(n) % 32)
 
 
 def smooth_col_pad(n: int) -> bool:
@@ -1218,8 +1256,8 @@ def fft_last(xr, xi, tab, inverse: bool = False, scale: float = 1.0,
     ``scale`` at the store. ``alias`` writes over the inputs (a block
     reads its rows whole before it writes any)."""
     n = xr.shape[-1]
-    if n in fused_fft._MIX_ROW_LENGTHS or n in fused_fft._SMOOTH_CORE:
-        blk = (smooth_rows_block if n in fused_fft._SMOOTH_CORE
+    if n in fused_fft._MIX_ROW_LENGTHS or n in fused_fft._SMOOTH_C2C:
+        blk = (smooth_rows_block if n in fused_fft._SMOOTH_C2C
                else rows_mix_block)
         y = _by_blocks(n, xr.shape[:-1],
                        (torch.complex(xr, xi).reshape(-1, n),),
@@ -1313,7 +1351,7 @@ def axis_tile(n: int, tile: str | None = None) -> dict:
     passes(n)
     tile = tile or fused_fft._axis_tile(n)
     p = n // fused_fft._reg_values(n)
-    if n in fused_fft._SMOOTH_CORE:
+    if n in fused_fft._SMOOTH_C2C:
         if tile != "wide":
             raise ValueError(f"no {tile!r} lane tile at n = {n}")
         g = smooth_geometry(n, "cols")
@@ -1486,13 +1524,13 @@ def _net_flops(r: int) -> int:
     """f32 operations of one radix-r network: the radix-2 network of a
     power of two (4 per radix-2 step; a rotation by W^0 or -+i costs
     nothing, by (1 -+ i)/sqrt 2 four, by any other root six); ``dft3``
-    16, ``dft5`` 48 (an FMA counts two); Good-Thomas 4 R0: four R0-point
-    and R0 4-point networks; the composite radices of :func:`_net_split`
-    likewise, with 6 a twiddle of Cooley-Tukey's."""
-    if r in (12, 20):
+    16, ``dft5`` 48, ``dft7`` 96 (an FMA counts two); Good-Thomas 4 R0:
+    four R0-point and R0 4-point networks; the composite radices of
+    :func:`_net_split` likewise, with 6 a twiddle of Cooley-Tukey's."""
+    if r in (12, 20, 28):
         return 4 * _net_flops(r // 4) + (r // 4) * _net_flops(4)
-    if r in (3, 5):
-        return {3: 16, 5: 48}[r]
+    if r in (3, 5, 7):
+        return {3: 16, 5: 48, 7: 96}[r]
     if r & (r - 1):
         # the composite radices of :func:`_net_split`: b a-point and a
         # b-point networks, and Cooley-Tukey's (a - 1)(b - 1) twiddles

@@ -1923,6 +1923,100 @@ def test_cuda_plan_smooth_odd_sides(cuda_dev, shape, inverse):
     assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
 
 
+# ---- the smooth lengths' fourth family (fft_last_smooth7*.cu, ...) ---------
+
+SMOOTH7_ROWS = sorted(ff._SMOOTH7_LENGTHS)
+SMOOTH7_COLS = sorted(ff._SMOOTH7_COL_LENGTHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("rows", [1, 300])      # one row; a ragged block
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", SMOOTH7_ROWS)
+def test_cuda_fft_last_smooth7_rows(cuda_dev, monkeypatch, n, inverse, rows,
+                                    dense):
+    # the register core's rows at every length with a factor 7
+    # (fft_last_smooth7.cu, fft_last_smooth7x3.cu, fft_last_smooth7x5.cu),
+    # and the dense core on the same lengths
+    if dense:
+        monkeypatch.setattr(ff, "_reg_rows", lambda n: False)
+    _card_check(ff.fft_last, lambda f, x: f(*x, inverse=inverse,
+                                            scale=0.375), (rows, n), cuda_dev)
+    assert ff.fft_last.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [28, 112, 224, 336, 1008, 3584, 4032])
+def test_cuda_fft_last_smooth7_rows_in_place(cuda_dev, n):
+    x = _pair((37, n), cuda_dev, seed=n)
+    want = ff.fft_last.plain(*x, inverse=True, scale=1.0 / n)
+    xr, xi = x[0].clone(), x[1].clone()
+    ff.reset_counts()
+    yr, yi = ff.fft_last(xr, xi, inverse=True, scale=1.0 / n, alias=True)
+    torch.cuda.synchronize()
+    assert yr is xr and yi is xi and ff.fft_last.reg_launches == 1
+    for g, w in zip((yr, yi), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("geometry", sorted(AXIS_GEOMETRIES))
+@pytest.mark.parametrize("n", SMOOTH7_COLS + [3024, 3584, 4032])
+def test_cuda_fft_axis_smooth7(cuda_dev, monkeypatch, n, geometry, dense):
+    # the column variant at every column length of the fourth family
+    # (fft_axis_smooth7*.cu) over the four geometries, in place; 3024 and
+    # 3584 (padded planes past a block's shared memory) and 4032 (P = 336)
+    # keep the dense core
+    _axis_core(monkeypatch, dense)
+    fn, call, shape, lanes = AXIS_GEOMETRIES[geometry]
+    _card_check(fn, call, shape(n), cuda_dev, lanes=lanes)
+    owner = ff._sublane_nd if geometry == "nd" else fn
+    assert owner.reg_launches == int(n in ff._SMOOTH7_COL_LENGTHS
+                                     and not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape,kw,lanes", [
+    ((4, 224, 224), {}, None),
+    ((2, 784, 896), {"zpad": 8, "inverse": True, "scale": 1 / 702464}, 896),
+    ((3, 336, 168), {"scale": 0.5}, None),
+    ((2, 28, 56), {"inverse": True}, None),
+    ((3, 112, 136), {"z_true": 112, "zpad": 8}, 112),
+    ((2, 1372, 3584), {}, None)])
+def test_cuda_fft_slab_smooth7(cuda_dev, monkeypatch, shape, kw, lanes,
+                               dense):
+    # the register slab at the fourth family's lengths: two grids, z on its
+    # rows, y on its columns
+    _slab_core(monkeypatch, dense)
+    _card_check(ff.fft_slab_yz, lambda f, x: f(*x, **kw), shape, cuda_dev,
+                lanes=lanes)
+    assert ff.fft_slab_yz.reg_launches == int(not dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(28, 56, 224), (112, 112, 112),
+                                   (224, 336, 448), (4, 1, 224, 224)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_plan_smooth7_sides(cuda_dev, shape, inverse):
+    # c2c plans at the fourth family's sides, against complex128 torch.fft:
+    # every slab, row and strided-axis launch register
+    bd = len(shape) - 3
+    x = _pair(shape, cuda_dev, seed=sum(shape) + 27)
+    p = ot.plan(shape[bd:], "complex64", planar=True, inverse=inverse,
+                batch_dims=bd, device=cuda_dev)
+    ff.reset_counts()
+    yr, yi = p(x)
+    torch.cuda.synchronize()
+    for k in ("fft_slab", "fft_axis", "fft_last"):
+        assert ff.kernel_launches(k) == ff.kernel_launches(k, reg=True)
+    f = torch.fft.ifftn if inverse else torch.fft.fftn
+    ref = f(torch.complex(x[0].double(), x[1].double()), dim=(-3, -2, -1))
+    assert _rel(torch.complex(yr.double(), yi.double()), ref) < 1e-6
+
+
 # ---- the real rows at the smooth M (real_rows_smooth.cu, _c2r.cu) ----------
 
 

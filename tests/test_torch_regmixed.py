@@ -232,18 +232,19 @@ def _launches(monkeypatch):
 
 
 @pytest.mark.parametrize("n", [48, 96, 160, 192, 320, 384, 640, 768, 1280,
-                               1536, 2560, 3072, 112, 256])
+                               1536, 2560, 3072, 112, 256, 176])
 def test_reg_axis_routes_the_mixed_lengths(monkeypatch, n):
     """The mixed lengths launch the register core (reg = 1) with the tile
-    code of ``_axis_tile``; 3072 (two wavefronts) and 112 (7: no network)
-    take the dense core; the narrow probe stays at powers of two."""
+    code of ``_axis_tile``; 3072 (two wavefronts) and 176 (11: no network)
+    take the dense core, 112 (7 16) the smooth core's fourth family; the
+    narrow probe stays at powers of two."""
     calls = _launches(monkeypatch)
     x = torch.zeros((2, n, 8))
     ff.fft_sublane.impl("kernel", x, x, 1)
     (entry, args), = calls
     assert entry == "offt_fft_axis"
     reg, code = args[-2:]
-    assert reg == int(n in ff._MIX_LENGTHS or n == 256)
+    assert reg == int(n in ff._MIX_LENGTHS or n in (256, 112))
     if reg:
         assert code == ff._AXIS_TILES[ff._axis_tile(n)]
     if n in ff._MIX_LENGTHS:

@@ -273,11 +273,12 @@ def _launches(monkeypatch):
 
 
 @pytest.mark.parametrize("n", [48, 80, 320, 1536, 2560, 3072, 1024, 112,
-                               6144])
+                               6144, 176])
 def test_fft_last_routes_the_mixed_rows(monkeypatch, n):
     """``_reg_rows``: powers of two and the mixed row lengths (3072
-    among them) launch the register core (reg = 1, no rows a block);
-    112 (7: no network) and 6144 keep the dense core."""
+    among them) launch the register core (reg = 1, no rows a block), and
+    so does 112 (7 16, the smooth core's fourth family); 176 (11: no
+    network) and 6144 keep the dense core."""
     calls = _launches(monkeypatch)
     x = torch.zeros((3, n))
     ff.reset_counts()
@@ -285,19 +286,20 @@ def test_fft_last_routes_the_mixed_rows(monkeypatch, n):
     (entry, args), = calls
     assert entry == "offt_fft_last"
     reg, t = args[-1], args[-4]
-    assert reg == int(ff._reg_rows(n)) == int(n not in (112, 6144))
+    assert reg == int(ff._reg_rows(n)) == int(n not in (176, 6144))
     assert (t == 0) == bool(reg)
     assert ff.fft_last.reg_launches == reg
 
 
 @pytest.mark.parametrize("ny,nz,reg,cluster", [
     (320, 320, 1, 0), (256, 256, 1, 1), (192, 192, 1, 0), (320, 3072, 1, 0),
-    (256, 320, 1, 0), (320, 256, 1, 0), (3072, 320, 0, 0), (112, 320, 0, 0),
-    (320, 112, 0, 0)])
+    (256, 320, 1, 0), (320, 256, 1, 0), (3072, 320, 0, 0), (112, 320, 1, 0),
+    (320, 112, 1, 0), (176, 320, 0, 0), (320, 176, 0, 0)])
 def test_fft_slab_routes_the_mixed_slabs(monkeypatch, ny, nz, reg, cluster):
     """The 320^3 slab launches the register core in two grids (clusters
-    stay at powers of two); a y the column variant lacks (3072, 112) or
-    a z the rows lack keeps the dense core."""
+    stay at powers of two), and so do slabs with a side of 112 (the smooth
+    core's fourth family); a y the column variant lacks (3072, 176) or a z
+    the rows lack (176) keeps the dense core."""
     calls = _launches(monkeypatch)
     x = torch.zeros((2, ny, nz))
     ff.reset_counts()

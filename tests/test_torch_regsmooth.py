@@ -69,8 +69,10 @@ def test_admitted_lengths():
         assert ff._reg_rows(n) and ff._reg_axis(n) and ff._reg_slab(n, n)
     for n in (1152, 1440, 1600, 1920, 2304, 2880, 3200, 3840, 72, 120, 200):
         assert ff._reg_rows(n)
-    # the lengths that stay dense: a factor 7, past 4096
-    for n in (112, 224, 448, 896, 1008, 4320, 5000):
+    # the lengths that stay dense: a prime factor of 11 or more, a factor
+    # 7 at a twice-odd length, past 4096 (the lengths R 2^k, k >= 2, with
+    # a factor 7 are the fourth family's, test_torch_regsmooth7.py)
+    for n in (126, 176, 352, 704, 1232, 4320, 5000):
         assert not ff._reg_rows(n) and not ff._reg_axis(n)
 
 
@@ -289,27 +291,29 @@ def _launches(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n", [144, 360, 960, 3840, 112])
+@pytest.mark.parametrize("n", [144, 360, 960, 3840, 112, 176])
 def test_fft_last_routes_the_smooth_rows(monkeypatch, n):
+    """176 = 11 16 stays dense (112 = 7 16 is the fourth family's)."""
     calls = _launches(monkeypatch)
     x = torch.zeros((3, n))
     ff.reset_counts()
     ff.fft_last.impl("kernel", x, x)
     (entry, args), = calls
-    assert entry == "offt_fft_last" and args[-1] == int(n != 112)
-    assert ff.fft_last.reg_launches == int(n != 112)
+    assert entry == "offt_fft_last" and args[-1] == int(n != 176)
+    assert ff.fft_last.reg_launches == int(n != 176)
 
 
-@pytest.mark.parametrize("n", [144, 360, 720, 1440, 1920, 112])
+@pytest.mark.parametrize("n", [144, 360, 720, 1440, 1920, 112, 176])
 def test_fft_axis_routes_the_smooth_columns(monkeypatch, n):
     """The column lengths launch the register core on the wide tile's
-    code; 1920 (eight row threads a warp) and 112 stay dense."""
+    code; 1920 (eight row threads a warp) and 176 = 11 16 stay dense (112
+    = 7 16 is the fourth family's)."""
     calls = _launches(monkeypatch)
     x = torch.zeros((2, n, 8))
     ff.fft_sublane.impl("kernel", x, x, 1)
     (entry, args), = calls
     reg, code = args[-2:]
-    assert reg == int(n not in (1920, 112))
+    assert reg == int(n not in (1920, 176))
     if reg:
         assert code == ff._AXIS_TILES["wide"]
         with pytest.raises(ValueError, match="power of two"):
@@ -318,7 +322,7 @@ def test_fft_axis_routes_the_smooth_columns(monkeypatch, n):
 
 @pytest.mark.parametrize("ny,nz,reg", [
     (144, 144, 1), (360, 360, 1), (960, 960, 1), (720, 256, 1),
-    (256, 3840, 1), (1920, 128, 0), (112, 360, 0)])
+    (256, 3840, 1), (1920, 128, 0), (112, 360, 1), (176, 360, 0)])
 def test_fft_slab_routes_the_smooth_slabs(monkeypatch, ny, nz, reg):
     """Two grids (no cluster) on the smooth rows and columns."""
     calls = _launches(monkeypatch)

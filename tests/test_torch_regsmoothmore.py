@@ -78,8 +78,10 @@ def test_admitted_lengths():
         assert ff._reg_values(n) == ff._smooth_values(n)
     assert ff._reg_slab(1080, 1920) and ff._reg_slab(100, 216)
     assert not ff._reg_slab(1728, 1728) and ff._reg_slab(216, 1728)
-    # the lengths that stay dense: under 16, a factor 7, and past 4096
-    for n in (9, 10, 15, 112, 224, 448, 896, 1008, 1344, 2016, 4320, 5000):
+    # the lengths that stay dense: under 16, a prime factor of 11 or more,
+    # a factor 7 at a twice-odd length, and past 4096 (R 2^k, k >= 2, with
+    # a factor 7: the fourth family, test_torch_regsmooth7.py)
+    for n in (9, 10, 15, 126, 176, 352, 704, 1232, 2464, 4320, 5000):
         assert not ff._reg_rows(n) and not ff._reg_axis(n)
 
 
@@ -421,16 +423,18 @@ def _launches(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n", [12, 20, 60, 100, 216, 1000, 1080, 4000, 112])
+@pytest.mark.parametrize("n", [12, 20, 60, 100, 216, 1000, 1080, 4000, 112,
+                               176])
 def test_fft_last_routes_the_smooth_more_rows(monkeypatch, n):
-    """112 (a factor 7) stays on the dense core."""
+    """176 (a factor 11) stays on the dense core; 112 (7 16) is the fourth
+    family's."""
     calls = _launches(monkeypatch)
     x = torch.zeros((3, n))
     ff.reset_counts()
     ff.fft_last.impl("kernel", x, x)
     (entry, args), = calls
-    assert entry == "offt_fft_last" and args[-1] == int(n != 112)
-    assert ff.fft_last.reg_launches == int(n != 112)
+    assert entry == "offt_fft_last" and args[-1] == int(n != 176)
+    assert ff.fft_last.reg_launches == int(n != 176)
 
 
 @pytest.mark.parametrize("n", [12, 36, 100, 432, 1000, 1080, 2500, 1620,
@@ -450,7 +454,7 @@ def test_fft_axis_routes_the_smooth_more_columns(monkeypatch, n):
 
 @pytest.mark.parametrize("ny,nz,reg", [
     (100, 100, 1), (1000, 1000, 1), (216, 432, 1), (1080, 1728, 1),
-    (1728, 128, 0), (112, 100, 0)])
+    (1728, 128, 0), (112, 100, 1), (176, 100, 0)])
 def test_fft_slab_routes_the_smooth_more_slabs(monkeypatch, ny, nz, reg):
     """Two grids (no cluster) on the smooth rows and columns."""
     calls = _launches(monkeypatch)

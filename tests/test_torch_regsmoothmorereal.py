@@ -98,6 +98,24 @@ def odd_twice_col(n):
     return odd_twice(n) and n not in (2187, 3375, 3645, 3750, 4050)
 
 
+def seven(n):
+    """The 7-smooth R 2^k, k >= 2, with a factor 7, to 4096: the c2c rows'
+    fourth family (``test_torch_regsmooth7.py``); the real rows keep the
+    dense core there."""
+    r = odd_part(n)
+    while r % 7 == 0:
+        r //= 7
+    return (n <= 4096 and n % 4 == 0 and odd_part(n) % 7 == 0
+            and smooth5(r))
+
+
+def seven_col(n):
+    """Those the column variant takes: all but 3780, 3920, 4032 (P > 128)
+    and 3024, 3136, 3360, 3584 (padded planes past a block's shared
+    memory, four wavefronts unpadded)."""
+    return seven(n) and n not in (3024, 3136, 3360, 3584, 3780, 3920, 4032)
+
+
 # ---- the gates ------------------------------------------------------------
 
 def test_the_second_family_of_half_lengths():
@@ -117,7 +135,8 @@ def test_real_rows_gate_over_every_length():
     """``_reg_real_rows`` at every M in 8-8192: the powers of two, the
     mixed rows, the first smooth family, the second family and the third
     family's odd and twice-odd M (``test_torch_regsmoothoddreal.py``); so
-    the real rows take every length the c2c rows take."""
+    the real rows take every length the c2c rows take but the fourth
+    family's, the lengths with a factor 7."""
     for m in range(8, 8193):
         parent = (pow2(m) or m in ff._MIX_ROW_LENGTHS
                   or m in ff._SMOOTH_LENGTHS)
@@ -125,7 +144,8 @@ def test_real_rows_gate_over_every_length():
                                         or odd_twice(m)), m
         assert ff._reg_real_rows(m) == (pow2(m) or smooth_rows(m)
                                         or odd_twice(m)), m
-        assert ff._reg_real_rows(m) == ff._reg_rows(m), m
+        assert ff._reg_real_rows(m) == (ff._reg_rows(m)
+                                        and not seven(m)), m
 
 
 def test_other_gates_unchanged_over_every_length():
@@ -134,13 +154,14 @@ def test_other_gates_unchanged_over_every_length():
     the cube on the diagonal and against fixed second lengths), each
     against its definition written out from the lengths alone: the real
     rows' widening moves no other kernel's route (the c2c rows, columns
-    and slab take the third family beside, ``test_torch_regsmoothodd.py``)."""
+    and slab take the third family beside, ``test_torch_regsmoothodd.py``,
+    and the fourth, ``test_torch_regsmooth7.py``)."""
     def cols(n):
         return (pow2(n) or (smooth_rows(n) and n // v0(n) <= 128)
-                or odd_twice_col(n))
+                or odd_twice_col(n) or seven_col(n))
 
     for n in range(8, 8193):
-        rows = pow2(n) or smooth_rows(n) or odd_twice(n)
+        rows = pow2(n) or smooth_rows(n) or odd_twice(n) or seven(n)
         core = pow2(n) or mix(n)
         assert ff._reg_rows(n) == rows, n
         assert ff._reg_axis(n) == cols(n), n
@@ -148,7 +169,7 @@ def test_other_gates_unchanged_over_every_length():
         for ny, nz in ((n, n), (n, 128), (n, 100), (256, n), (360, n)):
             assert ff._reg_slab(ny, nz) == (
                 cols(ny) and (pow2(nz) or smooth_rows(nz)
-                              or odd_twice(nz))), (ny, nz)
+                              or odd_twice(nz) or seven(nz))), (ny, nz)
             assert ff._reg_rslab(ny, nz) == (
                 (pow2(ny) or mix(ny))
                 and (pow2(nz) or nz in ff._MIX_ROW_LENGTHS)), (ny, nz)

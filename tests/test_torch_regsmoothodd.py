@@ -92,7 +92,7 @@ def test_admitted_lengths():
     for ny, nz in ((250, 250), (450, 750), (135, 270), (750, 4050),
                    (18, 90), (675, 2187)):
         assert ff._reg_slab(ny, nz)
-    assert not ff._reg_slab(4050, 750) and not ff._reg_slab(250, 112)
+    assert not ff._reg_slab(4050, 750) and not ff._reg_slab(250, 176)
 
 
 def _parent_rows(n):
@@ -114,15 +114,19 @@ def _parent_cube_cols(n):
 
 def test_every_gate_at_every_length():
     """At every n in 8-8192: ``_reg_rows`` and ``_reg_axis`` are the
-    parent's plus the new sets; ``_reg_real_rows`` the parent's plus the
+    parent's plus the new sets (and the fourth family's, the lengths with
+    a factor 7, ``test_torch_regsmooth7.py``); ``_reg_real_rows`` the
+    parent's plus the
     same 42 as half lengths (``test_torch_regsmoothoddreal.py``);
     ``_reg_rslab``, ``_reg_core`` and ``_reg_cube`` (on the diagonal and
     against fixed second lengths) keep the parent's values."""
     for n in range(8, 8193):
         assert ff._reg_rows(n) == (_parent_rows(n)
-                                   or n in ff._SMOOTH_ODD_LENGTHS), n
+                                   or n in ff._SMOOTH_ODD_LENGTHS
+                                   or n in ff._SMOOTH7_LENGTHS), n
         assert ff._reg_axis(n) == (_parent_axis(n)
-                                   or n in ff._SMOOTH_ODD_COL_LENGTHS), n
+                                   or n in ff._SMOOTH_ODD_COL_LENGTHS
+                                   or n in ff._SMOOTH7_COL_LENGTHS), n
         assert ff._reg_real_rows(n) == (_parent_real_rows(n)
                                         or n in ff._SMOOTH_ODD_LENGTHS), n
         assert ff._reg_core(n) == (ff._pow2(n) or n in ff._MIX_LENGTHS), n
@@ -138,10 +142,12 @@ def test_every_gate_at_every_length():
 
 
 def test_lengths_that_stay_dense():
-    """Under 16 (9, 10, 15), a factor 7 or more, past 4096: dense rows and
-    columns; the five rows-only lengths dense as columns alone: P > 128,
-    or (3750) two planes of 8 lanes past the 227 KB of a block."""
-    for n in (9, 10, 15, 21, 63, 112, 224, 875, 1008, 4374, 5000):
+    """Under 16 (9, 10, 15), an odd or twice-odd length with a factor 7
+    (21, 63, 126, 875), a prime factor of 11 or more (176), past 4096:
+    dense rows and columns; the five rows-only lengths dense as columns
+    alone: P > 128, or (3750) two planes of 8 lanes past the 227 KB of a
+    block."""
+    for n in (9, 10, 15, 21, 63, 126, 176, 875, 4374, 5000):
         assert not ff._reg_rows(n) and not ff._reg_axis(n), n
     for n in ROWS_ONLY:
         assert ff._reg_rows(n) and not ff._reg_axis(n)
@@ -469,36 +475,39 @@ def _launches(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n", [18, 25, 125, 250, 270, 750, 3645, 4050, 112])
+@pytest.mark.parametrize("n", [18, 25, 125, 250, 270, 750, 3645, 4050, 112,
+                               126])
 def test_fft_last_routes_the_smooth_odd_rows(monkeypatch, n):
+    """126 (twice-odd, 63 2) stays dense; 112 (7 16) is the fourth
+    family's."""
     calls = _launches(monkeypatch)
     x = torch.zeros((3, n))
     ff.reset_counts()
     ff.fft_last.impl("kernel", x, x)
     (entry, args), = calls
-    assert entry == "offt_fft_last" and args[-1] == int(n != 112)
-    assert ff.fft_last.reg_launches == int(n != 112)
+    assert entry == "offt_fft_last" and args[-1] == int(n != 126)
+    assert ff.fft_last.reg_launches == int(n != 126)
 
 
 @pytest.mark.parametrize("n", [18, 125, 250, 675, 750, 3750, 2187, 4050,
-                               224])
+                               224, 126])
 def test_fft_axis_routes_the_smooth_odd_columns(monkeypatch, n):
     """The column lengths launch the register core on the wide tile's
-    code; 2187 and 4050 (P > 128), 3750 (its planes) and 224 stay
-    dense."""
+    code; 2187 and 4050 (P > 128), 3750 (its planes) and 126 stay dense;
+    224 (7 32) is the fourth family's."""
     calls = _launches(monkeypatch)
     x = torch.zeros((2, n, 8))
     ff.fft_sublane.impl("kernel", x, x, 1)
     (entry, args), = calls
     reg, code = args[-2:]
-    assert reg == int(n in COLS)
+    assert reg == int(n in COLS or n == 224)
     if reg:
         assert code == ff._AXIS_TILES["wide"]
 
 
 @pytest.mark.parametrize("ny,nz,reg", [
     (250, 250, 1), (450, 750, 1), (135, 270, 1), (125, 3645, 1),
-    (4050, 250, 0), (250, 112, 0)])
+    (4050, 250, 0), (250, 112, 1), (250, 126, 0)])
 def test_fft_slab_routes_the_smooth_odd_slabs(monkeypatch, ny, nz, reg):
     """Two grids (no cluster) on the smooth rows and columns."""
     calls = _launches(monkeypatch)

@@ -42,7 +42,7 @@ from test_torch_regmixreal import c2r_replay, numpy_r2c, real_rows, \
     rfft_replay
 from test_torch_regmixrows import _launches, cplx
 from test_torch_regsmoothmorereal import mix, odd_twice, odd_twice_col, \
-    pow2, smooth_rows, v0
+    pow2, seven, seven_col, smooth_rows, v0
 
 ROWS = sorted(ff._SMOOTH_ODD_LENGTHS)
 ODD = [m for m in ROWS if m % 2]
@@ -76,18 +76,21 @@ def test_the_third_family_of_half_lengths():
 def test_real_rows_gate_and_the_others_over_every_length():
     """``_reg_real_rows`` at every M in 8-8192 is the parent's (powers of
     two, the mixed rows, both earlier smooth families) plus the 42, which
-    is ``_reg_rows``; ``_reg_rows``, ``_reg_axis``, ``_reg_core``,
+    is ``_reg_rows`` but at the fourth family's lengths (a factor 7, c2c
+    only: ``test_torch_regsmooth7.py``); ``_reg_rows``, ``_reg_axis``,
+    ``_reg_core``,
     ``_reg_slab``, ``_reg_rslab`` and ``_reg_cube`` keep their values, each
     written out from the lengths alone."""
     def cols(n):
         return (pow2(n) or (smooth_rows(n) and n // v0(n) <= 128)
-                or odd_twice_col(n))
+                or odd_twice_col(n) or seven_col(n))
 
     for n in range(8, 8193):
         parent = pow2(n) or smooth_rows(n)
         assert ff._reg_real_rows(n) == (parent or odd_twice(n)), n
-        assert ff._reg_real_rows(n) == ff._reg_rows(n), n
-        assert ff._reg_rows(n) == (parent or odd_twice(n)), n
+        assert ff._reg_real_rows(n) == (ff._reg_rows(n)
+                                        and not seven(n)), n
+        assert ff._reg_rows(n) == (parent or odd_twice(n) or seven(n)), n
         assert ff._reg_axis(n) == cols(n), n
         assert ff._reg_core(n) == (pow2(n) or mix(n)), n
         for ny, nz in ((n, n), (n, 250), (128, n)):
@@ -103,16 +106,20 @@ def test_real_rows_gate_and_the_others_over_every_length():
 
 def test_the_tuner_reads_the_new_routes():
     """A real plan reads ``radix_z`` only where its rfft_last runs dense:
-    (160, 160, 500), M = 250, reads none now; (112, 112, 224), M = 112 =
-    7 16, reads radix_z, radix_y, radix_x and block_batch (the trial
-    chip_smoke.py's tuning phase runs)."""
+    (160, 160, 500), M = 250, reads none now; (176, 176, 352), M = 176 =
+    11 16, reads radix_z, radix_y, radix_x and block_batch (the trial
+    chip_smoke.py's tuning phase runs); (112, 112, 224), M = 112 = 7 16,
+    reads radix_z alone: its axes of 112 run the fourth smooth family's
+    register columns, its real rows the dense core."""
     from offt_tpu_torch.plan.params import ProblemSpec
     from offt_tpu_torch.tune.space import kernel_knobs
 
     assert kernel_knobs(ProblemSpec(shape=(160, 160, 500), real=True)) \
         == set()
-    assert kernel_knobs(ProblemSpec(shape=(112, 112, 224), real=True)) == {
+    assert kernel_knobs(ProblemSpec(shape=(176, 176, 352), real=True)) == {
         "radix_z", "radix_y", "radix_x", "block_batch"}
+    assert kernel_knobs(ProblemSpec(shape=(112, 112, 224), real=True)) == {
+        "radix_z"}
 
 
 # ---- the geometry, the stage pitch and the wavefronts ------------------------

@@ -251,7 +251,10 @@ def test_kernel_sources_are_listed():
                      "fft_last_smooth5.cu", "fft_axis_smooth3.cu",
                      "fft_axis_smooth5.cu", "fft_last_smooth_odd3.cu",
                      "fft_last_smooth_odd5.cu", "fft_axis_smooth_odd3.cu",
-                     "fft_axis_smooth_odd5.cu",
+                     "fft_axis_smooth_odd5.cu", "fft_last_smooth7.cu",
+                     "fft_last_smooth7x3.cu", "fft_last_smooth7x5.cu",
+                     "fft_axis_smooth7.cu", "fft_axis_smooth7x3.cu",
+                     "fft_axis_smooth7x5.cu",
                      "fft_last.cu", "fft_last_mix.cu", "real_rows_mix.cu",
                      "real_slab_mix.cu", "real_rows_smooth.cu",
                      "real_rows_smooth.cuh", "real_rows_smooth3.cu",

@@ -159,8 +159,9 @@ def test_block_batch_beside_split_1d(n, searched):
     ((1, 1, 2 ** 15), False, False, set()),
     ((8, 64, 2 ** 15), False, False, {"radix_x"}),
     ((18, 48, 90), False, False, set()),
-    ((112, 48, 224), False, False, {"radix_z", "radix_y", "radix_x",
+    ((176, 48, 352), False, False, {"radix_z", "radix_y", "radix_x",
                                     "block_batch"}),
+    ((112, 48, 224), False, False, set()),
 ])
 def test_kernel_knobs(shape, real, inverse, want):
     """What the route of a float32 plan reads: 192^3's real route runs
@@ -173,8 +174,10 @@ def test_kernel_knobs(shape, real, inverse, want):
     pass of 24 (below the mixed lengths) run the second smooth family's
     register core, so (24, 48, 40) reads none, and so do the rows of 90
     and the x pass of 18 (twice-odd lengths, the third smooth family), so
-    (18, 48, 90) reads none either; the axes of 112 and 224 (a factor 7)
-    run dense, so (112, 48, 224) reads all four; 3 * 2^18's pair
+    (18, 48, 90) reads none either; the axes of 176 and 352 (a factor 11)
+    run dense, so (176, 48, 352) reads all four, and those of 112 and 224
+    (7 2^k, the fourth smooth family) run the register core, so
+    (112, 48, 224) reads none; 3 * 2^18's pair
     (1024, 768), 2^15's
     (128, 256) and 2^20's run on the register core; a prime takes
     Bluestein on the unfused engine; an x of 8 runs dense, but on the
